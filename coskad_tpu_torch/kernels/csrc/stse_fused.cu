@@ -12,8 +12,9 @@
 // What bounds it on an H100: at the flagship width (N = 216, channels
 // 2->32->16->32->64) a window costs ~10.4 MFLOP against 3.5 KB read and
 // 55 KB written, i.e. ~190 FLOP per byte of device memory, above the fp32
-// ridge of ~20 FLOP/byte (67 TFLOP/s over 3.35 TB/s). So the kernel is bound
-// by fp32 operations, and by how often the SMs re-read M through L2.
+// ridge of ~20 FLOP/byte (67 TFLOP/s over 3.35 TB/s, the H100 SXM data
+// sheet's peaks at its 700 W limit). So the kernel is bound by fp32
+// operations, and by how often the SMs re-read M through L1 and L2.
 //
 // Design (simple first):
 //   * one thread block per window; the window's activations never leave
@@ -23,8 +24,10 @@
 //     from global memory: all blocks read the same M, so it stays in L2, and
 //     the warps of a block that read the same M row hit in L1;
 //   * W / W_res / bias of the current layer are staged in shared memory;
-//   * every thread owns a 4x4 register tile of outputs (4 channels x 4 nodes)
-//     so each load feeds 4 FMAs;
+//   * every thread owns a register tile of 4 or 8 channels x 4 nodes, so
+//     each float4 load feeds 4-8 FMAs; the 8-wide tile, where a layer has
+//     enough channels to keep 3/4 of the threads busy, halves the L1/shared
+//     loads per FMA (the 4-wide tile is load-bound, not FMA-bound);
 //   * padded nodes (n >= N) and padded channels carry zeros through M and W,
 //     so they never reach a valid output; only valid outputs are written,
 //     node-major [B, N, C_out], the layout the projector reads.
@@ -63,7 +66,108 @@ __device__ __forceinline__ float comp(const float4& v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
-__global__ void __launch_bounds__(kThreads)
+// A register tile is TW channels x 4 nodes. TW = 8 halves the loads per FMA
+// but needs enough tiles to occupy the block's threads.
+__host__ __device__ __forceinline__ bool use_wide_tile(int channels, int n_pad) {
+  return channels % 8 == 0 && (channels / 8) * (n_pad / 4) >= kThreads * 3 / 4;
+}
+
+// Graph contraction: gt[c][m] = sum_k xt[c][k] * M[k][m].
+template <int TC>
+__device__ __forceinline__ void graph_phase(const float* xt, const float* __restrict__ M,
+                                            float* gt, int cip, int np) {
+  const int tiles_m = np / 4;
+  const int tiles = (cip / TC) * tiles_m;
+  for (int t = threadIdx.x; t < tiles; t += kThreads) {
+    const int c0 = (t / tiles_m) * TC;
+    const int m0 = (t % tiles_m) * 4;
+    float acc[TC][4] = {};
+    for (int k = 0; k < np; k += 4) {
+      float4 xa[TC], mb[4];
+#pragma unroll
+      for (int i = 0; i < TC; ++i)
+        xa[i] = *reinterpret_cast<const float4*>(xt + (c0 + i) * np + k);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mb[j] = __ldg(reinterpret_cast<const float4*>(M + (long long)(k + j) * np + m0));
+#pragma unroll
+      for (int i = 0; i < TC; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) fma4(acc[i], comp(xa[i], j), mb[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < TC; ++i)
+      *reinterpret_cast<float4*>(gt + (c0 + i) * np + m0) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+}
+
+// Dense + residual + PReLU: y[o][m] = sum_c W[c][o] gt[c][m]
+//                                   + sum_c Wr[c][o] xt[c][m] + b[o].
+// Writes the next layer's input xt_next[o][m], or for the last layer the
+// valid outputs node-major to out_b[m][o].
+template <int TO>
+__device__ __forceinline__ void dense_phase(const float* ws, const float* wrs, const float* bs,
+                                            const float* gt, const float* xt, float* xt_next,
+                                            float* __restrict__ out_b, float alpha, int cip,
+                                            int cop, int co, int np, int n, bool last) {
+  const int tiles_m = np / 4;
+  const int tiles = (cop / TO) * tiles_m;
+  for (int t = threadIdx.x; t < tiles; t += kThreads) {
+    const int o0 = (t / tiles_m) * TO;
+    const int m0 = (t % tiles_m) * 4;
+    float acc[TO][4] = {};
+    for (int c = 0; c < cip; ++c) {
+      const float4 g4 = *reinterpret_cast<const float4*>(gt + c * np + m0);
+      const float4 x4 = *reinterpret_cast<const float4*>(xt + c * np + m0);
+#pragma unroll
+      for (int q = 0; q < TO / 4; ++q) {
+        const float4 w4 = *reinterpret_cast<const float4*>(ws + c * cop + o0 + 4 * q);
+        const float4 wr4 = *reinterpret_cast<const float4*>(wrs + c * cop + o0 + 4 * q);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          fma4(acc[4 * q + i], comp(w4, i), g4);
+          fma4(acc[4 * q + i], comp(wr4, i), x4);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TO; ++i) {
+      const float bias = bs[o0 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float h = acc[i][j] + bias;
+        acc[i][j] = h >= 0.0f ? h : alpha * h;
+      }
+    }
+    if (!last) {
+#pragma unroll
+      for (int i = 0; i < TO; ++i)
+        *reinterpret_cast<float4*>(xt_next + (o0 + i) * np + m0) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      continue;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + j;
+      if (m >= n) continue;
+      float* row = out_b + (long long)m * co;
+      if ((co & 3) == 0) {
+#pragma unroll
+        for (int q = 0; q < TO / 4; ++q)
+          *reinterpret_cast<float4*>(row + o0 + 4 * q) =
+              make_float4(acc[4 * q][j], acc[4 * q + 1][j], acc[4 * q + 2][j],
+                          acc[4 * q + 3][j]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < TO; ++i)
+          if (o0 + i < co) row[o0 + i] = acc[i][j];
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
 stse_fused_kernel(const float* __restrict__ x,        // [B, C_in0, N]
                   const float* __restrict__ weights,  // packed, see stse_fused.py
                   float* __restrict__ out,            // [B, N, C_out_last]
@@ -93,7 +197,7 @@ stse_fused_kernel(const float* __restrict__ x,        // [B, C_in0, N]
   }
 
   for (int layer = 0; layer < p.n_layers; ++layer) {
-    const LayerDesc& L = p.layers[layer];
+    const LayerDesc L = p.layers[layer];
     const bool last = layer == p.n_layers - 1;
     __syncthreads();  // xt complete; the previous layer's reads of ws done
 
@@ -104,85 +208,19 @@ stse_fused_kernel(const float* __restrict__ x,        // [B, C_in0, N]
     }
     for (int i = tid; i < L.cop; i += kThreads) bs[i] = weights[L.off_b + i];
 
-    // Graph contraction: gt[c][m] = sum_k xt[c][k] * M[k][m].
     const float* M = weights + L.off_m;
-    const int g_tiles_m = np / 4;
-    const int g_tiles = (L.cip / 4) * g_tiles_m;
-    for (int t = tid; t < g_tiles; t += kThreads) {
-      const int c0 = (t / g_tiles_m) * 4;
-      const int m0 = (t % g_tiles_m) * 4;
-      float acc[4][4] = {};
-      for (int k = 0; k < np; k += 4) {
-        float4 xa[4], mb[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          xa[i] = *reinterpret_cast<const float4*>(xt + (c0 + i) * np + k);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mb[j] = __ldg(reinterpret_cast<const float4*>(M + (long long)(k + j) * np + m0));
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) fma4(acc[i], comp(xa[i], j), mb[j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        *reinterpret_cast<float4*>(gt + (c0 + i) * np + m0) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    }
+    if (use_wide_tile(L.cip, np))
+      graph_phase<8>(xt, M, gt, L.cip, np);
+    else
+      graph_phase<4>(xt, M, gt, L.cip, np);
     __syncthreads();  // gt and the staged weights are complete
 
-    // Dense + residual + PReLU: y[o][m] = sum_c W[c][o] gt[c][m]
-    //                                   + sum_c Wr[c][o] xt[c][m] + b[o].
     const float alpha = weights[L.off_alpha];
-    const int d_tiles = (L.cop / 4) * g_tiles_m;
-    for (int t = tid; t < d_tiles; t += kThreads) {
-      const int o0 = (t / g_tiles_m) * 4;
-      const int m0 = (t % g_tiles_m) * 4;
-      float acc[4][4] = {};
-      for (int c = 0; c < L.cip; ++c) {
-        const float4 w4 = *reinterpret_cast<const float4*>(ws + c * L.cop + o0);
-        const float4 g4 = *reinterpret_cast<const float4*>(gt + c * np + m0);
-        const float4 wr4 = *reinterpret_cast<const float4*>(wrs + c * L.cop + o0);
-        const float4 x4 = *reinterpret_cast<const float4*>(xt + c * np + m0);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          fma4(acc[i], comp(w4, i), g4);
-          fma4(acc[i], comp(wr4, i), x4);
-        }
-      }
-      float y[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float bias = bs[o0 + i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float h = acc[i][j] + bias;
-          y[i][j] = h >= 0.0f ? h : alpha * h;
-        }
-      }
-      if (!last) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          *reinterpret_cast<float4*>(xt_next + (o0 + i) * np + m0) =
-              make_float4(y[i][0], y[i][1], y[i][2], y[i][3]);
-      } else {
-        float* ob = out + (long long)b * n * L.co;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int m = m0 + j;
-          if (m >= n) continue;
-          if ((L.co & 3) == 0) {
-            *reinterpret_cast<float4*>(ob + (long long)m * L.co + o0) =
-                make_float4(y[0][j], y[1][j], y[2][j], y[3][j]);
-          } else {
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              if (o0 + i < L.co) ob[(long long)m * L.co + o0 + i] = y[i][j];
-          }
-        }
-      }
-    }
+    float* out_b = out + (long long)b * n * L.co;
+    if (use_wide_tile(L.cop, np))
+      dense_phase<8>(ws, wrs, bs, gt, xt, xt_next, out_b, alpha, L.cip, L.cop, L.co, np, n, last);
+    else
+      dense_phase<4>(ws, wrs, bs, gt, xt, xt_next, out_b, alpha, L.cip, L.cop, L.co, np, n, last);
     float* tmp = xt;
     xt = xt_next;
     xt_next = tmp;
