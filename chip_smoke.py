@@ -269,14 +269,13 @@ def phase_slice(card):
     t0 = time.perf_counter()
     scores, _ = trainer.score_all(state, train_ds, trainer.train_data)
     torch.cuda.synchronize()
-    score_s = time.perf_counter() - t0
+    first_score_s = time.perf_counter() - t0
     result = trainer.validate(state)
     clip_scores = scorer.score_clip_json(clip_path)
     launches = {"stse_fused": stse_fused.launches.value}
     # --- end of the counted run ---
 
     n_items = len(train_ds)
-    wps = n_items / score_s
     check(scores.shape == (n_items,) and bool(np.isfinite(scores).all())
           and bool((scores >= 0).all()), "score_all gives finite non-negative scores")
     check(bool(torch.isfinite(state.center).all()), "center is finite")
@@ -299,25 +298,58 @@ def phase_slice(card):
     check(np.allclose(s_gpu, s_cpu, **SCORE_TOL),
           f"CUDA scores vs plain CPU path: max abs err {ref_err:.3e}")
 
+    # Steady state: the first pass above also pays each kernel's first-launch
+    # cost (lazy module loading), so throughput is the best of two more.
+    steady = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        trainer.score_all(state, train_ds, trainer.train_data)
+        torch.cuda.synchronize()
+        steady.append(time.perf_counter() - t0)
+    score_s = min(steady)
+    wps = n_items / score_s
     breakdown = stage_breakdown(trainer, state, train_ds)
+    breakdown["score_all_batch_host_clock"] = score_s * 1e3 / -(-n_items // cfg.data.batch_size)
+    trace = device_profile(lambda: trainer.score_all(state, train_ds, trainer.train_data))
     summary = dict(
         windows=train_ds.num_windows, items=n_items, batch=cfg.data.batch_size,
-        setup_s=setup_s, initialize_center_s=center_s, score_all_s=score_s,
-        windows_per_s=wps, auc=result.auc, clip_frames=int(clip_scores.shape[0]),
-        launches=launches, cpu_subset_max_abs_err=ref_err, breakdown_ms=breakdown,
-        card=card,
+        setup_s=setup_s, initialize_center_s=center_s, score_all_first_s=first_score_s,
+        score_all_steady_s=steady, windows_per_s=wps, auc=result.auc,
+        clip_frames=int(clip_scores.shape[0]), launches=launches,
+        cpu_subset_max_abs_err=ref_err, breakdown_ms=breakdown, trace=trace, card=card,
     )
-    print(f"slice: score_all {n_items} items in {score_s:.3f} s = {wps:.0f} windows/s on "
-          f"{card}; initialize_center {center_s:.3f} s; validation AUC {result.auc:.4f}; "
-          f"clip frames {clip_scores.shape[0]}; launches {launches}; "
-          f"CPU-subset max abs err {ref_err:.2e}")
-    print("slice breakdown per 2048-window batch (ms, CUDA events): " + json.dumps(breakdown))
+    print(f"slice: score_all {n_items} items in {score_s:.4f} s = {wps:.0f} windows/s "
+          f"(steady, best of {[round(t, 4) for t in steady]} s; first pass "
+          f"{first_score_s:.4f} s) on {card}; initialize_center {center_s:.3f} s; "
+          f"validation AUC {result.auc:.4f}; clip frames {clip_scores.shape[0]}; "
+          f"launches {launches}; CPU-subset max abs err {ref_err:.2e}")
+    print("slice breakdown per 2048-window batch (ms; stages by CUDA events, batch by host "
+          "clock): " + json.dumps(breakdown))
+    print("slice trace of one score_all pass (torch.profiler): " + json.dumps(trace))
     return summary
 
 
+def device_profile(fn):
+    """Device busy time, span and idle share of one call of fn, and the
+    share of device time in the port's kernels, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(len(events) > 0, "torch.profiler recorded no device activity")
+    busy = sum(e.time_range.elapsed_us() for e in events)
+    span = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
+    k1 = sum(e.time_range.elapsed_us() for e in events if "stse_fused_kernel" in e.name)
+    return dict(device_busy_ms=busy / 1e3, device_span_ms=span / 1e3,
+                idle_share=1.0 - busy / span, stse_fused_share_of_busy=k1 / busy,
+                device_events=len(events))
+
+
 def stage_breakdown(trainer, state, ds):
-    """Device time of each stage of one scoring batch, and the host-clocked
-    time of a whole batch through score_all's loop."""
+    """Device time of each stage of one scoring batch (CUDA events)."""
     import torch
     from coskad_tpu_torch.geometry import euclidean
     from coskad_tpu_torch.kernels import stse_fused
@@ -336,12 +368,6 @@ def stage_breakdown(trainer, state, ds):
             projector_matmul=cuda_ms(lambda: flat @ folded.w_proj + folded.b_proj),
             distance=cuda_ms(lambda: euclidean.mse_to_center(z, state.center)),
         )
-        k = min(10, len(idx))
-        t0 = time.perf_counter()
-        for i in range(k):
-            trainer._embed_step(trainer.train_data, idx[i], ws)
-        torch.cuda.synchronize()
-        out["whole_batch_host_clock"] = (time.perf_counter() - t0) * 1e3 / k
     return out
 
 
