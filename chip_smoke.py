@@ -7,8 +7,9 @@ Phases, each printing a line before the last:
   1. environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions; builds every kernel of the port from csrc/ with nvcc.
   2. kernel: each kernel against its plain PyTorch version on the card, at
-     the serving path's shapes (full width, B=2048 and a ragged B=2047) and
-     on a one-layer identity-residual stack; times kernel and plain version.
+     the serving path's shapes (full width, B=2048 and a ragged B=2047), on
+     a one-layer identity-residual stack and on a stack whose last layer
+     narrows (16 -> 8 channels, 35 nodes); times kernel and plain version.
   3. slice: the serving path at the flagship width (sts_gcn 2->32->16->32->64,
      latent 16, windows [2, 12, 18], 5 transforms, batch 2048, fp32) with
      random weights from a seed: Trainer.initialize_center and score_all over
@@ -143,7 +144,10 @@ def phase_kernel(card):
     for label, kw, batch in (("full_B2048", full, 2048), ("full_B2047", full, 2047),
                              ("identity_residual_B64",
                               dict(input_dim=8, layer_channels=(8,), hidden_dimension=8,
-                                   latent_dim=4, n_frames=6, n_joints=5), 64)):
+                                   latent_dim=4, n_frames=6, n_joints=5), 64),
+                             ("narrowing_last_layer_B64",
+                              dict(input_dim=2, layer_channels=(16,), hidden_dimension=8,
+                                   latent_dim=4, n_frames=5, n_joints=7), 64)):
         m = model if kw is full else seeded_stse(gen, dev, **kw)
         f, p = m.folded()
         x = torch.randn(batch, kw["input_dim"], kw["n_frames"], kw["n_joints"],
@@ -170,6 +174,13 @@ def phase_kernel(card):
         plain_ms = cuda_ms(lambda: stse_fused.fused_stse_hidden_reference(x_main, folded))
         kernel_ms_2 = cuda_ms(lambda: stse_fused.fused_stse_hidden(x_main, folded, packed))
         plain_ms_2 = cuda_ms(lambda: stse_fused.fused_stse_hidden_reference(x_main, folded))
+        per_layer_ms = {}
+        for lay in folded.layers:  # each layer alone, as a one-layer stack
+            one = folded._replace(layers=[lay])
+            one_packed = stse_fused.pack_folded(one)
+            x1 = torch.randn(2048, lay.w.shape[0], 12, 18, generator=gen).to(dev)
+            per_layer_ms["{}->{}".format(*lay.w.shape)] = cuda_ms(
+                lambda: stse_fused.fused_stse_hidden(x1, one, one_packed))
     flops, nbytes = stse_fused.work(folded, 2048)
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     rec = dict(
@@ -179,12 +190,13 @@ def phase_kernel(card):
         tolerance=TOL, ms=min(kernel_ms, kernel_ms_2), kernel_ms=min(kernel_ms, kernel_ms_2),
         plain_ms=min(plain_ms, plain_ms_2), bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None,
-        batch=2048, flops=flops, bytes=nbytes, cases=cases,
+        batch=2048, flops=flops, bytes=nbytes, cases=cases, per_layer_ms=per_layer_ms,
         timing_runs_ms=dict(kernel=[kernel_ms, kernel_ms_2], plain=[plain_ms, plain_ms_2]),
     )
     print("kernel check: " + json.dumps(dict(
         name="stse_fused", cases=cases, kernel_ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
-        bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], card=card)))
+        bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], per_layer_ms=per_layer_ms,
+        card=card)))
     return rec
 
 

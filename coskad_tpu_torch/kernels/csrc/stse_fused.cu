@@ -10,11 +10,12 @@
 // (combined_graph_matrix), N = T*V nodes. The projector matmul stays outside.
 //
 // What bounds it on an H100: at the flagship width (N = 216, channels
-// 2->32->16->32->64) a window costs ~10.4 MFLOP against 3.5 KB read and
-// 55 KB written, i.e. ~190 FLOP per byte of device memory, above the fp32
-// ridge of ~20 FLOP/byte (67 TFLOP/s over 3.35 TB/s, the H100 SXM data
-// sheet's peaks at its 700 W limit). So the kernel is bound by fp32
-// operations, and by how often the SMs re-read M through L1 and L2.
+// 2->32->16->32->64) a window needs ~8.9 MFLOP (graph contractions on
+// min(C_in, C_out) channels, see below) against 3.5 KB read and 55 KB
+// written, i.e. ~150 FLOP per byte of device memory, above the fp32 ridge
+// of ~20 FLOP/byte (67 TFLOP/s over 3.35 TB/s, the H100 SXM data sheet's
+// peaks at its 700 W limit). So the kernel is bound by fp32 operations, and
+// by how often the SMs re-read M through L1 and L2.
 //
 // Design (simple first):
 //   * one thread block per window; the window's activations never leave
@@ -24,10 +25,14 @@
 //     from global memory: all blocks read the same M, so it stays in L2, and
 //     the warps of a block that read the same M row hit in L1;
 //   * W / W_res / bias of the current layer are staged in shared memory;
-//   * every thread owns a register tile of 4 or 8 channels x 4 nodes, so
-//     each float4 load feeds 4-8 FMAs; the 8-wide tile, where a layer has
-//     enough channels to keep 3/4 of the threads busy, halves the L1/shared
-//     loads per FMA (the 4-wide tile is load-bound, not FMA-bound);
+//   * where a layer narrows (C_out < C_in) it computes M^T (x W) rather than
+//     (M^T x) W, so the graph contraction, the bulk of the FLOPs, runs on the
+//     smaller channel count;
+//   * every thread owns a register tile of 1, 4 or 8 channels x 4 nodes: the
+//     widest tile that still keeps 3/4 of the block's threads busy (wide
+//     tiles feed more FMAs per float4 load; the 4-wide tile is load-bound,
+//     and a layer with 4 padded input channels gives 4-wide tiles to only 54
+//     of 256 threads);
 //   * padded nodes (n >= N) and padded channels carry zeros through M and W,
 //     so they never reach a valid output; only valid outputs are written,
 //     node-major [B, N, C_out], the layout the projector reads.
@@ -66,15 +71,18 @@ __device__ __forceinline__ float comp(const float4& v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
-// A register tile is TW channels x 4 nodes. TW = 8 halves the loads per FMA
-// but needs enough tiles to occupy the block's threads.
-__host__ __device__ __forceinline__ bool use_wide_tile(int channels, int n_pad) {
-  return channels % 8 == 0 && (channels / 8) * (n_pad / 4) >= kThreads * 3 / 4;
+// A register tile is TW channels x 4 nodes: the widest of 8 and 4 that
+// leaves at least 3/4 of the block's threads a tile, else 1.
+__device__ __forceinline__ int tile_width(int channels, int n_pad) {
+  const int busy = kThreads * 3 / 4;
+  if (channels % 8 == 0 && (channels / 8) * (n_pad / 4) >= busy) return 8;
+  if ((channels / 4) * (n_pad / 4) >= busy) return 4;
+  return 1;
 }
 
 // Graph contraction: gt[c][m] = sum_k xt[c][k] * M[k][m].
 template <int TC>
-__device__ __forceinline__ void graph_phase(const float* xt, const float* __restrict__ M,
+__device__ __forceinline__ void graph_tiles(const float* xt, const float* __restrict__ M,
                                             float* gt, int cip, int np) {
   const int tiles_m = np / 4;
   const int tiles = (cip / TC) * tiles_m;
@@ -102,48 +110,78 @@ __device__ __forceinline__ void graph_phase(const float* xt, const float* __rest
   }
 }
 
-// Dense + residual + PReLU: y[o][m] = sum_c W[c][o] gt[c][m]
-//                                   + sum_c Wr[c][o] xt[c][m] + b[o].
-// Writes the next layer's input xt_next[o][m], or for the last layer the
-// valid outputs node-major to out_b[m][o].
-template <int TO>
-__device__ __forceinline__ void dense_phase(const float* ws, const float* wrs, const float* bs,
-                                            const float* gt, const float* xt, float* xt_next,
-                                            float* __restrict__ out_b, float alpha, int cip,
-                                            int cop, int co, int np, int n, bool last) {
+__device__ __forceinline__ void graph_phase(const float* xt, const float* __restrict__ M,
+                                            float* gt, int channels, int np) {
+  switch (tile_width(channels, np)) {
+    case 8: graph_tiles<8>(xt, M, gt, channels, np); break;
+    case 4: graph_tiles<4>(xt, M, gt, channels, np); break;
+    default: graph_tiles<1>(xt, M, gt, channels, np);
+  }
+}
+
+// The 1x1 channel mixes of a layer, for o < cop and every node m:
+//   kFull:     y[o][m] = PReLU(sum_c W[c][o] gt[c][m] + sum_c Wr[c][o] xt[c][m] + b[o])
+//   kProject:  dst[o][m] = sum_c W[c][o] xt[c][m]                     (no bias, no PReLU)
+//   kResidual: y[o][m] = PReLU(dst[o][m] + sum_c Wr[c][o] xt[c][m] + b[o])
+// y goes to dst[o][m] (the next layer's input), or for the last layer the
+// valid outputs go node-major to out_b[m][o]. A thread reads and writes only
+// its own tile of dst, so kResidual may update dst in place.
+enum Mix { kFull, kProject, kResidual };
+
+template <int TO, Mix MODE>
+__device__ __forceinline__ void mix_tiles(const float* ws, const float* wrs, const float* bs,
+                                          const float* gt, const float* xt, float* dst,
+                                          float* __restrict__ out_b, float alpha, int cip,
+                                          int cop, int co, int np, int n, bool last) {
   const int tiles_m = np / 4;
   const int tiles = (cop / TO) * tiles_m;
   for (int t = threadIdx.x; t < tiles; t += kThreads) {
     const int o0 = (t / tiles_m) * TO;
     const int m0 = (t % tiles_m) * 4;
-    float acc[TO][4] = {};
+    float acc[TO][4];
+#pragma unroll
+    for (int i = 0; i < TO; ++i) {
+      const float4 a = MODE == kResidual
+                           ? *reinterpret_cast<const float4*>(dst + (o0 + i) * np + m0)
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      acc[i][0] = a.x;
+      acc[i][1] = a.y;
+      acc[i][2] = a.z;
+      acc[i][3] = a.w;
+    }
     for (int c = 0; c < cip; ++c) {
-      const float4 g4 = *reinterpret_cast<const float4*>(gt + c * np + m0);
       const float4 x4 = *reinterpret_cast<const float4*>(xt + c * np + m0);
+      const float4 g4 =
+          MODE == kFull ? *reinterpret_cast<const float4*>(gt + c * np + m0) : x4;
 #pragma unroll
       for (int q = 0; q < TO / 4; ++q) {
-        const float4 w4 = *reinterpret_cast<const float4*>(ws + c * cop + o0 + 4 * q);
-        const float4 wr4 = *reinterpret_cast<const float4*>(wrs + c * cop + o0 + 4 * q);
+        if (MODE != kResidual) {
+          const float4 w4 = *reinterpret_cast<const float4*>(ws + c * cop + o0 + 4 * q);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          fma4(acc[4 * q + i], comp(w4, i), g4);
-          fma4(acc[4 * q + i], comp(wr4, i), x4);
+          for (int i = 0; i < 4; ++i) fma4(acc[4 * q + i], comp(w4, i), g4);
+        }
+        if (MODE != kProject) {
+          const float4 wr4 = *reinterpret_cast<const float4*>(wrs + c * cop + o0 + 4 * q);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) fma4(acc[4 * q + i], comp(wr4, i), x4);
         }
       }
     }
+    if (MODE != kProject) {
 #pragma unroll
-    for (int i = 0; i < TO; ++i) {
-      const float bias = bs[o0 + i];
+      for (int i = 0; i < TO; ++i) {
+        const float bias = bs[o0 + i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float h = acc[i][j] + bias;
-        acc[i][j] = h >= 0.0f ? h : alpha * h;
+        for (int j = 0; j < 4; ++j) {
+          const float h = acc[i][j] + bias;
+          acc[i][j] = h >= 0.0f ? h : alpha * h;
+        }
       }
     }
-    if (!last) {
+    if (MODE == kProject || !last) {
 #pragma unroll
       for (int i = 0; i < TO; ++i)
-        *reinterpret_cast<float4*>(xt_next + (o0 + i) * np + m0) =
+        *reinterpret_cast<float4*>(dst + (o0 + i) * np + m0) =
             make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
       continue;
     }
@@ -165,6 +203,17 @@ __device__ __forceinline__ void dense_phase(const float* ws, const float* wrs, c
       }
     }
   }
+}
+
+template <Mix MODE>
+__device__ __forceinline__ void mix_phase(const float* ws, const float* wrs, const float* bs,
+                                          const float* gt, const float* xt, float* dst,
+                                          float* __restrict__ out_b, float alpha,
+                                          const LayerDesc& L, int np, int n, bool last) {
+  if (tile_width(L.cop, np) == 8)
+    mix_tiles<8, MODE>(ws, wrs, bs, gt, xt, dst, out_b, alpha, L.cip, L.cop, L.co, np, n, last);
+  else
+    mix_tiles<4, MODE>(ws, wrs, bs, gt, xt, dst, out_b, alpha, L.cip, L.cop, L.co, np, n, last);
 }
 
 __global__ void __launch_bounds__(kThreads, 2)
@@ -209,18 +258,22 @@ stse_fused_kernel(const float* __restrict__ x,        // [B, C_in0, N]
     for (int i = tid; i < L.cop; i += kThreads) bs[i] = weights[L.off_b + i];
 
     const float* M = weights + L.off_m;
-    if (use_wide_tile(L.cip, np))
-      graph_phase<8>(xt, M, gt, L.cip, np);
-    else
-      graph_phase<4>(xt, M, gt, L.cip, np);
-    __syncthreads();  // gt and the staged weights are complete
-
     const float alpha = weights[L.off_alpha];
     float* out_b = out + (long long)b * n * L.co;
-    if (use_wide_tile(L.cop, np))
-      dense_phase<8>(ws, wrs, bs, gt, xt, xt_next, out_b, alpha, L.cip, L.cop, L.co, np, n, last);
-    else
-      dense_phase<4>(ws, wrs, bs, gt, xt, xt_next, out_b, alpha, L.cip, L.cop, L.co, np, n, last);
+    if (L.cop < L.cip) {
+      // Narrowing layer: u = x W into gt, g = M^T u into xt_next, then
+      // xt_next = PReLU(g + x W_res + b) in place.
+      __syncthreads();  // the staged weights are complete
+      mix_phase<kProject>(ws, wrs, bs, nullptr, xt, gt, out_b, alpha, L, np, n, last);
+      __syncthreads();
+      graph_phase(gt, M, xt_next, L.cop, np);
+      __syncthreads();
+      mix_phase<kResidual>(ws, wrs, bs, nullptr, xt, xt_next, out_b, alpha, L, np, n, last);
+    } else {
+      graph_phase(xt, M, gt, L.cip, np);
+      __syncthreads();  // gt and the staged weights are complete
+      mix_phase<kFull>(ws, wrs, bs, gt, xt, xt_next, out_b, alpha, L, np, n, last);
+    }
     float* tmp = xt;
     xt = xt_next;
     xt_next = tmp;

@@ -16,7 +16,7 @@ kernel, so the projector is one `torch.matmul` with the flax `btlnk.kernel`
 unpermuted (the TPU version transposed the hidden state to [B, C, N] only
 because Mosaic could not merge minor axes).
 
-What bounds it on an H100: fp32 operations (~10.4 MFLOP per window at the
+What bounds it on an H100: fp32 operations (~8.9 MFLOP per window at the
 flagship width against ~58 KB of device memory traffic; see `work` and
 PERF.md). The kernel's header says what its design does about that.
 
@@ -247,16 +247,17 @@ def fused_stse_forward(x: torch.Tensor, folded: FoldedSTSE,
 
 
 def work(folded: FoldedSTSE, batch: int) -> Tuple[float, float]:
-    """(FLOPs, bytes) the kernel's function needs for `batch` windows: the
-    graph contraction 2*N^2*C_in and the two denses 2*N*C_in*C_out each, per
-    layer; the input read once, the hidden state written once, the folded
-    weights read once."""
+    """(FLOPs, bytes) the kernel's function needs for `batch` windows: per
+    layer the graph contraction 2*N^2*min(C_in, C_out) (a narrowing layer
+    contracts x W rather than x) and the two denses 2*N*C_in*C_out each; the
+    input read once, the hidden state written once, the folded weights read
+    once."""
     n = folded.layers[0].graph.shape[0]
     flops = 0.0
     weight_elems = 0
     for lay in folded.layers:
         ci, co = lay.w.shape
-        flops += 2.0 * n * n * ci + 2.0 * 2.0 * n * ci * co
+        flops += 2.0 * n * n * min(ci, co) + 2.0 * 2.0 * n * ci * co
         weight_elems += n * n + 2 * ci * co + 2 * co + 1
     c_in = folded.layers[0].w.shape[0]
     c_out = folded.layers[-1].w.shape[1]

@@ -84,6 +84,6 @@ def test_work_counts_flagship_flops_and_bytes():
     x, folded, _ = _both(dict(FULL, n_joints=18), 2, 2, seed_x=6, seed_vars=0)
     flops, nbytes = stse_fused.work(folded, 2048)
     n = 216
-    per_window = 2 * n * n * (2 + 32 + 16 + 32) + 4 * n * (2 * 32 + 32 * 16 + 16 * 32 + 32 * 64)
+    per_window = 2 * n * n * (2 + 16 + 16 + 32) + 4 * n * (2 * 32 + 32 * 16 + 16 * 32 + 32 * 64)
     assert flops == 2048 * per_window
     assert nbytes > 4 * 2048 * n * (2 + 64)
