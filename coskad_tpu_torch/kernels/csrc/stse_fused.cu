@@ -89,19 +89,27 @@ __device__ __forceinline__ void graph_tiles(const float* xt, const float* __rest
   for (int t = threadIdx.x; t < tiles; t += kThreads) {
     const int c0 = (t / tiles_m) * TC;
     const int m0 = (t % tiles_m) * 4;
+    const float* mcol = M + m0;
     float acc[TC][4] = {};
-    for (int k = 0; k < np; k += 4) {
-      float4 xa[TC], mb[4];
+    float4 mb[4];
 #pragma unroll
-      for (int i = 0; i < TC; ++i)
-        xa[i] = *reinterpret_cast<const float4*>(xt + (c0 + i) * np + k);
+    for (int j = 0; j < 4; ++j) mb[j] = __ldg(reinterpret_cast<const float4*>(mcol + j * np));
+    for (int k = 0; k < np; k += 4) {
+      // M comes from L2: issue the next 4 rows' loads before this step's
+      // FMAs (the last step reloads its own rows instead of running past M).
+      const int kn = k + 4 < np ? k + 4 : k;
+      float4 mn[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        mb[j] = __ldg(reinterpret_cast<const float4*>(M + (long long)(k + j) * np + m0));
+        mn[j] = __ldg(reinterpret_cast<const float4*>(mcol + (long long)(kn + j) * np));
 #pragma unroll
-      for (int i = 0; i < TC; ++i)
+      for (int i = 0; i < TC; ++i) {
+        const float4 xa = *reinterpret_cast<const float4*>(xt + (c0 + i) * np + k);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) fma4(acc[i], comp(xa[i], j), mb[j]);
+        for (int j = 0; j < 4; ++j) fma4(acc[i], comp(xa, j), mb[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mb[j] = mn[j];
     }
 #pragma unroll
     for (int i = 0; i < TC; ++i)
