@@ -5,20 +5,34 @@
 
 Phases, each printing a line before the last:
   1. environment: the card's name and power limit (nvidia-smi), torch and
-     CUDA versions; builds every kernel of the port from csrc/ with nvcc.
-  2. kernel: each kernel against its plain PyTorch version on the card, at
-     the serving path's shapes (full width, B=2048 and a ragged B=2047), on
-     a one-layer identity-residual stack and on a stack whose last layer
-     narrows (16 -> 8 channels, 35 nodes); times kernel and plain version.
-  3. slice: the serving path at the flagship width (sts_gcn 2->32->16->32->64,
-     latent 16, windows [2, 12, 18], 5 transforms, batch 2048, fp32) with
-     random weights from a seed: Trainer.initialize_center and score_all over
-     40,000 resident windows x 5 transforms, validate's frame AUC on synthetic
-     ground truth, AnomalyScorer.score_clip_json on an AlphaPose clip. Checks
-     the kernels' launch counts rose during this phase, and the scores
-     against the plain CPU path on a subset.
-  4. a JSON line of every kernel (launches on the slice, error, times, bound),
-     then the last line {"ok": true, "device": {...}}.
+     CUDA versions; builds every kernel of the port from csrc/ with nvcc,
+     one process per source, all at once.
+  2. kernel: K1 (eval encoder) against its plain PyTorch version on the
+     card, at the serving path's shapes (full width, B=2048 and a ragged
+     B=2047), on a one-layer identity-residual stack and on a stack whose
+     last layer narrows (16 -> 8 channels, 35 nodes); times kernel and
+     plain version.
+  3. train kernels: K2 (ghost-BN forward), K3 (a lower layer's backward)
+     and K4 (the top layer's backward with the projector's) against their
+     plain versions on the card: full width at B=2048 ghost 64, B=96 ghost
+     32, a one-layer identity-residual stack, a stack whose last layer
+     narrows with 35 nodes. Times each kernel and its plain version.
+  4. slice (serving): the serving path at the flagship width (sts_gcn
+     2->32->16->32->64, latent 16, windows [2, 12, 18], 5 transforms, batch
+     2048, fp32) with random weights from a seed: Trainer.initialize_center
+     and score_all over 40,000 resident windows x 5 transforms, validate's
+     frame AUC on synthetic ground truth, AnomalyScorer.score_clip_json on
+     an AlphaPose clip. Launch counts, scores against the plain CPU path on
+     a subset, a per-stage breakdown and a profiler trace.
+  5. train (training): Trainer.fit for 3 epochs with fused_train='on',
+     ghost 64, batch 2048 over the same 40,000 windows x 5 transforms, with
+     validation; steady train windows/s, launch counts (K2/K3/K4 97/291/97
+     an epoch, K1 in validate), finite losses and running statistics; three
+     steps of a 256-window subset against the plain CPU path; a per-stage
+     breakdown of one step, the live-BN (fused_train='off') step for
+     context, and the profiler's idle share over one epoch.
+  6. a JSON line of every kernel (launches on the main paths, error, times,
+     bound), then the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It imports nothing of JAX or of the JAX package. TF32 is switched off for
@@ -42,6 +56,28 @@ import numpy as np
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 TOL = dict(rtol=2e-4, atol=2e-5)  # kernel vs plain: fp32 reassociation
+# K2 vs plain (tests/test_fused_train_kernel.py:50-58): ghost statistics sum
+# 13,824 rows per channel in another order
+TRAIN_TOL = dict(rtol=2e-4, atol=2e-4)
+# K3/K4 gradients vs plain: err < 1e-3 * max(scale, 1) + 1e-6
+# (test_fused_train_kernel.py:84-91, fp32 reassociation through the BN
+# backward's 1/cnt cancellations)
+GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-6
+LOSS_RTOL = 1e-3  # per-step losses vs the CPU path (test_lockstep_parity.py:538)
+TRAIN_EPOCHS = 3
+TRAIN_BATCH = 2048
+FULL = dict(input_dim=2, layer_channels=(32, 16, 32), hidden_dimension=64, latent_dim=16,
+            n_frames=12, n_joints=18)
+# (label, model, batch, ghost) of the K2-K4 checks; the first is timed
+TRAIN_KERNEL_CASES = (
+    ("full_B2048_ghost64", FULL, 2048, 64),
+    ("full_B96_ghost32", FULL, 96, 32),
+    ("identity_residual_B64_ghost16", dict(input_dim=8, layer_channels=(), hidden_dimension=8,
+                                           latent_dim=4, n_frames=6, n_joints=5), 64, 16),
+    ("narrowing_last_layer_B64_ghost16", dict(input_dim=2, layer_channels=(16,),
+                                              hidden_dimension=8, latent_dim=4, n_frames=5,
+                                              n_joints=7), 64, 16),
+)
 SCORE_TOL = dict(rtol=1e-3, atol=1e-6)  # scores square latent differences
 DEVICE = "cuda"
 TRAIN_CLIPS, VAL_CLIPS = 100, 20  # x 2 actors x 200 windows: 40,000 and 8,000 windows
@@ -355,9 +391,14 @@ def device_profile(fn):
     busy = sum(e.time_range.elapsed_us() for e in events)
     span = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
     k1 = sum(e.time_range.elapsed_us() for e in events if "stse_fused_kernel" in e.name)
+    by_name = {}
+    for e in events:
+        name = e.name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
     return dict(device_busy_ms=busy / 1e3, device_span_ms=span / 1e3,
                 idle_share=1.0 - busy / span, stse_fused_share_of_busy=k1 / busy,
-                device_events=len(events))
+                device_events=len(events), top_device_ms={k: v for k, v in top})
 
 
 def stage_breakdown(trainer, state, ds):
@@ -383,18 +424,442 @@ def stage_breakdown(trainer, state, ds):
     return out
 
 
-def main() -> int:
+def jitter_affine(model, gen):
+    """BN affines away from (1, 0) and PReLU slopes away from 0.25, so the
+    ghost-BN backward has no trivial terms."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("_bn.scale"):
+                p.copy_(torch.empty(p.shape).uniform_(0.5, 1.5, generator=gen))
+            elif name.endswith("_bn.bias"):
+                p.copy_(torch.empty(p.shape).uniform_(-0.3, 0.3, generator=gen))
+            elif name.endswith("alpha"):
+                p.fill_(float(torch.empty(()).uniform_(0.1, 0.4, generator=gen)))
+
+
+def grad_err(got, want) -> tuple:
+    """(max abs err, whether it is inside err < GRAD_RTOL * max(scale, 1) + GRAD_ATOL)."""
+    scale = max(float(want.abs().max()), 1e-6)
+    err = float((got - want).abs().max())
+    return err, err < GRAD_RTOL * max(scale, 1.0) + GRAD_ATOL
+
+
+def phase_train_kernels(card):
+    """K2, K3 and K4 against their plain versions on the card; returns their
+    kernel records (launches filled in by the training phase)."""
+    import torch
+    from coskad_tpu_torch.kernels import stse_train as st
+    from coskad_tpu_torch.models import STSE
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(4321)
+    errs = {"K2": [], "K3": [], "K4": []}
+    results, timing, work, timed = [], {}, {}, TRAIN_KERNEL_CASES[0]
+    for label, kw, batch, ghost in TRAIN_KERNEL_CASES:
+        model = STSE(**kw)
+        model.reset_parameters(gen)
+        jitter_affine(model, gen)
+        model = model.to(dev)
+        ops = st.detached(st.encoder_ops(model))
+        # The plain versions run in float64: a channel whose spread is small
+        # against its mean (layer 0 mixes only 2 input channels) loses more
+        # to fp32 rounding in the plain E[t^2] - E[t]^2 than the tolerance.
+        ops64 = st.detached(ops, torch.float64)
+        n = kw["n_frames"] * kw["n_joints"]
+        x = torch.randn(batch, n, kw["input_dim"], generator=gen).to(dev)
+        dz = torch.randn(batch, kw["latent_dim"], generator=gen).to(dev)
+        z, sums, acts, stats = st.ghost_forward(x, ops, ghost)
+        ref = st.ghost_forward_reference(x.double(), ops64, ghost)
+        z_r, sums_r, acts_r, stats_r = (ref[0].float(), *([t.float() for t in r] for r in ref[1:]))
+        torch.cuda.synchronize()
+        # The full-batch sums are compared as moments (sum / count), what the
+        # running statistics take from them: a sum over 442,368 rows has an
+        # absolute rounding error no fixed atol fits.
+        cnt = batch * n
+        outs = dict(z=(z, z_r), **{f"sums{l}": (a / cnt, b / cnt) for l, (a, b) in
+                                   enumerate(zip(sums, sums_r))},
+                    **{f"act{l}": p for l, p in enumerate(zip(acts, acts_r))},
+                    **{f"stats{l}": p for l, p in enumerate(zip(stats, stats_r))})
+        fwd = {k: float((a - b).abs().max()) for k, (a, b) in outs.items()}
+        bad = [f"{k} err {fwd[k]:.3e}" for k, (a, b) in outs.items()
+               if not (within(a, b, **TRAIN_TOL) and bool(torch.isfinite(a).all()))]
+        fwd_err = max(fwd.values())
+        errs["K2"].append(fwd_err)
+        check(not bad, f"stse_train forward (K2) {label}: outside rtol {TRAIN_TOL['rtol']} "
+                       f"atol {TRAIN_TOL['atol']}: " + "; ".join(bad))
+        # Each backward kernel starts from K2's activations and statistics
+        # (what the training path hands it) and the float64 cotangent of the
+        # layer above, so each is held alone. The float64 reference takes
+        # PReLU's branch where K2 took it (the sign of its output): a
+        # pre-activation within rounding of 0 would otherwise flip between
+        # the two (5 of 28 M in the top layer at B=2048), which moves dW and
+        # dM by up to 0.5 without any fault in either.
+        top = len(ops.layers) - 1
+        x_in = [x, *acts[:-1]]
+        g, dwp, dbp, dy = st.top_backward(x_in[top], acts[top], dz, ops.layers[top], stats[top],
+                                          ops.wp, ops.bp, ghost, need_dx=top > 0)
+        w, dwp_r, dbp_r, dy_r = st.top_backward_reference(
+            x_in[top].double(), dz.double(), ops64.layers[top], ops64.wp, ops64.bp, ghost,
+            need_dx=top > 0, positive=acts[top] >= 0)
+        pairs = [("K4", "dwp", dwp, dwp_r), ("K4", "dbp", dbp, dbp_r)]
+        if top > 0:
+            pairs.append(("K4", "dx", dy, dy_r))
+        pairs += [("K4", f"layer{top}.d{f}", getattr(g, f), getattr(w, f))
+                  for f in st.LayerOps._fields if getattr(w, f) is not None]
+        for l in reversed(range(top)):
+            g, dx = st.layer_backward(x_in[l], dy_r.float(), ops.layers[l], stats[l], ghost,
+                                      need_dx=l > 0)
+            w, dx_r = st.layer_backward_reference(x_in[l].double(), dy_r, ops64.layers[l], ghost,
+                                                  need_dx=l > 0, positive=acts[l] >= 0)
+            pairs += [("K3", f"layer{l}.d{f}", getattr(g, f), getattr(w, f))
+                      for f in st.LayerOps._fields if getattr(w, f) is not None]
+            if l > 0:
+                pairs.append(("K3", f"layer{l}.dx", dx, dx_r))
+                dy_r = dx_r
+        pairs = [(k, name, a, b.float()) for k, name, a, b in pairs]
+        torch.cuda.synchronize()
+        bad = []
+        for k, name, a, b in pairs:
+            err, ok = grad_err(a, b)
+            errs[k].append(err)
+            if not ok or not bool(torch.isfinite(a).all()):
+                bad.append(f"{k} {name} err {err:.3e} scale {float(b.abs().max()):.3e}")
+        check(not bad, f"stse_train backward {label}: " + "; ".join(bad))
+        results.append(dict(case=label, batch=batch, ghost=ghost, forward_max_abs_err=fwd_err,
+                            backward_max_abs_err=max(e for _, _, a, b in pairs
+                                                     for e in [float((a - b).abs().max())])))
+        if label == timed[0]:
+            timing = time_train_kernels(st, ops, x, dz, acts_r, stats_r, ghost)
+            work = st.work(ops, batch, ghost)
+    records = []
+    for key, name in (("K2", "stse_train_forward"), ("K3", "stse_train_layer_backward"),
+                      ("K4", "stse_train_top_backward")):
+        parts = [k for k in work if k.startswith(key)]
+        flops = sum(work[k][0] for k in parts)
+        nbytes = sum(work[k][1] for k in parts)
+        t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+        t = timing[key]
+        records.append(dict(
+            name=name, route="cuda", source=st.SOURCE, replaces=st.REPLACES[name], launches=None,
+            max_abs_err=max(errs[key]),
+            tolerance=(TRAIN_TOL if key == "K2" else
+                       dict(rule="err < rtol * max(max|plain|, 1) + atol", rtol=GRAD_RTOL,
+                            atol=GRAD_ATOL)),
+            ms=t["kernel_ms"], kernel_ms=t["kernel_ms"], plain_ms=t["plain_ms"],
+            bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=None, batch=timed[2], ghost=timed[3], flops=flops, bytes=nbytes,
+            per_layer_ms=t.get("per_layer"), timing_runs_ms=t["runs"],
+            per_layer_bound_ms={k: max(work[k][0] / PEAK_FP32_FLOPS, work[k][1] / PEAK_BYTES_PER_S)
+                                * 1e3 for k in parts}))
+    k5_flops, k5_bytes = work["K5"]
+    k5_bound = max(k5_flops / PEAK_FP32_FLOPS, k5_bytes / PEAK_BYTES_PER_S) * 1e3
+    print("train kernel check: " + json.dumps(dict(
+        cases=results, card=card, k5_mono_backward_not_ported=dict(
+            flops=k5_flops, bytes=k5_bytes, bound_ms=k5_bound),
+        times={r["name"]: dict(kernel_ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                               bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                               per_layer_ms=r["per_layer_ms"]) for r in records})))
+    return records
+
+
+def time_train_kernels(st, ops, x, dz, acts, stats, ghost):
+    """Kernel and plain-version times of K2, K3 (each lower layer) and K4 at
+    the flagship shapes, each measured twice, in turns."""
+    top = len(ops.layers) - 1
+    x_of = [x] + list(acts[:-1])
+    dys = {l: acts[l] for l in range(top)}  # any [B, N, C_out] cotangent times the same
+    fns = {
+        "K2": (lambda: st.ghost_forward(x, ops, ghost),
+               lambda: st.ghost_forward_reference(x, ops, ghost)),
+        "K4": (lambda: st.top_backward(x_of[top], acts[top], dz, ops.layers[top], stats[top],
+                                       ops.wp, ops.bp, ghost, need_dx=True),
+               lambda: st.top_backward_reference(x_of[top], dz, ops.layers[top], ops.wp, ops.bp,
+                                                 ghost, need_dx=True)),
+    }
+    for l in range(top):
+        fns[f"K3_layer{l}"] = (
+            lambda l=l: st.layer_backward(x_of[l], dys[l], ops.layers[l], stats[l], ghost,
+                                          need_dx=l > 0),
+            lambda l=l: st.layer_backward_reference(x_of[l], dys[l], ops.layers[l], ghost,
+                                                    need_dx=l > 0))
+    runs = {}
+    for key, (kern, plain) in fns.items():
+        a = cuda_ms(kern, iters=5, warmup=2)
+        b = cuda_ms(plain, iters=5, warmup=2)
+        c = cuda_ms(kern, iters=5, warmup=1)
+        d = cuda_ms(plain, iters=5, warmup=1)
+        runs[key] = dict(kernel=[a, c], plain=[b, d])
+    out = {}
+    for key in ("K2", "K4"):
+        out[key] = dict(kernel_ms=min(runs[key]["kernel"]), plain_ms=min(runs[key]["plain"]),
+                        runs=runs[key])
+    k3 = [k for k in runs if k.startswith("K3")]
+    out["K3"] = dict(kernel_ms=sum(min(runs[k]["kernel"]) for k in k3),
+                     plain_ms=sum(min(runs[k]["plain"]) for k in k3),
+                     per_layer={k: dict(kernel_ms=min(runs[k]["kernel"]),
+                                        plain_ms=min(runs[k]["plain"])) for k in k3},
+                     runs={k: runs[k] for k in k3})
+    return out
+
+
+def train_config(fused: str, batch: int = None):
+    from coskad_tpu_torch.config import Config, DataConfig, ModelConfig, OptConfig, RunConfig
+
+    return Config(
+        model=ModelConfig(variant="euclidean_dynamic", channels=(32, 16, 32), h_dim=64,
+                          latent_dim=16, projector="linear"),
+        data=DataConfig(seg_len=12, kp18_format=True, num_transform=5,
+                        batch_size=batch or TRAIN_BATCH),
+        opt=OptConfig(lr=1e-4, epochs=TRAIN_EPOCHS, validation=True),
+        run=RunConfig(seed=0, fused_train=fused, ghost_size=64),
+    )
+
+
+class QuietLogger:
+    """A MetricLogger that keeps the per-step losses instead of printing."""
+
+    every_n_steps = 1
+
+    def __init__(self):
+        self.losses = []
+
+    def log(self, metrics, step, force=False):
+        if "loss" in metrics:
+            self.losses.append(float(metrics["loss"]))
+
+
+def phase_train(card):
+    import copy
+
+    import torch
+    from coskad_tpu_torch.data.windows import SegmentDataset
+    from coskad_tpu_torch.kernels import stse_fused
+    from coskad_tpu_torch.kernels import stse_train as st
+    from coskad_tpu_torch.train.loop import Trainer
+
+    rng = np.random.default_rng(1)
+    t0 = time.perf_counter()
+    data, meta, fids, _ = synthetic_windows(rng, TRAIN_CLIPS, 2, 200, 12, 18)
+    train_ds = SegmentDataset(data, meta, fids, num_transform=5)
+    vdata, vmeta, vfids, gts = synthetic_windows(rng, VAL_CLIPS, 2, 200, 12, 18,
+                                                 anomalous=(80, 130))
+    val_ds = SegmentDataset(vdata, vmeta, vfids, num_transform=5)
+    cfg = train_config("on")
+    log = QuietLogger()
+    trainer = Trainer(cfg, train_ds, val_ds=val_ds, ground_truths=gts, device=DEVICE, logger=log)
+    gen = torch.Generator().manual_seed(11)
+    jitter_affine(trainer.model, gen)
+    init_weights = copy.deepcopy(trainer.model.state_dict())
+    epoch_s = []
+    inner = trainer.train_epoch
+
+    def timed_epoch(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t)
+        return out
+
+    trainer.train_epoch = timed_epoch
+    bn_before = {k: b.clone() for k, b in trainer.model.named_buffers()}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # --- the training path, counted ---
+    counters = dict(stse_fused=stse_fused.launches, stse_train_forward=st.forward_launches,
+                    stse_train_layer_backward=st.layer_backward_launches,
+                    stse_train_top_backward=st.top_backward_launches)
+    for c in counters.values():
+        c.value = 0
+    t0 = time.perf_counter()
+    state = trainer.initialize_center(trainer.init_state())
+    history = {"loss": [], "validation_auc": []}
+    for _ in range(TRAIN_EPOCHS):
+        state, hist = trainer.fit(state, epochs=1)
+        for k in history:
+            history[k] += hist[k]
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {k: c.value for k, c in counters.items()}
+    # --- end of the counted run ---
+
+    n_items = len(train_ds)
+    steps = n_items // cfg.data.batch_size
+    want = dict(stse_train_forward=steps * TRAIN_EPOCHS,
+                stse_train_layer_backward=3 * steps * TRAIN_EPOCHS,
+                stse_train_top_backward=steps * TRAIN_EPOCHS)
+    for k, v in want.items():
+        check(launches[k] == v, f"{k} launched {launches[k]} times in {TRAIN_EPOCHS} epochs, "
+                                f"expected {v} ({steps} steps an epoch)")
+    check(launches["stse_fused"] > 0, "K1 was not launched by initialize_center / validate")
+    check(len(log.losses) == steps * TRAIN_EPOCHS and all(np.isfinite(log.losses)),
+          "every train step logs a finite loss")
+    check(len(history["validation_auc"]) == TRAIN_EPOCHS
+          and all(0.0 <= a <= 1.0 for a in history["validation_auc"]),
+          f"validation AUC each epoch in [0, 1]: {history['validation_auc']}")
+    changed = [k for k, b in trainer.model.named_buffers() if not torch.equal(b, bn_before[k])]
+    check(all(bool(torch.isfinite(b).all()) for b in trainer.model.buffers()),
+          "running statistics are finite")
+    check(len(changed) == len(bn_before), f"every BN buffer changed: {len(changed)} of "
+                                          f"{len(bn_before)}")
+    check(bool(torch.isfinite(state.center).all()), "center is finite")
+    items_per_epoch = steps * cfg.data.batch_size
+    steady_s = min(epoch_s[1:])
+    train_wps = items_per_epoch / steady_s
+
+    # Three steps of a 256-window subset on the card and on the CPU (not counted).
+    sub_err = cpu_subset_check(Trainer, SegmentDataset, data, meta, fids, init_weights)
+
+    breakdown = train_breakdown(trainer, state)
+    breakdown["train_step_host_clock"] = steady_s * 1e3 / steps
+    off_ms = live_bn_step_ms(Trainer, cfg, train_ds, init_weights)
+    idx = torch.arange(steps * cfg.data.batch_size, device=trainer.device).reshape(steps, -1)
+    trainer.model.train()
+    trace = device_profile(lambda: inner(state, trainer.train_data, idx))
+    trainer.model.eval()
+    summary = dict(
+        windows=train_ds.num_windows, items=n_items, batch=cfg.data.batch_size, ghost=64,
+        steps_per_epoch=steps, epochs=TRAIN_EPOCHS, setup_s=setup_s, fit_s=fit_s,
+        train_epoch_s=epoch_s, train_windows_per_s=train_wps, losses_per_epoch=history["loss"],
+        validation_auc=history["validation_auc"], launches=launches,
+        cpu_subset_loss_max_rel_err=sub_err, breakdown_ms=breakdown,
+        live_bn_step_ms=off_ms, trace=trace, card=card)
+    print(f"train: fit {TRAIN_EPOCHS} epochs x {steps} steps of {cfg.data.batch_size} "
+          f"(ghost 64, fused_train='on'): {train_wps:.0f} train windows/s (steady, best of "
+          f"epochs 2-{TRAIN_EPOCHS}; train_epoch {[round(t, 4) for t in epoch_s]} s) on {card}; "
+          f"losses {[round(v, 6) for v in history['loss']]}; validation AUC "
+          f"{[round(a, 4) for a in history['validation_auc']]}; launches {launches}; "
+          f"CPU-subset loss max rel err {sub_err:.2e}")
+    print("train breakdown per 2048-window step (ms; stages by CUDA events, step by host "
+          "clock): " + json.dumps(breakdown) + f"; live-BN (fused_train='off') step "
+          f"{off_ms:.3f} ms host clock")
+    print("train trace of one epoch (torch.profiler): " + json.dumps(trace))
+    return summary
+
+
+def cpu_subset_check(Trainer, SegmentDataset, data, meta, fids, weights, n_win=256, steps=3):
+    """The fused train step on the card and the plain one on the CPU, from
+    the same weights over the same index batches: per-step losses agree."""
+    import torch
+
+    sub = (data[:n_win], meta[:n_win], fids[:n_win])
+    cfg = train_config("on", batch=n_win)
+    losses = {}
+    idx = np.random.default_rng(5).permutation(n_win * 5)[:steps * n_win].reshape(steps, n_win)
+    for dev in (DEVICE, "cpu"):
+        tr = Trainer(cfg, SegmentDataset(*sub, num_transform=5), device=dev)
+        tr.model.load_state_dict({k: v.to(dev) for k, v in weights.items()})
+        state = tr.initialize_center(tr.init_state())
+        tr.model.train()
+        out = []
+        for i in range(steps):
+            state, m = tr.train_step(state, tr.train_data, torch.as_tensor(idx[i], device=dev))
+            out.append(float(m["loss"]))
+        losses[dev] = np.asarray(out)
+    err = float(np.max(np.abs(losses[DEVICE] - losses["cpu"]) / np.abs(losses["cpu"])))
+    check(np.allclose(losses[DEVICE], losses["cpu"], rtol=LOSS_RTOL, atol=0.0),
+          f"fused train steps on the card vs the plain CPU path: losses {losses[DEVICE]} vs "
+          f"{losses['cpu']}")
+    return err
+
+
+def train_breakdown(trainer, state):
+    """Device time of each stage of one 2048-window train step (CUDA events):
+    gather, K2, K3 per layer, K4, and loss + backward into the weights + Adam
+    (on a copy of the model, so the trainer's weights stay as they are)."""
+    import copy
+
+    import torch
+    from coskad_tpu_torch.kernels import stse_train as st
+    from coskad_tpu_torch.train import objectives
+
+    cfg = trainer.cfg
+    idx = torch.arange(cfg.data.batch_size, device=trainer.device)
+    model = copy.deepcopy(trainer.model)
+    opt = torch.optim.Adam(model.parameters(), lr=cfg.opt.lr)
+    batch = trainer._gather(trainer.train_data, idx)
+    b, c, t, v = batch.shape
+    x = batch.permute(0, 2, 3, 1).reshape(b, t * v, c).contiguous()
+    ops = st.encoder_ops(model)
+    det = st.EncoderOps(tuple(st.LayerOps(*(None if a is None else a.detach() for a in lay))
+                              for lay in ops.layers), ops.wp.detach(), ops.bp.detach())
+    g = cfg.run.ghost_size
+    z, _, acts, stats = st.ghost_forward(x, det, g)
+    dz = torch.randn_like(z)
+    top = len(det.layers) - 1
+    x_of = [x] + list(acts[:-1])
+    out = dict(gather=cuda_ms(lambda: trainer._gather(trainer.train_data, idx), iters=10),
+               K2=cuda_ms(lambda: st.ghost_forward(x, det, g), iters=10))
+    for l in range(top):
+        out[f"K3_layer{l}"] = cuda_ms(lambda l=l: st.layer_backward(
+            x_of[l], acts[l], det.layers[l], stats[l], g, need_dx=l > 0), iters=10)
+    out["K4"] = cuda_ms(lambda: st.top_backward(x_of[top], acts[top], dz, det.layers[top],
+                                                stats[top], det.wp, det.bp, g), iters=10)
+
+    def loss_adam():
+        zl = z.detach().requires_grad_(True)
+        loss, _ = objectives.compute_loss(cfg, zl, batch, model, state.center, state.inv_cov)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+
+    out["loss_backward_adam"] = cuda_ms(loss_adam, iters=10)
+    return out
+
+
+def live_bn_step_ms(Trainer, cfg, train_ds, weights, steps=10):
+    """Host-clock time of one train step of the fused_train='off' path (live
+    BatchNorm through the plain module path), for context."""
+    import dataclasses
+
+    import torch
+
+    off = dataclasses.replace(cfg, run=dataclasses.replace(cfg.run, fused_train="off"))
+    tr = Trainer(off, train_ds, device=DEVICE)
+    tr.model.load_state_dict(weights)
+    state = tr.init_state()
+    idx = torch.arange(cfg.data.batch_size * (steps + 2), device=tr.device).reshape(steps + 2, -1)
+    tr.model.train()
+    for i in range(2):
+        state, _ = tr.train_step(state, tr.train_data, idx[i])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(2, steps + 2):
+        state, _ = tr.train_step(state, tr.train_data, idx[i])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=("kernels",), default=None,
+                    help="run only the environment and kernel phases (no result line)")
+    args = ap.parse_args(argv)
     card, build_s = phase_environment()
     import torch
 
     kernel = phase_kernel(card)
+    train_kernels = phase_train_kernels(card)
+    if args.only == "kernels":
+        return 0
     summary = phase_slice(card)
-    kernel["launches"] = summary["launches"]["stse_fused"]
-    kernels = [kernel]
+    train = phase_train(card)
+    kernel["launches"] = summary["launches"]["stse_fused"] + train["launches"]["stse_fused"]
+    kernel["launches_by_path"] = dict(serving=summary["launches"]["stse_fused"],
+                                      training=train["launches"]["stse_fused"])
+    for rec in train_kernels:
+        rec["launches"] = train["launches"][rec["name"]]
+        rec["launches_by_path"] = dict(serving=0, training=rec["launches"])
+    kernels = [kernel, *train_kernels]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=card, build_s=build_s, kernels=kernels, slice=summary), f,
-                  indent=1)
+        json.dump(dict(card=card, build_s=build_s, kernels=kernels, slice=summary, train=train),
+                  f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "tolerance",
             "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))

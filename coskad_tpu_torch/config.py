@@ -156,8 +156,8 @@ class RunConfig:
     # Fused on-device preprocessing of whole trajectories (JAX package's
     # data/device_pipeline.py; not ported yet).
     device_pipeline: bool = False
-    # Fused ghost-BN train kernels ('auto' | 'on' | 'off'); they come with
-    # the training slice.
+    # Fused ghost-BN train kernels K2-K4 ('auto' | 'on' | 'off'):
+    # kernels/stse_train.py.
     fused_train: str = "off"
     # Ghost-BN block size (samples per BatchNorm statistics block).
     ghost_size: int = 64

@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package's flax variables into the port.
+"""Carry weights between the JAX package's flax variables and the port.
 
 The port's modules are named after the flax variable tree, so a flax path
 joined by '.' is the port's `state_dict` key:
@@ -8,12 +8,13 @@ joined by '.' is the port's `state_dict` key:
     params/btlnk/kernel                      ->  btlnk.kernel
 
 Dense kernels keep flax's [fan_in, features] layout and the projector keeps
-its (T, V, C) flatten order, so no array is transposed on the way.
+its (T, V, C) flatten order, so no array is transposed on the way, in
+either direction (`load_jax_variables`, `to_jax_variables`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -62,3 +63,27 @@ def load_jax_variables(model: nn.Module, params: Mapping[str, Any],
                              f"{tuple(own[k].shape)}")
     model.load_state_dict(state)
     return model
+
+
+def nest_flat(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """{'a.b.c': array} -> nested dicts {'a': {'b': {'c': array}}} (the
+    inverse of `flatten_tree`)."""
+    out: Dict[str, Any] = {}
+    for name, v in flat.items():
+        *path, leaf = name.split(".")
+        node = out
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
+def to_jax_variables(model: nn.Module) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The model as flax {params, batch_stats} trees of float32 numpy arrays
+    (the reverse of `load_jax_variables`): parameters go to params, the
+    BatchNorm running statistics (buffers) to batch_stats."""
+    buffers = {k for k, _ in model.named_buffers()}
+    params, stats = {}, {}
+    for k, v in model.state_dict().items():
+        (stats if k in buffers else params)[k] = v.detach().cpu().numpy().astype(np.float32)
+    return nest_flat(params), nest_flat(stats)

@@ -1,0 +1,828 @@
+// Train-mode STSE encoder with ghost BatchNorm: forward (K2) and the split
+// backward (K3 for a lower layer, K4 for the top layer with the projector).
+//
+// Replaces the Pallas kernels of coskad_tpu/kernels/stse_train.py:
+//   K2  stse_train_forward        <- _fwd_kernel (:432), via _fwd_pallas (:843)
+//   K3  stse_train_layer_backward <- _layer_bwd_kernel (:790) / _layer_bwd_body (:566)
+//   K4  stse_train_top_backward   <- _top_layer_bwd_kernel (:738)
+// Each C entry point launches several __global__ functions in order on the
+// caller's stream and returns cudaGetLastError().
+//
+// Per layer, with x [B, N, C_in] node-major (N = T*V), M [N, N], W and W_res
+// [C_in, C_out] in flax orientation:
+//   g = M^T x,  t = g W + b,  r = x W_res + b_res  (r = x for an identity residual)
+//   pre = BN_ghost(t; gamma, beta) + BN_ghost(r; gamma_res, beta_res)   (identity: + x)
+//   y = PReLU(pre)
+// where BN_ghost takes the biased statistics of each block of `ghost`
+// consecutive windows over all their N nodes. The top layer feeds the
+// projector z = y_flat wp + bp, y flattened node-major (the flax kernel's
+// (t, v, c) row order).
+//
+// What bounds it on an H100: fp32 operations. At the flagship width a
+// window needs ~10.8 MFLOP forward (the graph contraction 2 N^2 C_in is 70%
+// of it) and ~2-3x that backward, against ~0.5 MB of activations in and out
+// per window, ~40-60 FLOP/byte, above the fp32 ridge (~20 FLOP/byte at
+// 67 TFLOP/s over 3.35 TB/s). The design is the simple one, right first:
+//   * A ghost block (64 windows x 216 nodes x 64 channels, 3.5 MB) does not
+//     fit in an SM's 227 KB, so ghost statistics cross thread blocks, and
+//     Hopper's blocks run in no order (the TPU accumulated across its
+//     sequential grid). Each layer therefore runs as passes: one block per
+//     window computes g, t, r and per-window channel sums; one block per
+//     ghost block turns them into (mean, inv_std); a final per-window pass
+//     normalizes. No float atomics: every sum is taken in a fixed order, so
+//     the results repeat bit for bit from run to run.
+//   * The backward follows the same shape: per window the PReLU backward
+//     and the sums s1 = sum dpre, s2 = sum dpre t (and dpre r); per ghost
+//     block the affine constants of d_raw = a dpre + b raw + c (the TPU
+//     kernel's bn_consts); per window dt, dr, dg = dt W^T and dx = M dg +
+//     dr W_res^T.
+//   * dW, dW_res, dM and dwp are reductions over the whole batch. Each is a
+//     tiled product (64 x 64 output tile per block, 4 x 4 per thread, the
+//     reduction split over blocks along the batch), then a pass that sums
+//     the splits.
+//   * Intermediates (t, r, dpre, g, dg) go through device memory. That
+//     costs bytes, not operations, which is the right trade for a first
+//     version; keeping them on chip is later work.
+//   * Scalar fp32 code, no tensor cores, no TMA: those come with the PRs
+//     that make the kernels fast.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kPT = 64;  // product tile: kPT x kPT outputs a block
+constexpr int kPR = 32;  // product reduction rows staged at a time
+constexpr int kLatentChunk = 16;
+constexpr float kEps = 1e-5f;
+
+// ---- descriptor layouts (int64 arrays built by stse_train.py) ----
+enum FwdHeader {
+  FH_N_LAYERS, FH_BATCH, FH_N_NODES, FH_GHOST, FH_LATENT, FH_X, FH_WP, FH_BP, FH_Z,
+  FH_T_BUF, FH_R_BUF, FH_PART, FH_BLOCK_SUMS, FH_COUNT
+};
+enum FwdLayerField {
+  FL_CI, FL_CO, FL_IDENTITY, FL_M, FL_W, FL_B, FL_GAMMA, FL_BETA, FL_W_RES, FL_B_RES,
+  FL_GAMMA_RES, FL_BETA_RES, FL_ALPHA, FL_ACT, FL_STATS, FL_SUMS, FL_COUNT
+};
+enum BwdField {
+  BD_BATCH, BD_N_NODES, BD_GHOST, BD_CI, BD_CO, BD_IDENTITY, BD_LATENT, BD_X, BD_DY, BD_DZ,
+  BD_WP, BD_Y_TOP, BD_M, BD_W, BD_B, BD_GAMMA, BD_BETA, BD_W_RES, BD_B_RES, BD_GAMMA_RES,
+  BD_BETA_RES, BD_ALPHA, BD_STATS, BD_DM, BD_DW, BD_DB, BD_DGAMMA, BD_DBETA, BD_DW_RES,
+  BD_DB_RES, BD_DGAMMA_RES, BD_DBETA_RES, BD_DALPHA, BD_DX, BD_DWP, BD_DBP, BD_MT, BD_G_BUF,
+  BD_T_BUF, BD_R_BUF, BD_DPRE_BUF, BD_DG_BUF, BD_PART, BD_DALPHA_PART, BD_CONSTS, BD_GPART,
+  BD_PROD_BUF, BD_SPLITS_W, BD_SPLITS_W_RES, BD_SPLITS_M, BD_SPLITS_WP, BD_COUNT
+};
+
+struct Layer {
+  int ci, co, identity;
+  const float *m, *w, *b, *gamma, *beta, *wr, *br, *gamma_r, *beta_r, *alpha, *stats;
+};
+
+__device__ __forceinline__ void fma4(float (&acc)[4], float a, const float4& b) {
+  acc[0] = fmaf(a, b.x, acc[0]);
+  acc[1] = fmaf(a, b.y, acc[1]);
+  acc[2] = fmaf(a, b.z, acc[2]);
+  acc[3] = fmaf(a, b.w, acc[3]);
+}
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+template <class T>
+T* ptr(const long long* d, int i) {
+  return reinterpret_cast<T*>(static_cast<uintptr_t>(d[i]));
+}
+
+// g[m][c] = sum_k M[k][m] x[k][c]; x and g [n][c] in shared memory, M [n][n]
+// in global memory (read through L1/L2: every block reads the same M).
+// Each thread owns a register tile of TM nodes x 4 channels, consecutive
+// threads consecutive node tiles, so the rows of M are read coalesced and
+// x is a broadcast; TM = 4 feeds 16 FMAs per 8 loads where it still keeps
+// 3/4 of the block's threads busy, else TM = 1.
+template <int TM>
+__device__ void graph_tiles(const float* xs, const float* __restrict__ M, float* gs, int n,
+                            int c) {
+  const int mt = (n + TM - 1) / TM, ct = (c + 3) / 4;
+  for (int i = threadIdx.x; i < mt * ct; i += kThreads) {
+    const int m0 = (i % mt) * TM, c0 = (i / mt) * 4;
+    const int mw = n - m0 < TM ? n - m0 : TM;
+    const int cw = c - c0 < 4 ? c - c0 : 4;
+    float acc[TM][4] = {};
+    for (int k = 0; k < n; ++k) {
+      const float* mr = M + (long long)k * n + m0;
+      const float* xr = xs + k * c + c0;
+      float mv[TM], xv[4];
+#pragma unroll
+      for (int a = 0; a < TM; ++a) mv[a] = a < mw ? mr[a] : 0.0f;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) xv[b] = b < cw ? xr[b] : 0.0f;
+#pragma unroll
+      for (int a = 0; a < TM; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(mv[a], xv[b], acc[a][b]);
+    }
+#pragma unroll
+    for (int a = 0; a < TM; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (a < mw && b < cw) gs[(m0 + a) * c + c0 + b] = acc[a][b];
+  }
+}
+
+__device__ void graph_contract(const float* xs, const float* __restrict__ M, float* gs, int n,
+                               int c) {
+  if (((n + 3) / 4) * ((c + 3) / 4) >= kThreads * 3 / 4)
+    graph_tiles<4>(xs, M, gs, n, c);
+  else
+    graph_tiles<1>(xs, M, gs, n, c);
+}
+
+// In-place tree sum of red[q * kThreads + tid] over tid for q < rows; the
+// caller has synchronised. Leaves the sums in red[q * kThreads].
+__device__ void block_reduce(float* red, int rows) {
+  for (int s = kThreads / 2; s > 0; s >>= 1) {
+    if ((int)threadIdx.x < s)
+      for (int q = 0; q < rows; ++q) red[q * kThreads + threadIdx.x] += red[q * kThreads + threadIdx.x + s];
+    __syncthreads();
+  }
+}
+
+// ================= K2: forward =================
+
+// Pass (a), one block per window: g, t, r to scratch, per-window channel
+// moments [4][co] = (sum t, M2 t, sum r, M2 r), M2 the sum of squared
+// deviations from the window's own mean (two passes over the window, so a
+// channel whose variance is small against its mean keeps its digits).
+__global__ void __launch_bounds__(kThreads)
+fwd_pre_kernel(const float* __restrict__ x, Layer L, int n, float* t_buf, float* r_buf,
+               float* part) {
+  extern __shared__ __align__(16) float smem[];
+  const int ci = L.ci, co = L.co, tid = threadIdx.x, win = blockIdx.x;
+  float* xs = smem;
+  float* gs = xs + n * ci;
+  float* ws = gs + n * ci;
+  float* wrs = ws + ci * co;
+  const float* xb = x + (long long)win * n * ci;
+  for (int i = tid; i < n * ci; i += kThreads) xs[i] = xb[i];
+  for (int i = tid; i < ci * co; i += kThreads) {
+    ws[i] = L.w[i];
+    wrs[i] = L.identity ? 0.0f : L.wr[i];
+  }
+  __syncthreads();
+  graph_contract(xs, L.m, gs, n, ci);
+  __syncthreads();
+  float* tb = t_buf + (long long)win * n * co;
+  float* rb = r_buf + (long long)win * n * co;
+  for (int i = tid; i < n * co; i += kThreads) {
+    const int m = i / co, o = i - m * co;
+    float t = L.b[o];
+    for (int c = 0; c < ci; ++c) t = fmaf(gs[m * ci + c], ws[c * co + o], t);
+    float r;
+    if (L.identity) {
+      r = xs[m * ci + o];
+    } else {
+      r = L.br[o];
+      for (int c = 0; c < ci; ++c) r = fmaf(xs[m * ci + c], wrs[c * co + o], r);
+    }
+    tb[i] = t;
+    rb[i] = r;
+  }
+  __syncthreads();  // the block's own global writes are visible to it now
+  float* pw = part + (long long)win * 4 * co;
+  for (int j = tid; j < 2 * co; j += kThreads) {
+    const bool res = j >= co;
+    const int o = res ? j - co : j;
+    const float* src = res ? rb : tb;
+    float s = 0.0f;
+    for (int m = 0; m < n; ++m) s += src[m * co + o];
+    const float mean = s / (float)n;
+    float m2 = 0.0f;
+    for (int m = 0; m < n; ++m) {
+      const float d = src[m * co + o] - mean;
+      m2 = fmaf(d, d, m2);
+    }
+    pw[(res ? 2 : 0) * co + o] = s;
+    pw[(res ? 3 : 1) * co + o] = m2;
+  }
+}
+
+// Chan's combination of per-window moments over windows [w0, w0 + count):
+// the block's mean and M2 of one channel (q = 0 for t, 2 for r).
+__device__ void combine_moments(const float* __restrict__ part, long long w0, int count, int n,
+                                int co, int q, int o, float* mean, float* m2) {
+  float s = 0.0f;
+  for (int w = 0; w < count; ++w) s += part[(w0 + w) * 4 * co + q * co + o];
+  const float mu = s / ((float)count * (float)n);
+  float acc = 0.0f;
+  for (int w = 0; w < count; ++w) {
+    const float* row = part + (w0 + w) * 4 * co;
+    const float d = row[q * co + o] / (float)n - mu;
+    acc += row[(q + 1) * co + o] + (float)n * d * d;
+  }
+  *mean = mu;
+  *m2 = acc;
+}
+
+// Pass (b), one block per ghost block: stats[k][4][co] = (t_mean, t_inv_std,
+// r_mean, r_inv_std), the biased variance M2 / cnt; an identity residual
+// has (0, 1). Also the block's (sum, sum of squares) of t and r,
+// block_sums[k][4][co], for the full-batch sums.
+__global__ void __launch_bounds__(kThreads)
+fwd_stats_kernel(const float* __restrict__ part, Layer L, int ghost, int n, float* stats,
+                 float* block_sums) {
+  const int co = L.co, k = blockIdx.x;
+  const float cnt = (float)ghost * (float)n;
+  float* st = stats + (long long)k * 4 * co;
+  float* bs = block_sums + (long long)k * 4 * co;
+  for (int j = threadIdx.x; j < 2 * co; j += kThreads) {
+    const int q = j < co ? 0 : 2, o = j % co;
+    float mean, m2;
+    combine_moments(part, (long long)k * ghost, ghost, n, co, q, o, &mean, &m2);
+    bs[q * co + o] = mean * cnt;
+    bs[(q + 1) * co + o] = m2 + cnt * mean * mean;
+    const bool fixed = q == 2 && L.identity;  // no BN on an identity residual
+    st[q * co + o] = fixed ? 0.0f : mean;
+    st[(q + 1) * co + o] = fixed ? 1.0f : rsqrtf(m2 / cnt + kEps);
+  }
+}
+
+// Full-batch pre-BN sums [4][co] = (sum t, sum t^2, sum r, sum r^2), the
+// ghost blocks' sums added up.
+__global__ void __launch_bounds__(kThreads)
+fwd_sums_kernel(const float* __restrict__ block_sums, int co, int n_blocks, float* sums) {
+  for (int j = threadIdx.x; j < 4 * co; j += kThreads) {
+    float total = 0.0f;
+    for (int k = 0; k < n_blocks; ++k) total += block_sums[(long long)k * 4 * co + j];
+    sums[j] = total;
+  }
+}
+
+__device__ __forceinline__ float ghost_pre(const Layer& L, const float* st, int o, float t,
+                                           float r) {
+  const int co = L.co;
+  const float tn = (t - st[o]) * st[co + o] * L.gamma[o] + L.beta[o];
+  const float rn = L.identity
+                       ? r
+                       : (r - st[2 * co + o]) * st[3 * co + o] * L.gamma_r[o] + L.beta_r[o];
+  return tn + rn;
+}
+
+// Pass (c), one block per window: y = PReLU(BN(t) + BN(r)) to the saved
+// activation; on the top layer also z = y_flat wp + bp (the projector, in
+// the kernel as on the TPU).
+__global__ void __launch_bounds__(kThreads)
+fwd_apply_kernel(Layer L, int n, int ghost, const float* __restrict__ t_buf,
+                 const float* __restrict__ r_buf, float* act, const float* __restrict__ wp,
+                 const float* __restrict__ bp, float* z, int latent) {
+  extern __shared__ __align__(16) float smem[];
+  const int co = L.co, tid = threadIdx.x, win = blockIdx.x;
+  const float* st = L.stats + (long long)(win / ghost) * 4 * co;
+  const float alpha = *L.alpha;
+  const long long base = (long long)win * n * co;
+  const bool last = z != nullptr;
+  const int chunks = last ? (latent + kLatentChunk - 1) / kLatentChunk : 1;
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int l0 = ch * kLatentChunk;
+    const int lw = last ? (latent - l0 < kLatentChunk ? latent - l0 : kLatentChunk) : 0;
+    float acc[kLatentChunk];
+#pragma unroll
+    for (int q = 0; q < kLatentChunk; ++q) acc[q] = 0.0f;
+    for (int i = tid; i < n * co; i += kThreads) {
+      const int o = i % co;
+      const float pre = ghost_pre(L, st, o, t_buf[base + i], r_buf[base + i]);
+      const float y = pre >= 0.0f ? pre : alpha * pre;
+      if (ch == 0) act[base + i] = y;
+      if (!last) continue;
+      const float* wr = wp + (long long)i * latent + l0;
+#pragma unroll
+      for (int q = 0; q < kLatentChunk; ++q)
+        if (q < lw) acc[q] = fmaf(y, wr[q], acc[q]);
+    }
+    if (!last) break;
+#pragma unroll
+    for (int q = 0; q < kLatentChunk; ++q) smem[q * kThreads + tid] = acc[q];
+    __syncthreads();
+    block_reduce(smem, lw);
+    if (tid < lw) z[(long long)win * latent + l0 + tid] = smem[tid * kThreads] + bp[l0 + tid];
+    __syncthreads();
+  }
+}
+
+// ================= shared by K3 and K4 =================
+
+__global__ void __launch_bounds__(kThreads)
+transpose_kernel(const float* __restrict__ src, float* dst, int n) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i < (long long)n * n) {
+    const int r = (int)(i / n), c = (int)(i % n);
+    dst[(long long)c * n + r] = src[i];
+  }
+}
+
+// Backward pass 1, one block per window: recompute g, t, r and pre from the
+// saved input and block statistics; dy from the layer above (K3) or from
+// dz wp^T (K4, the projector backward); dpre = PReLU'(pre) dy. Writes g,
+// the centred tc = t - t_mean and rc = r - r_mean, dpre to scratch,
+// per-window sums [3][co] = (sum dpre, sum dpre tc, sum dpre rc) and the
+// window's share of dalpha = sum dy min(pre, 0). Working
+// from centred values keeps the digits of a channel whose spread is small
+// against its mean (the TPU kernel's s2 - mean s1 loses them).
+__global__ void __launch_bounds__(kThreads)
+bwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int ghost,
+               const float* __restrict__ dy, const float* __restrict__ dz,
+               const float* __restrict__ wp, int latent, float* g_buf, float* t_buf,
+               float* r_buf, float* dpre_buf, float* part, float* dalpha_part) {
+  extern __shared__ __align__(16) float smem[];
+  const int ci = L.ci, co = L.co, tid = threadIdx.x, win = blockIdx.x;
+  float* xs = smem;
+  float* gs = xs + n * ci;
+  float* ws = gs + n * ci;
+  float* wrs = ws + ci * co;
+  float* red = wrs + ci * co;   // [kThreads]
+  float* dzs = red + kThreads;  // [latent]
+  const float* xb = x + (long long)win * n * ci;
+  for (int i = tid; i < n * ci; i += kThreads) xs[i] = xb[i];
+  for (int i = tid; i < ci * co; i += kThreads) {
+    ws[i] = L.w[i];
+    wrs[i] = L.identity ? 0.0f : L.wr[i];
+  }
+  if (dz != nullptr)
+    for (int l = tid; l < latent; l += kThreads) dzs[l] = dz[(long long)win * latent + l];
+  __syncthreads();
+  graph_contract(xs, L.m, gs, n, ci);
+  __syncthreads();
+  for (int i = tid; i < n * ci; i += kThreads) g_buf[(long long)win * n * ci + i] = gs[i];
+  const float* st = L.stats + (long long)(win / ghost) * 4 * co;
+  const float alpha = *L.alpha;
+  const long long base = (long long)win * n * co;
+  float dal = 0.0f;
+  for (int i = tid; i < n * co; i += kThreads) {
+    const int m = i / co, o = i - m * co;
+    float t = L.b[o];
+    for (int c = 0; c < ci; ++c) t = fmaf(gs[m * ci + c], ws[c * co + o], t);
+    float r;
+    if (L.identity) {
+      r = xs[m * ci + o];
+    } else {
+      r = L.br[o];
+      for (int c = 0; c < ci; ++c) r = fmaf(xs[m * ci + c], wrs[c * co + o], r);
+    }
+    const float tc = t - st[o];
+    const float rc = r - st[2 * co + o];  // an identity residual has mean 0: rc = x
+    const float pre = ghost_pre(L, st, o, t, r);
+    float g_out;
+    if (dz != nullptr) {
+      const float* wr = wp + (long long)i * latent;
+      g_out = 0.0f;
+      for (int l = 0; l < latent; ++l) g_out = fmaf(dzs[l], wr[l], g_out);
+    } else {
+      g_out = dy[base + i];
+    }
+    dal = fmaf(g_out, fminf(pre, 0.0f), dal);
+    t_buf[base + i] = tc;
+    r_buf[base + i] = rc;
+    dpre_buf[base + i] = pre < 0.0f ? alpha * g_out : g_out;
+  }
+  red[tid] = dal;
+  __syncthreads();  // also makes the block's global writes visible to it
+  block_reduce(red, 1);
+  if (tid == 0) dalpha_part[win] = red[0];
+  float* pw = part + (long long)win * 3 * co;
+  for (int o = tid; o < co; o += kThreads) {
+    float s1 = 0.0f, s2t = 0.0f, s2r = 0.0f;
+    for (int m = 0; m < n; ++m) {
+      const float d = dpre_buf[base + m * co + o];
+      s1 += d;
+      s2t = fmaf(d, t_buf[base + m * co + o], s2t);
+      s2r = fmaf(d, r_buf[base + m * co + o], s2r);
+    }
+    pw[o] = s1;
+    pw[co + o] = s2t;
+    pw[2 * co + o] = s2r;
+  }
+}
+
+// Backward pass 2, one block per ghost block: the ghost-BN backward's
+// per-channel constants d_raw = a dpre + b (raw - mean) + c for t (and r),
+// consts [k][6][co], and this block's dgamma, dbeta, dbias, gpart [k][6][co].
+// With x_hat = (raw - mean) inv: dgamma = sum dpre x_hat, a = gamma inv,
+// b = -a inv dgamma / cnt, c = -a sum(dpre) / cnt. dbias = sum d_raw =
+// b sum(raw - mean) is exactly zero (BatchNorm removes any shift of its
+// input), so it is written as 0; the TPU kernel's a s1 + b cnt mean + c cnt
+// is that zero plus rounding, which a channel with a large mean against its
+// spread magnifies.
+__global__ void __launch_bounds__(kThreads)
+bwd_consts_kernel(const float* __restrict__ part, Layer L, int ghost, int n, float* consts,
+                  float* gpart) {
+  const int co = L.co, k = blockIdx.x;
+  const float cnt = (float)ghost * (float)n;
+  const float* st = L.stats + (long long)k * 4 * co;
+  float* cs = consts + (long long)k * 6 * co;
+  float* gp = gpart + (long long)k * 6 * co;
+  for (int o = threadIdx.x; o < co; o += kThreads) {
+    float s[3] = {0.0f, 0.0f, 0.0f};  // s1, s2t, s2r
+    for (int w = 0; w < ghost; ++w) {
+      const float* row = part + ((long long)k * ghost + w) * 3 * co;
+#pragma unroll
+      for (int q = 0; q < 3; ++q) s[q] += row[q * co + o];
+    }
+    const float s1 = s[0];
+    for (int br = 0; br < 2; ++br) {
+      if (br == 1 && L.identity) {
+        for (int q = 3; q < 6; ++q) cs[q * co + o] = gp[q * co + o] = 0.0f;
+        break;
+      }
+      const float inv = st[(2 * br + 1) * co + o];
+      const float gam = br ? L.gamma_r[o] : L.gamma[o];
+      const float dgam = inv * s[1 + br];
+      const float a = gam * inv;
+      const float b = -a * inv * (dgam / cnt);
+      cs[(3 * br) * co + o] = a;
+      cs[(3 * br + 1) * co + o] = b;
+      cs[(3 * br + 2) * co + o] = -a * (s1 / cnt);
+      gp[(3 * br) * co + o] = dgam;
+      gp[(3 * br + 1) * co + o] = s1;
+      gp[(3 * br + 2) * co + o] = 0.0f;
+    }
+  }
+}
+
+// Backward pass 3, one block: sum the ghost blocks' shares into dgamma,
+// dbeta, db (and the residual's), dalpha over the windows, and dbp = sum dz.
+__global__ void __launch_bounds__(kThreads)
+bwd_reduce_kernel(const float* __restrict__ gpart, int n_blocks,
+                  const float* __restrict__ dalpha_part, int batch, Layer L, float* dgamma,
+                  float* dbeta, float* db, float* dgamma_r, float* dbeta_r, float* dbr,
+                  float* dalpha, const float* __restrict__ dz, int latent, float* dbp) {
+  extern __shared__ __align__(16) float red[];  // [kThreads]
+  const int co = L.co, tid = threadIdx.x;
+  float* outs[6] = {dgamma, dbeta, db, dgamma_r, dbeta_r, dbr};
+  for (int j = tid; j < 6 * co; j += kThreads) {
+    const int q = j / co, o = j - q * co;
+    if (q >= 3 && L.identity) continue;
+    float s = 0.0f;
+    for (int k = 0; k < n_blocks; ++k) s += gpart[(long long)k * 6 * co + j];
+    outs[q][o] = s;
+  }
+  float s = 0.0f;
+  for (int w = tid; w < batch; w += kThreads) s += dalpha_part[w];
+  red[tid] = s;
+  __syncthreads();
+  block_reduce(red, 1);
+  if (tid == 0) *dalpha = red[0];
+  if (dz == nullptr) return;  // uniform over the block
+  // dbp: thread j sums windows j / latent, + lanes, ... of column j % latent
+  // (all threads busy for latent <= kThreads), then one thread a column
+  // adds the lanes' sums.
+  const int lanes = latent <= kThreads ? kThreads / latent : 1;
+  for (int l0 = 0; l0 < latent; l0 += kThreads) {
+    __syncthreads();
+    const int l = l0 + tid % latent, lane = tid / latent;
+    float acc = 0.0f;
+    if (lane < lanes && l < latent)
+      for (int w = lane; w < batch; w += lanes) acc += dz[(long long)w * latent + l];
+    red[tid] = acc;
+    __syncthreads();
+    if (tid < latent - l0 && tid < kThreads) {
+      float total = 0.0f;
+      for (int k = 0; k < lanes; ++k) total += red[k * latent + tid];
+      dbp[l0 + tid] = total;
+    }
+  }
+}
+
+// Backward pass 4, one block per window: dt = a dpre + b tc + c (written over
+// tc), dr likewise (over rc; an identity residual has dr = dpre), dg = dt W^T
+// (to scratch, for dM) and, unless dx is null, dx = M dg + dr W_res^T.
+__global__ void __launch_bounds__(kThreads)
+bwd_dx_kernel(Layer L, int n, int ghost, const float* __restrict__ consts, float* t_buf,
+              float* r_buf, const float* __restrict__ dpre_buf, float* dg_buf,
+              const float* __restrict__ mt, float* dx) {
+  extern __shared__ __align__(16) float smem[];
+  const int ci = L.ci, co = L.co, tid = threadIdx.x, win = blockIdx.x;
+  float* dts = smem;
+  float* drs = dts + n * co;
+  float* dgs = drs + n * co;
+  float* hs = dgs + n * ci;
+  float* wts = hs + n * ci;    // W^T [co][ci]: consecutive threads (c) read
+  float* wrts = wts + ci * co;  // consecutive words, no bank conflicts
+  for (int i = tid; i < ci * co; i += kThreads) {
+    const int c = i / co, o = i - c * co;
+    wts[o * ci + c] = L.w[i];
+    wrts[o * ci + c] = L.identity ? 0.0f : L.wr[i];
+  }
+  const float* cs = consts + (long long)(win / ghost) * 6 * co;
+  const long long base = (long long)win * n * co;
+  for (int i = tid; i < n * co; i += kThreads) {
+    const int o = i % co;
+    const float dp = dpre_buf[base + i];
+    const float dt = fmaf(cs[o], dp, fmaf(cs[co + o], t_buf[base + i], cs[2 * co + o]));
+    dts[i] = dt;
+    t_buf[base + i] = dt;
+    if (L.identity) {
+      drs[i] = dp;
+    } else {
+      const float dr =
+          fmaf(cs[3 * co + o], dp, fmaf(cs[4 * co + o], r_buf[base + i], cs[5 * co + o]));
+      drs[i] = dr;
+      r_buf[base + i] = dr;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < n * ci; i += kThreads) {
+    const int m = i / ci, c = i - m * ci;
+    float s = 0.0f;
+    for (int o = 0; o < co; ++o) s = fmaf(dts[m * co + o], wts[o * ci + c], s);
+    dgs[i] = s;
+    dg_buf[(long long)win * n * ci + i] = s;
+  }
+  if (dx == nullptr) return;  // uniform over the block
+  __syncthreads();
+  graph_contract(dgs, mt, hs, n, ci);  // hs[k][c] = sum_m M[k][m] dg[m][c]
+  __syncthreads();
+  for (int i = tid; i < n * ci; i += kThreads) {
+    const int m = i / ci, c = i - m * ci;
+    float v = hs[i];
+    if (L.identity) {
+      v += drs[m * co + c];
+    } else {
+      for (int o = 0; o < co; ++o) v = fmaf(drs[m * co + o], wrts[o * ci + c], v);
+    }
+    dx[(long long)win * n * ci + i] = v;
+  }
+}
+
+// C[p][q] = sum over r = (b, k) of A[b*sab + p*sap + k*sak] * B[b*sbb + q*sbq + k*sbk],
+// the reduction split in blockIdx.y chunks of r_split; each split writes its
+// own [P][Q] slice of part.
+struct Product {
+  const float* a;
+  const float* b;
+  int p, q, nb, nk;
+  long long sab, sbb;
+  int sap, sak, sbq, sbk;
+};
+
+// One block computes a kPT x kPT tile of C, each thread a 4 x 4 register
+// tile of it (16 FMAs a 8 shared-memory reads), over its split of the
+// reduction in stages of kPR rows staged in shared memory. The loader walks
+// the operand's contiguous axis: p (or q) where its stride is 1, else the
+// reduction (dM's operands are contiguous along the channels it sums).
+// The reduction index r = b * nk + k stays below 2^31 (the wrapper checks),
+// so it is split with a 32-bit division: a 64-bit one is emulated in ~100
+// instructions, more than the FMAs an element feeds.
+template <bool kFast>
+__device__ __forceinline__ void stage_operand(const float* __restrict__ a, long long sb, int sp,
+                                              int sk, int nk, int n_p, int p0, int rc, int r1,
+                                              float* dst) {
+  for (int e = threadIdx.x; e < kPR * kPT; e += kThreads) {
+    const int j = kFast ? e / kPT : e % kPR;  // reduction row within the stage
+    const int i = kFast ? e % kPT : e / kPR;  // column within the tile
+    const int r = rc + j;
+    float v = 0.0f;
+    if (r < r1 && p0 + i < n_p) {
+      const int bi = r / nk, k = r - bi * nk;
+      v = a[bi * sb + (long long)(p0 + i) * sp + (long long)k * sk];
+    }
+    dst[j * (kPT + 4) + i] = v;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+product_kernel(Product pr, int r_split, float* part) {
+  extern __shared__ __align__(16) float smem[];
+  float* as = smem;                        // [kPR][kPT + 4]: r, p
+  float* bs = smem + kPR * (kPT + 4);      // [kPR][kPT + 4]: r, q
+  const int tid = threadIdx.x;
+  const int tiles_q = (pr.q + kPT - 1) / kPT;
+  const int p0 = (blockIdx.x / tiles_q) * kPT, q0 = (blockIdx.x % tiles_q) * kPT;
+  const int total = pr.nb * pr.nk;
+  const int r0 = blockIdx.y * r_split;
+  const int r1 = r0 + r_split < total ? r0 + r_split : total;
+  const int ty = tid / 16, tx = tid % 16;  // outputs (p0 + 4 ty + a, q0 + 4 tx + b)
+  float acc[4][4] = {};
+  for (int rc = r0; rc < r1; rc += kPR) {
+    if (pr.sap == 1)
+      stage_operand<true>(pr.a, pr.sab, pr.sap, pr.sak, pr.nk, pr.p, p0, rc, r1, as);
+    else
+      stage_operand<false>(pr.a, pr.sab, pr.sap, pr.sak, pr.nk, pr.p, p0, rc, r1, as);
+    if (pr.sbq == 1)
+      stage_operand<true>(pr.b, pr.sbb, pr.sbq, pr.sbk, pr.nk, pr.q, q0, rc, r1, bs);
+    else
+      stage_operand<false>(pr.b, pr.sbb, pr.sbq, pr.sbk, pr.nk, pr.q, q0, rc, r1, bs);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kPR; ++j) {
+      const float4 a4 = *reinterpret_cast<const float4*>(as + j * (kPT + 4) + 4 * ty);
+      const float4 b4 = *reinterpret_cast<const float4*>(bs + j * (kPT + 4) + 4 * tx);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) fma4(acc[a], comp(a4, a), b4);
+    }
+    __syncthreads();
+  }
+  float* out = part + (long long)blockIdx.y * pr.p * pr.q;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int pp = p0 + 4 * ty + a, qq = q0 + 4 * tx + b;
+      if (pp < pr.p && qq < pr.q) out[(long long)pp * pr.q + qq] = acc[a][b];
+    }
+}
+
+__global__ void __launch_bounds__(kThreads)
+sum_splits_kernel(const float* __restrict__ part, long long count, int splits, float* out) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= count) return;
+  float s = 0.0f;
+#pragma unroll 8
+  for (int k = 0; k < splits; ++k) s += part[(long long)k * count + i];
+  out[i] = s;
+}
+
+int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
+
+cudaError_t allow_smem(const void* kernel, long long bytes) {
+  if (bytes > 232448) return cudaErrorInvalidValue;  // 227 KB, the most a block may use
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+cudaError_t run_product(const Product& pr, int splits, float* prod_buf, float* out,
+                        cudaStream_t stream) {
+  const long long total = (long long)pr.nb * pr.nk;
+  if (splits < 1 || total >= (1LL << 31) - kPR) return cudaErrorInvalidValue;
+  int r_split = (int)((total + splits - 1) / splits);
+  r_split = (r_split + kPR - 1) / kPR * kPR;
+  const dim3 grid(((pr.p + kPT - 1) / kPT) * ((pr.q + kPT - 1) / kPT), splits);
+  const size_t smem = sizeof(float) * 2 * kPR * (kPT + 4);
+  product_kernel<<<grid, kThreads, smem, stream>>>(pr, r_split, prod_buf);
+  const long long count = (long long)pr.p * pr.q;
+  sum_splits_kernel<<<blocks_for(count), kThreads, 0, stream>>>(prod_buf, count, splits, out);
+  return cudaGetLastError();
+}
+
+Layer fwd_layer(const long long* r) {
+  Layer L;
+  L.ci = (int)r[FL_CI];
+  L.co = (int)r[FL_CO];
+  L.identity = (int)r[FL_IDENTITY];
+  L.m = ptr<const float>(r, FL_M);
+  L.w = ptr<const float>(r, FL_W);
+  L.b = ptr<const float>(r, FL_B);
+  L.gamma = ptr<const float>(r, FL_GAMMA);
+  L.beta = ptr<const float>(r, FL_BETA);
+  L.wr = ptr<const float>(r, FL_W_RES);
+  L.br = ptr<const float>(r, FL_B_RES);
+  L.gamma_r = ptr<const float>(r, FL_GAMMA_RES);
+  L.beta_r = ptr<const float>(r, FL_BETA_RES);
+  L.alpha = ptr<const float>(r, FL_ALPHA);
+  L.stats = ptr<const float>(r, FL_STATS);
+  return L;
+}
+
+int run_backward(const long long* d, bool top, cudaStream_t stream) {
+  const int batch = (int)d[BD_BATCH], n = (int)d[BD_N_NODES], ghost = (int)d[BD_GHOST];
+  const int latent = (int)d[BD_LATENT];
+  Layer L;
+  L.ci = (int)d[BD_CI];
+  L.co = (int)d[BD_CO];
+  L.identity = (int)d[BD_IDENTITY];
+  L.m = ptr<const float>(d, BD_M);
+  L.w = ptr<const float>(d, BD_W);
+  L.b = ptr<const float>(d, BD_B);
+  L.gamma = ptr<const float>(d, BD_GAMMA);
+  L.beta = ptr<const float>(d, BD_BETA);
+  L.wr = ptr<const float>(d, BD_W_RES);
+  L.br = ptr<const float>(d, BD_B_RES);
+  L.gamma_r = ptr<const float>(d, BD_GAMMA_RES);
+  L.beta_r = ptr<const float>(d, BD_BETA_RES);
+  L.alpha = ptr<const float>(d, BD_ALPHA);
+  L.stats = ptr<const float>(d, BD_STATS);
+  const int ci = L.ci, co = L.co;
+  if (batch < 1 || ghost < 1 || batch % ghost != 0 || n < 1 || ci < 1 || co < 1 ||
+      (L.identity && ci != co) || (top && (latent < 1 || d[BD_DZ] == 0 || d[BD_WP] == 0)) ||
+      (!top && d[BD_DY] == 0))
+    return (int)cudaErrorInvalidValue;
+  const int n_blocks = batch / ghost;
+  const float* x = ptr<const float>(d, BD_X);
+  const float* dz = top ? ptr<const float>(d, BD_DZ) : nullptr;
+  const float* dy = top ? nullptr : ptr<const float>(d, BD_DY);
+  float* g_buf = ptr<float>(d, BD_G_BUF);
+  float* t_buf = ptr<float>(d, BD_T_BUF);
+  float* r_buf = ptr<float>(d, BD_R_BUF);
+  float* dpre_buf = ptr<float>(d, BD_DPRE_BUF);
+  float* dg_buf = ptr<float>(d, BD_DG_BUF);
+  float* part = ptr<float>(d, BD_PART);
+  float* dalpha_part = ptr<float>(d, BD_DALPHA_PART);
+  float* consts = ptr<float>(d, BD_CONSTS);
+  float* gpart = ptr<float>(d, BD_GPART);
+  float* prod_buf = ptr<float>(d, BD_PROD_BUF);
+  float* mt = ptr<float>(d, BD_MT);
+  float* dx = ptr<float>(d, BD_DX);
+
+  const long long smem_pre =
+      sizeof(float) * (2LL * n * ci + 2LL * ci * co + kThreads + (top ? latent : 0));
+  const long long smem_dx = sizeof(float) * (2LL * n * co + 2LL * n * ci + 2LL * ci * co);
+  cudaError_t err = allow_smem((const void*)bwd_pre_kernel, smem_pre);
+  if (err == cudaSuccess) err = allow_smem((const void*)bwd_dx_kernel, smem_dx);
+  if (err != cudaSuccess) return (int)err;
+
+  if (dx != nullptr)
+    transpose_kernel<<<blocks_for((long long)n * n), kThreads, 0, stream>>>(L.m, mt, n);
+  bwd_pre_kernel<<<batch, kThreads, (size_t)smem_pre, stream>>>(
+      x, L, n, ghost, dy, dz, ptr<const float>(d, BD_WP), latent, g_buf, t_buf, r_buf,
+      dpre_buf, part, dalpha_part);
+  bwd_consts_kernel<<<n_blocks, kThreads, 0, stream>>>(part, L, ghost, n, consts, gpart);
+  bwd_reduce_kernel<<<1, kThreads, sizeof(float) * kThreads, stream>>>(
+      gpart, n_blocks, dalpha_part, batch, L, ptr<float>(d, BD_DGAMMA), ptr<float>(d, BD_DBETA),
+      ptr<float>(d, BD_DB), ptr<float>(d, BD_DGAMMA_RES), ptr<float>(d, BD_DBETA_RES),
+      ptr<float>(d, BD_DB_RES), ptr<float>(d, BD_DALPHA), dz, latent, ptr<float>(d, BD_DBP));
+  bwd_dx_kernel<<<batch, kThreads, (size_t)smem_dx, stream>>>(L, n, ghost, consts, t_buf, r_buf,
+                                                              dpre_buf, dg_buf, mt, dx);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // dW = sum g^T dt and dW_res = sum x^T dr over all B*N rows.
+  Product pw{g_buf, t_buf, ci, co, batch, n, (long long)n * ci, (long long)n * co, 1, ci, 1, co};
+  err = run_product(pw, (int)d[BD_SPLITS_W], prod_buf, ptr<float>(d, BD_DW), stream);
+  if (err == cudaSuccess && !L.identity) {
+    Product pr{x, r_buf, ci, co, batch, n, (long long)n * ci, (long long)n * co, 1, ci, 1, co};
+    err = run_product(pr, (int)d[BD_SPLITS_W_RES], prod_buf, ptr<float>(d, BD_DW_RES), stream);
+  }
+  // dM[k][m] = sum over windows and channels of x[k][c] dg[m][c].
+  if (err == cudaSuccess) {
+    Product pm{x, dg_buf, n, n, batch, ci, (long long)n * ci, (long long)n * ci, ci, 1, ci, 1};
+    err = run_product(pm, (int)d[BD_SPLITS_M], prod_buf, ptr<float>(d, BD_DM), stream);
+  }
+  // K4: dwp = sum over windows of y_flat^T dz.
+  if (err == cudaSuccess && top) {
+    Product pp{ptr<const float>(d, BD_Y_TOP), dz, n * co, latent, batch, 1,
+               (long long)n * co, (long long)latent, 1, 0, 1, 0};
+    err = run_product(pp, (int)d[BD_SPLITS_WP], prod_buf, ptr<float>(d, BD_DWP), stream);
+  }
+  return (int)err;
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* stse_train_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// K2. desc: FH_COUNT header fields, then n_layers rows of FL_COUNT fields
+// (see FwdHeader / FwdLayerField; built by stse_train.py). Scratch t_buf,
+// r_buf [B, N, max C_out], part [B, 4, max C_out] and block_sums
+// [B / ghost, 4, max C_out].
+int stse_train_forward(const long long* desc, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const int n_layers = (int)desc[FH_N_LAYERS], batch = (int)desc[FH_BATCH];
+  const int n = (int)desc[FH_N_NODES], ghost = (int)desc[FH_GHOST];
+  const int latent = (int)desc[FH_LATENT];
+  if (n_layers < 1 || batch < 1 || ghost < 1 || batch % ghost != 0 || n < 1 || latent < 1)
+    return (int)cudaErrorInvalidValue;
+  const int n_blocks = batch / ghost;
+  float* t_buf = ptr<float>(desc, FH_T_BUF);
+  float* r_buf = ptr<float>(desc, FH_R_BUF);
+  float* part = ptr<float>(desc, FH_PART);
+  float* block_sums = ptr<float>(desc, FH_BLOCK_SUMS);
+  const float* x = ptr<const float>(desc, FH_X);
+  for (int l = 0; l < n_layers; ++l) {
+    const long long* row = desc + FH_COUNT + (long long)l * FL_COUNT;
+    const Layer L = fwd_layer(row);
+    if (L.ci < 1 || L.co < 1 || (L.identity && L.ci != L.co)) return (int)cudaErrorInvalidValue;
+    const bool last = l == n_layers - 1;
+    float* act = ptr<float>(row, FL_ACT);
+    float* stats = ptr<float>(row, FL_STATS);
+    const long long smem_pre = sizeof(float) * (2LL * n * L.ci + 2LL * L.ci * L.co);
+    const long long smem_apply = sizeof(float) * kLatentChunk * kThreads;
+    cudaError_t err = allow_smem((const void*)fwd_pre_kernel, smem_pre);
+    if (err != cudaSuccess) return (int)err;
+    fwd_pre_kernel<<<batch, kThreads, (size_t)smem_pre, stream>>>(x, L, n, t_buf, r_buf, part);
+    fwd_stats_kernel<<<n_blocks, kThreads, 0, stream>>>(part, L, ghost, n, stats, block_sums);
+    fwd_sums_kernel<<<1, kThreads, 0, stream>>>(block_sums, L.co, n_blocks,
+                                                ptr<float>(row, FL_SUMS));
+    fwd_apply_kernel<<<batch, kThreads, (size_t)smem_apply, stream>>>(
+        L, n, ghost, t_buf, r_buf, act, last ? ptr<const float>(desc, FH_WP) : nullptr,
+        last ? ptr<const float>(desc, FH_BP) : nullptr, last ? ptr<float>(desc, FH_Z) : nullptr,
+        latent);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    x = act;
+  }
+  return (int)cudaSuccess;
+}
+
+// K3: one lower layer's backward (desc: BD_COUNT fields, BD_DY set, BD_DZ 0).
+int stse_train_layer_backward(const long long* desc, void* stream) {
+  return run_backward(desc, false, (cudaStream_t)stream);
+}
+
+// K4: the top layer's backward with the projector's (BD_DZ, BD_WP, BD_Y_TOP set).
+int stse_train_top_backward(const long long* desc, void* stream) {
+  return run_backward(desc, true, (cudaStream_t)stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,605 @@
+"""Train-mode STSE encoder with ghost BatchNorm: forward and split backward.
+
+Replaces the Pallas kernels of `coskad_tpu/kernels/stse_train.py`:
+
+    K2  `_fwd_kernel` (:432, via `_fwd_pallas` :843)       -> `ghost_forward`
+    K3  `_layer_bwd_kernel` (:790, `_layer_bwd_body` :566) -> `layer_backward`
+    K4  `_top_layer_bwd_kernel` (:738)                     -> `top_backward`
+
+each one C entry point of `csrc/stse_train.cu` (CUDA C++ for sm_90a, built
+by `build.py` at first use, bound with ctypes). `FusedGhostEncode` is the
+port of the custom VJP `fused_ghost_encode` (:1061-1107): K2 forward, then K4
+for the top layer and K3 for each layer below. `fused_stse_apply` (:1110) is
+the train-mode encode a Trainer calls; it also folds the exact full-batch
+pre-BN sums into the model's running statistics (`updated_batch_stats`,
+:1176), in place on the BatchNorm buffers where flax returns a new tree.
+
+Ghost BatchNorm normalizes each block of `ghost_size` consecutive windows
+with the biased statistics of its ghost_size * T * V rows; an identity
+residual (C_in == C_out) adds the layer input itself (W_res = I, no BN).
+Activations are node-major [B, T*V, C] throughout, like K1's output; the
+TPU kernel's [C, B, 256] layout, its (8, C) stat rows and its node padding
+were Mosaic workarounds and are not carried over.
+
+Dispatch, as for K1: a CUDA tensor launches the kernels or raises; a CPU
+tensor takes the plain PyTorch versions beside them (`ghost_forward_reference`,
+and autograd through `ghost_layer_reference` for the backward).
+
+What bounds the kernels on an H100: fp32 operations (see `work` and the
+source's header).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .stse_fused import LaunchCounter, combined_graph_matrix
+
+SOURCE = "coskad_tpu_torch/kernels/csrc/stse_train.cu"
+REPLACES = {
+    "stse_train_forward": "coskad_tpu/kernels/stse_train.py:432",
+    "stse_train_layer_backward": "coskad_tpu/kernels/stse_train.py:790",
+    "stse_train_top_backward": "coskad_tpu/kernels/stse_train.py:738",
+}
+BN_EPS = 1e-5
+
+forward_launches = LaunchCounter()  # K2
+layer_backward_launches = LaunchCounter()  # K3
+top_backward_launches = LaunchCounter()  # K4
+
+# Descriptor fields, in the order of the enums in csrc/stse_train.cu.
+_FWD_HEADER = ("n_layers", "batch", "n_nodes", "ghost", "latent", "x", "wp", "bp", "z",
+               "t_buf", "r_buf", "part", "block_sums")
+_FWD_LAYER = ("ci", "co", "identity", "m", "w", "b", "gamma", "beta", "w_res", "b_res",
+              "gamma_res", "beta_res", "alpha", "act", "stats", "sums")
+_BWD = ("batch", "n_nodes", "ghost", "ci", "co", "identity", "latent", "x", "dy", "dz", "wp",
+        "y_top", "m", "w", "b", "gamma", "beta", "w_res", "b_res", "gamma_res", "beta_res",
+        "alpha", "stats", "dm", "dw", "db", "dgamma", "dbeta", "dw_res", "db_res",
+        "dgamma_res", "dbeta_res", "dalpha", "dx", "dwp", "dbp", "mt", "g_buf", "t_buf",
+        "r_buf", "dpre_buf", "dg_buf", "part", "dalpha_part", "consts", "gpart", "prod_buf",
+        "splits_w", "splits_w_res", "splits_m", "splits_wp")
+
+
+class LayerOps(NamedTuple):
+    """One layer's operands, flax orientation. The residual fields are None
+    for an identity residual (`identity`, the counterpart of the JAX
+    package's `has_identity_residual`)."""
+
+    m: torch.Tensor  # [N, N] combined graph matrix
+    w: torch.Tensor  # [C_in, C_out] tcn dense
+    b: torch.Tensor  # [C_out]
+    gamma: torch.Tensor  # [C_out] tcn BN scale
+    beta: torch.Tensor  # [C_out] tcn BN bias
+    w_res: Optional[torch.Tensor]  # [C_in, C_out] residual dense
+    b_res: Optional[torch.Tensor]
+    gamma_res: Optional[torch.Tensor]
+    beta_res: Optional[torch.Tensor]
+    alpha: torch.Tensor  # [] PReLU slope
+
+    @property
+    def identity(self) -> bool:
+        return self.w_res is None
+
+
+class EncoderOps(NamedTuple):
+    layers: Tuple[LayerOps, ...]
+    wp: torch.Tensor  # [N * C_hidden, latent], node-major rows (the flax kernel as it is)
+    bp: torch.Tensor  # [latent]
+
+
+N_LAYER_OPS = len(LayerOps._fields)
+
+
+def _bias(dense) -> torch.Tensor:
+    if dense.bias is not None:
+        return dense.bias
+    return dense.kernel.new_zeros(dense.kernel.shape[1])
+
+
+def encoder_ops(model) -> EncoderOps:
+    """Kernel operands from an STSE's modules, built differentiably, so the
+    gradients of M reach `gcn.t_adj` / `gcn.a_adj` through
+    `combined_graph_matrix` (the counterpart of `encoder_ops_from_tree`)."""
+    layers = []
+    for i in range(model.encoder.n_layers):
+        lay = getattr(model.encoder, f"layer_{i}")
+        res = lay.residual_dense
+        layers.append(LayerOps(
+            m=combined_graph_matrix(lay.gcn.t_adj, lay.gcn.a_adj),
+            w=lay.tcn_dense.kernel, b=_bias(lay.tcn_dense),
+            gamma=lay.tcn_bn.scale, beta=lay.tcn_bn.bias,
+            w_res=None if res is None else res.kernel,
+            b_res=None if res is None else _bias(res),
+            gamma_res=None if res is None else lay.residual_bn.scale,
+            beta_res=None if res is None else lay.residual_bn.bias,
+            alpha=lay.prelu.alpha,
+        ))
+    return EncoderOps(tuple(layers), model.btlnk.kernel, _bias(model.btlnk))
+
+
+def detached(ops: EncoderOps, dtype: Optional[torch.dtype] = None) -> EncoderOps:
+    """The operands cut from autograd and, with `dtype`, cast (the kernels
+    are held against their plain versions run in float64)."""
+
+    def cut(t):
+        return None if t is None else t.detach().to(dtype or t.dtype)
+
+    return EncoderOps(tuple(LayerOps(*(cut(t) for t in lay)) for lay in ops.layers),
+                      cut(ops.wp), cut(ops.bp))
+
+
+# --------------------------------------------------------------------------
+# Plain PyTorch versions (the semantics; the CPU path; the kernels' oracle)
+# --------------------------------------------------------------------------
+
+
+def _ghost_bn(h: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor):
+    """BatchNorm over the rows of each block, biased variance (flax's
+    formula). h: [n_blocks, rows, C]. Returns (y, mean, var), mean and var
+    [n_blocks, C]."""
+    mean = h.mean(dim=1)
+    var = torch.clamp((h * h).mean(dim=1) - mean * mean, min=0.0)
+    y = (h - mean[:, None]) * torch.rsqrt(var + BN_EPS)[:, None] * gamma + beta
+    return y, mean, var
+
+
+def ghost_layer_reference(x: torch.Tensor, lay: LayerOps, ghost_size: int,
+                          positive: Optional[torch.Tensor] = None):
+    """One ST-GCNN layer with ghost BatchNorm. x: [B, N, C_in] node-major.
+
+    Returns (y [B, N, C_out], stats [n_blocks, 4, C_out] = (t_mean,
+    t_inv_std, r_mean, r_inv_std) per ghost block, sums [4, C_out] = the
+    full-batch (sum t, sum t^2, sum r, sum r^2) of the pre-BN values). An
+    identity residual has r = x, block statistics (0, 1) and no BN.
+
+    `positive` [B, N, C_out], if given, is PReLU's branch per element in
+    place of pre >= 0: at a pre-activation within rounding of 0 the branch
+    (and so the derivative) is a coin toss between two roundings, so a check
+    that holds a kernel's backward to this version passes the branches the
+    kernel's own forward took."""
+    b, n, ci = x.shape
+    co = lay.w.shape[1]
+    nb = b // ghost_size
+    g = torch.einsum("bnc,nm->bmc", x, lay.m)
+    t = (g @ lay.w + lay.b).reshape(nb, ghost_size * n, co)
+    tn, t_mean, t_var = _ghost_bn(t, lay.gamma, lay.beta)
+    if lay.identity:
+        r = x.reshape(nb, ghost_size * n, ci)
+        rn, r_mean, r_inv = r, torch.zeros_like(t_mean), torch.ones_like(t_mean)
+    else:
+        r = (x @ lay.w_res + lay.b_res).reshape(nb, ghost_size * n, co)
+        rn, r_mean, r_var = _ghost_bn(r, lay.gamma_res, lay.beta_res)
+        r_inv = torch.rsqrt(r_var + BN_EPS)
+    pre = tn + rn
+    branch = pre >= 0 if positive is None else positive.reshape(pre.shape)
+    y = torch.where(branch, pre, lay.alpha * pre).reshape(b, n, co)
+    stats = torch.stack([t_mean, torch.rsqrt(t_var + BN_EPS), r_mean, r_inv], dim=1)
+    sums = torch.stack([t.sum((0, 1)), (t * t).sum((0, 1)), r.sum((0, 1)),
+                        (r * r).sum((0, 1))])
+    return y, stats, sums
+
+
+def ghost_forward_reference(x: torch.Tensor, ops: EncoderOps, ghost_size: int):
+    """K2's plain version. x: [B, N, C_in] -> (z [B, latent], sums per layer
+    [4, C_out], acts per layer [B, N, C_out], stats per layer [n_blocks, 4,
+    C_out])."""
+    sums, acts, stats = [], [], []
+    h = x
+    for lay in ops.layers:
+        h, st, s = ghost_layer_reference(h, lay, ghost_size)
+        acts.append(h)
+        stats.append(st)
+        sums.append(s)
+    z = h.reshape(h.shape[0], -1) @ ops.wp + ops.bp
+    return z, sums, acts, stats
+
+
+def ghost_encode_reference(ops: EncoderOps, x: torch.Tensor, ghost_size: int):
+    """Counterpart of `ghost_encode_reference`: x [B, C_in, T, V] ->
+    (z [B, latent], per-layer dicts of full-batch pre-BN sums)."""
+    b, c, t, v = x.shape
+    if b % ghost_size:
+        raise ValueError(f"batch {b} is not a multiple of ghost_size {ghost_size}")
+    z, sums, _, _ = ghost_forward_reference(
+        x.permute(0, 2, 3, 1).reshape(b, t * v, c), ops, ghost_size)
+    keys = ("tcn_sum", "tcn_sumsq", "res_sum", "res_sumsq")
+    return z, [dict(zip(keys, s.unbind(0)), count=float(b * t * v)) for s in sums]
+
+
+def _grads_through(fn, inputs: Sequence[Optional[torch.Tensor]], grad_out: torch.Tensor):
+    """Gradients of fn(*leaves) against grad_out for every input that is not
+    None (None stays None), by autograd on detached copies."""
+    leaves = [None if a is None else a.detach().requires_grad_(True) for a in inputs]
+    with torch.enable_grad():
+        out = fn(*leaves)
+        live = [a for a in leaves if a is not None]
+        grads = iter(torch.autograd.grad(out, live, grad_out, allow_unused=True))
+    out = []
+    for a in leaves:
+        if a is None:
+            out.append(None)
+            continue
+        g = next(grads)
+        out.append(torch.zeros_like(a) if g is None else g)
+    return out
+
+
+def layer_backward_reference(x: torch.Tensor, dy: torch.Tensor, lay: LayerOps,
+                             ghost_size: int, need_dx: bool = True,
+                             positive: Optional[torch.Tensor] = None):
+    """K3's plain version: autograd through the ghost layer from its saved
+    input. Returns (LayerOps of gradients, dx or None). `positive`: see
+    `ghost_layer_reference`."""
+
+    def fn(xx, *ops):
+        return ghost_layer_reference(xx, LayerOps(*ops), ghost_size, positive)[0]
+
+    grads = _grads_through(fn, [x, *lay], dy)
+    return LayerOps(*grads[1:]), grads[0] if need_dx else None
+
+
+def top_backward_reference(x: torch.Tensor, dz: torch.Tensor, lay: LayerOps,
+                           wp: torch.Tensor, bp: torch.Tensor, ghost_size: int,
+                           need_dx: bool = True, positive: Optional[torch.Tensor] = None):
+    """K4's plain version: autograd through the top ghost layer and the
+    projector. Returns (LayerOps of gradients, dwp, dbp, dx or None).
+    `positive`: see `ghost_layer_reference`."""
+
+    def fn(xx, wpp, bpp, *ops):
+        y = ghost_layer_reference(xx, LayerOps(*ops), ghost_size, positive)[0]
+        return y.reshape(y.shape[0], -1) @ wpp + bpp
+
+    grads = _grads_through(fn, [x, wp, bp, *lay], dz)
+    return LayerOps(*grads[3:]), grads[1], grads[2], grads[0] if need_dx else None
+
+
+# --------------------------------------------------------------------------
+# CUDA launches
+# --------------------------------------------------------------------------
+
+
+def _library():
+    from . import build
+
+    lib = build.load("stse_train")
+    if not getattr(lib, "_coskad_typed", False):
+        for fn in ("stse_train_forward", "stse_train_layer_backward", "stse_train_top_backward"):
+            getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.stse_train_error_string.argtypes = [ctypes.c_int]
+        lib.stse_train_error_string.restype = ctypes.c_char_p
+        lib._coskad_typed = True
+    return lib
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _checked(t: Optional[torch.Tensor], device: torch.device, shape, name: str):
+    """A contiguous float32 tensor of `shape` on `device` (None stays None)."""
+    if t is None:
+        return None
+    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"stse_train: {name} must be float32 {tuple(shape)} on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return t.detach().contiguous()
+
+
+def _layer_operands(lay: LayerOps, n: int, device) -> LayerOps:
+    ci, co = lay.w.shape
+    if lay.identity and ci != co:
+        raise ValueError("an identity residual needs C_in == C_out")
+    shapes = dict(m=(n, n), w=(ci, co), b=(co,), gamma=(co,), beta=(co,), w_res=(ci, co),
+                  b_res=(co,), gamma_res=(co,), beta_res=(co,), alpha=())
+    return LayerOps(*(_checked(getattr(lay, f), device, shapes[f], f) for f in LayerOps._fields))
+
+
+def _run(lib, fn: str, desc: np.ndarray, device) -> None:
+    desc = np.ascontiguousarray(desc, np.int64)
+    if device.type == "cuda":
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = getattr(lib, fn)(desc.ctypes.data, stream)
+    else:  # the CUDA source run on the host by the tests
+        err = getattr(lib, fn)(desc.ctypes.data, None)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: {lib.stse_train_error_string(err).decode()}")
+
+
+def launch_forward(lib, x: torch.Tensor, ops: EncoderOps, ghost_size: int):
+    """Run K2 from `lib` on x [B, N, C_in] (the device's tensors, or host
+    tensors for the CUDA source compiled on the host). Same returns as
+    `ghost_forward_reference`."""
+    b, n, c0 = x.shape
+    dev = x.device
+    if b % ghost_size or b < 1:
+        raise ValueError(f"batch {b} must be a positive multiple of ghost_size {ghost_size}")
+    if ops.layers[0].w.shape[0] != c0:
+        raise ValueError(f"input has {c0} channels, layer 0 takes {ops.layers[0].w.shape[0]}")
+    x = _checked(x, dev, (b, n, c0), "x")
+    layers = [_layer_operands(lay, n, dev) for lay in ops.layers]
+    c_hidden = layers[-1].w.shape[1]
+    latent = ops.wp.shape[1]
+    wp = _checked(ops.wp, dev, (n * c_hidden, latent), "wp")
+    bp = _checked(ops.bp, dev, (latent,), "bp")
+    cmax = max(lay.w.shape[1] for lay in layers)
+    f32 = dict(dtype=torch.float32, device=dev)
+    z = torch.empty((b, latent), **f32)
+    t_buf = torch.empty((b * n * cmax,), **f32)
+    r_buf = torch.empty((b * n * cmax,), **f32)
+    part = torch.empty((b * 4 * cmax,), **f32)
+    block_sums = torch.empty((b // ghost_size * 4 * cmax,), **f32)
+    acts, stats, sums = [], [], []
+    desc = [len(layers), b, n, ghost_size, latent, _ptr(x), _ptr(wp), _ptr(bp), _ptr(z),
+            _ptr(t_buf), _ptr(r_buf), _ptr(part), _ptr(block_sums)]
+    for lay in layers:
+        ci, co = lay.w.shape
+        acts.append(torch.empty((b, n, co), **f32))
+        stats.append(torch.empty((b // ghost_size, 4, co), **f32))
+        sums.append(torch.empty((4, co), **f32))
+        desc += [ci, co, int(lay.identity), *(_ptr(t) for t in lay), _ptr(acts[-1]),
+                 _ptr(stats[-1]), _ptr(sums[-1])]
+    assert len(desc) == len(_FWD_HEADER) + len(layers) * len(_FWD_LAYER)
+    _run(lib, "stse_train_forward", np.asarray(desc, np.int64), dev)
+    return z, sums, acts, stats
+
+
+def product_splits(p: int, q: int, rows: int, target_blocks: int = 264) -> int:
+    """How many blocks share one 64 x 64 output tile's reduction of `rows`
+    terms: enough for ~2 blocks per SM over the output tiles, at least 512
+    rows each."""
+    tiles = -(-p // 64) * -(-q // 64)
+    return max(1, min(-(-target_blocks // tiles), rows // 512))
+
+
+def launch_backward(lib, x: torch.Tensor, stats: torch.Tensor, lay: LayerOps,
+                    ghost_size: int, need_dx: bool, dy: Optional[torch.Tensor] = None,
+                    dz: Optional[torch.Tensor] = None, y_top: Optional[torch.Tensor] = None,
+                    wp: Optional[torch.Tensor] = None):
+    """Run K3 (dy given) or K4 (dz, y_top and wp given) from `lib`. Returns
+    (LayerOps of gradients, dwp, dbp, dx); dwp and dbp are None for K3 and
+    dx is None unless need_dx."""
+    b, n, ci = x.shape
+    dev = x.device
+    top = dz is not None
+    co = lay.w.shape[1]
+    if b % ghost_size or b < 1:
+        raise ValueError(f"batch {b} must be a positive multiple of ghost_size {ghost_size}")
+    x = _checked(x, dev, (b, n, ci), "x")
+    lay = _layer_operands(lay, n, dev)
+    stats = _checked(stats, dev, (b // ghost_size, 4, co), "stats")
+    latent = 0
+    if top:
+        latent = dz.shape[1]
+        dz = _checked(dz, dev, (b, latent), "dz")
+        y_top = _checked(y_top, dev, (b, n, co), "y_top")
+        wp = _checked(wp, dev, (n * co, latent), "wp")
+    else:
+        dy = _checked(dy, dev, (b, n, co), "dy")
+    f32 = dict(dtype=torch.float32, device=dev)
+    grads = LayerOps(*(None if t is None else torch.empty(t.shape, **f32) for t in lay))
+    dx = torch.empty((b, n, ci), **f32) if need_dx else None
+    dwp = torch.empty((n * co, latent), **f32) if top else None
+    dbp = torch.empty((latent,), **f32) if top else None
+    rows = b * n
+    splits = dict(w=product_splits(ci, co, rows), w_res=product_splits(ci, co, rows),
+                  m=product_splits(n, n, b * ci), wp=product_splits(n * co, latent, b) if top else 1)
+    prod = max(splits["w"] * ci * co, splits["m"] * n * n,
+               splits["wp"] * n * co * latent if top else 0)
+    nb = b // ghost_size
+    scratch = dict(
+        mt=torch.empty((n * n,), **f32) if need_dx else None,
+        g_buf=torch.empty((rows * ci,), **f32), t_buf=torch.empty((rows * co,), **f32),
+        r_buf=torch.empty((rows * co,), **f32), dpre_buf=torch.empty((rows * co,), **f32),
+        dg_buf=torch.empty((rows * ci,), **f32), part=torch.empty((b * 3 * co,), **f32),
+        dalpha_part=torch.empty((b,), **f32), consts=torch.empty((nb * 6 * co,), **f32),
+        gpart=torch.empty((nb * 6 * co,), **f32), prod_buf=torch.empty((prod,), **f32))
+    fields = dict(
+        batch=b, n_nodes=n, ghost=ghost_size, ci=ci, co=co, identity=int(lay.identity),
+        latent=latent, x=_ptr(x), dy=_ptr(dy), dz=_ptr(dz), wp=_ptr(wp), y_top=_ptr(y_top),
+        stats=_ptr(stats), dx=_ptr(dx), dwp=_ptr(dwp), dbp=_ptr(dbp),
+        **{f: _ptr(getattr(lay, f)) for f in LayerOps._fields},
+        **{"d" + f: _ptr(getattr(grads, f)) for f in LayerOps._fields},
+        **{k: _ptr(v) for k, v in scratch.items()},
+        **{f"splits_{k}": v for k, v in splits.items()})
+    desc = np.asarray([fields[f] for f in _BWD], np.int64)
+    _run(lib, "stse_train_top_backward" if top else "stse_train_layer_backward", desc, dev)
+    return grads, dwp, dbp, dx
+
+
+# --------------------------------------------------------------------------
+# The wrappers: kernel on a CUDA tensor, plain version on a CPU tensor
+# --------------------------------------------------------------------------
+
+
+def _route(x: torch.Tensor) -> bool:
+    if x.is_cuda:
+        return True
+    if x.device.type != "cpu":
+        raise ValueError(f"stse_train runs on CUDA or CPU tensors, not {x.device}")
+    return False
+
+
+def ghost_forward(x: torch.Tensor, ops: EncoderOps, ghost_size: int):
+    """K2: x [B, N, C_in] -> (z, sums, acts, stats), see
+    `ghost_forward_reference`."""
+    if _route(x):
+        with torch.no_grad():
+            out = launch_forward(_library(), x, ops, ghost_size)
+        forward_launches.value += 1
+        return out
+    return ghost_forward_reference(x, ops, ghost_size)
+
+
+def layer_backward(x: torch.Tensor, dy: torch.Tensor, lay: LayerOps, stats: torch.Tensor,
+                   ghost_size: int, need_dx: bool = True):
+    """K3: one lower layer's backward from its saved input and block
+    statistics. Returns (LayerOps of gradients, dx or None)."""
+    if _route(x):
+        with torch.no_grad():
+            grads, _, _, dx = launch_backward(_library(), x, stats, lay, ghost_size, need_dx,
+                                              dy=dy)
+        layer_backward_launches.value += 1
+        return grads, dx
+    return layer_backward_reference(x, dy, lay, ghost_size, need_dx)
+
+
+def top_backward(x: torch.Tensor, y_top: torch.Tensor, dz: torch.Tensor, lay: LayerOps,
+                 stats: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor, ghost_size: int,
+                 need_dx: bool = True):
+    """K4: the top layer's backward with the projector's. Returns (LayerOps
+    of gradients, dwp, dbp, dx or None)."""
+    if _route(x):
+        with torch.no_grad():
+            out = launch_backward(_library(), x, stats, lay, ghost_size, need_dx, dz=dz,
+                                  y_top=y_top, wp=wp)
+        top_backward_launches.value += 1
+        return out
+    return top_backward_reference(x, dz, lay, wp, bp, ghost_size, need_dx)
+
+
+class FusedGhostEncode(torch.autograd.Function):
+    """Ghost-BN STSE encode with the split backward (the port of
+    `fused_ghost_encode`). forward(x [B, N, C_in], ghost_size, n_layers,
+    *flat operands: N_LAYER_OPS per layer then wp, bp) -> (z, *per-layer
+    sums). The sums carry no gradient, and x gets none: it is data."""
+
+    @staticmethod
+    def forward(ctx, x, ghost_size, n_layers, *flat):
+        ops = _unflatten(flat, n_layers)
+        z, sums, acts, stats = ghost_forward(x, ops, ghost_size)
+        ctx.ghost_size, ctx.n_layers = ghost_size, n_layers
+        ctx.save_for_backward(x, *acts, *stats, *(t for t in flat if t is not None))
+        ctx.present = [t is not None for t in flat]
+        ctx.mark_non_differentiable(*sums)
+        return (z, *sums)
+
+    @staticmethod
+    def backward(ctx, dz, *_):
+        n_layers = ctx.n_layers
+        saved = ctx.saved_tensors
+        x, acts, stats = saved[0], saved[1:1 + n_layers], saved[1 + n_layers:1 + 2 * n_layers]
+        rest = iter(saved[1 + 2 * n_layers:])
+        flat = [next(rest) if p else None for p in ctx.present]
+        ops = _unflatten(flat, n_layers)
+        top = n_layers - 1
+        d_layers = [None] * n_layers
+        x_top = x if top == 0 else acts[top - 1]
+        d_layers[top], dwp, dbp, dy = top_backward(
+            x_top, acts[top], dz.contiguous(), ops.layers[top], stats[top], ops.wp, ops.bp,
+            ctx.ghost_size, need_dx=top > 0)
+        for l in reversed(range(top)):
+            x_l = x if l == 0 else acts[l - 1]
+            d_layers[l], dy = layer_backward(x_l, dy, ops.layers[l], stats[l], ctx.ghost_size,
+                                             need_dx=l > 0)
+        grads = [g for d in d_layers for g in d] + [dwp, dbp]
+        grads = [None if not p else g for g, p in zip(grads, ctx.present)]
+        return (None, None, None, *grads)
+
+
+def _flatten(ops: EncoderOps) -> List[Optional[torch.Tensor]]:
+    return [t for lay in ops.layers for t in lay] + [ops.wp, ops.bp]
+
+
+def _unflatten(flat, n_layers: int) -> EncoderOps:
+    layers = tuple(LayerOps(*flat[N_LAYER_OPS * i:N_LAYER_OPS * (i + 1)])
+                   for i in range(n_layers))
+    return EncoderOps(layers, flat[N_LAYER_OPS * n_layers], flat[N_LAYER_OPS * n_layers + 1])
+
+
+@torch.no_grad()
+def update_running_stats(model, sums: Sequence[torch.Tensor], count: int,
+                         momentum: float = 0.9) -> None:
+    """Fold full-batch pre-BN sums ([4, C_out] per layer) into the model's
+    BatchNorm running statistics in place: keep `momentum` of the old value,
+    add the rest of the batch mean and biased variance (flax's EMA; the
+    counterpart of `updated_batch_stats`). An identity residual has no BN."""
+    for i, s in enumerate(sums):
+        lay = getattr(model.encoder, f"layer_{i}")
+        sites = [(lay.tcn_bn, s[0], s[1])]
+        if lay.residual_bn is not None:
+            sites.append((lay.residual_bn, s[2], s[3]))
+        for bn, total, total_sq in sites:
+            mean = total / count
+            var = torch.clamp(total_sq / count - mean * mean, min=0.0)
+            bn.mean.mul_(momentum).add_((1.0 - momentum) * mean)
+            bn.var.mul_(momentum).add_((1.0 - momentum) * var)
+
+
+def fused_stse_apply(model, x: torch.Tensor, ghost_size: int = 32, momentum: float = 0.9,
+                     compute_dtype: str = "float32", bwd_mode: str = "split") -> torch.Tensor:
+    """Train-mode STSE encode with ghost BatchNorm: [B, C_in, T, V] -> z
+    [B, latent], differentiable in the model's parameters. Updates the
+    model's BN running statistics in place from the exact full-batch sums.
+    x gets no gradient (it is data)."""
+    if bwd_mode == "mono":
+        raise NotImplementedError(
+            "the mono backward (K5) is not ported yet (ROADMAP.md, Queue 2, K5)")
+    if bwd_mode != "split":
+        raise ValueError(f"unknown bwd_mode {bwd_mode!r}")
+    if compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype {compute_dtype!r} is not ported yet (ROADMAP.md, Queue 1 item 5)")
+    b, c, t, v = x.shape
+    if b % ghost_size:
+        raise ValueError(f"batch {b} is not a multiple of ghost_size {ghost_size}")
+    ops = encoder_ops(model)
+    x_nodes = x.detach().permute(0, 2, 3, 1).reshape(b, t * v, c).contiguous()
+    z, *sums = FusedGhostEncode.apply(x_nodes, ghost_size, len(ops.layers), *_flatten(ops))
+    update_running_stats(model, sums, b * t * v, momentum)
+    return z
+
+
+def work(ops: EncoderOps, batch: int, ghost_size: int) -> dict:
+    """(FLOPs, bytes) that K2, each K3 layer and K4 need for `batch`
+    windows: every input read once and every output written once. K2 reads
+    x and the weights and writes z, the activations, block statistics and
+    sums. A layer's backward reads x, dy (K4: dz, its output and wp) and
+    the weights, and writes dx (not for layer 0), the weight gradients.
+
+    Also "K5", the TPU's mono backward (`_bwd_kernel`, not ported): from x
+    and dz alone it recomputes every layer's forward, then runs each
+    layer's backward (dx too on layer 0, as `_layer_bwd_body` does) and the
+    projector's; it reads x, dz and the weights and writes the gradients."""
+    n = ops.layers[0].m.shape[0]
+    latent = ops.wp.shape[1]
+    nb = batch // ghost_size
+    out = {}
+    mono_flops, mono_weights = 0.0, 0.0
+    fwd_flops, fwd_bytes = 0.0, 4.0 * batch * n * ops.layers[0].w.shape[0]
+    for i, lay in enumerate(ops.layers):
+        ci, co = lay.w.shape
+        dense = 2.0 * n * ci * co * (1 if lay.identity else 2)
+        weights = n * n + ci * co * (1 if lay.identity else 2) + 4 * co + 1
+        fwd_flops += batch * (2.0 * n * n * ci + dense)
+        fwd_bytes += 4.0 * (weights + batch * n * co + nb * 4 * co + 4 * co)
+        top = i == len(ops.layers) - 1
+        need_dx = i > 0
+        mm, res = 2.0 * n * ci * co, 0 if lay.identity else 1
+        # g again, dM and (not on layer 0) M dg; t and r again, dW and dW_res,
+        # dg = dt W^T and (not on layer 0) dr W_res^T
+        flops = batch * (2.0 * n * n * ci * (3 if need_dx else 2)
+                         + mm * (2 * (1 + res) + 1 + (res if need_dx else 0)))
+        mono_flops += batch * (2.0 * n * n * ci * 4 + mm * (3 * (1 + res) + 1 + res))
+        mono_weights += weights
+        nbytes = 4.0 * (batch * n * ci * (2 if need_dx else 1) + 2 * weights + nb * 4 * co)
+        if top:
+            flops += batch * 2.0 * 2.0 * n * co * latent  # dy = dz wp^T and dwp
+            nbytes += 4.0 * (batch * latent + batch * n * co + 2 * n * co * latent + latent)
+        else:
+            nbytes += 4.0 * batch * n * co  # dy
+        out["K4" if top else f"K3_layer{i}"] = (flops, nbytes)
+    c_h = ops.layers[-1].w.shape[1]
+    fwd_flops += batch * 2.0 * n * c_h * latent
+    fwd_bytes += 4.0 * (n * c_h * latent + latent + batch * latent)
+    out["K2"] = (fwd_flops, fwd_bytes)
+    proj = n * c_h * latent + latent
+    out["K5"] = (mono_flops + batch * 2.0 * 2.0 * n * c_h * latent,
+                 4.0 * (batch * n * ops.layers[0].w.shape[0] + batch * latent
+                        + 2 * (mono_weights + proj)))
+    return out

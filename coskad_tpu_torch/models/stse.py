@@ -1,4 +1,4 @@
-"""STSE: the encoder-only COSKAD model (PyTorch), eval mode.
+"""STSE: the encoder-only COSKAD model (PyTorch).
 
 Counterpart of `coskad_tpu/models/stse.py::STSE` with the `sts_gcn` encoder
 and the linear projector. I/O is the reference's NCTV layout [B, C, T, V];
@@ -9,6 +9,10 @@ The eval forward takes one of two routes by the input's device:
     folded once and cached until a parameter or buffer changes, then the
     projector as one matmul;
   * CPU: the plain module path, layer by layer.
+The train forward (`train=True`) is the module path with live BatchNorm,
+which updates the running statistics in place (see `stsgcn.py`), or with
+running statistics under `frozen_bn`. The ghost-BN train path through the
+K2-K4 kernels is `kernels/stse_train.py::fused_stse_apply`.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 from torch import nn
 
 from ..kernels import stse_fused
-from .stsgcn import Dense, STSGCNStack, _TRAIN_MODE
+from .stsgcn import _DROPOUT, Dense, STSGCNStack
 
 
 class LinearProjector(Dense):
@@ -61,6 +65,7 @@ class STSE(nn.Module):
             n_joints, use_bias)
         self.btlnk = LinearProjector(
             hidden_dimension * n_frames * n_joints, latent_dim, use_bias)
+        self.dropout = dropout
         self._fold_cache: Optional[Tuple[tuple, stse_fused.FoldedSTSE,
                                          stse_fused.PackedSTSE]] = None
 
@@ -71,9 +76,12 @@ class STSE(nn.Module):
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
 
-    def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def encode(self, x: torch.Tensor, train: bool = False,
+               frozen_bn: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """Plain path: [B, C, T, V] -> (latent [B, D], hidden [B, T, V, H])."""
-        h = self.encoder(x.permute(0, 2, 3, 1))
+        if train and self.dropout > 0:
+            raise NotImplementedError(_DROPOUT)
+        h = self.encoder(x.permute(0, 2, 3, 1), train=train, frozen_bn=frozen_bn)
         return self.btlnk(h), h
 
     def folded(self) -> Tuple[stse_fused.FoldedSTSE, stse_fused.PackedSTSE]:
@@ -88,9 +96,10 @@ class STSE(nn.Module):
                 self._fold_cache = (key, folded, stse_fused.pack_folded(folded))
         return self._fold_cache[1], self._fold_cache[2]
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                frozen_bn: bool = False) -> torch.Tensor:
         if train:
-            raise NotImplementedError(_TRAIN_MODE)
+            return self.encode(x, train=True, frozen_bn=frozen_bn)[0]
         if x.is_cuda:
             folded, packed = self.folded()
             return stse_fused.fused_stse_forward(x.contiguous(), folded, packed)

@@ -1,4 +1,4 @@
-"""Space-Time-Separable GCN layers (PyTorch), eval mode.
+"""Space-Time-Separable GCN layers (PyTorch).
 
 Counterpart of `coskad_tpu/models/stsgcn.py`. Tensors flow channels-last
 [B, T, V, C] through the stack, like the JAX package. Module and parameter
@@ -7,9 +7,18 @@ names follow the flax variable tree (`gcn.t_adj`, `tcn_dense.kernel`,
 [fan_in, features] layout, so weights carry across by name
 (`coskad_tpu_torch/interop.py`).
 
-Only eval mode is here: BatchNorm uses its running statistics, folded into
-the dense layer exactly as `_moment_dense_bn(use_running=True)` does. Train
-mode (live and ghost BatchNorm) belongs to the training slice.
+BatchNorm, as the JAX package runs it:
+  * eval mode and `frozen_bn`: running statistics, folded into the dense
+    layer exactly as `_moment_dense_bn(use_running=True)` does (`dense_bn`);
+    gradients flow through the folded affine;
+  * train mode: flax `nn.BatchNorm` over all B*T*V rows per channel, the
+    variance E[x^2] - E[x]^2 clamped at 0 (biased), eps 1e-5
+    (`batch_norm_train`). The running statistics keep 0.9 of the old
+    value. Where flax returns new `batch_stats`, the port updates the
+    `mean` / `var` buffers in place, in PyTorch's manner; K1's fold cache
+    is keyed on the buffers' versions, so it refolds after an update.
+    (`F.batch_norm` would store the unbiased variance and drift from flax.)
+Ghost BatchNorm, the fused train path, is `kernels/stse_train.py`.
 """
 
 from __future__ import annotations
@@ -22,10 +31,8 @@ from torch import nn
 
 from ..kernels.stse_fused import combined_graph_matrix
 
-_TRAIN_MODE = (
-    "train mode is not ported yet: it comes with the training slice "
-    "(ROADMAP.md, Queue 1 item 2)"
-)
+BN_MOMENTUM = 0.9
+_DROPOUT = "dropout in train mode is not ported yet (ROADMAP.md, Queue 1 item 5)"
 
 
 def _uniform_(t: torch.Tensor, bound: float, generator: Optional[torch.Generator]):
@@ -85,6 +92,20 @@ def dense_bn(x: torch.Tensor, dense: Dense, bn: BatchNorm, eps: float = 1e-5) ->
     return x @ w_eff + b_eff
 
 
+def batch_norm_train(h: torch.Tensor, bn: BatchNorm, momentum: float = BN_MOMENTUM,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """flax `nn.BatchNorm(use_running_average=False)` over every row of h
+    [..., C]: y = (h - mean) * (rsqrt(var + eps) * scale) + bias with the
+    biased variance. Updates bn's running statistics in place."""
+    rows = h.reshape(-1, h.shape[-1])
+    mean = rows.mean(dim=0)
+    var = torch.clamp((rows * rows).mean(dim=0) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.mean.mul_(momentum).add_((1.0 - momentum) * mean)
+        bn.var.mul_(momentum).add_((1.0 - momentum) * var)
+    return (h - mean) * (torch.rsqrt(var + eps) * bn.scale) + bn.bias
+
+
 class PReLU(nn.Module):
     """Parametric ReLU with one shared slope: x >= 0 ? x : alpha * x."""
 
@@ -142,12 +163,17 @@ class STSGCNLayer(nn.Module):
             self.residual_dense = self.residual_bn = None
         self.prelu = PReLU()
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(_TRAIN_MODE)
-        res = x if self.residual_dense is None else dense_bn(
-            x, self.residual_dense, self.residual_bn)
-        h = dense_bn(self.gcn(x), self.tcn_dense, self.tcn_bn)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                frozen_bn: bool = False) -> torch.Tensor:
+        """train: live BatchNorm statistics (running ones updated in place);
+        frozen_bn: running statistics while training."""
+        live = train and not frozen_bn
+
+        def bn(h, dense, norm):
+            return batch_norm_train(dense(h), norm) if live else dense_bn(h, dense, norm)
+
+        res = x if self.residual_dense is None else bn(x, self.residual_dense, self.residual_bn)
+        h = bn(self.gcn(x), self.tcn_dense, self.tcn_bn)
         return self.prelu(h + res)
 
 
@@ -164,7 +190,8 @@ class STSGCNStack(nn.Module):
             self.add_module(f"layer_{i}", STSGCNLayer(c, ch, time_dim, joints_dim, use_bias))
             c = ch
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                frozen_bn: bool = False) -> torch.Tensor:
         for i in range(self.n_layers):
-            x = getattr(self, f"layer_{i}")(x, train=train)
+            x = getattr(self, f"layer_{i}")(x, train=train, frozen_bn=frozen_bn)
         return x

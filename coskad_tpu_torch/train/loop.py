@@ -1,19 +1,27 @@
-"""The scoring subset of the Trainer (counterpart of `coskad_tpu/train/loop.py`).
+"""The Trainer (counterpart of `coskad_tpu/train/loop.py`) for the
+encoder-only euclidean variants: training, center initialization, scoring
+and validation.
 
-Windows are uploaded once, flat [N, C*T*V], to the device. A scoring pass
-walks wrap-padded [K, B] index chunks in an eager Python loop: per chunk,
-gather the batch (sample i % N, transform i // N), run the eval forward
-(on CUDA, the fused encoder kernel) and the variant's window score. Results
-stay on the device until one copy to the host at the end.
+Windows are uploaded once, flat [N, C*T*V], to the device. A pass walks
+[K, B] index chunks in an eager Python loop (the JAX package's `lax.scan`):
+per chunk, gather the batch (sample i % N, transform i // N), then
 
-Ported: `embed_all`, `score_all`, `initialize_center`, `validate`. Training
-(`init_state`'s optimizer, the train step and epoch, `fit`) comes with the
-training slice (ROADMAP.md, Queue 1 item 2).
+  * train (`train_epoch`, `fit`): the train-mode forward, loss, backward,
+    Adam step and the epoch accumulators. The forward is the ghost-BN
+    K2-K4 path (`kernels/stse_train.py`) when `run.fused_train` allows it
+    and the batch is a multiple of `run.ghost_size`, else the module path
+    with live BatchNorm (or running statistics under `freeze_bn_after`);
+  * score (`score_all`, `embed_all`): the eval forward (on CUDA, the fused
+    encoder kernel K1) and the variant's window score.
+
+Per-step metrics stay on the device until one copy to the host at the end
+of an epoch. The model is switched to `train()` for a train epoch and back
+to `eval()` after it.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -22,10 +30,12 @@ from ..config import Config
 from ..data.transforms import canonical_transforms, gather_batch
 from ..data.windows import SegmentDataset
 from ..device import resolve_device
+from ..kernels import stse_train
 from ..models import build_model
 from ..score.aggregate import EvalResult, ScoringConfig, evaluate_windows
 from ..score.masks import AVENUE_MASKED_CLIPS
-from . import objectives
+from ..utils.logging import MetricLogger
+from . import objectives, schedulers
 from .state import TrainState, clamp_center, init_state
 
 
@@ -51,7 +61,7 @@ def model_kwargs_from_config(cfg: Config) -> dict:
 
 
 class Trainer:
-    """Scoring for one config.
+    """Training, scoring and validation for one config.
 
     Args:
         cfg: full configuration.
@@ -59,9 +69,14 @@ class Trainer:
         val_ds: optional SegmentDataset for validation AUC.
         ground_truths: {(scene, clip): labels} for validation scoring.
         device: 'cuda' (default; raises if CUDA is missing) or 'cpu'.
+        logger: per-step and per-epoch metrics (stdout JSONL by default).
 
-    The model is built with weights drawn from `cfg.run.seed`; load trained
-    weights into `trainer.model` (e.g. `interop.load_jax_variables`).
+    The model is built with weights drawn from `cfg.run.seed`; load other
+    weights into `trainer.model` (e.g. `interop.load_jax_variables`). The
+    optimizer is `trainer.optimizer`: Adam at `cfg.opt.lr` without weight
+    decay, the formula of optax's `adam` (eps 1e-8 outside the square
+    root); assign another one over `trainer.model.parameters()` to replace
+    it (the tests use SGD).
     """
 
     def __init__(
@@ -71,12 +86,34 @@ class Trainer:
         val_ds: Optional[SegmentDataset] = None,
         ground_truths: Optional[dict] = None,
         device: Union[str, torch.device] = "cuda",
+        logger: Optional[MetricLogger] = None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(**model_kwargs_from_config(cfg))
         self.model.reset_parameters(torch.Generator().manual_seed(cfg.run.seed))
         self.model = self.model.to(self.device).eval()
+        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=cfg.opt.lr, eps=1e-8)
+        self.logger = logger or MetricLogger()
+        self._lr = cfg.opt.lr
+        self._epochs_done = 0
+        # ReduceLROnPlateau analogue; its counters survive per-epoch fit calls.
+        self._best_auc = -np.inf
+        self._since_best = 0
+        # The fused ghost-BN kernels need the sts_gcn encoder, the linear
+        # projector, no dropout and an encoder-only variant; 'auto' falls
+        # back to the module path otherwise, 'on' refuses.
+        self._fused_compat = (
+            cfg.run.fused_train != "off"
+            and cfg.model.encoder_type == "sts_gcn"
+            and cfg.model.projector == "linear"
+            and cfg.model.dropout == 0
+            and not cfg.model.use_decoder
+        )
+        if cfg.run.fused_train == "on" and not self._fused_compat:
+            raise ValueError(
+                "fused_train='on' requires sts_gcn encoder, linear projector, "
+                "dropout 0 and an encoder-only variant")
         self.train_ds = train_ds
         self.val_ds = val_ds
         self.ground_truths = ground_truths or {}
@@ -98,9 +135,78 @@ class Trainer:
         self.val_data = self._device_data(val_ds) if val_ds is not None else None
 
     def init_state(self) -> TrainState:
-        """A fresh state: zero center, identity inverse covariance. The
-        weights are the model's (drawn from cfg.run.seed at construction)."""
+        """A fresh state: step 0, zero center, identity inverse covariance,
+        empty accumulators. The weights are the model's (drawn from
+        cfg.run.seed at construction) and the optimizer's state is its own."""
         return init_state(self.cfg.model.latent_dim, self.device)
+
+    def schedule_state(self) -> dict:
+        """Host-side schedule state a resumed run needs: the global epoch
+        counter and the plateau reducer's counters."""
+        return {
+            "epochs_done": int(self._epochs_done),
+            "plateau_best_auc": float(self._best_auc),
+            "plateau_since_best": int(self._since_best),
+        }
+
+    def restore_schedule_state(self, extra: dict) -> None:
+        """Counterpart of schedule_state(); falls back to extra['epoch'] + 1
+        for a record without the epoch counter."""
+        if "epochs_done" in extra:
+            self._epochs_done = int(extra["epochs_done"])
+        elif "epoch" in extra:
+            self._epochs_done = int(extra["epoch"]) + 1
+        self._best_auc = float(extra.get("plateau_best_auc", -np.inf))
+        self._since_best = int(extra.get("plateau_since_best", 0))
+
+    def _fused_usable(self, batch: torch.Tensor) -> bool:
+        return self._fused_compat and batch.shape[0] % self.cfg.run.ghost_size == 0
+
+    def _forward(self, batch: torch.Tensor, train: bool, frozen_bn: bool = False):
+        """Latents of a batch; in train mode through the ghost-BN kernels
+        when usable (running statistics updated in place either way)."""
+        if train and not frozen_bn and self._fused_usable(batch):
+            return stse_train.fused_stse_apply(
+                self.model, batch, ghost_size=self.cfg.run.ghost_size,
+                compute_dtype=self.cfg.run.compute_dtype)
+        return self.model(batch, train=train, frozen_bn=frozen_bn)
+
+    def _set_lr(self, lr: float) -> None:
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+
+    def train_step(self, state: TrainState, data: torch.Tensor, indices: torch.Tensor,
+                   frozen_bn: bool = False) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One optimizer step on the batch of logical `indices`: forward,
+        loss, backward, optimizer step, then the epoch accumulators from the
+        step's latents (taken before the update)."""
+        cfg = self.cfg
+        if cfg.opt.contrastive_weight > 0:
+            raise NotImplementedError(
+                "the contrastive second view is not ported yet (ROADMAP.md, Queue 1 item 6)")
+        batch = self._gather(data, indices)
+        out = self._forward(batch, train=True, frozen_bn=frozen_bn)
+        loss, metrics = objectives.compute_loss(
+            cfg, out, batch, self.model, state.center, state.inv_cov)
+        z = objectives.latent_of(cfg.model.variant, out)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        acc = objectives.accumulate_stats(
+            (state.acc_vec, state.acc_weight, state.acc_outer), cfg.model.variant,
+            cfg.model.distance, z, state.center)
+        state = state.replace(step=state.step + 1, acc_vec=acc[0], acc_weight=acc[1],
+                              acc_outer=acc[2])
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    def train_epoch(self, state: TrainState, data: torch.Tensor, indices: torch.Tensor,
+                    frozen_bn: bool = False) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """Train steps over [K, B] index chunks; metrics stacked to [K]."""
+        steps = []
+        for i in range(indices.shape[0]):
+            state, metrics = self.train_step(state, data, indices[i], frozen_bn=frozen_bn)
+            steps.append(metrics)
+        return state, {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
 
     def _device_data(self, ds: SegmentDataset) -> torch.Tensor:
         """Windows flat [N, C*T*V] on the device; `_gather` reshapes."""
@@ -185,14 +291,99 @@ class Trainer:
                 np.linalg.inv(cov), dtype=torch.float32, device=self.device))
         return state
 
-    def _shrink_cov(self, cov: np.ndarray) -> np.ndarray:
+    def _shrink_cov(self, cov):
         """Optional shrinkage toward mu*I (mu = trace/d) before inverting;
-        opt.cov_shrinkage = 0 (default) keeps the raw covariance."""
+        opt.cov_shrinkage = 0 (default) keeps the raw covariance. Takes a
+        numpy array or a tensor."""
         lam = self.cfg.opt.cov_shrinkage
         if lam <= 0.0:
             return cov
         d = cov.shape[-1]
+        if isinstance(cov, torch.Tensor):
+            eye = torch.eye(d, dtype=cov.dtype, device=cov.device)
+            return (1.0 - lam) * cov + lam * (torch.trace(cov) / d) * eye
         return (1.0 - lam) * cov + lam * (np.trace(cov) / d) * np.eye(d, dtype=cov.dtype)
+
+    def apply_epoch_updates(self, state: TrainState) -> TrainState:
+        """End of an epoch: euclidean_dynamic's center becomes the epoch's
+        latent mean (clamped); Mahalanobis inverts the epoch's covariance.
+        Then the accumulators restart."""
+        if self.cfg.model.variant == "euclidean_dynamic":
+            c = clamp_center(state.acc_vec / state.acc_weight, self.cfg.opt.center_tolerance)
+            state = state.replace(center=c)
+        if self.cfg.model.distance == "mahalanobis":
+            cov = state.acc_outer / (state.acc_weight - 1.0)
+            state = state.replace(inv_cov=torch.linalg.inv(self._shrink_cov(cov)))
+        return state.reset_accumulators()
+
+    def update_mean_vector(self, state: TrainState) -> TrainState:
+        """The VAE's scoring anchor (the epoch's latent mean); the euclidean
+        variants have none, and the VAE is not ported (build_model refuses it)."""
+        return state
+
+    def fit(self, state: Optional[TrainState] = None, epochs: Optional[int] = None
+            ) -> Tuple[TrainState, Dict]:
+        """Train for `epochs` (default cfg.opt.epochs) from `state` (default:
+        a fresh state with the center initialized). Each epoch shuffles with
+        np.random.default_rng((seed, epoch)) and drops the tail that does not
+        fill a batch; then validation (every run.validate_every epochs, with
+        the plateau reducer unless a named lr schedule owns the lr) and the
+        epoch-end center/covariance updates."""
+        cfg = self.cfg
+        epochs = epochs if epochs is not None else cfg.opt.epochs
+        if state is None:
+            state = self.initialize_center(self.init_state())
+        n = len(self.train_ds)
+        bs = min(self.batch_size, max(n, 1))
+        steps_per_epoch = max(n // bs, 1)
+        history = {"validation_auc": [], "loss": []}
+        schedule = (schedulers.build_schedule(cfg.opt.lr_schedule, cfg.opt.lr, cfg.opt.epochs,
+                                              cfg.opt.lr_decay)
+                    if cfg.opt.lr_schedule else None)
+        for local_epoch in range(epochs):
+            epoch = self._epochs_done + local_epoch
+            if schedule is not None:
+                self._lr = float(schedule(epoch))
+                self._set_lr(self._lr)
+            perm = np.random.default_rng((cfg.run.seed, epoch)).permutation(n)
+            flat = perm[np.arange(steps_per_epoch * bs) % n]
+            idx = torch.as_tensor(flat.reshape(steps_per_epoch, bs), device=self.device)
+            frozen = cfg.run.freeze_bn_after >= 0 and epoch >= cfg.run.freeze_bn_after
+            self.model.train()
+            try:
+                state, metrics = self.train_epoch(state, self.train_data, idx, frozen_bn=frozen)
+            finally:
+                self.model.eval()
+            metrics = {k: v.cpu().numpy() for k, v in metrics.items()}  # [K]
+            for step in range(steps_per_epoch):
+                global_step = epoch * steps_per_epoch + step + 1
+                if global_step % self.logger.every_n_steps == 0:
+                    self.logger.log({k: float(v[step]) for k, v in metrics.items()}, global_step)
+            history["loss"].append(float(metrics["loss"].mean()))
+
+            state = self.update_mean_vector(state)
+            result = None
+            if cfg.opt.validation and (epoch + 1) % cfg.run.validate_every == 0:
+                result = self.validate(state)
+            if result is not None:
+                auc = result.auc
+                history["validation_auc"].append(auc)
+                self.logger.log({"validation_auc": auc, "epoch": epoch}, state.step, force=True)
+                if schedule is not None:
+                    pass
+                elif auc > self._best_auc:
+                    self._best_auc, self._since_best = auc, 0
+                else:
+                    self._since_best += 1
+                    if self._since_best > cfg.opt.plateau_patience:
+                        # reduce from the live lr, which a resumed run also has
+                        live = float(self.optimizer.param_groups[0]["lr"])
+                        self._lr = max(live * cfg.opt.plateau_factor, cfg.opt.min_lr)
+                        self._set_lr(self._lr)
+                        self._since_best = 0
+            state = self.apply_epoch_updates(state)
+        self._epochs_done += epochs
+        return state, history
 
     def validate(self, state: TrainState) -> Optional[EvalResult]:
         """Frame-level AUC of the validation set under the current center."""

@@ -1,9 +1,12 @@
-"""Scoring state: the center and the geometry around it.
+"""Training state: the step, the center and the geometry around it, and the
+epoch accumulators.
 
-Counterpart of the geometry fields of `coskad_tpu/train/state.py::TrainState`.
-The model's weights live in the `nn.Module` (PyTorch idiom); this state holds
-what the variants score against. The optimizer state and the epoch
-accumulators come with the training slice.
+Counterpart of `coskad_tpu/train/state.py::TrainState`. The model's weights
+and BatchNorm statistics live in the `nn.Module`, and the optimizer on the
+Trainer (PyTorch idiom); this state holds what the variants train and score
+against. The accumulators are sufficient statistics of one epoch:
+acc_vec / acc_weight the latent sum and count (euclidean_dynamic's center),
+acc_outer the sum of (z - c)(z - c)^T (Mahalanobis covariance).
 """
 
 from __future__ import annotations
@@ -16,19 +19,33 @@ import torch
 
 @dataclass
 class TrainState:
+    step: int
     center: torch.Tensor  # [D]
     inv_cov: torch.Tensor  # [D, D] (mahalanobis; identity otherwise)
     mean_vector: torch.Tensor  # [D] (VAE empirical latent mean)
+    acc_vec: torch.Tensor  # [D]
+    acc_weight: torch.Tensor  # []
+    acc_outer: torch.Tensor  # [D, D]
 
     def replace(self, **changes) -> "TrainState":
         return dataclasses.replace(self, **changes)
 
+    def reset_accumulators(self) -> "TrainState":
+        return self.replace(acc_vec=torch.zeros_like(self.acc_vec),
+                            acc_weight=torch.zeros_like(self.acc_weight),
+                            acc_outer=torch.zeros_like(self.acc_outer))
+
 
 def init_state(latent_dim: int, device: torch.device) -> TrainState:
+    f32 = dict(dtype=torch.float32, device=device)
     return TrainState(
-        center=torch.zeros(latent_dim, dtype=torch.float32, device=device),
-        inv_cov=torch.eye(latent_dim, dtype=torch.float32, device=device),
-        mean_vector=torch.zeros(latent_dim, dtype=torch.float32, device=device),
+        step=0,
+        center=torch.zeros(latent_dim, **f32),
+        inv_cov=torch.eye(latent_dim, **f32),
+        mean_vector=torch.zeros(latent_dim, **f32),
+        acc_vec=torch.zeros(latent_dim, **f32),
+        acc_weight=torch.zeros((), **f32),
+        acc_outer=torch.zeros(latent_dim, latent_dim, **f32),
     )
 
 

@@ -1,0 +1,157 @@
+"""K2, K3 and K4's CUDA source, run on the host: csrc/stse_train.cu compiled
+with g++ against tests/cuda_host_emu.h (one std::thread per CUDA thread, a
+barrier for __syncthreads, NaN-filled shared memory) and held against the
+plain PyTorch versions, through the same descriptor-building wrappers the
+card uses. This checks the kernels' indexing, passes and synchronisation on
+a machine without a GPU; their speed is measured only on the card
+(chip_smoke.py). The plain versions run in float64, as on the card: the
+kernels are held to the exact function, not to another fp32 rounding of it.
+
+Tolerances: forward outputs rtol=2e-4, atol=2e-4 and gradients
+err < 1e-3 * max(scale, 1) + 1e-6, as tests/test_fused_train_kernel.py (fp32
+reassociation through the BN backward's 1/cnt cancellations)."""
+
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from coskad_tpu_torch.kernels import build, stse_train
+from coskad_tpu_torch.models import STSE
+
+torch.set_num_threads(1)
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+FWD_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _host_source(cu: str) -> str:
+    """The kernel source with its shared-memory declarations and launches
+    rewritten for the host emulation."""
+    out, n_smem = re.subn(r"extern __shared__[^;]*float (\w+)\[\];", r"float* \1 = g_smem;", cu)
+    out, n_launch = re.subn(r"(\w+)<<<([^,]+),\s*([^,]+),\s*([^,]+),[^>]*>>>\(",
+                            r"emu_launch(\1, \2, \3, \4, ", out)
+    assert n_smem >= 5 and n_launch >= 9, "kernel source no longer matches the host rewrite"
+    return out.replace("#include <cuda_runtime.h>", '#include "cuda_host_emu.h"')
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is needed to run the CUDA source on the host")
+    d = tmp_path_factory.mktemp("stse_train_host")
+    with open(os.path.join(build.CSRC, "stse_train.cu")) as f:
+        (d / "stse_train_host.cpp").write_text(_host_source(f.read()))
+    lib = str(d / "libstse_train_host.so")
+    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-I", HERE,
+                    "-o", lib, str(d / "stse_train_host.cpp")],
+                   check=True, capture_output=True, timeout=300)
+    so = ctypes.CDLL(lib)
+    for fn in ("stse_train_forward", "stse_train_layer_backward", "stse_train_top_backward"):
+        getattr(so, fn).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        getattr(so, fn).restype = ctypes.c_int
+    so.stse_train_error_string.argtypes = [ctypes.c_int]
+    so.stse_train_error_string.restype = ctypes.c_char_p
+    return so
+
+
+def _model(input_dim, channels, hidden, t, v, latent, seed):
+    gen = torch.Generator().manual_seed(seed)
+    model = STSE(input_dim=input_dim, layer_channels=channels, hidden_dimension=hidden,
+                 latent_dim=latent, n_frames=t, n_joints=v)
+    model.reset_parameters(gen)
+    with torch.no_grad():  # BN affines away from (1, 0), a PReLU slope per layer
+        for name, p in model.named_parameters():
+            if name.endswith("_bn.scale"):
+                p.copy_(torch.empty(p.shape).uniform_(0.5, 1.5, generator=gen))
+            elif name.endswith("_bn.bias"):
+                p.copy_(torch.empty(p.shape).uniform_(-0.3, 0.3, generator=gen))
+            elif name.endswith("alpha"):
+                p.fill_(float(torch.empty(()).uniform_(0.1, 0.4, generator=gen)))
+    return model
+
+
+def _close_grad(got, want, name):
+    scale = max(float(want.abs().max()), 1e-6)
+    err = float((got - want).abs().max())
+    assert err < 1e-3 * max(scale, 1.0) + 1e-6, (name, err, scale)
+
+
+CASES = {
+    # channels 2 -> 8 -> 4 -> 8: a widening, a narrowing and a widening layer
+    "narrow": dict(input_dim=2, channels=(8, 4), hidden=8, t=6, v=5, latent=4, batch=16,
+                   ghost=8),
+    # an identity residual (8 -> 8) under the projector, 35 nodes, ghost == batch
+    "identity": dict(input_dim=8, channels=(), hidden=8, t=5, v=7, latent=3, batch=8, ghost=8),
+    # 215 nodes and 16 channels: the graph contraction's 4-node tiles, the
+    # last one ragged; 1,720 rows, so dW's reduction is split over 3 blocks
+    "tiled": dict(input_dim=2, channels=(16,), hidden=16, t=5, v=43, latent=4, batch=8,
+                  ghost=4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_host_run_of_cuda_source_matches_plain(host_lib, case):
+    kw = CASES[case]
+    model = _model(kw["input_dim"], kw["channels"], kw["hidden"], kw["t"], kw["v"],
+                   kw["latent"], seed=len(case))
+    ops = stse_train.detached(stse_train.encoder_ops(model))
+    ops64 = stse_train.detached(ops, torch.float64)
+    b, n, ghost = kw["batch"], kw["t"] * kw["v"], kw["ghost"]
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(b, n, kw["input_dim"])).astype(np.float32))
+
+    z, sums, acts, stats = stse_train.launch_forward(host_lib, x, ops, ghost)
+    z_r, sums_r, acts_r, stats_r = stse_train.ghost_forward_reference(x.double(), ops64, ghost)
+    torch.testing.assert_close(z, z_r.float(), **FWD_TOL)
+    for got, want in zip(sums + acts + stats, sums_r + acts_r + stats_r):
+        torch.testing.assert_close(got, want.float(), **FWD_TOL)
+
+    dz = torch.from_numpy(rng.normal(size=(b, kw["latent"])).astype(np.float32))
+    top = len(ops.layers) - 1
+    x_top = x if top == 0 else acts[top - 1]
+    grads, dwp, dbp, dy = stse_train.launch_backward(
+        host_lib, x_top, stats[top], ops.layers[top], ghost, need_dx=top > 0, dz=dz,
+        y_top=acts[top], wp=ops.wp)
+    want, dwp_r, dbp_r, dy_r = stse_train.top_backward_reference(
+        x_top.double(), dz.double(), ops64.layers[top], ops64.wp, ops64.bp, ghost,
+        need_dx=top > 0)
+    _close_grad(dwp, dwp_r.float(), "dwp")
+    _close_grad(dbp, dbp_r.float(), "dbp")
+    layer_grads = [(top, grads, want)]
+    if top > 0:
+        _close_grad(dy, dy_r.float(), "dx of the top layer")
+    for l in reversed(range(top)):
+        x_l = x if l == 0 else acts[l - 1]
+        g, _, _, dx = stse_train.launch_backward(host_lib, x_l, stats[l], ops.layers[l], ghost,
+                                                 need_dx=l > 0, dy=dy_r.float())
+        w, dx_r = stse_train.layer_backward_reference(x_l.double(), dy_r, ops64.layers[l],
+                                                      ghost, need_dx=l > 0)
+        layer_grads.append((l, g, w))
+        if l > 0:
+            _close_grad(dx, dx_r.float(), f"dx of layer {l}")
+            dy_r = dx_r
+        else:
+            assert dx is None
+    for l, g, w in layer_grads:
+        for f in stse_train.LayerOps._fields:
+            a, e = getattr(g, f), getattr(w, f)
+            assert (a is None) == (e is None), (l, f)
+            if a is not None:
+                _close_grad(a, e.float(), f"layer {l} d{f}")
+
+
+def test_launch_refuses_mismatched_inputs(host_lib):
+    model = _model(2, (4,), 4, 3, 4, 2, seed=0)
+    ops = stse_train.encoder_ops(model)
+    x = torch.zeros(8, 12, 2)
+    with pytest.raises(ValueError, match="multiple of ghost_size"):
+        stse_train.launch_forward(host_lib, x[:6], ops, 4)
+    with pytest.raises(ValueError, match="channels"):
+        stse_train.launch_forward(host_lib, torch.zeros(8, 12, 3), ops, 4)
