@@ -17,6 +17,19 @@ Phases, each printing a line before the last:
      plain versions on the card: full width at B=2048 ghost 64, B=96 ghost
      32, a one-layer identity-residual stack, a stack whose last layer
      narrows with 35 nodes. Times each kernel and its plain version.
+  3b. mono: K5 (the mono backward, from x and dz alone) against its plain
+     version in float64 and against the split kernels (K4, then K3) on the
+     same inputs, on the train-kernel cases plus a batch whose last chunk
+     is ragged and chunks of one ghost block; K5's time beside K2 and K4 +
+     K3, its plain version's, and over chunk sizes with the workspace of
+     each. Then the mono path: 20 steps of fused_stse_apply(bwd_mode=
+     "mono") + Adam at B=2048 ghost 64 against 20 split steps from the same
+     weights (per-step losses, K5 launched once a step, K3/K4 never); the
+     step time of each mode, in turns; the peak memory of one step of each
+     (mono also at K5 chunks of 512 and 1024 windows) and the bytes it
+     saves for backward.
+  3c. probe: the bf16 operand probes (P), one kernel per job of
+     scripts/probe_mosaic.py, each against its plain version and timed.
   4. slice (serving): the serving path at the flagship width (sts_gcn
      2->32->16->32->64, latent 16, windows [2, 12, 18], 5 transforms, batch
      2048, fp32) with random weights from a seed: Trainer.initialize_center
@@ -54,6 +67,7 @@ import numpy as np
 # H100 SXM peaks (NVIDIA data sheet, dense): fp32 outside the tensor cores and
 # HBM3 bandwidth, at the full 700 W power limit.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12  # tensor cores: the least time for the bf16 probes
 PEAK_BYTES_PER_S = 3.35e12
 TOL = dict(rtol=2e-4, atol=2e-5)  # kernel vs plain: fp32 reassociation
 # K2 vs plain (tests/test_fused_train_kernel.py:50-58): ghost statistics sum
@@ -78,6 +92,17 @@ TRAIN_KERNEL_CASES = (
                                               hidden_dimension=8, latent_dim=4, n_frames=5,
                                               n_joints=7), 64, 16),
 )
+# (label, model, batch, ghost, chunk windows) of K5's own extra checks
+MONO_EXTRA_CASES = (
+    ("full_B320_ghost64_ragged_last_chunk", FULL, 320, 64, 128),  # chunks 128, 128, 64
+    ("full_B256_ghost64_one_block_chunks", FULL, 256, 64, 64),  # 4 chunks of one block
+)
+MONO_STEPS = 20
+MONO_CHUNK_SWEEP = (64, 128, 256, 512, 1024, 2048)  # windows, at B=2048 ghost 64
+MONO_PEAK_CHUNKS = (512, 1024)  # a mono step's peak memory also at these chunks
+# probes: elementwise jobs are exact; sums of up to 16,384 exact bf16
+# products in f32, in another order than the plain version's
+PROBE_SUM_TOL = dict(rtol=1e-5, atol=2e-3)
 SCORE_TOL = dict(rtol=1e-3, atol=1e-6)  # scores square latent differences
 DEVICE = "cuda"
 TRAIN_CLIPS, VAL_CLIPS = 100, 20  # x 2 actors x 200 windows: 40,000 and 8,000 windows
@@ -109,6 +134,24 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound_of(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
+    """(bound ms, what bounds it): the larger of operations over the peak
+    rate and bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def seeded_train_stse(gen, device, **kw):
+    """STSE with torch-default weights from `gen`, BN affines and PReLU
+    slopes jittered (`jitter_affine`), on `device`."""
+    from coskad_tpu_torch.models import STSE
+
+    model = STSE(**kw)
+    model.reset_parameters(gen)
+    jitter_affine(model, gen)
+    return model.to(device)
 
 
 def seeded_stse(gen, device, **kw):
@@ -218,14 +261,14 @@ def phase_kernel(card):
             per_layer_ms["{}->{}".format(*lay.w.shape)] = cuda_ms(
                 lambda: stse_fused.fused_stse_hidden(x1, one, one_packed))
     flops, nbytes = stse_fused.work(folded, 2048)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms, bound_by = bound_of(flops, nbytes)
     rec = dict(
         name="stse_fused", route="cuda", source=stse_fused.SOURCE,
         replaces=stse_fused.REPLACES, launches=None,
         max_abs_err=max(c["max_abs_err_hidden"] for c in cases),
         tolerance=TOL, ms=min(kernel_ms, kernel_ms_2), kernel_ms=min(kernel_ms, kernel_ms_2),
-        plain_ms=min(plain_ms, plain_ms_2), bound_ms=max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None,
+        plain_ms=min(plain_ms, plain_ms_2), bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None,
         batch=2048, flops=flops, bytes=nbytes, cases=cases, per_layer_ms=per_layer_ms,
         timing_runs_ms=dict(kernel=[kernel_ms, kernel_ms_2], plain=[plain_ms, plain_ms_2]),
     )
@@ -451,17 +494,13 @@ def phase_train_kernels(card):
     kernel records (launches filled in by the training phase)."""
     import torch
     from coskad_tpu_torch.kernels import stse_train as st
-    from coskad_tpu_torch.models import STSE
 
     dev = torch.device(DEVICE)
     gen = torch.Generator().manual_seed(4321)
     errs = {"K2": [], "K3": [], "K4": []}
     results, timing, work, timed = [], {}, {}, TRAIN_KERNEL_CASES[0]
     for label, kw, batch, ghost in TRAIN_KERNEL_CASES:
-        model = STSE(**kw)
-        model.reset_parameters(gen)
-        jitter_affine(model, gen)
-        model = model.to(dev)
+        model = seeded_train_stse(gen, dev, **kw)
         ops = st.detached(st.encoder_ops(model))
         # The plain versions run in float64: a channel whose spread is small
         # against its mean (layer 0 mixes only 2 input channels) loses more
@@ -539,7 +578,7 @@ def phase_train_kernels(card):
         parts = [k for k in work if k.startswith(key)]
         flops = sum(work[k][0] for k in parts)
         nbytes = sum(work[k][1] for k in parts)
-        t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+        bound_ms, bound_by = bound_of(flops, nbytes)
         t = timing[key]
         records.append(dict(
             name=name, route="cuda", source=st.SOURCE, replaces=st.REPLACES[name], launches=None,
@@ -548,16 +587,12 @@ def phase_train_kernels(card):
                        dict(rule="err < rtol * max(max|plain|, 1) + atol", rtol=GRAD_RTOL,
                             atol=GRAD_ATOL)),
             ms=t["kernel_ms"], kernel_ms=t["kernel_ms"], plain_ms=t["plain_ms"],
-            bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+            bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, batch=timed[2], ghost=timed[3], flops=flops, bytes=nbytes,
             per_layer_ms=t.get("per_layer"), timing_runs_ms=t["runs"],
-            per_layer_bound_ms={k: max(work[k][0] / PEAK_FP32_FLOPS, work[k][1] / PEAK_BYTES_PER_S)
-                                * 1e3 for k in parts}))
-    k5_flops, k5_bytes = work["K5"]
-    k5_bound = max(k5_flops / PEAK_FP32_FLOPS, k5_bytes / PEAK_BYTES_PER_S) * 1e3
+            per_layer_bound_ms={k: bound_of(*work[k])[0] for k in parts}))
     print("train kernel check: " + json.dumps(dict(
-        cases=results, card=card, k5_mono_backward_not_ported=dict(
-            flops=k5_flops, bytes=k5_bytes, bound_ms=k5_bound),
+        cases=results, card=card,
         times={r["name"]: dict(kernel_ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                                per_layer_ms=r["per_layer_ms"]) for r in records})))
@@ -602,6 +637,257 @@ def time_train_kernels(st, ops, x, dz, acts, stats, ghost):
                                         plain_ms=min(runs[k]["plain"])) for k in k3},
                      runs={k: runs[k] for k in k3})
     return out
+
+
+def phase_mono(card, checks_only=False):
+    """K5 against its float64 plain version and the split kernels; its
+    times; then (unless checks_only) the mono path against the split path.
+    Returns (K5's kernel record, summary)."""
+    import torch
+    from coskad_tpu_torch.kernels import stse_train as st
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(2468)
+    cases, errs = [], []
+    timed = None
+    all_cases = [(*c, None) for c in TRAIN_KERNEL_CASES] + list(MONO_EXTRA_CASES)
+    for label, kw, batch, ghost, chunk in all_cases:
+        model = seeded_train_stse(gen, dev, **kw)
+        ops = st.detached(st.encoder_ops(model))
+        n = kw["n_frames"] * kw["n_joints"]
+        x = torch.randn(batch, n, kw["input_dim"], generator=gen).to(dev)
+        dz = torch.randn(batch, kw["latent_dim"], generator=gen).to(dev)
+        _, _, acts, stats = st.ghost_forward(x, ops, ghost)
+        got = st.mono_backward(x, dz, ops, ghost, chunk)
+        split = st.split_backward(x, dz, ops, acts, stats, ghost)
+        # float64, PReLU's branch where K2 took it (see phase_train_kernels)
+        want = st.mono_backward_reference(x.double(), dz.double(), st.detached(ops, torch.float64),
+                                          ghost, positive=[a >= 0 for a in acts])
+        torch.cuda.synchronize()
+        names = [f"layer{l}.d{f}" for l in range(len(ops.layers)) for f in st.LayerOps._fields]
+        bad, err_plain, err_split = [], 0.0, 0.0
+        for name, a, w, s in zip(names + ["dwp", "dbp"], st._flatten(got), st._flatten(want),
+                                 st._flatten(split)):
+            if w is None:
+                check(a is None and s is None, f"K5 {label} {name}: a gradient of no operand")
+                continue
+            e_p, ok_p = grad_err(a, w.float())
+            e_s, ok_s = grad_err(a, s)
+            err_plain, err_split = max(err_plain, e_p), max(err_split, e_s)
+            if not (ok_p and ok_s and bool(torch.isfinite(a).all())):
+                bad.append(f"{name} err vs plain {e_p:.3e} (scale {float(w.abs().max()):.3e}), "
+                           f"vs split {e_s:.3e}")
+        check(not bad, f"stse_train mono backward (K5) {label}: " + "; ".join(bad))
+        used = st.mono_chunk(batch, ghost, chunk)
+        cases.append(dict(case=label, batch=batch, ghost=ghost, chunk=used,
+                          n_chunks=-(-batch // used), max_abs_err_vs_plain=err_plain,
+                          max_abs_err_vs_split=err_split))
+        errs.append(err_plain)
+        if timed is None:
+            timed = (ops, x, dz, acts, stats, ghost, n)
+    ops, x, dz, acts, stats, ghost, n = timed
+    timing = time_mono(st, *timed)
+    flops, nbytes = st.work(ops, x.shape[0], ghost)["K5"]
+    bound_ms, bound_by = bound_of(flops, nbytes)
+    rec = dict(
+        name="stse_train_mono_backward", route="cuda", source=st.SOURCE,
+        replaces=st.REPLACES["stse_train_mono_backward"], launches=None, max_abs_err=max(errs),
+        tolerance=dict(rule="err < rtol * max(max|plain|, 1) + atol, vs the float64 plain "
+                            "version and vs K4 + K3", rtol=GRAD_RTOL, atol=GRAD_ATOL),
+        ms=timing["kernel_ms"], kernel_ms=timing["kernel_ms"], plain_ms=timing["plain_ms"],
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, batch=x.shape[0], ghost=ghost,
+        chunk=st.mono_chunk(x.shape[0], ghost), flops=flops, bytes=nbytes, cases=cases,
+        timing=timing)
+    print("mono kernel check: " + json.dumps(dict(cases=cases, card=card, **{
+        k: rec[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by", "chunk")}, **{
+        k: timing[k] for k in ("split_ms", "k2_ms", "kernel_workspace_bytes",
+                               "kernel_peak_bytes", "chunk_sweep")})))
+    return rec, None if checks_only else mono_path(card)
+
+
+def time_mono(st, ops, x, dz, acts, stats, ghost, n):
+    """K5, the split backward (K4 + K3) and K2 at the flagship shapes, each
+    twice, in turns; K5's plain version; K5 over chunk sizes; K5's own peak
+    memory beyond its inputs."""
+    import torch
+
+    fns = dict(kernel=lambda: st.mono_backward(x, dz, ops, ghost),
+               split=lambda: st.split_backward(x, dz, ops, acts, stats, ghost),
+               k2=lambda: st.ghost_forward(x, ops, ghost),
+               plain=lambda: st.mono_backward_reference(x, dz, ops, ghost))
+    runs = {k: [] for k in fns}
+    for _ in range(2):
+        for k, fn in fns.items():
+            runs[k].append(cuda_ms(fn, iters=5, warmup=2))
+    b = x.shape[0]
+    sweep = {}
+    for want in MONO_CHUNK_SWEEP:
+        chunk = st.mono_chunk(b, ghost, want)
+        ws = st.mono_workspace(ops, n, chunk, ghost)
+        sweep[chunk] = dict(
+            n_chunks=-(-b // chunk), workspace_bytes=4 * sum(v for v in ws.values() if v),
+            kernel_ms=cuda_ms(lambda: st.mono_backward(x, dz, ops, ghost, chunk), iters=5,
+                              warmup=1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    grads = st.mono_backward(x, dz, ops, ghost)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del grads
+    default = sweep[st.mono_chunk(b, ghost)]
+    return dict(kernel_ms=min(runs["kernel"]), plain_ms=min(runs["plain"]),
+                split_ms=min(runs["split"]), k2_ms=min(runs["k2"]),
+                runs_ms=runs, chunk_sweep=sweep, kernel_workspace_bytes=default["workspace_bytes"],
+                kernel_peak_bytes=peak)
+
+
+def mono_path(card):
+    """MONO_STEPS steps of fused_stse_apply(bwd_mode="mono") + Adam at the
+    flagship width, B=2048, ghost 64, against as many split steps from the
+    same weights (bench_fused.py's `tm:` job, with Adam); step times in
+    turns; peak memory and saved-for-backward bytes of one step of each."""
+    import copy
+
+    import torch
+    from coskad_tpu_torch.kernels import stse_train as st
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(1357)
+    model0 = seeded_train_stse(gen, dev, **FULL)
+    center = torch.randn(FULL["latent_dim"], generator=gen).to(dev)
+    dgen = torch.Generator(device=dev).manual_seed(9)
+    xs = [torch.randn(TRAIN_BATCH, FULL["input_dim"], FULL["n_frames"], FULL["n_joints"],
+                      generator=dgen, device=dev) for _ in range(MONO_STEPS)]
+
+    def steps(mode, model, opt, count, saved=None):
+        """`count` train steps; `saved` (a dict) collects the bytes of every
+        tensor the step keeps for its backward, once per storage."""
+
+        def pack(t):
+            if saved is not None:
+                saved[(t.data_ptr(), t.numel())] = t.numel() * t.element_size()
+            return t
+
+        losses = []
+        for i in range(count):
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                z = st.fused_stse_apply(model, xs[i % MONO_STEPS], ghost_size=64, bwd_mode=mode)
+                loss = torch.mean((z - center) ** 2)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+        return losses
+
+    runs = {}
+    counters = dict(stse_train_forward=st.forward_launches,
+                    stse_train_layer_backward=st.layer_backward_launches,
+                    stse_train_top_backward=st.top_backward_launches,
+                    stse_train_mono_backward=st.mono_backward_launches)
+    for mode in ("mono", "split"):
+        model = copy.deepcopy(model0)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+        if mode == "mono":  # --- the mono path, counted ---
+            for c in counters.values():
+                c.value = 0
+        losses = torch.stack(steps(mode, model, opt, MONO_STEPS)).cpu().numpy()
+        torch.cuda.synchronize()
+        if mode == "mono":
+            launches = {k: c.value for k, c in counters.items()}
+            # --- end of the counted run ---
+        runs[mode] = dict(model=model, opt=opt, losses=losses)
+    want = dict(stse_train_forward=MONO_STEPS, stse_train_layer_backward=0,
+                stse_train_top_backward=0, stse_train_mono_backward=MONO_STEPS)
+    check(launches == want, f"mono path launches {launches}, expected {want}")
+    mono, split = runs["mono"]["losses"], runs["split"]["losses"]
+    rel = float(np.max(np.abs(mono - split) / np.abs(split)))
+    check(bool(np.isfinite(mono).all()) and np.allclose(mono, split, rtol=LOSS_RTOL, atol=0.0),
+          f"mono vs split per-step losses: {mono} vs {split}")
+    bn = {k: (a, b) for (k, a), b in zip(runs["mono"]["model"].named_buffers(),
+                                          runs["split"]["model"].buffers())}
+    bad = [k for k, (a, b) in bn.items() if not within(a, b, **TRAIN_TOL)]
+    check(not bad, f"running statistics after {MONO_STEPS} mono vs split steps: {bad}")
+
+    def step_ms(mode, count=10):
+        r = runs[mode]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(mode, r["model"], r["opt"], count)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / count
+
+    times = {"split": [], "mono": []}
+    for mode in ("split", "mono", "mono", "split"):
+        times[mode].append(step_ms(mode))
+    memory = {}
+    default_chunk = st.MONO_CHUNK_WINDOWS
+    # One step of each; mono also at larger K5 chunks, to show whether K5's
+    # workspace or K2's forward sets the mono step's peak.
+    for key, mode, chunk in (("split", "split", None), ("mono", "mono", None),
+                             *((f"mono_chunk{c}", "mono", c) for c in MONO_PEAK_CHUNKS)):
+        r, saved = runs[mode], {}
+        st.MONO_CHUNK_WINDOWS = chunk or default_chunk
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            steps(mode, r["model"], r["opt"], 1, saved)
+            torch.cuda.synchronize()
+        finally:
+            st.MONO_CHUNK_WINDOWS = default_chunk
+        memory[key] = dict(peak_bytes_above_resident=torch.cuda.max_memory_allocated() - base,
+                           resident_bytes=base, saved_for_backward_bytes=sum(saved.values()),
+                           saved_tensors=len(saved))
+    summary = dict(steps=MONO_STEPS, batch=TRAIN_BATCH, ghost=64, launches=launches,
+                   losses_mono=mono.tolist(), losses_split=split.tolist(),
+                   loss_max_rel_err=rel, step_ms=times, memory=memory, card=card)
+    print(f"mono path: {MONO_STEPS} steps of fused_stse_apply(bwd_mode='mono') + Adam at B="
+          f"{TRAIN_BATCH}, ghost 64 on {card}: launches {launches}; losses vs split max rel err "
+          f"{rel:.2e}; step ms (host clock, 10 steps, in turns) mono {times['mono']} split "
+          f"{times['split']}; memory " + json.dumps(memory))
+    return summary
+
+
+def phase_probe(card):
+    """P: each probe job's kernel against its plain version (elementwise
+    exactly, sums within PROBE_SUM_TOL), launched once each in a counted
+    run; kernel and plain times. Returns the kernel records."""
+    import torch
+    from coskad_tpu_torch.kernels import probe
+
+    a, b = probe.inputs(DEVICE)
+    for c in probe.launches.values():  # --- the probe run, counted ---
+        c.value = 0
+    outs = {job: probe.run(job, a, b) for job in probe.JOBS}
+    torch.cuda.synchronize()
+    launches = {job: c.value for job, c in probe.launches.items()}  # --- end ---
+    records, errs = [], {}
+    for job, out in outs.items():
+        want = probe.plain(job, a, b)
+        errs[job] = float((out - want).abs().max())
+        sums = job.startswith(("dot0", "dotg", "min"))
+        ok = within(out, want, **PROBE_SUM_TOL) if sums else torch.equal(out, want)
+        check(ok and launches[job] == 1, f"probe {job}: max abs err {errs[job]:.3e} "
+                                         f"(launches {launches[job]})")
+        runs = dict(kernel=[], plain=[])
+        for _ in range(2):
+            runs["kernel"].append(cuda_ms(lambda: probe.run(job, a, b)))
+            runs["plain"].append(cuda_ms(lambda: probe.plain(job, a, b)))
+        ops, nbytes = probe.work(job)
+        bound_ms, bound_by = bound_of(ops, nbytes, PEAK_BF16_FLOPS)
+        replaces, what = probe.JOBS[job]
+        records.append(dict(
+            name=f"probe_bf16.{job}", route="cuda", source=probe.SOURCE, replaces=replaces,
+            launches=launches[job], max_abs_err=errs[job],
+            tolerance=PROBE_SUM_TOL if sums else "exact", ms=min(runs["kernel"]),
+            kernel_ms=min(runs["kernel"]), plain_ms=min(runs["plain"]), bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None, probes=what, flops=ops, bytes=nbytes,
+            timing_runs_ms=runs))
+    print("probe check: " + json.dumps(dict(card=card, jobs={
+        r["name"]: {k: r[k] for k in ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms")}
+        for r in records})))
+    return records
 
 
 def train_config(fused: str, batch: int = None):
@@ -845,21 +1131,25 @@ def main(argv=None) -> int:
 
     kernel = phase_kernel(card)
     train_kernels = phase_train_kernels(card)
+    mono_kernel, mono = phase_mono(card, checks_only=args.only == "kernels")
+    probes = phase_probe(card)
     if args.only == "kernels":
         return 0
     summary = phase_slice(card)
     train = phase_train(card)
     kernel["launches"] = summary["launches"]["stse_fused"] + train["launches"]["stse_fused"]
     kernel["launches_by_path"] = dict(serving=summary["launches"]["stse_fused"],
-                                      training=train["launches"]["stse_fused"])
-    for rec in train_kernels:
-        rec["launches"] = train["launches"][rec["name"]]
-        rec["launches_by_path"] = dict(serving=0, training=rec["launches"])
-    kernels = [kernel, *train_kernels]
+                                      training=train["launches"]["stse_fused"], mono=0)
+    for rec in train_kernels + [mono_kernel]:
+        by_path = dict(serving=0, training=train["launches"].get(rec["name"], 0),
+                       mono=mono["launches"][rec["name"]])
+        rec["launches"] = by_path["training"] + by_path["mono"]
+        rec["launches_by_path"] = by_path
+    kernels = [kernel, *train_kernels, mono_kernel, *probes]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=card, build_s=build_s, kernels=kernels, slice=summary, train=train),
-                  f, indent=1)
+        json.dump(dict(card=card, build_s=build_s, kernels=kernels, slice=summary, train=train,
+                       mono=mono), f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "tolerance",
             "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))

@@ -27,7 +27,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-KERNELS = ("stse_fused", "stse_train")
+KERNELS = ("stse_fused", "stse_train", "probe_bf16")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

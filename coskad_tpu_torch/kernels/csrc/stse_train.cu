@@ -1,10 +1,12 @@
-// Train-mode STSE encoder with ghost BatchNorm: forward (K2) and the split
-// backward (K3 for a lower layer, K4 for the top layer with the projector).
+// Train-mode STSE encoder with ghost BatchNorm: forward (K2), the split
+// backward (K3 for a lower layer, K4 for the top layer with the projector)
+// and the mono backward (K5, from x and dz alone).
 //
 // Replaces the Pallas kernels of coskad_tpu/kernels/stse_train.py:
 //   K2  stse_train_forward        <- _fwd_kernel (:432), via _fwd_pallas (:843)
 //   K3  stse_train_layer_backward <- _layer_bwd_kernel (:790) / _layer_bwd_body (:566)
 //   K4  stse_train_top_backward   <- _top_layer_bwd_kernel (:738)
+//   K5  stse_train_mono_backward  <- _bwd_kernel (:498), via _bwd_pallas (:1008)
 // Each C entry point launches several __global__ functions in order on the
 // caller's stream and returns cudaGetLastError().
 //
@@ -45,6 +47,32 @@
 //     version; keeping them on chip is later work.
 //   * Scalar fp32 code, no tensor cores, no TMA: those come with the PRs
 //     that make the kernels fast.
+//
+// K5, the mono backward, keeps nothing from the forward: it reads x, dz and
+// the operands and writes every gradient. Its function needs the fp32 work
+// of K4 + K3, which already hold g, t and r once; the kernel does more, K2's
+// passes and then K4's and K3's, which compute g, t and r again. Its
+// reason to exist is memory: split keeps x and every layer's
+// activations alive from forward to backward (442,368 rows x 146 channels,
+// 258 MB at the flagship width and B = 2048) and its backward scratch
+// (t, r, dpre, g, dg over the batch) adds ~450 MB. Ghost statistics never
+// cross a ghost block, so K5 walks the batch in chunks of whole ghost
+// blocks (the last one may be ragged), and for each chunk:
+//   * re-runs K2's passes on the chunk's windows (pointer offsets; the
+//     running-statistic sums were taken in the forward and are skipped),
+//     keeping each layer's output and block statistics in a chunk
+//     workspace;
+//   * runs K4's and K3's passes over that workspace, top layer down, with
+//     no dx on layer 0 (the TPU body computes it and throws it away);
+//   * writes its share of dW, dW_res, dM and dwp to a [n_chunks, ...]
+//     buffer, and its per-window / per-ghost-block shares of dgamma, dbeta,
+//     db, dalpha to whole-batch buffers.
+// One last pass sums them in chunk (and block) order: no float atomics, so
+// runs repeat bit for bit. The wrapper picks the chunk (128 windows by
+// default: a 47.9 MB workspace at the flagship width, under a quarter of
+// split's saved activations); each pass then has only the chunk's windows
+// as blocks, which costs parallelism. That is the simple design: the same
+// passes as K2-K4, reused, not a fused remat kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,6 +102,20 @@ enum BwdField {
   BD_T_BUF, BD_R_BUF, BD_DPRE_BUF, BD_DG_BUF, BD_PART, BD_DALPHA_PART, BD_CONSTS, BD_GPART,
   BD_PROD_BUF, BD_SPLITS_W, BD_SPLITS_W_RES, BD_SPLITS_M, BD_SPLITS_WP, BD_COUNT
 };
+// K5: a header, then one row per layer. The gradients (ML_DM ... ML_DALPHA)
+// follow the operands (ML_M ... ML_ALPHA) in the same order.
+enum MonoHeader {
+  MH_N_LAYERS, MH_BATCH, MH_N_NODES, MH_GHOST, MH_LATENT, MH_CHUNK, MH_X, MH_DZ, MH_WP,
+  MH_DWP, MH_DBP, MH_SPLITS_WP, MH_CHUNK_DWP, MH_T_BUF, MH_R_BUF, MH_DPRE_BUF, MH_G_BUF,
+  MH_DG_BUF, MH_DY_BUF, MH_PART, MH_BLOCK_SUMS, MH_CONSTS, MH_PROD_BUF, MH_COUNT
+};
+enum MonoLayerField {
+  ML_CI, ML_CO, ML_IDENTITY, ML_M, ML_W, ML_B, ML_GAMMA, ML_BETA, ML_W_RES, ML_B_RES,
+  ML_GAMMA_RES, ML_BETA_RES, ML_ALPHA, ML_DM, ML_DW, ML_DB, ML_DGAMMA, ML_DBETA, ML_DW_RES,
+  ML_DB_RES, ML_DGAMMA_RES, ML_DBETA_RES, ML_DALPHA, ML_ACT, ML_STATS, ML_MT, ML_GPART,
+  ML_DALPHA_PART, ML_CHUNK_DM, ML_CHUNK_DW, ML_CHUNK_DW_RES, ML_SPLITS_W, ML_SPLITS_M, ML_COUNT
+};
+static_assert((int)FL_ALPHA == (int)ML_ALPHA, "forward and mono rows share their operands");
 
 struct Layer {
   int ci, co, identity;
@@ -664,7 +706,8 @@ cudaError_t run_product(const Product& pr, int splits, float* prod_buf, float* o
   return cudaGetLastError();
 }
 
-Layer fwd_layer(const long long* r) {
+// The operands of a forward (or mono) layer row; the caller sets stats.
+Layer row_layer(const long long* r) {
   Layer L;
   L.ci = (int)r[FL_CI];
   L.co = (int)r[FL_CO];
@@ -679,8 +722,161 @@ Layer fwd_layer(const long long* r) {
   L.gamma_r = ptr<const float>(r, FL_GAMMA_RES);
   L.beta_r = ptr<const float>(r, FL_BETA_RES);
   L.alpha = ptr<const float>(r, FL_ALPHA);
-  L.stats = ptr<const float>(r, FL_STATS);
+  L.stats = nullptr;
   return L;
+}
+
+// Dynamic shared memory of a layer's fwd_pre, bwd_pre and bwd_dx blocks.
+struct LayerSmem {
+  long long fwd, pre, dx;
+};
+LayerSmem layer_smem(const Layer& L, int n, int latent, bool top) {
+  const long long w = 2LL * L.ci * L.co;
+  return {(long long)sizeof(float) * (2LL * n * L.ci + w),
+          (long long)sizeof(float) * (2LL * n * L.ci + w + kThreads + (top ? latent : 0)),
+          (long long)sizeof(float) * (2LL * n * L.co + 2LL * n * L.ci + w)};
+}
+
+// K5, one chunk of windows [w0, w0 + wc): the forward again into the chunk
+// workspace (each layer's output and block statistics), then the backward
+// sweep, top layer down, leaving the chunk's share of every batch reduction
+// in the [n_chunks, ...] buffers (index c) and the per-window / per-block
+// buffers (offset by w0).
+cudaError_t mono_chunk(const long long* d, int c, int w0, int wc, cudaStream_t stream) {
+  const int n_layers = (int)d[MH_N_LAYERS], n = (int)d[MH_N_NODES], ghost = (int)d[MH_GHOST];
+  const int latent = (int)d[MH_LATENT], nbc = wc / ghost;
+  float* t_buf = ptr<float>(d, MH_T_BUF);
+  float* r_buf = ptr<float>(d, MH_R_BUF);
+  float* dpre_buf = ptr<float>(d, MH_DPRE_BUF);
+  float* g_buf = ptr<float>(d, MH_G_BUF);
+  float* dg_buf = ptr<float>(d, MH_DG_BUF);
+  float* dy_buf = ptr<float>(d, MH_DY_BUF);
+  float* part = ptr<float>(d, MH_PART);
+  float* consts = ptr<float>(d, MH_CONSTS);
+  float* prod_buf = ptr<float>(d, MH_PROD_BUF);
+  const long long* rows = d + MH_COUNT;
+  const float* x_c = ptr<const float>(d, MH_X) + (long long)w0 * n * rows[ML_CI];
+  const float* dz_c = ptr<const float>(d, MH_DZ) + (long long)w0 * latent;
+
+  const float* h = x_c;
+  for (int l = 0; l < n_layers; ++l) {
+    const long long* row = rows + (long long)l * ML_COUNT;
+    Layer L = row_layer(row);
+    float* stats = ptr<float>(row, ML_STATS);
+    L.stats = stats;
+    float* act = ptr<float>(row, ML_ACT);
+    const long long smem_fwd = layer_smem(L, n, latent, false).fwd;
+    fwd_pre_kernel<<<wc, kThreads, (size_t)smem_fwd, stream>>>(h, L, n, t_buf, r_buf, part);
+    fwd_stats_kernel<<<nbc, kThreads, 0, stream>>>(part, L, ghost, n, stats,
+                                                   ptr<float>(d, MH_BLOCK_SUMS));
+    fwd_apply_kernel<<<wc, kThreads, 0, stream>>>(L, n, ghost, t_buf, r_buf, act, nullptr,
+                                                  nullptr, nullptr, latent);
+    h = act;
+  }
+  cudaError_t err = cudaGetLastError();
+  for (int l = n_layers - 1; l >= 0 && err == cudaSuccess; --l) {
+    const long long* row = rows + (long long)l * ML_COUNT;
+    Layer L = row_layer(row);
+    L.stats = ptr<const float>(row, ML_STATS);
+    const int ci = L.ci, co = L.co;
+    const bool top = l == n_layers - 1;
+    const float* x_l = l == 0 ? x_c : ptr<const float>(row - ML_COUNT, ML_ACT);
+    const LayerSmem smem = layer_smem(L, n, latent, top);
+    bwd_pre_kernel<<<wc, kThreads, (size_t)smem.pre, stream>>>(
+        x_l, L, n, ghost, top ? nullptr : dy_buf, top ? dz_c : nullptr, ptr<const float>(d, MH_WP),
+        latent, g_buf, t_buf, r_buf, dpre_buf, part, ptr<float>(row, ML_DALPHA_PART) + w0);
+    bwd_consts_kernel<<<nbc, kThreads, 0, stream>>>(
+        part, L, ghost, n, consts, ptr<float>(row, ML_GPART) + (long long)(w0 / ghost) * 6 * co);
+    bwd_dx_kernel<<<wc, kThreads, (size_t)smem.dx, stream>>>(
+        L, n, ghost, consts, t_buf, r_buf, dpre_buf, dg_buf, ptr<const float>(row, ML_MT),
+        l > 0 ? dy_buf : nullptr);
+    err = cudaGetLastError();
+    // dW = sum g^T dt, dW_res = sum x^T dr, dM = sum x^T dg over the chunk.
+    const long long wsz = (long long)ci * co;
+    Product pw{g_buf, t_buf, ci, co, wc, n, (long long)n * ci, (long long)n * co, 1, ci, 1, co};
+    if (err == cudaSuccess)
+      err = run_product(pw, (int)row[ML_SPLITS_W], prod_buf,
+                        ptr<float>(row, ML_CHUNK_DW) + c * wsz, stream);
+    if (err == cudaSuccess && !L.identity) {
+      Product pr{x_l, r_buf, ci, co, wc, n, (long long)n * ci, (long long)n * co, 1, ci, 1, co};
+      err = run_product(pr, (int)row[ML_SPLITS_W], prod_buf,
+                        ptr<float>(row, ML_CHUNK_DW_RES) + c * wsz, stream);
+    }
+    if (err == cudaSuccess) {
+      Product pm{x_l, dg_buf, n, n, wc, ci, (long long)n * ci, (long long)n * ci, ci, 1, ci, 1};
+      err = run_product(pm, (int)row[ML_SPLITS_M], prod_buf,
+                        ptr<float>(row, ML_CHUNK_DM) + (long long)c * n * n, stream);
+    }
+    // dwp = sum over the chunk's windows of y_flat^T dz.
+    if (err == cudaSuccess && top) {
+      Product pp{ptr<const float>(row, ML_ACT), dz_c, n * co, latent, wc, 1, (long long)n * co,
+                 (long long)latent, 1, 0, 1, 0};
+      err = run_product(pp, (int)d[MH_SPLITS_WP], prod_buf,
+                        ptr<float>(d, MH_CHUNK_DWP) + (long long)c * n * co * latent, stream);
+    }
+  }
+  return err;
+}
+
+int run_mono(const long long* d, cudaStream_t stream) {
+  const int n_layers = (int)d[MH_N_LAYERS], batch = (int)d[MH_BATCH], n = (int)d[MH_N_NODES];
+  const int ghost = (int)d[MH_GHOST], latent = (int)d[MH_LATENT], chunk = (int)d[MH_CHUNK];
+  if (n_layers < 1 || batch < 1 || ghost < 1 || batch % ghost != 0 || n < 1 || latent < 1 ||
+      chunk < ghost || chunk % ghost != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long* rows = d + MH_COUNT;
+  LayerSmem most{0, 0, 0};
+  for (int l = 0; l < n_layers; ++l) {
+    const Layer L = row_layer(rows + (long long)l * ML_COUNT);
+    if (L.ci < 1 || L.co < 1 || (L.identity && L.ci != L.co) ||
+        (l > 0 && L.ci != rows[(long long)(l - 1) * ML_COUNT + ML_CO]))
+      return (int)cudaErrorInvalidValue;
+    const LayerSmem s = layer_smem(L, n, latent, l == n_layers - 1);
+    most = {s.fwd > most.fwd ? s.fwd : most.fwd, s.pre > most.pre ? s.pre : most.pre,
+            s.dx > most.dx ? s.dx : most.dx};
+  }
+  cudaError_t err = allow_smem((const void*)fwd_pre_kernel, most.fwd);
+  if (err == cudaSuccess) err = allow_smem((const void*)bwd_pre_kernel, most.pre);
+  if (err == cudaSuccess) err = allow_smem((const void*)bwd_dx_kernel, most.dx);
+  if (err != cudaSuccess) return (int)err;
+  for (int l = 1; l < n_layers; ++l) {  // M^T for every layer that passes dx down
+    const long long* row = rows + (long long)l * ML_COUNT;
+    transpose_kernel<<<blocks_for((long long)n * n), kThreads, 0, stream>>>(
+        ptr<const float>(row, ML_M), ptr<float>(row, ML_MT), n);
+  }
+  const int n_chunks = (batch + chunk - 1) / chunk;
+  for (int c = 0; c < n_chunks && err == cudaSuccess; ++c) {
+    const int w0 = c * chunk;
+    const int wc = batch - w0 < chunk ? batch - w0 : chunk;
+    err = mono_chunk(d, c, w0, wc, stream);
+  }
+  if (err != cudaSuccess) return (int)err;
+  // The whole-batch sums, in chunk (block, window) order.
+  for (int l = 0; l < n_layers; ++l) {
+    const long long* row = rows + (long long)l * ML_COUNT;
+    const Layer L = row_layer(row);
+    const bool top = l == n_layers - 1;
+    const long long wsz = (long long)L.ci * L.co;
+    sum_splits_kernel<<<blocks_for(wsz), kThreads, 0, stream>>>(
+        ptr<const float>(row, ML_CHUNK_DW), wsz, n_chunks, ptr<float>(row, ML_DW));
+    if (!L.identity)
+      sum_splits_kernel<<<blocks_for(wsz), kThreads, 0, stream>>>(
+          ptr<const float>(row, ML_CHUNK_DW_RES), wsz, n_chunks, ptr<float>(row, ML_DW_RES));
+    sum_splits_kernel<<<blocks_for((long long)n * n), kThreads, 0, stream>>>(
+        ptr<const float>(row, ML_CHUNK_DM), (long long)n * n, n_chunks, ptr<float>(row, ML_DM));
+    bwd_reduce_kernel<<<1, kThreads, sizeof(float) * kThreads, stream>>>(
+        ptr<const float>(row, ML_GPART), batch / ghost, ptr<const float>(row, ML_DALPHA_PART),
+        batch, L, ptr<float>(row, ML_DGAMMA), ptr<float>(row, ML_DBETA), ptr<float>(row, ML_DB),
+        ptr<float>(row, ML_DGAMMA_RES), ptr<float>(row, ML_DBETA_RES), ptr<float>(row, ML_DB_RES),
+        ptr<float>(row, ML_DALPHA), top ? ptr<const float>(d, MH_DZ) : nullptr, latent,
+        ptr<float>(d, MH_DBP));
+    if (top) {
+      const long long psz = (long long)n * L.co * latent;
+      sum_splits_kernel<<<blocks_for(psz), kThreads, 0, stream>>>(
+          ptr<const float>(d, MH_CHUNK_DWP), psz, n_chunks, ptr<float>(d, MH_DWP));
+    }
+  }
+  return (int)cudaGetLastError();
 }
 
 int run_backward(const long long* d, bool top, cudaStream_t stream) {
@@ -723,9 +919,8 @@ int run_backward(const long long* d, bool top, cudaStream_t stream) {
   float* mt = ptr<float>(d, BD_MT);
   float* dx = ptr<float>(d, BD_DX);
 
-  const long long smem_pre =
-      sizeof(float) * (2LL * n * ci + 2LL * ci * co + kThreads + (top ? latent : 0));
-  const long long smem_dx = sizeof(float) * (2LL * n * co + 2LL * n * ci + 2LL * ci * co);
+  const LayerSmem smem = layer_smem(L, n, latent, top);
+  const long long smem_pre = smem.pre, smem_dx = smem.dx;
   cudaError_t err = allow_smem((const void*)bwd_pre_kernel, smem_pre);
   if (err == cudaSuccess) err = allow_smem((const void*)bwd_dx_kernel, smem_dx);
   if (err != cudaSuccess) return (int)err;
@@ -791,12 +986,13 @@ int stse_train_forward(const long long* desc, void* stream_ptr) {
   const float* x = ptr<const float>(desc, FH_X);
   for (int l = 0; l < n_layers; ++l) {
     const long long* row = desc + FH_COUNT + (long long)l * FL_COUNT;
-    const Layer L = fwd_layer(row);
+    Layer L = row_layer(row);
     if (L.ci < 1 || L.co < 1 || (L.identity && L.ci != L.co)) return (int)cudaErrorInvalidValue;
     const bool last = l == n_layers - 1;
     float* act = ptr<float>(row, FL_ACT);
     float* stats = ptr<float>(row, FL_STATS);
-    const long long smem_pre = sizeof(float) * (2LL * n * L.ci + 2LL * L.ci * L.co);
+    L.stats = stats;
+    const long long smem_pre = layer_smem(L, n, latent, last).fwd;
     const long long smem_apply = sizeof(float) * kLatentChunk * kThreads;
     cudaError_t err = allow_smem((const void*)fwd_pre_kernel, smem_pre);
     if (err != cudaSuccess) return (int)err;
@@ -813,6 +1009,20 @@ int stse_train_forward(const long long* desc, void* stream_ptr) {
     x = act;
   }
   return (int)cudaSuccess;
+}
+
+// K5. desc: MH_COUNT header fields, then n_layers rows of ML_COUNT fields
+// (see MonoHeader / MonoLayerField; built by stse_train.py). Chunk
+// workspace, for C = MH_CHUNK windows: t_buf, r_buf, dpre_buf [C, N, max
+// C_out]; g_buf, dg_buf [C, N, max C_in]; dy_buf [C, N, max C_in of the
+// layers above 0]; part [C, 4, max C_out]; block_sums and consts [C / ghost,
+// 4 and 6, max C_out]; per layer act [C, N, C_out] and stats [C / ghost, 4,
+// C_out]. Whole batch, per layer: mt [N, N] (not layer 0), gpart [B / ghost,
+// 6, C_out], dalpha_part [B], chunk_dm / chunk_dw / chunk_dw_res [n_chunks,
+// ...]; chunk_dwp [n_chunks, N * C_out, latent]; prod_buf as K3/K4's for one
+// chunk.
+int stse_train_mono_backward(const long long* desc, void* stream) {
+  return run_mono(desc, (cudaStream_t)stream);
 }
 
 // K3: one lower layer's backward (desc: BD_COUNT fields, BD_DY set, BD_DZ 0).

@@ -40,7 +40,7 @@ _LAYOUT_COLS = 9  # ci, co, cip, cop, off_m, off_w, off_wr, off_b, off_alpha
 
 class LaunchCounter:
     """Counts kernel launches, so a run can show its path went through the
-    kernel. Only the CUDA branch of `fused_stse_hidden` adds to it."""
+    kernel. Only a wrapper's CUDA branch adds to it."""
 
     def __init__(self):
         self.value = 0

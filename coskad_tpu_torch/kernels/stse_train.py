@@ -1,18 +1,22 @@
-"""Train-mode STSE encoder with ghost BatchNorm: forward and split backward.
+"""Train-mode STSE encoder with ghost BatchNorm: forward, split and mono backward.
 
 Replaces the Pallas kernels of `coskad_tpu/kernels/stse_train.py`:
 
     K2  `_fwd_kernel` (:432, via `_fwd_pallas` :843)       -> `ghost_forward`
     K3  `_layer_bwd_kernel` (:790, `_layer_bwd_body` :566) -> `layer_backward`
     K4  `_top_layer_bwd_kernel` (:738)                     -> `top_backward`
+    K5  `_bwd_kernel` (:498, via `_bwd_pallas` :1008)      -> `mono_backward`
 
 each one C entry point of `csrc/stse_train.cu` (CUDA C++ for sm_90a, built
 by `build.py` at first use, bound with ctypes). `FusedGhostEncode` is the
 port of the custom VJP `fused_ghost_encode` (:1061-1107): K2 forward, then K4
-for the top layer and K3 for each layer below. `fused_stse_apply` (:1110) is
-the train-mode encode a Trainer calls; it also folds the exact full-batch
-pre-BN sums into the model's running statistics (`updated_batch_stats`,
-:1176), in place on the BatchNorm buffers where flax returns a new tree.
+for the top layer and K3 for each layer below; with bwd_mode="mono", K2
+forward keeping only x and the operands, then K5, which recomputes the
+forward one chunk of ghost blocks at a time.
+`fused_stse_apply` (:1110) is the train-mode encode a Trainer calls; it also
+folds the exact full-batch pre-BN sums into the model's running statistics
+(`updated_batch_stats`, :1176), in place on the BatchNorm buffers where flax
+returns a new tree.
 
 Ghost BatchNorm normalizes each block of `ghost_size` consecutive windows
 with the biased statistics of its ghost_size * T * V rows; an identity
@@ -44,12 +48,20 @@ REPLACES = {
     "stse_train_forward": "coskad_tpu/kernels/stse_train.py:432",
     "stse_train_layer_backward": "coskad_tpu/kernels/stse_train.py:790",
     "stse_train_top_backward": "coskad_tpu/kernels/stse_train.py:738",
+    "stse_train_mono_backward": "coskad_tpu/kernels/stse_train.py:498",
 }
 BN_EPS = 1e-5
+# K5's default chunk, in windows: at the flagship width its workspace
+# (`mono_workspace`) is 47.9 MB, under a quarter of split's 258 MB of saved
+# activations at B = 2048. On an H100 a mono step's peak is the same at
+# chunks of 512 and 1024 windows (K2's forward sets it), where K5 takes
+# half the time: retuning it is ROADMAP.md Queue 0 item 5 (PERF.md).
+MONO_CHUNK_WINDOWS = 128
 
 forward_launches = LaunchCounter()  # K2
 layer_backward_launches = LaunchCounter()  # K3
 top_backward_launches = LaunchCounter()  # K4
+mono_backward_launches = LaunchCounter()  # K5
 
 # Descriptor fields, in the order of the enums in csrc/stse_train.cu.
 _FWD_HEADER = ("n_layers", "batch", "n_nodes", "ghost", "latent", "x", "wp", "bp", "z",
@@ -62,6 +74,9 @@ _BWD = ("batch", "n_nodes", "ghost", "ci", "co", "identity", "latent", "x", "dy"
         "dgamma_res", "dbeta_res", "dalpha", "dx", "dwp", "dbp", "mt", "g_buf", "t_buf",
         "r_buf", "dpre_buf", "dg_buf", "part", "dalpha_part", "consts", "gpart", "prod_buf",
         "splits_w", "splits_w_res", "splits_m", "splits_wp")
+_MONO_HEADER = ("n_layers", "batch", "n_nodes", "ghost", "latent", "chunk", "x", "dz", "wp",
+                "dwp", "dbp", "splits_wp", "chunk_dwp", "t_buf", "r_buf", "dpre_buf", "g_buf",
+                "dg_buf", "dy_buf", "part", "block_sums", "consts", "prod_buf")
 
 
 class LayerOps(NamedTuple):
@@ -92,6 +107,9 @@ class EncoderOps(NamedTuple):
 
 
 N_LAYER_OPS = len(LayerOps._fields)
+_MONO_LAYER = ("ci", "co", "identity", *LayerOps._fields, *("d" + f for f in LayerOps._fields),
+               "act", "stats", "mt", "gpart", "dalpha_part", "chunk_dm", "chunk_dw",
+               "chunk_dw_res", "splits_w", "splits_m")
 
 
 def _bias(dense) -> torch.Tensor:
@@ -257,6 +275,28 @@ def top_backward_reference(x: torch.Tensor, dz: torch.Tensor, lay: LayerOps,
     return LayerOps(*grads[3:]), grads[1], grads[2], grads[0] if need_dx else None
 
 
+def mono_backward_reference(x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps,
+                            ghost_size: int, positive: Optional[Sequence[torch.Tensor]] = None
+                            ) -> EncoderOps:
+    """K5's plain version: the forward recomputed from x [B, N, C_in], then
+    autograd of <z, dz> into every operand. Returns an EncoderOps of
+    gradients (None where the operand is None); x gets none, it is data.
+    `positive`, one [B, N, C_out] branch per layer: see
+    `ghost_layer_reference`."""
+    n_layers = len(ops.layers)
+    branches = [None] * n_layers if positive is None else positive
+    x = x.detach()
+
+    def fn(*flat):
+        o = _unflatten(flat, n_layers)
+        h = x
+        for lay, branch in zip(o.layers, branches):
+            h = ghost_layer_reference(h, lay, ghost_size, branch)[0]
+        return h.reshape(h.shape[0], -1) @ o.wp + o.bp
+
+    return _unflatten(_grads_through(fn, _flatten(ops), dz), n_layers)
+
+
 # --------------------------------------------------------------------------
 # CUDA launches
 # --------------------------------------------------------------------------
@@ -267,7 +307,7 @@ def _library():
 
     lib = build.load("stse_train")
     if not getattr(lib, "_coskad_typed", False):
-        for fn in ("stse_train_forward", "stse_train_layer_backward", "stse_train_top_backward"):
+        for fn in REPLACES:
             getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
             getattr(lib, fn).restype = ctypes.c_int
         lib.stse_train_error_string.argtypes = [ctypes.c_int]
@@ -412,6 +452,91 @@ def launch_backward(lib, x: torch.Tensor, stats: torch.Tensor, lay: LayerOps,
     return grads, dwp, dbp, dx
 
 
+def mono_chunk(batch: int, ghost_size: int, chunk_windows: Optional[int] = None) -> int:
+    """K5's chunk in windows: `chunk_windows` (default MONO_CHUNK_WINDOWS)
+    cut down to whole ghost blocks, at least one block, at most the batch."""
+    want = MONO_CHUNK_WINDOWS if chunk_windows is None else chunk_windows
+    return min(max(ghost_size, want // ghost_size * ghost_size), batch)
+
+
+def mono_workspace(ops: EncoderOps, n: int, chunk: int, ghost_size: int) -> dict:
+    """K5's chunk workspace, name -> number of floats (None: not needed).
+    It scales with the chunk, not the batch."""
+    co = [lay.w.shape[1] for lay in ops.layers]
+    ci = [lay.w.shape[0] for lay in ops.layers]
+    rows, blocks = chunk * n, chunk // ghost_size
+    out = dict(t_buf=rows * max(co), r_buf=rows * max(co), dpre_buf=rows * max(co),
+               g_buf=rows * max(ci), dg_buf=rows * max(ci),
+               dy_buf=rows * max(ci[1:]) if len(ci) > 1 else None,
+               part=chunk * 4 * max(co), block_sums=blocks * 4 * max(co),
+               consts=blocks * 6 * max(co))
+    for l, c in enumerate(co):
+        out[f"act{l}"] = rows * c
+        out[f"stats{l}"] = blocks * 4 * c
+    return out
+
+
+def launch_mono_backward(lib, x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps,
+                         ghost_size: int, chunk_windows: Optional[int] = None) -> EncoderOps:
+    """Run K5 from `lib` on x [B, N, C_in] and dz [B, latent]: every
+    operand's gradient, the forward recomputed chunk by chunk (`mono_chunk`).
+    Same return as `mono_backward_reference`."""
+    b, n, c0 = x.shape
+    dev = x.device
+    if b % ghost_size or b < 1:
+        raise ValueError(f"batch {b} must be a positive multiple of ghost_size {ghost_size}")
+    if ops.layers[0].w.shape[0] != c0:
+        raise ValueError(f"input has {c0} channels, layer 0 takes {ops.layers[0].w.shape[0]}")
+    layers = [_layer_operands(lay, n, dev) for lay in ops.layers]
+    c_hidden = layers[-1].w.shape[1]
+    latent = ops.wp.shape[1]
+    x = _checked(x, dev, (b, n, c0), "x")
+    dz = _checked(dz, dev, (b, latent), "dz")
+    wp = _checked(ops.wp, dev, (n * c_hidden, latent), "wp")
+    chunk = mono_chunk(b, ghost_size, chunk_windows)
+    n_chunks = -(-b // chunk)
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def empty(count):
+        return None if count is None else torch.empty((count,), **f32)
+
+    ws = {k: empty(v) for k, v in mono_workspace(ops, n, chunk, ghost_size).items()}
+    splits_wp = product_splits(n * c_hidden, latent, chunk)
+    prod = splits_wp * n * c_hidden * latent
+    grads = [LayerOps(*(None if t is None else torch.empty(t.shape, **f32) for t in lay))
+             for lay in layers]
+    dwp = torch.empty((n * c_hidden, latent), **f32)
+    dbp = torch.empty((latent,), **f32)
+    chunk_dwp = empty(n_chunks * n * c_hidden * latent)
+    per_layer = []  # each layer's whole-batch buffers, alive until the launch
+    rows = []
+    for l, (lay, g) in enumerate(zip(layers, grads)):
+        ci, co = lay.w.shape
+        splits_w = product_splits(ci, co, chunk * n)
+        splits_m = product_splits(n, n, chunk * ci)
+        prod = max(prod, splits_w * ci * co, splits_m * n * n)
+        buf = dict(mt=empty(n * n) if l > 0 else None, gpart=empty(b // ghost_size * 6 * co),
+                   dalpha_part=empty(b), chunk_dm=empty(n_chunks * n * n),
+                   chunk_dw=empty(n_chunks * ci * co),
+                   chunk_dw_res=None if lay.identity else empty(n_chunks * ci * co))
+        per_layer.append(buf)
+        fields = dict(ci=ci, co=co, identity=int(lay.identity), act=_ptr(ws[f"act{l}"]),
+                      stats=_ptr(ws[f"stats{l}"]), splits_w=splits_w, splits_m=splits_m,
+                      **{f: _ptr(getattr(lay, f)) for f in LayerOps._fields},
+                      **{"d" + f: _ptr(getattr(g, f)) for f in LayerOps._fields},
+                      **{k: _ptr(v) for k, v in buf.items()})
+        rows += [fields[f] for f in _MONO_LAYER]
+    prod_buf = empty(prod)
+    header = dict(n_layers=len(layers), batch=b, n_nodes=n, ghost=ghost_size, latent=latent,
+                  chunk=chunk, x=_ptr(x), dz=_ptr(dz), wp=_ptr(wp), dwp=_ptr(dwp), dbp=_ptr(dbp),
+                  splits_wp=splits_wp, chunk_dwp=_ptr(chunk_dwp), prod_buf=_ptr(prod_buf),
+                  **{k: _ptr(ws[k]) for k in ("t_buf", "r_buf", "dpre_buf", "g_buf", "dg_buf",
+                                              "dy_buf", "part", "block_sums", "consts")})
+    desc = np.asarray([header[f] for f in _MONO_HEADER] + rows, np.int64)
+    _run(lib, "stse_train_mono_backward", desc, dev)
+    return EncoderOps(tuple(grads), dwp, dbp)
+
+
 # --------------------------------------------------------------------------
 # The wrappers: kernel on a CUDA tensor, plain version on a CPU tensor
 # --------------------------------------------------------------------------
@@ -463,43 +588,71 @@ def top_backward(x: torch.Tensor, y_top: torch.Tensor, dz: torch.Tensor, lay: La
     return top_backward_reference(x, dz, lay, wp, bp, ghost_size, need_dx)
 
 
+def split_backward(x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps,
+                   acts: Sequence[torch.Tensor], stats: Sequence[torch.Tensor],
+                   ghost_size: int) -> EncoderOps:
+    """The split backward: K4 for the top layer, then K3 down the stack,
+    from K2's activations and block statistics. Returns an EncoderOps of
+    gradients, as `mono_backward`."""
+    top = len(ops.layers) - 1
+    x_in = [x, *acts[:-1]]
+    d_layers = [None] * (top + 1)
+    d_layers[top], dwp, dbp, dy = top_backward(x_in[top], acts[top], dz, ops.layers[top],
+                                               stats[top], ops.wp, ops.bp, ghost_size,
+                                               need_dx=top > 0)
+    for l in reversed(range(top)):
+        d_layers[l], dy = layer_backward(x_in[l], dy, ops.layers[l], stats[l], ghost_size,
+                                         need_dx=l > 0)
+    return EncoderOps(tuple(d_layers), dwp, dbp)
+
+
+def mono_backward(x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps, ghost_size: int,
+                  chunk_windows: Optional[int] = None) -> EncoderOps:
+    """K5: every operand's gradient from x [B, N, C_in] and dz [B, latent]
+    alone, the forward recomputed one chunk of ghost blocks at a time
+    (`mono_chunk`). x gets none: it is data."""
+    if _route(x):
+        with torch.no_grad():
+            out = launch_mono_backward(_library(), x, dz, ops, ghost_size, chunk_windows)
+        mono_backward_launches.value += 1
+        return out
+    return mono_backward_reference(x, dz, ops, ghost_size)
+
+
 class FusedGhostEncode(torch.autograd.Function):
-    """Ghost-BN STSE encode with the split backward (the port of
-    `fused_ghost_encode`). forward(x [B, N, C_in], ghost_size, n_layers,
-    *flat operands: N_LAYER_OPS per layer then wp, bp) -> (z, *per-layer
-    sums). The sums carry no gradient, and x gets none: it is data."""
+    """Ghost-BN STSE encode (the port of `fused_ghost_encode`).
+    forward(x [B, N, C_in], ghost_size, n_layers, bwd_mode, *flat operands:
+    N_LAYER_OPS per layer then wp, bp) -> (z, *per-layer sums). The sums
+    carry no gradient, and x gets none: it is data. bwd_mode "split" saves
+    K2's activations and block statistics for K4 then K3; "mono" (:1089-1104)
+    saves only x and the operands, and K5 recomputes the rest from x."""
 
     @staticmethod
-    def forward(ctx, x, ghost_size, n_layers, *flat):
+    def forward(ctx, x, ghost_size, n_layers, bwd_mode, *flat):
         ops = _unflatten(flat, n_layers)
         z, sums, acts, stats = ghost_forward(x, ops, ghost_size)
-        ctx.ghost_size, ctx.n_layers = ghost_size, n_layers
-        ctx.save_for_backward(x, *acts, *stats, *(t for t in flat if t is not None))
+        kept = (*acts, *stats) if bwd_mode == "split" else ()
+        ctx.ghost_size, ctx.n_layers, ctx.bwd_mode = ghost_size, n_layers, bwd_mode
+        ctx.save_for_backward(x, *kept, *(t for t in flat if t is not None))
         ctx.present = [t is not None for t in flat]
         ctx.mark_non_differentiable(*sums)
         return (z, *sums)
 
     @staticmethod
     def backward(ctx, dz, *_):
-        n_layers = ctx.n_layers
-        saved = ctx.saved_tensors
-        x, acts, stats = saved[0], saved[1:1 + n_layers], saved[1 + n_layers:1 + 2 * n_layers]
-        rest = iter(saved[1 + 2 * n_layers:])
-        flat = [next(rest) if p else None for p in ctx.present]
-        ops = _unflatten(flat, n_layers)
-        top = n_layers - 1
-        d_layers = [None] * n_layers
-        x_top = x if top == 0 else acts[top - 1]
-        d_layers[top], dwp, dbp, dy = top_backward(
-            x_top, acts[top], dz.contiguous(), ops.layers[top], stats[top], ops.wp, ops.bp,
-            ctx.ghost_size, need_dx=top > 0)
-        for l in reversed(range(top)):
-            x_l = x if l == 0 else acts[l - 1]
-            d_layers[l], dy = layer_backward(x_l, dy, ops.layers[l], stats[l], ctx.ghost_size,
-                                             need_dx=l > 0)
-        grads = [g for d in d_layers for g in d] + [dwp, dbp]
-        grads = [None if not p else g for g, p in zip(grads, ctx.present)]
-        return (None, None, None, *grads)
+        n_layers, dz = ctx.n_layers, dz.contiguous()
+        x, *saved = ctx.saved_tensors
+        if ctx.bwd_mode == "split":
+            acts, stats = saved[:n_layers], saved[n_layers:2 * n_layers]
+            saved = saved[2 * n_layers:]
+        rest = iter(saved)
+        ops = _unflatten([next(rest) if p else None for p in ctx.present], n_layers)
+        if ctx.bwd_mode == "split":
+            d_ops = split_backward(x, dz, ops, acts, stats, ctx.ghost_size)
+        else:
+            d_ops = mono_backward(x, dz, ops, ctx.ghost_size)
+        grads = [None if not p else g for g, p in zip(_flatten(d_ops), ctx.present)]
+        return (None, None, None, None, *grads)
 
 
 def _flatten(ops: EncoderOps) -> List[Optional[torch.Tensor]]:
@@ -536,11 +689,9 @@ def fused_stse_apply(model, x: torch.Tensor, ghost_size: int = 32, momentum: flo
     """Train-mode STSE encode with ghost BatchNorm: [B, C_in, T, V] -> z
     [B, latent], differentiable in the model's parameters. Updates the
     model's BN running statistics in place from the exact full-batch sums.
-    x gets no gradient (it is data)."""
-    if bwd_mode == "mono":
-        raise NotImplementedError(
-            "the mono backward (K5) is not ported yet (ROADMAP.md, Queue 2, K5)")
-    if bwd_mode != "split":
+    x gets no gradient (it is data). bwd_mode "split" keeps every layer's
+    activations for K3/K4; "mono" keeps only x and recomputes them in K5."""
+    if bwd_mode not in ("split", "mono"):
         raise ValueError(f"unknown bwd_mode {bwd_mode!r}")
     if compute_dtype != "float32":
         raise NotImplementedError(
@@ -550,7 +701,8 @@ def fused_stse_apply(model, x: torch.Tensor, ghost_size: int = 32, momentum: flo
         raise ValueError(f"batch {b} is not a multiple of ghost_size {ghost_size}")
     ops = encoder_ops(model)
     x_nodes = x.detach().permute(0, 2, 3, 1).reshape(b, t * v, c).contiguous()
-    z, *sums = FusedGhostEncode.apply(x_nodes, ghost_size, len(ops.layers), *_flatten(ops))
+    z, *sums = FusedGhostEncode.apply(x_nodes, ghost_size, len(ops.layers), bwd_mode,
+                                      *_flatten(ops))
     update_running_stats(model, sums, b * t * v, momentum)
     return z
 
@@ -562,10 +714,13 @@ def work(ops: EncoderOps, batch: int, ghost_size: int) -> dict:
     sums. A layer's backward reads x, dy (K4: dz, its output and wp) and
     the weights, and writes dx (not for layer 0), the weight gradients.
 
-    Also "K5", the TPU's mono backward (`_bwd_kernel`, not ported): from x
-    and dz alone it recomputes every layer's forward, then runs each
-    layer's backward (dx too on layer 0, as `_layer_bwd_body` does) and the
-    projector's; it reads x, dz and the weights and writes the gradients."""
+    Also "K5", the mono backward: from x and dz alone, every layer's
+    forward once (g, t, r; not the projector or the running sums) and its
+    backward (dM, M dg, dW, dW_res, dg, dr W_res^T), then the projector's;
+    it reads x, dz and the weights and writes the gradients. That is the
+    split backward's count, which already holds g, t and r once. Layer 0
+    computes no dx (the TPU's `_bwd_kernel` computes it and throws it away,
+    :1104; the port's K5 skips it, so it is not counted)."""
     n = ops.layers[0].m.shape[0]
     latent = ops.wp.shape[1]
     nb = batch // ghost_size
@@ -585,7 +740,7 @@ def work(ops: EncoderOps, batch: int, ghost_size: int) -> dict:
         # dg = dt W^T and (not on layer 0) dr W_res^T
         flops = batch * (2.0 * n * n * ci * (3 if need_dx else 2)
                          + mm * (2 * (1 + res) + 1 + (res if need_dx else 0)))
-        mono_flops += batch * (2.0 * n * n * ci * 4 + mm * (3 * (1 + res) + 1 + res))
+        mono_flops += flops  # the forward once, then the backward: K5's too
         mono_weights += weights
         nbytes = 4.0 * (batch * n * ci * (2 if need_dx else 1) + 2 * weights + nb * 4 * co)
         if top:

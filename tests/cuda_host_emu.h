@@ -2,15 +2,20 @@
 //
 // Covers the subset the port's kernels use: float4, __ldg, rsqrtf, threadIdx
 // (x) and blockIdx (x, y) with a dim3 grid, dynamic shared memory and
-// __syncthreads. Each CUDA thread of a block is a std::thread and
+// __syncthreads, and __nv_bfloat16 with the conversions, compares, products
+// and min the probes use. Each CUDA thread of a block is a std::thread and
 // __syncthreads is a std::barrier; blocks run one after another. Shared
 // memory starts as NaN, so a read of a value no thread wrote shows up in the
 // output. The test rewrites each kernel's `extern __shared__` declaration to
-// read g_smem and each <<<...>>> launch to call emu_launch.
+// read g_smem and each <<<...>>> launch to call emu_launch (and drops the
+// cuda_bf16.h include); a static `__shared__` array becomes a function-local
+// static, one for all threads, which holds because blocks run in turn.
 #pragma once
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
+#include <cstring>
 #include <limits>
 #include <thread>
 #include <vector>
@@ -45,6 +50,31 @@ inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __align__(n)
+#define __shared__ static
+
+// bf16: the top 16 bits of a float, rounded to nearest even (no NaNs here).
+struct __nv_bfloat16 {
+  uint16_t x;
+};
+inline __nv_bfloat16 __float2bfloat16(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  u += 0x7FFF + ((u >> 16) & 1);
+  return {(uint16_t)(u >> 16)};
+}
+inline float __bfloat162float(__nv_bfloat16 b) {
+  const uint32_t u = (uint32_t)b.x << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline bool __hlt(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return __bfloat162float(a) < __bfloat162float(b);
+}
+inline __nv_bfloat16 __hmul(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return __float2bfloat16(__bfloat162float(a) * __bfloat162float(b));
+}
+inline __nv_bfloat16 __hmin(__nv_bfloat16 a, __nv_bfloat16 b) { return __hlt(b, a) ? b : a; }
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;

@@ -1,0 +1,133 @@
+"""K5, the mono backward: `fused_stse_apply(bwd_mode="mono")` and
+`mono_backward_reference` against jax.grad of the JAX package's
+`fused_stse_apply(..., interpret=True, bwd_mode="mono")`, mono against split
+in the port, and what mono keeps alive between forward and backward.
+
+Gradient band as tests/test_fused_train_kernel.py:84-91: err < 1e-3 *
+max(scale, 1) + 1e-6 (fp32 reassociation through the BN backward's 1/cnt
+cancellations)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from coskad_tpu.kernels import stse_train as K
+from coskad_tpu_torch.interop import flatten_tree
+from coskad_tpu_torch.kernels import stse_train
+from coskad_tpu_torch.models import STSE
+from test_torch_stse_train import CASES, close_grad, pair
+
+torch.set_num_threads(1)
+
+
+def _center(case):
+    return np.random.default_rng(5).normal(size=(CASES[case]["latent_dim"],)).astype(np.float32)
+
+
+def _jax_mono_grads(variables, x, ghost, center):
+    def loss_j(p):
+        z, _ = K.fused_stse_apply(p, variables["batch_stats"], jnp.asarray(x), ghost_size=ghost,
+                                  interpret=True, bwd_mode="mono")
+        return jnp.mean((z - center) ** 2)
+
+    l_j, g_j = jax.value_and_grad(loss_j)(variables["params"])
+    return float(l_j), flatten_tree(g_j)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_mono_gradients_match_jax_mono_backward(case):
+    """By flax path: the port's mono step, and its plain K5 (operand
+    gradients carried into the parameters through `encoder_ops`), against
+    jax.grad of the JAX mono backward (Pallas, interpret mode)."""
+    _, variables, model, x, ghost = pair(case, seed=2)
+    center = _center(case)
+    l_j, want = _jax_mono_grads(variables, x, ghost, center)
+
+    xt, c = torch.from_numpy(x), torch.from_numpy(center)
+    z = stse_train.fused_stse_apply(model, xt, ghost_size=ghost, bwd_mode="mono")
+    loss = torch.mean((z - c) ** 2)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), l_j, rtol=1e-5)
+    got = {k: p.grad.numpy() for k, p in model.named_parameters()}
+    assert sorted(got) == sorted(want)
+    for k in want:
+        close_grad(got[k], want[k], k)
+
+    # The plain K5 alone: dz of the same loss, its operand gradients pulled
+    # back into the parameters.
+    model.zero_grad()
+    b, ch, t, v = x.shape
+    x_nodes = xt.permute(0, 2, 3, 1).reshape(b, t * v, ch)
+    ops = stse_train.encoder_ops(model)
+    dz = 2.0 * (z.detach() - c) / z.numel()
+    d_ops = stse_train.mono_backward_reference(x_nodes, dz, stse_train.detached(ops), ghost)
+    pairs = [(o, g) for o, g in zip(stse_train._flatten(ops), stse_train._flatten(d_ops))
+             if o is not None]
+    torch.autograd.backward([o for o, _ in pairs], [g for _, g in pairs])
+    for k, p in model.named_parameters():
+        close_grad(p.grad.numpy(), want[k], k)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_mono_matches_split_in_the_port(case):
+    """The same step by both backward modes: loss, every gradient and the
+    running statistics."""
+    _, _, model, x, ghost = pair(case, seed=3)
+    twin = STSE(**{k: v for k, v in CASES[case].items() if k not in ("batch", "ghost")})
+    twin.load_state_dict(model.state_dict())
+    c = torch.from_numpy(_center(case))
+    losses = []
+    for m, mode in ((model, "mono"), (twin, "split")):
+        z = stse_train.fused_stse_apply(m, torch.from_numpy(x), ghost_size=ghost, bwd_mode=mode)
+        loss = torch.mean((z - c) ** 2)
+        loss.backward()
+        losses.append(loss.item())
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-6)
+    for (name, p), q in zip(model.named_parameters(), twin.parameters()):
+        close_grad(p.grad.numpy(), q.grad.numpy(), name)
+    for (name, a), b in zip(model.named_buffers(), twin.buffers()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.parametrize("mode", ["mono", "split"])
+def test_saved_for_backward(mode):
+    """Mono keeps only x and the operands alive for its backward; split
+    keeps every layer's activations and block statistics too."""
+    _, _, model, x, ghost = pair("narrow", seed=4)
+    b, ch, t, v = x.shape
+    x_nodes = torch.from_numpy(x).permute(0, 2, 3, 1).reshape(b, t * v, ch).contiguous()
+    ops = stse_train.encoder_ops(model)
+    flat = [None if o is None else o.detach().requires_grad_(True)
+            for o in stse_train._flatten(ops)]
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t, lambda t: t):
+        z, *_ = stse_train.FusedGhostEncode.apply(x_nodes, ghost, len(ops.layers), mode, *flat)
+    operands = [o for o in flat if o is not None]
+    expect = [x_nodes, *operands]
+    if mode == "mono":
+        assert len(saved) == len(expect)
+        for s, e in zip(saved, expect):
+            assert s.data_ptr() == e.data_ptr() and s.shape == e.shape
+    else:  # + each layer's activations and block statistics
+        assert len(saved) == len(expect) + 2 * len(ops.layers)
+    z.sum().backward()
+    assert all(o.grad is not None for o in operands)
+
+
+def test_mono_chunk_and_workspace():
+    """K5's chunk is whole ghost blocks; at the flagship width its default
+    workspace is under a quarter of split's saved activations at B=2048."""
+    assert stse_train.mono_chunk(2048, 64) == 128
+    assert stse_train.mono_chunk(2048, 64, 100) == 64  # cut to whole blocks
+    assert stse_train.mono_chunk(2048, 64, 10) == 64  # at least one block
+    assert stse_train.mono_chunk(96, 32) == 96  # at most the batch
+    model = STSE(input_dim=2, layer_channels=(32, 16, 32), hidden_dimension=64, latent_dim=16,
+                 n_frames=12, n_joints=18)
+    ops = stse_train.encoder_ops(model)
+    ws = stse_train.mono_workspace(ops, 216, stse_train.mono_chunk(2048, 64), 64)
+    ws_bytes = 4 * sum(v for v in ws.values() if v is not None)
+    split_saved = 4 * 2048 * 216 * (2 + 32 + 16 + 32 + 64)
+    assert ws_bytes == 4 * 128 * 216 * (3 * 64 + 2 * 32 + 32 + 144) + 4 * 34048 + 4 * 1152
+    assert ws_bytes <= split_saved / 4

@@ -183,16 +183,17 @@ def test_ghost_of_whole_batch_is_live_batchnorm():
 def test_unported_modes_raise_and_cpu_launches_nothing():
     _, _, model, x, ghost = pair("narrow", seed=5)
     xt = torch.from_numpy(x)
-    with pytest.raises(NotImplementedError, match="K5"):
-        stse_train.fused_stse_apply(model, xt, ghost_size=ghost, bwd_mode="mono")
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         stse_train.fused_stse_apply(model, xt, ghost_size=ghost, compute_dtype="bfloat16")
     with pytest.raises(ValueError, match="multiple of ghost_size"):
         stse_train.fused_stse_apply(model, xt[:12], ghost_size=ghost)
+    with pytest.raises(ValueError, match="bwd_mode"):
+        stse_train.fused_stse_apply(model, xt, ghost_size=ghost, bwd_mode="both")
     counters = (stse_train.forward_launches, stse_train.layer_backward_launches,
-                stse_train.top_backward_launches)
+                stse_train.top_backward_launches, stse_train.mono_backward_launches)
     before = [c.value for c in counters]
-    stse_train.fused_stse_apply(model, xt, ghost_size=ghost).sum().backward()
+    for mode in ("split", "mono"):
+        stse_train.fused_stse_apply(model, xt, ghost_size=ghost, bwd_mode=mode).sum().backward()
     assert [c.value for c in counters] == before
 
 
@@ -209,8 +210,12 @@ def test_work_counts_flagship_flops():
     # products, the projector backward twice
     mm = 2 * n * 32 * 64
     assert w["K4"][0] == 2048 * (3 * 2 * n * n * 32 + 6 * mm + 2 * 2 * n * 64 * 16)
-    # K5 (the mono backward): the forward again, then every layer's backward
-    # with dx (the graph contraction four times a layer) and the projector's
-    k5 = sum(4 * 2 * n * n * ci + 2 * n * ci * co * 8 for ci, co in
-             ((2, 32), (32, 16), (16, 32), (32, 64))) + 2 * 2 * n * 64 * 16
+    # K5 (the mono backward): every layer's forward once (g, t, r), then its
+    # backward and the projector's; with dx (the graph contraction three
+    # times, six dense products) except on layer 0 (twice, five). The
+    # function of K4 then K3 down the stack, so the same count.
+    k5 = (2 * 2 * n * n * 2 + 2 * n * 2 * 32 * 5
+          + sum(3 * 2 * n * n * ci + 2 * n * ci * co * 6 for ci, co in
+                ((32, 16), (16, 32), (32, 64))) + 2 * 2 * n * 64 * 16)
     assert w["K5"][0] == 2048 * k5
+    assert w["K5"][0] == sum(w[k][0] for k in w if k.startswith(("K3", "K4")))

@@ -53,7 +53,7 @@ def host_lib(tmp_path_factory):
                     "-o", lib, str(d / "stse_train_host.cpp")],
                    check=True, capture_output=True, timeout=300)
     so = ctypes.CDLL(lib)
-    for fn in ("stse_train_forward", "stse_train_layer_backward", "stse_train_top_backward"):
+    for fn in stse_train.REPLACES:
         getattr(so, fn).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         getattr(so, fn).restype = ctypes.c_int
     so.stse_train_error_string.argtypes = [ctypes.c_int]
@@ -140,6 +140,46 @@ def test_host_run_of_cuda_source_matches_plain(host_lib, case):
         else:
             assert dx is None
     for l, g, w in layer_grads:
+        for f in stse_train.LayerOps._fields:
+            a, e = getattr(g, f), getattr(w, f)
+            assert (a is None) == (e is None), (l, f)
+            if a is not None:
+                _close_grad(a, e.float(), f"layer {l} d{f}")
+
+
+MONO_CASES = {
+    # chunks of 8, 8 and 4 windows: the last one ragged
+    "ragged": dict(model="narrow", batch=20, ghost=4, chunk=8, n_chunks=3),
+    # one identity-residual layer; the whole batch in one chunk
+    "single": dict(model="identity", batch=16, ghost=8, chunk=64, n_chunks=1),
+    # each chunk one ghost block
+    "one_block": dict(model="narrow", batch=12, ghost=4, chunk=4, n_chunks=3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MONO_CASES))
+def test_host_run_of_mono_backward_matches_plain(host_lib, case):
+    """K5 against its plain version in float64, PReLU's branches taken from
+    K2's output (as on the card)."""
+    mc = MONO_CASES[case]
+    kw = CASES[mc["model"]]
+    model = _model(kw["input_dim"], kw["channels"], kw["hidden"], kw["t"], kw["v"],
+                   kw["latent"], seed=len(case))
+    ops = stse_train.detached(stse_train.encoder_ops(model))
+    b, n, ghost = mc["batch"], kw["t"] * kw["v"], mc["ghost"]
+    chunk = stse_train.mono_chunk(b, ghost, mc["chunk"])
+    assert -(-b // chunk) == mc["n_chunks"]
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(b, n, kw["input_dim"])).astype(np.float32))
+    dz = torch.from_numpy(rng.normal(size=(b, kw["latent"])).astype(np.float32))
+    _, _, acts, _ = stse_train.launch_forward(host_lib, x, ops, ghost)
+    got = stse_train.launch_mono_backward(host_lib, x, dz, ops, ghost, mc["chunk"])
+    want = stse_train.mono_backward_reference(x.double(), dz.double(),
+                                              stse_train.detached(ops, torch.float64), ghost,
+                                              positive=[a >= 0 for a in acts])
+    _close_grad(got.wp, want.wp.float(), "dwp")
+    _close_grad(got.bp, want.bp.float(), "dbp")
+    for l, (g, w) in enumerate(zip(got.layers, want.layers)):
         for f in stse_train.LayerOps._fields:
             a, e = getattr(g, f), getattr(w, f)
             assert (a is None) == (e is None), (l, f)
