@@ -16,7 +16,14 @@ Phases, each printing a line before the last:
      and K4 (the top layer's backward with the projector's) against their
      plain versions on the card: full width at B=2048 ghost 64, B=96 ghost
      32, a one-layer identity-residual stack, a stack whose last layer
-     narrows with 35 nodes. Times each kernel and its plain version.
+     narrows with 35 nodes. Times each kernel and its plain version; K4
+     and K3 launched twice on the same inputs give the same bits. Product
+     check: each of the 13 batch-reduction products of a step (dW, dW_res,
+     dM a layer, dwp), alone through stse_train.product, at B=2048 and at
+     K5's 128-window chunk, against float64 einsum on the card, with its
+     ms, its bound (3xTF32 on the tensor cores, or bytes) and the time of
+     one fp32 torch.mm / einsum call (TF32 off); `--only products` runs
+     just this check.
   3b. mono: K5 (the mono backward, from x and dz alone) against its plain
      version in float64 and against the split kernels (K4, then K3) on the
      same inputs, on the train-kernel cases plus a batch whose last chunk
@@ -69,6 +76,10 @@ import numpy as np
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12  # tensor cores: the least time for the bf16 probes
 PEAK_BYTES_PER_S = 3.35e12
+# TF32 on the tensor cores, dense: the batch-reduction products run as 3xTF32
+# (three TF32 products for each fp32 one), so their least time is 3 FLOPs
+# over this rate
+PEAK_TF32_FLOPS = 495e12
 TOL = dict(rtol=2e-4, atol=2e-5)  # kernel vs plain: fp32 reassociation
 # K2 vs plain (tests/test_fused_train_kernel.py:50-58): ghost statistics sum
 # 13,824 rows per channel in another order
@@ -97,6 +108,8 @@ MONO_EXTRA_CASES = (
     ("full_B320_ghost64_ragged_last_chunk", FULL, 320, 64, 128),  # chunks 128, 128, 64
     ("full_B256_ghost64_one_block_chunks", FULL, 256, 64, 64),  # 4 chunks of one block
 )
+# batch sizes of the product check: the training step's and K5's default chunk
+PRODUCT_BATCHES = (2048, 128)
 MONO_STEPS = 20
 MONO_CHUNK_SWEEP = (64, 128, 256, 512, 1024, 2048)  # windows, at B=2048 ghost 64
 MONO_PEAK_CHUNKS = (512, 1024)  # a mono step's peak memory also at these chunks
@@ -489,6 +502,65 @@ def grad_err(got, want) -> tuple:
     return err, err < GRAD_RTOL * max(scale, 1.0) + GRAD_ATOL
 
 
+def products_bound(flops, prod_flops, nbytes):
+    """(bound ms, what bounds it) of work whose `prod_flops` run as 3xTF32
+    on the tensor cores and the rest as fp32 outside them."""
+    t_ops = ((flops - prod_flops) / PEAK_FP32_FLOPS + 3.0 * prod_flops / PEAK_TF32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_products(card, ops):
+    """Each batch-reduction product of a split backward step (dW, dW_res and
+    dM a layer, dwp), alone through stse_train.product at the flagship
+    width, at B=2048 and at K5's default chunk: error against float64
+    einsum on the card, kernel ms, library_ms (the same product as one fp32
+    torch.mm / torch.einsum call, TF32 off; timed only, never called by the
+    port) and the bound (3xTF32 FLOPs on the tensor cores or bytes). The
+    operands are random: a product's cost does not depend on its values."""
+    import torch
+    from coskad_tpu_torch.kernels import stse_train as st
+
+    dev = torch.device(DEVICE)
+    dgen = torch.Generator(device=dev).manual_seed(97)
+
+    def library(form, a, b):
+        return torch.mm(a.t(), b) if form == "rows" else torch.einsum("wpk,wqk->pq", a, b)
+
+    results = []
+    for batch in PRODUCT_BATCHES:
+        for pr in st.products(ops, batch):
+            form, p, q, n, k = (pr[f] for f in ("form", "p", "q", "n", "k"))
+            a = torch.randn(*((n, p) if form == "rows" else (n, p, k)), generator=dgen,
+                            device=dev)
+            b = torch.randn(*((n, q) if form == "rows" else (n, q, k)), generator=dgen,
+                            device=dev)
+            got = st.product(form, a, b)
+            want = st.product_reference(form, a.double(), b.double()).float()
+            torch.cuda.synchronize()
+            err, ok = grad_err(got, want)
+            check(ok and bool(torch.isfinite(got).all()),
+                  f"product {pr['name']} at B={batch}: max abs err {err:.3e} vs float64 einsum, "
+                  f"scale {float(want.abs().max()):.3e}")
+            del want
+            runs = dict(kernel=[], library=[])
+            for _ in range(2):
+                runs["kernel"].append(cuda_ms(lambda: st.product(form, a, b), iters=10, warmup=2))
+                runs["library"].append(cuda_ms(lambda: library(form, a, b), iters=10, warmup=2))
+            bound_ms, bound_by = products_bound(pr["flops"], pr["flops"], pr["bytes"])
+            results.append(dict(
+                name=pr["name"], kernel=pr["key"], batch=batch, form=form, p=p, q=q, n=n, k=k,
+                splits=st.product_splits(form, p, q, n, k), max_abs_err=err,
+                ms=min(runs["kernel"]), library_ms=min(runs["library"]), bound_ms=bound_ms,
+                bound_by=bound_by, flops=pr["flops"], bytes=pr["bytes"], timing_runs_ms=runs))
+            del a, b, got
+    torch.cuda.empty_cache()
+    print("product check: " + json.dumps(dict(card=card, products=[
+        {k: r[k] for k in ("name", "batch", "splits", "max_abs_err", "ms", "library_ms",
+                           "bound_ms", "bound_by")} for r in results])))
+    return results
+
+
 def phase_train_kernels(card):
     """K2, K3 and K4 against their plain versions on the card; returns their
     kernel records (launches filled in by the training phase)."""
@@ -572,14 +644,19 @@ def phase_train_kernels(card):
         if label == timed[0]:
             timing = time_train_kernels(st, ops, x, dz, acts_r, stats_r, ghost)
             work = st.work(ops, batch, ghost)
+            repeat = repeat_bits(st, ops, x, dz, acts, stats, ghost)
+            timed_ops = ops
+    products = phase_products(card, timed_ops)
     records = []
     for key, name in (("K2", "stse_train_forward"), ("K3", "stse_train_layer_backward"),
                       ("K4", "stse_train_top_backward")):
         parts = [k for k in work if k.startswith(key)]
         flops = sum(work[k][0] for k in parts)
         nbytes = sum(work[k][1] for k in parts)
-        bound_ms, bound_by = bound_of(flops, nbytes)
+        # K3's and K4's batch-reduction products run on the tensor cores
+        bound_ms, bound_by = products_bound(flops, sum(work[k][2] for k in parts), nbytes)
         t = timing[key]
+        own = [r for r in products if r["batch"] == timed[2] and r["kernel"] in parts]
         records.append(dict(
             name=name, route="cuda", source=st.SOURCE, replaces=st.REPLACES[name], launches=None,
             max_abs_err=max(errs[key]),
@@ -590,13 +667,50 @@ def phase_train_kernels(card):
             bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, batch=timed[2], ghost=timed[3], flops=flops, bytes=nbytes,
             per_layer_ms=t.get("per_layer"), timing_runs_ms=t["runs"],
-            per_layer_bound_ms={k: bound_of(*work[k])[0] for k in parts}))
+            per_layer_bound_ms={k: products_bound(work[k][0], work[k][2], work[k][1])[0]
+                                for k in parts},
+            **(dict(product_ms=sum(r["ms"] for r in own),
+                    product_library_ms=sum(r["library_ms"] for r in own),
+                    product_bound_ms=sum(r["bound_ms"] for r in own),
+                    repeats_bit_for_bit=repeat[key]) if own else {})))
     print("train kernel check: " + json.dumps(dict(
-        cases=results, card=card,
+        cases=results, card=card, repeats_bit_for_bit=repeat,
         times={r["name"]: dict(kernel_ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                               per_layer_ms=r["per_layer_ms"]) for r in records})))
-    return records
+                               product_ms=r.get("product_ms"), per_layer_ms=r["per_layer_ms"])
+               for r in records})))
+    return records, products
+
+
+def repeat_bits(st, ops, x, dz, acts, stats, ghost):
+    """K4 and K3 (each layer) launched twice on the same inputs give the
+    same bits: no sum depends on the order blocks run in."""
+    top = len(ops.layers) - 1
+    x_of = [x] + list(acts[:-1])
+    runs = {
+        "K4": lambda: st.top_backward(x_of[top], acts[top], dz, ops.layers[top], stats[top],
+                                      ops.wp, ops.bp, ghost, need_dx=top > 0),
+        **{f"K3_layer{l}": (lambda l=l: st.layer_backward(x_of[l], acts[l], ops.layers[l],
+                                                          stats[l], ghost, need_dx=l > 0))
+           for l in range(top)}}
+    out = {}
+    for key, fn in runs.items():
+        first, second = flat_tensors(fn()), flat_tensors(fn())
+        same = all(torch_equal(a, b) for a, b in zip(first, second))
+        check(same, f"{key}: two launches on the same inputs differ")
+        out[key] = same
+    return dict(K4=out["K4"], K3=all(v for k, v in out.items() if k.startswith("K3")))
+
+
+def flat_tensors(out) -> list:
+    """A backward wrapper's returns, gradients of LayerOps spread out."""
+    return [t for item in out for t in (item if isinstance(item, tuple) else (item,))]
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return (a is None and b is None) or bool(torch.equal(a, b))
 
 
 def time_train_kernels(st, ops, x, dz, acts, stats, ghost):
@@ -687,8 +801,8 @@ def phase_mono(card, checks_only=False):
             timed = (ops, x, dz, acts, stats, ghost, n)
     ops, x, dz, acts, stats, ghost, n = timed
     timing = time_mono(st, *timed)
-    flops, nbytes = st.work(ops, x.shape[0], ghost)["K5"]
-    bound_ms, bound_by = bound_of(flops, nbytes)
+    flops, nbytes, prod_flops = st.work(ops, x.shape[0], ghost)["K5"]
+    bound_ms, bound_by = products_bound(flops, prod_flops, nbytes)
     rec = dict(
         name="stse_train_mono_backward", route="cuda", source=st.SOURCE,
         replaces=st.REPLACES["stse_train_mono_backward"], launches=None, max_abs_err=max(errs),
@@ -1123,14 +1237,22 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("kernels",), default=None,
-                    help="run only the environment and kernel phases (no result line)")
+    ap.add_argument("--only", choices=("kernels", "products"), default=None,
+                    help="run only the environment and kernel phases, or only the "
+                         "product check (no result line)")
     args = ap.parse_args(argv)
     card, build_s = phase_environment()
     import torch
 
+    if args.only == "products":
+        from coskad_tpu_torch.kernels import stse_train as st
+
+        model = seeded_train_stse(torch.Generator().manual_seed(4321), DEVICE, **FULL)
+        phase_products(card, st.detached(st.encoder_ops(model)))
+        return 0
+
     kernel = phase_kernel(card)
-    train_kernels = phase_train_kernels(card)
+    train_kernels, products = phase_train_kernels(card)
     mono_kernel, mono = phase_mono(card, checks_only=args.only == "kernels")
     probes = phase_probe(card)
     if args.only == "kernels":
@@ -1148,11 +1270,11 @@ def main(argv=None) -> int:
     kernels = [kernel, *train_kernels, mono_kernel, *probes]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=card, build_s=build_s, kernels=kernels, slice=summary, train=train,
-                       mono=mono), f, indent=1)
+        json.dump(dict(card=card, build_s=build_s, kernels=kernels, products=products,
+                       slice=summary, train=train, mono=mono), f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "tolerance",
-            "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))
+            "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "product_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

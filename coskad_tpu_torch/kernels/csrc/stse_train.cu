@@ -38,15 +38,21 @@
 //     block the affine constants of d_raw = a dpre + b raw + c (the TPU
 //     kernel's bn_consts); per window dt, dr, dg = dt W^T and dx = M dg +
 //     dr W_res^T.
-//   * dW, dW_res, dM and dwp are reductions over the whole batch. Each is a
-//     tiled product (64 x 64 output tile per block, 4 x 4 per thread, the
-//     reduction split over blocks along the batch), then a pass that sums
-//     the splits.
+//   * dW, dW_res, dM and dwp are reductions over the whole batch: 22 GFLOP
+//     over 1.2 GB of operands a flagship step (B = 2048). In fp32 outside
+//     the tensor cores the FLOPs alone take as long as the bytes (0.33 vs
+//     0.36 ms), so no SIMT kernel reaches the memory bound; as 3xTF32 on
+//     the tensor cores (three TF32 products for each fp32 one, ~fp32
+//     accuracy) they take 0.13 ms, and the bytes bound them. They run as
+//     3xTF32 mma.sync, each warp staging its share of the reduction with
+//     16-byte cp.async several steps ahead, in output tiles fitted to each
+//     product's shape (see the product kernels), split over blocks along
+//     the batch, then a pass that sums the splits.
 //   * Intermediates (t, r, dpre, g, dg) go through device memory. That
 //     costs bytes, not operations, which is the right trade for a first
 //     version; keeping them on chip is later work.
-//   * Scalar fp32 code, no tensor cores, no TMA: those come with the PRs
-//     that make the kernels fast.
+//   * The per-window passes are scalar fp32 code, no tensor cores, no TMA:
+//     those come with the PRs that make them fast.
 //
 // K5, the mono backward, keeps nothing from the forward: it reads x, dz and
 // the operands and writes every gradient. Its function needs the fp32 work
@@ -80,8 +86,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPT = 64;  // product tile: kPT x kPT outputs a block
-constexpr int kPR = 32;  // product reduction rows staged at a time
 constexpr int kLatentChunk = 16;
 constexpr float kEps = 1e-5f;
 
@@ -93,6 +97,12 @@ enum FwdHeader {
 enum FwdLayerField {
   FL_CI, FL_CO, FL_IDENTITY, FL_M, FL_W, FL_B, FL_GAMMA, FL_BETA, FL_W_RES, FL_B_RES,
   FL_GAMMA_RES, FL_BETA_RES, FL_ALPHA, FL_ACT, FL_STATS, FL_SUMS, FL_COUNT
+};
+// One product alone (stse_train_product); forms in the order of
+// stse_train.py's PRODUCT_FORMS.
+enum ProductForm { PF_ROWS, PF_WINDOWS };
+enum ProductField {
+  PD_FORM, PD_P, PD_Q, PD_N, PD_K, PD_A, PD_B, PD_SPLITS, PD_PART, PD_OUT, PD_COUNT
 };
 enum BwdField {
   BD_BATCH, BD_N_NODES, BD_GHOST, BD_CI, BD_CO, BD_IDENTITY, BD_LATENT, BD_X, BD_DY, BD_DZ,
@@ -121,17 +131,6 @@ struct Layer {
   int ci, co, identity;
   const float *m, *w, *b, *gamma, *beta, *wr, *br, *gamma_r, *beta_r, *alpha, *stats;
 };
-
-__device__ __forceinline__ void fma4(float (&acc)[4], float a, const float4& b) {
-  acc[0] = fmaf(a, b.x, acc[0]);
-  acc[1] = fmaf(a, b.y, acc[1]);
-  acc[2] = fmaf(a, b.z, acc[2]);
-  acc[3] = fmaf(a, b.w, acc[3]);
-}
-
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
-}
 
 template <class T>
 T* ptr(const long long* d, int i) {
@@ -597,82 +596,282 @@ bwd_dx_kernel(Layer L, int n, int ghost, const float* __restrict__ consts, float
   }
 }
 
-// C[p][q] = sum over r = (b, k) of A[b*sab + p*sap + k*sak] * B[b*sbb + q*sbq + k*sbk],
-// the reduction split in blockIdx.y chunks of r_split; each split writes its
-// own [P][Q] slice of part.
-struct Product {
-  const float* a;
-  const float* b;
-  int p, q, nb, nk;
-  long long sab, sbb;
-  int sap, sak, sbq, sbk;
-};
+// ================= the batch-reduction products (K3, K4, K5) =================
+//
+// dW = g^T dt and dW_res = x^T dr (rows form: A [R, P], B [R, Q], the sum over
+// R = B * N rows), dwp = y_flat^T dz (rows form, R = B windows) and dM = sum
+// over windows of x_w dg_w^T (windows form: A [W, P, K], B [W, Q, K], the sum
+// over windows and channels): the dots the TPU body folds (p_t = dpre g3^T
+// in _layer_bwd_body, coskad_tpu/kernels/stse_train.py:656; dwp at :768).
+// A block owns one tile of the output; its eight warps each take every
+// eighth step of the block's share of the reduction (a step is kRowsStep
+// rows, or kChanStep channels of one window), stage it into kStages slabs
+// of their own with cp.async (two steps in flight while the third is
+// multiplied) and multiply it on the tensor cores as 3xTF32 m16n8k8 mma.sync.
+// The warps' sums are added in warp order, and the blocks that split the
+// reduction write [splits, P, Q] partials that sum_splits_kernel adds in
+// split order: no float atomics, the same bits on every run.
 
-// One block computes a kPT x kPT tile of C, each thread a 4 x 4 register
-// tile of it (16 FMAs a 8 shared-memory reads), over its split of the
-// reduction in stages of kPR rows staged in shared memory. The loader walks
-// the operand's contiguous axis: p (or q) where its stride is 1, else the
-// reduction (dM's operands are contiguous along the channels it sums).
-// The reduction index r = b * nk + k stays below 2^31 (the wrapper checks),
-// so it is split with a 32-bit division: a 64-bit one is emulated in ~100
-// instructions, more than the FMAs an element feeds.
-template <bool kFast>
-__device__ __forceinline__ void stage_operand(const float* __restrict__ a, long long sb, int sp,
-                                              int sk, int nk, int n_p, int p0, int rc, int r1,
-                                              float* dst) {
-  for (int e = threadIdx.x; e < kPR * kPT; e += kThreads) {
-    const int j = kFast ? e / kPT : e % kPR;  // reduction row within the stage
-    const int i = kFast ? e % kPT : e / kPR;  // column within the tile
-    const int r = rc + j;
-    float v = 0.0f;
-    if (r < r1 && p0 + i < n_p) {
-      const int bi = r / nk, k = r - bi * nk;
-      v = a[bi * sb + (long long)(p0 + i) * sp + (long long)k * sk];
+constexpr int kWarps = kThreads / 32;
+constexpr int kStages = 3;     // steps a warp has staged or in flight
+constexpr int kRowsStep = 16;  // rows form: reduction rows a step
+constexpr int kChanStep = 16;  // windows form: channels of one window a step
+constexpr int kLdk = kChanStep + 4;    // windows slab row stride: 4 (mod 8) words, so the
+                                       // 32 lanes of a fragment load hit 32 banks
+constexpr int kWinMT = 2, kWinNT = 7;  // windows tile 32 x 56: 216 nodes in 7 x 4 tiles
+
+#ifndef CUDA_HOST_EMU
+// cvt.rna.tf32.f32: the top 19 bits, rounded to nearest, ties away from zero.
+__device__ __forceinline__ uint32_t tf32_of(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// d += a b on one 16 x 8 x 8 tile; the fragments in the PTX layout for
+// m16n8k8 .tf32 (g = lane / 4, t = lane % 4): a = A[g][t], A[g+8][t],
+// A[g][t+4], A[g+8][t+4]; b = B[t][g], B[t+4][g]; d = D[g][2t], D[g][2t+1],
+// D[g+8][2t], D[g+8][2t+1].
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+#endif
+
+// 3xTF32: v = big + small to ~2^-22 relative, each part a TF32 value.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
+  big = tf32_of(v);
+  small = tf32_of(v - __uint_as_float(big));
+}
+
+// d += a b in ~fp32 accuracy: the small parts' products first, then big x big.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           const uint32_t (&b_big)[2],
+                                           const uint32_t (&b_small)[2]) {
+  mma_tf32(d, a_small, b_big);
+  mma_tf32(d, a_big, b_small);
+  mma_tf32(d, a_big, b_big);
+}
+
+// Stage rows x width floats (row i at src + i * ld) into a warp's slab (row
+// stride lds) with cp.async: 16 bytes a copy where vec (width, ld and src
+// in whole 16-byte words), else 4. The lanes walk (row, column) by counters.
+__device__ __forceinline__ void stage_block(float* dst, int lds, const float* __restrict__ src,
+                                            long long ld, int rows, int width, bool vec) {
+  const int cols = vec ? width >> 2 : width;  // copies a row
+  if (cols <= 0) return;
+  const int lane = threadIdx.x & 31;
+  int r = lane / cols, c = lane - r * cols;
+  const int dr = 32 / cols, dc = 32 - dr * cols;
+  while (r < rows) {
+    if (vec)
+      cp_async16(dst + r * lds + 4 * c, src + r * ld + 4 * c);
+    else
+      cp_async4(dst + r * lds + c, src + r * ld + c);
+    r += dr;
+    c += dc;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
     }
-    dst[j * (kPT + 4) + i] = v;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-product_kernel(Product pr, int r_split, float* part) {
-  extern __shared__ __align__(16) float smem[];
-  float* as = smem;                        // [kPR][kPT + 4]: r, p
-  float* bs = smem + kPR * (kPT + 4);      // [kPR][kPT + 4]: r, q
-  const int tid = threadIdx.x;
-  const int tiles_q = (pr.q + kPT - 1) / kPT;
-  const int p0 = (blockIdx.x / tiles_q) * kPT, q0 = (blockIdx.x % tiles_q) * kPT;
-  const int total = pr.nb * pr.nk;
-  const int r0 = blockIdx.y * r_split;
-  const int r1 = r0 + r_split < total ? r0 + r_split : total;
-  const int ty = tid / 16, tx = tid % 16;  // outputs (p0 + 4 ty + a, q0 + 4 tx + b)
-  float acc[4][4] = {};
-  for (int rc = r0; rc < r1; rc += kPR) {
-    if (pr.sap == 1)
-      stage_operand<true>(pr.a, pr.sab, pr.sap, pr.sak, pr.nk, pr.p, p0, rc, r1, as);
-    else
-      stage_operand<false>(pr.a, pr.sab, pr.sap, pr.sak, pr.nk, pr.p, p0, rc, r1, as);
-    if (pr.sbq == 1)
-      stage_operand<true>(pr.b, pr.sbb, pr.sbq, pr.sbk, pr.nk, pr.q, q0, rc, r1, bs);
-    else
-      stage_operand<false>(pr.b, pr.sbb, pr.sbq, pr.sbk, pr.nk, pr.q, q0, rc, r1, bs);
-    __syncthreads();
+// The warps' sums (acc of each lane) added in warp order; the tile's
+// outputs inside P x Q written to out [P][Q]. smem is free on entry.
+template <int MT, int NT>
+__device__ __forceinline__ void write_tile(const float (&acc)[MT][NT][4], float* smem, int p0,
+                                           int q0, int P, int Q, float* out) {
+  constexpr int E = MT * NT * 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
-    for (int j = 0; j < kPR; ++j) {
-      const float4 a4 = *reinterpret_cast<const float4*>(as + j * (kPT + 4) + 4 * ty);
-      const float4 b4 = *reinterpret_cast<const float4*>(bs + j * (kPT + 4) + 4 * tx);
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int a = 0; a < 4; ++a) fma4(acc[a], comp(a4, a), b4);
-    }
-    __syncthreads();
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        smem[(warp * E + (mt * NT + nt) * 4 + i) * 32 + lane] = acc[mt][nt][i];
+  __syncthreads();
+  for (int e = threadIdx.x; e < E * 32; e += kThreads) {
+    float s = 0.0f;
+    for (int w = 0; w < kWarps; ++w) s += smem[w * E * 32 + e];
+    const int l = e & 31, i = (e >> 5) & 3, tile = e >> 7;
+    const int p = p0 + (tile / NT) * 16 + (l >> 2) + (i >= 2 ? 8 : 0);
+    const int q = q0 + (tile % NT) * 8 + 2 * (l & 3) + (i & 1);
+    if (p < P && q < Q) out[(long long)p * Q + q] = s;
   }
-  float* out = part + (long long)blockIdx.y * pr.p * pr.q;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int pp = p0 + 4 * ty + a, qq = q0 + 4 * tx + b;
-      if (pp < pr.p && qq < pr.q) out[(long long)pp * pr.q + qq] = acc[a][b];
+}
+
+// Rows form. Block (tile, split) owns outputs [p0, p0 + 16 MT) x [q0, q0 +
+// 8 NT) and rows [r0, r0 + r_split). A warp's slab holds a step as A rows
+// [kRowsStep][16 MT + 8] and B rows [kRowsStep][8 NT + 8]: a stride of 8
+// (mod 32) words puts a fragment load's 32 lanes on 32 banks.
+template <int MT, int NT>
+__global__ void __launch_bounds__(kThreads)
+product_rows_kernel(const float* __restrict__ a, const float* __restrict__ b, int P, int Q,
+                    long long R, long long r_split, float* out, int vec_a, int vec_b) {
+  constexpr int PT = 16 * MT, QT = 8 * NT, LDA = PT + 8, LDB = QT + 8;
+  constexpr int SLAB = kRowsStep * (LDA + LDB);
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float* slabs = smem + warp * kStages * SLAB;
+  const int tiles_q = (Q + QT - 1) / QT;
+  const int p0 = (blockIdx.x / tiles_q) * PT, q0 = (blockIdx.x % tiles_q) * QT;
+  const int pw = P - p0 < PT ? P - p0 : PT, qw = Q - q0 < QT ? Q - q0 : QT;
+  const long long r0 = blockIdx.y * r_split;
+  const long long r1 = r0 + r_split < R ? r0 + r_split : R;
+  const long long steps = r1 > r0 ? (r1 - r0 + kRowsStep - 1) / kRowsStep : 0;
+  const int mine = steps > warp ? (int)((steps - warp + kWarps - 1) / kWarps) : 0;
+  for (int i = lane; i < kStages * SLAB; i += 32) slabs[i] = 0.0f;  // the pads stay 0
+  __syncwarp();
+  // The warp's j-th step (rows r0 + (warp + j kWarps) kRowsStep on) into slab j % kStages.
+  auto stage_step = [&](int j) {
+    if (j < mine) {
+      const long long rs = r0 + (long long)(warp + j * kWarps) * kRowsStep;
+      const int rows = r1 - rs < kRowsStep ? (int)(r1 - rs) : kRowsStep;
+      float* as = slabs + (j % kStages) * SLAB;
+      float* bs = as + kRowsStep * LDA;
+      stage_block(as, LDA, a + rs * P + p0, P, rows, pw, vec_a);
+      stage_block(bs, LDB, b + rs * Q + q0, Q, rows, qw, vec_b);
+      for (int i = rows * LDA + lane; i < kRowsStep * LDA; i += 32) as[i] = 0.0f;  // last step
+      for (int i = rows * LDB + lane; i < kRowsStep * LDB; i += 32) bs[i] = 0.0f;
     }
+    cp_async_commit();
+  };
+  float acc[MT][NT][4] = {};
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) stage_step(j);
+  for (int j = 0; j < mine; ++j) {
+    stage_step(j + kStages - 1);
+    cp_async_wait<kStages - 1>();
+    __syncwarp();
+    const float* as = slabs + (j % kStages) * SLAB;
+    const float* bs = as + kRowsStep * LDA;
+#pragma unroll
+    for (int kk = 0; kk < kRowsStep; kk += 8) {
+      uint32_t ab[MT][4], asm_[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float* f = as + (kk + t) * LDA + mt * 16 + g;  // A[p][k] = slab[k][p]
+        split_tf32(f[0], ab[mt][0], asm_[mt][0]);
+        split_tf32(f[8], ab[mt][1], asm_[mt][1]);
+        split_tf32(f[4 * LDA], ab[mt][2], asm_[mt][2]);
+        split_tf32(f[4 * LDA + 8], ab[mt][3], asm_[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float* f = bs + (kk + t) * LDB + nt * 8 + g;  // B[k][q] = slab[k][q]
+        uint32_t bb[2], bsm[2];
+        split_tf32(f[0], bb[0], bsm[0]);
+        split_tf32(f[4 * LDB], bb[1], bsm[1]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_3xtf32(acc[mt][nt], ab[mt], asm_[mt], bb, bsm);
+      }
+    }
+    __syncwarp();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  write_tile<MT, NT>(acc, smem, p0, q0, P, Q, out + (long long)blockIdx.y * P * Q);
+}
+
+// Windows form. Block (tile, split) owns outputs [p0, p0 + 32) x [q0, q0 +
+// 56) and windows [w0, w0 + w_split); a step is kChanStep channels of one
+// window: A rows [32][kLdk] and B rows [56][kLdk], each row a node's
+// channels (contiguous in memory). Channels past K (layer 0 has 2) stay 0
+// up to the mma's k = 8.
+__global__ void __launch_bounds__(kThreads)
+product_windows_kernel(const float* __restrict__ a, const float* __restrict__ b, int P, int Q,
+                       int W, int K, int w_split, float* out, int vec) {
+  constexpr int MT = kWinMT, NT = kWinNT, PT = 16 * MT, QT = 8 * NT;
+  constexpr int SLAB = (PT + QT) * kLdk;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float* slabs = smem + warp * kStages * SLAB;
+  const int tiles_q = (Q + QT - 1) / QT;
+  const int p0 = (blockIdx.x / tiles_q) * PT, q0 = (blockIdx.x % tiles_q) * QT;
+  const int pw = P - p0 < PT ? P - p0 : PT, qw = Q - q0 < QT ? Q - q0 : QT;
+  const int w0 = blockIdx.y * w_split;
+  const int w1 = w0 + w_split < W ? w0 + w_split : W;
+  const int chunks = (K + kChanStep - 1) / kChanStep;
+  const long long steps = w1 > w0 ? (long long)(w1 - w0) * chunks : 0;
+  const int mine = steps > warp ? (int)((steps - warp + kWarps - 1) / kWarps) : 0;
+  for (int i = lane; i < kStages * SLAB; i += 32) slabs[i] = 0.0f;
+  __syncwarp();
+  auto stage_step = [&](int j) {
+    if (j < mine) {
+      const int s = warp + j * kWarps, win = w0 + s / chunks, c0 = (s % chunks) * kChanStep;
+      const int kc = K - c0 < kChanStep ? K - c0 : kChanStep;
+      float* as = slabs + (j % kStages) * SLAB;
+      float* bs = as + PT * kLdk;
+      if (kc < kChanStep && chunks > 1)  // a short last chunk after full ones: clear the rest
+        for (int r = lane; r < PT + QT; r += 32)
+          for (int c = kc; c < kChanStep; ++c) as[r * kLdk + c] = 0.0f;
+      stage_block(as, kLdk, a + ((long long)win * P + p0) * K + c0, K, pw, kc, vec);
+      stage_block(bs, kLdk, b + ((long long)win * Q + q0) * K + c0, K, qw, kc, vec);
+    }
+    cp_async_commit();
+  };
+  float acc[MT][NT][4] = {};
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) stage_step(j);
+  for (int j = 0; j < mine; ++j) {
+    stage_step(j + kStages - 1);
+    cp_async_wait<kStages - 1>();
+    __syncwarp();
+    const float* as = slabs + (j % kStages) * SLAB;
+    const float* bs = as + PT * kLdk;
+    const int s = warp + j * kWarps, c0 = (s % chunks) * kChanStep;
+    const int kc = K - c0 < kChanStep ? K - c0 : kChanStep;
+    for (int kk = 0; kk < kc; kk += 8) {
+      uint32_t ab[MT][4], asm_[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float* f = as + (mt * 16 + g) * kLdk + kk + t;  // A[p][k] = slab[p][k]
+        split_tf32(f[0], ab[mt][0], asm_[mt][0]);
+        split_tf32(f[8 * kLdk], ab[mt][1], asm_[mt][1]);
+        split_tf32(f[4], ab[mt][2], asm_[mt][2]);
+        split_tf32(f[8 * kLdk + 4], ab[mt][3], asm_[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float* f = bs + (nt * 8 + g) * kLdk + kk + t;  // B[k][q] = slab[q][k]
+        uint32_t bb[2], bsm[2];
+        split_tf32(f[0], bb[0], bsm[0]);
+        split_tf32(f[4], bb[1], bsm[1]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_3xtf32(acc[mt][nt], ab[mt], asm_[mt], bb, bsm);
+      }
+    }
+    __syncwarp();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  write_tile<MT, NT>(acc, smem, p0, q0, P, Q, out + (long long)blockIdx.y * P * Q);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -692,17 +891,84 @@ cudaError_t allow_smem(const void* kernel, long long bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-cudaError_t run_product(const Product& pr, int splits, float* prod_buf, float* out,
+// One product: A and B, the output's P x Q, the reduction's n (rows, or
+// windows of k channels). See the product kernels above.
+struct Product {
+  int form;  // ProductForm
+  const float* a;
+  const float* b;
+  int p, q;
+  long long n;
+  int k;
+};
+
+bool aligned16(const float* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+template <int MT, int NT>
+cudaError_t launch_rows(const Product& pr, int splits, float* dst, cudaStream_t stream) {
+  constexpr int PT = 16 * MT, QT = 8 * NT;
+  const long long slabs = (long long)kWarps * kStages * kRowsStep * (PT + 8 + QT + 8);
+  const long long red = (long long)kWarps * MT * NT * 4 * 32;
+  const long long smem = (long long)sizeof(float) * (slabs > red ? slabs : red);
+  long long r_split = (pr.n + splits - 1) / splits;
+  r_split = (r_split + kRowsStep - 1) / kRowsStep * kRowsStep;
+  auto kern = product_rows_kernel<MT, NT>;
+  cudaError_t err = allow_smem((const void*)kern, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(((pr.p + PT - 1) / PT) * ((pr.q + QT - 1) / QT), splits);
+  kern<<<grid, kThreads, (size_t)smem, stream>>>(pr.a, pr.b, pr.p, pr.q, pr.n, r_split, dst,
+                                                 pr.p % 4 == 0 && aligned16(pr.a),
+                                                 pr.q % 4 == 0 && aligned16(pr.b));
+  return cudaGetLastError();
+}
+
+cudaError_t launch_windows(const Product& pr, int splits, float* dst, cudaStream_t stream) {
+  constexpr int PT = 16 * kWinMT, QT = 8 * kWinNT;
+  const long long slabs = (long long)kWarps * kStages * (PT + QT) * kLdk;
+  const long long red = (long long)kWarps * kWinMT * kWinNT * 4 * 32;
+  const long long smem = (long long)sizeof(float) * (slabs > red ? slabs : red);
+  const int w_split = (int)((pr.n + splits - 1) / splits);
+  auto kern = product_windows_kernel;
+  cudaError_t err = allow_smem((const void*)kern, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(((pr.p + PT - 1) / PT) * ((pr.q + QT - 1) / QT), splits);
+  kern<<<grid, kThreads, (size_t)smem, stream>>>(pr.a, pr.b, pr.p, pr.q, (int)pr.n, pr.k, w_split,
+                                                 dst, pr.k % 4 == 0 && aligned16(pr.a) &&
+                                                          aligned16(pr.b));
+  return cudaGetLastError();
+}
+
+// The rows form's tile: 16, 32 or 64 of P by 16, 32 or 64 of Q, the least
+// that holds the output (dW, dW_res: one tile), else 64 (dwp: 216 tiles of
+// 64 x 16). stse_train.py's product_splits mirrors this choice.
+cudaError_t launch_product(const Product& pr, int splits, float* dst, cudaStream_t stream) {
+  if (pr.form == PF_WINDOWS) return launch_windows(pr, splits, dst, stream);
+  const int mt = pr.p <= 16 ? 1 : (pr.p <= 32 ? 2 : 4);
+  const int nt = pr.q <= 16 ? 2 : (pr.q <= 32 ? 4 : 8);
+  switch (mt * 10 + nt) {
+    case 12: return launch_rows<1, 2>(pr, splits, dst, stream);
+    case 14: return launch_rows<1, 4>(pr, splits, dst, stream);
+    case 18: return launch_rows<1, 8>(pr, splits, dst, stream);
+    case 22: return launch_rows<2, 2>(pr, splits, dst, stream);
+    case 24: return launch_rows<2, 4>(pr, splits, dst, stream);
+    case 28: return launch_rows<2, 8>(pr, splits, dst, stream);
+    case 42: return launch_rows<4, 2>(pr, splits, dst, stream);
+    case 44: return launch_rows<4, 4>(pr, splits, dst, stream);
+    default: return launch_rows<4, 8>(pr, splits, dst, stream);
+  }
+}
+
+// The product into out [P][Q]: straight there for one split, else through
+// [splits][P][Q] partials in part, summed in split order.
+cudaError_t run_product(const Product& pr, int splits, float* part, float* out,
                         cudaStream_t stream) {
-  const long long total = (long long)pr.nb * pr.nk;
-  if (splits < 1 || total >= (1LL << 31) - kPR) return cudaErrorInvalidValue;
-  int r_split = (int)((total + splits - 1) / splits);
-  r_split = (r_split + kPR - 1) / kPR * kPR;
-  const dim3 grid(((pr.p + kPT - 1) / kPT) * ((pr.q + kPT - 1) / kPT), splits);
-  const size_t smem = sizeof(float) * 2 * kPR * (kPT + 4);
-  product_kernel<<<grid, kThreads, smem, stream>>>(pr, r_split, prod_buf);
+  if (splits < 1 || splits > 65535 || pr.n < 1 || pr.k < 1 || (splits > 1 && part == nullptr) ||
+      (pr.form == PF_WINDOWS && pr.n >= (1LL << 31)))
+    return cudaErrorInvalidValue;
+  cudaError_t err = launch_product(pr, splits, splits > 1 ? part : out, stream);
+  if (err != cudaSuccess || splits == 1) return err;
   const long long count = (long long)pr.p * pr.q;
-  sum_splits_kernel<<<blocks_for(count), kThreads, 0, stream>>>(prod_buf, count, splits, out);
+  sum_splits_kernel<<<blocks_for(count), kThreads, 0, stream>>>(part, count, splits, out);
   return cudaGetLastError();
 }
 
@@ -793,24 +1059,24 @@ cudaError_t mono_chunk(const long long* d, int c, int w0, int wc, cudaStream_t s
     err = cudaGetLastError();
     // dW = sum g^T dt, dW_res = sum x^T dr, dM = sum x^T dg over the chunk.
     const long long wsz = (long long)ci * co;
-    Product pw{g_buf, t_buf, ci, co, wc, n, (long long)n * ci, (long long)n * co, 1, ci, 1, co};
+    const long long n_rows = (long long)wc * n;
+    Product pw{PF_ROWS, g_buf, t_buf, ci, co, n_rows, 1};
     if (err == cudaSuccess)
       err = run_product(pw, (int)row[ML_SPLITS_W], prod_buf,
                         ptr<float>(row, ML_CHUNK_DW) + c * wsz, stream);
     if (err == cudaSuccess && !L.identity) {
-      Product pr{x_l, r_buf, ci, co, wc, n, (long long)n * ci, (long long)n * co, 1, ci, 1, co};
+      Product pr{PF_ROWS, x_l, r_buf, ci, co, n_rows, 1};
       err = run_product(pr, (int)row[ML_SPLITS_W], prod_buf,
                         ptr<float>(row, ML_CHUNK_DW_RES) + c * wsz, stream);
     }
     if (err == cudaSuccess) {
-      Product pm{x_l, dg_buf, n, n, wc, ci, (long long)n * ci, (long long)n * ci, ci, 1, ci, 1};
+      Product pm{PF_WINDOWS, x_l, dg_buf, n, n, wc, ci};
       err = run_product(pm, (int)row[ML_SPLITS_M], prod_buf,
                         ptr<float>(row, ML_CHUNK_DM) + (long long)c * n * n, stream);
     }
     // dwp = sum over the chunk's windows of y_flat^T dz.
     if (err == cudaSuccess && top) {
-      Product pp{ptr<const float>(row, ML_ACT), dz_c, n * co, latent, wc, 1, (long long)n * co,
-                 (long long)latent, 1, 0, 1, 0};
+      Product pp{PF_ROWS, ptr<const float>(row, ML_ACT), dz_c, n * co, latent, wc, 1};
       err = run_product(pp, (int)d[MH_SPLITS_WP], prod_buf,
                         ptr<float>(d, MH_CHUNK_DWP) + (long long)c * n * co * latent, stream);
     }
@@ -941,21 +1207,21 @@ int run_backward(const long long* d, bool top, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
 
   // dW = sum g^T dt and dW_res = sum x^T dr over all B*N rows.
-  Product pw{g_buf, t_buf, ci, co, batch, n, (long long)n * ci, (long long)n * co, 1, ci, 1, co};
+  const long long n_rows = (long long)batch * n;
+  Product pw{PF_ROWS, g_buf, t_buf, ci, co, n_rows, 1};
   err = run_product(pw, (int)d[BD_SPLITS_W], prod_buf, ptr<float>(d, BD_DW), stream);
   if (err == cudaSuccess && !L.identity) {
-    Product pr{x, r_buf, ci, co, batch, n, (long long)n * ci, (long long)n * co, 1, ci, 1, co};
+    Product pr{PF_ROWS, x, r_buf, ci, co, n_rows, 1};
     err = run_product(pr, (int)d[BD_SPLITS_W_RES], prod_buf, ptr<float>(d, BD_DW_RES), stream);
   }
   // dM[k][m] = sum over windows and channels of x[k][c] dg[m][c].
   if (err == cudaSuccess) {
-    Product pm{x, dg_buf, n, n, batch, ci, (long long)n * ci, (long long)n * ci, ci, 1, ci, 1};
+    Product pm{PF_WINDOWS, x, dg_buf, n, n, batch, ci};
     err = run_product(pm, (int)d[BD_SPLITS_M], prod_buf, ptr<float>(d, BD_DM), stream);
   }
   // K4: dwp = sum over windows of y_flat^T dz.
   if (err == cudaSuccess && top) {
-    Product pp{ptr<const float>(d, BD_Y_TOP), dz, n * co, latent, batch, 1,
-               (long long)n * co, (long long)latent, 1, 0, 1, 0};
+    Product pp{PF_ROWS, ptr<const float>(d, BD_Y_TOP), dz, n * co, latent, batch, 1};
     err = run_product(pp, (int)d[BD_SPLITS_WP], prod_buf, ptr<float>(d, BD_DWP), stream);
   }
   return (int)err;
@@ -1023,6 +1289,22 @@ int stse_train_forward(const long long* desc, void* stream_ptr) {
 // chunk.
 int stse_train_mono_backward(const long long* desc, void* stream) {
   return run_mono(desc, (cudaStream_t)stream);
+}
+
+// One batch-reduction product alone. desc: PD_COUNT fields (see
+// ProductField): rows form C = A^T B, A [n, p], B [n, q]; windows form
+// C = sum over n windows of A_w B_w^T, A [n, p, k], B [n, q, k]. part holds
+// splits * p * q floats (unused for one split).
+int stse_train_product(const long long* d, void* stream) {
+  const int form = (int)d[PD_FORM], p = (int)d[PD_P], q = (int)d[PD_Q], k = (int)d[PD_K];
+  const long long n = d[PD_N];
+  if ((form != PF_ROWS && form != PF_WINDOWS) || p < 1 || q < 1 || n < 1 || k < 1)
+    return (int)cudaErrorInvalidValue;
+  const float* a = ptr<const float>(d, PD_A);
+  const float* b = ptr<const float>(d, PD_B);
+  const Product pr{form, a, b, p, q, n, k};
+  return (int)run_product(pr, (int)d[PD_SPLITS], ptr<float>(d, PD_PART), ptr<float>(d, PD_OUT),
+                          (cudaStream_t)stream);
 }
 
 // K3: one lower layer's backward (desc: BD_COUNT fields, BD_DY set, BD_DZ 0).

@@ -8,11 +8,13 @@ Replaces the Pallas kernels of `coskad_tpu/kernels/stse_train.py`:
     K5  `_bwd_kernel` (:498, via `_bwd_pallas` :1008)      -> `mono_backward`
 
 each one C entry point of `csrc/stse_train.cu` (CUDA C++ for sm_90a, built
-by `build.py` at first use, bound with ctypes). `FusedGhostEncode` is the
-port of the custom VJP `fused_ghost_encode` (:1061-1107): K2 forward, then K4
-for the top layer and K3 for each layer below; with bwd_mode="mono", K2
-forward keeping only x and the operands, then K5, which recomputes the
-forward one chunk of ghost blocks at a time.
+by `build.py` at first use, bound with ctypes). `product` runs one of their
+batch-reduction products (dW, dW_res, dM, dwp) alone, for checks and
+timing. `FusedGhostEncode` is the port of the custom VJP
+`fused_ghost_encode` (:1061-1107): K2 forward, then K4 for the top layer
+and K3 for each layer below; with bwd_mode="mono", K2 forward keeping
+only x and the operands, then K5, which recomputes the forward one chunk
+of ghost blocks at a time.
 `fused_stse_apply` (:1110) is the train-mode encode a Trainer calls; it also
 folds the exact full-batch pre-BN sums into the model's running statistics
 (`updated_batch_stats`, :1176), in place on the BatchNorm buffers where flax
@@ -29,8 +31,9 @@ Dispatch, as for K1: a CUDA tensor launches the kernels or raises; a CPU
 tensor takes the plain PyTorch versions beside them (`ghost_forward_reference`,
 and autograd through `ghost_layer_reference` for the backward).
 
-What bounds the kernels on an H100: fp32 operations (see `work` and the
-source's header).
+What bounds the kernels on an H100: fp32 operations, and the bytes of the
+batch-reduction products, which run on the tensor cores (see `work`,
+`products` and the source's header).
 """
 
 from __future__ import annotations
@@ -49,19 +52,23 @@ REPLACES = {
     "stse_train_layer_backward": "coskad_tpu/kernels/stse_train.py:790",
     "stse_train_top_backward": "coskad_tpu/kernels/stse_train.py:738",
     "stse_train_mono_backward": "coskad_tpu/kernels/stse_train.py:498",
+    # one batch-reduction product of K3 / K4 / K5 alone, for checks and timing
+    # (the dots of `_layer_bwd_body`, e.g. p_t = dpre @ g3^T at :656, and dwp at :768)
+    "stse_train_product": "coskad_tpu/kernels/stse_train.py:656",
 }
 BN_EPS = 1e-5
 # K5's default chunk, in windows: at the flagship width its workspace
 # (`mono_workspace`) is 47.9 MB, under a quarter of split's 258 MB of saved
 # activations at B = 2048. On an H100 a mono step's peak is the same at
 # chunks of 512 and 1024 windows (K2's forward sets it), where K5 takes
-# half the time: retuning it is ROADMAP.md Queue 0 item 5 (PERF.md).
+# 0.6x the time: retuning it is ROADMAP.md Queue 0 item 3 (PERF.md).
 MONO_CHUNK_WINDOWS = 128
 
 forward_launches = LaunchCounter()  # K2
 layer_backward_launches = LaunchCounter()  # K3
 top_backward_launches = LaunchCounter()  # K4
 mono_backward_launches = LaunchCounter()  # K5
+product_launches = LaunchCounter()  # one batch-reduction product alone (`product`)
 
 # Descriptor fields, in the order of the enums in csrc/stse_train.cu.
 _FWD_HEADER = ("n_layers", "batch", "n_nodes", "ghost", "latent", "x", "wp", "bp", "z",
@@ -74,6 +81,8 @@ _BWD = ("batch", "n_nodes", "ghost", "ci", "co", "identity", "latent", "x", "dy"
         "dgamma_res", "dbeta_res", "dalpha", "dx", "dwp", "dbp", "mt", "g_buf", "t_buf",
         "r_buf", "dpre_buf", "dg_buf", "part", "dalpha_part", "consts", "gpart", "prod_buf",
         "splits_w", "splits_w_res", "splits_m", "splits_wp")
+_PRODUCT = ("form", "p", "q", "n", "k", "a", "b", "splits", "part", "out")
+PRODUCT_FORMS = ("rows", "windows")  # the order of csrc/stse_train.cu's ProductForm
 _MONO_HEADER = ("n_layers", "batch", "n_nodes", "ghost", "latent", "chunk", "x", "dz", "wp",
                 "dwp", "dbp", "splits_wp", "chunk_dwp", "t_buf", "r_buf", "dpre_buf", "g_buf",
                 "dg_buf", "dy_buf", "part", "block_sums", "consts", "prod_buf")
@@ -297,6 +306,43 @@ def mono_backward_reference(x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps,
     return _unflatten(_grads_through(fn, _flatten(ops), dz), n_layers)
 
 
+def product_reference(form: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One batch-reduction product, plain, in the operands' dtype: "rows"
+    sums a[r, p] b[r, q] over rows r (dW = g^T dt and dW_res = x^T dr over
+    B * N rows, dwp = y_flat^T dz over B windows); "windows" sums
+    a[w, p, k] b[w, q, k] over windows w and channels k (dM = sum over
+    windows of x dg^T, a and b [B, N, C_in])."""
+    if form == "rows":
+        return torch.einsum("rp,rq->pq", a, b)
+    if form == "windows":
+        return torch.einsum("wpk,wqk->pq", a, b)
+    raise ValueError(f"unknown product form {form!r}")
+
+
+def products(ops: EncoderOps, batch: int) -> List[dict]:
+    """The batch-reduction products of one split backward step at `batch`
+    windows, as `product` runs them: name, the kernel that runs it (K4 for
+    the top layer and dwp, K3_layer<l> below), form, P, Q, n (rows or
+    windows) and k (channels of a window, 1 for rows), and its FLOPs and
+    bytes (each operand read once, the output written once)."""
+    n = ops.layers[0].m.shape[0]
+    top = len(ops.layers) - 1
+    out = []
+    for l, lay in enumerate(ops.layers):
+        ci, co = lay.w.shape
+        key = "K4" if l == top else f"K3_layer{l}"
+        for name in ("dw",) + (() if lay.identity else ("dw_res",)):
+            out.append(dict(name=f"layer{l}.{name}", key=key, form="rows", p=ci, q=co,
+                            n=batch * n, k=1))
+        out.append(dict(name=f"layer{l}.dm", key=key, form="windows", p=n, q=n, n=batch, k=ci))
+    out.append(dict(name="dwp", key="K4", form="rows", p=n * ops.layers[top].w.shape[1],
+                    q=ops.wp.shape[1], n=batch, k=1))
+    for d in out:
+        d["flops"] = 2.0 * d["p"] * d["q"] * d["n"] * d["k"]
+        d["bytes"] = 4.0 * (d["n"] * d["k"] * (d["p"] + d["q"]) + d["p"] * d["q"])
+    return out
+
+
 # --------------------------------------------------------------------------
 # CUDA launches
 # --------------------------------------------------------------------------
@@ -389,12 +435,40 @@ def launch_forward(lib, x: torch.Tensor, ops: EncoderOps, ghost_size: int):
     return z, sums, acts, stats
 
 
-def product_splits(p: int, q: int, rows: int, target_blocks: int = 264) -> int:
-    """How many blocks share one 64 x 64 output tile's reduction of `rows`
-    terms: enough for ~2 blocks per SM over the output tiles, at least 512
-    rows each."""
-    tiles = -(-p // 64) * -(-q // 64)
-    return max(1, min(-(-target_blocks // tiles), rows // 512))
+# The product kernels' tiles and steps, as csrc/stse_train.cu has them.
+_PRODUCT_WARPS = 8  # warps a block, each with its own share of the block's steps
+_ROWS_STEP = 16  # rows form: rows a step (kRowsStep)
+_CHAN_STEP = 16  # windows form: channels of one window a step (kChanStep)
+_WINDOWS_TILE = (32, 56)  # windows form: the output tile (dM: 7 x 4 tiles of 216 x 216)
+
+
+def product_tile(form: str, p: int, q: int) -> Tuple[int, int]:
+    """The output tile one block of the product kernel owns: rows form the
+    least of 16, 32, 64 that holds P (and Q), else 64 (`launch_product` in
+    the source); windows form 32 x 56."""
+    if form == "windows":
+        return _WINDOWS_TILE
+    return tuple(16 if d <= 16 else 32 if d <= 32 else 64 for d in (p, q))
+
+
+def product_splits(form: str, p: int, q: int, n: int, k: int = 1,
+                   target_blocks: int = 264) -> int:
+    """How many blocks split one output tile's reduction of n rows (or n
+    windows of k channels): enough for two waves of one 256-thread block an
+    SM over 132 SMs, as long as each warp keeps at least two steps of its
+    own. At the flagship width and B = 2048 the largest partials (dW's,
+    264 x 32 x 64 floats) stay under the 64 x 64-tile design's (dM's,
+    17 x 216^2)."""
+    pt, qt = product_tile(form, p, q)
+    tiles = -(-p // pt) * -(-q // qt)
+    steps = -(-n // _ROWS_STEP) if form == "rows" else n * -(-k // _CHAN_STEP)
+    return max(1, min(-(-target_blocks // tiles), steps // (2 * _PRODUCT_WARPS)))
+
+
+def partials(*products: Tuple[int, int]) -> int:
+    """Floats of the partials buffer the products (splits, P * Q) share, run
+    one after another: a product with one split writes its output directly."""
+    return max([1] + [s * size for s, size in products if s > 1])
 
 
 def launch_backward(lib, x: torch.Tensor, stats: torch.Tensor, lay: LayerOps,
@@ -427,10 +501,12 @@ def launch_backward(lib, x: torch.Tensor, stats: torch.Tensor, lay: LayerOps,
     dwp = torch.empty((n * co, latent), **f32) if top else None
     dbp = torch.empty((latent,), **f32) if top else None
     rows = b * n
-    splits = dict(w=product_splits(ci, co, rows), w_res=product_splits(ci, co, rows),
-                  m=product_splits(n, n, b * ci), wp=product_splits(n * co, latent, b) if top else 1)
-    prod = max(splits["w"] * ci * co, splits["m"] * n * n,
-               splits["wp"] * n * co * latent if top else 0)
+    splits = dict(w=product_splits("rows", ci, co, rows),
+                  w_res=product_splits("rows", ci, co, rows),
+                  m=product_splits("windows", n, n, b, ci),
+                  wp=product_splits("rows", n * co, latent, b) if top else 1)
+    prod = partials((splits["w"], ci * co), (splits["w_res"], ci * co), (splits["m"], n * n),
+                    (splits["wp"], n * co * latent))
     nb = b // ghost_size
     scratch = dict(
         mt=torch.empty((n * n,), **f32) if need_dx else None,
@@ -450,6 +526,36 @@ def launch_backward(lib, x: torch.Tensor, stats: torch.Tensor, lay: LayerOps,
     desc = np.asarray([fields[f] for f in _BWD], np.int64)
     _run(lib, "stse_train_top_backward" if top else "stse_train_layer_backward", desc, dev)
     return grads, dwp, dbp, dx
+
+
+def _product_shape(form: str, a: torch.Tensor, b: torch.Tensor):
+    """(P, Q, n, k) of a product's operands, or ValueError."""
+    if form == "rows" and a.dim() == 2 and b.dim() == 2 and a.shape[0] == b.shape[0]:
+        return a.shape[1], b.shape[1], a.shape[0], 1
+    if (form == "windows" and a.dim() == 3 and b.dim() == 3 and a.shape[0] == b.shape[0]
+            and a.shape[2] == b.shape[2]):
+        return a.shape[1], b.shape[1], a.shape[0], a.shape[2]
+    raise ValueError(f"stse_train product {form!r}: operands {tuple(a.shape)} and "
+                     f"{tuple(b.shape)} do not fit (rows: [R, P], [R, Q]; windows: "
+                     "[W, P, K], [W, Q, K])")
+
+
+def launch_product(lib, form: str, a: torch.Tensor, b: torch.Tensor,
+                   splits: Optional[int] = None) -> torch.Tensor:
+    """Run one batch-reduction product from `lib` (see `product_reference`)
+    with the kernel K3, K4 and K5 use; `splits` overrides `product_splits`."""
+    p, q, n, k = _product_shape(form, a, b)
+    dev = a.device
+    a = _checked(a, dev, a.shape, "a")
+    b = _checked(b, dev, b.shape, "b")
+    splits = product_splits(form, p, q, n, k) if splits is None else splits
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = torch.empty((p, q), **f32)
+    part = torch.empty((splits * p * q,), **f32) if splits > 1 else None
+    fields = dict(form=PRODUCT_FORMS.index(form), p=p, q=q, n=n, k=k, a=_ptr(a), b=_ptr(b),
+                  splits=splits, part=_ptr(part), out=_ptr(out))
+    _run(lib, "stse_train_product", np.asarray([fields[f] for f in _PRODUCT], np.int64), dev)
+    return out
 
 
 def mono_chunk(batch: int, ghost_size: int, chunk_windows: Optional[int] = None) -> int:
@@ -501,8 +607,8 @@ def launch_mono_backward(lib, x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps
         return None if count is None else torch.empty((count,), **f32)
 
     ws = {k: empty(v) for k, v in mono_workspace(ops, n, chunk, ghost_size).items()}
-    splits_wp = product_splits(n * c_hidden, latent, chunk)
-    prod = splits_wp * n * c_hidden * latent
+    splits_wp = product_splits("rows", n * c_hidden, latent, chunk)
+    prod = partials((splits_wp, n * c_hidden * latent))
     grads = [LayerOps(*(None if t is None else torch.empty(t.shape, **f32) for t in lay))
              for lay in layers]
     dwp = torch.empty((n * c_hidden, latent), **f32)
@@ -512,9 +618,9 @@ def launch_mono_backward(lib, x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps
     rows = []
     for l, (lay, g) in enumerate(zip(layers, grads)):
         ci, co = lay.w.shape
-        splits_w = product_splits(ci, co, chunk * n)
-        splits_m = product_splits(n, n, chunk * ci)
-        prod = max(prod, splits_w * ci * co, splits_m * n * n)
+        splits_w = product_splits("rows", ci, co, chunk * n)
+        splits_m = product_splits("windows", n, n, chunk, ci)
+        prod = max(prod, partials((splits_w, ci * co), (splits_m, n * n)))
         buf = dict(mt=empty(n * n) if l > 0 else None, gpart=empty(b // ghost_size * 6 * co),
                    dalpha_part=empty(b), chunk_dm=empty(n_chunks * n * n),
                    chunk_dw=empty(n_chunks * ci * co),
@@ -586,6 +692,19 @@ def top_backward(x: torch.Tensor, y_top: torch.Tensor, dz: torch.Tensor, lay: La
         top_backward_launches.value += 1
         return out
     return top_backward_reference(x, dz, lay, wp, bp, ghost_size, need_dx)
+
+
+def product(form: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One batch-reduction product alone, as K3, K4 and K5 run it inside
+    (see `product_reference` for the forms): checked and timed on its own by
+    chip_smoke.py. On a CPU tensor, the plain version."""
+    if _route(a):
+        with torch.no_grad():
+            out = launch_product(_library(), form, a, b)
+        product_launches.value += 1
+        return out
+    _product_shape(form, a, b)
+    return product_reference(form, a, b)
 
 
 def split_backward(x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps,
@@ -708,8 +827,10 @@ def fused_stse_apply(model, x: torch.Tensor, ghost_size: int = 32, momentum: flo
 
 
 def work(ops: EncoderOps, batch: int, ghost_size: int) -> dict:
-    """(FLOPs, bytes) that K2, each K3 layer and K4 need for `batch`
-    windows: every input read once and every output written once. K2 reads
+    """(FLOPs, bytes, product FLOPs) that K2, each K3 layer and K4 need for
+    `batch` windows: every input read once and every output written once;
+    the last is the share of the FLOPs in the batch-reduction products
+    (`products`), which run as 3xTF32 on the tensor cores (K2 has none). K2 reads
     x and the weights and writes z, the activations, block statistics and
     sums. A layer's backward reads x, dy (K4: dz, its output and wp) and
     the weights, and writes dx (not for layer 0), the weight gradients.
@@ -724,6 +845,9 @@ def work(ops: EncoderOps, batch: int, ghost_size: int) -> dict:
     n = ops.layers[0].m.shape[0]
     latent = ops.wp.shape[1]
     nb = batch // ghost_size
+    prod = {}
+    for pr in products(ops, batch):
+        prod[pr["key"]] = prod.get(pr["key"], 0.0) + pr["flops"]
     out = {}
     mono_flops, mono_weights = 0.0, 0.0
     fwd_flops, fwd_bytes = 0.0, 4.0 * batch * n * ops.layers[0].w.shape[0]
@@ -748,13 +872,14 @@ def work(ops: EncoderOps, batch: int, ghost_size: int) -> dict:
             nbytes += 4.0 * (batch * latent + batch * n * co + 2 * n * co * latent + latent)
         else:
             nbytes += 4.0 * batch * n * co  # dy
-        out["K4" if top else f"K3_layer{i}"] = (flops, nbytes)
+        key = "K4" if top else f"K3_layer{i}"
+        out[key] = (flops, nbytes, prod[key])
     c_h = ops.layers[-1].w.shape[1]
     fwd_flops += batch * 2.0 * n * c_h * latent
     fwd_bytes += 4.0 * (n * c_h * latent + latent + batch * latent)
-    out["K2"] = (fwd_flops, fwd_bytes)
+    out["K2"] = (fwd_flops, fwd_bytes, 0.0)
     proj = n * c_h * latent + latent
     out["K5"] = (mono_flops + batch * 2.0 * 2.0 * n * c_h * latent,
                  4.0 * (batch * n * ops.layers[0].w.shape[0] + batch * latent
-                        + 2 * (mono_weights + proj)))
+                        + 2 * (mono_weights + proj)), sum(prod.values()))
     return out

@@ -2,21 +2,29 @@
 //
 // Covers the subset the port's kernels use: float4, __ldg, rsqrtf, threadIdx
 // (x) and blockIdx (x, y) with a dim3 grid, dynamic shared memory and
-// __syncthreads, and __nv_bfloat16 with the conversions, compares, products
-// and min the probes use. Each CUDA thread of a block is a std::thread and
-// __syncthreads is a std::barrier; blocks run one after another. Shared
+// __syncthreads, __nv_bfloat16 with the conversions, compares, products and
+// min the probes use, and the warp-level pieces of the batch-reduction
+// products: __syncwarp, cvt.rna.tf32.f32 (tf32_of), the m16n8k8 TF32 mma
+// (mma_tf32) and cp.async (cp_async16 / cp_async4 as plain copies,
+// cp_async_commit / cp_async_wait as no-ops). It defines CUDA_HOST_EMU, under
+// which a kernel source leaves out its inline-PTX versions of those helpers.
+// Each CUDA thread of a block is a std::thread, __syncthreads is a
+// std::barrier and each warp has a barrier of its own; blocks run one after
+// another. Shared
 // memory starts as NaN, so a read of a value no thread wrote shows up in the
 // output. The test rewrites each kernel's `extern __shared__` declaration to
 // read g_smem and each <<<...>>> launch to call emu_launch (and drops the
 // cuda_bf16.h include); a static `__shared__` array becomes a function-local
 // static, one for all threads, which holds because blocks run in turn.
 #pragma once
+#define CUDA_HOST_EMU 1
 #include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
 #include <limits>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -38,6 +46,69 @@ inline std::barrier<>* g_barrier;
 inline float* g_smem;
 
 inline void __syncthreads() { g_barrier->arrive_and_wait(); }
+
+// One warp's barrier and the exchange area of its collective operations.
+struct EmuWarp {
+  explicit EmuWarp(int lanes) : barrier(lanes) {}
+  std::barrier<> barrier;
+  float a[32][4], b[32][2];
+};
+inline std::vector<std::unique_ptr<EmuWarp>>* g_warps;
+inline EmuWarp& emu_warp() { return *(*g_warps)[threadIdx.x / 32]; }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp().barrier.arrive_and_wait(); }
+
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
+
+// cvt.rna.tf32.f32: keep the top 19 bits, rounded to nearest with ties away
+// from zero on the 13 dropped ones (a magnitude carry in sign-magnitude
+// form; subnormals round the same way); NaN stays NaN, infinity infinity.
+inline uint32_t tf32_of(float v) {
+  uint32_t u = __float_as_uint(v);
+  if ((u & 0x7F800000u) == 0x7F800000u) return (u & 0x7FFFFFu) ? 0x7FFFFFFFu : u;
+  return (u + 0x1000u) & 0xFFFFE000u;
+}
+
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, d += a b, with the
+// PTX fragment layout (g = lane / 4, t = lane % 4): a0..a3 hold A[g][t],
+// A[g+8][t], A[g][t+4], A[g+8][t+4]; b0, b1 hold B[t][g], B[t+4][g]; d0..d3
+// hold D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1]. Each lane posts its
+// fragments, meets the warp's barrier, sums the eight exact products of each
+// element it owns in k order in double and rounds once, and meets the
+// barrier again before any lane may post the next fragments.
+inline void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  EmuWarp& w = emu_warp();
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  for (int i = 0; i < 4; ++i) w.a[lane][i] = __uint_as_float(a[i]);
+  for (int i = 0; i < 2; ++i) w.b[lane][i] = __uint_as_float(b[i]);
+  w.barrier.arrive_and_wait();
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + (i >= 2 ? 8 : 0), col = 2 * t + (i & 1);
+    double acc = d[i];
+    for (int k = 0; k < 8; ++k) {
+      const float av = w.a[(row % 8) * 4 + k % 4][(row >= 8 ? 1 : 0) + (k >= 4 ? 2 : 0)];
+      const float bv = w.b[col * 4 + k % 4][k >= 4 ? 1 : 0];
+      acc += (double)av * (double)bv;
+    }
+    d[i] = (float)acc;
+  }
+  w.barrier.arrive_and_wait();
+}
+
+// cp.async: the copy happens at once, so a commit or a wait has nothing to do.
+inline void cp_async16(float* dst, const float* src) { std::memcpy(dst, src, 16); }
+inline void cp_async4(float* dst, const float* src) { *dst = *src; }
+inline void cp_async_commit() {}
+template <int N>
+void cp_async_wait() {}
 template <class T>
 T __ldg(const T* p) {
   return *p;
@@ -99,6 +170,10 @@ void emu_launch(K kernel, dim3 grid, int threads, size_t smem_bytes, A... args) 
       g_smem = smem.data();
       std::barrier<> barrier(threads);
       g_barrier = &barrier;
+      std::vector<std::unique_ptr<EmuWarp>> warps;
+      for (int w = 0; w * 32 < threads; ++w)
+        warps.push_back(std::make_unique<EmuWarp>(threads - w * 32 < 32 ? threads - w * 32 : 32));
+      g_warps = &warps;
       std::vector<std::thread> pool;
       for (int t = 0; t < threads; ++t)
         pool.emplace_back([&, t] {

@@ -219,3 +219,9 @@ def test_work_counts_flagship_flops():
                 ((32, 16), (16, 32), (32, 64))) + 2 * 2 * n * 64 * 16)
     assert w["K5"][0] == 2048 * k5
     assert w["K5"][0] == sum(w[k][0] for k in w if k.startswith(("K3", "K4")))
+    # the batch-reduction products' share: dW and dW_res a layer, dM a layer,
+    # dwp in K4; K5 runs all of them, K2 none
+    rows = 2048 * n
+    assert w["K3_layer1"][2] == 2 * 2 * rows * 32 * 16 + 2 * n * n * 2048 * 32
+    assert w["K4"][2] == 2 * 2 * rows * 32 * 64 + 2 * n * n * 2048 * 32 + 2 * 2048 * n * 64 * 16
+    assert w["K2"][2] == 0 and w["K5"][2] == sum(w[k][2] for k in w if k != "K5")
