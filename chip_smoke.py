@@ -11,13 +11,17 @@ Phases, each printing a line before the last:
      card, at the serving path's shapes (full width, B=2048 and a ragged
      B=2047), on a one-layer identity-residual stack and on a stack whose
      last layer narrows (16 -> 8 channels, 35 nodes); times kernel and
-     plain version.
+     plain version; STSE.forward(train=False) with grad mode on raises (K1
+     has no backward).
   3. train kernels: K2 (ghost-BN forward), K3 (a lower layer's backward)
      and K4 (the top layer's backward with the projector's) against their
      plain versions on the card: full width at B=2048 ghost 64, B=96 ghost
      32, a one-layer identity-residual stack, a stack whose last layer
      narrows with 35 nodes. Times each kernel and its plain version; K4
-     and K3 launched twice on the same inputs give the same bits. Product
+     and K3 launched twice on the same inputs give the same bits; per
+     flagship layer the device ms of the per-window passes bwd_pre and
+     bwd_dx (a profiler trace of one K3/K4 call) and each pass's shared
+     bytes and blocks an SM (the top layer's bwd_dx needs two). Product
      check: each of the 13 batch-reduction products of a step (dW, dW_res,
      dM a layer, dwp), alone through stse_train.product, at B=2048 and at
      K5's 128-window chunk, against float64 einsum on the card, with its
@@ -50,7 +54,8 @@ Phases, each printing a line before the last:
      an epoch, K1 in validate), finite losses and running statistics; three
      steps of a 256-window subset against the plain CPU path; a per-stage
      breakdown of one step, the live-BN (fused_train='off') step for
-     context, and the profiler's idle share over one epoch.
+     context, and the profiler's idle share over one epoch, flagged where
+     its K2-K4 kernel time is more than 10% off their CUDA-event times.
   6. a JSON line of every kernel (launches on the main paths, error, times,
      bound), then the last line {"ok": true, "device": {...}}.
 
@@ -118,6 +123,12 @@ MONO_PEAK_CHUNKS = (512, 1024)  # a mono step's peak memory also at these chunks
 PROBE_SUM_TOL = dict(rtol=1e-5, atol=2e-3)
 SCORE_TOL = dict(rtol=1e-3, atol=1e-6)  # scores square latent differences
 DEVICE = "cuda"
+# csrc/stse_train.cu's kernels, as the profiler names them: K2-K4's device time
+# in an epoch trace
+TRAIN_KERNELS = ("fwd_pre_kernel", "fwd_stats_kernel", "fwd_sums_kernel", "fwd_apply_kernel",
+                 "transpose_kernel", "projector_dy_kernel", "bwd_pre_kernel", "bwd_consts_kernel",
+                 "bwd_reduce_kernel", "bwd_dx_kernel", "product_rows_kernel",
+                 "product_windows_kernel", "sum_splits_kernel")
 TRAIN_CLIPS, VAL_CLIPS = 100, 20  # x 2 actors x 200 windows: 40,000 and 8,000 windows
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
@@ -261,6 +272,15 @@ def phase_kernel(card):
         if label == "full_B2048":
             x_main = x
 
+    # K1 has no backward: the eval forward on the card raises where autograd
+    # would record it, rather than return a latent cut from the graph.
+    try:
+        model(x_main[:4])
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    check("no_grad" in raised, "STSE.forward(train=False) with grad mode on did not raise on the "
+                               "card")
     with torch.no_grad():
         kernel_ms = cuda_ms(lambda: stse_fused.fused_stse_hidden(x_main, folded, packed))
         plain_ms = cuda_ms(lambda: stse_fused.fused_stse_hidden_reference(x_main, folded))
@@ -286,7 +306,8 @@ def phase_kernel(card):
         timing_runs_ms=dict(kernel=[kernel_ms, kernel_ms_2], plain=[plain_ms, plain_ms_2]),
     )
     print("kernel check: " + json.dumps(dict(
-        name="stse_fused", cases=cases, kernel_ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
+        name="stse_fused", cases=cases, eval_forward_with_grad_raises=True,
+        kernel_ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
         bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], per_layer_ms=per_layer_ms,
         card=card)))
     return rec
@@ -447,14 +468,34 @@ def device_profile(fn):
     busy = sum(e.time_range.elapsed_us() for e in events)
     span = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
     k1 = sum(e.time_range.elapsed_us() for e in events if "stse_fused_kernel" in e.name)
-    by_name = {}
-    for e in events:
-        name = e.name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
-        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    by_name = ms_by_kernel(events)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
     return dict(device_busy_ms=busy / 1e3, device_span_ms=span / 1e3,
                 idle_share=1.0 - busy / span, stse_fused_share_of_busy=k1 / busy,
-                device_events=len(events), top_device_ms={k: v for k, v in top})
+                device_events=len(events), top_device_ms={k: v for k, v in top},
+                train_kernels_ms=sum(v for k, v in by_name.items() if k in TRAIN_KERNELS))
+
+
+def ms_by_kernel(events) -> dict:
+    """Device ms of profiler events summed by kernel name (namespace and
+    arguments cut off)."""
+    out = {}
+    for e in events:
+        name = e.name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+        name = name[len("void "):] if name.startswith("void ") else name
+        out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out
+
+
+def traced_ms(fn) -> dict:
+    """Device ms by kernel name of one call of fn, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return ms_by_kernel(e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def stage_breakdown(trainer, state, ds):
@@ -620,8 +661,8 @@ def phase_train_kernels(card):
         pairs += [("K4", f"layer{top}.d{f}", getattr(g, f), getattr(w, f))
                   for f in st.LayerOps._fields if getattr(w, f) is not None]
         for l in reversed(range(top)):
-            g, dx = st.layer_backward(x_in[l], dy_r.float(), ops.layers[l], stats[l], ghost,
-                                      need_dx=l > 0)
+            g, dx = st.layer_backward(x_in[l], acts[l], dy_r.float(), ops.layers[l], stats[l],
+                                      ghost, need_dx=l > 0)
             w, dx_r = st.layer_backward_reference(x_in[l].double(), dy_r, ops64.layers[l], ghost,
                                                   need_dx=l > 0, positive=acts[l] >= 0)
             pairs += [("K3", f"layer{l}.d{f}", getattr(g, f), getattr(w, f))
@@ -645,6 +686,7 @@ def phase_train_kernels(card):
             timing = time_train_kernels(st, ops, x, dz, acts_r, stats_r, ghost)
             work = st.work(ops, batch, ghost)
             repeat = repeat_bits(st, ops, x, dz, acts, stats, ghost)
+            passes = pass_report(st, ops, x, dz, acts, stats, ghost)
             timed_ops = ops
     products = phase_products(card, timed_ops)
     records = []
@@ -653,8 +695,9 @@ def phase_train_kernels(card):
         parts = [k for k in work if k.startswith(key)]
         flops = sum(work[k][0] for k in parts)
         nbytes = sum(work[k][1] for k in parts)
-        # K3's and K4's batch-reduction products run on the tensor cores
-        bound_ms, bound_by = products_bound(flops, sum(work[k][2] for k in parts), nbytes)
+        # K3's and K4's products, per window and batch-reduction, run on the tensor cores
+        bound_ms, bound_by = products_bound(flops, sum(work[k][2] + work[k][3] for k in parts),
+                                            nbytes)
         t = timing[key]
         own = [r for r in products if r["batch"] == timed[2] and r["kernel"] in parts]
         records.append(dict(
@@ -667,18 +710,30 @@ def phase_train_kernels(card):
             bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, batch=timed[2], ghost=timed[3], flops=flops, bytes=nbytes,
             per_layer_ms=t.get("per_layer"), timing_runs_ms=t["runs"],
-            per_layer_bound_ms={k: products_bound(work[k][0], work[k][2], work[k][1])[0]
-                                for k in parts},
+            per_layer_bound_ms={k: products_bound(work[k][0], work[k][2] + work[k][3],
+                                                  work[k][1])[0] for k in parts},
+            # the bound with the per-window FLOPs at fp32 outside the tensor cores, as
+            # before the per-window passes ran on them
+            bound_fp32_window_ms=products_bound(flops, sum(work[k][2] for k in parts),
+                                                nbytes)[0],
             **(dict(product_ms=sum(r["ms"] for r in own),
                     product_library_ms=sum(r["library_ms"] for r in own),
                     product_bound_ms=sum(r["bound_ms"] for r in own),
                     repeats_bit_for_bit=repeat[key]) if own else {})))
+    for r in records:
+        if r["name"] != "stse_train_forward":
+            r["passes"] = {k: v for k, v in passes.items()
+                           if v["kernel"] == ("K4" if "top" in r["name"] else "K3")}
     print("train kernel check: " + json.dumps(dict(
         cases=results, card=card, repeats_bit_for_bit=repeat,
         times={r["name"]: dict(kernel_ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                               product_ms=r.get("product_ms"), per_layer_ms=r["per_layer_ms"])
+                               product_ms=r.get("product_ms"), per_layer_ms=r["per_layer_ms"],
+                               bound_fp32_window_ms=r.get("bound_fp32_window_ms"))
                for r in records})))
+    print("per-window passes (one K3/K4 call each, torch.profiler; blocks an SM by "
+          "cudaOccupancyMaxActiveBlocksPerMultiprocessor): " + json.dumps(dict(card=card, **{
+              k: {f: v[f] for f in v if f != "traced_ms"} for k, v in passes.items()})))
     return records, products
 
 
@@ -690,8 +745,9 @@ def repeat_bits(st, ops, x, dz, acts, stats, ghost):
     runs = {
         "K4": lambda: st.top_backward(x_of[top], acts[top], dz, ops.layers[top], stats[top],
                                       ops.wp, ops.bp, ghost, need_dx=top > 0),
-        **{f"K3_layer{l}": (lambda l=l: st.layer_backward(x_of[l], acts[l], ops.layers[l],
-                                                          stats[l], ghost, need_dx=l > 0))
+        **{f"K3_layer{l}": (lambda l=l: st.layer_backward(x_of[l], acts[l], acts[l],
+                                                          ops.layers[l], stats[l], ghost,
+                                                          need_dx=l > 0))
            for l in range(top)}}
     out = {}
     for key, fn in runs.items():
@@ -700,6 +756,39 @@ def repeat_bits(st, ops, x, dz, acts, stats, ghost):
         check(same, f"{key}: two launches on the same inputs differ")
         out[key] = same
     return dict(K4=out["K4"], K3=all(v for k, v in out.items() if k.startswith("K3")))
+
+
+def pass_report(st, ops, x, dz, acts, stats, ghost):
+    """Per flagship layer: the device ms of bwd_pre and bwd_dx (and K4's
+    projector_dy) in one K4 or K3 call, from a torch.profiler trace of it
+    after a warm-up call; each pass's shared bytes a block and blocks an SM
+    (stse_train.pass_occupancy). The top layer's bwd_dx must fit two
+    blocks an SM."""
+    import torch
+
+    top = len(ops.layers) - 1
+    x_of = [x] + list(acts[:-1])
+    lib = st._library()
+    out = {}
+    for l, lay in enumerate(ops.layers):
+        if l == top:
+            fn = lambda: st.top_backward(x_of[top], acts[top], dz, lay, stats[top], ops.wp, ops.bp,
+                                         ghost, need_dx=top > 0)
+        else:
+            fn = lambda l=l: st.layer_backward(x_of[l], acts[l], acts[l], ops.layers[l], stats[l],
+                                               ghost, need_dx=l > 0)
+        fn()
+        torch.cuda.synchronize()
+        ms = traced_ms(fn)
+        ci, co = lay.w.shape
+        out[f"layer{l}"] = dict(
+            kernel="K4" if l == top else "K3", ci=ci, co=co, bwd_pre_ms=ms.get("bwd_pre_kernel"),
+            bwd_dx_ms=ms.get("bwd_dx_kernel"), projector_dy_ms=ms.get("projector_dy_kernel"),
+            traced_ms=ms, **st.pass_occupancy(lib, x.shape[1], ci, co))
+    check(out[f"layer{top}"]["bwd_dx_blocks_per_sm"] >= 2,
+          f"the top layer's bwd_dx runs {out[f'layer{top}']['bwd_dx_blocks_per_sm']} block(s) an "
+          "SM, not 2")
+    return out
 
 
 def flat_tensors(out) -> list:
@@ -729,8 +818,8 @@ def time_train_kernels(st, ops, x, dz, acts, stats, ghost):
     }
     for l in range(top):
         fns[f"K3_layer{l}"] = (
-            lambda l=l: st.layer_backward(x_of[l], dys[l], ops.layers[l], stats[l], ghost,
-                                          need_dx=l > 0),
+            lambda l=l: st.layer_backward(x_of[l], acts[l], dys[l], ops.layers[l], stats[l],
+                                          ghost, need_dx=l > 0),
             lambda l=l: st.layer_backward_reference(x_of[l], dys[l], ops.layers[l], ghost,
                                                     need_dx=l > 0))
     runs = {}
@@ -801,8 +890,8 @@ def phase_mono(card, checks_only=False):
             timed = (ops, x, dz, acts, stats, ghost, n)
     ops, x, dz, acts, stats, ghost, n = timed
     timing = time_mono(st, *timed)
-    flops, nbytes, prod_flops = st.work(ops, x.shape[0], ghost)["K5"]
-    bound_ms, bound_by = products_bound(flops, prod_flops, nbytes)
+    flops, nbytes, prod_flops, window_flops = st.work(ops, x.shape[0], ghost)["K5"]
+    bound_ms, bound_by = products_bound(flops, prod_flops + window_flops, nbytes)
     rec = dict(
         name="stse_train_mono_backward", route="cuda", source=st.SOURCE,
         replaces=st.REPLACES["stse_train_mono_backward"], launches=None, max_abs_err=max(errs),
@@ -810,6 +899,7 @@ def phase_mono(card, checks_only=False):
                             "version and vs K4 + K3", rtol=GRAD_RTOL, atol=GRAD_ATOL),
         ms=timing["kernel_ms"], kernel_ms=timing["kernel_ms"], plain_ms=timing["plain_ms"],
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None, batch=x.shape[0], ghost=ghost,
+        bound_fp32_window_ms=products_bound(flops, prod_flops, nbytes)[0],
         chunk=st.mono_chunk(x.shape[0], ghost), flops=flops, bytes=nbytes, cases=cases,
         timing=timing)
     print("mono kernel check: " + json.dumps(dict(cases=cases, card=card, **{
@@ -1120,6 +1210,17 @@ def phase_train(card):
     trainer.model.train()
     trace = device_profile(lambda: inner(state, trainer.train_data, idx))
     trainer.model.eval()
+    # The trace's time in K2-K4's kernels against the same epoch from their
+    # CUDA-event times (K2, K3 a layer, K4 in the breakdown: back-to-back
+    # launches, so no host gap inside them): a trace that lost events (one
+    # held half the device time) is flagged.
+    events_ms = steps * sum(v for k, v in breakdown.items() if k.startswith(("K2", "K3", "K4")))
+    trace["train_kernels_cuda_event_epoch_ms"] = events_ms
+    trace["train_kernels_over_cuda_events"] = trace["train_kernels_ms"] / events_ms
+    trace["flagged"] = abs(trace["train_kernels_over_cuda_events"] - 1.0) > 0.10
+    if trace["flagged"]:
+        print(f"train trace FLAGGED: K2-K4's kernels {trace['train_kernels_ms']:.1f} ms against "
+              f"{events_ms:.1f} ms from their CUDA-event times: read it with care")
     summary = dict(
         windows=train_ds.num_windows, items=n_items, batch=cfg.data.batch_size, ghost=64,
         steps_per_epoch=steps, epochs=TRAIN_EPOCHS, setup_s=setup_s, fit_s=fit_s,
@@ -1195,7 +1296,7 @@ def train_breakdown(trainer, state):
                K2=cuda_ms(lambda: st.ghost_forward(x, det, g), iters=10))
     for l in range(top):
         out[f"K3_layer{l}"] = cuda_ms(lambda l=l: st.layer_backward(
-            x_of[l], acts[l], det.layers[l], stats[l], g, need_dx=l > 0), iters=10)
+            x_of[l], acts[l], acts[l], det.layers[l], stats[l], g, need_dx=l > 0), iters=10)
     out["K4"] = cuda_ms(lambda: st.top_backward(x_of[top], acts[top], dz, det.layers[top],
                                                 stats[top], det.wp, det.bp, g), iters=10)
 

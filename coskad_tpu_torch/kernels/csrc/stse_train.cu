@@ -51,7 +51,10 @@
 //   * Intermediates (t, r, dpre, g, dg) go through device memory. That
 //     costs bytes, not operations, which is the right trade for a first
 //     version; keeping them on chip is later work.
-//   * The per-window passes are scalar fp32 code, no tensor cores, no TMA:
+//   * K2's per-window passes are scalar fp32 code. The backward's (bwd_pre,
+//     K4's projector_dy, bwd_dx) run their products as 3xTF32 mma.sync too,
+//     which leaves them bound by their scratch traffic (~1.6 GB a pass a
+//     flagship step); see "the per-window passes" below. No TMA or wgmma:
 //     those come with the PRs that make them fast.
 //
 // K5, the mono backward, keeps nothing from the forward: it reads x, dz and
@@ -106,7 +109,7 @@ enum ProductField {
 };
 enum BwdField {
   BD_BATCH, BD_N_NODES, BD_GHOST, BD_CI, BD_CO, BD_IDENTITY, BD_LATENT, BD_X, BD_DY, BD_DZ,
-  BD_WP, BD_Y_TOP, BD_M, BD_W, BD_B, BD_GAMMA, BD_BETA, BD_W_RES, BD_B_RES, BD_GAMMA_RES,
+  BD_WP, BD_Y, BD_M, BD_W, BD_B, BD_GAMMA, BD_BETA, BD_W_RES, BD_B_RES, BD_GAMMA_RES,
   BD_BETA_RES, BD_ALPHA, BD_STATS, BD_DM, BD_DW, BD_DB, BD_DGAMMA, BD_DBETA, BD_DW_RES,
   BD_DB_RES, BD_DGAMMA_RES, BD_DBETA_RES, BD_DALPHA, BD_DX, BD_DWP, BD_DBP, BD_MT, BD_G_BUF,
   BD_T_BUF, BD_R_BUF, BD_DPRE_BUF, BD_DG_BUF, BD_PART, BD_DALPHA_PART, BD_CONSTS, BD_GPART,
@@ -363,88 +366,7 @@ transpose_kernel(const float* __restrict__ src, float* dst, int n) {
   }
 }
 
-// Backward pass 1, one block per window: recompute g, t, r and pre from the
-// saved input and block statistics; dy from the layer above (K3) or from
-// dz wp^T (K4, the projector backward); dpre = PReLU'(pre) dy. Writes g,
-// the centred tc = t - t_mean and rc = r - r_mean, dpre to scratch,
-// per-window sums [3][co] = (sum dpre, sum dpre tc, sum dpre rc) and the
-// window's share of dalpha = sum dy min(pre, 0). Working
-// from centred values keeps the digits of a channel whose spread is small
-// against its mean (the TPU kernel's s2 - mean s1 loses them).
-__global__ void __launch_bounds__(kThreads)
-bwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int ghost,
-               const float* __restrict__ dy, const float* __restrict__ dz,
-               const float* __restrict__ wp, int latent, float* g_buf, float* t_buf,
-               float* r_buf, float* dpre_buf, float* part, float* dalpha_part) {
-  extern __shared__ __align__(16) float smem[];
-  const int ci = L.ci, co = L.co, tid = threadIdx.x, win = blockIdx.x;
-  float* xs = smem;
-  float* gs = xs + n * ci;
-  float* ws = gs + n * ci;
-  float* wrs = ws + ci * co;
-  float* red = wrs + ci * co;   // [kThreads]
-  float* dzs = red + kThreads;  // [latent]
-  const float* xb = x + (long long)win * n * ci;
-  for (int i = tid; i < n * ci; i += kThreads) xs[i] = xb[i];
-  for (int i = tid; i < ci * co; i += kThreads) {
-    ws[i] = L.w[i];
-    wrs[i] = L.identity ? 0.0f : L.wr[i];
-  }
-  if (dz != nullptr)
-    for (int l = tid; l < latent; l += kThreads) dzs[l] = dz[(long long)win * latent + l];
-  __syncthreads();
-  graph_contract(xs, L.m, gs, n, ci);
-  __syncthreads();
-  for (int i = tid; i < n * ci; i += kThreads) g_buf[(long long)win * n * ci + i] = gs[i];
-  const float* st = L.stats + (long long)(win / ghost) * 4 * co;
-  const float alpha = *L.alpha;
-  const long long base = (long long)win * n * co;
-  float dal = 0.0f;
-  for (int i = tid; i < n * co; i += kThreads) {
-    const int m = i / co, o = i - m * co;
-    float t = L.b[o];
-    for (int c = 0; c < ci; ++c) t = fmaf(gs[m * ci + c], ws[c * co + o], t);
-    float r;
-    if (L.identity) {
-      r = xs[m * ci + o];
-    } else {
-      r = L.br[o];
-      for (int c = 0; c < ci; ++c) r = fmaf(xs[m * ci + c], wrs[c * co + o], r);
-    }
-    const float tc = t - st[o];
-    const float rc = r - st[2 * co + o];  // an identity residual has mean 0: rc = x
-    const float pre = ghost_pre(L, st, o, t, r);
-    float g_out;
-    if (dz != nullptr) {
-      const float* wr = wp + (long long)i * latent;
-      g_out = 0.0f;
-      for (int l = 0; l < latent; ++l) g_out = fmaf(dzs[l], wr[l], g_out);
-    } else {
-      g_out = dy[base + i];
-    }
-    dal = fmaf(g_out, fminf(pre, 0.0f), dal);
-    t_buf[base + i] = tc;
-    r_buf[base + i] = rc;
-    dpre_buf[base + i] = pre < 0.0f ? alpha * g_out : g_out;
-  }
-  red[tid] = dal;
-  __syncthreads();  // also makes the block's global writes visible to it
-  block_reduce(red, 1);
-  if (tid == 0) dalpha_part[win] = red[0];
-  float* pw = part + (long long)win * 3 * co;
-  for (int o = tid; o < co; o += kThreads) {
-    float s1 = 0.0f, s2t = 0.0f, s2r = 0.0f;
-    for (int m = 0; m < n; ++m) {
-      const float d = dpre_buf[base + m * co + o];
-      s1 += d;
-      s2t = fmaf(d, t_buf[base + m * co + o], s2t);
-      s2r = fmaf(d, r_buf[base + m * co + o], s2r);
-    }
-    pw[o] = s1;
-    pw[co + o] = s2t;
-    pw[2 * co + o] = s2r;
-  }
-}
+// Backward pass 1 (bwd_pre_kernel) runs on the tensor cores: see below.
 
 // Backward pass 2, one block per ghost block: the ghost-BN backward's
 // per-channel constants d_raw = a dpre + b (raw - mean) + c for t (and r),
@@ -535,66 +457,7 @@ bwd_reduce_kernel(const float* __restrict__ gpart, int n_blocks,
   }
 }
 
-// Backward pass 4, one block per window: dt = a dpre + b tc + c (written over
-// tc), dr likewise (over rc; an identity residual has dr = dpre), dg = dt W^T
-// (to scratch, for dM) and, unless dx is null, dx = M dg + dr W_res^T.
-__global__ void __launch_bounds__(kThreads)
-bwd_dx_kernel(Layer L, int n, int ghost, const float* __restrict__ consts, float* t_buf,
-              float* r_buf, const float* __restrict__ dpre_buf, float* dg_buf,
-              const float* __restrict__ mt, float* dx) {
-  extern __shared__ __align__(16) float smem[];
-  const int ci = L.ci, co = L.co, tid = threadIdx.x, win = blockIdx.x;
-  float* dts = smem;
-  float* drs = dts + n * co;
-  float* dgs = drs + n * co;
-  float* hs = dgs + n * ci;
-  float* wts = hs + n * ci;    // W^T [co][ci]: consecutive threads (c) read
-  float* wrts = wts + ci * co;  // consecutive words, no bank conflicts
-  for (int i = tid; i < ci * co; i += kThreads) {
-    const int c = i / co, o = i - c * co;
-    wts[o * ci + c] = L.w[i];
-    wrts[o * ci + c] = L.identity ? 0.0f : L.wr[i];
-  }
-  const float* cs = consts + (long long)(win / ghost) * 6 * co;
-  const long long base = (long long)win * n * co;
-  for (int i = tid; i < n * co; i += kThreads) {
-    const int o = i % co;
-    const float dp = dpre_buf[base + i];
-    const float dt = fmaf(cs[o], dp, fmaf(cs[co + o], t_buf[base + i], cs[2 * co + o]));
-    dts[i] = dt;
-    t_buf[base + i] = dt;
-    if (L.identity) {
-      drs[i] = dp;
-    } else {
-      const float dr =
-          fmaf(cs[3 * co + o], dp, fmaf(cs[4 * co + o], r_buf[base + i], cs[5 * co + o]));
-      drs[i] = dr;
-      r_buf[base + i] = dr;
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < n * ci; i += kThreads) {
-    const int m = i / ci, c = i - m * ci;
-    float s = 0.0f;
-    for (int o = 0; o < co; ++o) s = fmaf(dts[m * co + o], wts[o * ci + c], s);
-    dgs[i] = s;
-    dg_buf[(long long)win * n * ci + i] = s;
-  }
-  if (dx == nullptr) return;  // uniform over the block
-  __syncthreads();
-  graph_contract(dgs, mt, hs, n, ci);  // hs[k][c] = sum_m M[k][m] dg[m][c]
-  __syncthreads();
-  for (int i = tid; i < n * ci; i += kThreads) {
-    const int m = i / ci, c = i - m * ci;
-    float v = hs[i];
-    if (L.identity) {
-      v += drs[m * co + c];
-    } else {
-      for (int o = 0; o < co; ++o) v = fmaf(drs[m * co + o], wrts[o * ci + c], v);
-    }
-    dx[(long long)win * n * ci + i] = v;
-  }
-}
+// Backward pass 4 (bwd_dx_kernel) runs on the tensor cores: see below.
 
 // ================= the batch-reduction products (K3, K4, K5) =================
 //
@@ -884,6 +747,382 @@ sum_splits_kernel(const float* __restrict__ part, long long count, int splits, f
   out[i] = s;
 }
 
+// ================= the per-window passes of K3, K4 and K5 on the tensor cores =================
+//
+// bwd_pre (g = M^T x, t = g W + b, r = x W_res + b_res), K4's dy = dz wp^T
+// and bwd_dx (dg = dt W^T, dx = M dg + dr W_res^T) run every product as
+// 3xTF32 m16n8k8 mma.sync, like the batch-reduction products. Fragments come
+// from loaders, small functions (row, k) -> value: of shared memory; of M
+// (or M^T), read through L1/L2 as every block reads the same M; or, for dt
+// and dr, computed from device memory in the loader and written back there,
+// so those operands need no shared buffer. A warp owns whole 16-row tiles
+// of the output and loads each A fragment once for all its column tiles,
+// so each element of an A operand is loaded by one lane once per 32 output
+// columns. No float atomics: a column sum is taken lane by lane, then warp
+// by warp, in a fixed order.
+
+__host__ __device__ constexpr int round8(int v) { return (v + 7) & ~7; }
+
+// A lane's values of the A fragment at rows [r0, r0 + 16) x columns [k0,
+// k0 + 8), and its B fragment at [k0, k0 + 8) x [c0, c0 + 8) split into
+// TF32 big and small parts, in the PTX layout (see mma_tf32).
+template <class FA>
+__device__ __forceinline__ void frag_a(const FA& a, int r0, int k0, float (&v)[4]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  v[0] = a(r0 + g, k0 + t);
+  v[1] = a(r0 + g + 8, k0 + t);
+  v[2] = a(r0 + g, k0 + t + 4);
+  v[3] = a(r0 + g + 8, k0 + t + 4);
+}
+
+template <class FB>
+__device__ __forceinline__ void frag_b(const FB& b, int k0, int c0, uint32_t (&big)[2],
+                                       uint32_t (&small)[2]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  split_tf32(b(k0 + t, c0 + g), big[0], small[0]);
+  split_tf32(b(k0 + t + 4, c0 + g), big[1], small[1]);
+}
+
+// acc[j] += A[r0, r0 + 16) x [0, K) . B[0, K) x [c0 + 8 j, c0 + 8 j + 8) for
+// j < tiles <= NT; K a multiple of 8, the loaders 0 past their operand's
+// edge. Each A fragment is loaded once, for all the column tiles, and one
+// step ahead, so its latency (L2 for M) runs under the step before.
+template <int NT, class FA, class FB>
+__device__ __forceinline__ void warp_tile(float (&acc)[NT][4], int r0, int K, int c0, int tiles,
+                                          const FA& a, const FB& b) {
+  float next[4];
+  if (K > 0) frag_a(a, r0, 0, next);
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    uint32_t ab[4], as[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(next[i], ab[i], as[i]);
+    if (k0 + 8 < K) frag_a(a, r0, k0 + 8, next);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j >= tiles) break;
+      uint32_t bb[2], bs[2];
+      frag_b(b, k0, c0 + 8 * j, bb, bs);
+      mma_3xtf32(acc[j], ab, as, bb, bs);
+    }
+  }
+}
+
+// Row and column, within its 16 x 8 tile, of a lane's accumulator entry i.
+__device__ __forceinline__ int frag_row(int i) { return ((threadIdx.x & 31) >> 2) + (i >= 2 ? 8 : 0); }
+__device__ __forceinline__ int frag_col(int i) { return 2 * (threadIdx.x & 3) + (i & 1); }
+
+// Windows a bwd_pre block takes side by side, so that the graph
+// contraction's wb * ci columns reach 32 where they can: one pass over M
+// then feeds them all (C_in 2: 4 windows; 16: 2; 32: 1).
+__host__ __device__ inline int pre_windows(int ci) {
+  const int w = 32 / ci;
+  return w >= 4 ? 4 : (w >= 2 ? 2 : 1);
+}
+
+// bwd_pre's shared memory, in floats: x and g [rows][ldx] (the nodes
+// rounded up to whole 16-row tiles; the wb * ci columns rounded up to 8,
+// + 4, so an A fragment's 32 lanes hit 32 banks), W and W_res [ci][ldw]
+// (C_out rounded up to 8, + 8, for the B fragments), the column sums'
+// partials [groups][3][C_out rounded up to 8], each warp's lane partials
+// [kWarps][32][6] and the dalpha reduction [kThreads].
+struct PreSmem {
+  int rows, ldx, ldw, csum, total;
+};
+__host__ __device__ inline PreSmem pre_smem(int n, int ci, int co, int wb) {
+  PreSmem s;
+  s.rows = (n + 15) / 16 * 16;
+  s.ldx = round8(wb * ci) + 4;
+  s.ldw = round8(co) + 8;
+  s.csum = 3 * (round8(co) > 64 ? round8(co) : 64);
+  s.total = 2 * s.rows * s.ldx + 2 * ci * s.ldw + s.csum + kWarps * 32 * 6 + kThreads;
+  return s;
+}
+
+// bwd_dx's shared memory, in floats: dg [rows][lddg] (C_in rounded up to 8,
+// + 4), W^T and W_res^T [co][ldwt] (C_in rounded up to 8, + 8) and the
+// window's BN-backward constants [6][co].
+struct DxSmem {
+  int rows, lddg, ldwt, total;
+};
+__host__ __device__ inline DxSmem dx_smem(int n, int ci, int co) {
+  DxSmem s;
+  s.rows = (n + 15) / 16 * 16;
+  s.lddg = round8(ci) + 4;
+  s.ldwt = round8(ci) + 8;
+  s.total = s.rows * s.lddg + 2 * co * s.ldwt + 6 * co;
+  return s;
+}
+
+// K4's projector backward, dy[w][i] = sum_l dz[w][l] wp[i][l] for the
+// rows i < n * C_out of wp, into dy [batch][rows] (bwd_pre's dpre buffer,
+// which bwd_pre reads it from and writes dpre over). A block owns 128 rows
+// of wp (16 a warp) and 64 windows (8 column tiles), so wp is read once per
+// 64 windows, not once per window.
+constexpr int kDyRows = 16 * kWarps, kDyWindows = 64;
+__global__ void __launch_bounds__(kThreads)
+projector_dy_kernel(const float* __restrict__ dz, const float* __restrict__ wp, int batch,
+                    int rows, int latent, float* dy) {
+  const int warp = threadIdx.x >> 5;
+  const int r0 = blockIdx.x * kDyRows + warp * 16, w0 = blockIdx.y * kDyWindows;
+  const int wn = batch - w0 < kDyWindows ? batch - w0 : kDyWindows;
+  auto wp_of = [&](int i, int l) {
+    return i < rows && l < latent ? __ldg(wp + (long long)i * latent + l) : 0.0f;
+  };
+  auto dz_of = [&](int l, int w) {
+    return l < latent && w < batch ? __ldg(dz + (long long)w * latent + l) : 0.0f;
+  };
+  float acc[kDyWindows / 8][4] = {};
+  warp_tile<kDyWindows / 8>(acc, r0, round8(latent), w0, (wn + 7) / 8, wp_of, dz_of);
+#pragma unroll
+  for (int j = 0; j < kDyWindows / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + frag_row(i), w = w0 + 8 * j + frag_col(i);
+      if (r < rows && w < batch) dy[(long long)w * rows + r] = acc[j][i];
+    }
+}
+
+// Backward pass 1, one block per wb windows (pre_windows): recompute g, t, r
+// and pre from the saved input and block statistics; dpre = PReLU'(pre) dy,
+// with dy from the layer above (K3) or projector_dy_kernel (K4). Writes g,
+// the centred tc = t - t_mean and rc = r - r_mean, dpre to scratch,
+// per-window sums [3][co] = (sum dpre, sum dpre tc, sum dpre rc) and the
+// window's share of dalpha = sum over PReLU's negative branch of dy pre.
+// Working from centred values keeps the digits of a channel whose spread is
+// small against its mean (the TPU kernel's s2 - mean s1 loses them).
+// PReLU's branch is the forward's, read from the sign of its output y (for
+// alpha >= 0; a negative slope gives both branches one sign, and then the
+// branch is taken from the recomputed pre): a pre-activation within
+// rounding of 0 could otherwise land on the other side in this rounding of
+// the recomputation, and one such element moves dW and dM by more than the
+// gradients' tolerance.
+// g = M^T x runs on the block's windows side by side as the columns of one
+// product; t and r a window at a time, a warp on one 8-channel tile of
+// C_out and every groups-th 16-node tile, the PReLU backward and the column
+// sums taken from the accumulators.
+__global__ void __launch_bounds__(kThreads)
+bwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int ghost, int batch, int wb,
+               const float* __restrict__ y, const float* dy, float* g_buf, float* t_buf,
+               float* r_buf, float* dpre_buf, float* part, float* dalpha_part) {
+  extern __shared__ __align__(16) float smem[];
+  const int ci = L.ci, co = L.co, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const PreSmem sm = pre_smem(n, ci, co, wb);
+  const int rows = sm.rows, ldx = sm.ldx, ldw = sm.ldw, cols = wb * ci, cop = round8(co);
+  float* xs = smem;
+  float* gs = xs + rows * ldx;
+  float* ws = gs + rows * ldx;
+  float* wrs = ws + ci * ldw;
+  float* csum = wrs + ci * ldw;
+  float* wred = csum + sm.csum + warp * 32 * 6;
+  float* red = csum + sm.csum + kWarps * 32 * 6;
+  const int win0 = blockIdx.x * wb;
+  const int nwin = batch - win0 < wb ? batch - win0 : wb;
+  for (int i = tid; i < rows * ldx; i += kThreads) {
+    const int k = i / ldx, j = i - k * ldx, w = j / ci;
+    xs[i] = k < n && j < cols && w < nwin ? x[((long long)(win0 + w) * n + k) * ci + j - w * ci]
+                                          : 0.0f;
+  }
+  for (int i = tid; i < ci * ldw; i += kThreads) {
+    const int c = i / ldw, o = i - c * ldw;
+    ws[i] = o < co ? L.w[c * co + o] : 0.0f;
+    wrs[i] = o < co && !L.identity ? L.wr[c * co + o] : 0.0f;
+  }
+  __syncthreads();
+  const float* __restrict__ M = L.m;
+  auto mt_of = [&](int r, int k) { return r < n && k < n ? __ldg(M + (long long)k * n + r) : 0.0f; };
+  auto xs_of = [&](int k, int j) { return xs[k * ldx + j]; };
+  const int ctiles = round8(cols) / 8;
+  for (int r0 = warp * 16; r0 < rows; r0 += kWarps * 16)
+    for (int c0 = 0; c0 < ctiles; c0 += 4) {
+      float acc[4][4] = {};
+      warp_tile<4>(acc, r0, round8(n), 8 * c0, ctiles - c0 < 4 ? ctiles - c0 : 4, mt_of, xs_of);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (c0 + j >= ctiles) break;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = r0 + frag_row(i), c = 8 * (c0 + j) + frag_col(i), w = c / ci;
+          gs[r * ldx + c] = acc[j][i];
+          if (r < n && c < cols && w < nwin)
+            g_buf[((long long)(win0 + w) * n + r) * ci + c - w * ci] = acc[j][i];
+        }
+      }
+    }
+  __syncthreads();
+  const int otiles = cop / 8;
+  const int groups = otiles >= kWarps ? 1 : kWarps / otiles;
+  const int grp = otiles >= kWarps ? 0 : warp / otiles;
+  const float alpha = *L.alpha;
+  auto w_of = [&](int k, int o) { return k < ci ? ws[k * ldw + o] : 0.0f; };
+  auto wr_of = [&](int k, int o) { return k < ci ? wrs[k * ldw + o] : 0.0f; };
+  for (int w = 0; w < nwin; ++w) {
+    const int win = win0 + w;
+    const float* st = L.stats + (long long)(win / ghost) * 4 * co;
+    const long long base = (long long)win * n * co;
+    auto g_of = [&](int r, int k) { return k < ci ? gs[r * ldx + w * ci + k] : 0.0f; };
+    auto x_of = [&](int r, int k) { return k < ci ? xs[r * ldx + w * ci + k] : 0.0f; };
+    float dal = 0.0f;
+    if (grp < groups)
+      for (int ot = warp % otiles; ot < otiles; ot += otiles >= kWarps ? kWarps : otiles) {
+        float s[6] = {};  // (sum dpre, dpre tc, dpre rc) of columns 2 (lane % 4) and + 1
+        for (int r0 = 16 * grp; r0 < rows; r0 += 16 * groups) {
+          float yv[4], dyv[4];  // issued first: their latency runs under the products
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = r0 + frag_row(i), o = 8 * ot + frag_col(i);
+            const long long e = base + (long long)r * co + o;
+            yv[i] = r < n && o < co ? y[e] : 0.0f;
+            dyv[i] = r < n && o < co ? dy[e] : 0.0f;
+          }
+          float at[1][4] = {}, ar[1][4] = {};
+          warp_tile<1>(at, r0, round8(ci), 8 * ot, 1, g_of, w_of);
+          if (!L.identity) warp_tile<1>(ar, r0, round8(ci), 8 * ot, 1, x_of, wr_of);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = r0 + frag_row(i), o = 8 * ot + frag_col(i);
+            if (r >= n || o >= co) continue;
+            const float t = at[0][i] + L.b[o];
+            const float rv = L.identity ? xs[r * ldx + w * ci + o] : ar[0][i] + L.br[o];
+            const float tc = t - st[o];
+            const float rc = rv - st[2 * co + o];  // an identity residual has mean 0: rc = x
+            const float pre = ghost_pre(L, st, o, t, rv);
+            const long long e = base + (long long)r * co + o;
+            const bool neg = alpha >= 0.0f ? (__float_as_uint(yv[i]) >> 31) != 0 : pre < 0.0f;
+            const float g_out = dyv[i];
+            if (neg) dal = fmaf(g_out, pre, dal);
+            const float dp = neg ? alpha * g_out : g_out;
+            t_buf[e] = tc;
+            r_buf[e] = rc;
+            dpre_buf[e] = dp;
+            float* sc = s + 3 * (i & 1);
+            sc[0] += dp;
+            sc[1] = fmaf(dp, tc, sc[1]);
+            sc[2] = fmaf(dp, rc, sc[2]);
+          }
+        }
+        // The warp's share of its 8 columns: the 8 lanes of a column in lane order.
+#pragma unroll
+        for (int q = 0; q < 6; ++q) wred[lane * 6 + q] = s[q];
+        __syncwarp();
+        if (lane < 4)
+          for (int q = 0; q < 6; ++q) {
+            float v = 0.0f;
+            for (int g8 = 0; g8 < 8; ++g8) v += wred[(g8 * 4 + lane) * 6 + q];
+            csum[(grp * 3 + q % 3) * cop + 8 * ot + 2 * lane + q / 3] = v;
+          }
+        __syncwarp();
+      }
+    red[tid] = dal;
+    __syncthreads();
+    block_reduce(red, 1);
+    if (tid == 0) dalpha_part[win] = red[0];
+    float* pw = part + (long long)win * 3 * co;
+    for (int j = tid; j < 3 * co; j += kThreads) {
+      const int q = j / co, o = j - q * co;
+      float v = 0.0f;
+      for (int k = 0; k < groups; ++k) v += csum[(k * 3 + q) * cop + o];
+      pw[j] = v;
+    }
+    __syncthreads();  // csum and red serve the next window
+  }
+}
+
+// Backward pass 4, one block per window: dt = a dpre + b tc + c (written over
+// tc) as the A operand of dg = dt W^T (to scratch, for dM, and to shared
+// memory), then, unless dx is null, dr likewise (over rc; an identity
+// residual has dr = dpre) as the A operand of dr W_res^T, which adds to
+// dx = M dg. Without dx (layer 0) dr is written by a plain loop. dt and dr
+// never sit in shared memory: a loader computes each element from dpre and
+// tc (rc) once and writes it back, and later column chunks (C_in > 32) read
+// it again.
+__global__ void __launch_bounds__(kThreads)
+bwd_dx_kernel(Layer L, int n, int ghost, const float* __restrict__ consts, float* t_buf,
+              float* r_buf, const float* __restrict__ dpre_buf, float* dg_buf,
+              const float* __restrict__ mt, float* dx) {
+  extern __shared__ __align__(16) float smem[];
+  const int ci = L.ci, co = L.co, tid = threadIdx.x, warp = tid >> 5, win = blockIdx.x;
+  const DxSmem sm = dx_smem(n, ci, co);
+  const int rows = sm.rows, lddg = sm.lddg, ldwt = sm.ldwt;
+  float* dgs = smem;
+  float* wts = dgs + rows * lddg;  // W^T [co][ldwt]
+  float* wrts = wts + co * ldwt;   // W_res^T
+  float* cs = wrts + co * ldwt;
+  for (int i = tid; i < co * ldwt; i += kThreads) {
+    const int o = i / ldwt, c = i - o * ldwt;
+    wts[i] = c < ci ? L.w[c * co + o] : 0.0f;
+    wrts[i] = c < ci && !L.identity ? L.wr[c * co + o] : 0.0f;
+  }
+  const float* csg = consts + (long long)(win / ghost) * 6 * co;
+  for (int i = tid; i < 6 * co; i += kThreads) cs[i] = csg[i];
+  __syncthreads();
+  const long long base = (long long)win * n * co;
+  const int ctiles = round8(ci) / 8;
+  auto wt_of = [&](int o, int c) { return o < co ? wts[o * ldwt + c] : 0.0f; };
+  for (int r0 = warp * 16; r0 < rows; r0 += kWarps * 16)
+    for (int c0 = 0; c0 < ctiles; c0 += 4) {
+      auto dt_of = [&](int r, int o) {
+        if (r >= n || o >= co) return 0.0f;
+        const long long e = base + (long long)r * co + o;
+        if (c0 > 0) return t_buf[e];  // this lane wrote dt there in the first chunk
+        const float v = fmaf(cs[o], dpre_buf[e], fmaf(cs[co + o], t_buf[e], cs[2 * co + o]));
+        t_buf[e] = v;
+        return v;
+      };
+      float acc[4][4] = {};
+      warp_tile<4>(acc, r0, round8(co), 8 * c0, ctiles - c0 < 4 ? ctiles - c0 : 4, dt_of, wt_of);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (c0 + j >= ctiles) break;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = r0 + frag_row(i), c = 8 * (c0 + j) + frag_col(i);
+          dgs[r * lddg + c] = acc[j][i];
+          if (r < n && c < ci) dg_buf[((long long)win * n + r) * ci + c] = acc[j][i];
+        }
+      }
+    }
+  if (dx == nullptr) {  // uniform over the block
+    if (!L.identity)
+      for (int i = tid; i < n * co; i += kThreads) {
+        const int o = i % co;
+        const long long e = base + i;
+        r_buf[e] = fmaf(cs[3 * co + o], dpre_buf[e], fmaf(cs[4 * co + o], r_buf[e], cs[5 * co + o]));
+      }
+    return;
+  }
+  __syncthreads();
+  auto m_of = [&](int r, int k) { return r < n && k < n ? __ldg(mt + (long long)k * n + r) : 0.0f; };
+  auto dg_of = [&](int k, int c) { return dgs[k * lddg + c]; };
+  auto wrt_of = [&](int o, int c) { return o < co ? wrts[o * ldwt + c] : 0.0f; };
+  for (int r0 = warp * 16; r0 < rows; r0 += kWarps * 16)
+    for (int c0 = 0; c0 < ctiles; c0 += 4) {
+      auto dr_of = [&](int r, int o) {
+        if (r >= n || o >= co) return 0.0f;
+        const long long e = base + (long long)r * co + o;
+        if (c0 > 0) return r_buf[e];
+        const float v = fmaf(cs[3 * co + o], dpre_buf[e], fmaf(cs[4 * co + o], r_buf[e], cs[5 * co + o]));
+        r_buf[e] = v;
+        return v;
+      };
+      const int tiles = ctiles - c0 < 4 ? ctiles - c0 : 4;
+      float acc[4][4] = {};
+      warp_tile<4>(acc, r0, round8(n), 8 * c0, tiles, m_of, dg_of);  // M dg
+      if (!L.identity) warp_tile<4>(acc, r0, round8(co), 8 * c0, tiles, dr_of, wrt_of);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (c0 + j >= ctiles) break;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = r0 + frag_row(i), c = 8 * (c0 + j) + frag_col(i);
+          if (r >= n || c >= ci) continue;
+          float v = acc[j][i];
+          if (L.identity) v += dpre_buf[base + (long long)r * co + c];
+          dx[((long long)win * n + r) * ci + c] = v;
+        }
+      }
+    }
+}
+
 int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
 
 cudaError_t allow_smem(const void* kernel, long long bytes) {
@@ -992,15 +1231,44 @@ Layer row_layer(const long long* r) {
   return L;
 }
 
-// Dynamic shared memory of a layer's fwd_pre, bwd_pre and bwd_dx blocks.
+// Dynamic shared memory of a layer's fwd_pre, bwd_pre and bwd_dx blocks, in bytes.
 struct LayerSmem {
   long long fwd, pre, dx;
 };
-LayerSmem layer_smem(const Layer& L, int n, int latent, bool top) {
-  const long long w = 2LL * L.ci * L.co;
-  return {(long long)sizeof(float) * (2LL * n * L.ci + w),
-          (long long)sizeof(float) * (2LL * n * L.ci + w + kThreads + (top ? latent : 0)),
-          (long long)sizeof(float) * (2LL * n * L.co + 2LL * n * L.ci + w)};
+LayerSmem layer_smem(const Layer& L, int n) {
+  return {(long long)sizeof(float) * (2LL * n * L.ci + 2LL * L.ci * L.co),
+          (long long)sizeof(float) * pre_smem(n, L.ci, L.co, pre_windows(L.ci)).total,
+          (long long)sizeof(float) * dx_smem(n, L.ci, L.co).total};
+}
+
+// The per-window passes of one layer's backward on windows [0, batch) of
+// the buffers (a chunk's, for K5): bwd_pre (after K4's projector_dy_kernel,
+// whose dy it reads from dpre_buf), bwd_consts, then bwd_dx. `y` is the
+// layer's output; dy, for K3, the layer above's dx; dz and wp, for K4.
+struct PassArgs {
+  const float *x, *y, *dy, *dz, *wp, *mt;
+  int batch, n, ghost, latent;
+  float *g_buf, *t_buf, *r_buf, *dpre_buf, *dg_buf, *part, *dalpha_part, *consts, *gpart, *dx;
+};
+cudaError_t run_passes(const Layer& L, const PassArgs& a, const LayerSmem& smem,
+                       cudaStream_t stream) {
+  const float* dy = a.dy;
+  if (a.dz != nullptr) {
+    const int rows = a.n * L.co;
+    const dim3 grid_dy((rows + kDyRows - 1) / kDyRows, (a.batch + kDyWindows - 1) / kDyWindows);
+    projector_dy_kernel<<<grid_dy, kThreads, 0, stream>>>(a.dz, a.wp, a.batch, rows, a.latent,
+                                                          a.dpre_buf);
+    dy = a.dpre_buf;
+  }
+  const int wb = pre_windows(L.ci);
+  bwd_pre_kernel<<<(a.batch + wb - 1) / wb, kThreads, (size_t)smem.pre, stream>>>(
+      a.x, L, a.n, a.ghost, a.batch, wb, a.y, dy, a.g_buf, a.t_buf, a.r_buf, a.dpre_buf, a.part,
+      a.dalpha_part);
+  bwd_consts_kernel<<<a.batch / a.ghost, kThreads, 0, stream>>>(a.part, L, a.ghost, a.n, a.consts,
+                                                                a.gpart);
+  bwd_dx_kernel<<<a.batch, kThreads, (size_t)smem.dx, stream>>>(
+      L, a.n, a.ghost, a.consts, a.t_buf, a.r_buf, a.dpre_buf, a.dg_buf, a.mt, a.dx);
+  return cudaGetLastError();
 }
 
 // K5, one chunk of windows [w0, w0 + wc): the forward again into the chunk
@@ -1031,7 +1299,7 @@ cudaError_t mono_chunk(const long long* d, int c, int w0, int wc, cudaStream_t s
     float* stats = ptr<float>(row, ML_STATS);
     L.stats = stats;
     float* act = ptr<float>(row, ML_ACT);
-    const long long smem_fwd = layer_smem(L, n, latent, false).fwd;
+    const long long smem_fwd = layer_smem(L, n).fwd;
     fwd_pre_kernel<<<wc, kThreads, (size_t)smem_fwd, stream>>>(h, L, n, t_buf, r_buf, part);
     fwd_stats_kernel<<<nbc, kThreads, 0, stream>>>(part, L, ghost, n, stats,
                                                    ptr<float>(d, MH_BLOCK_SUMS));
@@ -1047,16 +1315,28 @@ cudaError_t mono_chunk(const long long* d, int c, int w0, int wc, cudaStream_t s
     const int ci = L.ci, co = L.co;
     const bool top = l == n_layers - 1;
     const float* x_l = l == 0 ? x_c : ptr<const float>(row - ML_COUNT, ML_ACT);
-    const LayerSmem smem = layer_smem(L, n, latent, top);
-    bwd_pre_kernel<<<wc, kThreads, (size_t)smem.pre, stream>>>(
-        x_l, L, n, ghost, top ? nullptr : dy_buf, top ? dz_c : nullptr, ptr<const float>(d, MH_WP),
-        latent, g_buf, t_buf, r_buf, dpre_buf, part, ptr<float>(row, ML_DALPHA_PART) + w0);
-    bwd_consts_kernel<<<nbc, kThreads, 0, stream>>>(
-        part, L, ghost, n, consts, ptr<float>(row, ML_GPART) + (long long)(w0 / ghost) * 6 * co);
-    bwd_dx_kernel<<<wc, kThreads, (size_t)smem.dx, stream>>>(
-        L, n, ghost, consts, t_buf, r_buf, dpre_buf, dg_buf, ptr<const float>(row, ML_MT),
-        l > 0 ? dy_buf : nullptr);
-    err = cudaGetLastError();
+    PassArgs pa;
+    pa.x = x_l;
+    pa.y = ptr<const float>(row, ML_ACT);
+    pa.dy = top ? nullptr : dy_buf;
+    pa.dz = top ? dz_c : nullptr;
+    pa.wp = ptr<const float>(d, MH_WP);
+    pa.mt = ptr<const float>(row, ML_MT);
+    pa.batch = wc;
+    pa.n = n;
+    pa.ghost = ghost;
+    pa.latent = latent;
+    pa.g_buf = g_buf;
+    pa.t_buf = t_buf;
+    pa.r_buf = r_buf;
+    pa.dpre_buf = dpre_buf;
+    pa.dg_buf = dg_buf;
+    pa.part = part;
+    pa.dalpha_part = ptr<float>(row, ML_DALPHA_PART) + w0;
+    pa.consts = consts;
+    pa.gpart = ptr<float>(row, ML_GPART) + (long long)(w0 / ghost) * 6 * co;
+    pa.dx = l > 0 ? dy_buf : nullptr;
+    err = run_passes(L, pa, layer_smem(L, n), stream);
     // dW = sum g^T dt, dW_res = sum x^T dr, dM = sum x^T dg over the chunk.
     const long long wsz = (long long)ci * co;
     const long long n_rows = (long long)wc * n;
@@ -1097,7 +1377,7 @@ int run_mono(const long long* d, cudaStream_t stream) {
     if (L.ci < 1 || L.co < 1 || (L.identity && L.ci != L.co) ||
         (l > 0 && L.ci != rows[(long long)(l - 1) * ML_COUNT + ML_CO]))
       return (int)cudaErrorInvalidValue;
-    const LayerSmem s = layer_smem(L, n, latent, l == n_layers - 1);
+    const LayerSmem s = layer_smem(L, n);
     most = {s.fwd > most.fwd ? s.fwd : most.fwd, s.pre > most.pre ? s.pre : most.pre,
             s.dx > most.dx ? s.dx : most.dx};
   }
@@ -1166,43 +1446,53 @@ int run_backward(const long long* d, bool top, cudaStream_t stream) {
   const int ci = L.ci, co = L.co;
   if (batch < 1 || ghost < 1 || batch % ghost != 0 || n < 1 || ci < 1 || co < 1 ||
       (L.identity && ci != co) || (top && (latent < 1 || d[BD_DZ] == 0 || d[BD_WP] == 0)) ||
-      (!top && d[BD_DY] == 0))
+      (!top && d[BD_DY] == 0) || d[BD_Y] == 0)
     return (int)cudaErrorInvalidValue;
   const int n_blocks = batch / ghost;
   const float* x = ptr<const float>(d, BD_X);
   const float* dz = top ? ptr<const float>(d, BD_DZ) : nullptr;
-  const float* dy = top ? nullptr : ptr<const float>(d, BD_DY);
   float* g_buf = ptr<float>(d, BD_G_BUF);
   float* t_buf = ptr<float>(d, BD_T_BUF);
   float* r_buf = ptr<float>(d, BD_R_BUF);
-  float* dpre_buf = ptr<float>(d, BD_DPRE_BUF);
   float* dg_buf = ptr<float>(d, BD_DG_BUF);
-  float* part = ptr<float>(d, BD_PART);
-  float* dalpha_part = ptr<float>(d, BD_DALPHA_PART);
-  float* consts = ptr<float>(d, BD_CONSTS);
-  float* gpart = ptr<float>(d, BD_GPART);
   float* prod_buf = ptr<float>(d, BD_PROD_BUF);
   float* mt = ptr<float>(d, BD_MT);
-  float* dx = ptr<float>(d, BD_DX);
 
-  const LayerSmem smem = layer_smem(L, n, latent, top);
-  const long long smem_pre = smem.pre, smem_dx = smem.dx;
-  cudaError_t err = allow_smem((const void*)bwd_pre_kernel, smem_pre);
-  if (err == cudaSuccess) err = allow_smem((const void*)bwd_dx_kernel, smem_dx);
+  const LayerSmem smem = layer_smem(L, n);
+  cudaError_t err = allow_smem((const void*)bwd_pre_kernel, smem.pre);
+  if (err == cudaSuccess) err = allow_smem((const void*)bwd_dx_kernel, smem.dx);
   if (err != cudaSuccess) return (int)err;
 
-  if (dx != nullptr)
+  PassArgs pa;
+  pa.x = x;
+  pa.y = ptr<const float>(d, BD_Y);
+  pa.dy = top ? nullptr : ptr<const float>(d, BD_DY);
+  pa.dz = dz;
+  pa.wp = ptr<const float>(d, BD_WP);
+  pa.mt = mt;
+  pa.batch = batch;
+  pa.n = n;
+  pa.ghost = ghost;
+  pa.latent = latent;
+  pa.g_buf = g_buf;
+  pa.t_buf = t_buf;
+  pa.r_buf = r_buf;
+  pa.dpre_buf = ptr<float>(d, BD_DPRE_BUF);
+  pa.dg_buf = dg_buf;
+  pa.part = ptr<float>(d, BD_PART);
+  pa.dalpha_part = ptr<float>(d, BD_DALPHA_PART);
+  pa.consts = ptr<float>(d, BD_CONSTS);
+  pa.gpart = ptr<float>(d, BD_GPART);
+  pa.dx = ptr<float>(d, BD_DX);
+  if (pa.dx != nullptr)
     transpose_kernel<<<blocks_for((long long)n * n), kThreads, 0, stream>>>(L.m, mt, n);
-  bwd_pre_kernel<<<batch, kThreads, (size_t)smem_pre, stream>>>(
-      x, L, n, ghost, dy, dz, ptr<const float>(d, BD_WP), latent, g_buf, t_buf, r_buf,
-      dpre_buf, part, dalpha_part);
-  bwd_consts_kernel<<<n_blocks, kThreads, 0, stream>>>(part, L, ghost, n, consts, gpart);
+  err = run_passes(L, pa, smem, stream);
+  if (err != cudaSuccess) return (int)err;
   bwd_reduce_kernel<<<1, kThreads, sizeof(float) * kThreads, stream>>>(
-      gpart, n_blocks, dalpha_part, batch, L, ptr<float>(d, BD_DGAMMA), ptr<float>(d, BD_DBETA),
-      ptr<float>(d, BD_DB), ptr<float>(d, BD_DGAMMA_RES), ptr<float>(d, BD_DBETA_RES),
-      ptr<float>(d, BD_DB_RES), ptr<float>(d, BD_DALPHA), dz, latent, ptr<float>(d, BD_DBP));
-  bwd_dx_kernel<<<batch, kThreads, (size_t)smem_dx, stream>>>(L, n, ghost, consts, t_buf, r_buf,
-                                                              dpre_buf, dg_buf, mt, dx);
+      pa.gpart, n_blocks, pa.dalpha_part, batch, L, ptr<float>(d, BD_DGAMMA),
+      ptr<float>(d, BD_DBETA), ptr<float>(d, BD_DB), ptr<float>(d, BD_DGAMMA_RES),
+      ptr<float>(d, BD_DBETA_RES), ptr<float>(d, BD_DB_RES), ptr<float>(d, BD_DALPHA), dz, latent,
+      ptr<float>(d, BD_DBP));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -1221,7 +1511,7 @@ int run_backward(const long long* d, bool top, cudaStream_t stream) {
   }
   // K4: dwp = sum over windows of y_flat^T dz.
   if (err == cudaSuccess && top) {
-    Product pp{PF_ROWS, ptr<const float>(d, BD_Y_TOP), dz, n * co, latent, batch, 1};
+    Product pp{PF_ROWS, ptr<const float>(d, BD_Y), dz, n * co, latent, batch, 1};
     err = run_product(pp, (int)d[BD_SPLITS_WP], prod_buf, ptr<float>(d, BD_DWP), stream);
   }
   return (int)err;
@@ -1258,7 +1548,7 @@ int stse_train_forward(const long long* desc, void* stream_ptr) {
     float* act = ptr<float>(row, FL_ACT);
     float* stats = ptr<float>(row, FL_STATS);
     L.stats = stats;
-    const long long smem_pre = layer_smem(L, n, latent, last).fwd;
+    const long long smem_pre = layer_smem(L, n).fwd;
     const long long smem_apply = sizeof(float) * kLatentChunk * kThreads;
     cudaError_t err = allow_smem((const void*)fwd_pre_kernel, smem_pre);
     if (err != cudaSuccess) return (int)err;
@@ -1307,14 +1597,42 @@ int stse_train_product(const long long* d, void* stream) {
                           (cudaStream_t)stream);
 }
 
-// K3: one lower layer's backward (desc: BD_COUNT fields, BD_DY set, BD_DZ 0).
+// K3: one lower layer's backward (desc: BD_COUNT fields, BD_Y and BD_DY set, BD_DZ 0).
 int stse_train_layer_backward(const long long* desc, void* stream) {
   return run_backward(desc, false, (cudaStream_t)stream);
 }
 
-// K4: the top layer's backward with the projector's (BD_DZ, BD_WP, BD_Y_TOP set).
+// K4: the top layer's backward with the projector's (BD_DZ, BD_WP, BD_Y set).
 int stse_train_top_backward(const long long* desc, void* stream) {
   return run_backward(desc, true, (cudaStream_t)stream);
+}
+
+// The per-window passes of a layer of C_in ci, C_out co on n nodes, for
+// checks and reports: out = (bwd_pre's windows a block, its shared bytes a
+// block, its blocks an SM; bwd_dx's shared bytes a block, its blocks an
+// SM), the blocks an SM as cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// gives them on the current device.
+int stse_train_pass_occupancy(int n, int ci, int co, int* out) {
+  if (n < 1 || ci < 1 || co < 1) return (int)cudaErrorInvalidValue;
+  Layer L;
+  L.ci = ci;
+  L.co = co;
+  const LayerSmem smem = layer_smem(L, n);
+  cudaError_t err = allow_smem((const void*)bwd_pre_kernel, smem.pre);
+  if (err == cudaSuccess) err = allow_smem((const void*)bwd_dx_kernel, smem.dx);
+  int pre = 0, dx = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&pre, bwd_pre_kernel, kThreads,
+                                                        (size_t)smem.pre);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&dx, bwd_dx_kernel, kThreads,
+                                                        (size_t)smem.dx);
+  out[0] = pre_windows(ci);
+  out[1] = (int)smem.pre;
+  out[2] = pre;
+  out[3] = (int)smem.dx;
+  out[4] = dx;
+  return (int)err;
 }
 
 }  // extern "C"

@@ -31,9 +31,10 @@ Dispatch, as for K1: a CUDA tensor launches the kernels or raises; a CPU
 tensor takes the plain PyTorch versions beside them (`ghost_forward_reference`,
 and autograd through `ghost_layer_reference` for the backward).
 
-What bounds the kernels on an H100: fp32 operations, and the bytes of the
-batch-reduction products, which run on the tensor cores (see `work`,
-`products` and the source's header).
+What bounds the kernels on an H100: K2's fp32 operations; K3, K4 and K5
+run every product (the per-window passes' and the batch reductions') as
+3xTF32 on the tensor cores (see `work`, `products` and the source's
+header).
 """
 
 from __future__ import annotations
@@ -76,7 +77,7 @@ _FWD_HEADER = ("n_layers", "batch", "n_nodes", "ghost", "latent", "x", "wp", "bp
 _FWD_LAYER = ("ci", "co", "identity", "m", "w", "b", "gamma", "beta", "w_res", "b_res",
               "gamma_res", "beta_res", "alpha", "act", "stats", "sums")
 _BWD = ("batch", "n_nodes", "ghost", "ci", "co", "identity", "latent", "x", "dy", "dz", "wp",
-        "y_top", "m", "w", "b", "gamma", "beta", "w_res", "b_res", "gamma_res", "beta_res",
+        "y", "m", "w", "b", "gamma", "beta", "w_res", "b_res", "gamma_res", "beta_res",
         "alpha", "stats", "dm", "dw", "db", "dgamma", "dbeta", "dw_res", "db_res",
         "dgamma_res", "dbeta_res", "dalpha", "dx", "dwp", "dbp", "mt", "g_buf", "t_buf",
         "r_buf", "dpre_buf", "dg_buf", "part", "dalpha_part", "consts", "gpart", "prod_buf",
@@ -471,13 +472,13 @@ def partials(*products: Tuple[int, int]) -> int:
     return max([1] + [s * size for s, size in products if s > 1])
 
 
-def launch_backward(lib, x: torch.Tensor, stats: torch.Tensor, lay: LayerOps,
+def launch_backward(lib, x: torch.Tensor, y: torch.Tensor, stats: torch.Tensor, lay: LayerOps,
                     ghost_size: int, need_dx: bool, dy: Optional[torch.Tensor] = None,
-                    dz: Optional[torch.Tensor] = None, y_top: Optional[torch.Tensor] = None,
-                    wp: Optional[torch.Tensor] = None):
-    """Run K3 (dy given) or K4 (dz, y_top and wp given) from `lib`. Returns
-    (LayerOps of gradients, dwp, dbp, dx); dwp and dbp are None for K3 and
-    dx is None unless need_dx."""
+                    dz: Optional[torch.Tensor] = None, wp: Optional[torch.Tensor] = None):
+    """Run K3 (dy given) or K4 (dz and wp given) from `lib` on the layer's
+    input x and output y (K2's: the backward takes PReLU's branch from its
+    sign). Returns (LayerOps of gradients, dwp, dbp, dx); dwp and dbp are
+    None for K3 and dx is None unless need_dx."""
     b, n, ci = x.shape
     dev = x.device
     top = dz is not None
@@ -485,13 +486,13 @@ def launch_backward(lib, x: torch.Tensor, stats: torch.Tensor, lay: LayerOps,
     if b % ghost_size or b < 1:
         raise ValueError(f"batch {b} must be a positive multiple of ghost_size {ghost_size}")
     x = _checked(x, dev, (b, n, ci), "x")
+    y = _checked(y, dev, (b, n, co), "y")
     lay = _layer_operands(lay, n, dev)
     stats = _checked(stats, dev, (b // ghost_size, 4, co), "stats")
     latent = 0
     if top:
         latent = dz.shape[1]
         dz = _checked(dz, dev, (b, latent), "dz")
-        y_top = _checked(y_top, dev, (b, n, co), "y_top")
         wp = _checked(wp, dev, (n * co, latent), "wp")
     else:
         dy = _checked(dy, dev, (b, n, co), "dy")
@@ -517,7 +518,7 @@ def launch_backward(lib, x: torch.Tensor, stats: torch.Tensor, lay: LayerOps,
         gpart=torch.empty((nb * 6 * co,), **f32), prod_buf=torch.empty((prod,), **f32))
     fields = dict(
         batch=b, n_nodes=n, ghost=ghost_size, ci=ci, co=co, identity=int(lay.identity),
-        latent=latent, x=_ptr(x), dy=_ptr(dy), dz=_ptr(dz), wp=_ptr(wp), y_top=_ptr(y_top),
+        latent=latent, x=_ptr(x), dy=_ptr(dy), dz=_ptr(dz), wp=_ptr(wp), y=_ptr(y),
         stats=_ptr(stats), dx=_ptr(dx), dwp=_ptr(dwp), dbp=_ptr(dbp),
         **{f: _ptr(getattr(lay, f)) for f in LayerOps._fields},
         **{"d" + f: _ptr(getattr(grads, f)) for f in LayerOps._fields},
@@ -556,6 +557,24 @@ def launch_product(lib, form: str, a: torch.Tensor, b: torch.Tensor,
                   splits=splits, part=_ptr(part), out=_ptr(out))
     _run(lib, "stse_train_product", np.asarray([fields[f] for f in _PRODUCT], np.int64), dev)
     return out
+
+
+def pass_occupancy(lib, n: int, ci: int, co: int) -> dict:
+    """K3/K4/K5's per-window passes for a layer of C_in ci and C_out co on n
+    nodes, from `lib`: bwd_pre's windows a block, and each pass's shared
+    bytes a block and blocks an SM on the current device
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`)."""
+    fn = lib.stse_train_pass_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = np.zeros(5, np.int32)
+    err = fn(n, ci, co, out.ctypes.data)
+    if err != 0:
+        raise RuntimeError(f"stse_train_pass_occupancy failed: "
+                           f"{lib.stse_train_error_string(err).decode()}")
+    return dict(bwd_pre_windows_per_block=int(out[0]), bwd_pre_smem_bytes=int(out[1]),
+                bwd_pre_blocks_per_sm=int(out[2]), bwd_dx_smem_bytes=int(out[3]),
+                bwd_dx_blocks_per_sm=int(out[4]))
 
 
 def mono_chunk(batch: int, ghost_size: int, chunk_windows: Optional[int] = None) -> int:
@@ -667,13 +686,14 @@ def ghost_forward(x: torch.Tensor, ops: EncoderOps, ghost_size: int):
     return ghost_forward_reference(x, ops, ghost_size)
 
 
-def layer_backward(x: torch.Tensor, dy: torch.Tensor, lay: LayerOps, stats: torch.Tensor,
-                   ghost_size: int, need_dx: bool = True):
-    """K3: one lower layer's backward from its saved input and block
-    statistics. Returns (LayerOps of gradients, dx or None)."""
+def layer_backward(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor, lay: LayerOps,
+                   stats: torch.Tensor, ghost_size: int, need_dx: bool = True):
+    """K3: one lower layer's backward from its saved input x, output y and
+    block statistics. Returns (LayerOps of gradients, dx or None). The
+    plain version recomputes y, bit for bit what the plain forward gave."""
     if _route(x):
         with torch.no_grad():
-            grads, _, _, dx = launch_backward(_library(), x, stats, lay, ghost_size, need_dx,
+            grads, _, _, dx = launch_backward(_library(), x, y, stats, lay, ghost_size, need_dx,
                                               dy=dy)
         layer_backward_launches.value += 1
         return grads, dx
@@ -687,8 +707,8 @@ def top_backward(x: torch.Tensor, y_top: torch.Tensor, dz: torch.Tensor, lay: La
     of gradients, dwp, dbp, dx or None)."""
     if _route(x):
         with torch.no_grad():
-            out = launch_backward(_library(), x, stats, lay, ghost_size, need_dx, dz=dz,
-                                  y_top=y_top, wp=wp)
+            out = launch_backward(_library(), x, y_top, stats, lay, ghost_size, need_dx, dz=dz,
+                                  wp=wp)
         top_backward_launches.value += 1
         return out
     return top_backward_reference(x, dz, lay, wp, bp, ghost_size, need_dx)
@@ -720,8 +740,8 @@ def split_backward(x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps,
                                                stats[top], ops.wp, ops.bp, ghost_size,
                                                need_dx=top > 0)
     for l in reversed(range(top)):
-        d_layers[l], dy = layer_backward(x_in[l], dy, ops.layers[l], stats[l], ghost_size,
-                                         need_dx=l > 0)
+        d_layers[l], dy = layer_backward(x_in[l], acts[l], dy, ops.layers[l], stats[l],
+                                         ghost_size, need_dx=l > 0)
     return EncoderOps(tuple(d_layers), dwp, dbp)
 
 
@@ -827,10 +847,13 @@ def fused_stse_apply(model, x: torch.Tensor, ghost_size: int = 32, momentum: flo
 
 
 def work(ops: EncoderOps, batch: int, ghost_size: int) -> dict:
-    """(FLOPs, bytes, product FLOPs) that K2, each K3 layer and K4 need for
-    `batch` windows: every input read once and every output written once;
-    the last is the share of the FLOPs in the batch-reduction products
-    (`products`), which run as 3xTF32 on the tensor cores (K2 has none). K2 reads
+    """(FLOPs, bytes, product FLOPs, per-window FLOPs) that K2, each K3
+    layer and K4 need for `batch` windows: every input read once and every
+    output written once. The third is the share of the FLOPs in the
+    batch-reduction products (`products`), the fourth the rest of K3's, K4's
+    and K5's (graph contractions, dense products, dy = dz wp^T): both run as
+    3xTF32 on the tensor cores. K2's per-window FLOPs run outside them, so
+    its last two are 0. K2 reads
     x and the weights and writes z, the activations, block statistics and
     sums. A layer's backward reads x, dy (K4: dz, its output and wp) and
     the weights, and writes dx (not for layer 0), the weight gradients.
@@ -873,13 +896,14 @@ def work(ops: EncoderOps, batch: int, ghost_size: int) -> dict:
         else:
             nbytes += 4.0 * batch * n * co  # dy
         key = "K4" if top else f"K3_layer{i}"
-        out[key] = (flops, nbytes, prod[key])
+        out[key] = (flops, nbytes, prod[key], flops - prod[key])
     c_h = ops.layers[-1].w.shape[1]
     fwd_flops += batch * 2.0 * n * c_h * latent
     fwd_bytes += 4.0 * (n * c_h * latent + latent + batch * latent)
-    out["K2"] = (fwd_flops, fwd_bytes, 0.0)
+    out["K2"] = (fwd_flops, fwd_bytes, 0.0, 0.0)
     proj = n * c_h * latent + latent
-    out["K5"] = (mono_flops + batch * 2.0 * 2.0 * n * c_h * latent,
-                 4.0 * (batch * n * ops.layers[0].w.shape[0] + batch * latent
-                        + 2 * (mono_weights + proj)), sum(prod.values()))
+    k5_flops = mono_flops + batch * 2.0 * 2.0 * n * c_h * latent
+    out["K5"] = (k5_flops, 4.0 * (batch * n * ops.layers[0].w.shape[0] + batch * latent
+                                  + 2 * (mono_weights + proj)),
+                 sum(prod.values()), k5_flops - sum(prod.values()))
     return out

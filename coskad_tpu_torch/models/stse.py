@@ -7,7 +7,8 @@ the projector flattens the hidden state in (T, V, C) order.
 The eval forward takes one of two routes by the input's device:
   * CUDA: the fused encoder kernel (`kernels/stse_fused.py`) on weights
     folded once and cached until a parameter or buffer changes, then the
-    projector as one matmul;
+    projector as one matmul; the kernel has no backward, so this route
+    raises where autograd would record it (`eval_uses_kernel`);
   * CPU: the plain module path, layer by layer.
 The train forward (`train=True`) is the module path with live BatchNorm,
 which updates the running statistics in place (see `stsgcn.py`), or with
@@ -17,13 +18,29 @@ K2-K4 kernels is `kernels/stse_train.py::fused_stse_apply`.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Iterable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..kernels import stse_fused
 from .stsgcn import _DROPOUT, Dense, STSGCNStack
+
+
+def eval_uses_kernel(on_cuda: bool, tensors: Iterable[torch.Tensor]) -> bool:
+    """The eval forward's route: True for K1 (x on the card), False for the
+    plain module path (x on the CPU). K1 folds detached weights and writes a
+    fresh tensor, so its latent carries no gradient; on the card, a call
+    that autograd would record (grad mode on and x or a parameter requiring
+    grad) raises rather than return a latent cut from the graph."""
+    if not on_cuda:
+        return False
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "STSE.forward(train=False) on a CUDA tensor runs the eval kernel, which has no "
+            "backward: call it under torch.no_grad() or torch.inference_mode(), or use "
+            "STSE.encode for a differentiable latent")
+    return True
 
 
 class LinearProjector(Dense):
@@ -100,7 +117,7 @@ class STSE(nn.Module):
                 frozen_bn: bool = False) -> torch.Tensor:
         if train:
             return self.encode(x, train=True, frozen_bn=frozen_bn)[0]
-        if x.is_cuda:
+        if eval_uses_kernel(x.is_cuda, [x, *self.parameters()]):
             folded, packed = self.folded()
             return stse_fused.fused_stse_forward(x.contiguous(), folded, packed)
         return self.encode(x)[0]

@@ -160,6 +160,12 @@ cudaError_t cudaFuncSetAttribute(K, int, int) {
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// Blocks run one at a time here.
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, K, int, size_t) {
+  *blocks = 1;
+  return cudaSuccess;
+}
 
 template <class K, class... A>
 void emu_launch(K kernel, dim3 grid, int threads, size_t smem_bytes, A... args) {

@@ -225,3 +225,9 @@ def test_work_counts_flagship_flops():
     assert w["K3_layer1"][2] == 2 * 2 * rows * 32 * 16 + 2 * n * n * 2048 * 32
     assert w["K4"][2] == 2 * 2 * rows * 32 * 64 + 2 * n * n * 2048 * 32 + 2 * 2048 * n * 64 * 16
     assert w["K2"][2] == 0 and w["K5"][2] == sum(w[k][2] for k in w if k != "K5")
+    # the per-window passes' share, on the tensor cores in K3, K4 and K5: the
+    # rest of each backward's FLOPs; K2's run outside them
+    assert w["K4"][3] == 2048 * (2 * 2 * n * n * 32 + 4 * mm + 2 * n * 64 * 16)
+    for k in ("K3_layer0", "K3_layer1", "K3_layer2", "K4", "K5"):
+        assert w[k][2] + w[k][3] == w[k][0]
+    assert w["K2"][3] == 0 and w["K5"][3] == sum(w[k][3] for k in w if k != "K5")

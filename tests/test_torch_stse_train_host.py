@@ -93,6 +93,15 @@ CASES = {
     # last one ragged; 1,720 rows, so dW's reduction is split over 3 blocks
     "tiled": dict(input_dim=2, channels=(16,), hidden=16, t=5, v=43, latent=4, batch=8,
                   ghost=4),
+    # bwd_pre packs 4 windows of a 2-channel layer (2 of a 16-channel one) a
+    # block: 10 windows leave a last block of 2; 35 nodes, 3 16-node tiles
+    "ragged_windows": dict(input_dim=2, channels=(16,), hidden=8, t=5, v=7, latent=4,
+                           batch=10, ghost=5),
+    # C_in 3 (4 windows, 12 of 16 padded columns), C_in 40 > 32 (bwd_dx's
+    # second column chunk reads dt and dr back), C_out 48 (6 channel tiles:
+    # two warps idle), latent 20 > 16 (K4's dy over 3 k-steps, 5 row blocks)
+    "wide": dict(input_dim=3, channels=(40,), hidden=48, t=3, v=4, latent=20, batch=8,
+                 ghost=4),
 }
 
 
@@ -117,8 +126,8 @@ def test_host_run_of_cuda_source_matches_plain(host_lib, case):
     top = len(ops.layers) - 1
     x_top = x if top == 0 else acts[top - 1]
     grads, dwp, dbp, dy = stse_train.launch_backward(
-        host_lib, x_top, stats[top], ops.layers[top], ghost, need_dx=top > 0, dz=dz,
-        y_top=acts[top], wp=ops.wp)
+        host_lib, x_top, acts[top], stats[top], ops.layers[top], ghost, need_dx=top > 0, dz=dz,
+        wp=ops.wp)
     want, dwp_r, dbp_r, dy_r = stse_train.top_backward_reference(
         x_top.double(), dz.double(), ops64.layers[top], ops64.wp, ops64.bp, ghost,
         need_dx=top > 0)
@@ -129,8 +138,9 @@ def test_host_run_of_cuda_source_matches_plain(host_lib, case):
         _close_grad(dy, dy_r.float(), "dx of the top layer")
     for l in reversed(range(top)):
         x_l = x if l == 0 else acts[l - 1]
-        g, _, _, dx = stse_train.launch_backward(host_lib, x_l, stats[l], ops.layers[l], ghost,
-                                                 need_dx=l > 0, dy=dy_r.float())
+        g, _, _, dx = stse_train.launch_backward(host_lib, x_l, acts[l], stats[l],
+                                                 ops.layers[l], ghost, need_dx=l > 0,
+                                                 dy=dy_r.float())
         w, dx_r = stse_train.layer_backward_reference(x_l.double(), dy_r, ops64.layers[l],
                                                       ghost, need_dx=l > 0)
         layer_grads.append((l, g, w))
@@ -185,6 +195,25 @@ def test_host_run_of_mono_backward_matches_plain(host_lib, case):
             assert (a is None) == (e is None), (l, f)
             if a is not None:
                 _close_grad(a, e.float(), f"layer {l} d{f}")
+
+
+@pytest.mark.parametrize("ci, co, windows", [(2, 32, 4), (32, 16, 1), (16, 32, 2), (32, 64, 1)])
+def test_pass_shared_memory_at_flagship_layers(host_lib, ci, co, windows):
+    """bwd_pre's windows a block and both passes' shared bytes at the
+    flagship's layers (216 nodes): bwd_dx keeps only dg, W^T and W_res^T
+    and the constants, so two blocks of the top layer fit an SM's 228 KB
+    (each block also reserves 1 KB). The blocks an SM come from the card;
+    the host emulation says 1."""
+    occ = stse_train.pass_occupancy(host_lib, 216, ci, co)
+    assert occ["bwd_pre_windows_per_block"] == windows
+    rows, pad = 224, lambda v: -(-v // 8) * 8
+    ldx = pad(windows * ci) + 4
+    pre = 2 * rows * ldx + 2 * ci * (pad(co) + 8) + 3 * max(64, pad(co)) + 8 * 32 * 6 + 256
+    assert occ["bwd_pre_smem_bytes"] == 4 * pre
+    dx = rows * (pad(ci) + 4) + 2 * co * (pad(ci) + 8) + 6 * co
+    assert occ["bwd_dx_smem_bytes"] == 4 * dx
+    assert 2 * (occ["bwd_dx_smem_bytes"] + 1024) <= 228 * 1024
+    assert occ["bwd_pre_blocks_per_sm"] == occ["bwd_dx_blocks_per_sm"] == 1
 
 
 def test_launch_refuses_mismatched_inputs(host_lib):
