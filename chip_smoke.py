@@ -17,11 +17,13 @@ Phases, each printing a line before the last:
      and K4 (the top layer's backward with the projector's) against their
      plain versions on the card: full width at B=2048 ghost 64, B=96 ghost
      32, a one-layer identity-residual stack, a stack whose last layer
-     narrows with 35 nodes. Times each kernel and its plain version; K4
-     and K3 launched twice on the same inputs give the same bits; per
+     narrows with 35 nodes. Times each kernel and its plain version; K2,
+     K4 and K3 launched twice on the same inputs give the same bits; per
      flagship layer the device ms of the per-window passes bwd_pre and
      bwd_dx (a profiler trace of one K3/K4 call) and each pass's shared
-     bytes and blocks an SM (the top layer's bwd_dx needs two). Product
+     bytes and blocks an SM (the top layer's bwd_dx needs two); likewise
+     K2's passes fwd_pre, fwd_stats, fwd_sums, fwd_apply and the
+     projector's (a trace of one K2 call). Product
      check: each of the 13 batch-reduction products of a step (dW, dW_res,
      dM a layer, dwp), alone through stse_train.product, at B=2048 and at
      K5's 128-window chunk, against float64 einsum on the card, with its
@@ -125,9 +127,10 @@ SCORE_TOL = dict(rtol=1e-3, atol=1e-6)  # scores square latent differences
 DEVICE = "cuda"
 # csrc/stse_train.cu's kernels, as the profiler names them: K2-K4's device time
 # in an epoch trace
-TRAIN_KERNELS = ("fwd_pre_kernel", "fwd_stats_kernel", "fwd_sums_kernel", "fwd_apply_kernel",
-                 "transpose_kernel", "projector_dy_kernel", "bwd_pre_kernel", "bwd_consts_kernel",
-                 "bwd_reduce_kernel", "bwd_dx_kernel", "product_rows_kernel",
+FORWARD_PASSES = ("fwd_pre_kernel", "fwd_stats_kernel", "fwd_sums_kernel", "fwd_apply_kernel",
+                  "projector_z_kernel", "projector_sum_kernel")
+TRAIN_KERNELS = (*FORWARD_PASSES, "transpose_kernel", "projector_dy_kernel", "bwd_pre_kernel",
+                 "bwd_consts_kernel", "bwd_reduce_kernel", "bwd_dx_kernel", "product_rows_kernel",
                  "product_windows_kernel", "sum_splits_kernel")
 TRAIN_CLIPS, VAL_CLIPS = 100, 20  # x 2 actors x 200 windows: 40,000 and 8,000 windows
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
@@ -476,26 +479,40 @@ def device_profile(fn):
                 train_kernels_ms=sum(v for k, v in by_name.items() if k in TRAIN_KERNELS))
 
 
+def kernel_name(e) -> str:
+    """A profiler event's kernel name, namespace and arguments cut off."""
+    name = e.name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+    return name[len("void "):] if name.startswith("void ") else name
+
+
 def ms_by_kernel(events) -> dict:
-    """Device ms of profiler events summed by kernel name (namespace and
-    arguments cut off)."""
+    """Device ms of profiler events summed by kernel name."""
     out = {}
     for e in events:
-        name = e.name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
-        name = name[len("void "):] if name.startswith("void ") else name
-        out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+        out[kernel_name(e)] = out.get(kernel_name(e), 0.0) + e.time_range.elapsed_us() / 1e3
     return out
 
 
-def traced_ms(fn) -> dict:
-    """Device ms by kernel name of one call of fn, from torch.profiler."""
+def traced_launches(fn) -> list:
+    """(kernel name, device ms) of each launch in one call of fn, in the
+    order they ran, from torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return ms_by_kernel(e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    return [(kernel_name(e), e.time_range.elapsed_us() / 1e3) for e in events]
+
+
+def traced_ms(fn) -> dict:
+    """Device ms by kernel name of one call of fn, from torch.profiler."""
+    out = {}
+    for name, ms in traced_launches(fn):
+        out[name] = out.get(name, 0.0) + ms
+    return out
 
 
 def stage_breakdown(trainer, state, ds):
@@ -680,6 +697,7 @@ def phase_train_kernels(card):
                 bad.append(f"{k} {name} err {err:.3e} scale {float(b.abs().max()):.3e}")
         check(not bad, f"stse_train backward {label}: " + "; ".join(bad))
         results.append(dict(case=label, batch=batch, ghost=ghost, forward_max_abs_err=fwd_err,
+                            forward_max_abs_err_by_output=fwd,
                             backward_max_abs_err=max(e for _, _, a, b in pairs
                                                      for e in [float((a - b).abs().max())])))
         if label == timed[0]:
@@ -687,6 +705,7 @@ def phase_train_kernels(card):
             work = st.work(ops, batch, ghost)
             repeat = repeat_bits(st, ops, x, dz, acts, stats, ghost)
             passes = pass_report(st, ops, x, dz, acts, stats, ghost)
+            forward = forward_report(st, ops, x, ghost)
             timed_ops = ops
     products = phase_products(card, timed_ops)
     records = []
@@ -716,12 +735,14 @@ def phase_train_kernels(card):
             # before the per-window passes ran on them
             bound_fp32_window_ms=products_bound(flops, sum(work[k][2] for k in parts),
                                                 nbytes)[0],
+            repeats_bit_for_bit=repeat[key],
             **(dict(product_ms=sum(r["ms"] for r in own),
                     product_library_ms=sum(r["library_ms"] for r in own),
-                    product_bound_ms=sum(r["bound_ms"] for r in own),
-                    repeats_bit_for_bit=repeat[key]) if own else {})))
+                    product_bound_ms=sum(r["bound_ms"] for r in own)) if own else {})))
     for r in records:
-        if r["name"] != "stse_train_forward":
+        if r["name"] == "stse_train_forward":
+            r["passes"] = forward
+        else:
             r["passes"] = {k: v for k, v in passes.items()
                            if v["kernel"] == ("K4" if "top" in r["name"] else "K3")}
     print("train kernel check: " + json.dumps(dict(
@@ -734,15 +755,19 @@ def phase_train_kernels(card):
     print("per-window passes (one K3/K4 call each, torch.profiler; blocks an SM by "
           "cudaOccupancyMaxActiveBlocksPerMultiprocessor): " + json.dumps(dict(card=card, **{
               k: {f: v[f] for f in v if f != "traced_ms"} for k, v in passes.items()})))
+    print("forward passes (one K2 call, torch.profiler; blocks an SM by "
+          "cudaOccupancyMaxActiveBlocksPerMultiprocessor): " + json.dumps(dict(card=card,
+                                                                               **forward)))
     return records, products
 
 
 def repeat_bits(st, ops, x, dz, acts, stats, ghost):
-    """K4 and K3 (each layer) launched twice on the same inputs give the
+    """K2, K4 and K3 (each layer) launched twice on the same inputs give the
     same bits: no sum depends on the order blocks run in."""
     top = len(ops.layers) - 1
     x_of = [x] + list(acts[:-1])
     runs = {
+        "K2": lambda: st.ghost_forward(x, ops, ghost),
         "K4": lambda: st.top_backward(x_of[top], acts[top], dz, ops.layers[top], stats[top],
                                       ops.wp, ops.bp, ghost, need_dx=top > 0),
         **{f"K3_layer{l}": (lambda l=l: st.layer_backward(x_of[l], acts[l], acts[l],
@@ -755,7 +780,8 @@ def repeat_bits(st, ops, x, dz, acts, stats, ghost):
         same = all(torch_equal(a, b) for a, b in zip(first, second))
         check(same, f"{key}: two launches on the same inputs differ")
         out[key] = same
-    return dict(K4=out["K4"], K3=all(v for k, v in out.items() if k.startswith("K3")))
+    return dict(K2=out["K2"], K4=out["K4"],
+                K3=all(v for k, v in out.items() if k.startswith("K3")))
 
 
 def pass_report(st, ops, x, dz, acts, stats, ghost):
@@ -781,19 +807,52 @@ def pass_report(st, ops, x, dz, acts, stats, ghost):
         torch.cuda.synchronize()
         ms = traced_ms(fn)
         ci, co = lay.w.shape
+        occ = st.pass_occupancy(lib, x.shape[1], ci, co)
         out[f"layer{l}"] = dict(
             kernel="K4" if l == top else "K3", ci=ci, co=co, bwd_pre_ms=ms.get("bwd_pre_kernel"),
             bwd_dx_ms=ms.get("bwd_dx_kernel"), projector_dy_ms=ms.get("projector_dy_kernel"),
-            traced_ms=ms, **st.pass_occupancy(lib, x.shape[1], ci, co))
+            traced_ms=ms, **{k: v for k, v in occ.items() if k.startswith("bwd")})
     check(out[f"layer{top}"]["bwd_dx_blocks_per_sm"] >= 2,
           f"the top layer's bwd_dx runs {out[f'layer{top}']['bwd_dx_blocks_per_sm']} block(s) an "
           "SM, not 2")
     return out
 
 
+def forward_report(st, ops, x, ghost):
+    """Per flagship layer: the device ms of each of K2's passes in one K2
+    call, from a torch.profiler trace of it after a warm-up call (a pass's
+    l-th launch is layer l's; the projector's kernels are the top layer's),
+    and each pass's shared bytes a block and blocks an SM (the forward
+    fields of stse_train.pass_occupancy)."""
+    import torch
+
+    fn = lambda: st.ghost_forward(x, ops, ghost)
+    fn()
+    torch.cuda.synchronize()
+    launches = traced_launches(fn)
+    top = len(ops.layers) - 1
+    out = {f"layer{l}": {} for l in range(top + 1)}
+    seen = {}
+    for name, ms in launches:
+        l = top if name.startswith("projector") else seen.get(name, 0)
+        seen[name] = seen.get(name, 0) + 1
+        layer = out.setdefault(f"layer{l}", {})
+        key = name.replace("_kernel", "_ms")
+        layer[key] = layer.get(key, 0.0) + ms
+    lib = st._library()
+    for l, lay in enumerate(ops.layers):
+        ci, co = lay.w.shape
+        occ = st.pass_occupancy(lib, x.shape[1], ci, co)
+        keep = ("fwd", "projector") if l == top else ("fwd",)
+        out[f"layer{l}"].update(ci=ci, co=co, **{k: v for k, v in occ.items()
+                                                 if k.startswith(keep)})
+    out["k2_traced_ms"] = sum(ms for _, ms in launches)
+    return out
+
+
 def flat_tensors(out) -> list:
-    """A backward wrapper's returns, gradients of LayerOps spread out."""
-    return [t for item in out for t in (item if isinstance(item, tuple) else (item,))]
+    """A wrapper's returns, lists and the gradients of LayerOps spread out."""
+    return [t for item in out for t in (item if isinstance(item, (tuple, list)) else (item,))]
 
 
 def torch_equal(a, b) -> bool:
@@ -1339,8 +1398,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("kernels", "products"), default=None,
-                    help="run only the environment and kernel phases, or only the "
-                         "product check (no result line)")
+                    help="run only the environment and kernel phases, or only the product "
+                         "check (no result line)")
     args = ap.parse_args(argv)
     card, build_s = phase_environment()
     import torch

@@ -20,19 +20,22 @@
 // projector z = y_flat wp + bp, y flattened node-major (the flax kernel's
 // (t, v, c) row order).
 //
-// What bounds it on an H100: fp32 operations. At the flagship width a
-// window needs ~10.8 MFLOP forward (the graph contraction 2 N^2 C_in is 70%
-// of it) and ~2-3x that backward, against ~0.5 MB of activations in and out
-// per window, ~40-60 FLOP/byte, above the fp32 ridge (~20 FLOP/byte at
-// 67 TFLOP/s over 3.35 TB/s). The design is the simple one, right first:
+// What bounds it on an H100: at the flagship width a window needs ~10.8
+// MFLOP forward (the graph contraction 2 N^2 C_in is 70% of it) and ~2-3x
+// that backward, against ~0.5 MB of activations in and out per window,
+// ~40-60 FLOP/byte: above the fp32 ridge (~20 FLOP/byte at 67 TFLOP/s over
+// 3.35 TB/s), so every product runs as 3xTF32 on the tensor cores (three
+// TF32 products for each fp32 one, ~fp32 accuracy), where the FLOPs take
+// less time than the bytes. The design is the simple one, right first:
 //   * A ghost block (64 windows x 216 nodes x 64 channels, 3.5 MB) does not
 //     fit in an SM's 227 KB, so ghost statistics cross thread blocks, and
 //     Hopper's blocks run in no order (the TPU accumulated across its
-//     sequential grid). Each layer therefore runs as passes: one block per
-//     window computes g, t, r and per-window channel sums; one block per
-//     ghost block turns them into (mean, inv_std); a final per-window pass
-//     normalizes. No float atomics: every sum is taken in a fixed order, so
-//     the results repeat bit for bit from run to run.
+//     sequential grid). Each layer therefore runs as passes: a block of one
+//     to four windows computes g, t, r and per-window channel moments; one
+//     block per ghost block turns them into (mean, inv_std); an elementwise
+//     pass normalizes; on the top layer a product kernel projects. No float
+//     atomics: every sum is taken in a fixed order, so the results repeat
+//     bit for bit from run to run.
 //   * The backward follows the same shape: per window the PReLU backward
 //     and the sums s1 = sum dpre, s2 = sum dpre t (and dpre r); per ghost
 //     block the affine constants of d_raw = a dpre + b raw + c (the TPU
@@ -51,11 +54,11 @@
 //   * Intermediates (t, r, dpre, g, dg) go through device memory. That
 //     costs bytes, not operations, which is the right trade for a first
 //     version; keeping them on chip is later work.
-//   * K2's per-window passes are scalar fp32 code. The backward's (bwd_pre,
-//     K4's projector_dy, bwd_dx) run their products as 3xTF32 mma.sync too,
-//     which leaves them bound by their scratch traffic (~1.6 GB a pass a
-//     flagship step); see "the per-window passes" below. No TMA or wgmma:
-//     those come with the PRs that make them fast.
+//   * The per-window passes (K2's fwd_pre and projector_z, the backward's
+//     bwd_pre, projector_dy and bwd_dx) run their products as 3xTF32
+//     mma.sync too, which leaves them bound by their scratch traffic (~1.4-
+//     1.6 GB a pass a flagship step); see "the per-window passes" below. No
+//     TMA or wgmma: those come with the PRs that make them fast.
 //
 // K5, the mono backward, keeps nothing from the forward: it reads x, dz and
 // the operands and writes every gradient. Its function needs the fp32 work
@@ -89,13 +92,12 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kLatentChunk = 16;
 constexpr float kEps = 1e-5f;
 
 // ---- descriptor layouts (int64 arrays built by stse_train.py) ----
 enum FwdHeader {
   FH_N_LAYERS, FH_BATCH, FH_N_NODES, FH_GHOST, FH_LATENT, FH_X, FH_WP, FH_BP, FH_Z,
-  FH_T_BUF, FH_R_BUF, FH_PART, FH_BLOCK_SUMS, FH_COUNT
+  FH_T_BUF, FH_R_BUF, FH_PART, FH_BLOCK_SUMS, FH_Z_SPLITS, FH_COUNT
 };
 enum FwdLayerField {
   FL_CI, FL_CO, FL_IDENTITY, FL_M, FL_W, FL_B, FL_GAMMA, FL_BETA, FL_W_RES, FL_B_RES,
@@ -140,217 +142,12 @@ T* ptr(const long long* d, int i) {
   return reinterpret_cast<T*>(static_cast<uintptr_t>(d[i]));
 }
 
-// g[m][c] = sum_k M[k][m] x[k][c]; x and g [n][c] in shared memory, M [n][n]
-// in global memory (read through L1/L2: every block reads the same M).
-// Each thread owns a register tile of TM nodes x 4 channels, consecutive
-// threads consecutive node tiles, so the rows of M are read coalesced and
-// x is a broadcast; TM = 4 feeds 16 FMAs per 8 loads where it still keeps
-// 3/4 of the block's threads busy, else TM = 1.
-template <int TM>
-__device__ void graph_tiles(const float* xs, const float* __restrict__ M, float* gs, int n,
-                            int c) {
-  const int mt = (n + TM - 1) / TM, ct = (c + 3) / 4;
-  for (int i = threadIdx.x; i < mt * ct; i += kThreads) {
-    const int m0 = (i % mt) * TM, c0 = (i / mt) * 4;
-    const int mw = n - m0 < TM ? n - m0 : TM;
-    const int cw = c - c0 < 4 ? c - c0 : 4;
-    float acc[TM][4] = {};
-    for (int k = 0; k < n; ++k) {
-      const float* mr = M + (long long)k * n + m0;
-      const float* xr = xs + k * c + c0;
-      float mv[TM], xv[4];
-#pragma unroll
-      for (int a = 0; a < TM; ++a) mv[a] = a < mw ? mr[a] : 0.0f;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) xv[b] = b < cw ? xr[b] : 0.0f;
-#pragma unroll
-      for (int a = 0; a < TM; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(mv[a], xv[b], acc[a][b]);
-    }
-#pragma unroll
-    for (int a = 0; a < TM; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        if (a < mw && b < cw) gs[(m0 + a) * c + c0 + b] = acc[a][b];
-  }
-}
-
-__device__ void graph_contract(const float* xs, const float* __restrict__ M, float* gs, int n,
-                               int c) {
-  if (((n + 3) / 4) * ((c + 3) / 4) >= kThreads * 3 / 4)
-    graph_tiles<4>(xs, M, gs, n, c);
-  else
-    graph_tiles<1>(xs, M, gs, n, c);
-}
-
 // In-place tree sum of red[q * kThreads + tid] over tid for q < rows; the
 // caller has synchronised. Leaves the sums in red[q * kThreads].
 __device__ void block_reduce(float* red, int rows) {
   for (int s = kThreads / 2; s > 0; s >>= 1) {
     if ((int)threadIdx.x < s)
       for (int q = 0; q < rows; ++q) red[q * kThreads + threadIdx.x] += red[q * kThreads + threadIdx.x + s];
-    __syncthreads();
-  }
-}
-
-// ================= K2: forward =================
-
-// Pass (a), one block per window: g, t, r to scratch, per-window channel
-// moments [4][co] = (sum t, M2 t, sum r, M2 r), M2 the sum of squared
-// deviations from the window's own mean (two passes over the window, so a
-// channel whose variance is small against its mean keeps its digits).
-__global__ void __launch_bounds__(kThreads)
-fwd_pre_kernel(const float* __restrict__ x, Layer L, int n, float* t_buf, float* r_buf,
-               float* part) {
-  extern __shared__ __align__(16) float smem[];
-  const int ci = L.ci, co = L.co, tid = threadIdx.x, win = blockIdx.x;
-  float* xs = smem;
-  float* gs = xs + n * ci;
-  float* ws = gs + n * ci;
-  float* wrs = ws + ci * co;
-  const float* xb = x + (long long)win * n * ci;
-  for (int i = tid; i < n * ci; i += kThreads) xs[i] = xb[i];
-  for (int i = tid; i < ci * co; i += kThreads) {
-    ws[i] = L.w[i];
-    wrs[i] = L.identity ? 0.0f : L.wr[i];
-  }
-  __syncthreads();
-  graph_contract(xs, L.m, gs, n, ci);
-  __syncthreads();
-  float* tb = t_buf + (long long)win * n * co;
-  float* rb = r_buf + (long long)win * n * co;
-  for (int i = tid; i < n * co; i += kThreads) {
-    const int m = i / co, o = i - m * co;
-    float t = L.b[o];
-    for (int c = 0; c < ci; ++c) t = fmaf(gs[m * ci + c], ws[c * co + o], t);
-    float r;
-    if (L.identity) {
-      r = xs[m * ci + o];
-    } else {
-      r = L.br[o];
-      for (int c = 0; c < ci; ++c) r = fmaf(xs[m * ci + c], wrs[c * co + o], r);
-    }
-    tb[i] = t;
-    rb[i] = r;
-  }
-  __syncthreads();  // the block's own global writes are visible to it now
-  float* pw = part + (long long)win * 4 * co;
-  for (int j = tid; j < 2 * co; j += kThreads) {
-    const bool res = j >= co;
-    const int o = res ? j - co : j;
-    const float* src = res ? rb : tb;
-    float s = 0.0f;
-    for (int m = 0; m < n; ++m) s += src[m * co + o];
-    const float mean = s / (float)n;
-    float m2 = 0.0f;
-    for (int m = 0; m < n; ++m) {
-      const float d = src[m * co + o] - mean;
-      m2 = fmaf(d, d, m2);
-    }
-    pw[(res ? 2 : 0) * co + o] = s;
-    pw[(res ? 3 : 1) * co + o] = m2;
-  }
-}
-
-// Chan's combination of per-window moments over windows [w0, w0 + count):
-// the block's mean and M2 of one channel (q = 0 for t, 2 for r).
-__device__ void combine_moments(const float* __restrict__ part, long long w0, int count, int n,
-                                int co, int q, int o, float* mean, float* m2) {
-  float s = 0.0f;
-  for (int w = 0; w < count; ++w) s += part[(w0 + w) * 4 * co + q * co + o];
-  const float mu = s / ((float)count * (float)n);
-  float acc = 0.0f;
-  for (int w = 0; w < count; ++w) {
-    const float* row = part + (w0 + w) * 4 * co;
-    const float d = row[q * co + o] / (float)n - mu;
-    acc += row[(q + 1) * co + o] + (float)n * d * d;
-  }
-  *mean = mu;
-  *m2 = acc;
-}
-
-// Pass (b), one block per ghost block: stats[k][4][co] = (t_mean, t_inv_std,
-// r_mean, r_inv_std), the biased variance M2 / cnt; an identity residual
-// has (0, 1). Also the block's (sum, sum of squares) of t and r,
-// block_sums[k][4][co], for the full-batch sums.
-__global__ void __launch_bounds__(kThreads)
-fwd_stats_kernel(const float* __restrict__ part, Layer L, int ghost, int n, float* stats,
-                 float* block_sums) {
-  const int co = L.co, k = blockIdx.x;
-  const float cnt = (float)ghost * (float)n;
-  float* st = stats + (long long)k * 4 * co;
-  float* bs = block_sums + (long long)k * 4 * co;
-  for (int j = threadIdx.x; j < 2 * co; j += kThreads) {
-    const int q = j < co ? 0 : 2, o = j % co;
-    float mean, m2;
-    combine_moments(part, (long long)k * ghost, ghost, n, co, q, o, &mean, &m2);
-    bs[q * co + o] = mean * cnt;
-    bs[(q + 1) * co + o] = m2 + cnt * mean * mean;
-    const bool fixed = q == 2 && L.identity;  // no BN on an identity residual
-    st[q * co + o] = fixed ? 0.0f : mean;
-    st[(q + 1) * co + o] = fixed ? 1.0f : rsqrtf(m2 / cnt + kEps);
-  }
-}
-
-// Full-batch pre-BN sums [4][co] = (sum t, sum t^2, sum r, sum r^2), the
-// ghost blocks' sums added up.
-__global__ void __launch_bounds__(kThreads)
-fwd_sums_kernel(const float* __restrict__ block_sums, int co, int n_blocks, float* sums) {
-  for (int j = threadIdx.x; j < 4 * co; j += kThreads) {
-    float total = 0.0f;
-    for (int k = 0; k < n_blocks; ++k) total += block_sums[(long long)k * 4 * co + j];
-    sums[j] = total;
-  }
-}
-
-__device__ __forceinline__ float ghost_pre(const Layer& L, const float* st, int o, float t,
-                                           float r) {
-  const int co = L.co;
-  const float tn = (t - st[o]) * st[co + o] * L.gamma[o] + L.beta[o];
-  const float rn = L.identity
-                       ? r
-                       : (r - st[2 * co + o]) * st[3 * co + o] * L.gamma_r[o] + L.beta_r[o];
-  return tn + rn;
-}
-
-// Pass (c), one block per window: y = PReLU(BN(t) + BN(r)) to the saved
-// activation; on the top layer also z = y_flat wp + bp (the projector, in
-// the kernel as on the TPU).
-__global__ void __launch_bounds__(kThreads)
-fwd_apply_kernel(Layer L, int n, int ghost, const float* __restrict__ t_buf,
-                 const float* __restrict__ r_buf, float* act, const float* __restrict__ wp,
-                 const float* __restrict__ bp, float* z, int latent) {
-  extern __shared__ __align__(16) float smem[];
-  const int co = L.co, tid = threadIdx.x, win = blockIdx.x;
-  const float* st = L.stats + (long long)(win / ghost) * 4 * co;
-  const float alpha = *L.alpha;
-  const long long base = (long long)win * n * co;
-  const bool last = z != nullptr;
-  const int chunks = last ? (latent + kLatentChunk - 1) / kLatentChunk : 1;
-  for (int ch = 0; ch < chunks; ++ch) {
-    const int l0 = ch * kLatentChunk;
-    const int lw = last ? (latent - l0 < kLatentChunk ? latent - l0 : kLatentChunk) : 0;
-    float acc[kLatentChunk];
-#pragma unroll
-    for (int q = 0; q < kLatentChunk; ++q) acc[q] = 0.0f;
-    for (int i = tid; i < n * co; i += kThreads) {
-      const int o = i % co;
-      const float pre = ghost_pre(L, st, o, t_buf[base + i], r_buf[base + i]);
-      const float y = pre >= 0.0f ? pre : alpha * pre;
-      if (ch == 0) act[base + i] = y;
-      if (!last) continue;
-      const float* wr = wp + (long long)i * latent + l0;
-#pragma unroll
-      for (int q = 0; q < kLatentChunk; ++q)
-        if (q < lw) acc[q] = fmaf(y, wr[q], acc[q]);
-    }
-    if (!last) break;
-#pragma unroll
-    for (int q = 0; q < kLatentChunk; ++q) smem[q * kThreads + tid] = acc[q];
-    __syncthreads();
-    block_reduce(smem, lw);
-    if (tid < lw) z[(long long)win * latent + l0 + tid] = smem[tid * kThreads] + bp[l0 + tid];
     __syncthreads();
   }
 }
@@ -747,19 +544,20 @@ sum_splits_kernel(const float* __restrict__ part, long long count, int splits, f
   out[i] = s;
 }
 
-// ================= the per-window passes of K3, K4 and K5 on the tensor cores =================
+// ================= the per-window passes of K2-K5 on the tensor cores =================
 //
-// bwd_pre (g = M^T x, t = g W + b, r = x W_res + b_res), K4's dy = dz wp^T
-// and bwd_dx (dg = dt W^T, dx = M dg + dr W_res^T) run every product as
-// 3xTF32 m16n8k8 mma.sync, like the batch-reduction products. Fragments come
+// fwd_pre and bwd_pre (g = M^T x, t = g W + b, r = x W_res + b_res, in one
+// routine both call), K2's z = y_flat wp, K4's dy = dz wp^T and bwd_dx
+// (dg = dt W^T, dx = M dg + dr W_res^T) run every product as 3xTF32
+// m16n8k8 mma.sync, like the batch-reduction products. Fragments come
 // from loaders, small functions (row, k) -> value: of shared memory; of M
 // (or M^T), read through L1/L2 as every block reads the same M; or, for dt
 // and dr, computed from device memory in the loader and written back there,
 // so those operands need no shared buffer. A warp owns whole 16-row tiles
 // of the output and loads each A fragment once for all its column tiles,
 // so each element of an A operand is loaded by one lane once per 32 output
-// columns. No float atomics: a column sum is taken lane by lane, then warp
-// by warp, in a fixed order.
+// columns. No float atomics: a column sum (or moment) is taken lane by
+// lane, then warp by warp, in a fixed order.
 
 __host__ __device__ constexpr int round8(int v) { return (v + 7) & ~7; }
 
@@ -811,7 +609,7 @@ __device__ __forceinline__ void warp_tile(float (&acc)[NT][4], int r0, int K, in
 __device__ __forceinline__ int frag_row(int i) { return ((threadIdx.x & 31) >> 2) + (i >= 2 ? 8 : 0); }
 __device__ __forceinline__ int frag_col(int i) { return 2 * (threadIdx.x & 3) + (i & 1); }
 
-// Windows a bwd_pre block takes side by side, so that the graph
+// Windows a fwd_pre or bwd_pre block takes side by side, so that the graph
 // contraction's wb * ci columns reach 32 where they can: one pass over M
 // then feeds them all (C_in 2: 4 windows; 16: 2; 32: 1).
 __host__ __device__ inline int pre_windows(int ci) {
@@ -819,23 +617,139 @@ __host__ __device__ inline int pre_windows(int ci) {
   return w >= 4 ? 4 : (w >= 2 ? 2 : 1);
 }
 
-// bwd_pre's shared memory, in floats: x and g [rows][ldx] (the nodes
-// rounded up to whole 16-row tiles; the wb * ci columns rounded up to 8,
-// + 4, so an A fragment's 32 lanes hit 32 banks), W and W_res [ci][ldw]
-// (C_out rounded up to 8, + 8, for the B fragments), the column sums'
-// partials [groups][3][C_out rounded up to 8], each warp's lane partials
-// [kWarps][32][6] and the dalpha reduction [kThreads].
+// What a column of fwd_pre's and bwd_pre's tiles carries from lane to warp
+// to window: fwd_pre its moments (count, mean t, M2 t, mean r, M2 r),
+// bwd_pre its sums (sum dpre, sum dpre tc, sum dpre rc).
+constexpr int kFwdMoments = 5, kBwdSums = 3;
+
+// fwd_pre's and bwd_pre's shared memory, in floats: x and g [rows][ldx]
+// (the nodes rounded up to whole 16-row tiles; the wb * ci columns rounded
+// up to 8, + 4, so an A fragment's 32 lanes hit 32 banks), W and W_res
+// [ci][ldw] (C_out rounded up to 8, + 8, for the B fragments), then, at the
+// offsets csum, wred and red, the column partials [groups][q][C_out rounded
+// up to 8], each warp's lane partials [kWarps][32][2 q] and bwd_pre's
+// dalpha reduction [kThreads]; q is kFwdMoments or kBwdSums.
 struct PreSmem {
-  int rows, ldx, ldw, csum, total;
+  int rows, ldx, ldw, csum, wred, red, total;
 };
-__host__ __device__ inline PreSmem pre_smem(int n, int ci, int co, int wb) {
+__host__ __device__ inline PreSmem pre_smem(int n, int ci, int co, int wb, int q) {
   PreSmem s;
   s.rows = (n + 15) / 16 * 16;
   s.ldx = round8(wb * ci) + 4;
   s.ldw = round8(co) + 8;
-  s.csum = 3 * (round8(co) > 64 ? round8(co) : 64);
-  s.total = 2 * s.rows * s.ldx + 2 * ci * s.ldw + s.csum + kWarps * 32 * 6 + kThreads;
+  s.csum = 2 * s.rows * s.ldx + 2 * ci * s.ldw;
+  s.wred = s.csum + q * (round8(co) > 64 ? round8(co) : 64);
+  s.red = s.wred + kWarps * 32 * 2 * q;
+  s.total = s.red + kThreads;
   return s;
+}
+
+// The rows of node tiles that share a channel tile in fwd_pre and bwd_pre:
+// with fewer channel tiles than warps, warp w takes channel tile w % tiles
+// and every groups-th node tile from w / tiles; else one group.
+__host__ __device__ inline int pre_groups(int co) {
+  const int otiles = round8(co) / 8;
+  return otiles >= kWarps ? 1 : kWarps / otiles;
+}
+
+// The block's windows [win0, win0 + nwin) in shared memory: x and g = M^T x
+// side by side, W and W_res (0 for an identity residual).
+struct PreBlock {
+  const float *xs, *gs, *ws, *wrs;
+  int rows, ldx, ldw, win0, nwin;
+};
+
+// The first half of the g / t / r work fwd_pre and bwd_pre share (so the
+// backward's recompute of t and r is the forward's arithmetic, bit for
+// bit): stage the block's wb windows of x and the layer's W and W_res in
+// shared memory, then g = M^T x on the windows side by side as the columns
+// of one product, M read from L2 as A fragments; g also to g_buf unless it
+// is null. Ends synchronised.
+__device__ __forceinline__ PreBlock pre_graph(const float* __restrict__ x, const Layer& L, int n,
+                                              int batch, int wb, const PreSmem& sm, float* smem,
+                                              float* g_buf) {
+  const int ci = L.ci, co = L.co, tid = threadIdx.x, warp = tid >> 5;
+  const int rows = sm.rows, ldx = sm.ldx, ldw = sm.ldw, cols = wb * ci;
+  float* xs = smem;
+  float* gs = xs + rows * ldx;
+  float* ws = gs + rows * ldx;
+  float* wrs = ws + ci * ldw;
+  const int win0 = blockIdx.x * wb;
+  const int nwin = batch - win0 < wb ? batch - win0 : wb;
+  for (int i = tid; i < rows * ldx; i += kThreads) {
+    const int k = i / ldx, j = i - k * ldx, w = j / ci;
+    xs[i] = k < n && j < cols && w < nwin ? x[((long long)(win0 + w) * n + k) * ci + j - w * ci]
+                                          : 0.0f;
+  }
+  for (int i = tid; i < ci * ldw; i += kThreads) {
+    const int c = i / ldw, o = i - c * ldw;
+    ws[i] = o < co ? L.w[c * co + o] : 0.0f;
+    wrs[i] = o < co && !L.identity ? L.wr[c * co + o] : 0.0f;
+  }
+  __syncthreads();
+  const float* __restrict__ M = L.m;
+  auto mt_of = [&](int r, int k) { return r < n && k < n ? __ldg(M + (long long)k * n + r) : 0.0f; };
+  auto xs_of = [&](int k, int j) { return xs[k * ldx + j]; };
+  const int ctiles = round8(cols) / 8;
+  for (int r0 = warp * 16; r0 < rows; r0 += kWarps * 16)
+    for (int c0 = 0; c0 < ctiles; c0 += 4) {
+      float acc[4][4] = {};
+      warp_tile<4>(acc, r0, round8(n), 8 * c0, ctiles - c0 < 4 ? ctiles - c0 : 4, mt_of, xs_of);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (c0 + j >= ctiles) break;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = r0 + frag_row(i), c = 8 * (c0 + j) + frag_col(i), w = c / ci;
+          gs[r * ldx + c] = acc[j][i];
+          if (g_buf != nullptr && r < n && c < cols && w < nwin)
+            g_buf[((long long)(win0 + w) * n + r) * ci + c - w * ci] = acc[j][i];
+        }
+      }
+    }
+  __syncthreads();
+  return PreBlock{xs, gs, ws, wrs, rows, ldx, ldw, win0, nwin};
+}
+
+// The second half: t and r of the block's window w, a warp on one 8-channel
+// tile of C_out and every groups-th 16-node tile (pre_groups), each tile's
+// t = g W + b and r = x W_res + b_res (r = x for an identity residual) as
+// warp_tile<1> products. For each tile fetch(r0, ot) runs before the
+// products (loads whose latency they hide), take(r0, ot, t, r) after, with
+// t and r in the accumulator layout (frag_row, frag_col; 0 past the nodes
+// and channels); flush(ot, grp) after a channel tile's last node tile.
+template <class Fetch, class Take, class Flush>
+__device__ __forceinline__ void pre_window(const PreBlock& pb, const Layer& L, int n, int w,
+                                           const Fetch& fetch, const Take& take,
+                                           const Flush& flush) {
+  const int ci = L.ci, co = L.co, warp = threadIdx.x >> 5, ldx = pb.ldx, ldw = pb.ldw;
+  const int otiles = round8(co) / 8, groups = pre_groups(co);
+  const int grp = otiles >= kWarps ? 0 : warp / otiles;
+  if (grp >= groups) return;
+  const float* xs = pb.xs + w * ci;
+  const float* gs = pb.gs + w * ci;
+  auto g_of = [&](int r, int k) { return k < ci ? gs[r * ldx + k] : 0.0f; };
+  auto x_of = [&](int r, int k) { return k < ci ? xs[r * ldx + k] : 0.0f; };
+  auto w_of = [&](int k, int o) { return k < ci ? pb.ws[k * ldw + o] : 0.0f; };
+  auto wr_of = [&](int k, int o) { return k < ci ? pb.wrs[k * ldw + o] : 0.0f; };
+  for (int ot = warp % otiles; ot < otiles; ot += otiles >= kWarps ? kWarps : otiles) {
+    for (int r0 = 16 * grp; r0 < pb.rows; r0 += 16 * groups) {
+      fetch(r0, ot);
+      float at[1][4] = {}, ar[1][4] = {};
+      warp_tile<1>(at, r0, round8(ci), 8 * ot, 1, g_of, w_of);
+      if (!L.identity) warp_tile<1>(ar, r0, round8(ci), 8 * ot, 1, x_of, wr_of);
+      float t[4], r[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int rr = r0 + frag_row(i), o = 8 * ot + frag_col(i);
+        const bool in = rr < n && o < co;
+        t[i] = in ? at[0][i] + L.b[o] : 0.0f;
+        r[i] = !in ? 0.0f : (L.identity ? xs[rr * ldx + o] : ar[0][i] + L.br[o]);
+      }
+      take(r0, ot, t, r);
+    }
+    flush(ot, grp);
+  }
 }
 
 // bwd_dx's shared memory, in floats: dg [rows][lddg] (C_in rounded up to 8,
@@ -851,6 +765,259 @@ __host__ __device__ inline DxSmem dx_smem(int n, int ci, int co) {
   s.ldwt = round8(ci) + 8;
   s.total = s.rows * s.lddg + 2 * co * s.ldwt + 6 * co;
   return s;
+}
+
+// ================= K2: forward =================
+
+// Moments a = (count, mean t, M2 t, mean r, M2 r) <- with b's values added
+// (b's entries `stride` floats apart), by Chan's formula: M2 = M2a + M2b +
+// d^2 na nb / (na + nb), d the difference of the means. A count of 0 is
+// an empty set.
+__device__ __forceinline__ void merge_moments(float (&a)[kFwdMoments], const float* b,
+                                              int stride) {
+  const float na = a[0], nb = b[0];
+  if (nb == 0.0f) return;
+  const float f = nb / (na + nb);
+#pragma unroll
+  for (int q = 1; q < kFwdMoments; q += 2) {
+    const float d = b[q * stride] - a[q];
+    a[q] = fmaf(d, f, a[q]);
+    a[q + 1] += b[(q + 1) * stride] + d * d * na * f;
+  }
+  a[0] = na + nb;
+}
+
+// Pass (a), one block per wb windows (pre_windows): g, t, r on the tensor
+// cores (pre_graph, pre_window), t and r to scratch, and per-window channel
+// moments part [B][4][co] = (sum t, M2 t, sum r, M2 r), M2 the sum of
+// squared deviations from the window's own mean. The moments come from the
+// accumulators, t and r never read back: each lane folds its values into
+// (count, mean, M2) one at a time, then the 8 lanes of a column are merged
+// in lane order and the node-tile groups in group order (merge_moments), so
+// a channel whose spread is small against its mean keeps its digits and
+// two launches give the same bits.
+__global__ void __launch_bounds__(kThreads)
+fwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int batch, int wb, float* t_buf,
+               float* r_buf, float* part) {
+  extern __shared__ __align__(16) float smem[];
+  const int co = L.co, tid = threadIdx.x, lane = tid & 31;
+  const PreSmem sm = pre_smem(n, L.ci, co, wb, kFwdMoments);
+  const PreBlock pb = pre_graph(x, L, n, batch, wb, sm, smem, nullptr);
+  const int cop = round8(co), groups = pre_groups(co);
+  float* csum = smem + sm.csum;  // [groups][kFwdMoments][cop]
+  float* wred = smem + sm.wred + (tid >> 5) * 32 * 2 * kFwdMoments;
+  for (int w = 0; w < pb.nwin; ++w) {
+    const int win = pb.win0 + w;
+    const long long base = (long long)win * n * co;
+    float m[2][kFwdMoments] = {};  // columns 2 (lane % 4) and + 1
+    auto take = [&](int r0, int ot, const float (&t)[4], const float (&r)[4]) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int rr = r0 + frag_row(i), o = 8 * ot + frag_col(i);
+        if (rr >= n || o >= co) continue;
+        const long long e = base + (long long)rr * co + o;
+        t_buf[e] = t[i];
+        r_buf[e] = r[i];
+        const float one[kFwdMoments] = {1.0f, t[i], 0.0f, r[i], 0.0f};
+        merge_moments(m[i & 1], one, 1);
+      }
+    };
+    // The warp's moments of its 8 columns: one lane a column merges the 8
+    // lanes that hold it (lanes 4 g + column / 2) in lane order.
+    auto flush = [&](int ot, int grp) {
+#pragma unroll
+      for (int q = 0; q < 2 * kFwdMoments; ++q) wred[lane * 2 * kFwdMoments + q] = m[q / kFwdMoments][q % kFwdMoments];
+      __syncwarp();
+      if (lane < 8) {
+        float c[kFwdMoments] = {};
+        for (int g8 = 0; g8 < 8; ++g8)
+          merge_moments(c, wred + ((g8 * 4 + lane / 2) * 2 + lane % 2) * kFwdMoments, 1);
+#pragma unroll
+        for (int q = 0; q < kFwdMoments; ++q) csum[(grp * kFwdMoments + q) * cop + 8 * ot + lane] = c[q];
+      }
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < 2 * kFwdMoments; ++q) m[q / kFwdMoments][q % kFwdMoments] = 0.0f;
+    };
+    pre_window(pb, L, n, w, [](int, int) {}, take, flush);
+    __syncthreads();
+    float* pw = part + (long long)win * 4 * co;
+    for (int o = tid; o < co; o += kThreads) {
+      float c[kFwdMoments] = {};
+      for (int k = 0; k < groups; ++k) merge_moments(c, csum + k * kFwdMoments * cop + o, cop);
+      pw[o] = c[1] * c[0];
+      pw[co + o] = c[2];
+      pw[2 * co + o] = c[3] * c[0];
+      pw[3 * co + o] = c[4];
+    }
+    __syncthreads();  // csum serves the next window
+  }
+}
+
+// Chan's combination of per-window moments over windows [w0, w0 + count):
+// the block's mean and M2 of one channel (q = 0 for t, 2 for r).
+__device__ void combine_moments(const float* __restrict__ part, long long w0, int count, int n,
+                                int co, int q, int o, float* mean, float* m2) {
+  float s = 0.0f;
+  for (int w = 0; w < count; ++w) s += part[(w0 + w) * 4 * co + q * co + o];
+  const float mu = s / ((float)count * (float)n);
+  float acc = 0.0f;
+  for (int w = 0; w < count; ++w) {
+    const float* row = part + (w0 + w) * 4 * co;
+    const float d = row[q * co + o] / (float)n - mu;
+    acc += row[(q + 1) * co + o] + (float)n * d * d;
+  }
+  *mean = mu;
+  *m2 = acc;
+}
+
+// Pass (b), one block per ghost block: stats[k][4][co] = (t_mean, t_inv_std,
+// r_mean, r_inv_std), the biased variance M2 / cnt; an identity residual
+// has (0, 1). Also the block's (sum, sum of squares) of t and r,
+// block_sums[k][4][co], for the full-batch sums.
+__global__ void __launch_bounds__(kThreads)
+fwd_stats_kernel(const float* __restrict__ part, Layer L, int ghost, int n, float* stats,
+                 float* block_sums) {
+  const int co = L.co, k = blockIdx.x;
+  const float cnt = (float)ghost * (float)n;
+  float* st = stats + (long long)k * 4 * co;
+  float* bs = block_sums + (long long)k * 4 * co;
+  for (int j = threadIdx.x; j < 2 * co; j += kThreads) {
+    const int q = j < co ? 0 : 2, o = j % co;
+    float mean, m2;
+    combine_moments(part, (long long)k * ghost, ghost, n, co, q, o, &mean, &m2);
+    bs[q * co + o] = mean * cnt;
+    bs[(q + 1) * co + o] = m2 + cnt * mean * mean;
+    const bool fixed = q == 2 && L.identity;  // no BN on an identity residual
+    st[q * co + o] = fixed ? 0.0f : mean;
+    st[(q + 1) * co + o] = fixed ? 1.0f : rsqrtf(m2 / cnt + kEps);
+  }
+}
+
+// Full-batch pre-BN sums [4][co] = (sum t, sum t^2, sum r, sum r^2), the
+// ghost blocks' sums added up.
+__global__ void __launch_bounds__(kThreads)
+fwd_sums_kernel(const float* __restrict__ block_sums, int co, int n_blocks, float* sums) {
+  for (int j = threadIdx.x; j < 4 * co; j += kThreads) {
+    float total = 0.0f;
+    for (int k = 0; k < n_blocks; ++k) total += block_sums[(long long)k * 4 * co + j];
+    sums[j] = total;
+  }
+}
+
+// BatchNorm of one value: the arithmetic fwd_apply and bwd_pre share.
+__device__ __forceinline__ float bn(float v, float mean, float inv, float gamma, float beta) {
+  return (v - mean) * inv * gamma + beta;
+}
+
+__device__ __forceinline__ float ghost_pre(const Layer& L, const float* st, int o, float t,
+                                           float r) {
+  const int co = L.co;
+  return bn(t, st[o], st[co + o], L.gamma[o], L.beta[o]) +
+         (L.identity ? r : bn(r, st[2 * co + o], st[3 * co + o], L.gamma_r[o], L.beta_r[o]));
+}
+
+// Pass (c), elementwise: y = PReLU(BN(t) + BN(r)) to the saved activation.
+// A block takes kApplyElems consecutive elements of one ghost block's
+// [ghost * N, C_out], 16 bytes a load where vec (C_out a multiple of 4,
+// the buffers 16-byte aligned), with the block's BN constants in shared
+// memory, c [8][co] = (t_mean, t_inv_std, gamma, beta, r_mean, r_inv_std,
+// gamma_res, beta_res).
+constexpr int kApplyElems = 4 * 4 * kThreads;
+__global__ void __launch_bounds__(kThreads)
+fwd_apply_kernel(Layer L, int n, int ghost, int chunks, const float* __restrict__ t_buf,
+                 const float* __restrict__ r_buf, float* act, int vec) {
+  extern __shared__ __align__(16) float cs[];
+  const int co = L.co, k = blockIdx.x / chunks;
+  const float* st = L.stats + (long long)k * 4 * co;
+  for (int o = threadIdx.x; o < co; o += kThreads) {
+    cs[o] = st[o];
+    cs[co + o] = st[co + o];
+    cs[2 * co + o] = L.gamma[o];
+    cs[3 * co + o] = L.beta[o];
+    cs[4 * co + o] = L.identity ? 0.0f : st[2 * co + o];
+    cs[5 * co + o] = L.identity ? 1.0f : st[3 * co + o];
+    cs[6 * co + o] = L.identity ? 1.0f : L.gamma_r[o];
+    cs[7 * co + o] = L.identity ? 0.0f : L.beta_r[o];
+  }
+  __syncthreads();
+  const float alpha = *L.alpha;
+  const bool identity = L.identity;
+  auto y_of = [&](int o, float t, float r) {
+    const float pre = bn(t, cs[o], cs[co + o], cs[2 * co + o], cs[3 * co + o]) +
+                      (identity ? r : bn(r, cs[4 * co + o], cs[5 * co + o], cs[6 * co + o],
+                                         cs[7 * co + o]));
+    return pre >= 0.0f ? pre : alpha * pre;
+  };
+  const long long per = (long long)ghost * n * co;
+  const long long e0 = (long long)(blockIdx.x - k * chunks) * kApplyElems;
+  const int end = per - e0 < kApplyElems ? (int)(per - e0) : kApplyElems;
+  const float* tb = t_buf + k * per + e0;
+  const float* rb = r_buf + k * per + e0;
+  float* yb = act + k * per + e0;
+  // A thread's first element, its channel, and the channel step between its elements.
+  const int first = vec ? 4 * threadIdx.x : threadIdx.x, stride = vec ? 4 * kThreads : kThreads;
+  const int step = stride % co;
+  int o = (int)((e0 + first) % co);
+  for (int e = first; e < end; e += stride) {
+    if (vec) {
+      const float4 t = *reinterpret_cast<const float4*>(tb + e);
+      const float4 r = *reinterpret_cast<const float4*>(rb + e);
+      *reinterpret_cast<float4*>(yb + e) =
+          make_float4(y_of(o, t.x, r.x), y_of(o + 1, t.y, r.y), y_of(o + 2, t.z, r.z),
+                      y_of(o + 3, t.w, r.w));
+    } else {
+      yb[e] = y_of(o, tb[e], rb[e]);
+    }
+    o += step;
+    if (o >= co) o -= co;
+  }
+}
+
+// The projector, z = y_flat wp + bp, as a product (the mirror of
+// projector_dy_kernel below): block (split s, latent tile lt; window tile
+// wt) owns z's windows [128 wt, 128 wt + 128) x latent columns [16 lt, 16 lt
+// + 16) over the rows [s r_split, (s + 1) r_split) of wp, a warp 16 of the
+// windows. y is the A operand, so warp_tile loads it (from device memory)
+// a k-step ahead; wp, the B operand, is read by the block's 8 warps through
+// L1, so from L2 once per 128 windows. Each split writes its partial sums
+// to part [splits][batch][latent]; projector_sum_kernel adds them in split
+// order, then bp.
+constexpr int kZWindows = 16 * kWarps;
+__global__ void __launch_bounds__(kThreads)
+projector_z_kernel(const float* __restrict__ y, const float* __restrict__ wp, int batch, int rows,
+                   int latent, int r_split, int splits, float* part) {
+  const int s = blockIdx.x % splits, l0 = (blockIdx.x / splits) * 16;
+  const int w0 = blockIdx.y * kZWindows + (threadIdx.x >> 5) * 16;
+  const int k0 = s * r_split, k1 = rows - k0 < r_split ? rows : k0 + r_split;
+  if (w0 >= batch) return;  // uniform over the warp; no block barrier follows
+  auto y_of = [&](int w, int k) {
+    return w < batch && k0 + k < k1 ? __ldg(y + (long long)w * rows + k0 + k) : 0.0f;
+  };
+  auto wp_of = [&](int k, int l) {
+    return l < latent && k0 + k < k1 ? __ldg(wp + (long long)(k0 + k) * latent + l) : 0.0f;
+  };
+  float acc[2][4] = {};
+  warp_tile<2>(acc, w0, k1 > k0 ? round8(k1 - k0) : 0, l0, latent - l0 > 8 ? 2 : 1, y_of, wp_of);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int w = w0 + frag_row(i), l = l0 + 8 * j + frag_col(i);
+      if (w < batch && l < latent) part[((long long)s * batch + w) * latent + l] = acc[j][i];
+    }
+}
+
+// z[w][l] = (sum over splits in split order of part[s][w][l]) + bp[l].
+__global__ void __launch_bounds__(kThreads)
+projector_sum_kernel(const float* __restrict__ part, int batch, int latent, int splits,
+                     const float* __restrict__ bp, float* z) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long count = (long long)batch * latent;
+  if (i >= count) return;
+  float s = 0.0f;
+  for (int k = 0; k < splits; ++k) s += part[k * count + i];
+  z[i] = s + bp[i % latent];
 }
 
 // K4's projector backward, dy[w][i] = sum_l dz[w][l] wp[i][l] for the
@@ -896,131 +1063,83 @@ projector_dy_kernel(const float* __restrict__ dz, const float* __restrict__ wp, 
 // rounding of 0 could otherwise land on the other side in this rounding of
 // the recomputation, and one such element moves dW and dM by more than the
 // gradients' tolerance.
-// g = M^T x runs on the block's windows side by side as the columns of one
-// product; t and r a window at a time, a warp on one 8-channel tile of
-// C_out and every groups-th 16-node tile, the PReLU backward and the column
-// sums taken from the accumulators.
+// g, t and r are fwd_pre's own arithmetic (pre_graph, pre_window), the
+// PReLU backward and the column sums taken from the accumulators.
 __global__ void __launch_bounds__(kThreads)
 bwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int ghost, int batch, int wb,
                const float* __restrict__ y, const float* dy, float* g_buf, float* t_buf,
                float* r_buf, float* dpre_buf, float* part, float* dalpha_part) {
   extern __shared__ __align__(16) float smem[];
-  const int ci = L.ci, co = L.co, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const PreSmem sm = pre_smem(n, ci, co, wb);
-  const int rows = sm.rows, ldx = sm.ldx, ldw = sm.ldw, cols = wb * ci, cop = round8(co);
-  float* xs = smem;
-  float* gs = xs + rows * ldx;
-  float* ws = gs + rows * ldx;
-  float* wrs = ws + ci * ldw;
-  float* csum = wrs + ci * ldw;
-  float* wred = csum + sm.csum + warp * 32 * 6;
-  float* red = csum + sm.csum + kWarps * 32 * 6;
-  const int win0 = blockIdx.x * wb;
-  const int nwin = batch - win0 < wb ? batch - win0 : wb;
-  for (int i = tid; i < rows * ldx; i += kThreads) {
-    const int k = i / ldx, j = i - k * ldx, w = j / ci;
-    xs[i] = k < n && j < cols && w < nwin ? x[((long long)(win0 + w) * n + k) * ci + j - w * ci]
-                                          : 0.0f;
-  }
-  for (int i = tid; i < ci * ldw; i += kThreads) {
-    const int c = i / ldw, o = i - c * ldw;
-    ws[i] = o < co ? L.w[c * co + o] : 0.0f;
-    wrs[i] = o < co && !L.identity ? L.wr[c * co + o] : 0.0f;
-  }
-  __syncthreads();
-  const float* __restrict__ M = L.m;
-  auto mt_of = [&](int r, int k) { return r < n && k < n ? __ldg(M + (long long)k * n + r) : 0.0f; };
-  auto xs_of = [&](int k, int j) { return xs[k * ldx + j]; };
-  const int ctiles = round8(cols) / 8;
-  for (int r0 = warp * 16; r0 < rows; r0 += kWarps * 16)
-    for (int c0 = 0; c0 < ctiles; c0 += 4) {
-      float acc[4][4] = {};
-      warp_tile<4>(acc, r0, round8(n), 8 * c0, ctiles - c0 < 4 ? ctiles - c0 : 4, mt_of, xs_of);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (c0 + j >= ctiles) break;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = r0 + frag_row(i), c = 8 * (c0 + j) + frag_col(i), w = c / ci;
-          gs[r * ldx + c] = acc[j][i];
-          if (r < n && c < cols && w < nwin)
-            g_buf[((long long)(win0 + w) * n + r) * ci + c - w * ci] = acc[j][i];
-        }
-      }
-    }
-  __syncthreads();
-  const int otiles = cop / 8;
-  const int groups = otiles >= kWarps ? 1 : kWarps / otiles;
-  const int grp = otiles >= kWarps ? 0 : warp / otiles;
+  const int co = L.co, tid = threadIdx.x, lane = tid & 31;
+  const PreSmem sm = pre_smem(n, L.ci, co, wb, kBwdSums);
+  const PreBlock pb = pre_graph(x, L, n, batch, wb, sm, smem, g_buf);
+  const int cop = round8(co), groups = pre_groups(co);
+  float* csum = smem + sm.csum;  // [groups][kBwdSums][cop]
+  float* wred = smem + sm.wred + (tid >> 5) * 32 * 2 * kBwdSums;
+  float* red = smem + sm.red;
   const float alpha = *L.alpha;
-  auto w_of = [&](int k, int o) { return k < ci ? ws[k * ldw + o] : 0.0f; };
-  auto wr_of = [&](int k, int o) { return k < ci ? wrs[k * ldw + o] : 0.0f; };
-  for (int w = 0; w < nwin; ++w) {
-    const int win = win0 + w;
+  for (int w = 0; w < pb.nwin; ++w) {
+    const int win = pb.win0 + w;
     const float* st = L.stats + (long long)(win / ghost) * 4 * co;
     const long long base = (long long)win * n * co;
-    auto g_of = [&](int r, int k) { return k < ci ? gs[r * ldx + w * ci + k] : 0.0f; };
-    auto x_of = [&](int r, int k) { return k < ci ? xs[r * ldx + w * ci + k] : 0.0f; };
-    float dal = 0.0f;
-    if (grp < groups)
-      for (int ot = warp % otiles; ot < otiles; ot += otiles >= kWarps ? kWarps : otiles) {
-        float s[6] = {};  // (sum dpre, dpre tc, dpre rc) of columns 2 (lane % 4) and + 1
-        for (int r0 = 16 * grp; r0 < rows; r0 += 16 * groups) {
-          float yv[4], dyv[4];  // issued first: their latency runs under the products
+    float dal = 0.0f, yv[4], dyv[4];
+    float s[2 * kBwdSums] = {};  // (sum dpre, dpre tc, dpre rc) of columns 2 (lane % 4) and + 1
+    auto fetch = [&](int r0, int ot) {  // issued first: their latency runs under the products
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = r0 + frag_row(i), o = 8 * ot + frag_col(i);
-            const long long e = base + (long long)r * co + o;
-            yv[i] = r < n && o < co ? y[e] : 0.0f;
-            dyv[i] = r < n && o < co ? dy[e] : 0.0f;
-          }
-          float at[1][4] = {}, ar[1][4] = {};
-          warp_tile<1>(at, r0, round8(ci), 8 * ot, 1, g_of, w_of);
-          if (!L.identity) warp_tile<1>(ar, r0, round8(ci), 8 * ot, 1, x_of, wr_of);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = r0 + frag_row(i), o = 8 * ot + frag_col(i);
-            if (r >= n || o >= co) continue;
-            const float t = at[0][i] + L.b[o];
-            const float rv = L.identity ? xs[r * ldx + w * ci + o] : ar[0][i] + L.br[o];
-            const float tc = t - st[o];
-            const float rc = rv - st[2 * co + o];  // an identity residual has mean 0: rc = x
-            const float pre = ghost_pre(L, st, o, t, rv);
-            const long long e = base + (long long)r * co + o;
-            const bool neg = alpha >= 0.0f ? (__float_as_uint(yv[i]) >> 31) != 0 : pre < 0.0f;
-            const float g_out = dyv[i];
-            if (neg) dal = fmaf(g_out, pre, dal);
-            const float dp = neg ? alpha * g_out : g_out;
-            t_buf[e] = tc;
-            r_buf[e] = rc;
-            dpre_buf[e] = dp;
-            float* sc = s + 3 * (i & 1);
-            sc[0] += dp;
-            sc[1] = fmaf(dp, tc, sc[1]);
-            sc[2] = fmaf(dp, rc, sc[2]);
-          }
-        }
-        // The warp's share of its 8 columns: the 8 lanes of a column in lane order.
-#pragma unroll
-        for (int q = 0; q < 6; ++q) wred[lane * 6 + q] = s[q];
-        __syncwarp();
-        if (lane < 4)
-          for (int q = 0; q < 6; ++q) {
-            float v = 0.0f;
-            for (int g8 = 0; g8 < 8; ++g8) v += wred[(g8 * 4 + lane) * 6 + q];
-            csum[(grp * 3 + q % 3) * cop + 8 * ot + 2 * lane + q / 3] = v;
-          }
-        __syncwarp();
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + frag_row(i), o = 8 * ot + frag_col(i);
+        const long long e = base + (long long)r * co + o;
+        yv[i] = r < n && o < co ? y[e] : 0.0f;
+        dyv[i] = r < n && o < co ? dy[e] : 0.0f;
       }
+    };
+    auto take = [&](int r0, int ot, const float (&t)[4], const float (&rv)[4]) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + frag_row(i), o = 8 * ot + frag_col(i);
+        if (r >= n || o >= co) continue;
+        const float tc = t[i] - st[o];
+        const float rc = rv[i] - st[2 * co + o];  // an identity residual has mean 0: rc = x
+        const float pre = ghost_pre(L, st, o, t[i], rv[i]);
+        const long long e = base + (long long)r * co + o;
+        const bool neg = alpha >= 0.0f ? (__float_as_uint(yv[i]) >> 31) != 0 : pre < 0.0f;
+        const float g_out = dyv[i];
+        if (neg) dal = fmaf(g_out, pre, dal);
+        const float dp = neg ? alpha * g_out : g_out;
+        t_buf[e] = tc;
+        r_buf[e] = rc;
+        dpre_buf[e] = dp;
+        float* sc = s + kBwdSums * (i & 1);
+        sc[0] += dp;
+        sc[1] = fmaf(dp, tc, sc[1]);
+        sc[2] = fmaf(dp, rc, sc[2]);
+      }
+    };
+    // The warp's share of its 8 columns: the 8 lanes of a column in lane order.
+    auto flush = [&](int ot, int grp) {
+#pragma unroll
+      for (int q = 0; q < 2 * kBwdSums; ++q) wred[lane * 2 * kBwdSums + q] = s[q];
+      __syncwarp();
+      if (lane < 4)
+        for (int q = 0; q < 2 * kBwdSums; ++q) {
+          float v = 0.0f;
+          for (int g8 = 0; g8 < 8; ++g8) v += wred[(g8 * 4 + lane) * 2 * kBwdSums + q];
+          csum[(grp * kBwdSums + q % kBwdSums) * cop + 8 * ot + 2 * lane + q / kBwdSums] = v;
+        }
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < 2 * kBwdSums; ++q) s[q] = 0.0f;
+    };
+    pre_window(pb, L, n, w, fetch, take, flush);
     red[tid] = dal;
     __syncthreads();
     block_reduce(red, 1);
     if (tid == 0) dalpha_part[win] = red[0];
-    float* pw = part + (long long)win * 3 * co;
-    for (int j = tid; j < 3 * co; j += kThreads) {
+    float* pw = part + (long long)win * kBwdSums * co;
+    for (int j = tid; j < kBwdSums * co; j += kThreads) {
       const int q = j / co, o = j - q * co;
       float v = 0.0f;
-      for (int k = 0; k < groups; ++k) v += csum[(k * 3 + q) * cop + o];
+      for (int k = 0; k < groups; ++k) v += csum[(k * kBwdSums + q) * cop + o];
       pw[j] = v;
     }
     __syncthreads();  // csum and red serve the next window
@@ -1231,14 +1350,71 @@ Layer row_layer(const long long* r) {
   return L;
 }
 
-// Dynamic shared memory of a layer's fwd_pre, bwd_pre and bwd_dx blocks, in bytes.
+// Dynamic shared memory of a layer's fwd_pre, fwd_apply, bwd_pre and
+// bwd_dx blocks, in bytes.
 struct LayerSmem {
-  long long fwd, pre, dx;
+  long long fwd, apply, pre, dx;
 };
 LayerSmem layer_smem(const Layer& L, int n) {
-  return {(long long)sizeof(float) * (2LL * n * L.ci + 2LL * L.ci * L.co),
-          (long long)sizeof(float) * pre_smem(n, L.ci, L.co, pre_windows(L.ci)).total,
+  const int wb = pre_windows(L.ci);
+  return {(long long)sizeof(float) * pre_smem(n, L.ci, L.co, wb, kFwdMoments).total,
+          (long long)sizeof(float) * 8 * L.co,
+          (long long)sizeof(float) * pre_smem(n, L.ci, L.co, wb, kBwdSums).total,
           (long long)sizeof(float) * dx_smem(n, L.ci, L.co).total};
+}
+
+// Checks n_layers descriptor rows (`stride` fields apart; the forward's
+// and K5's rows start alike) and returns, in most, each pass's largest
+// shared memory over them.
+cudaError_t check_layers(const long long* rows, int stride, int n_layers, int n,
+                         LayerSmem* most) {
+  *most = {0, 0, 0, 0};
+  for (int l = 0; l < n_layers; ++l) {
+    const Layer L = row_layer(rows + (long long)l * stride);
+    if (L.ci < 1 || L.co < 1 || (L.identity && L.ci != L.co) ||
+        (l > 0 && L.ci != rows[(long long)(l - 1) * stride + FL_CO]))
+      return cudaErrorInvalidValue;
+    const LayerSmem s = layer_smem(L, n);
+    most->fwd = s.fwd > most->fwd ? s.fwd : most->fwd;
+    most->apply = s.apply > most->apply ? s.apply : most->apply;
+    most->pre = s.pre > most->pre ? s.pre : most->pre;
+    most->dx = s.dx > most->dx ? s.dx : most->dx;
+  }
+  return cudaSuccess;
+}
+
+// One layer of K2's forward on windows [0, batch) of the buffers (a
+// chunk's, for K5): fwd_pre, fwd_stats into stats and block_sums, the
+// full-batch sums unless sums is null, then fwd_apply into act.
+cudaError_t run_forward_layer(const float* x, const Layer& L, int n, int ghost, int batch,
+                              float* t_buf, float* r_buf, float* part, float* stats,
+                              float* block_sums, float* sums, float* act, cudaStream_t stream) {
+  const LayerSmem smem = layer_smem(L, n);
+  const int wb = pre_windows(L.ci), n_blocks = batch / ghost;
+  fwd_pre_kernel<<<(batch + wb - 1) / wb, kThreads, (size_t)smem.fwd, stream>>>(
+      x, L, n, batch, wb, t_buf, r_buf, part);
+  fwd_stats_kernel<<<n_blocks, kThreads, 0, stream>>>(part, L, ghost, n, stats, block_sums);
+  if (sums != nullptr)
+    fwd_sums_kernel<<<1, kThreads, 0, stream>>>(block_sums, L.co, n_blocks, sums);
+  const long long per = (long long)ghost * n * L.co;
+  const int chunks = (int)((per + kApplyElems - 1) / kApplyElems);
+  const int vec = L.co % 4 == 0 && aligned16(t_buf) && aligned16(r_buf) && aligned16(act);
+  fwd_apply_kernel<<<n_blocks * chunks, kThreads, (size_t)smem.apply, stream>>>(
+      L, n, ghost, chunks, t_buf, r_buf, act, vec);
+  return cudaGetLastError();
+}
+
+// K2's projector on the top layer's output y [batch][rows]: projector_z
+// into part ([splits][batch][latent] floats), then projector_sum into z.
+cudaError_t run_projector(const float* y, const float* wp, const float* bp, int batch, int rows,
+                          int latent, int splits, float* part, float* z, cudaStream_t stream) {
+  const int r_split = round8((rows + splits - 1) / splits);
+  const dim3 grid_z(splits * ((latent + 15) / 16), (batch + kZWindows - 1) / kZWindows);
+  projector_z_kernel<<<grid_z, kThreads, 0, stream>>>(y, wp, batch, rows, latent, r_split, splits,
+                                                      part);
+  projector_sum_kernel<<<blocks_for((long long)batch * latent), kThreads, 0, stream>>>(
+      part, batch, latent, splits, bp, z);
+  return cudaGetLastError();
 }
 
 // The per-window passes of one layer's backward on windows [0, batch) of
@@ -1278,7 +1454,7 @@ cudaError_t run_passes(const Layer& L, const PassArgs& a, const LayerSmem& smem,
 // buffers (offset by w0).
 cudaError_t mono_chunk(const long long* d, int c, int w0, int wc, cudaStream_t stream) {
   const int n_layers = (int)d[MH_N_LAYERS], n = (int)d[MH_N_NODES], ghost = (int)d[MH_GHOST];
-  const int latent = (int)d[MH_LATENT], nbc = wc / ghost;
+  const int latent = (int)d[MH_LATENT];
   float* t_buf = ptr<float>(d, MH_T_BUF);
   float* r_buf = ptr<float>(d, MH_R_BUF);
   float* dpre_buf = ptr<float>(d, MH_DPRE_BUF);
@@ -1293,21 +1469,17 @@ cudaError_t mono_chunk(const long long* d, int c, int w0, int wc, cudaStream_t s
   const float* dz_c = ptr<const float>(d, MH_DZ) + (long long)w0 * latent;
 
   const float* h = x_c;
-  for (int l = 0; l < n_layers; ++l) {
+  cudaError_t err = cudaSuccess;
+  for (int l = 0; l < n_layers && err == cudaSuccess; ++l) {
     const long long* row = rows + (long long)l * ML_COUNT;
     Layer L = row_layer(row);
     float* stats = ptr<float>(row, ML_STATS);
     L.stats = stats;
     float* act = ptr<float>(row, ML_ACT);
-    const long long smem_fwd = layer_smem(L, n).fwd;
-    fwd_pre_kernel<<<wc, kThreads, (size_t)smem_fwd, stream>>>(h, L, n, t_buf, r_buf, part);
-    fwd_stats_kernel<<<nbc, kThreads, 0, stream>>>(part, L, ghost, n, stats,
-                                                   ptr<float>(d, MH_BLOCK_SUMS));
-    fwd_apply_kernel<<<wc, kThreads, 0, stream>>>(L, n, ghost, t_buf, r_buf, act, nullptr,
-                                                  nullptr, nullptr, latent);
+    err = run_forward_layer(h, L, n, ghost, wc, t_buf, r_buf, part, stats,
+                            ptr<float>(d, MH_BLOCK_SUMS), nullptr, act, stream);
     h = act;
   }
-  cudaError_t err = cudaGetLastError();
   for (int l = n_layers - 1; l >= 0 && err == cudaSuccess; --l) {
     const long long* row = rows + (long long)l * ML_COUNT;
     Layer L = row_layer(row);
@@ -1371,17 +1543,10 @@ int run_mono(const long long* d, cudaStream_t stream) {
       chunk < ghost || chunk % ghost != 0)
     return (int)cudaErrorInvalidValue;
   const long long* rows = d + MH_COUNT;
-  LayerSmem most{0, 0, 0};
-  for (int l = 0; l < n_layers; ++l) {
-    const Layer L = row_layer(rows + (long long)l * ML_COUNT);
-    if (L.ci < 1 || L.co < 1 || (L.identity && L.ci != L.co) ||
-        (l > 0 && L.ci != rows[(long long)(l - 1) * ML_COUNT + ML_CO]))
-      return (int)cudaErrorInvalidValue;
-    const LayerSmem s = layer_smem(L, n);
-    most = {s.fwd > most.fwd ? s.fwd : most.fwd, s.pre > most.pre ? s.pre : most.pre,
-            s.dx > most.dx ? s.dx : most.dx};
-  }
-  cudaError_t err = allow_smem((const void*)fwd_pre_kernel, most.fwd);
+  LayerSmem most;
+  cudaError_t err = check_layers(rows, ML_COUNT, n_layers, n, &most);
+  if (err == cudaSuccess) err = allow_smem((const void*)fwd_pre_kernel, most.fwd);
+  if (err == cudaSuccess) err = allow_smem((const void*)fwd_apply_kernel, most.apply);
   if (err == cudaSuccess) err = allow_smem((const void*)bwd_pre_kernel, most.pre);
   if (err == cudaSuccess) err = allow_smem((const void*)bwd_dx_kernel, most.dx);
   if (err != cudaSuccess) return (int)err;
@@ -1524,47 +1689,42 @@ extern "C" {
 const char* stse_train_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // K2. desc: FH_COUNT header fields, then n_layers rows of FL_COUNT fields
-// (see FwdHeader / FwdLayerField; built by stse_train.py). Scratch t_buf,
-// r_buf [B, N, max C_out], part [B, 4, max C_out] and block_sums
-// [B / ghost, 4, max C_out].
+// (see FwdHeader / FwdLayerField; built by stse_train.py). Scratch t_buf
+// [max(B N max C_out, z_splits B latent)] (also the projector's partials,
+// once the top layer's apply pass has read it), r_buf [B, N, max C_out],
+// part [B, 4, max C_out] and block_sums [B / ghost, 4, max C_out].
 int stse_train_forward(const long long* desc, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int n_layers = (int)desc[FH_N_LAYERS], batch = (int)desc[FH_BATCH];
   const int n = (int)desc[FH_N_NODES], ghost = (int)desc[FH_GHOST];
-  const int latent = (int)desc[FH_LATENT];
-  if (n_layers < 1 || batch < 1 || ghost < 1 || batch % ghost != 0 || n < 1 || latent < 1)
+  const int latent = (int)desc[FH_LATENT], z_splits = (int)desc[FH_Z_SPLITS];
+  if (n_layers < 1 || batch < 1 || ghost < 1 || batch % ghost != 0 || n < 1 || latent < 1 ||
+      z_splits < 1)
     return (int)cudaErrorInvalidValue;
-  const int n_blocks = batch / ghost;
+  const long long* rows = desc + FH_COUNT;
+  LayerSmem most;
+  cudaError_t err = check_layers(rows, FL_COUNT, n_layers, n, &most);
+  if (err == cudaSuccess) err = allow_smem((const void*)fwd_pre_kernel, most.fwd);
+  if (err == cudaSuccess) err = allow_smem((const void*)fwd_apply_kernel, most.apply);
+  if (err != cudaSuccess) return (int)err;
   float* t_buf = ptr<float>(desc, FH_T_BUF);
-  float* r_buf = ptr<float>(desc, FH_R_BUF);
-  float* part = ptr<float>(desc, FH_PART);
-  float* block_sums = ptr<float>(desc, FH_BLOCK_SUMS);
   const float* x = ptr<const float>(desc, FH_X);
-  for (int l = 0; l < n_layers; ++l) {
-    const long long* row = desc + FH_COUNT + (long long)l * FL_COUNT;
+  for (int l = 0; l < n_layers && err == cudaSuccess; ++l) {
+    const long long* row = rows + (long long)l * FL_COUNT;
     Layer L = row_layer(row);
-    if (L.ci < 1 || L.co < 1 || (L.identity && L.ci != L.co)) return (int)cudaErrorInvalidValue;
-    const bool last = l == n_layers - 1;
-    float* act = ptr<float>(row, FL_ACT);
     float* stats = ptr<float>(row, FL_STATS);
     L.stats = stats;
-    const long long smem_pre = layer_smem(L, n).fwd;
-    const long long smem_apply = sizeof(float) * kLatentChunk * kThreads;
-    cudaError_t err = allow_smem((const void*)fwd_pre_kernel, smem_pre);
-    if (err != cudaSuccess) return (int)err;
-    fwd_pre_kernel<<<batch, kThreads, (size_t)smem_pre, stream>>>(x, L, n, t_buf, r_buf, part);
-    fwd_stats_kernel<<<n_blocks, kThreads, 0, stream>>>(part, L, ghost, n, stats, block_sums);
-    fwd_sums_kernel<<<1, kThreads, 0, stream>>>(block_sums, L.co, n_blocks,
-                                                ptr<float>(row, FL_SUMS));
-    fwd_apply_kernel<<<batch, kThreads, (size_t)smem_apply, stream>>>(
-        L, n, ghost, t_buf, r_buf, act, last ? ptr<const float>(desc, FH_WP) : nullptr,
-        last ? ptr<const float>(desc, FH_BP) : nullptr, last ? ptr<float>(desc, FH_Z) : nullptr,
-        latent);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    float* act = ptr<float>(row, FL_ACT);
+    err = run_forward_layer(x, L, n, ghost, batch, t_buf, ptr<float>(desc, FH_R_BUF),
+                            ptr<float>(desc, FH_PART), stats, ptr<float>(desc, FH_BLOCK_SUMS),
+                            ptr<float>(row, FL_SUMS), act, stream);
     x = act;
   }
-  return (int)cudaSuccess;
+  if (err != cudaSuccess) return (int)err;
+  const int c_top = (int)rows[(long long)(n_layers - 1) * FL_COUNT + FL_CO];
+  return (int)run_projector(x, ptr<const float>(desc, FH_WP), ptr<const float>(desc, FH_BP),
+                            batch, n * c_top, latent, z_splits, t_buf, ptr<float>(desc, FH_Z),
+                            stream);
 }
 
 // K5. desc: MH_COUNT header fields, then n_layers rows of ML_COUNT fields
@@ -1609,29 +1769,33 @@ int stse_train_top_backward(const long long* desc, void* stream) {
 
 // The per-window passes of a layer of C_in ci, C_out co on n nodes, for
 // checks and reports: out = (bwd_pre's windows a block, its shared bytes a
-// block, its blocks an SM; bwd_dx's shared bytes a block, its blocks an
-// SM), the blocks an SM as cudaOccupancyMaxActiveBlocksPerMultiprocessor
-// gives them on the current device.
+// block, its blocks an SM; bwd_dx's shared bytes, blocks an SM; fwd_pre's
+// windows a block, shared bytes, blocks an SM; fwd_apply's shared bytes,
+// blocks an SM; projector_z's blocks an SM), the blocks an SM as
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them on the current
+// device.
 int stse_train_pass_occupancy(int n, int ci, int co, int* out) {
   if (n < 1 || ci < 1 || co < 1) return (int)cudaErrorInvalidValue;
   Layer L;
   L.ci = ci;
   L.co = co;
   const LayerSmem smem = layer_smem(L, n);
-  cudaError_t err = allow_smem((const void*)bwd_pre_kernel, smem.pre);
-  if (err == cudaSuccess) err = allow_smem((const void*)bwd_dx_kernel, smem.dx);
-  int pre = 0, dx = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&pre, bwd_pre_kernel, kThreads,
-                                                        (size_t)smem.pre);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&dx, bwd_dx_kernel, kThreads,
-                                                        (size_t)smem.dx);
-  out[0] = pre_windows(ci);
-  out[1] = (int)smem.pre;
-  out[2] = pre;
-  out[3] = (int)smem.dx;
-  out[4] = dx;
+  const void* kernels[5] = {(const void*)bwd_pre_kernel, (const void*)bwd_dx_kernel,
+                            (const void*)fwd_pre_kernel, (const void*)fwd_apply_kernel,
+                            (const void*)projector_z_kernel};
+  const long long bytes[5] = {smem.pre, smem.dx, smem.fwd, smem.apply, 0};
+  int blocks[5] = {0, 0, 0, 0, 0};
+  cudaError_t err = cudaSuccess;
+  for (int k = 0; k < 5 && err == cudaSuccess; ++k) {
+    err = allow_smem(kernels[k], bytes[k]);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[k], kernels[k], kThreads,
+                                                          (size_t)bytes[k]);
+  }
+  const int fields[11] = {pre_windows(ci), (int)smem.pre, blocks[0], (int)smem.dx, blocks[1],
+                          pre_windows(ci), (int)smem.fwd, blocks[2], (int)smem.apply, blocks[3],
+                          blocks[4]};
+  for (int k = 0; k < 11; ++k) out[k] = fields[k];
   return (int)err;
 }
 

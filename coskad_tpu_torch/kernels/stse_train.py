@@ -31,10 +31,10 @@ Dispatch, as for K1: a CUDA tensor launches the kernels or raises; a CPU
 tensor takes the plain PyTorch versions beside them (`ghost_forward_reference`,
 and autograd through `ghost_layer_reference` for the backward).
 
-What bounds the kernels on an H100: K2's fp32 operations; K3, K4 and K5
-run every product (the per-window passes' and the batch reductions') as
-3xTF32 on the tensor cores (see `work`, `products` and the source's
-header).
+What bounds the kernels on an H100: K2-K5 run every product (the
+per-window passes', the projector's and the batch reductions') as 3xTF32
+on the tensor cores, which leaves them bound by their scratch traffic (see
+`work`, `products` and the source's header).
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ BN_EPS = 1e-5
 # (`mono_workspace`) is 47.9 MB, under a quarter of split's 258 MB of saved
 # activations at B = 2048. On an H100 a mono step's peak is the same at
 # chunks of 512 and 1024 windows (K2's forward sets it), where K5 takes
-# 0.6x the time: retuning it is ROADMAP.md Queue 0 item 3 (PERF.md).
+# 0.6x the time: retuning it is ROADMAP.md Queue 2 item 3 (PERF.md).
 MONO_CHUNK_WINDOWS = 128
 
 forward_launches = LaunchCounter()  # K2
@@ -73,7 +73,7 @@ product_launches = LaunchCounter()  # one batch-reduction product alone (`produc
 
 # Descriptor fields, in the order of the enums in csrc/stse_train.cu.
 _FWD_HEADER = ("n_layers", "batch", "n_nodes", "ghost", "latent", "x", "wp", "bp", "z",
-               "t_buf", "r_buf", "part", "block_sums")
+               "t_buf", "r_buf", "part", "block_sums", "z_splits")
 _FWD_LAYER = ("ci", "co", "identity", "m", "w", "b", "gamma", "beta", "w_res", "b_res",
               "gamma_res", "beta_res", "alpha", "act", "stats", "sums")
 _BWD = ("batch", "n_nodes", "ghost", "ci", "co", "identity", "latent", "x", "dy", "dz", "wp",
@@ -415,15 +415,17 @@ def launch_forward(lib, x: torch.Tensor, ops: EncoderOps, ghost_size: int):
     wp = _checked(ops.wp, dev, (n * c_hidden, latent), "wp")
     bp = _checked(ops.bp, dev, (latent,), "bp")
     cmax = max(lay.w.shape[1] for lay in layers)
+    z_splits = projector_splits(n * c_hidden, b, latent)
     f32 = dict(dtype=torch.float32, device=dev)
     z = torch.empty((b, latent), **f32)
-    t_buf = torch.empty((b * n * cmax,), **f32)
+    # t_buf also holds the projector's split partials once the top layer is done with it
+    t_buf = torch.empty((max(b * n * cmax, z_splits * b * latent),), **f32)
     r_buf = torch.empty((b * n * cmax,), **f32)
     part = torch.empty((b * 4 * cmax,), **f32)
     block_sums = torch.empty((b // ghost_size * 4 * cmax,), **f32)
     acts, stats, sums = [], [], []
     desc = [len(layers), b, n, ghost_size, latent, _ptr(x), _ptr(wp), _ptr(bp), _ptr(z),
-            _ptr(t_buf), _ptr(r_buf), _ptr(part), _ptr(block_sums)]
+            _ptr(t_buf), _ptr(r_buf), _ptr(part), _ptr(block_sums), z_splits]
     for lay in layers:
         ci, co = lay.w.shape
         acts.append(torch.empty((b, n, co), **f32))
@@ -438,6 +440,7 @@ def launch_forward(lib, x: torch.Tensor, ops: EncoderOps, ghost_size: int):
 
 # The product kernels' tiles and steps, as csrc/stse_train.cu has them.
 _PRODUCT_WARPS = 8  # warps a block, each with its own share of the block's steps
+_Z_WINDOWS = 128  # K2's projector: windows a block (kZWindows), by 16 latent columns
 _ROWS_STEP = 16  # rows form: rows a step (kRowsStep)
 _CHAN_STEP = 16  # windows form: channels of one window a step (kChanStep)
 _WINDOWS_TILE = (32, 56)  # windows form: the output tile (dM: 7 x 4 tiles of 216 x 216)
@@ -464,6 +467,16 @@ def product_splits(form: str, p: int, q: int, n: int, k: int = 1,
     tiles = -(-p // pt) * -(-q // qt)
     steps = -(-n // _ROWS_STEP) if form == "rows" else n * -(-k // _CHAN_STEP)
     return max(1, min(-(-target_blocks // tiles), steps // (2 * _PRODUCT_WARPS)))
+
+
+def projector_splits(rows: int, batch: int, latent: int, target_blocks: int = 528) -> int:
+    """How many blocks split K2's projector z = y_flat wp + bp along the
+    `rows` (N * C_out) of wp: four blocks an SM over 132 SMs (a block holds
+    no shared memory and few registers), as long as each keeps at least
+    four k-steps of 8 rows. A block owns 128 windows by 16 latent columns,
+    so it reads its rows of wp from L2 once per 128 windows."""
+    tiles = -(-batch // _Z_WINDOWS) * -(-latent // 16)
+    return max(1, min(-(-target_blocks // tiles), -(-rows // 32)))
 
 
 def partials(*products: Tuple[int, int]) -> int:
@@ -559,22 +572,28 @@ def launch_product(lib, form: str, a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+_OCCUPANCY = ("bwd_pre_windows_per_block", "bwd_pre_smem_bytes", "bwd_pre_blocks_per_sm",
+              "bwd_dx_smem_bytes", "bwd_dx_blocks_per_sm", "fwd_pre_windows_per_block",
+              "fwd_pre_smem_bytes", "fwd_pre_blocks_per_sm", "fwd_apply_smem_bytes",
+              "fwd_apply_blocks_per_sm", "projector_z_blocks_per_sm")
+
+
 def pass_occupancy(lib, n: int, ci: int, co: int) -> dict:
-    """K3/K4/K5's per-window passes for a layer of C_in ci and C_out co on n
-    nodes, from `lib`: bwd_pre's windows a block, and each pass's shared
-    bytes a block and blocks an SM on the current device
-    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`)."""
+    """K2-K5's per-window passes for a layer of C_in ci and C_out co on n
+    nodes, from `lib`: fwd_pre's and bwd_pre's windows a block, and the
+    shared bytes a block and blocks an SM on the current device
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`) of bwd_pre, bwd_dx,
+    fwd_pre and fwd_apply, and the blocks an SM of K2's projector_z (no
+    shared memory; the same for every layer)."""
     fn = lib.stse_train_pass_occupancy
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = np.zeros(5, np.int32)
+    out = np.zeros(len(_OCCUPANCY), np.int32)
     err = fn(n, ci, co, out.ctypes.data)
     if err != 0:
         raise RuntimeError(f"stse_train_pass_occupancy failed: "
                            f"{lib.stse_train_error_string(err).decode()}")
-    return dict(bwd_pre_windows_per_block=int(out[0]), bwd_pre_smem_bytes=int(out[1]),
-                bwd_pre_blocks_per_sm=int(out[2]), bwd_dx_smem_bytes=int(out[3]),
-                bwd_dx_blocks_per_sm=int(out[4]))
+    return {k: int(v) for k, v in zip(_OCCUPANCY, out)}
 
 
 def mono_chunk(batch: int, ghost_size: int, chunk_windows: Optional[int] = None) -> int:
@@ -834,7 +853,7 @@ def fused_stse_apply(model, x: torch.Tensor, ghost_size: int = 32, momentum: flo
         raise ValueError(f"unknown bwd_mode {bwd_mode!r}")
     if compute_dtype != "float32":
         raise NotImplementedError(
-            f"compute_dtype {compute_dtype!r} is not ported yet (ROADMAP.md, Queue 1 item 5)")
+            f"compute_dtype {compute_dtype!r} is not ported yet (ROADMAP.md, Queue 2 item 6)")
     b, c, t, v = x.shape
     if b % ghost_size:
         raise ValueError(f"batch {b} is not a multiple of ghost_size {ghost_size}")
@@ -852,8 +871,9 @@ def work(ops: EncoderOps, batch: int, ghost_size: int) -> dict:
     output written once. The third is the share of the FLOPs in the
     batch-reduction products (`products`), the fourth the rest of K3's, K4's
     and K5's (graph contractions, dense products, dy = dz wp^T): both run as
-    3xTF32 on the tensor cores. K2's per-window FLOPs run outside them, so
-    its last two are 0. K2 reads
+    3xTF32 on the tensor cores. All of K2's FLOPs are per-window (g, t, r
+    and the projector), on the tensor cores too: its third is 0, its fourth
+    its first. K2 reads
     x and the weights and writes z, the activations, block statistics and
     sums. A layer's backward reads x, dy (K4: dz, its output and wp) and
     the weights, and writes dx (not for layer 0), the weight gradients.
@@ -900,7 +920,7 @@ def work(ops: EncoderOps, batch: int, ghost_size: int) -> dict:
     c_h = ops.layers[-1].w.shape[1]
     fwd_flops += batch * 2.0 * n * c_h * latent
     fwd_bytes += 4.0 * (n * c_h * latent + latent + batch * latent)
-    out["K2"] = (fwd_flops, fwd_bytes, 0.0, 0.0)
+    out["K2"] = (fwd_flops, fwd_bytes, 0.0, fwd_flops)
     proj = n * c_h * latent + latent
     k5_flops = mono_flops + batch * 2.0 * 2.0 * n * c_h * latent
     out["K5"] = (k5_flops, 4.0 * (batch * n * ops.layers[0].w.shape[0] + batch * latent

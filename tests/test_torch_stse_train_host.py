@@ -1,4 +1,4 @@
-"""K2, K3 and K4's CUDA source, run on the host: csrc/stse_train.cu compiled
+"""K2-K5's CUDA source, run on the host: csrc/stse_train.cu compiled
 with g++ against tests/cuda_host_emu.h (one std::thread per CUDA thread, a
 barrier for __syncthreads, NaN-filled shared memory) and held against the
 plain PyTorch versions, through the same descriptor-building wrappers the
@@ -102,6 +102,11 @@ CASES = {
     # two warps idle), latent 20 > 16 (K4's dy over 3 k-steps, 5 row blocks)
     "wide": dict(input_dim=3, channels=(40,), hidden=48, t=3, v=4, latent=20, batch=8,
                  ghost=4),
+    # K2's projector: wp's 288 rows in 9 splits of 32, 72 windows in one
+    # 128-window tile (a warp's 16 ragged, three warps idle), latent 20 in a
+    # 16-column and a ragged tile
+    "projector_split": dict(input_dim=2, channels=(), hidden=8, t=4, v=9, latent=20, batch=72,
+                            ghost=24),
 }
 
 
@@ -113,6 +118,9 @@ def test_host_run_of_cuda_source_matches_plain(host_lib, case):
     ops = stse_train.detached(stse_train.encoder_ops(model))
     ops64 = stse_train.detached(ops, torch.float64)
     b, n, ghost = kw["batch"], kw["t"] * kw["v"], kw["ghost"]
+    if case == "projector_split":
+        assert stse_train.projector_splits(n * kw["hidden"], b, kw["latent"]) == 9
+        assert b % 16 and kw["latent"] > 16
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.normal(size=(b, n, kw["input_dim"])).astype(np.float32))
 
@@ -197,23 +205,45 @@ def test_host_run_of_mono_backward_matches_plain(host_lib, case):
                 _close_grad(a, e.float(), f"layer {l} d{f}")
 
 
+def test_forward_repeats_bit_for_bit(host_lib):
+    """Two K2 launches on the same inputs give the same bits: every sum
+    (window moments, ghost statistics, the projector's splits) is taken in
+    a fixed order, and nothing depends on what the scratch held before."""
+    kw = CASES["projector_split"]
+    model = _model(kw["input_dim"], kw["channels"], kw["hidden"], kw["t"], kw["v"],
+                   kw["latent"], seed=5)
+    ops = stse_train.detached(stse_train.encoder_ops(model))
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(kw["batch"], kw["t"] * kw["v"], kw["input_dim"]))
+                         .astype(np.float32))
+    first, second = (stse_train.launch_forward(host_lib, x, ops, kw["ghost"]) for _ in range(2))
+    flat = lambda out: [out[0], *out[1], *out[2], *out[3]]
+    assert all(torch.equal(a, b) for a, b in zip(flat(first), flat(second)))
+
+
 @pytest.mark.parametrize("ci, co, windows", [(2, 32, 4), (32, 16, 1), (16, 32, 2), (32, 64, 1)])
 def test_pass_shared_memory_at_flagship_layers(host_lib, ci, co, windows):
-    """bwd_pre's windows a block and both passes' shared bytes at the
-    flagship's layers (216 nodes): bwd_dx keeps only dg, W^T and W_res^T
-    and the constants, so two blocks of the top layer fit an SM's 228 KB
-    (each block also reserves 1 KB). The blocks an SM come from the card;
-    the host emulation says 1."""
+    """fwd_pre's and bwd_pre's windows a block and every per-window pass's
+    shared bytes at the flagship's layers (216 nodes): bwd_dx keeps only dg,
+    W^T and W_res^T and the constants, so two blocks of the top layer fit
+    an SM's 228 KB (each block also reserves 1 KB), and so do two fwd_pre
+    blocks of any layer; fwd_apply keeps its ghost block's 8 constants a
+    channel. The blocks an SM come
+    from the card; the host emulation says 1."""
     occ = stse_train.pass_occupancy(host_lib, 216, ci, co)
-    assert occ["bwd_pre_windows_per_block"] == windows
+    assert occ["bwd_pre_windows_per_block"] == occ["fwd_pre_windows_per_block"] == windows
     rows, pad = 224, lambda v: -(-v // 8) * 8
     ldx = pad(windows * ci) + 4
-    pre = 2 * rows * ldx + 2 * ci * (pad(co) + 8) + 3 * max(64, pad(co)) + 8 * 32 * 6 + 256
-    assert occ["bwd_pre_smem_bytes"] == 4 * pre
+    for name, q in (("bwd_pre", 3), ("fwd_pre", 5)):
+        floats = (2 * rows * ldx + 2 * ci * (pad(co) + 8) + q * max(64, pad(co)) + 8 * 32 * 2 * q
+                  + 256)
+        assert occ[f"{name}_smem_bytes"] == 4 * floats, name
     dx = rows * (pad(ci) + 4) + 2 * co * (pad(ci) + 8) + 6 * co
     assert occ["bwd_dx_smem_bytes"] == 4 * dx
-    assert 2 * (occ["bwd_dx_smem_bytes"] + 1024) <= 228 * 1024
-    assert occ["bwd_pre_blocks_per_sm"] == occ["bwd_dx_blocks_per_sm"] == 1
+    assert occ["fwd_apply_smem_bytes"] == 4 * 8 * co
+    for name in ("bwd_dx", "fwd_pre"):
+        assert 2 * (occ[f"{name}_smem_bytes"] + 1024) <= 228 * 1024, name
+    assert all(occ[k] == 1 for k in occ if k.endswith("_blocks_per_sm"))
 
 
 def test_launch_refuses_mismatched_inputs(host_lib):
