@@ -8,11 +8,14 @@ Phases, each printing a line before the last:
      CUDA versions; builds every kernel of the port from csrc/ with nvcc,
      one process per source, all at once.
   2. kernel: K1 (eval encoder) against its plain PyTorch version on the
-     card, at the serving path's shapes (full width, B=2048 and a ragged
-     B=2047), on a one-layer identity-residual stack and on a stack whose
-     last layer narrows (16 -> 8 channels, 35 nodes); times kernel and
-     plain version; STSE.forward(train=False) with grad mode on raises (K1
-     has no backward).
+     card, in fp32 and in float64, at the serving path's shapes (full
+     width, B=2048, a ragged B=2047 and a batch of one block and one
+     window more), on a one-layer identity-residual stack and on a stack
+     whose last layer narrows (16 -> 8 channels, 35 nodes); each case
+     launched twice gives the same bits; times kernel and plain version,
+     and each flagship layer alone with its windows a block, shared bytes
+     and blocks an SM (the `K1 layers` line); STSE.forward(train=False)
+     with grad mode on raises (K1 has no backward).
   3. train kernels: K2 (ghost-BN forward), K3 (a lower layer's backward)
      and K4 (the top layer's backward with the projector's) against their
      plain versions on the card: full width at B=2048 ghost 64, B=96 ghost
@@ -234,8 +237,20 @@ def phase_environment():
     return card, build_s
 
 
+def folded_f64(folded):
+    """The folded weights in float64, for the plain version's float64 run."""
+    from coskad_tpu_torch.kernels import stse_fused
+
+    return stse_fused.FoldedSTSE(
+        [stse_fused.FoldedLayer(*(t.double() for t in lay)) for lay in folded.layers],
+        folded.w_proj.double(), folded.b_proj.double())
+
+
 def phase_kernel(card):
-    """K1 against its plain version on the card; returns its kernel record."""
+    """K1 against its plain version on the card, in fp32 and float64, and
+    launched twice for the same bits; each flagship layer's time alone with
+    its windows a block, shared bytes and blocks an SM. Returns its kernel
+    record."""
     import torch
     from coskad_tpu_torch.kernels import stse_fused
 
@@ -245,9 +260,12 @@ def phase_kernel(card):
                 latent_dim=16, n_frames=12, n_joints=18)
     model = seeded_stse(gen, dev, **full)
     folded, packed = model.folded()
+    occupancy = stse_fused.occupancy(packed)
+    wb = occupancy["windows_per_block"]
     cases = []
     x_main = None
     for label, kw, batch in (("full_B2048", full, 2048), ("full_B2047", full, 2047),
+                             (f"full_B{wb + 1}_ragged_block", full, wb + 1),
                              ("identity_residual_B64",
                               dict(input_dim=8, layer_channels=(8,), hidden_dimension=8,
                                    latent_dim=4, n_frames=6, n_joints=5), 64),
@@ -260,18 +278,25 @@ def phase_kernel(card):
                         generator=gen).to(dev)
         with torch.no_grad():
             h_k = stse_fused.fused_stse_hidden(x, f, p)
+            h_again = stse_fused.fused_stse_hidden(x, f, p)
             h_r = stse_fused.fused_stse_hidden_reference(x, f)
+            h_64 = stse_fused.fused_stse_hidden_reference(x.double(), folded_f64(f))
             z_k = stse_fused.fused_stse_forward(x, f, p)
             z_r = stse_fused.fused_stse_forward_reference(x, f)
         torch.cuda.synchronize()
         err_h = float((h_k - h_r).abs().max())
+        err_64 = float((h_k.double() - h_64).abs().max())
         err_z = float((z_k - z_r).abs().max())
-        ok = (within(h_k, h_r, **TOL) and within(z_k, z_r, **TOL)
-              and bool(torch.isfinite(h_k).all()))
+        same_bits = torch_equal(h_k, h_again)
+        ok = (within(h_k, h_r, **TOL) and within(h_k.double(), h_64, **TOL)
+              and within(z_k, z_r, **TOL) and bool(torch.isfinite(h_k).all()))
         cases.append(dict(case=label, batch=batch, max_abs_err_hidden=err_h,
-                          max_abs_err_latent=err_z, ok=ok))
-        check(ok, f"stse_fused {label}: kernel vs plain max abs err hidden {err_h:.3e}, "
-                  f"latent {err_z:.3e} outside rtol {TOL['rtol']} atol {TOL['atol']}")
+                          max_abs_err_hidden_f64=err_64, max_abs_err_latent=err_z,
+                          same_bits_twice=same_bits, ok=ok))
+        check(ok, f"stse_fused {label}: kernel vs plain max abs err hidden {err_h:.3e} "
+                  f"(float64 {err_64:.3e}), latent {err_z:.3e} outside rtol {TOL['rtol']} "
+                  f"atol {TOL['atol']}")
+        check(same_bits, f"stse_fused {label}: two launches gave different bits")
         if label == "full_B2048":
             x_main = x
 
@@ -289,30 +314,34 @@ def phase_kernel(card):
         plain_ms = cuda_ms(lambda: stse_fused.fused_stse_hidden_reference(x_main, folded))
         kernel_ms_2 = cuda_ms(lambda: stse_fused.fused_stse_hidden(x_main, folded, packed))
         plain_ms_2 = cuda_ms(lambda: stse_fused.fused_stse_hidden_reference(x_main, folded))
-        per_layer_ms = {}
+        per_layer_ms, layers = {}, {}
         for lay in folded.layers:  # each layer alone, as a one-layer stack
             one = folded._replace(layers=[lay])
             one_packed = stse_fused.pack_folded(one)
             x1 = torch.randn(2048, lay.w.shape[0], 12, 18, generator=gen).to(dev)
-            per_layer_ms["{}->{}".format(*lay.w.shape)] = cuda_ms(
-                lambda: stse_fused.fused_stse_hidden(x1, one, one_packed))
+            name = "{}->{}".format(*lay.w.shape)
+            per_layer_ms[name] = cuda_ms(lambda: stse_fused.fused_stse_hidden(x1, one, one_packed))
+            layers[name] = dict(ms=per_layer_ms[name], **stse_fused.occupancy(one_packed))
     flops, nbytes = stse_fused.work(folded, 2048)
-    bound_ms, bound_by = bound_of(flops, nbytes)
+    # every FLOP runs on the tensor cores as 3xTF32: three TF32 products for each
+    bound_ms, bound_by = bound_of(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
     rec = dict(
         name="stse_fused", route="cuda", source=stse_fused.SOURCE,
         replaces=stse_fused.REPLACES, launches=None,
         max_abs_err=max(c["max_abs_err_hidden"] for c in cases),
         tolerance=TOL, ms=min(kernel_ms, kernel_ms_2), kernel_ms=min(kernel_ms, kernel_ms_2),
         plain_ms=min(plain_ms, plain_ms_2), bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None,
+        bound_fp32_ms=bound_of(flops, nbytes)[0], library_ms=None,
         batch=2048, flops=flops, bytes=nbytes, cases=cases, per_layer_ms=per_layer_ms,
+        layers=layers, occupancy=occupancy,
         timing_runs_ms=dict(kernel=[kernel_ms, kernel_ms_2], plain=[plain_ms, plain_ms_2]),
     )
     print("kernel check: " + json.dumps(dict(
         name="stse_fused", cases=cases, eval_forward_with_grad_raises=True,
         kernel_ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
-        bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], per_layer_ms=per_layer_ms,
-        card=card)))
+        bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+        bound_fp32_ms=rec["bound_fp32_ms"], card=card)))
+    print("K1 layers: " + json.dumps(dict(stack=occupancy, layers=layers, card=card)))
     return rec
 
 

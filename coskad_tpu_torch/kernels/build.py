@@ -3,9 +3,10 @@
 Each `csrc/<name>.cu` is compiled by `nvcc` into its own shared library with a
 plain C interface and loaded with `ctypes`. Builds go to
 `build/coskad_tpu_torch/` at the repository root (listed in `.gitignore`), at
-first use, and are keyed by a hash of the source so an edited kernel is never
-served from a stale library. Several sources build in parallel
-(`build_all`), one `nvcc` process each.
+first use, and are keyed by a hash of the source and the headers under
+`csrc/`, so an edited kernel or header is never served from a stale
+library. Several sources build in parallel (`build_all`), one `nvcc`
+process each.
 """
 
 from __future__ import annotations
@@ -50,10 +51,16 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Tuple[str, str]:
+    """The source of kernel `name` and its library path, keyed by the source,
+    every header under csrc/ (a source may include any of them) and the
+    flags."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith((".cuh", ".h")))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in (src, *(os.path.join(CSRC, h) for h in headers)):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
 def _start(name: str):

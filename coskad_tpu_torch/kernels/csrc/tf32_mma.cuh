@@ -1,0 +1,117 @@
+// Tensor-core helpers shared by the port's kernels (stse_fused.cu, stse_train.cu):
+// TF32 rounding, the m16n8k8 TF32 mma.sync, cp.async, the 3xTF32 split and
+// product, and the fragment loaders of a warp's 16-row tiles.
+//
+// Include after <cuda_runtime.h> and <stdint.h>. Under CUDA_HOST_EMU (the
+// host emulation of tests/cuda_host_emu.h) the inline-PTX helpers are left
+// out: the emulator supplies tf32_of, mma_tf32 and the cp.async calls.
+#pragma once
+
+namespace {
+
+#ifndef CUDA_HOST_EMU
+// cvt.rna.tf32.f32: the top 19 bits, rounded to nearest, ties away from zero.
+__device__ __forceinline__ uint32_t tf32_of(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// d += a b on one 16 x 8 x 8 tile; the fragments in the PTX layout for
+// m16n8k8 .tf32 (g = lane / 4, t = lane % 4): a = A[g][t], A[g+8][t],
+// A[g][t+4], A[g+8][t+4]; b = B[t][g], B[t+4][g]; d = D[g][2t], D[g][2t+1],
+// D[g+8][2t], D[g+8][2t+1].
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+#endif
+
+// 3xTF32: v = big + small to ~2^-22 relative, each part a TF32 value.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
+  big = tf32_of(v);
+  small = tf32_of(v - __uint_as_float(big));
+}
+
+// d += a b in ~fp32 accuracy: the small parts' products first, then big x big.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           const uint32_t (&b_big)[2],
+                                           const uint32_t (&b_small)[2]) {
+  mma_tf32(d, a_small, b_big);
+  mma_tf32(d, a_big, b_small);
+  mma_tf32(d, a_big, b_big);
+}
+
+__host__ __device__ constexpr int round8(int v) { return (v + 7) & ~7; }
+
+// A lane's values of the A fragment at rows [r0, r0 + 16) x columns [k0,
+// k0 + 8), and its B fragment at [k0, k0 + 8) x [c0, c0 + 8) split into
+// TF32 big and small parts, in the PTX layout (see mma_tf32).
+template <class FA>
+__device__ __forceinline__ void frag_a(const FA& a, int r0, int k0, float (&v)[4]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  v[0] = a(r0 + g, k0 + t);
+  v[1] = a(r0 + g + 8, k0 + t);
+  v[2] = a(r0 + g, k0 + t + 4);
+  v[3] = a(r0 + g + 8, k0 + t + 4);
+}
+
+template <class FB>
+__device__ __forceinline__ void frag_b(const FB& b, int k0, int c0, uint32_t (&big)[2],
+                                       uint32_t (&small)[2]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  split_tf32(b(k0 + t, c0 + g), big[0], small[0]);
+  split_tf32(b(k0 + t + 4, c0 + g), big[1], small[1]);
+}
+
+// acc[j] += A[r0, r0 + 16) x [0, K) . B[0, K) x [c0 + 8 j, c0 + 8 j + 8) for
+// j < tiles <= NT; K a multiple of 8, the loaders 0 past their operand's
+// edge. Each A fragment is loaded once, for all the column tiles, and one
+// step ahead, so its latency (L2 for M) runs under the step before.
+template <int NT, class FA, class FB>
+__device__ __forceinline__ void warp_tile(float (&acc)[NT][4], int r0, int K, int c0, int tiles,
+                                          const FA& a, const FB& b) {
+  float next[4];
+  if (K > 0) frag_a(a, r0, 0, next);
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    uint32_t ab[4], as[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(next[i], ab[i], as[i]);
+    if (k0 + 8 < K) frag_a(a, r0, k0 + 8, next);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j >= tiles) break;
+      uint32_t bb[2], bs[2];
+      frag_b(b, k0, c0 + 8 * j, bb, bs);
+      mma_3xtf32(acc[j], ab, as, bb, bs);
+    }
+  }
+}
+
+// Row and column, within its 16 x 8 tile, of a lane's accumulator entry i.
+__device__ __forceinline__ int frag_row(int i) { return ((threadIdx.x & 31) >> 2) + (i >= 2 ? 8 : 0); }
+__device__ __forceinline__ int frag_col(int i) { return 2 * (threadIdx.x & 3) + (i & 1); }
+
+}  // namespace

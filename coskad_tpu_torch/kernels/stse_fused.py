@@ -16,9 +16,11 @@ kernel, so the projector is one `torch.matmul` with the flax `btlnk.kernel`
 unpermuted (the TPU version transposed the hidden state to [B, C, N] only
 because Mosaic could not merge minor axes).
 
-What bounds it on an H100: fp32 operations (~8.9 MFLOP per window at the
+What bounds it on an H100: operations (~8.9 MFLOP per window at the
 flagship width against ~58 KB of device memory traffic; see `work` and
-PERF.md). The kernel's header says what its design does about that.
+PERF.md), which the kernel runs on the tensor cores as 3xTF32 `mma.sync`,
+several windows a block, with M's k-slices staged in shared memory by
+`cp.async`. The kernel's header says how.
 
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor takes
 the plain PyTorch version (`fused_stse_hidden_reference`).
@@ -35,7 +37,8 @@ import torch
 
 SOURCE = "coskad_tpu_torch/kernels/csrc/stse_fused.cu"
 REPLACES = "coskad_tpu/kernels/stse_fused.py:125"
-_LAYOUT_COLS = 9  # ci, co, cip, cop, off_m, off_w, off_wr, off_b, off_alpha
+_LAYOUT_COLS = 8  # ci, co, identity, off_m, off_w, off_wr, off_b, off_alpha
+_OCCUPANCY = ("windows_per_block", "smem_bytes", "blocks_per_sm")
 
 
 class LaunchCounter:
@@ -70,9 +73,9 @@ class PackedSTSE:
     plus a host table of per-layer sizes and offsets."""
 
     weights: torch.Tensor  # flat float32, every segment 16-byte aligned
-    layout: np.ndarray  # [n_layers, 9] int64, see _LAYOUT_COLS
+    layout: np.ndarray  # [n_layers, 8] int64, see _LAYOUT_COLS
     n_nodes: int
-    n_pad: int
+    n_pad: int  # T*V rounded up to 16: M is [n_pad, n_pad]
 
 
 def _fold_dense_bn(state: Mapping[str, torch.Tensor], dense: str, bn: str,
@@ -119,17 +122,20 @@ def fold_stse_params(state: Mapping[str, torch.Tensor]) -> FoldedSTSE:
     return FoldedSTSE(layers, w_proj, b_proj)
 
 
-def _round4(n: int) -> int:
-    return (n + 3) // 4 * 4
+def _round_up(n: int, m: int) -> int:
+    return (n + m - 1) // m * m
 
 
 def pack_folded(folded: FoldedSTSE) -> PackedSTSE:
     """Lay the folded weights out for the kernel: per layer M padded to
-    [NP, NP] (NP = T*V rounded up to 4), W and W_res padded to [CIP, COP],
-    one bias b + b_res [COP], the PReLU slope. Padding is zeros, so padded
-    nodes and channels never reach a valid output."""
+    [NP, NP] (NP = T*V rounded up to 16, the kernel's node tile), W and
+    W_res padded to [CI8, CO8] (channels rounded up to 8, the mma's k and
+    n), one bias b + b_res [CO8], the PReLU slope, and whether the residual
+    is the identity (W_res = I, which the kernel adds as x). Padding is
+    zeros, so padded nodes and channels never reach a valid output. Every
+    segment starts on 16 bytes, for the kernel's cp.async copies of M."""
     n = folded.layers[0].graph.shape[0]
-    npad = _round4(n)
+    npad = _round_up(n, 16)
     ref = folded.layers[0].w
     segments, rows, off = [], [], 0
 
@@ -137,23 +143,25 @@ def pack_folded(folded: FoldedSTSE) -> PackedSTSE:
         nonlocal off
         start = off
         segments.append(t.reshape(-1))
-        off += _round4(t.numel())
+        off += _round_up(t.numel(), 4)
         if off > start + t.numel():
             segments.append(ref.new_zeros(off - start - t.numel()))
         return start
 
     for lay in folded.layers:
         ci, co = lay.w.shape
-        cip, cop = _round4(ci), _round4(co)
+        ci8, co8 = _round_up(ci, 8), _round_up(co, 8)
+        identity = ci == co and torch.equal(
+            lay.w_res, torch.eye(ci, dtype=lay.w_res.dtype, device=lay.w_res.device))
         m = ref.new_zeros(npad, npad)
         m[:n, :n] = lay.graph
-        w = ref.new_zeros(cip, cop)
+        w = ref.new_zeros(ci8, co8)
         w[:ci, :co] = lay.w
-        wr = ref.new_zeros(cip, cop)
+        wr = ref.new_zeros(ci8, co8)
         wr[:ci, :co] = lay.w_res
-        bias = ref.new_zeros(cop)
+        bias = ref.new_zeros(co8)
         bias[:co] = lay.b + lay.b_res
-        rows.append([ci, co, cip, cop, put(m), put(w), put(wr), put(bias),
+        rows.append([ci, co, int(identity), put(m), put(w), put(wr), put(bias),
                      put(lay.alpha.reshape(1).to(ref.dtype))])
     weights = torch.cat(segments).to(torch.float32).contiguous()
     return PackedSTSE(weights, np.asarray(rows, np.int64), n, npad)
@@ -177,20 +185,45 @@ def fused_stse_forward_reference(x: torch.Tensor, folded: FoldedSTSE) -> torch.T
     return h.reshape(h.shape[0], -1) @ folded.w_proj + folded.b_proj
 
 
+def bind(lib):
+    """Set the argument and return types of the kernel library's C entries
+    (the built library, or the host emulation's); returns `lib`."""
+    lib.stse_fused_forward.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.stse_fused_forward.restype = ctypes.c_int
+    lib.stse_fused_occupancy.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_void_p]
+    lib.stse_fused_occupancy.restype = ctypes.c_int
+    lib.stse_fused_error_string.argtypes = [ctypes.c_int]
+    lib.stse_fused_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _library():
     from . import build
 
     lib = build.load("stse_fused")
     if not getattr(lib, "_coskad_typed", False):
-        lib.stse_fused_forward.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.stse_fused_forward.restype = ctypes.c_int
-        lib.stse_fused_error_string.argtypes = [ctypes.c_int]
-        lib.stse_fused_error_string.restype = ctypes.c_char_p
+        bind(lib)
         lib._coskad_typed = True
     return lib
+
+
+def occupancy(packed: PackedSTSE, lib=None) -> dict:
+    """What a launch on `packed` uses, from `lib` (default: the built
+    library on the current device): windows a block, shared bytes a block
+    and blocks an SM (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`)."""
+    lib = _library() if lib is None else lib
+    layout = np.ascontiguousarray(packed.layout, np.int64)
+    out = np.zeros(len(_OCCUPANCY), np.int32)
+    err = lib.stse_fused_occupancy(layout.ctypes.data, len(layout), packed.n_nodes,
+                                   packed.n_pad, out.ctypes.data)
+    if err != 0:
+        raise RuntimeError(
+            f"stse_fused_occupancy failed: {lib.stse_fused_error_string(err).decode()}")
+    return {k: int(v) for k, v in zip(_OCCUPANCY, out)}
 
 
 def _launch(x: torch.Tensor, packed: PackedSTSE) -> torch.Tensor:
@@ -207,6 +240,10 @@ def _launch(x: torch.Tensor, packed: PackedSTSE) -> torch.Tensor:
         raise ValueError("packed weights must be 16-byte aligned float32 on the input's device")
     if len(lay) > 8:
         raise ValueError("the stse_fused kernel takes at most 8 layers")
+    if max(min(int(ci), int(co)) for ci, co in lay[:, :2]) > 64 or int(lay[:-1, 1].max(
+            initial=0)) > 64:
+        raise ValueError("the stse_fused kernel contracts at most 64 channels a layer, and "
+                         "an inner layer puts out at most 64")
     out = torch.empty((b, packed.n_nodes, int(lay[-1, 1])), dtype=torch.float32,
                       device=x.device)
     if b == 0:
@@ -251,7 +288,8 @@ def work(folded: FoldedSTSE, batch: int) -> Tuple[float, float]:
     layer the graph contraction 2*N^2*min(C_in, C_out) (a narrowing layer
     contracts x W rather than x) and the two denses 2*N*C_in*C_out each; the
     input read once, the hidden state written once, the folded weights read
-    once."""
+    once. The kernel runs every one of these FLOPs on the tensor cores as
+    3xTF32 (three TF32 products for each)."""
     n = folded.layers[0].graph.shape[0]
     flops = 0.0
     weight_elems = 0

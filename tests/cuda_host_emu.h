@@ -1,6 +1,6 @@
 // Runs a CUDA kernel source on the host, for tests on machines without a GPU.
 //
-// Covers the subset the port's kernels use: float4, __ldg, rsqrtf, threadIdx
+// Covers the subset the port's kernels use: float2, float4, __ldg, rsqrtf, threadIdx
 // (x) and blockIdx (x, y) with a dim3 grid, dynamic shared memory and
 // __syncthreads, __nv_bfloat16 with the conversions, compares, products and
 // min the probes use, and the warp-level pieces of the batch-reduction
@@ -28,6 +28,10 @@
 #include <thread>
 #include <vector>
 
+struct float2 {
+  float x, y;
+};
+inline float2 make_float2(float a, float b) { return {a, b}; }
 struct float4 {
   float x, y, z, w;
 };

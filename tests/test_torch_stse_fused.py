@@ -3,6 +3,8 @@ against the JAX package's Pallas kernel in interpret mode, on the same
 weights and inputs. Tolerance rtol=2e-4, atol=2e-5: fp32 reassociation
 (the same as tests/test_fused_kernel.py)."""
 
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -62,22 +64,50 @@ def test_cpu_wrapper_does_not_count_launches():
 
 
 def test_pack_layout_pads_to_multiples_of_four():
-    """The kernel's packed layout: padded nodes/channels are zeros, every
-    segment 16-byte aligned, b + b_res stored as one bias."""
+    """The kernel's packed layout: M padded to the 16-node tile, W and W_res
+    to the mma's 8 channels, padded nodes/channels zeros, every segment
+    16-byte aligned (a multiple of four floats), b + b_res stored as one
+    bias, the identity residual flagged."""
     x, folded, _ = _both(FULL, 2, 2, seed_x=5, seed_vars=2)
     packed = stse_fused.pack_folded(folded)
-    assert packed.n_nodes == 12 * 17 and packed.n_pad == 204
+    assert packed.n_nodes == 12 * 17 and packed.n_pad == 208
     w = packed.weights
     for row, lay in zip(packed.layout, folded.layers):
-        ci, co, cip, cop, om, ow, owr, ob, oa = (int(v) for v in row)
-        assert (cip, cop) == (-(-ci // 4) * 4, -(-co // 4) * 4)
+        ci, co, identity, om, ow, owr, ob, oa = (int(v) for v in row)
+        ci8, co8 = -(-ci // 8) * 8, -(-co // 8) * 8
+        assert identity == 0
         assert all(off % 4 == 0 for off in (om, ow, owr, ob, oa))
         m = w[om:om + packed.n_pad ** 2].reshape(packed.n_pad, packed.n_pad)
         assert torch.equal(m[:204, :204], lay.graph)
-        wf = w[ow:ow + cip * cop].reshape(cip, cop)
-        assert torch.equal(wf[:ci, :co], lay.w) and not wf[ci:].any()
+        assert not m[204:].any() and not m[:, 204:].any()
+        wf = w[ow:ow + ci8 * co8].reshape(ci8, co8)
+        assert torch.equal(wf[:ci, :co], lay.w) and not wf[ci:].any() and not wf[:, co:].any()
+        wr = w[owr:owr + ci8 * co8].reshape(ci8, co8)
+        assert torch.equal(wr[:ci, :co], lay.w_res) and not wr[ci:].any()
         torch.testing.assert_close(w[ob:ob + co], lay.b + lay.b_res)
+        assert not w[ob + co:ob + co8].any()
         assert float(w[oa]) == float(lay.alpha)
+    kw = dict(input_dim=8, layer_channels=(8,), hidden_dimension=8, latent_dim=4,
+              n_frames=6, n_joints=5)
+    _, folded, _ = _both(kw, 2, 2, seed_x=2, seed_vars=3)
+    assert stse_fused.pack_folded(folded).layout[:, 2].tolist() == [1, 1]
+
+
+def test_build_hash_covers_csrc_headers(tmp_path, monkeypatch):
+    """A kernel's library path changes with any header under csrc/, not only
+    with its own source, so an edited header is never served from a stale
+    library."""
+    from coskad_tpu_torch.kernels import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", str(csrc))
+    before = {name: build._target(name)[1] for name in build.KERNELS}
+    header = csrc / "tf32_mma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: build._target(name)[1] for name in build.KERNELS}
+    assert all(before[k] != after[k] for k in build.KERNELS)
+    assert after == {name: build._target(name)[1] for name in build.KERNELS}
 
 
 def test_work_counts_flagship_flops_and_bytes():

@@ -44,7 +44,7 @@ def _compile(gxx: str, src: str, d, name: str) -> ctypes.CDLL:
     (d / f"{name}.cpp").write_text(src)
     lib = str(d / f"lib{name}.so")
     subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-I", HERE,
-                    "-o", lib, str(d / f"{name}.cpp")],
+                    "-I", build.CSRC, "-o", lib, str(d / f"{name}.cpp")],
                    check=True, capture_output=True, timeout=300)
     return ctypes.CDLL(lib)
 

@@ -50,7 +50,7 @@ def host_lib(tmp_path_factory):
         (d / "stse_train_host.cpp").write_text(_host_source(f.read()))
     lib = str(d / "libstse_train_host.so")
     subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-I", HERE,
-                    "-o", lib, str(d / "stse_train_host.cpp")],
+                    "-I", build.CSRC, "-o", lib, str(d / "stse_train_host.cpp")],
                    check=True, capture_output=True, timeout=300)
     so = ctypes.CDLL(lib)
     for fn in stse_train.REPLACES:
