@@ -61,7 +61,21 @@ Phases, each printing a line before the last:
      breakdown of one step, the live-BN (fused_train='off') step for
      context, and the profiler's idle share over one epoch, flagged where
      its K2-K4 kernel time is more than 10% off their CUDA-event times.
-  6. a JSON line of every kernel (launches on the main paths, error, times,
+  6. cli (the command-line path): a synthetic AlphaPose tree (8 training
+     clips x 2 actors x 1,100 frames, 17,408 stride-1 windows; 4 test
+     clips with <scene>_<clip>.npy ground truth) and a reference-key config
+     written as JSON at the flagship width (fused_train 'on', ghost 64,
+     batch 2048, validation on); cli.train for 2 epochs, then --resume to
+     epoch 3 (best.ckpt, last.ckpt, the config snapshot and metrics.jsonl
+     written, last.ckpt's epochs_done 3, finite losses), cli.eval on
+     best.ckpt (finite AUC) and AnomalyScorer.from_checkpoint scoring
+     4,096 test windows to the eval's bits: K1-K4 launch counts over that
+     run. Then, not counted: a straight 3-epoch run, whose third-epoch loss
+     must be the resumed run's within rtol 1e-5, and a save / restore into
+     a fresh Trainer whose score_all gives the same bits. The `cli` line
+     has windows, the JSON parse time, per-epoch train windows/s,
+     checkpoint bytes and save / restore ms, eval's wall breakdown and AUC.
+  7. a JSON line of every kernel (launches on the main paths, error, times,
      bound), then the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -74,6 +88,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -136,6 +151,12 @@ TRAIN_KERNELS = (*FORWARD_PASSES, "transpose_kernel", "projector_dy_kernel", "bw
                  "bwd_consts_kernel", "bwd_reduce_kernel", "bwd_dx_kernel", "product_rows_kernel",
                  "product_windows_kernel", "sum_splits_kernel")
 TRAIN_CLIPS, VAL_CLIPS = 100, 20  # x 2 actors x 200 windows: 40,000 and 8,000 windows
+# the cli phase's AlphaPose tree: clips x 2 actors x (frames - 11) stride-1 windows
+CLI_TRAIN_CLIPS, CLI_TEST_CLIPS, CLI_FRAMES = 8, 4, 1100
+CLI_ANOMALY = (400, 550)  # frames where actor 1 of each test clip scatters
+CLI_MIN_WINDOWS = 16384
+CLI_SERVED = 4096  # test windows from_checkpoint scores against cli.eval's scores
+RESUME_RTOL = 1e-5  # third-epoch loss, resumed against straight, on the card
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
@@ -371,14 +392,19 @@ def synthetic_windows(rng, n_clips, n_actors, n_windows, seg_len, n_joints,
     return data, meta.astype(np.int64), frame_ids, gts
 
 
-def write_clip_json(path, rng, n_frames, n_joints=17, n_actors=2):
+def write_clip_json(path, rng, n_frames, n_joints=17, n_actors=2, anomalous=None):
+    """An AlphaPose clip of random-walk actors; with `anomalous` = (lo, hi),
+    actor 1 scatters over the frame in frames lo..hi (1-based: lo+1..hi)."""
     clip = {}
     for pid in range(1, n_actors + 1):
         base = rng.uniform(150, 500, size=(n_joints, 2))
         frames = {}
         for f in range(1, n_frames + 1):
             base = base + rng.normal(scale=1.5, size=(n_joints, 2))
-            kp = np.concatenate([base, rng.uniform(0.5, 1.0, size=(n_joints, 1))], -1)
+            pos = base
+            if anomalous is not None and pid == 1 and anomalous[0] < f <= anomalous[1]:
+                pos = rng.uniform(0, 856, size=(n_joints, 2))
+            kp = np.concatenate([pos, rng.uniform(0.5, 1.0, size=(n_joints, 1))], -1)
             frames[f"{f:04d}"] = {"keypoints": kp.reshape(-1).tolist()}
         clip[str(pid)] = frames
     with open(path, "w") as f:
@@ -1422,13 +1448,188 @@ def live_bn_step_ms(Trainer, cfg, train_ds, weights, steps=10):
     return (time.perf_counter() - t0) * 1e3 / steps
 
 
+def write_cli_tree(root, rng):
+    """The cli phase's AlphaPose tree under root and two flagship configs
+    (as JSON, reference keys) that differ only in their checkpoint folder."""
+    pose = {split: os.path.join(root, "pose", split) for split in ("training", "testing")}
+    gt_dir = os.path.join(root, "gt")
+    for d in (*pose.values(), gt_dir):
+        os.makedirs(d, exist_ok=True)
+    for i in range(1, CLI_TRAIN_CLIPS + 1):
+        write_clip_json(os.path.join(pose["training"], f"01_{i:04d}_tracked.json"), rng,
+                        CLI_FRAMES)
+    for i in range(1, CLI_TEST_CLIPS + 1):
+        write_clip_json(os.path.join(pose["testing"], f"02_{i:04d}_tracked.json"), rng,
+                        CLI_FRAMES, anomalous=CLI_ANOMALY)
+        gt = np.zeros(CLI_FRAMES, np.int64)
+        gt[CLI_ANOMALY[0]:CLI_ANOMALY[1]] = 1
+        np.save(os.path.join(gt_dir, f"02_{i:04d}.npy"), gt)
+    paths = {}
+    for name in ("resumed", "straight"):
+        raw = dict(
+            dataset_choice="Synthetic", data_dir=root, gt_path=gt_dir,
+            exp_dir=os.path.join(root, "checkpoints"), dir_name=name, seed=0, validation=True,
+            use_decoder=False, use_vae=False, hyperbolic=False, static_center=True,
+            num_coords=2, channels=[32, 16, 32], h_dim=64, latent_dim=16, projector="linear",
+            dropout=0, distance="euclidean", dataset_seg_len=12, dataset_seg_stride=1,
+            dataset_num_transform=5, dataset_vid_res=[856, 480], dataset_kp18_format=True,
+            dataset_normalization_strategy="markovitz", dataset_batch_size=TRAIN_BATCH,
+            ae_epochs=TRAIN_EPOCHS, opt_lr=1e-4, fused_train="on", ghost_size=64,
+            pad_size=-1, split="test")
+        paths[name] = os.path.join(root, f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(raw, f)
+    return paths
+
+
+def phase_cli(card):
+    """cli.train, --resume, cli.eval and AnomalyScorer.from_checkpoint over
+    an AlphaPose tree at the flagship width, in a temporary directory
+    removed afterwards."""
+    root = tempfile.mkdtemp(prefix="coskad_cli_")
+    t0 = time.perf_counter()
+    try:
+        summary = cli_run(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    summary["phase_s"] = time.perf_counter() - t0
+    print(f"cli phase: {summary['phase_s']:.1f} s")
+    return summary
+
+
+def cli_run(card, root):
+    import torch
+    from coskad_tpu_torch.cli import eval as eval_cli
+    from coskad_tpu_torch.cli import train as train_cli
+    from coskad_tpu_torch.cli.common import load_config, load_split
+    from coskad_tpu_torch.interop import flatten_tree, to_jax_variables
+    from coskad_tpu_torch.kernels import stse_fused
+    from coskad_tpu_torch.kernels import stse_train as st
+    from coskad_tpu_torch.serve import AnomalyScorer
+    from coskad_tpu_torch.train import checkpoint
+    from coskad_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    configs = write_cli_tree(root, np.random.default_rng(3))
+    write_s = time.perf_counter() - t0
+    cfg = load_config(configs["resumed"])
+    ckpt_dir = cfg.ckpt_dir
+    t0 = time.perf_counter()
+    windows = load_split(cfg, "train").num_windows
+    parse_s = time.perf_counter() - t0
+    check(windows >= CLI_MIN_WINDOWS,
+          f"the training tree gives {windows} windows, fewer than {CLI_MIN_WINDOWS}")
+    steps = windows * cfg.data.num_transform // cfg.data.batch_size
+
+    epoch_s = []
+    inner = Trainer.train_epoch
+
+    def timed_epoch(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t)
+        return out
+
+    dev = ["--device", DEVICE]
+    counters = dict(stse_fused=stse_fused.launches, stse_train_forward=st.forward_launches,
+                    stse_train_layer_backward=st.layer_backward_launches,
+                    stse_train_top_backward=st.top_backward_launches)
+    Trainer.train_epoch = timed_epoch
+    try:
+        # --- the command-line path, counted ---
+        for c in counters.values():
+            c.value = 0
+        first = train_cli.main(["--config", configs["resumed"], "--epochs", "2", *dev])
+        resumed = train_cli.main(["--config", configs["resumed"], "--epochs", "3", "--resume",
+                                  *dev])
+        train_launches = {k: c.value for k, c in counters.items()}
+        best = os.path.join(ckpt_dir, "best.ckpt")
+        ev = eval_cli.main(["--config", configs["resumed"], "--ckpt", best, *dev])
+        t0 = time.perf_counter()
+        scorer = AnomalyScorer.from_checkpoint(best, device=DEVICE)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        served = scorer.score_windows(resumed.trainer.val_ds.data[:CLI_SERVED])
+        launches = {k: c.value for k, c in counters.items()}
+        # --- end of the counted run ---
+        straight = train_cli.main(["--config", configs["straight"], *dev])
+    finally:
+        Trainer.train_epoch = inner
+
+    want = dict(stse_train_forward=3 * steps, stse_train_layer_backward=3 * 3 * steps,
+                stse_train_top_backward=3 * steps)
+    for k, v in want.items():
+        check(train_launches[k] == v, f"cli.train launched {k} {train_launches[k]} times in 2 + 1 "
+                                      f"epochs, expected {v} ({steps} steps an epoch)")
+    check(train_launches["stse_fused"] > 0, "K1 was not launched by cli.train's validation")
+    check(launches["stse_fused"] > train_launches["stse_fused"],
+          "K1 was not launched by cli.eval / from_checkpoint")
+    for name in ("best.ckpt", "last.ckpt", "best.ckpt.config.json", "metrics.jsonl"):
+        check(os.path.exists(os.path.join(ckpt_dir, name)), f"cli.train wrote no {name}")
+    last_extra = checkpoint.read_payload(os.path.join(ckpt_dir, "last.ckpt"))["extra"]
+    check(last_extra.get("epochs_done") == 3, f"last.ckpt's extra: {last_extra}")
+    losses = first.loss + resumed.loss
+    check(len(losses) == 3 and all(np.isfinite(losses)), f"epoch losses {losses}")
+    check(len(straight.loss) == 3 and all(np.isfinite(straight.loss)),
+          f"straight epoch losses {straight.loss}")
+    loss_diff = abs(resumed.loss[0] - straight.loss[2])
+    check(loss_diff <= RESUME_RTOL * abs(straight.loss[2]),
+          f"third-epoch loss resumed {resumed.loss[0]!r} vs straight {straight.loss[2]!r}")
+    want_p = flatten_tree(to_jax_variables(straight.trainer.model)[0])
+    param_diff = max(float(np.abs(v - want_p[k]).max())
+                     for k, v in flatten_tree(to_jax_variables(resumed.trainer.model)[0]).items())
+    check(np.isfinite(ev.result.auc) and 0.0 <= ev.result.auc <= 1.0,
+          f"cli.eval AUC {ev.result.auc}")
+    served_diff = float(np.abs(served - ev.window_scores[:CLI_SERVED]).max())
+    check(served.shape == (CLI_SERVED,) and served_diff == 0.0,
+          f"from_checkpoint's scores of {CLI_SERVED} test windows differ from cli.eval's: "
+          f"max abs {served_diff:.3e}")
+
+    # Round trip: save, restore into a fresh Trainer, the same bits (not counted).
+    tr, state = resumed.trainer, resumed.state
+    path = os.path.join(root, "roundtrip.ckpt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save(path, tr, state, tr.cfg)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    fresh = Trainer(tr.cfg, tr.val_ds, device=DEVICE)
+    t0 = time.perf_counter()
+    fstate, _, _ = checkpoint.restore(path, fresh)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    s_before, _ = tr.score_all(state, tr.val_ds, tr.val_data)
+    s_after, _ = fresh.score_all(fstate, tr.val_ds, fresh.train_data)
+    check(np.array_equal(s_before, s_after), "score_all after a save / restore differs: max abs "
+                                             f"{float(np.abs(s_before - s_after).max()):.3e}")
+    ckpt_bytes = os.path.getsize(path)
+    items = steps * cfg.data.batch_size
+    wps = [items / t for t in epoch_s]
+    summary = dict(
+        windows=windows, items_per_epoch=items, steps_per_epoch=steps, write_tree_s=write_s,
+        parse_train_s=parse_s, train_epoch_s=epoch_s, train_windows_per_s=wps,
+        losses_resumed=losses, losses_straight=straight.loss, resume_loss_abs_diff=loss_diff,
+        resume_param_max_abs_diff=param_diff, checkpoint_bytes=ckpt_bytes, save_ms=save_ms,
+        restore_ms=restore_ms, from_checkpoint_ms=load_ms, eval_wall_s=ev.wall_s,
+        auc=ev.result.auc, validation_auc=first.validation_auc + resumed.validation_auc,
+        launches=launches, train_launches=train_launches, card=card)
+    print(f"cli: {windows} windows (parse {parse_s:.2f} s); train windows/s by epoch "
+          f"{[round(v) for v in wps]} (epochs 1-2, resumed 3, straight 1-3); losses {losses}, "
+          f"straight {straight.loss}, resumed vs straight: loss diff {loss_diff:.3e}, max param "
+          f"diff {param_diff:.3e}; checkpoint {ckpt_bytes} bytes, save {save_ms:.1f} ms, restore "
+          f"{restore_ms:.1f} ms, from_checkpoint {load_ms:.1f} ms; eval wall "
+          + " ".join(f"{k}={v:.2f}s" for k, v in ev.wall_s.items())
+          + f"; AUC {ev.result.auc:.4f}; launches {launches}; on {card}")
+    return summary
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("kernels", "products"), default=None,
+    ap.add_argument("--only", choices=("kernels", "products", "cli"), default=None,
                     help="run only the environment and kernel phases, or only the product "
-                         "check (no result line)")
+                         "check, or only the cli phase (no result line)")
     args = ap.parse_args(argv)
     card, build_s = phase_environment()
     import torch
@@ -1439,6 +1640,9 @@ def main(argv=None) -> int:
         model = seeded_train_stse(torch.Generator().manual_seed(4321), DEVICE, **FULL)
         phase_products(card, st.detached(st.encoder_ops(model)))
         return 0
+    if args.only == "cli":
+        phase_cli(card)
+        return 0
 
     kernel = phase_kernel(card)
     train_kernels, products = phase_train_kernels(card)
@@ -1448,19 +1652,22 @@ def main(argv=None) -> int:
         return 0
     summary = phase_slice(card)
     train = phase_train(card)
-    kernel["launches"] = summary["launches"]["stse_fused"] + train["launches"]["stse_fused"]
+    cli = phase_cli(card)
     kernel["launches_by_path"] = dict(serving=summary["launches"]["stse_fused"],
-                                      training=train["launches"]["stse_fused"], mono=0)
+                                      training=train["launches"]["stse_fused"], mono=0,
+                                      cli=cli["launches"]["stse_fused"])
+    kernel["launches"] = sum(kernel["launches_by_path"].values())
     for rec in train_kernels + [mono_kernel]:
         by_path = dict(serving=0, training=train["launches"].get(rec["name"], 0),
-                       mono=mono["launches"][rec["name"]])
-        rec["launches"] = by_path["training"] + by_path["mono"]
+                       mono=mono["launches"][rec["name"]],
+                       cli=cli["launches"].get(rec["name"], 0))
+        rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     kernels = [kernel, *train_kernels, mono_kernel, *probes]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, build_s=build_s, kernels=kernels, products=products,
-                       slice=summary, train=train, mono=mono), f, indent=1)
+                       slice=summary, train=train, mono=mono, cli=cli), f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "tolerance",
             "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "product_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in kernels]}))

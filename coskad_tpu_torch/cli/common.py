@@ -1,0 +1,79 @@
+"""Shared CLI plumbing: config and dataset loading, ground-truth discovery.
+
+Counterpart of `coskad_tpu/cli/common.py` for one process. Multi-GPU
+launches (`--distributed`, the exit barrier) wait for ROADMAP.md, Queue 1
+item 5.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+from ..config import Config, from_reference_yaml
+from ..data.alphapose import load_alphapose_split, load_alphapose_store
+from ..data.robust import load_robust_split, load_scaler, save_scaler
+from ..data.windows import SegmentDataset
+
+
+def load_config(path: str) -> Config:
+    return from_reference_yaml(path)
+
+
+def is_primary() -> bool:
+    """True on the process that owns file writes; a single process owns
+    them all."""
+    return True
+
+
+def load_split(cfg: Config, split: str, stride: Optional[int] = None,
+               scaler=None) -> SegmentDataset:
+    """The config's dataset for `split` ('train', 'test' or 'validation'),
+    windowed at `stride` (default: the config's) and normalized with
+    `scaler` where given. The AlphaPose path with robust normalization
+    keeps the fitted scaler in <ckpt_dir>/robust.pkl: the train split writes
+    it, other splits (or use_fitted_scaler) read it."""
+    d = cfg.data
+    seg_stride = stride if stride is not None else d.seg_stride
+    if d.normalization_strategy == "robust" and d.path_to_robust:
+        return load_robust_split(
+            d.path_to_robust, split=split, include_global=cfg.model.num_coords == 6,
+            seg_len=d.seg_len, seg_stride=seg_stride, vid_res=d.vid_res,
+            normalization_strategy="robust", exp_dir=cfg.ckpt_dir,
+            normalize_pose=d.normalize_pose, kp18_format=d.kp18_format, headless=d.headless,
+            num_transform=d.num_transform, num_clips_debug=d.num_clips, scaler=scaler,
+            is_primary=is_primary())
+    pose_dir = d.pose_dirs.get(split)
+    if not pose_dir or not os.path.isdir(pose_dir):
+        raise FileNotFoundError(f"pose directory for split {split!r} not found: {pose_dir!r}")
+    scaler_pkl = os.path.join(cfg.ckpt_dir, "robust.pkl")
+    if (scaler is None and d.normalization_strategy == "robust"
+            and (d.use_fitted_scaler or split != "train") and os.path.exists(scaler_pkl)):
+        scaler = load_scaler(scaler_pkl)
+    kwargs = dict(seg_len=d.seg_len, seg_stride=seg_stride, start_offset=d.start_offset,
+                  num_clips=d.num_clips, kp_threshold=d.kp_threshold,
+                  kp18_format=d.kp18_format, headless=d.headless, vid_res=d.vid_res,
+                  symm_range=d.symm_range, sub_mean=d.sub_mean, scaler=scaler,
+                  num_transform=d.num_transform)
+    if cfg.run.device_pipeline:
+        return load_alphapose_store(pose_dir, **kwargs)
+    ds = load_alphapose_split(pose_dir, normalize_pose=d.normalize_pose,
+                              normalization_strategy=d.normalization_strategy, **kwargs)
+    if (d.normalization_strategy == "robust" and split == "train" and scaler is None
+            and ds.scaler is not None):
+        save_scaler(ds.scaler, scaler_pkl, is_primary())
+    return ds
+
+
+def load_ground_truths(gt_dir: str) -> Dict[Tuple[int, int], np.ndarray]:
+    """{(scene, clip): labels} from '<scene>_<clip>.npy' files (sorted)."""
+    gts = {}
+    for fn in sorted(os.listdir(gt_dir)):
+        if not fn.endswith(".npy"):
+            continue
+        scene = int(fn.split("_")[0])
+        clip = int(fn.split("_")[1].split(".")[0])
+        gts[(scene, clip)] = np.load(os.path.join(gt_dir, fn))
+    return gts

@@ -1,0 +1,115 @@
+"""Offline evaluation entry point.
+
+    python -m coskad_tpu_torch.cli.eval --config <config> [--ckpt path]
+    python -m coskad_tpu_torch.cli.eval --config <config> --device cpu
+
+Counterpart of `coskad_tpu/cli/eval.py`: restores the checkpoint (and the
+robust scaler it carries, before the test split is built), scores the test
+split at stride 1, aggregates window scores to frames (actor max, HR
+masks, shift + Gaussian smoothing) and prints per-clip, per-transform and
+final mean-over-transforms AUC, then the wall time of each phase. Runs on
+CUDA unless `--device cpu`. The autoencoder's `--rec-weight` and the ROC
+plots of `--save-roc` wait for those modules (ROADMAP.md, Queue 1 items 3
+and 7).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from dataclasses import dataclass
+from typing import Dict
+
+import numpy as np
+
+from ..score.aggregate import EvalResult, ScoringConfig, evaluate_windows
+from ..score.masks import AVENUE_MASKED_CLIPS, hr_ubnormal
+from ..train import checkpoint
+from ..train.loop import Trainer
+from .common import is_primary, load_config, load_ground_truths, load_split
+
+
+@dataclass
+class EvalRun:
+    """The frame-level result, the window scores it came from (transform-
+    major over the test split) and the seconds of each phase."""
+
+    result: EvalResult
+    window_scores: np.ndarray
+    wall_s: Dict[str, float]
+
+
+def main(argv=None) -> EvalRun:
+    parser = argparse.ArgumentParser(description="COSKAD evaluation (PyTorch)")
+    parser.add_argument("-c", "--config", required=True)
+    parser.add_argument("--ckpt", default=None,
+                        help="checkpoint path (default: <exp_dir>/best.ckpt)")
+    parser.add_argument("--save-scores", default=None, metavar="DIR",
+                        help="dump per-clip per-person score npys in the analysis-notebook "
+                             "layout (error_per_person_scene_S_scenario_C.npy + gt_masks/)")
+    parser.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    args = parser.parse_args(argv)
+
+    t0 = time.perf_counter()
+    marks = {"start": t0}
+    cfg = load_config(args.config)
+    # precedence: --ckpt > the config's load_ckpt > best.ckpt > last.ckpt
+    ckpt_path = args.ckpt or os.path.join(cfg.ckpt_dir, cfg.eval.load_ckpt or "best.ckpt")
+    if not os.path.exists(ckpt_path):
+        alt = os.path.join(cfg.ckpt_dir, "last.ckpt")
+        if not os.path.exists(alt):
+            raise FileNotFoundError(f"no checkpoint at {ckpt_path}")
+        ckpt_path = alt
+
+    # The test split is normalized with the training scaler, which the
+    # checkpoint carries: read the file once, before the Trainer exists.
+    payload = checkpoint.read_payload(ckpt_path)
+    test_ds = load_split(cfg, "test", stride=1, scaler=checkpoint.scaler_of(payload))
+    gts = load_ground_truths(cfg.data.gt_dir)
+    print(f"[coskad] test windows: {test_ds.num_windows}, clips: {len(gts)}")
+    marks["ingest"] = time.perf_counter()  # JSON parse, windowing, normalization
+
+    trainer = Trainer(cfg, test_ds, device=args.device)
+    state, _, extra = checkpoint.restore(ckpt_path, trainer, payload=payload)
+    print(f"[coskad] restored {ckpt_path} {extra}")
+    marks["upload"] = time.perf_counter()  # device upload + restore
+
+    scores, _ = trainer.score_all(state, test_ds, trainer.train_data)
+    marks["scoring"] = time.perf_counter()  # gather, eval forward, distance, fetch
+    k = max(cfg.data.num_transform, 1)
+    hr_masks = hr_ubnormal(cfg.eval.hr_masks_glob) if (
+        cfg.eval.use_hr and cfg.eval.hr_masks_glob) else {}
+    avenue = AVENUE_MASKED_CLIPS if cfg.data.dataset_choice == "HR-Avenue" else {}
+    primary = is_primary()
+    # Metadata is identical across transforms (scores are transform-major).
+    result = evaluate_windows(
+        scores, None, test_ds.meta, test_ds.frame_ids, gts,
+        ScoringConfig(num_transform=k, pad_size=cfg.eval.pad_size),
+        hr_clip_masks=hr_masks, avenue_clip_masks=avenue,
+        save_scores_dir=args.save_scores if primary else None,
+    )
+    # Per-clip AUC inside every transform with a running average, then the
+    # transform's AUC, as the reference prints them.
+    clip_keys = sorted({(s, c) for (_, s, c) in result.per_clip_auc_all})
+    for t in range(k) if primary else ():
+        aucs = []
+        for idx, (scene, clip) in enumerate(clip_keys):
+            auc = result.per_clip_auc_all.get((t, scene, clip), float("nan"))
+            aucs.append(auc)
+            print(f"transf: {t + 1}/{k}, clip: ({scene}, {clip}) {idx + 1}/{len(clip_keys)}, "
+                  f"score: {auc} average_score: {np.nanmean(np.asarray(aucs, float))}")
+        print(f"\nTest set score for transformation {t + 1}\n")
+        print(f"auc = {result.per_transform_auc[t]}")
+    marks["aggregate"] = time.perf_counter()  # host aggregation, AUC, prints
+    keys = ["ingest", "upload", "scoring", "aggregate"]
+    wall = {key: marks[key] - marks[prev] for key, prev in zip(keys, ["start"] + keys[:-1])}
+    print("[coskad] eval wall breakdown: "
+          + " ".join(f"{key}={v:.2f}s" for key, v in wall.items())
+          + f" total={time.perf_counter() - t0:.2f}s")
+    print(f"final AUC score: {result.auc:.6f}")
+    return EvalRun(result=result, window_scores=scores, wall_s=wall)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,12 @@
 """Typed configuration tree of the port.
 
 A copy of the dataclasses in `coskad_tpu/config.py` (same fields, same
-defaults), so a config written by either package reads in the other. The
-reference-format YAML loader is left out here (it needs pyyaml); configs
-come from code or from the JSON snapshot a checkpoint carries
-(`config_from_snapshot`).
+defaults), so a config written by either package reads in the other.
+Configs come from code, from the JSON snapshot a checkpoint carries
+(`config_from_snapshot`), or from a reference-format config file
+(`from_reference_yaml`, the reference's flat key names mapped onto the
+tree). That loader needs pyyaml for YAML; a config written as JSON loads
+without it.
 """
 
 from __future__ import annotations
@@ -198,3 +200,159 @@ def config_from_snapshot(path: str) -> Config:
         eval=build(EvalConfig, raw["eval"]),
         run=build(RunConfig, raw["run"]),
     )
+
+
+def _variant_from_flags(raw: Dict[str, Any]) -> str:
+    """The reference's train dispatch order: decoder > vae > hyperbolic >
+    center."""
+    if raw.get("use_decoder"):
+        return "autoencoder"
+    if raw.get("use_vae"):
+        return "vae"
+    if raw.get("hyperbolic"):
+        return "hyperbolic"
+    return "euclidean_static" if raw.get("static_center", True) else "euclidean_dynamic"
+
+
+def from_reference_yaml(path: str) -> Config:
+    """Load a reference-format config file (config/*/*.yaml) into a Config
+    tree. A file that parses as JSON is read as JSON, which needs no pyyaml
+    and reads a dotless exponent (1e-06) as the number PyYAML would leave a
+    string; any other file is YAML and needs pyyaml."""
+    with open(path) as f:
+        text = f.read()
+    try:
+        return from_reference_dict(json.loads(text))
+    except json.JSONDecodeError:
+        pass
+    try:
+        import yaml
+    except ImportError:
+        raise ImportError(f"{path} is not JSON, and reading YAML needs pyyaml, which is not "
+                          "installed: install pyyaml or write the config as JSON") from None
+    return from_reference_dict(yaml.safe_load(text))
+
+
+def from_reference_dict(raw: Dict[str, Any]) -> Config:
+    """The reference's flat config keys -> a Config tree."""
+
+    def get(key, default):
+        v = raw.get(key, default)
+        return default if v is None else v
+
+    model = ModelConfig(
+        variant=_variant_from_flags(raw),
+        num_coords=get("num_coords", 2),
+        channels=tuple(get("channels", [32, 16, 32])),
+        h_dim=get("h_dim", 64),
+        latent_dim=get("latent_dim", 16),
+        dropout=get("dropout", 0.0),
+        projector=str(get("projector", "linear")).lower(),
+        encoder_type=str(get("encoder_type", "sts_gcn")).lower(),
+        bn_mode=str(get("bn_mode", "auto")).lower(),
+        distance=str(get("distance", "euclidean")).lower(),
+        distribution=str(get("distribution", "ps")).lower(),
+        kappa_floor=float(get("kappa_floor", 1.0)),
+        decoder_channels=(
+            tuple(raw["decoder_channels"]) if raw.get("decoder_channels") else None),
+    )
+    # 'poincare' appears as a distance string in hyperbolic configs; the
+    # variant flag is authoritative there.
+    if model.distance not in ("euclidean", "mahalanobis"):
+        model = dataclasses.replace(model, distance="euclidean")
+
+    data_dir = get("data_dir", "")
+    pose_dirs = {}
+    gt_dir = get("gt_path", get("test_path", ""))
+    val_gt_dir = gt_dir
+    if data_dir:
+        # Offline-eval ground truth is test_path. With validation on, the
+        # in-training ground truth is 'validating/test_frame_mask' for every
+        # dataset, while the validation pose split is 'validating' for
+        # UBnormal and the test split otherwise. A custom layout (derived
+        # directory missing) keeps its explicit gt_path for validation too.
+        pose_dirs = {
+            "train": os.path.join(data_dir, "pose", "training"),
+            "test": os.path.join(data_dir, "pose", "testing"),
+            "validation": os.path.join(data_dir, "pose", "validating"),
+        }
+        if get("validation", False):
+            if get("dataset_choice", "UBnormal") != "UBnormal":
+                pose_dirs["validation"] = pose_dirs["test"]
+            derived = os.path.join(data_dir, "validating", "test_frame_mask")
+            if os.path.isdir(derived) or not val_gt_dir:
+                val_gt_dir = derived
+    data = DataConfig(
+        dataset_choice=get("dataset_choice", "UBnormal"),
+        pose_dirs=pose_dirs,
+        path_to_robust=get("dataset_path_to_robust", ""),
+        gt_dir=gt_dir,
+        val_gt_dir=val_gt_dir,
+        seg_len=get("dataset_seg_len", 12),
+        seg_stride=get("dataset_seg_stride", 8),
+        start_offset=get("dataset_start_offset", 0),
+        num_transform=get("dataset_num_transform", 5),
+        normalization_strategy=get("dataset_normalization_strategy", "markovitz"),
+        vid_res=tuple(get("dataset_vid_res", [856, 480])),
+        symm_range=get("dataset_symm_range", True),
+        sub_mean=get("dataset_sub_mean", True),
+        kp18_format=get("dataset_kp18_format", True),
+        headless=get("dataset_headless", False),
+        normalize_pose=get("dataset_normalize_pose", True),
+        kp_threshold=get("dataset_kp_th", 0.0),
+        batch_size=get("dataset_batch_size", 512),
+        num_clips=5 if get("debug", False) else None,
+        use_fitted_scaler=get("dataset_use_fitted_scaler", False),
+    )
+    # ReduceLROnPlateau patience differs per variant in the reference:
+    # static and hyperbolic 100; dynamic, autoencoder and VAE 2.
+    patience = 100 if model.variant in ("euclidean_static", "hyperbolic") else 2
+    opt = OptConfig(
+        plateau_patience=patience,
+        lr=get("opt_lr", 1e-4),
+        epochs=10 if get("debug", False) else get("ae_epochs", 100),  # debug caps at 10
+        alpha=get("alpha", 1e-6),
+        lambda_=get("lambda_", 0.01),
+        phi=get("phi", 1.0),
+        beta=get("beta", 0.001),
+        gamma=get("gamma", 0.01),
+        # `warmup_epochs` and `opt_scheduler` are accepted and dropped: the
+        # reference reads neither on a live path.
+        lr_schedule=get("lr_schedule", ""),
+        lr_decay=get("opt_lr_decay", 0.99),
+        center_tolerance=get("center_tolerance", 0.001),
+        cov_shrinkage=get("cov_shrinkage", 0.0),
+        vae_contraction=get("vae_contraction", 0.0),
+        contrastive_weight=get("contrastive_weight",
+                               0.1 if get("dataset_double_item", False) else 0.0),
+        validation=get("validation", False),
+    )
+    # HR-UBnormal boolean masks: '<data_dir>/hr_bool_masks/<split>/
+    # test_frame_mask/*' unless a glob is given.
+    hr_glob = get("hr_masks_glob", "")
+    if not hr_glob and get("use_hr", False) and data_dir:
+        hr_split = "testing" if "test" in get("split", "train") else "validating"
+        hr_glob = os.path.join(data_dir, "hr_bool_masks", hr_split, "test_frame_mask", "*")
+    ev = EvalConfig(
+        pad_size=get("pad_size", -1),
+        smoothing=get("smoothing", 50),
+        split=get("split", "train"),
+        use_hr=get("use_hr", False),
+        hr_masks_glob=hr_glob,
+        load_ckpt=get("load_ckpt", ""),
+        vae_sample=bool(get("vae_sample", True)),
+    )
+    run = RunConfig(
+        seed=get("seed", 999),
+        exp_dir=get("exp_dir", "./checkpoints"),
+        dir_name=get("dir_name", "default"),
+        debug=get("debug", False),
+        compute_dtype=get("compute_dtype", "float32"),
+        freeze_bn_after=get("freeze_bn_after", -1),
+        data_parallel=get("data_parallel", -1),
+        model_parallel=get("model_parallel", 1),
+        device_pipeline=get("device_pipeline", False),
+        fused_train=get("fused_train", "off"),
+        ghost_size=get("ghost_size", 64),
+    )
+    return Config(model=model, data=data, opt=opt, eval=ev, run=run)

@@ -1,24 +1,28 @@
 """AlphaPose tracked-person JSON ingestion (host side, pure Python).
 
-Counterpart of `coskad_tpu/data/alphapose.py::parse_person` and
-`parse_clip_json` on its pure-Python JSON path. A clip JSON maps
-person_id -> {frame_key -> {'keypoints': flat [x, y, conf] * V}}.
+Counterpart of `coskad_tpu/data/alphapose.py` on its pure-Python JSON path.
+A directory holds one JSON per clip, named '<scene>_<clip>[...].json', each
+mapping person_id -> {frame_key -> {'keypoints': flat [x, y, conf] * V}};
+`load_alphapose_split` turns a directory into a SegmentDataset of
+normalized [N, C, T, V] windows.
 
 Ordering is the reference's: persons in numeric order of their ids; a
 person's keypoint rows stacked in lexicographic frame-key order while
 windowing consults the numeric key order (identical whenever frame keys are
-zero-padded). The native C++ parser is not ported yet (ROADMAP.md, Queue 1
-item 4).
+zero-padded). The native C++ parser is not ported (ROADMAP.md, Queue 1
+item 7); this parse is its semantics.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Dict, List
+import os
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from .windows import PersonTrajectory
+from .normalize import normalize
+from .windows import PersonTrajectory, SegmentDataset, keypoints17_to_coco18, segment_clip
 
 
 def parse_person(person_entry, person_id: int, kp_threshold: float = 0.0) -> PersonTrajectory:
@@ -53,3 +57,79 @@ def parse_clip_json(path: str, kp_threshold: float = 0.0) -> List[PersonTrajecto
             continue
         trajectories.append(parse_person(entry, int(pid), kp_threshold))
     return trajectories
+
+
+def scene_clip_from_filename(filename: str):
+    scene_id, clip_id = filename.split("_")[:2]
+    return int(scene_id), int(clip_id.split(".")[0])
+
+
+def load_alphapose_split(
+    json_dir: str,
+    seg_len: int = 12,
+    seg_stride: int = 1,
+    start_offset: int = 0,
+    num_clips: Optional[int] = None,
+    kp_threshold: float = 0.0,
+    kp18_format: bool = True,
+    headless: bool = False,
+    normalize_pose: bool = True,
+    normalization_strategy: str = "markovitz",
+    vid_res: Sequence[int] = (856, 480),
+    symm_range: bool = True,
+    sub_mean: bool = True,
+    scaler=None,
+    num_transform: int = 5,
+) -> SegmentDataset:
+    """Directory of per-clip AlphaPose JSONs -> normalized SegmentDataset:
+    sorted *.json, each person windowed, optional 17->18 conversion and
+    headless crop to the first 14 joints, normalization (robust fits a
+    scaler unless one is given), then [N, T, V, F] -> [N, F, T, V]."""
+    json_list = sorted(fn for fn in os.listdir(json_dir) if fn.endswith(".json"))
+    if num_clips is not None:
+        json_list = json_list[:num_clips]
+
+    all_data, all_meta, all_ids = [], [], []
+    for fn in json_list:
+        scene_id, clip_id = scene_clip_from_filename(fn)
+        trajectories = parse_clip_json(os.path.join(json_dir, fn), kp_threshold)
+        data, meta, ids = segment_clip(trajectories, scene_id, clip_id, start_offset,
+                                       seg_stride, seg_len)
+        if data.shape[0]:
+            all_data.append(data)
+        all_meta += meta
+        all_ids += ids
+    if not all_data:
+        raise ValueError(f"No windows produced from {json_dir}")
+    segs = np.concatenate(all_data, axis=0)  # [N, T, V, F]
+
+    if kp18_format and segs.shape[-2] == 17:
+        segs = keypoints17_to_coco18(segs)
+    if headless:
+        segs = segs[:, :, :14]
+
+    means, scaler_out = None, scaler
+    if normalize_pose:
+        if normalization_strategy == "robust":
+            segs, scaler_out = normalize(segs, "robust", vid_res=vid_res,
+                                         symm_range=symm_range, scaler=scaler)
+        else:
+            segs, means = normalize(segs, normalization_strategy, vid_res=vid_res,
+                                    symm_range=symm_range, sub_mean=sub_mean)
+
+    return SegmentDataset(
+        data=np.transpose(segs, (0, 3, 1, 2)).astype(np.float32),
+        meta=np.asarray(all_meta, dtype=np.int64),
+        frame_ids=np.asarray(all_ids, dtype=np.int32),
+        num_transform=num_transform,
+        means=means,
+        scaler=scaler_out,
+    )
+
+
+def load_alphapose_store(json_dir: str, **_):
+    """The device-resident trajectory store of the JAX package
+    (`data/device_pipeline.py`): not ported yet."""
+    raise NotImplementedError(
+        "the device pipeline (run.device_pipeline) is not ported yet (ROADMAP.md, "
+        "Queue 1 item 4); use load_alphapose_split")

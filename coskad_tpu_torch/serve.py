@@ -1,16 +1,18 @@
 """Serving API: score pose windows and clips (counterpart of `coskad_tpu/serve.py`).
 
-    scorer = AnomalyScorer(cfg, state, trainer)       # device="cuda" by default
-    scores = scorer.score_windows(windows)            # [B] anomaly scores
-    frames = scorer.score_clip_json("01_0014.json")   # per-frame scores
+    scorer = AnomalyScorer.from_checkpoint("best.ckpt")  # device="cuda" by default
+    scorer = AnomalyScorer(cfg, state, trainer)           # or from a live Trainer
+    scores = scorer.score_windows(windows)                # [B] anomaly scores
+    frames = scorer.score_clip_json("01_0014.json")       # per-frame scores
 
 Scoring runs the Trainer's eager pass (gather, eval forward through the
 fused encoder kernel on CUDA, variant distance). Windows are scored
 unpadded: the JAX package pads requests to size buckets only to bound its
 recompiles, and eval rows are independent. Clip scoring reuses the offline
 aggregation (actor max, shift + Gaussian smoothing) without ground truth.
-Loading a checkpoint comes with the checkpoint slice (ROADMAP.md, Queue 1
-item 3).
+A checkpoint of either package loads through `from_checkpoint`, with the
+config from its `<ckpt>.config.json` snapshot and the robust scaler it
+carries.
 """
 
 from __future__ import annotations
@@ -22,10 +24,11 @@ import torch
 
 from .config import Config, config_from_snapshot
 from .data.alphapose import parse_clip_json
-from .data.normalize import normalize
+from .data.normalize import RobustScalerState, normalize, normalize_robust
 from .data.windows import SegmentDataset, keypoints17_to_coco18, segment_clip
 from .score.frames import actor_frame_scores, pad_scores
 from .score.smoothing import score_process
+from .train import checkpoint
 from .train.loop import Trainer
 from .train.state import TrainState
 
@@ -36,11 +39,14 @@ class AnomalyScorer:
     """Scorer for one trained encoder-only COSKAD variant.
 
     `trainer.model` holds the weights and `state` the center; without a
-    trainer one is built on `device` over a placeholder dataset."""
+    trainer one is built on `device` over a placeholder dataset. `scaler` is
+    the training-fitted robust scaler, which robust normalization needs
+    (`from_checkpoint` sets it from the checkpoint)."""
 
     def __init__(self, cfg: Config, state: TrainState, trainer: Optional[Trainer] = None,
                  device: Union[str, torch.device] = "cuda"):
         self.cfg = cfg
+        self.scaler: Optional[RobustScalerState] = None
         if trainer is None:
             dummy = SegmentDataset(
                 data=np.zeros(
@@ -55,10 +61,15 @@ class AnomalyScorer:
         self.state = state
 
     @classmethod
-    def from_checkpoint(cls, ckpt_path: str, cfg: Optional[Config] = None):
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP.md, Queue 1 item 3); build the "
-            "scorer from a Trainer whose model holds the weights")
+    def from_checkpoint(cls, ckpt_path: str, cfg: Optional[Config] = None,
+                        device: Union[str, torch.device] = "cuda") -> "AnomalyScorer":
+        """A scorer from a checkpoint written by either package; the config
+        defaults to the `<ckpt>.config.json` snapshot beside it."""
+        if cfg is None:
+            cfg = config_from_snapshot(ckpt_path + ".config.json")
+        scorer = cls(cfg, None, device=device)
+        scorer.state, scorer.scaler, _ = checkpoint.restore(ckpt_path, scorer.trainer)
+        return scorer
 
     def score_windows(self, windows: np.ndarray) -> np.ndarray:
         """[B, C, T, V] normalized windows -> [B] anomaly scores (higher =
@@ -84,7 +95,15 @@ class AnomalyScorer:
             raw = keypoints17_to_coco18(raw)
         if d.headless:
             raw = raw[:, :, :14]
-        if d.normalize_pose:
+        if d.normalize_pose and d.normalization_strategy == "robust":
+            # Quantiles fitted on each request would put every batch in its
+            # own coordinates: robust scoring takes the training scaler only.
+            if self.scaler is None:
+                raise ValueError("robust normalization needs the training-fitted scaler: "
+                                 "load the checkpoint that carries it")
+            raw, _ = normalize_robust(raw, vid_res=d.vid_res, symm_range=d.symm_range,
+                                      scaler=self.scaler)
+        elif d.normalize_pose:
             raw, _ = normalize(raw, d.normalization_strategy, vid_res=d.vid_res,
                                symm_range=d.symm_range, sub_mean=d.sub_mean)
         return np.transpose(raw, (0, 3, 1, 2)).astype(np.float32)

@@ -1,0 +1,235 @@
+"""Checkpoint save and restore in the JAX package's own file format.
+
+Counterpart of `coskad_tpu/train/checkpoint.py` (its msgpack flavor): one
+flax-msgpack file, written atomically (`<path>.tmp`, then `os.replace`),
+with `<path>.config.json` beside it. A checkpoint written by either package
+is resumed, evaluated and served by either. The payload:
+
+    {"state": {step, params, batch_stats, opt_state, rng, center, inv_cov,
+               mean_vector, acc_vec, acc_weight, acc_outer},
+     "scaler": {center, scale},   # when a robust scaler was fitted
+     "extra": {...}}              # epoch, AUCs, schedule state
+
+How the port's objects map onto `state`:
+
+- `params` / `batch_stats`: the model's parameters and BatchNorm running
+  statistics under their flax paths (`interop.to_jax_variables`).
+- `opt_state`: the JAX optimizer is `optax.inject_hyperparams(optax.adam)`
+  seen through `optax.flatten`, so the state is `{count, hyperparams: {b1,
+  b2, eps, eps_root, learning_rate}, hyperparams_states: {}, inner_state:
+  {"0": {count, mu, nu}, "1": {}}}`. `mu` and `nu` are ONE flat vector
+  over all parameters, in `jax.flatten_util.ravel_pytree` order: the params
+  tree's leaves with keys sorted at every level. They are cut into
+  `torch.optim.Adam`'s per-parameter `exp_avg` / `exp_avg_sq` by name and
+  shape, never by the order of `named_parameters()`. `count` is Adam's
+  `step`, and `learning_rate` the live lr of every param group (the
+  plateau reducer may have lowered it).
+- `rng`: the port draws no JAX keys. It writes the value of
+  `jax.random.PRNGKey(cfg.run.seed)` (`[0, seed]` for a seed below 2^32)
+  and ignores the field on read: only dropout and VAE sampling would use
+  it, and neither is ported.
+
+The Orbax directory flavor of the JAX package is not ported (ROADMAP.md,
+Queue 1 item 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..data.normalize import RobustScalerState
+from ..interop import load_jax_variables, to_jax_variables
+from . import msgpack
+from .state import TrainState
+
+_GEOMETRY = ("center", "inv_cov", "mean_vector", "acc_vec", "acc_weight", "acc_outer")
+
+
+def _prng_key(seed: int) -> np.ndarray:
+    """The value of jax.random.PRNGKey(seed) for a non-negative seed."""
+    return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32)
+
+
+def ravel_order(params: dict) -> list:
+    """Flat names of a params tree in ravel_pytree order (keys sorted at
+    every level)."""
+    out = []
+    for k in sorted(params):
+        v = params[k]
+        out += [f"{k}.{n}" for n in ravel_order(v)] if isinstance(v, dict) else [k]
+    return out
+
+
+def _adam(trainer) -> torch.optim.Adam:
+    opt = trainer.optimizer
+    if not isinstance(opt, torch.optim.Adam):
+        raise TypeError(f"checkpoints carry Adam's state; the trainer's optimizer is "
+                        f"{type(opt).__name__}")
+    return opt
+
+
+def _opt_state(trainer, params: dict) -> dict:
+    """torch.optim.Adam's state as the JAX optimizer's opt_state."""
+    opt = _adam(trainer)
+    group = opt.param_groups[0]
+    by_name = dict(trainer.model.named_parameters())
+    names = ravel_order(params)
+    mu, nu, steps = [], [], set()
+    for name in names:
+        p = by_name[name]
+        st = opt.state.get(p, {})
+        if st:
+            steps.add(int(st["step"]))
+            mu.append(st["exp_avg"].detach().cpu().numpy().ravel())
+            nu.append(st["exp_avg_sq"].detach().cpu().numpy().ravel())
+        else:
+            steps.add(0)
+            mu.append(np.zeros(p.numel(), np.float32))
+            nu.append(np.zeros(p.numel(), np.float32))
+    if len(steps) != 1:
+        raise ValueError(f"Adam's parameters are at different steps {sorted(steps)}; the "
+                         "JAX optimizer keeps one count")
+    count = np.asarray(steps.pop(), np.int32)
+    f32 = lambda v: np.asarray(v, np.float32)  # noqa: E731
+    return {
+        "count": count,
+        "hyperparams": {"b1": f32(group["betas"][0]), "b2": f32(group["betas"][1]),
+                        "eps": f32(group["eps"]), "eps_root": f32(0.0),
+                        "learning_rate": f32(group["lr"])},
+        "hyperparams_states": {},
+        "inner_state": {"0": {"count": count,
+                              "mu": np.concatenate(mu).astype(np.float32),
+                              "nu": np.concatenate(nu).astype(np.float32)},
+                        "1": {}},
+    }
+
+
+def _load_opt_state(trainer, opt_state: dict, params: dict) -> None:
+    """Fill torch.optim.Adam from the JAX optimizer's opt_state (after
+    the model's parameters, whose names it checks)."""
+    opt = _adam(trainer)
+    hyper = opt_state["hyperparams"]
+    if float(hyper["eps_root"]) != 0.0:
+        raise ValueError("eps_root != 0 has no torch.optim.Adam counterpart")
+    adam = opt_state["inner_state"]["0"]
+    mu, nu = np.asarray(adam["mu"]), np.asarray(adam["nu"])
+    by_name = dict(trainer.model.named_parameters())
+    index = {id(p): i for i, p in enumerate(p for g in opt.param_groups for p in g["params"])}
+    names = ravel_order(params)  # load_jax_variables checked them against the model
+    total = sum(by_name[n].numel() for n in names)
+    if mu.shape != (total,) or nu.shape != (total,):
+        raise ValueError(f"mu/nu hold {mu.shape} values, the model {total}")
+    step = int(adam["count"])
+    state, offset = {}, 0
+    for name in names:
+        p = by_name[name]
+        n = p.numel()
+        state[index[id(p)]] = {
+            "step": torch.tensor(float(step)),
+            "exp_avg": torch.from_numpy(mu[offset:offset + n].reshape(p.shape).copy()),
+            "exp_avg_sq": torch.from_numpy(nu[offset:offset + n].reshape(p.shape).copy()),
+        }
+        offset += n
+    sd = opt.state_dict()
+    sd["state"] = state if step > 0 else {}
+    for g in sd["param_groups"]:
+        g["lr"] = _hyper(g["lr"], hyper["learning_rate"])
+        g["betas"] = (_hyper(g["betas"][0], hyper["b1"]), _hyper(g["betas"][1], hyper["b2"]))
+        g["eps"] = _hyper(g["eps"], hyper["eps"])
+    opt.load_state_dict(sd)
+
+
+def _hyper(current: float, stored) -> float:
+    """A hyperparameter from the checkpoint, which stores float32: the
+    current value where it rounds to the stored one (so a resumed run keeps
+    the exact lr it started with), else the stored value."""
+    return current if np.float32(current) == np.float32(stored) else float(stored)
+
+
+def state_payload(trainer, state: TrainState) -> dict:
+    """The `state` entry of a checkpoint: the model, the optimizer and
+    `state` in the JAX package's TrainState layout."""
+    params, batch_stats = to_jax_variables(trainer.model)
+    out = {
+        "step": np.asarray(state.step, np.int32),
+        "params": params,
+        "batch_stats": batch_stats,
+        "opt_state": _opt_state(trainer, params),
+        "rng": _prng_key(trainer.cfg.run.seed),
+    }
+    for k in _GEOMETRY:
+        out[k] = getattr(state, k).detach().cpu().numpy().astype(np.float32)
+    return out
+
+
+def load_state_payload(trainer, payload_state: dict) -> TrainState:
+    """Fill trainer.model and trainer.optimizer from a checkpoint's `state`
+    entry; returns the TrainState on the trainer's device."""
+    params, batch_stats = payload_state["params"], payload_state["batch_stats"]
+    load_jax_variables(trainer.model, params, batch_stats)
+    _load_opt_state(trainer, payload_state["opt_state"], params)
+    geometry = {k: torch.as_tensor(np.asarray(payload_state[k], np.float32),
+                                   device=trainer.device) for k in _GEOMETRY}
+    return TrainState(step=int(payload_state["step"]), **geometry)
+
+
+def save(
+    path: str,
+    trainer,
+    state: TrainState,
+    cfg: Optional[Config] = None,
+    scaler: Optional[RobustScalerState] = None,
+    extra: Optional[dict] = None,
+) -> str:
+    """Write `trainer`'s model and optimizer with `state` to `path`, and the
+    config snapshot beside it when `cfg` is given."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    payload = {"state": state_payload(trainer, state)}
+    if scaler is not None:
+        payload["scaler"] = {"center": np.asarray(scaler.center),
+                             "scale": np.asarray(scaler.scale)}
+    if extra:
+        payload["extra"] = extra
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(msgpack.packb(payload))
+    os.replace(tmp, path)
+    if cfg is not None:
+        with open(path + ".config.json", "w") as f:
+            json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+    return path
+
+
+def read_payload(path: str) -> Dict:
+    with open(path, "rb") as f:
+        return msgpack.unpackb(f.read())
+
+
+def scaler_of(payload: dict) -> Optional[RobustScalerState]:
+    if "scaler" not in payload:
+        return None
+    return RobustScalerState(center=np.asarray(payload["scaler"]["center"]),
+                             scale=np.asarray(payload["scaler"]["scale"]))
+
+
+def load_scaler(path: str) -> Optional[RobustScalerState]:
+    """Read just the fitted scaler from a checkpoint."""
+    return scaler_of(read_payload(path))
+
+
+def restore(path: str, trainer, payload: Optional[dict] = None
+            ) -> Tuple[TrainState, Optional[RobustScalerState], dict]:
+    """Fill `trainer.model` and `trainer.optimizer` from the checkpoint at
+    `path`; returns (TrainState, scaler or None, extra). Pass a `payload`
+    from read_payload to read the file once."""
+    if payload is None:
+        payload = read_payload(path)
+    state = load_state_payload(trainer, payload["state"])
+    return state, scaler_of(payload), payload.get("extra", {})

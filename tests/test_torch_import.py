@@ -13,7 +13,7 @@ import torch
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN_TOP = ("jax", "jaxlib", "flax", "optax", "coskad_tpu")
+FORBIDDEN_TOP = ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml", "coskad_tpu")
 
 
 def test_import_pulls_in_no_jax_and_no_reference_package():
@@ -21,6 +21,8 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import sys\n"
         "import coskad_tpu_torch, coskad_tpu_torch.serve, coskad_tpu_torch.train.loop\n"
         "import coskad_tpu_torch.kernels, coskad_tpu_torch.interop\n"
+        "import coskad_tpu_torch.cli.train, coskad_tpu_torch.cli.eval\n"
+        "import coskad_tpu_torch.train.checkpoint, coskad_tpu_torch.data.robust\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN_TOP!r})\n"
         "print(','.join(bad))\n"
     )
@@ -39,7 +41,7 @@ def _python_sources():
 
 
 _IMPORT = re.compile(
-    r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|coskad_tpu)(?![\w])", re.MULTILINE)
+    r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|msgpack|coskad_tpu)(?![\w])", re.MULTILINE)
 
 
 def test_static_scan_finds_no_forbidden_import():

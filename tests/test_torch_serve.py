@@ -17,12 +17,14 @@ import torch
 
 from coskad_tpu.config import from_reference_yaml
 from coskad_tpu.data.alphapose import load_alphapose_split
+from coskad_tpu.data.normalize import normalize_robust as jnormalize_robust
 from coskad_tpu.serve import AnomalyScorer as JaxScorer
 from coskad_tpu.train.loop import Trainer as JaxTrainer
 from coskad_tpu_torch import config as tconfig
 from coskad_tpu_torch.data.windows import SegmentDataset
 from coskad_tpu_torch.interop import load_jax_variables
 from coskad_tpu_torch.serve import AnomalyScorer
+from coskad_tpu_torch.train import checkpoint
 from coskad_tpu_torch.train.loop import Trainer
 from fixtures import make_synthetic_dataset
 
@@ -165,13 +167,34 @@ def test_mahalanobis_scores_match(slice_pair):
     np.testing.assert_allclose(s, js, rtol=1e-2, atol=1e-5)
 
 
-def test_preprocess_refuses_robust_and_checkpoints_wait(slice_pair):
+def test_preprocess_refuses_robust_and_checkpoints_wait(slice_pair, tmp_path):
+    """Robust preprocessing takes the training scaler only (it refuses to
+    fit one per request) and then matches the JAX scorer's; a checkpoint
+    loads through from_checkpoint and scores as the scorer it came from."""
     p = slice_pair
     tcfg = p["trainer"].cfg
     cfg = dataclasses.replace(tcfg, data=dataclasses.replace(
         tcfg.data, normalization_strategy="robust"))
+    raw = np.random.default_rng(1).uniform(1, 800, size=(4, 12, 17, 3))
     scorer = AnomalyScorer(cfg, p["state"], trainer=p["trainer"])
-    with pytest.raises(NotImplementedError, match="robust"):
-        scorer.preprocess_windows(np.zeros((2, 12, 17, 3)))
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        AnomalyScorer.from_checkpoint("x.ckpt")
+    with pytest.raises(ValueError, match="training-fitted scaler"):
+        scorer.preprocess_windows(raw)
+    jcfg = dataclasses.replace(p["cfg"], data=dataclasses.replace(
+        p["cfg"].data, normalization_strategy="robust"))
+    jscorer = JaxScorer(jcfg, p["jstate"], trainer=p["jtrainer"])
+    _, jscorer.scaler = jnormalize_robust(np.random.default_rng(2).uniform(
+        1, 800, size=(30, 12, 18, 3)), vid_res=jcfg.data.vid_res)
+    scorer.scaler = jscorer.scaler
+    np.testing.assert_array_equal(scorer.preprocess_windows(raw),
+                                  jscorer.preprocess_windows(raw))
+
+    with pytest.raises(FileNotFoundError):
+        AnomalyScorer.from_checkpoint(str(tmp_path / "x.ckpt"), device="cpu")
+    path = str(tmp_path / "s.ckpt")
+    checkpoint.save(path, p["trainer"], p["state"], tcfg)
+    loaded = AnomalyScorer.from_checkpoint(path, device="cpu")
+    windows = np.random.default_rng(0).normal(size=(20, 3, 12, 18)).astype(np.float32)
+    np.testing.assert_array_equal(loaded.score_windows(windows),
+                                  AnomalyScorer(tcfg, p["state"], trainer=p["trainer"]
+                                                ).score_windows(windows))
+    assert loaded.scaler is None and dataclasses.asdict(loaded.cfg) == dataclasses.asdict(tcfg)
