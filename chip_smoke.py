@@ -61,8 +61,8 @@ Phases, each printing a line before the last:
      breakdown of one step, the live-BN (fused_train='off') step for
      context, and the profiler's idle share over one epoch, flagged where
      its K2-K4 kernel time is more than 10% off their CUDA-event times.
-  6. cli (the command-line path): a synthetic AlphaPose tree (8 training
-     clips x 2 actors x 1,100 frames, 17,408 stride-1 windows; 4 test
+  6. cli (the command-line path): a synthetic AlphaPose tree (4 training
+     clips x 2 actors x 1,100 frames, 8,704 stride-1 windows; 2 test
      clips with <scene>_<clip>.npy ground truth) and a reference-key config
      written as JSON at the flagship width (fused_train 'on', ghost 64,
      batch 2048, validation on); cli.train for 2 epochs, then --resume to
@@ -75,8 +75,27 @@ Phases, each printing a line before the last:
      a fresh Trainer whose score_all gives the same bits. The `cli` line
      has windows, the JSON parse time, per-epoch train windows/s,
      checkpoint bytes and save / restore ms, eval's wall breakdown and AUC.
-  7. a JSON line of every kernel (launches on the main paths, error, times,
-     bound), then the last line {"ok": true, "device": {...}}.
+  7. paper (the paper's own configurations): config/HR-STC/
+     hyperbolic_encoder.yaml and euclidean_encoder.yaml read from the
+     checkout with the port's YAML reader (pyyaml is never imported) and
+     written to a temporary directory with only the four paths and
+     compute_dtype replaced (float32: the port has no bfloat16 module path
+     yet), over an HR-STC-shaped AlphaPose tree of 17-keypoint clips at
+     the cli phase's scale: the MLP projector at 17 joints (204 nodes),
+     batch 2048, 5 transforms, markovitz, validation on. For each, cli.train
+     for 2 epochs, --resume to 3, cli.eval, from_checkpoint; launches over
+     that run (K1 as predicted from the windows, K2-K5 none: the module
+     path, as JAX trains an MLP projector); then a straight 3-epoch run,
+     which the resumed run must equal to the bit (losses, weights, center),
+     a save / restore round trip, and K1 timed at 204 nodes on the trained
+     weights. The hyperbolic center must stay inside the ball at every
+     epoch. The `paper` lines have train windows/s by epoch, scoring
+     windows/s, K1 ms against its bound, AUC, checkpoint bytes and save /
+     restore ms. The kernel check (phase 2) also holds K1 at 17 joints with
+     the MLP head (B=2048 and a ragged 2047) to its plain version.
+  8. a line of each phase's wall time, a JSON line of every kernel
+     (launches on the main paths, error, times, bound), then the last line
+     {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It imports nothing of JAX or of the JAX package. TF32 is switched off for
@@ -152,9 +171,9 @@ TRAIN_KERNELS = (*FORWARD_PASSES, "transpose_kernel", "projector_dy_kernel", "bw
                  "product_windows_kernel", "sum_splits_kernel")
 TRAIN_CLIPS, VAL_CLIPS = 100, 20  # x 2 actors x 200 windows: 40,000 and 8,000 windows
 # the cli phase's AlphaPose tree: clips x 2 actors x (frames - 11) stride-1 windows
-CLI_TRAIN_CLIPS, CLI_TEST_CLIPS, CLI_FRAMES = 8, 4, 1100
+CLI_TRAIN_CLIPS, CLI_TEST_CLIPS, CLI_FRAMES = 4, 2, 1100
 CLI_ANOMALY = (400, 550)  # frames where actor 1 of each test clip scatters
-CLI_MIN_WINDOWS = 16384
+CLI_MIN_WINDOWS = 8192
 CLI_SERVED = 4096  # test windows from_checkpoint scores against cli.eval's scores
 RESUME_RTOL = 1e-5  # third-epoch loss, resumed against straight, on the card
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
@@ -262,9 +281,10 @@ def folded_f64(folded):
     """The folded weights in float64, for the plain version's float64 run."""
     from coskad_tpu_torch.kernels import stse_fused
 
+    f64 = lambda t: None if t is None else t.double()  # noqa: E731
     return stse_fused.FoldedSTSE(
         [stse_fused.FoldedLayer(*(t.double() for t in lay)) for lay in folded.layers],
-        folded.w_proj.double(), folded.b_proj.double())
+        f64(folded.w_proj), f64(folded.b_proj))
 
 
 def phase_kernel(card):
@@ -285,8 +305,13 @@ def phase_kernel(card):
     wb = occupancy["windows_per_block"]
     cases = []
     x_main = None
+    # the paper's configs: 17 joints (204 nodes, 13 tiles, the last of 12),
+    # the MLP projector; the latent is K1 then the head in eval mode
+    paper = dict(full, n_joints=17, projector="mlp")
     for label, kw, batch in (("full_B2048", full, 2048), ("full_B2047", full, 2047),
                              (f"full_B{wb + 1}_ragged_block", full, wb + 1),
+                             ("paper_V17_mlp_B2048", paper, 2048),
+                             ("paper_V17_mlp_B2047", paper, 2047),
                              ("identity_residual_B64",
                               dict(input_dim=8, layer_channels=(8,), hidden_dimension=8,
                                    latent_dim=4, n_frames=6, n_joints=5), 64),
@@ -302,8 +327,11 @@ def phase_kernel(card):
             h_again = stse_fused.fused_stse_hidden(x, f, p)
             h_r = stse_fused.fused_stse_hidden_reference(x, f)
             h_64 = stse_fused.fused_stse_hidden_reference(x.double(), folded_f64(f))
-            z_k = stse_fused.fused_stse_forward(x, f, p)
-            z_r = stse_fused.fused_stse_forward_reference(x, f)
+            if f.w_proj is None:  # the MLP head: STSE.forward's CUDA route
+                z_k, z_r = m(x), m._project(h_r, train=False)
+            else:
+                z_k = stse_fused.fused_stse_forward(x, f, p)
+                z_r = stse_fused.fused_stse_forward_reference(x, f)
         torch.cuda.synchronize()
         err_h = float((h_k - h_r).abs().max())
         err_64 = float((h_k.double() - h_64).abs().max())
@@ -320,6 +348,8 @@ def phase_kernel(card):
         check(same_bits, f"stse_fused {label}: two launches gave different bits")
         if label == "full_B2048":
             x_main = x
+        if label == "paper_V17_mlp_B2048":
+            x_paper, f_paper, p_paper = x, f, p
 
     # K1 has no backward: the eval forward on the card raises where autograd
     # would record it, rather than return a latent cut from the graph.
@@ -346,6 +376,7 @@ def phase_kernel(card):
     flops, nbytes = stse_fused.work(folded, 2048)
     # every FLOP runs on the tensor cores as 3xTF32: three TF32 products for each
     bound_ms, bound_by = bound_of(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
+    paper_v17 = k1_timing(x_paper, f_paper, p_paper)
     rec = dict(
         name="stse_fused", route="cuda", source=stse_fused.SOURCE,
         replaces=stse_fused.REPLACES, launches=None,
@@ -354,16 +385,33 @@ def phase_kernel(card):
         plain_ms=min(plain_ms, plain_ms_2), bound_ms=bound_ms, bound_by=bound_by,
         bound_fp32_ms=bound_of(flops, nbytes)[0], library_ms=None,
         batch=2048, flops=flops, bytes=nbytes, cases=cases, per_layer_ms=per_layer_ms,
-        layers=layers, occupancy=occupancy,
+        layers=layers, occupancy=occupancy, paper_v17=paper_v17,
         timing_runs_ms=dict(kernel=[kernel_ms, kernel_ms_2], plain=[plain_ms, plain_ms_2]),
     )
     print("kernel check: " + json.dumps(dict(
         name="stse_fused", cases=cases, eval_forward_with_grad_raises=True,
         kernel_ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
         bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
-        bound_fp32_ms=rec["bound_fp32_ms"], card=card)))
+        bound_fp32_ms=rec["bound_fp32_ms"], paper_v17=paper_v17, card=card)))
     print("K1 layers: " + json.dumps(dict(stack=occupancy, layers=layers, card=card)))
     return rec
+
+
+def k1_timing(x, folded, packed) -> dict:
+    """K1's time on x against its plain version's, in turns, and its bound
+    for this batch (3xTF32 on the tensor cores, or bytes)."""
+    import torch
+    from coskad_tpu_torch.kernels import stse_fused
+
+    with torch.no_grad():
+        runs = [cuda_ms(lambda: fn(x, folded, packed)) for _ in range(2) for fn in (
+            stse_fused.fused_stse_hidden,
+            lambda a, b, _: stse_fused.fused_stse_hidden_reference(a, b))]
+    flops, nbytes = stse_fused.work(folded, x.shape[0])
+    bound_ms, bound_by = bound_of(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
+    return dict(batch=x.shape[0], nodes=packed.n_nodes, kernel_ms=min(runs[0::2]),
+                plain_ms=min(runs[1::2]), bound_ms=bound_ms, bound_by=bound_by,
+                flops=flops, bytes=nbytes)
 
 
 def synthetic_windows(rng, n_clips, n_actors, n_windows, seg_len, n_joints,
@@ -1623,13 +1671,243 @@ def cli_run(card, root):
     return summary
 
 
+PAPER_CONFIGS = ("hyperbolic_encoder", "euclidean_encoder")  # config/HR-STC/<name>.yaml
+# the lines of a shipped file the paper phase replaces: the four paths, and
+# compute_dtype, whose bfloat16 the port has no module path for yet
+PAPER_EDITS = ("data_dir", "dataset_path_to_robust", "test_path", "exp_dir", "compute_dtype")
+
+
+def write_paper_tree(root, rng):
+    """An HR-STC-shaped AlphaPose tree of 17-keypoint clips under root:
+    pose/{training,testing}/<scene>_<clip>_alphapose_tracked_person.json and
+    the test clips' ground truth in testing/test_frame_mask/<scene>_<clip>.npy,
+    at the cli phase's scale."""
+    pose = {split: os.path.join(root, "pose", split) for split in ("training", "testing")}
+    gt_dir = os.path.join(root, "testing", "test_frame_mask")
+    for d in (*pose.values(), gt_dir):
+        os.makedirs(d, exist_ok=True)
+    name = "01_{:04d}_alphapose_tracked_person.json"
+    for i in range(1, CLI_TRAIN_CLIPS + 1):
+        write_clip_json(os.path.join(pose["training"], name.format(i)), rng, CLI_FRAMES)
+    for i in range(1, CLI_TEST_CLIPS + 1):
+        write_clip_json(os.path.join(pose["testing"], name.format(i)), rng, CLI_FRAMES,
+                        anomalous=CLI_ANOMALY)
+        gt = np.zeros(CLI_FRAMES, np.int64)
+        gt[CLI_ANOMALY[0]:CLI_ANOMALY[1]] = 1
+        np.save(os.path.join(gt_dir, f"01_{i:04d}.npy"), gt)
+    return gt_dir
+
+
+def paper_config(root, name, exp_dir, gt_dir):
+    """config/HR-STC/<name>.yaml read from the checkout with the port's
+    reader, then written under root with only PAPER_EDITS's lines replaced
+    (the rest of the file as shipped, comments included); checks that the
+    edited file reads as the shipped one but for those keys."""
+    from coskad_tpu_torch.config import parse_reference_yaml
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config", "HR-STC",
+                       f"{name}.yaml")
+    with open(src) as f:
+        text = f.read()
+    shipped = parse_reference_yaml(text, src)
+    edits = dict(data_dir=root, dataset_path_to_robust=root, test_path=gt_dir, exp_dir=exp_dir,
+                 compute_dtype="float32")
+    lines = text.splitlines()
+    for key, value in edits.items():
+        at = [i for i, line in enumerate(lines) if line.startswith(f"{key}:")]
+        check(len(at) == 1, f"{src}: {len(at)} lines set {key}")
+        lines[at[0]] = f"{key}: {value}"
+    path = os.path.join(root, f"{os.path.basename(exp_dir)}_{name}.yaml")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(path) as f:
+        edited = parse_reference_yaml(f.read(), path)
+    check(sorted(edited) == sorted(shipped) and all(
+        edited[k] == shipped[k] for k in shipped if k not in edits),
+        f"{path} does not read as {src} apart from {sorted(edits)}")
+    return path, shipped
+
+
+def phase_paper(card):
+    """The paper's own configurations, config/HR-STC/{hyperbolic,euclidean}
+    _encoder.yaml, through cli.train, --resume, cli.eval and
+    from_checkpoint over an HR-STC-shaped tree, in a temporary directory
+    removed afterwards."""
+    root = tempfile.mkdtemp(prefix="coskad_paper_")
+    t0 = time.perf_counter()
+    try:
+        summary = paper_run(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    summary["phase_s"] = time.perf_counter() - t0
+    print(f"paper phase: {summary['phase_s']:.1f} s")
+    return summary
+
+
+def paper_run(card, root):
+    import torch
+    from coskad_tpu_torch.cli import eval as eval_cli
+    from coskad_tpu_torch.cli import train as train_cli
+    from coskad_tpu_torch.cli.common import load_config
+    from coskad_tpu_torch.geometry import poincare
+    from coskad_tpu_torch.interop import flatten_tree, to_jax_variables
+    from coskad_tpu_torch.kernels import stse_fused
+    from coskad_tpu_torch.kernels import stse_train as st
+    from coskad_tpu_torch.serve import AnomalyScorer
+    from coskad_tpu_torch.train import checkpoint
+    from coskad_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    gt_dir = write_paper_tree(root, np.random.default_rng(5))
+    write_s = time.perf_counter() - t0
+    configs = {name: {run: paper_config(root, name, os.path.join(root, run), gt_dir)[0]
+                      for run in ("resumed", "straight")} for name in PAPER_CONFIGS}
+    check("yaml" not in sys.modules, "reading the shipped configs imported yaml")
+
+    epoch_s, centers = [], []
+    inner_epoch, inner_updates = Trainer.train_epoch, Trainer.apply_epoch_updates
+
+    def timed_epoch(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner_epoch(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        epoch_s.append((self.cfg.model.variant, time.perf_counter() - t))
+        return out
+
+    def kept_center(self, state):
+        state = inner_updates(self, state)
+        if self.cfg.model.variant == "hyperbolic":
+            c = state.center
+            centers.append((float(torch.linalg.vector_norm(c)), float(poincare.dist0(c))))
+        return state
+
+    dev = ["--device", DEVICE]
+    counters = dict(stse_fused=stse_fused.launches, stse_train_forward=st.forward_launches,
+                    stse_train_layer_backward=st.layer_backward_launches,
+                    stse_train_top_backward=st.top_backward_launches,
+                    stse_train_mono_backward=st.mono_backward_launches)
+    runs = {}
+    Trainer.train_epoch, Trainer.apply_epoch_updates = timed_epoch, kept_center
+    try:
+        # --- the paper's configurations through the command line, counted ---
+        for c in counters.values():
+            c.value = 0
+        for name in PAPER_CONFIGS:
+            path = configs[name]["resumed"]
+            first = train_cli.main(["--config", path, "--epochs", "2", *dev])
+            resumed = train_cli.main(["--config", path, "--epochs", "3", "--resume", *dev])
+            best = os.path.join(load_config(path).ckpt_dir, "best.ckpt")
+            ev = eval_cli.main(["--config", path, "--ckpt", best, *dev])
+            t0 = time.perf_counter()
+            scorer = AnomalyScorer.from_checkpoint(best, device=DEVICE)
+            load_ms = (time.perf_counter() - t0) * 1e3
+            served = scorer.score_windows(resumed.trainer.val_ds.data[:CLI_SERVED])
+            runs[name] = dict(first=first, resumed=resumed, ev=ev, served=served,
+                              load_ms=load_ms)
+        launches = {k: c.value for k, c in counters.items()}
+        counted_epochs = len(epoch_s)
+        # --- end of the counted run ---
+        for name in PAPER_CONFIGS:
+            runs[name]["straight"] = train_cli.main(
+                ["--config", configs[name]["straight"], "--epochs", "3", *dev])
+    finally:
+        Trainer.train_epoch, Trainer.apply_epoch_updates = inner_epoch, inner_updates
+
+    # K1 in center init, each validation, eval and from_checkpoint; K2-K5 never
+    cfg = load_config(configs[PAPER_CONFIGS[0]]["resumed"])
+    items = lambda ds: len(ds)  # noqa: E731
+    tr0 = runs[PAPER_CONFIGS[0]]["resumed"].trainer
+    batches = lambda n: -(-n // cfg.data.batch_size)  # noqa: E731
+    n_train, n_val = items(tr0.train_ds), items(tr0.val_ds)
+    per_config = (batches(n_train) + 3 * batches(n_val) + batches(n_val)
+                  + batches(CLI_SERVED))
+    want = dict(stse_fused=len(PAPER_CONFIGS) * per_config, stse_train_forward=0,
+                stse_train_layer_backward=0, stse_train_top_backward=0,
+                stse_train_mono_backward=0)
+    check(launches == want, f"paper phase launches {launches}, predicted {want}")
+
+    summary = dict(card=card, write_tree_s=write_s, train_items=n_train, val_items=n_val,
+                   launches=launches, predicted_launches=want, configs={})
+    for name in PAPER_CONFIGS:
+        r = runs[name]
+        first, resumed, straight, ev = r["first"], r["resumed"], r["straight"], r["ev"]
+        tr = resumed.trainer
+        check(tr.cfg.model.projector == "mlp" and tr.cfg.data.n_joints == 17
+              and not tr._fused_compat, f"{name}: not the paper's MLP model at 17 joints")
+        losses = first.loss + resumed.loss
+        check(len(losses) == 3 and len(straight.loss) == 3
+              and all(np.isfinite(losses + straight.loss)), f"{name}: losses {losses}, "
+                                                            f"straight {straight.loss}")
+        check(resumed.loss[0] == straight.loss[2], f"{name}: third-epoch loss resumed "
+              f"{resumed.loss[0]!r} vs straight {straight.loss[2]!r}: not the same bits")
+        want_p = flatten_tree(to_jax_variables(straight.trainer.model)[0])
+        same = all(np.array_equal(v, want_p[k])
+                   for k, v in flatten_tree(to_jax_variables(tr.model)[0]).items())
+        check(same and torch.equal(resumed.state.center, straight.state.center),
+              f"{name}: resumed weights or center differ from the straight run's")
+        check(np.isfinite(ev.result.auc) and 0.0 <= ev.result.auc <= 1.0,
+              f"{name}: cli.eval AUC {ev.result.auc}")
+        served_diff = float(np.abs(r["served"] - ev.window_scores[:CLI_SERVED]).max())
+        check(served_diff == 0.0, f"{name}: from_checkpoint's scores differ from cli.eval's: "
+                                  f"max abs {served_diff:.3e}")
+        # save / restore round trip into a fresh Trainer: the same bits
+        path = os.path.join(root, f"{name}_roundtrip.ckpt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save(path, tr, resumed.state, tr.cfg)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        fresh = Trainer(tr.cfg, tr.val_ds, device=DEVICE)
+        t0 = time.perf_counter()
+        fstate, _, _ = checkpoint.restore(path, fresh)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        s_before, _ = tr.score_all(resumed.state, tr.val_ds, tr.val_data)
+        s_after, _ = fresh.score_all(fstate, tr.val_ds, fresh.train_data)
+        check(np.array_equal(s_before, s_after), f"{name}: score_all after a save / restore "
+                                                 "differs")
+        # K1 at 204 nodes on the trained model's weights, and its bound
+        folded, packed = tr.model.folded()
+        x = tr._gather(tr.val_data, torch.arange(cfg.data.batch_size, device=DEVICE))
+        k1 = k1_timing(x, folded, packed)
+        steps = n_train // cfg.data.batch_size
+        wps = [steps * cfg.data.batch_size / t for v, t in epoch_s[:counted_epochs]
+               if v == tr.cfg.model.variant]
+        summary["configs"][name] = dict(
+            variant=tr.cfg.model.variant, losses_resumed=losses, losses_straight=straight.loss,
+            train_windows_per_s=wps,
+            scoring_windows_per_s=len(ev.window_scores) / ev.wall_s["scoring"],
+            eval_wall_s=ev.wall_s, auc=ev.result.auc,
+            validation_auc=first.validation_auc + resumed.validation_auc,
+            checkpoint_bytes=os.path.getsize(path), save_ms=save_ms, restore_ms=restore_ms,
+            from_checkpoint_ms=r["load_ms"], k1=k1)
+    hyp = [c for c in centers if np.isfinite(c[0])]
+    check(len(hyp) == len(centers) == 6 and all(c[0] < 1.0 for c in hyp),
+          f"hyperbolic centers (norm, distance from 0) by epoch: {centers}")
+    summary["hyperbolic_centers"] = centers
+    for name, c in summary["configs"].items():
+        wps = [round(v) for v in c["train_windows_per_s"]]
+        print(f"paper {name}: train windows/s by epoch {wps} (epochs 1-2, resumed 3); "
+              f"scoring windows/s {c['scoring_windows_per_s']:.0f}; "
+              f"K1 {c['k1']['kernel_ms']:.3f} ms at {c['k1']['nodes']} nodes, B="
+              f"{c['k1']['batch']} (plain {c['k1']['plain_ms']:.3f}, bound "
+              f"{c['k1']['bound_ms']:.3f} ms, {c['k1']['bound_by']}); AUC {c['auc']:.4f}; "
+              f"losses {c['losses_resumed']} = straight's to the bit; checkpoint "
+              f"{c['checkpoint_bytes']} bytes, save {c['save_ms']:.1f} ms, restore "
+              f"{c['restore_ms']:.1f} ms, from_checkpoint {c['from_checkpoint_ms']:.1f} ms; "
+              f"on {card}")
+    print(f"paper: launches {launches} (predicted {want}); hyperbolic center |c| by epoch "
+          f"{[round(c[0], 6) for c in centers]}; {n_train} train and {n_val} validation items")
+    return summary
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("kernels", "products", "cli"), default=None,
+    ap.add_argument("--only", choices=("kernels", "products", "cli", "paper"), default=None,
                     help="run only the environment and kernel phases, or only the product "
-                         "check, or only the cli phase (no result line)")
+                         "check, or only the cli or the paper phase (no result line)")
     args = ap.parse_args(argv)
     card, build_s = phase_environment()
     import torch
@@ -1643,31 +1921,47 @@ def main(argv=None) -> int:
     if args.only == "cli":
         phase_cli(card)
         return 0
+    if args.only == "paper":
+        phase_paper(card)
+        return 0
 
-    kernel = phase_kernel(card)
-    train_kernels, products = phase_train_kernels(card)
-    mono_kernel, mono = phase_mono(card, checks_only=args.only == "kernels")
-    probes = phase_probe(card)
+    wall = {}
+
+    def timed(name, fn, *a, **k):
+        t = time.perf_counter()
+        out = fn(*a, **k)
+        wall[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    kernel = timed("kernel", phase_kernel, card)
+    train_kernels, products = timed("train_kernels", phase_train_kernels, card)
+    mono_kernel, mono = timed("mono", phase_mono, card, checks_only=args.only == "kernels")
+    probes = timed("probe", phase_probe, card)
     if args.only == "kernels":
         return 0
-    summary = phase_slice(card)
-    train = phase_train(card)
-    cli = phase_cli(card)
+    summary = timed("slice", phase_slice, card)
+    train = timed("train", phase_train, card)
+    cli = timed("cli", phase_cli, card)
+    paper = timed("paper", phase_paper, card)
+    print(f"phase wall s: {json.dumps(dict(build=round(build_s, 1), **wall))}")
     kernel["launches_by_path"] = dict(serving=summary["launches"]["stse_fused"],
                                       training=train["launches"]["stse_fused"], mono=0,
-                                      cli=cli["launches"]["stse_fused"])
+                                      cli=cli["launches"]["stse_fused"],
+                                      paper=paper["launches"]["stse_fused"])
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     for rec in train_kernels + [mono_kernel]:
         by_path = dict(serving=0, training=train["launches"].get(rec["name"], 0),
                        mono=mono["launches"][rec["name"]],
-                       cli=cli["launches"].get(rec["name"], 0))
+                       cli=cli["launches"].get(rec["name"], 0),
+                       paper=paper["launches"][rec["name"]])
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     kernels = [kernel, *train_kernels, mono_kernel, *probes]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, build_s=build_s, kernels=kernels, products=products,
-                       slice=summary, train=train, mono=mono, cli=cli), f, indent=1)
+                       slice=summary, train=train, mono=mono, cli=cli, paper=paper,
+                       phase_wall_s=wall), f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "tolerance",
             "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "product_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in kernels]}))

@@ -5,8 +5,10 @@ defaults), so a config written by either package reads in the other.
 Configs come from code, from the JSON snapshot a checkpoint carries
 (`config_from_snapshot`), or from a reference-format config file
 (`from_reference_yaml`, the reference's flat key names mapped onto the
-tree). That loader needs pyyaml for YAML; a config written as JSON loads
-without it.
+tree). The loader needs no pyyaml: a YAML file is read by
+`parse_reference_yaml`, which reads the subset the shipped files use to
+the dict `yaml.safe_load` gives and refuses, naming the line, anything
+else; a config written as JSON is read with `json`.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -214,23 +217,175 @@ def _variant_from_flags(raw: Dict[str, Any]) -> str:
     return "euclidean_static" if raw.get("static_center", True) else "euclidean_dynamic"
 
 
+# PyYAML's implicit resolvers (YAML 1.1), which safe_load applies to a plain
+# scalar. The subset read here takes null, bool, decimal int and decimal
+# float; a scalar that resolves to another type (octal, hex, binary or
+# sexagesimal ints, underscores, timestamps, merge and value keys) is refused.
+_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
+_BOOL = re.compile(r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE"
+                   r"|on|On|ON|off|Off|OFF)$")
+_TRUE = ("yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON")
+_INT_ANY = re.compile(r"^(?:[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?(?:0|[1-9][0-9_]*)"
+                      r"|[-+]?0x[0-9a-fA-F_]+|[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+)$")
+_FLOAT_ANY = re.compile(r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
+                        r"|\.[0-9_]+(?:[eE][-+][0-9]+)?"
+                        r"|[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*"
+                        r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$")
+_TIMESTAMP = re.compile(r"^(?:[0-9]{4}-[0-9]{2}-[0-9]{2}"
+                        r"|[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}(?:[Tt]|[ \t]+)[0-9]{1,2}"
+                        r":[0-9]{2}:[0-9]{2}(?:\.[0-9]*)?"
+                        r"(?:[ \t]*(?:Z|[-+][0-9]{1,2}(?::[0-9]{2})?))?)$")
+_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9]*)$")
+_FLOAT = re.compile(r"^(?:[-+]?[0-9]+\.[0-9]*(?:[eE][-+][0-9]+)?|\.[0-9]+(?:[eE][-+][0-9]+)?"
+                    r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$")
+_KEY_LINE = re.compile(r"^([A-Za-z_][A-Za-z0-9_]*):(?:[ ](.*))?$")
+_COMMENT = re.compile(r"(?:^|[ ])#")
+_INDICATORS = set("[]{},#&*!|>'\"%@`")
+
+
+class YamlSubsetError(ValueError):
+    """A reference config line outside the YAML subset `parse_reference_yaml`
+    reads."""
+
+
+def _plain_scalar(v: str, where: str, in_list: bool = False) -> Any:
+    """A plain scalar resolved as PyYAML's safe_load resolves it, or a
+    refusal for what the subset does not read."""
+    if _NULL.match(v):
+        return None
+    if _BOOL.match(v):
+        return v in _TRUE
+    if _INT.match(v):
+        return int(v)
+    if _FLOAT.match(v):
+        low = v.lower()
+        if low.endswith("inf"):
+            return float("-inf") if low.startswith("-") else float("inf")
+        return float("nan") if low.endswith("nan") else float(v)
+    if (_INT_ANY.match(v) or _FLOAT_ANY.match(v) or _TIMESTAMP.match(v)
+            or v in ("<<", "=")):
+        raise YamlSubsetError(f"{where}: {v!r} is a YAML scalar form this reader does not "
+                              "take (octal, hex, binary, sexagesimal, underscores, "
+                              "timestamps, merge keys)")
+    bad_start = v[0] in _INDICATORS or (v[0] in "-?:" and (len(v) == 1 or v[1] == " "))
+    if (bad_start or ": " in v or v.endswith(":") or "\t" in v
+            or (in_list and any(c in v for c in "[]{},"))):
+        raise YamlSubsetError(f"{where}: {v!r} is not a plain scalar of the subset")
+    return v
+
+
+def _quoted(v: str, where: str) -> str:
+    """A single-quoted ('' for a quote) or double-quoted (no escapes)
+    string followed by nothing but a comment."""
+    q = v[0]
+    body, i = [], 1
+    while True:
+        j = v.find(q, i)
+        if j < 0:
+            raise YamlSubsetError(f"{where}: unterminated {q}-quoted string")
+        body.append(v[i:j])
+        if q == "'" and v[j + 1:j + 2] == "'":
+            body.append("'")
+            i = j + 2
+            continue
+        break
+    text = "".join(body)
+    rest = v[j + 1:]
+    if rest.strip() and not re.match(r"^[ ]+#", rest):
+        raise YamlSubsetError(f"{where}: text after the closing quote")
+    if q == '"' and "\\" in text:
+        raise YamlSubsetError(f"{where}: escapes in double-quoted strings are not read")
+    return text
+
+
+def _scalar(raw: str, where: str) -> Any:
+    """A value or list item: a quoted string, or a plain scalar with its
+    trailing comment cut."""
+    raw = raw.strip(" ")
+    if raw[:1] in ("'", '"'):
+        return _quoted(raw, where)
+    c = _COMMENT.search(raw)
+    return _plain_scalar((raw[:c.start()] if c else raw).strip(" "), where)
+
+
+def _flow_list(v: str, where: str) -> list:
+    if not v.endswith("]"):
+        raise YamlSubsetError(f"{where}: a list must open and close on its line")
+    inner = v[1:-1].strip(" ")
+    items = [] if not inner else [i.strip(" ") for i in inner.split(",")]
+    if any(not i or i[0] in "'\"" for i in items):
+        raise YamlSubsetError(f"{where}: empty or quoted list items are not read")
+    return [_plain_scalar(i, where, in_list=True) for i in items]
+
+
+def parse_reference_yaml(text: str, source: str = "<config>") -> Dict[str, Any]:
+    """The reference configs' YAML subset -> the dict yaml.safe_load gives.
+
+    The subset: one `key: value` a line at column 0 (keys are identifiers,
+    each once), `#` comments and blank lines; values that are plain scalars
+    (resolved by YAML 1.1's rules, as safe_load does: `1.0e-06` is a float
+    and a dotless `1e-06` a string, `on` / `off` are booleans), single- or
+    double-quoted strings without escapes, one-line `[a, b]` lists of plain
+    scalars, or, after a bare `key:`, a block list of `- item` lines of one
+    indent (as yaml.safe_dump writes lists). Anything else (nesting,
+    anchors, tags, multi-line values, documents, tabs, octal / hex /
+    sexagesimal numbers, timestamps) raises YamlSubsetError naming the
+    line."""
+    out: Dict[str, Any] = {}
+    lines = text.splitlines()
+    n = 0
+    while n < len(lines):
+        line = lines[n]
+        n += 1
+        where = f"{source}:{n}"
+        stripped = line.strip(" ")
+        if not stripped or stripped.startswith("#"):
+            continue
+        m = _KEY_LINE.match(line)
+        if m is None:
+            raise YamlSubsetError(f"{where}: not a `key: value` line at column 0: {line!r}")
+        key, raw = m.group(1), (m.group(2) or "").strip(" ")
+        if key in out:
+            raise YamlSubsetError(f"{where}: key {key!r} given twice")
+        if raw.startswith("["):
+            c = _COMMENT.search(raw)
+            out[key] = _flow_list((raw[:c.start()] if c else raw).strip(" "), where)
+            continue
+        out[key] = _scalar(raw, where)
+        if raw and not raw.startswith("#"):
+            continue
+        items, indent = [], None  # a bare `key:` may open a block list
+        while n < len(lines):
+            item = re.match(r"^( *)- (.*)$", lines[n])
+            if item is None:
+                if lines[n].strip(" ") and not lines[n].strip(" ").startswith("#"):
+                    break
+                n += 1
+                continue
+            if indent not in (None, item.group(1)):
+                raise YamlSubsetError(f"{source}:{n + 1}: list items of two indents")
+            indent = item.group(1)
+            n += 1
+            items.append(_scalar(item.group(2), f"{source}:{n}"))
+        if indent is not None:
+            out[key] = items
+    if not out:
+        raise YamlSubsetError(f"{source}: no `key: value` line")
+    return out
+
+
 def from_reference_yaml(path: str) -> Config:
     """Load a reference-format config file (config/*/*.yaml) into a Config
-    tree. A file that parses as JSON is read as JSON, which needs no pyyaml
-    and reads a dotless exponent (1e-06) as the number PyYAML would leave a
-    string; any other file is YAML and needs pyyaml."""
+    tree, with no pyyaml. A file that parses as JSON is read as JSON, where
+    a dotless exponent (1e-06) is the number it says; any other file is
+    read by `parse_reference_yaml`, to what yaml.safe_load would give."""
     with open(path) as f:
         text = f.read()
     try:
         return from_reference_dict(json.loads(text))
     except json.JSONDecodeError:
         pass
-    try:
-        import yaml
-    except ImportError:
-        raise ImportError(f"{path} is not JSON, and reading YAML needs pyyaml, which is not "
-                          "installed: install pyyaml or write the config as JSON") from None
-    return from_reference_dict(yaml.safe_load(text))
+    return from_reference_dict(parse_reference_yaml(text, path))
 
 
 def from_reference_dict(raw: Dict[str, Any]) -> Config:

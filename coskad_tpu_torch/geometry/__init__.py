@@ -1,3 +1,3 @@
-from . import euclidean
+from . import euclidean, poincare
 
-__all__ = ["euclidean"]
+__all__ = ["euclidean", "poincare"]

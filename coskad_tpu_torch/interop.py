@@ -6,10 +6,13 @@ joined by '.' is the port's `state_dict` key:
     params/encoder/layer_0/tcn_dense/kernel  ->  encoder.layer_0.tcn_dense.kernel
     batch_stats/encoder/layer_0/tcn_bn/mean  ->  encoder.layer_0.tcn_bn.mean
     params/btlnk/kernel                      ->  btlnk.kernel
+    params/btlnk/bn_0/scale                  ->  btlnk.bn_0.scale   (MLP head)
+    batch_stats/btlnk/bn_0/var               ->  btlnk.bn_0.var
 
 Dense kernels keep flax's [fan_in, features] layout and the projector keeps
 its (T, V, C) flatten order, so no array is transposed on the way, in
-either direction (`load_jax_variables`, `to_jax_variables`).
+either direction (`load_jax_variables`, `to_jax_variables`). Every array is
+matched by its name, never by its position in a tree.
 """
 
 from __future__ import annotations

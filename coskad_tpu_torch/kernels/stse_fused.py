@@ -63,8 +63,10 @@ class FoldedLayer(NamedTuple):
 
 class FoldedSTSE(NamedTuple):
     layers: List[FoldedLayer]
-    w_proj: torch.Tensor  # [T*V*C_hidden, latent], (t, v, c) flatten order
-    b_proj: torch.Tensor  # [latent]
+    # the linear projector, None for another (an MLP head runs after the
+    # kernel as a module): [T*V*C_hidden, latent] in (t, v, c) flatten order
+    w_proj: Optional[torch.Tensor]
+    b_proj: Optional[torch.Tensor]  # [latent]
 
 
 @dataclass
@@ -98,7 +100,9 @@ def combined_graph_matrix(t_adj: torch.Tensor, a_adj: torch.Tensor) -> torch.Ten
 
 def fold_stse_params(state: Mapping[str, torch.Tensor]) -> FoldedSTSE:
     """Fold an STSE's state (`STSE.state_dict()` names, which are the flax
-    variable paths joined by '.') into the kernel's weight set."""
+    variable paths joined by '.') into the kernel's weight set. The linear
+    projector (`btlnk.kernel`) is carried along; with any other projector
+    the encoder is folded alone and w_proj / b_proj are None."""
     layers = []
     i = 0
     while f"encoder.layer_{i}.gcn.t_adj" in state:
@@ -115,11 +119,20 @@ def fold_stse_params(state: Mapping[str, torch.Tensor]) -> FoldedSTSE:
         i += 1
     if not layers:
         raise ValueError("state holds no encoder.layer_0: not an STS-GCN STSE")
-    w_proj = state["btlnk.kernel"]
+    w_proj = state.get("btlnk.kernel")
+    if w_proj is None:
+        return FoldedSTSE(layers, None, None)
     b_proj = state.get("btlnk.bias")
     if b_proj is None:
         b_proj = torch.zeros(w_proj.shape[1], dtype=w_proj.dtype, device=w_proj.device)
     return FoldedSTSE(layers, w_proj, b_proj)
+
+
+def _projector(folded: FoldedSTSE) -> Tuple[torch.Tensor, torch.Tensor]:
+    if folded.w_proj is None:
+        raise ValueError("the folded weights carry no linear projector: run "
+                         "fused_stse_hidden and the model's own projector")
+    return folded.w_proj, folded.b_proj
 
 
 def _round_up(n: int, m: int) -> int:
@@ -181,8 +194,9 @@ def fused_stse_hidden_reference(x: torch.Tensor, folded: FoldedSTSE) -> torch.Te
 
 def fused_stse_forward_reference(x: torch.Tensor, folded: FoldedSTSE) -> torch.Tensor:
     """Plain PyTorch version of the whole fused forward: [B, C, T, V] -> [B, latent]."""
+    w_proj, b_proj = _projector(folded)
     h = fused_stse_hidden_reference(x, folded)
-    return h.reshape(h.shape[0], -1) @ folded.w_proj + folded.b_proj
+    return h.reshape(h.shape[0], -1) @ w_proj + b_proj
 
 
 def bind(lib):
@@ -279,8 +293,9 @@ def fused_stse_forward(x: torch.Tensor, folded: FoldedSTSE,
                        packed: Optional[PackedSTSE] = None) -> torch.Tensor:
     """[B, C, T, V] windows -> [B, latent] latents: the fused encoder, then
     the projector as one matmul."""
+    w_proj, b_proj = _projector(folded)
     h = fused_stse_hidden(x, folded, packed)
-    return h.reshape(h.shape[0], -1) @ folded.w_proj + folded.b_proj
+    return h.reshape(h.shape[0], -1) @ w_proj + b_proj
 
 
 def work(folded: FoldedSTSE, batch: int) -> Tuple[float, float]:

@@ -1,19 +1,23 @@
 """STSE: the encoder-only COSKAD model (PyTorch).
 
 Counterpart of `coskad_tpu/models/stse.py::STSE` with the `sts_gcn` encoder
-and the linear projector. I/O is the reference's NCTV layout [B, C, T, V];
-the projector flattens the hidden state in (T, V, C) order.
+and the linear or the MLP projector. I/O is the reference's NCTV layout
+[B, C, T, V]; the projector reads the hidden state flattened in (T, V, C)
+order.
 
 The eval forward takes one of two routes by the input's device:
   * CUDA: the fused encoder kernel (`kernels/stse_fused.py`) on weights
     folded once and cached until a parameter or buffer changes, then the
-    projector as one matmul; the kernel has no backward, so this route
-    raises where autograd would record it (`eval_uses_kernel`);
+    projector module (the linear one is one matmul, the MLP one runs in
+    eval mode); the kernel has no backward, so this route raises where
+    autograd would record it (`eval_uses_kernel`);
   * CPU: the plain module path, layer by layer.
 The train forward (`train=True`) is the module path with live BatchNorm,
 which updates the running statistics in place (see `stsgcn.py`), or with
-running statistics under `frozen_bn`. The ghost-BN train path through the
-K2-K4 kernels is `kernels/stse_train.py::fused_stse_apply`.
+running statistics under `frozen_bn`. The MLP head's BatchNorm is live in
+every train forward, `frozen_bn` or not: the JAX model passes the head
+`train` alone. The ghost-BN train path through the K2-K4 kernels is
+`kernels/stse_train.py::fused_stse_apply` (linear projector only).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 from torch import nn
 
 from ..kernels import stse_fused
-from .stsgcn import _DROPOUT, Dense, STSGCNStack
+from .stsgcn import _DROPOUT, Dense, MLPHead, STSGCNStack
 
 
 def eval_uses_kernel(on_cuda: bool, tensors: Iterable[torch.Tensor]) -> bool:
@@ -73,15 +77,19 @@ class STSE(nn.Module):
         super().__init__()
         if encoder_type.lower() != "sts_gcn":
             raise NotImplementedError(
-                f"encoder {encoder_type!r} is not ported yet (ROADMAP.md, Queue 1 item 5)")
-        if projector.lower() != "linear":
-            raise NotImplementedError(
-                f"projector {projector!r} is not ported yet (ROADMAP.md, Queue 1 item 5)")
+                f"encoder {encoder_type!r} is not ported yet (ROADMAP.md, Queue 1 item 3)")
         self.encoder = STSGCNStack(
             input_dim, list(layer_channels) + [hidden_dimension], n_frames,
             n_joints, use_bias)
-        self.btlnk = LinearProjector(
-            hidden_dimension * n_frames * n_joints, latent_dim, use_bias)
+        flat = hidden_dimension * n_frames * n_joints
+        proj = projector.lower()
+        if proj == "linear":
+            self.btlnk = LinearProjector(flat, latent_dim, use_bias)
+        elif proj == "mlp":
+            self.btlnk = MLPHead(flat, list(projector_hidden_layers or [latent_dim]),
+                                 latent_dim, use_bias)
+        else:
+            raise ValueError(f"Unsupported projector {projector!r}")
         self.dropout = dropout
         self._fold_cache: Optional[Tuple[tuple, stse_fused.FoldedSTSE,
                                          stse_fused.PackedSTSE]] = None
@@ -99,7 +107,13 @@ class STSE(nn.Module):
         if train and self.dropout > 0:
             raise NotImplementedError(_DROPOUT)
         h = self.encoder(x.permute(0, 2, 3, 1), train=train, frozen_bn=frozen_bn)
-        return self.btlnk(h), h
+        return self._project(h, train), h
+
+    def _project(self, h: torch.Tensor, train: bool) -> torch.Tensor:
+        """The projector on the hidden state ([B, T, V, C] or [B, T*V, C])."""
+        if isinstance(self.btlnk, MLPHead):
+            return self.btlnk(h.reshape(h.shape[0], -1), train=train)
+        return self.btlnk(h)
 
     def folded(self) -> Tuple[stse_fused.FoldedSTSE, stse_fused.PackedSTSE]:
         """The kernel's folded and packed weights, rebuilt only when a
@@ -119,17 +133,19 @@ class STSE(nn.Module):
             return self.encode(x, train=True, frozen_bn=frozen_bn)[0]
         if eval_uses_kernel(x.is_cuda, [x, *self.parameters()]):
             folded, packed = self.folded()
-            return stse_fused.fused_stse_forward(x.contiguous(), folded, packed)
+            return self._project(stse_fused.fused_stse_hidden(x.contiguous(), folded, packed),
+                                 train=False)
         return self.encode(x)[0]
 
 
 def build_model(use_decoder: bool = False, use_vae: bool = False, **kwargs) -> STSE:
-    """Variant factory: the encoder-only variants (euclidean static/dynamic)
-    share STSE. The decoder variants are not ported yet."""
+    """Variant factory: the encoder-only variants (euclidean static /
+    dynamic, hyperbolic) share STSE. The decoder variants are not ported
+    yet."""
     if use_decoder or use_vae:
         raise NotImplementedError(
             "the autoencoder and VAE variants are not ported yet "
-            "(ROADMAP.md, Queue 1 item 5)")
+            "(ROADMAP.md, Queue 1 item 3)")
     for k in ("distribution", "kappa_floor", "decoder_channels"):
         kwargs.pop(k, None)
     return STSE(**kwargs)

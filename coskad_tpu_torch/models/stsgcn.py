@@ -18,7 +18,10 @@ BatchNorm, as the JAX package runs it:
     `mean` / `var` buffers in place, in PyTorch's manner; K1's fold cache
     is keyed on the buffers' versions, so it refolds after an update.
     (`F.batch_norm` would store the unbiased variance and drift from flax.)
-Ghost BatchNorm, the fused train path, is `kernels/stse_train.py`.
+Ghost BatchNorm, the fused train path, is `kernels/stse_train.py`. The MLP
+projector (`MLPHead`) runs flax BatchNorm on its hidden layers as it is,
+unfolded: `batch_norm_eval` from the running statistics, `batch_norm_train`
+in train mode.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from torch import nn
 from ..kernels.stse_fused import combined_graph_matrix
 
 BN_MOMENTUM = 0.9
-_DROPOUT = "dropout in train mode is not ported yet (ROADMAP.md, Queue 1 item 5)"
+_DROPOUT = "dropout in train mode is not ported yet (ROADMAP.md, Queue 1 item 3)"
 
 
 def _uniform_(t: torch.Tensor, bound: float, generator: Optional[torch.Generator]):
@@ -90,6 +93,13 @@ def dense_bn(x: torch.Tensor, dense: Dense, bn: BatchNorm, eps: float = 1e-5) ->
     w_eff = dense.kernel * inv[None, :]
     b_eff = (bias - bn.mean) * inv + bn.bias
     return x @ w_eff + b_eff
+
+
+def batch_norm_eval(h: torch.Tensor, bn: BatchNorm, eps: float = 1e-5) -> torch.Tensor:
+    """flax `nn.BatchNorm(use_running_average=True)` over h [..., C]:
+    (h - mean) * (rsqrt(var + eps) * scale) + bias from the running
+    statistics."""
+    return (h - bn.mean) * (torch.rsqrt(bn.var + eps) * bn.scale) + bn.bias
 
 
 def batch_norm_train(h: torch.Tensor, bn: BatchNorm, momentum: float = BN_MOMENTUM,
@@ -195,3 +205,28 @@ class STSGCNStack(nn.Module):
         for i in range(self.n_layers):
             x = getattr(self, f"layer_{i}")(x, train=train, frozen_bn=frozen_bn)
         return x
+
+
+class MLPHead(nn.Module):
+    """The MLP projector: per hidden layer `hidden_{i}` (Dense) -> `bn_{i}`
+    (BatchNorm over the whole batch, not ghost blocks) -> ReLU, then the
+    Dense `out`. [B, fan_in] -> [B, output_size]. In train mode BatchNorm
+    uses the batch's statistics and updates its running ones in place with
+    flax's semantics (`batch_norm_train`); in eval mode the running ones."""
+
+    def __init__(self, fan_in: int, hidden_layers: Sequence[int], output_size: int,
+                 use_bias: bool = True):
+        super().__init__()
+        self.n_hidden = len(hidden_layers)
+        for i, h in enumerate(hidden_layers):
+            self.add_module(f"hidden_{i}", Dense(fan_in, h, use_bias))
+            self.add_module(f"bn_{i}", BatchNorm(h))
+            fan_in = h
+        self.out = Dense(fan_in, output_size, use_bias)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        for i in range(self.n_hidden):
+            h = getattr(self, f"hidden_{i}")(x)
+            bn = getattr(self, f"bn_{i}")
+            x = torch.relu(batch_norm_train(h, bn) if train else batch_norm_eval(h, bn))
+        return self.out(x)

@@ -1,6 +1,6 @@
 """The Trainer (counterpart of `coskad_tpu/train/loop.py`) for the
-encoder-only euclidean variants: training, center initialization, scoring
-and validation.
+encoder-only variants (euclidean static / dynamic, hyperbolic): training,
+center initialization, scoring and validation.
 
 Windows are uploaded once, flat [N, C*T*V], to the device. A pass walks
 [K, B] index chunks in an eager Python loop (the JAX package's `lax.scan`):
@@ -30,6 +30,7 @@ from ..config import Config
 from ..data.transforms import canonical_transforms, gather_batch
 from ..data.windows import SegmentDataset
 from ..device import resolve_device
+from ..geometry import poincare as hyp
 from ..kernels import stse_train
 from ..models import build_model
 from ..score.aggregate import EvalResult, ScoringConfig, evaluate_windows
@@ -43,7 +44,7 @@ def model_kwargs_from_config(cfg: Config) -> dict:
     if cfg.run.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype {cfg.run.compute_dtype!r} is not ported yet "
-            "(ROADMAP.md, Queue 1 item 5)")
+            "(ROADMAP.md, Queue 1 item 3)")
     return dict(
         use_decoder=cfg.model.use_decoder,
         use_vae=cfg.model.use_vae,
@@ -273,19 +274,26 @@ class Trainer:
         return scores.cpu().numpy(), np.zeros(n, np.float32)
 
     def initialize_center(self, state: TrainState) -> TrainState:
-        """Full eval-mode pass over the train set: center = clamp(mean(z)),
-        the mean taken in float64; Mahalanobis also inverts the latent
-        covariance around it."""
-        if self.cfg.model.variant not in ("euclidean_static", "euclidean_dynamic"):
+        """Full eval-mode pass over the train set. Euclidean: center =
+        clamp(mean(z)), the mean taken in float64. Hyperbolic: the Einstein
+        midpoint of the exp-mapped latents, which must lie inside the ball.
+        Mahalanobis also inverts the latent covariance around the center."""
+        variant = self.cfg.model.variant
+        if variant not in objectives.ENCODER_ONLY:
             raise NotImplementedError(
-                f"{self.cfg.model.variant} centers are not ported yet "
-                "(ROADMAP.md, Queue 1 item 5)")
+                f"{variant} centers are not ported yet (ROADMAP.md, Queue 1 item 3)")
         z = self.embed_all(state, self.train_ds, self.train_data)
-        c = torch.as_tensor(z.mean(axis=0, dtype=np.float64), dtype=torch.float32)
-        c = clamp_center(c, self.cfg.opt.center_tolerance)
-        state = state.replace(center=c.to(self.device))
+        if variant == "hyperbolic":
+            z_h = hyp.project(hyp.expmap0(torch.as_tensor(z, device=self.device)))
+            c = hyp.midpoint_from_stats(*hyp.streaming_midpoint_stats(z_h))
+            if not bool(torch.all(torch.abs(c) < 1.0)):
+                raise ValueError("hyperbolic center left the Poincaré ball")
+        else:
+            c = torch.as_tensor(z.mean(axis=0, dtype=np.float64), dtype=torch.float32)
+            c = clamp_center(c, self.cfg.opt.center_tolerance).to(self.device)
+        state = state.replace(center=c)
         if self.cfg.model.distance == "mahalanobis":
-            d = z - c.numpy()
+            d = z - c.cpu().numpy()
             cov = self._shrink_cov((d.T @ d) / (len(z) - 1))
             state = state.replace(inv_cov=torch.as_tensor(
                 np.linalg.inv(cov), dtype=torch.float32, device=self.device))
@@ -306,11 +314,15 @@ class Trainer:
 
     def apply_epoch_updates(self, state: TrainState) -> TrainState:
         """End of an epoch: euclidean_dynamic's center becomes the epoch's
-        latent mean (clamped); Mahalanobis inverts the epoch's covariance.
+        latent mean (clamped), the hyperbolic center the midpoint of the
+        epoch's ball points; Mahalanobis inverts the epoch's covariance.
         Then the accumulators restart."""
         if self.cfg.model.variant == "euclidean_dynamic":
             c = clamp_center(state.acc_vec / state.acc_weight, self.cfg.opt.center_tolerance)
             state = state.replace(center=c)
+        elif self.cfg.model.variant == "hyperbolic":
+            state = state.replace(center=hyp.midpoint_from_stats(state.acc_vec,
+                                                                 state.acc_weight))
         if self.cfg.model.distance == "mahalanobis":
             cov = state.acc_outer / (state.acc_weight - 1.0)
             state = state.replace(inv_cov=torch.linalg.inv(self._shrink_cov(cov)))
@@ -382,6 +394,12 @@ class Trainer:
                         self._set_lr(self._lr)
                         self._since_best = 0
             state = self.apply_epoch_updates(state)
+            if cfg.model.variant == "hyperbolic":
+                # the center's euclidean norm and its geodesic distance from
+                # the origin, as the reference logs them at epoch end
+                c = state.center
+                self.logger.log({"center/eucl": float(torch.linalg.vector_norm(c)),
+                                 "center/hyp": float(hyp.dist0(c))}, state.step, force=True)
         self._epochs_done += epochs
         return state, history
 

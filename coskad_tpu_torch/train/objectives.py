@@ -1,11 +1,15 @@
-"""Training objectives and window scores of the euclidean variants
+"""Training objectives and window scores of the encoder-only variants
 (counterpart of `coskad_tpu/train/objectives.py`).
 
-The encoder-only euclidean variants (`euclidean_static`,
-`euclidean_dynamic`) contract latents toward the center by MSE or by
-Mahalanobis distance, plus a weight regularizer; they score windows by the
-same distance. The VAE, autoencoder and hyperbolic objectives and scores
-come with their variants (ROADMAP.md, Queue 1 item 5).
+The euclidean variants (`euclidean_static`, `euclidean_dynamic`) contract
+latents toward the center by MSE or by Mahalanobis distance, plus a weight
+regularizer; they score windows by the same distance. The hyperbolic
+variant maps latents onto the Poincaré ball (`project(expmap0(z))`) and
+contracts them toward the center by geodesic distance; its center is the
+Einstein midpoint of the epoch's ball points, accumulated batch by batch
+as (sum of gamma x_Klein, sum of gamma), and it scores a window by its
+geodesic distance to the center. The VAE and autoencoder objectives and
+scores come with their variants (ROADMAP.md, Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -17,13 +21,15 @@ from torch import nn
 
 from ..config import Config
 from ..geometry import euclidean as euc
+from ..geometry import poincare as hyp
 
 EUCLIDEAN = ("euclidean_static", "euclidean_dynamic")
+ENCODER_ONLY = EUCLIDEAN + ("hyperbolic",)
 
 
 def _unported(variant: str, what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{variant} {what} is not ported yet (ROADMAP.md, Queue 1 item 5)")
+        f"{variant} {what} is not ported yet (ROADMAP.md, Queue 1 item 3)")
 
 
 def reg_loss(model: nn.Module) -> torch.Tensor:
@@ -40,9 +46,16 @@ def compute_loss(cfg: Config, z: torch.Tensor, batch: torch.Tensor, model: nn.Mo
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Loss and scalar metrics for one batch of latents z [B, D]."""
     variant = cfg.model.variant
-    if variant not in EUCLIDEAN:
+    if variant not in ENCODER_ONLY:
         raise _unported(variant, "training")
     l_reg = reg_loss(model)
+    if variant == "hyperbolic":
+        z_h = hyp.project(hyp.expmap0(z))
+        l_poincare = torch.mean(hyp.dist(center, z_h))
+        loss = l_poincare + cfg.opt.alpha * l_reg
+        return loss, {"regularization": l_reg, "poincare_loss": l_poincare,
+                      "hyperlatent_norm": torch.mean(torch.linalg.vector_norm(z_h, dim=-1)),
+                      "loss": loss}
     if cfg.model.distance == "mahalanobis":
         l_center = torch.mean(euc.mahalanobis(z, center, inv_cov))
     else:
@@ -53,7 +66,7 @@ def compute_loss(cfg: Config, z: torch.Tensor, batch: torch.Tensor, model: nn.Mo
 
 def latent_of(variant: str, variant_outputs) -> torch.Tensor:
     """The latent used for center/covariance accumulation."""
-    if variant not in EUCLIDEAN:
+    if variant not in ENCODER_ONLY:
         raise _unported(variant, "training")
     return variant_outputs
 
@@ -62,13 +75,19 @@ def accumulate_stats(state_acc: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
                      variant: str, distance: str, z: torch.Tensor, center: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Add one batch's center/covariance sufficient statistics: the latent
-    sum and count, and for Mahalanobis the sum of (z - c)(z - c)^T."""
-    if variant not in EUCLIDEAN:
+    sum and count (hyperbolic: the midpoint's statistics of the ball
+    points), and for Mahalanobis the sum of (z - c)(z - c)^T."""
+    if variant not in ENCODER_ONLY:
         raise _unported(variant, "training")
     acc_vec, acc_weight, acc_outer = state_acc
     z = z.detach()
-    acc_vec = acc_vec + torch.sum(z, dim=0)
-    acc_weight = acc_weight + z.shape[0]
+    if variant == "hyperbolic":
+        ws, w = hyp.streaming_midpoint_stats(hyp.project(hyp.expmap0(z)))
+        acc_vec = acc_vec + ws
+        acc_weight = acc_weight + w.squeeze()
+    else:
+        acc_vec = acc_vec + torch.sum(z, dim=0)
+        acc_weight = acc_weight + z.shape[0]
     if distance == "mahalanobis":
         d = z - center
         acc_outer = acc_outer + d.T @ d
@@ -79,7 +98,9 @@ def window_scores(cfg: Config, z: torch.Tensor, center: torch.Tensor,
                   inv_cov: torch.Tensor, mean_vector: torch.Tensor) -> torch.Tensor:
     """Per-window anomaly score. [B, D] -> [B]."""
     variant = cfg.model.variant
-    if variant in ("vae", "hyperbolic"):
+    if variant == "hyperbolic":
+        return hyp.dist(hyp.project(hyp.expmap0(z)), center)
+    if variant == "vae":
         raise _unported(variant, "scoring")
     if cfg.model.distance == "mahalanobis":
         return euc.mahalanobis(z, center, inv_cov)

@@ -97,17 +97,18 @@ def test_msgpack_refuses_what_it_cannot_carry():
 # ---------------------------------------------------------------- trainers
 
 
-def data_and_config(fused_train, lr=1e-2):
+def data_and_config(fused_train, lr=1e-2, variant="euclidean_dynamic", projector="linear"):
     """64 random windows x 2 transforms, 4 steps of 32 an epoch, the
-    narrow model; euclidean_dynamic so the center moves too."""
+    narrow model; euclidean_dynamic (or hyperbolic) so the center moves
+    too."""
     rng = np.random.default_rng(0)
     n_win = 64
     data = rng.normal(size=(n_win, 3, 6, 5)).astype(np.float32)
     meta = np.tile([1, 1, 1, 1], (n_win, 1)).astype(np.int64)
     fids = np.tile(np.arange(1, 7), (n_win, 1)).astype(np.int32)
     cfg = jconfig.Config(
-        model=jconfig.ModelConfig(variant="euclidean_dynamic", channels=(8, 4, 8), h_dim=16,
-                                  latent_dim=4),
+        model=jconfig.ModelConfig(variant=variant, channels=(8, 4, 8), h_dim=16,
+                                  latent_dim=4, projector=projector),
         data=jconfig.DataConfig(seg_len=6, n_joints_override=5, batch_size=32,
                                 num_transform=2),
         opt=jconfig.OptConfig(lr=lr, epochs=2),
@@ -160,7 +161,28 @@ def test_jax_checkpoint_restores_into_the_port(tmp_path):
     """A JAX Trainer fits an epoch and saves; the port decodes the file as
     flax does, restores it, scores as JAX does, holds Adam's moments by
     name, and one more epoch runs in lockstep with JAX's."""
-    arrays, cfg = data_and_config("off")
+    jax_to_port(tmp_path, *data_and_config("off"))
+
+
+def test_port_checkpoint_restores_into_jax(tmp_path):
+    """The port fits an epoch on the ghost-BN path and saves; the file has
+    the JAX checkpoint's tree (keys, dtypes, shapes), JAX restores it into
+    its template, embeds and scores as the port does, and one more epoch
+    runs in lockstep."""
+    port_to_jax(tmp_path, *data_and_config("on"))
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_mlp_hyperbolic_checkpoint_restores_both_ways(tmp_path, direction):
+    """The paper's model tree (the MLP head: btlnk/{hidden_0, bn_0, out}
+    params, btlnk/bn_0 batch statistics, Adam's moments of its tensors cut
+    from the flat vector by name) and the hyperbolic center, in either
+    direction, as the linear tree above."""
+    arrays, cfg = data_and_config("auto", variant="hyperbolic", projector="mlp")
+    (jax_to_port if direction == "jax_to_port" else port_to_jax)(tmp_path, arrays, cfg)
+
+
+def jax_to_port(tmp_path, arrays, cfg):
     jtrainer, jlog = jax_trainer(arrays, cfg)
     jstate = jtrainer.initialize_center(jtrainer.init_state())
     jstate, _ = jtrainer.fit(jstate, epochs=1)
@@ -184,12 +206,7 @@ def test_jax_checkpoint_restores_into_the_port(tmp_path):
     lockstep_epoch(jtrainer, jlog, jstate, trainer, log, state)
 
 
-def test_port_checkpoint_restores_into_jax(tmp_path):
-    """The port fits an epoch on the ghost-BN path and saves; the file has
-    the JAX checkpoint's tree (keys, dtypes, shapes), JAX restores it into
-    its template, embeds and scores as the port does, and one more epoch
-    runs in lockstep."""
-    arrays, cfg = data_and_config("on")
+def port_to_jax(tmp_path, arrays, cfg):
     trainer, log = port_trainer(arrays, cfg)
     state, _ = trainer.fit(epochs=1)
     path = str(tmp_path / "port.ckpt")

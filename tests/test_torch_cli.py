@@ -5,9 +5,15 @@ widths, on the CPU.
 Tolerances: frame AUCs of the two evals of one checkpoint within 1e-4
 (PERF.md §2); a served window's score equals the eval's bit for bit (the
 same model, batches and arithmetic on the CPU); the trained port's AUC
-above 0.6, the plumbing band of tests/test_cli_e2e.py."""
+above 0.6, the plumbing band of tests/test_cli_e2e.py.
+
+The paper's configurations (config/HR-STC/*.yaml) run as shipped, read by
+the port's own YAML reader, with these lines edited: the four paths, the
+widths and batch cut for the CPU, and compute_dtype float32 (the port has
+no bfloat16 module path yet, ROADMAP.md Queue 1 item 3)."""
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -18,13 +24,14 @@ from coskad_tpu.cli import eval as jeval_cli
 from coskad_tpu.cli import train as jtrain_cli
 from coskad_tpu_torch.cli import eval as eval_cli
 from coskad_tpu_torch.cli import train as train_cli
-from coskad_tpu_torch.cli.common import load_split
+from coskad_tpu_torch.cli.common import load_config, load_split
 from coskad_tpu_torch.serve import AnomalyScorer
 from coskad_tpu_torch.train import checkpoint
 from fixtures import make_synthetic_dataset
 
 torch.set_num_threads(1)
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NARROW = dict(channels=[8, 4, 8], h_dim=16, latent_dim=4, dataset_batch_size=64)
 
 
@@ -37,6 +44,66 @@ def narrow_dataset(root, **overrides):
     with open(path, "w") as f:
         yaml.safe_dump(raw, f)
     return path, os.path.join(root, "checkpoints", "Synthetic", "smoke")
+
+
+def shipped_config(root, name, **edits):
+    """config/HR-STC/<name>.yaml over the fixture's tree in `root`, with the
+    four paths and `edits` replaced line by line, the rest as shipped."""
+    make_synthetic_dataset(root, n_frames=120)
+    with open(os.path.join(ROOT, "config", "HR-STC", f"{name}.yaml")) as f:
+        text = f.read()
+    edits = dict(data_dir=root, dataset_path_to_robust=root, test_path=os.path.join(root, "gt"),
+                 exp_dir=os.path.join(root, "checkpoints"), **edits)
+    for key, value in edits.items():
+        text, n = re.subn(rf"^{key}:.*$", f"{key}: {value}", text, flags=re.M)
+        assert n == 1, key
+    path = os.path.join(root, f"{name}.yaml")
+    with open(path, "w") as f:
+        f.write(text)
+    return path, os.path.join(root, "checkpoints", "HR-STC", f"stc_{name.split('_')[0]}")
+
+
+CPU_CUT = dict(compute_dtype="float32", channels="[8, 4, 8]", h_dim=16, latent_dim=4,
+               dataset_batch_size=128)
+
+
+@pytest.mark.parametrize("name", ["hyperbolic_encoder", "euclidean_encoder"])
+def test_shipped_hr_stc_config_trains_resumes_evaluates_and_serves(tmp_path, name):
+    """The port's cli.train (2 epochs, then --resume to 3), cli.eval and
+    from_checkpoint on a shipped HR-STC file: the MLP projector at 17
+    joints, the hyperbolic or the dynamic euclidean center, validation on."""
+    root = str(tmp_path)
+    cfg_path, ckpt_dir = shipped_config(root, name, **CPU_CUT)
+    cfg = load_config(cfg_path)
+    assert (cfg.model.projector, cfg.data.n_joints, cfg.data.seg_stride) == ("mlp", 17, 1)
+    assert cfg.model.variant == ("hyperbolic" if name.startswith("hyp") else "euclidean_dynamic")
+    if not torch.cuda.is_available():  # the default device is the card, never a fallback
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train_cli.main(["--config", cfg_path, "--epochs", "1"])
+    run = train_cli.main(["--config", cfg_path, "--epochs", "2", "--device", "cpu"])
+    resumed = train_cli.main(["--config", cfg_path, "--epochs", "3", "--resume",
+                              "--device", "cpu"])
+    assert not run.trainer._fused_compat
+    losses = run.loss + resumed.loss
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    if cfg.model.variant == "hyperbolic":
+        assert float(resumed.state.center.norm()) < 1.0
+    ev = eval_cli.main(["--config", cfg_path, "--device", "cpu"])
+    assert np.isfinite(ev.result.auc) and len(ev.result.per_transform_auc) == 5
+    scorer = AnomalyScorer.from_checkpoint(os.path.join(ckpt_dir, "best.ckpt"), device="cpu")
+    windows = load_split(scorer.cfg, "test", stride=1).data[:100]
+    np.testing.assert_array_equal(scorer.score_windows(windows), ev.window_scores[:100])
+
+
+def test_port_eval_of_a_jax_hyperbolic_checkpoint_matches_jax_eval(tmp_path):
+    """A JAX cli.train of the hyperbolic MLP model on the shipped HR-STC
+    file, then both packages' cli.eval of its checkpoint."""
+    cfg_path, _ = shipped_config(str(tmp_path), "hyperbolic_encoder", **CPU_CUT)
+    jtrain_cli.main(["--config", cfg_path, "--epochs", "2"])
+    want = jeval_cli.main(["--config", cfg_path])
+    got = eval_cli.main(["--config", cfg_path, "--device", "cpu"])
+    assert abs(got.result.auc - want.auc) <= 1e-4
+    np.testing.assert_allclose(got.result.per_transform_auc, want.per_transform_auc, atol=1e-4)
 
 
 def test_port_eval_of_a_jax_checkpoint_matches_jax_eval(tmp_path):

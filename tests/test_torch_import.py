@@ -23,6 +23,7 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import coskad_tpu_torch.kernels, coskad_tpu_torch.interop\n"
         "import coskad_tpu_torch.cli.train, coskad_tpu_torch.cli.eval\n"
         "import coskad_tpu_torch.train.checkpoint, coskad_tpu_torch.data.robust\n"
+        "import coskad_tpu_torch.geometry.poincare, coskad_tpu_torch.config\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN_TOP!r})\n"
         "print(','.join(bad))\n"
     )
@@ -41,7 +42,8 @@ def _python_sources():
 
 
 _IMPORT = re.compile(
-    r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|msgpack|coskad_tpu)(?![\w])", re.MULTILINE)
+    r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|msgpack|yaml|coskad_tpu)(?![\w])",
+    re.MULTILINE)
 
 
 def test_static_scan_finds_no_forbidden_import():

@@ -4,7 +4,8 @@ the same files.
 
 Tolerances: float64 normalization within 1e-12 (the same numpy operations
 in the same order); windows, metadata and frame ids equal; configs equal
-field for field."""
+field for field; the YAML reader's dicts equal to yaml.safe_load's, value
+type included, or a refusal naming the line."""
 
 import dataclasses
 import glob
@@ -142,11 +143,106 @@ def test_reference_configs_read_as_jax_reads_them(tmp_path, path, monkeypatch):
         f.write(yaml_safe_json(raw))
     assert dataclasses.asdict(jconfig.from_reference_yaml(as_json)) == want
     assert dataclasses.asdict(tconfig.from_reference_yaml(as_json)) == want
-    # without pyyaml, JSON still loads and YAML is refused naming it
+    # without pyyaml, JSON and YAML both load (the port never imports it)
     monkeypatch.setitem(sys.modules, "yaml", None)
     assert dataclasses.asdict(tconfig.from_reference_yaml(as_json)) == want
-    with pytest.raises(ImportError, match="pyyaml"):
-        tconfig.from_reference_yaml(path)
+    assert dataclasses.asdict(tconfig.from_reference_yaml(path)) == want
+
+
+def test_shipped_yaml_reads_without_pyyaml_as_safe_load_and_jax_read_it():
+    """In a process where `import yaml` fails, the port's reader gives each
+    shipped file's yaml.safe_load dict, and its Config equals the JAX
+    package's field by field."""
+    code = (
+        "import dataclasses, json, sys\n"
+        "sys.modules['yaml'] = None\n"
+        "from coskad_tpu_torch import config\n"
+        "try:\n"
+        "    import yaml\n"
+        "    raise SystemExit('yaml imported')\n"
+        "except ImportError:\n"
+        "    pass\n"
+        f"paths = {CONFIGS!r}\n"
+        "out = {p: [config.parse_reference_yaml(open(p).read(), p),\n"
+        "           dataclasses.asdict(config.from_reference_yaml(p))] for p in paths}\n"
+        "print(json.dumps(out))\n"
+    )
+    run = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
+    assert run.returncode == 0, run.stderr
+    got = json.loads(run.stdout)
+    assert len(CONFIGS) == 8 and sorted(got) == CONFIGS
+    import yaml
+
+    for path in CONFIGS:
+        raw, cfg = got[path]
+        with open(path) as f:
+            assert raw == json.loads(json.dumps(yaml.safe_load(f))), path
+        want = json.loads(json.dumps(dataclasses.asdict(jconfig.from_reference_yaml(path))))
+        assert sorted(cfg) == sorted(want)
+        for section in want:
+            for name, value in want[section].items():
+                assert cfg[section][name] == value, (path, section, name)
+
+
+# plain values as a config would write them; None marks one the subset refuses
+YAML_VALUES = ["1.0e-06", "1e-06", "1.e-6", "1.0e6", "0.0001", "-1.5e+3", ".5", "-.5", "3.",
+               "+1", "-1", "0", "-0", "on", "off", "yes", "No", "TRUE", "y", "~", "null", "",
+               "+.inf", "-.inf", ".NaN", "0o7", "a#b", "/path/to/x # a comment", "C:/x",
+               "-a", "HR-STC", "./checkpoints", "'it''s'", '"x y"', "[32, 16, 32]", "[]",
+               "[856, 480]  # w, h", "[a, 1.5, off]",
+               "012", "00", "1_000", "0x1f", "1:30", "2001-12-14", "a: b", "[1,,2]", "[[1]]",
+               "&a x", "*a", "!!str x", "- a", "x:", "{a: 1}", "|", ">", "%x", "@x", "`x",
+               "[1, 2", "'x' y", '"a\\nb"', "['a']"]
+
+
+@pytest.mark.parametrize("value", YAML_VALUES)
+def test_yaml_reader_reads_a_value_as_safe_load_or_refuses_it(value):
+    import yaml
+
+    text = f"# a config\n\nkey: {value}\n"
+    try:
+        want = yaml.safe_load(text)["key"]
+    except yaml.YAMLError:
+        want = None
+    try:
+        got = tconfig.parse_reference_yaml(text, "c.yaml")["key"]
+    except tconfig.YamlSubsetError as e:
+        assert str(e).startswith("c.yaml:3"), e
+        return
+    assert type(got) is type(want) and (got == want or (got != got and want != want)), \
+        (got, want)
+
+
+def test_yaml_reader_reads_what_safe_dump_writes(tmp_path):
+    """Block lists and quoted strings as yaml.safe_dump writes them (the
+    test fixtures' configs), to the dict written."""
+    import yaml
+
+    raw = yaml.safe_load(open(make_synthetic_dataset(str(tmp_path), n_frames=40)))
+    raw.update(empty="", flag_word="yes", exponent="1e-06", none=None, neg=-3, words="a b")
+    text = yaml.safe_dump(raw)
+    assert "channels:\n- 32\n" in text
+    assert tconfig.parse_reference_yaml(text) == raw
+
+
+@pytest.mark.parametrize("text", [
+    "a: 1\n  b: 2\n",  # nesting
+    "a:\n- - 1\n",  # a list in a list
+    "a:\n- 1\n  - 2\n",  # list items of two indents
+    "a: 1\n- 2\n",  # a list item after a value
+    "---\na: 1\n",  # a document marker
+    "a: 1\na: 2\n",  # a key given twice
+    "a: [1,\n  2]\n",  # a list over two lines
+    "\ta: 1\n",  # a tab
+    "a:1\n",  # no space after the colon
+    "1: a\n",  # a key that is not an identifier
+    "# nothing\n",  # no key
+], ids=["nested", "list_in_list", "two_indents", "item_after_value", "document", "duplicate",
+        "multiline_list", "tab", "no_space", "int_key", "empty"])
+def test_yaml_reader_refuses_lines_outside_its_subset(text):
+    with pytest.raises(tconfig.YamlSubsetError, match=r"^c\.yaml"):
+        tconfig.parse_reference_yaml(text, "c.yaml")
 
 
 def test_reference_dict_derives_the_validation_layout(tmp_path):

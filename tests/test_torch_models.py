@@ -83,7 +83,9 @@ def test_load_rejects_mismatched_trees():
 
 def test_train_mode_and_unported_variants_raise():
     """Train mode runs (tests/test_torch_train.py holds it to flax); dropout
-    in train mode and the other variants are not ported yet."""
+    in train mode and the other variants and encoders are not ported yet;
+    the MLP projector is (tests/test_torch_mlp_head.py), and an unknown
+    projector is refused as in JAX."""
     model = STSE(**CASES["narrow_stack"])
     x = torch.zeros(2, 2, 12, 18)
     assert model(x, train=True).shape == (2, 4)
@@ -92,4 +94,7 @@ def test_train_mode_and_unported_variants_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(use_vae=True, **CASES["narrow_stack"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        STSE(projector="mlp")
+        STSE(encoder_type="st_gcn")
+    assert STSE(projector="mlp", **CASES["narrow_stack"])(x, train=True).shape == (2, 4)
+    with pytest.raises(ValueError, match="Unsupported projector"):
+        STSE(projector="conv", **CASES["narrow_stack"])

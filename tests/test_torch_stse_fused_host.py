@@ -83,6 +83,9 @@ def _run(host_kernel, x, packed, hidden):
     (*FLAGSHIP, 3),  # flagship widths, a ragged last block of one window
     (*FLAGSHIP, 1),  # one window
     (2, (16, 8), 8, 5, 7, 5),  # 35 nodes, no whole 16-node tile, 2 windows a block, ragged
+    # the paper's configs: flagship channels at 17 joints, 204 nodes in 13
+    # tiles (the last of 12 nodes), a ragged last block of one window
+    (2, (32, 16, 32), 64, 12, 17, 3),
 ])
 def test_host_run_of_cuda_source_matches_plain(host_kernel, input_dim, channels, hidden, t, v,
                                                 batch):
