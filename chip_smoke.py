@@ -15,7 +15,10 @@ Phases, each printing a line before the last:
      launched twice gives the same bits; times kernel and plain version,
      and each flagship layer alone with its windows a block, shared bytes
      and blocks an SM (the `K1 layers` line); STSE.forward(train=False)
-     with grad mode on raises (K1 has no backward).
+     with grad mode on raises (K1 has no backward). The route for a layout
+     K1's planner refuses (28 frames at 18 joints): the model's own layers
+     on the card, no K1 launch, no raise with grad mode on, the CPU module
+     path's latent.
   3. train kernels: K2 (ghost-BN forward), K3 (a lower layer's backward)
      and K4 (the top layer's backward with the projector's) against their
      plain versions on the card: full width at B=2048 ghost 64, B=96 ghost
@@ -33,6 +36,13 @@ Phases, each printing a line before the last:
      ms, its bound (3xTF32 on the tensor cores, or bytes) and the time of
      one fp32 torch.mm / einsum call (TF32 off); `--only products` runs
      just this check.
+  3a. bf16 kernels: K2, K4, K3 and K5 in each bf16 compute_dtype form
+     ("bfloat16", "bfloat16_f32store": bf16 operands, f32 sums, values
+     stored at bf16 or f32) against their plain versions in the same form
+     (float64 between the rounding points) at B=2048 ghost 64 and on the
+     identity-residual stack, K5 also against K4 + K3; the "bfloat16" form
+     timed beside its plain version, its bound at the bf16 tensor-core peak
+     and bytes at the store dtype.
   3b. mono: K5 (the mono backward, from x and dz alone) against its plain
      version in float64 and against the split kernels (K4, then K3) on the
      same inputs, on the train-kernel cases plus a batch whose last chunk
@@ -43,7 +53,8 @@ Phases, each printing a line before the last:
      weights (per-step losses, K5 launched once a step, K3/K4 never); the
      step time of each mode, in turns; the peak memory of one step of each
      (mono also at K5 chunks of 512 and 1024 windows) and the bytes it
-     saves for backward.
+     saves for backward. Then 5 counted mono steps at compute_dtype bfloat16
+     (K2 and K5 launched once a step) against 5 split steps.
   3c. probe: the bf16 operand probes (P), one kernel per job of
      scripts/probe_mosaic.py, each against its plain version and timed.
   4. slice (serving): the serving path at the flagship width (sts_gcn
@@ -61,6 +72,12 @@ Phases, each printing a line before the last:
      breakdown of one step, the live-BN (fused_train='off') step for
      context, and the profiler's idle share over one epoch, flagged where
      its K2-K4 kernel time is more than 10% off their CUDA-event times.
+  5b. train bf16: the same fit at compute_dtype bfloat16 (bench.py's fused
+     configuration), 2 epochs, counted: K2/K3/K4 97/291/97 an epoch, K1
+     none (the bf16 eval takes the module route); the bf16 kernels with one
+     ghost block of the whole batch against the module path at bf16 from the
+     same weights (per-step losses within 2^-5); the fp32 and bf16 fused
+     steps' time in turns and peak memory.
   6. cli (the command-line path): a synthetic AlphaPose tree (4 training
      clips x 2 actors x 1,100 frames, 8,704 stride-1 windows; 2 test
      clips with <scene>_<clip>.npy ground truth) and a reference-key config
@@ -75,24 +92,26 @@ Phases, each printing a line before the last:
      a fresh Trainer whose score_all gives the same bits. The `cli` line
      has windows, the JSON parse time, per-epoch train windows/s,
      checkpoint bytes and save / restore ms, eval's wall breakdown and AUC.
-  7. paper (the paper's own configurations): config/HR-STC/
-     hyperbolic_encoder.yaml and euclidean_encoder.yaml read from the
-     checkout with the port's YAML reader (pyyaml is never imported) and
-     written to a temporary directory with only the four paths and
-     compute_dtype replaced (float32: the port has no bfloat16 module path
-     yet), over an HR-STC-shaped AlphaPose tree of 17-keypoint clips at
-     the cli phase's scale: the MLP projector at 17 joints (204 nodes),
-     batch 2048, 5 transforms, markovitz, validation on. For each, cli.train
-     for 2 epochs, --resume to 3, cli.eval, from_checkpoint; launches over
-     that run (K1 as predicted from the windows, K2-K5 none: the module
-     path, as JAX trains an MLP projector); then a straight 3-epoch run,
-     which the resumed run must equal to the bit (losses, weights, center),
-     a save / restore round trip, and K1 timed at 204 nodes on the trained
-     weights. The hyperbolic center must stay inside the ball at every
-     epoch. The `paper` lines have train windows/s by epoch, scoring
-     windows/s, K1 ms against its bound, AUC, checkpoint bytes and save /
-     restore ms. The kernel check (phase 2) also holds K1 at 17 joints with
-     the MLP head (B=2048 and a ragged 2047) to its plain version.
+  7. paper (the paper's own configurations): every encoder-only file,
+     config/{HR-STC,HR-Avenue,UBnormal}/{hyperbolic,euclidean}_encoder.yaml,
+     read from the checkout with the port's YAML reader (pyyaml is never
+     imported) and written to a temporary directory with only the four
+     paths replaced, so at their compute_dtype bfloat16, over an
+     HR-STC-shaped AlphaPose tree (markovitz) and a Morais-CSV tree (the
+     robust HR-Avenue and UBnormal files) of 17-keypoint clips at the cli
+     phase's scale: the MLP projector at 17 joints, each file's batch, 5
+     transforms, validation on. For each, cli.train for 2 epochs, --resume
+     to 3, cli.eval, from_checkpoint, counted: K1-K5 none (the bf16 eval
+     takes the module route; an MLP projector trains on the module path, as
+     in JAX); then a straight 3-epoch run, which the resumed run must equal
+     to the bit (losses, weights, center), and a save / restore round trip.
+     A copy of HR-STC/hyperbolic_encoder.yaml at float32 runs the same
+     counted path (K1 as predicted from the windows), and K1 is timed at 204
+     nodes on its trained weights; the bf16 file's eval of 2048 windows is
+     timed against it (the module route against K1's). The hyperbolic
+     center must stay inside the ball at every epoch. The kernel check
+     (phase 2) also holds K1 at 17 joints with the MLP head (B=2048 and a
+     ragged 2047) to its plain version.
   8. a line of each phase's wall time, a JSON line of every kernel
      (launches on the main paths, error, times, bound), then the last line
      {"ok": true, "device": {...}}.
@@ -161,6 +180,21 @@ MONO_PEAK_CHUNKS = (512, 1024)  # a mono step's peak memory also at these chunks
 # products in f32, in another order than the plain version's
 PROBE_SUM_TOL = dict(rtol=1e-5, atol=2e-3)
 SCORE_TOL = dict(rtol=1e-3, atol=1e-6)  # scores square latent differences
+REFUSED_FRAMES = 28  # at 18 joints K1's planner takes up to 27 frames
+BF16_FORMS = ("bfloat16", "bfloat16_f32store")
+# kernel vs its plain version in the same bf16 form: the two round at the same
+# points, but a value the kernel sums in fp32 and the plain version in float64
+# can land on the other side of a rounding boundary: 1 ulp, <= 2^-7 of it
+BF16_BAND = 2.0 ** -7
+BF16_COSINE = 0.98  # K5 vs its plain version (tests/test_fused_train_kernel.py:226-233)
+# (label, model, batch, ghost) of the bf16 form checks; the first is timed
+BF16_KERNEL_CASES = (TRAIN_KERNEL_CASES[0], TRAIN_KERNEL_CASES[2])
+# the bf16 fit against the module path at bf16 (per-step losses): two bf16
+# functions that round at other points, each 2^-8 a rounding point
+BF16_LOSS_BAND = 2.0 ** -5
+BF16_EPOCHS = 2
+BF16_BAND_STEPS = 3
+MONO_BF16_STEPS = 5
 DEVICE = "cuda"
 # csrc/stse_train.cu's kernels, as the profiler names them: K2-K4's device time
 # in an epoch trace
@@ -360,6 +394,7 @@ def phase_kernel(card):
         raised = str(e)
     check("no_grad" in raised, "STSE.forward(train=False) with grad mode on did not raise on the "
                                "card")
+    refused = refused_route(gen, dev)
     with torch.no_grad():
         kernel_ms = cuda_ms(lambda: stse_fused.fused_stse_hidden(x_main, folded, packed))
         plain_ms = cuda_ms(lambda: stse_fused.fused_stse_hidden_reference(x_main, folded))
@@ -385,16 +420,45 @@ def phase_kernel(card):
         plain_ms=min(plain_ms, plain_ms_2), bound_ms=bound_ms, bound_by=bound_by,
         bound_fp32_ms=bound_of(flops, nbytes)[0], library_ms=None,
         batch=2048, flops=flops, bytes=nbytes, cases=cases, per_layer_ms=per_layer_ms,
-        layers=layers, occupancy=occupancy, paper_v17=paper_v17,
+        layers=layers, occupancy=occupancy, paper_v17=paper_v17, refused_layout_route=refused,
         timing_runs_ms=dict(kernel=[kernel_ms, kernel_ms_2], plain=[plain_ms, plain_ms_2]),
     )
     print("kernel check: " + json.dumps(dict(
         name="stse_fused", cases=cases, eval_forward_with_grad_raises=True,
-        kernel_ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
+        refused_layout_route=refused, kernel_ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
         bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
         bound_fp32_ms=rec["bound_fp32_ms"], paper_v17=paper_v17, card=card)))
     print("K1 layers: " + json.dumps(dict(stack=occupancy, layers=layers, card=card)))
     return rec
+
+
+def refused_route(gen, dev) -> dict:
+    """The eval route for a layout K1's planner refuses (the flagship's
+    channels over 28 frames at 18 joints: its activations pass a block's
+    shared memory): STSE.forward(train=False) on the card takes the model's
+    own layers, launches no K1, does not raise with grad mode on, and its
+    latent is the CPU module path's on the same weights."""
+    import torch
+    from coskad_tpu_torch.kernels import stse_fused
+
+    kw = dict(input_dim=2, layer_channels=(32, 16, 32), hidden_dimension=64, latent_dim=16,
+              n_frames=REFUSED_FRAMES, n_joints=18)
+    model = seeded_stse(gen, dev, **kw)
+    check(not model.kernel_takes(), f"K1's planner takes {REFUSED_FRAMES} frames at 18 joints")
+    x = torch.randn(256, 2, REFUSED_FRAMES, 18, generator=gen).to(dev)
+    before = stse_fused.launches.value
+    z = model(x)  # grad mode on: the module route is differentiable and does not raise
+    torch.cuda.synchronize()
+    check(stse_fused.launches.value == before, "the refused layout launched K1")
+    cpu = seeded_stse(torch.Generator(), "cpu", **kw)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        z_cpu = cpu(x.cpu())
+    err = float((z.detach().cpu() - z_cpu).abs().max())
+    check(bool(torch.isfinite(z).all()) and within(z.detach().cpu(), z_cpu, **TOL),
+          f"refused layout: card module route vs CPU max abs err {err:.3e}")
+    return dict(frames=REFUSED_FRAMES, joints=18, batch=256, kernel_takes=False,
+                k1_launches=0, max_abs_err_vs_cpu=err, requires_grad=z.requires_grad)
 
 
 def k1_timing(x, folded, packed) -> dict:
@@ -964,26 +1028,27 @@ def torch_equal(a, b) -> bool:
     return (a is None and b is None) or bool(torch.equal(a, b))
 
 
-def time_train_kernels(st, ops, x, dz, acts, stats, ghost):
+def time_train_kernels(st, ops, x, dz, acts, stats, ghost, compute_dtype="float32"):
     """Kernel and plain-version times of K2, K3 (each lower layer) and K4 at
-    the flagship shapes, each measured twice, in turns."""
+    the flagship shapes in `compute_dtype`, each measured twice, in turns."""
     top = len(ops.layers) - 1
     x_of = [x] + list(acts[:-1])
     dys = {l: acts[l] for l in range(top)}  # any [B, N, C_out] cotangent times the same
+    cd = dict(compute_dtype=compute_dtype)
     fns = {
-        "K2": (lambda: st.ghost_forward(x, ops, ghost),
-               lambda: st.ghost_forward_reference(x, ops, ghost)),
+        "K2": (lambda: st.ghost_forward(x, ops, ghost, **cd),
+               lambda: st.ghost_forward_reference(x, ops, ghost, **cd)),
         "K4": (lambda: st.top_backward(x_of[top], acts[top], dz, ops.layers[top], stats[top],
-                                       ops.wp, ops.bp, ghost, need_dx=True),
+                                       ops.wp, ops.bp, ghost, need_dx=True, **cd),
                lambda: st.top_backward_reference(x_of[top], dz, ops.layers[top], ops.wp, ops.bp,
-                                                 ghost, need_dx=True)),
+                                                 ghost, need_dx=True, **cd)),
     }
     for l in range(top):
         fns[f"K3_layer{l}"] = (
             lambda l=l: st.layer_backward(x_of[l], acts[l], dys[l], ops.layers[l], stats[l],
-                                          ghost, need_dx=l > 0),
+                                          ghost, need_dx=l > 0, **cd),
             lambda l=l: st.layer_backward_reference(x_of[l], dys[l], ops.layers[l], ghost,
-                                                    need_dx=l > 0))
+                                                    need_dx=l > 0, **cd))
     runs = {}
     for key, (kern, plain) in fns.items():
         a = cuda_ms(kern, iters=5, warmup=2)
@@ -1002,6 +1067,150 @@ def time_train_kernels(st, ops, x, dz, acts, stats, ghost):
                                         plain_ms=min(runs[k]["plain"])) for k in k3},
                      runs={k: runs[k] for k in k3})
     return out
+
+
+def bf16_err(got, want, cosine=False) -> tuple:
+    """(max abs err, whether it is inside err <= BF16_BAND * max(scale, 1));
+    with `cosine`, whether the cosine of got and want is above BF16_COSINE
+    (or both vanish)."""
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not bool(got.isfinite().all()):
+        return err, False
+    if not cosine:
+        return err, err <= BF16_BAND * max(scale, 1.0)
+    a, b = got.double().flatten(), want.double().flatten()
+    denom = float(a.norm() * b.norm())
+    return err, denom <= 1e-10 or float(a @ b) / denom > BF16_COSINE
+
+
+def phase_bf16_kernels(card):
+    """K2, K4, K3 and K5 in each bf16 form (stse_train.COMPUTE_DTYPES)
+    against their plain versions in the same form on the card, float64
+    between the rounding points, PReLU's branches where K2 took them: K2,
+    K4 and K3 within BF16_BAND, each backward from the same input as its
+    plain version; K5 within BF16_BAND of K4 + K3 in the form, the same
+    arithmetic, and against its plain version, which recomputes the whole
+    forward from x, by the JAX package's bf16 gradient check (each leaf's
+    cosine above BF16_COSINE): the two chains round at the same points, but
+    a value that lands on the other side of a bf16 rounding boundary in one
+    of them moves everything above it, and a sum with cancellation (dalpha,
+    a sum of dy pre over millions of elements) moves by more than 2^-7 of
+    its own size. The "bfloat16" form timed at the
+    flagship shapes beside its plain version (in turns) and its bound (bf16
+    tensor-core peak, bytes at the store dtype). Returns the records of the
+    "bfloat16" form (launches filled in by the bf16 train and mono runs)."""
+    import torch
+    from coskad_tpu_torch.kernels import stse_train as st
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(8642)
+    errs = {(k, f): [] for k in ("K2", "K3", "K4", "K5") for f in BF16_FORMS}
+    cases, timing = [], None
+    for label, kw, batch, ghost in BF16_KERNEL_CASES:
+        model = seeded_train_stse(gen, dev, **kw)
+        ops = st.detached(st.encoder_ops(model))
+        ops64 = st.detached(ops, torch.float64)
+        n = kw["n_frames"] * kw["n_joints"]
+        # bf16 windows, as fused_stse_apply hands them over
+        x = torch.randn(batch, n, kw["input_dim"], generator=gen).to(dev)
+        x = x.to(torch.bfloat16).float()
+        dz = torch.randn(batch, kw["latent_dim"], generator=gen).to(dev)
+        top = len(ops.layers) - 1
+        for form in BF16_FORMS:
+            cd = dict(compute_dtype=form)
+            out = st.ghost_forward(x, ops, ghost, **cd)
+            z, sums, acts, stats = out
+            ref = st.ghost_forward_reference(x.double(), ops64, ghost, **cd)
+            # the full-batch sums as moments (sum / count), as the fp32 check takes them
+            cnt = batch * n
+            pairs = [("K2", "z", z, ref[0])]
+            pairs += [("K2", f"sums{l}", a / cnt, b / cnt) for l, (a, b) in
+                      enumerate(zip(sums, ref[1]))]
+            for name, got, want in zip(("act", "stats"), out[2:], ref[2:]):
+                pairs += [("K2", f"{name}{l}", a, b) for l, (a, b) in enumerate(zip(got, want))]
+            x_in = [x, *acts[:-1]]
+            g, dwp, dbp, dy = st.top_backward(x_in[top], acts[top], dz, ops.layers[top],
+                                              stats[top], ops.wp, ops.bp, ghost,
+                                              need_dx=top > 0, **cd)
+            w, dwp_r, dbp_r, dy_r = st.top_backward_reference(
+                x_in[top].double(), dz.double(), ops64.layers[top], ops64.wp, ops64.bp, ghost,
+                need_dx=top > 0, positive=acts[top] >= 0, **cd)
+            pairs += [("K4", "dwp", dwp, dwp_r), ("K4", "dbp", dbp, dbp_r)]
+            if top > 0:
+                pairs.append(("K4", "dx", dy, dy_r))
+            pairs += [("K4", f"layer{top}.d{f}", getattr(g, f), getattr(w, f))
+                      for f in st.LayerOps._fields if getattr(w, f) is not None]
+            for l in reversed(range(top)):
+                g, dx = st.layer_backward(x_in[l], acts[l], dy_r.float(), ops.layers[l],
+                                          stats[l], ghost, need_dx=l > 0, **cd)
+                w, dx_r = st.layer_backward_reference(x_in[l].double(), dy_r, ops64.layers[l],
+                                                      ghost, need_dx=l > 0,
+                                                      positive=acts[l] >= 0, **cd)
+                pairs += [("K3", f"layer{l}.d{f}", getattr(g, f), getattr(w, f))
+                          for f in st.LayerOps._fields if getattr(w, f) is not None]
+                if l > 0:
+                    pairs.append(("K3", f"layer{l}.dx", dx, dx_r))
+                    dy_r = dx_r
+            mono = st.mono_backward(x, dz, ops, ghost, **cd)
+            split = st.split_backward(x, dz, ops, acts, stats, ghost, **cd)
+            mono_r = st.mono_backward_reference(x.double(), dz.double(), ops64, ghost,
+                                                positive=[a >= 0 for a in acts], **cd)
+            for name, a, b, c in zip(
+                    [f"layer{l}.d{f}" for l in range(top + 1) for f in st.LayerOps._fields]
+                    + ["dwp", "dbp"], st._flatten(mono), st._flatten(mono_r),
+                    st._flatten(split)):
+                if b is not None:
+                    pairs += [("K5", f"{name} vs plain (cosine)", a, b),
+                              ("K5", f"{name} vs split", a, c.double())]
+            torch.cuda.synchronize()
+            bad, case_err = [], {}
+            for k, name, a, b in pairs:
+                err, ok = bf16_err(a.double(), b.double(), cosine=name.endswith("(cosine)"))
+                errs[k, form].append(err)
+                case_err[k] = max(case_err.get(k, 0.0), err)
+                if not ok:
+                    bad.append(f"{k} {name} err {err:.3e} scale {float(b.abs().max()):.3e}")
+            check(not bad, f"stse_train {form} {label}: " + "; ".join(bad))
+            if form == "bfloat16":  # stored at bf16: the saved activations are bf16 values
+                check(all(torch.equal(a, a.to(torch.bfloat16).float()) for a in acts),
+                      f"{form} {label}: an activation is not a bf16 value")
+            cases.append(dict(case=label, form=form, batch=batch, ghost=ghost,
+                              max_abs_err=case_err))
+            if label == BF16_KERNEL_CASES[0][0] and form == "bfloat16":
+                acts_r, stats_r = [t.float() for t in ref[2]], [t.float() for t in ref[3]]
+                timing = time_train_kernels(st, ops, x, dz, acts_r, stats_r, ghost, form)
+                runs = [cuda_ms(fn, iters=5, warmup=1) for _ in range(2) for fn in (
+                    lambda: st.mono_backward(x, dz, ops, ghost, **cd),
+                    lambda: st.mono_backward_reference(x, dz, ops, ghost, **cd))]
+                timing["K5"] = dict(kernel_ms=min(runs[0::2]), plain_ms=min(runs[1::2]),
+                                    runs=dict(kernel=runs[0::2], plain=runs[1::2]))
+                work = st.work(ops, batch, ghost, form)
+                main = (batch, ghost)
+    records = []
+    for key, name in (("K2", "stse_train_forward"), ("K3", "stse_train_layer_backward"),
+                      ("K4", "stse_train_top_backward"), ("K5", "stse_train_mono_backward")):
+        parts = [k for k in work if k.startswith(key)]
+        flops = sum(work[k][0] for k in parts)
+        nbytes = sum(work[k][1] for k in parts)
+        bound_ms, bound_by = bound_of(flops, nbytes, PEAK_BF16_FLOPS)
+        t = timing[key]
+        records.append(dict(
+            name=f"{name}.bfloat16", route="cuda", source=st.SOURCE, replaces=st.REPLACES[name],
+            compute_dtype="bfloat16", launches=None, max_abs_err=max(errs[key, "bfloat16"]),
+            max_abs_err_f32store=max(errs[key, "bfloat16_f32store"]),
+            tolerance=dict(rule="err <= band * max(max|plain|, 1), plain in the same form" + (
+                "; K5: that vs K4 + K3, each leaf's cosine > 0.98 vs plain" if key == "K5"
+                else ""), band=BF16_BAND),
+            ms=t["kernel_ms"], kernel_ms=t["kernel_ms"], plain_ms=t["plain_ms"],
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None, batch=main[0],
+            ghost=main[1], flops=flops, bytes=nbytes, timing_runs_ms=t["runs"],
+            per_layer_ms=t.get("per_layer")))
+    print("bf16 kernel check: " + json.dumps(dict(card=card, band=BF16_BAND, cases=cases, times={
+        r["name"]: {k: r[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                                      "max_abs_err", "max_abs_err_f32store")}
+        for r in records})))
+    return records
 
 
 def phase_mono(card, checks_only=False):
@@ -1126,7 +1335,7 @@ def mono_path(card):
     xs = [torch.randn(TRAIN_BATCH, FULL["input_dim"], FULL["n_frames"], FULL["n_joints"],
                       generator=dgen, device=dev) for _ in range(MONO_STEPS)]
 
-    def steps(mode, model, opt, count, saved=None):
+    def steps(mode, model, opt, count, saved=None, compute_dtype="float32"):
         """`count` train steps; `saved` (a dict) collects the bytes of every
         tensor the step keeps for its backward, once per storage."""
 
@@ -1138,7 +1347,8 @@ def mono_path(card):
         losses = []
         for i in range(count):
             with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-                z = st.fused_stse_apply(model, xs[i % MONO_STEPS], ghost_size=64, bwd_mode=mode)
+                z = st.fused_stse_apply(model, xs[i % MONO_STEPS], ghost_size=64, bwd_mode=mode,
+                                        compute_dtype=compute_dtype)
                 loss = torch.mean((z - center) ** 2)
             opt.zero_grad(set_to_none=True)
             loss.backward()
@@ -1175,6 +1385,28 @@ def mono_path(card):
     bad = [k for k, (a, b) in bn.items() if not within(a, b, **TRAIN_TOL)]
     check(not bad, f"running statistics after {MONO_STEPS} mono vs split steps: {bad}")
 
+    # --- the mono path at compute_dtype bfloat16 (K2 and K5's bf16 form), counted ---
+    bf16 = {}
+    for mode in ("mono", "split"):
+        model = copy.deepcopy(model0)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+        if mode == "mono":
+            for c in counters.values():
+                c.value = 0
+        bf16[mode] = torch.stack(steps(mode, model, opt, MONO_BF16_STEPS,
+                                       compute_dtype="bfloat16")).cpu().numpy()
+        torch.cuda.synchronize()
+        if mode == "mono":
+            launches_bf16 = {k: c.value for k, c in counters.items()}
+            # --- end of the counted bf16 run ---
+    want_bf16 = dict(stse_train_forward=MONO_BF16_STEPS, stse_train_layer_backward=0,
+                     stse_train_top_backward=0, stse_train_mono_backward=MONO_BF16_STEPS)
+    check(launches_bf16 == want_bf16, f"bf16 mono path launches {launches_bf16}, expected "
+                                      f"{want_bf16}")
+    check(bool(np.isfinite(bf16["mono"]).all())
+          and np.allclose(bf16["mono"], bf16["split"], rtol=LOSS_RTOL, atol=0.0),
+          f"bf16 mono vs split per-step losses: {bf16['mono']} vs {bf16['split']}")
+
     def step_ms(mode, count=10):
         r = runs[mode]
         torch.cuda.synchronize()
@@ -1206,12 +1438,15 @@ def mono_path(card):
                            resident_bytes=base, saved_for_backward_bytes=sum(saved.values()),
                            saved_tensors=len(saved))
     summary = dict(steps=MONO_STEPS, batch=TRAIN_BATCH, ghost=64, launches=launches,
+                   launches_bf16=launches_bf16, losses_bf16_mono=bf16["mono"].tolist(),
+                   losses_bf16_split=bf16["split"].tolist(),
                    losses_mono=mono.tolist(), losses_split=split.tolist(),
                    loss_max_rel_err=rel, step_ms=times, memory=memory, card=card)
     print(f"mono path: {MONO_STEPS} steps of fused_stse_apply(bwd_mode='mono') + Adam at B="
           f"{TRAIN_BATCH}, ghost 64 on {card}: launches {launches}; losses vs split max rel err "
           f"{rel:.2e}; step ms (host clock, 10 steps, in turns) mono {times['mono']} split "
-          f"{times['split']}; memory " + json.dumps(memory))
+          f"{times['split']}; memory " + json.dumps(memory) + f"; bf16: {MONO_BF16_STEPS} "
+          f"steps, launches {launches_bf16}, losses {bf16['mono'].tolist()}")
     return summary
 
 
@@ -1256,7 +1491,8 @@ def phase_probe(card):
     return records
 
 
-def train_config(fused: str, batch: int = None):
+def train_config(fused: str, batch: int = None, compute_dtype: str = "float32",
+                 ghost: int = 64):
     from coskad_tpu_torch.config import Config, DataConfig, ModelConfig, OptConfig, RunConfig
 
     return Config(
@@ -1265,7 +1501,7 @@ def train_config(fused: str, batch: int = None):
         data=DataConfig(seg_len=12, kp18_format=True, num_transform=5,
                         batch_size=batch or TRAIN_BATCH),
         opt=OptConfig(lr=1e-4, epochs=TRAIN_EPOCHS, validation=True),
-        run=RunConfig(seed=0, fused_train=fused, ghost_size=64),
+        run=RunConfig(seed=0, fused_train=fused, ghost_size=ghost, compute_dtype=compute_dtype),
     )
 
 
@@ -1401,6 +1637,151 @@ def phase_train(card):
           f"{off_ms:.3f} ms host clock")
     print("train trace of one epoch (torch.profiler): " + json.dumps(trace))
     return summary
+
+
+def phase_train_bf16(card):
+    """The flagship fused step at compute_dtype bfloat16 (bench.py's fused
+    configuration): Trainer.fit for BF16_EPOCHS with fused_train 'on', ghost
+    64, batch 2048 over the train phase's windows, with validation (the bf16
+    eval takes the module route: K1 is float32 only). Counted: K2/K3/K4 launch
+    steps/3 steps/steps an epoch, K1 none. Then, not counted: the kernels at
+    bf16 with one ghost block of the whole batch (whole-batch BatchNorm)
+    against the module path at bf16, fused_train 'off', from the same
+    weights over the same batches (per-step losses within BF16_LOSS_BAND);
+    the fp32 and bf16 fused steps' time (host clock, in turns) and peak
+    memory above resident."""
+    import copy
+
+    import torch
+    from coskad_tpu_torch.data.windows import SegmentDataset
+    from coskad_tpu_torch.kernels import stse_fused
+    from coskad_tpu_torch.kernels import stse_train as st
+    from coskad_tpu_torch.train.loop import Trainer
+
+    rng = np.random.default_rng(1)
+    data, meta, fids, _ = synthetic_windows(rng, TRAIN_CLIPS, 2, 200, 12, 18)
+    train_ds = SegmentDataset(data, meta, fids, num_transform=5)
+    vdata, vmeta, vfids, gts = synthetic_windows(rng, VAL_CLIPS, 2, 200, 12, 18,
+                                                 anomalous=(80, 130))
+    val_ds = SegmentDataset(vdata, vmeta, vfids, num_transform=5)
+    cfg = train_config("on", compute_dtype="bfloat16")
+    log = QuietLogger()
+    trainer = Trainer(cfg, train_ds, val_ds=val_ds, ground_truths=gts, device=DEVICE, logger=log)
+    check(trainer.model.dtype == torch.bfloat16 and trainer._fused_compat,
+          "the bf16 flagship config did not build a bf16 fused trainer")
+    jitter_affine(trainer.model, torch.Generator().manual_seed(11))
+    weights = copy.deepcopy(trainer.model.state_dict())
+
+    # --- the bf16 training path, counted ---
+    counters = dict(stse_fused=stse_fused.launches, stse_train_forward=st.forward_launches,
+                    stse_train_layer_backward=st.layer_backward_launches,
+                    stse_train_top_backward=st.top_backward_launches,
+                    stse_train_mono_backward=st.mono_backward_launches)
+    for c in counters.values():
+        c.value = 0
+    t0 = time.perf_counter()
+    state, history = trainer.fit(trainer.initialize_center(trainer.init_state()),
+                                 epochs=BF16_EPOCHS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {k: c.value for k, c in counters.items()}
+    # --- end of the counted run ---
+    steps = len(train_ds) // cfg.data.batch_size
+    want = dict(stse_fused=0, stse_train_forward=steps * BF16_EPOCHS,
+                stse_train_layer_backward=3 * steps * BF16_EPOCHS,
+                stse_train_top_backward=steps * BF16_EPOCHS, stse_train_mono_backward=0)
+    check(launches == want, f"bf16 fit launches {launches}, expected {want}")
+    check(len(log.losses) == steps * BF16_EPOCHS and all(np.isfinite(log.losses)),
+          f"bf16 fit: every step logs a finite loss ({len(log.losses)})")
+    check(all(0.0 <= a <= 1.0 for a in history["validation_auc"])
+          and all(bool(torch.isfinite(b).all()) for b in trainer.model.buffers())
+          and bool(torch.isfinite(state.center).all()),
+          f"bf16 fit: validation AUC {history['validation_auc']}, running statistics or center "
+          "not finite")
+
+    band = bf16_module_band(Trainer, train_ds, weights)
+    step = bf16_step_cost(Trainer, train_ds, weights)
+    summary = dict(card=card, epochs=BF16_EPOCHS, steps_per_epoch=steps, fit_s=fit_s,
+                   launches=launches, losses_per_epoch=history["loss"],
+                   validation_auc=history["validation_auc"], module_band=band, step=step)
+    print(f"train bf16: fit {BF16_EPOCHS} epochs x {steps} steps of {cfg.data.batch_size} at "
+          f"compute_dtype bfloat16 (fused_train 'on', ghost 64) on {card}: launches {launches}; "
+          f"losses {[round(v, 6) for v in history['loss']]}; validation AUC "
+          f"{[round(a, 4) for a in history['validation_auc']]}; kernels (ghost = batch) vs the "
+          f"module path at bf16, per-step losses max rel err {band['loss_max_rel_err']:.2e} "
+          f"(band {BF16_LOSS_BAND}); step (host clock, in turns) " + json.dumps(step))
+    return summary
+
+
+def bf16_module_band(Trainer, train_ds, weights) -> dict:
+    """The bf16 kernels with one ghost block of the whole batch (BatchNorm
+    over the batch, the module path's semantics) against the module path at
+    bf16, from the same weights and center over the same BF16_BAND_STEPS
+    batches: per-step losses within BF16_LOSS_BAND relative."""
+    import torch
+
+    idx = np.random.default_rng(6).permutation(len(train_ds))[:BF16_BAND_STEPS * TRAIN_BATCH]
+    losses = {}
+    for key, cfg in (("kernels", train_config("on", compute_dtype="bfloat16",
+                                              ghost=TRAIN_BATCH)),
+                     ("module", train_config("off", compute_dtype="bfloat16"))):
+        tr = Trainer(cfg, train_ds, device=DEVICE)
+        tr.model.load_state_dict(weights)
+        state = tr.initialize_center(tr.init_state())
+        tr.model.train()
+        out = []
+        for i in range(BF16_BAND_STEPS):
+            batch = torch.as_tensor(idx[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH], device=DEVICE)
+            state, m = tr.train_step(state, tr.train_data, batch)
+            out.append(float(m["loss"]))
+        losses[key] = np.asarray(out)
+    rel = float(np.max(np.abs(losses["kernels"] - losses["module"]) / np.abs(losses["module"])))
+    check(bool(np.isfinite(losses["kernels"]).all()) and rel <= BF16_LOSS_BAND,
+          f"bf16 kernels (ghost = batch) vs the bf16 module path: losses {losses['kernels']} vs "
+          f"{losses['module']}")
+    return dict(losses_kernels=losses["kernels"].tolist(), losses_module=losses["module"].tolist(),
+                loss_max_rel_err=rel, band=BF16_LOSS_BAND, steps=BF16_BAND_STEPS)
+
+
+def bf16_step_cost(Trainer, train_ds, weights, count=10) -> dict:
+    """The fused train step (ghost 64, batch 2048) at float32 and at bf16
+    from the same weights: host-clock ms over `count` steps, in turns (f32,
+    bf16, bf16, f32), and one step's peak memory above resident."""
+    import torch
+
+    trainers = {}
+    for dtype in ("float32", "bfloat16"):
+        tr = Trainer(train_config("on", compute_dtype=dtype), train_ds, device=DEVICE)
+        tr.model.load_state_dict(weights)
+        tr.model.train()
+        trainers[dtype] = [tr, tr.init_state()]
+    idx = (torch.arange((count + 2) * TRAIN_BATCH, device=DEVICE) % len(train_ds)).reshape(
+        count + 2, -1)
+
+    def run(dtype, rows):
+        tr, state = trainers[dtype]
+        for i in rows:
+            state, _ = tr.train_step(state, tr.train_data, idx[i])
+        trainers[dtype][1] = state
+
+    for dtype in trainers:  # warm-up
+        run(dtype, range(2))
+    ms = {"float32": [], "bfloat16": []}
+    for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(dtype, range(2, count + 2))
+        torch.cuda.synchronize()
+        ms[dtype].append((time.perf_counter() - t0) * 1e3 / count)
+    peak = {}
+    for dtype in trainers:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        run(dtype, range(1))
+        torch.cuda.synchronize()
+        peak[dtype] = torch.cuda.max_memory_allocated() - base
+    return dict(step_ms=ms, peak_bytes_above_resident=peak)
 
 
 def cpu_subset_check(Trainer, SegmentDataset, data, meta, fids, weights, n_win=256, steps=3):
@@ -1671,17 +2052,29 @@ def cli_run(card, root):
     return summary
 
 
-PAPER_CONFIGS = ("hyperbolic_encoder", "euclidean_encoder")  # config/HR-STC/<name>.yaml
-# the lines of a shipped file the paper phase replaces: the four paths, and
-# compute_dtype, whose bfloat16 the port has no module path for yet
-PAPER_EDITS = ("data_dir", "dataset_path_to_robust", "test_path", "exp_dir", "compute_dtype")
+# config/<dataset>/<name>.yaml: every encoder-only file the repo ships, run as written
+PAPER_CONFIGS = tuple(f"{d}/{n}" for d in ("HR-STC", "HR-Avenue", "UBnormal")
+                      for n in ("hyperbolic_encoder", "euclidean_encoder"))
+# a copy of this one with compute_dtype float32: K1's route with the MLP head
+PAPER_FLOAT32 = "HR-STC/hyperbolic_encoder"
+# the lines of a shipped file the paper phase replaces: the four paths
+PAPER_EDITS = ("data_dir", "dataset_path_to_robust", "test_path", "exp_dir")
+CSV_FIRST_TEST_CLIP = 4  # HR-Avenue masks its clips 1, 2, 3, 6 and 16 with the real frames
 
 
-def write_paper_tree(root, rng):
-    """An HR-STC-shaped AlphaPose tree of 17-keypoint clips under root:
-    pose/{training,testing}/<scene>_<clip>_alphapose_tracked_person.json and
-    the test clips' ground truth in testing/test_frame_mask/<scene>_<clip>.npy,
-    at the cli phase's scale."""
+def write_paper_trees(root, rng):
+    """The paper phase's data under root, at the cli phase's scale, 17
+    keypoints: an HR-STC-shaped AlphaPose tree (pose/{training,testing}/
+    <scene>_<clip>_alphapose_tracked_person.json, ground truth in
+    testing/test_frame_mask/<scene>_<clip>.npy) for the markovitz file, and a
+    Morais-CSV tree (csv/{training,testing,validating}/trajectories/
+    <scene>-<clip>/<person>.csv: a frame column, then x, y of each joint) for
+    the robust HR-Avenue and UBnormal files, the test clips' ground truth
+    both in csv/testing (HR-Avenue's test_path) and csv/testing/
+    test_frame_mask (UBnormal's); UBnormal validates on the validating
+    split, here the test clips again. The CSV test clips are numbered from
+    CSV_FIRST_TEST_CLIP, past HR-Avenue's masked clips 1-3 (its HR masks
+    are the real clips' frames). Returns the two roots."""
     pose = {split: os.path.join(root, "pose", split) for split in ("training", "testing")}
     gt_dir = os.path.join(root, "testing", "test_frame_mask")
     for d in (*pose.values(), gt_dir):
@@ -1692,32 +2085,73 @@ def write_paper_tree(root, rng):
     for i in range(1, CLI_TEST_CLIPS + 1):
         write_clip_json(os.path.join(pose["testing"], name.format(i)), rng, CLI_FRAMES,
                         anomalous=CLI_ANOMALY)
-        gt = np.zeros(CLI_FRAMES, np.int64)
-        gt[CLI_ANOMALY[0]:CLI_ANOMALY[1]] = 1
-        np.save(os.path.join(gt_dir, f"01_{i:04d}.npy"), gt)
-    return gt_dir
+        np.save(os.path.join(gt_dir, f"01_{i:04d}.npy"), clip_labels())
+    csv = os.path.join(root, "csv")
+    tests = range(CSV_FIRST_TEST_CLIP, CSV_FIRST_TEST_CLIP + CLI_TEST_CLIPS)
+    for split, clips, anomalous in (("training", range(1, CLI_TRAIN_CLIPS + 1), None),
+                                    ("testing", tests, CLI_ANOMALY),
+                                    ("validating", tests, CLI_ANOMALY)):
+        for i in clips:
+            write_clip_csv(os.path.join(csv, split, "trajectories", f"1-{i}"), rng, CLI_FRAMES,
+                           anomalous=anomalous)
+    for d in (os.path.join(csv, "testing"), os.path.join(csv, "testing", "test_frame_mask")):
+        os.makedirs(d, exist_ok=True)
+        for i in tests:
+            np.save(os.path.join(d, f"01_{i:04d}.npy"), clip_labels())
+    return root, csv
 
 
-def paper_config(root, name, exp_dir, gt_dir):
-    """config/HR-STC/<name>.yaml read from the checkout with the port's
-    reader, then written under root with only PAPER_EDITS's lines replaced
-    (the rest of the file as shipped, comments included); checks that the
-    edited file reads as the shipped one but for those keys."""
+def clip_labels():
+    gt = np.zeros(CLI_FRAMES, np.int64)
+    gt[CLI_ANOMALY[0]:CLI_ANOMALY[1]] = 1
+    return gt
+
+
+def write_clip_csv(folder, rng, n_frames, n_joints=17, n_actors=2, anomalous=None):
+    """One clip's Morais-CSV trajectories: random-walk actors in a 640 x 360
+    frame (HR-Avenue's, the smaller resolution); with `anomalous` = (lo, hi),
+    actor 1 scatters in frames lo+1..hi."""
+    os.makedirs(folder, exist_ok=True)
+    frames = np.arange(1, n_frames + 1)
+    for pid in range(1, n_actors + 1):
+        walk = rng.uniform(100, 260, size=(1, n_joints, 2)) + np.cumsum(
+            rng.normal(scale=0.5, size=(n_frames, n_joints, 2)), axis=0)
+        if anomalous is not None and pid == 1:
+            lo, hi = anomalous
+            walk[lo:hi] = rng.uniform(20, 340, size=(hi - lo, n_joints, 2))
+        rows = np.concatenate([frames[:, None], np.clip(walk, 1, 359).reshape(n_frames, -1)], 1)
+        np.savetxt(os.path.join(folder, f"{pid:04d}.csv"), rows, delimiter=",", fmt="%.3f")
+
+
+def paper_config(config, trees, run_dir, float32=False):
+    """config/<config>.yaml (<dataset>/<name>) read from the checkout with the port's
+    reader, then written under run_dir with only PAPER_EDITS's lines
+    replaced (and compute_dtype with float32, for the float32 copy; the
+    rest of the file as shipped, comments included); checks that the edited
+    file reads as the shipped one but for those keys."""
     from coskad_tpu_torch.config import parse_reference_yaml
 
-    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config", "HR-STC",
-                       f"{name}.yaml")
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config", f"{config}.yaml")
     with open(src) as f:
         text = f.read()
     shipped = parse_reference_yaml(text, src)
-    edits = dict(data_dir=root, dataset_path_to_robust=root, test_path=gt_dir, exp_dir=exp_dir,
-                 compute_dtype="float32")
+    pose_root, csv_root = trees
+    tests = dict(dataset_path_to_robust=csv_root)
+    tests["test_path"] = (os.path.join(pose_root, "testing", "test_frame_mask")
+                          if shipped["dataset_normalization_strategy"] != "robust"
+                          else os.path.join(csv_root, "testing")
+                          if shipped["test_path"].endswith("/testing")
+                          else os.path.join(csv_root, "testing", "test_frame_mask"))
+    edits = dict(data_dir=pose_root, exp_dir=run_dir, **tests)
+    if float32:
+        edits["compute_dtype"] = "float32"
     lines = text.splitlines()
     for key, value in edits.items():
         at = [i for i, line in enumerate(lines) if line.startswith(f"{key}:")]
         check(len(at) == 1, f"{src}: {len(at)} lines set {key}")
         lines[at[0]] = f"{key}: {value}"
-    path = os.path.join(root, f"{os.path.basename(exp_dir)}_{name}.yaml")
+    os.makedirs(run_dir, exist_ok=True)
+    path = os.path.join(run_dir, f"{config.replace('/', '_')}.yaml")
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     with open(path) as f:
@@ -1729,9 +2163,9 @@ def paper_config(root, name, exp_dir, gt_dir):
 
 
 def phase_paper(card):
-    """The paper's own configurations, config/HR-STC/{hyperbolic,euclidean}
-    _encoder.yaml, through cli.train, --resume, cli.eval and
-    from_checkpoint over an HR-STC-shaped tree, in a temporary directory
+    """The paper's own configurations, every encoder-only config/*/*.yaml,
+    through cli.train, --resume, cli.eval and from_checkpoint over
+    HR-STC-shaped AlphaPose and Morais-CSV trees, in a temporary directory
     removed afterwards."""
     root = tempfile.mkdtemp(prefix="coskad_paper_")
     t0 = time.perf_counter()
@@ -1744,11 +2178,34 @@ def phase_paper(card):
     return summary
 
 
+def eval_route_timing(tr, x) -> dict:
+    """A 2048-window eval forward of the trained bf16 model (the module
+    route) against the same weights at float32 (K1, then the head), in
+    turns, CUDA events."""
+    import dataclasses
+
+    import torch
+    from coskad_tpu_torch.models import build_model
+    from coskad_tpu_torch.train.loop import model_kwargs_from_config
+
+    cfg = dataclasses.replace(tr.cfg, run=dataclasses.replace(tr.cfg.run,
+                                                             compute_dtype="float32"))
+    f32 = build_model(**model_kwargs_from_config(cfg)).to(DEVICE).eval()
+    f32.load_state_dict(tr.model.state_dict())
+    check(f32.kernel_takes() and not tr.model.kernel_takes(), "eval routes: float32 K1, bf16 "
+                                                             "the module path")
+    with torch.inference_mode():
+        runs = [cuda_ms(lambda m=m: m(x), iters=10, warmup=2) for _ in range(2)
+                for m in (tr.model, f32)]
+    return dict(batch=x.shape[0], module_route_bf16_ms=min(runs[0::2]),
+                k1_route_f32_ms=min(runs[1::2]), runs_ms=runs)
+
+
 def paper_run(card, root):
     import torch
     from coskad_tpu_torch.cli import eval as eval_cli
     from coskad_tpu_torch.cli import train as train_cli
-    from coskad_tpu_torch.cli.common import load_config
+    from coskad_tpu_torch.cli.common import load_config, load_split
     from coskad_tpu_torch.geometry import poincare
     from coskad_tpu_torch.interop import flatten_tree, to_jax_variables
     from coskad_tpu_torch.kernels import stse_fused
@@ -1758,10 +2215,15 @@ def paper_run(card, root):
     from coskad_tpu_torch.train.loop import Trainer
 
     t0 = time.perf_counter()
-    gt_dir = write_paper_tree(root, np.random.default_rng(5))
+    trees = write_paper_trees(root, np.random.default_rng(5))
     write_s = time.perf_counter() - t0
-    configs = {name: {run: paper_config(root, name, os.path.join(root, run), gt_dir)[0]
-                      for run in ("resumed", "straight")} for name in PAPER_CONFIGS}
+    runs_of = {key: ("resumed", "straight") for key in PAPER_CONFIGS}
+    runs_of["float32_copy"] = ("resumed",)
+    configs = {key: {run: paper_config(PAPER_FLOAT32 if key == "float32_copy" else key, trees,
+                                       os.path.join(root, "runs", key.replace("/", "_"), run),
+                                       float32=key == "float32_copy")[0]
+                     for run in runs}
+               for key, runs in runs_of.items()}
     check("yaml" not in sys.modules, "reading the shipped configs imported yaml")
 
     epoch_s, centers = [], []
@@ -1772,7 +2234,7 @@ def paper_run(card, root):
         t = time.perf_counter()
         out = inner_epoch(self, *args, **kwargs)
         torch.cuda.synchronize()
-        epoch_s.append((self.cfg.model.variant, time.perf_counter() - t))
+        epoch_s.append((self.cfg.ckpt_dir, time.perf_counter() - t))
         return out
 
     def kept_center(self, state):
@@ -1787,14 +2249,14 @@ def paper_run(card, root):
                     stse_train_layer_backward=st.layer_backward_launches,
                     stse_train_top_backward=st.top_backward_launches,
                     stse_train_mono_backward=st.mono_backward_launches)
-    runs = {}
+    runs, launches = {}, {}
     Trainer.train_epoch, Trainer.apply_epoch_updates = timed_epoch, kept_center
     try:
-        # --- the paper's configurations through the command line, counted ---
-        for c in counters.values():
-            c.value = 0
-        for name in PAPER_CONFIGS:
-            path = configs[name]["resumed"]
+        for key in runs_of:
+            # --- one configuration through the command line, counted ---
+            for c in counters.values():
+                c.value = 0
+            path = configs[key]["resumed"]
             first = train_cli.main(["--config", path, "--epochs", "2", *dev])
             resumed = train_cli.main(["--config", path, "--epochs", "3", "--resume", *dev])
             best = os.path.join(load_config(path).ckpt_dir, "best.ckpt")
@@ -1802,102 +2264,119 @@ def paper_run(card, root):
             t0 = time.perf_counter()
             scorer = AnomalyScorer.from_checkpoint(best, device=DEVICE)
             load_ms = (time.perf_counter() - t0) * 1e3
-            served = scorer.score_windows(resumed.trainer.val_ds.data[:CLI_SERVED])
-            runs[name] = dict(first=first, resumed=resumed, ev=ev, served=served,
-                              load_ms=load_ms)
-        launches = {k: c.value for k, c in counters.items()}
-        counted_epochs = len(epoch_s)
-        # --- end of the counted run ---
-        for name in PAPER_CONFIGS:
-            runs[name]["straight"] = train_cli.main(
-                ["--config", configs[name]["straight"], "--epochs", "3", *dev])
+            # cli.eval's first test windows (its batches: CLI_SERVED is a multiple of each
+            # file's batch, so the module route sums them in the same shapes)
+            windows = load_split(scorer.cfg, "test", stride=1, scaler=scorer.scaler).data
+            served = scorer.score_windows(windows[:CLI_SERVED])
+            launches[key] = {k: c.value for k, c in counters.items()}
+            # --- end of the counted run ---
+            runs[key] = dict(first=first, resumed=resumed, ev=ev, served=served,
+                             load_ms=load_ms, epochs=len(epoch_s))
+            if "straight" in configs[key]:
+                runs[key]["straight"] = train_cli.main(
+                    ["--config", configs[key]["straight"], "--epochs", "3", *dev])
     finally:
         Trainer.train_epoch, Trainer.apply_epoch_updates = inner_epoch, inner_updates
 
-    # K1 in center init, each validation, eval and from_checkpoint; K2-K5 never
-    cfg = load_config(configs[PAPER_CONFIGS[0]]["resumed"])
-    items = lambda ds: len(ds)  # noqa: E731
-    tr0 = runs[PAPER_CONFIGS[0]]["resumed"].trainer
-    batches = lambda n: -(-n // cfg.data.batch_size)  # noqa: E731
-    n_train, n_val = items(tr0.train_ds), items(tr0.val_ds)
-    per_config = (batches(n_train) + 3 * batches(n_val) + batches(n_val)
-                  + batches(CLI_SERVED))
-    want = dict(stse_fused=len(PAPER_CONFIGS) * per_config, stse_train_forward=0,
-                stse_train_layer_backward=0, stse_train_top_backward=0,
-                stse_train_mono_backward=0)
-    check(launches == want, f"paper phase launches {launches}, predicted {want}")
-
-    summary = dict(card=card, write_tree_s=write_s, train_items=n_train, val_items=n_val,
-                   launches=launches, predicted_launches=want, configs={})
-    for name in PAPER_CONFIGS:
-        r = runs[name]
-        first, resumed, straight, ev = r["first"], r["resumed"], r["straight"], r["ev"]
+    # K1 only in the float32 copy (center init, each validation, eval and
+    # from_checkpoint); the bf16 files' eval takes the module route; K2-K5 never
+    summary = dict(card=card, write_trees_s=write_s, launches=launches, predicted_launches={},
+                   configs={})
+    for key in runs_of:
+        r = runs[key]
+        first, resumed, ev = r["first"], r["resumed"], r["ev"]
         tr = resumed.trainer
-        check(tr.cfg.model.projector == "mlp" and tr.cfg.data.n_joints == 17
-              and not tr._fused_compat, f"{name}: not the paper's MLP model at 17 joints")
+        cfg = tr.cfg
+        batches = lambda n: -(-n // cfg.data.batch_size)  # noqa: E731
+        n_train, n_val = len(tr.train_ds), len(tr.val_ds)
+        k1 = (batches(n_train) + 3 * batches(n_val) + batches(len(ev.window_scores))
+              + batches(CLI_SERVED)) if key == "float32_copy" else 0
+        want = dict(stse_fused=k1, stse_train_forward=0, stse_train_layer_backward=0,
+                    stse_train_top_backward=0, stse_train_mono_backward=0)
+        summary["predicted_launches"][key] = want
+        check(launches[key] == want, f"paper {key}: launches {launches[key]}, predicted {want}")
+        bf16 = key != "float32_copy"
+        check(cfg.model.projector == "mlp" and cfg.data.n_joints == 17 and not tr._fused_compat
+              and cfg.run.compute_dtype == ("bfloat16" if bf16 else "float32")
+              and tr.model.dtype == (torch.bfloat16 if bf16 else torch.float32),
+              f"{key}: not the paper's MLP model at 17 joints at its compute dtype")
         losses = first.loss + resumed.loss
-        check(len(losses) == 3 and len(straight.loss) == 3
-              and all(np.isfinite(losses + straight.loss)), f"{name}: losses {losses}, "
-                                                            f"straight {straight.loss}")
-        check(resumed.loss[0] == straight.loss[2], f"{name}: third-epoch loss resumed "
-              f"{resumed.loss[0]!r} vs straight {straight.loss[2]!r}: not the same bits")
-        want_p = flatten_tree(to_jax_variables(straight.trainer.model)[0])
-        same = all(np.array_equal(v, want_p[k])
-                   for k, v in flatten_tree(to_jax_variables(tr.model)[0]).items())
-        check(same and torch.equal(resumed.state.center, straight.state.center),
-              f"{name}: resumed weights or center differ from the straight run's")
+        check(len(losses) == 3 and all(np.isfinite(losses)), f"{key}: losses {losses}")
         check(np.isfinite(ev.result.auc) and 0.0 <= ev.result.auc <= 1.0,
-              f"{name}: cli.eval AUC {ev.result.auc}")
+              f"{key}: cli.eval AUC {ev.result.auc}")
         served_diff = float(np.abs(r["served"] - ev.window_scores[:CLI_SERVED]).max())
-        check(served_diff == 0.0, f"{name}: from_checkpoint's scores differ from cli.eval's: "
+        check(served_diff == 0.0, f"{key}: from_checkpoint's scores differ from cli.eval's: "
                                   f"max abs {served_diff:.3e}")
+        rec = dict(dataset=cfg.data.dataset_choice, variant=cfg.model.variant,
+                   compute_dtype=cfg.run.compute_dtype, batch=cfg.data.batch_size,
+                   normalization=cfg.data.normalization_strategy, train_items=n_train,
+                   val_items=n_val, losses_resumed=losses, auc=ev.result.auc,
+                   validation_auc=first.validation_auc + resumed.validation_auc,
+                   scoring_windows_per_s=len(ev.window_scores) / ev.wall_s["scoring"],
+                   eval_wall_s=ev.wall_s, from_checkpoint_ms=r["load_ms"],
+                   train_windows_per_s=[(n_train // cfg.data.batch_size) * cfg.data.batch_size
+                                        / t for d, t in epoch_s if d == cfg.ckpt_dir][:3])
+        if "straight" in r:
+            straight = r["straight"]
+            check(len(straight.loss) == 3 and resumed.loss[0] == straight.loss[2],
+                  f"{key}: third-epoch loss resumed {resumed.loss[0]!r} vs straight "
+                  f"{straight.loss}: not the same bits")
+            want_p = flatten_tree(to_jax_variables(straight.trainer.model)[0])
+            same = all(np.array_equal(v, want_p[k])
+                       for k, v in flatten_tree(to_jax_variables(tr.model)[0]).items())
+            check(same and torch.equal(resumed.state.center, straight.state.center),
+                  f"{key}: resumed weights or center differ from the straight run's")
+            rec["losses_straight"] = straight.loss
         # save / restore round trip into a fresh Trainer: the same bits
-        path = os.path.join(root, f"{name}_roundtrip.ckpt")
+        path = os.path.join(root, f"{cfg.data.dataset_choice}_{cfg.model.variant}_rt.ckpt")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        checkpoint.save(path, tr, resumed.state, tr.cfg)
-        save_ms = (time.perf_counter() - t0) * 1e3
-        fresh = Trainer(tr.cfg, tr.val_ds, device=DEVICE)
+        checkpoint.save(path, tr, resumed.state, cfg)
+        rec["save_ms"] = (time.perf_counter() - t0) * 1e3
+        fresh = Trainer(cfg, tr.val_ds, device=DEVICE)
         t0 = time.perf_counter()
         fstate, _, _ = checkpoint.restore(path, fresh)
         torch.cuda.synchronize()
-        restore_ms = (time.perf_counter() - t0) * 1e3
+        rec["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["checkpoint_bytes"] = os.path.getsize(path)
         s_before, _ = tr.score_all(resumed.state, tr.val_ds, tr.val_data)
         s_after, _ = fresh.score_all(fstate, tr.val_ds, fresh.train_data)
-        check(np.array_equal(s_before, s_after), f"{name}: score_all after a save / restore "
+        check(np.array_equal(s_before, s_after), f"{key}: score_all after a save / restore "
                                                  "differs")
-        # K1 at 204 nodes on the trained model's weights, and its bound
-        folded, packed = tr.model.folded()
-        x = tr._gather(tr.val_data, torch.arange(cfg.data.batch_size, device=DEVICE))
-        k1 = k1_timing(x, folded, packed)
-        steps = n_train // cfg.data.batch_size
-        wps = [steps * cfg.data.batch_size / t for v, t in epoch_s[:counted_epochs]
-               if v == tr.cfg.model.variant]
-        summary["configs"][name] = dict(
-            variant=tr.cfg.model.variant, losses_resumed=losses, losses_straight=straight.loss,
-            train_windows_per_s=wps,
-            scoring_windows_per_s=len(ev.window_scores) / ev.wall_s["scoring"],
-            eval_wall_s=ev.wall_s, auc=ev.result.auc,
-            validation_auc=first.validation_auc + resumed.validation_auc,
-            checkpoint_bytes=os.path.getsize(path), save_ms=save_ms, restore_ms=restore_ms,
-            from_checkpoint_ms=r["load_ms"], k1=k1)
-    hyp = [c for c in centers if np.isfinite(c[0])]
-    check(len(hyp) == len(centers) == 6 and all(c[0] < 1.0 for c in hyp),
+        x = tr._gather(tr.val_data, torch.arange(min(TRAIN_BATCH, len(tr.val_ds)), device=DEVICE))
+        if bf16 and key == PAPER_FLOAT32:
+            rec["eval_routes"] = eval_route_timing(tr, x)
+        if not bf16:  # K1 at 204 nodes on the trained weights, and its bound
+            folded, packed = tr.model.folded()
+            rec["k1"] = k1_timing(x, folded, packed)
+        summary["configs"][key] = rec
+    # a hyperbolic center each epoch: 2 + 1 resumed, and 3 straight
+    n_hyp = sum(3 * len(r) for k, r in runs_of.items()
+                if "hyperbolic" in (PAPER_FLOAT32 if k == "float32_copy" else k))
+    check(len(centers) == n_hyp and all(np.isfinite(c[0]) and c[0] < 1.0 for c in centers),
           f"hyperbolic centers (norm, distance from 0) by epoch: {centers}")
     summary["hyperbolic_centers"] = centers
-    for name, c in summary["configs"].items():
-        wps = [round(v) for v in c["train_windows_per_s"]]
-        print(f"paper {name}: train windows/s by epoch {wps} (epochs 1-2, resumed 3); "
-              f"scoring windows/s {c['scoring_windows_per_s']:.0f}; "
-              f"K1 {c['k1']['kernel_ms']:.3f} ms at {c['k1']['nodes']} nodes, B="
-              f"{c['k1']['batch']} (plain {c['k1']['plain_ms']:.3f}, bound "
-              f"{c['k1']['bound_ms']:.3f} ms, {c['k1']['bound_by']}); AUC {c['auc']:.4f}; "
-              f"losses {c['losses_resumed']} = straight's to the bit; checkpoint "
-              f"{c['checkpoint_bytes']} bytes, save {c['save_ms']:.1f} ms, restore "
-              f"{c['restore_ms']:.1f} ms, from_checkpoint {c['from_checkpoint_ms']:.1f} ms; "
-              f"on {card}")
-    print(f"paper: launches {launches} (predicted {want}); hyperbolic center |c| by epoch "
-          f"{[round(c[0], 6) for c in centers]}; {n_train} train and {n_val} validation items")
+    for key, c in summary["configs"].items():
+        extra = ""
+        if "k1" in c:
+            extra = (f"; K1 {c['k1']['kernel_ms']:.3f} ms at {c['k1']['nodes']} nodes, B="
+                     f"{c['k1']['batch']} (plain {c['k1']['plain_ms']:.3f}, bound "
+                     f"{c['k1']['bound_ms']:.3f} ms, {c['k1']['bound_by']})")
+        if "eval_routes" in c:
+            e = c["eval_routes"]
+            extra = (f"; eval of {e['batch']} windows: bf16 module route "
+                     f"{e['module_route_bf16_ms']:.3f} ms, float32 K1 route "
+                     f"{e['k1_route_f32_ms']:.3f} ms")
+        print(f"paper {key} ({c['compute_dtype']}, batch {c['batch']}, {c['normalization']}): "
+              f"train windows/s by epoch {[round(v) for v in c['train_windows_per_s']]}; scoring "
+              f"windows/s {c['scoring_windows_per_s']:.0f}; AUC {c['auc']:.4f}; losses "
+              f"{c['losses_resumed']}" + (" = straight's to the bit" if "losses_straight" in c
+                                          else "") + f"; checkpoint {c['checkpoint_bytes']} "
+              f"bytes, save {c['save_ms']:.1f} ms, restore {c['restore_ms']:.1f} ms{extra}; on "
+              f"{card}")
+    summary["launches_total"] = {k: sum(v[k] for v in launches.values()) for k in counters}
+    print(f"paper: launches {launches} (as predicted); hyperbolic center |c| by epoch "
+          f"{[round(c[0], 6) for c in centers]}")
     return summary
 
 
@@ -1905,9 +2384,11 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("kernels", "products", "cli", "paper"), default=None,
+    ap.add_argument("--only", choices=("kernels", "products", "cli", "paper", "bf16"),
+                    default=None,
                     help="run only the environment and kernel phases, or only the product "
-                         "check, or only the cli or the paper phase (no result line)")
+                         "check, or only the cli, the paper or the bf16 phases (the bf16 "
+                         "kernel check and the bf16 fit) (no result line)")
     args = ap.parse_args(argv)
     card, build_s = phase_environment()
     import torch
@@ -1924,6 +2405,10 @@ def main(argv=None) -> int:
     if args.only == "paper":
         phase_paper(card)
         return 0
+    if args.only == "bf16":
+        phase_bf16_kernels(card)
+        phase_train_bf16(card)
+        return 0
 
     wall = {}
 
@@ -1935,35 +2420,46 @@ def main(argv=None) -> int:
 
     kernel = timed("kernel", phase_kernel, card)
     train_kernels, products = timed("train_kernels", phase_train_kernels, card)
+    bf16_kernels = timed("bf16_kernels", phase_bf16_kernels, card)
     mono_kernel, mono = timed("mono", phase_mono, card, checks_only=args.only == "kernels")
     probes = timed("probe", phase_probe, card)
     if args.only == "kernels":
         return 0
     summary = timed("slice", phase_slice, card)
     train = timed("train", phase_train, card)
+    train_bf16 = timed("train_bf16", phase_train_bf16, card)
     cli = timed("cli", phase_cli, card)
     paper = timed("paper", phase_paper, card)
     print(f"phase wall s: {json.dumps(dict(build=round(build_s, 1), **wall))}")
     kernel["launches_by_path"] = dict(serving=summary["launches"]["stse_fused"],
                                       training=train["launches"]["stse_fused"], mono=0,
                                       cli=cli["launches"]["stse_fused"],
-                                      paper=paper["launches"]["stse_fused"])
+                                      paper=paper["launches_total"]["stse_fused"],
+                                      training_bf16=train_bf16["launches"]["stse_fused"])
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     for rec in train_kernels + [mono_kernel]:
         by_path = dict(serving=0, training=train["launches"].get(rec["name"], 0),
                        mono=mono["launches"][rec["name"]],
                        cli=cli["launches"].get(rec["name"], 0),
-                       paper=paper["launches"][rec["name"]])
+                       paper=paper["launches_total"][rec["name"]])
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
-    kernels = [kernel, *train_kernels, mono_kernel, *probes]
+    for rec in bf16_kernels:  # the bf16 form's own paths: the bf16 fit and mono run
+        name = rec["name"].split(".")[0]
+        by_path = dict(training_bf16=train_bf16["launches"][name],
+                       mono_bf16=mono["launches_bf16"][name])
+        rec["launches"] = sum(by_path.values())
+        rec["launches_by_path"] = by_path
+        check(rec["launches"] > 0, f"{rec['name']} was not launched on its bf16 path")
+    kernels = [kernel, *train_kernels, mono_kernel, *bf16_kernels, *probes]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, build_s=build_s, kernels=kernels, products=products,
-                       slice=summary, train=train, mono=mono, cli=cli, paper=paper,
-                       phase_wall_s=wall), f, indent=1)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "tolerance",
-            "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "product_ms")
+                       slice=summary, train=train, train_bf16=train_bf16, mono=mono, cli=cli,
+                       paper=paper, phase_wall_s=wall), f, indent=1)
+    keys = ("name", "route", "source", "replaces", "compute_dtype", "launches", "max_abs_err",
+            "tolerance", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "product_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -571,10 +571,13 @@ stse_fused_kernel(const float* __restrict__ x,        // [B, C_in0, N]
 
 typedef void (*Kernel)(const float*, const float*, float*, Params, int);
 
-// The launch's parameters, windows a block, kernel and shared bytes for this
-// layout; a cudaError_t.
-int plan(const long long* layout, int n_layers, int n_nodes, int n_pad, Params& p, int& wb,
-         Kernel& kernel, long long& smem) {
+// The launch's parameters, windows a block and shared bytes for this layout;
+// cudaErrorInvalidValue for a layout the kernel does not take (more than
+// kMaxLayers layers, a graph contraction wider than 64 channels or an inner
+// layer putting out more, activations past kMaxSmem). Touches no device:
+// the eval forward asks it which route to take (stse_fused_plan).
+int plan_layout(const long long* layout, int n_layers, int n_nodes, int n_pad, Params& p,
+                int& wb, long long& smem) {
   if (n_layers < 1 || n_layers > kMaxLayers || n_nodes < 1 || n_pad % 16 != 0 ||
       n_pad < n_nodes)
     return (int)cudaErrorInvalidValue;
@@ -614,7 +617,15 @@ int plan(const long long* layout, int n_layers, int n_nodes, int n_pad, Params& 
     smem = (long long)sizeof(float) * smem_layout(p).total;
     if (smem <= kMaxSmem) break;
   }
-  if (wb < 1) return (int)cudaErrorInvalidValue;
+  return wb < 1 ? (int)cudaErrorInvalidValue : (int)cudaSuccess;
+}
+
+// plan_layout, then the kernel for its windows a block, opted into its
+// shared bytes; a cudaError_t.
+int plan(const long long* layout, int n_layers, int n_nodes, int n_pad, Params& p, int& wb,
+         Kernel& kernel, long long& smem) {
+  const int err = plan_layout(layout, n_layers, n_nodes, n_pad, p, wb, smem);
+  if (err != 0) return err;
   kernel = wb == 2 ? stse_fused_kernel<2> : stse_fused_kernel<1>;
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem);
@@ -647,6 +658,21 @@ int stse_fused_forward(const float* x, const float* weights, const long long* la
   const dim3 grid((batch + wb - 1) / wb);
   kernel<<<grid, kThreads, (size_t)smem, (cudaStream_t)stream>>>(x, weights, out, p, batch);
   return (int)cudaGetLastError();
+}
+
+// Whether the kernel takes this layout (0) or not (cudaErrorInvalidValue),
+// from the planner a launch runs, with no device touched; where it does,
+// out[0] windows a block and out[1] shared bytes a block.
+int stse_fused_plan(const long long* layout, int n_layers, int n_nodes, int n_pad, int* out) {
+  Params p;
+  int wb;
+  long long smem;
+  const int err = plan_layout(layout, n_layers, n_nodes, n_pad, p, wb, smem);
+  if (err == 0) {
+    out[0] = wb;
+    out[1] = (int)smem;
+  }
+  return err;
 }
 
 // What a launch on this layout would use: out[0] windows a block, out[1]

@@ -86,20 +86,54 @@
 // as blocks, which costs parallelism. That is the simple design: the same
 // passes as K2-K4, reused, not a fused remat kernel.
 
+// The compute_dtype forms (each kernel and host function below that runs a
+// product or stores a value is a template on one, ComputeDtype; the entry
+// points read it from the descriptor):
+//   float32            every product 3xTF32 (~fp32), everything stored fp32;
+//   bfloat16           every product's operands rounded to bf16 (one TF32 mma
+//                      each, exact products, fp32 sums: tf32_mma.cuh's
+//                      kOpBF16), and the values JAX stores at bf16 rounded
+//                      where they are stored (`stored`): the layer input x as
+//                      read, g, t and r, the output y, the projector's dy, dy
+//                      as read, dpre, dg and dx. They stay in fp32 buffers;
+//                      statistics, sums and weight gradients are fp32;
+//   bfloat16_f32store  bf16 operands, every value stored fp32.
+// The wrapper rounds the input windows to bf16 for both bf16 forms (JAX casts
+// x_t to the operand dtype). The JAX kernel's own store points
+// (coskad_tpu/kernels/stse_train.py:342-372, 450, 814-821) are those of its
+// algorithm; these are the same rule, a value rounded where it is stored at
+// the store dtype, applied to this one's.
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tf32_mma.cuh"  // tf32_of, mma_3xtf32, cp_async16, warp_tile, ...
+#include <type_traits>
+
+#include "tf32_mma.cuh"  // tf32_of, bf16_bits, split_op, mma_op, cp_async16, warp_tile, ...
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr float kEps = 1e-5f;
 
+// compute_dtype forms, in the order of stse_train.py's COMPUTE_DTYPES.
+enum ComputeDtype { kFloat32 = 0, kBfloat16 = 1, kBfloat16F32Store = 2 };
+// A form's operand precision (tf32_mma.cuh).
+template <int D>
+constexpr int op_of = D == kFloat32 ? kOpF32 : kOpBF16;
+// v as the form stores it: rounded to bf16 under "bfloat16", else as it is.
+template <int D>
+__device__ __forceinline__ float stored(float v) {
+  if constexpr (D == kBfloat16)
+    return __uint_as_float(bf16_bits(v));
+  else
+    return v;
+}
+
 // ---- descriptor layouts (int64 arrays built by stse_train.py) ----
 enum FwdHeader {
   FH_N_LAYERS, FH_BATCH, FH_N_NODES, FH_GHOST, FH_LATENT, FH_X, FH_WP, FH_BP, FH_Z,
-  FH_T_BUF, FH_R_BUF, FH_PART, FH_BLOCK_SUMS, FH_Z_SPLITS, FH_COUNT
+  FH_T_BUF, FH_R_BUF, FH_PART, FH_BLOCK_SUMS, FH_Z_SPLITS, FH_DTYPE, FH_COUNT
 };
 enum FwdLayerField {
   FL_CI, FL_CO, FL_IDENTITY, FL_M, FL_W, FL_B, FL_GAMMA, FL_BETA, FL_W_RES, FL_B_RES,
@@ -109,7 +143,7 @@ enum FwdLayerField {
 // stse_train.py's PRODUCT_FORMS.
 enum ProductForm { PF_ROWS, PF_WINDOWS };
 enum ProductField {
-  PD_FORM, PD_P, PD_Q, PD_N, PD_K, PD_A, PD_B, PD_SPLITS, PD_PART, PD_OUT, PD_COUNT
+  PD_FORM, PD_P, PD_Q, PD_N, PD_K, PD_A, PD_B, PD_SPLITS, PD_PART, PD_OUT, PD_DTYPE, PD_COUNT
 };
 enum BwdField {
   BD_BATCH, BD_N_NODES, BD_GHOST, BD_CI, BD_CO, BD_IDENTITY, BD_LATENT, BD_X, BD_DY, BD_DZ,
@@ -117,14 +151,14 @@ enum BwdField {
   BD_BETA_RES, BD_ALPHA, BD_STATS, BD_DM, BD_DW, BD_DB, BD_DGAMMA, BD_DBETA, BD_DW_RES,
   BD_DB_RES, BD_DGAMMA_RES, BD_DBETA_RES, BD_DALPHA, BD_DX, BD_DWP, BD_DBP, BD_MT, BD_G_BUF,
   BD_T_BUF, BD_R_BUF, BD_DPRE_BUF, BD_DG_BUF, BD_PART, BD_DALPHA_PART, BD_CONSTS, BD_GPART,
-  BD_PROD_BUF, BD_SPLITS_W, BD_SPLITS_W_RES, BD_SPLITS_M, BD_SPLITS_WP, BD_COUNT
+  BD_PROD_BUF, BD_SPLITS_W, BD_SPLITS_W_RES, BD_SPLITS_M, BD_SPLITS_WP, BD_DTYPE, BD_COUNT
 };
 // K5: a header, then one row per layer. The gradients (ML_DM ... ML_DALPHA)
 // follow the operands (ML_M ... ML_ALPHA) in the same order.
 enum MonoHeader {
   MH_N_LAYERS, MH_BATCH, MH_N_NODES, MH_GHOST, MH_LATENT, MH_CHUNK, MH_X, MH_DZ, MH_WP,
   MH_DWP, MH_DBP, MH_SPLITS_WP, MH_CHUNK_DWP, MH_T_BUF, MH_R_BUF, MH_DPRE_BUF, MH_G_BUF,
-  MH_DG_BUF, MH_DY_BUF, MH_PART, MH_BLOCK_SUMS, MH_CONSTS, MH_PROD_BUF, MH_COUNT
+  MH_DG_BUF, MH_DY_BUF, MH_PART, MH_BLOCK_SUMS, MH_CONSTS, MH_PROD_BUF, MH_DTYPE, MH_COUNT
 };
 enum MonoLayerField {
   ML_CI, ML_CO, ML_IDENTITY, ML_M, ML_W, ML_B, ML_GAMMA, ML_BETA, ML_W_RES, ML_B_RES,
@@ -269,7 +303,8 @@ bwd_reduce_kernel(const float* __restrict__ gpart, int n_blocks,
 // eighth step of the block's share of the reduction (a step is kRowsStep
 // rows, or kChanStep channels of one window), stage it into kStages slabs
 // of their own with cp.async (two steps in flight while the third is
-// multiplied) and multiply it on the tensor cores as 3xTF32 m16n8k8 mma.sync.
+// multiplied) and multiply it on the tensor cores as m16n8k8 mma.sync in the
+// form's operand precision (3xTF32, or bf16 operands).
 // The warps' sums are added in warp order, and the blocks that split the
 // reduction write [splits, P, Q] partials that sum_splits_kernel adds in
 // split order: no float atomics, the same bits on every run.
@@ -335,7 +370,7 @@ __device__ __forceinline__ void write_tile(const float (&acc)[MT][NT][4], float*
 // 8 NT) and rows [r0, r0 + r_split). A warp's slab holds a step as A rows
 // [kRowsStep][16 MT + 8] and B rows [kRowsStep][8 NT + 8]: a stride of 8
 // (mod 32) words puts a fragment load's 32 lanes on 32 banks.
-template <int MT, int NT>
+template <int D, int MT, int NT>
 __global__ void __launch_bounds__(kThreads)
 product_rows_kernel(const float* __restrict__ a, const float* __restrict__ b, int P, int Q,
                     long long R, long long r_split, float* out, int vec_a, int vec_b) {
@@ -383,19 +418,19 @@ product_rows_kernel(const float* __restrict__ a, const float* __restrict__ b, in
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         const float* f = as + (kk + t) * LDA + mt * 16 + g;  // A[p][k] = slab[k][p]
-        split_tf32(f[0], ab[mt][0], asm_[mt][0]);
-        split_tf32(f[8], ab[mt][1], asm_[mt][1]);
-        split_tf32(f[4 * LDA], ab[mt][2], asm_[mt][2]);
-        split_tf32(f[4 * LDA + 8], ab[mt][3], asm_[mt][3]);
+        split_op<op_of<D>>(f[0], ab[mt][0], asm_[mt][0]);
+        split_op<op_of<D>>(f[8], ab[mt][1], asm_[mt][1]);
+        split_op<op_of<D>>(f[4 * LDA], ab[mt][2], asm_[mt][2]);
+        split_op<op_of<D>>(f[4 * LDA + 8], ab[mt][3], asm_[mt][3]);
       }
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const float* f = bs + (kk + t) * LDB + nt * 8 + g;  // B[k][q] = slab[k][q]
         uint32_t bb[2], bsm[2];
-        split_tf32(f[0], bb[0], bsm[0]);
-        split_tf32(f[4 * LDB], bb[1], bsm[1]);
+        split_op<op_of<D>>(f[0], bb[0], bsm[0]);
+        split_op<op_of<D>>(f[4 * LDB], bb[1], bsm[1]);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_3xtf32(acc[mt][nt], ab[mt], asm_[mt], bb, bsm);
+        for (int mt = 0; mt < MT; ++mt) mma_op<op_of<D>>(acc[mt][nt], ab[mt], asm_[mt], bb, bsm);
       }
     }
     __syncwarp();
@@ -410,6 +445,7 @@ product_rows_kernel(const float* __restrict__ a, const float* __restrict__ b, in
 // window: A rows [32][kLdk] and B rows [56][kLdk], each row a node's
 // channels (contiguous in memory). Channels past K (layer 0 has 2) stay 0
 // up to the mma's k = 8.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 product_windows_kernel(const float* __restrict__ a, const float* __restrict__ b, int P, int Q,
                        int W, int K, int w_split, float* out, int vec) {
@@ -459,19 +495,19 @@ product_windows_kernel(const float* __restrict__ a, const float* __restrict__ b,
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         const float* f = as + (mt * 16 + g) * kLdk + kk + t;  // A[p][k] = slab[p][k]
-        split_tf32(f[0], ab[mt][0], asm_[mt][0]);
-        split_tf32(f[8 * kLdk], ab[mt][1], asm_[mt][1]);
-        split_tf32(f[4], ab[mt][2], asm_[mt][2]);
-        split_tf32(f[8 * kLdk + 4], ab[mt][3], asm_[mt][3]);
+        split_op<op_of<D>>(f[0], ab[mt][0], asm_[mt][0]);
+        split_op<op_of<D>>(f[8 * kLdk], ab[mt][1], asm_[mt][1]);
+        split_op<op_of<D>>(f[4], ab[mt][2], asm_[mt][2]);
+        split_op<op_of<D>>(f[8 * kLdk + 4], ab[mt][3], asm_[mt][3]);
       }
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const float* f = bs + (nt * 8 + g) * kLdk + kk + t;  // B[k][q] = slab[q][k]
         uint32_t bb[2], bsm[2];
-        split_tf32(f[0], bb[0], bsm[0]);
-        split_tf32(f[4], bb[1], bsm[1]);
+        split_op<op_of<D>>(f[0], bb[0], bsm[0]);
+        split_op<op_of<D>>(f[4], bb[1], bsm[1]);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_3xtf32(acc[mt][nt], ab[mt], asm_[mt], bb, bsm);
+        for (int mt = 0; mt < MT; ++mt) mma_op<op_of<D>>(acc[mt][nt], ab[mt], asm_[mt], bb, bsm);
       }
     }
     __syncwarp();
@@ -559,10 +595,11 @@ struct PreBlock {
 
 // The first half of the g / t / r work fwd_pre and bwd_pre share (so the
 // backward's recompute of t and r is the forward's arithmetic, bit for
-// bit): stage the block's wb windows of x and the layer's W and W_res in
-// shared memory, then g = M^T x on the windows side by side as the columns
-// of one product, M read from L2 as A fragments; g also to g_buf unless it
-// is null. Ends synchronised.
+// bit): stage the block's wb windows of x (as stored: rounded under bf16) and
+// the layer's W and W_res in shared memory, then g = M^T x on the windows side
+// by side as the columns of one product, M read from L2 as A fragments; g
+// (stored) also to g_buf unless it is null. Ends synchronised.
+template <int D>
 __device__ __forceinline__ PreBlock pre_graph(const float* __restrict__ x, const Layer& L, int n,
                                               int batch, int wb, const PreSmem& sm, float* smem,
                                               float* g_buf) {
@@ -576,8 +613,9 @@ __device__ __forceinline__ PreBlock pre_graph(const float* __restrict__ x, const
   const int nwin = batch - win0 < wb ? batch - win0 : wb;
   for (int i = tid; i < rows * ldx; i += kThreads) {
     const int k = i / ldx, j = i - k * ldx, w = j / ci;
-    xs[i] = k < n && j < cols && w < nwin ? x[((long long)(win0 + w) * n + k) * ci + j - w * ci]
-                                          : 0.0f;
+    xs[i] = k < n && j < cols && w < nwin
+                ? stored<D>(x[((long long)(win0 + w) * n + k) * ci + j - w * ci])
+                : 0.0f;
   }
   for (int i = tid; i < ci * ldw; i += kThreads) {
     const int c = i / ldw, o = i - c * ldw;
@@ -592,16 +630,18 @@ __device__ __forceinline__ PreBlock pre_graph(const float* __restrict__ x, const
   for (int r0 = warp * 16; r0 < rows; r0 += kWarps * 16)
     for (int c0 = 0; c0 < ctiles; c0 += 4) {
       float acc[4][4] = {};
-      warp_tile<4>(acc, r0, round8(n), 8 * c0, ctiles - c0 < 4 ? ctiles - c0 : 4, mt_of, xs_of);
+      warp_tile<4, op_of<D>>(acc, r0, round8(n), 8 * c0, ctiles - c0 < 4 ? ctiles - c0 : 4,
+                             mt_of, xs_of);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (c0 + j >= ctiles) break;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int r = r0 + frag_row(i), c = 8 * (c0 + j) + frag_col(i), w = c / ci;
-          gs[r * ldx + c] = acc[j][i];
+          const float g = stored<D>(acc[j][i]);
+          gs[r * ldx + c] = g;
           if (g_buf != nullptr && r < n && c < cols && w < nwin)
-            g_buf[((long long)(win0 + w) * n + r) * ci + c - w * ci] = acc[j][i];
+            g_buf[((long long)(win0 + w) * n + r) * ci + c - w * ci] = g;
         }
       }
     }
@@ -615,8 +655,8 @@ __device__ __forceinline__ PreBlock pre_graph(const float* __restrict__ x, const
 // warp_tile<1> products. For each tile fetch(r0, ot) runs before the
 // products (loads whose latency they hide), take(r0, ot, t, r) after, with
 // t and r in the accumulator layout (frag_row, frag_col; 0 past the nodes
-// and channels); flush(ot, grp) after a channel tile's last node tile.
-template <class Fetch, class Take, class Flush>
+// and channels; stored); flush(ot, grp) after a channel tile's last node tile.
+template <int D, class Fetch, class Take, class Flush>
 __device__ __forceinline__ void pre_window(const PreBlock& pb, const Layer& L, int n, int w,
                                            const Fetch& fetch, const Take& take,
                                            const Flush& flush) {
@@ -634,15 +674,15 @@ __device__ __forceinline__ void pre_window(const PreBlock& pb, const Layer& L, i
     for (int r0 = 16 * grp; r0 < pb.rows; r0 += 16 * groups) {
       fetch(r0, ot);
       float at[1][4] = {}, ar[1][4] = {};
-      warp_tile<1>(at, r0, round8(ci), 8 * ot, 1, g_of, w_of);
-      if (!L.identity) warp_tile<1>(ar, r0, round8(ci), 8 * ot, 1, x_of, wr_of);
+      warp_tile<1, op_of<D>>(at, r0, round8(ci), 8 * ot, 1, g_of, w_of);
+      if (!L.identity) warp_tile<1, op_of<D>>(ar, r0, round8(ci), 8 * ot, 1, x_of, wr_of);
       float t[4], r[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int rr = r0 + frag_row(i), o = 8 * ot + frag_col(i);
         const bool in = rr < n && o < co;
-        t[i] = in ? at[0][i] + L.b[o] : 0.0f;
-        r[i] = !in ? 0.0f : (L.identity ? xs[rr * ldx + o] : ar[0][i] + L.br[o]);
+        t[i] = in ? stored<D>(at[0][i] + L.b[o]) : 0.0f;
+        r[i] = !in ? 0.0f : (L.identity ? xs[rr * ldx + o] : stored<D>(ar[0][i] + L.br[o]));
       }
       take(r0, ot, t, r);
     }
@@ -694,13 +734,14 @@ __device__ __forceinline__ void merge_moments(float (&a)[kFwdMoments], const flo
 // in lane order and the node-tile groups in group order (merge_moments), so
 // a channel whose spread is small against its mean keeps its digits and
 // two launches give the same bits.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 fwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int batch, int wb, float* t_buf,
                float* r_buf, float* part) {
   extern __shared__ __align__(16) float smem[];
   const int co = L.co, tid = threadIdx.x, lane = tid & 31;
   const PreSmem sm = pre_smem(n, L.ci, co, wb, kFwdMoments);
-  const PreBlock pb = pre_graph(x, L, n, batch, wb, sm, smem, nullptr);
+  const PreBlock pb = pre_graph<D>(x, L, n, batch, wb, sm, smem, nullptr);
   const int cop = round8(co), groups = pre_groups(co);
   float* csum = smem + sm.csum;  // [groups][kFwdMoments][cop]
   float* wred = smem + sm.wred + (tid >> 5) * 32 * 2 * kFwdMoments;
@@ -737,7 +778,7 @@ fwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int batch, int wb, f
 #pragma unroll
       for (int q = 0; q < 2 * kFwdMoments; ++q) m[q / kFwdMoments][q % kFwdMoments] = 0.0f;
     };
-    pre_window(pb, L, n, w, [](int, int) {}, take, flush);
+    pre_window<D>(pb, L, n, w, [](int, int) {}, take, flush);
     __syncthreads();
     float* pw = part + (long long)win * 4 * co;
     for (int o = tid; o < co; o += kThreads) {
@@ -822,6 +863,7 @@ __device__ __forceinline__ float ghost_pre(const Layer& L, const float* st, int 
 // memory, c [8][co] = (t_mean, t_inv_std, gamma, beta, r_mean, r_inv_std,
 // gamma_res, beta_res).
 constexpr int kApplyElems = 4 * 4 * kThreads;
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 fwd_apply_kernel(Layer L, int n, int ghost, int chunks, const float* __restrict__ t_buf,
                  const float* __restrict__ r_buf, float* act, int vec) {
@@ -845,7 +887,7 @@ fwd_apply_kernel(Layer L, int n, int ghost, int chunks, const float* __restrict_
     const float pre = bn(t, cs[o], cs[co + o], cs[2 * co + o], cs[3 * co + o]) +
                       (identity ? r : bn(r, cs[4 * co + o], cs[5 * co + o], cs[6 * co + o],
                                          cs[7 * co + o]));
-    return pre >= 0.0f ? pre : alpha * pre;
+    return stored<D>(pre >= 0.0f ? pre : alpha * pre);
   };
   const long long per = (long long)ghost * n * co;
   const long long e0 = (long long)(blockIdx.x - k * chunks) * kApplyElems;
@@ -882,6 +924,7 @@ fwd_apply_kernel(Layer L, int n, int ghost, int chunks, const float* __restrict_
 // to part [splits][batch][latent]; projector_sum_kernel adds them in split
 // order, then bp.
 constexpr int kZWindows = 16 * kWarps;
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 projector_z_kernel(const float* __restrict__ y, const float* __restrict__ wp, int batch, int rows,
                    int latent, int r_split, int splits, float* part) {
@@ -896,7 +939,8 @@ projector_z_kernel(const float* __restrict__ y, const float* __restrict__ wp, in
     return l < latent && k0 + k < k1 ? __ldg(wp + (long long)(k0 + k) * latent + l) : 0.0f;
   };
   float acc[2][4] = {};
-  warp_tile<2>(acc, w0, k1 > k0 ? round8(k1 - k0) : 0, l0, latent - l0 > 8 ? 2 : 1, y_of, wp_of);
+  warp_tile<2, op_of<D>>(acc, w0, k1 > k0 ? round8(k1 - k0) : 0, l0, latent - l0 > 8 ? 2 : 1,
+                         y_of, wp_of);
 #pragma unroll
   for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -924,6 +968,7 @@ projector_sum_kernel(const float* __restrict__ part, int batch, int latent, int 
 // of wp (16 a warp) and 64 windows (8 column tiles), so wp is read once per
 // 64 windows, not once per window.
 constexpr int kDyRows = 16 * kWarps, kDyWindows = 64;
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 projector_dy_kernel(const float* __restrict__ dz, const float* __restrict__ wp, int batch,
                     int rows, int latent, float* dy) {
@@ -937,13 +982,13 @@ projector_dy_kernel(const float* __restrict__ dz, const float* __restrict__ wp, 
     return l < latent && w < batch ? __ldg(dz + (long long)w * latent + l) : 0.0f;
   };
   float acc[kDyWindows / 8][4] = {};
-  warp_tile<kDyWindows / 8>(acc, r0, round8(latent), w0, (wn + 7) / 8, wp_of, dz_of);
+  warp_tile<kDyWindows / 8, op_of<D>>(acc, r0, round8(latent), w0, (wn + 7) / 8, wp_of, dz_of);
 #pragma unroll
   for (int j = 0; j < kDyWindows / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = r0 + frag_row(i), w = w0 + 8 * j + frag_col(i);
-      if (r < rows && w < batch) dy[(long long)w * rows + r] = acc[j][i];
+      if (r < rows && w < batch) dy[(long long)w * rows + r] = stored<D>(acc[j][i]);
     }
 }
 
@@ -962,7 +1007,10 @@ projector_dy_kernel(const float* __restrict__ dz, const float* __restrict__ wp, 
 // the recomputation, and one such element moves dW and dM by more than the
 // gradients' tolerance.
 // g, t and r are fwd_pre's own arithmetic (pre_graph, pre_window), the
-// PReLU backward and the column sums taken from the accumulators.
+// PReLU backward and the column sums taken from the accumulators. dy is
+// read, and dpre written, as stored (under bf16, dpre = bf16(alpha dy) on
+// the negative branch, alpha as it is).
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 bwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int ghost, int batch, int wb,
                const float* __restrict__ y, const float* dy, float* g_buf, float* t_buf,
@@ -970,7 +1018,7 @@ bwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int ghost, int batch
   extern __shared__ __align__(16) float smem[];
   const int co = L.co, tid = threadIdx.x, lane = tid & 31;
   const PreSmem sm = pre_smem(n, L.ci, co, wb, kBwdSums);
-  const PreBlock pb = pre_graph(x, L, n, batch, wb, sm, smem, g_buf);
+  const PreBlock pb = pre_graph<D>(x, L, n, batch, wb, sm, smem, g_buf);
   const int cop = round8(co), groups = pre_groups(co);
   float* csum = smem + sm.csum;  // [groups][kBwdSums][cop]
   float* wred = smem + sm.wred + (tid >> 5) * 32 * 2 * kBwdSums;
@@ -988,7 +1036,7 @@ bwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int ghost, int batch
         const int r = r0 + frag_row(i), o = 8 * ot + frag_col(i);
         const long long e = base + (long long)r * co + o;
         yv[i] = r < n && o < co ? y[e] : 0.0f;
-        dyv[i] = r < n && o < co ? dy[e] : 0.0f;
+        dyv[i] = r < n && o < co ? stored<D>(dy[e]) : 0.0f;
       }
     };
     auto take = [&](int r0, int ot, const float (&t)[4], const float (&rv)[4]) {
@@ -1003,7 +1051,7 @@ bwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int ghost, int batch
         const bool neg = alpha >= 0.0f ? (__float_as_uint(yv[i]) >> 31) != 0 : pre < 0.0f;
         const float g_out = dyv[i];
         if (neg) dal = fmaf(g_out, pre, dal);
-        const float dp = neg ? alpha * g_out : g_out;
+        const float dp = stored<D>(neg ? alpha * g_out : g_out);
         t_buf[e] = tc;
         r_buf[e] = rc;
         dpre_buf[e] = dp;
@@ -1028,7 +1076,7 @@ bwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int ghost, int batch
 #pragma unroll
       for (int q = 0; q < 2 * kBwdSums; ++q) s[q] = 0.0f;
     };
-    pre_window(pb, L, n, w, fetch, take, flush);
+    pre_window<D>(pb, L, n, w, fetch, take, flush);
     red[tid] = dal;
     __syncthreads();
     block_reduce(red, 1);
@@ -1051,7 +1099,8 @@ bwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int ghost, int batch
 // dx = M dg. Without dx (layer 0) dr is written by a plain loop. dt and dr
 // never sit in shared memory: a loader computes each element from dpre and
 // tc (rc) once and writes it back, and later column chunks (C_in > 32) read
-// it again.
+// it again. dg and dx are stored.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 bwd_dx_kernel(Layer L, int n, int ghost, const float* __restrict__ consts, float* t_buf,
               float* r_buf, const float* __restrict__ dpre_buf, float* dg_buf,
@@ -1086,15 +1135,17 @@ bwd_dx_kernel(Layer L, int n, int ghost, const float* __restrict__ consts, float
         return v;
       };
       float acc[4][4] = {};
-      warp_tile<4>(acc, r0, round8(co), 8 * c0, ctiles - c0 < 4 ? ctiles - c0 : 4, dt_of, wt_of);
+      warp_tile<4, op_of<D>>(acc, r0, round8(co), 8 * c0, ctiles - c0 < 4 ? ctiles - c0 : 4,
+                             dt_of, wt_of);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (c0 + j >= ctiles) break;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int r = r0 + frag_row(i), c = 8 * (c0 + j) + frag_col(i);
-          dgs[r * lddg + c] = acc[j][i];
-          if (r < n && c < ci) dg_buf[((long long)win * n + r) * ci + c] = acc[j][i];
+          const float dg = stored<D>(acc[j][i]);
+          dgs[r * lddg + c] = dg;
+          if (r < n && c < ci) dg_buf[((long long)win * n + r) * ci + c] = dg;
         }
       }
     }
@@ -1123,8 +1174,8 @@ bwd_dx_kernel(Layer L, int n, int ghost, const float* __restrict__ consts, float
       };
       const int tiles = ctiles - c0 < 4 ? ctiles - c0 : 4;
       float acc[4][4] = {};
-      warp_tile<4>(acc, r0, round8(n), 8 * c0, tiles, m_of, dg_of);  // M dg
-      if (!L.identity) warp_tile<4>(acc, r0, round8(co), 8 * c0, tiles, dr_of, wrt_of);
+      warp_tile<4, op_of<D>>(acc, r0, round8(n), 8 * c0, tiles, m_of, dg_of);  // M dg
+      if (!L.identity) warp_tile<4, op_of<D>>(acc, r0, round8(co), 8 * c0, tiles, dr_of, wrt_of);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (c0 + j >= ctiles) break;
@@ -1134,7 +1185,7 @@ bwd_dx_kernel(Layer L, int n, int ghost, const float* __restrict__ consts, float
           if (r >= n || c >= ci) continue;
           float v = acc[j][i];
           if (L.identity) v += dpre_buf[base + (long long)r * co + c];
-          dx[((long long)win * n + r) * ci + c] = v;
+          dx[((long long)win * n + r) * ci + c] = stored<D>(v);
         }
       }
     }
@@ -1160,7 +1211,7 @@ struct Product {
 
 bool aligned16(const float* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <int MT, int NT>
+template <int D, int MT, int NT>
 cudaError_t launch_rows(const Product& pr, int splits, float* dst, cudaStream_t stream) {
   constexpr int PT = 16 * MT, QT = 8 * NT;
   const long long slabs = (long long)kWarps * kStages * kRowsStep * (PT + 8 + QT + 8);
@@ -1168,7 +1219,7 @@ cudaError_t launch_rows(const Product& pr, int splits, float* dst, cudaStream_t 
   const long long smem = (long long)sizeof(float) * (slabs > red ? slabs : red);
   long long r_split = (pr.n + splits - 1) / splits;
   r_split = (r_split + kRowsStep - 1) / kRowsStep * kRowsStep;
-  auto kern = product_rows_kernel<MT, NT>;
+  auto kern = product_rows_kernel<D, MT, NT>;
   cudaError_t err = allow_smem((const void*)kern, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(((pr.p + PT - 1) / PT) * ((pr.q + QT - 1) / QT), splits);
@@ -1178,13 +1229,14 @@ cudaError_t launch_rows(const Product& pr, int splits, float* dst, cudaStream_t 
   return cudaGetLastError();
 }
 
+template <int D>
 cudaError_t launch_windows(const Product& pr, int splits, float* dst, cudaStream_t stream) {
   constexpr int PT = 16 * kWinMT, QT = 8 * kWinNT;
   const long long slabs = (long long)kWarps * kStages * (PT + QT) * kLdk;
   const long long red = (long long)kWarps * kWinMT * kWinNT * 4 * 32;
   const long long smem = (long long)sizeof(float) * (slabs > red ? slabs : red);
   const int w_split = (int)((pr.n + splits - 1) / splits);
-  auto kern = product_windows_kernel;
+  auto kern = product_windows_kernel<D>;
   cudaError_t err = allow_smem((const void*)kern, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(((pr.p + PT - 1) / PT) * ((pr.q + QT - 1) / QT), splits);
@@ -1197,31 +1249,33 @@ cudaError_t launch_windows(const Product& pr, int splits, float* dst, cudaStream
 // The rows form's tile: 16, 32 or 64 of P by 16, 32 or 64 of Q, the least
 // that holds the output (dW, dW_res: one tile), else 64 (dwp: 216 tiles of
 // 64 x 16). stse_train.py's product_splits mirrors this choice.
+template <int D>
 cudaError_t launch_product(const Product& pr, int splits, float* dst, cudaStream_t stream) {
-  if (pr.form == PF_WINDOWS) return launch_windows(pr, splits, dst, stream);
+  if (pr.form == PF_WINDOWS) return launch_windows<D>(pr, splits, dst, stream);
   const int mt = pr.p <= 16 ? 1 : (pr.p <= 32 ? 2 : 4);
   const int nt = pr.q <= 16 ? 2 : (pr.q <= 32 ? 4 : 8);
   switch (mt * 10 + nt) {
-    case 12: return launch_rows<1, 2>(pr, splits, dst, stream);
-    case 14: return launch_rows<1, 4>(pr, splits, dst, stream);
-    case 18: return launch_rows<1, 8>(pr, splits, dst, stream);
-    case 22: return launch_rows<2, 2>(pr, splits, dst, stream);
-    case 24: return launch_rows<2, 4>(pr, splits, dst, stream);
-    case 28: return launch_rows<2, 8>(pr, splits, dst, stream);
-    case 42: return launch_rows<4, 2>(pr, splits, dst, stream);
-    case 44: return launch_rows<4, 4>(pr, splits, dst, stream);
-    default: return launch_rows<4, 8>(pr, splits, dst, stream);
+    case 12: return launch_rows<D, 1, 2>(pr, splits, dst, stream);
+    case 14: return launch_rows<D, 1, 4>(pr, splits, dst, stream);
+    case 18: return launch_rows<D, 1, 8>(pr, splits, dst, stream);
+    case 22: return launch_rows<D, 2, 2>(pr, splits, dst, stream);
+    case 24: return launch_rows<D, 2, 4>(pr, splits, dst, stream);
+    case 28: return launch_rows<D, 2, 8>(pr, splits, dst, stream);
+    case 42: return launch_rows<D, 4, 2>(pr, splits, dst, stream);
+    case 44: return launch_rows<D, 4, 4>(pr, splits, dst, stream);
+    default: return launch_rows<D, 4, 8>(pr, splits, dst, stream);
   }
 }
 
 // The product into out [P][Q]: straight there for one split, else through
 // [splits][P][Q] partials in part, summed in split order.
+template <int D>
 cudaError_t run_product(const Product& pr, int splits, float* part, float* out,
                         cudaStream_t stream) {
   if (splits < 1 || splits > 65535 || pr.n < 1 || pr.k < 1 || (splits > 1 && part == nullptr) ||
       (pr.form == PF_WINDOWS && pr.n >= (1LL << 31)))
     return cudaErrorInvalidValue;
-  cudaError_t err = launch_product(pr, splits, splits > 1 ? part : out, stream);
+  cudaError_t err = launch_product<D>(pr, splits, splits > 1 ? part : out, stream);
   if (err != cudaSuccess || splits == 1) return err;
   const long long count = (long long)pr.p * pr.q;
   sum_splits_kernel<<<blocks_for(count), kThreads, 0, stream>>>(part, count, splits, out);
@@ -1281,35 +1335,64 @@ cudaError_t check_layers(const long long* rows, int stride, int n_layers, int n,
   return cudaSuccess;
 }
 
+// Opt form D's per-window passes into the shared memory `most` gives them (a
+// pass given 0 is left as it is: the launch at hand does not run it).
+template <int D>
+cudaError_t allow_passes(const LayerSmem& most) {
+  const void* kernels[4] = {(const void*)fwd_pre_kernel<D>, (const void*)fwd_apply_kernel<D>,
+                            (const void*)bwd_pre_kernel<D>, (const void*)bwd_dx_kernel<D>};
+  const long long bytes[4] = {most.fwd, most.apply, most.pre, most.dx};
+  cudaError_t err = cudaSuccess;
+  for (int k = 0; k < 4 && err == cudaSuccess; ++k)
+    if (bytes[k] > 0) err = allow_smem(kernels[k], bytes[k]);
+  return err;
+}
+
+// fn(std::integral_constant<int, D>) for the compute dtype `dtype` names
+// (ComputeDtype), or cudaErrorInvalidValue.
+template <class Fn>
+int with_dtype(long long dtype, const Fn& fn) {
+  switch (dtype) {
+    case kFloat32: return fn(std::integral_constant<int, kFloat32>{});
+    case kBfloat16: return fn(std::integral_constant<int, kBfloat16>{});
+    case kBfloat16F32Store: return fn(std::integral_constant<int, kBfloat16F32Store>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // One layer of K2's forward on windows [0, batch) of the buffers (a
 // chunk's, for K5): fwd_pre, fwd_stats into stats and block_sums, the
 // full-batch sums unless sums is null, then fwd_apply into act.
+template <int D>
 cudaError_t run_forward_layer(const float* x, const Layer& L, int n, int ghost, int batch,
                               float* t_buf, float* r_buf, float* part, float* stats,
                               float* block_sums, float* sums, float* act, cudaStream_t stream) {
   const LayerSmem smem = layer_smem(L, n);
   const int wb = pre_windows(L.ci), n_blocks = batch / ghost;
-  fwd_pre_kernel<<<(batch + wb - 1) / wb, kThreads, (size_t)smem.fwd, stream>>>(
-      x, L, n, batch, wb, t_buf, r_buf, part);
+  auto pre = fwd_pre_kernel<D>;
+  pre<<<(batch + wb - 1) / wb, kThreads, (size_t)smem.fwd, stream>>>(x, L, n, batch, wb, t_buf,
+                                                                     r_buf, part);
   fwd_stats_kernel<<<n_blocks, kThreads, 0, stream>>>(part, L, ghost, n, stats, block_sums);
   if (sums != nullptr)
     fwd_sums_kernel<<<1, kThreads, 0, stream>>>(block_sums, L.co, n_blocks, sums);
   const long long per = (long long)ghost * n * L.co;
   const int chunks = (int)((per + kApplyElems - 1) / kApplyElems);
   const int vec = L.co % 4 == 0 && aligned16(t_buf) && aligned16(r_buf) && aligned16(act);
-  fwd_apply_kernel<<<n_blocks * chunks, kThreads, (size_t)smem.apply, stream>>>(
-      L, n, ghost, chunks, t_buf, r_buf, act, vec);
+  auto apply = fwd_apply_kernel<D>;
+  apply<<<n_blocks * chunks, kThreads, (size_t)smem.apply, stream>>>(L, n, ghost, chunks, t_buf,
+                                                                     r_buf, act, vec);
   return cudaGetLastError();
 }
 
 // K2's projector on the top layer's output y [batch][rows]: projector_z
 // into part ([splits][batch][latent] floats), then projector_sum into z.
+template <int D>
 cudaError_t run_projector(const float* y, const float* wp, const float* bp, int batch, int rows,
                           int latent, int splits, float* part, float* z, cudaStream_t stream) {
   const int r_split = round8((rows + splits - 1) / splits);
   const dim3 grid_z(splits * ((latent + 15) / 16), (batch + kZWindows - 1) / kZWindows);
-  projector_z_kernel<<<grid_z, kThreads, 0, stream>>>(y, wp, batch, rows, latent, r_split, splits,
-                                                      part);
+  auto proj = projector_z_kernel<D>;
+  proj<<<grid_z, kThreads, 0, stream>>>(y, wp, batch, rows, latent, r_split, splits, part);
   projector_sum_kernel<<<blocks_for((long long)batch * latent), kThreads, 0, stream>>>(
       part, batch, latent, splits, bp, z);
   return cudaGetLastError();
@@ -1324,24 +1407,27 @@ struct PassArgs {
   int batch, n, ghost, latent;
   float *g_buf, *t_buf, *r_buf, *dpre_buf, *dg_buf, *part, *dalpha_part, *consts, *gpart, *dx;
 };
+template <int D>
 cudaError_t run_passes(const Layer& L, const PassArgs& a, const LayerSmem& smem,
                        cudaStream_t stream) {
   const float* dy = a.dy;
   if (a.dz != nullptr) {
     const int rows = a.n * L.co;
     const dim3 grid_dy((rows + kDyRows - 1) / kDyRows, (a.batch + kDyWindows - 1) / kDyWindows);
-    projector_dy_kernel<<<grid_dy, kThreads, 0, stream>>>(a.dz, a.wp, a.batch, rows, a.latent,
-                                                          a.dpre_buf);
+    auto proj_dy = projector_dy_kernel<D>;
+    proj_dy<<<grid_dy, kThreads, 0, stream>>>(a.dz, a.wp, a.batch, rows, a.latent, a.dpre_buf);
     dy = a.dpre_buf;
   }
   const int wb = pre_windows(L.ci);
-  bwd_pre_kernel<<<(a.batch + wb - 1) / wb, kThreads, (size_t)smem.pre, stream>>>(
+  auto pre = bwd_pre_kernel<D>;
+  pre<<<(a.batch + wb - 1) / wb, kThreads, (size_t)smem.pre, stream>>>(
       a.x, L, a.n, a.ghost, a.batch, wb, a.y, dy, a.g_buf, a.t_buf, a.r_buf, a.dpre_buf, a.part,
       a.dalpha_part);
   bwd_consts_kernel<<<a.batch / a.ghost, kThreads, 0, stream>>>(a.part, L, a.ghost, a.n, a.consts,
                                                                 a.gpart);
-  bwd_dx_kernel<<<a.batch, kThreads, (size_t)smem.dx, stream>>>(
-      L, a.n, a.ghost, a.consts, a.t_buf, a.r_buf, a.dpre_buf, a.dg_buf, a.mt, a.dx);
+  auto dx = bwd_dx_kernel<D>;
+  dx<<<a.batch, kThreads, (size_t)smem.dx, stream>>>(L, a.n, a.ghost, a.consts, a.t_buf, a.r_buf,
+                                                     a.dpre_buf, a.dg_buf, a.mt, a.dx);
   return cudaGetLastError();
 }
 
@@ -1350,6 +1436,7 @@ cudaError_t run_passes(const Layer& L, const PassArgs& a, const LayerSmem& smem,
 // sweep, top layer down, leaving the chunk's share of every batch reduction
 // in the [n_chunks, ...] buffers (index c) and the per-window / per-block
 // buffers (offset by w0).
+template <int D>
 cudaError_t mono_chunk(const long long* d, int c, int w0, int wc, cudaStream_t stream) {
   const int n_layers = (int)d[MH_N_LAYERS], n = (int)d[MH_N_NODES], ghost = (int)d[MH_GHOST];
   const int latent = (int)d[MH_LATENT];
@@ -1374,8 +1461,8 @@ cudaError_t mono_chunk(const long long* d, int c, int w0, int wc, cudaStream_t s
     float* stats = ptr<float>(row, ML_STATS);
     L.stats = stats;
     float* act = ptr<float>(row, ML_ACT);
-    err = run_forward_layer(h, L, n, ghost, wc, t_buf, r_buf, part, stats,
-                            ptr<float>(d, MH_BLOCK_SUMS), nullptr, act, stream);
+    err = run_forward_layer<D>(h, L, n, ghost, wc, t_buf, r_buf, part, stats,
+                               ptr<float>(d, MH_BLOCK_SUMS), nullptr, act, stream);
     h = act;
   }
   for (int l = n_layers - 1; l >= 0 && err == cudaSuccess; --l) {
@@ -1406,34 +1493,35 @@ cudaError_t mono_chunk(const long long* d, int c, int w0, int wc, cudaStream_t s
     pa.consts = consts;
     pa.gpart = ptr<float>(row, ML_GPART) + (long long)(w0 / ghost) * 6 * co;
     pa.dx = l > 0 ? dy_buf : nullptr;
-    err = run_passes(L, pa, layer_smem(L, n), stream);
+    err = run_passes<D>(L, pa, layer_smem(L, n), stream);
     // dW = sum g^T dt, dW_res = sum x^T dr, dM = sum x^T dg over the chunk.
     const long long wsz = (long long)ci * co;
     const long long n_rows = (long long)wc * n;
     Product pw{PF_ROWS, g_buf, t_buf, ci, co, n_rows, 1};
     if (err == cudaSuccess)
-      err = run_product(pw, (int)row[ML_SPLITS_W], prod_buf,
-                        ptr<float>(row, ML_CHUNK_DW) + c * wsz, stream);
+      err = run_product<D>(pw, (int)row[ML_SPLITS_W], prod_buf,
+                           ptr<float>(row, ML_CHUNK_DW) + c * wsz, stream);
     if (err == cudaSuccess && !L.identity) {
       Product pr{PF_ROWS, x_l, r_buf, ci, co, n_rows, 1};
-      err = run_product(pr, (int)row[ML_SPLITS_W], prod_buf,
-                        ptr<float>(row, ML_CHUNK_DW_RES) + c * wsz, stream);
+      err = run_product<D>(pr, (int)row[ML_SPLITS_W], prod_buf,
+                           ptr<float>(row, ML_CHUNK_DW_RES) + c * wsz, stream);
     }
     if (err == cudaSuccess) {
       Product pm{PF_WINDOWS, x_l, dg_buf, n, n, wc, ci};
-      err = run_product(pm, (int)row[ML_SPLITS_M], prod_buf,
-                        ptr<float>(row, ML_CHUNK_DM) + (long long)c * n * n, stream);
+      err = run_product<D>(pm, (int)row[ML_SPLITS_M], prod_buf,
+                           ptr<float>(row, ML_CHUNK_DM) + (long long)c * n * n, stream);
     }
     // dwp = sum over the chunk's windows of y_flat^T dz.
     if (err == cudaSuccess && top) {
       Product pp{PF_ROWS, ptr<const float>(row, ML_ACT), dz_c, n * co, latent, wc, 1};
-      err = run_product(pp, (int)d[MH_SPLITS_WP], prod_buf,
-                        ptr<float>(d, MH_CHUNK_DWP) + (long long)c * n * co * latent, stream);
+      err = run_product<D>(pp, (int)d[MH_SPLITS_WP], prod_buf,
+                           ptr<float>(d, MH_CHUNK_DWP) + (long long)c * n * co * latent, stream);
     }
   }
   return err;
 }
 
+template <int D>
 int run_mono(const long long* d, cudaStream_t stream) {
   const int n_layers = (int)d[MH_N_LAYERS], batch = (int)d[MH_BATCH], n = (int)d[MH_N_NODES];
   const int ghost = (int)d[MH_GHOST], latent = (int)d[MH_LATENT], chunk = (int)d[MH_CHUNK];
@@ -1443,10 +1531,7 @@ int run_mono(const long long* d, cudaStream_t stream) {
   const long long* rows = d + MH_COUNT;
   LayerSmem most;
   cudaError_t err = check_layers(rows, ML_COUNT, n_layers, n, &most);
-  if (err == cudaSuccess) err = allow_smem((const void*)fwd_pre_kernel, most.fwd);
-  if (err == cudaSuccess) err = allow_smem((const void*)fwd_apply_kernel, most.apply);
-  if (err == cudaSuccess) err = allow_smem((const void*)bwd_pre_kernel, most.pre);
-  if (err == cudaSuccess) err = allow_smem((const void*)bwd_dx_kernel, most.dx);
+  if (err == cudaSuccess) err = allow_passes<D>(most);
   if (err != cudaSuccess) return (int)err;
   for (int l = 1; l < n_layers; ++l) {  // M^T for every layer that passes dx down
     const long long* row = rows + (long long)l * ML_COUNT;
@@ -1457,7 +1542,7 @@ int run_mono(const long long* d, cudaStream_t stream) {
   for (int c = 0; c < n_chunks && err == cudaSuccess; ++c) {
     const int w0 = c * chunk;
     const int wc = batch - w0 < chunk ? batch - w0 : chunk;
-    err = mono_chunk(d, c, w0, wc, stream);
+    err = mono_chunk<D>(d, c, w0, wc, stream);
   }
   if (err != cudaSuccess) return (int)err;
   // The whole-batch sums, in chunk (block, window) order.
@@ -1488,6 +1573,7 @@ int run_mono(const long long* d, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int D>
 int run_backward(const long long* d, bool top, cudaStream_t stream) {
   const int batch = (int)d[BD_BATCH], n = (int)d[BD_N_NODES], ghost = (int)d[BD_GHOST];
   const int latent = (int)d[BD_LATENT];
@@ -1522,8 +1608,7 @@ int run_backward(const long long* d, bool top, cudaStream_t stream) {
   float* mt = ptr<float>(d, BD_MT);
 
   const LayerSmem smem = layer_smem(L, n);
-  cudaError_t err = allow_smem((const void*)bwd_pre_kernel, smem.pre);
-  if (err == cudaSuccess) err = allow_smem((const void*)bwd_dx_kernel, smem.dx);
+  cudaError_t err = allow_passes<D>(LayerSmem{0, 0, smem.pre, smem.dx});
   if (err != cudaSuccess) return (int)err;
 
   PassArgs pa;
@@ -1549,7 +1634,7 @@ int run_backward(const long long* d, bool top, cudaStream_t stream) {
   pa.dx = ptr<float>(d, BD_DX);
   if (pa.dx != nullptr)
     transpose_kernel<<<blocks_for((long long)n * n), kThreads, 0, stream>>>(L.m, mt, n);
-  err = run_passes(L, pa, smem, stream);
+  err = run_passes<D>(L, pa, smem, stream);
   if (err != cudaSuccess) return (int)err;
   bwd_reduce_kernel<<<1, kThreads, sizeof(float) * kThreads, stream>>>(
       pa.gpart, n_blocks, pa.dalpha_part, batch, L, ptr<float>(d, BD_DGAMMA),
@@ -1562,22 +1647,57 @@ int run_backward(const long long* d, bool top, cudaStream_t stream) {
   // dW = sum g^T dt and dW_res = sum x^T dr over all B*N rows.
   const long long n_rows = (long long)batch * n;
   Product pw{PF_ROWS, g_buf, t_buf, ci, co, n_rows, 1};
-  err = run_product(pw, (int)d[BD_SPLITS_W], prod_buf, ptr<float>(d, BD_DW), stream);
+  err = run_product<D>(pw, (int)d[BD_SPLITS_W], prod_buf, ptr<float>(d, BD_DW), stream);
   if (err == cudaSuccess && !L.identity) {
     Product pr{PF_ROWS, x, r_buf, ci, co, n_rows, 1};
-    err = run_product(pr, (int)d[BD_SPLITS_W_RES], prod_buf, ptr<float>(d, BD_DW_RES), stream);
+    err = run_product<D>(pr, (int)d[BD_SPLITS_W_RES], prod_buf, ptr<float>(d, BD_DW_RES),
+                         stream);
   }
   // dM[k][m] = sum over windows and channels of x[k][c] dg[m][c].
   if (err == cudaSuccess) {
     Product pm{PF_WINDOWS, x, dg_buf, n, n, batch, ci};
-    err = run_product(pm, (int)d[BD_SPLITS_M], prod_buf, ptr<float>(d, BD_DM), stream);
+    err = run_product<D>(pm, (int)d[BD_SPLITS_M], prod_buf, ptr<float>(d, BD_DM), stream);
   }
   // K4: dwp = sum over windows of y_flat^T dz.
   if (err == cudaSuccess && top) {
     Product pp{PF_ROWS, ptr<const float>(d, BD_Y), dz, n * co, latent, batch, 1};
-    err = run_product(pp, (int)d[BD_SPLITS_WP], prod_buf, ptr<float>(d, BD_DWP), stream);
+    err = run_product<D>(pp, (int)d[BD_SPLITS_WP], prod_buf, ptr<float>(d, BD_DWP), stream);
   }
   return (int)err;
+}
+
+// K2 in form D (see stse_train_forward).
+template <int D>
+int run_forward(const long long* desc, cudaStream_t stream) {
+  const int n_layers = (int)desc[FH_N_LAYERS], batch = (int)desc[FH_BATCH];
+  const int n = (int)desc[FH_N_NODES], ghost = (int)desc[FH_GHOST];
+  const int latent = (int)desc[FH_LATENT], z_splits = (int)desc[FH_Z_SPLITS];
+  if (n_layers < 1 || batch < 1 || ghost < 1 || batch % ghost != 0 || n < 1 || latent < 1 ||
+      z_splits < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long* rows = desc + FH_COUNT;
+  LayerSmem most;
+  cudaError_t err = check_layers(rows, FL_COUNT, n_layers, n, &most);
+  if (err == cudaSuccess) err = allow_passes<D>(LayerSmem{most.fwd, most.apply, 0, 0});
+  if (err != cudaSuccess) return (int)err;
+  float* t_buf = ptr<float>(desc, FH_T_BUF);
+  const float* x = ptr<const float>(desc, FH_X);
+  for (int l = 0; l < n_layers && err == cudaSuccess; ++l) {
+    const long long* row = rows + (long long)l * FL_COUNT;
+    Layer L = row_layer(row);
+    float* stats = ptr<float>(row, FL_STATS);
+    L.stats = stats;
+    float* act = ptr<float>(row, FL_ACT);
+    err = run_forward_layer<D>(x, L, n, ghost, batch, t_buf, ptr<float>(desc, FH_R_BUF),
+                               ptr<float>(desc, FH_PART), stats, ptr<float>(desc, FH_BLOCK_SUMS),
+                               ptr<float>(row, FL_SUMS), act, stream);
+    x = act;
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int c_top = (int)rows[(long long)(n_layers - 1) * FL_COUNT + FL_CO];
+  return (int)run_projector<D>(x, ptr<const float>(desc, FH_WP), ptr<const float>(desc, FH_BP),
+                               batch, n * c_top, latent, z_splits, t_buf,
+                               ptr<float>(desc, FH_Z), stream);
 }
 
 }  // namespace
@@ -1591,38 +1711,10 @@ const char* stse_train_error_string(int err) { return cudaGetErrorString((cudaEr
 // [max(B N max C_out, z_splits B latent)] (also the projector's partials,
 // once the top layer's apply pass has read it), r_buf [B, N, max C_out],
 // part [B, 4, max C_out] and block_sums [B / ghost, 4, max C_out].
-int stse_train_forward(const long long* desc, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const int n_layers = (int)desc[FH_N_LAYERS], batch = (int)desc[FH_BATCH];
-  const int n = (int)desc[FH_N_NODES], ghost = (int)desc[FH_GHOST];
-  const int latent = (int)desc[FH_LATENT], z_splits = (int)desc[FH_Z_SPLITS];
-  if (n_layers < 1 || batch < 1 || ghost < 1 || batch % ghost != 0 || n < 1 || latent < 1 ||
-      z_splits < 1)
-    return (int)cudaErrorInvalidValue;
-  const long long* rows = desc + FH_COUNT;
-  LayerSmem most;
-  cudaError_t err = check_layers(rows, FL_COUNT, n_layers, n, &most);
-  if (err == cudaSuccess) err = allow_smem((const void*)fwd_pre_kernel, most.fwd);
-  if (err == cudaSuccess) err = allow_smem((const void*)fwd_apply_kernel, most.apply);
-  if (err != cudaSuccess) return (int)err;
-  float* t_buf = ptr<float>(desc, FH_T_BUF);
-  const float* x = ptr<const float>(desc, FH_X);
-  for (int l = 0; l < n_layers && err == cudaSuccess; ++l) {
-    const long long* row = rows + (long long)l * FL_COUNT;
-    Layer L = row_layer(row);
-    float* stats = ptr<float>(row, FL_STATS);
-    L.stats = stats;
-    float* act = ptr<float>(row, FL_ACT);
-    err = run_forward_layer(x, L, n, ghost, batch, t_buf, ptr<float>(desc, FH_R_BUF),
-                            ptr<float>(desc, FH_PART), stats, ptr<float>(desc, FH_BLOCK_SUMS),
-                            ptr<float>(row, FL_SUMS), act, stream);
-    x = act;
-  }
-  if (err != cudaSuccess) return (int)err;
-  const int c_top = (int)rows[(long long)(n_layers - 1) * FL_COUNT + FL_CO];
-  return (int)run_projector(x, ptr<const float>(desc, FH_WP), ptr<const float>(desc, FH_BP),
-                            batch, n * c_top, latent, z_splits, t_buf, ptr<float>(desc, FH_Z),
-                            stream);
+int stse_train_forward(const long long* desc, void* stream) {
+  return with_dtype(desc[FH_DTYPE], [&](auto d) {
+    return run_forward<decltype(d)::value>(desc, (cudaStream_t)stream);
+  });
 }
 
 // K5. desc: MH_COUNT header fields, then n_layers rows of ML_COUNT fields
@@ -1636,7 +1728,9 @@ int stse_train_forward(const long long* desc, void* stream_ptr) {
 // ...]; chunk_dwp [n_chunks, N * C_out, latent]; prod_buf as K3/K4's for one
 // chunk.
 int stse_train_mono_backward(const long long* desc, void* stream) {
-  return run_mono(desc, (cudaStream_t)stream);
+  return with_dtype(desc[MH_DTYPE], [&](auto d) {
+    return run_mono<decltype(d)::value>(desc, (cudaStream_t)stream);
+  });
 }
 
 // One batch-reduction product alone. desc: PD_COUNT fields (see
@@ -1651,18 +1745,24 @@ int stse_train_product(const long long* d, void* stream) {
   const float* a = ptr<const float>(d, PD_A);
   const float* b = ptr<const float>(d, PD_B);
   const Product pr{form, a, b, p, q, n, k};
-  return (int)run_product(pr, (int)d[PD_SPLITS], ptr<float>(d, PD_PART), ptr<float>(d, PD_OUT),
-                          (cudaStream_t)stream);
+  return with_dtype(d[PD_DTYPE], [&](auto dt) {
+    return (int)run_product<decltype(dt)::value>(pr, (int)d[PD_SPLITS], ptr<float>(d, PD_PART),
+                                                 ptr<float>(d, PD_OUT), (cudaStream_t)stream);
+  });
 }
 
 // K3: one lower layer's backward (desc: BD_COUNT fields, BD_Y and BD_DY set, BD_DZ 0).
 int stse_train_layer_backward(const long long* desc, void* stream) {
-  return run_backward(desc, false, (cudaStream_t)stream);
+  return with_dtype(desc[BD_DTYPE], [&](auto d) {
+    return run_backward<decltype(d)::value>(desc, false, (cudaStream_t)stream);
+  });
 }
 
 // K4: the top layer's backward with the projector's (BD_DZ, BD_WP, BD_Y set).
 int stse_train_top_backward(const long long* desc, void* stream) {
-  return run_backward(desc, true, (cudaStream_t)stream);
+  return with_dtype(desc[BD_DTYPE], [&](auto d) {
+    return run_backward<decltype(d)::value>(desc, true, (cudaStream_t)stream);
+  });
 }
 
 // The per-window passes of a layer of C_in ci, C_out co on n nodes, for
@@ -1671,16 +1771,18 @@ int stse_train_top_backward(const long long* desc, void* stream) {
 // windows a block, shared bytes, blocks an SM; fwd_apply's shared bytes,
 // blocks an SM; projector_z's blocks an SM), the blocks an SM as
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them on the current
-// device.
+// device, of the float32 form (the forms share their shared memory; bf16
+// operands take fewer registers).
 int stse_train_pass_occupancy(int n, int ci, int co, int* out) {
   if (n < 1 || ci < 1 || co < 1) return (int)cudaErrorInvalidValue;
   Layer L;
   L.ci = ci;
   L.co = co;
   const LayerSmem smem = layer_smem(L, n);
-  const void* kernels[5] = {(const void*)bwd_pre_kernel, (const void*)bwd_dx_kernel,
-                            (const void*)fwd_pre_kernel, (const void*)fwd_apply_kernel,
-                            (const void*)projector_z_kernel};
+  const void* kernels[5] = {
+      (const void*)bwd_pre_kernel<kFloat32>, (const void*)bwd_dx_kernel<kFloat32>,
+      (const void*)fwd_pre_kernel<kFloat32>, (const void*)fwd_apply_kernel<kFloat32>,
+      (const void*)projector_z_kernel<kFloat32>};
   const long long bytes[5] = {smem.pre, smem.dx, smem.fwd, smem.apply, 0};
   int blocks[5] = {0, 0, 0, 0, 0};
   cudaError_t err = cudaSuccess;

@@ -210,6 +210,9 @@ def bind(lib):
     lib.stse_fused_occupancy.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                          ctypes.c_int, ctypes.c_void_p]
     lib.stse_fused_occupancy.restype = ctypes.c_int
+    lib.stse_fused_plan.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p]
+    lib.stse_fused_plan.restype = ctypes.c_int
     lib.stse_fused_error_string.argtypes = [ctypes.c_int]
     lib.stse_fused_error_string.restype = ctypes.c_char_p
     return lib
@@ -223,6 +226,20 @@ def _library():
         bind(lib)
         lib._coskad_typed = True
     return lib
+
+
+def takes(packed: PackedSTSE, lib=None) -> bool:
+    """Whether the kernel takes `packed`'s layout, from the planner every
+    launch runs (`plan_layout` in the source, through `stse_fused_plan`;
+    `lib` defaults to the built library). It refuses more than 8 layers, a
+    graph contraction wider than 64 channels or an inner layer putting out
+    more, and activations that do not fit in a block's shared memory (at 18
+    joints, windows of more than 27 frames). No device is touched."""
+    lib = _library() if lib is None else lib
+    layout = np.ascontiguousarray(packed.layout, np.int64)
+    out = np.zeros(2, np.int32)
+    return lib.stse_fused_plan(layout.ctypes.data, len(layout), packed.n_nodes, packed.n_pad,
+                               out.ctypes.data) == 0
 
 
 def occupancy(packed: PackedSTSE, lib=None) -> dict:

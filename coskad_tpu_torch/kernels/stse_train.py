@@ -31,10 +31,24 @@ Dispatch, as for K1: a CUDA tensor launches the kernels or raises; a CPU
 tensor takes the plain PyTorch versions beside them (`ghost_forward_reference`,
 and autograd through `ghost_layer_reference` for the backward).
 
+compute_dtype (`COMPUTE_DTYPES`, the JAX kernels' `_parse_dtype` :266 and
+`_dop` :288): "float32"; "bfloat16", every dot operand rounded to bf16 (round
+to nearest even) and summed in float32, and the values JAX stores at bf16
+rounded where they are stored: the layer input as read, g, t, r, the output
+y, dy as read, dpre, dg and dx (the kernels' buffers stay float32, holding
+bf16 values); "bfloat16_f32store", bf16 operands and every value stored in
+float32. Statistics, the running-statistic sums, z and the weight gradients
+are float32 under every form; `fused_stse_apply` rounds the input windows
+to bf16 under both bf16 forms (JAX casts x_t to the operand dtype, :1152).
+The kernels take the form as a template argument (`csrc/stse_train.cu`);
+the plain versions round at the same points (`_bf16_einsum` for a product,
+both ways; `_stored` for a stored value).
+
 What bounds the kernels on an H100: K2-K5 run every product (the
 per-window passes', the projector's and the batch reductions') as 3xTF32
-on the tensor cores, which leaves them bound by their scratch traffic (see
-`work`, `products` and the source's header).
+on the tensor cores (under a bf16 form, one TF32 product of bf16 operands),
+which leaves them bound by their scratch traffic (see `work`, `products`
+and the source's header).
 """
 
 from __future__ import annotations
@@ -64,6 +78,8 @@ BN_EPS = 1e-5
 # chunks of 512 and 1024 windows (K2's forward sets it), where K5 takes
 # 0.6x the time: retuning it is ROADMAP.md Queue 2 item 3 (PERF.md).
 MONO_CHUNK_WINDOWS = 128
+# the compute_dtype forms, in the order of csrc/stse_train.cu's ComputeDtype
+COMPUTE_DTYPES = ("float32", "bfloat16", "bfloat16_f32store")
 
 forward_launches = LaunchCounter()  # K2
 layer_backward_launches = LaunchCounter()  # K3
@@ -73,7 +89,7 @@ product_launches = LaunchCounter()  # one batch-reduction product alone (`produc
 
 # Descriptor fields, in the order of the enums in csrc/stse_train.cu.
 _FWD_HEADER = ("n_layers", "batch", "n_nodes", "ghost", "latent", "x", "wp", "bp", "z",
-               "t_buf", "r_buf", "part", "block_sums", "z_splits")
+               "t_buf", "r_buf", "part", "block_sums", "z_splits", "dtype")
 _FWD_LAYER = ("ci", "co", "identity", "m", "w", "b", "gamma", "beta", "w_res", "b_res",
               "gamma_res", "beta_res", "alpha", "act", "stats", "sums")
 _BWD = ("batch", "n_nodes", "ghost", "ci", "co", "identity", "latent", "x", "dy", "dz", "wp",
@@ -81,12 +97,12 @@ _BWD = ("batch", "n_nodes", "ghost", "ci", "co", "identity", "latent", "x", "dy"
         "alpha", "stats", "dm", "dw", "db", "dgamma", "dbeta", "dw_res", "db_res",
         "dgamma_res", "dbeta_res", "dalpha", "dx", "dwp", "dbp", "mt", "g_buf", "t_buf",
         "r_buf", "dpre_buf", "dg_buf", "part", "dalpha_part", "consts", "gpart", "prod_buf",
-        "splits_w", "splits_w_res", "splits_m", "splits_wp")
-_PRODUCT = ("form", "p", "q", "n", "k", "a", "b", "splits", "part", "out")
+        "splits_w", "splits_w_res", "splits_m", "splits_wp", "dtype")
+_PRODUCT = ("form", "p", "q", "n", "k", "a", "b", "splits", "part", "out", "dtype")
 PRODUCT_FORMS = ("rows", "windows")  # the order of csrc/stse_train.cu's ProductForm
 _MONO_HEADER = ("n_layers", "batch", "n_nodes", "ghost", "latent", "chunk", "x", "dz", "wp",
                 "dwp", "dbp", "splits_wp", "chunk_dwp", "t_buf", "r_buf", "dpre_buf", "g_buf",
-                "dg_buf", "dy_buf", "part", "block_sums", "consts", "prod_buf")
+                "dg_buf", "dy_buf", "part", "block_sums", "consts", "prod_buf", "dtype")
 
 
 class LayerOps(NamedTuple):
@@ -165,6 +181,64 @@ def detached(ops: EncoderOps, dtype: Optional[torch.dtype] = None) -> EncoderOps
 # --------------------------------------------------------------------------
 
 
+def _dtype_index(compute_dtype: str) -> int:
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {compute_dtype!r} is not one of {COMPUTE_DTYPES}")
+    return COMPUTE_DTYPES.index(compute_dtype)
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (round to nearest even), in t's dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+class _Bf16Einsum(torch.autograd.Function):
+    """einsum(spec, a, b) with bf16 operands both ways, as a kernel's
+    product under a bf16 form: forward from a and b rounded, backward from
+    the rounded operands and the rounded incoming gradient (each product of
+    bf16 values exact, the sums in the operands' dtype)."""
+
+    @staticmethod
+    def forward(ctx, spec, a, b):
+        ar, br = _bf16(a), _bf16(b)
+        ctx.spec = spec
+        ctx.save_for_backward(ar, br)
+        return torch.einsum(spec, ar, br)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ar, br = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            da, db = torch.autograd.grad(torch.einsum(ctx.spec, ar, br), (ar, br), _bf16(grad))
+        return None, da, db
+
+
+class _Bf16Grad(torch.autograd.Function):
+    """The identity forward; the gradient rounded to bf16."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _bf16(grad)
+
+
+def _stored(x: torch.Tensor, store_bf16: bool, forward: bool = True,
+            backward: bool = True) -> torch.Tensor:
+    """x as a kernel stores it: rounded to bf16 under the "bfloat16" form,
+    in the forward value, the gradient that reaches it, or both."""
+    if not store_bf16:
+        return x
+    if forward and backward:
+        return _bf16(x)
+    return x + (_bf16(x) - x).detach() if forward else _Bf16Grad.apply(x)
+
+
+_bf16_einsum = _Bf16Einsum.apply
+
+
 def _ghost_bn(h: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor):
     """BatchNorm over the rows of each block, biased variance (flax's
     formula). h: [n_blocks, rows, C]. Returns (y, mean, var), mean and var
@@ -176,7 +250,8 @@ def _ghost_bn(h: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor):
 
 
 def ghost_layer_reference(x: torch.Tensor, lay: LayerOps, ghost_size: int,
-                          positive: Optional[torch.Tensor] = None):
+                          positive: Optional[torch.Tensor] = None,
+                          compute_dtype: str = "float32"):
     """One ST-GCNN layer with ghost BatchNorm. x: [B, N, C_in] node-major.
 
     Returns (y [B, N, C_out], stats [n_blocks, 4, C_out] = (t_mean,
@@ -188,42 +263,68 @@ def ghost_layer_reference(x: torch.Tensor, lay: LayerOps, ghost_size: int,
     place of pre >= 0: at a pre-activation within rounding of 0 the branch
     (and so the derivative) is a coin toss between two roundings, so a check
     that holds a kernel's backward to this version passes the branches the
-    kernel's own forward took."""
+    kernel's own forward took.
+
+    Under a bf16 `compute_dtype` the products have bf16 operands both ways
+    and, under "bfloat16", x (and dx), g, t, r, y (and dy) and dpre are
+    rounded as the kernels store them (see the module's docstring)."""
     b, n, ci = x.shape
     co = lay.w.shape[1]
     nb = b // ghost_size
-    g = torch.einsum("bnc,nm->bmc", x, lay.m)
-    t = (g @ lay.w + lay.b).reshape(nb, ghost_size * n, co)
+    ops_bf16 = _dtype_index(compute_dtype) > 0
+    store_bf16 = compute_dtype == "bfloat16"
+    if ops_bf16:
+        x = _stored(x, store_bf16)
+        g = _stored(_bf16_einsum("bnc,nm->bmc", x, lay.m), store_bf16, backward=False)
+        t = _stored(_bf16_einsum("bnc,co->bno", g, lay.w) + lay.b, store_bf16, backward=False)
+    else:
+        g = torch.einsum("bnc,nm->bmc", x, lay.m)
+        t = g @ lay.w + lay.b
+    t = t.reshape(nb, ghost_size * n, co)
     tn, t_mean, t_var = _ghost_bn(t, lay.gamma, lay.beta)
     if lay.identity:
         r = x.reshape(nb, ghost_size * n, ci)
         rn, r_mean, r_inv = r, torch.zeros_like(t_mean), torch.ones_like(t_mean)
     else:
-        r = (x @ lay.w_res + lay.b_res).reshape(nb, ghost_size * n, co)
+        if ops_bf16:
+            r = _stored(_bf16_einsum("bnc,co->bno", x, lay.w_res) + lay.b_res, store_bf16,
+                        backward=False)
+        else:
+            r = x @ lay.w_res + lay.b_res
+        r = r.reshape(nb, ghost_size * n, co)
         rn, r_mean, r_var = _ghost_bn(r, lay.gamma_res, lay.beta_res)
         r_inv = torch.rsqrt(r_var + BN_EPS)
-    pre = tn + rn
+    pre = _stored(tn + rn, store_bf16, forward=False)  # dpre rounded
     branch = pre >= 0 if positive is None else positive.reshape(pre.shape)
-    y = torch.where(branch, pre, lay.alpha * pre).reshape(b, n, co)
+    y = _stored(torch.where(branch, pre, lay.alpha * pre).reshape(b, n, co), store_bf16)
     stats = torch.stack([t_mean, torch.rsqrt(t_var + BN_EPS), r_mean, r_inv], dim=1)
     sums = torch.stack([t.sum((0, 1)), (t * t).sum((0, 1)), r.sum((0, 1)),
                         (r * r).sum((0, 1))])
     return y, stats, sums
 
 
-def ghost_forward_reference(x: torch.Tensor, ops: EncoderOps, ghost_size: int):
+def ghost_forward_reference(x: torch.Tensor, ops: EncoderOps, ghost_size: int,
+                            compute_dtype: str = "float32"):
     """K2's plain version. x: [B, N, C_in] -> (z [B, latent], sums per layer
     [4, C_out], acts per layer [B, N, C_out], stats per layer [n_blocks, 4,
     C_out])."""
     sums, acts, stats = [], [], []
     h = x
     for lay in ops.layers:
-        h, st, s = ghost_layer_reference(h, lay, ghost_size)
+        h, st, s = ghost_layer_reference(h, lay, ghost_size, compute_dtype=compute_dtype)
         acts.append(h)
         stats.append(st)
         sums.append(s)
-    z = h.reshape(h.shape[0], -1) @ ops.wp + ops.bp
-    return z, sums, acts, stats
+    return _project(h, ops.wp, ops.bp, compute_dtype), sums, acts, stats
+
+
+def _project(h: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor,
+             compute_dtype: str) -> torch.Tensor:
+    """z = h_flat wp + bp, the products' operands bf16 under a bf16 form."""
+    flat = h.reshape(h.shape[0], -1)
+    if _dtype_index(compute_dtype) > 0:
+        return _bf16_einsum("bk,kl->bl", flat, wp) + bp
+    return flat @ wp + bp
 
 
 def ghost_encode_reference(ops: EncoderOps, x: torch.Tensor, ghost_size: int):
@@ -258,13 +359,14 @@ def _grads_through(fn, inputs: Sequence[Optional[torch.Tensor]], grad_out: torch
 
 def layer_backward_reference(x: torch.Tensor, dy: torch.Tensor, lay: LayerOps,
                              ghost_size: int, need_dx: bool = True,
-                             positive: Optional[torch.Tensor] = None):
+                             positive: Optional[torch.Tensor] = None,
+                             compute_dtype: str = "float32"):
     """K3's plain version: autograd through the ghost layer from its saved
     input. Returns (LayerOps of gradients, dx or None). `positive`: see
     `ghost_layer_reference`."""
 
     def fn(xx, *ops):
-        return ghost_layer_reference(xx, LayerOps(*ops), ghost_size, positive)[0]
+        return ghost_layer_reference(xx, LayerOps(*ops), ghost_size, positive, compute_dtype)[0]
 
     grads = _grads_through(fn, [x, *lay], dy)
     return LayerOps(*grads[1:]), grads[0] if need_dx else None
@@ -272,22 +374,23 @@ def layer_backward_reference(x: torch.Tensor, dy: torch.Tensor, lay: LayerOps,
 
 def top_backward_reference(x: torch.Tensor, dz: torch.Tensor, lay: LayerOps,
                            wp: torch.Tensor, bp: torch.Tensor, ghost_size: int,
-                           need_dx: bool = True, positive: Optional[torch.Tensor] = None):
+                           need_dx: bool = True, positive: Optional[torch.Tensor] = None,
+                           compute_dtype: str = "float32"):
     """K4's plain version: autograd through the top ghost layer and the
     projector. Returns (LayerOps of gradients, dwp, dbp, dx or None).
     `positive`: see `ghost_layer_reference`."""
 
     def fn(xx, wpp, bpp, *ops):
-        y = ghost_layer_reference(xx, LayerOps(*ops), ghost_size, positive)[0]
-        return y.reshape(y.shape[0], -1) @ wpp + bpp
+        y = ghost_layer_reference(xx, LayerOps(*ops), ghost_size, positive, compute_dtype)[0]
+        return _project(y, wpp, bpp, compute_dtype)
 
     grads = _grads_through(fn, [x, wp, bp, *lay], dz)
     return LayerOps(*grads[3:]), grads[1], grads[2], grads[0] if need_dx else None
 
 
 def mono_backward_reference(x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps,
-                            ghost_size: int, positive: Optional[Sequence[torch.Tensor]] = None
-                            ) -> EncoderOps:
+                            ghost_size: int, positive: Optional[Sequence[torch.Tensor]] = None,
+                            compute_dtype: str = "float32") -> EncoderOps:
     """K5's plain version: the forward recomputed from x [B, N, C_in], then
     autograd of <z, dz> into every operand. Returns an EncoderOps of
     gradients (None where the operand is None); x gets none, it is data.
@@ -301,18 +404,22 @@ def mono_backward_reference(x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps,
         o = _unflatten(flat, n_layers)
         h = x
         for lay, branch in zip(o.layers, branches):
-            h = ghost_layer_reference(h, lay, ghost_size, branch)[0]
-        return h.reshape(h.shape[0], -1) @ o.wp + o.bp
+            h = ghost_layer_reference(h, lay, ghost_size, branch, compute_dtype)[0]
+        return _project(h, o.wp, o.bp, compute_dtype)
 
     return _unflatten(_grads_through(fn, _flatten(ops), dz), n_layers)
 
 
-def product_reference(form: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def product_reference(form: str, a: torch.Tensor, b: torch.Tensor,
+                      compute_dtype: str = "float32") -> torch.Tensor:
     """One batch-reduction product, plain, in the operands' dtype: "rows"
     sums a[r, p] b[r, q] over rows r (dW = g^T dt and dW_res = x^T dr over
     B * N rows, dwp = y_flat^T dz over B windows); "windows" sums
     a[w, p, k] b[w, q, k] over windows w and channels k (dM = sum over
-    windows of x dg^T, a and b [B, N, C_in])."""
+    windows of x dg^T, a and b [B, N, C_in]). Under a bf16 form the operands
+    are rounded to bf16 first."""
+    if _dtype_index(compute_dtype) > 0:
+        a, b = _bf16(a), _bf16(b)
     if form == "rows":
         return torch.einsum("rp,rq->pq", a, b)
     if form == "windows":
@@ -398,10 +505,11 @@ def _run(lib, fn: str, desc: np.ndarray, device) -> None:
         raise RuntimeError(f"{fn} launch failed: {lib.stse_train_error_string(err).decode()}")
 
 
-def launch_forward(lib, x: torch.Tensor, ops: EncoderOps, ghost_size: int):
+def launch_forward(lib, x: torch.Tensor, ops: EncoderOps, ghost_size: int,
+                   compute_dtype: str = "float32"):
     """Run K2 from `lib` on x [B, N, C_in] (the device's tensors, or host
-    tensors for the CUDA source compiled on the host). Same returns as
-    `ghost_forward_reference`."""
+    tensors for the CUDA source compiled on the host) in `compute_dtype`.
+    Same returns as `ghost_forward_reference`."""
     b, n, c0 = x.shape
     dev = x.device
     if b % ghost_size or b < 1:
@@ -425,7 +533,8 @@ def launch_forward(lib, x: torch.Tensor, ops: EncoderOps, ghost_size: int):
     block_sums = torch.empty((b // ghost_size * 4 * cmax,), **f32)
     acts, stats, sums = [], [], []
     desc = [len(layers), b, n, ghost_size, latent, _ptr(x), _ptr(wp), _ptr(bp), _ptr(z),
-            _ptr(t_buf), _ptr(r_buf), _ptr(part), _ptr(block_sums), z_splits]
+            _ptr(t_buf), _ptr(r_buf), _ptr(part), _ptr(block_sums), z_splits,
+            _dtype_index(compute_dtype)]
     for lay in layers:
         ci, co = lay.w.shape
         acts.append(torch.empty((b, n, co), **f32))
@@ -487,11 +596,12 @@ def partials(*products: Tuple[int, int]) -> int:
 
 def launch_backward(lib, x: torch.Tensor, y: torch.Tensor, stats: torch.Tensor, lay: LayerOps,
                     ghost_size: int, need_dx: bool, dy: Optional[torch.Tensor] = None,
-                    dz: Optional[torch.Tensor] = None, wp: Optional[torch.Tensor] = None):
+                    dz: Optional[torch.Tensor] = None, wp: Optional[torch.Tensor] = None,
+                    compute_dtype: str = "float32"):
     """Run K3 (dy given) or K4 (dz and wp given) from `lib` on the layer's
     input x and output y (K2's: the backward takes PReLU's branch from its
-    sign). Returns (LayerOps of gradients, dwp, dbp, dx); dwp and dbp are
-    None for K3 and dx is None unless need_dx."""
+    sign) in `compute_dtype`. Returns (LayerOps of gradients, dwp, dbp, dx);
+    dwp and dbp are None for K3 and dx is None unless need_dx."""
     b, n, ci = x.shape
     dev = x.device
     top = dz is not None
@@ -536,7 +646,7 @@ def launch_backward(lib, x: torch.Tensor, y: torch.Tensor, stats: torch.Tensor, 
         **{f: _ptr(getattr(lay, f)) for f in LayerOps._fields},
         **{"d" + f: _ptr(getattr(grads, f)) for f in LayerOps._fields},
         **{k: _ptr(v) for k, v in scratch.items()},
-        **{f"splits_{k}": v for k, v in splits.items()})
+        **{f"splits_{k}": v for k, v in splits.items()}, dtype=_dtype_index(compute_dtype))
     desc = np.asarray([fields[f] for f in _BWD], np.int64)
     _run(lib, "stse_train_top_backward" if top else "stse_train_layer_backward", desc, dev)
     return grads, dwp, dbp, dx
@@ -555,9 +665,10 @@ def _product_shape(form: str, a: torch.Tensor, b: torch.Tensor):
 
 
 def launch_product(lib, form: str, a: torch.Tensor, b: torch.Tensor,
-                   splits: Optional[int] = None) -> torch.Tensor:
+                   splits: Optional[int] = None, compute_dtype: str = "float32") -> torch.Tensor:
     """Run one batch-reduction product from `lib` (see `product_reference`)
-    with the kernel K3, K4 and K5 use; `splits` overrides `product_splits`."""
+    with the kernel K3, K4 and K5 use, in `compute_dtype`'s operand
+    precision; `splits` overrides `product_splits`."""
     p, q, n, k = _product_shape(form, a, b)
     dev = a.device
     a = _checked(a, dev, a.shape, "a")
@@ -567,7 +678,8 @@ def launch_product(lib, form: str, a: torch.Tensor, b: torch.Tensor,
     out = torch.empty((p, q), **f32)
     part = torch.empty((splits * p * q,), **f32) if splits > 1 else None
     fields = dict(form=PRODUCT_FORMS.index(form), p=p, q=q, n=n, k=k, a=_ptr(a), b=_ptr(b),
-                  splits=splits, part=_ptr(part), out=_ptr(out))
+                  splits=splits, part=_ptr(part), out=_ptr(out),
+                  dtype=_dtype_index(compute_dtype))
     _run(lib, "stse_train_product", np.asarray([fields[f] for f in _PRODUCT], np.int64), dev)
     return out
 
@@ -621,10 +733,11 @@ def mono_workspace(ops: EncoderOps, n: int, chunk: int, ghost_size: int) -> dict
 
 
 def launch_mono_backward(lib, x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps,
-                         ghost_size: int, chunk_windows: Optional[int] = None) -> EncoderOps:
-    """Run K5 from `lib` on x [B, N, C_in] and dz [B, latent]: every
-    operand's gradient, the forward recomputed chunk by chunk (`mono_chunk`).
-    Same return as `mono_backward_reference`."""
+                         ghost_size: int, chunk_windows: Optional[int] = None,
+                         compute_dtype: str = "float32") -> EncoderOps:
+    """Run K5 from `lib` on x [B, N, C_in] and dz [B, latent] in
+    `compute_dtype`: every operand's gradient, the forward recomputed chunk
+    by chunk (`mono_chunk`). Same return as `mono_backward_reference`."""
     b, n, c0 = x.shape
     dev = x.device
     if b % ghost_size or b < 1:
@@ -674,6 +787,7 @@ def launch_mono_backward(lib, x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps
     header = dict(n_layers=len(layers), batch=b, n_nodes=n, ghost=ghost_size, latent=latent,
                   chunk=chunk, x=_ptr(x), dz=_ptr(dz), wp=_ptr(wp), dwp=_ptr(dwp), dbp=_ptr(dbp),
                   splits_wp=splits_wp, chunk_dwp=_ptr(chunk_dwp), prod_buf=_ptr(prod_buf),
+                  dtype=_dtype_index(compute_dtype),
                   **{k: _ptr(ws[k]) for k in ("t_buf", "r_buf", "dpre_buf", "g_buf", "dg_buf",
                                               "dy_buf", "part", "block_sums", "consts")})
     desc = np.asarray([header[f] for f in _MONO_HEADER] + rows, np.int64)
@@ -694,61 +808,66 @@ def _route(x: torch.Tensor) -> bool:
     return False
 
 
-def ghost_forward(x: torch.Tensor, ops: EncoderOps, ghost_size: int):
+def ghost_forward(x: torch.Tensor, ops: EncoderOps, ghost_size: int,
+                  compute_dtype: str = "float32"):
     """K2: x [B, N, C_in] -> (z, sums, acts, stats), see
     `ghost_forward_reference`."""
     if _route(x):
         with torch.no_grad():
-            out = launch_forward(_library(), x, ops, ghost_size)
+            out = launch_forward(_library(), x, ops, ghost_size, compute_dtype)
         forward_launches.value += 1
         return out
-    return ghost_forward_reference(x, ops, ghost_size)
+    return ghost_forward_reference(x, ops, ghost_size, compute_dtype)
 
 
 def layer_backward(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor, lay: LayerOps,
-                   stats: torch.Tensor, ghost_size: int, need_dx: bool = True):
+                   stats: torch.Tensor, ghost_size: int, need_dx: bool = True,
+                   compute_dtype: str = "float32"):
     """K3: one lower layer's backward from its saved input x, output y and
     block statistics. Returns (LayerOps of gradients, dx or None). The
     plain version recomputes y, bit for bit what the plain forward gave."""
     if _route(x):
         with torch.no_grad():
             grads, _, _, dx = launch_backward(_library(), x, y, stats, lay, ghost_size, need_dx,
-                                              dy=dy)
+                                              dy=dy, compute_dtype=compute_dtype)
         layer_backward_launches.value += 1
         return grads, dx
-    return layer_backward_reference(x, dy, lay, ghost_size, need_dx)
+    return layer_backward_reference(x, dy, lay, ghost_size, need_dx,
+                                    compute_dtype=compute_dtype)
 
 
 def top_backward(x: torch.Tensor, y_top: torch.Tensor, dz: torch.Tensor, lay: LayerOps,
                  stats: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor, ghost_size: int,
-                 need_dx: bool = True):
+                 need_dx: bool = True, compute_dtype: str = "float32"):
     """K4: the top layer's backward with the projector's. Returns (LayerOps
     of gradients, dwp, dbp, dx or None)."""
     if _route(x):
         with torch.no_grad():
             out = launch_backward(_library(), x, y_top, stats, lay, ghost_size, need_dx, dz=dz,
-                                  wp=wp)
+                                  wp=wp, compute_dtype=compute_dtype)
         top_backward_launches.value += 1
         return out
-    return top_backward_reference(x, dz, lay, wp, bp, ghost_size, need_dx)
+    return top_backward_reference(x, dz, lay, wp, bp, ghost_size, need_dx,
+                                  compute_dtype=compute_dtype)
 
 
-def product(form: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def product(form: str, a: torch.Tensor, b: torch.Tensor,
+            compute_dtype: str = "float32") -> torch.Tensor:
     """One batch-reduction product alone, as K3, K4 and K5 run it inside
     (see `product_reference` for the forms): checked and timed on its own by
     chip_smoke.py. On a CPU tensor, the plain version."""
     if _route(a):
         with torch.no_grad():
-            out = launch_product(_library(), form, a, b)
+            out = launch_product(_library(), form, a, b, compute_dtype=compute_dtype)
         product_launches.value += 1
         return out
     _product_shape(form, a, b)
-    return product_reference(form, a, b)
+    return product_reference(form, a, b, compute_dtype)
 
 
 def split_backward(x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps,
                    acts: Sequence[torch.Tensor], stats: Sequence[torch.Tensor],
-                   ghost_size: int) -> EncoderOps:
+                   ghost_size: int, compute_dtype: str = "float32") -> EncoderOps:
     """The split backward: K4 for the top layer, then K3 down the stack,
     from K2's activations and block statistics. Returns an EncoderOps of
     gradients, as `mono_backward`."""
@@ -757,40 +876,43 @@ def split_backward(x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps,
     d_layers = [None] * (top + 1)
     d_layers[top], dwp, dbp, dy = top_backward(x_in[top], acts[top], dz, ops.layers[top],
                                                stats[top], ops.wp, ops.bp, ghost_size,
-                                               need_dx=top > 0)
+                                               need_dx=top > 0, compute_dtype=compute_dtype)
     for l in reversed(range(top)):
         d_layers[l], dy = layer_backward(x_in[l], acts[l], dy, ops.layers[l], stats[l],
-                                         ghost_size, need_dx=l > 0)
+                                         ghost_size, need_dx=l > 0, compute_dtype=compute_dtype)
     return EncoderOps(tuple(d_layers), dwp, dbp)
 
 
 def mono_backward(x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps, ghost_size: int,
-                  chunk_windows: Optional[int] = None) -> EncoderOps:
+                  chunk_windows: Optional[int] = None,
+                  compute_dtype: str = "float32") -> EncoderOps:
     """K5: every operand's gradient from x [B, N, C_in] and dz [B, latent]
     alone, the forward recomputed one chunk of ghost blocks at a time
     (`mono_chunk`). x gets none: it is data."""
     if _route(x):
         with torch.no_grad():
-            out = launch_mono_backward(_library(), x, dz, ops, ghost_size, chunk_windows)
+            out = launch_mono_backward(_library(), x, dz, ops, ghost_size, chunk_windows,
+                                       compute_dtype)
         mono_backward_launches.value += 1
         return out
-    return mono_backward_reference(x, dz, ops, ghost_size)
+    return mono_backward_reference(x, dz, ops, ghost_size, compute_dtype=compute_dtype)
 
 
 class FusedGhostEncode(torch.autograd.Function):
     """Ghost-BN STSE encode (the port of `fused_ghost_encode`).
-    forward(x [B, N, C_in], ghost_size, n_layers, bwd_mode, *flat operands:
-    N_LAYER_OPS per layer then wp, bp) -> (z, *per-layer sums). The sums
+    forward(x [B, N, C_in], ghost_size, n_layers, bwd_mode, compute_dtype, *flat
+    operands: N_LAYER_OPS per layer then wp, bp) -> (z, *per-layer sums). The sums
     carry no gradient, and x gets none: it is data. bwd_mode "split" saves
     K2's activations and block statistics for K4 then K3; "mono" (:1089-1104)
     saves only x and the operands, and K5 recomputes the rest from x."""
 
     @staticmethod
-    def forward(ctx, x, ghost_size, n_layers, bwd_mode, *flat):
+    def forward(ctx, x, ghost_size, n_layers, bwd_mode, compute_dtype, *flat):
         ops = _unflatten(flat, n_layers)
-        z, sums, acts, stats = ghost_forward(x, ops, ghost_size)
+        z, sums, acts, stats = ghost_forward(x, ops, ghost_size, compute_dtype)
         kept = (*acts, *stats) if bwd_mode == "split" else ()
         ctx.ghost_size, ctx.n_layers, ctx.bwd_mode = ghost_size, n_layers, bwd_mode
+        ctx.compute_dtype = compute_dtype
         ctx.save_for_backward(x, *kept, *(t for t in flat if t is not None))
         ctx.present = [t is not None for t in flat]
         ctx.mark_non_differentiable(*sums)
@@ -806,11 +928,11 @@ class FusedGhostEncode(torch.autograd.Function):
         rest = iter(saved)
         ops = _unflatten([next(rest) if p else None for p in ctx.present], n_layers)
         if ctx.bwd_mode == "split":
-            d_ops = split_backward(x, dz, ops, acts, stats, ctx.ghost_size)
+            d_ops = split_backward(x, dz, ops, acts, stats, ctx.ghost_size, ctx.compute_dtype)
         else:
-            d_ops = mono_backward(x, dz, ops, ctx.ghost_size)
+            d_ops = mono_backward(x, dz, ops, ctx.ghost_size, compute_dtype=ctx.compute_dtype)
         grads = [None if not p else g for g, p in zip(_flatten(d_ops), ctx.present)]
-        return (None, None, None, None, *grads)
+        return (None, None, None, None, None, *grads)
 
 
 def _flatten(ops: EncoderOps) -> List[Optional[torch.Tensor]]:
@@ -848,32 +970,36 @@ def fused_stse_apply(model, x: torch.Tensor, ghost_size: int = 32, momentum: flo
     [B, latent], differentiable in the model's parameters. Updates the
     model's BN running statistics in place from the exact full-batch sums.
     x gets no gradient (it is data). bwd_mode "split" keeps every layer's
-    activations for K3/K4; "mono" keeps only x and recomputes them in K5."""
+    activations for K3/K4; "mono" keeps only x and recomputes them in K5.
+    compute_dtype is one of COMPUTE_DTYPES (see the module's docstring);
+    under a bf16 form x is rounded to bf16 here, as JAX casts x_t (:1152)."""
     if bwd_mode not in ("split", "mono"):
         raise ValueError(f"unknown bwd_mode {bwd_mode!r}")
-    if compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {compute_dtype!r} is not ported yet (ROADMAP.md, Queue 2 item 6)")
+    bf16 = _dtype_index(compute_dtype) > 0
     b, c, t, v = x.shape
     if b % ghost_size:
         raise ValueError(f"batch {b} is not a multiple of ghost_size {ghost_size}")
     ops = encoder_ops(model)
-    x_nodes = x.detach().permute(0, 2, 3, 1).reshape(b, t * v, c).contiguous()
+    x_nodes = x.detach().permute(0, 2, 3, 1).reshape(b, t * v, c)
+    x_nodes = (_bf16(x_nodes) if bf16 else x_nodes).contiguous()
     z, *sums = FusedGhostEncode.apply(x_nodes, ghost_size, len(ops.layers), bwd_mode,
-                                      *_flatten(ops))
+                                      compute_dtype, *_flatten(ops))
     update_running_stats(model, sums, b * t * v, momentum)
     return z
 
 
-def work(ops: EncoderOps, batch: int, ghost_size: int) -> dict:
+def work(ops: EncoderOps, batch: int, ghost_size: int, compute_dtype: str = "float32") -> dict:
     """(FLOPs, bytes, product FLOPs, per-window FLOPs) that K2, each K3
     layer and K4 need for `batch` windows: every input read once and every
     output written once. The third is the share of the FLOPs in the
     batch-reduction products (`products`), the fourth the rest of K3's, K4's
-    and K5's (graph contractions, dense products, dy = dz wp^T): both run as
-    3xTF32 on the tensor cores. All of K2's FLOPs are per-window (g, t, r
-    and the projector), on the tensor cores too: its third is 0, its fourth
-    its first. K2 reads
+    and K5's (graph contractions, dense products, dy = dz wp^T): both run on
+    the tensor cores (3xTF32, or bf16 operands under a bf16 form). All of
+    K2's FLOPs are per-window (g, t, r and the projector), on the tensor
+    cores too: its third is 0, its fourth its first. Bytes count the input
+    windows at 2 under a bf16 form (they are cast to bf16), activations, dy
+    and dx at the store dtype (2 under "bfloat16"), the rest (weights,
+    gradients, statistics, z, dz) at 4. K2 reads
     x and the weights and writes z, the activations, block statistics and
     sums. A layer's backward reads x, dy (K4: dz, its output and wp) and
     the weights, and writes dx (not for layer 0), the weight gradients.
@@ -888,18 +1014,20 @@ def work(ops: EncoderOps, batch: int, ghost_size: int) -> dict:
     n = ops.layers[0].m.shape[0]
     latent = ops.wp.shape[1]
     nb = batch // ghost_size
+    xb = 2.0 if _dtype_index(compute_dtype) > 0 else 4.0  # bytes of an input value
+    ab = 2.0 if compute_dtype == "bfloat16" else 4.0  # of a stored activation, dy, dx
     prod = {}
     for pr in products(ops, batch):
         prod[pr["key"]] = prod.get(pr["key"], 0.0) + pr["flops"]
     out = {}
     mono_flops, mono_weights = 0.0, 0.0
-    fwd_flops, fwd_bytes = 0.0, 4.0 * batch * n * ops.layers[0].w.shape[0]
+    fwd_flops, fwd_bytes = 0.0, xb * batch * n * ops.layers[0].w.shape[0]
     for i, lay in enumerate(ops.layers):
         ci, co = lay.w.shape
         dense = 2.0 * n * ci * co * (1 if lay.identity else 2)
         weights = n * n + ci * co * (1 if lay.identity else 2) + 4 * co + 1
         fwd_flops += batch * (2.0 * n * n * ci + dense)
-        fwd_bytes += 4.0 * (weights + batch * n * co + nb * 4 * co + 4 * co)
+        fwd_bytes += 4.0 * (weights + nb * 4 * co + 4 * co) + ab * batch * n * co
         top = i == len(ops.layers) - 1
         need_dx = i > 0
         mm, res = 2.0 * n * ci * co, 0 if lay.identity else 1
@@ -909,12 +1037,15 @@ def work(ops: EncoderOps, batch: int, ghost_size: int) -> dict:
                          + mm * (2 * (1 + res) + 1 + (res if need_dx else 0)))
         mono_flops += flops  # the forward once, then the backward: K5's too
         mono_weights += weights
-        nbytes = 4.0 * (batch * n * ci * (2 if need_dx else 1) + 2 * weights + nb * 4 * co)
+        x_in = xb if i == 0 else ab
+        nbytes = (x_in * batch * n * ci + (ab * batch * n * ci if need_dx else 0.0)
+                  + 4.0 * (2 * weights + nb * 4 * co))
         if top:
             flops += batch * 2.0 * 2.0 * n * co * latent  # dy = dz wp^T and dwp
-            nbytes += 4.0 * (batch * latent + batch * n * co + 2 * n * co * latent + latent)
+            nbytes += (4.0 * (batch * latent + 2 * n * co * latent + latent)
+                       + ab * batch * n * co)
         else:
-            nbytes += 4.0 * batch * n * co  # dy
+            nbytes += ab * batch * n * co  # dy
         key = "K4" if top else f"K3_layer{i}"
         out[key] = (flops, nbytes, prod[key], flops - prod[key])
     c_h = ops.layers[-1].w.shape[1]
@@ -923,7 +1054,7 @@ def work(ops: EncoderOps, batch: int, ghost_size: int) -> dict:
     out["K2"] = (fwd_flops, fwd_bytes, 0.0, fwd_flops)
     proj = n * c_h * latent + latent
     k5_flops = mono_flops + batch * 2.0 * 2.0 * n * c_h * latent
-    out["K5"] = (k5_flops, 4.0 * (batch * n * ops.layers[0].w.shape[0] + batch * latent
-                                  + 2 * (mono_weights + proj)),
+    out["K5"] = (k5_flops, xb * batch * n * ops.layers[0].w.shape[0]
+                 + 4.0 * (batch * latent + 2 * (mono_weights + proj)),
                  sum(prod.values()), k5_flops - sum(prod.values()))
     return out

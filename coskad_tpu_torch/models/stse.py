@@ -5,19 +5,28 @@ and the linear or the MLP projector. I/O is the reference's NCTV layout
 [B, C, T, V]; the projector reads the hidden state flattened in (T, V, C)
 order.
 
-The eval forward takes one of two routes by the input's device:
-  * CUDA: the fused encoder kernel (`kernels/stse_fused.py`) on weights
-    folded once and cached until a parameter or buffer changes, then the
-    projector module (the linear one is one matmul, the MLP one runs in
-    eval mode); the kernel has no backward, so this route raises where
-    autograd would record it (`eval_uses_kernel`);
-  * CPU: the plain module path, layer by layer.
+The eval forward takes one of two routes (`eval_uses_kernel`):
+  * the fused encoder kernel K1 (`kernels/stse_fused.py`), for an input on
+    the card, compute dtype float32 and a layout K1's planner takes
+    (`STSE.kernel_takes`): weights folded once and cached until a parameter
+    or buffer changes, then the projector module (the linear one is one
+    matmul, the MLP one runs in eval mode); the kernel has no backward, so
+    this route raises where autograd would record it;
+  * the module path, layer by layer, everywhere else: on the CPU, at bf16
+    (as JAX's eval is XLA over its modules; its K1 is float32 only), and on
+    the card for a layout K1 refuses (more than 8 layers, more than 64
+    channels a layer, activations past a block's shared memory).
 The train forward (`train=True`) is the module path with live BatchNorm,
 which updates the running statistics in place (see `stsgcn.py`), or with
 running statistics under `frozen_bn`. The MLP head's BatchNorm is live in
 every train forward, `frozen_bn` or not: the JAX model passes the head
 `train` alone. The ghost-BN train path through the K2-K4 kernels is
 `kernels/stse_train.py::fused_stse_apply` (linear projector only).
+
+`dtype` is the JAX model's compute dtype (`models/stsgcn.py`): the encoder
+and the linear projector round where JAX casts, the latent is float32; the
+MLP head is built without it, as in JAX, and computes in float32 on the
+encoder's float32 output.
 """
 
 from __future__ import annotations
@@ -31,13 +40,15 @@ from ..kernels import stse_fused
 from .stsgcn import _DROPOUT, Dense, MLPHead, STSGCNStack
 
 
-def eval_uses_kernel(on_cuda: bool, tensors: Iterable[torch.Tensor]) -> bool:
-    """The eval forward's route: True for K1 (x on the card), False for the
-    plain module path (x on the CPU). K1 folds detached weights and writes a
-    fresh tensor, so its latent carries no gradient; on the card, a call
-    that autograd would record (grad mode on and x or a parameter requiring
-    grad) raises rather than return a latent cut from the graph."""
-    if not on_cuda:
+def eval_uses_kernel(for_kernel: bool, tensors: Iterable[torch.Tensor]) -> bool:
+    """The eval forward's route: True for K1 (`for_kernel`: x on the card
+    and a model K1 takes, `STSE.kernel_takes`), False for the module path (x
+    on the CPU, or a compute dtype or layout K1 does not take). K1 folds
+    detached weights and writes a fresh tensor, so its latent carries no
+    gradient; a call bound for K1 that autograd would record (grad mode on
+    and x or a parameter requiring grad) raises rather than return a latent
+    cut from the graph. The module path stays differentiable."""
+    if not for_kernel:
         return False
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
@@ -49,7 +60,8 @@ def eval_uses_kernel(on_cuda: bool, tensors: Iterable[torch.Tensor]) -> bool:
 
 class LinearProjector(Dense):
     """Dense over the hidden state flattened in (T, V, C) order:
-    kernel [T*V*C, latent], bias [latent]."""
+    kernel [T*V*C, latent], bias [latent]; at a bf16 dtype rounded as
+    `Dense` (JAX's `LinearProjector` dot without a preferred type)."""
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         return super().forward(h.reshape(h.shape[0], -1))
@@ -73,18 +85,22 @@ class STSE(nn.Module):
         projector_hidden_layers: Optional[Sequence[int]] = None,
         dropout: float = 0.0,
         use_bias: bool = True,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute dtype {dtype} is neither float32 nor bfloat16")
+        self.dtype = dtype
         if encoder_type.lower() != "sts_gcn":
             raise NotImplementedError(
-                f"encoder {encoder_type!r} is not ported yet (ROADMAP.md, Queue 1 item 3)")
+                f"encoder {encoder_type!r} is not ported yet (ROADMAP.md, Queue 1 item 3c)")
         self.encoder = STSGCNStack(
             input_dim, list(layer_channels) + [hidden_dimension], n_frames,
-            n_joints, use_bias)
+            n_joints, use_bias, dtype)
         flat = hidden_dimension * n_frames * n_joints
         proj = projector.lower()
         if proj == "linear":
-            self.btlnk = LinearProjector(flat, latent_dim, use_bias)
+            self.btlnk = LinearProjector(flat, latent_dim, use_bias, dtype)
         elif proj == "mlp":
             self.btlnk = MLPHead(flat, list(projector_hidden_layers or [latent_dim]),
                                  latent_dim, use_bias)
@@ -93,6 +109,7 @@ class STSE(nn.Module):
         self.dropout = dropout
         self._fold_cache: Optional[Tuple[tuple, stse_fused.FoldedSTSE,
                                          stse_fused.PackedSTSE]] = None
+        self._kernel_takes: Optional[bool] = None
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Re-draw every parameter (torch-default inits, as the JAX package
@@ -110,10 +127,21 @@ class STSE(nn.Module):
         return self._project(h, train), h
 
     def _project(self, h: torch.Tensor, train: bool) -> torch.Tensor:
-        """The projector on the hidden state ([B, T, V, C] or [B, T*V, C])."""
+        """The projector on the hidden state ([B, T, V, C] or [B, T*V, C]).
+        Its rounding points hold the latent in float32 at any dtype."""
         if isinstance(self.btlnk, MLPHead):
             return self.btlnk(h.reshape(h.shape[0], -1), train=train)
         return self.btlnk(h)
+
+    def kernel_takes(self) -> bool:
+        """Whether the eval forward on the card runs K1: compute dtype
+        float32 and a layout K1's planner takes (`stse_fused.takes`, asked
+        once; the layout is fixed at construction). K1 has no bf16 form, and
+        JAX's bf16 eval is XLA over its modules."""
+        if self._kernel_takes is None:
+            self._kernel_takes = (self.dtype == torch.float32
+                                  and stse_fused.takes(self.folded()[1]))
+        return self._kernel_takes
 
     def folded(self) -> Tuple[stse_fused.FoldedSTSE, stse_fused.PackedSTSE]:
         """The kernel's folded and packed weights, rebuilt only when a
@@ -131,7 +159,7 @@ class STSE(nn.Module):
                 frozen_bn: bool = False) -> torch.Tensor:
         if train:
             return self.encode(x, train=True, frozen_bn=frozen_bn)[0]
-        if eval_uses_kernel(x.is_cuda, [x, *self.parameters()]):
+        if eval_uses_kernel(x.is_cuda and self.kernel_takes(), [x, *self.parameters()]):
             folded, packed = self.folded()
             return self._project(stse_fused.fused_stse_hidden(x.contiguous(), folded, packed),
                                  train=False)
@@ -145,7 +173,7 @@ def build_model(use_decoder: bool = False, use_vae: bool = False, **kwargs) -> S
     if use_decoder or use_vae:
         raise NotImplementedError(
             "the autoencoder and VAE variants are not ported yet "
-            "(ROADMAP.md, Queue 1 item 3)")
+            "(ROADMAP.md, Queue 1 item 3a)")
     for k in ("distribution", "kappa_floor", "decoder_channels"):
         kwargs.pop(k, None)
     return STSE(**kwargs)

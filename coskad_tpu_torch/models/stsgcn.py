@@ -22,6 +22,17 @@ Ghost BatchNorm, the fused train path, is `kernels/stse_train.py`. The MLP
 projector (`MLPHead`) runs flax BatchNorm on its hidden layers as it is,
 unfolded: `batch_norm_eval` from the running statistics, `batch_norm_train`
 in train mode.
+
+Compute dtype (`dtype`, the JAX modules' own): parameters stay float32;
+with `torch.bfloat16` every cast of the JAX modules is a rounding point
+(`rounded`): a tensor is rounded to bf16 where JAX casts it and held in
+float32. So each dense or graph product multiplies bf16 values exactly in
+float32 and sums in float32 (JAX's bf16 dot with f32 accumulation), and its
+bf16 result is rounded once; BatchNorm takes its statistics in float32 and
+rounds its output (flax's `BatchNorm(dtype=bfloat16)`); PReLU's slope is a
+float32 parameter, so its output is float32, as jnp's type promotion makes
+it. Held in float32, the module path is one function on the CPU and the
+card (a bf16 `torch.matmul` would accumulate differently on each).
 """
 
 from __future__ import annotations
@@ -35,7 +46,17 @@ from torch import nn
 from ..kernels.stse_fused import combined_graph_matrix
 
 BN_MOMENTUM = 0.9
-_DROPOUT = "dropout in train mode is not ported yet (ROADMAP.md, Queue 1 item 3)"
+_DROPOUT = "dropout in train mode is not ported yet (ROADMAP.md, Queue 1 item 3c)"
+
+
+def rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x rounded to `dtype` (round to nearest even) and held in x's own
+    dtype: the JAX package's `x.astype(dtype)` as a rounding point. Autograd
+    rounds the gradient at the same point, as JAX's cast rounds its
+    cotangent. The identity where `dtype` is float32."""
+    if dtype == torch.float32:
+        return x
+    return x.to(dtype).to(x.dtype)
 
 
 def _uniform_(t: torch.Tensor, bound: float, generator: Optional[torch.Generator]):
@@ -47,12 +68,16 @@ def _uniform_(t: torch.Tensor, bound: float, generator: Optional[torch.Generator
 
 class Dense(nn.Module):
     """y = x @ kernel + bias, kernel [fan_in, features] (flax layout).
-    Init as torch's nn.Linear: U(+-1/sqrt(fan_in)) for kernel and bias."""
+    Init as torch's nn.Linear: U(+-1/sqrt(fan_in)) for kernel and bias.
+    At a bf16 `dtype`, flax's `nn.Dense(dtype=bfloat16)`: the product of the
+    rounded x and kernel rounded, then the rounded bias added and rounded."""
 
-    def __init__(self, fan_in: int, features: int, use_bias: bool = True):
+    def __init__(self, fan_in: int, features: int, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(fan_in, features))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
+        self.dtype = dtype
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -62,8 +87,9 @@ class Dense(nn.Module):
             _uniform_(self.bias, bound, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.kernel
-        return y if self.bias is None else y + self.bias
+        dt = self.dtype
+        y = rounded(rounded(x, dt) @ rounded(self.kernel, dt), dt)
+        return y if self.bias is None else rounded(y + rounded(self.bias, dt), dt)
 
 
 class BatchNorm(nn.Module):
@@ -87,12 +113,15 @@ class BatchNorm(nn.Module):
 
 def dense_bn(x: torch.Tensor, dense: Dense, bn: BatchNorm, eps: float = 1e-5) -> torch.Tensor:
     """BN(x @ kernel + bias) from running statistics, with the BN affine
-    folded into the matmul (`_moment_dense_bn` with use_running=True)."""
+    folded into the matmul (`_moment_dense_bn` with use_running=True); at a
+    bf16 dtype the folded weight and bias, the product and the sum are
+    rounded, as there."""
+    dt = dense.dtype
     inv = bn.scale * torch.rsqrt(bn.var + eps)
     bias = 0.0 if dense.bias is None else dense.bias
-    w_eff = dense.kernel * inv[None, :]
-    b_eff = (bias - bn.mean) * inv + bn.bias
-    return x @ w_eff + b_eff
+    w_eff = rounded(dense.kernel * inv[None, :], dt)
+    b_eff = rounded((bias - bn.mean) * inv + bn.bias, dt)
+    return rounded(rounded(rounded(x, dt) @ w_eff, dt) + b_eff, dt)
 
 
 def batch_norm_eval(h: torch.Tensor, bn: BatchNorm, eps: float = 1e-5) -> torch.Tensor:
@@ -103,17 +132,18 @@ def batch_norm_eval(h: torch.Tensor, bn: BatchNorm, eps: float = 1e-5) -> torch.
 
 
 def batch_norm_train(h: torch.Tensor, bn: BatchNorm, momentum: float = BN_MOMENTUM,
-                     eps: float = 1e-5) -> torch.Tensor:
-    """flax `nn.BatchNorm(use_running_average=False)` over every row of h
-    [..., C]: y = (h - mean) * (rsqrt(var + eps) * scale) + bias with the
-    biased variance. Updates bn's running statistics in place."""
+                     eps: float = 1e-5, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """flax `nn.BatchNorm(use_running_average=False, dtype=dtype)` over
+    every row of h [..., C]: y = (h - mean) * (rsqrt(var + eps) * scale) +
+    bias with the biased variance, the statistics and y in float32, y then
+    rounded to `dtype`. Updates bn's running statistics in place."""
     rows = h.reshape(-1, h.shape[-1])
     mean = rows.mean(dim=0)
     var = torch.clamp((rows * rows).mean(dim=0) - mean * mean, min=0.0)
     with torch.no_grad():
         bn.mean.mul_(momentum).add_((1.0 - momentum) * mean)
         bn.var.mul_(momentum).add_((1.0 - momentum) * var)
-    return (h - mean) * (torch.rsqrt(var + eps) * bn.scale) + bn.bias
+    return rounded((h - mean) * (torch.rsqrt(var + eps) * bn.scale) + bn.bias, dtype)
 
 
 class PReLU(nn.Module):
@@ -135,10 +165,12 @@ class PReLU(nn.Module):
 class SpaceTimeGraphConv(nn.Module):
     """The separable graph contraction in 'combined' mode: one [T*V, T*V]
     matrix M[(t, v), (q, w)] = T[v, t, q] * A[q, v, w] applied over the node
-    axis. [B, T, V, C] -> [B, T, V, C]."""
+    axis. [B, T, V, C] -> [B, T, V, C]. At a bf16 dtype x and M are rounded,
+    summed in float32 and the result rounded."""
 
-    def __init__(self, time_dim: int, joints_dim: int):
+    def __init__(self, time_dim: int, joints_dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.t_adj = nn.Parameter(torch.empty(joints_dim, time_dim, time_dim))
         self.a_adj = nn.Parameter(torch.empty(time_dim, joints_dim, joints_dim))
         self.reset_parameters()
@@ -150,24 +182,28 @@ class SpaceTimeGraphConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, v, c = x.shape
-        m = combined_graph_matrix(self.t_adj, self.a_adj)
-        h = torch.einsum("bnc,nm->bmc", x.reshape(b, t * v, c), m)
-        return h.reshape(b, t, v, c)
+        dt = self.dtype
+        m = rounded(combined_graph_matrix(self.t_adj, self.a_adj), dt)
+        h = torch.einsum("bnc,nm->bmc", rounded(x, dt).reshape(b, t * v, c), m)
+        return rounded(h, dt).reshape(b, t, v, c)
 
 
 class STSGCNLayer(nn.Module):
     """Graph conv -> 1x1 dense + BN, residual (dense + BN when the channel
     count changes, identity otherwise), PReLU. [B, T, V, C_in] ->
-    [B, T, V, C_out]. Dropout is the identity in eval mode."""
+    [B, T, V, C_out]. Dropout is the identity in eval mode. At a bf16 dtype
+    the input, each branch and their sum are rounded (the PReLU's output is
+    float32, its slope a float32 parameter)."""
 
     def __init__(self, in_channels: int, out_channels: int, time_dim: int,
-                 joints_dim: int, use_bias: bool = True):
+                 joints_dim: int, use_bias: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.gcn = SpaceTimeGraphConv(time_dim, joints_dim)
-        self.tcn_dense = Dense(in_channels, out_channels, use_bias)
+        self.dtype = dtype
+        self.gcn = SpaceTimeGraphConv(time_dim, joints_dim, dtype)
+        self.tcn_dense = Dense(in_channels, out_channels, use_bias, dtype)
         self.tcn_bn = BatchNorm(out_channels)
         if in_channels != out_channels:
-            self.residual_dense = Dense(in_channels, out_channels, use_bias)
+            self.residual_dense = Dense(in_channels, out_channels, use_bias, dtype)
             self.residual_bn = BatchNorm(out_channels)
         else:
             self.residual_dense = self.residual_bn = None
@@ -178,13 +214,16 @@ class STSGCNLayer(nn.Module):
         """train: live BatchNorm statistics (running ones updated in place);
         frozen_bn: running statistics while training."""
         live = train and not frozen_bn
+        dt = self.dtype
 
         def bn(h, dense, norm):
-            return batch_norm_train(dense(h), norm) if live else dense_bn(h, dense, norm)
+            return (batch_norm_train(dense(h), norm, dtype=dt) if live
+                    else dense_bn(h, dense, norm))
 
+        x = rounded(x, dt)
         res = x if self.residual_dense is None else bn(x, self.residual_dense, self.residual_bn)
         h = bn(self.gcn(x), self.tcn_dense, self.tcn_bn)
-        return self.prelu(h + res)
+        return self.prelu(rounded(h + res, dt))
 
 
 class STSGCNStack(nn.Module):
@@ -192,12 +231,14 @@ class STSGCNStack(nn.Module):
     schedule (encoder: layer_channels + [hidden_dim])."""
 
     def __init__(self, in_channels: int, channel_schedule: Sequence[int],
-                 time_dim: int, joints_dim: int, use_bias: bool = True):
+                 time_dim: int, joints_dim: int, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_layers = len(channel_schedule)
         c = in_channels
         for i, ch in enumerate(channel_schedule):
-            self.add_module(f"layer_{i}", STSGCNLayer(c, ch, time_dim, joints_dim, use_bias))
+            self.add_module(f"layer_{i}", STSGCNLayer(c, ch, time_dim, joints_dim, use_bias,
+                                                      dtype))
             c = ch
 
     def forward(self, x: torch.Tensor, train: bool = False,

@@ -41,11 +41,10 @@ from .state import TrainState, clamp_center, init_state
 
 
 def model_kwargs_from_config(cfg: Config) -> dict:
-    if cfg.run.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {cfg.run.compute_dtype!r} is not ported yet "
-            "(ROADMAP.md, Queue 1 item 3)")
+    # as the JAX package: the modules' dtype is bf16 for "bfloat16" alone; the
+    # fused path takes the string itself ("bfloat16_f32store" too)
     return dict(
+        dtype=torch.bfloat16 if cfg.run.compute_dtype == "bfloat16" else torch.float32,
         use_decoder=cfg.model.use_decoder,
         use_vae=cfg.model.use_vae,
         input_dim=cfg.model.num_coords,
@@ -281,7 +280,7 @@ class Trainer:
         variant = self.cfg.model.variant
         if variant not in objectives.ENCODER_ONLY:
             raise NotImplementedError(
-                f"{variant} centers are not ported yet (ROADMAP.md, Queue 1 item 3)")
+                f"{variant} centers are not ported yet (ROADMAP.md, Queue 1 item 3a)")
         z = self.embed_all(state, self.train_ds, self.train_data)
         if variant == "hyperbolic":
             z_h = hyp.project(hyp.expmap0(torch.as_tensor(z, device=self.device)))

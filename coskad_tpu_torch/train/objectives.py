@@ -9,7 +9,7 @@ contracts them toward the center by geodesic distance; its center is the
 Einstein midpoint of the epoch's ball points, accumulated batch by batch
 as (sum of gamma x_Klein, sum of gamma), and it scores a window by its
 geodesic distance to the center. The VAE and autoencoder objectives and
-scores come with their variants (ROADMAP.md, Queue 1 item 3).
+scores come with their variants (ROADMAP.md, Queue 1 item 3a).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ ENCODER_ONLY = EUCLIDEAN + ("hyperbolic",)
 
 def _unported(variant: str, what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{variant} {what} is not ported yet (ROADMAP.md, Queue 1 item 3)")
+        f"{variant} {what} is not ported yet (ROADMAP.md, Queue 1 item 3a)")
 
 
 def reg_loss(model: nn.Module) -> torch.Tensor:

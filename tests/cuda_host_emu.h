@@ -4,8 +4,9 @@
 // (x) and blockIdx (x, y) with a dim3 grid, dynamic shared memory and
 // __syncthreads, __nv_bfloat16 with the conversions, compares, products and
 // min the probes use, and the warp-level pieces of the batch-reduction
-// products: __syncwarp, cvt.rna.tf32.f32 (tf32_of), the m16n8k8 TF32 mma
-// (mma_tf32) and cp.async (cp_async16 / cp_async4 as plain copies,
+// products: __syncwarp, cvt.rna.tf32.f32 (tf32_of), cvt.rn.bf16.f32
+// (bf16_bits), the m16n8k8 TF32 mma (mma_tf32) and cp.async (cp_async16 /
+// cp_async4 as plain copies,
 // cp_async_commit / cp_async_wait as no-ops). It defines CUDA_HOST_EMU, under
 // which a kernel source leaves out its inline-PTX versions of those helpers.
 // Each CUDA thread of a block is a std::thread, __syncthreads is a
@@ -127,16 +128,22 @@ inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 #define __align__(n)
 #define __shared__ static
 
-// bf16: the top 16 bits of a float, rounded to nearest even (no NaNs here).
+// bf16: the top 16 bits of a float, rounded to nearest even on the 16
+// dropped ones (a carry past the largest finite value gives infinity); NaN
+// to the canonical 0x7FFF, as cvt.rn.bf16.f32 gives it.
 struct __nv_bfloat16 {
   uint16_t x;
 };
 inline __nv_bfloat16 __float2bfloat16(float f) {
   uint32_t u;
   std::memcpy(&u, &f, 4);
+  if ((u & 0x7F800000u) == 0x7F800000u && (u & 0x7FFFFFu)) return {(uint16_t)0x7FFFu};
   u += 0x7FFF + ((u >> 16) & 1);
   return {(uint16_t)(u >> 16)};
 }
+// cvt.rn.bf16.f32 as the bits of a float (the low 16 bits zero): the
+// operand rounding of tf32_mma.cuh's bf16 products.
+inline uint32_t bf16_bits(float v) { return (uint32_t)__float2bfloat16(v).x << 16; }
 inline float __bfloat162float(__nv_bfloat16 b) {
   const uint32_t u = (uint32_t)b.x << 16;
   float f;

@@ -8,9 +8,11 @@ same model, batches and arithmetic on the CPU); the trained port's AUC
 above 0.6, the plumbing band of tests/test_cli_e2e.py.
 
 The paper's configurations (config/HR-STC/*.yaml) run as shipped, read by
-the port's own YAML reader, with these lines edited: the four paths, the
-widths and batch cut for the CPU, and compute_dtype float32 (the port has
-no bfloat16 module path yet, ROADMAP.md Queue 1 item 3)."""
+the port's own YAML reader, with these lines edited: the four paths and the
+widths and batch cut for the CPU. The port runs their compute_dtype,
+bfloat16, as written; where the JAX package's CLI trains on the CPU the
+file says float32, as XLA on the CPU has no bf16 dot (the bf16 paths are
+held to JAX in tests/test_torch_bf16.py)."""
 
 import os
 import re
@@ -63,8 +65,7 @@ def shipped_config(root, name, **edits):
     return path, os.path.join(root, "checkpoints", "HR-STC", f"stc_{name.split('_')[0]}")
 
 
-CPU_CUT = dict(compute_dtype="float32", channels="[8, 4, 8]", h_dim=16, latent_dim=4,
-               dataset_batch_size=128)
+CPU_CUT = dict(channels="[8, 4, 8]", h_dim=16, latent_dim=4, dataset_batch_size=128)
 
 
 @pytest.mark.parametrize("name", ["hyperbolic_encoder", "euclidean_encoder"])
@@ -76,6 +77,7 @@ def test_shipped_hr_stc_config_trains_resumes_evaluates_and_serves(tmp_path, nam
     cfg_path, ckpt_dir = shipped_config(root, name, **CPU_CUT)
     cfg = load_config(cfg_path)
     assert (cfg.model.projector, cfg.data.n_joints, cfg.data.seg_stride) == ("mlp", 17, 1)
+    assert cfg.run.compute_dtype == "bfloat16"  # as shipped
     assert cfg.model.variant == ("hyperbolic" if name.startswith("hyp") else "euclidean_dynamic")
     if not torch.cuda.is_available():  # the default device is the card, never a fallback
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -98,7 +100,8 @@ def test_shipped_hr_stc_config_trains_resumes_evaluates_and_serves(tmp_path, nam
 def test_port_eval_of_a_jax_hyperbolic_checkpoint_matches_jax_eval(tmp_path):
     """A JAX cli.train of the hyperbolic MLP model on the shipped HR-STC
     file, then both packages' cli.eval of its checkpoint."""
-    cfg_path, _ = shipped_config(str(tmp_path), "hyperbolic_encoder", **CPU_CUT)
+    cfg_path, _ = shipped_config(str(tmp_path), "hyperbolic_encoder", compute_dtype="float32",
+                                 **CPU_CUT)
     jtrain_cli.main(["--config", cfg_path, "--epochs", "2"])
     want = jeval_cli.main(["--config", cfg_path])
     got = eval_cli.main(["--config", cfg_path, "--device", "cpu"])

@@ -307,6 +307,6 @@ def test_center_leaving_the_ball_raises():
     with pytest.raises(ValueError, match="left the Poincaré ball"):
         trainer.initialize_center(trainer.init_state())
     vae = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, variant="vae"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3a"):
         objectives.window_scores(port_config(vae), torch.zeros(2, 4), torch.zeros(4),
                                  torch.eye(4), torch.zeros(4))

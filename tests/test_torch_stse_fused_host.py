@@ -19,6 +19,7 @@ import torch
 
 from coskad_tpu_torch.kernels import build, stse_fused
 from coskad_tpu_torch.models import STSE
+from coskad_tpu_torch.models.stse import eval_uses_kernel
 
 torch.set_num_threads(1)
 
@@ -137,3 +138,37 @@ def test_shared_memory_at_flagship_layers(host_kernel, channels, windows):
     assert occ["smem_bytes"] == 4 * floats
     assert occ["smem_bytes"] + 1024 <= 228 * 1024
     assert occ["blocks_per_sm"] == 1
+
+
+# Layouts K1's planner refuses (each with a layout it takes beside it): an
+# inner layer of 80 channels (64 the most), 9 layers (8), 28 frames at 18
+# joints (27: the activations no longer fit a block's shared memory).
+REFUSED = {
+    "wider_than_64": ((2, (80,), 16, 6, 5), (2, (64,), 16, 6, 5)),
+    "nine_layers": ((2, (8,) * 8, 8, 6, 5), (2, (8,) * 7, 8, 6, 5)),
+    "28_frames_at_18_joints": ((2, (32, 16, 32), 64, 28, 18), (2, (32, 16, 32), 64, 27, 18)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_eval_route_takes_the_module_path_where_the_planner_refuses(host_kernel, monkeypatch,
+                                                                   case):
+    """STSE.forward(train=False) on the card asks K1's planner
+    (`stse_fused.takes`, the `plan_layout` every launch runs) before it
+    launches: a layout the planner refuses takes the model's own layers on
+    the card, as JAX scores any layout its Config takes, and does not raise,
+    grad mode on or off; a layout it takes still runs K1. The planner here
+    is the CUDA source's, run on the host."""
+    monkeypatch.setattr(stse_fused, "_library", lambda: host_kernel)
+    refused, taken = (_model(*kw) for kw in REFUSED[case])
+    assert not refused.kernel_takes() and taken.kernel_takes()
+    assert not stse_fused.takes(refused.folded()[1], host_kernel)
+    x = torch.randn(2, *REFUSED[case][0][:1], *REFUSED[case][0][3:],
+                    generator=torch.Generator().manual_seed(3), requires_grad=True)
+    assert not eval_uses_kernel(refused.kernel_takes(), [x, *refused.parameters()])
+    with torch.no_grad():
+        assert eval_uses_kernel(taken.kernel_takes(), [x, *taken.parameters()])
+    z = refused(x)  # the module route: differentiable, as flax apply(train=False)
+    torch.testing.assert_close(z, refused.encode(x)[0], rtol=0, atol=0)
+    z.sum().backward()
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())

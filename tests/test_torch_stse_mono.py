@@ -103,7 +103,8 @@ def test_saved_for_backward(mode):
             for o in stse_train._flatten(ops)]
     saved = []
     with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t, lambda t: t):
-        z, *_ = stse_train.FusedGhostEncode.apply(x_nodes, ghost, len(ops.layers), mode, *flat)
+        z, *_ = stse_train.FusedGhostEncode.apply(x_nodes, ghost, len(ops.layers), mode,
+                                                  "float32", *flat)
     operands = [o for o in flat if o is not None]
     expect = [x_nodes, *operands]
     if mode == "mono":

@@ -6,7 +6,7 @@ std::thread per CUDA thread, a barrier per block and one per warp, the
 m16n8k8 TF32 mma and cvt.rna.tf32 emulated, cp.async as a copy) and its
 per-product entry point (`stse_train.launch_product`) is held against
 float64 einsum on every form and ragged edge. The emulator's own
-`tf32_of` and `mma_tf32` are held bit for bit against numpy. This checks the
+`tf32_of`, `bf16_bits` and `mma_tf32` are held bit for bit against numpy. This checks the
 kernels' indexing, staging, splits and fragment layout as the emulator
 reproduces PTX's; the card is the real check (chip_smoke.py's product
 check).
@@ -14,6 +14,9 @@ check).
 Tolerance of a product: |err| <= 1e-5 * (|A|^T |B|) + 1e-6 elementwise,
 fp32 accumulation of 3xTF32 products (a split of each operand into two
 TF32 parts leaves ~2^-22 of it); one TF32 product (2^-11) would not meet it.
+Under a bf16 form the operands are rounded to bf16 and each product is
+exact, so the product is held to float64 einsum of the rounded operands with
+the same fp32-sum tolerance.
 """
 
 import ctypes
@@ -94,6 +97,10 @@ extern "C" void emu_tf32(const float* in, uint32_t* out, int n) {
   for (int i = 0; i < n; ++i) out[i] = tf32_of(in[i]);
 }
 
+extern "C" void emu_bf16(const float* in, uint32_t* out, int n) {
+  for (int i = 0; i < n; ++i) out[i] = bf16_bits(in[i]);
+}
+
 extern "C" void emu_mma(const float* a, const float* b, const float* c, float* d) {
   emu_launch(mma_kernel, dim3(1), 32, 0, a, b, c, d);
 }
@@ -104,6 +111,7 @@ extern "C" void emu_mma(const float* a, const float* b, const float* c, float* d
 def emu_lib(tmp_path_factory):
     so = _compile(_gxx(), EMU_PROBE, tmp_path_factory.mktemp("emu_probe"), "emu_probe")
     so.emu_tf32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    so.emu_bf16.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
     so.emu_mma.argtypes = [ctypes.c_void_p] * 4
     return so
 
@@ -146,6 +154,52 @@ def test_emulated_tf32_rounding_matches_numpy(emu_lib):
     nan = np.float32([np.nan])
     emu_lib.emu_tf32(nan.ctypes.data, out.ctypes.data, 1)
     assert np.isnan(out[:1].view(np.float32)[0])
+
+
+def bf16_reference(x: np.ndarray) -> np.ndarray:
+    """cvt.rn.bf16.f32 by arithmetic, in float64: 8 significant bits for a
+    normal number, a 2^-133 grid below 2^-126 (the 16 bits kept of a
+    subnormal), the halfway case to the even neighbour; past the largest
+    bf16 (halfway to 2^128 and up), infinity. To float32."""
+    x = x.astype(np.float64)
+    mag = np.abs(x)
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        _, exp = np.frexp(np.where(mag > 0, mag, 1.0))
+        ulp = np.where(mag < 2.0 ** -126, 2.0 ** -133, np.ldexp(1.0, exp - 8))
+        q = np.round(mag / ulp) * ulp  # numpy rounds halves to even
+        q = np.where(q >= 2.0 ** 128, np.inf, q)
+        out = np.where(np.isfinite(x), np.copysign(q, x), x).astype(np.float32)
+    return out
+
+
+BF16_CASES = np.array([
+    0.0, -0.0, 1.0, -3.0,
+    1 + 2.0 ** -8, -(1 + 2.0 ** -8),  # halfway from an even last bit: down, both signs
+    1 + 3 * 2.0 ** -8,  # halfway from an odd last bit: up to even
+    1 + 2.0 ** -8 - 2.0 ** -23, 1 + 2.0 ** -8 + 2.0 ** -23,  # just below / above halfway
+    2 - 2.0 ** -23,  # rounds up into the next binade
+    2.0 ** -149, 2.0 ** -134, 3 * 2.0 ** -134, 5 * 2.0 ** -135,  # subnormals, ties to even
+    2.0 ** -126 - 2.0 ** -149,  # the largest subnormal rounds up to the smallest normal
+    3.3895313892515355e38,  # the largest bf16 stays
+    3.4028234663852886e38, -3.4028234663852886e38,  # past halfway to 2^128: infinity
+    np.inf, -np.inf,
+], np.float32)
+
+
+def test_emulated_bf16_rounding_matches_numpy(emu_lib):
+    """bf16_bits (cvt.rn.bf16.f32) against the arithmetic above and against
+    torch's own float -> bfloat16 conversion, bit for bit."""
+    rng = np.random.default_rng(2)
+    x = np.concatenate([BF16_CASES, rng.normal(size=200).astype(np.float32),
+                        (rng.normal(size=50) * 2.0 ** -130).astype(np.float32)])
+    out = np.zeros(x.shape, np.uint32)
+    emu_lib.emu_bf16(x.ctypes.data, out.ctypes.data, len(x))
+    np.testing.assert_array_equal(out, bf16_reference(x).view(np.uint32))
+    torch_bits = torch.from_numpy(x).to(torch.bfloat16).float().numpy().view(np.uint32)
+    np.testing.assert_array_equal(out, torch_bits)
+    nan = np.float32([np.nan])
+    emu_lib.emu_bf16(nan.ctypes.data, out.ctypes.data, 1)
+    assert out[0] == 0x7FFF0000  # the canonical NaN
 
 
 def test_emulated_mma_matches_numpy_exactly(emu_lib):
@@ -202,6 +256,22 @@ def test_host_run_of_product_matches_float64(host_lib, case):
     assert bool((err <= 1e-5 * scale + 1e-6).all()), (case, float(err.max()))
     # the same bits again: the warps' and the splits' sums are taken in a fixed order
     assert torch.equal(got, stse_train.launch_product(host_lib, form, a, b, splits))
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "bfloat16_f32store"])
+@pytest.mark.parametrize("case", ["dw_ragged", "dm_chunked"])
+def test_host_run_of_bf16_product_matches_float64(host_lib, case, compute_dtype):
+    """One TF32 mma of bf16 operands: exact products, fp32 sums."""
+    form, p, q, n, k, splits = PRODUCT_CASES[case]
+    a, b = _operands(form, p, q, n, k, seed=len(case) + 1)
+    got = stse_train.launch_product(host_lib, form, a, b, splits, compute_dtype)
+    want = stse_train.product_reference(form, a.double(), b.double(), compute_dtype)
+    scale = stse_train.product_reference(form, a.double().abs(), b.double().abs())
+    err = (got.double() - want).abs()
+    assert bool((err <= 1e-5 * scale + 1e-6).all()), (case, float(err.max()))
+    # not the float32 product: the operands were rounded
+    exact = stse_train.product_reference(form, a.double(), b.double())
+    assert not bool(((got.double() - exact).abs() <= 1e-5 * scale + 1e-6).all())
 
 
 def test_product_splits_fill_the_card_within_the_old_partials():

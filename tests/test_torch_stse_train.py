@@ -183,8 +183,8 @@ def test_ghost_of_whole_batch_is_live_batchnorm():
 def test_unported_modes_raise_and_cpu_launches_nothing():
     _, _, model, x, ghost = pair("narrow", seed=5)
     xt = torch.from_numpy(x)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
-        stse_train.fused_stse_apply(model, xt, ghost_size=ghost, compute_dtype="bfloat16")
+    with pytest.raises(ValueError, match="compute_dtype 'float16'"):
+        stse_train.fused_stse_apply(model, xt, ghost_size=ghost, compute_dtype="float16")
     with pytest.raises(ValueError, match="multiple of ghost_size"):
         stse_train.fused_stse_apply(model, xt[:12], ghost_size=ghost)
     with pytest.raises(ValueError, match="bwd_mode"):

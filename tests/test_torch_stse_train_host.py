@@ -9,7 +9,12 @@ kernels are held to the exact function, not to another fp32 rounding of it.
 
 Tolerances: forward outputs rtol=2e-4, atol=2e-4 and gradients
 err < 1e-3 * max(scale, 1) + 1e-6, as tests/test_fused_train_kernel.py (fp32
-reassociation through the BN backward's 1/cnt cancellations)."""
+reassociation through the BN backward's 1/cnt cancellations). The bf16
+forms (`test_host_run_of_bf16_forms_matches_plain`) round at the same points
+as their plain versions, but a value the kernel sums in fp32 and the plain
+version in float64 can land on the other side of a bf16 rounding boundary:
+one such flip moves a value by 1 ulp, <= 2^-7 of it, so every output and
+gradient is held to err <= 2^-7 * max(scale, 1)."""
 
 import ctypes
 import os
@@ -110,6 +115,16 @@ CASES = {
 }
 
 
+BF16_BAND = 2.0 ** -7
+
+
+def _close_bf16(got, want, name):
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert bool(torch.isfinite(got).all()) and err <= BF16_BAND * max(scale, 1.0), (
+        name, err, scale)
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_host_run_of_cuda_source_matches_plain(host_lib, case):
     kw = CASES[case]
@@ -165,6 +180,64 @@ def test_host_run_of_cuda_source_matches_plain(host_lib, case):
                 _close_grad(a, e.float(), f"layer {l} d{f}")
 
 
+@pytest.mark.parametrize("case,compute_dtype", [
+    ("narrow", "bfloat16"), ("narrow", "bfloat16_f32store"), ("wide", "bfloat16"),
+    ("wide", "bfloat16_f32store")])
+def test_host_run_of_bf16_forms_matches_plain(host_lib, case, compute_dtype):
+    """K2, K4 and K3 in a bf16 form against their plain versions in the same
+    form (float64 between the rounding points), PReLU's branches taken from
+    K2's output; the windows bf16 already, as fused_stse_apply hands them
+    over. "wide" takes bwd_dx's second column chunk (C_in 40) and K4's dy
+    over 3 k-steps."""
+    kw = CASES[case]
+    model = _model(kw["input_dim"], kw["channels"], kw["hidden"], kw["t"], kw["v"],
+                   kw["latent"], seed=len(case) + 1)
+    ops = stse_train.detached(stse_train.encoder_ops(model))
+    ops64 = stse_train.detached(ops, torch.float64)
+    b, n, ghost = kw["batch"], kw["t"] * kw["v"], kw["ghost"]
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(b, n, kw["input_dim"])).astype(np.float32))
+    x = x.to(torch.bfloat16).float()
+    out = stse_train.launch_forward(host_lib, x, ops, ghost, compute_dtype)
+    ref = stse_train.ghost_forward_reference(x.double(), ops64, ghost, compute_dtype)
+    z, sums, acts, stats = out
+    _close_bf16(z, ref[0], "z")
+    for name, got, want in zip(("sums", "acts", "stats"), out[1:], ref[1:]):
+        for l, (a, e) in enumerate(zip(got, want)):
+            _close_bf16(a, e, f"{name}{l}")
+    if compute_dtype == "bfloat16":  # stored at bf16: every activation is a bf16 value
+        assert all(torch.equal(a, a.to(torch.bfloat16).float()) for a in acts)
+    dz = torch.from_numpy(rng.normal(size=(b, kw["latent"])).astype(np.float32))
+    top = len(ops.layers) - 1
+    x_of = [x, *acts[:-1]]
+    grads, dwp, dbp, dy = stse_train.launch_backward(
+        host_lib, x_of[top], acts[top], stats[top], ops.layers[top], ghost, need_dx=top > 0,
+        dz=dz, wp=ops.wp, compute_dtype=compute_dtype)
+    want, dwp_r, dbp_r, dy_r = stse_train.top_backward_reference(
+        x_of[top].double(), dz.double(), ops64.layers[top], ops64.wp, ops64.bp, ghost,
+        need_dx=top > 0, positive=acts[top] >= 0, compute_dtype=compute_dtype)
+    _close_bf16(dwp, dwp_r, "dwp")
+    _close_bf16(dbp, dbp_r, "dbp")
+    pairs = [(top, grads, want)]
+    if top > 0:
+        _close_bf16(dy, dy_r, "dx of the top layer")
+    for l in reversed(range(top)):
+        g, _, _, dx = stse_train.launch_backward(
+            host_lib, x_of[l], acts[l], stats[l], ops.layers[l], ghost, need_dx=l > 0,
+            dy=dy_r.float(), compute_dtype=compute_dtype)
+        w, dx_r = stse_train.layer_backward_reference(
+            x_of[l].double(), dy_r, ops64.layers[l], ghost, need_dx=l > 0,
+            positive=acts[l] >= 0, compute_dtype=compute_dtype)
+        pairs.append((l, g, w))
+        if l > 0:
+            _close_bf16(dx, dx_r, f"dx of layer {l}")
+            dy_r = dx_r
+    for l, g, w in pairs:
+        for f in stse_train.LayerOps._fields:
+            if getattr(w, f) is not None:
+                _close_bf16(getattr(g, f), getattr(w, f), f"layer {l} d{f}")
+
+
 MONO_CASES = {
     # chunks of 8, 8 and 4 windows: the last one ragged
     "ragged": dict(model="narrow", batch=20, ghost=4, chunk=8, n_chunks=3),
@@ -203,6 +276,33 @@ def test_host_run_of_mono_backward_matches_plain(host_lib, case):
             assert (a is None) == (e is None), (l, f)
             if a is not None:
                 _close_grad(a, e.float(), f"layer {l} d{f}")
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "bfloat16_f32store"])
+def test_host_run_of_mono_backward_bf16_forms_matches_plain(host_lib, compute_dtype):
+    """K5 in a bf16 form (its passes are K2's, K4's and K3's in that form)
+    against its plain version, chunks of 8, 8 and 4 windows."""
+    kw = CASES["narrow"]
+    model = _model(kw["input_dim"], kw["channels"], kw["hidden"], kw["t"], kw["v"],
+                   kw["latent"], seed=9)
+    ops = stse_train.detached(stse_train.encoder_ops(model))
+    b, n, ghost = 20, kw["t"] * kw["v"], 4
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.normal(size=(b, n, kw["input_dim"])).astype(np.float32))
+    x = x.to(torch.bfloat16).float()
+    dz = torch.from_numpy(rng.normal(size=(b, kw["latent"])).astype(np.float32))
+    _, _, acts, _ = stse_train.launch_forward(host_lib, x, ops, ghost, compute_dtype)
+    got = stse_train.launch_mono_backward(host_lib, x, dz, ops, ghost, 8, compute_dtype)
+    want = stse_train.mono_backward_reference(x.double(), dz.double(),
+                                              stse_train.detached(ops, torch.float64), ghost,
+                                              positive=[a >= 0 for a in acts],
+                                              compute_dtype=compute_dtype)
+    names = [f"layer{l}.d{f}" for l in range(len(ops.layers)) for f in stse_train.LayerOps._fields]
+    for name, a, w in zip(names + ["dwp", "dbp"], stse_train._flatten(got),
+                          stse_train._flatten(want)):
+        assert (a is None) == (w is None), name
+        if a is not None:
+            _close_bf16(a, w, name)
 
 
 def test_forward_repeats_bit_for_bit(host_lib):
@@ -254,3 +354,5 @@ def test_launch_refuses_mismatched_inputs(host_lib):
         stse_train.launch_forward(host_lib, x[:6], ops, 4)
     with pytest.raises(ValueError, match="channels"):
         stse_train.launch_forward(host_lib, torch.zeros(8, 12, 3), ops, 4)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        stse_train.launch_forward(host_lib, x, ops, 4, "float16")

@@ -131,7 +131,7 @@ def test_compute_loss_matches_jax(distance):
     np.testing.assert_allclose(loss.item(), float(loss_j), rtol=1e-5)
     # the hyperbolic loss is ported (tests/test_torch_hyperbolic.py); the VAE's
     # waits for its variant
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3a"):
         objectives.compute_loss(port_config(dataclasses.replace(
             cfg, model=dataclasses.replace(cfg.model, variant="vae"))),
             torch.from_numpy(z), torch.from_numpy(x), model, torch.from_numpy(center),
