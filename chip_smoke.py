@@ -42,7 +42,13 @@ Phases, each printing a line before the last:
      (float64 between the rounding points) at B=2048 ghost 64 and on the
      identity-residual stack, K5 also against K4 + K3; the "bfloat16" form
      timed beside its plain version, its bound at the bf16 tensor-core peak
-     and bytes at the store dtype.
+     and bytes at the store dtype; K2, K4 and K3 launched twice at bf16 give
+     the same bits; per flagship layer the device ms of the bf16 form's
+     bwd_pre, bwd_dx, projector_dy and products (a trace of one K3/K4
+     call) with shared bytes and blocks an SM, no fewer than float32's; and
+     the product check at bf16 (the scratch operands as bf16 tensors, as
+     K3-K5 keep them, against float64 of the rounded operands, with ms,
+     bound and one bf16 torch.mm / einsum call's time).
   3b. mono: K5 (the mono backward, from x and dz alone) against its plain
      version in float64 and against the split kernels (K4, then K3) on the
      same inputs, on the train-kernel cases plus a batch whose last chunk
@@ -77,7 +83,8 @@ Phases, each printing a line before the last:
      none (the bf16 eval takes the module route); the bf16 kernels with one
      ghost block of the whole batch against the module path at bf16 from the
      same weights (per-step losses within 2^-5); the fp32 and bf16 fused
-     steps' time in turns and peak memory.
+     steps' time in turns and peak memory (the bf16 peak beside PR 11's,
+     whose backward scratch was fp32), and the bf16 step's idle share.
   6. cli (the command-line path): a synthetic AlphaPose tree (4 training
      clips x 2 actors x 1,100 frames, 8,704 stride-1 windows; 2 test
      clips with <scene>_<clip>.npy ground truth) and a reference-key config
@@ -195,12 +202,15 @@ BF16_LOSS_BAND = 2.0 ** -5
 BF16_EPOCHS = 2
 BF16_BAND_STEPS = 3
 MONO_BF16_STEPS = 5
+# the bf16 fused step's peak above resident with fp32 backward scratch (PERF.md
+# section 5, PR 11's chip run 2), printed beside this run's
+BF16_PEAK_PR11 = 778_605_568
 DEVICE = "cuda"
 # csrc/stse_train.cu's kernels, as the profiler names them: K2-K4's device time
 # in an epoch trace
 FORWARD_PASSES = ("fwd_pre_kernel", "fwd_stats_kernel", "fwd_sums_kernel", "fwd_apply_kernel",
                   "projector_z_kernel", "projector_sum_kernel")
-TRAIN_KERNELS = (*FORWARD_PASSES, "transpose_kernel", "projector_dy_kernel", "bwd_pre_kernel",
+TRAIN_KERNELS = (*FORWARD_PASSES, "graph_operand_kernel", "projector_dy_kernel", "bwd_pre_kernel",
                  "bwd_consts_kernel", "bwd_reduce_kernel", "bwd_dx_kernel", "product_rows_kernel",
                  "product_windows_kernel", "sum_splits_kernel")
 TRAIN_CLIPS, VAL_CLIPS = 100, 20  # x 2 actors x 200 windows: 40,000 and 8,000 windows
@@ -735,21 +745,28 @@ def products_bound(flops, prod_flops, nbytes):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def phase_products(card, ops):
+def phase_products(card, ops, compute_dtype="float32"):
     """Each batch-reduction product of a split backward step (dW, dW_res and
     dM a layer, dwp), alone through stse_train.product at the flagship
-    width, at B=2048 and at K5's default chunk: error against float64
-    einsum on the card, kernel ms, library_ms (the same product as one fp32
-    torch.mm / torch.einsum call, TF32 off; timed only, never called by the
-    port) and the bound (3xTF32 FLOPs on the tensor cores or bytes). The
+    width, at B=2048 and at K5's default chunk, in `compute_dtype`: error
+    against float64 einsum (of the bf16-rounded operands under a bf16 form)
+    on the card, kernel ms, library_ms (the same product as one torch.mm /
+    torch.einsum call, fp32 with TF32 off, or under "bfloat16" of the bf16
+    operands; timed only, never called by the port) and the bound (3xTF32
+    FLOPs on the tensor cores, or bf16 FLOPs at 989 TFLOP/s, or bytes).
+    Under "bfloat16" the operands K3-K5 keep in scratch (g, dt, dr, dg) are
+    bf16 tensors, as the kernels hand them over, the others float32. The
     operands are random: a product's cost does not depend on its values."""
     import torch
     from coskad_tpu_torch.kernels import stse_train as st
 
     dev = torch.device(DEVICE)
     dgen = torch.Generator(device=dev).manual_seed(97)
+    bf16 = compute_dtype == "bfloat16"
 
     def library(form, a, b):
+        if bf16:
+            a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
         return torch.mm(a.t(), b) if form == "rows" else torch.einsum("wpk,wqk->pq", a, b)
 
     results = []
@@ -760,8 +777,11 @@ def phase_products(card, ops):
                             device=dev)
             b = torch.randn(*((n, q) if form == "rows" else (n, q, k)), generator=dgen,
                             device=dev)
-            got = st.product(form, a, b)
-            want = st.product_reference(form, a.double(), b.double()).float()
+            if bf16:  # the scratch operands as K3-K5 store them
+                a = a.to(st.scratch_dtype(compute_dtype)) if pr["a_scratch"] else a
+                b = b.to(st.scratch_dtype(compute_dtype)) if pr["b_scratch"] else b
+            got = st.product(form, a, b, compute_dtype)
+            want = st.product_reference(form, a.double(), b.double(), compute_dtype).float()
             torch.cuda.synchronize()
             err, ok = grad_err(got, want)
             check(ok and bool(torch.isfinite(got).all()),
@@ -770,17 +790,25 @@ def phase_products(card, ops):
             del want
             runs = dict(kernel=[], library=[])
             for _ in range(2):
-                runs["kernel"].append(cuda_ms(lambda: st.product(form, a, b), iters=10, warmup=2))
+                runs["kernel"].append(cuda_ms(lambda: st.product(form, a, b, compute_dtype),
+                                              iters=10, warmup=2))
                 runs["library"].append(cuda_ms(lambda: library(form, a, b), iters=10, warmup=2))
-            bound_ms, bound_by = products_bound(pr["flops"], pr["flops"], pr["bytes"])
+            # each operand read once at its stored size, the output written once
+            nbytes = n * k * (p * a.element_size() + q * b.element_size()) + 4.0 * p * q
+            if bf16:
+                bound_ms, bound_by = bound_of(pr["flops"], nbytes, PEAK_BF16_FLOPS)
+            else:
+                bound_ms, bound_by = products_bound(pr["flops"], pr["flops"], nbytes)
             results.append(dict(
                 name=pr["name"], kernel=pr["key"], batch=batch, form=form, p=p, q=q, n=n, k=k,
                 splits=st.product_splits(form, p, q, n, k), max_abs_err=err,
                 ms=min(runs["kernel"]), library_ms=min(runs["library"]), bound_ms=bound_ms,
-                bound_by=bound_by, flops=pr["flops"], bytes=pr["bytes"], timing_runs_ms=runs))
+                bound_by=bound_by, flops=pr["flops"], bytes=nbytes, timing_runs_ms=runs,
+                operand_dtypes=[str(a.dtype), str(b.dtype)]))
             del a, b, got
     torch.cuda.empty_cache()
-    print("product check: " + json.dumps(dict(card=card, products=[
+    label = "product check" + ("" if compute_dtype == "float32" else f" {compute_dtype}")
+    print(f"{label}: " + json.dumps(dict(card=card, products=[
         {k: r[k] for k in ("name", "batch", "splits", "max_abs_err", "ms", "library_ms",
                            "bound_ms", "bound_by")} for r in results])))
     return results
@@ -928,56 +956,61 @@ def phase_train_kernels(card):
     return records, products
 
 
-def repeat_bits(st, ops, x, dz, acts, stats, ghost):
-    """K2, K4 and K3 (each layer) launched twice on the same inputs give the
-    same bits: no sum depends on the order blocks run in."""
+def repeat_bits(st, ops, x, dz, acts, stats, ghost, compute_dtype="float32"):
+    """K2, K4 and K3 (each layer) launched twice on the same inputs in
+    `compute_dtype` give the same bits: no sum depends on the order blocks
+    run in."""
     top = len(ops.layers) - 1
     x_of = [x] + list(acts[:-1])
+    cd = dict(compute_dtype=compute_dtype)
     runs = {
-        "K2": lambda: st.ghost_forward(x, ops, ghost),
+        "K2": lambda: st.ghost_forward(x, ops, ghost, **cd),
         "K4": lambda: st.top_backward(x_of[top], acts[top], dz, ops.layers[top], stats[top],
-                                      ops.wp, ops.bp, ghost, need_dx=top > 0),
+                                      ops.wp, ops.bp, ghost, need_dx=top > 0, **cd),
         **{f"K3_layer{l}": (lambda l=l: st.layer_backward(x_of[l], acts[l], acts[l],
                                                           ops.layers[l], stats[l], ghost,
-                                                          need_dx=l > 0))
+                                                          need_dx=l > 0, **cd))
            for l in range(top)}}
     out = {}
     for key, fn in runs.items():
         first, second = flat_tensors(fn()), flat_tensors(fn())
         same = all(torch_equal(a, b) for a, b in zip(first, second))
-        check(same, f"{key}: two launches on the same inputs differ")
+        check(same, f"{key} ({compute_dtype}): two launches on the same inputs differ")
         out[key] = same
     return dict(K2=out["K2"], K4=out["K4"],
                 K3=all(v for k, v in out.items() if k.startswith("K3")))
 
 
-def pass_report(st, ops, x, dz, acts, stats, ghost):
-    """Per flagship layer: the device ms of bwd_pre and bwd_dx (and K4's
-    projector_dy) in one K4 or K3 call, from a torch.profiler trace of it
-    after a warm-up call; each pass's shared bytes a block and blocks an SM
-    (stse_train.pass_occupancy). The top layer's bwd_dx must fit two
-    blocks an SM."""
+def pass_report(st, ops, x, dz, acts, stats, ghost, compute_dtype="float32"):
+    """Per flagship layer in `compute_dtype`: the device ms of bwd_pre and
+    bwd_dx (and K4's projector_dy), and of the batch-reduction products
+    (product_rows / product_windows / sum_splits launches), in one K4 or K3
+    call, from a torch.profiler trace of it after a warm-up call; each
+    pass's shared bytes a block and blocks an SM (stse_train.pass_occupancy
+    in the form). The top layer's bwd_dx must fit two blocks an SM."""
     import torch
 
     top = len(ops.layers) - 1
     x_of = [x] + list(acts[:-1])
     lib = st._library()
+    cd = dict(compute_dtype=compute_dtype)
     out = {}
     for l, lay in enumerate(ops.layers):
         if l == top:
             fn = lambda: st.top_backward(x_of[top], acts[top], dz, lay, stats[top], ops.wp, ops.bp,
-                                         ghost, need_dx=top > 0)
+                                         ghost, need_dx=top > 0, **cd)
         else:
             fn = lambda l=l: st.layer_backward(x_of[l], acts[l], acts[l], ops.layers[l], stats[l],
-                                               ghost, need_dx=l > 0)
+                                               ghost, need_dx=l > 0, **cd)
         fn()
         torch.cuda.synchronize()
         ms = traced_ms(fn)
         ci, co = lay.w.shape
-        occ = st.pass_occupancy(lib, x.shape[1], ci, co)
+        occ = st.pass_occupancy(lib, x.shape[1], ci, co, compute_dtype)
         out[f"layer{l}"] = dict(
             kernel="K4" if l == top else "K3", ci=ci, co=co, bwd_pre_ms=ms.get("bwd_pre_kernel"),
             bwd_dx_ms=ms.get("bwd_dx_kernel"), projector_dy_ms=ms.get("projector_dy_kernel"),
+            products_ms=sum(v for k, v in ms.items() if k.startswith(("product_", "sum_splits"))),
             traced_ms=ms, **{k: v for k, v in occ.items() if k.startswith("bwd")})
     check(out[f"layer{top}"]["bwd_dx_blocks_per_sm"] >= 2,
           f"the top layer's bwd_dx runs {out[f'layer{top}']['bwd_dx_blocks_per_sm']} block(s) an "
@@ -1098,8 +1131,11 @@ def phase_bf16_kernels(card):
     a sum of dy pre over millions of elements) moves by more than 2^-7 of
     its own size. The "bfloat16" form timed at the
     flagship shapes beside its plain version (in turns) and its bound (bf16
-    tensor-core peak, bytes at the store dtype). Returns the records of the
-    "bfloat16" form (launches filled in by the bf16 train and mono runs)."""
+    tensor-core peak, bytes at the store dtype); K2, K4 and K3 launched twice
+    give the same bits in it; its per-window passes a layer (pass_report:
+    device ms, shared bytes, blocks an SM, no fewer than float32's) and its
+    batch-reduction products alone (phase_products). Returns the records of
+    the "bfloat16" form (launches filled in by the bf16 train and mono runs)."""
     import torch
     from coskad_tpu_torch.kernels import stse_train as st
 
@@ -1187,6 +1223,16 @@ def phase_bf16_kernels(card):
                                     runs=dict(kernel=runs[0::2], plain=runs[1::2]))
                 work = st.work(ops, batch, ghost, form)
                 main = (batch, ghost)
+                repeat = repeat_bits(st, ops, x, dz, acts, stats, ghost, form)
+                passes = pass_report(st, ops, x, dz, acts, stats, ghost, form)
+                lib = st._library()
+                for layer in passes.values():  # no fewer blocks an SM than the float32 form
+                    f32 = st.pass_occupancy(lib, n, layer["ci"], layer["co"])
+                    for k in ("bwd_pre_blocks_per_sm", "bwd_dx_blocks_per_sm"):
+                        check(layer[k] >= f32[k], f"{form} {k} {layer[k]} < float32's {f32[k]} "
+                                                  f"at C_in {layer['ci']}, C_out {layer['co']}")
+                timed_ops = ops
+    products = phase_products(card, timed_ops, "bfloat16")
     records = []
     for key, name in (("K2", "stse_train_forward"), ("K3", "stse_train_layer_backward"),
                       ("K4", "stse_train_top_backward"), ("K5", "stse_train_mono_backward")):
@@ -1206,10 +1252,23 @@ def phase_bf16_kernels(card):
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None, batch=main[0],
             ghost=main[1], flops=flops, bytes=nbytes, timing_runs_ms=t["runs"],
             per_layer_ms=t.get("per_layer")))
-    print("bf16 kernel check: " + json.dumps(dict(card=card, band=BF16_BAND, cases=cases, times={
+        own = [r for r in products if r["batch"] == main[0] and r["kernel"] in parts]
+        if key in ("K3", "K4"):
+            records[-1].update(
+                repeats_bit_for_bit=repeat[key],
+                passes={k: v for k, v in passes.items() if v["kernel"] == key},
+                product_ms=sum(r["ms"] for r in own),
+                product_library_ms=sum(r["library_ms"] for r in own),
+                product_bound_ms=sum(r["bound_ms"] for r in own))
+    print("bf16 kernel check: " + json.dumps(dict(card=card, band=BF16_BAND, cases=cases,
+                                                  repeats_bit_for_bit=repeat, times={
         r["name"]: {k: r[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                                      "max_abs_err", "max_abs_err_f32store")}
+                                      "max_abs_err", "max_abs_err_f32store", "product_ms")
+                    if k in r}
         for r in records})))
+    print("per-window passes bfloat16 (one K3/K4 call each, torch.profiler; blocks an SM by "
+          "cudaOccupancyMaxActiveBlocksPerMultiprocessor): " + json.dumps(dict(card=card, **{
+              k: {f: v[f] for f in v if f != "traced_ms"} for k, v in passes.items()})))
     return records
 
 
@@ -1300,7 +1359,7 @@ def time_mono(st, ops, x, dz, acts, stats, ghost, n):
         chunk = st.mono_chunk(b, ghost, want)
         ws = st.mono_workspace(ops, n, chunk, ghost)
         sweep[chunk] = dict(
-            n_chunks=-(-b // chunk), workspace_bytes=4 * sum(v for v in ws.values() if v),
+            n_chunks=-(-b // chunk), workspace_bytes=sum(v for v in ws.values() if v),
             kernel_ms=cuda_ms(lambda: st.mono_backward(x, dz, ops, ghost, chunk), iters=5,
                               warmup=1))
     torch.cuda.synchronize()
@@ -1746,7 +1805,9 @@ def bf16_module_band(Trainer, train_ds, weights) -> dict:
 def bf16_step_cost(Trainer, train_ds, weights, count=10) -> dict:
     """The fused train step (ghost 64, batch 2048) at float32 and at bf16
     from the same weights: host-clock ms over `count` steps, in turns (f32,
-    bf16, bf16, f32), and one step's peak memory above resident."""
+    bf16, bf16, f32), one step's peak memory above resident (beside the bf16
+    step's at PR 11, whose backward scratch was fp32), and the device idle
+    share of `count` bf16 steps (torch.profiler)."""
     import torch
 
     trainers = {}
@@ -1781,7 +1842,11 @@ def bf16_step_cost(Trainer, train_ds, weights, count=10) -> dict:
         run(dtype, range(1))
         torch.cuda.synchronize()
         peak[dtype] = torch.cuda.max_memory_allocated() - base
-    return dict(step_ms=ms, peak_bytes_above_resident=peak)
+    prof = device_profile(lambda: run("bfloat16", range(2, count + 2)))
+    return dict(step_ms=ms, peak_bytes_above_resident=peak,
+                bf16_peak_bytes_above_resident_pr11=BF16_PEAK_PR11,
+                bf16_idle_share=prof["idle_share"], bf16_device_busy_ms=prof["device_busy_ms"],
+                bf16_device_span_ms=prof["device_span_ms"])
 
 
 def cpu_subset_check(Trainer, SegmentDataset, data, meta, fids, weights, n_win=256, steps=3):

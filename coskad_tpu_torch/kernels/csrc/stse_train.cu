@@ -53,7 +53,8 @@
 //     the batch, then a pass that sums the splits.
 //   * Intermediates (t, r, dpre, g, dg) go through device memory. That
 //     costs bytes, not operations, which is the right trade for a first
-//     version; keeping them on chip is later work.
+//     version; keeping them on chip is later work. Under "bfloat16" they are
+//     bf16, half the bytes (see the forms below).
 //   * The per-window passes (K2's fwd_pre and projector_z, the backward's
 //     bwd_pre, projector_dy and bwd_dx) run their products as 3xTF32
 //     mma.sync too, which leaves them bound by their scratch traffic (~1.4-
@@ -90,14 +91,27 @@
 // product or stores a value is a template on one, ComputeDtype; the entry
 // points read it from the descriptor):
 //   float32            every product 3xTF32 (~fp32), everything stored fp32;
-//   bfloat16           every product's operands rounded to bf16 (one TF32 mma
-//                      each, exact products, fp32 sums: tf32_mma.cuh's
-//                      kOpBF16), and the values JAX stores at bf16 rounded
-//                      where they are stored (`stored`): the layer input x as
-//                      read, g, t and r, the output y, the projector's dy, dy
-//                      as read, dpre, dg and dx. They stay in fp32 buffers;
-//                      statistics, sums and weight gradients are fp32;
+//   bfloat16           every product's operands rounded to bf16 (exact
+//                      products, fp32 sums), and the values JAX stores at bf16
+//                      rounded where they are stored (`stored`): the layer
+//                      input x as read, g, t and r, the output y, the
+//                      projector's dy, dy as read, dpre, dg and dx. The
+//                      interface (x, y, dy, dx) stays fp32 buffers holding
+//                      bf16 values; K3's, K4's and K5's per-window backward
+//                      scratch (g, t, r, dpre, dg and M's operand) is bf16
+//                      (`scratch_t`), as the JAX kernel stores g3, t3, r3 and
+//                      pre3 in its dtype; statistics, sums and weight gradients
+//                      are fp32;
 //   bfloat16_f32store  bf16 operands, every value stored fp32.
+// Under both bf16 forms K3's, K4's and K5's backward passes (bwd_pre,
+// projector_dy, bwd_dx) and the batch-reduction products run on the bf16
+// mma (m16n8k16; m16n8k8 where a depth leaves 8), their fragments loaded as
+// bf16 pairs: straight from bf16 scratch or shared memory, or packed by
+// cvt.rn.bf16x2.f32 from an fp32 source (x, y, dy, dz, the weights, M), the
+// bits the rounding of the TF32 path gave. Only the mma's order of summation
+// differs from that path. K2's passes (fwd_pre, projector_z), in every form,
+// stay on warp_tile's TF32 mma of bf16-rounded operands (kOpBF16): K2's bits
+// do not depend on the backward's design.
 // The wrapper rounds the input windows to bf16 for both bf16 forms (JAX casts
 // x_t to the operand dtype). The JAX kernel's own store points
 // (coskad_tpu/kernels/stse_train.py:342-372, 450, 814-821) are those of its
@@ -130,6 +144,33 @@ __device__ __forceinline__ float stored(float v) {
     return v;
 }
 
+// The type of the split backward's per-window scratch (g, t, r, dpre, dg,
+// the graph operand of M dg) in form D: bf16 under "bfloat16", where each of
+// these values is a bf16 value already (`stored`) or is rounded to one by
+// the product that reads it, as the JAX kernel stores g3, t3, r3 and pre3
+// in its dtype (coskad_tpu/kernels/stse_train.py:342-345); else fp32.
+template <int D>
+using scratch_t = typename std::conditional<D == kBfloat16, __nv_bfloat16, float>::type;
+// Whether bwd_pre keeps t and r themselves in scratch (bf16 values under
+// "bfloat16"; bwd_dx centres them again, the same fp32 subtraction of the
+// same values) or, in the fp32-scratch forms, the centred tc and rc.
+template <int D>
+constexpr bool raw_scratch = D == kBfloat16;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+// v written to scratch: rounded to bf16 (to nearest even) in a bf16 buffer.
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+// The bits of a bf16 value, and two of them as one fragment register.
+__device__ __forceinline__ uint32_t bits_of(__nv_bfloat16 v) {
+  return *reinterpret_cast<const unsigned short*>(&v);
+}
+__device__ __forceinline__ uint32_t bf16_pair(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return bits_of(lo) | bits_of(hi) << 16;
+}
+
 // ---- descriptor layouts (int64 arrays built by stse_train.py) ----
 enum FwdHeader {
   FH_N_LAYERS, FH_BATCH, FH_N_NODES, FH_GHOST, FH_LATENT, FH_X, FH_WP, FH_BP, FH_Z,
@@ -143,7 +184,8 @@ enum FwdLayerField {
 // stse_train.py's PRODUCT_FORMS.
 enum ProductForm { PF_ROWS, PF_WINDOWS };
 enum ProductField {
-  PD_FORM, PD_P, PD_Q, PD_N, PD_K, PD_A, PD_B, PD_SPLITS, PD_PART, PD_OUT, PD_DTYPE, PD_COUNT
+  PD_FORM, PD_P, PD_Q, PD_N, PD_K, PD_A, PD_B, PD_SPLITS, PD_PART, PD_OUT, PD_DTYPE, PD_A_BF16,
+  PD_B_BF16, PD_COUNT
 };
 enum BwdField {
   BD_BATCH, BD_N_NODES, BD_GHOST, BD_CI, BD_CO, BD_IDENTITY, BD_LATENT, BD_X, BD_DY, BD_DZ,
@@ -190,11 +232,29 @@ __device__ void block_reduce(float* red, int rows) {
 
 // ================= shared by K3 and K4 =================
 
+// The graph operands of the backward passes in form D's scratch. Under
+// "bfloat16": M and M^T rounded to bf16, each in rows of graph_ld(n) = n
+// rounded up to 8 (zero past n), one after the other: the A operands of
+// bwd_dx's dx = M dg, A(r, k) = M[r][k], and of bwd_pre's g = M^T x, A(r,
+// k) = M[k][r], so the pair A(r, k), A(r, k + 1) of a bf16 fragment is one
+// aligned 32-bit load, at half M's bytes. Else M^T alone (fp32), for
+// bwd_dx, so lanes on consecutive rows read consecutive addresses (bwd_pre
+// reads M itself).
+template <int D>
+__host__ __device__ inline int graph_ld(int n) {
+  return D == kBfloat16 ? round8(n) : n;
+}
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-transpose_kernel(const float* __restrict__ src, float* dst, int n) {
+graph_operand_kernel(const float* __restrict__ src, scratch_t<D>* dst, int n) {
+  const int ld = graph_ld<D>(n);
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i < (long long)n * n) {
-    const int r = (int)(i / n), c = (int)(i % n);
+  if (i >= (long long)n * ld) return;
+  const int r = (int)(i / ld), c = (int)(i % ld);
+  if constexpr (D == kBfloat16) {
+    put(dst + i, c < n ? src[(long long)r * n + c] : 0.0f);
+    put(dst + (long long)n * ld + i, c < n ? src[(long long)c * n + r] : 0.0f);
+  } else {
     dst[(long long)c * n + r] = src[i];
   }
 }
@@ -303,8 +363,13 @@ bwd_reduce_kernel(const float* __restrict__ gpart, int n_blocks,
 // eighth step of the block's share of the reduction (a step is kRowsStep
 // rows, or kChanStep channels of one window), stage it into kStages slabs
 // of their own with cp.async (two steps in flight while the third is
-// multiplied) and multiply it on the tensor cores as m16n8k8 mma.sync in the
-// form's operand precision (3xTF32, or bf16 operands).
+// multiplied) and multiply it on the tensor cores as mma.sync in the form's
+// operand precision OP: 3xTF32 (m16n8k8), or bf16 (m16n8k16, m16n8k8 for a
+// window's last 8 channels or fewer). An operand is staged as it is stored,
+// fp32 or bf16 (TA, TB): under "bfloat16" the scratch operands (g, dt, dr,
+// dg) are bf16 and stage at half the bytes; an fp32 operand of a bf16
+// product is packed to bf16 pairs as its fragments are loaded
+// (pack_bf16x2, the bits split_op's rounding gives).
 // The warps' sums are added in warp order, and the blocks that split the
 // reduction write [splits, P, Q] partials that sum_splits_kernel adds in
 // split order: no float atomics, the same bits on every run.
@@ -313,32 +378,86 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kStages = 3;     // steps a warp has staged or in flight
 constexpr int kRowsStep = 16;  // rows form: reduction rows a step
 constexpr int kChanStep = 16;  // windows form: channels of one window a step
-constexpr int kLdk = kChanStep + 4;    // windows slab row stride: 4 (mod 8) words, so the
-                                       // 32 lanes of a fragment load hit 32 banks
 constexpr int kWinMT = 2, kWinNT = 7;  // windows tile 32 x 56: 216 nodes in 7 x 4 tiles
 
-// Stage rows x width floats (row i at src + i * ld) into a warp's slab (row
-// stride lds) with cp.async: 16 bytes a copy where vec (width, ld and src
-// in whole 16-byte words), else 4. The lanes walk (row, column) by counters.
-__device__ __forceinline__ void stage_block(float* dst, int lds, const float* __restrict__ src,
-                                            long long ld, int rows, int width, bool vec) {
-  const int cols = vec ? width >> 2 : width;  // copies a row
+// Slab row strides, in elements, chosen so that the 32 lanes of a fragment
+// load hit 32 banks (g = lane / 4 runs along a row, t = lane % 4 across rows
+// or along k):
+//   rows form, a row of `width` (the tile's 16 MT or 8 NT) values of one
+//   reduction row: 3xTF32 reads rows k0 + t, width + 8 floats (t apart by 8
+//   mod 32 words); bf16 reads the pair of rows k0 + 2t, + 1 as two 16-bit
+//   loads, width + 8 bf16 (t apart by 8 mod 32 words); fp32 packed to bf16
+//   reads the same rows, width + 4 floats (2t rows: 8t mod 32 words);
+//   windows form, a row of kChanStep channels of one node: 3xTF32 20 floats
+//   (4 mod 8 words: g apart), bf16 24 (12 words: a pair one 32-bit load),
+//   fp32 packed 24 floats (a pair one 8-byte load; each half-warp's 8-byte
+//   loads on 32 banks).
+template <int OP, class T>
+__host__ __device__ constexpr int rows_ld(int width) {
+  return OP == kOpBF16 && sizeof(T) == 4 ? width + 4 : width + 8;
+}
+template <int OP>
+__host__ __device__ constexpr int windows_ld() {
+  return OP == kOpF32 ? kChanStep + 4 : kChanStep + 8;
+}
+
+template <class T>
+__device__ __forceinline__ void set_zero(T* p, int i) {
+  if constexpr (sizeof(T) == 2)
+    reinterpret_cast<unsigned short*>(p)[i] = 0;
+  else
+    p[i] = 0.0f;
+}
+
+// Stage rows x width elements (row i at src + i * ld) into a warp's slab
+// (row stride lds), `ce` elements a copy: cp.async of 16 bytes or 4 (the
+// rows, the stride and src in whole copies), or, for bf16 rows of odd width
+// or stride, a plain copy of each element. The lanes walk (row, column) by
+// counters.
+template <class T>
+__device__ __forceinline__ void stage_block(T* dst, int lds, const T* __restrict__ src,
+                                            long long ld, int rows, int width, int ce) {
+  const int cols = width / ce;  // copies a row
   if (cols <= 0) return;
   const int lane = threadIdx.x & 31;
   int r = lane / cols, c = lane - r * cols;
   const int dr = 32 / cols, dc = 32 - dr * cols;
-  while (r < rows) {
-    if (vec)
-      cp_async16(dst + r * lds + 4 * c, src + r * ld + 4 * c);
-    else
-      cp_async4(dst + r * lds + c, src + r * ld + c);
-    r += dr;
-    c += dc;
-    if (c >= cols) {
-      c -= cols;
-      ++r;
+  auto walk = [&](auto copy) {
+    while (r < rows) {
+      copy(r, c);
+      r += dr;
+      c += dc;
+      if (c >= cols) {
+        c -= cols;
+        ++r;
+      }
     }
-  }
+  };
+  const int bytes = ce * (int)sizeof(T);
+  if (bytes == 16)
+    walk([&](int i, int j) { cp_async16(dst + i * lds + ce * j, src + i * ld + ce * j); });
+  else if (bytes == 4)
+    walk([&](int i, int j) { cp_async4(dst + i * lds + ce * j, src + i * ld + ce * j); });
+  else
+    walk([&](int i, int j) { dst[i * lds + j] = src[i * ld + j]; });
+}
+
+// A bf16 fragment register from a staged operand: the pair v[0], v[step]
+// (two 16-bit loads of bf16, or two fp32 values packed), and the pair v[0],
+// v[1] of consecutive elements (one 32-bit load of bf16, one 8-byte load of
+// fp32 then packed; v 4- or 8-byte aligned).
+__device__ __forceinline__ uint32_t pair_strided(const __nv_bfloat16* v, int step) {
+  return bf16_pair(v[0], v[step]);
+}
+__device__ __forceinline__ uint32_t pair_strided(const float* v, int step) {
+  return pack_bf16x2(v[0], v[step]);
+}
+__device__ __forceinline__ uint32_t pair_next(const __nv_bfloat16* v) {
+  return *reinterpret_cast<const uint32_t*>(v);
+}
+__device__ __forceinline__ uint32_t pair_next(const float* v) {
+  const float2 f = *reinterpret_cast<const float2*>(v);
+  return pack_bf16x2(f.x, f.y);
 }
 
 // The warps' sums (acc of each lane) added in warp order; the tile's
@@ -368,18 +487,24 @@ __device__ __forceinline__ void write_tile(const float (&acc)[MT][NT][4], float*
 
 // Rows form. Block (tile, split) owns outputs [p0, p0 + 16 MT) x [q0, q0 +
 // 8 NT) and rows [r0, r0 + r_split). A warp's slab holds a step as A rows
-// [kRowsStep][16 MT + 8] and B rows [kRowsStep][8 NT + 8]: a stride of 8
-// (mod 32) words puts a fragment load's 32 lanes on 32 banks.
-template <int D, int MT, int NT>
+// [kRowsStep][LDA] and B rows [kRowsStep][LDB] (rows_ld). The mma's k is the
+// reduction row: a bf16 fragment register pairs two rows of one column.
+template <int OP, class TA, class TB, int MT, int NT>
 __global__ void __launch_bounds__(kThreads)
-product_rows_kernel(const float* __restrict__ a, const float* __restrict__ b, int P, int Q,
-                    long long R, long long r_split, float* out, int vec_a, int vec_b) {
-  constexpr int PT = 16 * MT, QT = 8 * NT, LDA = PT + 8, LDB = QT + 8;
-  constexpr int SLAB = kRowsStep * (LDA + LDB);
+product_rows_kernel(const TA* __restrict__ a, const TB* __restrict__ b, int P, int Q,
+                    long long R, long long r_split, float* out, int ce_a, int ce_b) {
+  constexpr int PT = 16 * MT, QT = 8 * NT;
+  constexpr int LDA = rows_ld<OP, TA>(PT), LDB = rows_ld<OP, TB>(QT);
+  constexpr int SA = kRowsStep * LDA, SB = kRowsStep * LDB;  // elements
+  constexpr int SLAB = SA * (int)sizeof(TA) + SB * (int)sizeof(TB);  // bytes
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  float* slabs = smem + warp * kStages * SLAB;
+  char* slabs = reinterpret_cast<char*>(smem) + warp * kStages * SLAB;
+  auto slab_a = [&](int j) { return reinterpret_cast<TA*>(slabs + (j % kStages) * SLAB); };
+  auto slab_b = [&](int j) {
+    return reinterpret_cast<TB*>(slabs + (j % kStages) * SLAB + SA * (int)sizeof(TA));
+  };
   const int tiles_q = (Q + QT - 1) / QT;
   const int p0 = (blockIdx.x / tiles_q) * PT, q0 = (blockIdx.x % tiles_q) * QT;
   const int pw = P - p0 < PT ? P - p0 : PT, qw = Q - q0 < QT ? Q - q0 : QT;
@@ -387,19 +512,20 @@ product_rows_kernel(const float* __restrict__ a, const float* __restrict__ b, in
   const long long r1 = r0 + r_split < R ? r0 + r_split : R;
   const long long steps = r1 > r0 ? (r1 - r0 + kRowsStep - 1) / kRowsStep : 0;
   const int mine = steps > warp ? (int)((steps - warp + kWarps - 1) / kWarps) : 0;
-  for (int i = lane; i < kStages * SLAB; i += 32) slabs[i] = 0.0f;  // the pads stay 0
+  for (int i = lane; i < kStages * SLAB / 4; i += 32)  // the pads stay 0
+    reinterpret_cast<float*>(slabs)[i] = 0.0f;
   __syncwarp();
   // The warp's j-th step (rows r0 + (warp + j kWarps) kRowsStep on) into slab j % kStages.
   auto stage_step = [&](int j) {
     if (j < mine) {
       const long long rs = r0 + (long long)(warp + j * kWarps) * kRowsStep;
       const int rows = r1 - rs < kRowsStep ? (int)(r1 - rs) : kRowsStep;
-      float* as = slabs + (j % kStages) * SLAB;
-      float* bs = as + kRowsStep * LDA;
-      stage_block(as, LDA, a + rs * P + p0, P, rows, pw, vec_a);
-      stage_block(bs, LDB, b + rs * Q + q0, Q, rows, qw, vec_b);
-      for (int i = rows * LDA + lane; i < kRowsStep * LDA; i += 32) as[i] = 0.0f;  // last step
-      for (int i = rows * LDB + lane; i < kRowsStep * LDB; i += 32) bs[i] = 0.0f;
+      TA* as = slab_a(j);
+      TB* bs = slab_b(j);
+      stage_block(as, LDA, a + rs * P + p0, P, rows, pw, ce_a);
+      stage_block(bs, LDB, b + rs * Q + q0, Q, rows, qw, ce_b);
+      for (int i = rows * LDA + lane; i < SA; i += 32) set_zero(as, i);  // last step
+      for (int i = rows * LDB + lane; i < SB; i += 32) set_zero(bs, i);
     }
     cp_async_commit();
   };
@@ -410,27 +536,46 @@ product_rows_kernel(const float* __restrict__ a, const float* __restrict__ b, in
     stage_step(j + kStages - 1);
     cp_async_wait<kStages - 1>();
     __syncwarp();
-    const float* as = slabs + (j % kStages) * SLAB;
-    const float* bs = as + kRowsStep * LDA;
+    const TA* as = slab_a(j);
+    const TB* bs = slab_b(j);
+    if constexpr (OP == kOpF32) {
 #pragma unroll
-    for (int kk = 0; kk < kRowsStep; kk += 8) {
-      uint32_t ab[MT][4], asm_[MT][4];
+      for (int kk = 0; kk < kRowsStep; kk += 8) {
+        uint32_t ab[MT][4], asm_[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const float* f = as + (kk + t) * LDA + mt * 16 + g;  // A[p][k] = slab[k][p]
+          split_op<OP>(f[0], ab[mt][0], asm_[mt][0]);
+          split_op<OP>(f[8], ab[mt][1], asm_[mt][1]);
+          split_op<OP>(f[4 * LDA], ab[mt][2], asm_[mt][2]);
+          split_op<OP>(f[4 * LDA + 8], ab[mt][3], asm_[mt][3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float* f = bs + (kk + t) * LDB + nt * 8 + g;  // B[k][q] = slab[k][q]
+          uint32_t bb[2], bsm[2];
+          split_op<OP>(f[0], bb[0], bsm[0]);
+          split_op<OP>(f[4 * LDB], bb[1], bsm[1]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_op<OP>(acc[mt][nt], ab[mt], asm_[mt], bb, bsm);
+        }
+      }
+    } else {  // one m16n8k16 a tile per step: k is the step's 16 rows, paired 2t, 2t + 1
+      uint32_t af[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        const float* f = as + (kk + t) * LDA + mt * 16 + g;  // A[p][k] = slab[k][p]
-        split_op<op_of<D>>(f[0], ab[mt][0], asm_[mt][0]);
-        split_op<op_of<D>>(f[8], ab[mt][1], asm_[mt][1]);
-        split_op<op_of<D>>(f[4 * LDA], ab[mt][2], asm_[mt][2]);
-        split_op<op_of<D>>(f[4 * LDA + 8], ab[mt][3], asm_[mt][3]);
+        const TA* f = as + 2 * t * LDA + mt * 16 + g;
+        af[mt][0] = pair_strided(f, LDA);
+        af[mt][1] = pair_strided(f + 8, LDA);
+        af[mt][2] = pair_strided(f + 8 * LDA, LDA);
+        af[mt][3] = pair_strided(f + 8 * LDA + 8, LDA);
       }
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        const float* f = bs + (kk + t) * LDB + nt * 8 + g;  // B[k][q] = slab[k][q]
-        uint32_t bb[2], bsm[2];
-        split_op<op_of<D>>(f[0], bb[0], bsm[0]);
-        split_op<op_of<D>>(f[4 * LDB], bb[1], bsm[1]);
+        const TB* f = bs + 2 * t * LDB + nt * 8 + g;
+        const uint32_t bf[2] = {pair_strided(f, LDB), pair_strided(f + 8 * LDB, LDB)};
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_op<op_of<D>>(acc[mt][nt], ab[mt], asm_[mt], bb, bsm);
+        for (int mt = 0; mt < MT; ++mt) mma_bf16_k16(acc[mt][nt], af[mt], bf);
       }
     }
     __syncwarp();
@@ -442,19 +587,26 @@ product_rows_kernel(const float* __restrict__ a, const float* __restrict__ b, in
 
 // Windows form. Block (tile, split) owns outputs [p0, p0 + 32) x [q0, q0 +
 // 56) and windows [w0, w0 + w_split); a step is kChanStep channels of one
-// window: A rows [32][kLdk] and B rows [56][kLdk], each row a node's
-// channels (contiguous in memory). Channels past K (layer 0 has 2) stay 0
-// up to the mma's k = 8.
-template <int D>
+// window: A rows [32][LDK] and B rows [56][LDK] (windows_ld), each row a
+// node's channels (contiguous in memory): the mma's k is the channel, so a
+// bf16 fragment register is two neighbouring channels. Channels past K
+// (layer 0 has 2) stay 0 up to the mma's k (8 for a step of 8 channels or
+// fewer, else 16).
+template <int OP, class TA, class TB>
 __global__ void __launch_bounds__(kThreads)
-product_windows_kernel(const float* __restrict__ a, const float* __restrict__ b, int P, int Q,
-                       int W, int K, int w_split, float* out, int vec) {
-  constexpr int MT = kWinMT, NT = kWinNT, PT = 16 * MT, QT = 8 * NT;
-  constexpr int SLAB = (PT + QT) * kLdk;
+product_windows_kernel(const TA* __restrict__ a, const TB* __restrict__ b, int P, int Q, int W,
+                       int K, int w_split, float* out, int ce_a, int ce_b) {
+  constexpr int MT = kWinMT, NT = kWinNT, PT = 16 * MT, QT = 8 * NT, LDK = windows_ld<OP>();
+  constexpr int SA = PT * LDK, SB = QT * LDK;  // elements
+  constexpr int SLAB = SA * (int)sizeof(TA) + SB * (int)sizeof(TB);  // bytes
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  float* slabs = smem + warp * kStages * SLAB;
+  char* slabs = reinterpret_cast<char*>(smem) + warp * kStages * SLAB;
+  auto slab_a = [&](int j) { return reinterpret_cast<TA*>(slabs + (j % kStages) * SLAB); };
+  auto slab_b = [&](int j) {
+    return reinterpret_cast<TB*>(slabs + (j % kStages) * SLAB + SA * (int)sizeof(TA));
+  };
   const int tiles_q = (Q + QT - 1) / QT;
   const int p0 = (blockIdx.x / tiles_q) * PT, q0 = (blockIdx.x % tiles_q) * QT;
   const int pw = P - p0 < PT ? P - p0 : PT, qw = Q - q0 < QT ? Q - q0 : QT;
@@ -463,19 +615,22 @@ product_windows_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const int chunks = (K + kChanStep - 1) / kChanStep;
   const long long steps = w1 > w0 ? (long long)(w1 - w0) * chunks : 0;
   const int mine = steps > warp ? (int)((steps - warp + kWarps - 1) / kWarps) : 0;
-  for (int i = lane; i < kStages * SLAB; i += 32) slabs[i] = 0.0f;
+  for (int i = lane; i < kStages * SLAB / 4; i += 32) reinterpret_cast<float*>(slabs)[i] = 0.0f;
   __syncwarp();
   auto stage_step = [&](int j) {
     if (j < mine) {
       const int s = warp + j * kWarps, win = w0 + s / chunks, c0 = (s % chunks) * kChanStep;
       const int kc = K - c0 < kChanStep ? K - c0 : kChanStep;
-      float* as = slabs + (j % kStages) * SLAB;
-      float* bs = as + PT * kLdk;
-      if (kc < kChanStep && chunks > 1)  // a short last chunk after full ones: clear the rest
-        for (int r = lane; r < PT + QT; r += 32)
-          for (int c = kc; c < kChanStep; ++c) as[r * kLdk + c] = 0.0f;
-      stage_block(as, kLdk, a + ((long long)win * P + p0) * K + c0, K, pw, kc, vec);
-      stage_block(bs, kLdk, b + ((long long)win * Q + q0) * K + c0, K, qw, kc, vec);
+      TA* as = slab_a(j);
+      TB* bs = slab_b(j);
+      if (kc < kChanStep && chunks > 1) {  // a short last chunk after full ones: clear the rest
+        for (int r = lane; r < PT; r += 32)
+          for (int c = kc; c < kChanStep; ++c) set_zero(as, r * LDK + c);
+        for (int r = lane; r < QT; r += 32)
+          for (int c = kc; c < kChanStep; ++c) set_zero(bs, r * LDK + c);
+      }
+      stage_block(as, LDK, a + ((long long)win * P + p0) * K + c0, K, pw, kc, ce_a);
+      stage_block(bs, LDK, b + ((long long)win * Q + q0) * K + c0, K, qw, kc, ce_b);
     }
     cp_async_commit();
   };
@@ -486,28 +641,59 @@ product_windows_kernel(const float* __restrict__ a, const float* __restrict__ b,
     stage_step(j + kStages - 1);
     cp_async_wait<kStages - 1>();
     __syncwarp();
-    const float* as = slabs + (j % kStages) * SLAB;
-    const float* bs = as + PT * kLdk;
+    const TA* as = slab_a(j);
+    const TB* bs = slab_b(j);
     const int s = warp + j * kWarps, c0 = (s % chunks) * kChanStep;
     const int kc = K - c0 < kChanStep ? K - c0 : kChanStep;
-    for (int kk = 0; kk < kc; kk += 8) {
-      uint32_t ab[MT][4], asm_[MT][4];
+    if constexpr (OP == kOpF32) {
+      for (int kk = 0; kk < kc; kk += 8) {
+        uint32_t ab[MT][4], asm_[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const float* f = as + (mt * 16 + g) * LDK + kk + t;  // A[p][k] = slab[p][k]
+          split_op<OP>(f[0], ab[mt][0], asm_[mt][0]);
+          split_op<OP>(f[8 * LDK], ab[mt][1], asm_[mt][1]);
+          split_op<OP>(f[4], ab[mt][2], asm_[mt][2]);
+          split_op<OP>(f[8 * LDK + 4], ab[mt][3], asm_[mt][3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float* f = bs + (nt * 8 + g) * LDK + kk + t;  // B[k][q] = slab[q][k]
+          uint32_t bb[2], bsm[2];
+          split_op<OP>(f[0], bb[0], bsm[0]);
+          split_op<OP>(f[4], bb[1], bsm[1]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_op<OP>(acc[mt][nt], ab[mt], asm_[mt], bb, bsm);
+        }
+      }
+    } else {  // channels 2t, 2t + 1 (and + 8) of a node: one m16n8k16, or m16n8k8 for kc <= 8
+      const bool k16 = kc > 8;
+      uint32_t af[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        const float* f = as + (mt * 16 + g) * kLdk + kk + t;  // A[p][k] = slab[p][k]
-        split_op<op_of<D>>(f[0], ab[mt][0], asm_[mt][0]);
-        split_op<op_of<D>>(f[8 * kLdk], ab[mt][1], asm_[mt][1]);
-        split_op<op_of<D>>(f[4], ab[mt][2], asm_[mt][2]);
-        split_op<op_of<D>>(f[8 * kLdk + 4], ab[mt][3], asm_[mt][3]);
+        const TA* f = as + (mt * 16 + g) * LDK + 2 * t;
+        af[mt][0] = pair_next(f);
+        af[mt][1] = pair_next(f + 8 * LDK);
+        if (k16) {
+          af[mt][2] = pair_next(f + 8);
+          af[mt][3] = pair_next(f + 8 * LDK + 8);
+        }
       }
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        const float* f = bs + (nt * 8 + g) * kLdk + kk + t;  // B[k][q] = slab[q][k]
-        uint32_t bb[2], bsm[2];
-        split_op<op_of<D>>(f[0], bb[0], bsm[0]);
-        split_op<op_of<D>>(f[4], bb[1], bsm[1]);
+        const TB* f = bs + (nt * 8 + g) * LDK + 2 * t;
+        const uint32_t b0 = pair_next(f);
+        if (k16) {
+          const uint32_t bf[2] = {b0, pair_next(f + 8)};
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_op<op_of<D>>(acc[mt][nt], ab[mt], asm_[mt], bb, bsm);
+          for (int mt = 0; mt < MT; ++mt) mma_bf16_k16(acc[mt][nt], af[mt], bf);
+        } else {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            const uint32_t a8[2] = {af[mt][0], af[mt][1]};
+            mma_bf16_k8(acc[mt][nt], a8, b0);
+          }
+        }
       }
     }
     __syncwarp();
@@ -550,6 +736,11 @@ __host__ __device__ inline int pre_windows(int ci) {
   const int w = 32 / ci;
   return w >= 4 ? 4 : (w >= 2 ? 2 : 1);
 }
+
+// Blocks an SM bwd_pre and bwd_dx are compiled for, in every form (their
+// registers bounded to fit them): at the flagship layers shared memory
+// bounds bwd_pre to 2, and bwd_dx's 3xTF32 form fits 4.
+constexpr int kPreBlocks = 2, kDxBlocks = 4;
 
 // What a column of fwd_pre's and bwd_pre's tiles carries from lane to warp
 // to window: fwd_pre its moments (count, mean t, M2 t, mean r, M2 r),
@@ -598,11 +789,16 @@ struct PreBlock {
 // bit): stage the block's wb windows of x (as stored: rounded under bf16) and
 // the layer's W and W_res in shared memory, then g = M^T x on the windows side
 // by side as the columns of one product, M read from L2 as A fragments; g
-// (stored) also to g_buf unless it is null. Ends synchronised.
-template <int D>
+// (stored) also to g_buf unless it is null. Ends synchronised. NATIVE runs
+// the products on the bf16 mma (bwd_pre under a bf16 form), M^T's pairs one
+// 32-bit load of mtb (graph_operand_kernel's bf16 M^T) where it is given,
+// else packed from M's fp32 values, as the other operands; else warp_tile in
+// form D's precision (K2's fwd_pre in every form, bwd_pre under float32).
+template <int D, bool NATIVE, class G>
 __device__ __forceinline__ PreBlock pre_graph(const float* __restrict__ x, const Layer& L, int n,
                                               int batch, int wb, const PreSmem& sm, float* smem,
-                                              float* g_buf) {
+                                              G* g_buf,
+                                              const __nv_bfloat16* __restrict__ mtb = nullptr) {
   const int ci = L.ci, co = L.co, tid = threadIdx.x, warp = tid >> 5;
   const int rows = sm.rows, ldx = sm.ldx, ldw = sm.ldw, cols = wb * ci;
   float* xs = smem;
@@ -630,8 +826,19 @@ __device__ __forceinline__ PreBlock pre_graph(const float* __restrict__ x, const
   for (int r0 = warp * 16; r0 < rows; r0 += kWarps * 16)
     for (int c0 = 0; c0 < ctiles; c0 += 4) {
       float acc[4][4] = {};
-      warp_tile<4, op_of<D>>(acc, r0, round8(n), 8 * c0, ctiles - c0 < 4 ? ctiles - c0 : 4,
-                             mt_of, xs_of);
+      const int tiles = ctiles - c0 < 4 ? ctiles - c0 : 4;
+      if constexpr (NATIVE) {
+        if (mtb != nullptr) {  // uniform over the block
+          auto mt_pair = [&](int r, int k) -> uint32_t {
+            return r < n ? *reinterpret_cast<const uint32_t*>(mtb + (long long)r * round8(n) + k)
+                         : 0u;
+          };
+          warp_tile_bf16<4>(acc, r0, round8(n), 8 * c0, tiles, mt_pair, pairs_b(xs_of));
+        } else {
+          warp_tile_bf16<4>(acc, r0, round8(n), 8 * c0, tiles, pairs_a(mt_of), pairs_b(xs_of));
+        }
+      } else
+        warp_tile<4, op_of<D>>(acc, r0, round8(n), 8 * c0, tiles, mt_of, xs_of);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (c0 + j >= ctiles) break;
@@ -641,7 +848,7 @@ __device__ __forceinline__ PreBlock pre_graph(const float* __restrict__ x, const
           const float g = stored<D>(acc[j][i]);
           gs[r * ldx + c] = g;
           if (g_buf != nullptr && r < n && c < cols && w < nwin)
-            g_buf[((long long)(win0 + w) * n + r) * ci + c - w * ci] = g;
+            put(g_buf + ((long long)(win0 + w) * n + r) * ci + c - w * ci, g);
         }
       }
     }
@@ -656,7 +863,8 @@ __device__ __forceinline__ PreBlock pre_graph(const float* __restrict__ x, const
 // products (loads whose latency they hide), take(r0, ot, t, r) after, with
 // t and r in the accumulator layout (frag_row, frag_col; 0 past the nodes
 // and channels; stored); flush(ot, grp) after a channel tile's last node tile.
-template <int D, class Fetch, class Take, class Flush>
+// NATIVE as pre_graph's.
+template <int D, bool NATIVE, class Fetch, class Take, class Flush>
 __device__ __forceinline__ void pre_window(const PreBlock& pb, const Layer& L, int n, int w,
                                            const Fetch& fetch, const Take& take,
                                            const Flush& flush) {
@@ -674,8 +882,14 @@ __device__ __forceinline__ void pre_window(const PreBlock& pb, const Layer& L, i
     for (int r0 = 16 * grp; r0 < pb.rows; r0 += 16 * groups) {
       fetch(r0, ot);
       float at[1][4] = {}, ar[1][4] = {};
-      warp_tile<1, op_of<D>>(at, r0, round8(ci), 8 * ot, 1, g_of, w_of);
-      if (!L.identity) warp_tile<1, op_of<D>>(ar, r0, round8(ci), 8 * ot, 1, x_of, wr_of);
+      if constexpr (NATIVE) {
+        warp_tile_bf16<1>(at, r0, round8(ci), 8 * ot, 1, pairs_a(g_of), pairs_b(w_of));
+        if (!L.identity)
+          warp_tile_bf16<1>(ar, r0, round8(ci), 8 * ot, 1, pairs_a(x_of), pairs_b(wr_of));
+      } else {
+        warp_tile<1, op_of<D>>(at, r0, round8(ci), 8 * ot, 1, g_of, w_of);
+        if (!L.identity) warp_tile<1, op_of<D>>(ar, r0, round8(ci), 8 * ot, 1, x_of, wr_of);
+      }
       float t[4], r[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -690,18 +904,31 @@ __device__ __forceinline__ void pre_window(const PreBlock& pb, const Layer& L, i
   }
 }
 
-// bwd_dx's shared memory, in floats: dg [rows][lddg] (C_in rounded up to 8,
-// + 4), W^T and W_res^T [co][ldwt] (C_in rounded up to 8, + 8) and the
-// window's BN-backward constants [6][co].
+// bwd_dx's shared memory. Under float32 (3xTF32 fragments of fp32 values):
+// dg [rows][lddg] (C_in rounded up to 8, + 4) and W^T and W_res^T [co][ldwt]
+// (C_in rounded up to 8, + 8) in fp32. Under the bf16 forms (bf16 mma
+// fragments, a register a pair along k): dg^T [C_in rounded up to 8][ldg]
+// (the node tiles' rows + 8) and W and W_res [C_in rounded up to 8][ldw]
+// (C_out rounded up to 16, + 8) in bf16, zero past C_in and C_out, so the
+// pair dg[k][c], dg[k + 1][c] (and W[c][o], W[c][o + 1]) is one 32-bit load
+// and, a row being 4 mod 8 words, a fragment load's 32 lanes hit 32 banks.
+// Then, at byte offset `consts`, the window's BN-backward constants [6][co]
+// (fp32: a, b, c of t and of r), and under "bfloat16" (raw_scratch) the
+// block's t_mean and r_mean after them. `total` is in bytes.
 struct DxSmem {
-  int rows, lddg, ldwt, total;
+  int rows, lddg, ldwt, ldg, ldw, consts, total;
 };
+template <int D>
 __host__ __device__ inline DxSmem dx_smem(int n, int ci, int co) {
   DxSmem s;
   s.rows = (n + 15) / 16 * 16;
   s.lddg = round8(ci) + 4;
   s.ldwt = round8(ci) + 8;
-  s.total = s.rows * s.lddg + 2 * co * s.ldwt + 6 * co;
+  s.ldg = s.rows + 8;
+  s.ldw = (co + 15) / 16 * 16 + 8;
+  s.consts = D == kFloat32 ? 4 * (s.rows * s.lddg + 2 * co * s.ldwt)
+                           : 2 * round8(ci) * (s.ldg + 2 * s.ldw);
+  s.total = s.consts + 4 * (raw_scratch<D> ? 8 : 6) * co;
   return s;
 }
 
@@ -741,7 +968,7 @@ fwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int batch, int wb, f
   extern __shared__ __align__(16) float smem[];
   const int co = L.co, tid = threadIdx.x, lane = tid & 31;
   const PreSmem sm = pre_smem(n, L.ci, co, wb, kFwdMoments);
-  const PreBlock pb = pre_graph<D>(x, L, n, batch, wb, sm, smem, nullptr);
+  const PreBlock pb = pre_graph<D, false>(x, L, n, batch, wb, sm, smem, (float*)nullptr);
   const int cop = round8(co), groups = pre_groups(co);
   float* csum = smem + sm.csum;  // [groups][kFwdMoments][cop]
   float* wred = smem + sm.wred + (tid >> 5) * 32 * 2 * kFwdMoments;
@@ -778,7 +1005,7 @@ fwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int batch, int wb, f
 #pragma unroll
       for (int q = 0; q < 2 * kFwdMoments; ++q) m[q / kFwdMoments][q % kFwdMoments] = 0.0f;
     };
-    pre_window<D>(pb, L, n, w, [](int, int) {}, take, flush);
+    pre_window<D, false>(pb, L, n, w, [](int, int) {}, take, flush);
     __syncthreads();
     float* pw = part + (long long)win * 4 * co;
     for (int o = tid; o < co; o += kThreads) {
@@ -966,12 +1193,14 @@ projector_sum_kernel(const float* __restrict__ part, int batch, int latent, int 
 // rows i < n * C_out of wp, into dy [batch][rows] (bwd_pre's dpre buffer,
 // which bwd_pre reads it from and writes dpre over). A block owns 128 rows
 // of wp (16 a warp) and 64 windows (8 column tiles), so wp is read once per
-// 64 windows, not once per window.
+// 64 windows, not once per window. 3xTF32 under float32; under the bf16
+// forms one m16n8k16 a 16-deep step (latent 16: one), its pairs packed from
+// wp's and dz's fp32 values.
 constexpr int kDyRows = 16 * kWarps, kDyWindows = 64;
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 projector_dy_kernel(const float* __restrict__ dz, const float* __restrict__ wp, int batch,
-                    int rows, int latent, float* dy) {
+                    int rows, int latent, scratch_t<D>* dy) {
   const int warp = threadIdx.x >> 5;
   const int r0 = blockIdx.x * kDyRows + warp * 16, w0 = blockIdx.y * kDyWindows;
   const int wn = batch - w0 < kDyWindows ? batch - w0 : kDyWindows;
@@ -982,43 +1211,54 @@ projector_dy_kernel(const float* __restrict__ dz, const float* __restrict__ wp, 
     return l < latent && w < batch ? __ldg(dz + (long long)w * latent + l) : 0.0f;
   };
   float acc[kDyWindows / 8][4] = {};
-  warp_tile<kDyWindows / 8, op_of<D>>(acc, r0, round8(latent), w0, (wn + 7) / 8, wp_of, dz_of);
+  if constexpr (D == kFloat32)
+    warp_tile<kDyWindows / 8, kOpF32>(acc, r0, round8(latent), w0, (wn + 7) / 8, wp_of, dz_of);
+  else
+    warp_tile_bf16<kDyWindows / 8>(acc, r0, round8(latent), w0, (wn + 7) / 8, pairs_a(wp_of),
+                                   pairs_b(dz_of));
 #pragma unroll
   for (int j = 0; j < kDyWindows / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = r0 + frag_row(i), w = w0 + 8 * j + frag_col(i);
-      if (r < rows && w < batch) dy[(long long)w * rows + r] = stored<D>(acc[j][i]);
+      if (r < rows && w < batch) put(dy + (long long)w * rows + r, stored<D>(acc[j][i]));
     }
 }
 
 // Backward pass 1, one block per wb windows (pre_windows): recompute g, t, r
 // and pre from the saved input and block statistics; dpre = PReLU'(pre) dy,
-// with dy from the layer above (K3) or projector_dy_kernel (K4). Writes g,
-// the centred tc = t - t_mean and rc = r - r_mean, dpre to scratch,
-// per-window sums [3][co] = (sum dpre, sum dpre tc, sum dpre rc) and the
-// window's share of dalpha = sum over PReLU's negative branch of dy pre.
-// Working from centred values keeps the digits of a channel whose spread is
-// small against its mean (the TPU kernel's s2 - mean s1 loses them).
+// with dy from the layer above (K3) or projector_dy_kernel (K4) in dpre_buf
+// (under "bfloat16", where that buffer is bf16, dy is null for K4). Writes g, the centred tc = t - t_mean and rc = r -
+// r_mean (under "bfloat16" t and r themselves, bf16 values: raw_scratch) and
+// dpre to scratch (form D's), per-window sums [3][co] = (sum dpre, sum dpre
+// tc, sum dpre rc) and the window's share of dalpha = sum over PReLU's
+// negative branch of dy pre. Working from centred values keeps the digits
+// of a channel whose spread is small against its mean (the TPU kernel's s2
+// - mean s1 loses them).
 // PReLU's branch is the forward's, read from the sign of its output y (for
 // alpha >= 0; a negative slope gives both branches one sign, and then the
 // branch is taken from the recomputed pre): a pre-activation within
 // rounding of 0 could otherwise land on the other side in this rounding of
 // the recomputation, and one such element moves dW and dM by more than the
 // gradients' tolerance.
-// g, t and r are fwd_pre's own arithmetic (pre_graph, pre_window), the
-// PReLU backward and the column sums taken from the accumulators. dy is
-// read, and dpre written, as stored (under bf16, dpre = bf16(alpha dy) on
-// the negative branch, alpha as it is).
+// g, t and r are fwd_pre's routine (pre_graph, pre_window; under a bf16
+// form on the bf16 mma, so their sums run in another order than the
+// forward's TF32 ones), the PReLU backward and the column sums taken from
+// the accumulators. dy is read, and dpre written, as stored (under bf16,
+// dpre = bf16(alpha dy) on the negative branch, alpha as it is).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kPreBlocks)
 bwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int ghost, int batch, int wb,
-               const float* __restrict__ y, const float* dy, float* g_buf, float* t_buf,
-               float* r_buf, float* dpre_buf, float* part, float* dalpha_part) {
+               const float* __restrict__ y, const float* dy, scratch_t<D>* g_buf,
+               scratch_t<D>* t_buf, scratch_t<D>* r_buf, scratch_t<D>* dpre_buf, float* part,
+               float* dalpha_part, const scratch_t<D>* __restrict__ graph) {
+  constexpr bool kNative = D != kFloat32;
   extern __shared__ __align__(16) float smem[];
   const int co = L.co, tid = threadIdx.x, lane = tid & 31;
   const PreSmem sm = pre_smem(n, L.ci, co, wb, kBwdSums);
-  const PreBlock pb = pre_graph<D>(x, L, n, batch, wb, sm, smem, g_buf);
+  const __nv_bfloat16* mtb = nullptr;  // bf16 M^T: the second half of the graph operand
+  if constexpr (D == kBfloat16) mtb = graph + (long long)n * graph_ld<D>(n);
+  const PreBlock pb = pre_graph<D, kNative>(x, L, n, batch, wb, sm, smem, g_buf, mtb);
   const int cop = round8(co), groups = pre_groups(co);
   float* csum = smem + sm.csum;  // [groups][kBwdSums][cop]
   float* wred = smem + sm.wred + (tid >> 5) * 32 * 2 * kBwdSums;
@@ -1035,8 +1275,12 @@ bwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int ghost, int batch
       for (int i = 0; i < 4; ++i) {
         const int r = r0 + frag_row(i), o = 8 * ot + frag_col(i);
         const long long e = base + (long long)r * co + o;
-        yv[i] = r < n && o < co ? y[e] : 0.0f;
-        dyv[i] = r < n && o < co ? stored<D>(dy[e]) : 0.0f;
+        const bool in = r < n && o < co;
+        yv[i] = in ? y[e] : 0.0f;
+        if constexpr (raw_scratch<D>)
+          dyv[i] = !in ? 0.0f : dy != nullptr ? stored<D>(dy[e]) : to_f(dpre_buf[e]);
+        else
+          dyv[i] = in ? stored<D>(dy[e]) : 0.0f;
       }
     };
     auto take = [&](int r0, int ot, const float (&t)[4], const float (&rv)[4]) {
@@ -1052,9 +1296,9 @@ bwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int ghost, int batch
         const float g_out = dyv[i];
         if (neg) dal = fmaf(g_out, pre, dal);
         const float dp = stored<D>(neg ? alpha * g_out : g_out);
-        t_buf[e] = tc;
-        r_buf[e] = rc;
-        dpre_buf[e] = dp;
+        put(t_buf + e, raw_scratch<D> ? t[i] : tc);
+        put(r_buf + e, raw_scratch<D> ? rv[i] : rc);
+        put(dpre_buf + e, dp);
         float* sc = s + kBwdSums * (i & 1);
         sc[0] += dp;
         sc[1] = fmaf(dp, tc, sc[1]);
@@ -1076,7 +1320,7 @@ bwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int ghost, int batch
 #pragma unroll
       for (int q = 0; q < 2 * kBwdSums; ++q) s[q] = 0.0f;
     };
-    pre_window<D>(pb, L, n, w, fetch, take, flush);
+    pre_window<D, kNative>(pb, L, n, w, fetch, take, flush);
     red[tid] = dal;
     __syncthreads();
     block_reduce(red, 1);
@@ -1093,50 +1337,122 @@ bwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int ghost, int batch
 }
 
 // Backward pass 4, one block per window: dt = a dpre + b tc + c (written over
-// tc) as the A operand of dg = dt W^T (to scratch, for dM, and to shared
-// memory), then, unless dx is null, dr likewise (over rc; an identity
-// residual has dr = dpre) as the A operand of dr W_res^T, which adds to
-// dx = M dg. Without dx (layer 0) dr is written by a plain loop. dt and dr
-// never sit in shared memory: a loader computes each element from dpre and
-// tc (rc) once and writes it back, and later column chunks (C_in > 32) read
-// it again. dg and dx are stored.
+// tc; under "bfloat16" over t, tc = t - t_mean), as the A operand of dg = dt
+// W^T (to scratch, for dM, and to shared memory), then, unless dx is null,
+// dr likewise (over rc or r; an
+// identity residual has dr = dpre) as the A operand of dr W_res^T, which
+// adds to dx = M dg. Without dx (layer 0) dr is written by a plain loop. dt
+// and dr never sit in shared memory: a loader computes each element from
+// dpre and t (r) once and writes it back, and later column chunks (C_in >
+// 32) read it again. dg and dx are stored. Under float32 the products are
+// 3xTF32 from fp32 shared memory and M^T; under the bf16 forms they run on
+// the bf16 mma: dt and dr computed a pair at a time (one 32-bit load of t,
+// r and dpre each and one store back where the scratch is bf16), W, W_res
+// and dg^T as bf16 pairs in shared memory, M's pairs one 32-bit load of the
+// bf16 graph operand (graph_operand_kernel; packed from M^T under
+// "bfloat16_f32store").
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_dx_kernel(Layer L, int n, int ghost, const float* __restrict__ consts, float* t_buf,
-              float* r_buf, const float* __restrict__ dpre_buf, float* dg_buf,
-              const float* __restrict__ mt, float* dx) {
+__global__ void __launch_bounds__(kThreads, kDxBlocks)
+bwd_dx_kernel(Layer L, int n, int ghost, const float* __restrict__ consts,
+              scratch_t<D>* t_buf, scratch_t<D>* r_buf,
+              const scratch_t<D>* __restrict__ dpre_buf, scratch_t<D>* dg_buf,
+              const scratch_t<D>* __restrict__ mt, float* dx) {
+  using S = scratch_t<D>;
   extern __shared__ __align__(16) float smem[];
   const int ci = L.ci, co = L.co, tid = threadIdx.x, warp = tid >> 5, win = blockIdx.x;
-  const DxSmem sm = dx_smem(n, ci, co);
-  const int rows = sm.rows, lddg = sm.lddg, ldwt = sm.ldwt;
-  float* dgs = smem;
-  float* wts = dgs + rows * lddg;  // W^T [co][ldwt]
-  float* wrts = wts + co * ldwt;   // W_res^T
-  float* cs = wrts + co * ldwt;
-  for (int i = tid; i < co * ldwt; i += kThreads) {
-    const int o = i / ldwt, c = i - o * ldwt;
-    wts[i] = c < ci ? L.w[c * co + o] : 0.0f;
-    wrts[i] = c < ci && !L.identity ? L.wr[c * co + o] : 0.0f;
-  }
+  const DxSmem sm = dx_smem<D>(n, ci, co);
+  const int rows = sm.rows, ci8 = round8(ci);
+  float* cs = reinterpret_cast<float*>(reinterpret_cast<char*>(smem) + sm.consts);
   const float* csg = consts + (long long)(win / ghost) * 6 * co;
   for (int i = tid; i < 6 * co; i += kThreads) cs[i] = csg[i];
+  if constexpr (raw_scratch<D>) {
+    const float* st = L.stats + (long long)(win / ghost) * 4 * co;  // the block's means
+    for (int o = tid; o < co; o += kThreads) {
+      cs[6 * co + o] = st[o];
+      cs[7 * co + o] = st[2 * co + o];  // 0 for an identity residual
+    }
+  }
+  // fp32 (float32): W^T, W_res^T [co][ldwt] after dg [rows][lddg]
+  float* dgs = smem;
+  float* wts = dgs + rows * sm.lddg;
+  float* wrts = wts + co * sm.ldwt;
+  // bf16 pairs (bf16 forms): dg^T [ci8][ldg], W, W_res [ci8][ldw]
+  __nv_bfloat16* dgt = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* wb = dgt + ci8 * sm.ldg;
+  __nv_bfloat16* wrb = wb + ci8 * sm.ldw;
+  if constexpr (D == kFloat32) {
+    for (int i = tid; i < co * sm.ldwt; i += kThreads) {
+      const int o = i / sm.ldwt, c = i - o * sm.ldwt;
+      wts[i] = c < ci ? L.w[c * co + o] : 0.0f;
+      wrts[i] = c < ci && !L.identity ? L.wr[c * co + o] : 0.0f;
+    }
+  } else {
+    for (int i = tid; i < ci8 * sm.ldw; i += kThreads) {
+      const int c = i / sm.ldw, o = i - c * sm.ldw;
+      const bool in = c < ci && o < co;
+      put(wb + i, in ? L.w[c * co + o] : 0.0f);
+      put(wrb + i, in && !L.identity ? L.wr[c * co + o] : 0.0f);
+    }
+  }
   __syncthreads();
   const long long base = (long long)win * n * co;
-  const int ctiles = round8(ci) / 8;
-  auto wt_of = [&](int o, int c) { return o < co ? wts[o * ldwt + c] : 0.0f; };
+  const int ctiles = ci8 / 8;
+  // d_raw = a dpre + b (raw - mean) + c of t (q = 0) or r (q = 1) at element e,
+  // channel o; the scratch holds raw - mean unless raw_scratch
+  auto d_of = [&](int q, long long e, int o, const S* raw) {
+    float centred = to_f(raw[e]);
+    if constexpr (raw_scratch<D>) centred -= cs[(6 + q) * co + o];
+    return fmaf(cs[3 * q * co + o], to_f(dpre_buf[e]),
+                fmaf(cs[(3 * q + 1) * co + o], centred, cs[(3 * q + 2) * co + o]));
+  };
+  // The bf16 pair (d_raw at channels o, o + 1 of node r) of t (q = 0) or r:
+  // computed and written over raw in the first column chunk, read back after.
+  auto d_pair = [&](int q, S* raw, int r, int o, bool first) -> uint32_t {
+    if (r >= n || o >= co) return 0u;
+    const long long e = base + (long long)r * co + o;
+    const bool two = o + 1 < co;
+    if constexpr (D == kBfloat16) {
+      const bool word = two && (e & 1) == 0;  // both in one aligned 32-bit word
+      if (!first)
+        return word ? *reinterpret_cast<const uint32_t*>(raw + e)
+                    : bf16_pair(raw[e], two ? raw[e + 1] : __float2bfloat16(0.0f));
+      const uint32_t pr = pack_bf16x2(d_of(q, e, o, raw), two ? d_of(q, e + 1, o + 1, raw) : 0.0f);
+      if (word) {
+        *reinterpret_cast<uint32_t*>(raw + e) = pr;
+      } else {
+        *reinterpret_cast<unsigned short*>(raw + e) = (unsigned short)(pr & 0xFFFFu);
+        if (two) *reinterpret_cast<unsigned short*>(raw + e + 1) = (unsigned short)(pr >> 16);
+      }
+      return pr;
+    } else {
+      if (!first) return pack_bf16x2(to_f(raw[e]), two ? to_f(raw[e + 1]) : 0.0f);
+      const float v0 = d_of(q, e, o, raw), v1 = two ? d_of(q, e + 1, o + 1, raw) : 0.0f;
+      raw[e] = v0;
+      if (two) raw[e + 1] = v1;
+      return pack_bf16x2(v0, v1);
+    }
+  };
+  auto word_at = [](const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); };
   for (int r0 = warp * 16; r0 < rows; r0 += kWarps * 16)
     for (int c0 = 0; c0 < ctiles; c0 += 4) {
-      auto dt_of = [&](int r, int o) {
-        if (r >= n || o >= co) return 0.0f;
-        const long long e = base + (long long)r * co + o;
-        if (c0 > 0) return t_buf[e];  // this lane wrote dt there in the first chunk
-        const float v = fmaf(cs[o], dpre_buf[e], fmaf(cs[co + o], t_buf[e], cs[2 * co + o]));
-        t_buf[e] = v;
-        return v;
-      };
+      const int tiles = ctiles - c0 < 4 ? ctiles - c0 : 4;
       float acc[4][4] = {};
-      warp_tile<4, op_of<D>>(acc, r0, round8(co), 8 * c0, ctiles - c0 < 4 ? ctiles - c0 : 4,
-                             dt_of, wt_of);
+      if constexpr (D == kFloat32) {
+        auto dt_of = [&](int r, int o) {
+          if (r >= n || o >= co) return 0.0f;
+          const long long e = base + (long long)r * co + o;
+          if (c0 > 0) return t_buf[e];  // this lane wrote dt there in the first chunk
+          const float v = d_of(0, e, o, t_buf);
+          t_buf[e] = v;
+          return v;
+        };
+        auto wt_of = [&](int o, int c) { return o < co ? wts[o * sm.ldwt + c] : 0.0f; };
+        warp_tile<4, kOpF32>(acc, r0, round8(co), 8 * c0, tiles, dt_of, wt_of);
+      } else {
+        auto dt_pair = [&](int r, int o) { return d_pair(0, t_buf, r, o, c0 == 0); };
+        auto w_pair = [&](int o, int c) { return word_at(wb + c * sm.ldw + o); };
+        warp_tile_bf16<4>(acc, r0, round8(co), 8 * c0, tiles, dt_pair, w_pair);
+      }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (c0 + j >= ctiles) break;
@@ -1144,38 +1460,60 @@ bwd_dx_kernel(Layer L, int n, int ghost, const float* __restrict__ consts, float
         for (int i = 0; i < 4; ++i) {
           const int r = r0 + frag_row(i), c = 8 * (c0 + j) + frag_col(i);
           const float dg = stored<D>(acc[j][i]);
-          dgs[r * lddg + c] = dg;
-          if (r < n && c < ci) dg_buf[((long long)win * n + r) * ci + c] = dg;
+          if constexpr (D == kFloat32)
+            dgs[r * sm.lddg + c] = dg;
+          else
+            put(dgt + c * sm.ldg + r, dg);
+          if (r < n && c < ci) put(dg_buf + ((long long)win * n + r) * ci + c, dg);
         }
       }
     }
   if (dx == nullptr) {  // uniform over the block
     if (!L.identity)
       for (int i = tid; i < n * co; i += kThreads) {
-        const int o = i % co;
         const long long e = base + i;
-        r_buf[e] = fmaf(cs[3 * co + o], dpre_buf[e], fmaf(cs[4 * co + o], r_buf[e], cs[5 * co + o]));
+        put(r_buf + e, d_of(1, e, i % co, r_buf));
       }
     return;
   }
   __syncthreads();
-  auto m_of = [&](int r, int k) { return r < n && k < n ? __ldg(mt + (long long)k * n + r) : 0.0f; };
-  auto dg_of = [&](int k, int c) { return dgs[k * lddg + c]; };
-  auto wrt_of = [&](int o, int c) { return o < co ? wrts[o * ldwt + c] : 0.0f; };
   for (int r0 = warp * 16; r0 < rows; r0 += kWarps * 16)
     for (int c0 = 0; c0 < ctiles; c0 += 4) {
-      auto dr_of = [&](int r, int o) {
-        if (r >= n || o >= co) return 0.0f;
-        const long long e = base + (long long)r * co + o;
-        if (c0 > 0) return r_buf[e];
-        const float v = fmaf(cs[3 * co + o], dpre_buf[e], fmaf(cs[4 * co + o], r_buf[e], cs[5 * co + o]));
-        r_buf[e] = v;
-        return v;
-      };
       const int tiles = ctiles - c0 < 4 ? ctiles - c0 : 4;
       float acc[4][4] = {};
-      warp_tile<4, op_of<D>>(acc, r0, round8(n), 8 * c0, tiles, m_of, dg_of);  // M dg
-      if (!L.identity) warp_tile<4, op_of<D>>(acc, r0, round8(co), 8 * c0, tiles, dr_of, wrt_of);
+      if constexpr (D == kFloat32) {
+        auto m_of = [&](int r, int k) {
+          return r < n && k < n ? __ldg(mt + (long long)k * n + r) : 0.0f;
+        };
+        auto dg_of = [&](int k, int c) { return dgs[k * sm.lddg + c]; };
+        auto wrt_of = [&](int o, int c) { return o < co ? wrts[o * sm.ldwt + c] : 0.0f; };
+        auto dr_of = [&](int r, int o) {
+          if (r >= n || o >= co) return 0.0f;
+          const long long e = base + (long long)r * co + o;
+          if (c0 > 0) return r_buf[e];
+          const float v = d_of(1, e, o, r_buf);
+          r_buf[e] = v;
+          return v;
+        };
+        warp_tile<4, kOpF32>(acc, r0, round8(n), 8 * c0, tiles, m_of, dg_of);  // M dg
+        if (!L.identity) warp_tile<4, kOpF32>(acc, r0, round8(co), 8 * c0, tiles, dr_of, wrt_of);
+      } else {
+        auto m_pair = [&](int r, int k) -> uint32_t {
+          if (r >= n) return 0u;
+          if constexpr (D == kBfloat16) {
+            return word_at(mt + (long long)r * graph_ld<D>(n) + k);
+          } else {
+            const float lo = k < n ? __ldg(mt + (long long)k * n + r) : 0.0f;
+            const float hi = k + 1 < n ? __ldg(mt + (long long)(k + 1) * n + r) : 0.0f;
+            return pack_bf16x2(lo, hi);
+          }
+        };
+        auto dg_pair = [&](int k, int c) { return word_at(dgt + c * sm.ldg + k); };
+        auto dr_pair = [&](int r, int o) { return d_pair(1, r_buf, r, o, c0 == 0); };
+        auto wr_pair = [&](int o, int c) { return word_at(wrb + c * sm.ldw + o); };
+        warp_tile_bf16<4>(acc, r0, round8(n), 8 * c0, tiles, m_pair, dg_pair);  // M dg
+        if (!L.identity) warp_tile_bf16<4>(acc, r0, round8(co), 8 * c0, tiles, dr_pair, wr_pair);
+      }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (c0 + j >= ctiles) break;
@@ -1184,7 +1522,7 @@ bwd_dx_kernel(Layer L, int n, int ghost, const float* __restrict__ consts, float
           const int r = r0 + frag_row(i), c = 8 * (c0 + j) + frag_col(i);
           if (r >= n || c >= ci) continue;
           float v = acc[j][i];
-          if (L.identity) v += dpre_buf[base + (long long)r * co + c];
+          if (L.identity) v += to_f(dpre_buf[base + (long long)r * co + c]);
           dx[((long long)win * n + r) * ci + c] = stored<D>(v);
         }
       }
@@ -1202,68 +1540,101 @@ cudaError_t allow_smem(const void* kernel, long long bytes) {
 // windows of k channels). See the product kernels above.
 struct Product {
   int form;  // ProductForm
-  const float* a;
-  const float* b;
+  const void* a;
+  const void* b;
   int p, q;
   long long n;
   int k;
+  int a_bf16, b_bf16;  // whether A, B hold bf16 (else fp32) values
 };
 
-bool aligned16(const float* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+bool aligned(const void* p, int bytes) { return (reinterpret_cast<uintptr_t>(p) % bytes) == 0; }
 
-template <int D, int MT, int NT>
+// Elements of T a staging copy moves for rows of stride ld (elements) from
+// base: 16 bytes where the stride and base allow it, else 4, else one bf16
+// element (a plain copy).
+template <class T>
+int copy_elems(const void* base, long long ld) {
+  constexpr int e16 = 16 / (int)sizeof(T), e4 = 4 / (int)sizeof(T);
+  if (ld % e16 == 0 && aligned(base, 16)) return e16;
+  if (ld % e4 == 0 && aligned(base, 4)) return e4;
+  return 1;
+}
+
+template <int OP, class TA, class TB, int MT, int NT>
 cudaError_t launch_rows(const Product& pr, int splits, float* dst, cudaStream_t stream) {
   constexpr int PT = 16 * MT, QT = 8 * NT;
-  const long long slabs = (long long)kWarps * kStages * kRowsStep * (PT + 8 + QT + 8);
-  const long long red = (long long)kWarps * MT * NT * 4 * 32;
-  const long long smem = (long long)sizeof(float) * (slabs > red ? slabs : red);
+  const long long slabs = (long long)kWarps * kStages * kRowsStep *
+                          (rows_ld<OP, TA>(PT) * (long long)sizeof(TA) +
+                           rows_ld<OP, TB>(QT) * (long long)sizeof(TB));
+  const long long red = (long long)sizeof(float) * kWarps * MT * NT * 4 * 32;
+  const long long smem = slabs > red ? slabs : red;
   long long r_split = (pr.n + splits - 1) / splits;
   r_split = (r_split + kRowsStep - 1) / kRowsStep * kRowsStep;
-  auto kern = product_rows_kernel<D, MT, NT>;
+  auto kern = product_rows_kernel<OP, TA, TB, MT, NT>;
   cudaError_t err = allow_smem((const void*)kern, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(((pr.p + PT - 1) / PT) * ((pr.q + QT - 1) / QT), splits);
-  kern<<<grid, kThreads, (size_t)smem, stream>>>(pr.a, pr.b, pr.p, pr.q, pr.n, r_split, dst,
-                                                 pr.p % 4 == 0 && aligned16(pr.a),
-                                                 pr.q % 4 == 0 && aligned16(pr.b));
+  kern<<<grid, kThreads, (size_t)smem, stream>>>(
+      static_cast<const TA*>(pr.a), static_cast<const TB*>(pr.b), pr.p, pr.q, pr.n, r_split, dst,
+      copy_elems<TA>(pr.a, pr.p), copy_elems<TB>(pr.b, pr.q));
   return cudaGetLastError();
 }
 
-template <int D>
+template <int OP, class TA, class TB>
 cudaError_t launch_windows(const Product& pr, int splits, float* dst, cudaStream_t stream) {
   constexpr int PT = 16 * kWinMT, QT = 8 * kWinNT;
-  const long long slabs = (long long)kWarps * kStages * (PT + QT) * kLdk;
-  const long long red = (long long)kWarps * kWinMT * kWinNT * 4 * 32;
-  const long long smem = (long long)sizeof(float) * (slabs > red ? slabs : red);
+  const long long slabs = (long long)kWarps * kStages * windows_ld<OP>() *
+                          (PT * (long long)sizeof(TA) + QT * (long long)sizeof(TB));
+  const long long red = (long long)sizeof(float) * kWarps * kWinMT * kWinNT * 4 * 32;
+  const long long smem = slabs > red ? slabs : red;
   const int w_split = (int)((pr.n + splits - 1) / splits);
-  auto kern = product_windows_kernel<D>;
+  auto kern = product_windows_kernel<OP, TA, TB>;
   cudaError_t err = allow_smem((const void*)kern, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(((pr.p + PT - 1) / PT) * ((pr.q + QT - 1) / QT), splits);
-  kern<<<grid, kThreads, (size_t)smem, stream>>>(pr.a, pr.b, pr.p, pr.q, (int)pr.n, pr.k, w_split,
-                                                 dst, pr.k % 4 == 0 && aligned16(pr.a) &&
-                                                          aligned16(pr.b));
+  kern<<<grid, kThreads, (size_t)smem, stream>>>(
+      static_cast<const TA*>(pr.a), static_cast<const TB*>(pr.b), pr.p, pr.q, (int)pr.n, pr.k,
+      w_split, dst, copy_elems<TA>(pr.a, pr.k), copy_elems<TB>(pr.b, pr.k));
   return cudaGetLastError();
 }
 
 // The rows form's tile: 16, 32 or 64 of P by 16, 32 or 64 of Q, the least
 // that holds the output (dW, dW_res: one tile), else 64 (dwp: 216 tiles of
 // 64 x 16). stse_train.py's product_splits mirrors this choice.
-template <int D>
-cudaError_t launch_product(const Product& pr, int splits, float* dst, cudaStream_t stream) {
-  if (pr.form == PF_WINDOWS) return launch_windows<D>(pr, splits, dst, stream);
+template <int OP, class TA, class TB>
+cudaError_t launch_typed(const Product& pr, int splits, float* dst, cudaStream_t stream) {
+  if (pr.form == PF_WINDOWS) return launch_windows<OP, TA, TB>(pr, splits, dst, stream);
   const int mt = pr.p <= 16 ? 1 : (pr.p <= 32 ? 2 : 4);
   const int nt = pr.q <= 16 ? 2 : (pr.q <= 32 ? 4 : 8);
   switch (mt * 10 + nt) {
-    case 12: return launch_rows<D, 1, 2>(pr, splits, dst, stream);
-    case 14: return launch_rows<D, 1, 4>(pr, splits, dst, stream);
-    case 18: return launch_rows<D, 1, 8>(pr, splits, dst, stream);
-    case 22: return launch_rows<D, 2, 2>(pr, splits, dst, stream);
-    case 24: return launch_rows<D, 2, 4>(pr, splits, dst, stream);
-    case 28: return launch_rows<D, 2, 8>(pr, splits, dst, stream);
-    case 42: return launch_rows<D, 4, 2>(pr, splits, dst, stream);
-    case 44: return launch_rows<D, 4, 4>(pr, splits, dst, stream);
-    default: return launch_rows<D, 4, 8>(pr, splits, dst, stream);
+    case 12: return launch_rows<OP, TA, TB, 1, 2>(pr, splits, dst, stream);
+    case 14: return launch_rows<OP, TA, TB, 1, 4>(pr, splits, dst, stream);
+    case 18: return launch_rows<OP, TA, TB, 1, 8>(pr, splits, dst, stream);
+    case 22: return launch_rows<OP, TA, TB, 2, 2>(pr, splits, dst, stream);
+    case 24: return launch_rows<OP, TA, TB, 2, 4>(pr, splits, dst, stream);
+    case 28: return launch_rows<OP, TA, TB, 2, 8>(pr, splits, dst, stream);
+    case 42: return launch_rows<OP, TA, TB, 4, 2>(pr, splits, dst, stream);
+    case 44: return launch_rows<OP, TA, TB, 4, 4>(pr, splits, dst, stream);
+    default: return launch_rows<OP, TA, TB, 4, 8>(pr, splits, dst, stream);
+  }
+}
+
+// By the operands' types: fp32 and fp32 for 3xTF32; any of fp32 and bf16
+// for the bf16 mma.
+template <int OP>
+cudaError_t launch_product(const Product& pr, int splits, float* dst, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  if constexpr (OP == kOpF32) {
+    if (pr.a_bf16 || pr.b_bf16) return cudaErrorInvalidValue;
+    return launch_typed<OP, float, float>(pr, splits, dst, stream);
+  } else {
+    switch (2 * (pr.a_bf16 != 0) + (pr.b_bf16 != 0)) {
+      case 0: return launch_typed<OP, float, float>(pr, splits, dst, stream);
+      case 1: return launch_typed<OP, float, bf16>(pr, splits, dst, stream);
+      case 2: return launch_typed<OP, bf16, float>(pr, splits, dst, stream);
+      default: return launch_typed<OP, bf16, bf16>(pr, splits, dst, stream);
+    }
   }
 }
 
@@ -1275,7 +1646,7 @@ cudaError_t run_product(const Product& pr, int splits, float* part, float* out,
   if (splits < 1 || splits > 65535 || pr.n < 1 || pr.k < 1 || (splits > 1 && part == nullptr) ||
       (pr.form == PF_WINDOWS && pr.n >= (1LL << 31)))
     return cudaErrorInvalidValue;
-  cudaError_t err = launch_product<D>(pr, splits, splits > 1 ? part : out, stream);
+  cudaError_t err = launch_product<op_of<D>>(pr, splits, splits > 1 ? part : out, stream);
   if (err != cudaSuccess || splits == 1) return err;
   const long long count = (long long)pr.p * pr.q;
   sum_splits_kernel<<<blocks_for(count), kThreads, 0, stream>>>(part, count, splits, out);
@@ -1307,17 +1678,19 @@ Layer row_layer(const long long* r) {
 struct LayerSmem {
   long long fwd, apply, pre, dx;
 };
+template <int D>
 LayerSmem layer_smem(const Layer& L, int n) {
   const int wb = pre_windows(L.ci);
   return {(long long)sizeof(float) * pre_smem(n, L.ci, L.co, wb, kFwdMoments).total,
           (long long)sizeof(float) * 8 * L.co,
           (long long)sizeof(float) * pre_smem(n, L.ci, L.co, wb, kBwdSums).total,
-          (long long)sizeof(float) * dx_smem(n, L.ci, L.co).total};
+          (long long)dx_smem<D>(n, L.ci, L.co).total};
 }
 
 // Checks n_layers descriptor rows (`stride` fields apart; the forward's
 // and K5's rows start alike) and returns, in most, each pass's largest
-// shared memory over them.
+// shared memory over them in form D.
+template <int D>
 cudaError_t check_layers(const long long* rows, int stride, int n_layers, int n,
                          LayerSmem* most) {
   *most = {0, 0, 0, 0};
@@ -1326,7 +1699,7 @@ cudaError_t check_layers(const long long* rows, int stride, int n_layers, int n,
     if (L.ci < 1 || L.co < 1 || (L.identity && L.ci != L.co) ||
         (l > 0 && L.ci != rows[(long long)(l - 1) * stride + FL_CO]))
       return cudaErrorInvalidValue;
-    const LayerSmem s = layer_smem(L, n);
+    const LayerSmem s = layer_smem<D>(L, n);
     most->fwd = s.fwd > most->fwd ? s.fwd : most->fwd;
     most->apply = s.apply > most->apply ? s.apply : most->apply;
     most->pre = s.pre > most->pre ? s.pre : most->pre;
@@ -1367,7 +1740,7 @@ template <int D>
 cudaError_t run_forward_layer(const float* x, const Layer& L, int n, int ghost, int batch,
                               float* t_buf, float* r_buf, float* part, float* stats,
                               float* block_sums, float* sums, float* act, cudaStream_t stream) {
-  const LayerSmem smem = layer_smem(L, n);
+  const LayerSmem smem = layer_smem<D>(L, n);
   const int wb = pre_windows(L.ci), n_blocks = batch / ghost;
   auto pre = fwd_pre_kernel<D>;
   pre<<<(batch + wb - 1) / wb, kThreads, (size_t)smem.fwd, stream>>>(x, L, n, batch, wb, t_buf,
@@ -1377,7 +1750,8 @@ cudaError_t run_forward_layer(const float* x, const Layer& L, int n, int ghost, 
     fwd_sums_kernel<<<1, kThreads, 0, stream>>>(block_sums, L.co, n_blocks, sums);
   const long long per = (long long)ghost * n * L.co;
   const int chunks = (int)((per + kApplyElems - 1) / kApplyElems);
-  const int vec = L.co % 4 == 0 && aligned16(t_buf) && aligned16(r_buf) && aligned16(act);
+  const int vec =
+      L.co % 4 == 0 && aligned(t_buf, 16) && aligned(r_buf, 16) && aligned(act, 16);
   auto apply = fwd_apply_kernel<D>;
   apply<<<n_blocks * chunks, kThreads, (size_t)smem.apply, stream>>>(L, n, ghost, chunks, t_buf,
                                                                      r_buf, act, vec);
@@ -1401,14 +1775,19 @@ cudaError_t run_projector(const float* y, const float* wp, const float* bp, int 
 // The per-window passes of one layer's backward on windows [0, batch) of
 // the buffers (a chunk's, for K5): bwd_pre (after K4's projector_dy_kernel,
 // whose dy it reads from dpre_buf), bwd_consts, then bwd_dx. `y` is the
-// layer's output; dy, for K3, the layer above's dx; dz and wp, for K4.
+// layer's output; dy, for K3, the layer above's dx; dz and wp, for K4. The
+// per-window scratch is form D's (scratch_t).
+template <int D>
 struct PassArgs {
-  const float *x, *y, *dy, *dz, *wp, *mt;
+  using S = scratch_t<D>;
+  const float *x, *y, *dy, *dz, *wp;
+  const S* mt;
   int batch, n, ghost, latent;
-  float *g_buf, *t_buf, *r_buf, *dpre_buf, *dg_buf, *part, *dalpha_part, *consts, *gpart, *dx;
+  S *g_buf, *t_buf, *r_buf, *dpre_buf, *dg_buf;
+  float *part, *dalpha_part, *consts, *gpart, *dx;
 };
 template <int D>
-cudaError_t run_passes(const Layer& L, const PassArgs& a, const LayerSmem& smem,
+cudaError_t run_passes(const Layer& L, const PassArgs<D>& a, const LayerSmem& smem,
                        cudaStream_t stream) {
   const float* dy = a.dy;
   if (a.dz != nullptr) {
@@ -1416,13 +1795,16 @@ cudaError_t run_passes(const Layer& L, const PassArgs& a, const LayerSmem& smem,
     const dim3 grid_dy((rows + kDyRows - 1) / kDyRows, (a.batch + kDyWindows - 1) / kDyWindows);
     auto proj_dy = projector_dy_kernel<D>;
     proj_dy<<<grid_dy, kThreads, 0, stream>>>(a.dz, a.wp, a.batch, rows, a.latent, a.dpre_buf);
-    dy = a.dpre_buf;
+    if constexpr (raw_scratch<D>)
+      dy = nullptr;  // bf16 in dpre_buf: bwd_pre reads it there
+    else
+      dy = a.dpre_buf;
   }
   const int wb = pre_windows(L.ci);
   auto pre = bwd_pre_kernel<D>;
   pre<<<(a.batch + wb - 1) / wb, kThreads, (size_t)smem.pre, stream>>>(
       a.x, L, a.n, a.ghost, a.batch, wb, a.y, dy, a.g_buf, a.t_buf, a.r_buf, a.dpre_buf, a.part,
-      a.dalpha_part);
+      a.dalpha_part, a.mt);
   bwd_consts_kernel<<<a.batch / a.ghost, kThreads, 0, stream>>>(a.part, L, a.ghost, a.n, a.consts,
                                                                 a.gpart);
   auto dx = bwd_dx_kernel<D>;
@@ -1438,13 +1820,16 @@ cudaError_t run_passes(const Layer& L, const PassArgs& a, const LayerSmem& smem,
 // buffers (offset by w0).
 template <int D>
 cudaError_t mono_chunk(const long long* d, int c, int w0, int wc, cudaStream_t stream) {
+  using S = scratch_t<D>;
+  constexpr int sb = D == kBfloat16;  // the scratch operands of the products are bf16
   const int n_layers = (int)d[MH_N_LAYERS], n = (int)d[MH_N_NODES], ghost = (int)d[MH_GHOST];
   const int latent = (int)d[MH_LATENT];
+  // t_buf and r_buf serve K2's passes (fp32) and then the backward's (form D's scratch)
   float* t_buf = ptr<float>(d, MH_T_BUF);
   float* r_buf = ptr<float>(d, MH_R_BUF);
-  float* dpre_buf = ptr<float>(d, MH_DPRE_BUF);
-  float* g_buf = ptr<float>(d, MH_G_BUF);
-  float* dg_buf = ptr<float>(d, MH_DG_BUF);
+  S* dpre_buf = ptr<S>(d, MH_DPRE_BUF);
+  S* g_buf = ptr<S>(d, MH_G_BUF);
+  S* dg_buf = ptr<S>(d, MH_DG_BUF);
   float* dy_buf = ptr<float>(d, MH_DY_BUF);
   float* part = ptr<float>(d, MH_PART);
   float* consts = ptr<float>(d, MH_CONSTS);
@@ -1472,20 +1857,20 @@ cudaError_t mono_chunk(const long long* d, int c, int w0, int wc, cudaStream_t s
     const int ci = L.ci, co = L.co;
     const bool top = l == n_layers - 1;
     const float* x_l = l == 0 ? x_c : ptr<const float>(row - ML_COUNT, ML_ACT);
-    PassArgs pa;
+    PassArgs<D> pa;
     pa.x = x_l;
     pa.y = ptr<const float>(row, ML_ACT);
     pa.dy = top ? nullptr : dy_buf;
     pa.dz = top ? dz_c : nullptr;
     pa.wp = ptr<const float>(d, MH_WP);
-    pa.mt = ptr<const float>(row, ML_MT);
+    pa.mt = ptr<const S>(row, ML_MT);
     pa.batch = wc;
     pa.n = n;
     pa.ghost = ghost;
     pa.latent = latent;
     pa.g_buf = g_buf;
-    pa.t_buf = t_buf;
-    pa.r_buf = r_buf;
+    pa.t_buf = reinterpret_cast<S*>(t_buf);
+    pa.r_buf = reinterpret_cast<S*>(r_buf);
     pa.dpre_buf = dpre_buf;
     pa.dg_buf = dg_buf;
     pa.part = part;
@@ -1493,27 +1878,27 @@ cudaError_t mono_chunk(const long long* d, int c, int w0, int wc, cudaStream_t s
     pa.consts = consts;
     pa.gpart = ptr<float>(row, ML_GPART) + (long long)(w0 / ghost) * 6 * co;
     pa.dx = l > 0 ? dy_buf : nullptr;
-    err = run_passes<D>(L, pa, layer_smem(L, n), stream);
+    err = run_passes<D>(L, pa, layer_smem<D>(L, n), stream);
     // dW = sum g^T dt, dW_res = sum x^T dr, dM = sum x^T dg over the chunk.
     const long long wsz = (long long)ci * co;
     const long long n_rows = (long long)wc * n;
-    Product pw{PF_ROWS, g_buf, t_buf, ci, co, n_rows, 1};
+    Product pw{PF_ROWS, g_buf, pa.t_buf, ci, co, n_rows, 1, sb, sb};
     if (err == cudaSuccess)
       err = run_product<D>(pw, (int)row[ML_SPLITS_W], prod_buf,
                            ptr<float>(row, ML_CHUNK_DW) + c * wsz, stream);
     if (err == cudaSuccess && !L.identity) {
-      Product pr{PF_ROWS, x_l, r_buf, ci, co, n_rows, 1};
+      Product pr{PF_ROWS, x_l, pa.r_buf, ci, co, n_rows, 1, 0, sb};
       err = run_product<D>(pr, (int)row[ML_SPLITS_W], prod_buf,
                            ptr<float>(row, ML_CHUNK_DW_RES) + c * wsz, stream);
     }
     if (err == cudaSuccess) {
-      Product pm{PF_WINDOWS, x_l, dg_buf, n, n, wc, ci};
+      Product pm{PF_WINDOWS, x_l, dg_buf, n, n, wc, ci, 0, sb};
       err = run_product<D>(pm, (int)row[ML_SPLITS_M], prod_buf,
                            ptr<float>(row, ML_CHUNK_DM) + (long long)c * n * n, stream);
     }
     // dwp = sum over the chunk's windows of y_flat^T dz.
     if (err == cudaSuccess && top) {
-      Product pp{PF_ROWS, ptr<const float>(row, ML_ACT), dz_c, n * co, latent, wc, 1};
+      Product pp{PF_ROWS, ptr<const float>(row, ML_ACT), dz_c, n * co, latent, wc, 1, 0, 0};
       err = run_product<D>(pp, (int)d[MH_SPLITS_WP], prod_buf,
                            ptr<float>(d, MH_CHUNK_DWP) + (long long)c * n * co * latent, stream);
     }
@@ -1530,13 +1915,16 @@ int run_mono(const long long* d, cudaStream_t stream) {
     return (int)cudaErrorInvalidValue;
   const long long* rows = d + MH_COUNT;
   LayerSmem most;
-  cudaError_t err = check_layers(rows, ML_COUNT, n_layers, n, &most);
+  cudaError_t err = check_layers<D>(rows, ML_COUNT, n_layers, n, &most);
   if (err == cudaSuccess) err = allow_passes<D>(most);
   if (err != cudaSuccess) return (int)err;
-  for (int l = 1; l < n_layers; ++l) {  // M^T for every layer that passes dx down
+  auto graph = graph_operand_kernel<D>;
+  // the graph operands: every layer that passes dx down, and under "bfloat16"
+  // every layer (bwd_pre reads M^T's bf16 copy)
+  for (int l = D == kBfloat16 ? 0 : 1; l < n_layers; ++l) {
     const long long* row = rows + (long long)l * ML_COUNT;
-    transpose_kernel<<<blocks_for((long long)n * n), kThreads, 0, stream>>>(
-        ptr<const float>(row, ML_M), ptr<float>(row, ML_MT), n);
+    graph<<<blocks_for((long long)n * graph_ld<D>(n)), kThreads, 0, stream>>>(
+        ptr<const float>(row, ML_M), ptr<scratch_t<D>>(row, ML_MT), n);
   }
   const int n_chunks = (batch + chunk - 1) / chunk;
   for (int c = 0; c < n_chunks && err == cudaSuccess; ++c) {
@@ -1575,6 +1963,8 @@ int run_mono(const long long* d, cudaStream_t stream) {
 
 template <int D>
 int run_backward(const long long* d, bool top, cudaStream_t stream) {
+  using S = scratch_t<D>;
+  constexpr int sb = D == kBfloat16;  // the scratch operands of the products are bf16
   const int batch = (int)d[BD_BATCH], n = (int)d[BD_N_NODES], ghost = (int)d[BD_GHOST];
   const int latent = (int)d[BD_LATENT];
   Layer L;
@@ -1600,18 +1990,18 @@ int run_backward(const long long* d, bool top, cudaStream_t stream) {
   const int n_blocks = batch / ghost;
   const float* x = ptr<const float>(d, BD_X);
   const float* dz = top ? ptr<const float>(d, BD_DZ) : nullptr;
-  float* g_buf = ptr<float>(d, BD_G_BUF);
-  float* t_buf = ptr<float>(d, BD_T_BUF);
-  float* r_buf = ptr<float>(d, BD_R_BUF);
-  float* dg_buf = ptr<float>(d, BD_DG_BUF);
+  S* g_buf = ptr<S>(d, BD_G_BUF);
+  S* t_buf = ptr<S>(d, BD_T_BUF);
+  S* r_buf = ptr<S>(d, BD_R_BUF);
+  S* dg_buf = ptr<S>(d, BD_DG_BUF);
   float* prod_buf = ptr<float>(d, BD_PROD_BUF);
-  float* mt = ptr<float>(d, BD_MT);
+  S* mt = ptr<S>(d, BD_MT);
 
-  const LayerSmem smem = layer_smem(L, n);
+  const LayerSmem smem = layer_smem<D>(L, n);
   cudaError_t err = allow_passes<D>(LayerSmem{0, 0, smem.pre, smem.dx});
   if (err != cudaSuccess) return (int)err;
 
-  PassArgs pa;
+  PassArgs<D> pa;
   pa.x = x;
   pa.y = ptr<const float>(d, BD_Y);
   pa.dy = top ? nullptr : ptr<const float>(d, BD_DY);
@@ -1625,15 +2015,17 @@ int run_backward(const long long* d, bool top, cudaStream_t stream) {
   pa.g_buf = g_buf;
   pa.t_buf = t_buf;
   pa.r_buf = r_buf;
-  pa.dpre_buf = ptr<float>(d, BD_DPRE_BUF);
+  pa.dpre_buf = ptr<S>(d, BD_DPRE_BUF);
   pa.dg_buf = dg_buf;
   pa.part = ptr<float>(d, BD_PART);
   pa.dalpha_part = ptr<float>(d, BD_DALPHA_PART);
   pa.consts = ptr<float>(d, BD_CONSTS);
   pa.gpart = ptr<float>(d, BD_GPART);
   pa.dx = ptr<float>(d, BD_DX);
-  if (pa.dx != nullptr)
-    transpose_kernel<<<blocks_for((long long)n * n), kThreads, 0, stream>>>(L.m, mt, n);
+  if (pa.dx != nullptr || D == kBfloat16) {  // bf16: bwd_pre reads M^T's bf16 copy
+    auto graph = graph_operand_kernel<D>;
+    graph<<<blocks_for((long long)n * graph_ld<D>(n)), kThreads, 0, stream>>>(L.m, mt, n);
+  }
   err = run_passes<D>(L, pa, smem, stream);
   if (err != cudaSuccess) return (int)err;
   bwd_reduce_kernel<<<1, kThreads, sizeof(float) * kThreads, stream>>>(
@@ -1646,21 +2038,21 @@ int run_backward(const long long* d, bool top, cudaStream_t stream) {
 
   // dW = sum g^T dt and dW_res = sum x^T dr over all B*N rows.
   const long long n_rows = (long long)batch * n;
-  Product pw{PF_ROWS, g_buf, t_buf, ci, co, n_rows, 1};
+  Product pw{PF_ROWS, g_buf, t_buf, ci, co, n_rows, 1, sb, sb};
   err = run_product<D>(pw, (int)d[BD_SPLITS_W], prod_buf, ptr<float>(d, BD_DW), stream);
   if (err == cudaSuccess && !L.identity) {
-    Product pr{PF_ROWS, x, r_buf, ci, co, n_rows, 1};
+    Product pr{PF_ROWS, x, r_buf, ci, co, n_rows, 1, 0, sb};
     err = run_product<D>(pr, (int)d[BD_SPLITS_W_RES], prod_buf, ptr<float>(d, BD_DW_RES),
                          stream);
   }
   // dM[k][m] = sum over windows and channels of x[k][c] dg[m][c].
   if (err == cudaSuccess) {
-    Product pm{PF_WINDOWS, x, dg_buf, n, n, batch, ci};
+    Product pm{PF_WINDOWS, x, dg_buf, n, n, batch, ci, 0, sb};
     err = run_product<D>(pm, (int)d[BD_SPLITS_M], prod_buf, ptr<float>(d, BD_DM), stream);
   }
   // K4: dwp = sum over windows of y_flat^T dz.
   if (err == cudaSuccess && top) {
-    Product pp{PF_ROWS, ptr<const float>(d, BD_Y), dz, n * co, latent, batch, 1};
+    Product pp{PF_ROWS, ptr<const float>(d, BD_Y), dz, n * co, latent, batch, 1, 0, 0};
     err = run_product<D>(pp, (int)d[BD_SPLITS_WP], prod_buf, ptr<float>(d, BD_DWP), stream);
   }
   return (int)err;
@@ -1677,7 +2069,7 @@ int run_forward(const long long* desc, cudaStream_t stream) {
     return (int)cudaErrorInvalidValue;
   const long long* rows = desc + FH_COUNT;
   LayerSmem most;
-  cudaError_t err = check_layers(rows, FL_COUNT, n_layers, n, &most);
+  cudaError_t err = check_layers<D>(rows, FL_COUNT, n_layers, n, &most);
   if (err == cudaSuccess) err = allow_passes<D>(LayerSmem{most.fwd, most.apply, 0, 0});
   if (err != cudaSuccess) return (int)err;
   float* t_buf = ptr<float>(desc, FH_T_BUF);
@@ -1698,6 +2090,39 @@ int run_forward(const long long* desc, cudaStream_t stream) {
   return (int)run_projector<D>(x, ptr<const float>(desc, FH_WP), ptr<const float>(desc, FH_BP),
                                batch, n * c_top, latent, z_splits, t_buf,
                                ptr<float>(desc, FH_Z), stream);
+}
+
+// The per-window passes of a layer of C_in ci, C_out co on n nodes in the
+// compute dtype `dtype` (ComputeDtype), for checks and reports: out =
+// (bwd_pre's windows a block, its shared bytes a block, its blocks an SM;
+// bwd_dx's shared bytes, blocks an SM; fwd_pre's windows a block, shared
+// bytes, blocks an SM; fwd_apply's shared bytes, blocks an SM;
+// projector_z's blocks an SM), the blocks an SM as
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them on the current
+// device for that form's kernels.
+template <int D>
+int pass_occupancy(int n, int ci, int co, int* out) {
+  Layer L;
+  L.ci = ci;
+  L.co = co;
+  const LayerSmem smem = layer_smem<D>(L, n);
+  const void* kernels[5] = {(const void*)bwd_pre_kernel<D>, (const void*)bwd_dx_kernel<D>,
+                            (const void*)fwd_pre_kernel<D>, (const void*)fwd_apply_kernel<D>,
+                            (const void*)projector_z_kernel<D>};
+  const long long bytes[5] = {smem.pre, smem.dx, smem.fwd, smem.apply, 0};
+  int blocks[5] = {0, 0, 0, 0, 0};
+  cudaError_t err = cudaSuccess;
+  for (int k = 0; k < 5 && err == cudaSuccess; ++k) {
+    err = allow_smem(kernels[k], bytes[k]);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[k], kernels[k], kThreads,
+                                                          (size_t)bytes[k]);
+  }
+  const int fields[11] = {pre_windows(ci), (int)smem.pre, blocks[0], (int)smem.dx, blocks[1],
+                          pre_windows(ci), (int)smem.fwd, blocks[2], (int)smem.apply, blocks[3],
+                          blocks[4]};
+  for (int k = 0; k < 11; ++k) out[k] = fields[k];
+  return (int)err;
 }
 
 }  // namespace
@@ -1735,16 +2160,17 @@ int stse_train_mono_backward(const long long* desc, void* stream) {
 
 // One batch-reduction product alone. desc: PD_COUNT fields (see
 // ProductField): rows form C = A^T B, A [n, p], B [n, q]; windows form
-// C = sum over n windows of A_w B_w^T, A [n, p, k], B [n, q, k]. part holds
-// splits * p * q floats (unused for one split).
+// C = sum over n windows of A_w B_w^T, A [n, p, k], B [n, q, k]; A and B
+// fp32, or bf16 (PD_A_BF16, PD_B_BF16; a bf16 form only), as K3-K5 hand
+// their scratch operands over. part holds splits * p * q floats (unused for
+// one split).
 int stse_train_product(const long long* d, void* stream) {
   const int form = (int)d[PD_FORM], p = (int)d[PD_P], q = (int)d[PD_Q], k = (int)d[PD_K];
   const long long n = d[PD_N];
   if ((form != PF_ROWS && form != PF_WINDOWS) || p < 1 || q < 1 || n < 1 || k < 1)
     return (int)cudaErrorInvalidValue;
-  const float* a = ptr<const float>(d, PD_A);
-  const float* b = ptr<const float>(d, PD_B);
-  const Product pr{form, a, b, p, q, n, k};
+  const Product pr{form, ptr<const void>(d, PD_A), ptr<const void>(d, PD_B), p, q, n, k,
+                   (int)d[PD_A_BF16], (int)d[PD_B_BF16]};
   return with_dtype(d[PD_DTYPE], [&](auto dt) {
     return (int)run_product<decltype(dt)::value>(pr, (int)d[PD_SPLITS], ptr<float>(d, PD_PART),
                                                  ptr<float>(d, PD_OUT), (cudaStream_t)stream);
@@ -1765,38 +2191,11 @@ int stse_train_top_backward(const long long* desc, void* stream) {
   });
 }
 
-// The per-window passes of a layer of C_in ci, C_out co on n nodes, for
-// checks and reports: out = (bwd_pre's windows a block, its shared bytes a
-// block, its blocks an SM; bwd_dx's shared bytes, blocks an SM; fwd_pre's
-// windows a block, shared bytes, blocks an SM; fwd_apply's shared bytes,
-// blocks an SM; projector_z's blocks an SM), the blocks an SM as
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them on the current
-// device, of the float32 form (the forms share their shared memory; bf16
-// operands take fewer registers).
-int stse_train_pass_occupancy(int n, int ci, int co, int* out) {
+// The per-window passes' occupancy (pass_occupancy above) in the form `dtype` names.
+int stse_train_pass_occupancy(int n, int ci, int co, int dtype, int* out) {
   if (n < 1 || ci < 1 || co < 1) return (int)cudaErrorInvalidValue;
-  Layer L;
-  L.ci = ci;
-  L.co = co;
-  const LayerSmem smem = layer_smem(L, n);
-  const void* kernels[5] = {
-      (const void*)bwd_pre_kernel<kFloat32>, (const void*)bwd_dx_kernel<kFloat32>,
-      (const void*)fwd_pre_kernel<kFloat32>, (const void*)fwd_apply_kernel<kFloat32>,
-      (const void*)projector_z_kernel<kFloat32>};
-  const long long bytes[5] = {smem.pre, smem.dx, smem.fwd, smem.apply, 0};
-  int blocks[5] = {0, 0, 0, 0, 0};
-  cudaError_t err = cudaSuccess;
-  for (int k = 0; k < 5 && err == cudaSuccess; ++k) {
-    err = allow_smem(kernels[k], bytes[k]);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[k], kernels[k], kThreads,
-                                                          (size_t)bytes[k]);
-  }
-  const int fields[11] = {pre_windows(ci), (int)smem.pre, blocks[0], (int)smem.dx, blocks[1],
-                          pre_windows(ci), (int)smem.fwd, blocks[2], (int)smem.apply, blocks[3],
-                          blocks[4]};
-  for (int k = 0; k < 11; ++k) out[k] = fields[k];
-  return (int)err;
+  return with_dtype(dtype,
+                    [&](auto d) { return pass_occupancy<decltype(d)::value>(n, ci, co, out); });
 }
 
 }  // extern "C"

@@ -35,20 +35,23 @@ compute_dtype (`COMPUTE_DTYPES`, the JAX kernels' `_parse_dtype` :266 and
 `_dop` :288): "float32"; "bfloat16", every dot operand rounded to bf16 (round
 to nearest even) and summed in float32, and the values JAX stores at bf16
 rounded where they are stored: the layer input as read, g, t, r, the output
-y, dy as read, dpre, dg and dx (the kernels' buffers stay float32, holding
-bf16 values); "bfloat16_f32store", bf16 operands and every value stored in
-float32. Statistics, the running-statistic sums, z and the weight gradients
-are float32 under every form; `fused_stse_apply` rounds the input windows
-to bf16 under both bf16 forms (JAX casts x_t to the operand dtype, :1152).
+y, dy as read, dpre, dg and dx (the interface tensors stay float32, holding
+bf16 values; the split backward's per-window scratch, g, t, r, dpre, dg and
+the graph operand, is bf16, `scratch_dtype`); "bfloat16_f32store", bf16
+operands and every value stored in float32. Statistics, the
+running-statistic sums, z and the weight gradients are float32 under every
+form; `fused_stse_apply` rounds the input windows to bf16 under both bf16
+forms (JAX casts x_t to the operand dtype, :1152).
 The kernels take the form as a template argument (`csrc/stse_train.cu`);
 the plain versions round at the same points (`_bf16_einsum` for a product,
 both ways; `_stored` for a stored value).
 
 What bounds the kernels on an H100: K2-K5 run every product (the
-per-window passes', the projector's and the batch reductions') as 3xTF32
-on the tensor cores (under a bf16 form, one TF32 product of bf16 operands),
-which leaves them bound by their scratch traffic (see `work`, `products`
-and the source's header).
+per-window passes', the projector's and the batch reductions') on the
+tensor cores, as 3xTF32 under float32; under a bf16 form K3's, K4's and
+K5's backward passes and products run on the bf16 mma (m16n8k16), K2's as
+one TF32 product of bf16 operands. That leaves them bound by their scratch
+traffic (see `work`, `products` and the source's header).
 """
 
 from __future__ import annotations
@@ -98,7 +101,8 @@ _BWD = ("batch", "n_nodes", "ghost", "ci", "co", "identity", "latent", "x", "dy"
         "dgamma_res", "dbeta_res", "dalpha", "dx", "dwp", "dbp", "mt", "g_buf", "t_buf",
         "r_buf", "dpre_buf", "dg_buf", "part", "dalpha_part", "consts", "gpart", "prod_buf",
         "splits_w", "splits_w_res", "splits_m", "splits_wp", "dtype")
-_PRODUCT = ("form", "p", "q", "n", "k", "a", "b", "splits", "part", "out", "dtype")
+_PRODUCT = ("form", "p", "q", "n", "k", "a", "b", "splits", "part", "out", "dtype", "a_bf16",
+            "b_bf16")
 PRODUCT_FORMS = ("rows", "windows")  # the order of csrc/stse_train.cu's ProductForm
 _MONO_HEADER = ("n_layers", "batch", "n_nodes", "ghost", "latent", "chunk", "x", "dz", "wp",
                 "dwp", "dbp", "splits_wp", "chunk_dwp", "t_buf", "r_buf", "dpre_buf", "g_buf",
@@ -410,6 +414,30 @@ def mono_backward_reference(x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps,
     return _unflatten(_grads_through(fn, _flatten(ops), dz), n_layers)
 
 
+def scratch_dtype(compute_dtype: str) -> torch.dtype:
+    """The dtype of K3's, K4's and K5's per-window backward scratch (g, t, r,
+    dpre, dg and the graph operand of M dg) in `compute_dtype`: bf16 under
+    "bfloat16", as the JAX kernel stores its large intermediates in its
+    dtype (coskad_tpu/kernels/stse_train.py:342-345), else float32."""
+    return torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+
+
+def graph_operand_size(n: int, compute_dtype: str) -> int:
+    """Elements of the backward's graph operand (`graph_operand_kernel` in
+    the source): M^T [N, N] in float32 for bwd_dx's dx = M dg, or under
+    "bfloat16" M and M^T in bf16 rows of N rounded up to 8, for bwd_dx and
+    bwd_pre (g = M^T x)."""
+    if compute_dtype == "bfloat16":
+        return 2 * n * (-(-n // 8) * 8)
+    return n * n
+
+
+def _needs_graph_operand(need_dx: bool, compute_dtype: str) -> bool:
+    """Whether a layer's backward reads the graph operand: bwd_dx for dx,
+    and under "bfloat16" bwd_pre on every layer."""
+    return need_dx or compute_dtype == "bfloat16"
+
+
 def product_reference(form: str, a: torch.Tensor, b: torch.Tensor,
                       compute_dtype: str = "float32") -> torch.Tensor:
     """One batch-reduction product, plain, in the operands' dtype: "rows"
@@ -417,7 +445,9 @@ def product_reference(form: str, a: torch.Tensor, b: torch.Tensor,
     B * N rows, dwp = y_flat^T dz over B windows); "windows" sums
     a[w, p, k] b[w, q, k] over windows w and channels k (dM = sum over
     windows of x dg^T, a and b [B, N, C_in]). Under a bf16 form the operands
-    are rounded to bf16 first."""
+    are rounded to bf16 first. bf16 operands (the kernels' scratch) are
+    taken as float32."""
+    a, b = (t.float() if t.dtype == torch.bfloat16 else t for t in (a, b))
     if _dtype_index(compute_dtype) > 0:
         a, b = _bf16(a), _bf16(b)
     if form == "rows":
@@ -431,20 +461,25 @@ def products(ops: EncoderOps, batch: int) -> List[dict]:
     """The batch-reduction products of one split backward step at `batch`
     windows, as `product` runs them: name, the kernel that runs it (K4 for
     the top layer and dwp, K3_layer<l> below), form, P, Q, n (rows or
-    windows) and k (channels of a window, 1 for rows), and its FLOPs and
-    bytes (each operand read once, the output written once)."""
+    windows) and k (channels of a window, 1 for rows), whether each operand
+    is a per-window scratch buffer (a_scratch, b_scratch: bf16 under
+    "bfloat16", `scratch_dtype`; the others are the layer input, its output
+    and dz, float32), and its FLOPs and bytes (each operand read once, the
+    output written once, at 4 bytes a value)."""
     n = ops.layers[0].m.shape[0]
     top = len(ops.layers) - 1
     out = []
     for l, lay in enumerate(ops.layers):
         ci, co = lay.w.shape
         key = "K4" if l == top else f"K3_layer{l}"
+        # dW = g^T dt, dW_res = x^T dr, dM = sum x dg^T
         for name in ("dw",) + (() if lay.identity else ("dw_res",)):
             out.append(dict(name=f"layer{l}.{name}", key=key, form="rows", p=ci, q=co,
-                            n=batch * n, k=1))
-        out.append(dict(name=f"layer{l}.dm", key=key, form="windows", p=n, q=n, n=batch, k=ci))
+                            n=batch * n, k=1, a_scratch=name == "dw", b_scratch=True))
+        out.append(dict(name=f"layer{l}.dm", key=key, form="windows", p=n, q=n, n=batch, k=ci,
+                        a_scratch=False, b_scratch=True))
     out.append(dict(name="dwp", key="K4", form="rows", p=n * ops.layers[top].w.shape[1],
-                    q=ops.wp.shape[1], n=batch, k=1))
+                    q=ops.wp.shape[1], n=batch, k=1, a_scratch=False, b_scratch=False))
     for d in out:
         d["flops"] = 2.0 * d["p"] * d["q"] * d["n"] * d["k"]
         d["bytes"] = 4.0 * (d["n"] * d["k"] * (d["p"] + d["q"]) + d["p"] * d["q"])
@@ -474,12 +509,15 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def _checked(t: Optional[torch.Tensor], device: torch.device, shape, name: str):
-    """A contiguous float32 tensor of `shape` on `device` (None stays None)."""
+def _checked(t: Optional[torch.Tensor], device: torch.device, shape, name: str,
+             dtypes=(torch.float32,)):
+    """A contiguous tensor of one of `dtypes` (float32) and `shape` on
+    `device` (None stays None)."""
     if t is None:
         return None
-    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"stse_train: {name} must be float32 {tuple(shape)} on {device}, got "
+    if t.device != device or t.dtype not in dtypes or tuple(t.shape) != tuple(shape):
+        want = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise ValueError(f"stse_train: {name} must be {want} {tuple(shape)} on {device}, got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
     return t.detach().contiguous()
 
@@ -620,6 +658,7 @@ def launch_backward(lib, x: torch.Tensor, y: torch.Tensor, stats: torch.Tensor, 
     else:
         dy = _checked(dy, dev, (b, n, co), "dy")
     f32 = dict(dtype=torch.float32, device=dev)
+    sc = dict(dtype=scratch_dtype(compute_dtype), device=dev)
     grads = LayerOps(*(None if t is None else torch.empty(t.shape, **f32) for t in lay))
     dx = torch.empty((b, n, ci), **f32) if need_dx else None
     dwp = torch.empty((n * co, latent), **f32) if top else None
@@ -633,10 +672,11 @@ def launch_backward(lib, x: torch.Tensor, y: torch.Tensor, stats: torch.Tensor, 
                     (splits["wp"], n * co * latent))
     nb = b // ghost_size
     scratch = dict(
-        mt=torch.empty((n * n,), **f32) if need_dx else None,
-        g_buf=torch.empty((rows * ci,), **f32), t_buf=torch.empty((rows * co,), **f32),
-        r_buf=torch.empty((rows * co,), **f32), dpre_buf=torch.empty((rows * co,), **f32),
-        dg_buf=torch.empty((rows * ci,), **f32), part=torch.empty((b * 3 * co,), **f32),
+        mt=torch.empty((graph_operand_size(n, compute_dtype),), **sc)
+        if _needs_graph_operand(need_dx, compute_dtype) else None,
+        g_buf=torch.empty((rows * ci,), **sc), t_buf=torch.empty((rows * co,), **sc),
+        r_buf=torch.empty((rows * co,), **sc), dpre_buf=torch.empty((rows * co,), **sc),
+        dg_buf=torch.empty((rows * ci,), **sc), part=torch.empty((b * 3 * co,), **f32),
         dalpha_part=torch.empty((b,), **f32), consts=torch.empty((nb * 6 * co,), **f32),
         gpart=torch.empty((nb * 6 * co,), **f32), prod_buf=torch.empty((prod,), **f32))
     fields = dict(
@@ -668,18 +708,23 @@ def launch_product(lib, form: str, a: torch.Tensor, b: torch.Tensor,
                    splits: Optional[int] = None, compute_dtype: str = "float32") -> torch.Tensor:
     """Run one batch-reduction product from `lib` (see `product_reference`)
     with the kernel K3, K4 and K5 use, in `compute_dtype`'s operand
-    precision; `splits` overrides `product_splits`."""
+    precision; `splits` overrides `product_splits`. Each operand is float32
+    or, under a bf16 form, bfloat16 (as K3-K5 hand over their scratch
+    operands under "bfloat16")."""
     p, q, n, k = _product_shape(form, a, b)
     dev = a.device
-    a = _checked(a, dev, a.shape, "a")
-    b = _checked(b, dev, b.shape, "b")
+    kinds = (torch.float32, torch.bfloat16) if _dtype_index(compute_dtype) > 0 else (
+        torch.float32,)
+    a = _checked(a, dev, a.shape, "a", kinds)
+    b = _checked(b, dev, b.shape, "b", kinds)
     splits = product_splits(form, p, q, n, k) if splits is None else splits
     f32 = dict(dtype=torch.float32, device=dev)
     out = torch.empty((p, q), **f32)
     part = torch.empty((splits * p * q,), **f32) if splits > 1 else None
     fields = dict(form=PRODUCT_FORMS.index(form), p=p, q=q, n=n, k=k, a=_ptr(a), b=_ptr(b),
                   splits=splits, part=_ptr(part), out=_ptr(out),
-                  dtype=_dtype_index(compute_dtype))
+                  dtype=_dtype_index(compute_dtype), a_bf16=int(a.dtype == torch.bfloat16),
+                  b_bf16=int(b.dtype == torch.bfloat16))
     _run(lib, "stse_train_product", np.asarray([fields[f] for f in _PRODUCT], np.int64), dev)
     return out
 
@@ -690,18 +735,18 @@ _OCCUPANCY = ("bwd_pre_windows_per_block", "bwd_pre_smem_bytes", "bwd_pre_blocks
               "fwd_apply_blocks_per_sm", "projector_z_blocks_per_sm")
 
 
-def pass_occupancy(lib, n: int, ci: int, co: int) -> dict:
+def pass_occupancy(lib, n: int, ci: int, co: int, compute_dtype: str = "float32") -> dict:
     """K2-K5's per-window passes for a layer of C_in ci and C_out co on n
-    nodes, from `lib`: fwd_pre's and bwd_pre's windows a block, and the
-    shared bytes a block and blocks an SM on the current device
-    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`) of bwd_pre, bwd_dx,
-    fwd_pre and fwd_apply, and the blocks an SM of K2's projector_z (no
-    shared memory; the same for every layer)."""
+    nodes in `compute_dtype`, from `lib`: fwd_pre's and bwd_pre's windows a
+    block, and the shared bytes a block and blocks an SM on the current
+    device (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`) of bwd_pre,
+    bwd_dx, fwd_pre and fwd_apply, and the blocks an SM of K2's projector_z
+    (no shared memory; the same for every layer)."""
     fn = lib.stse_train_pass_occupancy
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = np.zeros(len(_OCCUPANCY), np.int32)
-    err = fn(n, ci, co, out.ctypes.data)
+    err = fn(n, ci, co, _dtype_index(compute_dtype), out.ctypes.data)
     if err != 0:
         raise RuntimeError(f"stse_train_pass_occupancy failed: "
                            f"{lib.stse_train_error_string(err).decode()}")
@@ -715,21 +760,30 @@ def mono_chunk(batch: int, ghost_size: int, chunk_windows: Optional[int] = None)
     return min(max(ghost_size, want // ghost_size * ghost_size), batch)
 
 
-def mono_workspace(ops: EncoderOps, n: int, chunk: int, ghost_size: int) -> dict:
-    """K5's chunk workspace, name -> number of floats (None: not needed).
-    It scales with the chunk, not the batch."""
+_MONO_SCRATCH = ("dpre_buf", "g_buf", "dg_buf")  # K5's backward-only scratch (scratch_dtype)
+
+
+def mono_workspace(ops: EncoderOps, n: int, chunk: int, ghost_size: int,
+                   compute_dtype: str = "float32") -> dict:
+    """K5's chunk workspace in `compute_dtype`, name -> bytes (None: not
+    needed). It scales with the chunk, not the batch. dpre, g and dg serve
+    only the backward passes and take `scratch_dtype`; t_buf and r_buf serve
+    K2's passes first, so stay float32 (the backward's bf16 t and r use
+    their first half)."""
     co = [lay.w.shape[1] for lay in ops.layers]
     ci = [lay.w.shape[0] for lay in ops.layers]
     rows, blocks = chunk * n, chunk // ghost_size
-    out = dict(t_buf=rows * max(co), r_buf=rows * max(co), dpre_buf=rows * max(co),
-               g_buf=rows * max(ci), dg_buf=rows * max(ci),
-               dy_buf=rows * max(ci[1:]) if len(ci) > 1 else None,
-               part=chunk * 4 * max(co), block_sums=blocks * 4 * max(co),
-               consts=blocks * 6 * max(co))
+    count = dict(t_buf=rows * max(co), r_buf=rows * max(co), dpre_buf=rows * max(co),
+                 g_buf=rows * max(ci), dg_buf=rows * max(ci),
+                 dy_buf=rows * max(ci[1:]) if len(ci) > 1 else None,
+                 part=chunk * 4 * max(co), block_sums=blocks * 4 * max(co),
+                 consts=blocks * 6 * max(co))
     for l, c in enumerate(co):
-        out[f"act{l}"] = rows * c
-        out[f"stats{l}"] = blocks * 4 * c
-    return out
+        count[f"act{l}"] = rows * c
+        count[f"stats{l}"] = blocks * 4 * c
+    small = scratch_dtype(compute_dtype).itemsize
+    return {k: None if v is None else v * (small if k in _MONO_SCRATCH else 4)
+            for k, v in count.items()}
 
 
 def launch_mono_backward(lib, x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps,
@@ -753,11 +807,15 @@ def launch_mono_backward(lib, x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps
     chunk = mono_chunk(b, ghost_size, chunk_windows)
     n_chunks = -(-b // chunk)
     f32 = dict(dtype=torch.float32, device=dev)
+    sc = dict(dtype=scratch_dtype(compute_dtype), device=dev)
 
-    def empty(count):
-        return None if count is None else torch.empty((count,), **f32)
+    def empty(count, kind=f32):
+        return None if count is None else torch.empty((count,), **kind)
 
-    ws = {k: empty(v) for k, v in mono_workspace(ops, n, chunk, ghost_size).items()}
+    ws = {}
+    for k, nbytes in mono_workspace(ops, n, chunk, ghost_size, compute_dtype).items():
+        kind = sc if k in _MONO_SCRATCH else f32
+        ws[k] = None if nbytes is None else empty(nbytes // kind["dtype"].itemsize, kind)
     splits_wp = product_splits("rows", n * c_hidden, latent, chunk)
     prod = partials((splits_wp, n * c_hidden * latent))
     grads = [LayerOps(*(None if t is None else torch.empty(t.shape, **f32) for t in lay))
@@ -772,7 +830,9 @@ def launch_mono_backward(lib, x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps
         splits_w = product_splits("rows", ci, co, chunk * n)
         splits_m = product_splits("windows", n, n, chunk, ci)
         prod = max(prod, partials((splits_w, ci * co), (splits_m, n * n)))
-        buf = dict(mt=empty(n * n) if l > 0 else None, gpart=empty(b // ghost_size * 6 * co),
+        buf = dict(mt=empty(graph_operand_size(n, compute_dtype), sc)
+                   if _needs_graph_operand(l > 0, compute_dtype) else None,
+                   gpart=empty(b // ghost_size * 6 * co),
                    dalpha_part=empty(b), chunk_dm=empty(n_chunks * n * n),
                    chunk_dw=empty(n_chunks * ci * co),
                    chunk_dw_res=None if lay.identity else empty(n_chunks * ci * co))

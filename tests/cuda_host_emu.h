@@ -5,17 +5,19 @@
 // __syncthreads, __nv_bfloat16 with the conversions, compares, products and
 // min the probes use, and the warp-level pieces of the batch-reduction
 // products: __syncwarp, cvt.rna.tf32.f32 (tf32_of), cvt.rn.bf16.f32
-// (bf16_bits), the m16n8k8 TF32 mma (mma_tf32) and cp.async (cp_async16 /
-// cp_async4 as plain copies,
-// cp_async_commit / cp_async_wait as no-ops). It defines CUDA_HOST_EMU, under
+// (bf16_bits), cvt.rn.bf16x2.f32 (pack_bf16x2), the m16n8k8 TF32 mma
+// (mma_tf32), the m16n8k16 and m16n8k8 bf16 mma (mma_bf16_k16, mma_bf16_k8)
+// and cp.async of fp32 or bf16 bytes (cp_async16 / cp_async4 as plain
+// copies, cp_async_commit / cp_async_wait as no-ops). It defines CUDA_HOST_EMU, under
 // which a kernel source leaves out its inline-PTX versions of those helpers.
 // Each CUDA thread of a block is a std::thread, __syncthreads is a
 // std::barrier and each warp has a barrier of its own; blocks run one after
-// another. Shared
-// memory starts as NaN, so a read of a value no thread wrote shows up in the
-// output. The test rewrites each kernel's `extern __shared__` declaration to
-// read g_smem and each <<<...>>> launch to call emu_launch (and drops the
-// cuda_bf16.h include); a static `__shared__` array becomes a function-local
+// another. Shared memory starts as NaN (0x7FC07FC0, a NaN as a float and as
+// each of its bf16 halves), so a read of a value no thread wrote shows up in
+// the output. The test rewrites each kernel's `extern __shared__`
+// declaration to read g_smem and each <<<...>>> launch to call emu_launch
+// (and drops probe_bf16.cu's cuda_bf16.h include; tf32_mma.cuh includes it
+// only outside the emulation); a static `__shared__` array becomes a function-local
 // static, one for all threads, which holds because blocks run in turn.
 #pragma once
 #define CUDA_HOST_EMU 1
@@ -57,6 +59,7 @@ struct EmuWarp {
   explicit EmuWarp(int lanes) : barrier(lanes) {}
   std::barrier<> barrier;
   float a[32][4], b[32][2];
+  uint32_t pa[32][4], pb[32][2];  // bf16 fragments: two values a register
 };
 inline std::vector<std::unique_ptr<EmuWarp>>* g_warps;
 inline EmuWarp& emu_warp() { return *(*g_warps)[threadIdx.x / 32]; }
@@ -108,9 +111,49 @@ inline void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[
   w.barrier.arrive_and_wait();
 }
 
+// The value of half h (0 low, 1 high) of a bf16x2 register.
+inline double emu_bf16_half(uint32_t r, int h) {
+  return (double)__uint_as_float(h ? (r & 0xFFFF0000u) : (r << 16));
+}
+
+// mma.sync.aligned.m16n8k{16,8}.row.col.f32.bf16.bf16.f32, d += a b, K 16 or
+// 8 (a holds K / 4 registers, b K / 8), each register a pair of bf16 values
+// along k, the lower k in the low half: with g = lane / 4, t = lane % 4, a
+// holds A[g][2t, 2t+1], A[g+8][2t, 2t+1] (and for K 16 A[g][2t+8, 2t+9],
+// A[g+8][2t+8, 2t+9]); b holds B[2t, 2t+1][g] (and B[2t+8, 2t+9][g]); d as
+// mma_tf32's. Like mma_tf32: the exact products of each element summed in k
+// order in double, one rounding.
+template <int K>
+inline void emu_mma_bf16(float (&d)[4], const uint32_t* a, const uint32_t* b) {
+  EmuWarp& w = emu_warp();
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  for (int i = 0; i < K / 4; ++i) w.pa[lane][i] = a[i];
+  for (int i = 0; i < K / 8; ++i) w.pb[lane][i] = b[i];
+  w.barrier.arrive_and_wait();
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + (i >= 2 ? 8 : 0), col = 2 * t + (i & 1);
+    double acc = d[i];
+    for (int k = 0; k < K; ++k) {
+      const int kt = (k % 8) / 2, half = k % 2, hi = k >= 8 ? 1 : 0;
+      const double av =
+          emu_bf16_half(w.pa[(row % 8) * 4 + kt][(row >= 8 ? 1 : 0) + 2 * hi], half);
+      const double bv = emu_bf16_half(w.pb[col * 4 + kt][hi], half);
+      acc += av * bv;
+    }
+    d[i] = (float)acc;
+  }
+  w.barrier.arrive_and_wait();
+}
+inline void mma_bf16_k16(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  emu_mma_bf16<16>(d, a, b);
+}
+inline void mma_bf16_k8(float (&d)[4], const uint32_t (&a)[2], uint32_t b) {
+  emu_mma_bf16<8>(d, a, &b);
+}
+
 // cp.async: the copy happens at once, so a commit or a wait has nothing to do.
-inline void cp_async16(float* dst, const float* src) { std::memcpy(dst, src, 16); }
-inline void cp_async4(float* dst, const float* src) { *dst = *src; }
+inline void cp_async16(void* dst, const void* src) { std::memcpy(dst, src, 16); }
+inline void cp_async4(void* dst, const void* src) { std::memcpy(dst, src, 4); }
 inline void cp_async_commit() {}
 template <int N>
 void cp_async_wait() {}
@@ -144,6 +187,10 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
 // cvt.rn.bf16.f32 as the bits of a float (the low 16 bits zero): the
 // operand rounding of tf32_mma.cuh's bf16 products.
 inline uint32_t bf16_bits(float v) { return (uint32_t)__float2bfloat16(v).x << 16; }
+// cvt.rn.bf16x2.f32: lo and hi rounded as bf16_bits, lo in the low half.
+inline uint32_t pack_bf16x2(float lo, float hi) {
+  return (uint32_t)__float2bfloat16(lo).x | (uint32_t)__float2bfloat16(hi).x << 16;
+}
 inline float __bfloat162float(__nv_bfloat16 b) {
   const uint32_t u = (uint32_t)b.x << 16;
   float f;
@@ -183,7 +230,7 @@ void emu_launch(K kernel, dim3 grid, int threads, size_t smem_bytes, A... args) 
   std::vector<float> smem(smem_bytes / sizeof(float) + 4);
   for (int by = 0; by < grid.y; ++by)
     for (int bx = 0; bx < grid.x; ++bx) {
-      std::fill(smem.begin(), smem.end(), std::numeric_limits<float>::quiet_NaN());
+      std::fill(smem.begin(), smem.end(), __uint_as_float(0x7FC07FC0u));
       g_smem = smem.data();
       std::barrier<> barrier(threads);
       g_barrier = &barrier;

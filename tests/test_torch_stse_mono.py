@@ -119,7 +119,9 @@ def test_saved_for_backward(mode):
 
 def test_mono_chunk_and_workspace():
     """K5's chunk is whole ghost blocks; at the flagship width its default
-    workspace is under a quarter of split's saved activations at B=2048."""
+    workspace is under a quarter of split's saved activations at B=2048.
+    Under "bfloat16" the backward-only scratch (dpre, g, dg) is bf16: half
+    their bytes; t and r serve K2's passes too and stay float32."""
     assert stse_train.mono_chunk(2048, 64) == 128
     assert stse_train.mono_chunk(2048, 64, 100) == 64  # cut to whole blocks
     assert stse_train.mono_chunk(2048, 64, 10) == 64  # at least one block
@@ -128,7 +130,13 @@ def test_mono_chunk_and_workspace():
                  n_frames=12, n_joints=18)
     ops = stse_train.encoder_ops(model)
     ws = stse_train.mono_workspace(ops, 216, stse_train.mono_chunk(2048, 64), 64)
-    ws_bytes = 4 * sum(v for v in ws.values() if v is not None)
+    ws_bytes = sum(v for v in ws.values() if v is not None)
     split_saved = 4 * 2048 * 216 * (2 + 32 + 16 + 32 + 64)
     assert ws_bytes == 4 * 128 * 216 * (3 * 64 + 2 * 32 + 32 + 144) + 4 * 34048 + 4 * 1152
     assert ws_bytes <= split_saved / 4
+    for form, small in (("bfloat16", 2), ("bfloat16_f32store", 4)):
+        ws = stse_train.mono_workspace(ops, 216, 128, 64, form)
+        assert ws["dpre_buf"] == small * 128 * 216 * 64 and ws["t_buf"] == 4 * 128 * 216 * 64
+        assert ws["g_buf"] == ws["dg_buf"] == small * 128 * 216 * 32
+        assert sum(v for v in ws.values() if v is not None) == (
+            ws_bytes - (4 - small) * 128 * 216 * (64 + 2 * 32))

@@ -93,6 +93,41 @@ void mma_kernel(const float* a, const float* b, const float* c, float* d) {
   d[(g + 8) * 8 + 2 * t + 1] = acc[3];
 }
 
+// One warp: A [16][K], B [K][8] (bf16 values as floats, row-major) into the
+// bf16 fragments of m16n8k16 (K 16) or m16n8k8 (K 8), a register a pair
+// along k, the lower k in the low half; C [16][8] in, D [16][8] out.
+template <int K>
+void mma_bf16_kernel(const float* a, const float* b, const float* c, float* d) {
+  const int lane = threadIdx.x, g = lane / 4, t = lane % 4;
+  auto pa = [&](int r, int k) { return pack_bf16x2(a[r * K + k], a[r * K + k + 1]); };
+  auto pb = [&](int k, int col) { return pack_bf16x2(b[k * 8 + col], b[(k + 1) * 8 + col]); };
+  float acc[4] = {c[g * 8 + 2 * t], c[g * 8 + 2 * t + 1], c[(g + 8) * 8 + 2 * t],
+                  c[(g + 8) * 8 + 2 * t + 1]};
+  if constexpr (K == 16) {
+    const uint32_t af[4] = {pa(g, 2 * t), pa(g + 8, 2 * t), pa(g, 2 * t + 8), pa(g + 8, 2 * t + 8)};
+    const uint32_t bf[2] = {pb(2 * t, g), pb(2 * t + 8, g)};
+    mma_bf16_k16(acc, af, bf);
+  } else {
+    const uint32_t af[2] = {pa(g, 2 * t), pa(g + 8, 2 * t)};
+    mma_bf16_k8(acc, af, pb(2 * t, g));
+  }
+  d[g * 8 + 2 * t] = acc[0];
+  d[g * 8 + 2 * t + 1] = acc[1];
+  d[(g + 8) * 8 + 2 * t] = acc[2];
+  d[(g + 8) * 8 + 2 * t + 1] = acc[3];
+}
+
+extern "C" void emu_mma_bf16(const float* a, const float* b, const float* c, float* d, int k) {
+  if (k == 16)
+    emu_launch(mma_bf16_kernel<16>, dim3(1), 32, 0, a, b, c, d);
+  else
+    emu_launch(mma_bf16_kernel<8>, dim3(1), 32, 0, a, b, c, d);
+}
+
+extern "C" void emu_pack(const float* lo, const float* hi, uint32_t* out, int n) {
+  for (int i = 0; i < n; ++i) out[i] = pack_bf16x2(lo[i], hi[i]);
+}
+
 extern "C" void emu_tf32(const float* in, uint32_t* out, int n) {
   for (int i = 0; i < n; ++i) out[i] = tf32_of(in[i]);
 }
@@ -113,6 +148,8 @@ def emu_lib(tmp_path_factory):
     so.emu_tf32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
     so.emu_bf16.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
     so.emu_mma.argtypes = [ctypes.c_void_p] * 4
+    so.emu_mma_bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
+    so.emu_pack.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
     return so
 
 
@@ -202,17 +239,38 @@ def test_emulated_bf16_rounding_matches_numpy(emu_lib):
     assert out[0] == 0x7FFF0000  # the canonical NaN
 
 
-def test_emulated_mma_matches_numpy_exactly(emu_lib):
+def test_emulated_bf16x2_packing_matches_numpy(emu_lib):
+    """pack_bf16x2 (cvt.rn.bf16x2.f32): each half the bits bf16_bits gives its
+    value (rounded to nearest even), lo in the low 16 bits."""
+    rng = np.random.default_rng(3)
+    lo = np.concatenate([BF16_CASES, rng.normal(size=100).astype(np.float32)])
+    hi = np.roll(lo, 7)
+    out = np.zeros(lo.shape, np.uint32)
+    emu_lib.emu_pack(lo.ctypes.data, hi.ctypes.data, out.ctypes.data, len(lo))
+    np.testing.assert_array_equal(out & 0xFFFF, bf16_reference(lo).view(np.uint32) >> 16)
+    np.testing.assert_array_equal(out >> 16, bf16_reference(hi).view(np.uint32) >> 16)
+
+
+@pytest.mark.parametrize("shape", ["tf32_m16n8k8", "bf16_m16n8k16", "bf16_m16n8k8"])
+def test_emulated_mma_matches_numpy_exactly(emu_lib, shape):
+    """The emulated mma.sync (the TF32 m16n8k8, the bf16 m16n8k16 and
+    m16n8k8 with fp32 accumulators), operands in the PTX fragment layout:
+    the exact products of an element added to C in k order, one rounding,
+    as numpy computes it in float64."""
     rng = np.random.default_rng(1)
-    a = tf32_reference(rng.normal(size=(16, 8)).astype(np.float32))
-    b = tf32_reference(rng.normal(size=(8, 8)).astype(np.float32))
+    k = 8 if shape.endswith("k8") else 16
+    rounded = tf32_reference if shape.startswith("tf32") else bf16_reference
+    a = rounded(rng.normal(size=(16, k)).astype(np.float32))
+    b = rounded(rng.normal(size=(k, 8)).astype(np.float32))
     c = rng.normal(size=(16, 8)).astype(np.float32)
     d = np.full((16, 8), np.nan, np.float32)
-    emu_lib.emu_mma(a.ctypes.data, b.ctypes.data, c.ctypes.data, d.ctypes.data)
-    # the eight exact products of an element added to C in k order, one rounding
+    if shape.startswith("tf32"):
+        emu_lib.emu_mma(a.ctypes.data, b.ctypes.data, c.ctypes.data, d.ctypes.data)
+    else:
+        emu_lib.emu_mma_bf16(a.ctypes.data, b.ctypes.data, c.ctypes.data, d.ctypes.data, k)
     want = c.astype(np.float64)
-    for k in range(8):
-        want = want + a[:, k, None].astype(np.float64) * b[None, k, :].astype(np.float64)
+    for kk in range(k):
+        want = want + a[:, kk, None].astype(np.float64) * b[None, kk, :].astype(np.float64)
     np.testing.assert_array_equal(d, want.astype(np.float32))
 
 
@@ -261,17 +319,28 @@ def test_host_run_of_product_matches_float64(host_lib, case):
 @pytest.mark.parametrize("compute_dtype", ["bfloat16", "bfloat16_f32store"])
 @pytest.mark.parametrize("case", ["dw_ragged", "dm_chunked"])
 def test_host_run_of_bf16_product_matches_float64(host_lib, case, compute_dtype):
-    """One TF32 mma of bf16 operands: exact products, fp32 sums."""
+    """The bf16 mma (exact products, fp32 sums) from fp32 operands packed to
+    bf16 at load and, under "bfloat16", from bf16 operands staged as they are
+    (K3-K5's scratch: g, dt, dr, dg), each combination: the same function.
+    dw_ragged's 13 and 215 columns stage bf16 rows element by element,
+    dm_chunked's 20 channels two at a time."""
     form, p, q, n, k, splits = PRODUCT_CASES[case]
     a, b = _operands(form, p, q, n, k, seed=len(case) + 1)
-    got = stse_train.launch_product(host_lib, form, a, b, splits, compute_dtype)
     want = stse_train.product_reference(form, a.double(), b.double(), compute_dtype)
     scale = stse_train.product_reference(form, a.double().abs(), b.double().abs())
-    err = (got.double() - want).abs()
-    assert bool((err <= 1e-5 * scale + 1e-6).all()), (case, float(err.max()))
+    kinds = [(torch.float32, torch.float32)]
+    if compute_dtype == "bfloat16":
+        kinds += [(torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32),
+                  (torch.bfloat16, torch.bfloat16)]
+    for ka, kb in kinds:
+        got = stse_train.launch_product(host_lib, form, a.to(ka), b.to(kb), splits, compute_dtype)
+        err = (got.double() - want).abs()
+        assert bool((err <= 1e-5 * scale + 1e-6).all()), (case, ka, kb, float(err.max()))
     # not the float32 product: the operands were rounded
     exact = stse_train.product_reference(form, a.double(), b.double())
     assert not bool(((got.double() - exact).abs() <= 1e-5 * scale + 1e-6).all())
+    with pytest.raises(ValueError, match="must be float32 "):  # 3xTF32 takes fp32 only
+        stse_train.launch_product(host_lib, form, a, b.to(torch.bfloat16), splits, "float32")
 
 
 def test_product_splits_fill_the_card_within_the_old_partials():

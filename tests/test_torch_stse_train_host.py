@@ -325,25 +325,37 @@ def test_forward_repeats_bit_for_bit(host_lib):
 def test_pass_shared_memory_at_flagship_layers(host_lib, ci, co, windows):
     """fwd_pre's and bwd_pre's windows a block and every per-window pass's
     shared bytes at the flagship's layers (216 nodes): bwd_dx keeps only dg,
-    W^T and W_res^T and the constants, so two blocks of the top layer fit
-    an SM's 228 KB (each block also reserves 1 KB), and so do two fwd_pre
-    blocks of any layer; fwd_apply keeps its ghost block's 8 constants a
-    channel. The blocks an SM come
-    from the card; the host emulation says 1."""
-    occ = stse_train.pass_occupancy(host_lib, 216, ci, co)
-    assert occ["bwd_pre_windows_per_block"] == occ["fwd_pre_windows_per_block"] == windows
+    W^T and W_res^T and the constants, so two blocks of the top
+    layer fit an SM's 228 KB (each block also reserves 1 KB), and so do two
+    fwd_pre blocks of any layer; fwd_apply keeps its ghost block's 8
+    constants a channel. The bf16 forms' bwd_dx keeps dg^T, W and W_res as
+    bf16 pairs (rows of 4 mod 8 words) and needs no more bytes than the
+    float32 form's at any flagship layer, nor does any other pass, so it fits
+    at least as many blocks an SM. The blocks an SM come from the card; the
+    host emulation says 1."""
     rows, pad = 224, lambda v: -(-v // 8) * 8
     ldx = pad(windows * ci) + 4
-    for name, q in (("bwd_pre", 3), ("fwd_pre", 5)):
-        floats = (2 * rows * ldx + 2 * ci * (pad(co) + 8) + q * max(64, pad(co)) + 8 * 32 * 2 * q
-                  + 256)
-        assert occ[f"{name}_smem_bytes"] == 4 * floats, name
-    dx = rows * (pad(ci) + 4) + 2 * co * (pad(ci) + 8) + 6 * co
-    assert occ["bwd_dx_smem_bytes"] == 4 * dx
-    assert occ["fwd_apply_smem_bytes"] == 4 * 8 * co
-    for name in ("bwd_dx", "fwd_pre"):
-        assert 2 * (occ[f"{name}_smem_bytes"] + 1024) <= 228 * 1024, name
-    assert all(occ[k] == 1 for k in occ if k.endswith("_blocks_per_sm"))
+    dx = {"float32": 4 * (rows * (pad(ci) + 4) + 2 * co * (pad(ci) + 8) + 6 * co)}
+    for form, consts in (("bfloat16", 8), ("bfloat16_f32store", 6)):
+        # dg^T [ci8][224 + 8], W and W_res [ci8][co16 + 8] in bf16; the constants
+        # (and under "bfloat16", whose scratch holds t and r, the block's means)
+        dx[form] = 2 * pad(ci) * (rows + 8 + 2 * (-(-co // 16) * 16 + 8)) + 4 * consts * co
+    occ = {form: stse_train.pass_occupancy(host_lib, 216, ci, co, form)
+           for form in stse_train.COMPUTE_DTYPES}
+    for form, o in occ.items():
+        assert o["bwd_pre_windows_per_block"] == o["fwd_pre_windows_per_block"] == windows
+        for name, q in (("bwd_pre", 3), ("fwd_pre", 5)):
+            floats = (2 * rows * ldx + 2 * ci * (pad(co) + 8) + q * max(64, pad(co))
+                      + 8 * 32 * 2 * q + 256)
+            assert o[f"{name}_smem_bytes"] == 4 * floats, (form, name)
+        assert o["bwd_dx_smem_bytes"] == dx[form], form
+        assert o["fwd_apply_smem_bytes"] == 4 * 8 * co
+        for name in ("bwd_dx", "fwd_pre"):
+            assert 2 * (o[f"{name}_smem_bytes"] + 1024) <= 228 * 1024, (form, name)
+        for name in ("bwd_pre", "bwd_dx", "fwd_pre", "fwd_apply"):
+            assert o[f"{name}_smem_bytes"] <= occ["float32"][f"{name}_smem_bytes"], (form, name)
+        assert all(o[k] == 1 for k in o if k.endswith("_blocks_per_sm"))
+    assert occ["bfloat16"]["bwd_dx_smem_bytes"] < occ["float32"]["bwd_dx_smem_bytes"]
 
 
 def test_launch_refuses_mismatched_inputs(host_lib):
