@@ -43,9 +43,12 @@ Phases, each printing a line before the last:
      identity-residual stack, K5 also against K4 + K3; the "bfloat16" form
      timed beside its plain version, its bound at the bf16 tensor-core peak
      and bytes at the store dtype; K2, K4 and K3 launched twice at bf16 give
-     the same bits; per flagship layer the device ms of the bf16 form's
-     bwd_pre, bwd_dx, projector_dy and products (a trace of one K3/K4
-     call) with shared bytes and blocks an SM, no fewer than float32's; and
+     the same bits; under "bfloat16" the windows, every activation and dx
+     are bf16 tensors (z, sums and statistics float32); per flagship layer
+     the device ms of the bf16 form's bwd_pre, bwd_dx, projector_dy and
+     products (a trace of one K3/K4 call) and of K2's passes (a trace of one
+     K2 call, the graph operand's too) with shared bytes and blocks an SM,
+     no fewer than float32's; and
      the product check at bf16 (the scratch operands as bf16 tensors, as
      K3-K5 keep them, against float64 of the rounded operands, with ms,
      bound and one bf16 torch.mm / einsum call's time).
@@ -58,9 +61,10 @@ Phases, each printing a line before the last:
      "mono") + Adam at B=2048 ghost 64 against 20 split steps from the same
      weights (per-step losses, K5 launched once a step, K3/K4 never); the
      step time of each mode, in turns; the peak memory of one step of each
-     (mono also at K5 chunks of 512 and 1024 windows) and the bytes it
-     saves for backward. Then 5 counted mono steps at compute_dtype bfloat16
-     (K2 and K5 launched once a step) against 5 split steps.
+     (mono also at K5 chunks of 512 and 1024 windows; both also at bf16)
+     and the bytes it saves for backward. Then 5 counted mono steps at
+     compute_dtype bfloat16 (K2 and K5 launched once a step) against 5
+     split steps.
   3c. probe: the bf16 operand probes (P), one kernel per job of
      scripts/probe_mosaic.py, each against its plain version and timed.
   4. slice (serving): the serving path at the flagship width (sts_gcn
@@ -84,7 +88,8 @@ Phases, each printing a line before the last:
      ghost block of the whole batch against the module path at bf16 from the
      same weights (per-step losses within 2^-5); the fp32 and bf16 fused
      steps' time in turns and peak memory (the bf16 peak beside PR 11's,
-     whose backward scratch was fp32), and the bf16 step's idle share.
+     whose backward scratch was fp32, and below the peak with fp32
+     activations and K2 scratch), and the bf16 step's idle share.
   6. cli (the command-line path): a synthetic AlphaPose tree (4 training
      clips x 2 actors x 1,100 frames, 8,704 stride-1 windows; 2 test
      clips with <scene>_<clip>.npy ground truth) and a reference-key config
@@ -205,6 +210,10 @@ MONO_BF16_STEPS = 5
 # the bf16 fused step's peak above resident with fp32 backward scratch (PERF.md
 # section 5, PR 11's chip run 2), printed beside this run's
 BF16_PEAK_PR11 = 778_605_568
+# the same with bf16 backward scratch but fp32 activations and K2 t/r scratch
+# (PERF.md section 5, NVIDIA H100 80GB HBM3 at 700 W): this run's, with bf16
+# activations and K2 scratch, must be lower
+BF16_PEAK_F32_ACTS = 553_161_728
 DEVICE = "cuda"
 # csrc/stse_train.cu's kernels, as the profiler names them: K2-K4's device time
 # in an epoch trace
@@ -1018,15 +1027,15 @@ def pass_report(st, ops, x, dz, acts, stats, ghost, compute_dtype="float32"):
     return out
 
 
-def forward_report(st, ops, x, ghost):
-    """Per flagship layer: the device ms of each of K2's passes in one K2
-    call, from a torch.profiler trace of it after a warm-up call (a pass's
-    l-th launch is layer l's; the projector's kernels are the top layer's),
-    and each pass's shared bytes a block and blocks an SM (the forward
-    fields of stse_train.pass_occupancy)."""
+def forward_report(st, ops, x, ghost, compute_dtype="float32"):
+    """Per flagship layer in `compute_dtype`: the device ms of each of K2's
+    passes in one K2 call, from a torch.profiler trace of it after a warm-up
+    call (a pass's l-th launch is layer l's; the projector's kernels are the
+    top layer's), and each pass's shared bytes a block and blocks an SM (the
+    forward fields of stse_train.pass_occupancy in the form)."""
     import torch
 
-    fn = lambda: st.ghost_forward(x, ops, ghost)
+    fn = lambda: st.ghost_forward(x, ops, ghost, compute_dtype=compute_dtype)
     fn()
     torch.cuda.synchronize()
     launches = traced_launches(fn)
@@ -1042,7 +1051,7 @@ def forward_report(st, ops, x, ghost):
     lib = st._library()
     for l, lay in enumerate(ops.layers):
         ci, co = lay.w.shape
-        occ = st.pass_occupancy(lib, x.shape[1], ci, co)
+        occ = st.pass_occupancy(lib, x.shape[1], ci, co, compute_dtype)
         keep = ("fwd", "projector") if l == top else ("fwd",)
         out[f"layer{l}"].update(ci=ci, co=co, **{k: v for k, v in occ.items()
                                                  if k.startswith(keep)})
@@ -1063,24 +1072,27 @@ def torch_equal(a, b) -> bool:
 
 def time_train_kernels(st, ops, x, dz, acts, stats, ghost, compute_dtype="float32"):
     """Kernel and plain-version times of K2, K3 (each lower layer) and K4 at
-    the flagship shapes in `compute_dtype`, each measured twice, in turns."""
+    the flagship shapes in `compute_dtype`, each measured twice, in turns;
+    x and acts in the form's activation dtype (the plain versions take them
+    widened to float32)."""
     top = len(ops.layers) - 1
     x_of = [x] + list(acts[:-1])
     dys = {l: acts[l] for l in range(top)}  # any [B, N, C_out] cotangent times the same
+    xf = [t.float() for t in x_of]
     cd = dict(compute_dtype=compute_dtype)
     fns = {
         "K2": (lambda: st.ghost_forward(x, ops, ghost, **cd),
-               lambda: st.ghost_forward_reference(x, ops, ghost, **cd)),
+               lambda: st.ghost_forward_reference(xf[0], ops, ghost, **cd)),
         "K4": (lambda: st.top_backward(x_of[top], acts[top], dz, ops.layers[top], stats[top],
                                        ops.wp, ops.bp, ghost, need_dx=True, **cd),
-               lambda: st.top_backward_reference(x_of[top], dz, ops.layers[top], ops.wp, ops.bp,
+               lambda: st.top_backward_reference(xf[top], dz, ops.layers[top], ops.wp, ops.bp,
                                                  ghost, need_dx=True, **cd)),
     }
     for l in range(top):
         fns[f"K3_layer{l}"] = (
             lambda l=l: st.layer_backward(x_of[l], acts[l], dys[l], ops.layers[l], stats[l],
                                           ghost, need_dx=l > 0, **cd),
-            lambda l=l: st.layer_backward_reference(x_of[l], dys[l], ops.layers[l], ghost,
+            lambda l=l: st.layer_backward_reference(xf[l], dys[l].float(), ops.layers[l], ghost,
                                                     need_dx=l > 0, **cd))
     runs = {}
     for key, (kern, plain) in fns.items():
@@ -1148,13 +1160,15 @@ def phase_bf16_kernels(card):
         ops = st.detached(st.encoder_ops(model))
         ops64 = st.detached(ops, torch.float64)
         n = kw["n_frames"] * kw["n_joints"]
-        # bf16 windows, as fused_stse_apply hands them over
-        x = torch.randn(batch, n, kw["input_dim"], generator=gen).to(dev)
-        x = x.to(torch.bfloat16).float()
+        # bf16 windows, as fused_stse_apply hands them over: a bf16 tensor under
+        # "bfloat16", float32 under "bfloat16_f32store"
+        x_bf16 = torch.randn(batch, n, kw["input_dim"], generator=gen).to(dev).to(torch.bfloat16)
         dz = torch.randn(batch, kw["latent_dim"], generator=gen).to(dev)
         top = len(ops.layers) - 1
         for form in BF16_FORMS:
             cd = dict(compute_dtype=form)
+            act = st.activation_dtype(form)
+            x = x_bf16.to(act)
             out = st.ghost_forward(x, ops, ghost, **cd)
             z, sums, acts, stats = out
             ref = st.ghost_forward_reference(x.double(), ops64, ghost, **cd)
@@ -1177,9 +1191,11 @@ def phase_bf16_kernels(card):
                 pairs.append(("K4", "dx", dy, dy_r))
             pairs += [("K4", f"layer{top}.d{f}", getattr(g, f), getattr(w, f))
                       for f in st.LayerOps._fields if getattr(w, f) is not None]
+            dxs = [dy] if top > 0 else []  # every dx a kernel hands back
             for l in reversed(range(top)):
-                g, dx = st.layer_backward(x_in[l], acts[l], dy_r.float(), ops.layers[l],
+                g, dx = st.layer_backward(x_in[l], acts[l], dy_r.to(act), ops.layers[l],
                                           stats[l], ghost, need_dx=l > 0, **cd)
+                dxs += [dx] if l > 0 else []
                 w, dx_r = st.layer_backward_reference(x_in[l].double(), dy_r, ops64.layers[l],
                                                       ghost, need_dx=l > 0,
                                                       positive=acts[l] >= 0, **cd)
@@ -1208,27 +1224,40 @@ def phase_bf16_kernels(card):
                 if not ok:
                     bad.append(f"{k} {name} err {err:.3e} scale {float(b.abs().max()):.3e}")
             check(not bad, f"stse_train {form} {label}: " + "; ".join(bad))
-            if form == "bfloat16":  # stored at bf16: the saved activations are bf16 values
-                check(all(torch.equal(a, a.to(torch.bfloat16).float()) for a in acts),
-                      f"{form} {label}: an activation is not a bf16 value")
+            # the interface in the form's activation dtype: bf16 tensors under
+            # "bfloat16"; z, the sums and statistics float32 in every form
+            check(x.dtype == act and all(t.dtype == act for t in acts + dxs)
+                  and all(t.dtype == torch.float32 for t in [z, *sums, *stats]),
+                  f"{form} {label}: activations / dx {[str(t.dtype) for t in acts + dxs]}, "
+                  f"expected {act}")
             cases.append(dict(case=label, form=form, batch=batch, ghost=ghost,
                               max_abs_err=case_err))
             if label == BF16_KERNEL_CASES[0][0] and form == "bfloat16":
-                acts_r, stats_r = [t.float() for t in ref[2]], [t.float() for t in ref[3]]
+                acts_r, stats_r = [t.to(act) for t in ref[2]], [t.float() for t in ref[3]]
                 timing = time_train_kernels(st, ops, x, dz, acts_r, stats_r, ghost, form)
                 runs = [cuda_ms(fn, iters=5, warmup=1) for _ in range(2) for fn in (
                     lambda: st.mono_backward(x, dz, ops, ghost, **cd),
-                    lambda: st.mono_backward_reference(x, dz, ops, ghost, **cd))]
+                    lambda: st.mono_backward_reference(x.float(), dz, ops, ghost, **cd))]
                 timing["K5"] = dict(kernel_ms=min(runs[0::2]), plain_ms=min(runs[1::2]),
                                     runs=dict(kernel=runs[0::2], plain=runs[1::2]))
                 work = st.work(ops, batch, ghost, form)
                 main = (batch, ghost)
                 repeat = repeat_bits(st, ops, x, dz, acts, stats, ghost, form)
                 passes = pass_report(st, ops, x, dz, acts, stats, ghost, form)
+                forward = forward_report(st, ops, x, ghost, form)
+                print("forward passes bfloat16 (one K2 call, torch.profiler; blocks an SM by "
+                      "cudaOccupancyMaxActiveBlocksPerMultiprocessor): "
+                      + json.dumps(dict(card=card, **forward)))
                 lib = st._library()
-                for layer in passes.values():  # no fewer blocks an SM than the float32 form
+                # no fewer blocks an SM than the float32 form, backward and forward passes
+                layers = [(layer, ("bwd_pre_blocks_per_sm", "bwd_dx_blocks_per_sm"))
+                          for layer in passes.values()]
+                layers += [(forward[f"layer{l}"], [k for k in forward[f"layer{l}"]
+                                                   if k.endswith("_blocks_per_sm")])
+                           for l in range(top + 1)]
+                for layer, keys in layers:
                     f32 = st.pass_occupancy(lib, n, layer["ci"], layer["co"])
-                    for k in ("bwd_pre_blocks_per_sm", "bwd_dx_blocks_per_sm"):
+                    for k in keys:
                         check(layer[k] >= f32[k], f"{form} {k} {layer[k]} < float32's {f32[k]} "
                                                   f"at C_in {layer['ci']}, C_out {layer['co']}")
                 timed_ops = ops
@@ -1253,6 +1282,8 @@ def phase_bf16_kernels(card):
             ghost=main[1], flops=flops, bytes=nbytes, timing_runs_ms=t["runs"],
             per_layer_ms=t.get("per_layer")))
         own = [r for r in products if r["batch"] == main[0] and r["kernel"] in parts]
+        if key == "K2":
+            records[-1].update(repeats_bit_for_bit=repeat[key], passes=forward)
         if key in ("K3", "K4"):
             records[-1].update(
                 repeats_bit_for_bit=repeat[key],
@@ -1380,7 +1411,8 @@ def mono_path(card):
     """MONO_STEPS steps of fused_stse_apply(bwd_mode="mono") + Adam at the
     flagship width, B=2048, ghost 64, against as many split steps from the
     same weights (bench_fused.py's `tm:` job, with Adam); step times in
-    turns; peak memory and saved-for-backward bytes of one step of each."""
+    turns; peak memory and saved-for-backward bytes of one step of each,
+    also at compute_dtype bfloat16."""
     import copy
 
     import torch
@@ -1445,7 +1477,7 @@ def mono_path(card):
     check(not bad, f"running statistics after {MONO_STEPS} mono vs split steps: {bad}")
 
     # --- the mono path at compute_dtype bfloat16 (K2 and K5's bf16 form), counted ---
-    bf16 = {}
+    bf16, bf16_runs = {}, {}
     for mode in ("mono", "split"):
         model = copy.deepcopy(model0)
         opt = torch.optim.Adam(model.parameters(), lr=1e-4)
@@ -1455,6 +1487,7 @@ def mono_path(card):
         bf16[mode] = torch.stack(steps(mode, model, opt, MONO_BF16_STEPS,
                                        compute_dtype="bfloat16")).cpu().numpy()
         torch.cuda.synchronize()
+        bf16_runs[mode] = dict(model=model, opt=opt)
         if mode == "mono":
             launches_bf16 = {k: c.value for k, c in counters.items()}
             # --- end of the counted bf16 run ---
@@ -1480,16 +1513,18 @@ def mono_path(card):
     memory = {}
     default_chunk = st.MONO_CHUNK_WINDOWS
     # One step of each; mono also at larger K5 chunks, to show whether K5's
-    # workspace or K2's forward sets the mono step's peak.
-    for key, mode, chunk in (("split", "split", None), ("mono", "mono", None),
-                             *((f"mono_chunk{c}", "mono", c) for c in MONO_PEAK_CHUNKS)):
-        r, saved = runs[mode], {}
+    # workspace or K2's forward sets the mono step's peak; both at bf16 too.
+    for key, mode, chunk, dtype in (
+            ("split", "split", None, "float32"), ("mono", "mono", None, "float32"),
+            *((f"mono_chunk{c}", "mono", c, "float32") for c in MONO_PEAK_CHUNKS),
+            ("split_bf16", "split", None, "bfloat16"), ("mono_bf16", "mono", None, "bfloat16")):
+        r, saved = (runs if dtype == "float32" else bf16_runs)[mode], {}
         st.MONO_CHUNK_WINDOWS = chunk or default_chunk
         try:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
-            steps(mode, r["model"], r["opt"], 1, saved)
+            steps(mode, r["model"], r["opt"], 1, saved, compute_dtype=dtype)
             torch.cuda.synchronize()
         finally:
             st.MONO_CHUNK_WINDOWS = default_chunk
@@ -1842,9 +1877,13 @@ def bf16_step_cost(Trainer, train_ds, weights, count=10) -> dict:
         run(dtype, range(1))
         torch.cuda.synchronize()
         peak[dtype] = torch.cuda.max_memory_allocated() - base
+    check(peak["bfloat16"] < BF16_PEAK_F32_ACTS,
+          f"the bf16 step's peak above resident {peak['bfloat16']} B is not below "
+          f"{BF16_PEAK_F32_ACTS} B, the peak with fp32 activations")
     prof = device_profile(lambda: run("bfloat16", range(2, count + 2)))
     return dict(step_ms=ms, peak_bytes_above_resident=peak,
                 bf16_peak_bytes_above_resident_pr11=BF16_PEAK_PR11,
+                bf16_peak_bytes_above_resident_f32_acts=BF16_PEAK_F32_ACTS,
                 bf16_idle_share=prof["idle_share"], bf16_device_busy_ms=prof["device_busy_ms"],
                 bf16_device_span_ms=prof["device_span_ms"])
 

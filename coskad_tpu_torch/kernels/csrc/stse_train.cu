@@ -96,22 +96,24 @@
 //                      rounded where they are stored (`stored`): the layer
 //                      input x as read, g, t and r, the output y, the
 //                      projector's dy, dy as read, dpre, dg and dx. The
-//                      interface (x, y, dy, dx) stays fp32 buffers holding
-//                      bf16 values; K3's, K4's and K5's per-window backward
-//                      scratch (g, t, r, dpre, dg and M's operand) is bf16
-//                      (`scratch_t`), as the JAX kernel stores g3, t3, r3 and
-//                      pre3 in its dtype; statistics, sums and weight gradients
-//                      are fp32;
+//                      interface (x, y, dy, dx) is bf16 (`act_t`), as the
+//                      JAX kernel stores these values in its dtype
+//                      (coskad_tpu/kernels/stse_train.py:420-422, 450); K2's
+//                      t and r scratch and K3's, K4's and K5's per-window
+//                      backward scratch (g, t, r, dpre, dg and M's operand)
+//                      are bf16 (`scratch_t`), as it stores g3, t3, r3 and
+//                      pre3; statistics, sums, z and weight gradients are
+//                      fp32;
 //   bfloat16_f32store  bf16 operands, every value stored fp32.
-// Under both bf16 forms K3's, K4's and K5's backward passes (bwd_pre,
-// projector_dy, bwd_dx) and the batch-reduction products run on the bf16
-// mma (m16n8k16; m16n8k8 where a depth leaves 8), their fragments loaded as
-// bf16 pairs: straight from bf16 scratch or shared memory, or packed by
-// cvt.rn.bf16x2.f32 from an fp32 source (x, y, dy, dz, the weights, M), the
-// bits the rounding of the TF32 path gave. Only the mma's order of summation
-// differs from that path. K2's passes (fwd_pre, projector_z), in every form,
-// stay on warp_tile's TF32 mma of bf16-rounded operands (kOpBF16): K2's bits
-// do not depend on the backward's design.
+// Under both bf16 forms every per-window pass (fwd_pre, projector_z,
+// bwd_pre, projector_dy, bwd_dx) and the batch-reduction products run on
+// the bf16 mma (m16n8k16; m16n8k8 where a depth leaves 8), their fragments
+// loaded as bf16 pairs: straight from bf16 memory (M^T's graph operand,
+// scratch, activations, shared memory), or packed by cvt.rn.bf16x2.f32 from
+// an fp32 source (the weights, dz, M, and x, y, dy under
+// "bfloat16_f32store"), the bits the rounding of the TF32 path gave. fwd_pre
+// and bwd_pre compute g, t and r in one routine from the same operands, so
+// the backward's recompute is the forward's arithmetic, bit for bit.
 // The wrapper rounds the input windows to bf16 for both bf16 forms (JAX casts
 // x_t to the operand dtype). The JAX kernel's own store points
 // (coskad_tpu/kernels/stse_train.py:342-372, 450, 814-821) are those of its
@@ -123,7 +125,7 @@
 
 #include <type_traits>
 
-#include "tf32_mma.cuh"  // tf32_of, bf16_bits, split_op, mma_op, cp_async16, warp_tile, ...
+#include "tf32_mma.cuh"  // tf32_of, bf16_bits, split_tf32, mma_3xtf32, cp_async16, warp_tile, ...
 
 namespace {
 
@@ -144,13 +146,17 @@ __device__ __forceinline__ float stored(float v) {
     return v;
 }
 
-// The type of the split backward's per-window scratch (g, t, r, dpre, dg,
-// the graph operand of M dg) in form D: bf16 under "bfloat16", where each of
+// The type of the per-window scratch (K2's t and r; the backward's g, t, r,
+// dpre, dg and graph operand) in form D: bf16 under "bfloat16", where each of
 // these values is a bf16 value already (`stored`) or is rounded to one by
 // the product that reads it, as the JAX kernel stores g3, t3, r3 and pre3
 // in its dtype (coskad_tpu/kernels/stse_train.py:342-345); else fp32.
 template <int D>
 using scratch_t = typename std::conditional<D == kBfloat16, __nv_bfloat16, float>::type;
+// The type of the values K2-K5 hand each other (x, y, dy, dx) in form D:
+// bf16 under "bfloat16", where each is a bf16 value (`stored`), else fp32.
+template <int D>
+using act_t = scratch_t<D>;
 // Whether bwd_pre keeps t and r themselves in scratch (bf16 values under
 // "bfloat16"; bwd_dx centres them again, the same fp32 subtraction of the
 // same values) or, in the fp32-scratch forms, the centred tc and rc.
@@ -162,6 +168,20 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float
 // v written to scratch: rounded to bf16 (to nearest even) in a bf16 buffer.
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 __device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+// Four consecutive values as one load or store (16 bytes of fp32, 8 of
+// bf16; p aligned to that).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
+}
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
+}
 
 // The bits of a bf16 value, and two of them as one fragment register.
 __device__ __forceinline__ uint32_t bits_of(__nv_bfloat16 v) {
@@ -174,7 +194,8 @@ __device__ __forceinline__ uint32_t bf16_pair(__nv_bfloat16 lo, __nv_bfloat16 hi
 // ---- descriptor layouts (int64 arrays built by stse_train.py) ----
 enum FwdHeader {
   FH_N_LAYERS, FH_BATCH, FH_N_NODES, FH_GHOST, FH_LATENT, FH_X, FH_WP, FH_BP, FH_Z,
-  FH_T_BUF, FH_R_BUF, FH_PART, FH_BLOCK_SUMS, FH_Z_SPLITS, FH_DTYPE, FH_COUNT
+  FH_T_BUF, FH_R_BUF, FH_PART, FH_BLOCK_SUMS, FH_Z_SPLITS, FH_Z_PART, FH_GRAPH, FH_DTYPE,
+  FH_COUNT
 };
 enum FwdLayerField {
   FL_CI, FL_CO, FL_IDENTITY, FL_M, FL_W, FL_B, FL_GAMMA, FL_BETA, FL_W_RES, FL_B_RES,
@@ -232,17 +253,27 @@ __device__ void block_reduce(float* red, int rows) {
 
 // ================= shared by K3 and K4 =================
 
-// The graph operands of the backward passes in form D's scratch. Under
+// The graph operands of the per-window passes in form D's scratch. Under
 // "bfloat16": M and M^T rounded to bf16, each in rows of graph_ld(n) = n
 // rounded up to 8 (zero past n), one after the other: the A operands of
-// bwd_dx's dx = M dg, A(r, k) = M[r][k], and of bwd_pre's g = M^T x, A(r,
-// k) = M[k][r], so the pair A(r, k), A(r, k + 1) of a bf16 fragment is one
-// aligned 32-bit load, at half M's bytes. Else M^T alone (fp32), for
-// bwd_dx, so lanes on consecutive rows read consecutive addresses (bwd_pre
-// reads M itself).
+// bwd_dx's dx = M dg, A(r, k) = M[r][k], and of fwd_pre's and bwd_pre's g =
+// M^T x, A(r, k) = M[k][r], so the pair A(r, k), A(r, k + 1) of a bf16
+// fragment is one aligned 32-bit load, at half M's bytes (K2 reads only
+// M^T). Else M^T alone (fp32), for bwd_dx, so lanes on
+// consecutive rows read consecutive addresses (fwd_pre and bwd_pre read M
+// itself).
 template <int D>
 __host__ __device__ inline int graph_ld(int n) {
   return D == kBfloat16 ? round8(n) : n;
+}
+// The bf16 M^T half of form D's graph operand, which fwd_pre and bwd_pre
+// read under "bfloat16" (null in the other forms: they read M itself).
+template <int D>
+__device__ __forceinline__ const __nv_bfloat16* graph_mt(const scratch_t<D>* graph, int n) {
+  if constexpr (D == kBfloat16)
+    return graph + (long long)n * graph_ld<D>(n);
+  else
+    return nullptr;
 }
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -366,10 +397,10 @@ bwd_reduce_kernel(const float* __restrict__ gpart, int n_blocks,
 // multiplied) and multiply it on the tensor cores as mma.sync in the form's
 // operand precision OP: 3xTF32 (m16n8k8), or bf16 (m16n8k16, m16n8k8 for a
 // window's last 8 channels or fewer). An operand is staged as it is stored,
-// fp32 or bf16 (TA, TB): under "bfloat16" the scratch operands (g, dt, dr,
-// dg) are bf16 and stage at half the bytes; an fp32 operand of a bf16
+// fp32 or bf16 (TA, TB): under "bfloat16" every operand but dz (g, dt, dr,
+// dg, x, y) is bf16 and stages at half the bytes; an fp32 operand of a bf16
 // product is packed to bf16 pairs as its fragments are loaded
-// (pack_bf16x2, the bits split_op's rounding gives).
+// (pack_bf16x2, cvt.rn.bf16x2.f32).
 // The warps' sums are added in warp order, and the blocks that split the
 // reduction write [splits, P, Q] partials that sum_splits_kernel adds in
 // split order: no float atomics, the same bits on every run.
@@ -545,19 +576,19 @@ product_rows_kernel(const TA* __restrict__ a, const TB* __restrict__ b, int P, i
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           const float* f = as + (kk + t) * LDA + mt * 16 + g;  // A[p][k] = slab[k][p]
-          split_op<OP>(f[0], ab[mt][0], asm_[mt][0]);
-          split_op<OP>(f[8], ab[mt][1], asm_[mt][1]);
-          split_op<OP>(f[4 * LDA], ab[mt][2], asm_[mt][2]);
-          split_op<OP>(f[4 * LDA + 8], ab[mt][3], asm_[mt][3]);
+          split_tf32(f[0], ab[mt][0], asm_[mt][0]);
+          split_tf32(f[8], ab[mt][1], asm_[mt][1]);
+          split_tf32(f[4 * LDA], ab[mt][2], asm_[mt][2]);
+          split_tf32(f[4 * LDA + 8], ab[mt][3], asm_[mt][3]);
         }
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           const float* f = bs + (kk + t) * LDB + nt * 8 + g;  // B[k][q] = slab[k][q]
           uint32_t bb[2], bsm[2];
-          split_op<OP>(f[0], bb[0], bsm[0]);
-          split_op<OP>(f[4 * LDB], bb[1], bsm[1]);
+          split_tf32(f[0], bb[0], bsm[0]);
+          split_tf32(f[4 * LDB], bb[1], bsm[1]);
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt) mma_op<OP>(acc[mt][nt], ab[mt], asm_[mt], bb, bsm);
+          for (int mt = 0; mt < MT; ++mt) mma_3xtf32(acc[mt][nt], ab[mt], asm_[mt], bb, bsm);
         }
       }
     } else {  // one m16n8k16 a tile per step: k is the step's 16 rows, paired 2t, 2t + 1
@@ -651,19 +682,19 @@ product_windows_kernel(const TA* __restrict__ a, const TB* __restrict__ b, int P
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           const float* f = as + (mt * 16 + g) * LDK + kk + t;  // A[p][k] = slab[p][k]
-          split_op<OP>(f[0], ab[mt][0], asm_[mt][0]);
-          split_op<OP>(f[8 * LDK], ab[mt][1], asm_[mt][1]);
-          split_op<OP>(f[4], ab[mt][2], asm_[mt][2]);
-          split_op<OP>(f[8 * LDK + 4], ab[mt][3], asm_[mt][3]);
+          split_tf32(f[0], ab[mt][0], asm_[mt][0]);
+          split_tf32(f[8 * LDK], ab[mt][1], asm_[mt][1]);
+          split_tf32(f[4], ab[mt][2], asm_[mt][2]);
+          split_tf32(f[8 * LDK + 4], ab[mt][3], asm_[mt][3]);
         }
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           const float* f = bs + (nt * 8 + g) * LDK + kk + t;  // B[k][q] = slab[q][k]
           uint32_t bb[2], bsm[2];
-          split_op<OP>(f[0], bb[0], bsm[0]);
-          split_op<OP>(f[4], bb[1], bsm[1]);
+          split_tf32(f[0], bb[0], bsm[0]);
+          split_tf32(f[4], bb[1], bsm[1]);
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt) mma_op<OP>(acc[mt][nt], ab[mt], asm_[mt], bb, bsm);
+          for (int mt = 0; mt < MT; ++mt) mma_3xtf32(acc[mt][nt], ab[mt], asm_[mt], bb, bsm);
         }
       }
     } else {  // channels 2t, 2t + 1 (and + 8) of a node: one m16n8k16, or m16n8k8 for kc <= 8
@@ -717,10 +748,12 @@ sum_splits_kernel(const float* __restrict__ part, long long count, int splits, f
 //
 // fwd_pre and bwd_pre (g = M^T x, t = g W + b, r = x W_res + b_res, in one
 // routine both call), K2's z = y_flat wp, K4's dy = dz wp^T and bwd_dx
-// (dg = dt W^T, dx = M dg + dr W_res^T) run every product as 3xTF32
-// m16n8k8 mma.sync, like the batch-reduction products (warp_tile,
-// tf32_mma.cuh). Fragments come from loaders, small functions (row, k) ->
-// value: of shared memory; of M (or M^T), read through L1/L2 as every
+// (dg = dt W^T, dx = M dg + dr W_res^T) run every product on the tensor
+// cores, like the batch-reduction products: as 3xTF32 m16n8k8 mma.sync
+// under float32 (warp_tile, tf32_mma.cuh), on the bf16 mma under the bf16
+// forms (warp_tile_bf16, fragments as bf16 pairs). Fragments come from
+// loaders, small functions (row, k) -> value (or pair): of shared memory;
+// of M (or M^T), read through L1/L2 as every
 // block reads the same M; or, for dt and dr, computed from device memory
 // in the loader and written back there, so those operands need no shared
 // buffer. A warp owns whole 16-row tiles
@@ -737,10 +770,12 @@ __host__ __device__ inline int pre_windows(int ci) {
   return w >= 4 ? 4 : (w >= 2 ? 2 : 1);
 }
 
-// Blocks an SM bwd_pre and bwd_dx are compiled for, in every form (their
-// registers bounded to fit them): at the flagship layers shared memory
-// bounds bwd_pre to 2, and bwd_dx's 3xTF32 form fits 4.
-constexpr int kPreBlocks = 2, kDxBlocks = 4;
+// Blocks an SM bwd_pre, bwd_dx and fwd_pre are compiled for, in every form
+// (their registers bounded to fit them): at the flagship layers shared
+// memory bounds bwd_pre to 2, and bwd_dx's 3xTF32 form fits 4; fwd_pre's
+// shared memory fits 4 at layer 0 (C_in 2), where its bf16 form, unbounded,
+// took the registers of 2.
+constexpr int kPreBlocks = 2, kDxBlocks = 4, kFwdPreBlocks = 4;
 
 // What a column of fwd_pre's and bwd_pre's tiles carries from lane to warp
 // to window: fwd_pre its moments (count, mean t, M2 t, mean r, M2 r),
@@ -790,12 +825,12 @@ struct PreBlock {
 // the layer's W and W_res in shared memory, then g = M^T x on the windows side
 // by side as the columns of one product, M read from L2 as A fragments; g
 // (stored) also to g_buf unless it is null. Ends synchronised. NATIVE runs
-// the products on the bf16 mma (bwd_pre under a bf16 form), M^T's pairs one
-// 32-bit load of mtb (graph_operand_kernel's bf16 M^T) where it is given,
-// else packed from M's fp32 values, as the other operands; else warp_tile in
-// form D's precision (K2's fwd_pre in every form, bwd_pre under float32).
-template <int D, bool NATIVE, class G>
-__device__ __forceinline__ PreBlock pre_graph(const float* __restrict__ x, const Layer& L, int n,
+// the products on the bf16 mma (both passes under a bf16 form), M^T's pairs
+// one 32-bit load of mtb (graph_operand_kernel's bf16 M^T) where it is
+// given, else packed from M's fp32 values, as the other operands; else
+// warp_tile's 3xTF32 (float32).
+template <int D, bool NATIVE, class X, class G>
+__device__ __forceinline__ PreBlock pre_graph(const X* __restrict__ x, const Layer& L, int n,
                                               int batch, int wb, const PreSmem& sm, float* smem,
                                               G* g_buf,
                                               const __nv_bfloat16* __restrict__ mtb = nullptr) {
@@ -810,7 +845,7 @@ __device__ __forceinline__ PreBlock pre_graph(const float* __restrict__ x, const
   for (int i = tid; i < rows * ldx; i += kThreads) {
     const int k = i / ldx, j = i - k * ldx, w = j / ci;
     xs[i] = k < n && j < cols && w < nwin
-                ? stored<D>(x[((long long)(win0 + w) * n + k) * ci + j - w * ci])
+                ? stored<D>(to_f(x[((long long)(win0 + w) * n + k) * ci + j - w * ci]))
                 : 0.0f;
   }
   for (int i = tid; i < ci * ldw; i += kThreads) {
@@ -838,7 +873,7 @@ __device__ __forceinline__ PreBlock pre_graph(const float* __restrict__ x, const
           warp_tile_bf16<4>(acc, r0, round8(n), 8 * c0, tiles, pairs_a(mt_of), pairs_b(xs_of));
         }
       } else
-        warp_tile<4, op_of<D>>(acc, r0, round8(n), 8 * c0, tiles, mt_of, xs_of);
+        warp_tile<4>(acc, r0, round8(n), 8 * c0, tiles, mt_of, xs_of);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (c0 + j >= ctiles) break;
@@ -887,8 +922,8 @@ __device__ __forceinline__ void pre_window(const PreBlock& pb, const Layer& L, i
         if (!L.identity)
           warp_tile_bf16<1>(ar, r0, round8(ci), 8 * ot, 1, pairs_a(x_of), pairs_b(wr_of));
       } else {
-        warp_tile<1, op_of<D>>(at, r0, round8(ci), 8 * ot, 1, g_of, w_of);
-        if (!L.identity) warp_tile<1, op_of<D>>(ar, r0, round8(ci), 8 * ot, 1, x_of, wr_of);
+        warp_tile<1>(at, r0, round8(ci), 8 * ot, 1, g_of, w_of);
+        if (!L.identity) warp_tile<1>(ar, r0, round8(ci), 8 * ot, 1, x_of, wr_of);
       }
       float t[4], r[4];
 #pragma unroll
@@ -960,15 +995,20 @@ __device__ __forceinline__ void merge_moments(float (&a)[kFwdMoments], const flo
 // (count, mean, M2) one at a time, then the 8 lanes of a column are merged
 // in lane order and the node-tile groups in group order (merge_moments), so
 // a channel whose spread is small against its mean keeps its digits and
-// two launches give the same bits.
+// two launches give the same bits. Under a bf16 form on the bf16 mma, as
+// bwd_pre (under "bfloat16" from graph's bf16 M^T, else M packed), t and r
+// to scratch in form D's type.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-fwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int batch, int wb, float* t_buf,
-               float* r_buf, float* part) {
+__global__ void __launch_bounds__(kThreads, kFwdPreBlocks)
+fwd_pre_kernel(const act_t<D>* __restrict__ x, Layer L, int n, int batch, int wb,
+               scratch_t<D>* t_buf, scratch_t<D>* r_buf, float* part,
+               const scratch_t<D>* __restrict__ graph) {
+  constexpr bool kNative = D != kFloat32;
   extern __shared__ __align__(16) float smem[];
   const int co = L.co, tid = threadIdx.x, lane = tid & 31;
   const PreSmem sm = pre_smem(n, L.ci, co, wb, kFwdMoments);
-  const PreBlock pb = pre_graph<D, false>(x, L, n, batch, wb, sm, smem, (float*)nullptr);
+  const PreBlock pb =
+      pre_graph<D, kNative>(x, L, n, batch, wb, sm, smem, (float*)nullptr, graph_mt<D>(graph, n));
   const int cop = round8(co), groups = pre_groups(co);
   float* csum = smem + sm.csum;  // [groups][kFwdMoments][cop]
   float* wred = smem + sm.wred + (tid >> 5) * 32 * 2 * kFwdMoments;
@@ -982,8 +1022,8 @@ fwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int batch, int wb, f
         const int rr = r0 + frag_row(i), o = 8 * ot + frag_col(i);
         if (rr >= n || o >= co) continue;
         const long long e = base + (long long)rr * co + o;
-        t_buf[e] = t[i];
-        r_buf[e] = r[i];
+        put(t_buf + e, t[i]);
+        put(r_buf + e, r[i]);
         const float one[kFwdMoments] = {1.0f, t[i], 0.0f, r[i], 0.0f};
         merge_moments(m[i & 1], one, 1);
       }
@@ -1005,7 +1045,7 @@ fwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int batch, int wb, f
 #pragma unroll
       for (int q = 0; q < 2 * kFwdMoments; ++q) m[q / kFwdMoments][q % kFwdMoments] = 0.0f;
     };
-    pre_window<D, false>(pb, L, n, w, [](int, int) {}, take, flush);
+    pre_window<D, kNative>(pb, L, n, w, [](int, int) {}, take, flush);
     __syncthreads();
     float* pw = part + (long long)win * 4 * co;
     for (int o = tid; o < co; o += kThreads) {
@@ -1085,15 +1125,16 @@ __device__ __forceinline__ float ghost_pre(const Layer& L, const float* st, int 
 
 // Pass (c), elementwise: y = PReLU(BN(t) + BN(r)) to the saved activation.
 // A block takes kApplyElems consecutive elements of one ghost block's
-// [ghost * N, C_out], 16 bytes a load where vec (C_out a multiple of 4,
-// the buffers 16-byte aligned), with the block's BN constants in shared
-// memory, c [8][co] = (t_mean, t_inv_std, gamma, beta, r_mean, r_inv_std,
-// gamma_res, beta_res).
+// [ghost * N, C_out], four a load where vec (C_out a multiple of 4, the
+// buffers aligned to four elements: 16 bytes of fp32, 8 of bf16), with the
+// block's BN constants in shared memory, c [8][co] = (t_mean, t_inv_std,
+// gamma, beta, r_mean, r_inv_std, gamma_res, beta_res). t, r and y are
+// form D's (bf16 under "bfloat16").
 constexpr int kApplyElems = 4 * 4 * kThreads;
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-fwd_apply_kernel(Layer L, int n, int ghost, int chunks, const float* __restrict__ t_buf,
-                 const float* __restrict__ r_buf, float* act, int vec) {
+fwd_apply_kernel(Layer L, int n, int ghost, int chunks, const scratch_t<D>* __restrict__ t_buf,
+                 const scratch_t<D>* __restrict__ r_buf, act_t<D>* act, int vec) {
   extern __shared__ __align__(16) float cs[];
   const int co = L.co, k = blockIdx.x / chunks;
   const float* st = L.stats + (long long)k * 4 * co;
@@ -1119,22 +1160,20 @@ fwd_apply_kernel(Layer L, int n, int ghost, int chunks, const float* __restrict_
   const long long per = (long long)ghost * n * co;
   const long long e0 = (long long)(blockIdx.x - k * chunks) * kApplyElems;
   const int end = per - e0 < kApplyElems ? (int)(per - e0) : kApplyElems;
-  const float* tb = t_buf + k * per + e0;
-  const float* rb = r_buf + k * per + e0;
-  float* yb = act + k * per + e0;
+  const scratch_t<D>* tb = t_buf + k * per + e0;
+  const scratch_t<D>* rb = r_buf + k * per + e0;
+  act_t<D>* yb = act + k * per + e0;
   // A thread's first element, its channel, and the channel step between its elements.
   const int first = vec ? 4 * threadIdx.x : threadIdx.x, stride = vec ? 4 * kThreads : kThreads;
   const int step = stride % co;
   int o = (int)((e0 + first) % co);
   for (int e = first; e < end; e += stride) {
     if (vec) {
-      const float4 t = *reinterpret_cast<const float4*>(tb + e);
-      const float4 r = *reinterpret_cast<const float4*>(rb + e);
-      *reinterpret_cast<float4*>(yb + e) =
-          make_float4(y_of(o, t.x, r.x), y_of(o + 1, t.y, r.y), y_of(o + 2, t.z, r.z),
-                      y_of(o + 3, t.w, r.w));
+      const float4 t = load4(tb + e), r = load4(rb + e);
+      store4(yb + e, make_float4(y_of(o, t.x, r.x), y_of(o + 1, t.y, r.y),
+                                 y_of(o + 2, t.z, r.z), y_of(o + 3, t.w, r.w)));
     } else {
-      yb[e] = y_of(o, tb[e], rb[e]);
+      put(yb + e, y_of(o, to_f(tb[e]), to_f(rb[e])));
     }
     o += step;
     if (o >= co) o -= co;
@@ -1149,25 +1188,45 @@ fwd_apply_kernel(Layer L, int n, int ghost, int chunks, const float* __restrict_
 // a k-step ahead; wp, the B operand, is read by the block's 8 warps through
 // L1, so from L2 once per 128 windows. Each split writes its partial sums
 // to part [splits][batch][latent]; projector_sum_kernel adds them in split
-// order, then bp.
-constexpr int kZWindows = 16 * kWarps;
+// order, then bp. 3xTF32 under float32; under the bf16 forms the bf16 mma,
+// wp's pairs packed (as projector_dy_kernel's) and y's, under "bfloat16"
+// with rows even, one 32-bit load of the bf16 activation (r_split is a
+// multiple of 8, so a pair never straddles a split or the row's end).
+// Built for kZBlocks blocks an SM in every form, as many as the float32
+// form's registers fit (it holds no shared memory).
+constexpr int kZWindows = 16 * kWarps, kZBlocks = 5;
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-projector_z_kernel(const float* __restrict__ y, const float* __restrict__ wp, int batch, int rows,
-                   int latent, int r_split, int splits, float* part) {
+__global__ void __launch_bounds__(kThreads, kZBlocks)
+projector_z_kernel(const act_t<D>* __restrict__ y, const float* __restrict__ wp, int batch,
+                   int rows, int latent, int r_split, int splits, float* part) {
   const int s = blockIdx.x % splits, l0 = (blockIdx.x / splits) * 16;
   const int w0 = blockIdx.y * kZWindows + (threadIdx.x >> 5) * 16;
   const int k0 = s * r_split, k1 = rows - k0 < r_split ? rows : k0 + r_split;
   if (w0 >= batch) return;  // uniform over the warp; no block barrier follows
   auto y_of = [&](int w, int k) {
-    return w < batch && k0 + k < k1 ? __ldg(y + (long long)w * rows + k0 + k) : 0.0f;
+    return w < batch && k0 + k < k1 ? to_f(__ldg(y + (long long)w * rows + k0 + k)) : 0.0f;
   };
   auto wp_of = [&](int k, int l) {
     return l < latent && k0 + k < k1 ? __ldg(wp + (long long)(k0 + k) * latent + l) : 0.0f;
   };
   float acc[2][4] = {};
-  warp_tile<2, op_of<D>>(acc, w0, k1 > k0 ? round8(k1 - k0) : 0, l0, latent - l0 > 8 ? 2 : 1,
-                         y_of, wp_of);
+  const int K = k1 > k0 ? round8(k1 - k0) : 0, tiles = latent - l0 > 8 ? 2 : 1;
+  if constexpr (D == kFloat32) {
+    warp_tile<2>(acc, w0, K, l0, tiles, y_of, wp_of);
+  } else if constexpr (D == kBfloat16) {
+    if (rows % 2 == 0) {  // uniform over the grid
+      auto y_pair = [&](int w, int k) -> uint32_t {
+        return w < batch && k0 + k < k1
+                   ? __ldg(reinterpret_cast<const unsigned int*>(y + (long long)w * rows + k0 + k))
+                   : 0u;
+      };
+      warp_tile_bf16<2>(acc, w0, K, l0, tiles, y_pair, pairs_b(wp_of));
+    } else {
+      warp_tile_bf16<2>(acc, w0, K, l0, tiles, pairs_a(y_of), pairs_b(wp_of));
+    }
+  } else {
+    warp_tile_bf16<2>(acc, w0, K, l0, tiles, pairs_a(y_of), pairs_b(wp_of));
+  }
 #pragma unroll
   for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -1212,7 +1271,7 @@ projector_dy_kernel(const float* __restrict__ dz, const float* __restrict__ wp, 
   };
   float acc[kDyWindows / 8][4] = {};
   if constexpr (D == kFloat32)
-    warp_tile<kDyWindows / 8, kOpF32>(acc, r0, round8(latent), w0, (wn + 7) / 8, wp_of, dz_of);
+    warp_tile<kDyWindows / 8>(acc, r0, round8(latent), w0, (wn + 7) / 8, wp_of, dz_of);
   else
     warp_tile_bf16<kDyWindows / 8>(acc, r0, round8(latent), w0, (wn + 7) / 8, pairs_a(wp_of),
                                    pairs_b(dz_of));
@@ -1241,24 +1300,23 @@ projector_dy_kernel(const float* __restrict__ dz, const float* __restrict__ wp, 
 // rounding of 0 could otherwise land on the other side in this rounding of
 // the recomputation, and one such element moves dW and dM by more than the
 // gradients' tolerance.
-// g, t and r are fwd_pre's routine (pre_graph, pre_window; under a bf16
-// form on the bf16 mma, so their sums run in another order than the
-// forward's TF32 ones), the PReLU backward and the column sums taken from
-// the accumulators. dy is read, and dpre written, as stored (under bf16,
+// g, t and r are fwd_pre's routine (pre_graph, pre_window, from the same
+// operands: the forward's values, bit for bit), the PReLU backward and the
+// column sums taken from the accumulators. x, y and dy are form D's
+// activations (act_t); dy is read, and dpre written, as stored (under bf16,
 // dpre = bf16(alpha dy) on the negative branch, alpha as it is).
 template <int D>
 __global__ void __launch_bounds__(kThreads, kPreBlocks)
-bwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int ghost, int batch, int wb,
-               const float* __restrict__ y, const float* dy, scratch_t<D>* g_buf,
+bwd_pre_kernel(const act_t<D>* __restrict__ x, Layer L, int n, int ghost, int batch, int wb,
+               const act_t<D>* __restrict__ y, const act_t<D>* dy, scratch_t<D>* g_buf,
                scratch_t<D>* t_buf, scratch_t<D>* r_buf, scratch_t<D>* dpre_buf, float* part,
                float* dalpha_part, const scratch_t<D>* __restrict__ graph) {
   constexpr bool kNative = D != kFloat32;
   extern __shared__ __align__(16) float smem[];
   const int co = L.co, tid = threadIdx.x, lane = tid & 31;
   const PreSmem sm = pre_smem(n, L.ci, co, wb, kBwdSums);
-  const __nv_bfloat16* mtb = nullptr;  // bf16 M^T: the second half of the graph operand
-  if constexpr (D == kBfloat16) mtb = graph + (long long)n * graph_ld<D>(n);
-  const PreBlock pb = pre_graph<D, kNative>(x, L, n, batch, wb, sm, smem, g_buf, mtb);
+  const PreBlock pb =
+      pre_graph<D, kNative>(x, L, n, batch, wb, sm, smem, g_buf, graph_mt<D>(graph, n));
   const int cop = round8(co), groups = pre_groups(co);
   float* csum = smem + sm.csum;  // [groups][kBwdSums][cop]
   float* wred = smem + sm.wred + (tid >> 5) * 32 * 2 * kBwdSums;
@@ -1276,9 +1334,9 @@ bwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int ghost, int batch
         const int r = r0 + frag_row(i), o = 8 * ot + frag_col(i);
         const long long e = base + (long long)r * co + o;
         const bool in = r < n && o < co;
-        yv[i] = in ? y[e] : 0.0f;
+        yv[i] = in ? to_f(y[e]) : 0.0f;
         if constexpr (raw_scratch<D>)
-          dyv[i] = !in ? 0.0f : dy != nullptr ? stored<D>(dy[e]) : to_f(dpre_buf[e]);
+          dyv[i] = !in ? 0.0f : to_f(dy != nullptr ? dy[e] : dpre_buf[e]);
         else
           dyv[i] = in ? stored<D>(dy[e]) : 0.0f;
       }
@@ -1344,7 +1402,8 @@ bwd_pre_kernel(const float* __restrict__ x, Layer L, int n, int ghost, int batch
 // adds to dx = M dg. Without dx (layer 0) dr is written by a plain loop. dt
 // and dr never sit in shared memory: a loader computes each element from
 // dpre and t (r) once and writes it back, and later column chunks (C_in >
-// 32) read it again. dg and dx are stored. Under float32 the products are
+// 32) read it again. dg and dx are stored (dx in form D's activation type,
+// act_t). Under float32 the products are
 // 3xTF32 from fp32 shared memory and M^T; under the bf16 forms they run on
 // the bf16 mma: dt and dr computed a pair at a time (one 32-bit load of t,
 // r and dpre each and one store back where the scratch is bf16), W, W_res
@@ -1356,7 +1415,7 @@ __global__ void __launch_bounds__(kThreads, kDxBlocks)
 bwd_dx_kernel(Layer L, int n, int ghost, const float* __restrict__ consts,
               scratch_t<D>* t_buf, scratch_t<D>* r_buf,
               const scratch_t<D>* __restrict__ dpre_buf, scratch_t<D>* dg_buf,
-              const scratch_t<D>* __restrict__ mt, float* dx) {
+              const scratch_t<D>* __restrict__ mt, act_t<D>* dx) {
   using S = scratch_t<D>;
   extern __shared__ __align__(16) float smem[];
   const int ci = L.ci, co = L.co, tid = threadIdx.x, warp = tid >> 5, win = blockIdx.x;
@@ -1447,7 +1506,7 @@ bwd_dx_kernel(Layer L, int n, int ghost, const float* __restrict__ consts,
           return v;
         };
         auto wt_of = [&](int o, int c) { return o < co ? wts[o * sm.ldwt + c] : 0.0f; };
-        warp_tile<4, kOpF32>(acc, r0, round8(co), 8 * c0, tiles, dt_of, wt_of);
+        warp_tile<4>(acc, r0, round8(co), 8 * c0, tiles, dt_of, wt_of);
       } else {
         auto dt_pair = [&](int r, int o) { return d_pair(0, t_buf, r, o, c0 == 0); };
         auto w_pair = [&](int o, int c) { return word_at(wb + c * sm.ldw + o); };
@@ -1495,8 +1554,8 @@ bwd_dx_kernel(Layer L, int n, int ghost, const float* __restrict__ consts,
           r_buf[e] = v;
           return v;
         };
-        warp_tile<4, kOpF32>(acc, r0, round8(n), 8 * c0, tiles, m_of, dg_of);  // M dg
-        if (!L.identity) warp_tile<4, kOpF32>(acc, r0, round8(co), 8 * c0, tiles, dr_of, wrt_of);
+        warp_tile<4>(acc, r0, round8(n), 8 * c0, tiles, m_of, dg_of);  // M dg
+        if (!L.identity) warp_tile<4>(acc, r0, round8(co), 8 * c0, tiles, dr_of, wrt_of);
       } else {
         auto m_pair = [&](int r, int k) -> uint32_t {
           if (r >= n) return 0u;
@@ -1523,7 +1582,7 @@ bwd_dx_kernel(Layer L, int n, int ghost, const float* __restrict__ consts,
           if (r >= n || c >= ci) continue;
           float v = acc[j][i];
           if (L.identity) v += to_f(dpre_buf[base + (long long)r * co + c]);
-          dx[((long long)win * n + r) * ci + c] = stored<D>(v);
+          put(dx + ((long long)win * n + r) * ci + c, stored<D>(v));
         }
       }
     }
@@ -1735,23 +1794,26 @@ int with_dtype(long long dtype, const Fn& fn) {
 
 // One layer of K2's forward on windows [0, batch) of the buffers (a
 // chunk's, for K5): fwd_pre, fwd_stats into stats and block_sums, the
-// full-batch sums unless sums is null, then fwd_apply into act.
+// full-batch sums unless sums is null, then fwd_apply into act. graph is
+// the layer's graph operand (graph_operand_kernel; read under "bfloat16").
 template <int D>
-cudaError_t run_forward_layer(const float* x, const Layer& L, int n, int ghost, int batch,
-                              float* t_buf, float* r_buf, float* part, float* stats,
-                              float* block_sums, float* sums, float* act, cudaStream_t stream) {
+cudaError_t run_forward_layer(const act_t<D>* x, const Layer& L, int n, int ghost, int batch,
+                              scratch_t<D>* t_buf, scratch_t<D>* r_buf, float* part,
+                              float* stats, float* block_sums, float* sums, act_t<D>* act,
+                              const scratch_t<D>* graph, cudaStream_t stream) {
   const LayerSmem smem = layer_smem<D>(L, n);
   const int wb = pre_windows(L.ci), n_blocks = batch / ghost;
   auto pre = fwd_pre_kernel<D>;
   pre<<<(batch + wb - 1) / wb, kThreads, (size_t)smem.fwd, stream>>>(x, L, n, batch, wb, t_buf,
-                                                                     r_buf, part);
+                                                                     r_buf, part, graph);
   fwd_stats_kernel<<<n_blocks, kThreads, 0, stream>>>(part, L, ghost, n, stats, block_sums);
   if (sums != nullptr)
     fwd_sums_kernel<<<1, kThreads, 0, stream>>>(block_sums, L.co, n_blocks, sums);
   const long long per = (long long)ghost * n * L.co;
   const int chunks = (int)((per + kApplyElems - 1) / kApplyElems);
+  constexpr int four = 4 * (int)sizeof(scratch_t<D>);  // bytes of four elements
   const int vec =
-      L.co % 4 == 0 && aligned(t_buf, 16) && aligned(r_buf, 16) && aligned(act, 16);
+      L.co % 4 == 0 && aligned(t_buf, four) && aligned(r_buf, four) && aligned(act, four);
   auto apply = fwd_apply_kernel<D>;
   apply<<<n_blocks * chunks, kThreads, (size_t)smem.apply, stream>>>(L, n, ghost, chunks, t_buf,
                                                                      r_buf, act, vec);
@@ -1761,7 +1823,7 @@ cudaError_t run_forward_layer(const float* x, const Layer& L, int n, int ghost, 
 // K2's projector on the top layer's output y [batch][rows]: projector_z
 // into part ([splits][batch][latent] floats), then projector_sum into z.
 template <int D>
-cudaError_t run_projector(const float* y, const float* wp, const float* bp, int batch, int rows,
+cudaError_t run_projector(const act_t<D>* y, const float* wp, const float* bp, int batch, int rows,
                           int latent, int splits, float* part, float* z, cudaStream_t stream) {
   const int r_split = round8((rows + splits - 1) / splits);
   const dim3 grid_z(splits * ((latent + 15) / 16), (batch + kZWindows - 1) / kZWindows);
@@ -1776,20 +1838,24 @@ cudaError_t run_projector(const float* y, const float* wp, const float* bp, int 
 // the buffers (a chunk's, for K5): bwd_pre (after K4's projector_dy_kernel,
 // whose dy it reads from dpre_buf), bwd_consts, then bwd_dx. `y` is the
 // layer's output; dy, for K3, the layer above's dx; dz and wp, for K4. The
-// per-window scratch is form D's (scratch_t).
+// activations (x, y, dy, dx) are form D's act_t, the per-window scratch its
+// scratch_t.
 template <int D>
 struct PassArgs {
   using S = scratch_t<D>;
-  const float *x, *y, *dy, *dz, *wp;
+  using A = act_t<D>;
+  const A *x, *y, *dy;
+  const float *dz, *wp;
   const S* mt;
   int batch, n, ghost, latent;
   S *g_buf, *t_buf, *r_buf, *dpre_buf, *dg_buf;
-  float *part, *dalpha_part, *consts, *gpart, *dx;
+  float *part, *dalpha_part, *consts, *gpart;
+  A* dx;
 };
 template <int D>
 cudaError_t run_passes(const Layer& L, const PassArgs<D>& a, const LayerSmem& smem,
                        cudaStream_t stream) {
-  const float* dy = a.dy;
+  const act_t<D>* dy = a.dy;
   if (a.dz != nullptr) {
     const int rows = a.n * L.co;
     const dim3 grid_dy((rows + kDyRows - 1) / kDyRows, (a.batch + kDyWindows - 1) / kDyWindows);
@@ -1821,33 +1887,34 @@ cudaError_t run_passes(const Layer& L, const PassArgs<D>& a, const LayerSmem& sm
 template <int D>
 cudaError_t mono_chunk(const long long* d, int c, int w0, int wc, cudaStream_t stream) {
   using S = scratch_t<D>;
-  constexpr int sb = D == kBfloat16;  // the scratch operands of the products are bf16
+  using A = act_t<D>;
+  constexpr int sb = D == kBfloat16;  // the products' scratch and activation operands: bf16
   const int n_layers = (int)d[MH_N_LAYERS], n = (int)d[MH_N_NODES], ghost = (int)d[MH_GHOST];
   const int latent = (int)d[MH_LATENT];
-  // t_buf and r_buf serve K2's passes (fp32) and then the backward's (form D's scratch)
-  float* t_buf = ptr<float>(d, MH_T_BUF);
-  float* r_buf = ptr<float>(d, MH_R_BUF);
+  S* t_buf = ptr<S>(d, MH_T_BUF);  // K2's passes, then the backward's
+  S* r_buf = ptr<S>(d, MH_R_BUF);
   S* dpre_buf = ptr<S>(d, MH_DPRE_BUF);
   S* g_buf = ptr<S>(d, MH_G_BUF);
   S* dg_buf = ptr<S>(d, MH_DG_BUF);
-  float* dy_buf = ptr<float>(d, MH_DY_BUF);
+  A* dy_buf = ptr<A>(d, MH_DY_BUF);
   float* part = ptr<float>(d, MH_PART);
   float* consts = ptr<float>(d, MH_CONSTS);
   float* prod_buf = ptr<float>(d, MH_PROD_BUF);
   const long long* rows = d + MH_COUNT;
-  const float* x_c = ptr<const float>(d, MH_X) + (long long)w0 * n * rows[ML_CI];
+  const A* x_c = ptr<const A>(d, MH_X) + (long long)w0 * n * rows[ML_CI];
   const float* dz_c = ptr<const float>(d, MH_DZ) + (long long)w0 * latent;
 
-  const float* h = x_c;
+  const A* h = x_c;
   cudaError_t err = cudaSuccess;
   for (int l = 0; l < n_layers && err == cudaSuccess; ++l) {
     const long long* row = rows + (long long)l * ML_COUNT;
     Layer L = row_layer(row);
     float* stats = ptr<float>(row, ML_STATS);
     L.stats = stats;
-    float* act = ptr<float>(row, ML_ACT);
+    A* act = ptr<A>(row, ML_ACT);
     err = run_forward_layer<D>(h, L, n, ghost, wc, t_buf, r_buf, part, stats,
-                               ptr<float>(d, MH_BLOCK_SUMS), nullptr, act, stream);
+                               ptr<float>(d, MH_BLOCK_SUMS), nullptr, act,
+                               ptr<const S>(row, ML_MT), stream);
     h = act;
   }
   for (int l = n_layers - 1; l >= 0 && err == cudaSuccess; --l) {
@@ -1856,10 +1923,10 @@ cudaError_t mono_chunk(const long long* d, int c, int w0, int wc, cudaStream_t s
     L.stats = ptr<const float>(row, ML_STATS);
     const int ci = L.ci, co = L.co;
     const bool top = l == n_layers - 1;
-    const float* x_l = l == 0 ? x_c : ptr<const float>(row - ML_COUNT, ML_ACT);
+    const A* x_l = l == 0 ? x_c : ptr<const A>(row - ML_COUNT, ML_ACT);
     PassArgs<D> pa;
     pa.x = x_l;
-    pa.y = ptr<const float>(row, ML_ACT);
+    pa.y = ptr<const A>(row, ML_ACT);
     pa.dy = top ? nullptr : dy_buf;
     pa.dz = top ? dz_c : nullptr;
     pa.wp = ptr<const float>(d, MH_WP);
@@ -1869,8 +1936,8 @@ cudaError_t mono_chunk(const long long* d, int c, int w0, int wc, cudaStream_t s
     pa.ghost = ghost;
     pa.latent = latent;
     pa.g_buf = g_buf;
-    pa.t_buf = reinterpret_cast<S*>(t_buf);
-    pa.r_buf = reinterpret_cast<S*>(r_buf);
+    pa.t_buf = t_buf;
+    pa.r_buf = r_buf;
     pa.dpre_buf = dpre_buf;
     pa.dg_buf = dg_buf;
     pa.part = part;
@@ -1887,18 +1954,18 @@ cudaError_t mono_chunk(const long long* d, int c, int w0, int wc, cudaStream_t s
       err = run_product<D>(pw, (int)row[ML_SPLITS_W], prod_buf,
                            ptr<float>(row, ML_CHUNK_DW) + c * wsz, stream);
     if (err == cudaSuccess && !L.identity) {
-      Product pr{PF_ROWS, x_l, pa.r_buf, ci, co, n_rows, 1, 0, sb};
+      Product pr{PF_ROWS, x_l, pa.r_buf, ci, co, n_rows, 1, sb, sb};
       err = run_product<D>(pr, (int)row[ML_SPLITS_W], prod_buf,
                            ptr<float>(row, ML_CHUNK_DW_RES) + c * wsz, stream);
     }
     if (err == cudaSuccess) {
-      Product pm{PF_WINDOWS, x_l, dg_buf, n, n, wc, ci, 0, sb};
+      Product pm{PF_WINDOWS, x_l, dg_buf, n, n, wc, ci, sb, sb};
       err = run_product<D>(pm, (int)row[ML_SPLITS_M], prod_buf,
                            ptr<float>(row, ML_CHUNK_DM) + (long long)c * n * n, stream);
     }
     // dwp = sum over the chunk's windows of y_flat^T dz.
     if (err == cudaSuccess && top) {
-      Product pp{PF_ROWS, ptr<const float>(row, ML_ACT), dz_c, n * co, latent, wc, 1, 0, 0};
+      Product pp{PF_ROWS, ptr<const A>(row, ML_ACT), dz_c, n * co, latent, wc, 1, sb, 0};
       err = run_product<D>(pp, (int)d[MH_SPLITS_WP], prod_buf,
                            ptr<float>(d, MH_CHUNK_DWP) + (long long)c * n * co * latent, stream);
     }
@@ -1920,7 +1987,7 @@ int run_mono(const long long* d, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
   auto graph = graph_operand_kernel<D>;
   // the graph operands: every layer that passes dx down, and under "bfloat16"
-  // every layer (bwd_pre reads M^T's bf16 copy)
+  // every layer (fwd_pre and bwd_pre read M^T's bf16 copy)
   for (int l = D == kBfloat16 ? 0 : 1; l < n_layers; ++l) {
     const long long* row = rows + (long long)l * ML_COUNT;
     graph<<<blocks_for((long long)n * graph_ld<D>(n)), kThreads, 0, stream>>>(
@@ -1964,7 +2031,8 @@ int run_mono(const long long* d, cudaStream_t stream) {
 template <int D>
 int run_backward(const long long* d, bool top, cudaStream_t stream) {
   using S = scratch_t<D>;
-  constexpr int sb = D == kBfloat16;  // the scratch operands of the products are bf16
+  using A = act_t<D>;
+  constexpr int sb = D == kBfloat16;  // the products' scratch and activation operands: bf16
   const int batch = (int)d[BD_BATCH], n = (int)d[BD_N_NODES], ghost = (int)d[BD_GHOST];
   const int latent = (int)d[BD_LATENT];
   Layer L;
@@ -1988,7 +2056,7 @@ int run_backward(const long long* d, bool top, cudaStream_t stream) {
       (!top && d[BD_DY] == 0) || d[BD_Y] == 0)
     return (int)cudaErrorInvalidValue;
   const int n_blocks = batch / ghost;
-  const float* x = ptr<const float>(d, BD_X);
+  const A* x = ptr<const A>(d, BD_X);
   const float* dz = top ? ptr<const float>(d, BD_DZ) : nullptr;
   S* g_buf = ptr<S>(d, BD_G_BUF);
   S* t_buf = ptr<S>(d, BD_T_BUF);
@@ -2003,8 +2071,8 @@ int run_backward(const long long* d, bool top, cudaStream_t stream) {
 
   PassArgs<D> pa;
   pa.x = x;
-  pa.y = ptr<const float>(d, BD_Y);
-  pa.dy = top ? nullptr : ptr<const float>(d, BD_DY);
+  pa.y = ptr<const A>(d, BD_Y);
+  pa.dy = top ? nullptr : ptr<const A>(d, BD_DY);
   pa.dz = dz;
   pa.wp = ptr<const float>(d, BD_WP);
   pa.mt = mt;
@@ -2021,7 +2089,7 @@ int run_backward(const long long* d, bool top, cudaStream_t stream) {
   pa.dalpha_part = ptr<float>(d, BD_DALPHA_PART);
   pa.consts = ptr<float>(d, BD_CONSTS);
   pa.gpart = ptr<float>(d, BD_GPART);
-  pa.dx = ptr<float>(d, BD_DX);
+  pa.dx = ptr<A>(d, BD_DX);
   if (pa.dx != nullptr || D == kBfloat16) {  // bf16: bwd_pre reads M^T's bf16 copy
     auto graph = graph_operand_kernel<D>;
     graph<<<blocks_for((long long)n * graph_ld<D>(n)), kThreads, 0, stream>>>(L.m, mt, n);
@@ -2041,18 +2109,18 @@ int run_backward(const long long* d, bool top, cudaStream_t stream) {
   Product pw{PF_ROWS, g_buf, t_buf, ci, co, n_rows, 1, sb, sb};
   err = run_product<D>(pw, (int)d[BD_SPLITS_W], prod_buf, ptr<float>(d, BD_DW), stream);
   if (err == cudaSuccess && !L.identity) {
-    Product pr{PF_ROWS, x, r_buf, ci, co, n_rows, 1, 0, sb};
+    Product pr{PF_ROWS, x, r_buf, ci, co, n_rows, 1, sb, sb};
     err = run_product<D>(pr, (int)d[BD_SPLITS_W_RES], prod_buf, ptr<float>(d, BD_DW_RES),
                          stream);
   }
   // dM[k][m] = sum over windows and channels of x[k][c] dg[m][c].
   if (err == cudaSuccess) {
-    Product pm{PF_WINDOWS, x, dg_buf, n, n, batch, ci, 0, sb};
+    Product pm{PF_WINDOWS, x, dg_buf, n, n, batch, ci, sb, sb};
     err = run_product<D>(pm, (int)d[BD_SPLITS_M], prod_buf, ptr<float>(d, BD_DM), stream);
   }
   // K4: dwp = sum over windows of y_flat^T dz.
   if (err == cudaSuccess && top) {
-    Product pp{PF_ROWS, ptr<const float>(d, BD_Y), dz, n * co, latent, batch, 1, 0, 0};
+    Product pp{PF_ROWS, ptr<const A>(d, BD_Y), dz, n * co, latent, batch, 1, sb, 0};
     err = run_product<D>(pp, (int)d[BD_SPLITS_WP], prod_buf, ptr<float>(d, BD_DWP), stream);
   }
   return (int)err;
@@ -2072,23 +2140,31 @@ int run_forward(const long long* desc, cudaStream_t stream) {
   cudaError_t err = check_layers<D>(rows, FL_COUNT, n_layers, n, &most);
   if (err == cudaSuccess) err = allow_passes<D>(LayerSmem{most.fwd, most.apply, 0, 0});
   if (err != cudaSuccess) return (int)err;
-  float* t_buf = ptr<float>(desc, FH_T_BUF);
-  const float* x = ptr<const float>(desc, FH_X);
+  using S = scratch_t<D>;
+  using A = act_t<D>;
+  S* graph = ptr<S>(desc, FH_GRAPH);  // under "bfloat16": each layer's M^T in turn
+  if (D == kBfloat16 && graph == nullptr) return (int)cudaErrorInvalidValue;
+  const A* x = ptr<const A>(desc, FH_X);
   for (int l = 0; l < n_layers && err == cudaSuccess; ++l) {
     const long long* row = rows + (long long)l * FL_COUNT;
     Layer L = row_layer(row);
     float* stats = ptr<float>(row, FL_STATS);
     L.stats = stats;
-    float* act = ptr<float>(row, FL_ACT);
-    err = run_forward_layer<D>(x, L, n, ghost, batch, t_buf, ptr<float>(desc, FH_R_BUF),
-                               ptr<float>(desc, FH_PART), stats, ptr<float>(desc, FH_BLOCK_SUMS),
-                               ptr<float>(row, FL_SUMS), act, stream);
+    A* act = ptr<A>(row, FL_ACT);
+    if constexpr (D == kBfloat16) {
+      auto op = graph_operand_kernel<D>;
+      op<<<blocks_for((long long)n * graph_ld<D>(n)), kThreads, 0, stream>>>(L.m, graph, n);
+    }
+    err = run_forward_layer<D>(x, L, n, ghost, batch, ptr<S>(desc, FH_T_BUF),
+                               ptr<S>(desc, FH_R_BUF), ptr<float>(desc, FH_PART), stats,
+                               ptr<float>(desc, FH_BLOCK_SUMS), ptr<float>(row, FL_SUMS), act,
+                               graph, stream);
     x = act;
   }
   if (err != cudaSuccess) return (int)err;
   const int c_top = (int)rows[(long long)(n_layers - 1) * FL_COUNT + FL_CO];
   return (int)run_projector<D>(x, ptr<const float>(desc, FH_WP), ptr<const float>(desc, FH_BP),
-                               batch, n * c_top, latent, z_splits, t_buf,
+                               batch, n * c_top, latent, z_splits, ptr<float>(desc, FH_Z_PART),
                                ptr<float>(desc, FH_Z), stream);
 }
 
@@ -2132,10 +2208,12 @@ extern "C" {
 const char* stse_train_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // K2. desc: FH_COUNT header fields, then n_layers rows of FL_COUNT fields
-// (see FwdHeader / FwdLayerField; built by stse_train.py). Scratch t_buf
-// [max(B N max C_out, z_splits B latent)] (also the projector's partials,
-// once the top layer's apply pass has read it), r_buf [B, N, max C_out],
-// part [B, 4, max C_out] and block_sums [B / ghost, 4, max C_out].
+// (see FwdHeader / FwdLayerField; built by stse_train.py). x and each
+// layer's act in form D's activation type; scratch t_buf and r_buf [B, N,
+// max C_out] in its scratch type, fp32 part [B, 4, max C_out], block_sums
+// [B / ghost, 4, max C_out] and z_part [z_splits, B, latent] (the
+// projector's partials); under "bfloat16" graph, the bf16 graph operand
+// [2 N round8(N)] (else null).
 int stse_train_forward(const long long* desc, void* stream) {
   return with_dtype(desc[FH_DTYPE], [&](auto d) {
     return run_forward<decltype(d)::value>(desc, (cudaStream_t)stream);
@@ -2143,12 +2221,14 @@ int stse_train_forward(const long long* desc, void* stream) {
 }
 
 // K5. desc: MH_COUNT header fields, then n_layers rows of ML_COUNT fields
-// (see MonoHeader / MonoLayerField; built by stse_train.py). Chunk
-// workspace, for C = MH_CHUNK windows: t_buf, r_buf, dpre_buf [C, N, max
-// C_out]; g_buf, dg_buf [C, N, max C_in]; dy_buf [C, N, max C_in of the
-// layers above 0]; part [C, 4, max C_out]; block_sums and consts [C / ghost,
-// 4 and 6, max C_out]; per layer act [C, N, C_out] and stats [C / ghost, 4,
-// C_out]. Whole batch, per layer: mt [N, N] (not layer 0), gpart [B / ghost,
+// (see MonoHeader / MonoLayerField; built by stse_train.py). x and dz
+// [B, ...]. Chunk workspace, for C = MH_CHUNK windows, in form D's scratch
+// type: t_buf, r_buf, dpre_buf [C, N, max C_out]; g_buf, dg_buf [C, N, max
+// C_in]; in its activation type: dy_buf [C, N, max C_in of the layers above
+// 0], per layer act [C, N, C_out]; fp32: part [C, 4, max C_out]; block_sums
+// and consts [C / ghost, 4 and 6, max C_out]; per layer stats [C / ghost, 4,
+// C_out]. Whole batch, per layer: mt, the graph operand (not layer 0 outside
+// "bfloat16"), gpart [B / ghost,
 // 6, C_out], dalpha_part [B], chunk_dm / chunk_dw / chunk_dw_res [n_chunks,
 // ...]; chunk_dwp [n_chunks, N * C_out, latent]; prod_buf as K3/K4's for one
 // chunk.

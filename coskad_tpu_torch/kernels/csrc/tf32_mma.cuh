@@ -1,8 +1,7 @@
 // Tensor-core helpers shared by the port's kernels (stse_fused.cu, stse_train.cu):
 // TF32 and bf16 rounding, the m16n8k8 TF32 mma.sync, the m16n8k16 and
 // m16n8k8 bf16 mma.sync, cp.async, the operand precisions of a product
-// (3xTF32, or bf16 operands), and the fragment loaders of a warp's 16-row
-// tiles.
+// (3xTF32, or bf16 operands), and the warp tiles of both (16 rows each).
 //
 // Include after <cuda_runtime.h> and <stdint.h>. Under CUDA_HOST_EMU (the
 // host emulation of tests/cuda_host_emu.h) the inline-PTX helpers are left
@@ -113,47 +112,21 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_big
   mma_tf32(d, a_big, b_big);
 }
 
-// The operand precision of a tensor-core product, a template argument of
-// warp_tile and of the kernels that run products:
+// The operand precision of a batch-reduction product (stse_train.cu's
+// product kernels, a template argument):
 //   kOpF32   3xTF32: each operand split into TF32 big and small parts, three
 //            mma per product, ~fp32 (split_tf32, mma_3xtf32);
-//   kOpBF16  each operand rounded to bf16 (bf16_bits) and one TF32 mma. A
-//            bf16 value is exact in TF32, so the products are exact and sum
-//            in fp32: the function of mma.sync with bf16 operands and f32
-//            accumulation (JAX's bf16 dot with preferred_element_type f32),
-//            in the TF32 fragment layout (warp_tile: K2's passes); the
-//            products that run on the bf16 mma itself (warp_tile_bf16,
-//            stse_train.cu's backward) compute the same function with half
-//            the mma and bf16 fragments.
+//   kOpBF16  each operand rounded to bf16, exact products summed in fp32 on
+//            the bf16 mma (mma_bf16_k16, mma_bf16_k8): the function of JAX's
+//            bf16 dot with preferred_element_type f32. The per-window passes
+//            take the same two routes through warp_tile and warp_tile_bf16.
 enum OperandPrecision { kOpF32 = 0, kOpBF16 = 1 };
-
-// An operand in precision P: big (and, for 3xTF32, small) TF32 parts.
-template <int P>
-__device__ __forceinline__ void split_op(float v, uint32_t& big, uint32_t& small) {
-  if constexpr (P == kOpBF16) {
-    big = bf16_bits(v);
-    small = 0u;
-  } else {
-    split_tf32(v, big, small);
-  }
-}
-
-// d += a b in precision P, from split_op's parts.
-template <int P>
-__device__ __forceinline__ void mma_op(float (&d)[4], const uint32_t (&a_big)[4],
-                                       const uint32_t (&a_small)[4], const uint32_t (&b_big)[2],
-                                       const uint32_t (&b_small)[2]) {
-  if constexpr (P == kOpBF16)
-    mma_tf32(d, a_big, b_big);
-  else
-    mma_3xtf32(d, a_big, a_small, b_big, b_small);
-}
 
 __host__ __device__ constexpr int round8(int v) { return (v + 7) & ~7; }
 
 // A lane's values of the A fragment at rows [r0, r0 + 16) x columns [k0,
-// k0 + 8), and its B fragment at [k0, k0 + 8) x [c0, c0 + 8) as precision
-// P's parts, in the PTX layout (see mma_tf32).
+// k0 + 8), and its B fragment at [k0, k0 + 8) x [c0, c0 + 8) as 3xTF32
+// parts, in the PTX layout (see mma_tf32).
 template <class FA>
 __device__ __forceinline__ void frag_a(const FA& a, int r0, int k0, float (&v)[4]) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
@@ -163,20 +136,20 @@ __device__ __forceinline__ void frag_a(const FA& a, int r0, int k0, float (&v)[4
   v[3] = a(r0 + g + 8, k0 + t + 4);
 }
 
-template <int P = kOpF32, class FB>
+template <class FB>
 __device__ __forceinline__ void frag_b(const FB& b, int k0, int c0, uint32_t (&big)[2],
                                        uint32_t (&small)[2]) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  split_op<P>(b(k0 + t, c0 + g), big[0], small[0]);
-  split_op<P>(b(k0 + t + 4, c0 + g), big[1], small[1]);
+  split_tf32(b(k0 + t, c0 + g), big[0], small[0]);
+  split_tf32(b(k0 + t + 4, c0 + g), big[1], small[1]);
 }
 
 // acc[j] += A[r0, r0 + 16) x [0, K) . B[0, K) x [c0 + 8 j, c0 + 8 j + 8) for
-// j < tiles <= NT; K a multiple of 8, the loaders 0 past their operand's
-// edge. Each A fragment is loaded once, for all the column tiles, and one
-// step ahead, so its latency (L2 for M) runs under the step before. P is the
-// operand precision (OperandPrecision).
-template <int NT, int P = kOpF32, class FA, class FB>
+// j < tiles <= NT as 3xTF32 (~fp32); K a multiple of 8, the loaders 0 past
+// their operand's edge. Each A fragment is loaded once, for all the column
+// tiles, and one step ahead, so its latency (L2 for M) runs under the step
+// before.
+template <int NT, class FA, class FB>
 __device__ __forceinline__ void warp_tile(float (&acc)[NT][4], int r0, int K, int c0, int tiles,
                                           const FA& a, const FB& b) {
   float next[4];
@@ -184,14 +157,14 @@ __device__ __forceinline__ void warp_tile(float (&acc)[NT][4], int r0, int K, in
   for (int k0 = 0; k0 < K; k0 += 8) {
     uint32_t ab[4], as[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) split_op<P>(next[i], ab[i], as[i]);
+    for (int i = 0; i < 4; ++i) split_tf32(next[i], ab[i], as[i]);
     if (k0 + 8 < K) frag_a(a, r0, k0 + 8, next);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       if (j >= tiles) break;
       uint32_t bb[2], bs[2];
-      frag_b<P>(b, k0, c0 + 8 * j, bb, bs);
-      mma_op<P>(acc[j], ab, as, bb, bs);
+      frag_b(b, k0, c0 + 8 * j, bb, bs);
+      mma_3xtf32(acc[j], ab, as, bb, bs);
     }
   }
 }

@@ -35,23 +35,26 @@ compute_dtype (`COMPUTE_DTYPES`, the JAX kernels' `_parse_dtype` :266 and
 `_dop` :288): "float32"; "bfloat16", every dot operand rounded to bf16 (round
 to nearest even) and summed in float32, and the values JAX stores at bf16
 rounded where they are stored: the layer input as read, g, t, r, the output
-y, dy as read, dpre, dg and dx (the interface tensors stay float32, holding
-bf16 values; the split backward's per-window scratch, g, t, r, dpre, dg and
-the graph operand, is bf16, `scratch_dtype`); "bfloat16_f32store", bf16
+y, dy as read, dpre, dg and dx. The tensors the kernels hand each other (the
+input windows, every activation, dy and dx) are then `torch.bfloat16`
+(`activation_dtype`), as the JAX kernel stores them in its dtype (:420-422,
+450), and so is the per-window scratch (K2's t and r; the backward's g, t,
+r, dpre, dg and graph operand: `scratch_dtype`); "bfloat16_f32store", bf16
 operands and every value stored in float32. Statistics, the
 running-statistic sums, z and the weight gradients are float32 under every
 form; `fused_stse_apply` rounds the input windows to bf16 under both bf16
 forms (JAX casts x_t to the operand dtype, :1152).
 The kernels take the form as a template argument (`csrc/stse_train.cu`);
 the plain versions round at the same points (`_bf16_einsum` for a product,
-both ways; `_stored` for a stored value).
+both ways; `_stored` for a stored value) and keep their input's dtype: the
+wrappers widen a bf16 input for them and hand back bf16 activations and dx
+under "bfloat16" on both routes.
 
 What bounds the kernels on an H100: K2-K5 run every product (the
 per-window passes', the projector's and the batch reductions') on the
-tensor cores, as 3xTF32 under float32; under a bf16 form K3's, K4's and
-K5's backward passes and products run on the bf16 mma (m16n8k16), K2's as
-one TF32 product of bf16 operands. That leaves them bound by their scratch
-traffic (see `work`, `products` and the source's header).
+tensor cores, as 3xTF32 under float32 and on the bf16 mma (m16n8k16) under
+a bf16 form. That leaves them bound by their scratch traffic (see `work`,
+`products` and the source's header).
 """
 
 from __future__ import annotations
@@ -76,8 +79,9 @@ REPLACES = {
 }
 BN_EPS = 1e-5
 # K5's default chunk, in windows: at the flagship width its workspace
-# (`mono_workspace`) is 47.9 MB, under a quarter of split's 258 MB of saved
-# activations at B = 2048. On an H100 a mono step's peak is the same at
+# (`mono_workspace`) is 47.9 MB (24.0 MB under "bfloat16"), under a quarter
+# of split's 258 MB of saved activations at B = 2048. On an H100 a mono
+# step's peak is the same at
 # chunks of 512 and 1024 windows (K2's forward sets it), where K5 takes
 # 0.6x the time: retuning it is ROADMAP.md Queue 2 item 3 (PERF.md).
 MONO_CHUNK_WINDOWS = 128
@@ -92,7 +96,7 @@ product_launches = LaunchCounter()  # one batch-reduction product alone (`produc
 
 # Descriptor fields, in the order of the enums in csrc/stse_train.cu.
 _FWD_HEADER = ("n_layers", "batch", "n_nodes", "ghost", "latent", "x", "wp", "bp", "z",
-               "t_buf", "r_buf", "part", "block_sums", "z_splits", "dtype")
+               "t_buf", "r_buf", "part", "block_sums", "z_splits", "z_part", "graph", "dtype")
 _FWD_LAYER = ("ci", "co", "identity", "m", "w", "b", "gamma", "beta", "w_res", "b_res",
               "gamma_res", "beta_res", "alpha", "act", "stats", "sums")
 _BWD = ("batch", "n_nodes", "ghost", "ci", "co", "identity", "latent", "x", "dy", "dz", "wp",
@@ -415,11 +419,20 @@ def mono_backward_reference(x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps,
 
 
 def scratch_dtype(compute_dtype: str) -> torch.dtype:
-    """The dtype of K3's, K4's and K5's per-window backward scratch (g, t, r,
-    dpre, dg and the graph operand of M dg) in `compute_dtype`: bf16 under
+    """The dtype of K2-K5's per-window scratch (K2's t and r; the backward's
+    g, t, r, dpre, dg and graph operand) in `compute_dtype`: bf16 under
     "bfloat16", as the JAX kernel stores its large intermediates in its
     dtype (coskad_tpu/kernels/stse_train.py:342-345), else float32."""
     return torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+
+
+def activation_dtype(compute_dtype: str) -> torch.dtype:
+    """The dtype of the tensors K2-K5 take and hand back (the input windows,
+    each layer's activation, dy and dx) in `compute_dtype`: that of the
+    scratch (the source's act_t is its scratch_t), bf16 under "bfloat16",
+    where each of their values is a bf16 value, as the JAX kernel stores
+    them (coskad_tpu/kernels/stse_train.py:420-422, 450), else float32."""
+    return scratch_dtype(compute_dtype)
 
 
 def graph_operand_size(n: int, compute_dtype: str) -> int:
@@ -546,15 +559,17 @@ def _run(lib, fn: str, desc: np.ndarray, device) -> None:
 def launch_forward(lib, x: torch.Tensor, ops: EncoderOps, ghost_size: int,
                    compute_dtype: str = "float32"):
     """Run K2 from `lib` on x [B, N, C_in] (the device's tensors, or host
-    tensors for the CUDA source compiled on the host) in `compute_dtype`.
-    Same returns as `ghost_forward_reference`."""
+    tensors for the CUDA source compiled on the host) in `compute_dtype`, x
+    and the activations in `activation_dtype`. Same returns as
+    `ghost_forward_reference`."""
     b, n, c0 = x.shape
     dev = x.device
     if b % ghost_size or b < 1:
         raise ValueError(f"batch {b} must be a positive multiple of ghost_size {ghost_size}")
     if ops.layers[0].w.shape[0] != c0:
         raise ValueError(f"input has {c0} channels, layer 0 takes {ops.layers[0].w.shape[0]}")
-    x = _checked(x, dev, (b, n, c0), "x")
+    act = dict(dtype=activation_dtype(compute_dtype), device=dev)
+    x = _checked(x, dev, (b, n, c0), "x", (act["dtype"],))
     layers = [_layer_operands(lay, n, dev) for lay in ops.layers]
     c_hidden = layers[-1].w.shape[1]
     latent = ops.wp.shape[1]
@@ -563,19 +578,23 @@ def launch_forward(lib, x: torch.Tensor, ops: EncoderOps, ghost_size: int,
     cmax = max(lay.w.shape[1] for lay in layers)
     z_splits = projector_splits(n * c_hidden, b, latent)
     f32 = dict(dtype=torch.float32, device=dev)
+    sc = dict(dtype=scratch_dtype(compute_dtype), device=dev)
     z = torch.empty((b, latent), **f32)
-    # t_buf also holds the projector's split partials once the top layer is done with it
-    t_buf = torch.empty((max(b * n * cmax, z_splits * b * latent),), **f32)
-    r_buf = torch.empty((b * n * cmax,), **f32)
+    t_buf = torch.empty((b * n * cmax,), **sc)
+    r_buf = torch.empty((b * n * cmax,), **sc)
     part = torch.empty((b * 4 * cmax,), **f32)
     block_sums = torch.empty((b // ghost_size * 4 * cmax,), **f32)
+    z_part = torch.empty((z_splits * b * latent,), **f32)  # the projector's split partials
+    # under "bfloat16" fwd_pre reads each layer's bf16 M^T, built in turn here
+    graph = (torch.empty((graph_operand_size(n, compute_dtype),), **sc)
+             if compute_dtype == "bfloat16" else None)
     acts, stats, sums = [], [], []
     desc = [len(layers), b, n, ghost_size, latent, _ptr(x), _ptr(wp), _ptr(bp), _ptr(z),
-            _ptr(t_buf), _ptr(r_buf), _ptr(part), _ptr(block_sums), z_splits,
-            _dtype_index(compute_dtype)]
+            _ptr(t_buf), _ptr(r_buf), _ptr(part), _ptr(block_sums), z_splits, _ptr(z_part),
+            _ptr(graph), _dtype_index(compute_dtype)]
     for lay in layers:
         ci, co = lay.w.shape
-        acts.append(torch.empty((b, n, co), **f32))
+        acts.append(torch.empty((b, n, co), **act))
         stats.append(torch.empty((b // ghost_size, 4, co), **f32))
         sums.append(torch.empty((4, co), **f32))
         desc += [ci, co, int(lay.identity), *(_ptr(t) for t in lay), _ptr(acts[-1]),
@@ -638,16 +657,18 @@ def launch_backward(lib, x: torch.Tensor, y: torch.Tensor, stats: torch.Tensor, 
                     compute_dtype: str = "float32"):
     """Run K3 (dy given) or K4 (dz and wp given) from `lib` on the layer's
     input x and output y (K2's: the backward takes PReLU's branch from its
-    sign) in `compute_dtype`. Returns (LayerOps of gradients, dwp, dbp, dx);
-    dwp and dbp are None for K3 and dx is None unless need_dx."""
+    sign) in `compute_dtype`, x, y, dy and dx in `activation_dtype`. Returns
+    (LayerOps of gradients, dwp, dbp, dx); dwp and dbp are None for K3 and dx
+    is None unless need_dx."""
     b, n, ci = x.shape
     dev = x.device
     top = dz is not None
     co = lay.w.shape[1]
     if b % ghost_size or b < 1:
         raise ValueError(f"batch {b} must be a positive multiple of ghost_size {ghost_size}")
-    x = _checked(x, dev, (b, n, ci), "x")
-    y = _checked(y, dev, (b, n, co), "y")
+    act = dict(dtype=activation_dtype(compute_dtype), device=dev)
+    x = _checked(x, dev, (b, n, ci), "x", (act["dtype"],))
+    y = _checked(y, dev, (b, n, co), "y", (act["dtype"],))
     lay = _layer_operands(lay, n, dev)
     stats = _checked(stats, dev, (b // ghost_size, 4, co), "stats")
     latent = 0
@@ -656,11 +677,11 @@ def launch_backward(lib, x: torch.Tensor, y: torch.Tensor, stats: torch.Tensor, 
         dz = _checked(dz, dev, (b, latent), "dz")
         wp = _checked(wp, dev, (n * co, latent), "wp")
     else:
-        dy = _checked(dy, dev, (b, n, co), "dy")
+        dy = _checked(dy, dev, (b, n, co), "dy", (act["dtype"],))
     f32 = dict(dtype=torch.float32, device=dev)
     sc = dict(dtype=scratch_dtype(compute_dtype), device=dev)
     grads = LayerOps(*(None if t is None else torch.empty(t.shape, **f32) for t in lay))
-    dx = torch.empty((b, n, ci), **f32) if need_dx else None
+    dx = torch.empty((b, n, ci), **act) if need_dx else None
     dwp = torch.empty((n * co, latent), **f32) if top else None
     dbp = torch.empty((latent,), **f32) if top else None
     rows = b * n
@@ -760,16 +781,13 @@ def mono_chunk(batch: int, ghost_size: int, chunk_windows: Optional[int] = None)
     return min(max(ghost_size, want // ghost_size * ghost_size), batch)
 
 
-_MONO_SCRATCH = ("dpre_buf", "g_buf", "dg_buf")  # K5's backward-only scratch (scratch_dtype)
-
-
 def mono_workspace(ops: EncoderOps, n: int, chunk: int, ghost_size: int,
                    compute_dtype: str = "float32") -> dict:
     """K5's chunk workspace in `compute_dtype`, name -> bytes (None: not
-    needed). It scales with the chunk, not the batch. dpre, g and dg serve
-    only the backward passes and take `scratch_dtype`; t_buf and r_buf serve
-    K2's passes first, so stay float32 (the backward's bf16 t and r use
-    their first half)."""
+    needed). It scales with the chunk, not the batch. The per-window
+    scratch (t, r, dpre, g, dg) takes `scratch_dtype`, each layer's
+    activation and dy take `activation_dtype` (both bf16 under
+    "bfloat16"); the moments, statistics and constants are float32."""
     co = [lay.w.shape[1] for lay in ops.layers]
     ci = [lay.w.shape[0] for lay in ops.layers]
     rows, blocks = chunk * n, chunk // ghost_size
@@ -782,16 +800,23 @@ def mono_workspace(ops: EncoderOps, n: int, chunk: int, ghost_size: int,
         count[f"act{l}"] = rows * c
         count[f"stats{l}"] = blocks * 4 * c
     small = scratch_dtype(compute_dtype).itemsize
-    return {k: None if v is None else v * (small if k in _MONO_SCRATCH else 4)
+    return {k: None if v is None else v * (4 if _mono_f32(k) else small)
             for k, v in count.items()}
+
+
+def _mono_f32(name: str) -> bool:
+    """Whether K5's workspace buffer `name` is float32 in every form: the
+    moments, block sums, constants and statistics."""
+    return name in ("part", "block_sums", "consts") or name.startswith("stats")
 
 
 def launch_mono_backward(lib, x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps,
                          ghost_size: int, chunk_windows: Optional[int] = None,
                          compute_dtype: str = "float32") -> EncoderOps:
-    """Run K5 from `lib` on x [B, N, C_in] and dz [B, latent] in
-    `compute_dtype`: every operand's gradient, the forward recomputed chunk
-    by chunk (`mono_chunk`). Same return as `mono_backward_reference`."""
+    """Run K5 from `lib` on x [B, N, C_in] (in `activation_dtype`) and dz
+    [B, latent] in `compute_dtype`: every operand's gradient, the forward
+    recomputed chunk by chunk (`mono_chunk`). Same return as
+    `mono_backward_reference`."""
     b, n, c0 = x.shape
     dev = x.device
     if b % ghost_size or b < 1:
@@ -801,7 +826,7 @@ def launch_mono_backward(lib, x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps
     layers = [_layer_operands(lay, n, dev) for lay in ops.layers]
     c_hidden = layers[-1].w.shape[1]
     latent = ops.wp.shape[1]
-    x = _checked(x, dev, (b, n, c0), "x")
+    x = _checked(x, dev, (b, n, c0), "x", (activation_dtype(compute_dtype),))
     dz = _checked(dz, dev, (b, latent), "dz")
     wp = _checked(ops.wp, dev, (n * c_hidden, latent), "wp")
     chunk = mono_chunk(b, ghost_size, chunk_windows)
@@ -814,7 +839,7 @@ def launch_mono_backward(lib, x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps
 
     ws = {}
     for k, nbytes in mono_workspace(ops, n, chunk, ghost_size, compute_dtype).items():
-        kind = sc if k in _MONO_SCRATCH else f32
+        kind = f32 if _mono_f32(k) else sc  # scratch, activations and dy alike
         ws[k] = None if nbytes is None else empty(nbytes // kind["dtype"].itemsize, kind)
     splits_wp = product_splits("rows", n * c_hidden, latent, chunk)
     prod = partials((splits_wp, n * c_hidden * latent))
@@ -868,47 +893,78 @@ def _route(x: torch.Tensor) -> bool:
     return False
 
 
+def _plain_inputs(compute_dtype: str, **tensors: Optional[torch.Tensor]):
+    """A wrapper's activation inputs (windows, y, dy) for its plain version,
+    in order: under "bfloat16" each must be a bf16 tensor, as the kernels
+    take it, and is widened to float32 (exactly); else each goes through as
+    it is (the plain versions keep their input's dtype)."""
+    out = []
+    for name, t in tensors.items():
+        if compute_dtype == "bfloat16" and t is not None:
+            if t.dtype != torch.bfloat16:
+                raise ValueError(f"stse_train: {name} must be bfloat16 under compute_dtype "
+                                 f"'bfloat16', got {t.dtype}")
+            t = t.float()
+        out.append(t)
+    return out
+
+
+def _as_activation(t: Optional[torch.Tensor], compute_dtype: str) -> Optional[torch.Tensor]:
+    """A plain version's activation or dx as the kernels hand it back: bf16
+    under "bfloat16" (its values are bf16 values already), else as it is."""
+    return t if t is None or compute_dtype != "bfloat16" else t.to(torch.bfloat16)
+
+
 def ghost_forward(x: torch.Tensor, ops: EncoderOps, ghost_size: int,
                   compute_dtype: str = "float32"):
     """K2: x [B, N, C_in] -> (z, sums, acts, stats), see
-    `ghost_forward_reference`."""
+    `ghost_forward_reference`; x and acts in `activation_dtype` on both
+    routes, so the autograd Function saves the same bytes on each."""
     if _route(x):
         with torch.no_grad():
             out = launch_forward(_library(), x, ops, ghost_size, compute_dtype)
         forward_launches.value += 1
         return out
-    return ghost_forward_reference(x, ops, ghost_size, compute_dtype)
+    (x,) = _plain_inputs(compute_dtype, x=x)
+    z, sums, acts, stats = ghost_forward_reference(x, ops, ghost_size, compute_dtype)
+    return z, sums, [_as_activation(a, compute_dtype) for a in acts], stats
 
 
 def layer_backward(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor, lay: LayerOps,
                    stats: torch.Tensor, ghost_size: int, need_dx: bool = True,
                    compute_dtype: str = "float32"):
     """K3: one lower layer's backward from its saved input x, output y and
-    block statistics. Returns (LayerOps of gradients, dx or None). The
-    plain version recomputes y, bit for bit what the plain forward gave."""
+    block statistics. Returns (LayerOps of gradients, dx or None); x, y, dy
+    and dx in `activation_dtype`. The plain version recomputes y, bit for
+    bit what the plain forward gave."""
     if _route(x):
         with torch.no_grad():
             grads, _, _, dx = launch_backward(_library(), x, y, stats, lay, ghost_size, need_dx,
                                               dy=dy, compute_dtype=compute_dtype)
         layer_backward_launches.value += 1
         return grads, dx
-    return layer_backward_reference(x, dy, lay, ghost_size, need_dx,
-                                    compute_dtype=compute_dtype)
+    x, _, dy = _plain_inputs(compute_dtype, x=x, y=y, dy=dy)
+    grads, dx = layer_backward_reference(x, dy, lay, ghost_size, need_dx,
+                                         compute_dtype=compute_dtype)
+    return grads, _as_activation(dx, compute_dtype)
 
 
 def top_backward(x: torch.Tensor, y_top: torch.Tensor, dz: torch.Tensor, lay: LayerOps,
                  stats: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor, ghost_size: int,
                  need_dx: bool = True, compute_dtype: str = "float32"):
     """K4: the top layer's backward with the projector's. Returns (LayerOps
-    of gradients, dwp, dbp, dx or None)."""
+    of gradients, dwp, dbp, dx or None); x, y_top and dx in
+    `activation_dtype`."""
     if _route(x):
         with torch.no_grad():
             out = launch_backward(_library(), x, y_top, stats, lay, ghost_size, need_dx, dz=dz,
                                   wp=wp, compute_dtype=compute_dtype)
         top_backward_launches.value += 1
         return out
-    return top_backward_reference(x, dz, lay, wp, bp, ghost_size, need_dx,
-                                  compute_dtype=compute_dtype)
+    x, _ = _plain_inputs(compute_dtype, x=x, y_top=y_top)
+    grads, dwp, dbp, dx = top_backward_reference(x, dz, lay, wp, bp, ghost_size, need_dx,
+                                                 compute_dtype=compute_dtype)
+    return grads, dwp, dbp, _as_activation(dx, compute_dtype)
 
 
 def product(form: str, a: torch.Tensor, b: torch.Tensor,
@@ -946,15 +1002,17 @@ def split_backward(x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps,
 def mono_backward(x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps, ghost_size: int,
                   chunk_windows: Optional[int] = None,
                   compute_dtype: str = "float32") -> EncoderOps:
-    """K5: every operand's gradient from x [B, N, C_in] and dz [B, latent]
-    alone, the forward recomputed one chunk of ghost blocks at a time
-    (`mono_chunk`). x gets none: it is data."""
+    """K5: every operand's gradient from x [B, N, C_in] (in
+    `activation_dtype`) and dz [B, latent] alone, the forward recomputed one
+    chunk of ghost blocks at a time (`mono_chunk`). x gets none: it is
+    data."""
     if _route(x):
         with torch.no_grad():
             out = launch_mono_backward(_library(), x, dz, ops, ghost_size, chunk_windows,
                                        compute_dtype)
         mono_backward_launches.value += 1
         return out
+    (x,) = _plain_inputs(compute_dtype, x=x)
     return mono_backward_reference(x, dz, ops, ghost_size, compute_dtype=compute_dtype)
 
 
@@ -964,7 +1022,8 @@ class FusedGhostEncode(torch.autograd.Function):
     operands: N_LAYER_OPS per layer then wp, bp) -> (z, *per-layer sums). The sums
     carry no gradient, and x gets none: it is data. bwd_mode "split" saves
     K2's activations and block statistics for K4 then K3; "mono" (:1089-1104)
-    saves only x and the operands, and K5 recomputes the rest from x."""
+    saves only x and the operands, and K5 recomputes the rest from x. x and
+    the activations are in `activation_dtype` (bf16 under "bfloat16")."""
 
     @staticmethod
     def forward(ctx, x, ghost_size, n_layers, bwd_mode, compute_dtype, *flat):
@@ -1032,7 +1091,8 @@ def fused_stse_apply(model, x: torch.Tensor, ghost_size: int = 32, momentum: flo
     x gets no gradient (it is data). bwd_mode "split" keeps every layer's
     activations for K3/K4; "mono" keeps only x and recomputes them in K5.
     compute_dtype is one of COMPUTE_DTYPES (see the module's docstring);
-    under a bf16 form x is rounded to bf16 here, as JAX casts x_t (:1152)."""
+    under a bf16 form x is rounded to bf16 here, as JAX casts x_t (:1152),
+    and handed to the kernels as a bf16 tensor under "bfloat16"."""
     if bwd_mode not in ("split", "mono"):
         raise ValueError(f"unknown bwd_mode {bwd_mode!r}")
     bf16 = _dtype_index(compute_dtype) > 0
@@ -1041,7 +1101,9 @@ def fused_stse_apply(model, x: torch.Tensor, ghost_size: int = 32, momentum: flo
         raise ValueError(f"batch {b} is not a multiple of ghost_size {ghost_size}")
     ops = encoder_ops(model)
     x_nodes = x.detach().permute(0, 2, 3, 1).reshape(b, t * v, c)
-    x_nodes = (_bf16(x_nodes) if bf16 else x_nodes).contiguous()
+    if bf16:
+        x_nodes = x_nodes.to(torch.bfloat16).to(activation_dtype(compute_dtype))
+    x_nodes = x_nodes.contiguous()
     z, *sums = FusedGhostEncode.apply(x_nodes, ghost_size, len(ops.layers), bwd_mode,
                                       compute_dtype, *_flatten(ops))
     update_running_stats(model, sums, b * t * v, momentum)

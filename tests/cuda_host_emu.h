@@ -1,6 +1,6 @@
 // Runs a CUDA kernel source on the host, for tests on machines without a GPU.
 //
-// Covers the subset the port's kernels use: float2, float4, __ldg, rsqrtf, threadIdx
+// Covers the subset the port's kernels use: float2, float4, uint2, __ldg, rsqrtf, threadIdx
 // (x) and blockIdx (x, y) with a dim3 grid, dynamic shared memory and
 // __syncthreads, __nv_bfloat16 with the conversions, compares, products and
 // min the probes use, and the warp-level pieces of the batch-reduction
@@ -21,6 +21,7 @@
 // static, one for all threads, which holds because blocks run in turn.
 #pragma once
 #define CUDA_HOST_EMU 1
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
@@ -39,6 +40,10 @@ struct float4 {
   float x, y, z, w;
 };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+struct uint2 {
+  uint32_t x, y;
+};
+inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
 
 struct dim3 {
   int x, y, z;
@@ -92,9 +97,16 @@ inline uint32_t tf32_of(float v) {
 // fragments, meets the warp's barrier, sums the eight exact products of each
 // element it owns in k order in double and rounds once, and meets the
 // barrier again before any lane may post the next fragments.
+// Warp-level mma.sync calls by kind (0 TF32, 1 bf16), counted by lane 0: a
+// test reads and clears them through emu_mma_count to see which tensor-core
+// route a kernel took.
+inline std::atomic<long long> g_emu_mma[2];
+extern "C" long long emu_mma_count(int kind) { return g_emu_mma[kind].exchange(0); }
+
 inline void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
   EmuWarp& w = emu_warp();
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  if (lane == 0) g_emu_mma[0].fetch_add(1, std::memory_order_relaxed);
   for (int i = 0; i < 4; ++i) w.a[lane][i] = __uint_as_float(a[i]);
   for (int i = 0; i < 2; ++i) w.b[lane][i] = __uint_as_float(b[i]);
   w.barrier.arrive_and_wait();
@@ -127,6 +139,7 @@ template <int K>
 inline void emu_mma_bf16(float (&d)[4], const uint32_t* a, const uint32_t* b) {
   EmuWarp& w = emu_warp();
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  if (lane == 0) g_emu_mma[1].fetch_add(1, std::memory_order_relaxed);
   for (int i = 0; i < K / 4; ++i) w.pa[lane][i] = a[i];
   for (int i = 0; i < K / 8; ++i) w.pb[lane][i] = b[i];
   w.barrier.arrive_and_wait();

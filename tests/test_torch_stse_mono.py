@@ -91,37 +91,58 @@ def test_mono_matches_split_in_the_port(case):
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
 
 
-@pytest.mark.parametrize("mode", ["mono", "split"])
-def test_saved_for_backward(mode):
-    """Mono keeps only x and the operands alive for its backward; split
-    keeps every layer's activations and block statistics too."""
+def _saved(mode, compute_dtype="float32"):
+    """(tensors FusedGhostEncode saves for its backward on the CPU route, x
+    as handed over, the operands, after a backward; the number of layers) of
+    the narrow model; x bf16 under "bfloat16", as fused_stse_apply hands it."""
     _, _, model, x, ghost = pair("narrow", seed=4)
     b, ch, t, v = x.shape
-    x_nodes = torch.from_numpy(x).permute(0, 2, 3, 1).reshape(b, t * v, ch).contiguous()
+    x_nodes = torch.from_numpy(x).permute(0, 2, 3, 1).reshape(b, t * v, ch)
+    x_nodes = x_nodes.to(stse_train.activation_dtype(compute_dtype)).contiguous()
     ops = stse_train.encoder_ops(model)
     flat = [None if o is None else o.detach().requires_grad_(True)
             for o in stse_train._flatten(ops)]
     saved = []
     with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t, lambda t: t):
         z, *_ = stse_train.FusedGhostEncode.apply(x_nodes, ghost, len(ops.layers), mode,
-                                                  "float32", *flat)
+                                                  compute_dtype, *flat)
     operands = [o for o in flat if o is not None]
+    z.sum().backward()
+    return saved, x_nodes, operands, len(ops.layers)
+
+
+@pytest.mark.parametrize("mode,compute_dtype", [("mono", "float32"), ("split", "float32"),
+                                                ("split", "bfloat16")])
+def test_saved_for_backward(mode, compute_dtype):
+    """Mono keeps only x and the operands alive for its backward; split
+    keeps every layer's activations and block statistics too. Under
+    "bfloat16" split saves x and the activations as bf16 tensors, at half
+    the float32 case's bytes, and the rest as in float32."""
+    saved, x_nodes, operands, n_layers = _saved(mode, compute_dtype)
     expect = [x_nodes, *operands]
     if mode == "mono":
         assert len(saved) == len(expect)
         for s, e in zip(saved, expect):
             assert s.data_ptr() == e.data_ptr() and s.shape == e.shape
     else:  # + each layer's activations and block statistics
-        assert len(saved) == len(expect) + 2 * len(ops.layers)
-    z.sum().backward()
+        assert len(saved) == len(expect) + 2 * n_layers
+        acts = saved[1:1 + n_layers]
+        assert saved[0].data_ptr() == x_nodes.data_ptr()
+        assert all(a.dtype == stse_train.activation_dtype(compute_dtype) for a in acts)
+        if compute_dtype == "bfloat16":
+            f32 = _saved(mode)[0]
+            nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+            assert 2 * nbytes(saved[:1 + n_layers]) == nbytes(f32[:1 + n_layers])
+            assert nbytes(saved[1 + n_layers:]) == nbytes(f32[1 + n_layers:])
     assert all(o.grad is not None for o in operands)
 
 
 def test_mono_chunk_and_workspace():
     """K5's chunk is whole ghost blocks; at the flagship width its default
     workspace is under a quarter of split's saved activations at B=2048.
-    Under "bfloat16" the backward-only scratch (dpre, g, dg) is bf16: half
-    their bytes; t and r serve K2's passes too and stay float32."""
+    Under "bfloat16" the per-window scratch (t, r, dpre, g, dg), each
+    layer's activation and dy are bf16: half their bytes; the moments,
+    statistics and constants stay float32."""
     assert stse_train.mono_chunk(2048, 64) == 128
     assert stse_train.mono_chunk(2048, 64, 100) == 64  # cut to whole blocks
     assert stse_train.mono_chunk(2048, 64, 10) == 64  # at least one block
@@ -136,7 +157,11 @@ def test_mono_chunk_and_workspace():
     assert ws_bytes <= split_saved / 4
     for form, small in (("bfloat16", 2), ("bfloat16_f32store", 4)):
         ws = stse_train.mono_workspace(ops, 216, 128, 64, form)
-        assert ws["dpre_buf"] == small * 128 * 216 * 64 and ws["t_buf"] == 4 * 128 * 216 * 64
-        assert ws["g_buf"] == ws["dg_buf"] == small * 128 * 216 * 32
+        for k in ("t_buf", "r_buf", "dpre_buf", "act3"):
+            assert ws[k] == small * 128 * 216 * 64, (form, k)
+        for k in ("g_buf", "dg_buf", "dy_buf", "act0", "act2"):
+            assert ws[k] == small * 128 * 216 * 32, (form, k)
+        assert ws["act1"] == small * 128 * 216 * 16
+        assert ws["part"] == 4 * 128 * 4 * 64 and ws["stats3"] == 4 * 2 * 4 * 64
         assert sum(v for v in ws.values() if v is not None) == (
-            ws_bytes - (4 - small) * 128 * 216 * (64 + 2 * 32))
+            ws_bytes - (4 - small) * 128 * 216 * (3 * 64 + 2 * 32 + 32 + 144))

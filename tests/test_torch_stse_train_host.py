@@ -187,8 +187,9 @@ def test_host_run_of_bf16_forms_matches_plain(host_lib, case, compute_dtype):
     """K2, K4 and K3 in a bf16 form against their plain versions in the same
     form (float64 between the rounding points), PReLU's branches taken from
     K2's output; the windows bf16 already, as fused_stse_apply hands them
-    over. "wide" takes bwd_dx's second column chunk (C_in 40) and K4's dy
-    over 3 k-steps."""
+    over (a bf16 tensor under "bfloat16", whose activations, dy and dx are
+    bf16 tensors too). "wide" takes bwd_dx's second column chunk (C_in 40)
+    and K4's dy over 3 k-steps."""
     kw = CASES[case]
     model = _model(kw["input_dim"], kw["channels"], kw["hidden"], kw["t"], kw["v"],
                    kw["latent"], seed=len(case) + 1)
@@ -196,8 +197,9 @@ def test_host_run_of_bf16_forms_matches_plain(host_lib, case, compute_dtype):
     ops64 = stse_train.detached(ops, torch.float64)
     b, n, ghost = kw["batch"], kw["t"] * kw["v"], kw["ghost"]
     rng = np.random.default_rng(7)
+    act = stse_train.activation_dtype(compute_dtype)
     x = torch.from_numpy(rng.normal(size=(b, n, kw["input_dim"])).astype(np.float32))
-    x = x.to(torch.bfloat16).float()
+    x = x.to(torch.bfloat16).to(act)
     out = stse_train.launch_forward(host_lib, x, ops, ghost, compute_dtype)
     ref = stse_train.ghost_forward_reference(x.double(), ops64, ghost, compute_dtype)
     z, sums, acts, stats = out
@@ -205,8 +207,7 @@ def test_host_run_of_bf16_forms_matches_plain(host_lib, case, compute_dtype):
     for name, got, want in zip(("sums", "acts", "stats"), out[1:], ref[1:]):
         for l, (a, e) in enumerate(zip(got, want)):
             _close_bf16(a, e, f"{name}{l}")
-    if compute_dtype == "bfloat16":  # stored at bf16: every activation is a bf16 value
-        assert all(torch.equal(a, a.to(torch.bfloat16).float()) for a in acts)
+    assert all(a.dtype == act for a in acts)  # bf16 tensors under "bfloat16"
     dz = torch.from_numpy(rng.normal(size=(b, kw["latent"])).astype(np.float32))
     top = len(ops.layers) - 1
     x_of = [x, *acts[:-1]]
@@ -220,16 +221,18 @@ def test_host_run_of_bf16_forms_matches_plain(host_lib, case, compute_dtype):
     _close_bf16(dbp, dbp_r, "dbp")
     pairs = [(top, grads, want)]
     if top > 0:
+        assert dy.dtype == act
         _close_bf16(dy, dy_r, "dx of the top layer")
     for l in reversed(range(top)):
         g, _, _, dx = stse_train.launch_backward(
             host_lib, x_of[l], acts[l], stats[l], ops.layers[l], ghost, need_dx=l > 0,
-            dy=dy_r.float(), compute_dtype=compute_dtype)
+            dy=dy_r.to(act), compute_dtype=compute_dtype)
         w, dx_r = stse_train.layer_backward_reference(
             x_of[l].double(), dy_r, ops64.layers[l], ghost, need_dx=l > 0,
             positive=acts[l] >= 0, compute_dtype=compute_dtype)
         pairs.append((l, g, w))
         if l > 0:
+            assert dx.dtype == act
             _close_bf16(dx, dx_r, f"dx of layer {l}")
             dy_r = dx_r
     for l, g, w in pairs:
@@ -289,7 +292,7 @@ def test_host_run_of_mono_backward_bf16_forms_matches_plain(host_lib, compute_dt
     b, n, ghost = 20, kw["t"] * kw["v"], 4
     rng = np.random.default_rng(8)
     x = torch.from_numpy(rng.normal(size=(b, n, kw["input_dim"])).astype(np.float32))
-    x = x.to(torch.bfloat16).float()
+    x = x.to(torch.bfloat16).to(stse_train.activation_dtype(compute_dtype))
     dz = torch.from_numpy(rng.normal(size=(b, kw["latent"])).astype(np.float32))
     _, _, acts, _ = stse_train.launch_forward(host_lib, x, ops, ghost, compute_dtype)
     got = stse_train.launch_mono_backward(host_lib, x, dz, ops, ghost, 8, compute_dtype)
