@@ -124,6 +124,24 @@ Phases, each printing a line before the last:
      center must stay inside the ball at every epoch. The kernel check
      (phase 2) also holds K1 at 17 joints with the MLP head (B=2048 and a
      ragged 2047) to its plain version.
+  7b. variants (the decoder variants): the two files of the autoencoder
+     and the spherical VAE, config/UBnormal/{euclidean_autoencoder,
+     spherical_vae}.yaml, with only the paths replaced, so at bfloat16 on
+     the module path (K1-K5 none), over the paper phase's Morais-CSV tree:
+     cli.train for 2 epochs, --resume to 3 (resumed = straight to the bit:
+     losses, weights, center, the VAE's anchor), cli.eval (the
+     autoencoder's in each --rec-weight mode: 0, 50, 1000), from_checkpoint
+     scoring cli.eval's test windows to its bits. A float32 copy of each
+     runs the same counted path with K1 as its eval encoder (center init,
+     validation, each eval, from_checkpoint; K1 as the windows predict);
+     on its trained weights at batch 2048 K1's route against the module
+     route on the card (the AE's z and reconstruction, the VAE's z_mean,
+     z_var and reconstruction on its mean path) within K1's band, and the
+     eval forward timed by part (K1, head, rev_btlnk, decoder) against the
+     module route. The peak memory above resident of one step of each run,
+     and PowerSpherical.rsample with a CUDA generator (65,536 samples on
+     the sphere, the mean of loc . x within 4 standard errors, one seed's
+     bits twice). `--only variants` runs just this after the build.
   8. a line of each phase's wall time, a JSON line of every kernel
      (launches on the main paths, error, times, bound), then the last line
      {"ok": true, "device": {...}}.
@@ -136,6 +154,7 @@ reference. Details go to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -2484,15 +2503,318 @@ def paper_run(card, root):
     return summary
 
 
+VARIANT_CONFIGS = ("UBnormal/euclidean_autoencoder", "UBnormal/spherical_vae")
+AE_REC_WEIGHTS = ("0", "50", "1000")  # cli.eval's three autoencoder modes
+PS_SAMPLES = 65536
+PS_KAPPAS = (2.0, 32.0)
+
+
+def phase_variants(card):
+    """The decoder variants' shipped files, config/UBnormal/{euclidean_autoencoder,
+    spherical_vae}.yaml, as written (bf16, the module path) and as float32
+    copies (K1 as their eval encoder), through cli.train, --resume, cli.eval
+    and from_checkpoint over the paper phase's trees, in a temporary
+    directory removed afterwards; then K1's route against the module route,
+    the eval forward's split, the step's peak memory and PowerSpherical's
+    sampler on the card."""
+    root = tempfile.mkdtemp(prefix="coskad_variants_")
+    t0 = time.perf_counter()
+    try:
+        summary = variants_run(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    summary["phase_s"] = time.perf_counter() - t0
+    print(f"variants phase: {summary['phase_s']:.1f} s")
+    return summary
+
+
+@contextlib.contextmanager
+def module_route(model):
+    """Within the block the model's eval forward takes the module path on
+    the card (K1's planner answer set to no), as for a layout K1 refuses."""
+    takes = model.kernel_takes()
+    model._kernel_takes = False
+    try:
+        yield model
+    finally:
+        model._kernel_takes = takes
+
+
+def eval_outputs(model, x):
+    """The AE's (z, recon) or the VAE's (z_mean, z_var, recon) on its mean
+    path, eval mode."""
+    from coskad_tpu_torch.models import STSVAE
+
+    if not isinstance(model, STSVAE):
+        return model(x)
+    _, recon, (mean, var) = model(x, sample=False)
+    return mean, var, recon
+
+
+def k1_against_module_route(tr, x) -> dict:
+    """At one batch on the trained float32 weights: K1's route against the
+    module route on the card within K1's band, and the eval forward timed
+    by part (K1, head, rev_btlnk, decoder) against the module route's."""
+    import copy
+
+    import torch
+    from coskad_tpu_torch.kernels import stse_fused
+
+    model, variant = tr.model, tr.cfg.model.variant
+    vae = variant == "vae"
+    check(model.kernel_takes(), f"{variant}: K1 does not take the float32 copy")
+    m64 = copy.deepcopy(model).double()
+    with torch.inference_mode():
+        before = stse_fused.launches.value
+        got = eval_outputs(model, x)
+        check(stse_fused.launches.value == before + 1, "the K1 route launched K1 "
+              f"{stse_fused.launches.value - before} times for one batch")
+        with module_route(model):
+            want = eval_outputs(model, x)
+        with module_route(m64):
+            exact = eval_outputs(m64, x.double())
+        check(stse_fused.launches.value == before + 1, "the module route launched K1")
+    torch.cuda.synchronize()
+    names = ("z_mean", "z_var", "recon") if vae else ("z", "recon")
+    errs = {}
+    for name, g, w, e in zip(names, got, want, exact):
+        outside = (g - w).abs() > TOL["atol"] + TOL["rtol"] * w.abs()
+        err = errs[name] = dict(
+            max_abs=float((g - w).abs().max()), k1_vs_f64=float((g - e).abs().max()),
+            module_vs_f64=float((w - e).abs().max()), scale=float(e.abs().max()),
+            outside_elementwise=int(outside.sum()), elements=g.numel())
+        # K1's band element by element; the reconstruction passes nine layers
+        # after K1, which carry 3xTF32's rounding (~2^-21 a product, plain
+        # fp32's 2^-24) to a few near-zero elements past it: there K1's band
+        # of the tensor's scale, against the module route and against float64
+        band = TOL["atol"] + TOL["rtol"] * err["scale"]
+        ok = bool(torch.isfinite(g).all()) and (err["outside_elementwise"] == 0 or (
+            name == "recon" and err["max_abs"] <= band and err["k1_vs_f64"] <= band))
+        check(ok, f"{variant}: K1 route vs module route, {name}: {err}, outside rtol "
+                  f"{TOL['rtol']} atol {TOL['atol']}")
+
+    folded, packed = model.folded()
+    with torch.inference_mode():
+        h = stse_fused.fused_stse_hidden(x, folded, packed)
+
+        def head():  # the projector, and the VAE's mean and concentration heads
+            feat = model._project(h, False)
+            return (model.fc_mean(feat), model.fc_var(feat)) if vae else feat
+
+        z = got[0]
+        hd = model.rev_btlnk(z)
+        parts = dict(k1=lambda: stse_fused.fused_stse_hidden(x, folded, packed), head=head,
+                     rev_btlnk=lambda: model.rev_btlnk(z), decoder=lambda: model.decoder(hd))
+        forward = lambda: eval_outputs(model, x)  # noqa: E731
+        runs = {}
+        for _ in range(2):  # in turns
+            for name, fn in parts.items():
+                runs.setdefault(name, []).append(cuda_ms(fn, iters=10, warmup=2))
+            runs.setdefault("k1_route", []).append(cuda_ms(forward, iters=10, warmup=2))
+            with module_route(model):
+                runs.setdefault("module_route", []).append(cuda_ms(forward, iters=10, warmup=2))
+    return dict(batch=x.shape[0], errors=errs, tolerance=TOL,
+                ms={k: min(v) for k, v in runs.items()}, runs_ms=runs)
+
+
+def step_peak_bytes(tr, state) -> int:
+    """Device bytes one train step allocates above what is resident before
+    it (the model, the optimizer, the data), after a warm-up step."""
+    import torch
+
+    idx = torch.arange(tr.batch_size, device=DEVICE)
+    tr.model.train()
+    try:
+        state, _ = tr.train_step(state, tr.train_data, idx)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr.train_step(state, tr.train_data, idx)
+        torch.cuda.synchronize()
+    finally:
+        tr.model.eval()
+    return torch.cuda.max_memory_allocated() - resident
+
+
+def power_spherical_on_card() -> dict:
+    """PowerSpherical.rsample with a CUDA generator at D = 16: samples on the
+    sphere, the mean of loc . x within 4 standard errors of (alpha - beta) /
+    (alpha + beta), and one seed's bits twice."""
+    import torch
+    from coskad_tpu_torch.geometry.sphere import PowerSpherical
+
+    out = {}
+    d = 16
+    loc = torch.randn(d, generator=torch.Generator().manual_seed(3))
+    loc = (loc / loc.norm()).to(DEVICE).expand(PS_SAMPLES, d)
+    for kappa in PS_KAPPAS:
+        dist = PowerSpherical(loc, torch.full((PS_SAMPLES,), kappa, device=DEVICE))
+        draw = lambda: dist.rsample(torch.Generator(device=DEVICE).manual_seed(11))  # noqa: E731
+        x, again = draw(), draw()
+        norm_err = float((x.norm(dim=-1) - 1).abs().max())
+        t = (loc * x).sum(-1).double()
+        beta = (d - 1) / 2.0
+        want = kappa / (2 * beta + kappa)
+        mean, se = float(t.mean()), float(t.std()) / PS_SAMPLES ** 0.5
+        same = torch_equal(x, again)
+        check(x.is_cuda and norm_err < 1e-5 and abs(mean - want) < 4 * se and same,
+              f"PowerSpherical on the card, kappa {kappa}: | |x| - 1 | {norm_err:.2e}, mean "
+              f"{mean:.5f} vs {want:.5f} (se {se:.2e}), same bits {same}")
+        out[str(kappa)] = dict(norm_err=norm_err, mean=mean, want=want, se=se, same_bits=same)
+    return out
+
+
+def variants_run(card, root):
+    import torch
+    from coskad_tpu_torch.cli import eval as eval_cli
+    from coskad_tpu_torch.cli import train as train_cli
+    from coskad_tpu_torch.cli.common import load_config, load_split
+    from coskad_tpu_torch.interop import flatten_tree, to_jax_variables
+    from coskad_tpu_torch.kernels import stse_fused
+    from coskad_tpu_torch.kernels import stse_train as st
+    from coskad_tpu_torch.serve import AnomalyScorer
+    from coskad_tpu_torch.train.loop import Trainer
+
+    trees = write_paper_trees(root, np.random.default_rng(6))
+    runs_of = {key: ("resumed", "straight") for key in VARIANT_CONFIGS}
+    runs_of.update({f"{key}.float32": ("resumed",) for key in VARIANT_CONFIGS})
+    configs = {key: {run: paper_config(key.split(".")[0], trees,
+                                       os.path.join(root, "runs", key.replace("/", "_"), run),
+                                       float32=key.endswith(".float32"))[0]
+                     for run in runs}
+               for key, runs in runs_of.items()}
+    epoch_s = []
+    inner_epoch = Trainer.train_epoch
+
+    def timed_epoch(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner_epoch(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        epoch_s.append((self.cfg.ckpt_dir, time.perf_counter() - t))
+        return out
+
+    dev = ["--device", DEVICE]
+    counters = dict(stse_fused=stse_fused.launches, stse_train_forward=st.forward_launches,
+                    stse_train_layer_backward=st.layer_backward_launches,
+                    stse_train_top_backward=st.top_backward_launches,
+                    stse_train_mono_backward=st.mono_backward_launches)
+    runs, launches = {}, {}
+    Trainer.train_epoch = timed_epoch
+    try:
+        for key in runs_of:
+            # --- one file through the command line, counted ---
+            for c in counters.values():
+                c.value = 0
+            path = configs[key]["resumed"]
+            first = train_cli.main(["--config", path, "--epochs", "2", *dev])
+            resumed = train_cli.main(["--config", path, "--epochs", "3", "--resume", *dev])
+            best = os.path.join(load_config(path).ckpt_dir, "best.ckpt")
+            weights = AE_REC_WEIGHTS if "autoencoder" in key else ("0",)
+            evals = {w: eval_cli.main(["--config", path, "--ckpt", best, "--rec-weight", w, *dev])
+                     for w in weights}
+            scorer = AnomalyScorer.from_checkpoint(best, device=DEVICE)
+            windows = load_split(scorer.cfg, "test", stride=1, scaler=scorer.scaler).data
+            served = scorer.score_windows(windows[:CLI_SERVED])
+            launches[key] = {k: c.value for k, c in counters.items()}
+            # --- end of the counted run ---
+            runs[key] = dict(first=first, resumed=resumed, evals=evals, served=served)
+            if "straight" in configs[key]:
+                runs[key]["straight"] = train_cli.main(
+                    ["--config", configs[key]["straight"], "--epochs", "3", *dev])
+    finally:
+        Trainer.train_epoch = inner_epoch
+
+    summary = dict(card=card, launches=launches, predicted_launches={}, configs={})
+    for key in runs_of:
+        r = runs[key]
+        first, resumed, evals = r["first"], r["resumed"], r["evals"]
+        tr = resumed.trainer
+        cfg = tr.cfg
+        f32 = key.endswith(".float32")
+        batches = lambda n: -(-n // cfg.data.batch_size)  # noqa: E731
+        n_train, n_val = len(tr.train_ds), len(tr.val_ds)
+        n_test = len(evals["0"].window_scores)
+        # K1: center init, 3 validations, each cli.eval and from_checkpoint (float32)
+        k1 = (batches(n_train) + 3 * batches(n_val) + len(evals) * batches(n_test)
+              + batches(CLI_SERVED)) if f32 else 0
+        want = dict(stse_fused=k1, stse_train_forward=0, stse_train_layer_backward=0,
+                    stse_train_top_backward=0, stse_train_mono_backward=0)
+        summary["predicted_launches"][key] = want
+        check(launches[key] == want, f"variants {key}: launches {launches[key]}, predicted "
+                                     f"{want}")
+        variant = "autoencoder" if "autoencoder" in key else "vae"
+        check(cfg.model.variant == variant and cfg.model.projector == "mlp"
+              and cfg.data.n_joints == 17 and cfg.data.batch_size == TRAIN_BATCH
+              and not tr._fused_compat and tr.model.kernel_takes() == f32
+              and cfg.run.compute_dtype == ("float32" if f32 else "bfloat16"),
+              f"{key}: not the shipped {variant} at 17 joints, batch 2048, its compute dtype")
+        losses = first.loss + resumed.loss
+        check(len(losses) == 3 and all(np.isfinite(losses)), f"{key}: losses {losses}")
+        aucs = {w: ev.result.auc for w, ev in evals.items()}
+        check(all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in aucs.values()),
+              f"{key}: cli.eval AUC {aucs}")
+        served_diff = float(np.abs(r["served"] - evals["0"].window_scores[:CLI_SERVED]).max())
+        check(served_diff == 0.0, f"{key}: from_checkpoint's scores differ from cli.eval's: "
+                                  f"max abs {served_diff:.3e}")
+        if variant == "vae":
+            check(float(resumed.state.mean_vector.norm()) > 0, f"{key}: no anchor")
+        rec = dict(variant=variant, compute_dtype=cfg.run.compute_dtype, train_items=n_train,
+                   val_items=n_val, test_items=n_test, losses_resumed=losses, auc=aucs,
+                   validation_auc=first.validation_auc + resumed.validation_auc,
+                   scoring_windows_per_s={w: n_test / ev.wall_s["scoring"]
+                                          for w, ev in evals.items()},
+                   eval_wall_s={w: ev.wall_s for w, ev in evals.items()},
+                   train_windows_per_s=[(n_train // cfg.data.batch_size) * cfg.data.batch_size
+                                        / t for d, t in epoch_s if d == cfg.ckpt_dir][:3])
+        if "straight" in r:
+            straight = r["straight"]
+            check(len(straight.loss) == 3 and resumed.loss[0] == straight.loss[2],
+                  f"{key}: third-epoch loss resumed {resumed.loss[0]!r} vs straight "
+                  f"{straight.loss}: not the same bits")
+            want_p = flatten_tree(to_jax_variables(straight.trainer.model)[0])
+            same = all(np.array_equal(v, want_p[k])
+                       for k, v in flatten_tree(to_jax_variables(tr.model)[0]).items())
+            check(same and torch.equal(resumed.state.center, straight.state.center)
+                  and torch.equal(resumed.state.mean_vector, straight.state.mean_vector),
+                  f"{key}: resumed weights, center or anchor differ from the straight run's")
+            rec["losses_straight"] = straight.loss
+        x = tr._gather(tr.val_data, torch.arange(cfg.data.batch_size, device=DEVICE))
+        if f32:  # after the counted runs: these launches are not the main path's
+            rec["k1_route"] = k1_against_module_route(tr, x)
+            rec["k1"] = k1_timing(x, *tr.model.folded())
+        rec["step_peak_bytes"] = step_peak_bytes(tr, resumed.state)
+        summary["configs"][key] = rec
+    summary["power_spherical"] = power_spherical_on_card()
+    summary["launches_total"] = {k: sum(v[k] for v in launches.values()) for k in counters}
+    for key, c in summary["configs"].items():
+        extra = ""
+        if "k1_route" in c:
+            e = c["k1_route"]
+            extra = (f"; K1 route vs module route {e['errors']}; eval of "
+                     f"{e['batch']} windows (ms): " + ", ".join(
+                         f"{k} {v:.3f}" for k, v in e["ms"].items()))
+        print(f"variants {key} ({c['compute_dtype']}): train windows/s by epoch "
+              f"{[round(v) for v in c['train_windows_per_s']]}; scoring windows/s "
+              f"{ {w: round(v) for w, v in c['scoring_windows_per_s'].items()} }; AUC "
+              f"{c['auc']}; losses {c['losses_resumed']}"
+              + (" = straight's to the bit" if "losses_straight" in c else "")
+              + f"; step peak above resident {c['step_peak_bytes']} B{extra}; on {card}")
+    print(f"variants: launches {launches} (as predicted); PowerSpherical on the card "
+          + json.dumps(summary["power_spherical"]) + f"; on {card}")
+    return summary
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("kernels", "products", "cli", "paper", "bf16"),
+    ap.add_argument("--only", choices=("kernels", "products", "cli", "paper", "bf16",
+                                       "variants"),
                     default=None,
                     help="run only the environment and kernel phases, or only the product "
-                         "check, or only the cli, the paper or the bf16 phases (the bf16 "
-                         "kernel check and the bf16 fit) (no result line)")
+                         "check, or only the cli, the paper, the bf16 (the bf16 kernel check "
+                         "and the bf16 fit) or the variants phase (no result line)")
     args = ap.parse_args(argv)
     card, build_s = phase_environment()
     import torch
@@ -2512,6 +2834,12 @@ def main(argv=None) -> int:
     if args.only == "bf16":
         phase_bf16_kernels(card)
         phase_train_bf16(card)
+        return 0
+    if args.only == "variants":
+        variants = phase_variants(card)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_variants.json"), "w") as f:
+            json.dump(variants, f, indent=1)
         return 0
 
     wall = {}
@@ -2534,18 +2862,21 @@ def main(argv=None) -> int:
     train_bf16 = timed("train_bf16", phase_train_bf16, card)
     cli = timed("cli", phase_cli, card)
     paper = timed("paper", phase_paper, card)
+    variants = timed("variants", phase_variants, card)
     print(f"phase wall s: {json.dumps(dict(build=round(build_s, 1), **wall))}")
     kernel["launches_by_path"] = dict(serving=summary["launches"]["stse_fused"],
                                       training=train["launches"]["stse_fused"], mono=0,
                                       cli=cli["launches"]["stse_fused"],
                                       paper=paper["launches_total"]["stse_fused"],
-                                      training_bf16=train_bf16["launches"]["stse_fused"])
+                                      training_bf16=train_bf16["launches"]["stse_fused"],
+                                      variants=variants["launches_total"]["stse_fused"])
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     for rec in train_kernels + [mono_kernel]:
         by_path = dict(serving=0, training=train["launches"].get(rec["name"], 0),
                        mono=mono["launches"][rec["name"]],
                        cli=cli["launches"].get(rec["name"], 0),
-                       paper=paper["launches_total"][rec["name"]])
+                       paper=paper["launches_total"][rec["name"]],
+                       variants=variants["launches_total"][rec["name"]])
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     for rec in bf16_kernels:  # the bf16 form's own paths: the bf16 fit and mono run
@@ -2560,7 +2891,7 @@ def main(argv=None) -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, build_s=build_s, kernels=kernels, products=products,
                        slice=summary, train=train, train_bf16=train_bf16, mono=mono, cli=cli,
-                       paper=paper, phase_wall_s=wall), f, indent=1)
+                       paper=paper, variants=variants, phase_wall_s=wall), f, indent=1)
     keys = ("name", "route", "source", "replaces", "compute_dtype", "launches", "max_abs_err",
             "tolerance", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "product_ms")

@@ -2,15 +2,19 @@
 
     python -m coskad_tpu_torch.cli.eval --config <config> [--ckpt path]
     python -m coskad_tpu_torch.cli.eval --config <config> --device cpu
+    python -m coskad_tpu_torch.cli.eval --config <autoencoder config> --rec-weight 50
 
 Counterpart of `coskad_tpu/cli/eval.py`: restores the checkpoint (and the
 robust scaler it carries, before the test split is built), scores the test
 split at stride 1, aggregates window scores to frames (actor max, HR
 masks, shift + Gaussian smoothing) and prints per-clip, per-transform and
 final mean-over-transforms AUC, then the wall time of each phase. Runs on
-CUDA unless `--device cpu`. The autoencoder's `--rec-weight` and the ROC
-plots of `--save-roc` wait for those modules (ROADMAP.md, Queue 1 items 3
-and 7).
+CUDA unless `--device cpu`. The autoencoder scores by latent distance, by
+reconstruction error or by both, as `--rec-weight` selects
+(`score/window_losses.py`); the VAE by cosine distance to the anchor its
+checkpoint carries, and a VAE checkpoint without one is refused
+(`checkpoint.require_vae_anchor`). The ROC plots of `--save-roc` wait for
+their module (ROADMAP.md, Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import numpy as np
 
 from ..score.aggregate import EvalResult, ScoringConfig, evaluate_windows
 from ..score.masks import AVENUE_MASKED_CLIPS, hr_ubnormal
+from ..score.window_losses import mode_from_rec_weight
 from ..train import checkpoint
 from ..train.loop import Trainer
 from .common import is_primary, load_config, load_ground_truths, load_split
@@ -48,6 +53,10 @@ def main(argv=None) -> EvalRun:
     parser.add_argument("--save-scores", default=None, metavar="DIR",
                         help="dump per-clip per-person score npys in the analysis-notebook "
                              "layout (error_per_person_scene_S_scenario_C.npy + gt_masks/)")
+    parser.add_argument("--rec-weight", type=float, default=0.0,
+                        help="autoencoder scoring mode: 0 -> latent distance, >100 -> "
+                             "reconstruction error, else reconstruction error / weight + "
+                             "latent distance")
     parser.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = parser.parse_args(argv)
 
@@ -73,9 +82,14 @@ def main(argv=None) -> EvalRun:
     trainer = Trainer(cfg, test_ds, device=args.device)
     state, _, extra = checkpoint.restore(ckpt_path, trainer, payload=payload)
     print(f"[coskad] restored {ckpt_path} {extra}")
+    checkpoint.require_vae_anchor(cfg, state, ckpt_path)
     marks["upload"] = time.perf_counter()  # device upload + restore
 
-    scores, _ = trainer.score_all(state, test_ds, trainer.train_data)
+    scores, rec = trainer.score_all(state, test_ds, trainer.train_data)
+    if cfg.model.variant == "autoencoder" and args.rec_weight != 0:
+        mode = mode_from_rec_weight(args.rec_weight)
+        print(f"[coskad] autoencoder scoring mode: {mode}")
+        scores = rec if mode == "rec" else rec / args.rec_weight + scores
     marks["scoring"] = time.perf_counter()  # gather, eval forward, distance, fetch
     k = max(cfg.data.num_transform, 1)
     hr_masks = hr_ubnormal(cfg.eval.hr_masks_glob) if (

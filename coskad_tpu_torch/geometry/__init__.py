@@ -1,3 +1,3 @@
-from . import euclidean, poincare
+from . import euclidean, poincare, sphere
 
-__all__ = ["euclidean", "poincare"]
+__all__ = ["euclidean", "poincare", "sphere"]

@@ -8,6 +8,9 @@ joined by '.' is the port's `state_dict` key:
     params/btlnk/kernel                      ->  btlnk.kernel
     params/btlnk/bn_0/scale                  ->  btlnk.bn_0.scale   (MLP head)
     batch_stats/btlnk/bn_0/var               ->  btlnk.bn_0.var
+    params/rev_btlnk/kernel                  ->  rev_btlnk.kernel   (STSAE, STSVAE)
+    params/decoder/layer_3/tcn_dense/kernel  ->  decoder.layer_3.tcn_dense.kernel
+    params/fc_mean/kernel                    ->  fc_mean.kernel     (STSVAE)
 
 Dense kernels keep flax's [fan_in, features] layout and the projector keeps
 its (T, V, C) flatten order, so no array is transposed on the way, in

@@ -1,3 +1,3 @@
-from .stse import STSE, build_model
+from .stse import STSAE, STSE, STSVAE, build_model
 
-__all__ = ["STSE", "build_model"]
+__all__ = ["STSAE", "STSE", "STSVAE", "build_model"]

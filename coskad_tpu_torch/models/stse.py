@@ -1,43 +1,55 @@
-"""STSE: the encoder-only COSKAD model (PyTorch).
+"""STSE / STSAE / STSVAE: the COSKAD model family (PyTorch).
 
-Counterpart of `coskad_tpu/models/stse.py::STSE` with the `sts_gcn` encoder
-and the linear or the MLP projector. I/O is the reference's NCTV layout
-[B, C, T, V]; the projector reads the hidden state flattened in (T, V, C)
-order.
+Counterpart of `coskad_tpu/models/stse.py` with the `sts_gcn` encoder and
+the linear or the MLP projector: `STSE` (encoder and projector to the
+latent), `STSAE` (plus a mirrored STS-GCN decoder; forward -> (latent,
+reconstruction)) and `STSVAE` (PowerSpherical or diagonal-Normal latent
+heads on the hidden state, then the decoder; forward -> (sample,
+reconstruction, (mean, var))). I/O is the reference's NCTV layout
+[B, C, T, V]; the projector and the VAE heads read the hidden state
+flattened in (T, V, C) order.
 
-The eval forward takes one of two routes (`eval_uses_kernel`):
+The eval forward takes the encoder's hidden state on one of two routes
+(`eval_uses_kernel`):
   * the fused encoder kernel K1 (`kernels/stse_fused.py`), for an input on
     the card, compute dtype float32 and a layout K1's planner takes
-    (`STSE.kernel_takes`): weights folded once and cached until a parameter
-    or buffer changes, then the projector module (the linear one is one
-    matmul, the MLP one runs in eval mode); the kernel has no backward, so
-    this route raises where autograd would record it;
+    (`STSE.kernel_takes`): weights folded once and cached until a tensor
+    the fold reads changes, then the projector, the VAE heads, the reverse
+    projector and the decoder as modules in eval mode; the kernel has no
+    backward, so this route raises where autograd would record it;
   * the module path, layer by layer, everywhere else: on the CPU, at bf16
     (as JAX's eval is XLA over its modules; its K1 is float32 only), and on
     the card for a layout K1 refuses (more than 8 layers, more than 64
     channels a layer, activations past a block's shared memory).
 The train forward (`train=True`) is the module path with live BatchNorm,
 which updates the running statistics in place (see `stsgcn.py`), or with
-running statistics under `frozen_bn`. The MLP head's BatchNorm is live in
-every train forward, `frozen_bn` or not: the JAX model passes the head
-`train` alone. The ghost-BN train path through the K2-K4 kernels is
-`kernels/stse_train.py::fused_stse_apply` (linear projector only).
+running statistics under `frozen_bn`, in the decoder as in the encoder.
+The MLP head's BatchNorm is live in every train forward, `frozen_bn` or
+not: the JAX model passes the head `train` alone. The ghost-BN train path
+through the K2-K4 kernels is `kernels/stse_train.py::fused_stse_apply`
+(encoder-only, linear projector).
 
-`dtype` is the JAX model's compute dtype (`models/stsgcn.py`): the encoder
-and the linear projector round where JAX casts, the latent is float32; the
-MLP head is built without it, as in JAX, and computes in float32 on the
-encoder's float32 output.
+`dtype` is the JAX model's compute dtype (`models/stsgcn.py`): the encoder,
+the linear projector, the reverse projector and the decoder round where JAX
+casts, the latent is float32; the MLP head and the VAE heads are built
+without it, as in JAX, and compute in float32.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Iterable, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..geometry.sphere import PowerSpherical
 from ..kernels import stse_fused
-from .stsgcn import _DROPOUT, Dense, MLPHead, STSGCNStack
+from .stsgcn import _DROPOUT, Dense, MLPHead, STSGCNStack, _uniform_, rounded
+
+# the state K1's fold reads (`stse_fused.fold_stse_params`): its cache key
+_FOLDED = ("encoder.", "btlnk.")
 
 
 def eval_uses_kernel(for_kernel: bool, tensors: Iterable[torch.Tensor]) -> bool:
@@ -52,9 +64,9 @@ def eval_uses_kernel(for_kernel: bool, tensors: Iterable[torch.Tensor]) -> bool:
         return False
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            "STSE.forward(train=False) on a CUDA tensor runs the eval kernel, which has no "
+            "forward(train=False) on a CUDA tensor runs the eval kernel, which has no "
             "backward: call it under torch.no_grad() or torch.inference_mode(), or use "
-            "STSE.encode for a differentiable latent")
+            "encode for a differentiable latent")
     return True
 
 
@@ -65,6 +77,37 @@ class LinearProjector(Dense):
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         return super().forward(h.reshape(h.shape[0], -1))
+
+
+class ReverseProjector(nn.Module):
+    """The decoder's input: latent [B, L] -> hidden [B, T, V, H]. JAX's
+    `ReverseProjector`: kernel [L, H*T*V] and bias [H*T*V] in the
+    reference's channel-major flat order, the de-flatten and the transpose
+    to (T, V, H) done on the weight. At a bf16 dtype the latent, the kernel,
+    the product, the bias and the sum are rounded, as there."""
+
+    def __init__(self, hidden_dimension: int, n_frames: int, n_joints: int, latent_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.shape = (hidden_dimension, n_frames, n_joints)
+        flat = hidden_dimension * n_frames * n_joints
+        self.kernel = nn.Parameter(torch.empty(latent_dim, flat))
+        self.bias = nn.Parameter(torch.empty(flat))
+        self.dtype = dtype
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        bound = 1.0 / math.sqrt(self.kernel.shape[0])
+        _uniform_(self.kernel, bound, generator)
+        _uniform_(self.bias, bound, generator)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        h, t, v = self.shape
+        w = rounded(self.kernel, dt).reshape(-1, h, t, v).permute(0, 2, 3, 1).reshape(-1, t * v * h)
+        b = rounded(self.bias, dt).reshape(h, t, v).permute(1, 2, 0).reshape(-1)
+        out = rounded(rounded(rounded(z, dt) @ w, dt) + b, dt)
+        return out.reshape(z.shape[0], t, v, h)
 
 
 class STSE(nn.Module):
@@ -121,10 +164,13 @@ class STSE(nn.Module):
     def encode(self, x: torch.Tensor, train: bool = False,
                frozen_bn: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """Plain path: [B, C, T, V] -> (latent [B, D], hidden [B, T, V, H])."""
+        h = self._module_hidden(x, train, frozen_bn)
+        return self._project(h, train), h
+
+    def _module_hidden(self, x: torch.Tensor, train: bool, frozen_bn: bool) -> torch.Tensor:
         if train and self.dropout > 0:
             raise NotImplementedError(_DROPOUT)
-        h = self.encoder(x.permute(0, 2, 3, 1), train=train, frozen_bn=frozen_bn)
-        return self._project(h, train), h
+        return self.encoder(x.permute(0, 2, 3, 1), train=train, frozen_bn=frozen_bn)
 
     def _project(self, h: torch.Tensor, train: bool) -> torch.Tensor:
         """The projector on the hidden state ([B, T, V, C] or [B, T*V, C]).
@@ -132,6 +178,15 @@ class STSE(nn.Module):
         if isinstance(self.btlnk, MLPHead):
             return self.btlnk(h.reshape(h.shape[0], -1), train=train)
         return self.btlnk(h)
+
+    def _hidden(self, x: torch.Tensor, train: bool, frozen_bn: bool) -> torch.Tensor:
+        """The encoder's hidden state on the forward's route: [B, T, V, H]
+        from the module path, [B, T*V, H] from K1 (the same flatten)."""
+        if not train and eval_uses_kernel(x.is_cuda and self.kernel_takes(),
+                                          [x, *self.parameters()]):
+            folded, packed = self.folded()
+            return stse_fused.fused_stse_hidden(x.contiguous(), folded, packed)
+        return self._module_hidden(x, train, frozen_bn)
 
     def kernel_takes(self) -> bool:
         """Whether the eval forward on the card runs K1: compute dtype
@@ -144,9 +199,11 @@ class STSE(nn.Module):
         return self._kernel_takes
 
     def folded(self) -> Tuple[stse_fused.FoldedSTSE, stse_fused.PackedSTSE]:
-        """The kernel's folded and packed weights, rebuilt only when a
-        parameter or buffer was replaced or modified in place."""
-        state = self.state_dict(keep_vars=True)
+        """The kernel's folded and packed weights, rebuilt only when a tensor
+        the fold reads (`encoder.*`, `btlnk.*`) was replaced or modified in
+        place: a decoder or VAE head update keeps the cache."""
+        state = {k: t for k, t in self.state_dict(keep_vars=True).items()
+                 if k.startswith(_FOLDED)}
         key = tuple((t.data_ptr(), t._version) for t in state.values())
         if self._fold_cache is None or self._fold_cache[0] != key:
             with torch.no_grad():
@@ -157,23 +214,117 @@ class STSE(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 frozen_bn: bool = False) -> torch.Tensor:
-        if train:
-            return self.encode(x, train=True, frozen_bn=frozen_bn)[0]
-        if eval_uses_kernel(x.is_cuda and self.kernel_takes(), [x, *self.parameters()]):
-            folded, packed = self.folded()
-            return self._project(stse_fused.fused_stse_hidden(x.contiguous(), folded, packed),
-                                 train=False)
-        return self.encode(x)[0]
+        return self._project(self._hidden(x, train, frozen_bn), train)
+
+
+class STSAE(STSE):
+    """STSE plus a mirrored STS-GCN decoder: forward -> (latent [B, D],
+    reconstruction [B, C_in, T, V]). The decoder (`decoder`, its channels
+    `decoder_channels` or the encoder's reversed, then C_in) reads the
+    reverse projector's hidden state (`rev_btlnk`); it has the encoder's
+    train, eval and `frozen_bn` semantics and runs as modules on every
+    route."""
+
+    def __init__(self, input_dim: int = 2, layer_channels: Sequence[int] = (32, 16, 32),
+                 hidden_dimension: int = 64, latent_dim: int = 16, n_frames: int = 12,
+                 n_joints: int = 17, decoder_channels: Optional[Sequence[int]] = None,
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(input_dim, layer_channels, hidden_dimension, latent_dim, n_frames,
+                         n_joints, use_bias=use_bias, dtype=dtype, **kwargs)
+        self.rev_btlnk = ReverseProjector(hidden_dimension, n_frames, n_joints, latent_dim,
+                                          dtype)
+        channels = list(decoder_channels or list(layer_channels)[::-1]) + [input_dim]
+        self.decoder = STSGCNStack(hidden_dimension, channels, n_frames, n_joints, use_bias,
+                                   dtype)
+
+    def decode(self, z: torch.Tensor, train: bool = False,
+               frozen_bn: bool = False) -> torch.Tensor:
+        """latent [B, D] -> reconstruction [B, C_in, T, V]."""
+        return self.decoder(self.rev_btlnk(z), train=train,
+                            frozen_bn=frozen_bn).permute(0, 3, 1, 2)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                frozen_bn: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        z = super().forward(x, train, frozen_bn)
+        return z, self.decode(z, train, frozen_bn)
+
+
+class STSVAE(STSAE):
+    """Variational STSAE: forward -> (z [B, D], reconstruction, (z_mean,
+    z_var)). The heads `fc_mean` and `fc_var` stay float32 at any compute
+    dtype: Dense layers on the MLP projector's latent, or, with the linear
+    projector (the identity here, so the model has no `btlnk`), linear
+    projectors contracting the hidden state. For `distribution='ps'` the
+    mean is normalised and z_var [B, 1] is the PowerSpherical concentration
+    softplus(fc_var) + kappa_floor; for 'normal' z_var [B, D] is the
+    standard deviation.
+
+    z is drawn from `generator` (`sample=True`, JAX's default), is the mean
+    (`sample=False`), or comes from fed draws (`sample_draws`: (z01, v_raw)
+    for 'ps', (eps,) for 'normal'; the lockstep hook)."""
+
+    def __init__(self, *args, distribution: str = "ps", kappa_floor: float = 1.0, **kwargs):
+        super().__init__(*args, **kwargs)
+        if distribution not in ("ps", "normal"):
+            raise ValueError(f"Unsupported distribution {distribution!r}")
+        self.distribution = distribution
+        self.kappa_floor = kappa_floor
+        latent = self.rev_btlnk.kernel.shape[0]
+        var_out = 1 if distribution == "ps" else latent
+        if isinstance(self.btlnk, MLPHead):
+            self.fc_mean = Dense(latent, latent)
+            self.fc_var = Dense(latent, var_out)
+        else:
+            flat = self.btlnk.kernel.shape[0]
+            self.btlnk = None
+            self.fc_mean = LinearProjector(flat, latent)
+            self.fc_var = LinearProjector(flat, var_out)
+
+    def _project(self, h: torch.Tensor, train: bool) -> torch.Tensor:
+        if self.btlnk is None:  # the identity projector
+            return h.reshape(h.shape[0], -1)
+        return super()._project(h, train)
+
+    def encode_distribution(self, x: torch.Tensor, train: bool = False,
+                            frozen_bn: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """-> (z_mean [B, D], z_var [B, 1] for 'ps' or [B, D] for 'normal')."""
+        feat = self._project(self._hidden(x, train, frozen_bn), train)
+        z_mean = self.fc_mean(feat)
+        if self.distribution == "ps":
+            z_mean = z_mean / torch.linalg.vector_norm(z_mean, dim=-1, keepdim=True)
+        return z_mean, F.softplus(self.fc_var(feat)) + self.kappa_floor
+
+    def forward(self, x: torch.Tensor, train: bool = False, frozen_bn: bool = False,
+                sample: bool = True, sample_draws: Optional[Sequence[torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None):
+        z_mean, z_var = self.encode_distribution(x, train, frozen_bn)
+        if sample_draws is not None:
+            if self.distribution == "ps":
+                z = PowerSpherical(z_mean, z_var.squeeze(-1)).sample_from_draws(*sample_draws)
+            else:
+                z = z_mean + z_var * sample_draws[0]
+        elif sample:
+            if generator is None:
+                raise ValueError("STSVAE draws its sample from a torch.Generator: pass "
+                                 "generator=, or sample=False for the mean")
+            if self.distribution == "ps":
+                z = PowerSpherical(z_mean, z_var.squeeze(-1)).rsample(generator)
+            else:
+                z = z_mean + z_var * torch.randn(z_mean.shape, generator=generator,
+                                                 device=z_mean.device)
+        else:
+            z = z_mean
+        return z, self.decode(z, train, frozen_bn), (z_mean, z_var)
 
 
 def build_model(use_decoder: bool = False, use_vae: bool = False, **kwargs) -> STSE:
-    """Variant factory: the encoder-only variants (euclidean static /
-    dynamic, hyperbolic) share STSE. The decoder variants are not ported
-    yet."""
-    if use_decoder or use_vae:
-        raise NotImplementedError(
-            "the autoencoder and VAE variants are not ported yet "
-            "(ROADMAP.md, Queue 1 item 3a)")
-    for k in ("distribution", "kappa_floor", "decoder_channels"):
-        kwargs.pop(k, None)
+    """Variant factory, as JAX's: use_vae -> STSVAE, use_decoder -> STSAE,
+    else STSE (the euclidean and hyperbolic variants share it)."""
+    if use_vae:
+        return STSVAE(**kwargs)
+    kwargs.pop("distribution", None)
+    kwargs.pop("kappa_floor", None)
+    if use_decoder:
+        return STSAE(**kwargs)
+    kwargs.pop("decoder_channels", None)
     return STSE(**kwargs)

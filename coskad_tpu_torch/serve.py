@@ -6,7 +6,10 @@
     frames = scorer.score_clip_json("01_0014.json")       # per-frame scores
 
 Scoring runs the Trainer's eager pass (gather, eval forward through the
-fused encoder kernel on CUDA, variant distance). Windows are scored
+fused encoder kernel on CUDA at float32, variant distance): the latent
+distance to the center for the euclidean variants and the autoencoder, the
+geodesic distance for the hyperbolic one, and the cosine distance to the
+anchor `mean_vector` for the VAE. Windows are scored
 unpadded: the JAX package pads requests to size buckets only to bound its
 recompiles, and eval rows are independent. Clip scoring reuses the offline
 aggregation (actor max, shift + Gaussian smoothing) without ground truth.
@@ -36,7 +39,7 @@ __all__ = ["AnomalyScorer", "config_from_snapshot"]
 
 
 class AnomalyScorer:
-    """Scorer for one trained encoder-only COSKAD variant.
+    """Scorer for one trained COSKAD variant.
 
     `trainer.model` holds the weights and `state` the center; without a
     trainer one is built on `device` over a placeholder dataset. `scaler` is
@@ -69,6 +72,7 @@ class AnomalyScorer:
             cfg = config_from_snapshot(ckpt_path + ".config.json")
         scorer = cls(cfg, None, device=device)
         scorer.state, scorer.scaler, _ = checkpoint.restore(ckpt_path, scorer.trainer)
+        checkpoint.require_vae_anchor(cfg, scorer.state, ckpt_path)
         return scorer
 
     def score_windows(self, windows: np.ndarray) -> np.ndarray:

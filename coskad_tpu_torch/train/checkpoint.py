@@ -26,8 +26,10 @@ How the port's objects map onto `state`:
   plateau reducer may have lowered it).
 - `rng`: the port draws no JAX keys. It writes the value of
   `jax.random.PRNGKey(cfg.run.seed)` (`[0, seed]` for a seed below 2^32)
-  and ignores the field on read: only dropout and VAE sampling would use
-  it, and neither is ported.
+  and ignores the field on read: the VAE's samples come from generators
+  seeded from (cfg.run.seed, step), and dropout is not ported.
+- `mean_vector`: the VAE's scoring anchor, the last epoch's latent mean
+  (`require_vae_anchor` refuses a VAE checkpoint without one).
 
 The Orbax directory flavor of the JAX package is not ported (ROADMAP.md,
 Queue 1 item 1).
@@ -222,6 +224,21 @@ def scaler_of(payload: dict) -> Optional[RobustScalerState]:
 def load_scaler(path: str) -> Optional[RobustScalerState]:
     """Read just the fitted scaler from a checkpoint."""
     return scaler_of(read_payload(path))
+
+
+def require_vae_anchor(cfg: Config, state: TrainState, path: str) -> None:
+    """Raise for a VAE checkpoint whose anchor `mean_vector` is zero: every
+    window would score 1 - cos(z, 0) = 1. Training sets the anchor at the
+    end of every epoch, so only a checkpoint converted from the reference
+    (which never stores it for 'ps') lacks it. The anchor is the training
+    latents' mean: it is not recomputed from the split being scored."""
+    if cfg.model.variant == "vae" and not bool(torch.any(state.mean_vector != 0)):
+        raise ValueError(
+            f"{path}: the VAE's scoring anchor mean_vector is missing (all zeros): the "
+            "checkpoint was not written by a training epoch (a converted reference "
+            "checkpoint stores none), and the anchor is the training latents' mean, which "
+            "eval does not recompute from the test split; train at least one epoch and "
+            "evaluate that checkpoint")
 
 
 def restore(path: str, trainer, payload: Optional[dict] = None

@@ -1,6 +1,6 @@
-"""The Trainer (counterpart of `coskad_tpu/train/loop.py`) for the
-encoder-only variants (euclidean static / dynamic, hyperbolic): training,
-center initialization, scoring and validation.
+"""The Trainer (counterpart of `coskad_tpu/train/loop.py`) for every
+variant (euclidean static / dynamic, hyperbolic, autoencoder, VAE):
+training, center initialization, scoring and validation.
 
 Windows are uploaded once, flat [N, C*T*V], to the device. A pass walks
 [K, B] index chunks in an eager Python loop (the JAX package's `lax.scan`):
@@ -11,8 +11,16 @@ per chunk, gather the batch (sample i % N, transform i // N), then
     K2-K4 path (`kernels/stse_train.py`) when `run.fused_train` allows it
     and the batch is a multiple of `run.ghost_size`, else the module path
     with live BatchNorm (or running statistics under `freeze_bn_after`);
-  * score (`score_all`, `embed_all`): the eval forward (on CUDA, the fused
-    encoder kernel K1) and the variant's window score.
+  * score (`score_all`, `embed_all`): the eval forward (on CUDA at float32,
+    the fused encoder kernel K1) and the variant's window score; the
+    decoder variants also give each window's reconstruction MSE.
+
+The VAE draws its training samples from a `torch.Generator` seeded from
+(cfg.run.seed, step), so a resumed run draws what a straight one does; an
+eval pass that samples (`eval.vae_sample`) draws from one seeded from
+(cfg.run.seed, step, 7), so scoring one state twice gives the same bits.
+`Trainer.vae_sample = False` puts train and eval on the posterior mean
+(the lockstep tests' deterministic path).
 
 Per-step metrics stay on the device until one copy to the host at the end
 of an epoch. The model is switched to `train()` for a train epoch and back
@@ -47,6 +55,9 @@ def model_kwargs_from_config(cfg: Config) -> dict:
         dtype=torch.bfloat16 if cfg.run.compute_dtype == "bfloat16" else torch.float32,
         use_decoder=cfg.model.use_decoder,
         use_vae=cfg.model.use_vae,
+        distribution=cfg.model.distribution,
+        decoder_channels=cfg.model.decoder_channels,
+        kappa_floor=cfg.model.kappa_floor,
         input_dim=cfg.model.num_coords,
         layer_channels=tuple(cfg.model.channels),
         hidden_dimension=cfg.model.h_dim,
@@ -97,6 +108,8 @@ class Trainer:
         self.logger = logger or MetricLogger()
         self._lr = cfg.opt.lr
         self._epochs_done = 0
+        # the VAE samples in training and, with eval.vae_sample, in eval
+        self.vae_sample = True
         # ReduceLROnPlateau analogue; its counters survive per-epoch fit calls.
         self._best_auc = -np.inf
         self._since_best = 0
@@ -162,33 +175,55 @@ class Trainer:
     def _fused_usable(self, batch: torch.Tensor) -> bool:
         return self._fused_compat and batch.shape[0] % self.cfg.run.ghost_size == 0
 
-    def _forward(self, batch: torch.Tensor, train: bool, frozen_bn: bool = False):
-        """Latents of a batch; in train mode through the ghost-BN kernels
-        when usable (running statistics updated in place either way)."""
+    def _generator(self, *key: int) -> torch.Generator:
+        """A generator on the device seeded from (cfg.run.seed, *key)."""
+        seed = np.random.SeedSequence((self.cfg.run.seed, *key)).generate_state(1, np.uint64)[0]
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def _forward(self, batch: torch.Tensor, train: bool, frozen_bn: bool = False,
+                 generator: Optional[torch.Generator] = None, vae_draws=None):
+        """The model's outputs for a batch; in train mode through the
+        ghost-BN kernels when usable (running statistics updated in place
+        either way). The VAE samples where `vae_sample` and (train or
+        eval.vae_sample) hold, from fed `vae_draws` or from `generator`."""
         if train and not frozen_bn and self._fused_usable(batch):
             return stse_train.fused_stse_apply(
                 self.model, batch, ghost_size=self.cfg.run.ghost_size,
                 compute_dtype=self.cfg.run.compute_dtype)
-        return self.model(batch, train=train, frozen_bn=frozen_bn)
+        if not self.cfg.model.use_vae:
+            return self.model(batch, train=train, frozen_bn=frozen_bn)
+        sample = self.vae_sample and (train or self.cfg.eval.vae_sample)
+        return self.model(batch, train=train, frozen_bn=frozen_bn, sample=sample,
+                          sample_draws=vae_draws, generator=generator)
+
+    def _samples(self) -> bool:
+        return self.cfg.model.use_vae and self.vae_sample
 
     def _set_lr(self, lr: float) -> None:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
 
     def train_step(self, state: TrainState, data: torch.Tensor, indices: torch.Tensor,
-                   frozen_bn: bool = False) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+                   frozen_bn: bool = False, vae_draws=None
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One optimizer step on the batch of logical `indices`: forward,
         loss, backward, optimizer step, then the epoch accumulators from the
-        step's latents (taken before the update)."""
+        step's latents (taken before the update; the VAE's posterior means
+        where eval.vae_sample is off, as they are what it scores)."""
         cfg = self.cfg
         if cfg.opt.contrastive_weight > 0:
             raise NotImplementedError(
                 "the contrastive second view is not ported yet (ROADMAP.md, Queue 1 item 6)")
         batch = self._gather(data, indices)
-        out = self._forward(batch, train=True, frozen_bn=frozen_bn)
+        gen = self._generator(state.step) if self._samples() and vae_draws is None else None
+        out = self._forward(batch, train=True, frozen_bn=frozen_bn, generator=gen,
+                            vae_draws=vae_draws)
         loss, metrics = objectives.compute_loss(
-            cfg, out, batch, self.model, state.center, state.inv_cov)
+            cfg, out, batch, self.model, state.center, state.inv_cov,
+            mean_vector=state.mean_vector)
         z = objectives.latent_of(cfg.model.variant, out)
+        if cfg.model.use_vae and not cfg.eval.vae_sample:
+            z = out[2][0]
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
@@ -240,47 +275,58 @@ class Trainer:
         idx = torch.remainder(torch.arange(k * bs, device=self.device), n)
         return idx.reshape(k, bs), k
 
-    def _embed_step(self, data, indices, window_shape=None) -> torch.Tensor:
-        """Eval-mode latents for one batch of logical indices."""
-        return self.model(self._gather(data, indices, window_shape=window_shape))
+    def _embed_step(self, data, indices, window_shape=None, generator=None
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Eval-mode latents for one batch of logical indices, and for the
+        decoder variants each window's reconstruction MSE (else None)."""
+        batch = self._gather(data, indices, window_shape=window_shape)
+        out = self._forward(batch, train=False, generator=generator)
+        z = objectives.latent_of(self.cfg.model.variant, out)
+        if not self.cfg.model.use_decoder:
+            return z, None
+        return z, torch.mean((out[1] - batch) ** 2, dim=(1, 2, 3))
+
+    def _eval_pass(self, state: TrainState, ds: SegmentDataset, data: torch.Tensor, fn):
+        """fn(z) over every (window x transform) item of ds in batches:
+        (values [n], reconstruction errors [n], zeros for encoder-only
+        variants), as numpy. A sampling VAE draws from a generator seeded
+        from the state's step."""
+        n = len(ds)
+        idx, k = self._chunked_indices(n)
+        ws = self._window_shape_of(ds)
+        gen = (self._generator(state.step, 7)
+               if self._samples() and self.cfg.eval.vae_sample else None)
+        vals, recs = [], []
+        for i in range(k):
+            z, rec = self._embed_step(data, idx[i], ws, generator=gen)
+            vals.append(fn(z))
+            recs.append(rec)
+        rec = (np.zeros(n, np.float32) if recs[0] is None
+               else torch.cat(recs)[:n].cpu().numpy())
+        return torch.cat(vals)[:n].cpu().numpy(), rec
 
     @torch.inference_mode()
     def embed_all(self, state: TrainState, ds: SegmentDataset, data: torch.Tensor,
                   return_rec: bool = False):
-        """Latents for every (window x transform) item, as numpy [n, D]
-        (and zero reconstruction errors [n] for encoder-only variants)."""
-        n = len(ds)
-        idx, k = self._chunked_indices(n)
-        ws = self._window_shape_of(ds)
-        z = torch.cat([self._embed_step(data, idx[i], ws) for i in range(k)])[:n]
-        z = z.cpu().numpy()
-        if return_rec:
-            return z, np.zeros(n, np.float32)
-        return z
+        """Latents for every (window x transform) item, as numpy [n, D] (and
+        the reconstruction errors [n], zeros for encoder-only variants)."""
+        z, rec = self._eval_pass(state, ds, data, lambda z: z)
+        return (z, rec) if return_rec else z
 
     @torch.inference_mode()
     def score_all(self, state: TrainState, ds: SegmentDataset, data: torch.Tensor):
         """Anomaly scores for every (window x transform) item: ([n] scores,
         [n] reconstruction errors, zeros for encoder-only variants) as numpy."""
-        n = len(ds)
-        idx, k = self._chunked_indices(n)
-        ws = self._window_shape_of(ds)
-        scores = torch.cat([
-            objectives.window_scores(self.cfg, self._embed_step(data, idx[i], ws),
-                                     state.center, state.inv_cov, state.mean_vector)
-            for i in range(k)
-        ])[:n]
-        return scores.cpu().numpy(), np.zeros(n, np.float32)
+        return self._eval_pass(state, ds, data, lambda z: objectives.window_scores(
+            self.cfg, z, state.center, state.inv_cov, state.mean_vector))
 
     def initialize_center(self, state: TrainState) -> TrainState:
-        """Full eval-mode pass over the train set. Euclidean: center =
-        clamp(mean(z)), the mean taken in float64. Hyperbolic: the Einstein
-        midpoint of the exp-mapped latents, which must lie inside the ball.
-        Mahalanobis also inverts the latent covariance around the center."""
+        """Full eval-mode pass over the train set. Euclidean, autoencoder and
+        VAE: center = clamp(mean(z)), the mean taken in float64. Hyperbolic:
+        the Einstein midpoint of the exp-mapped latents, which must lie
+        inside the ball. Mahalanobis also inverts the latent covariance
+        around the center."""
         variant = self.cfg.model.variant
-        if variant not in objectives.ENCODER_ONLY:
-            raise NotImplementedError(
-                f"{variant} centers are not ported yet (ROADMAP.md, Queue 1 item 3a)")
         z = self.embed_all(state, self.train_ds, self.train_data)
         if variant == "hyperbolic":
             z_h = hyp.project(hyp.expmap0(torch.as_tensor(z, device=self.device)))
@@ -328,9 +374,11 @@ class Trainer:
         return state.reset_accumulators()
 
     def update_mean_vector(self, state: TrainState) -> TrainState:
-        """The VAE's scoring anchor (the epoch's latent mean); the euclidean
-        variants have none, and the VAE is not ported (build_model refuses it)."""
-        return state
+        """The VAE's scoring anchor: the epoch's latent mean (the other
+        variants have none)."""
+        if self.cfg.model.variant != "vae":
+            return state
+        return state.replace(mean_vector=state.acc_vec / state.acc_weight)
 
     def fit(self, state: Optional[TrainState] = None, epochs: Optional[int] = None
             ) -> Tuple[TrainState, Dict]:
@@ -403,10 +451,14 @@ class Trainer:
         return state, history
 
     def validate(self, state: TrainState) -> Optional[EvalResult]:
-        """Frame-level AUC of the validation set under the current center."""
+        """Frame-level AUC of the validation set under the current center;
+        the autoencoder's windows are scored by reconstruction error, as the
+        reference validates it (its offline eval scores by latent distance)."""
         if self.val_ds is None or not self.ground_truths:
             return None
-        scores, _ = self.score_all(state, self.val_ds, self.val_data)
+        scores, rec = self.score_all(state, self.val_ds, self.val_data)
+        if self.cfg.model.variant == "autoencoder":
+            scores = rec
         k = max(self.cfg.data.num_transform, 1)
         avenue_masks = (
             AVENUE_MASKED_CLIPS if self.cfg.data.dataset_choice == "HR-Avenue" else {})

@@ -306,7 +306,12 @@ def test_center_leaving_the_ball_raises():
     trainer.embed_all = lambda *a, **k: np.full((8, 4), np.nan, np.float32)
     with pytest.raises(ValueError, match="left the Poincaré ball"):
         trainer.initialize_center(trainer.init_state())
+    # the VAE scores by cosine distance to its anchor, as JAX does
     vae = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, variant="vae"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3a"):
-        objectives.window_scores(port_config(vae), torch.zeros(2, 4), torch.zeros(4),
-                                 torch.eye(4), torch.zeros(4))
+    z = np.random.default_rng(1).normal(size=(2, 4)).astype(np.float32)
+    anchor = np.array([1.0, 0.5, 0.0, -1.0], np.float32)
+    got = objectives.window_scores(port_config(vae), torch.from_numpy(z), torch.zeros(4),
+                                   torch.eye(4), torch.from_numpy(anchor))
+    want = jobjectives.window_scores(vae, jnp.asarray(z), jnp.zeros(4), jnp.eye(4),
+                                     jnp.asarray(anchor))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **SCORE_TOL)

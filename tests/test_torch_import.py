@@ -24,6 +24,7 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import coskad_tpu_torch.cli.train, coskad_tpu_torch.cli.eval\n"
         "import coskad_tpu_torch.train.checkpoint, coskad_tpu_torch.data.robust\n"
         "import coskad_tpu_torch.geometry.poincare, coskad_tpu_torch.config\n"
+        "import coskad_tpu_torch.geometry.sphere, coskad_tpu_torch.score.window_losses\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN_TOP!r})\n"
         "print(','.join(bad))\n"
     )

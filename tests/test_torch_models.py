@@ -10,7 +10,7 @@ import torch
 from coskad_tpu.models import STSE as JaxSTSE
 from coskad_tpu_torch.interop import load_jax_variables
 from coskad_tpu_torch.kernels import stse_fused
-from coskad_tpu_torch.models import STSE, build_model
+from coskad_tpu_torch.models import STSE, STSVAE, build_model
 from test_fused_kernel import _trained_like_variables
 
 torch.set_num_threads(1)
@@ -83,16 +83,19 @@ def test_load_rejects_mismatched_trees():
 
 def test_train_mode_and_unported_variants_raise():
     """Train mode runs (tests/test_torch_train.py holds it to flax); dropout
-    in train mode and the other variants and encoders are not ported yet;
-    the MLP projector is (tests/test_torch_mlp_head.py), and an unknown
+    in train mode and the other encoders are not ported yet; the decoder
+    variants are (tests/test_torch_autoencoder.py, tests/test_torch_vae.py),
+    as is the MLP projector (tests/test_torch_mlp_head.py), and an unknown
     projector is refused as in JAX."""
     model = STSE(**CASES["narrow_stack"])
     x = torch.zeros(2, 2, 12, 18)
     assert model(x, train=True).shape == (2, 4)
     with pytest.raises(NotImplementedError, match="dropout"):
         STSE(**CASES["narrow_stack"], dropout=0.1)(x, train=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(use_vae=True, **CASES["narrow_stack"])
+    vae = build_model(use_vae=True, **CASES["narrow_stack"])
+    z, recon, (mean, var) = vae(x, train=True, sample=False)
+    assert isinstance(vae, STSVAE) and z.shape == (2, 4) and recon.shape == x.shape
+    assert var.shape == (2, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         STSE(encoder_type="st_gcn")
     assert STSE(projector="mlp", **CASES["narrow_stack"])(x, train=True).shape == (2, 4)

@@ -129,13 +129,21 @@ def test_compute_loss_matches_jax(distance):
     for k in metrics:
         np.testing.assert_allclose(metrics[k].item(), float(metrics_j[k]), rtol=1e-5)
     np.testing.assert_allclose(loss.item(), float(loss_j), rtol=1e-5)
-    # the hyperbolic loss is ported (tests/test_torch_hyperbolic.py); the VAE's
-    # waits for its variant
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3a"):
-        objectives.compute_loss(port_config(dataclasses.replace(
-            cfg, model=dataclasses.replace(cfg.model, variant="vae"))),
-            torch.from_numpy(z), torch.from_numpy(x), model, torch.from_numpy(center),
-            torch.from_numpy(inv_cov))
+    # the hyperbolic loss is ported (tests/test_torch_hyperbolic.py), and the
+    # VAE's with its variant (tests/test_torch_vae.py holds it to JAX)
+    vae = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, variant="vae"))
+    unit = z / np.linalg.norm(z, axis=-1, keepdims=True)
+    kappa = np.full((len(z), 1), 2.0, np.float32)
+    loss_v, metrics_v = objectives.compute_loss(
+        port_config(vae), (torch.from_numpy(unit), torch.from_numpy(x),
+                           (torch.from_numpy(unit), torch.from_numpy(kappa))),
+        torch.from_numpy(x), model, torch.from_numpy(center), torch.from_numpy(inv_cov))
+    loss_vj, _ = jobjectives.compute_loss(
+        vae, (jnp.asarray(unit), jnp.asarray(x), (jnp.asarray(unit), jnp.asarray(kappa))),
+        jnp.asarray(x), variables["params"], jnp.asarray(center), jnp.asarray(inv_cov))
+    assert sorted(metrics_v) == ["exp_dist_loss", "kl_loss", "loss", "reconstruction_loss",
+                                 "regularization"]
+    np.testing.assert_allclose(loss_v.item(), float(loss_vj), rtol=1e-5)
 
 
 def test_k1_fold_cache_refolds_after_an_optimizer_step_and_a_bn_update():
