@@ -2507,6 +2507,9 @@ VARIANT_CONFIGS = ("UBnormal/euclidean_autoencoder", "UBnormal/spherical_vae")
 AE_REC_WEIGHTS = ("0", "50", "1000")  # cli.eval's three autoencoder modes
 PS_SAMPLES = 65536
 PS_KAPPAS = (2.0, 32.0)
+# K1's reconstruction error against float64 over the module route's: the ratio
+# of a 3xTF32 product's rounding (2^-21) to a plain float32 one's (2^-24)
+RECON_VS_F64 = 8.0
 
 
 def phase_variants(card):
@@ -2583,15 +2586,20 @@ def k1_against_module_route(tr, x) -> dict:
             max_abs=float((g - w).abs().max()), k1_vs_f64=float((g - e).abs().max()),
             module_vs_f64=float((w - e).abs().max()), scale=float(e.abs().max()),
             outside_elementwise=int(outside.sum()), elements=g.numel())
-        # K1's band element by element; the reconstruction passes nine layers
-        # after K1, which carry 3xTF32's rounding (~2^-21 a product, plain
-        # fp32's 2^-24) to a few near-zero elements past it: there K1's band
-        # of the tensor's scale, against the module route and against float64
-        band = TOL["atol"] + TOL["rtol"] * err["scale"]
-        ok = bool(torch.isfinite(g).all()) and (err["outside_elementwise"] == 0 or (
-            name == "recon" and err["max_abs"] <= band and err["k1_vs_f64"] <= band))
-        check(ok, f"{variant}: K1 route vs module route, {name}: {err}, outside rtol "
-                  f"{TOL['rtol']} atol {TOL['atol']}")
+        # The latents and heads: K1's band element by element. The
+        # reconstruction passes nine layers after K1's hidden, which carry
+        # K1's 3xTF32 rounding (~2^-21 a product, plain fp32's 2^-24) to a few
+        # near-zero elements just past that band; it is held as the CPU tests
+        # hold live-BN outputs: its error against float64 at most
+        # RECON_VS_F64 (2^-21 / 2^-24) times the module route's, plus 1e-6
+        # of its scale
+        if name == "recon":
+            bound = RECON_VS_F64 * err["module_vs_f64"] + 1e-6 * err["scale"]
+            ok, band = err["k1_vs_f64"] <= bound, f"K1 vs float64 <= {bound:.3e}"
+        else:
+            ok, band = err["outside_elementwise"] == 0, f"rtol {TOL['rtol']} atol {TOL['atol']}"
+        check(ok and bool(torch.isfinite(g).all()),
+              f"{variant}: K1 route vs module route, {name}: {err}, outside {band}")
 
     folded, packed = model.folded()
     with torch.inference_mode():

@@ -29,7 +29,7 @@ import numpy as np
 
 from ..score.aggregate import EvalResult, ScoringConfig, evaluate_windows
 from ..score.masks import AVENUE_MASKED_CLIPS, hr_ubnormal
-from ..score.window_losses import mode_from_rec_weight
+from ..score.window_losses import mode_from_rec_weight, mode_scores
 from ..train import checkpoint
 from ..train.loop import Trainer
 from .common import is_primary, load_config, load_ground_truths, load_split
@@ -87,9 +87,8 @@ def main(argv=None) -> EvalRun:
 
     scores, rec = trainer.score_all(state, test_ds, trainer.train_data)
     if cfg.model.variant == "autoencoder" and args.rec_weight != 0:
-        mode = mode_from_rec_weight(args.rec_weight)
-        print(f"[coskad] autoencoder scoring mode: {mode}")
-        scores = rec if mode == "rec" else rec / args.rec_weight + scores
+        print(f"[coskad] autoencoder scoring mode: {mode_from_rec_weight(args.rec_weight)}")
+        scores = mode_scores(scores, rec, args.rec_weight)
     marks["scoring"] = time.perf_counter()  # gather, eval forward, distance, fetch
     k = max(cfg.data.num_transform, 1)
     hr_masks = hr_ubnormal(cfg.eval.hr_masks_glob) if (

@@ -5,7 +5,10 @@ helpers of the reference's analysis notebooks (numpy; counterpart of
 The autoencoder's eval scores a window in one of three modes, chosen by the
 reconstruction weight: 'hyp' (weight 0: the latent distance to the center,
 the default), 'rec' (weight > 100: the reconstruction MSE) and 'rec+hyp'
-(both, the reconstruction term divided by the weight).
+(both, the reconstruction term divided by the weight): `mode_scores`, which
+`cli.eval` applies to the Trainer's scores. The notebook helpers below it
+(`extract_single_pose`, `calculate_loss`, `compute_fig_matrix`) have no
+caller in the package; they are kept for parity with the JAX module.
 """
 
 from __future__ import annotations
@@ -24,20 +27,25 @@ def mode_from_rec_weight(rec_loss_weight: float) -> str:
     return "rec+hyp"
 
 
+def mode_scores(latent: np.ndarray, rec: np.ndarray, rec_loss_weight: float) -> np.ndarray:
+    """[B] window scores in the weight's mode from the latent scores and the
+    reconstruction errors."""
+    mode = mode_from_rec_weight(rec_loss_weight)
+    if mode == "hyp":
+        return latent
+    if mode == "rec":
+        return rec
+    return rec / rec_loss_weight + latent
+
+
 def reconstruction_window_scores(x: np.ndarray, recon: np.ndarray, z: np.ndarray,
                                  center: np.ndarray, rec_loss_weight: float = 0.0
                                  ) -> np.ndarray:
     """[B, C, T, V] input and reconstruction, [B, D] latents -> [B] window
     scores in the weight's mode: the reconstruction term is the MSE over a
     window's elements, the latent term the MSE over the latent dimensions."""
-    mode = mode_from_rec_weight(rec_loss_weight)
-    hyp = np.mean((z - center) ** 2, axis=-1)
-    if mode == "hyp":
-        return hyp
-    rec = np.mean((recon - x) ** 2, axis=(1, 2, 3))
-    if mode == "rec":
-        return rec
-    return rec / rec_loss_weight + hyp
+    return mode_scores(np.mean((z - center) ** 2, axis=-1),
+                       np.mean((recon - x) ** 2, axis=(1, 2, 3)), rec_loss_weight)
 
 
 def extract_single_pose(pose_matrix: np.ndarray, method: str = "median",

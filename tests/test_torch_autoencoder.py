@@ -18,9 +18,10 @@ Tolerances:
   (analytically zero, rounding noise on both sides) within 2^-5 of the
   largest gradient (the bands of tests/test_torch_bf16.py, PERF.md §2), as
   are the PReLU slopes, scalars whose cosine is only their sign; a leaf of
-  a few elements summed over the batch (the VAE heads' biases) can fall
-  below 0.98 on both sides alike, so one that does passes only if its
-  cosine to JAX's float32 gradient is within 0.01 of JAX's bf16 one's;
+  latent_dim elements or fewer summed over the batch (the VAE heads'
+  biases) can fall below 0.98 on both sides alike, so one that does
+  passes only if its cosine to JAX's float32 gradient is within 0.01 of
+  JAX's bf16 one's; a larger leaf must clear 0.98;
 - losses and their metrics rtol 1e-5;
 - the 2-epoch lockstep fit under SGD: per-step losses and the center after
   each epoch rtol 1e-3 (the lockstep band), validation AUC, which scores
@@ -73,6 +74,8 @@ TOL = dict(rtol=2e-4, atol=2e-5)
 NARROW = dict(input_dim=2, layer_channels=(8, 4, 8), hidden_dimension=8, latent_dim=4,
               n_frames=6, n_joints=17)
 MODES = {"eval": (False, False), "train": (True, False), "frozen_bn": (True, True)}
+# the largest gradient leaf the bf16 cosine fallback admits: a head's bias
+SMALL_LEAF = NARROW["latent_dim"]
 
 
 # ---------------------------------------------------------------- models
@@ -105,12 +108,15 @@ def forward_pair(jmodel, variables, model, x, mode, **call):
     statistics after it and the parameters' gradients of the sum of the
     outputs' mean squares; in live-BN train mode also the port's float64
     outputs and statistics. `call` (the VAE's draws) goes to both as given
-    (numpy arrays)."""
+    (numpy arrays). JAX runs jitted at float32 (one compile is cheaper than
+    its eager op-by-op dispatch) and eagerly at bf16, where a jitted
+    program's fusions round otherwise."""
     train, frozen_bn = MODES[mode]
+    jit = jax.jit if model.dtype == torch.float32 else (lambda f: f)
     jcall = {k: tuple(map(jnp.asarray, v)) for k, v in call.items()}
     tcall = {k: tuple(map(torch.from_numpy, v)) for k, v in call.items()}
     if not train:
-        want = jmodel.apply(variables, jnp.asarray(x), **jcall)
+        want = jit(jmodel.apply)(variables, jnp.asarray(x), **jcall)
         with torch.no_grad():
             got = model.eval()(torch.from_numpy(x), **tcall)
         return ([o.numpy() for o in flat_outputs(got)],
@@ -134,7 +140,8 @@ def forward_pair(jmodel, variables, model, x, mode, **call):
         outs = flat_outputs(out)
         return sum(jnp.mean(o.astype(jnp.float32) ** 2) for o in outs), (outs, mutated)
 
-    (_, (want, mutated)), jgrads = jax.value_and_grad(jloss, has_aux=True)(variables["params"])
+    (_, (want, mutated)), jgrads = jit(jax.value_and_grad(jloss, has_aux=True))(
+        variables["params"])
     ref = None
     if model.dtype == torch.bfloat16:  # JAX's float32 gradients, for the small leaves
         ref = flatten_tree(jax.device_get(jax.grad(
@@ -201,6 +208,7 @@ def assert_pair(got, want, extra, dtype, frozen_bn=False):
             err = float(np.abs(g - w if g.size == 1 else g).max())
             assert err <= BAND * top, (k, err, top)
         elif cosine(g, w) <= COSINE:
+            assert g.size <= SMALL_LEAF, (k, cosine(g, w))
             assert cosine(g, ref) >= cosine(w, ref) - 0.01, (k, cosine(g, w), cosine(g, ref),
                                                               cosine(w, ref))
 
@@ -391,10 +399,11 @@ def test_lockstep_fit_matches_jax_trainer():
 
 
 def test_jax_checkpoint_through_the_port_cli_eval_in_each_rec_weight_mode(tmp_path):
-    """A JAX cli.train of the narrow autoencoder, then both packages'
-    cli.eval of its checkpoint with --rec-weight 0 (latent distance), 50
-    (both) and 1000 (reconstruction error)."""
-    cfg_path, _ = narrow_dataset(str(tmp_path), use_decoder=True)
+    """A JAX cli.train of the narrow autoencoder (validation off: its
+    last.ckpt is the one evaluated), then both packages' cli.eval of that
+    checkpoint with --rec-weight 0 (latent distance), 50 (both) and 1000
+    (reconstruction error)."""
+    cfg_path, _ = narrow_dataset(str(tmp_path), use_decoder=True, validation=False)
     jtrain_cli.main(["--config", cfg_path, "--epochs", "1"])
     for weight in ("0", "50", "1000"):
         want = jeval_cli.main(["--config", cfg_path, "--rec-weight", weight])

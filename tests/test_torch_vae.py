@@ -8,10 +8,13 @@ rtol 2e-4, atol 2e-5; bf16 2^-5 * max(scale, 1), gradients by cosine >
 0.98); losses, metrics and cosine scores rtol 1e-5; the 2-epoch lockstep
 fit under SGD on the posterior mean: per-step losses, the center and the
 anchor mean_vector after each epoch rtol 1e-3, validation AUC within 1e-4;
+one sampled epoch of train_step with fed draws: metrics and accumulators
+rtol 1e-3, weights in the float32 model band against a float64 run;
 cli.eval of one JAX-written checkpoint by both packages within 1e-4 AUC;
 a port checkpoint restored by JAX: every array equal, latents rtol 2e-4,
 atol 2e-5."""
 
+import copy
 import dataclasses
 import os
 
@@ -36,8 +39,8 @@ from coskad_tpu_torch.models import STSVAE
 from coskad_tpu_torch.serve import AnomalyScorer
 from coskad_tpu_torch.train import checkpoint, msgpack, objectives
 from coskad_tpu_torch.train.loop import Trainer
-from test_torch_autoencoder import (NARROW, assert_pair, forward_pair, lockstep_fit,
-                                    variant_pair)
+from test_torch_autoencoder import (NARROW, assert_float32, assert_pair, forward_pair,
+                                    lockstep_fit, lockstep_pair, variant_pair)
 from test_torch_bf16 import cpu_bf16_dots
 from test_torch_cli import narrow_dataset
 from test_torch_hyperbolic import lockstep_setup
@@ -170,6 +173,57 @@ def test_lockstep_fit_matches_jax_trainer():
     np.testing.assert_allclose(rec, jrec, rtol=1e-3, atol=1e-6)
 
 
+def test_sampled_train_steps_match_jax_with_fed_draws():
+    """The sampled ELBO step, as spherical_vae.yaml trains (vae_sample on in
+    training and eval): one epoch of train_step under SGD from the same
+    weights, each step fed the same (z01, v_raw) draws through the
+    `vae_draws` hook, by JAX, the port and the port in float64. Per-step
+    metrics and the epoch's accumulators of the sampled latents rtol 1e-3;
+    the weights and running statistics by the live-BN form of
+    test_torch_autoencoder.assert_float32: JAX's BatchNorm takes the batch
+    variance in one pass (E[x^2] - E[x]^2), which on one of these batches
+    puts its first-layer gradient ~5% off float64 where the port's is
+    within 1e-6."""
+    (jtrainer, _, jstate), (trainer, _, state) = lockstep_pair("vae")
+    jtrainer.vae_sample = trainer.vae_sample = True
+    assert trainer.cfg.eval.vae_sample  # the steps accumulate the samples
+    t64 = copy.deepcopy(trainer)
+    t64.model.double()
+    t64.train_data, t64.trans_table = t64.train_data.double(), t64.trans_table.double()
+    state64 = state
+    order = np.random.default_rng(5).permutation(len(trainer.train_ds)).reshape(-1, 32)
+    for step, idx in enumerate(order):
+        fed = draws("ps", len(idx), seed=step)
+        jstate, jm = jtrainer._train_step(jstate, jtrainer.train_data,
+                                          jnp.asarray(idx, jnp.int32),
+                                          vae_draws=tuple(map(jnp.asarray, fed)))
+        state, m = trainer.train_step(state, trainer.train_data, torch.from_numpy(idx),
+                                      vae_draws=tuple(map(torch.from_numpy, fed)))
+        state64, _ = t64.train_step(state64, t64.train_data, torch.from_numpy(idx),
+                                    vae_draws=tuple(torch.from_numpy(a).double() for a in fed))
+        assert sorted(m) == sorted(jm)
+        for k in m:
+            np.testing.assert_allclose(m[k].item(), float(jm[k]), rtol=1e-3,
+                                       err_msg=f"{k} at step {step}")
+    for tree, jtree, exact in zip(to_jax_variables(trainer.model),
+                                  (jstate.params, jstate.batch_stats),
+                                  to_jax_variables(t64.model)):
+        got, want, exact = (flatten_tree(t) for t in (tree, jax.device_get(jtree), exact))
+        assert sorted(got) == sorted(want)
+        for k in got:
+            assert_float32(got[k], want[k], exact[k], k)
+    for name in ("acc_vec", "acc_weight"):
+        np.testing.assert_allclose(getattr(state, name).numpy(),
+                                   np.asarray(getattr(jstate, name)), rtol=1e-3, err_msg=name)
+    # the fed draws move the latents off the posterior means: the steps above
+    # were not the mean path
+    with torch.no_grad():
+        x = trainer._gather(trainer.train_data, torch.from_numpy(order[0]))
+        z, _, (mean, _) = trainer.model.eval()(x, sample_draws=tuple(
+            map(torch.from_numpy, draws("ps", 32))))
+    assert float((z - mean).abs().max()) > 1e-3
+
+
 def sampling_trainer(train, cfg):
     return Trainer(port_config(cfg), SegmentDataset(*train, num_transform=2), device="cpu")
 
@@ -243,19 +297,21 @@ def zero_anchor_copy(path):
 
 def test_jax_checkpoint_through_the_port_cli_eval_and_the_anchor_refusal(tmp_path):
     """A JAX cli.train of the narrow VAE scored on the posterior mean
-    (vae_sample false), then both packages' cli.eval of its checkpoint;
-    the same checkpoint without its anchor is refused by the port's eval
-    and serving (JAX's eval recomputes it from the test split)."""
-    cfg_path, ckpt_dir = narrow_dataset(str(tmp_path), use_vae=True, vae_sample=False)
+    (vae_sample false; validation off, so its last.ckpt is the one
+    evaluated), then both packages' cli.eval of that checkpoint; the same
+    checkpoint without its anchor is refused by the port's eval and serving
+    (JAX's eval recomputes it from the test split)."""
+    cfg_path, ckpt_dir = narrow_dataset(str(tmp_path), use_vae=True, vae_sample=False,
+                                        validation=False)
     jtrain_cli.main(["--config", cfg_path, "--epochs", "1"])
     want = jeval_cli.main(["--config", cfg_path])
     got = eval_cli.main(["--config", cfg_path, "--device", "cpu"])
     assert abs(got.result.auc - want.auc) <= 1e-4, (got.result.auc, want.auc)
     np.testing.assert_allclose(got.result.per_transform_auc, want.per_transform_auc, atol=1e-4)
-    served = AnomalyScorer.from_checkpoint(os.path.join(ckpt_dir, "best.ckpt"), device="cpu")
+    served = AnomalyScorer.from_checkpoint(os.path.join(ckpt_dir, "last.ckpt"), device="cpu")
     assert served.cfg.model.variant == "vae" and not served.cfg.eval.vae_sample
 
-    bare = zero_anchor_copy(os.path.join(ckpt_dir, "best.ckpt"))
+    bare = zero_anchor_copy(os.path.join(ckpt_dir, "last.ckpt"))
     with pytest.raises(ValueError, match="anchor mean_vector is missing"):
         eval_cli.main(["--config", cfg_path, "--ckpt", bare, "--device", "cpu"])
     with pytest.raises(ValueError, match="anchor mean_vector is missing"):
