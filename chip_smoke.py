@@ -142,14 +142,49 @@ Phases, each printing a line before the last:
      and PowerSpherical.rsample with a CUDA generator (65,536 samples on
      the sphere, the mean of loc . x within 4 standard errors, one seed's
      bits twice). `--only variants` runs just this after the build.
+  7c. encoders (the other encoders and train-mode dropout): float32 copies
+     of config/HR-STC/euclidean_encoder.yaml at its full widths (MLP
+     projector, batch 2048, 17 joints) with only the paths, the dtype and
+     encoder_type (st_gcn, learnable_gcn, static_gcn, cnn) or dropout (0.1,
+     sts_gcn) replaced, and the file as written (bf16) with st_gcn, over the
+     paper phase's 17-keypoint AlphaPose tree: cli.train for 2 epochs, then
+     cli.eval, counted: K1 none for the other encoders (they have no kernel,
+     nor in JAX), the dropout copy's K1 as the windows predict (center init,
+     each validation, the eval), K2-K5 none. Train and scoring windows/s,
+     AUC, a step's peak above resident; each trained model's eval latent on
+     the card against the same weights on the CPU; the dropout copy's K1
+     route against its module route at batch 2048, both timed; the bf16
+     st_gcn model's latent the float32 model's bits (the other encoders
+     compute in float32 at bf16, as in JAX); dropout's mask on the card (a
+     CUDA generator): the kept share within 4 standard deviations, kept
+     values exactly x / (1 - rate), one seed's mask twice; st_gcn's 9x1
+     temporal conv (64 -> 64 channels) on the card at PyTorch's default TF32
+     flags, values and gradients within 2e-5 of float64's scale, timed beside
+     cuDNN's conv2d. `--only encoders` runs just this after the build.
+  7d. streaming (the operators' path): a float32 flagship checkpoint
+     (cli.train, one epoch over the cli phase's tree: sts_gcn, linear
+     projector, 18 joints), then, counted: a written clip of 3 actors over
+     2,400 frames pushed frame by frame through StreamingScorer at
+     min_batch 256, whose flush must match score_clip_json on the card
+     (scores rtol 1e-3, atol 1e-6; the largest difference and whether it is
+     0 reported), again with horizon 512 against the unbounded stream; then
+     the HTTP server on loopback in a thread: 2048 windows (an .npy body)
+     and the clip, each the library's bits, and a stream session pushed 64
+     frames a request; frames/s, request latency p50 / p99. K1 launches as
+     the traffic predicts (one a batch of the config's size in each scoring
+     call: the offline clip, each drain of each stream, each request), each
+     stream's drains scoring the clip's windows once, K2-K5 none.
+     `--only streaming` runs just this after the build.
   8. a line of each phase's wall time, a JSON line of every kernel
      (launches on the main paths, error, times, bound), then the last line
      {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
-It imports nothing of JAX or of the JAX package. TF32 is switched off for
-matmuls and cuDNN: it would cost ~1e-3 of accuracy against the fp32
-reference. Details go to chiprun_out/chip_smoke.json.
+It imports nothing of JAX or of the JAX package. It leaves PyTorch's TF32
+flags at their defaults (off in matmuls, on in cuDNN): the port calls no
+cuDNN routine, and a matmul is float32 at that default, so every float32
+check holds the package as a user runs it. Details go to
+chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -256,6 +291,27 @@ def check(cond: bool, msg: str):
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
+def launch_counters() -> dict:
+    """K1-K5's launch counters by kernel name: each wrapper adds one where
+    it launches its kernel and nowhere else."""
+    from coskad_tpu_torch.kernels import stse_fused
+    from coskad_tpu_torch.kernels import stse_train as st
+
+    return dict(stse_fused=stse_fused.launches, stse_train_forward=st.forward_launches,
+                stse_train_layer_backward=st.layer_backward_launches,
+                stse_train_top_backward=st.top_backward_launches,
+                stse_train_mono_backward=st.mono_backward_launches)
+
+
+def zero(counters: dict):
+    for c in counters.values():
+        c.value = 0
+
+
+def read(counters: dict) -> dict:
+    return {k: c.value for k, c in counters.items()}
+
+
 def within(a, b, rtol, atol) -> bool:
     import torch
 
@@ -333,9 +389,9 @@ def phase_environment():
     print(card)
     print(f"environment: python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s), "
-          f"device 0 {torch.cuda.get_device_name(0)}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+          f"device 0 {torch.cuda.get_device_name(0)}; TF32 allowed in matmuls "
+          f"{torch.backends.cuda.matmul.allow_tf32}, in cuDNN {torch.backends.cudnn.allow_tf32} "
+          "(PyTorch's defaults, left as they are)")
 
     from coskad_tpu_torch.kernels import build
 
@@ -1467,23 +1523,19 @@ def mono_path(card):
         return losses
 
     runs = {}
-    counters = dict(stse_train_forward=st.forward_launches,
-                    stse_train_layer_backward=st.layer_backward_launches,
-                    stse_train_top_backward=st.top_backward_launches,
-                    stse_train_mono_backward=st.mono_backward_launches)
+    counters = launch_counters()
     for mode in ("mono", "split"):
         model = copy.deepcopy(model0)
         opt = torch.optim.Adam(model.parameters(), lr=1e-4)
         if mode == "mono":  # --- the mono path, counted ---
-            for c in counters.values():
-                c.value = 0
+            zero(counters)
         losses = torch.stack(steps(mode, model, opt, MONO_STEPS)).cpu().numpy()
         torch.cuda.synchronize()
         if mode == "mono":
-            launches = {k: c.value for k, c in counters.items()}
+            launches = read(counters)
             # --- end of the counted run ---
         runs[mode] = dict(model=model, opt=opt, losses=losses)
-    want = dict(stse_train_forward=MONO_STEPS, stse_train_layer_backward=0,
+    want = dict(stse_fused=0, stse_train_forward=MONO_STEPS, stse_train_layer_backward=0,
                 stse_train_top_backward=0, stse_train_mono_backward=MONO_STEPS)
     check(launches == want, f"mono path launches {launches}, expected {want}")
     mono, split = runs["mono"]["losses"], runs["split"]["losses"]
@@ -1501,17 +1553,17 @@ def mono_path(card):
         model = copy.deepcopy(model0)
         opt = torch.optim.Adam(model.parameters(), lr=1e-4)
         if mode == "mono":
-            for c in counters.values():
-                c.value = 0
+            zero(counters)
         bf16[mode] = torch.stack(steps(mode, model, opt, MONO_BF16_STEPS,
                                        compute_dtype="bfloat16")).cpu().numpy()
         torch.cuda.synchronize()
         bf16_runs[mode] = dict(model=model, opt=opt)
         if mode == "mono":
-            launches_bf16 = {k: c.value for k, c in counters.items()}
+            launches_bf16 = read(counters)
             # --- end of the counted bf16 run ---
-    want_bf16 = dict(stse_train_forward=MONO_BF16_STEPS, stse_train_layer_backward=0,
-                     stse_train_top_backward=0, stse_train_mono_backward=MONO_BF16_STEPS)
+    want_bf16 = dict(stse_fused=0, stse_train_forward=MONO_BF16_STEPS,
+                     stse_train_layer_backward=0, stse_train_top_backward=0,
+                     stse_train_mono_backward=MONO_BF16_STEPS)
     check(launches_bf16 == want_bf16, f"bf16 mono path launches {launches_bf16}, expected "
                                       f"{want_bf16}")
     check(bool(np.isfinite(bf16["mono"]).all())
@@ -1571,11 +1623,10 @@ def phase_probe(card):
     from coskad_tpu_torch.kernels import probe
 
     a, b = probe.inputs(DEVICE)
-    for c in probe.launches.values():  # --- the probe run, counted ---
-        c.value = 0
+    zero(probe.launches)  # --- the probe run, counted ---
     outs = {job: probe.run(job, a, b) for job in probe.JOBS}
     torch.cuda.synchronize()
-    launches = {job: c.value for job, c in probe.launches.items()}  # --- end ---
+    launches = read(probe.launches)  # --- end ---
     records, errs = [], {}
     for job, out in outs.items():
         want = probe.plain(job, a, b)
@@ -1636,8 +1687,6 @@ def phase_train(card):
 
     import torch
     from coskad_tpu_torch.data.windows import SegmentDataset
-    from coskad_tpu_torch.kernels import stse_fused
-    from coskad_tpu_torch.kernels import stse_train as st
     from coskad_tpu_torch.train.loop import Trainer
 
     rng = np.random.default_rng(1)
@@ -1670,11 +1719,8 @@ def phase_train(card):
     setup_s = time.perf_counter() - t0
 
     # --- the training path, counted ---
-    counters = dict(stse_fused=stse_fused.launches, stse_train_forward=st.forward_launches,
-                    stse_train_layer_backward=st.layer_backward_launches,
-                    stse_train_top_backward=st.top_backward_launches)
-    for c in counters.values():
-        c.value = 0
+    counters = launch_counters()
+    zero(counters)
     t0 = time.perf_counter()
     state = trainer.initialize_center(trainer.init_state())
     history = {"loss": [], "validation_auc": []}
@@ -1684,14 +1730,14 @@ def phase_train(card):
             history[k] += hist[k]
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = {k: c.value for k, c in counters.items()}
+    launches = read(counters)
     # --- end of the counted run ---
 
     n_items = len(train_ds)
     steps = n_items // cfg.data.batch_size
     want = dict(stse_train_forward=steps * TRAIN_EPOCHS,
                 stse_train_layer_backward=3 * steps * TRAIN_EPOCHS,
-                stse_train_top_backward=steps * TRAIN_EPOCHS)
+                stse_train_top_backward=steps * TRAIN_EPOCHS, stse_train_mono_backward=0)
     for k, v in want.items():
         check(launches[k] == v, f"{k} launched {launches[k]} times in {TRAIN_EPOCHS} epochs, "
                                 f"expected {v} ({steps} steps an epoch)")
@@ -1767,8 +1813,6 @@ def phase_train_bf16(card):
 
     import torch
     from coskad_tpu_torch.data.windows import SegmentDataset
-    from coskad_tpu_torch.kernels import stse_fused
-    from coskad_tpu_torch.kernels import stse_train as st
     from coskad_tpu_torch.train.loop import Trainer
 
     rng = np.random.default_rng(1)
@@ -1786,18 +1830,14 @@ def phase_train_bf16(card):
     weights = copy.deepcopy(trainer.model.state_dict())
 
     # --- the bf16 training path, counted ---
-    counters = dict(stse_fused=stse_fused.launches, stse_train_forward=st.forward_launches,
-                    stse_train_layer_backward=st.layer_backward_launches,
-                    stse_train_top_backward=st.top_backward_launches,
-                    stse_train_mono_backward=st.mono_backward_launches)
-    for c in counters.values():
-        c.value = 0
+    counters = launch_counters()
+    zero(counters)
     t0 = time.perf_counter()
     state, history = trainer.fit(trainer.initialize_center(trainer.init_state()),
                                  epochs=BF16_EPOCHS)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = {k: c.value for k, c in counters.items()}
+    launches = read(counters)
     # --- end of the counted run ---
     steps = len(train_ds) // cfg.data.batch_size
     want = dict(stse_fused=0, stse_train_forward=steps * BF16_EPOCHS,
@@ -2055,8 +2095,6 @@ def cli_run(card, root):
     from coskad_tpu_torch.cli import train as train_cli
     from coskad_tpu_torch.cli.common import load_config, load_split
     from coskad_tpu_torch.interop import flatten_tree, to_jax_variables
-    from coskad_tpu_torch.kernels import stse_fused
-    from coskad_tpu_torch.kernels import stse_train as st
     from coskad_tpu_torch.serve import AnomalyScorer
     from coskad_tpu_torch.train import checkpoint
     from coskad_tpu_torch.train.loop import Trainer
@@ -2085,32 +2123,29 @@ def cli_run(card, root):
         return out
 
     dev = ["--device", DEVICE]
-    counters = dict(stse_fused=stse_fused.launches, stse_train_forward=st.forward_launches,
-                    stse_train_layer_backward=st.layer_backward_launches,
-                    stse_train_top_backward=st.top_backward_launches)
+    counters = launch_counters()
     Trainer.train_epoch = timed_epoch
     try:
         # --- the command-line path, counted ---
-        for c in counters.values():
-            c.value = 0
+        zero(counters)
         first = train_cli.main(["--config", configs["resumed"], "--epochs", "2", *dev])
         resumed = train_cli.main(["--config", configs["resumed"], "--epochs", "3", "--resume",
                                   *dev])
-        train_launches = {k: c.value for k, c in counters.items()}
+        train_launches = read(counters)
         best = os.path.join(ckpt_dir, "best.ckpt")
         ev = eval_cli.main(["--config", configs["resumed"], "--ckpt", best, *dev])
         t0 = time.perf_counter()
         scorer = AnomalyScorer.from_checkpoint(best, device=DEVICE)
         load_ms = (time.perf_counter() - t0) * 1e3
         served = scorer.score_windows(resumed.trainer.val_ds.data[:CLI_SERVED])
-        launches = {k: c.value for k, c in counters.items()}
+        launches = read(counters)
         # --- end of the counted run ---
         straight = train_cli.main(["--config", configs["straight"], *dev])
     finally:
         Trainer.train_epoch = inner
 
     want = dict(stse_train_forward=3 * steps, stse_train_layer_backward=3 * 3 * steps,
-                stse_train_top_backward=3 * steps)
+                stse_train_top_backward=3 * steps, stse_train_mono_backward=0)
     for k, v in want.items():
         check(train_launches[k] == v, f"cli.train launched {k} {train_launches[k]} times in 2 + 1 "
                                       f"epochs, expected {v} ({steps} steps an epoch)")
@@ -2246,12 +2281,13 @@ def write_clip_csv(folder, rng, n_frames, n_joints=17, n_actors=2, anomalous=Non
         np.savetxt(os.path.join(folder, f"{pid:04d}.csv"), rows, delimiter=",", fmt="%.3f")
 
 
-def paper_config(config, trees, run_dir, float32=False):
+def paper_config(config, trees, run_dir, float32=False, changes=None):
     """config/<config>.yaml (<dataset>/<name>) read from the checkout with the port's
     reader, then written under run_dir with only PAPER_EDITS's lines
-    replaced (and compute_dtype with float32, for the float32 copy; the
-    rest of the file as shipped, comments included); checks that the edited
-    file reads as the shipped one but for those keys."""
+    replaced (and compute_dtype with float32, for the float32 copy; and the
+    keys of `changes`, each line replaced, or added where the file has
+    none; the rest of the file as shipped, comments included); checks that
+    the edited file reads as the shipped one but for those keys."""
     from coskad_tpu_torch.config import parse_reference_yaml
 
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config", f"{config}.yaml")
@@ -2268,20 +2304,23 @@ def paper_config(config, trees, run_dir, float32=False):
     edits = dict(data_dir=pose_root, exp_dir=run_dir, **tests)
     if float32:
         edits["compute_dtype"] = "float32"
+    added = {k: v for k, v in (changes or {}).items() if k not in shipped}
+    edits.update({k: v for k, v in (changes or {}).items() if k in shipped})
     lines = text.splitlines()
     for key, value in edits.items():
         at = [i for i, line in enumerate(lines) if line.startswith(f"{key}:")]
         check(len(at) == 1, f"{src}: {len(at)} lines set {key}")
         lines[at[0]] = f"{key}: {value}"
+    lines += [f"{key}: {value}" for key, value in added.items()]
     os.makedirs(run_dir, exist_ok=True)
     path = os.path.join(run_dir, f"{config.replace('/', '_')}.yaml")
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     with open(path) as f:
         edited = parse_reference_yaml(f.read(), path)
-    check(sorted(edited) == sorted(shipped) and all(
+    check(sorted(edited) == sorted([*shipped, *added]) and all(
         edited[k] == shipped[k] for k in shipped if k not in edits),
-        f"{path} does not read as {src} apart from {sorted(edits)}")
+        f"{path} does not read as {src} apart from {sorted([*edits, *added])}")
     return path, shipped
 
 
@@ -2331,8 +2370,6 @@ def paper_run(card, root):
     from coskad_tpu_torch.cli.common import load_config, load_split
     from coskad_tpu_torch.geometry import poincare
     from coskad_tpu_torch.interop import flatten_tree, to_jax_variables
-    from coskad_tpu_torch.kernels import stse_fused
-    from coskad_tpu_torch.kernels import stse_train as st
     from coskad_tpu_torch.serve import AnomalyScorer
     from coskad_tpu_torch.train import checkpoint
     from coskad_tpu_torch.train.loop import Trainer
@@ -2368,17 +2405,13 @@ def paper_run(card, root):
         return state
 
     dev = ["--device", DEVICE]
-    counters = dict(stse_fused=stse_fused.launches, stse_train_forward=st.forward_launches,
-                    stse_train_layer_backward=st.layer_backward_launches,
-                    stse_train_top_backward=st.top_backward_launches,
-                    stse_train_mono_backward=st.mono_backward_launches)
+    counters = launch_counters()
     runs, launches = {}, {}
     Trainer.train_epoch, Trainer.apply_epoch_updates = timed_epoch, kept_center
     try:
         for key in runs_of:
             # --- one configuration through the command line, counted ---
-            for c in counters.values():
-                c.value = 0
+            zero(counters)
             path = configs[key]["resumed"]
             first = train_cli.main(["--config", path, "--epochs", "2", *dev])
             resumed = train_cli.main(["--config", path, "--epochs", "3", "--resume", *dev])
@@ -2391,7 +2424,7 @@ def paper_run(card, root):
             # file's batch, so the module route sums them in the same shapes)
             windows = load_split(scorer.cfg, "test", stride=1, scaler=scorer.scaler).data
             served = scorer.score_windows(windows[:CLI_SERVED])
-            launches[key] = {k: c.value for k, c in counters.items()}
+            launches[key] = read(counters)
             # --- end of the counted run ---
             runs[key] = dict(first=first, resumed=resumed, ev=ev, served=served,
                              load_ms=load_ms, epochs=len(epoch_s))
@@ -2678,8 +2711,6 @@ def variants_run(card, root):
     from coskad_tpu_torch.cli import train as train_cli
     from coskad_tpu_torch.cli.common import load_config, load_split
     from coskad_tpu_torch.interop import flatten_tree, to_jax_variables
-    from coskad_tpu_torch.kernels import stse_fused
-    from coskad_tpu_torch.kernels import stse_train as st
     from coskad_tpu_torch.serve import AnomalyScorer
     from coskad_tpu_torch.train.loop import Trainer
 
@@ -2703,17 +2734,13 @@ def variants_run(card, root):
         return out
 
     dev = ["--device", DEVICE]
-    counters = dict(stse_fused=stse_fused.launches, stse_train_forward=st.forward_launches,
-                    stse_train_layer_backward=st.layer_backward_launches,
-                    stse_train_top_backward=st.top_backward_launches,
-                    stse_train_mono_backward=st.mono_backward_launches)
+    counters = launch_counters()
     runs, launches = {}, {}
     Trainer.train_epoch = timed_epoch
     try:
         for key in runs_of:
             # --- one file through the command line, counted ---
-            for c in counters.values():
-                c.value = 0
+            zero(counters)
             path = configs[key]["resumed"]
             first = train_cli.main(["--config", path, "--epochs", "2", *dev])
             resumed = train_cli.main(["--config", path, "--epochs", "3", "--resume", *dev])
@@ -2724,7 +2751,7 @@ def variants_run(card, root):
             scorer = AnomalyScorer.from_checkpoint(best, device=DEVICE)
             windows = load_split(scorer.cfg, "test", stride=1, scaler=scorer.scaler).data
             served = scorer.score_windows(windows[:CLI_SERVED])
-            launches[key] = {k: c.value for k, c in counters.items()}
+            launches[key] = read(counters)
             # --- end of the counted run ---
             runs[key] = dict(first=first, resumed=resumed, evals=evals, served=served)
             if "straight" in configs[key]:
@@ -2813,16 +2840,532 @@ def variants_run(card, root):
     return summary
 
 
+# config/HR-STC/euclidean_encoder.yaml with only the paths (and the dtype, and
+# these keys) replaced: (label, float32, changes)
+ENCODER_FILE = "HR-STC/euclidean_encoder"
+ENCODER_VARIANTS = (
+    ("st_gcn", True, dict(encoder_type="st_gcn")),
+    ("learnable_gcn", True, dict(encoder_type="learnable_gcn")),
+    ("static_gcn", True, dict(encoder_type="static_gcn")),
+    ("cnn", True, dict(encoder_type="cnn")),
+    ("sts_gcn.dropout", True, dict(dropout=0.1)),
+    ("st_gcn.bfloat16", False, dict(encoder_type="st_gcn")),
+)
+ENCODER_EPOCHS = 2
+DROPOUT_SAMPLES = 1 << 22  # elements of the mask check on the card
+CPU_CHECK_WINDOWS = 256  # eval latents on the card against the CPU's
+
+
+def phase_encoders(card):
+    """The other encoders and train-mode dropout: float32 copies of
+    config/HR-STC/euclidean_encoder.yaml with each encoder_type, and the
+    sts_gcn file with dropout 0.1, plus the file as written (bf16) with
+    st_gcn, through cli.train and cli.eval over the paper phase's
+    17-keypoint tree, in a temporary directory removed afterwards."""
+    root = tempfile.mkdtemp(prefix="coskad_encoders_")
+    t0 = time.perf_counter()
+    try:
+        summary = encoders_run(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    summary["phase_s"] = time.perf_counter() - t0
+    print(f"encoders phase: {summary['phase_s']:.1f} s")
+    return summary
+
+
+def latent_on_cpu(tr, x) -> dict:
+    """The trained model's eval latent on the card against the same weights
+    on the CPU (the module path), rtol 2e-4, atol 2e-5."""
+    import torch
+    from coskad_tpu_torch.models import build_model
+    from coskad_tpu_torch.train.loop import model_kwargs_from_config
+
+    cpu = build_model(**model_kwargs_from_config(tr.cfg)).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in tr.model.state_dict().items()})
+    with torch.inference_mode():
+        z = tr.model(x).cpu()
+        want = cpu(x.cpu())
+    err = float((z - want).abs().max())
+    check(bool(torch.isfinite(z).all()) and within(z, want, **TOL),
+          f"{tr.cfg.model.encoder_type}: eval latent on the card vs the CPU, max abs {err:.3e}")
+    return dict(windows=x.shape[0], max_abs_err=err)
+
+
+def k1_route_vs_module(tr, x) -> dict:
+    """The dropout copy's eval on the card: K1's route (one launch) against
+    the module route on the same weights, rtol 2e-4, atol 2e-5 element by
+    element, and each route's time."""
+    import torch
+    from coskad_tpu_torch.kernels import stse_fused
+
+    model = tr.model
+    check(model.kernel_takes(), "K1 does not take the dropout copy")
+    with torch.inference_mode():
+        before = stse_fused.launches.value
+        got = model(x)
+        check(stse_fused.launches.value == before + 1, "the K1 route launched K1 "
+              f"{stse_fused.launches.value - before} times for one batch")
+        with module_route(model):
+            want = model(x)
+        check(stse_fused.launches.value == before + 1, "the module route launched K1")
+        err = float((got - want).abs().max())
+        check(within(got, want, **TOL), f"dropout copy: K1 route vs module route max abs "
+                                        f"{err:.3e}")
+        runs = {}
+        for _ in range(2):  # in turns
+            runs.setdefault("k1_route", []).append(cuda_ms(lambda: model(x), iters=10, warmup=2))
+            with module_route(model):
+                runs.setdefault("module_route", []).append(
+                    cuda_ms(lambda: model(x), iters=10, warmup=2))
+    return dict(batch=x.shape[0], max_abs_err=err, ms={k: min(v) for k, v in runs.items()},
+                runs_ms=runs)
+
+
+TCONV_REL_TOL = 2e-5  # of the float64 output's scale: float32 sums; TF32 errs ~1e-3
+
+
+def temporal_conv_on_card(batch: int = 256) -> dict:
+    """st_gcn's 9x1 temporal convolution (models/encoders.py::TemporalConv)
+    at the file's widest layer, 64 -> 64 channels over 12 frames x 17 joints,
+    on the card at PyTorch's default flags: values and gradients of `batch`
+    windows against float64 on the CPU, each error over the float64 value's
+    largest magnitude within TCONV_REL_TOL; cuDNN's conv2d on the same inputs
+    at the default flags (TF32) for comparison, reported only. At B=2048 the
+    forward and the forward + backward (every gradient), CUDA events, of the
+    module, of cuDNN's conv2d at the default flags and of cuDNN's conv2d with
+    TF32 off for the timing alone (the flag restored after it): timed only,
+    never called by the port."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+    from coskad_tpu_torch.models.encoders import TemporalConv
+
+    gen = torch.Generator().manual_seed(17)
+    conv = TemporalConv(64, 64)
+    conv.reset_parameters(gen)
+    with torch.no_grad():
+        conv.bias.uniform_(-0.5, 0.5, generator=gen)
+    h = torch.randn(TRAIN_BATCH, 12, 17, 64, generator=gen)
+    r = torch.randn(batch, 12, 17, 64, generator=gen)
+
+    def cudnn(x):
+        return F.conv2d(x.permute(0, 3, 1, 2), card.kernel.permute(3, 2, 0, 1), card.bias,
+                        padding=(4, 0)).permute(0, 2, 3, 1)
+
+    def run(fn, params, x, rr):
+        x = x.clone().requires_grad_(True)
+        out = fn(x)
+        grads = torch.autograd.grad((out * rr).sum(), [x, *params])
+        return [t.detach() for t in (out, *grads)]
+
+    card = copy.deepcopy(conv).to(DEVICE)
+    params = [card.kernel, card.bias]
+    f64 = copy.deepcopy(conv).double()
+    want = run(f64, [f64.kernel, f64.bias], h[:batch].double(), r.double())
+    got = run(card, params, h[:batch].to(DEVICE), r.to(DEVICE))
+    names = ("out", "d_input", "d_kernel", "d_bias")
+    rel = {n: float((g.cpu().double() - w).abs().max() / w.abs().max())
+           for n, g, w in zip(names, got, want)}
+    check(all(np.isfinite(v) and v <= TCONV_REL_TOL for v in rel.values()),
+          f"TemporalConv on the card vs float64: relative errors {rel} (limit {TCONV_REL_TOL})")
+    with torch.no_grad():
+        lib = cudnn(h[:batch].to(DEVICE)).cpu().double()
+    x = h.to(DEVICE)
+    rr = torch.randn(x.shape, generator=gen).to(DEVICE)
+    tf32_default = torch.backends.cudnn.allow_tf32
+    ms = {}
+    for name, fn in (("module", card), ("cudnn_default", cudnn), ("cudnn_fp32", cudnn)):
+        torch.backends.cudnn.allow_tf32 = tf32_default and name != "cudnn_fp32"
+        try:
+            with torch.no_grad():
+                fwd = cuda_ms(lambda: fn(x), iters=10, warmup=2)
+            ms[name] = dict(forward=fwd, forward_backward=cuda_ms(
+                lambda: run(fn, params, x, rr), iters=10, warmup=2))
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32_default
+    return dict(batch=batch, rel_err=rel, tol=TCONV_REL_TOL, cudnn_allow_tf32=tf32_default,
+                cudnn_rel_err=float((lib - want[0]).abs().max() / want[0].abs().max()),
+                ms_at_2048=ms)
+
+
+def dropout_on_card() -> dict:
+    """models/stsgcn.py::dropout on a CUDA tensor with a CUDA generator, at
+    rates 0.1 and 0.5: the kept share within 4 standard deviations of
+    1 - rate, each kept value exactly x / (1 - rate), one seed's mask twice."""
+    import torch
+    from coskad_tpu_torch.models.stsgcn import dropout
+
+    x = torch.randn(DROPOUT_SAMPLES, generator=torch.Generator().manual_seed(12)).to(DEVICE)
+    out = {}
+    for rate in (0.1, 0.5):
+        def draw():
+            return dropout(x, rate, True, torch.Generator(device=DEVICE).manual_seed(13))
+
+        y, again = draw(), draw()
+        keep = y != 0
+        kept, n = int(keep.sum()), x.numel()
+        keep_prob = 1.0 - rate
+        sigma = (n * keep_prob * rate) ** 0.5
+        exact = torch_equal(y[keep], x[keep] / np.float32(keep_prob))
+        check(y.is_cuda and abs(kept - n * keep_prob) <= 4 * sigma and exact
+              and torch_equal(y, again),
+              f"dropout on the card, rate {rate}: kept {kept} of {n} (mean {n * keep_prob:.0f}, "
+              f"sigma {sigma:.0f}), kept values exact {exact}")
+        out[str(rate)] = dict(kept=kept, n=n, sigmas_off=(kept - n * keep_prob) / sigma)
+    return out
+
+
+def encoders_run(card, root):
+    import dataclasses
+
+    import torch
+    from coskad_tpu_torch.cli import eval as eval_cli
+    from coskad_tpu_torch.cli import train as train_cli
+    from coskad_tpu_torch.cli.common import load_config
+    from coskad_tpu_torch.models import build_model
+    from coskad_tpu_torch.train.loop import Trainer, model_kwargs_from_config
+
+    trees = write_paper_trees(root, np.random.default_rng(8))
+    configs = {key: paper_config(ENCODER_FILE, trees, os.path.join(root, "runs", key),
+                                 float32=f32, changes=changes)[0]
+               for key, f32, changes in ENCODER_VARIANTS}
+    epoch_s = []
+    inner_epoch = Trainer.train_epoch
+
+    def timed_epoch(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner_epoch(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        epoch_s.append((self.cfg.ckpt_dir, time.perf_counter() - t))
+        return out
+
+    dev = ["--device", DEVICE]
+    counters = launch_counters()
+    runs, launches = {}, {}
+    Trainer.train_epoch = timed_epoch
+    try:
+        for key, path in configs.items():
+            # --- one variant through the command line, counted ---
+            zero(counters)
+            trained = train_cli.main(["--config", path, "--epochs", str(ENCODER_EPOCHS), *dev])
+            best = os.path.join(load_config(path).ckpt_dir, "best.ckpt")
+            ev = eval_cli.main(["--config", path, "--ckpt", best, *dev])
+            launches[key] = read(counters)
+            # --- end of the counted run ---
+            runs[key] = dict(trained=trained, ev=ev)
+    finally:
+        Trainer.train_epoch = inner_epoch
+
+    summary = dict(card=card, launches=launches, predicted_launches={}, configs={})
+    for key, f32, changes in ENCODER_VARIANTS:
+        trained, ev = runs[key]["trained"], runs[key]["ev"]
+        tr = trained.trainer
+        cfg = tr.cfg
+        batches = lambda n: -(-n // cfg.data.batch_size)  # noqa: E731
+        n_train, n_val, n_test = len(tr.train_ds), len(tr.val_ds), len(ev.window_scores)
+        sts = cfg.model.encoder_type == "sts_gcn"
+        # K1: the dropout copy's center init, each validation and cli.eval; the
+        # other encoders have no kernel (nor in JAX); no variant trains on K2-K5
+        k1 = batches(n_train) + ENCODER_EPOCHS * batches(n_val) + batches(n_test) if sts else 0
+        want = dict(stse_fused=k1, stse_train_forward=0, stse_train_layer_backward=0,
+                    stse_train_top_backward=0, stse_train_mono_backward=0)
+        summary["predicted_launches"][key] = want
+        check(launches[key] == want, f"encoders {key}: launches {launches[key]}, predicted {want}")
+        check(cfg.model.encoder_type == changes.get("encoder_type", "sts_gcn")
+              and cfg.model.dropout == changes.get("dropout", 0.0)
+              and cfg.model.projector == "mlp" and cfg.data.n_joints == 17
+              and cfg.data.batch_size == TRAIN_BATCH and not tr._fused_compat
+              and tr.model.kernel_takes() == (sts and f32)
+              and cfg.run.compute_dtype == ("float32" if f32 else "bfloat16"),
+              f"{key}: not the HR-STC euclidean file at 17 joints with its encoder and dtype")
+        check(len(trained.loss) == ENCODER_EPOCHS and all(np.isfinite(trained.loss)),
+              f"{key}: losses {trained.loss}")
+        check(np.isfinite(ev.result.auc) and 0.0 <= ev.result.auc <= 1.0,
+              f"{key}: cli.eval AUC {ev.result.auc}")
+        x = tr._gather(tr.val_data, torch.arange(TRAIN_BATCH, device=DEVICE))
+        rec = dict(encoder_type=cfg.model.encoder_type, dropout=cfg.model.dropout,
+                   compute_dtype=cfg.run.compute_dtype, train_items=n_train, val_items=n_val,
+                   test_items=n_test, losses=trained.loss, auc=ev.result.auc,
+                   validation_auc=trained.validation_auc,
+                   scoring_windows_per_s=n_test / ev.wall_s["scoring"], eval_wall_s=ev.wall_s,
+                   train_windows_per_s=[(n_train // cfg.data.batch_size) * cfg.data.batch_size
+                                        / t for d, t in epoch_s if d == cfg.ckpt_dir],
+                   card_vs_cpu=latent_on_cpu(tr, x[:CPU_CHECK_WINDOWS]))
+        if sts:  # after the counted runs: these launches are not the path's
+            rec["k1_route"] = k1_route_vs_module(tr, x)
+        if not f32:  # the other encoders stay float32 at bf16: the float32 model's bits
+            f32_model = build_model(**model_kwargs_from_config(dataclasses.replace(
+                cfg, run=dataclasses.replace(cfg.run, compute_dtype="float32"))))
+            f32_model = f32_model.to(DEVICE).eval()
+            f32_model.load_state_dict(tr.model.state_dict())
+            with torch.inference_mode():
+                same = torch_equal(tr.model(x), f32_model(x))
+            check(tr.model.dtype == torch.bfloat16 and same,
+                  f"{key}: the bf16 config's st_gcn model is not the float32 model's bits")
+            rec["bf16_equals_float32"] = same
+        rec["step_peak_bytes"] = step_peak_bytes(tr, trained.state)
+        summary["configs"][key] = rec
+    summary["dropout"] = dropout_on_card()
+    summary["temporal_conv"] = temporal_conv_on_card()
+    summary["launches_total"] = {k: sum(v[k] for v in launches.values()) for k in counters}
+    for key, c in summary["configs"].items():
+        extra = ""
+        if "k1_route" in c:
+            e = c["k1_route"]
+            extra = (f"; K1 route vs module route max abs {e['max_abs_err']:.3e}, eval of "
+                     f"{e['batch']} windows K1 route {e['ms']['k1_route']:.3f} ms, module route "
+                     f"{e['ms']['module_route']:.3f} ms")
+        print(f"encoders {key} ({c['compute_dtype']}): train windows/s by epoch "
+              f"{[round(v) for v in c['train_windows_per_s']]}; scoring windows/s "
+              f"{c['scoring_windows_per_s']:.0f}; AUC {c['auc']:.4f}; losses {c['losses']}; "
+              f"step peak above resident {c['step_peak_bytes']} B; card vs CPU latent max abs "
+              f"{c['card_vs_cpu']['max_abs_err']:.3e}; K1 launches "
+              f"{launches[key]['stse_fused']}{extra}; on {card}")
+    print(f"encoders: launches {launches} (as predicted); dropout on the card "
+          + json.dumps(summary["dropout"]) + f"; on {card}")
+    print("encoders: st_gcn's temporal conv on the card vs float64 "
+          + json.dumps(summary["temporal_conv"]) + f"; on {card}")
+    return summary
+
+
+STREAM_FRAMES, STREAM_ACTORS = 2400, 3
+STREAM_MIN_BATCH = 256
+STREAM_HORIZON = 512  # frames: past the emission lag of 256-window batches over 3 actors
+STREAM_FRAMES_A_REQUEST = 64
+
+
+def phase_streaming(card):
+    """The streaming scorer and the HTTP server over a float32 flagship
+    checkpoint (cli.train, one epoch over the cli phase's tree), in a
+    temporary directory removed afterwards."""
+    root = tempfile.mkdtemp(prefix="coskad_streaming_")
+    t0 = time.perf_counter()
+    try:
+        summary = streaming_run(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    summary["phase_s"] = time.perf_counter() - t0
+    print(f"streaming phase: {summary['phase_s']:.1f} s")
+    return summary
+
+
+def clip_frames(path):
+    """{frame key: {person: [V, 3]}} of a clip JSON, the frames a camera's
+    tracker hands over one at a time."""
+    with open(path) as f:
+        clip = json.load(f)
+    by_frame = {}
+    for pid, traj in clip.items():
+        for fk, entry in traj.items():
+            by_frame.setdefault(int(fk), {})[int(pid)] = np.asarray(
+                entry["keypoints"], np.float64).reshape(-1, 3)
+    return dict(sorted(by_frame.items()))
+
+
+def http_json(url, method="GET", body=None, ctype="application/json"):
+    import urllib.request
+
+    data = body if body is None or isinstance(body, bytes) else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method, headers={"Content-Type": ctype})
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        check(resp.status == 200, f"{method} {url}: HTTP {resp.status}")
+        return json.loads(resp.read())
+
+
+def streaming_run(card, root):
+    import io
+    import threading
+
+    import torch
+    from coskad_tpu_torch.cli import train as train_cli
+    from coskad_tpu_torch.cli.common import load_config
+    from coskad_tpu_torch.data.alphapose import parse_clip_json
+    from coskad_tpu_torch.data.windows import segment_clip
+    from coskad_tpu_torch.http_server import ScoringService, build_server
+    from coskad_tpu_torch.serve import AnomalyScorer
+    from coskad_tpu_torch.streaming import StreamingScorer
+
+    configs = write_cli_tree(root, np.random.default_rng(9))
+    train_cli.main(["--config", configs["resumed"], "--epochs", "1", "--device", DEVICE])
+    ckpt = os.path.join(load_config(configs["resumed"]).ckpt_dir, "best.ckpt")
+    clip = os.path.join(root, "stream_clip.json")
+    write_clip_json(clip, np.random.default_rng(10), STREAM_FRAMES, n_actors=STREAM_ACTORS,
+                    anomalous=(1200, 1400))
+    frames = clip_frames(clip)
+    counters = launch_counters()
+
+    drains = []  # (stream, windows scored, seconds) of every drain, the server's too
+    inner_drain = StreamingScorer._drain
+
+    def timed_drain(self):  # preprocessing and scoring of the buffered windows
+        n = len(self._pending_raw)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        inner_drain(self)
+        torch.cuda.synchronize()
+        drains.append((self, n, time.perf_counter() - t))
+
+    def stream(horizon=None):
+        s = StreamingScorer(scorer, min_batch=STREAM_MIN_BATCH, horizon=horizon)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for fk, poses in frames.items():
+            s.push(fk, poses)
+        out = s.flush()
+        torch.cuda.synchronize()
+        return s, out, time.perf_counter() - t
+
+    # --- the serving path, counted ---
+    zero(counters)
+    StreamingScorer._drain = timed_drain
+    try:
+        scorer = AnomalyScorer.from_checkpoint(ckpt, device=DEVICE)
+        cfg = scorer.cfg
+        check(cfg.model.encoder_type == "sts_gcn" and cfg.model.projector == "linear"
+              and cfg.data.n_joints == 18 and cfg.run.compute_dtype == "float32"
+              and cfg.eval.pad_size == -1 and scorer.trainer.model.kernel_takes(),
+              "the streaming model is not the float32 flagship at 18 joints on K1")
+        offline = scorer.score_clip_json(clip)
+        unbounded, online, stream_s = stream()
+        rolled, rolled_out, rolled_s = stream(STREAM_HORIZON)
+
+        service = ScoringService(scorer=scorer, source=ckpt)
+        server = build_server(service, port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            windows = np.random.default_rng(11).normal(
+                size=(TRAIN_BATCH, 3, cfg.data.seg_len, cfg.data.n_joints)).astype(np.float32)
+            buf = io.BytesIO()
+            np.save(buf, windows)
+            windows_ms, clip_ms = [], []
+            for _ in range(3):  # the first request also starts the handler thread's libraries
+                t = time.perf_counter()
+                by_http = http_json(url + "/v1/score/windows", "POST", buf.getvalue(),
+                                    "application/x-npy")["scores"]
+                windows_ms.append((time.perf_counter() - t) * 1e3)
+            with open(clip, "rb") as f:
+                body = f.read()
+            for _ in range(2):
+                t = time.perf_counter()
+                clip_http = http_json(url + "/v1/score/clip", "POST", body)["scores"]
+                clip_ms.append((time.perf_counter() - t) * 1e3)
+            sid = http_json(url + "/v1/streams", "POST",
+                            {"min_batch": STREAM_MIN_BATCH})["stream_id"]
+            keys = list(frames)
+            latency_ms = []
+            t0 = time.perf_counter()
+            for i in range(0, len(keys), STREAM_FRAMES_A_REQUEST):
+                chunk = [{"frame": fk,
+                          "poses": {str(p): kp.tolist() for p, kp in frames[fk].items()}}
+                         for fk in keys[i:i + STREAM_FRAMES_A_REQUEST]]
+                t = time.perf_counter()
+                resp = http_json(url + f"/v1/streams/{sid}/frames", "POST", {"frames": chunk})
+                latency_ms.append((time.perf_counter() - t) * 1e3)
+                check(resp["applied"] == len(chunk), f"stream request {i}: {resp}")
+            t = time.perf_counter()
+            session = http_json(url + f"/v1/streams/{sid}/flush", "POST")["scores"]
+            latency_ms.append((time.perf_counter() - t) * 1e3)
+            session_s = time.perf_counter() - t0
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        torch.cuda.synchronize()
+        launches = read(counters)
+    finally:
+        StreamingScorer._drain = inner_drain
+    # --- end of the counted run ---
+    check(not thread.is_alive(), "the server thread did not stop")
+
+    # K1: one launch a batch of the config's size (Trainer._chunked_indices) in
+    # each scoring call: the offline clip and the 2 clip requests, the 3
+    # window requests, every drain that had windows (the two streams', the
+    # session's); each stream scores each of the clip's windows once
+    d = cfg.data
+    n_clip = len(segment_clip(parse_clip_json(clip, d.kp_threshold), 0, 0, d.start_offset, 1,
+                              d.seg_len)[1])
+    batches = lambda n: -(-n // d.batch_size)  # noqa: E731
+    sizes = {}
+    for owner, n, _ in drains:
+        label = ("unbounded" if owner is unbounded else "horizon" if owner is rolled
+                 else "session")
+        sizes.setdefault(label, []).append(n)
+    k1 = (3 * batches(n_clip) + 3 * batches(TRAIN_BATCH)
+          + sum(batches(n) for v in sizes.values() for n in v if n))
+    want = dict(stse_fused=k1, stse_train_forward=0, stse_train_layer_backward=0,
+                stse_train_top_backward=0, stse_train_mono_backward=0)
+    check(launches == want, f"streaming: launches {launches}, predicted {want} (the clip's "
+                            f"{n_clip} windows; drains {sizes})")
+    check(len(sizes) == 3 and all(sum(v) == n_clip for v in sizes.values()),
+          f"streaming: the three streams' drains scored {[sum(v) for v in sizes.values()]} "
+          f"windows, the clip has {n_clip}")
+    drain_s = [s for owner, _, s in drains if owner is unbounded]
+
+    def diff(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        check(a.shape == b.shape, f"shapes {a.shape} and {b.shape}")
+        return float(np.abs(a - b).max())
+
+    def close(a, b):
+        return bool(np.allclose(np.asarray(a), np.asarray(b), **SCORE_TOL))
+
+    errs = dict(flush_vs_offline=diff(online, offline),
+                rolled_vs_unbounded=diff(rolled_out, online),
+                http_windows_vs_library=diff(by_http, scorer.score_windows(windows)),
+                http_clip_vs_library=diff(clip_http, offline),
+                http_stream_vs_library=diff(session, online))
+    check(online.shape == offline.shape and np.isfinite(online).all() and close(online, offline),
+          f"stream flush vs score_clip_json on the card: max abs {errs['flush_vs_offline']:.3e}")
+    check(rolled._frozen_upto > STREAM_FRAMES // 2 and close(rolled_out, online),
+          f"rolling GC (horizon {STREAM_HORIZON}) vs the unbounded stream: max abs "
+          f"{errs['rolled_vs_unbounded']:.3e}, frozen up to {rolled._frozen_upto}")
+    check(errs["http_windows_vs_library"] == 0.0 and errs["http_clip_vs_library"] == 0.0,
+          f"the server's scores differ from the library's: {errs}")
+    check(close(session, online), f"the server's stream vs the library's: {errs}")
+    n_windows = unbounded.n_windows_scored
+    lat = np.asarray(latency_ms)
+    summary = dict(
+        card=card, frames=len(frames), actors=STREAM_ACTORS, windows=n_windows,
+        min_batch=STREAM_MIN_BATCH, horizon=STREAM_HORIZON, errors=errs,
+        flush_exact=errs["flush_vs_offline"] == 0.0,
+        rolled_exact=errs["rolled_vs_unbounded"] == 0.0,
+        stream_frames_per_s=len(frames) / stream_s, rolled_frames_per_s=len(frames) / rolled_s,
+        stream_s=stream_s, drains=len(drain_s), drain_s=sum(drain_s),
+        http_windows_ms=windows_ms, http_clip_ms=clip_ms,
+        http_stream_frames_per_s=len(frames) / session_s,
+        http_request_ms_p50=float(np.percentile(lat, 50)),
+        http_request_ms_p99=float(np.percentile(lat, 99)), http_requests=len(lat),
+        launches=launches, predicted_launches=want, clip_windows=n_clip, drain_windows=sizes)
+    print(f"streaming: {len(frames)} frames x {STREAM_ACTORS} actors, {n_windows} windows at "
+          f"min_batch {STREAM_MIN_BATCH}: {summary['stream_frames_per_s']:.0f} frames/s "
+          f"({len(drain_s)} drains {sum(drain_s):.3f} s of {stream_s:.3f} s; horizon "
+          f"{STREAM_HORIZON}: {summary['rolled_frames_per_s']:.0f}); flush vs "
+          f"score_clip_json max abs {errs['flush_vs_offline']:.3e} (exact "
+          f"{summary['flush_exact']}), rolled vs unbounded {errs['rolled_vs_unbounded']:.3e}; "
+          f"server: {TRAIN_BATCH} windows {[round(v, 1) for v in windows_ms]} ms, a clip "
+          f"{[round(v, 1) for v in clip_ms]} ms, a stream of {STREAM_FRAMES_A_REQUEST} frames "
+          f"a request {summary['http_stream_frames_per_s']:.0f} frames/s, request p50 "
+          f"{summary['http_request_ms_p50']:.2f} ms p99 {summary['http_request_ms_p99']:.2f} ms; "
+          f"errors {errs}; launches {launches} (as predicted; drains of "
+          f"{ {k: len(v) for k, v in sizes.items()} }, the clip {n_clip} windows); on {card}")
+    return summary
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("kernels", "products", "cli", "paper", "bf16",
-                                       "variants"),
+                                       "variants", "encoders", "streaming"),
                     default=None,
                     help="run only the environment and kernel phases, or only the product "
                          "check, or only the cli, the paper, the bf16 (the bf16 kernel check "
-                         "and the bf16 fit) or the variants phase (no result line)")
+                         "and the bf16 fit), the variants, the encoders or the streaming phase "
+                         "(no result line)")
     args = ap.parse_args(argv)
     card, build_s = phase_environment()
     import torch
@@ -2843,11 +3386,13 @@ def main(argv=None) -> int:
         phase_bf16_kernels(card)
         phase_train_bf16(card)
         return 0
-    if args.only == "variants":
-        variants = phase_variants(card)
+    if args.only in ("variants", "encoders", "streaming"):
+        phase = dict(variants=phase_variants, encoders=phase_encoders,
+                     streaming=phase_streaming)[args.only]
+        summary = phase(card)
         os.makedirs(OUT_DIR, exist_ok=True)
-        with open(os.path.join(OUT_DIR, "chip_smoke_variants.json"), "w") as f:
-            json.dump(variants, f, indent=1)
+        with open(os.path.join(OUT_DIR, f"chip_smoke_{args.only}.json"), "w") as f:
+            json.dump(summary, f, indent=1)
         return 0
 
     wall = {}
@@ -2871,20 +3416,29 @@ def main(argv=None) -> int:
     cli = timed("cli", phase_cli, card)
     paper = timed("paper", phase_paper, card)
     variants = timed("variants", phase_variants, card)
+    encoders = timed("encoders", phase_encoders, card)
+    streaming = timed("streaming", phase_streaming, card)
     print(f"phase wall s: {json.dumps(dict(build=round(build_s, 1), **wall))}")
     kernel["launches_by_path"] = dict(serving=summary["launches"]["stse_fused"],
-                                      training=train["launches"]["stse_fused"], mono=0,
+                                      training=train["launches"]["stse_fused"],
+                                      mono=mono["launches"]["stse_fused"],
                                       cli=cli["launches"]["stse_fused"],
                                       paper=paper["launches_total"]["stse_fused"],
                                       training_bf16=train_bf16["launches"]["stse_fused"],
-                                      variants=variants["launches_total"]["stse_fused"])
+                                      variants=variants["launches_total"]["stse_fused"],
+                                      encoders=encoders["launches_total"]["stse_fused"],
+                                      streaming=streaming["launches"]["stse_fused"])
+    check(all(kernel["launches_by_path"][p] > 0 for p in ("encoders", "streaming")),
+          f"K1 by path {kernel['launches_by_path']}: none on the encoders or streaming path")
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     for rec in train_kernels + [mono_kernel]:
-        by_path = dict(serving=0, training=train["launches"].get(rec["name"], 0),
+        by_path = dict(serving=0, training=train["launches"][rec["name"]],
                        mono=mono["launches"][rec["name"]],
-                       cli=cli["launches"].get(rec["name"], 0),
+                       cli=cli["launches"][rec["name"]],
                        paper=paper["launches_total"][rec["name"]],
-                       variants=variants["launches_total"][rec["name"]])
+                       variants=variants["launches_total"][rec["name"]],
+                       encoders=encoders["launches_total"][rec["name"]],
+                       streaming=streaming["launches"][rec["name"]])
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     for rec in bf16_kernels:  # the bf16 form's own paths: the bf16 fit and mono run
@@ -2899,7 +3453,8 @@ def main(argv=None) -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, build_s=build_s, kernels=kernels, products=products,
                        slice=summary, train=train, train_bf16=train_bf16, mono=mono, cli=cli,
-                       paper=paper, variants=variants, phase_wall_s=wall), f, indent=1)
+                       paper=paper, variants=variants, encoders=encoders, streaming=streaming,
+                       phase_wall_s=wall), f, indent=1)
     keys = ("name", "route", "source", "replaces", "compute_dtype", "launches", "max_abs_err",
             "tolerance", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "product_ms")

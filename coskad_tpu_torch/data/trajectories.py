@@ -7,7 +7,7 @@ bounding boxes with 10% margins, global (bbox centre + size) and local
 sliding-window aggregation with frame subsampling, and three scaling
 strategies with exact-zero -> NaN missing-value masking. CSVs are read with
 `numpy.loadtxt`; the JAX package's native C++ reader is not ported
-(ROADMAP.md, Queue 1 item 2).
+(ROADMAP.md, Queue 1 item 7).
 
 Window semantics: windows hop by ONE frame; `seg_stride` becomes an
 intra-window frame gap (step = stride, window span = L + (stride-1) * (L-1)).

@@ -11,11 +11,21 @@ joined by '.' is the port's `state_dict` key:
     params/rev_btlnk/kernel                  ->  rev_btlnk.kernel   (STSAE, STSVAE)
     params/decoder/layer_3/tcn_dense/kernel  ->  decoder.layer_3.tcn_dense.kernel
     params/fc_mean/kernel                    ->  fc_mean.kernel     (STSVAE)
+    params/encoder/edge_importance_0         ->  encoder.edge_importance_0   (st_gcn)
+    batch_stats/encoder/data_bn/mean         ->  encoder.data_bn.mean
+    params/encoder/layer_0/tconv/kernel      ->  encoder.layer_0.tconv.kernel [9, 1, C_in, C_out]
+    params/encoder/layer_0/bn1/scale         ->  encoder.layer_0.bn1.scale   (also gcn_dense,
+                                                 residual_dense, residual_bn, bn2)
+    params/encoder/adj_0                     ->  encoder.adj_0               (learnable_gcn)
+    params/encoder/layer_0/weight            ->  encoder.layer_0.weight      (learnable_gcn,
+                                                 static_gcn; and bias)
+    params/encoder/dense_0/kernel            ->  encoder.dense_0.kernel      (cnn; bn_0.*)
 
-Dense kernels keep flax's [fan_in, features] layout and the projector keeps
-its (T, V, C) flatten order, so no array is transposed on the way, in
-either direction (`load_jax_variables`, `to_jax_variables`). Every array is
-matched by its name, never by its position in a tree.
+Dense kernels keep flax's [fan_in, features] layout, the temporal
+convolution its [k, 1, C_in, C_out] kernel and the projector its (T, V, C)
+flatten order, so no array is transposed on the way, in either direction
+(`load_jax_variables`, `to_jax_variables`). Every array is matched by its
+name, never by its position in a tree.
 """
 
 from __future__ import annotations

@@ -1,38 +1,45 @@
 """STSE / STSAE / STSVAE: the COSKAD model family (PyTorch).
 
-Counterpart of `coskad_tpu/models/stse.py` with the `sts_gcn` encoder and
-the linear or the MLP projector: `STSE` (encoder and projector to the
-latent), `STSAE` (plus a mirrored STS-GCN decoder; forward -> (latent,
-reconstruction)) and `STSVAE` (PowerSpherical or diagonal-Normal latent
-heads on the hidden state, then the decoder; forward -> (sample,
-reconstruction, (mean, var))). I/O is the reference's NCTV layout
+Counterpart of `coskad_tpu/models/stse.py`, with every encoder of the
+registry (`encoders.make_encoder`: `sts_gcn`, `st_gcn`, `learnable_gcn`,
+`static_gcn`, `cnn`) and the linear or the MLP projector: `STSE` (encoder
+and projector to the latent), `STSAE` (plus a mirrored STS-GCN decoder;
+forward -> (latent, reconstruction)) and `STSVAE` (PowerSpherical or
+diagonal-Normal latent heads on the hidden state, then the decoder; forward
+-> (sample, reconstruction, (mean, var))); the decoder variants take the
+`sts_gcn` encoder only, as in JAX. I/O is the reference's NCTV layout
 [B, C, T, V]; the projector and the VAE heads read the hidden state
 flattened in (T, V, C) order.
 
 The eval forward takes the encoder's hidden state on one of two routes
 (`eval_uses_kernel`):
   * the fused encoder kernel K1 (`kernels/stse_fused.py`), for an input on
-    the card, compute dtype float32 and a layout K1's planner takes
-    (`STSE.kernel_takes`): weights folded once and cached until a tensor
-    the fold reads changes, then the projector, the VAE heads, the reverse
-    projector and the decoder as modules in eval mode; the kernel has no
-    backward, so this route raises where autograd would record it;
+    the card, the `sts_gcn` encoder, compute dtype float32 and a layout
+    K1's planner takes (`STSE.kernel_takes`): weights folded once and
+    cached until a tensor the fold reads changes, then the projector, the
+    VAE heads, the reverse projector and the decoder as modules in eval
+    mode; the kernel has no backward, so this route raises where autograd
+    would record it;
   * the module path, layer by layer, everywhere else: on the CPU, at bf16
     (as JAX's eval is XLA over its modules; its K1 is float32 only), and on
-    the card for a layout K1 refuses (more than 8 layers, more than 64
-    channels a layer, activations past a block's shared memory).
+    the card for the other encoders and for a layout K1 refuses (more than
+    8 layers, more than 64 channels a layer, activations past a block's
+    shared memory).
 The train forward (`train=True`) is the module path with live BatchNorm,
 which updates the running statistics in place (see `stsgcn.py`), or with
 running statistics under `frozen_bn`, in the decoder as in the encoder.
 The MLP head's BatchNorm is live in every train forward, `frozen_bn` or
-not: the JAX model passes the head `train` alone. The ghost-BN train path
-through the K2-K4 kernels is `kernels/stse_train.py::fused_stse_apply`
-(encoder-only, linear projector).
+not: the JAX model passes the head `train` alone. Dropout (`dropout` > 0)
+acts in every train forward, `frozen_bn` or not, in the encoder and the
+decoder, with its masks drawn from `dropout_generator`; it is off in eval.
+The ghost-BN train path through the K2-K4 kernels is
+`kernels/stse_train.py::fused_stse_apply` (encoder-only, linear
+projector, no dropout).
 
-`dtype` is the JAX model's compute dtype (`models/stsgcn.py`): the encoder,
-the linear projector, the reverse projector and the decoder round where JAX
-casts, the latent is float32; the MLP head and the VAE heads are built
-without it, as in JAX, and compute in float32.
+`dtype` is the JAX model's compute dtype (`models/stsgcn.py`): the `sts_gcn`
+encoder, the linear projector, the reverse projector and the decoder round
+where JAX casts, the latent is float32; the other encoders, the MLP head and
+the VAE heads are built without it, as in JAX, and compute in float32.
 """
 
 from __future__ import annotations
@@ -46,7 +53,8 @@ from torch import nn
 
 from ..geometry.sphere import PowerSpherical
 from ..kernels import stse_fused
-from .stsgcn import _DROPOUT, Dense, MLPHead, STSGCNStack, _uniform_, rounded
+from .encoders import make_encoder
+from .stsgcn import Dense, MLPHead, STSGCNStack, _uniform_, rounded
 
 # the state K1's fold reads (`stse_fused.fold_stse_params`): its cache key
 _FOLDED = ("encoder.", "btlnk.")
@@ -134,12 +142,9 @@ class STSE(nn.Module):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute dtype {dtype} is neither float32 nor bfloat16")
         self.dtype = dtype
-        if encoder_type.lower() != "sts_gcn":
-            raise NotImplementedError(
-                f"encoder {encoder_type!r} is not ported yet (ROADMAP.md, Queue 1 item 3c)")
-        self.encoder = STSGCNStack(
-            input_dim, list(layer_channels) + [hidden_dimension], n_frames,
-            n_joints, use_bias, dtype)
+        self.encoder_type = encoder_type
+        self.encoder = make_encoder(encoder_type, input_dim, layer_channels, hidden_dimension,
+                                    n_frames, n_joints, dropout, use_bias, dtype)
         flat = hidden_dimension * n_frames * n_joints
         proj = projector.lower()
         if proj == "linear":
@@ -161,16 +166,17 @@ class STSE(nn.Module):
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
 
-    def encode(self, x: torch.Tensor, train: bool = False,
-               frozen_bn: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    def encode(self, x: torch.Tensor, train: bool = False, frozen_bn: bool = False,
+               dropout_generator: Optional[torch.Generator] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Plain path: [B, C, T, V] -> (latent [B, D], hidden [B, T, V, H])."""
-        h = self._module_hidden(x, train, frozen_bn)
+        h = self._module_hidden(x, train, frozen_bn, dropout_generator)
         return self._project(h, train), h
 
-    def _module_hidden(self, x: torch.Tensor, train: bool, frozen_bn: bool) -> torch.Tensor:
-        if train and self.dropout > 0:
-            raise NotImplementedError(_DROPOUT)
-        return self.encoder(x.permute(0, 2, 3, 1), train=train, frozen_bn=frozen_bn)
+    def _module_hidden(self, x: torch.Tensor, train: bool, frozen_bn: bool,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.encoder(x.permute(0, 2, 3, 1), train=train, frozen_bn=frozen_bn,
+                            generator=generator)
 
     def _project(self, h: torch.Tensor, train: bool) -> torch.Tensor:
         """The projector on the hidden state ([B, T, V, C] or [B, T*V, C]).
@@ -179,22 +185,26 @@ class STSE(nn.Module):
             return self.btlnk(h.reshape(h.shape[0], -1), train=train)
         return self.btlnk(h)
 
-    def _hidden(self, x: torch.Tensor, train: bool, frozen_bn: bool) -> torch.Tensor:
+    def _hidden(self, x: torch.Tensor, train: bool, frozen_bn: bool,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """The encoder's hidden state on the forward's route: [B, T, V, H]
         from the module path, [B, T*V, H] from K1 (the same flatten)."""
         if not train and eval_uses_kernel(x.is_cuda and self.kernel_takes(),
                                           [x, *self.parameters()]):
             folded, packed = self.folded()
             return stse_fused.fused_stse_hidden(x.contiguous(), folded, packed)
-        return self._module_hidden(x, train, frozen_bn)
+        return self._module_hidden(x, train, frozen_bn, generator)
 
     def kernel_takes(self) -> bool:
-        """Whether the eval forward on the card runs K1: compute dtype
-        float32 and a layout K1's planner takes (`stse_fused.takes`, asked
-        once; the layout is fixed at construction). K1 has no bf16 form, and
-        JAX's bf16 eval is XLA over its modules."""
+        """Whether the eval forward on the card runs K1: the `sts_gcn`
+        encoder (K1 is that stack; the other encoders, as in JAX, have no
+        kernel), compute dtype float32 and a layout K1's planner takes
+        (`stse_fused.takes`, asked once; the layout is fixed at
+        construction). K1 has no bf16 form, and JAX's bf16 eval is XLA over
+        its modules."""
         if self._kernel_takes is None:
-            self._kernel_takes = (self.dtype == torch.float32
+            self._kernel_takes = (self.encoder_type.lower() == "sts_gcn"
+                                  and self.dtype == torch.float32
                                   and stse_fused.takes(self.folded()[1]))
         return self._kernel_takes
 
@@ -212,9 +222,9 @@ class STSE(nn.Module):
                 self._fold_cache = (key, folded, stse_fused.pack_folded(folded))
         return self._fold_cache[1], self._fold_cache[2]
 
-    def forward(self, x: torch.Tensor, train: bool = False,
-                frozen_bn: bool = False) -> torch.Tensor:
-        return self._project(self._hidden(x, train, frozen_bn), train)
+    def forward(self, x: torch.Tensor, train: bool = False, frozen_bn: bool = False,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self._project(self._hidden(x, train, frozen_bn, dropout_generator), train)
 
 
 class STSAE(STSE):
@@ -231,22 +241,25 @@ class STSAE(STSE):
                  use_bias: bool = True, dtype: torch.dtype = torch.float32, **kwargs):
         super().__init__(input_dim, layer_channels, hidden_dimension, latent_dim, n_frames,
                          n_joints, use_bias=use_bias, dtype=dtype, **kwargs)
+        if self.encoder_type.lower() != "sts_gcn":
+            raise ValueError(f"No decoder available for encoder type {self.encoder_type!r}")
         self.rev_btlnk = ReverseProjector(hidden_dimension, n_frames, n_joints, latent_dim,
                                           dtype)
         channels = list(decoder_channels or list(layer_channels)[::-1]) + [input_dim]
         self.decoder = STSGCNStack(hidden_dimension, channels, n_frames, n_joints, use_bias,
-                                   dtype)
+                                   dtype, self.dropout)
 
-    def decode(self, z: torch.Tensor, train: bool = False,
-               frozen_bn: bool = False) -> torch.Tensor:
+    def decode(self, z: torch.Tensor, train: bool = False, frozen_bn: bool = False,
+               dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """latent [B, D] -> reconstruction [B, C_in, T, V]."""
-        return self.decoder(self.rev_btlnk(z), train=train,
-                            frozen_bn=frozen_bn).permute(0, 3, 1, 2)
+        return self.decoder(self.rev_btlnk(z), train=train, frozen_bn=frozen_bn,
+                            generator=dropout_generator).permute(0, 3, 1, 2)
 
-    def forward(self, x: torch.Tensor, train: bool = False,
-                frozen_bn: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-        z = super().forward(x, train, frozen_bn)
-        return z, self.decode(z, train, frozen_bn)
+    def forward(self, x: torch.Tensor, train: bool = False, frozen_bn: bool = False,
+                dropout_generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        z = super().forward(x, train, frozen_bn, dropout_generator)
+        return z, self.decode(z, train, frozen_bn, dropout_generator)
 
 
 class STSVAE(STSAE):
@@ -286,9 +299,11 @@ class STSVAE(STSAE):
         return super()._project(h, train)
 
     def encode_distribution(self, x: torch.Tensor, train: bool = False,
-                            frozen_bn: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                            frozen_bn: bool = False,
+                            dropout_generator: Optional[torch.Generator] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (z_mean [B, D], z_var [B, 1] for 'ps' or [B, D] for 'normal')."""
-        feat = self._project(self._hidden(x, train, frozen_bn), train)
+        feat = self._project(self._hidden(x, train, frozen_bn, dropout_generator), train)
         z_mean = self.fc_mean(feat)
         if self.distribution == "ps":
             z_mean = z_mean / torch.linalg.vector_norm(z_mean, dim=-1, keepdim=True)
@@ -296,8 +311,9 @@ class STSVAE(STSAE):
 
     def forward(self, x: torch.Tensor, train: bool = False, frozen_bn: bool = False,
                 sample: bool = True, sample_draws: Optional[Sequence[torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None):
-        z_mean, z_var = self.encode_distribution(x, train, frozen_bn)
+                generator: Optional[torch.Generator] = None,
+                dropout_generator: Optional[torch.Generator] = None):
+        z_mean, z_var = self.encode_distribution(x, train, frozen_bn, dropout_generator)
         if sample_draws is not None:
             if self.distribution == "ps":
                 z = PowerSpherical(z_mean, z_var.squeeze(-1)).sample_from_draws(*sample_draws)
@@ -314,7 +330,7 @@ class STSVAE(STSAE):
                                                  device=z_mean.device)
         else:
             z = z_mean
-        return z, self.decode(z, train, frozen_bn), (z_mean, z_var)
+        return z, self.decode(z, train, frozen_bn, dropout_generator), (z_mean, z_var)
 
 
 def build_model(use_decoder: bool = False, use_vae: bool = False, **kwargs) -> STSE:

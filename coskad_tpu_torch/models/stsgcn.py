@@ -46,7 +46,6 @@ from torch import nn
 from ..kernels.stse_fused import combined_graph_matrix
 
 BN_MOMENTUM = 0.9
-_DROPOUT = "dropout in train mode is not ported yet (ROADMAP.md, Queue 1 item 3c)"
 
 
 def rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -64,6 +63,26 @@ def _uniform_(t: torch.Tensor, bound: float, generator: Optional[torch.Generator
     CPU generator gives the same weights on every device."""
     with torch.no_grad():
         t.copy_(torch.empty(t.shape).uniform_(-bound, bound, generator=generator))
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator],
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """flax `nn.Dropout(rate, deterministic=not train)`: in train mode each
+    element is kept with probability 1 - rate and the kept ones are divided
+    by 1 - rate (that scalar at `dtype`, the result rounded to it, as jnp's
+    weak typing computes it); the identity in eval mode and at rate 0. The
+    mask is drawn from `generator`, on x's device: `F.dropout` would draw
+    from the global RNG, which no seed of the run controls."""
+    if not train or rate <= 0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode draws its mask from a torch.Generator: pass "
+                         "dropout_generator=")
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    scale = float(torch.tensor(keep_prob).to(dtype))
+    return rounded(torch.where(keep, x / scale, torch.zeros_like(x)), dtype)
 
 
 class Dense(nn.Module):
@@ -189,16 +208,19 @@ class SpaceTimeGraphConv(nn.Module):
 
 
 class STSGCNLayer(nn.Module):
-    """Graph conv -> 1x1 dense + BN, residual (dense + BN when the channel
-    count changes, identity otherwise), PReLU. [B, T, V, C_in] ->
-    [B, T, V, C_out]. Dropout is the identity in eval mode. At a bf16 dtype
-    the input, each branch and their sum are rounded (the PReLU's output is
+    """Graph conv -> 1x1 dense + BN -> dropout, residual (dense + BN when
+    the channel count changes, identity otherwise), PReLU. [B, T, V, C_in]
+    -> [B, T, V, C_out]. Dropout (`dropout`) acts in train mode, under
+    `frozen_bn` too, and is the identity in eval mode. At a bf16 dtype the
+    input, each branch and their sum are rounded (the PReLU's output is
     float32, its slope a float32 parameter)."""
 
     def __init__(self, in_channels: int, out_channels: int, time_dim: int,
-                 joints_dim: int, use_bias: bool = True, dtype: torch.dtype = torch.float32):
+                 joints_dim: int, use_bias: bool = True, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.dropout = dropout
         self.gcn = SpaceTimeGraphConv(time_dim, joints_dim, dtype)
         self.tcn_dense = Dense(in_channels, out_channels, use_bias, dtype)
         self.tcn_bn = BatchNorm(out_channels)
@@ -209,10 +231,11 @@ class STSGCNLayer(nn.Module):
             self.residual_dense = self.residual_bn = None
         self.prelu = PReLU()
 
-    def forward(self, x: torch.Tensor, train: bool = False,
-                frozen_bn: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, frozen_bn: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """train: live BatchNorm statistics (running ones updated in place);
-        frozen_bn: running statistics while training."""
+        frozen_bn: running statistics while training; `generator`: the
+        dropout mask's draws."""
         live = train and not frozen_bn
         dt = self.dtype
 
@@ -223,6 +246,7 @@ class STSGCNLayer(nn.Module):
         x = rounded(x, dt)
         res = x if self.residual_dense is None else bn(x, self.residual_dense, self.residual_bn)
         h = bn(self.gcn(x), self.tcn_dense, self.tcn_bn)
+        h = dropout(h, self.dropout, train, generator, dt)
         return self.prelu(rounded(h + res, dt))
 
 
@@ -232,19 +256,20 @@ class STSGCNStack(nn.Module):
 
     def __init__(self, in_channels: int, channel_schedule: Sequence[int],
                  time_dim: int, joints_dim: int, use_bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.n_layers = len(channel_schedule)
         c = in_channels
         for i, ch in enumerate(channel_schedule):
             self.add_module(f"layer_{i}", STSGCNLayer(c, ch, time_dim, joints_dim, use_bias,
-                                                      dtype))
+                                                      dtype, dropout))
             c = ch
 
-    def forward(self, x: torch.Tensor, train: bool = False,
-                frozen_bn: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, frozen_bn: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for i in range(self.n_layers):
-            x = getattr(self, f"layer_{i}")(x, train=train, frozen_bn=frozen_bn)
+            x = getattr(self, f"layer_{i}")(x, train=train, frozen_bn=frozen_bn,
+                                            generator=generator)
         return x
 
 

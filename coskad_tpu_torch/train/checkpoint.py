@@ -27,12 +27,13 @@ How the port's objects map onto `state`:
 - `rng`: the port draws no JAX keys. It writes the value of
   `jax.random.PRNGKey(cfg.run.seed)` (`[0, seed]` for a seed below 2^32)
   and ignores the field on read: the VAE's samples come from generators
-  seeded from (cfg.run.seed, step), and dropout is not ported.
+  seeded from (cfg.run.seed, step), and dropout's masks from generators
+  seeded from (cfg.run.seed, step, 0x60).
 - `mean_vector`: the VAE's scoring anchor, the last epoch's latent mean
   (`require_vae_anchor` refuses a VAE checkpoint without one).
 
 The Orbax directory flavor of the JAX package is not ported (ROADMAP.md,
-Queue 1 item 1).
+Queue 1 item 5).
 """
 
 from __future__ import annotations

@@ -19,6 +19,10 @@ The VAE draws its training samples from a `torch.Generator` seeded from
 (cfg.run.seed, step), so a resumed run draws what a straight one does; an
 eval pass that samples (`eval.vae_sample`) draws from one seeded from
 (cfg.run.seed, step, 7), so scoring one state twice gives the same bits.
+Dropout (`model.dropout` > 0) draws its train-mode masks from a separate
+stream seeded from (cfg.run.seed, step, 0x60), JAX's `fold_in(key, 0x60)`,
+so a VAE with dropout draws both and a resumed run draws what a straight
+one does.
 `Trainer.vae_sample = False` puts train and eval on the posterior mean
 (the lockstep tests' deterministic path).
 
@@ -114,8 +118,8 @@ class Trainer:
         self._best_auc = -np.inf
         self._since_best = 0
         # The fused ghost-BN kernels need the sts_gcn encoder, the linear
-        # projector, no dropout and an encoder-only variant; 'auto' falls
-        # back to the module path otherwise, 'on' refuses.
+        # projector, no dropout and an encoder-only variant (as JAX's); 'auto'
+        # falls back to the module path otherwise, 'on' refuses.
         self._fused_compat = (
             cfg.run.fused_train != "off"
             and cfg.model.encoder_type == "sts_gcn"
@@ -181,20 +185,24 @@ class Trainer:
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
     def _forward(self, batch: torch.Tensor, train: bool, frozen_bn: bool = False,
-                 generator: Optional[torch.Generator] = None, vae_draws=None):
+                 generator: Optional[torch.Generator] = None, vae_draws=None,
+                 dropout_generator: Optional[torch.Generator] = None):
         """The model's outputs for a batch; in train mode through the
         ghost-BN kernels when usable (running statistics updated in place
         either way). The VAE samples where `vae_sample` and (train or
-        eval.vae_sample) hold, from fed `vae_draws` or from `generator`."""
+        eval.vae_sample) hold, from fed `vae_draws` or from `generator`;
+        train-mode dropout draws from `dropout_generator`."""
         if train and not frozen_bn and self._fused_usable(batch):
             return stse_train.fused_stse_apply(
                 self.model, batch, ghost_size=self.cfg.run.ghost_size,
                 compute_dtype=self.cfg.run.compute_dtype)
         if not self.cfg.model.use_vae:
-            return self.model(batch, train=train, frozen_bn=frozen_bn)
+            return self.model(batch, train=train, frozen_bn=frozen_bn,
+                              dropout_generator=dropout_generator)
         sample = self.vae_sample and (train or self.cfg.eval.vae_sample)
         return self.model(batch, train=train, frozen_bn=frozen_bn, sample=sample,
-                          sample_draws=vae_draws, generator=generator)
+                          sample_draws=vae_draws, generator=generator,
+                          dropout_generator=dropout_generator)
 
     def _samples(self) -> bool:
         return self.cfg.model.use_vae and self.vae_sample
@@ -213,11 +221,12 @@ class Trainer:
         cfg = self.cfg
         if cfg.opt.contrastive_weight > 0:
             raise NotImplementedError(
-                "the contrastive second view is not ported yet (ROADMAP.md, Queue 1 item 6)")
+                "the contrastive second view is not ported yet (ROADMAP.md, Queue 1 item 4)")
         batch = self._gather(data, indices)
         gen = self._generator(state.step) if self._samples() and vae_draws is None else None
+        dgen = self._generator(state.step, 0x60) if cfg.model.dropout > 0 else None
         out = self._forward(batch, train=True, frozen_bn=frozen_bn, generator=gen,
-                            vae_draws=vae_draws)
+                            vae_draws=vae_draws, dropout_generator=dgen)
         loss, metrics = objectives.compute_loss(
             cfg, out, batch, self.model, state.center, state.inv_cov,
             mean_vector=state.mean_vector)

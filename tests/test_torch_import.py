@@ -25,6 +25,9 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import coskad_tpu_torch.train.checkpoint, coskad_tpu_torch.data.robust\n"
         "import coskad_tpu_torch.geometry.poincare, coskad_tpu_torch.config\n"
         "import coskad_tpu_torch.geometry.sphere, coskad_tpu_torch.score.window_losses\n"
+        "import coskad_tpu_torch.models.encoders, coskad_tpu_torch.models.graph\n"
+        "import coskad_tpu_torch.streaming, coskad_tpu_torch.http_server\n"
+        "import coskad_tpu_torch.cli.serve, coskad_tpu_torch.cli.server\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN_TOP!r})\n"
         "print(','.join(bad))\n"
     )

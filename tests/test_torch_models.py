@@ -82,22 +82,29 @@ def test_load_rejects_mismatched_trees():
 
 
 def test_train_mode_and_unported_variants_raise():
-    """Train mode runs (tests/test_torch_train.py holds it to flax); dropout
-    in train mode and the other encoders are not ported yet; the decoder
-    variants are (tests/test_torch_autoencoder.py, tests/test_torch_vae.py),
-    as is the MLP projector (tests/test_torch_mlp_head.py), and an unknown
-    projector is refused as in JAX."""
+    """Train mode runs (tests/test_torch_train.py holds it to flax); so do
+    dropout in train mode, whose masks come from a generator the caller
+    passes (tests/test_torch_dropout.py), and the other encoders
+    (tests/test_torch_encoders.py); the decoder variants
+    (tests/test_torch_autoencoder.py, tests/test_torch_vae.py) and the MLP
+    projector (tests/test_torch_mlp_head.py) too, and an unknown projector
+    is refused as in JAX."""
     model = STSE(**CASES["narrow_stack"])
     x = torch.zeros(2, 2, 12, 18)
     assert model(x, train=True).shape == (2, 4)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        STSE(**CASES["narrow_stack"], dropout=0.1)(x, train=True)
+    drop = STSE(**CASES["narrow_stack"], dropout=0.1)
+    z = drop(torch.randn(2, 2, 12, 18, generator=torch.Generator().manual_seed(1)),
+             train=True, dropout_generator=torch.Generator().manual_seed(0))
+    assert z.shape == (2, 4) and torch.isfinite(z).all()
+    with pytest.raises(ValueError, match="dropout_generator"):
+        drop(x, train=True)
     vae = build_model(use_vae=True, **CASES["narrow_stack"])
     z, recon, (mean, var) = vae(x, train=True, sample=False)
     assert isinstance(vae, STSVAE) and z.shape == (2, 4) and recon.shape == x.shape
     assert var.shape == (2, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        STSE(encoder_type="st_gcn")
+    st_gcn = STSE(encoder_type="st_gcn")
+    assert type(st_gcn.encoder).__name__ == "STGCNEncoder" and not st_gcn.kernel_takes()
+    assert st_gcn(torch.zeros(2, 2, 12, 17), train=True).shape == (2, 16)
     assert STSE(projector="mlp", **CASES["narrow_stack"])(x, train=True).shape == (2, 4)
     with pytest.raises(ValueError, match="Unsupported projector"):
         STSE(projector="conv", **CASES["narrow_stack"])
