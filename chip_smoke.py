@@ -54,17 +54,21 @@ Phases, each printing a line before the last:
      bound and one bf16 torch.mm / einsum call's time).
   3b. mono: K5 (the mono backward, from x and dz alone) against its plain
      version in float64 and against the split kernels (K4, then K3) on the
-     same inputs, on the train-kernel cases plus a batch whose last chunk
-     is ragged and chunks of one ghost block; K5's time beside K2 and K4 +
-     K3, its plain version's, and over chunk sizes with the workspace of
-     each. Then the mono path: 20 steps of fused_stse_apply(bwd_mode=
+     same inputs, in float32 and both bf16 forms, on the train-kernel cases
+     plus a batch whose last chunk is ragged and chunks of one ghost block,
+     each at its schedule with two chunks in flight and with one (the same
+     bits); K5's time beside K2 and K4 + K3 and its plain version's; K5 over
+     (chunk, chunks in flight) in float32 and "bfloat16", with each one's
+     footprint against K2's forward allocation (the byte budget that picks
+     the chunk). Then the mono path: 20 steps of fused_stse_apply(bwd_mode=
      "mono") + Adam at B=2048 ghost 64 against 20 split steps from the same
      weights (per-step losses, K5 launched once a step, K3/K4 never); the
      step time of each mode, in turns; the peak memory of one step of each
-     (mono also at K5 chunks of 512 and 1024 windows; both also at bf16)
-     and the bytes it saves for backward. Then 5 counted mono steps at
-     compute_dtype bfloat16 (K2 and K5 launched once a step) against 5
-     split steps.
+     (mono also at K5's schedule before the budget, 128 windows one at a
+     time, which it must not exceed; both also at bf16) beside K2's forward
+     allocation, and the bytes it saves for backward. Then 5 counted mono
+     steps at compute_dtype bfloat16 (K2 and K5 launched once a step)
+     against 5 split steps.
   3c. probe: the bf16 operand probes (P), one kernel per job of
      scripts/probe_mosaic.py, each against its plain version and timed.
   4. slice (serving): the serving path at the flagship width (sts_gcn
@@ -190,6 +194,7 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import shutil
@@ -238,10 +243,12 @@ MONO_EXTRA_CASES = (
     ("full_B256_ghost64_one_block_chunks", FULL, 256, 64, 64),  # 4 chunks of one block
 )
 # batch sizes of the product check: the training step's and K5's default chunk
-PRODUCT_BATCHES = (2048, 128)
 MONO_STEPS = 20
-MONO_CHUNK_SWEEP = (64, 128, 256, 512, 1024, 2048)  # windows, at B=2048 ghost 64
-MONO_PEAK_CHUNKS = (512, 1024)  # a mono step's peak memory also at these chunks
+# K5's chunks (windows) swept at B=2048 ghost 64, each at one and two chunks
+# in flight, beside the byte budget's chunk at each
+MONO_CHUNK_SWEEP = (64, 128, 256, 512, 1024, 2048)
+# K5's schedule before its byte budget: a mono step's peak is also taken at it
+MONO_PARENT_SCHEDULE = dict(chunk_windows=128, in_flight=1)
 # probes: elementwise jobs are exact; sums of up to 16,384 exact bf16
 # products in f32, in another order than the plain version's
 PROBE_SUM_TOL = dict(rtol=1e-5, atol=2e-3)
@@ -832,7 +839,7 @@ def products_bound(flops, prod_flops, nbytes):
 def phase_products(card, ops, compute_dtype="float32"):
     """Each batch-reduction product of a split backward step (dW, dW_res and
     dM a layer, dwp), alone through stse_train.product at the flagship
-    width, at B=2048 and at K5's default chunk, in `compute_dtype`: error
+    width, at B=2048 and at K5's chunk at that batch, in `compute_dtype`: error
     against float64 einsum (of the bf16-rounded operands under a bf16 form)
     on the card, kernel ms, library_ms (the same product as one torch.mm /
     torch.einsum call, fp32 with TF32 off, or under "bfloat16" of the bf16
@@ -854,7 +861,7 @@ def phase_products(card, ops, compute_dtype="float32"):
         return torch.mm(a.t(), b) if form == "rows" else torch.einsum("wpk,wqk->pq", a, b)
 
     results = []
-    for batch in PRODUCT_BATCHES:
+    for batch in (TRAIN_BATCH, st.mono_chunk(ops, TRAIN_BATCH, 64, compute_dtype)):
         for pr in st.products(ops, batch):
             form, p, q, n, k = (pr[f] for f in ("form", "p", "q", "n", "k"))
             a = torch.randn(*((n, p) if form == "rows" else (n, p, k)), generator=dgen,
@@ -1359,6 +1366,9 @@ def phase_bf16_kernels(card):
         own = [r for r in products if r["batch"] == main[0] and r["kernel"] in parts]
         if key == "K2":
             records[-1].update(repeats_bit_for_bit=repeat[key], passes=forward)
+        if key == "K5":
+            records[-1].update(chunk=st.mono_chunk(timed_ops, main[0], main[1], "bfloat16"),
+                               in_flight=st.MONO_IN_FLIGHT)
         if key in ("K3", "K4"):
             records[-1].update(
                 repeats_bit_for_bit=repeat[key],
@@ -1379,9 +1389,12 @@ def phase_bf16_kernels(card):
 
 
 def phase_mono(card, checks_only=False):
-    """K5 against its float64 plain version and the split kernels; its
-    times; then (unless checks_only) the mono path against the split path.
-    Returns (K5's kernel record, summary)."""
+    """K5 against its float64 plain version and the split kernels (K4 + K3)
+    on every case, in float32 and both bf16 forms, and at the case's
+    schedule with two chunks in flight against one (the same bits); its
+    times beside K2 and K4 + K3; the (chunk, in flight) sweep in float32 and
+    "bfloat16"; then (unless checks_only) the mono path against the split
+    path. Returns (K5's kernel record, summary)."""
     import torch
     from coskad_tpu_torch.kernels import stse_train as st
 
@@ -1396,36 +1409,19 @@ def phase_mono(card, checks_only=False):
         n = kw["n_frames"] * kw["n_joints"]
         x = torch.randn(batch, n, kw["input_dim"], generator=gen).to(dev)
         dz = torch.randn(batch, kw["latent_dim"], generator=gen).to(dev)
-        _, _, acts, stats = st.ghost_forward(x, ops, ghost)
-        got = st.mono_backward(x, dz, ops, ghost, chunk)
-        split = st.split_backward(x, dz, ops, acts, stats, ghost)
-        # float64, PReLU's branch where K2 took it (see phase_train_kernels)
-        want = st.mono_backward_reference(x.double(), dz.double(), st.detached(ops, torch.float64),
-                                          ghost, positive=[a >= 0 for a in acts])
-        torch.cuda.synchronize()
-        names = [f"layer{l}.d{f}" for l in range(len(ops.layers)) for f in st.LayerOps._fields]
-        bad, err_plain, err_split = [], 0.0, 0.0
-        for name, a, w, s in zip(names + ["dwp", "dbp"], st._flatten(got), st._flatten(want),
-                                 st._flatten(split)):
-            if w is None:
-                check(a is None and s is None, f"K5 {label} {name}: a gradient of no operand")
-                continue
-            e_p, ok_p = grad_err(a, w.float())
-            e_s, ok_s = grad_err(a, s)
-            err_plain, err_split = max(err_plain, e_p), max(err_split, e_s)
-            if not (ok_p and ok_s and bool(torch.isfinite(a).all())):
-                bad.append(f"{name} err vs plain {e_p:.3e} (scale {float(w.abs().max()):.3e}), "
-                           f"vs split {e_s:.3e}")
-        check(not bad, f"stse_train mono backward (K5) {label}: " + "; ".join(bad))
-        used = st.mono_chunk(batch, ghost, chunk)
-        cases.append(dict(case=label, batch=batch, ghost=ghost, chunk=used,
-                          n_chunks=-(-batch // used), max_abs_err_vs_plain=err_plain,
-                          max_abs_err_vs_split=err_split))
-        errs.append(err_plain)
+        for form in ("float32", *BF16_FORMS):
+            res = mono_case(st, ops, x, dz, ghost, chunk, form, label)
+            cases.append(dict(case=label, form=form, batch=batch, ghost=ghost, **res))
+            if form == "float32":
+                errs.append(res["max_abs_err_vs_plain"])
         if timed is None:
-            timed = (ops, x, dz, acts, stats, ghost, n)
-    ops, x, dz, acts, stats, ghost, n = timed
-    timing = time_mono(st, *timed)
+            timed = (ops, x, dz, ghost)
+    ops, x, dz, ghost = timed
+    _, _, acts, stats = st.ghost_forward(x, ops, ghost)
+    timing = time_mono(st, ops, x, dz, acts, stats, ghost)
+    sweeps = {form: mono_sweep(st, ops, x if form == "float32" else
+                               x.to(torch.bfloat16).to(st.activation_dtype(form)), dz, ghost, form)
+              for form in ("float32", "bfloat16")}
     flops, nbytes, prod_flops, window_flops = st.work(ops, x.shape[0], ghost)["K5"]
     bound_ms, bound_by = products_bound(flops, prod_flops + window_flops, nbytes)
     rec = dict(
@@ -1436,19 +1432,67 @@ def phase_mono(card, checks_only=False):
         ms=timing["kernel_ms"], kernel_ms=timing["kernel_ms"], plain_ms=timing["plain_ms"],
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None, batch=x.shape[0], ghost=ghost,
         bound_fp32_window_ms=products_bound(flops, prod_flops, nbytes)[0],
-        chunk=st.mono_chunk(x.shape[0], ghost), flops=flops, bytes=nbytes, cases=cases,
-        timing=timing)
+        chunk=st.mono_chunk(ops, x.shape[0], ghost), in_flight=st.MONO_IN_FLIGHT, flops=flops,
+        bytes=nbytes, cases=cases, timing=timing, sweep=sweeps)
+    bits = all(c["in_flight_same_bits"] for c in cases)
     print("mono kernel check: " + json.dumps(dict(cases=cases, card=card, **{
-        k: rec[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by", "chunk")}, **{
-        k: timing[k] for k in ("split_ms", "k2_ms", "kernel_workspace_bytes",
-                               "kernel_peak_bytes", "chunk_sweep")})))
+        k: rec[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by", "chunk",
+                            "in_flight")}, in_flight_same_bits=bits, **{
+        k: timing[k] for k in ("split_ms", "k2_ms", "kernel_footprint_bytes",
+                               "kernel_peak_bytes")})))
+    for form, sweep in sweeps.items():
+        print(f"mono sweep {form} (B={x.shape[0]}, ghost {ghost}; K2's forward allocates "
+              f"{sweep['budget_bytes']} B): " + json.dumps(dict(card=card, **sweep)))
     return rec, None if checks_only else mono_path(card)
 
 
-def time_mono(st, ops, x, dz, acts, stats, ghost, n):
-    """K5, the split backward (K4 + K3) and K2 at the flagship shapes, each
-    twice, in turns; K5's plain version; K5 over chunk sizes; K5's own peak
-    memory beyond its inputs."""
+def mono_case(st, ops, x, dz, ghost, chunk, form, label) -> dict:
+    """K5 in `form` on one case at its schedule (`chunk` windows if given,
+    else the budget's): within the band of K4 + K3 and of its plain version
+    (float32: the gradient band against float64; a bf16 form: BF16_BAND
+    against K4 + K3 in the form, by each leaf's cosine against plain, see
+    phase_bf16_kernels), and the same bits with one and two chunks in
+    flight."""
+    import torch
+
+    cd = dict(compute_dtype=form)
+    if form != "float32":  # bf16 windows, as fused_stse_apply hands them over
+        x = x.to(torch.bfloat16).to(st.activation_dtype(form))
+    _, _, acts, stats = st.ghost_forward(x, ops, ghost, **cd)
+    used = st.mono_chunk(ops, x.shape[0], ghost, form, chunk)
+    one, two = (st.mono_backward(x, dz, ops, ghost, used, in_flight=k, **cd) for k in (1, 2))
+    split = st.split_backward(x, dz, ops, acts, stats, ghost, **cd)
+    # float64, PReLU's branch where K2 took it (see phase_train_kernels)
+    want = st.mono_backward_reference(x.double(), dz.double(), st.detached(ops, torch.float64),
+                                      ghost, positive=[a >= 0 for a in acts], **cd)
+    torch.cuda.synchronize()
+    names = [f"layer{l}.d{f}" for l in range(len(ops.layers)) for f in st.LayerOps._fields]
+    bad, err_plain, err_split = [], 0.0, 0.0
+    for name, a, w, s in zip(names + ["dwp", "dbp"], st._flatten(two), st._flatten(want),
+                             st._flatten(split)):
+        if w is None:
+            check(a is None and s is None, f"K5 {label} {name}: a gradient of no operand")
+            continue
+        if form == "float32":
+            (e_p, ok_p), (e_s, ok_s) = grad_err(a, w.float()), grad_err(a, s)
+        else:
+            (e_p, ok_p), (e_s, ok_s) = (bf16_err(a.double(), w, cosine=True),
+                                        bf16_err(a.double(), s.double()))
+        err_plain, err_split = max(err_plain, e_p), max(err_split, e_s)
+        if not (ok_p and ok_s and bool(torch.isfinite(a).all())):
+            bad.append(f"{name} err vs plain {e_p:.3e} (scale {float(w.abs().max()):.3e}), "
+                       f"vs split {e_s:.3e}")
+    check(not bad, f"stse_train mono backward (K5) {form} {label}: " + "; ".join(bad))
+    same = all(torch_equal(a, b) for a, b in zip(st._flatten(one), st._flatten(two)))
+    check(same, f"K5 {form} {label}: two chunks in flight differ from one at chunk {used}")
+    return dict(chunk=used, n_chunks=-(-x.shape[0] // used), max_abs_err_vs_plain=err_plain,
+                max_abs_err_vs_split=err_split, in_flight_same_bits=same)
+
+
+def time_mono(st, ops, x, dz, acts, stats, ghost):
+    """K5 at its schedule, the split backward (K4 + K3) and K2 at the
+    flagship shapes, each twice, in turns; K5's plain version; K5's own
+    peak memory beyond its inputs against its footprint."""
     import torch
 
     fns = dict(kernel=lambda: st.mono_backward(x, dz, ops, ghost),
@@ -1460,14 +1504,6 @@ def time_mono(st, ops, x, dz, acts, stats, ghost, n):
         for k, fn in fns.items():
             runs[k].append(cuda_ms(fn, iters=5, warmup=2))
     b = x.shape[0]
-    sweep = {}
-    for want in MONO_CHUNK_SWEEP:
-        chunk = st.mono_chunk(b, ghost, want)
-        ws = st.mono_workspace(ops, n, chunk, ghost)
-        sweep[chunk] = dict(
-            n_chunks=-(-b // chunk), workspace_bytes=sum(v for v in ws.values() if v),
-            kernel_ms=cuda_ms(lambda: st.mono_backward(x, dz, ops, ghost, chunk), iters=5,
-                              warmup=1))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -1475,11 +1511,44 @@ def time_mono(st, ops, x, dz, acts, stats, ghost, n):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
     del grads
-    default = sweep[st.mono_chunk(b, ghost)]
     return dict(kernel_ms=min(runs["kernel"]), plain_ms=min(runs["plain"]),
-                split_ms=min(runs["split"]), k2_ms=min(runs["k2"]),
-                runs_ms=runs, chunk_sweep=sweep, kernel_workspace_bytes=default["workspace_bytes"],
+                split_ms=min(runs["split"]), k2_ms=min(runs["k2"]), runs_ms=runs,
+                kernel_footprint_bytes=st.mono_footprint(ops, b, st.mono_chunk(ops, b, ghost),
+                                                         ghost),
                 kernel_peak_bytes=peak)
+
+
+def mono_sweep(st, ops, x, dz, ghost, form) -> dict:
+    """K5 in `form` over (chunk windows, chunks in flight): MONO_CHUNK_SWEEP,
+    and at one and at two in flight the budget's chunk and the largest
+    chunk under the budget (two in flight only where there are two chunks),
+    each timed twice in turns; with each its footprint and whether that
+    fits K2's forward allocation (the budget)."""
+    b = x.shape[0]
+    budget = st.buffer_bytes(st.forward_buffers(ops, b, ghost, form))
+    picked = {k: st.mono_chunk(ops, b, ghost, form, in_flight=k) for k in (1, 2)}
+    largest = {k: max([ghost] + [c for c in range(ghost, b + 1, ghost)
+                                 if st.mono_footprint(ops, b, c, ghost, form, k) <= budget])
+               for k in (1, 2)}
+    chunks = sorted({st.mono_chunk(ops, b, ghost, form, c) for c in MONO_CHUNK_SWEEP}
+                    | set(picked.values()) | set(largest.values()))
+    grid = [(c, k) for c in chunks for k in (1, 2) if k == 1 or -(-b // c) > 1]
+    ms = {key: [] for key in grid}
+    for _ in range(2):
+        for c, k in grid:
+            ms[c, k].append(cuda_ms(lambda: st.mono_backward(x, dz, ops, ghost, c, form,
+                                                             in_flight=k), iters=5, warmup=1))
+    entries = []
+    for c, k in grid:
+        foot = st.mono_footprint(ops, b, c, ghost, form, k)
+        entries.append(dict(chunk=c, in_flight=k, n_chunks=-(-b // c), ms=min(ms[c, k]),
+                            runs_ms=ms[c, k], footprint_bytes=foot, fits_budget=foot <= budget,
+                            budget_pick=picked[k] == c, largest_under_budget=largest[k] == c,
+                            default=(c, k) == (st.mono_chunk(ops, b, ghost, form),
+                                               min(st.MONO_IN_FLIGHT, -(-b // c))),
+                            parent=(c, k) == (MONO_PARENT_SCHEDULE["chunk_windows"],
+                                              MONO_PARENT_SCHEDULE["in_flight"])))
+    return dict(form=form, budget_bytes=budget, entries=entries)
 
 
 def mono_path(card):
@@ -1582,15 +1651,17 @@ def mono_path(card):
     for mode in ("split", "mono", "mono", "split"):
         times[mode].append(step_ms(mode))
     memory = {}
-    default_chunk = st.MONO_CHUNK_WINDOWS
-    # One step of each; mono also at larger K5 chunks, to show whether K5's
-    # workspace or K2's forward sets the mono step's peak; both at bf16 too.
-    for key, mode, chunk, dtype in (
+    default_k5 = st.mono_backward
+    # One step of each; mono also at K5's schedule before the byte budget
+    # (MONO_PARENT_SCHEDULE), whose peak K2's forward set; both at bf16 too.
+    for key, mode, schedule, dtype in (
             ("split", "split", None, "float32"), ("mono", "mono", None, "float32"),
-            *((f"mono_chunk{c}", "mono", c, "float32") for c in MONO_PEAK_CHUNKS),
-            ("split_bf16", "split", None, "bfloat16"), ("mono_bf16", "mono", None, "bfloat16")):
+            ("mono_parent_schedule", "mono", MONO_PARENT_SCHEDULE, "float32"),
+            ("split_bf16", "split", None, "bfloat16"), ("mono_bf16", "mono", None, "bfloat16"),
+            ("mono_bf16_parent_schedule", "mono", MONO_PARENT_SCHEDULE, "bfloat16")):
         r, saved = (runs if dtype == "float32" else bf16_runs)[mode], {}
-        st.MONO_CHUNK_WINDOWS = chunk or default_chunk
+        if schedule:  # FusedGhostEncode.backward calls st.mono_backward
+            st.mono_backward = functools.partial(default_k5, **schedule)
         try:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -1598,10 +1669,23 @@ def mono_path(card):
             steps(mode, r["model"], r["opt"], 1, saved, compute_dtype=dtype)
             torch.cuda.synchronize()
         finally:
-            st.MONO_CHUNK_WINDOWS = default_chunk
+            st.mono_backward = default_k5
         memory[key] = dict(peak_bytes_above_resident=torch.cuda.max_memory_allocated() - base,
                            resident_bytes=base, saved_for_backward_bytes=sum(saved.values()),
                            saved_tensors=len(saved))
+    ops = st.encoder_ops(runs["mono"]["model"])
+    k2_bytes = {dtype: st.buffer_bytes(st.forward_buffers(ops, TRAIN_BATCH, 64, dtype))
+                for dtype in ("float32", "bfloat16")}
+    for key, dtype in (("mono", "float32"), ("mono_bf16", "bfloat16")):
+        peak = memory[key]["peak_bytes_above_resident"]
+        parent = memory[f"{key}_parent_schedule"]["peak_bytes_above_resident"]
+        memory[key]["k2_forward_bytes"] = k2_bytes[dtype]
+        print(f"mono path {dtype} step peak above resident {peak} B (K5 at chunk "
+              f"{st.mono_chunk(ops, TRAIN_BATCH, 64, dtype)}, {st.MONO_IN_FLIGHT} in flight), "
+              f"at the parent schedule {parent} B; K2's forward allocates {k2_bytes[dtype]} B "
+              f"at B={TRAIN_BATCH}")
+        check(peak <= parent, f"the mono step's {dtype} peak {peak} B is above the parent "
+                              f"schedule's {parent} B")
     summary = dict(steps=MONO_STEPS, batch=TRAIN_BATCH, ghost=64, launches=launches,
                    launches_bf16=launches_bf16, losses_bf16_mono=bf16["mono"].tolist(),
                    losses_bf16_split=bf16["split"].tolist(),

@@ -8,7 +8,8 @@
 //   K4  stse_train_top_backward   <- _top_layer_bwd_kernel (:738)
 //   K5  stse_train_mono_backward  <- _bwd_kernel (:498), via _bwd_pallas (:1008)
 // Each C entry point launches several __global__ functions in order on the
-// caller's stream and returns cudaGetLastError().
+// caller's stream (K5 some on a second stream, joined back before it
+// returns) and returns cudaGetLastError().
 //
 // Per layer, with x [B, N, C_in] node-major (N = T*V), M [N, N], W and W_res
 // [C_in, C_out] in flax orientation:
@@ -81,11 +82,26 @@
 //     buffer, and its per-window / per-ghost-block shares of dgamma, dbeta,
 //     db, dalpha to whole-batch buffers.
 // One last pass sums them in chunk (and block) order: no float atomics, so
-// runs repeat bit for bit. The wrapper picks the chunk (128 windows by
-// default: a 47.9 MB workspace at the flagship width, under a quarter of
-// split's saved activations); each pass then has only the chunk's windows
-// as blocks, which costs parallelism. That is the simple design: the same
-// passes as K2-K4, reused, not a fused remat kernel.
+// runs repeat bit for bit. That is the simple design: the same passes as
+// K2-K4, reused, not a fused remat kernel. The TPU walked one ghost block a
+// grid step with its whole live set in VMEM; a ghost block's live set (~3.5
+// MB at f32) is far past an SM's 227 KB, so here a chunk's lives in a
+// workspace in device memory and L2, and what is left to design is the
+// schedule: how large a chunk is and how many run at once.
+//   * The chunk comes from a byte budget (stse_train.py's mono_chunk): the
+//     largest whole number of ghost blocks whose footprint (the chunk
+//     workspaces in flight and the whole-batch buffers) stays at or under
+//     what K2's forward allocates at the same batch and form. A mono step's
+//     peak memory is that forward, so K5 adds none to it, and each pass gets
+//     as many blocks as that memory allows (128 windows fed bwd_dx 128
+//     blocks on 132 SMs).
+//   * Up to two chunks run at once, each in its own workspace slot (one
+//     buffer, the descriptor's MH_SLOT_BYTES apart): chunk c in slot c % 2,
+//     slot 0 on the caller's stream and slot 1 on a second stream, forked
+//     from and joined back to the caller's with events (run_mono). One
+//     chunk's small passes (statistics, constants, split sums) then overlap
+//     the other's large ones. No chunk writes what another reads or writes,
+//     so the result is the bits of one stream.
 
 // The compute_dtype forms (each kernel and host function below that runs a
 // product or stores a value is a template on one, ComputeDtype; the entry
@@ -123,6 +139,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
 
 #include "tf32_mma.cuh"  // tf32_of, bf16_bits, split_tf32, mma_3xtf32, cp_async16, warp_tile, ...
@@ -219,9 +236,10 @@ enum BwdField {
 // K5: a header, then one row per layer. The gradients (ML_DM ... ML_DALPHA)
 // follow the operands (ML_M ... ML_ALPHA) in the same order.
 enum MonoHeader {
-  MH_N_LAYERS, MH_BATCH, MH_N_NODES, MH_GHOST, MH_LATENT, MH_CHUNK, MH_X, MH_DZ, MH_WP,
-  MH_DWP, MH_DBP, MH_SPLITS_WP, MH_CHUNK_DWP, MH_T_BUF, MH_R_BUF, MH_DPRE_BUF, MH_G_BUF,
-  MH_DG_BUF, MH_DY_BUF, MH_PART, MH_BLOCK_SUMS, MH_CONSTS, MH_PROD_BUF, MH_DTYPE, MH_COUNT
+  MH_N_LAYERS, MH_BATCH, MH_N_NODES, MH_GHOST, MH_LATENT, MH_CHUNK, MH_IN_FLIGHT, MH_SLOT_BYTES,
+  MH_X, MH_DZ, MH_WP, MH_DWP, MH_DBP, MH_SPLITS_WP, MH_CHUNK_DWP, MH_T_BUF, MH_R_BUF,
+  MH_DPRE_BUF, MH_G_BUF, MH_DG_BUF, MH_DY_BUF, MH_PART, MH_BLOCK_SUMS, MH_CONSTS, MH_PROD_BUF,
+  MH_DTYPE, MH_COUNT
 };
 enum MonoLayerField {
   ML_CI, ML_CO, ML_IDENTITY, ML_M, ML_W, ML_B, ML_GAMMA, ML_BETA, ML_W_RES, ML_B_RES,
@@ -239,6 +257,13 @@ struct Layer {
 template <class T>
 T* ptr(const long long* d, int i) {
   return reinterpret_cast<T*>(static_cast<uintptr_t>(d[i]));
+}
+
+// K5's chunk-workspace buffer d[i] in the slot `offset` bytes past slot 0
+// (null stays null).
+template <class T>
+T* in_slot(const long long* d, int i, long long offset) {
+  return d[i] == 0 ? nullptr : reinterpret_cast<T*>(static_cast<uintptr_t>(d[i] + offset));
 }
 
 // In-place tree sum of red[q * kThreads + tid] over tid for q < rows; the
@@ -1879,27 +1904,29 @@ cudaError_t run_passes(const Layer& L, const PassArgs<D>& a, const LayerSmem& sm
   return cudaGetLastError();
 }
 
-// K5, one chunk of windows [w0, w0 + wc): the forward again into the chunk
-// workspace (each layer's output and block statistics), then the backward
-// sweep, top layer down, leaving the chunk's share of every batch reduction
-// in the [n_chunks, ...] buffers (index c) and the per-window / per-block
-// buffers (offset by w0).
+// K5, one chunk of windows [w0, w0 + wc) on `stream`: the forward again
+// into its workspace slot (`slot` bytes past slot 0: each layer's output and
+// block statistics), then the backward sweep, top layer down, leaving the
+// chunk's share of every batch reduction in the [n_chunks, ...] buffers
+// (index c) and the per-window / per-block buffers (offset by w0). It
+// writes nothing another chunk writes or reads.
 template <int D>
-cudaError_t mono_chunk(const long long* d, int c, int w0, int wc, cudaStream_t stream) {
+cudaError_t mono_chunk(const long long* d, int c, int w0, int wc, long long slot,
+                       cudaStream_t stream) {
   using S = scratch_t<D>;
   using A = act_t<D>;
   constexpr int sb = D == kBfloat16;  // the products' scratch and activation operands: bf16
   const int n_layers = (int)d[MH_N_LAYERS], n = (int)d[MH_N_NODES], ghost = (int)d[MH_GHOST];
   const int latent = (int)d[MH_LATENT];
-  S* t_buf = ptr<S>(d, MH_T_BUF);  // K2's passes, then the backward's
-  S* r_buf = ptr<S>(d, MH_R_BUF);
-  S* dpre_buf = ptr<S>(d, MH_DPRE_BUF);
-  S* g_buf = ptr<S>(d, MH_G_BUF);
-  S* dg_buf = ptr<S>(d, MH_DG_BUF);
-  A* dy_buf = ptr<A>(d, MH_DY_BUF);
-  float* part = ptr<float>(d, MH_PART);
-  float* consts = ptr<float>(d, MH_CONSTS);
-  float* prod_buf = ptr<float>(d, MH_PROD_BUF);
+  S* t_buf = in_slot<S>(d, MH_T_BUF, slot);  // K2's passes, then the backward's
+  S* r_buf = in_slot<S>(d, MH_R_BUF, slot);
+  S* dpre_buf = in_slot<S>(d, MH_DPRE_BUF, slot);
+  S* g_buf = in_slot<S>(d, MH_G_BUF, slot);
+  S* dg_buf = in_slot<S>(d, MH_DG_BUF, slot);
+  A* dy_buf = in_slot<A>(d, MH_DY_BUF, slot);
+  float* part = in_slot<float>(d, MH_PART, slot);
+  float* consts = in_slot<float>(d, MH_CONSTS, slot);
+  float* prod_buf = in_slot<float>(d, MH_PROD_BUF, slot);
   const long long* rows = d + MH_COUNT;
   const A* x_c = ptr<const A>(d, MH_X) + (long long)w0 * n * rows[ML_CI];
   const float* dz_c = ptr<const float>(d, MH_DZ) + (long long)w0 * latent;
@@ -1909,24 +1936,24 @@ cudaError_t mono_chunk(const long long* d, int c, int w0, int wc, cudaStream_t s
   for (int l = 0; l < n_layers && err == cudaSuccess; ++l) {
     const long long* row = rows + (long long)l * ML_COUNT;
     Layer L = row_layer(row);
-    float* stats = ptr<float>(row, ML_STATS);
+    float* stats = in_slot<float>(row, ML_STATS, slot);
     L.stats = stats;
-    A* act = ptr<A>(row, ML_ACT);
+    A* act = in_slot<A>(row, ML_ACT, slot);
     err = run_forward_layer<D>(h, L, n, ghost, wc, t_buf, r_buf, part, stats,
-                               ptr<float>(d, MH_BLOCK_SUMS), nullptr, act,
+                               in_slot<float>(d, MH_BLOCK_SUMS, slot), nullptr, act,
                                ptr<const S>(row, ML_MT), stream);
     h = act;
   }
   for (int l = n_layers - 1; l >= 0 && err == cudaSuccess; --l) {
     const long long* row = rows + (long long)l * ML_COUNT;
     Layer L = row_layer(row);
-    L.stats = ptr<const float>(row, ML_STATS);
+    L.stats = in_slot<const float>(row, ML_STATS, slot);
     const int ci = L.ci, co = L.co;
     const bool top = l == n_layers - 1;
-    const A* x_l = l == 0 ? x_c : ptr<const A>(row - ML_COUNT, ML_ACT);
+    const A* x_l = l == 0 ? x_c : in_slot<const A>(row - ML_COUNT, ML_ACT, slot);
     PassArgs<D> pa;
     pa.x = x_l;
-    pa.y = ptr<const A>(row, ML_ACT);
+    pa.y = in_slot<const A>(row, ML_ACT, slot);
     pa.dy = top ? nullptr : dy_buf;
     pa.dz = top ? dz_c : nullptr;
     pa.wp = ptr<const float>(d, MH_WP);
@@ -1965,7 +1992,7 @@ cudaError_t mono_chunk(const long long* d, int c, int w0, int wc, cudaStream_t s
     }
     // dwp = sum over the chunk's windows of y_flat^T dz.
     if (err == cudaSuccess && top) {
-      Product pp{PF_ROWS, ptr<const A>(row, ML_ACT), dz_c, n * co, latent, wc, 1, sb, 0};
+      Product pp{PF_ROWS, pa.y, dz_c, n * co, latent, wc, 1, sb, 0};
       err = run_product<D>(pp, (int)d[MH_SPLITS_WP], prod_buf,
                            ptr<float>(d, MH_CHUNK_DWP) + (long long)c * n * co * latent, stream);
     }
@@ -1973,12 +2000,34 @@ cudaError_t mono_chunk(const long long* d, int c, int w0, int wc, cudaStream_t s
   return err;
 }
 
+// The second stream K5 runs chunks on, one for each device, created at its
+// first use and kept for the life of the process. Non-blocking: PyTorch's
+// default stream is the legacy null stream, with which a blocking stream
+// would synchronise, running the two chunks one after the other again; the
+// fork and join events order it against the caller's stream instead.
+cudaError_t side_stream(cudaStream_t* out) {
+  constexpr int kMaxDevices = 64;
+  static std::mutex lock;
+  static cudaStream_t streams[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(lock);
+  if (streams[dev] == nullptr)
+    err = cudaStreamCreateWithFlags(&streams[dev], cudaStreamNonBlocking);
+  *out = streams[dev];
+  return err;
+}
+
 template <int D>
 int run_mono(const long long* d, cudaStream_t stream) {
   const int n_layers = (int)d[MH_N_LAYERS], batch = (int)d[MH_BATCH], n = (int)d[MH_N_NODES];
   const int ghost = (int)d[MH_GHOST], latent = (int)d[MH_LATENT], chunk = (int)d[MH_CHUNK];
+  const int in_flight = (int)d[MH_IN_FLIGHT];
+  const long long slot_bytes = d[MH_SLOT_BYTES];
   if (n_layers < 1 || batch < 1 || ghost < 1 || batch % ghost != 0 || n < 1 || latent < 1 ||
-      chunk < ghost || chunk % ghost != 0)
+      chunk < ghost || chunk % ghost != 0 || in_flight < 1 || in_flight > 2 || slot_bytes < 0)
     return (int)cudaErrorInvalidValue;
   const long long* rows = d + MH_COUNT;
   LayerSmem most;
@@ -1993,12 +2042,43 @@ int run_mono(const long long* d, cudaStream_t stream) {
     graph<<<blocks_for((long long)n * graph_ld<D>(n)), kThreads, 0, stream>>>(
         ptr<const float>(row, ML_M), ptr<scratch_t<D>>(row, ML_MT), n);
   }
+  // Chunk c runs in slot c % in_flight: slot 0 on the caller's stream, slot
+  // 1 on the side stream, which first waits for everything before it on the
+  // caller's (the inputs, the graph operands, the workspace's last use).
+  // Each stream takes its slot's chunks in order, so a slot is reused only
+  // after its last chunk is done; and as no two chunks write one buffer, the
+  // result is the same bits as one stream's.
   const int n_chunks = (batch + chunk - 1) / chunk;
+  cudaStream_t streams[2] = {stream, stream};
+  cudaEvent_t fork = nullptr, join = nullptr;
+  bool forked = false;
+  if (in_flight > 1 && n_chunks > 1) {
+    err = side_stream(&streams[1]);
+    if (err == cudaSuccess) err = cudaEventCreateWithFlags(&fork, cudaEventDisableTiming);
+    if (err == cudaSuccess) err = cudaEventCreateWithFlags(&join, cudaEventDisableTiming);
+    if (err == cudaSuccess) err = cudaEventRecord(fork, stream);
+    if (err == cudaSuccess) err = cudaStreamWaitEvent(streams[1], fork, 0);
+    forked = err == cudaSuccess;
+  }
   for (int c = 0; c < n_chunks && err == cudaSuccess; ++c) {
     const int w0 = c * chunk;
     const int wc = batch - w0 < chunk ? batch - w0 : chunk;
-    err = mono_chunk<D>(d, c, w0, wc, stream);
+    const int s = c % in_flight;
+    err = mono_chunk<D>(d, c, w0, wc, s * slot_bytes, streams[s]);
   }
+  if (forked) {
+    // Join before returning, whatever happened above. The wrapper's
+    // workspaces are torch.empty tensors allocated on the caller's stream;
+    // when Python drops them the caching allocator hands their memory to the
+    // next allocation on that stream at once, without waiting for the
+    // device. Only this wait keeps the kernels still queued on the side
+    // stream ordered before any such reuse (and before the sums below).
+    cudaError_t j = cudaEventRecord(join, streams[1]);
+    if (j == cudaSuccess) j = cudaStreamWaitEvent(stream, join, 0);
+    if (err == cudaSuccess) err = j;
+  }
+  if (fork != nullptr) cudaEventDestroy(fork);  // released once their work completes
+  if (join != nullptr) cudaEventDestroy(join);
   if (err != cudaSuccess) return (int)err;
   // The whole-batch sums, in chunk (block, window) order.
   for (int l = 0; l < n_layers; ++l) {
@@ -2222,16 +2302,18 @@ int stse_train_forward(const long long* desc, void* stream) {
 
 // K5. desc: MH_COUNT header fields, then n_layers rows of ML_COUNT fields
 // (see MonoHeader / MonoLayerField; built by stse_train.py). x and dz
-// [B, ...]. Chunk workspace, for C = MH_CHUNK windows, in form D's scratch
-// type: t_buf, r_buf, dpre_buf [C, N, max C_out]; g_buf, dg_buf [C, N, max
-// C_in]; in its activation type: dy_buf [C, N, max C_in of the layers above
-// 0], per layer act [C, N, C_out]; fp32: part [C, 4, max C_out]; block_sums
-// and consts [C / ghost, 4 and 6, max C_out]; per layer stats [C / ghost, 4,
-// C_out]. Whole batch, per layer: mt, the graph operand (not layer 0 outside
-// "bfloat16"), gpart [B / ghost,
-// 6, C_out], dalpha_part [B], chunk_dm / chunk_dw / chunk_dw_res [n_chunks,
-// ...]; chunk_dwp [n_chunks, N * C_out, latent]; prod_buf as K3/K4's for one
-// chunk.
+// [B, ...]. MH_IN_FLIGHT (1 or 2) chunk workspaces, each MH_SLOT_BYTES
+// past the one before; the descriptor holds the first's pointers. One, for
+// C = MH_CHUNK windows, in form D's scratch type: t_buf, r_buf, dpre_buf
+// [C, N, max C_out]; g_buf, dg_buf [C, N, max C_in]; in its activation
+// type: dy_buf [C, N, max C_in of the layers above 0], per layer act [C, N,
+// C_out]; fp32: part [C, 4, max C_out]; block_sums and consts [C / ghost, 4
+// and 6, max C_out]; per layer stats [C / ghost, 4, C_out]; prod_buf as
+// K3/K4's for one chunk. Whole batch, per layer: mt, the graph operand (not
+// layer 0 outside "bfloat16"), gpart [B / ghost, 6, C_out], dalpha_part
+// [B], chunk_dm / chunk_dw / chunk_dw_res [n_chunks, ...]; chunk_dwp
+// [n_chunks, N * C_out, latent]. Returns with every launch queued after
+// the caller's stream's earlier work and before its later work.
 int stse_train_mono_backward(const long long* desc, void* stream) {
   return with_dtype(desc[MH_DTYPE], [&](auto d) {
     return run_mono<decltype(d)::value>(desc, (cudaStream_t)stream);

@@ -78,13 +78,16 @@ REPLACES = {
     "stse_train_product": "coskad_tpu/kernels/stse_train.py:656",
 }
 BN_EPS = 1e-5
-# K5's default chunk, in windows: at the flagship width its workspace
-# (`mono_workspace`) is 47.9 MB (24.0 MB under "bfloat16"), under a quarter
-# of split's 258 MB of saved activations at B = 2048. On an H100 a mono
-# step's peak is the same at
-# chunks of 512 and 1024 windows (K2's forward sets it), where K5 takes
-# 0.6x the time: retuning it is ROADMAP.md Queue 2 item 3 (PERF.md).
-MONO_CHUNK_WINDOWS = 128
+# K5's schedule (`mono_chunk`): a mono step's peak memory is K2's forward
+# (its activations and t/r scratch over the whole batch), so K5 takes as
+# few chunks of whole ghost blocks as keep its footprint (`mono_footprint`:
+# MONO_IN_FLIGHT chunk workspaces and the whole-batch buffers) at or under
+# what K2 allocates at the same batch, width and form (`forward_buffers`),
+# made even. Larger chunks give each pass more blocks; with two chunks in
+# flight, on the caller's stream and one more, one chunk's small passes
+# (statistics, constants, split sums) overlap the other's. On an H100 two in
+# flight beat one at every chunk of the sweep in chip_smoke.py (PERF.md).
+MONO_IN_FLIGHT = 2
 # the compute_dtype forms, in the order of csrc/stse_train.cu's ComputeDtype
 COMPUTE_DTYPES = ("float32", "bfloat16", "bfloat16_f32store")
 
@@ -108,9 +111,10 @@ _BWD = ("batch", "n_nodes", "ghost", "ci", "co", "identity", "latent", "x", "dy"
 _PRODUCT = ("form", "p", "q", "n", "k", "a", "b", "splits", "part", "out", "dtype", "a_bf16",
             "b_bf16")
 PRODUCT_FORMS = ("rows", "windows")  # the order of csrc/stse_train.cu's ProductForm
-_MONO_HEADER = ("n_layers", "batch", "n_nodes", "ghost", "latent", "chunk", "x", "dz", "wp",
-                "dwp", "dbp", "splits_wp", "chunk_dwp", "t_buf", "r_buf", "dpre_buf", "g_buf",
-                "dg_buf", "dy_buf", "part", "block_sums", "consts", "prod_buf", "dtype")
+_MONO_HEADER = ("n_layers", "batch", "n_nodes", "ghost", "latent", "chunk", "in_flight",
+                "slot_bytes", "x", "dz", "wp", "dwp", "dbp", "splits_wp", "chunk_dwp", "t_buf",
+                "r_buf", "dpre_buf", "g_buf", "dg_buf", "dy_buf", "part", "block_sums", "consts",
+                "prod_buf", "dtype")
 
 
 class LayerOps(NamedTuple):
@@ -556,6 +560,40 @@ def _run(lib, fn: str, desc: np.ndarray, device) -> None:
         raise RuntimeError(f"{fn} launch failed: {lib.stse_train_error_string(err).decode()}")
 
 
+def forward_buffers(ops: EncoderOps, batch: int, ghost_size: int,
+                    compute_dtype: str = "float32") -> dict:
+    """Everything K2 allocates for `batch` windows in `compute_dtype`
+    (`launch_forward` allocates from this): name -> (shape, dtype), None
+    where not needed. Its outputs z and each layer's activation, block
+    statistics and full-batch sums; the t / r scratch and moments over the
+    widest layer; the projector's split partials; under "bfloat16" the
+    graph operand. Its total (`buffer_bytes`) is K5's budget."""
+    n = ops.layers[0].m.shape[0]
+    latent = ops.wp.shape[1]
+    cmax = max(lay.w.shape[1] for lay in ops.layers)
+    f32, sc = torch.float32, scratch_dtype(compute_dtype)
+    z_splits = projector_splits(n * ops.layers[-1].w.shape[1], batch, latent)
+    out = dict(z=((batch, latent), f32), t_buf=((batch * n * cmax,), sc),
+               r_buf=((batch * n * cmax,), sc), part=((batch * 4 * cmax,), f32),
+               block_sums=((batch // ghost_size * 4 * cmax,), f32),
+               z_part=((z_splits * batch * latent,), f32),  # the projector's split partials
+               # under "bfloat16" fwd_pre reads each layer's bf16 M^T, built in turn here
+               graph=((graph_operand_size(n, compute_dtype),), sc)
+               if compute_dtype == "bfloat16" else None)
+    for l, lay in enumerate(ops.layers):
+        co = lay.w.shape[1]
+        out[f"act{l}"] = ((batch, n, co), activation_dtype(compute_dtype))
+        out[f"stats{l}"] = ((batch // ghost_size, 4, co), f32)
+        out[f"sums{l}"] = ((4, co), f32)
+    return out
+
+
+def buffer_bytes(buffers: dict) -> int:
+    """Bytes of `forward_buffers`' or `mono_batch_buffers`' allocations."""
+    return sum(int(np.prod(shape)) * dtype.itemsize
+               for shape, dtype in (v for v in buffers.values() if v is not None))
+
+
 def launch_forward(lib, x: torch.Tensor, ops: EncoderOps, ghost_size: int,
                    compute_dtype: str = "float32"):
     """Run K2 from `lib` on x [B, N, C_in] (the device's tensors, or host
@@ -568,40 +606,26 @@ def launch_forward(lib, x: torch.Tensor, ops: EncoderOps, ghost_size: int,
         raise ValueError(f"batch {b} must be a positive multiple of ghost_size {ghost_size}")
     if ops.layers[0].w.shape[0] != c0:
         raise ValueError(f"input has {c0} channels, layer 0 takes {ops.layers[0].w.shape[0]}")
-    act = dict(dtype=activation_dtype(compute_dtype), device=dev)
-    x = _checked(x, dev, (b, n, c0), "x", (act["dtype"],))
+    x = _checked(x, dev, (b, n, c0), "x", (activation_dtype(compute_dtype),))
     layers = [_layer_operands(lay, n, dev) for lay in ops.layers]
     c_hidden = layers[-1].w.shape[1]
     latent = ops.wp.shape[1]
     wp = _checked(ops.wp, dev, (n * c_hidden, latent), "wp")
     bp = _checked(ops.bp, dev, (latent,), "bp")
-    cmax = max(lay.w.shape[1] for lay in layers)
-    z_splits = projector_splits(n * c_hidden, b, latent)
-    f32 = dict(dtype=torch.float32, device=dev)
-    sc = dict(dtype=scratch_dtype(compute_dtype), device=dev)
-    z = torch.empty((b, latent), **f32)
-    t_buf = torch.empty((b * n * cmax,), **sc)
-    r_buf = torch.empty((b * n * cmax,), **sc)
-    part = torch.empty((b * 4 * cmax,), **f32)
-    block_sums = torch.empty((b // ghost_size * 4 * cmax,), **f32)
-    z_part = torch.empty((z_splits * b * latent,), **f32)  # the projector's split partials
-    # under "bfloat16" fwd_pre reads each layer's bf16 M^T, built in turn here
-    graph = (torch.empty((graph_operand_size(n, compute_dtype),), **sc)
-             if compute_dtype == "bfloat16" else None)
-    acts, stats, sums = [], [], []
-    desc = [len(layers), b, n, ghost_size, latent, _ptr(x), _ptr(wp), _ptr(bp), _ptr(z),
-            _ptr(t_buf), _ptr(r_buf), _ptr(part), _ptr(block_sums), z_splits, _ptr(z_part),
-            _ptr(graph), _dtype_index(compute_dtype)]
-    for lay in layers:
+    buf = {k: None if v is None else torch.empty(v[0], dtype=v[1], device=dev)
+           for k, v in forward_buffers(ops, b, ghost_size, compute_dtype).items()}
+    desc = [len(layers), b, n, ghost_size, latent, _ptr(x), _ptr(wp), _ptr(bp),
+            *(_ptr(buf[k]) for k in ("z", "t_buf", "r_buf", "part", "block_sums")),
+            projector_splits(n * c_hidden, b, latent), _ptr(buf["z_part"]), _ptr(buf["graph"]),
+            _dtype_index(compute_dtype)]
+    for l, lay in enumerate(layers):
         ci, co = lay.w.shape
-        acts.append(torch.empty((b, n, co), **act))
-        stats.append(torch.empty((b // ghost_size, 4, co), **f32))
-        sums.append(torch.empty((4, co), **f32))
-        desc += [ci, co, int(lay.identity), *(_ptr(t) for t in lay), _ptr(acts[-1]),
-                 _ptr(stats[-1]), _ptr(sums[-1])]
+        desc += [ci, co, int(lay.identity), *(_ptr(t) for t in lay),
+                 *(_ptr(buf[f"{k}{l}"]) for k in ("act", "stats", "sums"))]
     assert len(desc) == len(_FWD_HEADER) + len(layers) * len(_FWD_LAYER)
     _run(lib, "stse_train_forward", np.asarray(desc, np.int64), dev)
-    return z, sums, acts, stats
+    pick = lambda k: [buf[f"{k}{l}"] for l in range(len(layers))]
+    return buf["z"], pick("sums"), pick("act"), pick("stats")
 
 
 # The product kernels' tiles and steps, as csrc/stse_train.cu has them.
@@ -774,28 +798,82 @@ def pass_occupancy(lib, n: int, ci: int, co: int, compute_dtype: str = "float32"
     return {k: int(v) for k, v in zip(_OCCUPANCY, out)}
 
 
-def mono_chunk(batch: int, ghost_size: int, chunk_windows: Optional[int] = None) -> int:
-    """K5's chunk in windows: `chunk_windows` (default MONO_CHUNK_WINDOWS)
-    cut down to whole ghost blocks, at least one block, at most the batch."""
-    want = MONO_CHUNK_WINDOWS if chunk_windows is None else chunk_windows
-    return min(max(ghost_size, want // ghost_size * ghost_size), batch)
+def _in_flight(in_flight: Optional[int]) -> int:
+    """K5's chunks in flight: `in_flight`, by default MONO_IN_FLIGHT; 1 or 2."""
+    k = MONO_IN_FLIGHT if in_flight is None else in_flight
+    if k not in (1, 2):
+        raise ValueError(f"K5 runs 1 or 2 chunks in flight, not {k}")
+    return k
+
+
+def mono_chunk(ops: EncoderOps, batch: int, ghost_size: int, compute_dtype: str = "float32",
+               chunk_windows: Optional[int] = None, in_flight: Optional[int] = None) -> int:
+    """K5's chunk in windows, whole ghost blocks, at least one block, at
+    most the batch: `chunk_windows` cut down to whole blocks where given.
+    Else the budget's: the largest chunk whose `mono_footprint` with
+    `in_flight` chunks in flight (default MONO_IN_FLIGHT) stays at or
+    under what K2's forward allocates at the same batch (`forward_buffers`;
+    a mono step's peak is K2's forward, so K5 adds none to it) sets the
+    number of chunks, and the chunk is the least that keeps that number:
+    chunks as even as whole blocks allow, with no short last chunk that
+    runs its passes on few blocks."""
+    if chunk_windows is not None:
+        return min(max(ghost_size, chunk_windows // ghost_size * ghost_size), batch)
+    # every mono backward asks, and the rule tries every block count
+    key = (ops.layers[0].m.shape[0], tuple((*lay.w.shape, lay.identity) for lay in ops.layers),
+           ops.wp.shape[1], batch, ghost_size, compute_dtype, _in_flight(in_flight))
+    if key not in _BUDGET_CHUNKS:
+        _BUDGET_CHUNKS[key] = _budget_chunk(ops, batch, ghost_size, compute_dtype, key[-1])
+    return _BUDGET_CHUNKS[key]
+
+
+_BUDGET_CHUNKS = {}  # mono_chunk's budget rule by shapes, batch, ghost, form and in flight
+
+
+def _budget_chunk(ops: EncoderOps, batch: int, ghost_size: int, compute_dtype: str,
+                  in_flight: int) -> int:
+    budget = buffer_bytes(forward_buffers(ops, batch, ghost_size, compute_dtype))
+    for blocks in range(batch // ghost_size, 0, -1):
+        chunk = blocks * ghost_size
+        if mono_footprint(ops, batch, chunk, ghost_size, compute_dtype, in_flight) <= budget:
+            even = -(-batch // (-(-batch // chunk) * ghost_size)) * ghost_size
+            fits = mono_footprint(ops, batch, even, ghost_size, compute_dtype, in_flight) <= budget
+            return even if fits else chunk
+    return ghost_size
+
+
+def _mono_splits(ops: EncoderOps, chunk: int) -> Tuple[int, List[Tuple[int, int]]]:
+    """The split counts of K5's products over one chunk: dwp's, and each
+    layer's (dW and dW_res, dM)."""
+    n = ops.layers[0].m.shape[0]
+    layers = []
+    for lay in ops.layers:
+        ci, co = lay.w.shape
+        layers.append((product_splits("rows", ci, co, chunk * n),
+                       product_splits("windows", n, n, chunk, ci)))
+    return product_splits("rows", n * ops.layers[-1].w.shape[1], ops.wp.shape[1], chunk), layers
 
 
 def mono_workspace(ops: EncoderOps, n: int, chunk: int, ghost_size: int,
                    compute_dtype: str = "float32") -> dict:
-    """K5's chunk workspace in `compute_dtype`, name -> bytes (None: not
-    needed). It scales with the chunk, not the batch. The per-window
-    scratch (t, r, dpre, g, dg) takes `scratch_dtype`, each layer's
-    activation and dy take `activation_dtype` (both bf16 under
-    "bfloat16"); the moments, statistics and constants are float32."""
+    """One chunk's workspace for K5 in `compute_dtype`, name -> bytes (None:
+    not needed); each chunk in flight has its own. It scales with the
+    chunk, not the batch. The per-window scratch (t, r, dpre, g, dg) takes
+    `scratch_dtype`, each layer's activation and dy take `activation_dtype`
+    (both bf16 under "bfloat16"); the moments, statistics, constants and
+    the products' split partials (prod_buf) are float32."""
     co = [lay.w.shape[1] for lay in ops.layers]
     ci = [lay.w.shape[0] for lay in ops.layers]
     rows, blocks = chunk * n, chunk // ghost_size
+    splits_wp, splits = _mono_splits(ops, chunk)
+    prod = partials((splits_wp, n * co[-1] * ops.wp.shape[1]),
+                    *((s, size) for (s_w, s_m), a, b in zip(splits, ci, co)
+                      for s, size in ((s_w, a * b), (s_m, n * n))))
     count = dict(t_buf=rows * max(co), r_buf=rows * max(co), dpre_buf=rows * max(co),
                  g_buf=rows * max(ci), dg_buf=rows * max(ci),
                  dy_buf=rows * max(ci[1:]) if len(ci) > 1 else None,
                  part=chunk * 4 * max(co), block_sums=blocks * 4 * max(co),
-                 consts=blocks * 6 * max(co))
+                 consts=blocks * 6 * max(co), prod_buf=prod)
     for l, c in enumerate(co):
         count[f"act{l}"] = rows * c
         count[f"stats{l}"] = blocks * 4 * c
@@ -806,17 +884,72 @@ def mono_workspace(ops: EncoderOps, n: int, chunk: int, ghost_size: int,
 
 def _mono_f32(name: str) -> bool:
     """Whether K5's workspace buffer `name` is float32 in every form: the
-    moments, block sums, constants and statistics."""
-    return name in ("part", "block_sums", "consts") or name.startswith("stats")
+    moments, block sums, constants, split partials and statistics."""
+    return name in ("part", "block_sums", "consts", "prod_buf") or name.startswith("stats")
+
+
+_SLOT_ALIGN = 256  # bytes: where each buffer of a chunk workspace starts
+
+
+def _slot_layout(workspace: dict) -> Tuple[dict, int]:
+    """Byte offsets of a chunk workspace's buffers (`mono_workspace`) in
+    one slot (None stays None), and the slot's bytes."""
+    offsets, size = {}, 0
+    for k, nbytes in workspace.items():
+        offsets[k] = None if nbytes is None else size
+        size += 0 if nbytes is None else -(-nbytes // _SLOT_ALIGN) * _SLOT_ALIGN
+    return offsets, size
+
+
+def mono_batch_buffers(ops: EncoderOps, batch: int, chunk: int, ghost_size: int,
+                       compute_dtype: str = "float32") -> dict:
+    """K5's buffers over the whole batch (`launch_mono_backward` allocates
+    from this), name -> (shape, dtype), None where not needed: each layer's
+    gradients, its graph operand, its per-block and per-window shares
+    (gpart, dalpha_part) and its per-chunk products (chunk_dm, chunk_dw,
+    chunk_dw_res); dwp, dbp and the per-chunk dwp."""
+    n = ops.layers[0].m.shape[0]
+    latent = ops.wp.shape[1]
+    n_chunks = -(-batch // chunk)
+    f32, sc = torch.float32, scratch_dtype(compute_dtype)
+    out = {}
+    for l, lay in enumerate(ops.layers):
+        ci, co = lay.w.shape
+        out.update({f"d{f}{l}": None if t is None else (tuple(t.shape), f32)
+                    for f, t in zip(LayerOps._fields, lay)})
+        out.update({
+            f"mt{l}": ((graph_operand_size(n, compute_dtype),), sc)
+            if _needs_graph_operand(l > 0, compute_dtype) else None,
+            f"gpart{l}": ((batch // ghost_size * 6 * co,), f32), f"dalpha_part{l}": ((batch,), f32),
+            f"chunk_dm{l}": ((n_chunks * n * n,), f32), f"chunk_dw{l}": ((n_chunks * ci * co,), f32),
+            f"chunk_dw_res{l}": None if lay.identity else ((n_chunks * ci * co,), f32)})
+    out.update(dwp=((n * ops.layers[-1].w.shape[1], latent), f32), dbp=((latent,), f32),
+               chunk_dwp=((n_chunks * n * ops.layers[-1].w.shape[1] * latent,), f32))
+    return out
+
+
+def mono_footprint(ops: EncoderOps, batch: int, chunk: int, ghost_size: int,
+                   compute_dtype: str = "float32", in_flight: Optional[int] = None) -> int:
+    """Bytes K5 allocates at `chunk` windows with `in_flight` chunks in
+    flight (no more than there are chunks): a chunk workspace each, laid
+    out as one slot (`mono_workspace`), and the whole-batch buffers
+    (`mono_batch_buffers`)."""
+    n = ops.layers[0].m.shape[0]
+    slots = min(_in_flight(in_flight), -(-batch // chunk))
+    slot = _slot_layout(mono_workspace(ops, n, chunk, ghost_size, compute_dtype))[1]
+    return slots * slot + buffer_bytes(mono_batch_buffers(ops, batch, chunk, ghost_size,
+                                                          compute_dtype))
 
 
 def launch_mono_backward(lib, x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps,
                          ghost_size: int, chunk_windows: Optional[int] = None,
-                         compute_dtype: str = "float32") -> EncoderOps:
+                         compute_dtype: str = "float32",
+                         in_flight: Optional[int] = None) -> EncoderOps:
     """Run K5 from `lib` on x [B, N, C_in] (in `activation_dtype`) and dz
     [B, latent] in `compute_dtype`: every operand's gradient, the forward
-    recomputed chunk by chunk (`mono_chunk`). Same return as
-    `mono_backward_reference`."""
+    recomputed chunk by chunk (`mono_chunk`), `in_flight` chunks at a time
+    (default MONO_IN_FLIGHT), each in its own slot of one workspace. Same
+    return as `mono_backward_reference`."""
     b, n, c0 = x.shape
     dev = x.device
     if b % ghost_size or b < 1:
@@ -829,55 +962,34 @@ def launch_mono_backward(lib, x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps
     x = _checked(x, dev, (b, n, c0), "x", (activation_dtype(compute_dtype),))
     dz = _checked(dz, dev, (b, latent), "dz")
     wp = _checked(ops.wp, dev, (n * c_hidden, latent), "wp")
-    chunk = mono_chunk(b, ghost_size, chunk_windows)
-    n_chunks = -(-b // chunk)
-    f32 = dict(dtype=torch.float32, device=dev)
-    sc = dict(dtype=scratch_dtype(compute_dtype), device=dev)
-
-    def empty(count, kind=f32):
-        return None if count is None else torch.empty((count,), **kind)
-
-    ws = {}
-    for k, nbytes in mono_workspace(ops, n, chunk, ghost_size, compute_dtype).items():
-        kind = f32 if _mono_f32(k) else sc  # scratch, activations and dy alike
-        ws[k] = None if nbytes is None else empty(nbytes // kind["dtype"].itemsize, kind)
-    splits_wp = product_splits("rows", n * c_hidden, latent, chunk)
-    prod = partials((splits_wp, n * c_hidden * latent))
-    grads = [LayerOps(*(None if t is None else torch.empty(t.shape, **f32) for t in lay))
-             for lay in layers]
-    dwp = torch.empty((n * c_hidden, latent), **f32)
-    dbp = torch.empty((latent,), **f32)
-    chunk_dwp = empty(n_chunks * n * c_hidden * latent)
-    per_layer = []  # each layer's whole-batch buffers, alive until the launch
+    chunk = mono_chunk(ops, b, ghost_size, compute_dtype, chunk_windows, in_flight)
+    slots = min(_in_flight(in_flight), -(-b // chunk))
+    offsets, slot_bytes = _slot_layout(mono_workspace(ops, n, chunk, ghost_size, compute_dtype))
+    space = torch.empty((slots * slot_bytes,), dtype=torch.uint8, device=dev)
+    ws = {k: 0 if o is None else space.data_ptr() + o for k, o in offsets.items()}  # slot 0's
+    buf = {k: None if v is None else torch.empty(v[0], dtype=v[1], device=dev)
+           for k, v in mono_batch_buffers(ops, b, chunk, ghost_size, compute_dtype).items()}
+    splits_wp, splits = _mono_splits(ops, chunk)
     rows = []
-    for l, (lay, g) in enumerate(zip(layers, grads)):
-        ci, co = lay.w.shape
-        splits_w = product_splits("rows", ci, co, chunk * n)
-        splits_m = product_splits("windows", n, n, chunk, ci)
-        prod = max(prod, partials((splits_w, ci * co), (splits_m, n * n)))
-        buf = dict(mt=empty(graph_operand_size(n, compute_dtype), sc)
-                   if _needs_graph_operand(l > 0, compute_dtype) else None,
-                   gpart=empty(b // ghost_size * 6 * co),
-                   dalpha_part=empty(b), chunk_dm=empty(n_chunks * n * n),
-                   chunk_dw=empty(n_chunks * ci * co),
-                   chunk_dw_res=None if lay.identity else empty(n_chunks * ci * co))
-        per_layer.append(buf)
-        fields = dict(ci=ci, co=co, identity=int(lay.identity), act=_ptr(ws[f"act{l}"]),
-                      stats=_ptr(ws[f"stats{l}"]), splits_w=splits_w, splits_m=splits_m,
-                      **{f: _ptr(getattr(lay, f)) for f in LayerOps._fields},
-                      **{"d" + f: _ptr(getattr(g, f)) for f in LayerOps._fields},
-                      **{k: _ptr(v) for k, v in buf.items()})
+    for l, (lay, (splits_w, splits_m)) in enumerate(zip(layers, splits)):
+        fields = dict(ci=lay.w.shape[0], co=lay.w.shape[1], identity=int(lay.identity),
+                      act=ws[f"act{l}"], stats=ws[f"stats{l}"], splits_w=splits_w,
+                      splits_m=splits_m, **{f: _ptr(getattr(lay, f)) for f in LayerOps._fields},
+                      **{k: _ptr(buf[f"{k}{l}"]) for k in (
+                          *("d" + f for f in LayerOps._fields), "mt", "gpart", "dalpha_part",
+                          "chunk_dm", "chunk_dw", "chunk_dw_res")})
         rows += [fields[f] for f in _MONO_LAYER]
-    prod_buf = empty(prod)
     header = dict(n_layers=len(layers), batch=b, n_nodes=n, ghost=ghost_size, latent=latent,
-                  chunk=chunk, x=_ptr(x), dz=_ptr(dz), wp=_ptr(wp), dwp=_ptr(dwp), dbp=_ptr(dbp),
-                  splits_wp=splits_wp, chunk_dwp=_ptr(chunk_dwp), prod_buf=_ptr(prod_buf),
-                  dtype=_dtype_index(compute_dtype),
-                  **{k: _ptr(ws[k]) for k in ("t_buf", "r_buf", "dpre_buf", "g_buf", "dg_buf",
-                                              "dy_buf", "part", "block_sums", "consts")})
+                  chunk=chunk, in_flight=slots, slot_bytes=slot_bytes, x=_ptr(x), dz=_ptr(dz),
+                  wp=_ptr(wp), dwp=_ptr(buf["dwp"]), dbp=_ptr(buf["dbp"]), splits_wp=splits_wp,
+                  chunk_dwp=_ptr(buf["chunk_dwp"]), dtype=_dtype_index(compute_dtype),
+                  **{k: ws[k] for k in ("t_buf", "r_buf", "dpre_buf", "g_buf", "dg_buf", "dy_buf",
+                                        "part", "block_sums", "consts", "prod_buf")})
     desc = np.asarray([header[f] for f in _MONO_HEADER] + rows, np.int64)
     _run(lib, "stse_train_mono_backward", desc, dev)
-    return EncoderOps(tuple(grads), dwp, dbp)
+    grads = tuple(LayerOps(*(buf[f"d{f}{l}"] for f in LayerOps._fields))
+                  for l in range(len(layers)))
+    return EncoderOps(grads, buf["dwp"], buf["dbp"])
 
 
 # --------------------------------------------------------------------------
@@ -1000,16 +1112,16 @@ def split_backward(x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps,
 
 
 def mono_backward(x: torch.Tensor, dz: torch.Tensor, ops: EncoderOps, ghost_size: int,
-                  chunk_windows: Optional[int] = None,
-                  compute_dtype: str = "float32") -> EncoderOps:
+                  chunk_windows: Optional[int] = None, compute_dtype: str = "float32",
+                  in_flight: Optional[int] = None) -> EncoderOps:
     """K5: every operand's gradient from x [B, N, C_in] (in
     `activation_dtype`) and dz [B, latent] alone, the forward recomputed one
-    chunk of ghost blocks at a time (`mono_chunk`). x gets none: it is
-    data."""
+    chunk of ghost blocks at a time (`mono_chunk`), `in_flight` chunks at
+    once (default MONO_IN_FLIGHT). x gets none: it is data."""
     if _route(x):
         with torch.no_grad():
             out = launch_mono_backward(_library(), x, dz, ops, ghost_size, chunk_windows,
-                                       compute_dtype)
+                                       compute_dtype, in_flight)
         mono_backward_launches.value += 1
         return out
     (x,) = _plain_inputs(compute_dtype, x=x)

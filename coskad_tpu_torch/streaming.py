@@ -1,8 +1,8 @@
 """Online (streaming) anomaly scoring over live pose streams.
 
 Counterpart of `coskad_tpu/streaming.py`. Frames arrive one at a time and
-scores come out with bounded delay, while the offline semantics hold bit
-for bit:
+scores come out with bounded delay, while the offline semantics hold (to
+the bit on the CPU, within the scores' band on the card; see below):
 
   * Windowing replicates `data/windows.py::segment_clip` exactly (stride 1,
     start_offset, the <=2-missing-frames continuity rule, and the
@@ -16,9 +16,14 @@ for bit:
     which a stream cannot do.
   * Aggregation (mean of non-zero window scores per (actor, frame), max
     over actors, pad_scores, shift + Gaussian smoothing) reuses the offline
-    functions, so ``flush()`` equals ``AnomalyScorer.score_clip_json`` on
-    the same data exactly for the deterministic variants (the VAE's sampled
-    eval is draw-dependent offline too).
+    functions. So for the deterministic variants (the VAE's sampled eval is
+    draw-dependent offline too) ``flush()`` equals
+    ``AnomalyScorer.score_clip_json`` on the same data exactly on the CPU,
+    and within the scores' band on the card (rtol 1e-3, atol 1e-6; 1.66e-9
+    apart on an H100): there the stream's drains and the clip's batches
+    give the projector's cuBLAS product other batch shapes, and it sums a
+    window's row in another order for each. Scoring is not made
+    batch-invariant (ROADMAP.md, Queue 3 item 5).
 
 Batching: windows are not scored one by one. ``push`` buffers complete
 windows and scores them through `AnomalyScorer.score_windows` (on the card

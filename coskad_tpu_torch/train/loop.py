@@ -103,6 +103,14 @@ class Trainer:
         device: Union[str, torch.device] = "cuda",
         logger: Optional[MetricLogger] = None,
     ):
+        # JAX shards over a (data, model) mesh built from these; the port
+        # trains on one device until multi-GPU is ported.
+        if cfg.run.data_parallel not in (-1, 1) or cfg.run.model_parallel != 1:
+            raise ValueError(
+                f"run.data_parallel {cfg.run.data_parallel}, run.model_parallel "
+                f"{cfg.run.model_parallel}: the port trains on one device (data_parallel -1 "
+                "or 1, model_parallel 1); multi-GPU is not ported yet (ROADMAP.md, Queue 1 "
+                "item 5)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(**model_kwargs_from_config(cfg))

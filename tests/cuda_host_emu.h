@@ -220,11 +220,38 @@ inline __nv_bfloat16 __hmin(__nv_bfloat16 a, __nv_bfloat16 b) { return __hlt(b, 
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
+typedef void* cudaEvent_t;
 enum {
   cudaSuccess = 0,
   cudaErrorInvalidValue = 1,
   cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaErrorInvalidDevice = 101,
+  cudaStreamNonBlocking = 1,
+  cudaEventDisableTiming = 2,
 };
+// Streams and events: launches run at once, in the order the host makes
+// them, so every stream is the same serial one and an event orders nothing
+// that is not ordered already. A created stream or event is a non-null
+// handle, as the caller may test it.
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaStreamCreateWithFlags(cudaStream_t* s, unsigned) {
+  static char stream;
+  *s = &stream;
+  return cudaSuccess;
+}
+inline cudaError_t cudaEventCreateWithFlags(cudaEvent_t* e, unsigned) {
+  static char event;
+  *e = &event;
+  return cudaSuccess;
+}
+inline cudaError_t cudaEventRecord(cudaEvent_t, cudaStream_t) { return cudaSuccess; }
+inline cudaError_t cudaStreamWaitEvent(cudaStream_t, cudaEvent_t, unsigned) {
+  return cudaSuccess;
+}
+inline cudaError_t cudaEventDestroy(cudaEvent_t) { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "error in host emulation"; }
 template <class K>
 cudaError_t cudaFuncSetAttribute(K, int, int) {

@@ -137,31 +137,68 @@ def test_saved_for_backward(mode, compute_dtype):
     assert all(o.grad is not None for o in operands)
 
 
-def test_mono_chunk_and_workspace():
-    """K5's chunk is whole ghost blocks; at the flagship width its default
-    workspace is under a quarter of split's saved activations at B=2048.
-    Under "bfloat16" the per-window scratch (t, r, dpre, g, dg), each
-    layer's activation and dy are bf16: half their bytes; the moments,
-    statistics and constants stay float32."""
-    assert stse_train.mono_chunk(2048, 64) == 128
-    assert stse_train.mono_chunk(2048, 64, 100) == 64  # cut to whole blocks
-    assert stse_train.mono_chunk(2048, 64, 10) == 64  # at least one block
-    assert stse_train.mono_chunk(96, 32) == 96  # at most the batch
+@pytest.mark.parametrize("in_flight", [1, 2])
+@pytest.mark.parametrize("compute_dtype", stse_train.COMPUTE_DTYPES)
+def test_mono_chunk_and_workspace(compute_dtype, in_flight):
+    """K5's chunk at the flagship width, B=2048, ghost 64: the largest
+    whole-block chunk whose footprint (`in_flight` chunk workspaces and the
+    whole-batch buffers) stays at or under what K2's forward allocates in
+    the same form (the next larger does not) sets the chunk count; the
+    chunk is the least with that count. An explicit chunk
+    is cut to whole blocks, at least one block, at most the batch; a batch
+    of one block takes that block. Under "bfloat16" the per-window scratch
+    (t, r, dpre, g, dg), each layer's activation and dy are bf16: half
+    their bytes; the moments, statistics, constants and the products'
+    partials stay float32."""
     model = STSE(input_dim=2, layer_channels=(32, 16, 32), hidden_dimension=64, latent_dim=16,
                  n_frames=12, n_joints=18)
     ops = stse_train.encoder_ops(model)
-    ws = stse_train.mono_workspace(ops, 216, stse_train.mono_chunk(2048, 64), 64)
-    ws_bytes = sum(v for v in ws.values() if v is not None)
-    split_saved = 4 * 2048 * 216 * (2 + 32 + 16 + 32 + 64)
-    assert ws_bytes == 4 * 128 * 216 * (3 * 64 + 2 * 32 + 32 + 144) + 4 * 34048 + 4 * 1152
-    assert ws_bytes <= split_saved / 4
-    for form, small in (("bfloat16", 2), ("bfloat16_f32store", 4)):
-        ws = stse_train.mono_workspace(ops, 216, 128, 64, form)
-        for k in ("t_buf", "r_buf", "dpre_buf", "act3"):
-            assert ws[k] == small * 128 * 216 * 64, (form, k)
-        for k in ("g_buf", "dg_buf", "dy_buf", "act0", "act2"):
-            assert ws[k] == small * 128 * 216 * 32, (form, k)
-        assert ws["act1"] == small * 128 * 216 * 16
-        assert ws["part"] == 4 * 128 * 4 * 64 and ws["stats3"] == 4 * 2 * 4 * 64
-        assert sum(v for v in ws.values() if v is not None) == (
-            ws_bytes - (4 - small) * 128 * 216 * (3 * 64 + 2 * 32 + 32 + 144))
+    fwd = stse_train.forward_buffers(ops, 2048, 64, compute_dtype)
+    budget = stse_train.buffer_bytes(fwd)
+    small = stse_train.scratch_dtype(compute_dtype).itemsize
+    # K2: z, t / r over the widest layer, moments, block sums, the projector's
+    # 33 split partials, each layer's activation, statistics and sums; M^T in
+    # bf16 under "bfloat16"
+    rows = 2048 * 216
+    assert budget == (4 * 2048 * 16 + small * rows * (2 * 64 + 144) + 4 * 2048 * 4 * 64
+                      + 4 * 32 * 4 * 64 + 4 * 33 * 2048 * 16 + 4 * (32 * 4 + 4) * 144
+                      + (2 * 2 * 216 * 216 if compute_dtype == "bfloat16" else 0))
+    # the largest whole-block chunk under the budget sets the chunk count;
+    # the chunk is the least whole-block chunk with that count
+    foot = lambda c: stse_train.mono_footprint(ops, 2048, c, 64, compute_dtype, in_flight)
+    largest = max(c for c in range(64, 2048 + 1, 64) if foot(c) <= budget)
+    assert 64 <= largest < 2048 and foot(largest + 64) > budget
+    chunk = stse_train.mono_chunk(ops, 2048, 64, compute_dtype, in_flight=in_flight)
+    n_chunks = -(-2048 // largest)
+    assert chunk % 64 == 0 and chunk <= largest and foot(chunk) <= budget
+    assert -(-2048 // chunk) == n_chunks and -(-2048 // (chunk - 64)) > n_chunks
+    assert chunk == (512 if in_flight == 2 else 1024)  # 4 and 2 chunks, none short
+    # the footprint's parts: the slots and what launch_mono_backward allocates
+    ws = stse_train.mono_workspace(ops, 216, chunk, 64, compute_dtype)
+    slot = sum(-(-v // 256) * 256 for v in ws.values() if v is not None)
+    whole = stse_train.buffer_bytes(stse_train.mono_batch_buffers(ops, 2048, chunk, 64,
+                                                                  compute_dtype))
+    assert stse_train.mono_footprint(ops, 2048, chunk, 64, compute_dtype, in_flight) == (
+        min(in_flight, -(-2048 // chunk)) * slot + whole)
+    for kw, want in ((dict(chunk_windows=100), 64), (dict(chunk_windows=10), 64),
+                     (dict(chunk_windows=4096), 2048), (dict(chunk_windows=320), 320)):
+        assert stse_train.mono_chunk(ops, 2048, 64, compute_dtype, **kw) == want, kw
+    assert stse_train.mono_chunk(ops, 96, 32, compute_dtype, chunk_windows=128) == 96
+    assert stse_train.mono_chunk(ops, 64, 64, compute_dtype, in_flight=in_flight) == 64
+    # one chunk workspace at 128 windows, by buffer
+    ws = stse_train.mono_workspace(ops, 216, 128, 64, compute_dtype)
+    for k in ("t_buf", "r_buf", "dpre_buf", "act3"):
+        assert ws[k] == small * 128 * 216 * 64, k
+    for k in ("g_buf", "dg_buf", "dy_buf", "act0", "act2"):
+        assert ws[k] == small * 128 * 216 * 32, k
+    assert ws["act1"] == small * 128 * 216 * 16
+    assert ws["part"] == 4 * 128 * 4 * 64 and ws["stats3"] == 4 * 2 * 4 * 64
+    assert sum(v for v in ws.values() if v is not None) == (
+        small * 128 * 216 * (3 * 64 + 2 * 32 + 32 + 144) + 4 * 34048 + 4 * 1152
+        + ws["prod_buf"])
+    assert ws["prod_buf"] == 4 * max(s * size for s, size in (
+        (stse_train.product_splits("rows", 216 * 64, 16, 128), 216 * 64 * 16),
+        *((stse_train.product_splits("windows", 216, 216, 128, ci), 216 * 216)
+          for ci in (2, 32, 16, 32)),
+        *((stse_train.product_splits("rows", ci, co, 128 * 216), ci * co)
+          for ci, co in ((2, 32), (32, 16), (16, 32), (32, 64)))))

@@ -125,6 +125,13 @@ def _close_bf16(got, want, name):
         name, err, scale)
 
 
+def _close_cosine(got, want, name):
+    a, b = got.double().flatten(), want.double().flatten()
+    denom = float(a.norm() * b.norm())
+    assert bool(torch.isfinite(got).all()), name
+    assert denom <= 1e-10 or float(a @ b) / denom > 0.98, (name, float(a @ b) / denom)
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_host_run_of_cuda_source_matches_plain(host_lib, case):
     kw = CASES[case]
@@ -261,7 +268,7 @@ def test_host_run_of_mono_backward_matches_plain(host_lib, case):
                    kw["latent"], seed=len(case))
     ops = stse_train.detached(stse_train.encoder_ops(model))
     b, n, ghost = mc["batch"], kw["t"] * kw["v"], mc["ghost"]
-    chunk = stse_train.mono_chunk(b, ghost, mc["chunk"])
+    chunk = stse_train.mono_chunk(ops, b, ghost, chunk_windows=mc["chunk"])
     assert -(-b // chunk) == mc["n_chunks"]
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.normal(size=(b, n, kw["input_dim"])).astype(np.float32))
@@ -306,6 +313,46 @@ def test_host_run_of_mono_backward_bf16_forms_matches_plain(host_lib, compute_dt
         assert (a is None) == (w is None), name
         if a is not None:
             _close_bf16(a, w, name)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_host_run_of_mono_backward_in_flight_same_bits(host_lib, compute_dtype):
+    """K5 with two chunks in flight, chunks of 8, 8 and 4 windows: slot 0
+    takes chunks 0 and 2 (the ragged last one), slot 1 chunk 1, at the
+    slot offset the descriptor gives, in float32's workspace layout and in
+    "bfloat16"'s (bf16 scratch and activations; "bfloat16_f32store" has
+    float32's layout). Each chunk writes only its own slot
+    and its own shares of the batch reductions, so the result is the bits
+    of one chunk in flight. Against the plain version: float32 within the
+    gradient band; a bf16 form by each leaf's cosine above 0.98, the JAX
+    package's bf16 gradient check (tests/test_fused_train_kernel.py:226-233)
+    and the card's for K5 (chip_smoke.py), since a value on the other side
+    of a bf16 rounding boundary in one chain moves every layer below it and
+    a sum with cancellation (dalpha) by more than 2^-7 of its size."""
+    kw = CASES["narrow"]
+    model = _model(kw["input_dim"], kw["channels"], kw["hidden"], kw["t"], kw["v"],
+                   kw["latent"], seed=11)
+    ops = stse_train.detached(stse_train.encoder_ops(model))
+    b, n, ghost = 20, kw["t"] * kw["v"], 4
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.normal(size=(b, n, kw["input_dim"])).astype(np.float32))
+    if compute_dtype != "float32":
+        x = x.to(torch.bfloat16).to(stse_train.activation_dtype(compute_dtype))
+    dz = torch.from_numpy(rng.normal(size=(b, kw["latent"])).astype(np.float32))
+    _, _, acts, _ = stse_train.launch_forward(host_lib, x, ops, ghost, compute_dtype)
+    one, two = (stse_train.launch_mono_backward(host_lib, x, dz, ops, ghost, 8, compute_dtype,
+                                                in_flight=k) for k in (1, 2))
+    want = stse_train.mono_backward_reference(x.double(), dz.double(),
+                                              stse_train.detached(ops, torch.float64), ghost,
+                                              positive=[a >= 0 for a in acts],
+                                              compute_dtype=compute_dtype)
+    close = _close_grad if compute_dtype == "float32" else _close_cosine
+    names = [f"layer{l}.d{f}" for l in range(len(ops.layers)) for f in stse_train.LayerOps._fields]
+    for name, a, c, w in zip(names + ["dwp", "dbp"], *map(stse_train._flatten, (one, two, want))):
+        assert (a is None) == (c is None) == (w is None), name
+        if a is not None:
+            assert torch.equal(a, c), name
+            close(c, w.float(), name)
 
 
 def test_forward_repeats_bit_for_bit(host_lib):
