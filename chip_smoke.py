@@ -70,7 +70,13 @@ Phases, each printing a line before the last:
      steps at compute_dtype bfloat16 (K2 and K5 launched once a step)
      against 5 split steps.
   3c. probe: the bf16 operand probes (P), one kernel per job of
-     scripts/probe_mosaic.py, each against its plain version and timed.
+     scripts/probe_mosaic.py, each against its plain version and twice for
+     the same bits; each job's device time from torch.profiler (the
+     median over PROBE_CALLS calls, inputs warm in L2, and with L2
+     scrubbed) by kernel, its time by CUDA events around Python calls
+     (the wrapper's host cost), its plain version's, and that of one
+     PyTorch call computing the same function (`library_call`), against
+     its bound; `--only probe` runs just this check.
   4. slice (serving): the serving path at the flagship width (sts_gcn
      2->32->16->32->64, latent 16, windows [2, 12, 18], 5 transforms, batch
      2048, fp32) with random weights from a seed: Trainer.initialize_center
@@ -252,6 +258,10 @@ MONO_PARENT_SCHEDULE = dict(chunk_windows=128, in_flight=1)
 # probes: elementwise jobs are exact; sums of up to 16,384 exact bf16
 # products in f32, in another order than the plain version's
 PROBE_SUM_TOL = dict(rtol=1e-5, atol=2e-3)
+PROBE_CALLS = 30  # calls a probe job's times are taken over
+PROBE_MIN_CALLS = 20  # of them traced whole (the profiler drops an event now and then)
+CALL_GAP_S = 1e-3  # idle between two traced calls, which marks where a call ends
+L2_SCRUB_BYTES = 128 << 20  # written between calls to take inputs out of the 50 MB L2
 SCORE_TOL = dict(rtol=1e-3, atol=1e-6)  # scores square latent differences
 REFUSED_FRAMES = 28  # at 18 joints K1's planner takes up to 27 frames
 BF16_FORMS = ("bfloat16", "bfloat16_f32store")
@@ -761,9 +771,9 @@ def ms_by_kernel(events) -> dict:
     return out
 
 
-def traced_launches(fn) -> list:
-    """(kernel name, device ms) of each launch in one call of fn, in the
-    order they ran, from torch.profiler."""
+def traced_spans(fn) -> list:
+    """(kernel name, start us, end us) of each device event in one call of
+    fn, in the order they ran, from torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -772,7 +782,13 @@ def traced_launches(fn) -> list:
         torch.cuda.synchronize()
     events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
-    return [(kernel_name(e), e.time_range.elapsed_us() / 1e3) for e in events]
+    return [(kernel_name(e), e.time_range.start, e.time_range.end) for e in events]
+
+
+def traced_launches(fn) -> list:
+    """(kernel name, device ms) of each launch in one call of fn, in the
+    order they ran, from torch.profiler."""
+    return [(name, (end - start) / 1e3) for name, start, end in traced_spans(fn)]
 
 
 def traced_ms(fn) -> dict:
@@ -1699,42 +1715,158 @@ def mono_path(card):
     return summary
 
 
+def traced_calls(fn, calls: int, skip: int = 0) -> tuple:
+    """(the device ms of each kernel of each traced call of fn, the kernel
+    names of a call), from one torch.profiler trace of `calls` calls: the
+    calls run apart (a synchronize and CALL_GAP_S of idle after each), so a
+    call's kernels are those between two gaps, less its first `skip`. The
+    profiler may drop an event: a call whose kernels are not the most
+    common list is left out, and at least PROBE_MIN_CALLS must be left."""
+    import torch
+
+    def run():
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(CALL_GAP_S)
+
+    events = traced_spans(run)
+    groups, last_end = [], None
+    for name, start, end in events:
+        if last_end is None or start - last_end > CALL_GAP_S * 1e6 / 2:
+            groups.append([])
+        groups[-1].append((name, (end - start) / 1e3))
+        last_end = end
+    lists = [tuple(n for n, _ in g) for g in groups]
+    names = max(set(lists), key=lists.count)
+    kept = [g for g, n in zip(groups, lists) if n == names]
+    check(len(kept) >= PROBE_MIN_CALLS and len(names) > skip,
+          f"{len(kept)} of {calls} calls traced whole: {lists}")
+    return [[ms for _, ms in g[skip:]] for g in kept], list(names[skip:])
+
+
+def device_ms(fn, calls: int = PROBE_CALLS, warmup: int = 3, scrub=None) -> tuple:
+    """(the median device ms of a call of fn over the traced calls, [(each
+    kernel of a call, its median ms)]). With `scrub` (a tensor larger than
+    L2), each call first fills it, so fn finds its inputs in device memory;
+    the fill's time is left out."""
+    import statistics
+
+    import torch
+
+    call = fn if scrub is None else lambda: (scrub.fill_(0.0), fn())
+    for _ in range(warmup):
+        call()
+    torch.cuda.synchronize()
+    per_call, names = traced_calls(call, calls, skip=0 if scrub is None else 1)
+    return statistics.median(sum(c) for c in per_call), [
+        (name, statistics.median(c[i] for c in per_call)) for i, name in enumerate(names)]
+
+
+def probe_library(job, a, b):
+    """(the call's text, a function making that one PyTorch call on
+    operands prepared here, the call's result as the job's output), or
+    (why there is none, None, None). Operands hold bf16 values in float32
+    where the output is float32, so each call writes what the job writes;
+    float32 products run with TF32 off (PyTorch's default, checked), so a
+    product sums exact bf16 products in float32, as the job does."""
+    import torch
+    from coskad_tpu_torch.kernels import probe
+
+    c, bb, n = probe.SHAPE
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    a32 = a16.float()
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on in float32 matmuls")
+    if job.startswith("dot0"):
+        rows = a32.reshape(c * bb, n)
+        lhs, rhs = rows[:, :c].t(), rows[:, :bb]
+        return ("torch.mm(A[:, :32].t(), A[:, :64]), A = bf16(a) as [2048, 256] held in "
+                "float32, TF32 off; r only, the [32, 64, 256] broadcast is a view",
+                lambda: torch.mm(lhs, rhs), lambda r: r[:, :, None].expand(c, bb, n))
+    if job == "dotg_bf16":
+        w, rhs = torch.ones((c, c), device=a.device), a32.reshape(c, bb * n)
+        return ("torch.mm(w, A), w = ones [32, 32], A = bf16(a) as [32, 16384] held in "
+                "float32, TF32 off", lambda: torch.mm(w, rhs), lambda r: r.reshape(c, bb, n))
+    if job.startswith("where"):
+        alpha = (torch.tensor(0.25, device=a.device) if job in ("where_mixed", "where_const_scalar")
+                 else a[0, 0, 0]).to(torch.bfloat16)
+        mask = (a if job == "where_f32pred" else a16) < 0
+        hi, lo = (alpha * b16).float(), b16.float()
+        return ("torch.where(mask, alpha * b, b) on a prepared bool mask and float32 branches",
+                lambda: torch.where(mask, hi, lo), lambda r: r)
+    if job in ("transpose_bf16", "transpose_pure"):
+        view = a32.transpose(1, 2)
+        return ("bf16(a).transpose(1, 2).contiguous(), the bf16 values held in float32",
+                view.contiguous, lambda r: r.reshape(c, bb, n) if job == "transpose_bf16" else r)
+    if job == "transpose_merge":
+        view = a32[0, :, :c].t()[:, :, None].expand(c, bb, n)
+        return ("bf16(a)[0, :, :32].t()[:, :, None].expand(32, 64, 256).contiguous(), the bf16 "
+                "values held in float32: one copy", view.contiguous, lambda r: r)
+    return ("none: a product, a sum over (q, n) and a broadcast write; no one PyTorch call "
+            "computes them", None, None)
+
+
 def phase_probe(card):
     """P: each probe job's kernel against its plain version (elementwise
     exactly, sums within PROBE_SUM_TOL), launched once each in a counted
-    run; kernel and plain times. Returns the kernel records."""
+    run, then again for the same bits; each job's device time (the
+    profiler's kernel durations of a call, the median over PROBE_CALLS
+    calls) beside its plain version's and one PyTorch call's that computes
+    the same function, and the host-clock time of a call (`call_ms`: CUDA
+    events around PROBE_CALLS Python calls, the wrapper's host cost
+    included). The inputs (4 MB) stay in L2 from call to call; `cold_ms`
+    and `library_cold_ms` are the device times with L2 scrubbed before each
+    call. Returns the kernel records."""
     import torch
     from coskad_tpu_torch.kernels import probe
 
     a, b = probe.inputs(DEVICE)
+    scrub = torch.empty((L2_SCRUB_BYTES // 4,), device=DEVICE)
     zero(probe.launches)  # --- the probe run, counted ---
     outs = {job: probe.run(job, a, b) for job in probe.JOBS}
     torch.cuda.synchronize()
     launches = read(probe.launches)  # --- end ---
-    records, errs = [], {}
+    records = []
     for job, out in outs.items():
         want = probe.plain(job, a, b)
-        errs[job] = float((out - want).abs().max())
+        err = float((out - want).abs().max())
         sums = job.startswith(("dot0", "dotg", "min"))
         ok = within(out, want, **PROBE_SUM_TOL) if sums else torch.equal(out, want)
-        check(ok and launches[job] == 1, f"probe {job}: max abs err {errs[job]:.3e} "
+        check(ok and launches[job] == 1, f"probe {job}: max abs err {err:.3e} "
                                          f"(launches {launches[job]})")
-        runs = dict(kernel=[], plain=[])
-        for _ in range(2):
-            runs["kernel"].append(cuda_ms(lambda: probe.run(job, a, b)))
-            runs["plain"].append(cuda_ms(lambda: probe.plain(job, a, b)))
+        check(torch.equal(probe.run(job, a, b), out), f"probe {job}: two runs, other bits")
+        kernel_ms, kernels = device_ms(lambda: probe.run(job, a, b))
+        cold_ms, _ = device_ms(lambda: probe.run(job, a, b), scrub=scrub)
+        plain_ms, _ = device_ms(lambda: probe.plain(job, a, b))
+        call_ms = min(cuda_ms(lambda: probe.run(job, a, b), PROBE_CALLS) for _ in range(2))
+        library_call, library, as_out = probe_library(job, a, b)
+        library_ms = library_cold_ms = library_err = None
+        if library is not None:
+            library_ms, _ = device_ms(library)
+            library_cold_ms, _ = device_ms(library, scrub=scrub)
+            got = as_out(library())
+            library_err = float((got - want).abs().max())
+            check(within(got, want, **PROBE_SUM_TOL) if sums else torch.equal(got, want),
+                  f"probe {job}: the library call {library_call!r} is not the job's function "
+                  f"(max abs err {library_err:.3e})")
         ops, nbytes = probe.work(job)
         bound_ms, bound_by = bound_of(ops, nbytes, PEAK_BF16_FLOPS)
         replaces, what = probe.JOBS[job]
         records.append(dict(
             name=f"probe_bf16.{job}", route="cuda", source=probe.SOURCE, replaces=replaces,
-            launches=launches[job], max_abs_err=errs[job],
-            tolerance=PROBE_SUM_TOL if sums else "exact", ms=min(runs["kernel"]),
-            kernel_ms=min(runs["kernel"]), plain_ms=min(runs["plain"]), bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=None, probes=what, flops=ops, bytes=nbytes,
-            timing_runs_ms=runs))
+            launches=launches[job], max_abs_err=err,
+            tolerance=PROBE_SUM_TOL if sums else "exact", ms=kernel_ms, kernel_ms=kernel_ms,
+            cold_ms=cold_ms, call_ms=call_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+            library_cold_ms=library_cold_ms, library_call=library_call,
+            library_max_abs_err=library_err,
+            x_bound=kernel_ms / bound_ms,
+            x_library=None if library_ms is None else kernel_ms / library_ms,
+            kernels_ms=kernels, probes=what, flops=ops, bytes=nbytes))
     print("probe check: " + json.dumps(dict(card=card, jobs={
-        r["name"]: {k: r[k] for k in ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms")}
+        r["name"]: {k: r[k] for k in ("max_abs_err", "kernel_ms", "cold_ms", "call_ms",
+                                      "plain_ms", "library_ms", "library_cold_ms", "bound_ms",
+                                      "x_bound", "x_library", "kernels_ms")}
         for r in records})))
     return records
 
@@ -3443,11 +3575,11 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("kernels", "products", "cli", "paper", "bf16",
+    ap.add_argument("--only", choices=("kernels", "products", "probe", "cli", "paper", "bf16",
                                        "variants", "encoders", "streaming"),
                     default=None,
                     help="run only the environment and kernel phases, or only the product "
-                         "check, or only the cli, the paper, the bf16 (the bf16 kernel check "
+                         "check, or only the probe check, or only the cli, the paper, the bf16 (the bf16 kernel check "
                          "and the bf16 fit), the variants, the encoders or the streaming phase "
                          "(no result line)")
     args = ap.parse_args(argv)
@@ -3470,8 +3602,8 @@ def main(argv=None) -> int:
         phase_bf16_kernels(card)
         phase_train_bf16(card)
         return 0
-    if args.only in ("variants", "encoders", "streaming"):
-        phase = dict(variants=phase_variants, encoders=phase_encoders,
+    if args.only in ("probe", "variants", "encoders", "streaming"):
+        phase = dict(probe=phase_probe, variants=phase_variants, encoders=phase_encoders,
                      streaming=phase_streaming)[args.only]
         summary = phase(card)
         os.makedirs(OUT_DIR, exist_ok=True)
@@ -3540,8 +3672,8 @@ def main(argv=None) -> int:
                        paper=paper, variants=variants, encoders=encoders, streaming=streaming,
                        phase_wall_s=wall), f, indent=1)
     keys = ("name", "route", "source", "replaces", "compute_dtype", "launches", "max_abs_err",
-            "tolerance", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "product_ms")
+            "tolerance", "ms", "kernel_ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_call", "product_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

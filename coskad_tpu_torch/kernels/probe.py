@@ -21,6 +21,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .stse_fused import LaunchCounter
 
 SOURCE = "coskad_tpu_torch/kernels/csrc/probe_bf16.cu"
@@ -40,13 +41,16 @@ JOBS = {
     "transpose_pure": ("scripts/probe_mosaic.py:127", "bf16 (0, 2, 1) transpose"),
     "transpose_merge": ("scripts/probe_mosaic.py:132", "transpose, then [C*N, BB] rows"),
 }
+_INDEX = {job: i for i, job in enumerate(JOBS)}
 launches: Dict[str, LaunchCounter] = {job: LaunchCounter() for job in JOBS}
 
 
-def inputs(device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
-    """The probe's inputs: a, b = RandomState(0 and 1).randn(32, 64, 256), f32."""
+def inputs(device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The probe's inputs: a, b = RandomState(0 and 1).randn(32, 64, 256), f32,
+    on `device` (raises where CUDA is asked for and missing)."""
+    dev = resolve_device(device)
     return tuple(torch.from_numpy(np.random.RandomState(i).randn(*SHAPE).astype(np.float32))
-                 .to(device) for i in range(2))
+                 .to(dev) for i in range(2))
 
 
 def _bf(t: torch.Tensor) -> torch.Tensor:
@@ -105,17 +109,36 @@ def work(job: str) -> Tuple[float, float]:
     return float(ops), 4.0 * (reads + count)
 
 
+def bind(lib):
+    """Set the argument and return types of the kernel library's C entries
+    (the built library, a variant of it, or the host emulation's) and read
+    each job's workspace size; returns `lib`."""
+    lib.probe_bf16_run.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5
+    lib.probe_bf16_run.restype = ctypes.c_int
+    lib.probe_bf16_workspace.argtypes = [ctypes.c_int]
+    lib.probe_bf16_workspace.restype = ctypes.c_int
+    lib.probe_bf16_error_string.argtypes = [ctypes.c_int]
+    lib.probe_bf16_error_string.restype = ctypes.c_char_p
+    lib.workspace_floats = [lib.probe_bf16_workspace(i) for i in range(len(JOBS))]
+    return lib
+
+
 def _library():
     from . import build
 
     lib = build.load("probe_bf16")
-    if not getattr(lib, "_coskad_typed", False):
-        lib.probe_bf16_run.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
-        lib.probe_bf16_run.restype = ctypes.c_int
-        lib.probe_bf16_error_string.argtypes = [ctypes.c_int]
-        lib.probe_bf16_error_string.restype = ctypes.c_char_p
-        lib._coskad_typed = True
-    return lib
+    return lib if hasattr(lib, "workspace_floats") else bind(lib)
+
+
+def _launch(lib, job: str, a, b, out) -> int:
+    """Launch the job on the current device's current stream, its
+    partials' workspace (dot0, min_bf16) from PyTorch's allocator."""
+    i = _INDEX[job]
+    floats = lib.workspace_floats[i]
+    work = torch.empty((floats,), dtype=torch.float32, device=a.device) if floats else None
+    return lib.probe_bf16_run(i, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                              None if work is None else work.data_ptr(),
+                              torch.cuda.current_stream().cuda_stream)
 
 
 def run(job: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -135,10 +158,11 @@ def run(job: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((c, n, bb) if job == "transpose_pure" else SHAPE, dtype=torch.float32,
                       device=a.device)
     lib = _library()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.probe_bf16_run(list(JOBS).index(job), a.data_ptr(), b.data_ptr(),
-                                 out.data_ptr(), stream)
+    if a.device.index == torch.cuda.current_device():
+        err = _launch(lib, job, a, b, out)
+    else:
+        with torch.cuda.device(a.device):
+            err = _launch(lib, job, a, b, out)
     if err != 0:
         raise RuntimeError(f"probe_bf16 {job} launch failed: "
                            f"{lib.probe_bf16_error_string(err).decode()}")

@@ -1,18 +1,18 @@
 // Runs a CUDA kernel source on the host, for tests on machines without a GPU.
 //
-// Covers the subset the port's kernels use: float2, float4, uint2, __ldg, rsqrtf, threadIdx
-// (x) and blockIdx (x, y) with a dim3 grid, dynamic shared memory and
-// __syncthreads, __nv_bfloat16 with the conversions, compares, products and
-// min the probes use, and the warp-level pieces of the batch-reduction
+// Covers the subset the port's kernels use: float2, float4, uint2, uint4, __ldg, rsqrtf,
+// threadIdx (x) and blockIdx (x, y) with a dim3 grid, dynamic shared memory and
+// __syncthreads, __nv_bfloat16 and __nv_bfloat162 with the conversions,
+// compares, products and min the probes use, and the warp-level pieces of the batch-reduction
 // products: __syncwarp, cvt.rna.tf32.f32 (tf32_of), cvt.rn.bf16.f32
 // (bf16_bits), cvt.rn.bf16x2.f32 (pack_bf16x2), the m16n8k8 TF32 mma
 // (mma_tf32), the m16n8k16 and m16n8k8 bf16 mma (mma_bf16_k16, mma_bf16_k8)
 // and cp.async of fp32 or bf16 bytes (cp_async16 / cp_async4 as plain
 // copies, cp_async_commit / cp_async_wait as no-ops). It defines CUDA_HOST_EMU, under
 // which a kernel source leaves out its inline-PTX versions of those helpers.
-// Each CUDA thread of a block is a std::thread, __syncthreads is a
-// std::barrier and each warp has a barrier of its own; blocks run one after
-// another. Shared memory starts as NaN (0x7FC07FC0, a NaN as a float and as
+// Each CUDA thread of a block is a std::thread (one set a launch, which
+// runs the blocks one after another), __syncthreads is a std::barrier and
+// each warp has a barrier of its own. Shared memory starts as NaN (0x7FC07FC0, a NaN as a float and as
 // each of its bf16 halves), so a read of a value no thread wrote shows up in
 // the output. The test rewrites each kernel's `extern __shared__`
 // declaration to read g_smem and each <<<...>>> launch to call emu_launch
@@ -44,6 +44,10 @@ struct uint2 {
   uint32_t x, y;
 };
 inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
+struct uint4 {
+  uint32_t x, y, z, w;
+};
+inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return {a, b, c, d}; }
 
 struct dim3 {
   int x, y, z;
@@ -218,6 +222,28 @@ inline __nv_bfloat16 __hmul(__nv_bfloat16 a, __nv_bfloat16 b) {
 }
 inline __nv_bfloat16 __hmin(__nv_bfloat16 a, __nv_bfloat16 b) { return __hlt(b, a) ? b : a; }
 
+// bf16x2: two bf16 values, x the low half; each operation is the scalar one
+// on each half (a compare gives 1.0 or 0.0).
+struct __nv_bfloat162 {
+  __nv_bfloat16 x, y;
+};
+inline __nv_bfloat162 __floats2bfloat162_rn(float lo, float hi) {
+  return {__float2bfloat16(lo), __float2bfloat16(hi)};
+}
+inline __nv_bfloat162 __bfloat162bfloat162(__nv_bfloat16 v) { return {v, v}; }
+inline float __low2float(__nv_bfloat162 v) { return __bfloat162float(v.x); }
+inline float __high2float(__nv_bfloat162 v) { return __bfloat162float(v.y); }
+inline __nv_bfloat162 __hmul2(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return {__hmul(a.x, b.x), __hmul(a.y, b.y)};
+}
+inline __nv_bfloat162 __hmin2(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return {__hmin(a.x, b.x), __hmin(a.y, b.y)};
+}
+inline __nv_bfloat162 __hlt2(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return {__float2bfloat16(__hlt(a.x, b.x) ? 1.0f : 0.0f),
+          __float2bfloat16(__hlt(a.y, b.y) ? 1.0f : 0.0f)};
+}
+
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 typedef void* cudaEvent_t;
@@ -265,28 +291,33 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, K, int, s
   return cudaSuccess;
 }
 
+// A launch: `threads` host threads, made once, run the grid's blocks one
+// after another; between two blocks every thread waits, and thread 0 fills
+// shared memory with NaN again.
 template <class K, class... A>
 void emu_launch(K kernel, dim3 grid, int threads, size_t smem_bytes, A... args) {
   std::vector<float> smem(smem_bytes / sizeof(float) + 4);
-  for (int by = 0; by < grid.y; ++by)
-    for (int bx = 0; bx < grid.x; ++bx) {
-      std::fill(smem.begin(), smem.end(), __uint_as_float(0x7FC07FC0u));
-      g_smem = smem.data();
-      std::barrier<> barrier(threads);
-      g_barrier = &barrier;
-      std::vector<std::unique_ptr<EmuWarp>> warps;
-      for (int w = 0; w * 32 < threads; ++w)
-        warps.push_back(std::make_unique<EmuWarp>(threads - w * 32 < 32 ? threads - w * 32 : 32));
-      g_warps = &warps;
-      std::vector<std::thread> pool;
-      for (int t = 0; t < threads; ++t)
-        pool.emplace_back([&, t] {
-          threadIdx.x = t;
-          threadIdx.y = 0;
+  g_smem = smem.data();
+  std::barrier<> barrier(threads), between(threads);
+  g_barrier = &barrier;
+  std::vector<std::unique_ptr<EmuWarp>> warps;
+  for (int w = 0; w * 32 < threads; ++w)
+    warps.push_back(std::make_unique<EmuWarp>(threads - w * 32 < 32 ? threads - w * 32 : 32));
+  g_warps = &warps;
+  std::vector<std::thread> pool;
+  for (int t = 0; t < threads; ++t)
+    pool.emplace_back([&, t] {
+      threadIdx.x = t;
+      threadIdx.y = 0;
+      for (int by = 0; by < grid.y; ++by)
+        for (int bx = 0; bx < grid.x; ++bx) {
+          if (t == 0) std::fill(smem.begin(), smem.end(), __uint_as_float(0x7FC07FC0u));
+          between.arrive_and_wait();
           blockIdx.x = bx;
           blockIdx.y = by;
           kernel(args...);
-        });
-      for (auto& th : pool) th.join();
-    }
+          between.arrive_and_wait();
+        }
+    });
+  for (auto& th : pool) th.join();
 }

@@ -8,7 +8,7 @@ exactly (bf16 rounding is round to nearest even in both, and a product of
 two bf16 values is exact in f32 before it is rounded). The sums (dots, min)
 agree to f32 reassociation over up to 16,384 terms. The CUDA source also
 runs on host threads (tests/cuda_host_emu.h) for the jobs that are quick
-there."""
+there: every job, each in seconds."""
 
 import ctypes
 import os
@@ -92,7 +92,7 @@ SUMS = ("dot0_bf16", "dot0_small_bf16", "min_bf16", "dotg_bf16")
 
 @pytest.mark.parametrize("job", sorted(probe.JOBS))
 def test_plain_matches_probe_job_body(job):
-    a, b = probe.inputs()
+    a, b = probe.inputs("cpu")
     before = probe.launches[job].value
     got = probe.run(job, a, b).numpy()  # a CPU tensor: the plain version, no launch
     assert probe.launches[job].value == before
@@ -116,32 +116,69 @@ def host_lib(tmp_path_factory):
         src = f.read().replace("#include <cuda_bf16.h>\n", "")
     src, n_launch = re.subn(r"(\w+)<<<([^,]+),\s*([^,]+),\s*([^,]+),[^>]*>>>\(",
                             r"emu_launch(\1, \2, \3, \4, ", src)
-    assert n_launch == 8, "kernel source no longer matches the host rewrite"
+    assert n_launch == 10, "kernel source no longer matches the host rewrite"
     d = tmp_path_factory.mktemp("probe_host")
     (d / "probe_host.cpp").write_text(
         src.replace("#include <cuda_runtime.h>", '#include "cuda_host_emu.h"'))
     lib = str(d / "libprobe_host.so")
-    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-I", HERE, "-o",
-                    lib, str(d / "probe_host.cpp")], check=True, capture_output=True, timeout=300)
-    so = ctypes.CDLL(lib)
-    so.probe_bf16_run.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
-    so.probe_bf16_run.restype = ctypes.c_int
+    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-I", HERE, "-I",
+                    build.CSRC, "-o", lib, str(d / "probe_host.cpp")], check=True,
+                   capture_output=True, timeout=300)
+    so = probe.bind(ctypes.CDLL(lib))
+    so.emu_mma_count.argtypes = [ctypes.c_int]
+    so.emu_mma_count.restype = ctypes.c_longlong
     return so
 
 
-# One job of each kernel the emulator runs in seconds (the elementwise jobs
-# and dot0 launch 2,048 blocks of 256 host threads each: minutes).
-@pytest.mark.parametrize("job", ["min_bf16", "dotg_bf16", "transpose_pure"])
-def test_host_run_of_cuda_source_matches_plain(host_lib, job):
-    a, b = probe.inputs()
+_FIRST_HOST_RUN = {}  # job -> the output of its first host run
+
+
+def host_run(lib, job, a, b):
+    """The job's CUDA source run on host threads (its workspace NaN at the
+    start): (output, bf16 mma calls)."""
     out = torch.empty(a.numel())
-    assert host_lib.probe_bf16_run(list(probe.JOBS).index(job), a.data_ptr(), b.data_ptr(),
-                                   out.data_ptr(), None) == 0
+    work = torch.full((max(lib.workspace_floats[probe._INDEX[job]], 1),), float("nan"))
+    lib.emu_mma_count(1)
+    assert lib.probe_bf16_run(probe._INDEX[job], a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                              work.data_ptr(), None) == 0
+    _FIRST_HOST_RUN.setdefault(job, out)
+    return out, lib.emu_mma_count(1)
+
+
+@pytest.mark.parametrize("job", list(probe.JOBS))
+def test_host_run_of_cuda_source_matches_plain(host_lib, job):
+    a, b = probe.inputs("cpu")
+    out, mma = host_run(host_lib, job, a, b)
     want = probe.plain(job, a, b).reshape(-1)
     if job in SUMS:
         np.testing.assert_allclose(out.numpy(), want.numpy(), **SUM_TOL)
     else:
         np.testing.assert_array_equal(out.numpy(), want.numpy())
+    # dot0 runs on the bf16 mma: 128 blocks x 4 warps x 4 m16n8k16 tiles
+    assert mma == (2048 if job.startswith("dot0") else 0)
+
+
+@pytest.mark.parametrize("job", SUMS)
+def test_host_runs_of_sum_jobs_give_the_same_bits(host_lib, job):
+    """The sums' partials are summed in a fixed order: two runs, one result."""
+    a, b = probe.inputs("cpu")
+    first = _FIRST_HOST_RUN.get(job)
+    if first is None:
+        first, _ = host_run(host_lib, job, a, b)
+    second, _ = host_run(host_lib, job, a, b)
+    assert torch.equal(first, second)
+
+
+def test_inputs_default_to_cuda():
+    """`inputs()` is an entry point: it runs on the card unless asked for the
+    CPU, and raises where there is no CUDA."""
+    if torch.cuda.is_available():
+        assert probe.inputs()[0].is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            probe.inputs()
+    a, b = probe.inputs("cpu")
+    assert a.device.type == b.device.type == "cpu" and not torch.equal(a, b)
 
 
 def test_jobs_follow_the_kernel_enum_and_work():
@@ -166,4 +203,4 @@ def test_jobs_follow_the_kernel_enum_and_work():
         else:
             assert 2 * out <= nbytes <= 3 * out
     with pytest.raises(ValueError, match="unknown probe job"):
-        probe.run("nope", *probe.inputs())
+        probe.run("nope", *probe.inputs("cpu"))
