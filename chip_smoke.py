@@ -73,7 +73,9 @@ Phases, each printing a line before the last:
      scripts/probe_mosaic.py, each against its plain version and twice for
      the same bits; each job's device time from torch.profiler (the
      median over PROBE_CALLS calls, inputs warm in L2, and with L2
-     scrubbed) by kernel, its time by CUDA events around Python calls
+     scrubbed) by kernel (by CUDA events around calls queued behind a
+     device-side sleep where TRACE_TRIES traces held too few whole calls,
+     with the host's gaps where a call waits; `timed_by` says which), its time by CUDA events around Python calls
      (the wrapper's host cost), its plain version's, and that of one
      PyTorch call computing the same function (`library_call`), against
      its bound; `--only probe` runs just this check.
@@ -185,7 +187,23 @@ Phases, each printing a line before the last:
      call: the offline clip, each drain of each stream, each request), each
      stream's drains scoring the clip's windows once, K2-K5 none.
      `--only streaming` runs just this after the build.
-  8. a line of each phase's wall time, a JSON line of every kernel
+  8. export: a 1-epoch float32 flagship checkpoint (the streaming phase's)
+     exported by `export_hlo.export_scorer` on the card, whose encoder step
+     must be K1's custom op (meta encoder_route "K1"); 40,000 windows
+     scored through the loaded artifact, counted: K1 launched once a chunk
+     and nothing else, the scores within rtol 5e-6 / atol 1e-6 of
+     `AnomalyScorer.score_windows` and the same bits again; a 2048-window
+     chunk through the artifact and through the library in turns (host
+     clock), the export's and the load's seconds and the artifact's bytes;
+     the float32 copy of config/UBnormal/spherical_vae.yaml (seeded weights,
+     a drawn anchor) through its sampled two-program artifact against the
+     library in the same band; an artifact written on the CPU (module
+     route) scoring on the card, and the card's moved to the CPU (K1's op
+     on its plain version), each against the card's library within
+     SCORE_TOL; one /v1/score/windows request through
+     `ScoringService(artifact=...)`, the artifact's bits. `--only export`
+     runs just this after the build.
+  9. a line of each phase's wall time, a JSON line of every kernel
      (launches on the main paths, error, times, bound), then the last line
      {"ok": true, "device": {...}}.
 
@@ -261,6 +279,16 @@ PROBE_SUM_TOL = dict(rtol=1e-5, atol=2e-3)
 PROBE_CALLS = 30  # calls a probe job's times are taken over
 PROBE_MIN_CALLS = 20  # of them traced whole (the profiler drops an event now and then)
 CALL_GAP_S = 1e-3  # idle between two traced calls, which marks where a call ends
+# torch.profiler now and then returns a trace with no device events at all, or
+# too few whole calls: a trace is taken again up to this many times in all,
+# and a probe time then falls back to CUDA events (queued_ms)
+TRACE_TRIES = 3
+# a device-side sleep (~10 ms at the H100's clock) that queued_ms's calls are
+# queued behind, so the host's launch cost is hidden from the CUDA events
+QUEUE_LEAD_CYCLES = 20_000_000
+QUEUE_TIMED = "every kernel of a call, by CUDA events (queued_ms)"
+QUEUE_TIMED_GAPS = "every kernel of a call and the host's gaps, by CUDA events (queued_ms)"
+TIMED_BY = {QUEUE_TIMED: "cuda_events", QUEUE_TIMED_GAPS: "cuda_events_with_host_gaps"}
 L2_SCRUB_BYTES = 128 << 20  # written between calls to take inputs out of the 50 MB L2
 SCORE_TOL = dict(rtol=1e-3, atol=1e-6)  # scores square latent differences
 REFUSED_FRAMES = 28  # at 18 joints K1's planner takes up to 27 frames
@@ -738,14 +766,9 @@ def phase_slice(card):
 def device_profile(fn):
     """Device busy time, span and idle share of one call of fn, and the
     share of device time in the port's kernels, from torch.profiler."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    check(len(events) > 0, "torch.profiler recorded no device activity")
+    events = device_events(fn, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     busy = sum(e.time_range.elapsed_us() for e in events)
     span = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
     k1 = sum(e.time_range.elapsed_us() for e in events if "stse_fused_kernel" in e.name)
@@ -771,17 +794,31 @@ def ms_by_kernel(events) -> dict:
     return out
 
 
+def device_events(fn, activities) -> list:
+    """The device events of one call of fn, from torch.profiler. A trace
+    with none is one the profiler lost (every caller's fn launches
+    kernels): fn is called and traced again, up to TRACE_TRIES calls."""
+    import torch
+    from torch.profiler import profile
+
+    for _ in range(TRACE_TRIES):
+        with profile(activities=activities) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events
+        print(f"torch.profiler recorded no device activity in a trace (of {TRACE_TRIES} tries)")
+    raise RuntimeError(f"chip_smoke check failed: torch.profiler recorded no device activity in "
+                       f"{TRACE_TRIES} traces")
+
+
 def traced_spans(fn) -> list:
     """(kernel name, start us, end us) of each device event in one call of
     fn, in the order they ran, from torch.profiler."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
+    events = sorted(device_events(fn, [ProfilerActivity.CUDA]), key=lambda e: e.time_range.start)
     return [(kernel_name(e), e.time_range.start, e.time_range.end) for e in events]
 
 
@@ -1715,13 +1752,13 @@ def mono_path(card):
     return summary
 
 
-def traced_calls(fn, calls: int, skip: int = 0) -> tuple:
+def traced_calls(fn, calls: int, skip: int = 0):
     """(the device ms of each kernel of each traced call of fn, the kernel
     names of a call), from one torch.profiler trace of `calls` calls: the
     calls run apart (a synchronize and CALL_GAP_S of idle after each), so a
     call's kernels are those between two gaps, less its first `skip`. The
     profiler may drop an event: a call whose kernels are not the most
-    common list is left out, and at least PROBE_MIN_CALLS must be left."""
+    common list is left out. None when fewer than PROBE_MIN_CALLS are left."""
     import torch
 
     def run():
@@ -1740,16 +1777,50 @@ def traced_calls(fn, calls: int, skip: int = 0) -> tuple:
     lists = [tuple(n for n, _ in g) for g in groups]
     names = max(set(lists), key=lists.count)
     kept = [g for g, n in zip(groups, lists) if n == names]
-    check(len(kept) >= PROBE_MIN_CALLS and len(names) > skip,
-          f"{len(kept)} of {calls} calls traced whole: {lists}")
+    if len(kept) < PROBE_MIN_CALLS or len(names) <= skip:
+        print(f"torch.profiler traced {len(kept)} of {calls} calls whole ({len(names)} kernels "
+              f"a call, {len(set(lists))} kernel lists)")
+        return None
     return [[ms for _, ms in g[skip:]] for g in kept], list(names[skip:])
+
+
+def queued_ms(fn, calls: int) -> tuple:
+    """(device ms of a call of fn by CUDA events, whether the host's launch
+    cost stayed out): `calls` calls queued behind a device-side sleep of
+    QUEUE_LEAD_CYCLES, so the device runs them back to back; the median of
+    three such runs. Where the host had not queued every call by the time
+    the sleep ended (a call that waits on the device, as a copy from
+    pageable host memory does), the events also hold the host's gaps."""
+    import statistics
+
+    import torch
+
+    def run():
+        begin, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        torch.cuda.synchronize()
+        begin.record()
+        torch.cuda._sleep(QUEUE_LEAD_CYCLES)
+        start.record()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host_ms = (time.perf_counter() - t) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / calls, host_ms < begin.elapsed_time(start)
+
+    runs = [run() for _ in range(3)]
+    return statistics.median(ms for ms, _ in runs), all(ahead for _, ahead in runs)
 
 
 def device_ms(fn, calls: int = PROBE_CALLS, warmup: int = 3, scrub=None) -> tuple:
     """(the median device ms of a call of fn over the traced calls, [(each
     kernel of a call, its median ms)]). With `scrub` (a tensor larger than
     L2), each call first fills it, so fn finds its inputs in device memory;
-    the fill's time is left out."""
+    the fill's time is left out. When no trace of TRACE_TRIES holds
+    PROBE_MIN_CALLS whole calls, the time is queued_ms's, the fill's own
+    queued_ms taken off, and the one kernel entry is named QUEUE_TIMED, or
+    QUEUE_TIMED_GAPS where the host's gaps are in it."""
     import statistics
 
     import torch
@@ -1758,9 +1829,19 @@ def device_ms(fn, calls: int = PROBE_CALLS, warmup: int = 3, scrub=None) -> tupl
     for _ in range(warmup):
         call()
     torch.cuda.synchronize()
-    per_call, names = traced_calls(call, calls, skip=0 if scrub is None else 1)
-    return statistics.median(sum(c) for c in per_call), [
-        (name, statistics.median(c[i] for c in per_call)) for i, name in enumerate(names)]
+    for _ in range(TRACE_TRIES):
+        traced = traced_calls(call, calls, skip=0 if scrub is None else 1)
+        if traced is not None:
+            per_call, names = traced
+            return statistics.median(sum(c) for c in per_call), [
+                (name, statistics.median(c[i] for c in per_call)) for i, name in enumerate(names)]
+    ms, ahead = queued_ms(call, calls)
+    if scrub is not None:
+        ms -= queued_ms(lambda: scrub.fill_(0.0), calls)[0]
+    how = QUEUE_TIMED if ahead else QUEUE_TIMED_GAPS
+    print(f"no trace of {TRACE_TRIES} held {PROBE_MIN_CALLS} whole calls: {ms:.6f} ms a call, "
+          f"{how}")
+    return ms, [(how, ms)]
 
 
 def probe_library(job, a, b):
@@ -1835,15 +1916,22 @@ def phase_probe(card):
         check(ok and launches[job] == 1, f"probe {job}: max abs err {err:.3e} "
                                          f"(launches {launches[job]})")
         check(torch.equal(probe.run(job, a, b), out), f"probe {job}: two runs, other bits")
-        kernel_ms, kernels = device_ms(lambda: probe.run(job, a, b))
-        cold_ms, _ = device_ms(lambda: probe.run(job, a, b), scrub=scrub)
-        plain_ms, _ = device_ms(lambda: probe.plain(job, a, b))
+        timed = {}
+
+        def timed_ms(key, fn, **k):
+            ms, kernels = device_ms(fn, **k)
+            timed[key] = TIMED_BY.get(kernels[0][0], "profiler")
+            return ms, kernels
+
+        kernel_ms, kernels = timed_ms("ms", lambda: probe.run(job, a, b))
+        cold_ms, _ = timed_ms("cold_ms", lambda: probe.run(job, a, b), scrub=scrub)
+        plain_ms, _ = timed_ms("plain_ms", lambda: probe.plain(job, a, b))
         call_ms = min(cuda_ms(lambda: probe.run(job, a, b), PROBE_CALLS) for _ in range(2))
         library_call, library, as_out = probe_library(job, a, b)
         library_ms = library_cold_ms = library_err = None
         if library is not None:
-            library_ms, _ = device_ms(library)
-            library_cold_ms, _ = device_ms(library, scrub=scrub)
+            library_ms, _ = timed_ms("library_ms", library)
+            library_cold_ms, _ = timed_ms("library_cold_ms", library, scrub=scrub)
             got = as_out(library())
             library_err = float((got - want).abs().max())
             check(within(got, want, **PROBE_SUM_TOL) if sums else torch.equal(got, want),
@@ -1862,11 +1950,11 @@ def phase_probe(card):
             library_max_abs_err=library_err,
             x_bound=kernel_ms / bound_ms,
             x_library=None if library_ms is None else kernel_ms / library_ms,
-            kernels_ms=kernels, probes=what, flops=ops, bytes=nbytes))
+            kernels_ms=kernels, timed_by=timed, probes=what, flops=ops, bytes=nbytes))
     print("probe check: " + json.dumps(dict(card=card, jobs={
         r["name"]: {k: r[k] for k in ("max_abs_err", "kernel_ms", "cold_ms", "call_ms",
                                       "plain_ms", "library_ms", "library_cold_ms", "bound_ms",
-                                      "x_bound", "x_library", "kernels_ms")}
+                                      "x_bound", "x_library", "kernels_ms", "timed_by")}
         for r in records})))
     return records
 
@@ -3571,17 +3659,208 @@ def streaming_run(card, root):
     return summary
 
 
+ARTIFACT_WINDOWS = 40000
+ARTIFACT_TOL = dict(rtol=5e-6, atol=1e-6)  # artifact vs library: tests/test_export_hlo.py's band
+ARTIFACT_TIMED = 10  # 2048-window chunks timed a side, in turns
+MOVED_WINDOWS = 512  # scored by the artifact moved to the CPU (K1's plain version)
+
+
+def phase_export(card):
+    """The scoring artifact (export_hlo) on the card, in a temporary
+    directory removed afterwards."""
+    root = tempfile.mkdtemp(prefix="coskad_export_")
+    t0 = time.perf_counter()
+    try:
+        summary = export_run(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    summary["phase_s"] = time.perf_counter() - t0
+    print(f"export phase: {summary['phase_s']:.1f} s")
+    return summary
+
+
+def export_run(card, root):
+    import io
+    import threading
+
+    import torch
+    from coskad_tpu_torch.cli import train as train_cli
+    from coskad_tpu_torch.cli.common import load_config
+    from coskad_tpu_torch.data.windows import SegmentDataset
+    from coskad_tpu_torch.export_hlo import export_scorer, load_artifact
+    from coskad_tpu_torch.http_server import ScoringService, build_server
+    from coskad_tpu_torch.serve import AnomalyScorer
+    from coskad_tpu_torch.train.loop import Trainer
+
+    marks = [("start", time.perf_counter())]
+
+    def mark(name):  # the phase's wall by step
+        marks.append((name, time.perf_counter()))
+
+    configs = write_cli_tree(root, np.random.default_rng(9))
+    train_cli.main(["--config", configs["resumed"], "--epochs", "1", "--device", DEVICE])
+    ckpt = os.path.join(load_config(configs["resumed"]).ckpt_dir, "best.ckpt")
+    mark("checkpoint")
+    scorer = AnomalyScorer.from_checkpoint(ckpt, device=DEVICE)
+    cfg = scorer.cfg
+    check(cfg.run.compute_dtype == "float32" and scorer.trainer.model.kernel_takes(),
+          "the export phase's model is not the float32 flagship on K1")
+    art_path = os.path.join(root, "flagship.zip")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    meta = export_scorer(scorer, art_path)
+    export_s = time.perf_counter() - t
+    check(meta["encoder_route"] == "K1" and meta["device"] == "cuda",
+          f"the flagship artifact's encoder route is {meta['encoder_route']}, not K1")
+    t = time.perf_counter()
+    art = load_artifact(art_path, device=DEVICE)
+    load_s = time.perf_counter() - t
+    shape = (3, cfg.data.seg_len, cfg.data.n_joints)
+    windows = np.random.default_rng(12).normal(size=(ARTIFACT_WINDOWS, *shape)).astype(np.float32)
+    chunks = -(-ARTIFACT_WINDOWS // cfg.data.batch_size)
+    counters = launch_counters()
+
+    # --- the artifact's scoring path, counted ---
+    zero(counters)
+    got = art.score_windows(windows)
+    torch.cuda.synchronize()
+    launches = read(counters)
+    # --- end of the counted run ---
+    want = dict(stse_fused=chunks, stse_train_forward=0, stse_train_layer_backward=0,
+                stse_train_top_backward=0, stse_train_mono_backward=0)
+    check(launches == want, f"export: launches {launches}, predicted {want} ({chunks} chunks "
+                            f"of {cfg.data.batch_size})")
+    library = scorer.score_windows(windows)
+    err = float(np.abs(got - library).max())
+    check(got.shape == library.shape and np.isfinite(got).all()
+          and np.allclose(got, library, **ARTIFACT_TOL),
+          f"the artifact's scores vs the library's: max abs {err:.3e}")
+    check(np.array_equal(got, art.score_windows(windows)), "the artifact's scores repeat "
+                                                            "with other bits")
+
+    chunk = windows[:TRAIN_BATCH]
+    for _ in range(2):  # warm both paths
+        art.score_windows(chunk)
+        scorer.score_windows(chunk)
+    art_ms, lib_ms = [], []
+    for _ in range(ARTIFACT_TIMED):
+        for fn, out in ((art.score_windows, art_ms), (scorer.score_windows, lib_ms)):
+            t = time.perf_counter()
+            fn(chunk)
+            out.append((time.perf_counter() - t) * 1e3)
+    mark("flagship")
+
+    # the float32 copy of the spherical VAE: a sampled artifact of two programs
+    trees = (os.path.join(root, "pose"), os.path.join(root, "csv"))
+    vae_cfg = load_config(paper_config("UBnormal/spherical_vae", trees,
+                                       os.path.join(root, "vae"), float32=True)[0])
+    rng = np.random.default_rng(13)
+    c = vae_cfg.model.num_coords + 1
+    vae_shape = (c, vae_cfg.data.seg_len, vae_cfg.data.n_joints)
+    train_ds = SegmentDataset(
+        data=rng.normal(size=(64, *vae_shape)).astype(np.float32),
+        meta=np.zeros((64, 4), np.int64), frame_ids=np.zeros((64, vae_shape[1]), np.int32),
+        num_transform=vae_cfg.data.num_transform)
+    tr = Trainer(vae_cfg, train_ds, device=DEVICE)
+    anchor = rng.normal(size=vae_cfg.model.latent_dim)
+    state = tr.init_state().replace(step=3, mean_vector=torch.as_tensor(
+        anchor / np.linalg.norm(anchor), dtype=torch.float32, device=tr.device))
+    vae_scorer = AnomalyScorer(vae_cfg, state, trainer=tr)
+    check(vae_cfg.model.variant == "vae" and tr.model.kernel_takes(),
+          "the float32 spherical VAE does not take K1")
+    vae_path = os.path.join(root, "vae.zip")
+    vae_meta = export_scorer(vae_scorer, vae_path)
+    check(vae_meta["vae_sample"] and vae_meta["encoder_route"] == "K1",
+          f"the VAE artifact: sampled {vae_meta['vae_sample']}, route {vae_meta['encoder_route']}")
+    vae_art = load_artifact(vae_path, device=DEVICE)
+    vae_windows = rng.normal(size=(2 * vae_cfg.data.batch_size + 100, *vae_shape)).astype(
+        np.float32)
+    vae_got = vae_art.score_windows(vae_windows)
+    vae_want = vae_scorer.score_windows(vae_windows)
+    vae_err = float(np.abs(vae_got - vae_want).max())
+    check(np.isfinite(vae_got).all() and np.allclose(vae_got, vae_want, **ARTIFACT_TOL),
+          f"the sampled VAE artifact vs the library: max abs {vae_err:.3e}")
+    check(np.array_equal(vae_got, vae_art.score_windows(vae_windows)),
+          "the VAE artifact's scores repeat with other bits")
+    mark("vae")
+
+    # an artifact written on the CPU (module route) scoring on the card, and
+    # the card's moved to the CPU (K1's op on its plain version)
+    cpu_path = os.path.join(root, "cpu.zip")
+    cpu_meta = export_scorer(AnomalyScorer.from_checkpoint(ckpt, device="cpu"), cpu_path)
+    check(cpu_meta["encoder_route"] == "modules" and cpu_meta["device"] == "cpu",
+          f"the CPU artifact: {cpu_meta['encoder_route']} on {cpu_meta['device']}")
+    cross = windows[:2 * TRAIN_BATCH]
+    zero(counters)
+    cpu_on_card = load_artifact(cpu_path, device=DEVICE).score_windows(cross)
+    moved = load_artifact(art_path, device="cpu")
+    on_cpu = moved.score_windows(windows[:MOVED_WINDOWS])
+    cross_launches = read(counters)
+    cross_errs = dict(cpu_artifact_on_card=float(np.abs(cpu_on_card - library[:len(cross)]).max()),
+                      card_artifact_on_cpu=float(np.abs(on_cpu - got[:MOVED_WINDOWS]).max()))
+    check(cross_launches["stse_fused"] == 0, f"K1 launched {cross_launches} by the module-route "
+                                             "artifact on the card or the moved one on the CPU")
+    check(np.allclose(cpu_on_card, library[:len(cross)], **SCORE_TOL)
+          and np.allclose(on_cpu, got[:MOVED_WINDOWS], **SCORE_TOL),
+          f"artifacts across devices vs the card's library: {cross_errs}")
+    mark("cross_device")
+
+    # one request through the artifact backend
+    service = ScoringService(artifact=art, source=art_path)
+    server = build_server(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        buf = io.BytesIO()
+        np.save(buf, chunk)
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        info = http_json(url + "/v1/model")
+        by_http = np.float32(http_json(url + "/v1/score/windows", "POST", buf.getvalue(),
+                                       "application/x-npy")["scores"])
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), "the server thread did not stop")
+    check(info["backend"] == "artifact" and np.array_equal(by_http, art.score_windows(chunk)),
+          "the artifact backend's /v1/score/windows differs from the artifact's bits")
+    mark("http")
+    step_s = {name: t - prev for (_, prev), (name, t) in zip(marks, marks[1:])}
+
+    summary = dict(
+        card=card, windows=ARTIFACT_WINDOWS, chunks=chunks, launches=launches,
+        predicted_launches=want, encoder_route=meta["encoder_route"],
+        max_abs_err=err, repeat_exact=True, artifact_bytes=os.path.getsize(art_path),
+        export_s=export_s, load_s=load_s, artifact_chunk_ms=art_ms, library_chunk_ms=lib_ms,
+        artifact_chunk_ms_median=float(np.median(art_ms)),
+        library_chunk_ms_median=float(np.median(lib_ms)),
+        vae=dict(route=vae_meta["encoder_route"], windows=len(vae_windows), max_abs_err=vae_err,
+                 bytes=os.path.getsize(vae_path)),
+        cross_device=dict(cross_errs, launches=cross_launches, cpu_windows=MOVED_WINDOWS),
+        http_exact=True, step_s=step_s)
+    print(f"export: flagship artifact ({meta['encoder_route']}, {summary['artifact_bytes']} B, "
+          f"export {export_s:.2f} s, load {load_s:.2f} s): {ARTIFACT_WINDOWS} windows in "
+          f"{chunks} chunks, launches {launches}, max abs vs library {err:.3e}, repeat exact; "
+          f"a {TRAIN_BATCH}-window chunk {summary['artifact_chunk_ms_median']:.3f} ms artifact "
+          f"vs {summary['library_chunk_ms_median']:.3f} ms library (host clock, median of "
+          f"{ARTIFACT_TIMED} in turns); sampled VAE ({vae_meta['encoder_route']}) max abs "
+          f"{vae_err:.3e} over {len(vae_windows)} windows; across devices {cross_errs}; "
+          f"/v1/score/windows = the artifact's bits; steps s "
+          f"{ {k: round(v, 2) for k, v in step_s.items()} }; on {card}")
+    return summary
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("kernels", "products", "probe", "cli", "paper", "bf16",
-                                       "variants", "encoders", "streaming"),
+                                       "variants", "encoders", "streaming", "export"),
                     default=None,
                     help="run only the environment and kernel phases, or only the product "
                          "check, or only the probe check, or only the cli, the paper, the bf16 (the bf16 kernel check "
-                         "and the bf16 fit), the variants, the encoders or the streaming phase "
-                         "(no result line)")
+                         "and the bf16 fit), the variants, the encoders, the streaming or the "
+                         "export phase (no result line)")
     args = ap.parse_args(argv)
     card, build_s = phase_environment()
     import torch
@@ -3602,9 +3881,9 @@ def main(argv=None) -> int:
         phase_bf16_kernels(card)
         phase_train_bf16(card)
         return 0
-    if args.only in ("probe", "variants", "encoders", "streaming"):
+    if args.only in ("probe", "variants", "encoders", "streaming", "export"):
         phase = dict(probe=phase_probe, variants=phase_variants, encoders=phase_encoders,
-                     streaming=phase_streaming)[args.only]
+                     streaming=phase_streaming, export=phase_export)[args.only]
         summary = phase(card)
         os.makedirs(OUT_DIR, exist_ok=True)
         with open(os.path.join(OUT_DIR, f"chip_smoke_{args.only}.json"), "w") as f:
@@ -3634,6 +3913,7 @@ def main(argv=None) -> int:
     variants = timed("variants", phase_variants, card)
     encoders = timed("encoders", phase_encoders, card)
     streaming = timed("streaming", phase_streaming, card)
+    export = timed("export", phase_export, card)
     print(f"phase wall s: {json.dumps(dict(build=round(build_s, 1), **wall))}")
     kernel["launches_by_path"] = dict(serving=summary["launches"]["stse_fused"],
                                       training=train["launches"]["stse_fused"],
@@ -3643,9 +3923,11 @@ def main(argv=None) -> int:
                                       training_bf16=train_bf16["launches"]["stse_fused"],
                                       variants=variants["launches_total"]["stse_fused"],
                                       encoders=encoders["launches_total"]["stse_fused"],
-                                      streaming=streaming["launches"]["stse_fused"])
-    check(all(kernel["launches_by_path"][p] > 0 for p in ("encoders", "streaming")),
-          f"K1 by path {kernel['launches_by_path']}: none on the encoders or streaming path")
+                                      streaming=streaming["launches"]["stse_fused"],
+                                      export=export["launches"]["stse_fused"])
+    check(all(kernel["launches_by_path"][p] > 0 for p in ("encoders", "streaming", "export")),
+          f"K1 by path {kernel['launches_by_path']}: none on the encoders, streaming or export "
+          "path")
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     for rec in train_kernels + [mono_kernel]:
         by_path = dict(serving=0, training=train["launches"][rec["name"]],
@@ -3654,7 +3936,8 @@ def main(argv=None) -> int:
                        paper=paper["launches_total"][rec["name"]],
                        variants=variants["launches_total"][rec["name"]],
                        encoders=encoders["launches_total"][rec["name"]],
-                       streaming=streaming["launches"][rec["name"]])
+                       streaming=streaming["launches"][rec["name"]],
+                       export=export["launches"][rec["name"]])
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     for rec in bf16_kernels:  # the bf16 form's own paths: the bf16 fit and mono run
@@ -3670,7 +3953,7 @@ def main(argv=None) -> int:
         json.dump(dict(card=card, build_s=build_s, kernels=kernels, products=products,
                        slice=summary, train=train, train_bf16=train_bf16, mono=mono, cli=cli,
                        paper=paper, variants=variants, encoders=encoders, streaming=streaming,
-                       phase_wall_s=wall), f, indent=1)
+                       export=export, phase_wall_s=wall), f, indent=1)
     keys = ("name", "route", "source", "replaces", "compute_dtype", "launches", "max_abs_err",
             "tolerance", "ms", "kernel_ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_call", "product_ms")

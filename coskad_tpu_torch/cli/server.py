@@ -1,14 +1,15 @@
 """Long-running scoring server.
 
     python -m coskad_tpu_torch.cli.server --ckpt exp/UBnormal/run/best.ckpt --port 8800
+    python -m coskad_tpu_torch.cli.server --artifact model.zip --port 8800
     python -m coskad_tpu_torch.cli.server --ckpt best.ckpt --device cpu
 
-Counterpart of `coskad_tpu/cli/server.py` with the checkpoint backend
-(windows, raw windows, clip JSON, streaming sessions); routes and request
-formats are in `coskad_tpu_torch/http_server.py`. The JAX package's
-`--artifact` backend waits for the port's export (ROADMAP.md, Queue 1
-item 6) and raises. Runs on CUDA unless `--device cpu`; the kernels cache
-their builds, so there is no compile cache to enable.
+Counterpart of `coskad_tpu/cli/server.py`. Backends: a training
+checkpoint (windows, raw windows, clip JSON, streaming sessions) or a
+`cli.export` artifact (model-ready windows only, with no model code on the
+serving host); routes and request formats are in
+`coskad_tpu_torch/http_server.py`. Runs on CUDA unless `--device cpu`; the
+kernels cache their builds, so there is no compile cache to enable.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ def main(argv=None) -> int:
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--ckpt", help="training checkpoint (.ckpt)")
     src.add_argument("--artifact",
-                     help="serialized scoring artifact: not ported yet (raises)")
+                     help="serialized scoring artifact (cli.export zip)")
     p.add_argument("--host", default="127.0.0.1",
                    help="bind address (default loopback; set 0.0.0.0 "
                         "explicitly to expose the server)")
@@ -39,19 +40,23 @@ def main(argv=None) -> int:
 
     from ..http_server import ScoringService, build_server
 
-    if args.artifact:
-        # the service refuses an artifact, naming what it waits for
-        ScoringService(artifact=args.artifact)
-    from ..serve import AnomalyScorer
+    if args.ckpt:
+        from ..serve import AnomalyScorer
 
-    service = ScoringService(
-        scorer=AnomalyScorer.from_checkpoint(args.ckpt, device=args.device),
-        source=args.ckpt, min_batch=args.min_batch, max_streams=args.max_streams)
+        backend = {"scorer": AnomalyScorer.from_checkpoint(args.ckpt, device=args.device)}
+        source = args.ckpt
+    else:
+        from ..export_hlo import load_artifact
+
+        backend = {"artifact": load_artifact(args.artifact, device=args.device)}
+        source = args.artifact
+    service = ScoringService(source=source, min_batch=args.min_batch,
+                             max_streams=args.max_streams, **backend)
     server = build_server(service, args.host, args.port,
                           verbose=args.verbose)
     host, port = server.server_address[:2]
     print(f"[server] {service.model_info()['backend']} backend from "
-          f"{args.ckpt} on {service.model_info()['device']}", flush=True)
+          f"{source} on {args.device}", flush=True)
     print(f"[server] listening on http://{host}:{port}", flush=True)
     try:
         server.serve_forever()

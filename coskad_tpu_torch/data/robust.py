@@ -8,10 +8,13 @@ assemble a SegmentDataset of [N, C, T, V] windows (C = x, y, conf=1; or 7
 channels with the 4 global features appended).
 
 Scaler pickles are read by `load_scaler`, whose unpickler resolves only
-the scaler classes (the JAX package's and the port's) and the numpy
-globals an array needs, each to the port's own object: a pickle written by
-the JAX package loads without importing it, and one naming any other
-global is refused. `save_scaler` writes only where `is_primary` is true.
+the scaler classes (the JAX package's, the port's and sklearn's fitted
+`RobustScaler`, the reference's `robust.pkl`) and the numpy globals an
+array needs, each to the port's own object: a pickle written by the JAX
+package or by sklearn loads without importing either, and one naming any
+other global is refused. `save_scaler` writes only where `is_primary` is
+true; `write_sklearn_scaler` writes a `robust.pkl` that sklearn reads,
+without importing sklearn.
 """
 
 from __future__ import annotations
@@ -44,15 +47,36 @@ def _numpy_globals() -> dict:
         multiarray = importlib.import_module("numpy._core.multiarray")
     except ImportError:  # numpy < 2
         multiarray = importlib.import_module("numpy.core.multiarray")
+    try:
+        numeric = importlib.import_module("numpy._core.numeric")
+    except ImportError:  # numpy < 2
+        numeric = importlib.import_module("numpy.core.numeric")
     out = {("numpy", "ndarray"): np.ndarray, ("numpy", "dtype"): np.dtype}
     for mod in ("numpy.core.multiarray", "numpy._core.multiarray"):
         out[(mod, "_reconstruct")] = multiarray._reconstruct
         out[(mod, "scalar")] = multiarray.scalar
+    for mod in ("numpy.core.numeric", "numpy._core.numeric"):  # protocol 5 arrays
+        out[(mod, "_frombuffer")] = numeric._frombuffer
     return out
 
 
+class SklearnRobustScaler:
+    """What the port reads of a pickled fitted sklearn `RobustScaler` (the
+    reference's `robust.pkl`): `center_` and `scale_`. The rest of the
+    estimator's state (its parameters, `n_features_in_`, the sklearn
+    version) is dropped."""
+
+    def __setstate__(self, state: dict) -> None:
+        self.center_ = state.get("center_")
+        self.scale_ = state.get("scale_")
+
+
+# sklearn's module path since 0.22 and the one before it
+_SKLEARN_ROBUST = ("sklearn.preprocessing._data", "sklearn.preprocessing.data")
+
 _ALLOWED = {
     **_numpy_globals(),
+    **{(mod, "RobustScaler"): SklearnRobustScaler for mod in _SKLEARN_ROBUST},
     **{(f"{package}.data.{mod}", cls.__name__): cls
        for package in ("coskad_tpu", "coskad_tpu_torch")
        for mod, cls in (("normalize", RobustScalerState), ("trajectories", MinMaxState),
@@ -68,9 +92,54 @@ class _ScalerUnpickler(pickle.Unpickler):
 
 
 def load_scaler(path: str):
-    """A fitted scaler from a pickle written by either package."""
+    """A fitted scaler from a pickle written by either package (or by
+    sklearn: a `SklearnRobustScaler`)."""
     with open(path, "rb") as f:
         return _ScalerUnpickler(f).load()
+
+
+class _ByName:
+    """An object to pickle as an instance of the class `module.name`,
+    which the writer need not be able to import, with `state` as its
+    instance dict."""
+
+    def __init__(self, module: str, name: str, state: dict):
+        self.module, self.name, self.state = module, name, state
+
+
+class _ByNamePickler(pickle._Pickler):
+    """The pure-Python pickler, writing a `_ByName` by hand: GLOBAL (the
+    class by module and name), an empty argument tuple and NEWOBJ (as
+    `object.__reduce_ex__` gives a class without arguments to `__new__`),
+    then its state and BUILD, which calls the class's `__setstate__`."""
+
+    def save(self, obj, save_persistent_id=True):
+        if not isinstance(obj, _ByName):
+            return super().save(obj, save_persistent_id)
+        self.framer.commit_frame()
+        self.write(pickle.GLOBAL + f"{obj.module}\n{obj.name}\n".encode())
+        self.write(pickle.EMPTY_TUPLE + pickle.NEWOBJ)
+        self.memoize(obj)
+        self.save(obj.state)
+        self.write(pickle.BUILD)
+
+
+def write_sklearn_scaler(center: np.ndarray, scale: np.ndarray, path: str) -> None:
+    """Write a fitted robust scaler as the pickle of an sklearn
+    `RobustScaler(quantile_range=(10.0, 90.0))` (the reference's
+    `robust.pkl`) without importing sklearn: `_ByNamePickler` emits the
+    class reference as a pickle GLOBAL by hand around the estimator's state
+    dict, its parameters at sklearn's defaults and the fitted `center_`,
+    `scale_` and `n_features_in_`, as the JAX package sets them. The state
+    names no sklearn version, so sklearn warns that the pickle predates
+    0.18 when it loads it."""
+    center = np.asarray(center, np.float64)
+    state = {"with_centering": True, "with_scaling": True, "quantile_range": (10.0, 90.0),
+             "copy": True, "unit_variance": False, "center_": center,
+             "scale_": np.asarray(scale, np.float64), "n_features_in_": int(center.shape[0])}
+    with open(path, "wb") as f:
+        _ByNamePickler(f, protocol=pickle.HIGHEST_PROTOCOL).dump(
+            _ByName(_SKLEARN_ROBUST[0], "RobustScaler", state))
 
 
 def save_scaler(scaler, path: str, is_primary: bool = True) -> None:

@@ -3,6 +3,7 @@
 Counterpart of `coskad_tpu/http_server.py`, over the port's library scorers:
 
     python -m coskad_tpu_torch.cli.server --ckpt best.ckpt --port 8800
+    python -m coskad_tpu_torch.cli.server --artifact model.zip --port 8800
 
 Endpoints (all JSON unless noted):
 
@@ -30,9 +31,10 @@ Design constraints, deliberate:
     model's state (BatchNorm buffers, K1's fold cache on the model) and the
     stream sessions are not re-entrant. The server still threads
     (ThreadingHTTPServer), so /healthz answers while a big batch scores.
-  * one backend, a checkpoint (`AnomalyScorer`). The JAX package's second
-    backend, a serialized export artifact, waits for the port's export
-    (ROADMAP.md, Queue 1 item 6): `ScoringService(artifact=...)` raises.
+  * two backends: a checkpoint (`AnomalyScorer`, every route) or a
+    `torch.export` artifact (`export_hlo.load_artifact`, no model code):
+    model-ready windows only, 501 on the routes that need preprocessing
+    (raw keypoints, clips, streams).
   * window scores are identical to the library calls: the handlers do no
     numerics of their own, they only parse and route
     (tests/test_torch_http_server.py against the in-process scorer).
@@ -62,7 +64,7 @@ MAX_BODY_BYTES = 512 * 1024 * 1024  # one 2048-window request of JSON floats is 
 
 
 class Unsupported(Exception):
-    """A request the server does not implement (HTTP 501)."""
+    """A request the server or this backend does not implement (HTTP 501)."""
 
 
 class StreamLimit(Exception):
@@ -76,20 +78,17 @@ class UnknownStream(Exception):
 
 
 class ScoringService:
-    """Request logic over one `serve.AnomalyScorer`; the HTTP handler only
-    parses and routes. Every method that touches the device or mutates
-    stream sessions holds `self.lock`. `artifact=` (the JAX package's
-    export backend) raises NotImplementedError."""
+    """Request logic over one backend: exactly one of `scorer`
+    (`serve.AnomalyScorer`) and `artifact` (`export_hlo.ExportedScorer`).
+    The HTTP handler only parses and routes. Every method that touches the
+    device or mutates stream sessions holds `self.lock`."""
 
     def __init__(self, scorer=None, artifact=None, *, source: str = "",
                  min_batch: int = 256, max_streams: int = 64):
-        if artifact is not None:
-            raise NotImplementedError(
-                "the export-artifact backend is not ported yet: it waits for the port's "
-                "export (ROADMAP.md, Queue 1 item 6); serve a checkpoint with scorer=")
-        if scorer is None:
-            raise ValueError("pass scorer= (a serve.AnomalyScorer)")
+        if (scorer is None) == (artifact is None):
+            raise ValueError("pass exactly one of scorer= / artifact=")
         self.scorer = scorer
+        self.artifact = artifact
         self.source = source
         self.min_batch = int(min_batch)
         self.max_streams = int(max_streams)
@@ -105,6 +104,12 @@ class ScoringService:
     # ------------------------------------------------------------- info
 
     def model_info(self) -> dict:
+        if self.artifact is not None:
+            meta = {k: v for k, v in self.artifact.meta.items()
+                    if not isinstance(v, (list, dict))}
+            # meta's "device" is the one the program was traced on
+            return {"backend": "artifact", "source": self.source, **meta,
+                    "serving_device": str(self.artifact.device), "n_streams": 0}
         cfg = self.scorer.cfg
         return {
             "backend": "checkpoint",
@@ -131,12 +136,21 @@ class ScoringService:
                 "[N, C, T, V] model-ready, or [N, T, V, F] keypoints with "
                 "raw=true")
         with self.lock:
+            if self.artifact is not None:
+                if raw:
+                    raise Unsupported(
+                        "raw keypoint preprocessing needs a checkpoint "
+                        "backend; the artifact expects model-ready "
+                        "[N, C, T, V] windows")
+                return self.artifact.score_windows(windows)
             if raw:
                 windows = self.scorer.preprocess_windows(windows)
             return self.scorer.score_windows(windows)
 
     def score_clip(self, body: bytes, n_frames: Optional[int],
                    smooth: bool) -> np.ndarray:
+        if self.artifact is not None:
+            raise Unsupported("clip scoring needs a checkpoint backend")
         # score_clip_json's contract is a path (shared with the batch CLI);
         # spool the request body rather than forking a second parser.
         fd, path = tempfile.mkstemp(suffix=".json")
@@ -153,6 +167,8 @@ class ScoringService:
 
     def create_stream(self, min_batch: Optional[int],
                       horizon: Optional[int] = None) -> str:
+        if self.artifact is not None:
+            raise Unsupported("streaming needs a checkpoint backend")
         with self.lock:
             if len(self.streams) >= self.max_streams:
                 raise StreamLimit(

@@ -22,8 +22,13 @@ PERF.md), which the kernel runs on the tensor cores as 3xTF32 `mma.sync`,
 several windows a block, with M's k-slices staged in shared memory by
 `cp.async`. The kernel's header says how.
 
-Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor takes
-the plain PyTorch version (`fused_stse_hidden_reference`).
+Dispatch: the kernel is the custom op `coskad_torch::stse_fused_hidden`
+(registered when this module is imported; the library still builds at the
+first launch), so `torch.export` can trace and serialize a program that
+calls it. Its CUDA implementation launches the kernel or raises; its CPU
+implementation is the plain PyTorch version on the same packed operand
+(`unpack_packed`). `fused_stse_hidden` calls the op for a CUDA tensor and
+the plain version (`fused_stse_hidden_reference`) for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -78,6 +83,12 @@ class PackedSTSE:
     layout: np.ndarray  # [n_layers, 8] int64, see _LAYOUT_COLS
     n_nodes: int
     n_pad: int  # T*V rounded up to 16: M is [n_pad, n_pad]
+
+    def op_args(self) -> Tuple[torch.Tensor, List[int], int, int]:
+        """The custom op's arguments after x: (weights, layout flat as a
+        list of ints, n_nodes, n_pad)."""
+        return (self.weights, [int(v) for v in np.asarray(self.layout).ravel()],
+                self.n_nodes, self.n_pad)
 
 
 def _fold_dense_bn(state: Mapping[str, torch.Tensor], dense: str, bn: str,
@@ -146,7 +157,11 @@ def pack_folded(folded: FoldedSTSE) -> PackedSTSE:
     n), one bias b + b_res [CO8], the PReLU slope, and whether the residual
     is the identity (W_res = I, which the kernel adds as x). Padding is
     zeros, so padded nodes and channels never reach a valid output. Every
-    segment starts on 16 bytes, for the kernel's cp.async copies of M."""
+    segment starts on 16 bytes, for the kernel's cp.async copies of M.
+
+    After the last layer's segments a tail the kernel never reads holds
+    each layer's b and b_res apart (the kernel adds their sum), so that
+    `unpack_packed` gives the folded weights back exactly."""
     n = folded.layers[0].graph.shape[0]
     npad = _round_up(n, 16)
     ref = folded.layers[0].w
@@ -176,8 +191,40 @@ def pack_folded(folded: FoldedSTSE) -> PackedSTSE:
         bias[:co] = lay.b + lay.b_res
         rows.append([ci, co, int(identity), put(m), put(w), put(wr), put(bias),
                      put(lay.alpha.reshape(1).to(ref.dtype))])
+    for lay in folded.layers:
+        put(lay.b)
+        put(lay.b_res)
     weights = torch.cat(segments).to(torch.float32).contiguous()
     return PackedSTSE(weights, np.asarray(rows, np.int64), n, npad)
+
+
+def unpack_packed(weights: torch.Tensor, layout, n_nodes: int, n_pad: int) -> FoldedSTSE:
+    """The folded weights a packed operand holds (the inverse of
+    `pack_folded`; `layout` as an array or flat list): each layer's graph,
+    W, W_res, b, b_res and slope, as contiguous float32 tensors on the
+    operand's device. The projector is not part of the operand: w_proj and
+    b_proj are None."""
+    lay = np.asarray(layout, np.int64).reshape(-1, _LAYOUT_COLS)
+
+    def seg(off: int, *shape: int) -> torch.Tensor:
+        size = int(np.prod(shape))
+        return weights[off:off + size].reshape(shape)
+
+    tail = int(lay[-1, 7]) + _round_up(1, 4)  # after the last layer's slope
+    layers = []
+    for ci, co, _, off_m, off_w, off_wr, _, off_alpha in (map(int, row) for row in lay):
+        ci8, co8 = _round_up(ci, 8), _round_up(co, 8)
+        b = seg(tail, co)
+        b_res = seg(tail + _round_up(co, 4), co)
+        tail += 2 * _round_up(co, 4)
+        layers.append(FoldedLayer(
+            graph=seg(off_m, n_pad, n_pad)[:n_nodes, :n_nodes].contiguous(),
+            w=seg(off_w, ci8, co8)[:ci, :co].contiguous(),
+            b=b.contiguous(),
+            w_res=seg(off_wr, ci8, co8)[:ci, :co].contiguous(),
+            b_res=b_res.contiguous(),
+            alpha=seg(off_alpha, 1).reshape(()).contiguous()))
+    return FoldedSTSE(layers, None, None)
 
 
 def fused_stse_hidden_reference(x: torch.Tensor, folded: FoldedSTSE) -> torch.Tensor:
@@ -293,14 +340,37 @@ def _launch(x: torch.Tensor, packed: PackedSTSE) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op(
+    "coskad_torch::stse_fused_hidden", mutates_args=(), device_types="cuda",
+    schema="(Tensor x, Tensor weights, int[] layout, int n_nodes, int n_pad) -> Tensor")
+def stse_fused_hidden_op(x, weights, layout, n_nodes, n_pad):
+    """K1 as a custom op: [B, C, T, V] windows and a packed operand
+    (`PackedSTSE.op_args`) -> hidden state [B, n_nodes, C_hidden] float32.
+    On CUDA it launches the kernel, with every check of `_launch`."""
+    lay = np.asarray(layout, np.int64).reshape(-1, _LAYOUT_COLS)
+    return _launch(x, PackedSTSE(weights, lay, n_nodes, n_pad))
+
+
+@stse_fused_hidden_op.register_kernel("cpu")
+def _stse_fused_hidden_cpu(x, weights, layout, n_nodes, n_pad):
+    return fused_stse_hidden_reference(x, unpack_packed(weights, layout, n_nodes, n_pad))
+
+
+@stse_fused_hidden_op.register_fake
+def _stse_fused_hidden_fake(x, weights, layout, n_nodes, n_pad):
+    c_out = layout[len(layout) - _LAYOUT_COLS + 1]  # the last layer's C_out
+    return x.new_empty((x.shape[0], n_nodes, c_out), dtype=torch.float32)
+
+
 def fused_stse_hidden(x: torch.Tensor, folded: FoldedSTSE,
                       packed: Optional[PackedSTSE] = None) -> torch.Tensor:
     """[B, C, T, V] windows -> hidden state [B, T*V, C_hidden].
 
-    A CUDA tensor launches the kernel (with `packed`, or the weights packed
-    now); a CPU tensor takes the plain version."""
+    A CUDA tensor launches the kernel through the custom op (with `packed`,
+    or the weights packed now); a CPU tensor takes the plain version."""
     if x.is_cuda:
-        return _launch(x, packed if packed is not None else pack_folded(folded))
+        packed = packed if packed is not None else pack_folded(folded)
+        return stse_fused_hidden_op(x, *packed.op_args())
     if x.device.type != "cpu":
         raise ValueError(f"stse_fused runs on CUDA or CPU tensors, not {x.device}")
     return fused_stse_hidden_reference(x, folded)

@@ -143,6 +143,10 @@ class STSE(nn.Module):
             raise ValueError(f"compute dtype {dtype} is neither float32 nor bfloat16")
         self.dtype = dtype
         self.encoder_type = encoder_type
+        # the shape arguments, as the flax module's fields (interop reads them)
+        self.input_dim, self.layer_channels = input_dim, tuple(layer_channels)
+        self.hidden_dimension, self.latent_dim = hidden_dimension, latent_dim
+        self.n_frames, self.n_joints, self.projector = n_frames, n_joints, projector
         self.encoder = make_encoder(encoder_type, input_dim, layer_channels, hidden_dimension,
                                     n_frames, n_joints, dropout, use_bias, dtype)
         flat = hidden_dimension * n_frames * n_joints
@@ -245,6 +249,7 @@ class STSAE(STSE):
             raise ValueError(f"No decoder available for encoder type {self.encoder_type!r}")
         self.rev_btlnk = ReverseProjector(hidden_dimension, n_frames, n_joints, latent_dim,
                                           dtype)
+        self.decoder_channels = decoder_channels
         channels = list(decoder_channels or list(layer_channels)[::-1]) + [input_dim]
         self.decoder = STSGCNStack(hidden_dimension, channels, n_frames, n_joints, use_bias,
                                    dtype, self.dropout)
@@ -303,7 +308,11 @@ class STSVAE(STSAE):
                             dropout_generator: Optional[torch.Generator] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (z_mean [B, D], z_var [B, 1] for 'ps' or [B, D] for 'normal')."""
-        feat = self._project(self._hidden(x, train, frozen_bn, dropout_generator), train)
+        return self.posterior(
+            self._project(self._hidden(x, train, frozen_bn, dropout_generator), train))
+
+    def posterior(self, feat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The heads on the projected hidden state: (z_mean, z_var)."""
         z_mean = self.fc_mean(feat)
         if self.distribution == "ps":
             z_mean = z_mean / torch.linalg.vector_norm(z_mean, dim=-1, keepdim=True)

@@ -99,18 +99,22 @@ def _opt_state(trainer, params: dict) -> dict:
     if len(steps) != 1:
         raise ValueError(f"Adam's parameters are at different steps {sorted(steps)}; the "
                          "JAX optimizer keeps one count")
-    count = np.asarray(steps.pop(), np.int32)
+    return adam_payload(steps.pop(), np.concatenate(mu), np.concatenate(nu), group["lr"],
+                        group["betas"], group["eps"])
+
+
+def adam_payload(step: int, mu: np.ndarray, nu: np.ndarray, lr: float,
+                 betas=(0.9, 0.999), eps: float = 1e-8) -> dict:
+    """The JAX optimizer's opt_state from Adam's step count, flat mu / nu
+    (ravel_pytree order) and hyperparameters."""
+    count = np.asarray(step, np.int32)
     f32 = lambda v: np.asarray(v, np.float32)  # noqa: E731
     return {
         "count": count,
-        "hyperparams": {"b1": f32(group["betas"][0]), "b2": f32(group["betas"][1]),
-                        "eps": f32(group["eps"]), "eps_root": f32(0.0),
-                        "learning_rate": f32(group["lr"])},
+        "hyperparams": {"b1": f32(betas[0]), "b2": f32(betas[1]), "eps": f32(eps),
+                        "eps_root": f32(0.0), "learning_rate": f32(lr)},
         "hyperparams_states": {},
-        "inner_state": {"0": {"count": count,
-                              "mu": np.concatenate(mu).astype(np.float32),
-                              "nu": np.concatenate(nu).astype(np.float32)},
-                        "1": {}},
+        "inner_state": {"0": {"count": count, "mu": f32(mu), "nu": f32(nu)}, "1": {}},
     }
 
 
@@ -160,12 +164,20 @@ def state_payload(trainer, state: TrainState) -> dict:
     """The `state` entry of a checkpoint: the model, the optimizer and
     `state` in the JAX package's TrainState layout."""
     params, batch_stats = to_jax_variables(trainer.model)
+    return tree_payload(params, batch_stats, _opt_state(trainer, params),
+                        trainer.cfg.run.seed, state)
+
+
+def tree_payload(params: dict, batch_stats: dict, opt_state: dict, seed: int,
+                 state: TrainState) -> dict:
+    """The `state` entry of a checkpoint from flax-named trees, an
+    opt_state and the geometry of `state`."""
     out = {
         "step": np.asarray(state.step, np.int32),
         "params": params,
         "batch_stats": batch_stats,
-        "opt_state": _opt_state(trainer, params),
-        "rng": _prng_key(trainer.cfg.run.seed),
+        "opt_state": opt_state,
+        "rng": _prng_key(seed),
     }
     for k in _GEOMETRY:
         out[k] = getattr(state, k).detach().cpu().numpy().astype(np.float32)
@@ -193,8 +205,15 @@ def save(
 ) -> str:
     """Write `trainer`'s model and optimizer with `state` to `path`, and the
     config snapshot beside it when `cfg` is given."""
+    return write(path, state_payload(trainer, state), cfg, scaler, extra)
+
+
+def write(path: str, state: dict, cfg: Optional[Config] = None,
+          scaler: Optional[RobustScalerState] = None, extra: Optional[dict] = None) -> str:
+    """Write a checkpoint whose `state` entry is `state` (`state_payload`,
+    `tree_payload`), and the config snapshot beside it when `cfg` is given."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    payload = {"state": state_payload(trainer, state)}
+    payload = {"state": state}
     if scaler is not None:
         payload["scaler"] = {"center": np.asarray(scaler.center),
                              "scale": np.asarray(scaler.scale)}

@@ -1,14 +1,15 @@
 """The port's HTTP serving daemon (`coskad_tpu_torch/http_server.py`) and
 its CLIs: every route reproduces the port's library calls.
 
-The tests of `tests/test_http_server.py` on the port, but for the export
-artifact backend, which the port refuses until its export exists: each
-endpoint's response against the in-process AnomalyScorer / StreamingScorer
-on the same inputs (JSON carries the float32 scores exactly, so equal to
-the bit), the error mapping (400 / 404 / 429 / 501), both request
-encodings (JSON and .npy bodies), keep-alive safety; then a chunked body
-answered 501 with its connection closed, the artifact refusal, and
-`cli.serve` writing exactly what `score_clip_json` returns. One JAX
+The tests of `tests/test_http_server.py` on the port: each endpoint's
+response against the in-process AnomalyScorer / StreamingScorer on the same
+inputs (JSON carries the float32 scores exactly, so equal to the bit), the
+error mapping (400 / 404 / 429 / 501), both request encodings (JSON and .npy
+bodies), keep-alive safety, and the artifact backend (`export_hlo`'s
+artifact of the served checkpoint: windows to the artifact's bits, the
+routes that need preprocessing refused with JAX's messages, `cli.server
+--artifact`); then a chunked body answered 501 with its connection closed
+and `cli.serve` writing exactly what `score_clip_json` returns. One JAX
 checkpoint serves the module (tests/test_torch_streaming.py's)."""
 
 import http.client
@@ -26,7 +27,9 @@ import torch
 
 from coskad_tpu_torch.cli import serve as serve_cli
 from coskad_tpu_torch.cli import server as server_cli
-from coskad_tpu_torch.http_server import ScoringService, build_server
+from coskad_tpu_torch import http_server
+from coskad_tpu_torch.export_hlo import export_scorer, load_artifact
+from coskad_tpu_torch.http_server import ScoringService, Unsupported, build_server
 from coskad_tpu_torch.serve import AnomalyScorer
 from test_torch_streaming import frames_of, jax_checkpoint
 
@@ -228,15 +231,93 @@ def test_malformed_clip_json_is_400_not_404(served, monkeypatch):
     assert status == 400 and "missing key" in resp["error"] and "keypoints" in resp["error"]
 
 
-def test_artifact_backend_is_refused(served):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ScoringService(artifact=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ScoringService(scorer=served["scorer"], artifact=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        server_cli.main(["--artifact", "scorer.zip", "--device", "cpu"])
-    with pytest.raises(ValueError, match="scorer="):
+@pytest.fixture(scope="module")
+def artifact(served, tmp_path_factory):
+    """The served checkpoint's scoring artifact, exported on the CPU."""
+    path = str(tmp_path_factory.mktemp("artifact") / "scorer.zip")
+    export_scorer(served["scorer"], path)
+    return path
+
+
+def test_artifact_backend_is_refused(served, artifact):
+    """One backend at a time; the artifact backend refuses, in JAX's words,
+    what needs preprocessing or a model: raw keypoints, clips, streams."""
+    with pytest.raises(ValueError, match="exactly one of scorer= / artifact="):
         ScoringService()
+    art = load_artifact(artifact, device="cpu")
+    with pytest.raises(ValueError, match="exactly one of scorer= / artifact="):
+        ScoringService(scorer=served["scorer"], artifact=art)
+    service = ScoringService(artifact=art)
+    with pytest.raises(Unsupported, match="raw keypoint preprocessing needs a checkpoint "
+                                          "backend; the artifact expects model-ready"):
+        service.score_windows(np.zeros((2, 12, 17, 3), np.float32), raw=True)
+    with pytest.raises(Unsupported, match="^clip scoring needs a checkpoint backend$"):
+        service.score_clip(b"{}", None, True)
+    with pytest.raises(Unsupported, match="^streaming needs a checkpoint backend$"):
+        service.create_stream(None)
+
+
+def test_artifact_backend_scores_without_model_code(served, artifact):
+    service = ScoringService(artifact=load_artifact(artifact, device="cpu"), source=artifact)
+    server = build_server(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        status, info = call(url + "/v1/model")
+        assert status == 200 and info["backend"] == "artifact" and info["source"] == artifact
+        assert info["variant"] == "euclidean_static" and info["encoder_route"] == "modules"
+        assert info["serving_device"] == "cpu" and "draw_key" not in info
+
+        windows = np.random.default_rng(2).normal(size=(7, 3, 12, 18)).astype(np.float32)
+        status, resp = call(url + "/v1/score/windows", "POST", {"windows": windows.tolist()})
+        assert status == 200
+        want = service.artifact.score_windows(windows)
+        np.testing.assert_array_equal(np.float32(resp["scores"]), want)
+        np.testing.assert_allclose(want, served["scorer"].score_windows(windows),
+                                   rtol=5e-6, atol=1e-6)
+        buf = io.BytesIO()
+        np.save(buf, windows)
+        status, resp = call(url + "/v1/score/windows", "POST", buf.getvalue(),
+                            ctype="application/x-npy")
+        assert status == 200 and np.array_equal(np.float32(resp["scores"]), want)
+
+        status, resp = call(url + "/v1/score/windows?raw=1", "POST",
+                            {"windows": windows.tolist(), "raw": True})
+        assert status == 501 and "checkpoint backend" in resp["error"]
+        status, resp = call(url + "/v1/streams", "POST")
+        assert status == 501
+        status, resp = call(url + "/v1/score/clip", "POST", b"{}")
+        assert status == 501
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+
+
+def test_server_cli_serves_an_artifact(artifact, monkeypatch, capsys):
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            server_cli.main(["--artifact", artifact, "--port", "0"])
+    started = []
+
+    class Server:  # records the service instead of serving forever
+        server_address = ("127.0.0.1", 0)
+
+        def __init__(self, service, *args, **kwargs):
+            self.service = service
+
+        def serve_forever(self):
+            started.append(self.service)
+
+        def server_close(self):
+            pass
+
+    monkeypatch.setattr(http_server, "build_server", Server)
+    assert server_cli.main(["--artifact", artifact, "--port", "0", "--device", "cpu"]) == 0
+    (service,) = started
+    assert service.scorer is None and service.artifact.device.type == "cpu"
+    assert f"artifact backend from {artifact} on cpu" in capsys.readouterr().out
 
 
 def test_clis_default_to_cuda(served):

@@ -13,7 +13,7 @@ import torch
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN_TOP = ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml", "coskad_tpu")
+FORBIDDEN_TOP = ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml", "sklearn", "coskad_tpu")
 
 
 def test_import_pulls_in_no_jax_and_no_reference_package():
@@ -28,6 +28,8 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import coskad_tpu_torch.models.encoders, coskad_tpu_torch.models.graph\n"
         "import coskad_tpu_torch.streaming, coskad_tpu_torch.http_server\n"
         "import coskad_tpu_torch.cli.serve, coskad_tpu_torch.cli.server\n"
+        "import coskad_tpu_torch.export_hlo, coskad_tpu_torch.cli.convert\n"
+        "import coskad_tpu_torch.cli.export\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN_TOP!r})\n"
         "print(','.join(bad))\n"
     )
@@ -47,7 +49,7 @@ def _python_sources():
 
 
 _IMPORT = re.compile(
-    r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|msgpack|yaml|coskad_tpu)(?![\w])",
+    r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|msgpack|yaml|sklearn|coskad_tpu)(?![\w])",
     re.MULTILINE)
 
 
