@@ -102,6 +102,28 @@ Phases, each printing a line before the last:
      steps' time in turns and peak memory (the bf16 peak beside PR 11's,
      whose backward scratch was fp32, and below the peak with fp32
      activations and K2 scratch), and the bf16 step's idle share.
+  5c. pipeline (the device-resident trajectory store, the JAX package's
+     headline train path): 50 AlphaPose clip JSONs x 2 actors x 412 frames
+     of 17 keypoints written to a temporary directory (bench.py's store: 100
+     persons, 18 joints after the 17 -> 18 conversion, stride 1, 40,000
+     windows x 5 transforms). The native parser must be available and
+     parse every clip to the json.load path's bits (both timed, in turns);
+     load_alphapose_store on the card, load_alphapose_split of the same
+     directory; 2048 logical indices gathered from the store on the card
+     against the store's CPU plain path and against gather_batch of the
+     windows, rtol 1e-5 / atol 1e-6. Then the flagship (sts_gcn
+     2-32-16-32-64, linear projector, latent 16, batch 2048,
+     fused_train 'on', ghost 64) fits 2 epochs through the store at float32
+     and at bf16, counted: K2/K3/K4 97/291/97 an epoch, K1 in the float32
+     center init; the same-weights fit on the windows in turns, per-step
+     losses within the train phase's band (bf16: 2^-5), train windows/s
+     both ways. score_all through the store, counted (K1 98 launches), its
+     scores within SCORE_TOL of the windows pipeline's from the same state,
+     scoring windows/s both ways in turns, and the resident bytes of each.
+     One epoch with the contrastive view (contrastive_weight 0.5), counted:
+     K2 twice a step, K3/K4 likewise; finite contrastive losses; then an
+     epoch past freeze_bn_after leaves the running statistics unchanged.
+     `--only pipeline` runs just this after the build.
   6. cli (the command-line path): a synthetic AlphaPose tree (4 training
      clips x 2 actors x 1,100 frames, 8,704 stride-1 windows; 2 test
      clips with <scene>_<clip>.npy ground truth) and a reference-key config
@@ -122,9 +144,10 @@ Phases, each printing a line before the last:
      imported) and written to a temporary directory with only the four
      paths replaced, so at their compute_dtype bfloat16, over an
      HR-STC-shaped AlphaPose tree (markovitz) and a Morais-CSV tree (the
-     robust HR-Avenue and UBnormal files) of 17-keypoint clips at the cli
-     phase's scale: the MLP projector at 17 joints, each file's batch, 5
-     transforms, validation on. For each, cli.train for 2 epochs, --resume
+     robust HR-Avenue and UBnormal files) of 17-keypoint clips, the cli
+     phase's test clips and 2 of its 4 training clips (4,352 training
+     windows, to keep the whole run's time): the MLP projector at 17
+     joints, each file's batch, 5 transforms, validation on. For each, cli.train for 2 epochs, --resume
      to 3, cli.eval, from_checkpoint, counted: K1-K5 none (the bf16 eval
      takes the module route; an MLP projector trains on the module path, as
      in JAX); then a straight 3-epoch run, which the resumed run must equal
@@ -185,7 +208,9 @@ Phases, each printing a line before the last:
      frames a request; frames/s, request latency p50 / p99. K1 launches as
      the traffic predicts (one a batch of the config's size in each scoring
      call: the offline clip, each drain of each stream, each request), each
-     stream's drains scoring the clip's windows once, K2-K5 none.
+     stream's drains scoring the clip's windows once, K2-K5 none. The
+     clip request is timed by part (spooling the body, the parse, the
+     scoring) with COSKAD_NATIVE on and off in turns.
      `--only streaming` runs just this after the build.
   8. export: a 1-epoch float32 flagship checkpoint (the streaming phase's)
      exported by `export_hlo.export_scorer` on the card, whose encoder step
@@ -324,10 +349,19 @@ TRAIN_KERNELS = (*FORWARD_PASSES, "graph_operand_kernel", "projector_dy_kernel",
 TRAIN_CLIPS, VAL_CLIPS = 100, 20  # x 2 actors x 200 windows: 40,000 and 8,000 windows
 # the cli phase's AlphaPose tree: clips x 2 actors x (frames - 11) stride-1 windows
 CLI_TRAIN_CLIPS, CLI_TEST_CLIPS, CLI_FRAMES = 4, 2, 1100
+# the paper phase's training clips, half the cli phase's: at 4, its 7 fits took 97.4 s of a
+# 387.7 s run on an NVIDIA H100 80GB HBM3 at 700.00 W
+PAPER_TRAIN_CLIPS = 2
 CLI_ANOMALY = (400, 550)  # frames where actor 1 of each test clip scatters
 CLI_MIN_WINDOWS = 8192
 CLI_SERVED = 4096  # test windows from_checkpoint scores against cli.eval's scores
 RESUME_RTOL = 1e-5  # third-epoch loss, resumed against straight, on the card
+# the pipeline phase's tree: bench.py's store of 100 persons x 412 frames
+PIPE_CLIPS, PIPE_ACTORS, PIPE_FRAMES = 50, 2, 412
+PIPE_EPOCHS = 2
+PIPE_INDICES = 2048  # logical indices of the batch check
+PIPE_BATCH_TOL = dict(rtol=1e-5, atol=1e-6)  # float32 normalization vs the host's float64
+PIPE_TURNS = 2  # parse and scoring passes a side, in turns
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
@@ -1974,16 +2008,20 @@ def train_config(fused: str, batch: int = None, compute_dtype: str = "float32",
 
 
 class QuietLogger:
-    """A MetricLogger that keeps the per-step losses instead of printing."""
+    """A MetricLogger that keeps every per-step metric instead of printing."""
 
     every_n_steps = 1
 
     def __init__(self):
-        self.losses = []
+        self.steps = []
 
     def log(self, metrics, step, force=False):
         if "loss" in metrics:
-            self.losses.append(float(metrics["loss"]))
+            self.steps.append(dict(metrics))
+
+    @property
+    def losses(self):
+        return [float(m["loss"]) for m in self.steps]
 
 
 def phase_train(card):
@@ -2167,6 +2205,282 @@ def phase_train_bf16(card):
           f"{[round(a, 4) for a in history['validation_auc']]}; kernels (ghost = batch) vs the "
           f"module path at bf16, per-step losses max rel err {band['loss_max_rel_err']:.2e} "
           f"(band {BF16_LOSS_BAND}); step (host clock, in turns) " + json.dumps(step))
+    return summary
+
+
+def phase_pipeline(card):
+    with tempfile.TemporaryDirectory() as root:
+        return pipeline_run(card, root)
+
+
+def in_turns(fns: dict, turns: int) -> dict:
+    """Best host-clock seconds of each fn over `turns` rounds, the fns taking
+    turns within a round; each call synchronizes the card on both sides."""
+    import torch
+
+    best = {k: float("inf") for k in fns}
+    for _ in range(turns):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best[k] = min(best[k], time.perf_counter() - t)
+    return best
+
+
+def add_launches(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in more.items()}
+
+
+def pipeline_fits(store, host, compute_dtype, counters):
+    """PIPE_EPOCHS of the flagship fit through the store and, from the same
+    weights, through the windows, epoch by epoch in turns. Returns the store
+    trainer, its state, its launches (each store call counted alone) and the
+    report."""
+    import torch
+    from coskad_tpu_torch.train.loop import Trainer
+
+    cfg = train_config("on", compute_dtype=compute_dtype)
+    logs = dict(store=QuietLogger(), windows=QuietLogger())
+    trainers = dict(store=Trainer(cfg, store, device=DEVICE, logger=logs["store"]),
+                    windows=Trainer(cfg, host, device=DEVICE, logger=logs["windows"]))
+    check(trainers["store"]._pipeline == "store" and trainers["store"]._fused_compat,
+          "the pipeline trainer is not a fused store trainer")
+    jitter_affine(trainers["store"].model, torch.Generator().manual_seed(11))
+    trainers["windows"].model.load_state_dict(trainers["store"].model.state_dict())
+    launches = {}
+    zero(counters)
+    states = dict(store=trainers["store"].initialize_center(trainers["store"].init_state()))
+    torch.cuda.synchronize()
+    launches = add_launches(launches, read(counters))
+    states["windows"] = trainers["windows"].initialize_center(trainers["windows"].init_state())
+    epoch_s = dict(store=[], windows=[])
+    for _ in range(PIPE_EPOCHS):
+        for kind in ("store", "windows"):
+            zero(counters)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            states[kind], _ = trainers[kind].fit(states[kind], epochs=1)
+            torch.cuda.synchronize()
+            epoch_s[kind].append(time.perf_counter() - t)
+            if kind == "store":
+                launches = add_launches(launches, read(counters))
+    steps = len(store) // cfg.data.batch_size
+    want = dict(stse_train_forward=steps * PIPE_EPOCHS,
+                stse_train_layer_backward=3 * steps * PIPE_EPOCHS,
+                stse_train_top_backward=steps * PIPE_EPOCHS, stse_train_mono_backward=0)
+    for k, v in want.items():
+        check(launches[k] == v, f"pipeline {compute_dtype}: {k} launched {launches[k]} times "
+                                f"through the store, expected {v} ({steps} steps an epoch)")
+    check((launches["stse_fused"] > 0) == (compute_dtype == "float32"),
+          f"pipeline {compute_dtype}: K1 launches {launches['stse_fused']} in the store's center "
+          "init (float32 only: the bf16 eval takes the module route)")
+    ls, lw = (np.asarray(logs[k].losses) for k in ("store", "windows"))
+    check(len(ls) == len(lw) == steps * PIPE_EPOCHS and np.isfinite(ls).all(),
+          f"pipeline {compute_dtype}: {len(ls)} store and {len(lw)} windows step losses")
+    band = LOSS_RTOL if compute_dtype == "float32" else BF16_LOSS_BAND
+    loss_err = float(np.max(np.abs(ls - lw) / np.abs(lw)))
+    check(loss_err <= band, f"pipeline {compute_dtype}: store vs windows per-step losses max rel "
+                            f"err {loss_err:.3e} (band {band})")
+    items = steps * cfg.data.batch_size
+    report = dict(compute_dtype=compute_dtype, steps_per_epoch=steps, launches=launches,
+                  losses_per_epoch=[float(ls[i * steps:(i + 1) * steps].mean())
+                                    for i in range(PIPE_EPOCHS)],
+                  loss_max_rel_err_vs_windows=loss_err, loss_band=band, epoch_s=epoch_s,
+                  train_windows_per_s={k: items / min(v[1:] or v) for k, v in epoch_s.items()})
+    return trainers, states, launches, report
+
+
+def pipeline_run(card, root):
+    import dataclasses
+
+    import torch
+    from coskad_tpu_torch.data import native
+    from coskad_tpu_torch.data.alphapose import (load_alphapose_split, load_alphapose_store,
+                                                 parse_clip_json)
+    from coskad_tpu_torch.data.device_pipeline import gather_batch_from_store
+    from coskad_tpu_torch.data.transforms import canonical_transforms, gather_batch
+    from coskad_tpu_torch.train.loop import Trainer
+
+    rng = np.random.default_rng(19)
+    t0 = time.perf_counter()
+    for c in range(1, PIPE_CLIPS + 1):
+        write_clip_json(os.path.join(root, f"01_{c:04d}_tracked.json"), rng, PIPE_FRAMES,
+                        n_actors=PIPE_ACTORS)
+    write_s = time.perf_counter() - t0
+    files = sorted(os.path.join(root, f) for f in os.listdir(root))
+    json_bytes = sum(os.path.getsize(f) for f in files)
+
+    # --- the native parser at the store's scale ---
+    check(native.native_available(), "the native clip parser did not build on this machine")
+    parsed = {}
+
+    def parse(kind):
+        def run():
+            os.environ["COSKAD_NATIVE"] = "0" if kind == "json" else "1"
+            try:
+                parsed[kind] = [parse_clip_json(f) for f in files]
+            finally:
+                os.environ.pop("COSKAD_NATIVE", None)
+        return run
+
+    parse_s = in_turns(dict(native=parse("native"), json=parse("json")), PIPE_TURNS)
+    persons = [t for clip in parsed["native"] for t in clip]
+    plain = [t for clip in parsed["json"] for t in clip]
+    check(len(persons) == len(plain) == PIPE_CLIPS * PIPE_ACTORS
+          and all(a.person_id == b.person_id and a.frame_keys == b.frame_keys
+                  and np.array_equal(a.keypoints, b.keypoints) for a, b in zip(persons, plain)),
+          "the native parse differs from the json.load parse")
+
+    # --- the store and the windows of the same directory ---
+    kw = dict(seg_len=12, seg_stride=1, num_transform=5)
+    t0 = time.perf_counter()
+    store = load_alphapose_store(root, device=DEVICE, **kw)
+    torch.cuda.synchronize()
+    store_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = load_alphapose_split(root, **kw)
+    host_s = time.perf_counter() - t0
+    n_windows = PIPE_CLIPS * PIPE_ACTORS * (PIPE_FRAMES - 12)
+    check(store.num_windows == host.num_windows == n_windows and store.kp_shape == (18, 3)
+          and np.array_equal(store.meta, host.meta)
+          and np.array_equal(store.frame_ids, host.frame_ids),
+          f"store {store.num_windows} windows, host {host.num_windows}, expected {n_windows}")
+    check(store.traj.is_cuda and tuple(store.traj.shape) == (PIPE_CLIPS * PIPE_ACTORS,
+                                                             PIPE_FRAMES, 54),
+          f"store trajectories {tuple(store.traj.shape)} on {store.traj.device}")
+    idx = torch.as_tensor(np.random.default_rng(3).choice(len(store), PIPE_INDICES,
+                                                          replace=False))
+    table = torch.as_tensor(canonical_transforms(5))
+
+    def tables(st, dev):
+        return (st.traj.to(dev),
+                torch.as_tensor(st.window_person, dtype=torch.int64, device=dev),
+                torch.as_tensor(st.window_start, dtype=torch.int64, device=dev))
+
+    on_card = gather_batch_from_store(store, *tables(store, DEVICE), idx.to(DEVICE),
+                                      table.to(DEVICE)).cpu()
+    cpu_store = dataclasses.replace(store, traj=store.traj.cpu())
+    on_cpu = gather_batch_from_store(cpu_store, *tables(cpu_store, "cpu"), idx, table)
+    windows = gather_batch(torch.from_numpy(host.data), idx, table)
+    batch_err = dict(vs_cpu_store=float((on_card - on_cpu).abs().max()),
+                     vs_windows=float((on_card - windows).abs().max()))
+    check(on_card.shape == (PIPE_INDICES, 2, 12, 18) and bool(torch.isfinite(on_card).all())
+          and within(on_card, on_cpu, **PIPE_BATCH_TOL)
+          and within(on_card, windows, **PIPE_BATCH_TOL),
+          f"the store's batch on the card vs its CPU path and the windows: {batch_err}")
+
+    # --- training through the store, float32 and bf16, counted ---
+    counters = launch_counters()
+    trainers, states, launches, fit32 = pipeline_fits(store, host, "float32", counters)
+    _, _, launches_bf16, fit16 = pipeline_fits(store, host, "bfloat16", counters)
+
+    # --- scoring through the store, counted, from the float32 fit's state ---
+    trainers["windows"].model.load_state_dict(trainers["store"].model.state_dict())
+    state = states["store"]
+    zero(counters)
+    scores, _ = trainers["store"].score_all(state, store, trainers["store"].train_data)
+    torch.cuda.synchronize()
+    score_launches = read(counters)
+    launches = add_launches(launches, score_launches)
+    want_k1 = -(-len(store) // TRAIN_BATCH)
+    check(score_launches == dict(stse_fused=want_k1, stse_train_forward=0,
+                                 stse_train_layer_backward=0, stse_train_top_backward=0,
+                                 stse_train_mono_backward=0),
+          f"score_all through the store launched {score_launches}, expected K1 {want_k1}")
+    by_windows, _ = trainers["windows"].score_all(state, host, trainers["windows"].train_data)
+    s_store, s_win = torch.from_numpy(scores), torch.from_numpy(by_windows)
+    score_err = float((s_store - s_win).abs().max())
+    check(bool(torch.isfinite(s_store).all()) and within(s_store, s_win, **SCORE_TOL),
+          f"store scores vs the windows pipeline's: max abs {score_err:.3e}")
+    score_s = in_turns({k: functools.partial(trainers[k].score_all, state, ds,
+                                             trainers[k].train_data)
+                        for k, ds in (("store", store), ("windows", host))}, PIPE_TURNS)
+    traj, persons_dev, starts_dev = trainers["store"].train_data
+    resident = dict(store=traj.numel() * traj.element_size()
+                    + persons_dev.numel() * persons_dev.element_size()
+                    + starts_dev.numel() * starts_dev.element_size(),
+                    windows=trainers["windows"].train_data.numel()
+                    * trainers["windows"].train_data.element_size())
+
+    # --- the contrastive view through the store, counted ---
+    cfg = train_config("on")
+    cfg = dataclasses.replace(
+        cfg, opt=dataclasses.replace(cfg.opt, contrastive_weight=0.5),
+        run=dataclasses.replace(cfg.run, freeze_bn_after=1))
+    log = QuietLogger()
+    tr = Trainer(cfg, store, device=DEVICE, logger=log)
+    jitter_affine(tr.model, torch.Generator().manual_seed(12))
+    cstate = tr.initialize_center(tr.init_state())
+    steps = len(store) // TRAIN_BATCH
+    con_s = []
+    con_launches = []
+    for epoch in range(2):  # epoch 1 >= freeze_bn_after: both views frozen
+        bn_before = {k: b.clone() for k, b in tr.model.named_buffers()}
+        zero(counters)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cstate, _ = tr.fit(cstate, epochs=1)
+        torch.cuda.synchronize()
+        con_s.append(time.perf_counter() - t)
+        con_launches.append(read(counters))
+        unchanged = all(torch.equal(b, bn_before[k]) for k, b in tr.model.named_buffers())
+        check(unchanged == (epoch == 1),
+              f"contrastive epoch {epoch}: running statistics {'un' if unchanged else ''}changed "
+              f"(freeze_bn_after 1)")
+    launches = add_launches(launches, con_launches[0])
+    check(con_launches[0] == dict(stse_fused=0, stse_train_forward=2 * steps,
+                                  stse_train_layer_backward=6 * steps,
+                                  stse_train_top_backward=2 * steps, stse_train_mono_backward=0),
+          f"contrastive epoch launches {con_launches[0]}: K2 must run twice a step "
+          f"({steps} steps)")
+    check(con_launches[1]["stse_train_forward"] == 0,
+          f"the frozen contrastive epoch launched K2: {con_launches[1]}")
+    con_losses = np.asarray([m["contrastive_loss"] for m in log.steps])
+    check(len(con_losses) == 2 * steps and np.isfinite(con_losses).all()
+          and np.isfinite(log.losses).all(),
+          f"contrastive losses: {len(con_losses)} of {2 * steps}, finite "
+          f"{bool(np.isfinite(con_losses).all())}")
+
+    summary = dict(
+        card=card, clips=PIPE_CLIPS, actors=PIPE_ACTORS, frames=PIPE_FRAMES, windows=n_windows,
+        items=len(store), json_bytes=json_bytes, write_s=write_s,
+        parse_s=parse_s, native_speedup=parse_s["json"] / parse_s["native"],
+        load_store_s=store_s, load_windows_s=host_s, batch_err=batch_err,
+        fit_float32=fit32, fit_bfloat16=fit16, score_err=score_err,
+        scoring_windows_per_s={k: len(store) / v for k, v in score_s.items()},
+        resident_bytes=resident, contrastive=dict(
+            epoch_s=con_s, launches=con_launches,
+            contrastive_loss_per_epoch=[float(con_losses[:steps].mean()),
+                                        float(con_losses[steps:].mean())],
+            loss_per_epoch=[float(np.mean(log.losses[:steps])),
+                            float(np.mean(log.losses[steps:]))]),
+        launches=launches, launches_bf16=launches_bf16)
+    print(f"pipeline: {PIPE_CLIPS} clips x {PIPE_ACTORS} actors x {PIPE_FRAMES} frames "
+          f"({json_bytes} bytes of JSON), parse s native {parse_s['native']:.3f} json.load "
+          f"{parse_s['json']:.3f} (best of {PIPE_TURNS} in turns, same bits); store "
+          f"{store_s:.2f} s, windows {host_s:.2f} s to load; {n_windows} windows x 5; batch of "
+          f"{PIPE_INDICES} max abs vs CPU store {batch_err['vs_cpu_store']:.2e}, vs windows "
+          f"{batch_err['vs_windows']:.2e}; on {card}")
+    for r in (fit32, fit16):
+        print(f"pipeline fit {r['compute_dtype']}: {PIPE_EPOCHS} epochs x "
+              f"{r['steps_per_epoch']} steps, train windows/s store "
+              f"{r['train_windows_per_s']['store']:.0f} windows "
+              f"{r['train_windows_per_s']['windows']:.0f} (epoch 2, in turns; epochs "
+              f"{ {k: [round(t, 3) for t in v] for k, v in r['epoch_s'].items()} } s); store "
+              f"launches {r['launches']}; losses {[round(v, 6) for v in r['losses_per_epoch']]},"
+              f" vs windows max rel {r['loss_max_rel_err_vs_windows']:.2e} (band "
+              f"{r['loss_band']})")
+    print(f"pipeline scoring: windows/s store "
+          f"{summary['scoring_windows_per_s']['store']:.0f} windows "
+          f"{summary['scoring_windows_per_s']['windows']:.0f} (best of {PIPE_TURNS} in turns); "
+          f"scores max abs vs windows {score_err:.2e}; K1 {score_launches['stse_fused']}; "
+          f"resident bytes {resident}")
+    print(f"pipeline contrastive: epochs {[round(t, 3) for t in con_s]} s (the second past "
+          f"freeze_bn_after, running statistics unchanged); launches {con_launches}; "
+          f"contrastive loss {summary['contrastive']['contrastive_loss_per_epoch']}, loss "
+          f"{summary['contrastive']['loss_per_epoch']}")
     return summary
 
 
@@ -2524,11 +2838,12 @@ PAPER_EDITS = ("data_dir", "dataset_path_to_robust", "test_path", "exp_dir")
 CSV_FIRST_TEST_CLIP = 4  # HR-Avenue masks its clips 1, 2, 3, 6 and 16 with the real frames
 
 
-def write_paper_trees(root, rng):
-    """The paper phase's data under root, at the cli phase's scale, 17
-    keypoints: an HR-STC-shaped AlphaPose tree (pose/{training,testing}/
-    <scene>_<clip>_alphapose_tracked_person.json, ground truth in
-    testing/test_frame_mask/<scene>_<clip>.npy) for the markovitz file, and a
+def write_paper_trees(root, rng, train_clips=CLI_TRAIN_CLIPS):
+    """The paper phase's data under root, the cli phase's clips with
+    train_clips training clips, 17 keypoints: an HR-STC-shaped AlphaPose
+    tree (pose/{training,testing}/<scene>_<clip>_alphapose_tracked_person.json,
+    ground truth in testing/test_frame_mask/<scene>_<clip>.npy) for the
+    markovitz file, and a
     Morais-CSV tree (csv/{training,testing,validating}/trajectories/
     <scene>-<clip>/<person>.csv: a frame column, then x, y of each joint) for
     the robust HR-Avenue and UBnormal files, the test clips' ground truth
@@ -2542,7 +2857,7 @@ def write_paper_trees(root, rng):
     for d in (*pose.values(), gt_dir):
         os.makedirs(d, exist_ok=True)
     name = "01_{:04d}_alphapose_tracked_person.json"
-    for i in range(1, CLI_TRAIN_CLIPS + 1):
+    for i in range(1, train_clips + 1):
         write_clip_json(os.path.join(pose["training"], name.format(i)), rng, CLI_FRAMES)
     for i in range(1, CLI_TEST_CLIPS + 1):
         write_clip_json(os.path.join(pose["testing"], name.format(i)), rng, CLI_FRAMES,
@@ -2550,7 +2865,7 @@ def write_paper_trees(root, rng):
         np.save(os.path.join(gt_dir, f"01_{i:04d}.npy"), clip_labels())
     csv = os.path.join(root, "csv")
     tests = range(CSV_FIRST_TEST_CLIP, CSV_FIRST_TEST_CLIP + CLI_TEST_CLIPS)
-    for split, clips, anomalous in (("training", range(1, CLI_TRAIN_CLIPS + 1), None),
+    for split, clips, anomalous in (("training", range(1, train_clips + 1), None),
                                     ("testing", tests, CLI_ANOMALY),
                                     ("validating", tests, CLI_ANOMALY)):
         for i in clips:
@@ -2679,7 +2994,7 @@ def paper_run(card, root):
     from coskad_tpu_torch.train.loop import Trainer
 
     t0 = time.perf_counter()
-    trees = write_paper_trees(root, np.random.default_rng(5))
+    trees = write_paper_trees(root, np.random.default_rng(5), PAPER_TRAIN_CLIPS)
     write_s = time.perf_counter() - t0
     runs_of = {key: ("resumed", "straight") for key in PAPER_CONFIGS}
     runs_of["float32_copy"] = ("resumed",)
@@ -3438,6 +3753,7 @@ STREAM_FRAMES, STREAM_ACTORS = 2400, 3
 STREAM_MIN_BATCH = 256
 STREAM_HORIZON = 512  # frames: past the emission lag of 256-window batches over 3 actors
 STREAM_FRAMES_A_REQUEST = 64
+CLIP_TURNS = (True, False, True, False)  # the clip requests: COSKAD_NATIVE on, off, on, off
 
 
 def phase_streaming(card):
@@ -3484,13 +3800,17 @@ def streaming_run(card, root):
 
     import torch
     from coskad_tpu_torch.cli import train as train_cli
+    from coskad_tpu_torch import serve
     from coskad_tpu_torch.cli.common import load_config
+    from coskad_tpu_torch.data import native
     from coskad_tpu_torch.data.alphapose import parse_clip_json
     from coskad_tpu_torch.data.windows import segment_clip
     from coskad_tpu_torch.http_server import ScoringService, build_server
     from coskad_tpu_torch.serve import AnomalyScorer
     from coskad_tpu_torch.streaming import StreamingScorer
 
+    # the clip request is timed with the native parser on and off
+    check(native.native_available(), "the native clip parser did not build on this machine")
     configs = write_cli_tree(root, np.random.default_rng(9))
     train_cli.main(["--config", configs["resumed"], "--epochs", "1", "--device", DEVICE])
     ckpt = os.path.join(load_config(configs["resumed"]).ckpt_dir, "best.ckpt")
@@ -3522,6 +3842,7 @@ def streaming_run(card, root):
         return s, out, time.perf_counter() - t
 
     # --- the serving path, counted ---
+    inner_parse = serve.parse_clip_json
     zero(counters)
     StreamingScorer._drain = timed_drain
     try:
@@ -3536,6 +3857,24 @@ def streaming_run(card, root):
         rolled, rolled_out, rolled_s = stream(STREAM_HORIZON)
 
         service = ScoringService(scorer=scorer, source=ckpt)
+        # the clip request by part: the service's spool + parse + scoring,
+        # score_clip_json's parse + scoring, and the parse alone
+        parts = []
+        inner_score_clip, inner_clip_json = service.score_clip, scorer.score_clip_json
+
+        def part(name, fn):
+            def timed(*a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                parts[-1][name] = (time.perf_counter() - t) * 1e3
+                return out
+            return timed
+
+        service.score_clip = part("service", inner_score_clip)
+        scorer.score_clip_json = part("score_clip_json", inner_clip_json)
+        serve.parse_clip_json = part("parse", inner_parse)
         server = build_server(service, port=0)
         thread = threading.Thread(target=server.serve_forever, daemon=True)
         thread.start()
@@ -3553,10 +3892,16 @@ def streaming_run(card, root):
                 windows_ms.append((time.perf_counter() - t) * 1e3)
             with open(clip, "rb") as f:
                 body = f.read()
-            for _ in range(2):
+            for native_on in CLIP_TURNS:  # COSKAD_NATIVE on and off, in turns
+                os.environ["COSKAD_NATIVE"] = "1" if native_on else "0"
+                parts.append(dict(native=native_on))
                 t = time.perf_counter()
                 clip_http = http_json(url + "/v1/score/clip", "POST", body)["scores"]
                 clip_ms.append((time.perf_counter() - t) * 1e3)
+                parts[-1]["request"] = clip_ms[-1]
+                check(np.array_equal(clip_http, offline),
+                      f"clip request (COSKAD_NATIVE {int(native_on)}): not the library's bits")
+            os.environ.pop("COSKAD_NATIVE", None)
             sid = http_json(url + "/v1/streams", "POST",
                             {"min_batch": STREAM_MIN_BATCH})["stream_id"]
             keys = list(frames)
@@ -3582,11 +3927,13 @@ def streaming_run(card, root):
         launches = read(counters)
     finally:
         StreamingScorer._drain = inner_drain
+        serve.parse_clip_json = inner_parse
+        os.environ.pop("COSKAD_NATIVE", None)
     # --- end of the counted run ---
     check(not thread.is_alive(), "the server thread did not stop")
 
     # K1: one launch a batch of the config's size (Trainer._chunked_indices) in
-    # each scoring call: the offline clip and the 2 clip requests, the 3
+    # each scoring call: the offline clip and the clip requests, the 3
     # window requests, every drain that had windows (the two streams', the
     # session's); each stream scores each of the clip's windows once
     d = cfg.data
@@ -3598,7 +3945,7 @@ def streaming_run(card, root):
         label = ("unbounded" if owner is unbounded else "horizon" if owner is rolled
                  else "session")
         sizes.setdefault(label, []).append(n)
-    k1 = (3 * batches(n_clip) + 3 * batches(TRAIN_BATCH)
+    k1 = ((1 + len(CLIP_TURNS)) * batches(n_clip) + 3 * batches(TRAIN_BATCH)
           + sum(batches(n) for v in sizes.values() for n in v if n))
     want = dict(stse_fused=k1, stse_train_forward=0, stse_train_layer_backward=0,
                 stse_train_top_backward=0, stse_train_mono_backward=0)
@@ -3632,6 +3979,15 @@ def streaming_run(card, root):
     check(close(session, online), f"the server's stream vs the library's: {errs}")
     n_windows = unbounded.n_windows_scored
     lat = np.asarray(latency_ms)
+    clip_split = []  # the request by part (ms): spool, parse, scoring and the rest
+    for p in parts:
+        check(set(p) == {"native", "request", "service", "score_clip_json", "parse"},
+              f"a clip request's parts were not all timed: {p}")
+        clip_split.append(dict(native=p["native"], request_ms=p["request"],
+                               spool_ms=p["service"] - p["score_clip_json"],
+                               parse_ms=p["parse"],
+                               scoring_ms=p["score_clip_json"] - p["parse"],
+                               http_and_json_ms=p["request"] - p["service"]))
     summary = dict(
         card=card, frames=len(frames), actors=STREAM_ACTORS, windows=n_windows,
         min_batch=STREAM_MIN_BATCH, horizon=STREAM_HORIZON, errors=errs,
@@ -3639,7 +3995,7 @@ def streaming_run(card, root):
         rolled_exact=errs["rolled_vs_unbounded"] == 0.0,
         stream_frames_per_s=len(frames) / stream_s, rolled_frames_per_s=len(frames) / rolled_s,
         stream_s=stream_s, drains=len(drain_s), drain_s=sum(drain_s),
-        http_windows_ms=windows_ms, http_clip_ms=clip_ms,
+        http_windows_ms=windows_ms, http_clip_ms=clip_ms, http_clip_split=clip_split,
         http_stream_frames_per_s=len(frames) / session_s,
         http_request_ms_p50=float(np.percentile(lat, 50)),
         http_request_ms_p99=float(np.percentile(lat, 99)), http_requests=len(lat),
@@ -3656,6 +4012,9 @@ def streaming_run(card, root):
           f"{summary['http_request_ms_p50']:.2f} ms p99 {summary['http_request_ms_p99']:.2f} ms; "
           f"errors {errs}; launches {launches} (as predicted; drains of "
           f"{ {k: len(v) for k, v in sizes.items()} }, the clip {n_clip} windows); on {card}")
+    print("streaming clip request by part (ms; COSKAD_NATIVE on / off in turns): "
+          + json.dumps([{k: round(v, 2) if isinstance(v, float) else v for k, v in p.items()}
+                        for p in clip_split]))
     return summary
 
 
@@ -3855,12 +4214,13 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("kernels", "products", "probe", "cli", "paper", "bf16",
-                                       "variants", "encoders", "streaming", "export"),
+                                       "variants", "encoders", "streaming", "export",
+                                       "pipeline"),
                     default=None,
                     help="run only the environment and kernel phases, or only the product "
                          "check, or only the probe check, or only the cli, the paper, the bf16 (the bf16 kernel check "
-                         "and the bf16 fit), the variants, the encoders, the streaming or the "
-                         "export phase (no result line)")
+                         "and the bf16 fit), the variants, the encoders, the streaming, the "
+                         "export or the pipeline phase (no result line)")
     args = ap.parse_args(argv)
     card, build_s = phase_environment()
     import torch
@@ -3881,9 +4241,10 @@ def main(argv=None) -> int:
         phase_bf16_kernels(card)
         phase_train_bf16(card)
         return 0
-    if args.only in ("probe", "variants", "encoders", "streaming", "export"):
+    if args.only in ("probe", "variants", "encoders", "streaming", "export", "pipeline"):
         phase = dict(probe=phase_probe, variants=phase_variants, encoders=phase_encoders,
-                     streaming=phase_streaming, export=phase_export)[args.only]
+                     streaming=phase_streaming, export=phase_export,
+                     pipeline=phase_pipeline)[args.only]
         summary = phase(card)
         os.makedirs(OUT_DIR, exist_ok=True)
         with open(os.path.join(OUT_DIR, f"chip_smoke_{args.only}.json"), "w") as f:
@@ -3908,6 +4269,7 @@ def main(argv=None) -> int:
     summary = timed("slice", phase_slice, card)
     train = timed("train", phase_train, card)
     train_bf16 = timed("train_bf16", phase_train_bf16, card)
+    pipeline = timed("pipeline", phase_pipeline, card)
     cli = timed("cli", phase_cli, card)
     paper = timed("paper", phase_paper, card)
     variants = timed("variants", phase_variants, card)
@@ -3921,13 +4283,15 @@ def main(argv=None) -> int:
                                       cli=cli["launches"]["stse_fused"],
                                       paper=paper["launches_total"]["stse_fused"],
                                       training_bf16=train_bf16["launches"]["stse_fused"],
+                                      pipeline=pipeline["launches"]["stse_fused"],
                                       variants=variants["launches_total"]["stse_fused"],
                                       encoders=encoders["launches_total"]["stse_fused"],
                                       streaming=streaming["launches"]["stse_fused"],
                                       export=export["launches"]["stse_fused"])
-    check(all(kernel["launches_by_path"][p] > 0 for p in ("encoders", "streaming", "export")),
-          f"K1 by path {kernel['launches_by_path']}: none on the encoders, streaming or export "
-          "path")
+    check(all(kernel["launches_by_path"][p] > 0
+              for p in ("encoders", "streaming", "export", "pipeline")),
+          f"K1 by path {kernel['launches_by_path']}: none on the encoders, streaming, export or "
+          "pipeline path")
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     for rec in train_kernels + [mono_kernel]:
         by_path = dict(serving=0, training=train["launches"][rec["name"]],
@@ -3937,13 +4301,15 @@ def main(argv=None) -> int:
                        variants=variants["launches_total"][rec["name"]],
                        encoders=encoders["launches_total"][rec["name"]],
                        streaming=streaming["launches"][rec["name"]],
-                       export=export["launches"][rec["name"]])
+                       export=export["launches"][rec["name"]],
+                       pipeline=pipeline["launches"][rec["name"]])
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     for rec in bf16_kernels:  # the bf16 form's own paths: the bf16 fit and mono run
         name = rec["name"].split(".")[0]
         by_path = dict(training_bf16=train_bf16["launches"][name],
-                       mono_bf16=mono["launches_bf16"][name])
+                       mono_bf16=mono["launches_bf16"][name],
+                       pipeline_bf16=pipeline["launches_bf16"][name])
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
         check(rec["launches"] > 0, f"{rec['name']} was not launched on its bf16 path")
@@ -3951,7 +4317,8 @@ def main(argv=None) -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, build_s=build_s, kernels=kernels, products=products,
-                       slice=summary, train=train, train_bf16=train_bf16, mono=mono, cli=cli,
+                       slice=summary, train=train, train_bf16=train_bf16, pipeline=pipeline,
+                       mono=mono, cli=cli,
                        paper=paper, variants=variants, encoders=encoders, streaming=streaming,
                        export=export, phase_wall_s=wall), f, indent=1)
     keys = ("name", "route", "source", "replaces", "compute_dtype", "launches", "max_abs_err",

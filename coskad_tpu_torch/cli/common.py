@@ -8,12 +8,13 @@ item 5.
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 
 from ..config import Config, from_reference_yaml
 from ..data.alphapose import load_alphapose_split, load_alphapose_store
+from ..data.device_pipeline import TrajectoryStore
 from ..data.robust import load_robust_split, load_scaler, save_scaler
 from ..data.windows import SegmentDataset
 
@@ -29,12 +30,15 @@ def is_primary() -> bool:
 
 
 def load_split(cfg: Config, split: str, stride: Optional[int] = None,
-               scaler=None) -> SegmentDataset:
+               scaler=None, device=None) -> Union[SegmentDataset, TrajectoryStore]:
     """The config's dataset for `split` ('train', 'test' or 'validation'),
     windowed at `stride` (default: the config's) and normalized with
     `scaler` where given. The AlphaPose path with robust normalization
     keeps the fitted scaler in <ckpt_dir>/robust.pkl: the train split writes
-    it, other splits (or use_fitted_scaler) read it."""
+    it, other splits (or use_fitted_scaler) read it. With
+    `run.device_pipeline` the AlphaPose path gives a TrajectoryStore on
+    `device` (default 'cuda'), which needs that scaler already fitted for
+    robust normalization."""
     d = cfg.data
     seg_stride = stride if stride is not None else d.seg_stride
     if d.normalization_strategy == "robust" and d.path_to_robust:
@@ -58,7 +62,10 @@ def load_split(cfg: Config, split: str, stride: Optional[int] = None,
                   symm_range=d.symm_range, sub_mean=d.sub_mean, scaler=scaler,
                   num_transform=d.num_transform)
     if cfg.run.device_pipeline:
-        return load_alphapose_store(pose_dir, **kwargs)
+        return load_alphapose_store(
+            pose_dir, device=device,
+            normalization_strategy=d.normalization_strategy if d.normalize_pose else "none",
+            **kwargs)
     ds = load_alphapose_split(pose_dir, normalize_pose=d.normalize_pose,
                               normalization_strategy=d.normalization_strategy, **kwargs)
     if (d.normalization_strategy == "robust" and split == "train" and scaler is None

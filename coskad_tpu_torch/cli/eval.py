@@ -74,7 +74,8 @@ def main(argv=None) -> EvalRun:
     # The test split is normalized with the training scaler, which the
     # checkpoint carries: read the file once, before the Trainer exists.
     payload = checkpoint.read_payload(ckpt_path)
-    test_ds = load_split(cfg, "test", stride=1, scaler=checkpoint.scaler_of(payload))
+    test_ds = load_split(cfg, "test", stride=1, scaler=checkpoint.scaler_of(payload),
+                         device=args.device)
     gts = load_ground_truths(cfg.data.gt_dir)
     print(f"[coskad] test windows: {test_ds.num_windows}, clips: {len(gts)}")
     marks["ingest"] = time.perf_counter()  # JSON parse, windowing, normalization

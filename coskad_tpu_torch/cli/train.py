@@ -50,7 +50,7 @@ def main(argv=None) -> TrainRun:
     print(f"[coskad] variant={cfg.model.variant} dataset={cfg.data.dataset_choice} "
           f"device={args.device}")
 
-    train_ds = load_split(cfg, "train")
+    train_ds = load_split(cfg, "train", device=args.device)
     print(f"[coskad] train windows: {train_ds.num_windows} "
           f"(x{cfg.data.num_transform} transforms)")
     val_ds, gts = None, {}
@@ -60,7 +60,7 @@ def main(argv=None) -> TrainRun:
         val_split = "validation" if cfg.data.pose_dirs.get("validation") or (
             cfg.data.normalization_strategy == "robust"
             and cfg.data.dataset_choice == "UBnormal") else "test"
-        val_ds = load_split(cfg, val_split, stride=1, scaler=train_ds.scaler)
+        val_ds = load_split(cfg, val_split, stride=1, scaler=train_ds.scaler, device=args.device)
         gts = load_ground_truths(cfg.data.val_gt_dir or cfg.data.gt_dir)
         print(f"[coskad] val windows: {val_ds.num_windows}, clips: {len(gts)}")
 

@@ -158,8 +158,9 @@ class RunConfig:
     # Train with running BN statistics from this epoch on (-1 disables); a
     # deviation from the reference, off by default.
     freeze_bn_after: int = -1
-    # Fused on-device preprocessing of whole trajectories (JAX package's
-    # data/device_pipeline.py; not ported yet).
+    # Whole trajectories resident on the device, each batch's windows
+    # gathered and normalized there (data/device_pipeline.py; the AlphaPose
+    # path of cli.train / cli.eval).
     device_pipeline: bool = False
     # Fused ghost-BN train kernels K2-K4 ('auto' | 'on' | 'off'):
     # kernels/stse_train.py.

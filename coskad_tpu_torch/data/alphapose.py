@@ -1,16 +1,18 @@
-"""AlphaPose tracked-person JSON ingestion (host side, pure Python).
+"""AlphaPose tracked-person JSON ingestion (host side).
 
-Counterpart of `coskad_tpu/data/alphapose.py` on its pure-Python JSON path.
-A directory holds one JSON per clip, named '<scene>_<clip>[...].json', each
-mapping person_id -> {frame_key -> {'keypoints': flat [x, y, conf] * V}};
+Counterpart of `coskad_tpu/data/alphapose.py`. A directory holds one JSON
+per clip, named '<scene>_<clip>[...].json', each mapping person_id ->
+{frame_key -> {'keypoints': flat [x, y, conf] * V}};
 `load_alphapose_split` turns a directory into a SegmentDataset of
-normalized [N, C, T, V] windows.
+normalized [N, C, T, V] windows, `load_alphapose_store` into a
+device-resident TrajectoryStore (`data/device_pipeline.py`).
 
 Ordering is the reference's: persons in numeric order of their ids; a
 person's keypoint rows stacked in lexicographic frame-key order while
 windowing consults the numeric key order (identical whenever frame keys are
-zero-padded). The native C++ parser is not ported (ROADMAP.md, Queue 1
-item 7); this parse is its semantics.
+zero-padded). A clip is parsed by the native C++ parser (`data/native.py`)
+unless COSKAD_NATIVE=0 or no toolchain builds it; the `json.load` path
+below is its semantics.
 """
 
 from __future__ import annotations
@@ -46,7 +48,14 @@ def parse_person(person_entry, person_id: int, kp_threshold: float = 0.0) -> Per
 
 
 def parse_clip_json(path: str, kp_threshold: float = 0.0) -> List[PersonTrajectory]:
-    """Clip JSON -> one PersonTrajectory per tracked person with detections."""
+    """Clip JSON -> one PersonTrajectory per tracked person with detections.
+    The native parser first (same result), unless COSKAD_NATIVE=0."""
+    if os.environ.get("COSKAD_NATIVE", "1") != "0":
+        from .native import parse_clip_json_native
+
+        native = parse_clip_json_native(path, kp_threshold)
+        if native is not None:
+            return native
     with open(path, "r") as f:
         clip_dict = json.load(f)
     trajectories = []
@@ -127,9 +136,50 @@ def load_alphapose_split(
     )
 
 
-def load_alphapose_store(json_dir: str, **_):
-    """The device-resident trajectory store of the JAX package
-    (`data/device_pipeline.py`): not ported yet."""
-    raise NotImplementedError(
-        "the device pipeline (run.device_pipeline) is not ported yet (ROADMAP.md, "
-        "Queue 1 item 4); use load_alphapose_split")
+def load_alphapose_store(
+    json_dir: str,
+    seg_len: int = 12,
+    seg_stride: int = 1,
+    start_offset: int = 0,
+    num_clips: Optional[int] = None,
+    kp_threshold: float = 0.0,
+    kp18_format: bool = True,
+    headless: bool = False,
+    normalization_strategy: str = "markovitz",
+    vid_res: Sequence[int] = (856, 480),
+    symm_range: bool = True,
+    sub_mean: bool = True,
+    scaler=None,
+    num_transform: int = 5,
+    device=None,
+):
+    """Directory of per-clip AlphaPose JSONs -> device-resident
+    TrajectoryStore (`data/device_pipeline.py`): the raw trajectories go to
+    the device once; windowing, normalization and the affine transforms
+    happen per batch. Same window enumeration and normalization as
+    load_alphapose_split, with whole trajectories resident instead of
+    overlapping windows. `device` follows `build_store`.
+
+    The 'robust' strategy needs a host-fitted scaler (pass `scaler`); the
+    store cannot fit one on the fly.
+    """
+    from .device_pipeline import build_store
+
+    if normalization_strategy == "robust" and scaler is None:
+        raise ValueError(
+            "device_pipeline with robust normalization needs a pre-fitted "
+            "scaler (fit once via the host pipeline or restore from a "
+            "checkpoint)")
+    json_list = sorted(fn for fn in os.listdir(json_dir) if fn.endswith(".json"))
+    if num_clips is not None:
+        json_list = json_list[:num_clips]
+    clips = []
+    for fn in json_list:
+        scene_id, clip_id = scene_clip_from_filename(fn)
+        clips.append((scene_id, clip_id,
+                      parse_clip_json(os.path.join(json_dir, fn), kp_threshold)))
+    return build_store(
+        clips, seg_len=seg_len, seg_stride=seg_stride, start_offset=start_offset,
+        kp18_format=kp18_format, headless=headless, num_transform=num_transform,
+        normalization=normalization_strategy, vid_res=tuple(vid_res),
+        symm_range=symm_range, sub_mean=sub_mean, scaler=scaler, device=device)

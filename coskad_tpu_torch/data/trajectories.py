@@ -5,9 +5,10 @@ Counterpart of `coskad_tpu/data/trajectories.py`, for what
 bounding boxes with 10% margins, global (bbox centre + size) and local
 (bbox-centre-relative) coordinates, short-trajectory filtering,
 sliding-window aggregation with frame subsampling, and three scaling
-strategies with exact-zero -> NaN missing-value masking. CSVs are read with
-`numpy.loadtxt`; the JAX package's native C++ reader is not ported
-(ROADMAP.md, Queue 1 item 7).
+strategies with exact-zero -> NaN missing-value masking. A split's CSVs are
+read in one batch by the native C++ reader (`data/native.py`, float64 then
+float32) unless COSKAD_NATIVE=0 or no toolchain builds it; then one by one
+by `_read_csv`.
 
 Window semantics: windows hop by ONE frame; `seg_stride` becomes an
 intra-window frame gap (step = stride, window span = L + (stride-1) * (L-1)).
@@ -104,21 +105,38 @@ class Trajectory:
         return self
 
 
+def _read_csv(path: str) -> np.ndarray:
+    """One Morais CSV -> float32 [rows, cols] by numpy's loadtxt."""
+    return np.loadtxt(path, dtype=np.float32, delimiter=",", ndmin=2)
+
+
 def load_trajectories(trajectories_path: str, debug: bool = False, split: str = "train"
                       ) -> "OrderedDict[str, Trajectory]":
     """Walk <path>/<clip_folder>/<person>.csv in os.listdir order; id =
-    '<folder>_<person>'. A debug train split keeps the first 5 folders."""
+    '<folder>_<person>'. A debug train split keeps the first 5 folders. The
+    files are parsed in one batch on the native reader's thread pool unless
+    COSKAD_NATIVE=0 (or it does not build), else by `_read_csv`."""
     trajectories: OrderedDict[str, Trajectory] = OrderedDict()
     folders = os.listdir(trajectories_path)
     if debug and split == "train":
         folders = folders[:5]
+    tids, paths = [], []
     for folder in folders:
         for csv_name in os.listdir(os.path.join(trajectories_path, folder)):
-            tid = folder + "_" + csv_name.split(".")[0]
-            arr = np.loadtxt(os.path.join(trajectories_path, folder, csv_name),
-                             dtype=np.float32, delimiter=",", ndmin=2)
-            trajectories[tid] = Trajectory(trajectory_id=tid, frames=arr[:, 0].astype(np.int32),
-                                           coordinates=arr[:, 1:])
+            tids.append(folder + "_" + csv_name.split(".")[0])
+            paths.append(os.path.join(trajectories_path, folder, csv_name))
+    arrays = None
+    if paths and os.environ.get("COSKAD_NATIVE", "1") != "0":
+        from .native import load_csv_files_native
+
+        arrays = load_csv_files_native(paths)
+        if arrays is not None:
+            arrays = [a.astype(np.float32) for a in arrays]
+    if arrays is None:
+        arrays = [_read_csv(p) for p in paths]
+    for tid, arr in zip(tids, arrays):
+        trajectories[tid] = Trajectory(trajectory_id=tid, frames=arr[:, 0].astype(np.int32),
+                                       coordinates=arr[:, 1:])
     return trajectories
 
 

@@ -4,7 +4,9 @@ Counterpart of the part of `coskad_tpu/geometry/poincare.py` that training,
 center initialization and scoring use: the exponential and logarithmic maps
 at the origin, projection onto the ball, Möbius addition, the geodesic
 distance, and the Einstein midpoint through Klein coordinates, with its
-additive per-batch statistics. The same float32 safeguards as the JAX
+additive per-batch statistics; and for the contrastive view, the
+all-pairs Möbius addition, the distance matrix and the InfoNCE loss. The
+same float32 safeguards as the JAX
 module: artanh's argument clipped to 1 - 1e-7, norms floored at 1e-15 under
 the square root, points projected onto a ball shrunk by 4e-3 (1e-5 in
 float64). Floors and clips use `torch.maximum` / `torch.minimum`, which
@@ -153,3 +155,55 @@ def midpoint_from_stats(weighted_sum: torch.Tensor, total_weight: torch.Tensor,
                         k: float = -1.0) -> torch.Tensor:
     mean_klein = weighted_sum / _floor(total_weight)
     return project(klein_to_poincare(mean_klein, k), k)
+
+
+# ------------------------------------------------------- all-pairs, InfoNCE
+
+
+def mobius_addition_batch(x: torch.Tensor, y: torch.Tensor, k: float = -1.0) -> torch.Tensor:
+    """All-pairs Möbius addition: x [B, D], y [C, D] -> [B, C, D], with the
+    reference's 1e-5 added to the denominator (no floor)."""
+    c = -k
+    xy = x @ y.T  # [B, C]
+    x2 = torch.sum(x * x, dim=-1, keepdim=True)  # [B, 1]
+    y2 = torch.sum(y * y, dim=-1, keepdim=True)  # [C, 1]
+    num = (1 + 2 * c * xy + c * y2.T)[:, :, None] * x[:, None, :]
+    num = num + (1 - c * x2)[:, :, None] * y[None, :, :]
+    denom = 1 + 2 * c * xy + c ** 2 * x2 * y2.T
+    return num / (denom[:, :, None] + 1e-5)
+
+
+def dist_matrix(x: torch.Tensor, y: torch.Tensor, k: float = -1.0) -> torch.Tensor:
+    """All-pairs geodesic distances: x [B, D], y [C, D] -> [B, C]. The norm
+    is jnp.linalg.norm's, sqrt of the sum of squares with no floor."""
+    sqrt_c = _sqrt_c(k)
+    m = mobius_addition_batch(-x, y, k)
+    norms = torch.sqrt(torch.sum(m * m, dim=-1))
+    return 2.0 / sqrt_c * artanh(sqrt_c * norms)
+
+
+def contrastive_loss(x: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor, tau: float,
+                     hyp_c: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Hyperbolic (cosine-style dot products when hyp_c == 0) InfoNCE loss.
+    Returns (loss, logits [B, 2B]).
+
+    The argument semantics are the reference's, whose names mislead: the
+    target of sample i is column i of dist(x, `neg`), so `neg` is the
+    cross-view batch whose diagonal holds the positive pairs, while `pos` is
+    the same-view batch of negatives, its diagonal masked with eye * 1e9."""
+    if hyp_c == 0:
+        def dist_f(u, v):
+            return u @ v.T
+    else:
+        def dist_f(u, v):
+            return -dist_matrix(u, v, k=-hyp_c)
+    bsize = x.shape[0]
+    eye_mask = torch.eye(bsize, dtype=x.dtype, device=x.device) * 1e9
+    logits00 = dist_f(x, pos) / tau - eye_mask
+    logits01 = dist_f(x, neg) / tau
+    logits = torch.cat([logits01, logits00], dim=1)
+    logits = logits - torch.amax(logits, dim=1, keepdim=True).detach()
+    log_probs = torch.log_softmax(logits, dim=1)
+    target = torch.arange(bsize, device=x.device)
+    loss = -torch.mean(log_probs[target, target])
+    return loss, logits

@@ -2,7 +2,10 @@
 variant (euclidean static / dynamic, hyperbolic, autoencoder, VAE):
 training, center initialization, scoring and validation.
 
-Windows are uploaded once, flat [N, C*T*V], to the device. A pass walks
+The data is resident on the device once, in one of two pipelines: a
+SegmentDataset's windows, flat [N, C*T*V], or a TrajectoryStore's whole
+trajectories (`data/device_pipeline.py`, `run.device_pipeline`), from which
+each batch's windows are gathered and normalized on the device. A pass walks
 [K, B] index chunks in an eager Python loop (the JAX package's `lax.scan`):
 per chunk, gather the batch (sample i % N, transform i // N), then
 
@@ -10,7 +13,13 @@ per chunk, gather the batch (sample i % N, transform i // N), then
     Adam step and the epoch accumulators. The forward is the ghost-BN
     K2-K4 path (`kernels/stse_train.py`) when `run.fused_train` allows it
     and the batch is a multiple of `run.ghost_size`, else the module path
-    with live BatchNorm (or running statistics under `freeze_bn_after`);
+    with live BatchNorm (or running statistics under `freeze_bn_after`).
+    With `opt.contrastive_weight` > 0 a second, strongly augmented view of
+    the batch (`data/augment_device.py`) takes a second train forward (the
+    same route, so a second K2 launch and a second K3/K4 backward on the
+    fused path; under `frozen_bn` too, and after the first forward's
+    running-statistics update), and the InfoNCE loss between the two views'
+    latents is added with that weight;
   * score (`score_all`, `embed_all`): the eval forward (on CUDA at float32,
     the fused encoder kernel K1) and the variant's window score; the
     decoder variants also give each window's reconstruction MSE.
@@ -22,7 +31,11 @@ eval pass that samples (`eval.vae_sample`) draws from one seeded from
 Dropout (`model.dropout` > 0) draws its train-mode masks from a separate
 stream seeded from (cfg.run.seed, step, 0x60), JAX's `fold_in(key, 0x60)`,
 so a VAE with dropout draws both and a resumed run draws what a straight
-one does.
+one does. The contrastive view draws its augmentation from a generator
+seeded from (cfg.run.seed, step, 0xC0), and its forward's VAE samples and
+dropout masks from (cfg.run.seed, step, 0xC0, 1) and (cfg.run.seed, step,
+0xC0, 0x60); `train_step(contrastive_draws=...)` feeds the augmentation's
+draws instead (the lockstep tests feed JAX's).
 `Trainer.vae_sample = False` puts train and eval on the posterior mean
 (the lockstep tests' deterministic path).
 
@@ -39,6 +52,8 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..data import augment_device
+from ..data.device_pipeline import TrajectoryStore, gather_batch_from_store
 from ..data.transforms import canonical_transforms, gather_batch
 from ..data.windows import SegmentDataset
 from ..device import resolve_device
@@ -50,6 +65,9 @@ from ..score.masks import AVENUE_MASKED_CLIPS
 from ..utils.logging import MetricLogger
 from . import objectives, schedulers
 from .state import TrainState, clamp_center, init_state
+
+# The contrastive view's generator tag: (cfg.run.seed, step, CONTRASTIVE_TAG).
+CONTRASTIVE_TAG = 0xC0
 
 
 def model_kwargs_from_config(cfg: Config) -> dict:
@@ -80,8 +98,9 @@ class Trainer:
 
     Args:
         cfg: full configuration.
-        train_ds: training SegmentDataset (resident once on the device).
-        val_ds: optional SegmentDataset for validation AUC.
+        train_ds: training SegmentDataset or TrajectoryStore (resident once
+            on the device).
+        val_ds: optional dataset of the same kind for validation AUC.
         ground_truths: {(scene, clip): labels} for validation scoring.
         device: 'cuda' (default; raises if CUDA is missing) or 'cpu'.
         logger: per-step and per-epoch metrics (stdout JSONL by default).
@@ -97,8 +116,8 @@ class Trainer:
     def __init__(
         self,
         cfg: Config,
-        train_ds: SegmentDataset,
-        val_ds: Optional[SegmentDataset] = None,
+        train_ds: Union[SegmentDataset, TrajectoryStore],
+        val_ds: Union[SegmentDataset, TrajectoryStore, None] = None,
         ground_truths: Optional[dict] = None,
         device: Union[str, torch.device] = "cuda",
         logger: Optional[MetricLogger] = None,
@@ -145,6 +164,10 @@ class Trainer:
         self.trans_table = torch.as_tensor(
             canonical_transforms(max(cfg.data.num_transform, 1)), device=self.device)
         self.batch_size = cfg.data.batch_size
+        self._pipeline = "store" if isinstance(train_ds, TrajectoryStore) else "windows"
+        if val_ds is not None and (
+                isinstance(val_ds, TrajectoryStore) != (self._pipeline == "store")):
+            raise ValueError("train and validation datasets must use the same pipeline kind")
         # The transform table has cfg.data.num_transform rows while the index
         # stream spans len(ds) = N * ds.num_transform: refuse a mismatch
         # rather than gather a wrong matrix. num_transform=1 (raw serving
@@ -219,17 +242,17 @@ class Trainer:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
 
-    def train_step(self, state: TrainState, data: torch.Tensor, indices: torch.Tensor,
-                   frozen_bn: bool = False, vae_draws=None
+    def train_step(self, state: TrainState, data, indices: torch.Tensor,
+                   frozen_bn: bool = False, vae_draws=None, contrastive_draws=None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One optimizer step on the batch of logical `indices`: forward,
-        loss, backward, optimizer step, then the epoch accumulators from the
-        step's latents (taken before the update; the VAE's posterior means
-        where eval.vae_sample is off, as they are what it scores)."""
+        """One optimizer step on the batch of logical `indices`: forward (and
+        the contrastive view's, see the module docstring; its augmentation
+        from `contrastive_draws` where given, `augment_device`'s
+        draw_strong_augment layout), loss, backward, optimizer step, then the
+        epoch accumulators from the step's latents (taken before the update;
+        the VAE's posterior means where eval.vae_sample is off, as they are
+        what it scores)."""
         cfg = self.cfg
-        if cfg.opt.contrastive_weight > 0:
-            raise NotImplementedError(
-                "the contrastive second view is not ported yet (ROADMAP.md, Queue 1 item 4)")
         batch = self._gather(data, indices)
         gen = self._generator(state.step) if self._samples() and vae_draws is None else None
         dgen = self._generator(state.step, 0x60) if cfg.model.dropout > 0 else None
@@ -239,6 +262,11 @@ class Trainer:
             cfg, out, batch, self.model, state.center, state.inv_cov,
             mean_vector=state.mean_vector)
         z = objectives.latent_of(cfg.model.variant, out)
+        if cfg.opt.contrastive_weight > 0:
+            l_con = self._contrastive(state.step, batch, z, frozen_bn, contrastive_draws)
+            loss = loss + cfg.opt.contrastive_weight * l_con
+            metrics["contrastive_loss"] = l_con
+            metrics["loss"] = loss
         if cfg.model.use_vae and not cfg.eval.vae_sample:
             z = out[2][0]
         self.optimizer.zero_grad(set_to_none=True)
@@ -251,7 +279,28 @@ class Trainer:
                               acc_outer=acc[2])
         return state, {k: v.detach() for k, v in metrics.items()}
 
-    def train_epoch(self, state: TrainState, data: torch.Tensor, indices: torch.Tensor,
+    def _contrastive(self, step: int, batch: torch.Tensor, z: torch.Tensor, frozen_bn: bool,
+                     draws=None) -> torch.Tensor:
+        """The second view's InfoNCE loss against the first view's latents z:
+        strong_augment of the batch, a train forward of it (running
+        statistics as the first forward left them; frozen under frozen_bn),
+        contrastive_loss(z, z, z2)."""
+        cfg = self.cfg
+        if draws is None:
+            draws = augment_device.draw_strong_augment(
+                self._generator(step, CONTRASTIVE_TAG), batch.shape, batch.device)
+        batch2 = augment_device.strong_augment(batch, draws)
+        gen = (self._generator(step, CONTRASTIVE_TAG, 1) if self._samples() else None)
+        dgen = (self._generator(step, CONTRASTIVE_TAG, 0x60) if cfg.model.dropout > 0
+                else None)
+        out2 = self._forward(batch2, train=True, frozen_bn=frozen_bn, generator=gen,
+                             dropout_generator=dgen)
+        z2 = objectives.latent_of(cfg.model.variant, out2)
+        l_con, _ = hyp.contrastive_loss(z, z, z2, tau=cfg.opt.contrastive_tau,
+                                        hyp_c=cfg.opt.contrastive_hyp_c)
+        return l_con
+
+    def train_epoch(self, state: TrainState, data, indices: torch.Tensor,
                     frozen_bn: bool = False) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """Train steps over [K, B] index chunks; metrics stacked to [K]."""
         steps = []
@@ -260,18 +309,32 @@ class Trainer:
             steps.append(metrics)
         return state, {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
 
-    def _device_data(self, ds: SegmentDataset) -> torch.Tensor:
-        """Windows flat [N, C*T*V] on the device; `_gather` reshapes."""
+    def _device_data(self, ds):
+        """A store's (trajectories, window persons, window starts) on the
+        device; or windows flat [N, C*T*V], which `_gather` reshapes."""
+        if isinstance(ds, TrajectoryStore):
+            return (ds.traj.to(self.device),
+                    torch.as_tensor(ds.window_person, dtype=torch.int64, device=self.device),
+                    torch.as_tensor(ds.window_start, dtype=torch.int64, device=self.device))
         n = ds.data.shape[0]
         return torch.as_tensor(
             np.ascontiguousarray(ds.data.reshape(n, -1), np.float32), device=self.device)
 
     @staticmethod
     def _window_shape_of(ds):
+        """(C, T, V) of a windows dataset; None for a store."""
         data = getattr(ds, "data", None)
         return None if data is None else tuple(data.shape[1:])
 
-    def _gather(self, data: torch.Tensor, indices: torch.Tensor, window_shape=None):
+    def _gather(self, data, indices: torch.Tensor, window_shape=None, store=None):
+        """The batch of logical `indices`: from a store's device tables
+        (`store`, default the train store, gives the normalization), or from
+        flat windows of `window_shape` (default the train set's)."""
+        if self._pipeline == "store":
+            traj, persons, starts = data
+            return gather_batch_from_store(store or self.train_ds, traj, persons, starts,
+                                           indices, self.trans_table,
+                                           self.cfg.model.num_coords)
         ws = tuple(window_shape or self.train_ds.data.shape[1:])
         if data.dim() == 2 and data.shape[1] != int(np.prod(ws)):
             raise ValueError(
@@ -292,18 +355,18 @@ class Trainer:
         idx = torch.remainder(torch.arange(k * bs, device=self.device), n)
         return idx.reshape(k, bs), k
 
-    def _embed_step(self, data, indices, window_shape=None, generator=None
+    def _embed_step(self, data, indices, window_shape=None, generator=None, store=None
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Eval-mode latents for one batch of logical indices, and for the
         decoder variants each window's reconstruction MSE (else None)."""
-        batch = self._gather(data, indices, window_shape=window_shape)
+        batch = self._gather(data, indices, window_shape=window_shape, store=store)
         out = self._forward(batch, train=False, generator=generator)
         z = objectives.latent_of(self.cfg.model.variant, out)
         if not self.cfg.model.use_decoder:
             return z, None
         return z, torch.mean((out[1] - batch) ** 2, dim=(1, 2, 3))
 
-    def _eval_pass(self, state: TrainState, ds: SegmentDataset, data: torch.Tensor, fn):
+    def _eval_pass(self, state: TrainState, ds, data, fn):
         """fn(z) over every (window x transform) item of ds in batches:
         (values [n], reconstruction errors [n], zeros for encoder-only
         variants), as numpy. A sampling VAE draws from a generator seeded
@@ -311,11 +374,12 @@ class Trainer:
         n = len(ds)
         idx, k = self._chunked_indices(n)
         ws = self._window_shape_of(ds)
+        store = ds if isinstance(ds, TrajectoryStore) else None
         gen = (self._generator(state.step, 7)
                if self._samples() and self.cfg.eval.vae_sample else None)
         vals, recs = [], []
         for i in range(k):
-            z, rec = self._embed_step(data, idx[i], ws, generator=gen)
+            z, rec = self._embed_step(data, idx[i], ws, generator=gen, store=store)
             vals.append(fn(z))
             recs.append(rec)
         rec = (np.zeros(n, np.float32) if recs[0] is None
@@ -323,7 +387,7 @@ class Trainer:
         return torch.cat(vals)[:n].cpu().numpy(), rec
 
     @torch.inference_mode()
-    def embed_all(self, state: TrainState, ds: SegmentDataset, data: torch.Tensor,
+    def embed_all(self, state: TrainState, ds, data,
                   return_rec: bool = False):
         """Latents for every (window x transform) item, as numpy [n, D] (and
         the reconstruction errors [n], zeros for encoder-only variants)."""
@@ -331,7 +395,7 @@ class Trainer:
         return (z, rec) if return_rec else z
 
     @torch.inference_mode()
-    def score_all(self, state: TrainState, ds: SegmentDataset, data: torch.Tensor):
+    def score_all(self, state: TrainState, ds, data):
         """Anomaly scores for every (window x transform) item: ([n] scores,
         [n] reconstruction errors, zeros for encoder-only variants) as numpy."""
         return self._eval_pass(state, ds, data, lambda z: objectives.window_scores(

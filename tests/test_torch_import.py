@@ -30,6 +30,8 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import coskad_tpu_torch.cli.serve, coskad_tpu_torch.cli.server\n"
         "import coskad_tpu_torch.export_hlo, coskad_tpu_torch.cli.convert\n"
         "import coskad_tpu_torch.cli.export\n"
+        "import coskad_tpu_torch.data.native, coskad_tpu_torch.data.device_pipeline\n"
+        "import coskad_tpu_torch.data.augment, coskad_tpu_torch.data.augment_device\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN_TOP!r})\n"
         "print(','.join(bad))\n"
     )
@@ -63,6 +65,23 @@ def test_static_scan_finds_no_forbidden_import():
         offenders += [f"{os.path.relpath(path, ROOT)}: {m.group(0).strip()}"
                       for m in _IMPORT.finditer(text)]
     assert offenders == []
+
+
+def test_native_module_builds_from_the_ports_own_source():
+    """The port's parser extension is compiled from a source inside
+    coskad_tpu_torch/ (its own copy, its own module name), never the JAX
+    package's native/ directory, and the new modules are in the scan."""
+    from coskad_tpu_torch.data import native
+
+    assert native.SRC.startswith(os.path.join(ROOT, "coskad_tpu_torch") + os.sep)
+    assert os.path.exists(native.SRC) and native.MODULE == "_coskad_torch_native"
+    with open(native.SRC) as f:
+        assert "PyInit__coskad_torch_native" in f.read()
+    assert not native.SO.startswith(os.path.join(ROOT, "native"))
+    scanned = {os.path.relpath(p, ROOT) for p in _python_sources()}
+    for mod in ("native", "device_pipeline", "augment", "augment_device"):
+        assert os.path.join("coskad_tpu_torch", "data", f"{mod}.py") in scanned
+    assert native.native_available()
 
 
 def test_default_cuda_entry_points_raise_without_cuda():

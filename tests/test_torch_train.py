@@ -264,6 +264,10 @@ def test_fused_gate_and_unported_options():
                 ds, device="cpu")
     _, history = Trainer(drop, ds, device="cpu").fit(epochs=1)  # dropout trains
     assert len(history["loss"]) == 1 and np.isfinite(history["loss"]).all()
+    # the contrastive second view trains (held to JAX in tests/test_torch_augment.py)
     con = dataclasses.replace(base, opt=dataclasses.replace(base.opt, contrastive_weight=0.5))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        Trainer(con, ds, device="cpu").fit(epochs=1)
+    trainer = Trainer(con, ds, device="cpu")
+    state, history = trainer.fit(epochs=1)
+    assert len(history["loss"]) == 1 and np.isfinite(history["loss"]).all()
+    _, metrics = trainer.train_step(state, trainer.train_data, torch.arange(8))
+    assert np.isfinite(metrics["contrastive_loss"].item())
