@@ -228,6 +228,24 @@ Phases, each printing a line before the last:
      SCORE_TOL; one /v1/score/windows request through
      `ScoringService(artifact=...)`, the artifact's bits. `--only export`
      runs just this after the build.
+  8b. parallel (data parallelism, `coskad_tpu_torch/parallel/mesh.py`):
+     (a) a group of two ranks on the one card over gloo on CUDA tensors
+     (NCCL refuses two ranks on one GPU), started by torch.multiprocessing
+     spawn, each counted: the flagship fused fit (batch 2048 = 1,024
+     windows a rank, ghost 64, the slice phase's 40,000 windows, 2 epochs,
+     then score_all) and a float32 copy of config/HR-STC/euclidean_encoder
+     .yaml (the MLP head, on the module path, 1 epoch), both under SGD,
+     against the same fits in one process (losses and center rtol 1e-3,
+     scores rtol 1e-3 / atol 1e-6), the ranks' weights, statistics, center
+     and scores the same bits, K1-K4 launched on every rank of the flagship
+     fit and K1 on every rank of the MLP fit; (b) cli.train and cli.eval on
+     the cli phase's tree with `--distributed localhost:<port>,1,0` (NCCL
+     at world 1) against the same commands without it: the checkpoints,
+     losses, window scores and AUC the same bits; (c) the flagship fit's
+     train windows/s without a process group and in an NCCL group of one,
+     one epoch a side in turns. The two ranks share one card: their times
+     are no scaling figure. `--only parallel` runs just this after the
+     build.
   9. a line of each phase's wall time, a JSON line of every kernel
      (launches on the main paths, error, times, bound), then the last line
      {"ok": true, "device": {...}}.
@@ -4209,18 +4227,286 @@ def export_run(card, root):
     return summary
 
 
+# The parallel phase: a two-rank group on the one card, over gloo on CUDA tensors
+# (NCCL refuses two ranks on one GPU), started with torch.multiprocessing spawn
+PARALLEL_RANKS = 2
+# (case, epochs): the flagship fused fit on the slice phase's windows (1,024 a rank
+# of each 2,048 batch) and a float32 copy of HR-STC's MLP-head file on the module path
+PARALLEL_CASES = (("flagship_fused", 2), ("hr_stc_mlp_float32", 1))
+PARALLEL_MLP_CONFIG = "HR-STC/euclidean_encoder"
+PARALLEL_MLP_CLIPS = 20  # x 2 actors x 200 windows at 17 joints: 8,000 windows
+# both cases train with SGD, as the CPU tests of the ranks do: Adam divides the gradient
+# by its own scale, so a gradient off by a factor of the world size would pass; and on
+# the module path Adam turns the rounding noise of the pre-BN biases' zero gradient into
+# +-lr steps that move the scores past their band between any two summation orders
+PARALLEL_SGD_LR = 1e-3
+PARALLEL_TURNS = 2  # the world-1 overhead: epochs a side, in turns
+PARALLEL_TIMEOUT_S = 600
+
+
+def parallel_case(name):
+    """(config, train dataset) of a parallel-phase case, the same in every
+    process."""
+    import dataclasses
+
+    from coskad_tpu_torch.config import from_reference_yaml
+    from coskad_tpu_torch.data.windows import SegmentDataset
+
+    epochs = dict(PARALLEL_CASES)[name]
+    if name == "flagship_fused":
+        data, meta, fids, _ = synthetic_windows(np.random.default_rng(1), TRAIN_CLIPS, 2, 200,
+                                                12, 18)
+        cfg = train_config("on")
+    else:
+        data, meta, fids, _ = synthetic_windows(np.random.default_rng(2), PARALLEL_MLP_CLIPS, 2,
+                                                200, 12, 17)
+        cfg = from_reference_yaml(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                               "config", f"{PARALLEL_MLP_CONFIG}.yaml"))
+        cfg = dataclasses.replace(cfg, run=dataclasses.replace(cfg.run, compute_dtype="float32"))
+    cfg = dataclasses.replace(cfg, opt=dataclasses.replace(cfg.opt, validation=False,
+                                                           epochs=epochs))
+    return cfg, SegmentDataset(data, meta, fids, num_transform=5)
+
+
+def parallel_fit(name, counters) -> dict:
+    """A case's fit and score_all in this process (a rank of the group, or
+    one process), counted: per-step and epoch losses, center, scores, the
+    model's state, launches and seconds."""
+    import torch
+    from coskad_tpu_torch.train.loop import Trainer
+
+    cfg, ds = parallel_case(name)
+    log = QuietLogger()
+    tr = Trainer(cfg, ds, device=DEVICE, logger=log)
+    tr.optimizer = torch.optim.SGD(tr.model.parameters(), lr=PARALLEL_SGD_LR)
+    torch.cuda.synchronize()
+    # --- the parallel path, counted ---
+    zero(counters)
+    t0 = time.perf_counter()
+    state, hist = tr.fit(epochs=cfg.opt.epochs)
+    scores, _ = tr.score_all(state, ds, tr.train_data)
+    torch.cuda.synchronize()
+    launches = read(counters)
+    # --- end of the counted run ---
+    return dict(step_losses=np.asarray(log.losses), epoch_losses=np.asarray(hist["loss"]),
+                center=state.center.cpu().numpy(), scores=scores, fit_s=time.perf_counter() - t0,
+                launches=launches, world=tr.layout.world, steps=int(state.step),
+                model={k: v.cpu().numpy() for k, v in tr.model.state_dict().items()})
+
+
+def parallel_rank(rank, world, port, out_dir):
+    """One rank of the parallel phase's group: joins it over gloo on the card
+    and runs every case, writing its results to out_dir."""
+    import pickle
+
+    from coskad_tpu_torch.parallel import mesh
+
+    mesh.initialize_distributed(f"localhost:{port}", world, rank, backend="gloo", device=DEVICE)
+    counters = launch_counters()
+    for name, _ in PARALLEL_CASES:
+        out = parallel_fit(name, counters)
+        with open(os.path.join(out_dir, f"{name}.rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    mesh.barrier()
+    mesh.destroy()
+
+
+def max_rel(a, b) -> float:
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-12)))
+
+
+def parallel_nccl_world1(root, counters) -> dict:
+    """cli.train then cli.eval on the cli phase's tree, with --distributed
+    at world 1 over NCCL and without: the same checkpoint bits and AUC."""
+    from coskad_tpu_torch.cli import eval as eval_cli
+    from coskad_tpu_torch.cli import train as train_cli
+    from coskad_tpu_torch.cli.common import load_config
+    from coskad_tpu_torch.interop import flatten_tree
+    from coskad_tpu_torch.parallel import mesh
+    from coskad_tpu_torch.train import checkpoint
+    from coskad_tpu_torch.utils.net import free_port
+
+    configs = write_cli_tree(root, np.random.default_rng(3))
+    dev = ["--device", DEVICE]
+    zero(counters)
+    runs = {}
+    for side, config in (("plain", configs["straight"]), ("nccl_world1", configs["resumed"])):
+        def group():
+            return ["--distributed", f"localhost:{free_port('localhost')},1,0"] if (
+                side == "nccl_world1") else []
+
+        train = train_cli.main(["--config", config, "--epochs", "2", *dev, *group()])
+        check(side == "plain" or train.trainer.layout == mesh.Layout(
+            world=1, rank=0, local_device=0, backend="nccl"),
+              f"cli.train --distributed ran at {train.trainer.layout}")
+        ev = eval_cli.main(["--config", config, *dev, *group()])
+        check(mesh.layout() == mesh.Layout(), "the CLIs left their process group")
+        runs[side] = (load_config(config).ckpt_dir, train, ev)
+    launches = read(counters)
+    same = {}
+    for name in ("last.ckpt", "best.ckpt"):
+        a, b = (flatten_tree(checkpoint.read_payload(os.path.join(runs[s][0], name))["state"])
+                for s in ("plain", "nccl_world1"))
+        same[name] = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+    auc = {s: runs[s][2].result.auc for s in runs}
+    same["auc"] = auc["plain"] == auc["nccl_world1"]
+    same["window_scores"] = bool(np.array_equal(runs["plain"][2].window_scores,
+                                                runs["nccl_world1"][2].window_scores))
+    same["losses"] = runs["plain"][1].loss == runs["nccl_world1"][1].loss
+    check(all(same.values()), f"cli.train/cli.eval at NCCL world 1 differ from the run without "
+                              f"--distributed: {same}")
+    return dict(same_bits=same, auc=auc, launches=launches)
+
+
+def parallel_overhead(counters) -> dict:
+    """The flagship fit's train windows/s without a process group and in an
+    NCCL group of one rank, one epoch a side, in turns (no group, group,
+    group, no group, ...): at world 1 the Trainer runs no collective."""
+    import torch
+    from coskad_tpu_torch.parallel import mesh
+    from coskad_tpu_torch.train.loop import Trainer
+    from coskad_tpu_torch.utils.net import free_port
+
+    cfg, ds = parallel_case("flagship_fused")
+    trainers, states, wps = {}, {}, {"no_group": [], "nccl_world1": []}
+    zero(counters)
+    order = ["no_group", "nccl_world1"]
+    for turn in range(PARALLEL_TURNS):
+        for side in order if turn % 2 == 0 else order[::-1]:
+            if side == "nccl_world1":
+                mesh.initialize_distributed(f"localhost:{free_port('localhost')}", 1, 0,
+                                            device=DEVICE)
+            try:
+                if side not in trainers:
+                    trainers[side] = Trainer(cfg, ds, device=DEVICE, logger=QuietLogger())
+                    states[side] = trainers[side].initialize_center(trainers[side].init_state())
+                tr = trainers[side]
+                steps = len(ds) // cfg.data.batch_size
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                states[side], _ = tr.fit(states[side], epochs=1)
+                torch.cuda.synchronize()
+                wps[side].append(steps * cfg.data.batch_size / (time.perf_counter() - t0))
+            finally:
+                if side == "nccl_world1":
+                    mesh.barrier()
+                    mesh.destroy()
+    launches = read(counters)
+    best = {k: max(v) for k, v in wps.items()}
+    return dict(train_windows_per_s=wps, best=best,
+                group_over_no_group=best["nccl_world1"] / best["no_group"], launches=launches)
+
+
+def phase_parallel(card):
+    """Data parallelism on the card: (a) a two-rank gloo group on the one
+    card against one process, (b) the CLIs at NCCL world 1 against the CLIs
+    without a group, (c) the flagship fit's speed with and without a group
+    of one, in a temporary directory removed afterwards."""
+    root = tempfile.mkdtemp(prefix="coskad_parallel_")
+    t0 = time.perf_counter()
+    try:
+        summary = parallel_run(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    summary["phase_s"] = time.perf_counter() - t0
+    print(f"parallel phase: {summary['phase_s']:.1f} s")
+    return summary
+
+
+def parallel_run(card, root):
+    import pickle
+
+    import torch.multiprocessing as mp
+    from coskad_tpu_torch.utils.net import free_port
+
+    counters = launch_counters()
+    os.makedirs(os.path.join(root, "ranks"))
+    t0 = time.perf_counter()
+    group = mp.start_processes(parallel_rank, args=(PARALLEL_RANKS, free_port("localhost"),
+                                                    os.path.join(root, "ranks")),
+                               nprocs=PARALLEL_RANKS, join=False, start_method="spawn")
+    # while the ranks run: the one-process references (not counted), then (b)
+    one = {name: parallel_fit(name, counters) for name, _ in PARALLEL_CASES}
+    nccl = parallel_nccl_world1(os.path.join(root, "cli"), counters)
+    while not group.join(timeout=PARALLEL_TIMEOUT_S - (time.perf_counter() - t0)):
+        check(time.perf_counter() - t0 < PARALLEL_TIMEOUT_S, "the parallel group timed out")
+    group_s = time.perf_counter() - t0
+    cases, launches = {}, dict(nccl["launches"])
+    for name, _ in PARALLEL_CASES:
+        ranks = []
+        for rank in range(PARALLEL_RANKS):
+            with open(os.path.join(root, "ranks", f"{name}.rank{rank}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+        want, got = one[name], ranks[0]
+        check(want["world"] == 1 and all(r["world"] == PARALLEL_RANKS for r in ranks),
+              f"{name}: worlds {want['world']} / {[r['world'] for r in ranks]}")
+        check(got["steps"] == want["steps"] and len(got["step_losses"]) == want["steps"],
+              f"{name}: {got['steps']} steps on the group, {want['steps']} in one process")
+        finite = all(np.isfinite(r[k]).all() for r in ranks for k in
+                     ("step_losses", "center", "scores"))
+        check(finite, f"{name}: non-finite losses, center or scores on a rank")
+        err = dict(step_losses=max_rel(got["step_losses"], want["step_losses"]),
+                   center=max_rel(got["center"], want["center"]),
+                   scores=float(np.max(np.abs(got["scores"] - want["scores"])
+                                       - SCORE_TOL["rtol"] * np.abs(want["scores"]))))
+        check(np.allclose(got["step_losses"], want["step_losses"], rtol=LOSS_RTOL, atol=0.0),
+              f"{name}: two-rank losses vs one process, max rel {err['step_losses']:.3e}")
+        check(np.allclose(got["center"], want["center"], rtol=LOSS_RTOL, atol=1e-6),
+              f"{name}: two-rank center vs one process, max rel {err['center']:.3e}")
+        check(np.allclose(got["scores"], want["scores"], **SCORE_TOL),
+              f"{name}: two-rank scores vs one process past rtol 1e-3 / atol 1e-6")
+        same = all(np.array_equal(r["model"][k], got["model"][k]) and
+                   np.array_equal(r[x], got[x])
+                   for r in ranks[1:] for k in got["model"] for x in ("center", "scores"))
+        check(same, f"{name}: the ranks' weights, BN statistics, center or scores differ")
+        if name == "flagship_fused":
+            for r, rec in enumerate(ranks):
+                check(all(rec["launches"][k] > 0 for k in (
+                    "stse_fused", "stse_train_forward", "stse_train_layer_backward",
+                    "stse_train_top_backward")), f"rank {r} launches {rec['launches']}: K1-K4 "
+                                                  "must each run on every rank")
+        else:
+            check(all(rec["launches"]["stse_fused"] > 0 for rec in ranks),
+                  f"{name}: K1 did not run on every rank")
+        for rec in ranks:
+            launches = add_launches(launches, rec["launches"])
+        cases[name] = dict(errors=err, ranks_same_bits=same,
+                           launches_by_rank=[r["launches"] for r in ranks],
+                           fit_s_by_rank=[r["fit_s"] for r in ranks], one_process_fit_s=want["fit_s"],
+                           steps=want["steps"], epoch_losses=got["epoch_losses"].tolist())
+    overhead = parallel_overhead(counters)
+    launches = add_launches(launches, overhead["launches"])
+    summary = dict(ranks=PARALLEL_RANKS, backend="gloo on CUDA tensors", cases=cases,
+                   group_s=group_s, nccl_world1=nccl, overhead=overhead, launches=launches,
+                   card=card)
+    print(f"parallel: {PARALLEL_RANKS} ranks on one card over gloo (CUDA tensors; the ranks "
+          "share the card, so no scaling figure): " + "; ".join(
+              f"{n} {c['steps']} steps, max rel err losses {c['errors']['step_losses']:.2e} "
+              f"center {c['errors']['center']:.2e}, scores past rtol 1e-3 by "
+              f"{c['errors']['scores']:.2e} (atol 1e-6), ranks same bits {c['ranks_same_bits']}, "
+              f"launches by rank {c['launches_by_rank']}, fit s by rank "
+              f"{[round(t, 2) for t in c['fit_s_by_rank']]} vs one process "
+              f"{c['one_process_fit_s']:.2f}" for n, c in cases.items())
+          + f"; NCCL world 1 cli.train/cli.eval same bits {nccl['same_bits']} (AUC "
+          f"{nccl['auc']['nccl_world1']:.6f}); world-1 overhead: train windows/s by turn "
+          f"{ {k: [round(v) for v in w] for k, w in overhead['train_windows_per_s'].items()} }, "
+          f"group / no group {overhead['group_over_no_group']:.4f}; launches {launches}; "
+          f"on {card}")
+    return summary
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("kernels", "products", "probe", "cli", "paper", "bf16",
                                        "variants", "encoders", "streaming", "export",
-                                       "pipeline"),
+                                       "pipeline", "parallel"),
                     default=None,
                     help="run only the environment and kernel phases, or only the product "
                          "check, or only the probe check, or only the cli, the paper, the bf16 (the bf16 kernel check "
                          "and the bf16 fit), the variants, the encoders, the streaming, the "
-                         "export or the pipeline phase (no result line)")
+                         "export, the pipeline or the parallel phase (no result line)")
     args = ap.parse_args(argv)
     card, build_s = phase_environment()
     import torch
@@ -4241,10 +4527,11 @@ def main(argv=None) -> int:
         phase_bf16_kernels(card)
         phase_train_bf16(card)
         return 0
-    if args.only in ("probe", "variants", "encoders", "streaming", "export", "pipeline"):
+    if args.only in ("probe", "variants", "encoders", "streaming", "export", "pipeline",
+                     "parallel"):
         phase = dict(probe=phase_probe, variants=phase_variants, encoders=phase_encoders,
                      streaming=phase_streaming, export=phase_export,
-                     pipeline=phase_pipeline)[args.only]
+                     pipeline=phase_pipeline, parallel=phase_parallel)[args.only]
         summary = phase(card)
         os.makedirs(OUT_DIR, exist_ok=True)
         with open(os.path.join(OUT_DIR, f"chip_smoke_{args.only}.json"), "w") as f:
@@ -4276,6 +4563,7 @@ def main(argv=None) -> int:
     encoders = timed("encoders", phase_encoders, card)
     streaming = timed("streaming", phase_streaming, card)
     export = timed("export", phase_export, card)
+    parallel = timed("parallel", phase_parallel, card)
     print(f"phase wall s: {json.dumps(dict(build=round(build_s, 1), **wall))}")
     kernel["launches_by_path"] = dict(serving=summary["launches"]["stse_fused"],
                                       training=train["launches"]["stse_fused"],
@@ -4287,11 +4575,12 @@ def main(argv=None) -> int:
                                       variants=variants["launches_total"]["stse_fused"],
                                       encoders=encoders["launches_total"]["stse_fused"],
                                       streaming=streaming["launches"]["stse_fused"],
-                                      export=export["launches"]["stse_fused"])
+                                      export=export["launches"]["stse_fused"],
+                                      parallel=parallel["launches"]["stse_fused"])
     check(all(kernel["launches_by_path"][p] > 0
-              for p in ("encoders", "streaming", "export", "pipeline")),
-          f"K1 by path {kernel['launches_by_path']}: none on the encoders, streaming, export or "
-          "pipeline path")
+              for p in ("encoders", "streaming", "export", "pipeline", "parallel")),
+          f"K1 by path {kernel['launches_by_path']}: none on the encoders, streaming, export, "
+          "pipeline or parallel path")
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     for rec in train_kernels + [mono_kernel]:
         by_path = dict(serving=0, training=train["launches"][rec["name"]],
@@ -4302,7 +4591,8 @@ def main(argv=None) -> int:
                        encoders=encoders["launches_total"][rec["name"]],
                        streaming=streaming["launches"][rec["name"]],
                        export=export["launches"][rec["name"]],
-                       pipeline=pipeline["launches"][rec["name"]])
+                       pipeline=pipeline["launches"][rec["name"]],
+                       parallel=parallel["launches"][rec["name"]])
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     for rec in bf16_kernels:  # the bf16 form's own paths: the bf16 fit and mono run
@@ -4320,7 +4610,7 @@ def main(argv=None) -> int:
                        slice=summary, train=train, train_bf16=train_bf16, pipeline=pipeline,
                        mono=mono, cli=cli,
                        paper=paper, variants=variants, encoders=encoders, streaming=streaming,
-                       export=export, phase_wall_s=wall), f, indent=1)
+                       export=export, parallel=parallel, phase_wall_s=wall), f, indent=1)
     keys = ("name", "route", "source", "replaces", "compute_dtype", "launches", "max_abs_err",
             "tolerance", "ms", "kernel_ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_call", "product_ms")

@@ -1,8 +1,12 @@
-"""Shared CLI plumbing: config and dataset loading, ground-truth discovery.
+"""Shared CLI plumbing: config and dataset loading, ground-truth discovery,
+and the multi-GPU launch (counterpart of `coskad_tpu/cli/common.py`).
 
-Counterpart of `coskad_tpu/cli/common.py` for one process. Multi-GPU
-launches (`--distributed`, the exit barrier) wait for ROADMAP.md, Queue 1
-item 5.
+The reference trains on N cards with one command (Lightning spawns the DDP
+ranks). The port runs one CLI process a rank, wired into one process group
+by `--distributed` (`parallel/mesh.py::initialize_distributed`): every
+rank computes the same host-side results (scores are gathered), rank 0
+alone writes files (`is_primary`), and the ranks leave together
+(`distributed_barrier`).
 """
 
 from __future__ import annotations
@@ -17,16 +21,60 @@ from ..data.alphapose import load_alphapose_split, load_alphapose_store
 from ..data.device_pipeline import TrajectoryStore
 from ..data.robust import load_robust_split, load_scaler, save_scaler
 from ..data.windows import SegmentDataset
+from ..parallel import mesh
+from ..utils.net import PORT_IN_USE_EXIT
 
 
 def load_config(path: str) -> Config:
     return from_reference_yaml(path)
 
 
+def add_distributed_flag(parser) -> None:
+    """Attach the multi-GPU launch flag shared by the train and eval CLIs."""
+    parser.add_argument(
+        "--distributed", default=None, metavar="SPEC",
+        help="multi-GPU launch: 'auto' (torchrun's MASTER_ADDR, MASTER_PORT, WORLD_SIZE, "
+             "RANK and LOCAL_RANK) or 'host:port,num_processes,process_id'; run the same "
+             "command once a rank with its own process_id. NCCL on cards, gloo with "
+             "--device cpu")
+
+
+def init_distributed(spec: Optional[str], device="cuda") -> mesh.Layout:
+    """Join the process group a --distributed SPEC names, before any use of
+    the device; None (or '') joins none. Returns the layout. A rank 0 whose
+    coordinator port another process holds exits with PORT_IN_USE_EXIT,
+    which the supervisor retries on a fresh port."""
+    if not spec:
+        return mesh.layout()
+    if spec in ("auto", "env"):
+        args = ()
+    else:
+        parts = spec.rsplit(",", 2)
+        if len(parts) != 3:
+            raise ValueError(f"--distributed expects 'host:port,num_processes,process_id' or "
+                             f"'auto', got {spec!r}")
+        args = (parts[0], int(parts[1]), int(parts[2]))
+    try:
+        return mesh.initialize_distributed(*args, device=device)
+    except mesh.CoordinatorBindError as e:
+        print(f"[coskad] {e}", flush=True)
+        raise SystemExit(PORT_IN_USE_EXIT)
+
+
 def is_primary() -> bool:
-    """True on the process that owns file writes; a single process owns
-    them all."""
-    return True
+    """True on the process that owns file writes (checkpoints, metrics,
+    scores): rank 0 of a group, or the one process. Every rank computes the
+    same host-side results, so gating the writes on rank 0 keeps a shared
+    filesystem free of races."""
+    return mesh.layout().rank == 0
+
+
+def distributed_barrier() -> None:
+    """The ranks wait for each other before they exit, so that no rank's
+    teardown lands under another's live collective; a no-op without a
+    group. Then the process leaves its group."""
+    mesh.barrier()
+    mesh.destroy()
 
 
 def load_split(cfg: Config, split: str, stride: Optional[int] = None,

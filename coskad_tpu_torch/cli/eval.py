@@ -14,7 +14,10 @@ reconstruction error or by both, as `--rec-weight` selects
 (`score/window_losses.py`); the VAE by cosine distance to the anchor its
 checkpoint carries, and a VAE checkpoint without one is refused
 (`checkpoint.require_vae_anchor`). The ROC plots of `--save-roc` wait for
-their module (ROADMAP.md, Queue 1 item 7).
+their module (ROADMAP.md, Queue 1 item 7). With `--distributed` (see
+`cli.train`) every rank scores its block of each chunk, the scores are
+gathered, and rank 0 alone prints the per-clip lines and writes
+`--save-scores`.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ from ..score.masks import AVENUE_MASKED_CLIPS, hr_ubnormal
 from ..score.window_losses import mode_from_rec_weight, mode_scores
 from ..train import checkpoint
 from ..train.loop import Trainer
-from .common import is_primary, load_config, load_ground_truths, load_split
+from .common import (add_distributed_flag, distributed_barrier, init_distributed, is_primary,
+                     load_config, load_ground_truths, load_split)
 
 
 @dataclass
@@ -58,7 +62,9 @@ def main(argv=None) -> EvalRun:
                              "reconstruction error, else reconstruction error / weight + "
                              "latent distance")
     parser.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    add_distributed_flag(parser)
     args = parser.parse_args(argv)
+    init_distributed(args.distributed, args.device)
 
     t0 = time.perf_counter()
     marks = {"start": t0}
@@ -122,6 +128,7 @@ def main(argv=None) -> EvalRun:
           + " ".join(f"{key}={v:.2f}s" for key, v in wall.items())
           + f" total={time.perf_counter() - t0:.2f}s")
     print(f"final AUC score: {result.auc:.6f}")
+    distributed_barrier()
     return EvalRun(result=result, window_scores=scores, wall_s=wall)
 
 

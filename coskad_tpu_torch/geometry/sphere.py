@@ -22,6 +22,8 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from ..parallel import mesh
+
 
 def _log_surface_area(sphere_dim: int) -> float:
     """Log surface area of S^{sphere_dim} embedded in R^{sphere_dim + 1}."""
@@ -91,13 +93,23 @@ class PowerSpherical(NamedTuple):
 
     def rsample(self, generator: torch.Generator) -> torch.Tensor:
         """A reparameterized sample from `generator` (on loc's device);
-        gradients flow to loc and to scale."""
+        gradients flow to loc and to scale. In a sharded scope
+        (`parallel/mesh.py`) loc is a rank's block of the batch: the Beta
+        draw depends on every row's concentration, so the concentrations
+        are gathered (`mesh.gather_rows`, whose backward returns each rank
+        its rows' gradient), the global batch is drawn and this rank keeps
+        its rows, which are then the one-process draw's."""
         alpha, beta = self._alpha_beta()
+        lay = mesh.active()
+        if lay is not None:
+            alpha = mesh.gather_rows(alpha)
         ga = torch._standard_gamma(alpha, generator=generator)
         gb = torch._standard_gamma(torch.full_like(alpha, beta), generator=generator)
         z = ga / (ga + gb)
-        v = torch.randn((*self.loc.shape[:-1], self.dim - 1), generator=generator,
+        v = torch.randn((*alpha.shape, self.dim - 1), generator=generator,
                         device=self.loc.device, dtype=self.loc.dtype)
+        if lay is not None:
+            z, v = lay.rows(z), lay.rows(v)
         return _tangent_sample(self.loc, (2.0 * z - 1.0)[..., None], v)
 
     def sample_from_draws(self, z01: torch.Tensor, v_raw: torch.Tensor) -> torch.Tensor:

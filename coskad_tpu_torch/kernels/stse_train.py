@@ -65,6 +65,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel import mesh
 from .stse_fused import LaunchCounter, combined_graph_matrix
 
 SOURCE = "coskad_tpu_torch/kernels/csrc/stse_train.cu"
@@ -1177,7 +1178,7 @@ def _unflatten(flat, n_layers: int) -> EncoderOps:
 
 
 @torch.no_grad()
-def update_running_stats(model, sums: Sequence[torch.Tensor], count: int,
+def update_running_stats(model, sums: Sequence[torch.Tensor], count: "int | torch.Tensor",
                          momentum: float = 0.9) -> None:
     """Fold full-batch pre-BN sums ([4, C_out] per layer) into the model's
     BatchNorm running statistics in place: keep `momentum` of the old value,
@@ -1199,9 +1200,10 @@ def fused_stse_apply(model, x: torch.Tensor, ghost_size: int = 32, momentum: flo
                      compute_dtype: str = "float32", bwd_mode: str = "split") -> torch.Tensor:
     """Train-mode STSE encode with ghost BatchNorm: [B, C_in, T, V] -> z
     [B, latent], differentiable in the model's parameters. Updates the
-    model's BN running statistics in place from the exact full-batch sums.
-    x gets no gradient (it is data). bwd_mode "split" keeps every layer's
-    activations for K3/K4; "mono" keeps only x and recomputes them in K5.
+    model's BN running statistics in place from the exact full-batch sums
+    (in a sharded scope, `parallel/mesh.py`, the sums and the count summed
+    over the ranks first). x gets no gradient (it is data). bwd_mode
+    "split" keeps every layer's activations for K3/K4; "mono" keeps only x and recomputes them in K5.
     compute_dtype is one of COMPUTE_DTYPES (see the module's docstring);
     under a bf16 form x is rounded to bf16 here, as JAX casts x_t (:1152),
     and handed to the kernels as a bf16 tensor under "bfloat16"."""
@@ -1218,7 +1220,13 @@ def fused_stse_apply(model, x: torch.Tensor, ghost_size: int = 32, momentum: flo
     x_nodes = x_nodes.contiguous()
     z, *sums = FusedGhostEncode.apply(x_nodes, ghost_size, len(ops.layers), bwd_mode,
                                       compute_dtype, *_flatten(ops))
-    update_running_stats(model, sums, b * t * v, momentum)
+    count = b * t * v
+    if mesh.active() is not None:
+        # a rank's block of the batch: the running statistics fold the global
+        # batch's sums and count (JAX psums both, stse_train.py:1155-1171); the
+        # ghost blocks stay the rank's own
+        *sums, count = mesh.sum_each([*sums, sums[0].new_full((1,), float(count))])
+    update_running_stats(model, sums, count, momentum)
     return z
 
 

@@ -53,6 +53,7 @@ from torch import nn
 
 from ..geometry.sphere import PowerSpherical
 from ..kernels import stse_fused
+from ..parallel import mesh
 from .encoders import make_encoder
 from .stsgcn import Dense, MLPHead, STSGCNStack, _uniform_, rounded
 
@@ -335,8 +336,9 @@ class STSVAE(STSAE):
             if self.distribution == "ps":
                 z = PowerSpherical(z_mean, z_var.squeeze(-1)).rsample(generator)
             else:
-                z = z_mean + z_var * torch.randn(z_mean.shape, generator=generator,
-                                                 device=z_mean.device)
+                z = z_mean + z_var * mesh.local_draw(
+                    lambda s: torch.randn(s, generator=generator, device=z_mean.device),
+                    z_mean.shape)
         else:
             z = z_mean
         return z, self.decode(z, train, frozen_bn, dropout_generator), (z_mean, z_var)

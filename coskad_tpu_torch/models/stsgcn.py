@@ -44,6 +44,7 @@ import torch
 from torch import nn
 
 from ..kernels.stse_fused import combined_graph_matrix
+from ..parallel import mesh
 
 BN_MOMENTUM = 0.9
 
@@ -73,14 +74,17 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     by 1 - rate (that scalar at `dtype`, the result rounded to it, as jnp's
     weak typing computes it); the identity in eval mode and at rate 0. The
     mask is drawn from `generator`, on x's device: `F.dropout` would draw
-    from the global RNG, which no seed of the run controls."""
+    from the global RNG, which no seed of the run controls. In a sharded
+    scope x is a rank's block of the batch, and its mask the rows of the
+    global batch's (`mesh.local_draw`)."""
     if not train or rate <= 0:
         return x
     if generator is None:
         raise ValueError("dropout in train mode draws its mask from a torch.Generator: pass "
                          "dropout_generator=")
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    keep = mesh.local_draw(lambda s: torch.rand(s, generator=generator, device=x.device),
+                           x.shape) < keep_prob
     scale = float(torch.tensor(keep_prob).to(dtype))
     return rounded(torch.where(keep, x / scale, torch.zeros_like(x)), dtype)
 
@@ -155,10 +159,21 @@ def batch_norm_train(h: torch.Tensor, bn: BatchNorm, momentum: float = BN_MOMENT
     """flax `nn.BatchNorm(use_running_average=False, dtype=dtype)` over
     every row of h [..., C]: y = (h - mean) * (rsqrt(var + eps) * scale) +
     bias with the biased variance, the statistics and y in float32, y then
-    rounded to `dtype`. Updates bn's running statistics in place."""
+    rounded to `dtype`. Updates bn's running statistics in place. Inside a
+    sharded scope (`parallel/mesh.py`) h is this rank's block of the
+    global batch: the statistics are the global batch's, from one sum of
+    (sum of rows, sum of squares, count) over the ranks whose backward sums
+    the cotangents."""
     rows = h.reshape(-1, h.shape[-1])
-    mean = rows.mean(dim=0)
-    var = torch.clamp((rows * rows).mean(dim=0) - mean * mean, min=0.0)
+    if mesh.active() is None:
+        mean = rows.mean(dim=0)
+        var = torch.clamp((rows * rows).mean(dim=0) - mean * mean, min=0.0)
+    else:
+        c = rows.shape[-1]
+        count = torch.full((1,), float(rows.shape[0]), dtype=rows.dtype, device=rows.device)
+        sums = mesh.all_sum(torch.cat([rows.sum(dim=0), (rows * rows).sum(dim=0), count]))
+        mean = sums[:c] / sums[2 * c]
+        var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean, min=0.0)
     with torch.no_grad():
         bn.mean.mul_(momentum).add_((1.0 - momentum) * mean)
         bn.var.mul_(momentum).add_((1.0 - momentum) * var)

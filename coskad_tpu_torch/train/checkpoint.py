@@ -32,8 +32,15 @@ How the port's objects map onto `state`:
 - `mean_vector`: the VAE's scoring anchor, the last epoch's latent mean
   (`require_vae_anchor` refuses a VAE checkpoint without one).
 
-The Orbax directory flavor of the JAX package is not ported (ROADMAP.md,
-Queue 1 item 5).
+In a process group rank 0 alone writes (the CLIs gate `save` on
+`cli/common.py::is_primary`), and every rank reads on resume: the ranks
+hold the same weights, optimizer state and geometry.
+
+The Orbax directory flavor of the JAX package (`save_orbax`,
+`restore_orbax`) is refused by design, not left for later: nothing in the
+JAX package calls it, orbax imports jax, and its array layout needs
+tensorstore, which the card's machine does not have (ROADMAP.md,
+"Deliberate differences").
 """
 
 from __future__ import annotations
@@ -270,3 +277,19 @@ def restore(path: str, trainer, payload: Optional[dict] = None
         payload = read_payload(path)
     state = load_state_payload(trainer, payload["state"])
     return state, scaler_of(payload), payload.get("extra", {})
+
+
+ORBAX_REFUSED = (
+    "the Orbax directory checkpoint flavor is not supported by coskad_tpu_torch: nothing in the "
+    "JAX package calls it, orbax imports jax and its layout needs tensorstore; use the msgpack "
+    "checkpoint (save / restore), which both packages read")
+
+
+def save_orbax(*args, **kwargs):
+    """Refused: see ORBAX_REFUSED."""
+    raise NotImplementedError(ORBAX_REFUSED)
+
+
+def restore_orbax(*args, **kwargs):
+    """Refused: see ORBAX_REFUSED."""
+    raise NotImplementedError(ORBAX_REFUSED)

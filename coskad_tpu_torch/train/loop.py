@@ -42,6 +42,19 @@ draws instead (the lockstep tests feed JAX's).
 Per-step metrics stay on the device until one copy to the host at the end
 of an epoch. The model is switched to `train()` for a train epoch and back
 to `eval()` after it.
+
+Data parallelism (`parallel/mesh.py`) follows the JAX package's global-batch
+semantics: in a process group of W ranks (run.data_parallel -1 or W) every
+rank holds the whole split, takes its contiguous block of every step's
+global batch (the batch rounded as JAX rounds it, `mesh.train_batch`), and
+runs its block inside `mesh.sharded`, where BatchNorm's statistics, K2's
+running-statistic sums, the contrastive view's all-pairs loss and the draws
+are the global batch's; the parameter gradients are then summed over the
+ranks and divided by W, and the epoch's accumulators and metrics summed
+(averaged) once an epoch. An eval pass scores each rank's block of every
+chunk (chunks padded to a multiple of W) and gathers the values, so every
+rank runs the same host-side center init, covariance and AUC. At W = 1 no
+collective runs.
 """
 
 from __future__ import annotations
@@ -60,6 +73,7 @@ from ..device import resolve_device
 from ..geometry import poincare as hyp
 from ..kernels import stse_train
 from ..models import build_model
+from ..parallel import mesh as pmesh
 from ..score.aggregate import EvalResult, ScoringConfig, evaluate_windows
 from ..score.masks import AVENUE_MASKED_CLIPS
 from ..utils.logging import MetricLogger
@@ -122,14 +136,11 @@ class Trainer:
         device: Union[str, torch.device] = "cuda",
         logger: Optional[MetricLogger] = None,
     ):
-        # JAX shards over a (data, model) mesh built from these; the port
-        # trains on one device until multi-GPU is ported.
-        if cfg.run.data_parallel not in (-1, 1) or cfg.run.model_parallel != 1:
-            raise ValueError(
-                f"run.data_parallel {cfg.run.data_parallel}, run.model_parallel "
-                f"{cfg.run.model_parallel}: the port trains on one device (data_parallel -1 "
-                "or 1, model_parallel 1); multi-GPU is not ported yet (ROADMAP.md, Queue 1 "
-                "item 5)")
+        # the data axis is the process group (one rank without one); a model
+        # axis is refused (ROADMAP.md, Queue 1 item 5b)
+        self.layout = pmesh.create_mesh(cfg.run.data_parallel, cfg.run.model_parallel)
+        # the layout a sharded pass runs under; None at one rank (no collective)
+        self._shard = self.layout if self.layout.world > 1 else None
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(**model_kwargs_from_config(cfg))
@@ -208,6 +219,7 @@ class Trainer:
         self._since_best = int(extra.get("plateau_since_best", 0))
 
     def _fused_usable(self, batch: torch.Tensor) -> bool:
+        """The fused path for this (rank's) batch: its ghost blocks are whole."""
         return self._fused_compat and batch.shape[0] % self.cfg.run.ghost_size == 0
 
     def _generator(self, *key: int) -> torch.Generator:
@@ -251,26 +263,36 @@ class Trainer:
         draw_strong_augment layout), loss, backward, optimizer step, then the
         epoch accumulators from the step's latents (taken before the update;
         the VAE's posterior means where eval.vae_sample is off, as they are
-        what it scores)."""
+        what it scores). `indices` and fed draws are the global batch's: on a
+        rank of a group the step takes their rank's block, its metrics and
+        accumulators are the rank's own (`train_epoch` combines them)."""
         cfg = self.cfg
+        shard = self._shard
+        if shard is not None:  # this rank's block of the global batch and its draws
+            indices = shard.rows(indices)
+            if vae_draws is not None:
+                vae_draws = [shard.rows(d) for d in vae_draws]
         batch = self._gather(data, indices)
         gen = self._generator(state.step) if self._samples() and vae_draws is None else None
         dgen = self._generator(state.step, 0x60) if cfg.model.dropout > 0 else None
-        out = self._forward(batch, train=True, frozen_bn=frozen_bn, generator=gen,
-                            vae_draws=vae_draws, dropout_generator=dgen)
-        loss, metrics = objectives.compute_loss(
-            cfg, out, batch, self.model, state.center, state.inv_cov,
-            mean_vector=state.mean_vector)
-        z = objectives.latent_of(cfg.model.variant, out)
-        if cfg.opt.contrastive_weight > 0:
-            l_con = self._contrastive(state.step, batch, z, frozen_bn, contrastive_draws)
-            loss = loss + cfg.opt.contrastive_weight * l_con
-            metrics["contrastive_loss"] = l_con
-            metrics["loss"] = loss
+        with pmesh.sharded(shard):
+            out = self._forward(batch, train=True, frozen_bn=frozen_bn, generator=gen,
+                                vae_draws=vae_draws, dropout_generator=dgen)
+            loss, metrics = objectives.compute_loss(
+                cfg, out, batch, self.model, state.center, state.inv_cov,
+                mean_vector=state.mean_vector)
+            z = objectives.latent_of(cfg.model.variant, out)
+            if cfg.opt.contrastive_weight > 0:
+                l_con = self._contrastive(state.step, batch, z, frozen_bn, contrastive_draws)
+                loss = loss + cfg.opt.contrastive_weight * l_con
+                metrics["contrastive_loss"] = l_con
+                metrics["loss"] = loss
         if cfg.model.use_vae and not cfg.eval.vae_sample:
             z = out[2][0]
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if shard is not None:  # the global batch's gradient: the ranks' sum / W
+            pmesh.average_gradients(list(self.model.parameters()), shard.world)
         self.optimizer.step()
         acc = objectives.accumulate_stats(
             (state.acc_vec, state.acc_weight, state.acc_outer), cfg.model.variant,
@@ -284,11 +306,19 @@ class Trainer:
         """The second view's InfoNCE loss against the first view's latents z:
         strong_augment of the batch, a train forward of it (running
         statistics as the first forward left them; frozen under frozen_bn),
-        contrastive_loss(z, z, z2)."""
+        contrastive_loss(z, z, z2). On a rank of a group the augmentation is
+        drawn (or fed) for the global batch and the rank keeps its rows, and
+        the loss is taken over the global batch's latents (`mesh.gather_rows`)."""
         cfg = self.cfg
+        shard = self._shard
         if draws is None:
+            shape = batch.shape if shard is None else (batch.shape[0] * shard.world,
+                                                       *batch.shape[1:])
             draws = augment_device.draw_strong_augment(
-                self._generator(step, CONTRASTIVE_TAG), batch.shape, batch.device)
+                self._generator(step, CONTRASTIVE_TAG), shape, batch.device)
+        if shard is not None:
+            draws = {op: {k: shard.rows(v, dim=1 if k in ("big", "small") else 0)
+                          for k, v in d.items()} for op, d in draws.items()}
         batch2 = augment_device.strong_augment(batch, draws)
         gen = (self._generator(step, CONTRASTIVE_TAG, 1) if self._samples() else None)
         dgen = (self._generator(step, CONTRASTIVE_TAG, 0x60) if cfg.model.dropout > 0
@@ -296,18 +326,34 @@ class Trainer:
         out2 = self._forward(batch2, train=True, frozen_bn=frozen_bn, generator=gen,
                              dropout_generator=dgen)
         z2 = objectives.latent_of(cfg.model.variant, out2)
+        if shard is not None:
+            z, z2 = pmesh.gather_rows(z), pmesh.gather_rows(z2)
         l_con, _ = hyp.contrastive_loss(z, z, z2, tau=cfg.opt.contrastive_tau,
                                         hyp_c=cfg.opt.contrastive_hyp_c)
         return l_con
 
     def train_epoch(self, state: TrainState, data, indices: torch.Tensor,
                     frozen_bn: bool = False) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """Train steps over [K, B] index chunks; metrics stacked to [K]."""
+        """Train steps over [K, B] index chunks (the global batches); metrics
+        stacked to [K]. On a rank of a group the epoch's accumulators are
+        summed over the ranks and its metrics averaged over them, once."""
+        shard = self._shard
+        if shard is not None:
+            start = (state.acc_vec, state.acc_weight, state.acc_outer)
+            state = state.reset_accumulators()
         steps = []
         for i in range(indices.shape[0]):
             state, metrics = self.train_step(state, data, indices[i], frozen_bn=frozen_bn)
             steps.append(metrics)
-        return state, {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+        metrics = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+        if shard is not None:
+            acc = pmesh.sum_each([state.acc_vec, state.acc_weight, state.acc_outer])
+            state = state.replace(acc_vec=start[0] + acc[0], acc_weight=start[1] + acc[1],
+                                  acc_outer=start[2] + acc[2])
+            keys = sorted(metrics)
+            mean = pmesh.sum_across(torch.stack([metrics[k] for k in keys])) / shard.world
+            metrics = dict(zip(keys, mean.unbind(0)))
+        return state, metrics
 
     def _device_data(self, ds):
         """A store's (trajectories, window persons, window starts) on the
@@ -347,11 +393,11 @@ class Trainer:
     def _chunked_indices(self, n: int) -> Tuple[torch.Tensor, int]:
         """[K, B] index chunks with the tail wrap-padded (index i % n), and
         K. A pass smaller than one batch runs as one chunk of n rows: eval
-        rows are independent, so nothing needs the padding."""
+        rows are independent, so nothing needs the padding. In a group the
+        chunk is rounded up to a multiple of the world (`mesh.eval_chunks`)."""
         if n < 1:
             raise ValueError("nothing to score: the dataset has no windows")
-        bs = min(self.batch_size, n)
-        k = (n + bs - 1) // bs
+        bs, k = pmesh.eval_chunks(n, self.batch_size, self.layout.world)
         idx = torch.remainder(torch.arange(k * bs, device=self.device), n)
         return idx.reshape(k, bs), k
 
@@ -370,21 +416,38 @@ class Trainer:
         """fn(z) over every (window x transform) item of ds in batches:
         (values [n], reconstruction errors [n], zeros for encoder-only
         variants), as numpy. A sampling VAE draws from a generator seeded
-        from the state's step."""
+        from the state's step. On a rank of a group each rank scores its
+        block of every chunk, and one gather of the values (the counterpart
+        of JAX's `_fetch_global`) gives every rank all of them."""
         n = len(ds)
         idx, k = self._chunked_indices(n)
+        shard = self._shard
+        if shard is not None:
+            idx = shard.rows(idx, dim=1)
         ws = self._window_shape_of(ds)
         store = ds if isinstance(ds, TrajectoryStore) else None
         gen = (self._generator(state.step, 7)
                if self._samples() and self.cfg.eval.vae_sample else None)
         vals, recs = [], []
-        for i in range(k):
-            z, rec = self._embed_step(data, idx[i], ws, generator=gen, store=store)
-            vals.append(fn(z))
-            recs.append(rec)
+        with pmesh.sharded(shard):
+            for i in range(k):
+                z, rec = self._embed_step(data, idx[i], ws, generator=gen, store=store)
+                vals.append(fn(z))
+                recs.append(rec)
+        vals = self._global_rows(torch.cat(vals), k)[:n].cpu().numpy()
         rec = (np.zeros(n, np.float32) if recs[0] is None
-               else torch.cat(recs)[:n].cpu().numpy())
-        return torch.cat(vals)[:n].cpu().numpy(), rec
+               else self._global_rows(torch.cat(recs), k)[:n].cpu().numpy())
+        return vals, rec
+
+    def _global_rows(self, local: torch.Tensor, k: int) -> torch.Tensor:
+        """The pass's values in chunk order from each rank's [k * block]
+        values (one gather); the values themselves at one rank."""
+        if self._shard is None:
+            return local
+        world = self._shard.world
+        full = pmesh.all_gather_rows(local)  # [world * k * block], rank-major
+        return full.reshape(world, k, -1, *local.shape[1:]).transpose(0, 1).reshape(
+            -1, *local.shape[1:])
 
     @torch.inference_mode()
     def embed_all(self, state: TrainState, ds, data,
@@ -474,7 +537,7 @@ class Trainer:
         if state is None:
             state = self.initialize_center(self.init_state())
         n = len(self.train_ds)
-        bs = min(self.batch_size, max(n, 1))
+        bs = pmesh.train_batch(n, self.batch_size, self.layout.world)
         steps_per_epoch = max(n // bs, 1)
         history = {"validation_auc": [], "loss": []}
         schedule = (schedulers.build_schedule(cfg.opt.lr_schedule, cfg.opt.lr, cfg.opt.epochs,

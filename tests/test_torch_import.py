@@ -32,6 +32,8 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import coskad_tpu_torch.cli.export\n"
         "import coskad_tpu_torch.data.native, coskad_tpu_torch.data.device_pipeline\n"
         "import coskad_tpu_torch.data.augment, coskad_tpu_torch.data.augment_device\n"
+        "import coskad_tpu_torch.parallel, coskad_tpu_torch.parallel.mesh\n"
+        "import coskad_tpu_torch.cli.supervise, coskad_tpu_torch.utils.net\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN_TOP!r})\n"
         "print(','.join(bad))\n"
     )
@@ -82,6 +84,23 @@ def test_native_module_builds_from_the_ports_own_source():
     for mod in ("native", "device_pipeline", "augment", "augment_device"):
         assert os.path.join("coskad_tpu_torch", "data", f"{mod}.py") in scanned
     assert native.native_available()
+
+
+def test_scan_covers_the_parallel_modules_and_the_supervisor_runs_the_port():
+    """parallel/, the supervisor and its helper are in the scan, and the
+    supervisor's child is the port's train CLI, never the JAX package's."""
+    scanned = {os.path.relpath(p, ROOT) for p in _python_sources()}
+    for path in (("parallel", "__init__.py"), ("parallel", "mesh.py"),
+                 ("cli", "supervise.py"), ("utils", "net.py")):
+        assert os.path.join("coskad_tpu_torch", *path) in scanned
+    from coskad_tpu_torch.cli import supervise
+
+    cmd = supervise.train_command("c.yaml", epochs=3, device="cpu", extra=["--x"])
+    assert cmd[cmd.index("-m") + 1] == "coskad_tpu_torch.cli.train"
+    assert cmd[-5:] == ["--epochs", "3", "--device", "cpu", "--x"] and "--resume" in cmd
+    with open(supervise.__file__) as f:
+        text = f.read()
+    assert set(re.findall(r"coskad_tpu[\w.]*\.cli\.train", text)) == {"coskad_tpu_torch.cli.train"}
 
 
 def test_default_cuda_entry_points_raise_without_cuda():

@@ -1,8 +1,9 @@
-"""The run settings the port does not act on yet are refused, not ignored:
-`run.data_parallel` and `run.model_parallel` (the JAX package builds its
-(data, model) mesh from them, `coskad_tpu/parallel/mesh.py`) until
-multi-GPU is ported (ROADMAP.md, Queue 1 item 5). The defaults, and every
-shipped config, still build a Trainer."""
+"""The parallel run settings are acted on or refused, never ignored:
+`run.data_parallel` (the JAX package's data axis) must be -1 or the process
+group's world size (one without a group), and `run.model_parallel` > 1 (the
+projector sharded over a model axis, `coskad_tpu/parallel/mesh.py`) is
+refused until ROADMAP.md, Queue 1 item 5b. The defaults, and every shipped
+config, still build a Trainer."""
 
 import dataclasses
 import glob
@@ -41,8 +42,10 @@ def _small(**run):
                                  dict(model_parallel=2), dict(data_parallel=2, model_parallel=2)],
                          ids=["data_parallel4", "data_parallel2", "model_parallel2", "both2"])
 def test_parallel_settings_are_refused(run):
+    """One process is a world of one: a data axis of 2 or 4 is refused, as
+    is any model axis, and the message names the model-parallel item."""
     cfg = _small(**run)
-    with pytest.raises(ValueError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match=r"group's 1 rank\(s\).*Queue 1 item 5b"):
         Trainer(cfg, _dataset(cfg), device="cpu")
 
 
