@@ -246,6 +246,29 @@ Phases, each printing a line before the last:
      one epoch a side in turns. The two ranks share one card: their times
      are no scaling figure. `--only parallel` runs just this after the
      build.
+  8c. model_parallel (`run.model_parallel` 2): four gloo ranks on the one
+     card as a 2 x 2 (data, model) mesh, spawned as in 8b, each counted:
+     the flagship at fused_train 'auto' (the module path under a model
+     axis; the slice phase's windows, 1 epoch, then score_all) and a
+     float32 copy of config/UBnormal/euclidean_autoencoder.yaml (the MLP
+     head and rev_btlnk split, 1 epoch), both under SGD, against the same
+     fits in one process (losses and center rtol 1e-3, scores rtol 1e-3 /
+     atol 1e-6); every rank's whole model, center and scores the same
+     bits, and the two model ranks of a data block the same replicated
+     weights and statistics; each split kernel 1/2 of the whole; the
+     gathered checkpoint restored in one process to the same weights bit
+     for bit, its latents no further from a float64 evaluation than twice
+     the one process's; K1 on every rank, K2-K5 on none. `--only
+     model_parallel` runs just this after the build.
+  8d. tooling: `utils/profiling.trace` around one flagship score_all
+     batch: the first trace of a freshly spawned process must hold K1's
+     kernel, and one in the smoke's own process is recorded (after many
+     profiler sessions it may hold no device event; `trace` must then
+     warn); `device_memory_stats`
+     allocated bytes; `debug_nans` raising at NaNs made on the card in a
+     forward and a backward; `MobiusLinear` / `MobiusDist2Hyperplane`
+     values and gradients on the card against the CPU (rtol 1e-4, atol
+     1e-6 of the scale). `--only tooling` runs just this after the build.
   9. a line of each phase's wall time, a JSON line of every kernel
      (launches on the main paths, error, times, bound), then the last line
      {"ok": true, "device": {...}}.
@@ -269,6 +292,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -370,6 +394,9 @@ CLI_TRAIN_CLIPS, CLI_TEST_CLIPS, CLI_FRAMES = 4, 2, 1100
 # the paper phase's training clips, half the cli phase's: at 4, its 7 fits took 97.4 s of a
 # 387.7 s run on an NVIDIA H100 80GB HBM3 at 700.00 W
 PAPER_TRAIN_CLIPS = 2
+# the variants phase's training clips, the paper phase's 2 (at the cli tree's 4 the phase
+# took 53.4 s of a 317.2 s run on an NVIDIA H100 80GB HBM3 at 700.00 W)
+VARIANTS_TRAIN_CLIPS = 2
 CLI_ANOMALY = (400, 550)  # frames where actor 1 of each test clip scatters
 CLI_MIN_WINDOWS = 8192
 CLI_SERVED = 4096  # test windows from_checkpoint scores against cli.eval's scores
@@ -3351,7 +3378,7 @@ def variants_run(card, root):
     from coskad_tpu_torch.serve import AnomalyScorer
     from coskad_tpu_torch.train.loop import Trainer
 
-    trees = write_paper_trees(root, np.random.default_rng(6))
+    trees = write_paper_trees(root, np.random.default_rng(6), VARIANTS_TRAIN_CLIPS)
     runs_of = {key: ("resumed", "straight") for key in VARIANT_CONFIGS}
     runs_of.update({f"{key}.float32": ("resumed",) for key in VARIANT_CONFIGS})
     configs = {key: {run: paper_config(key.split(".")[0], trees,
@@ -4495,18 +4522,441 @@ def parallel_run(card, root):
     return summary
 
 
+# The model_parallel phase: a 2 x 2 (data, model) mesh of four gloo ranks on the one
+# card, run.model_parallel 2, started as the parallel phase starts its group
+MP_RANKS, MP_MODEL = 4, 2
+# (case, epochs): the flagship (linear projector, fused_train 'auto', which takes the
+# module path under a model axis) on the slice phase's windows, and a float32 copy of
+# UBnormal's autoencoder file (the MLP head and rev_btlnk split)
+MP_CASES = (("flagship_auto", 1), ("ubnormal_ae_float32", 1))
+MP_AE_CONFIG = "UBnormal/euclidean_autoencoder"
+MP_AE_CLIPS = 8  # x 2 actors x 200 windows at 17 joints: 3,200 windows, 7 steps an epoch
+# a restored checkpoint's latents: the mesh's no further from a float64 evaluation of the
+# same weights than MP_F64_RATIO x the one process's, plus MP_F64_ATOL (the mesh sums the
+# projector's 13,824-term product in two halves, and cuBLAS sums each shape in its own
+# order, so a fixed band on the difference would be set by the shapes, not the port)
+MP_F64_RATIO, MP_F64_ATOL = 2.0, 1e-7
+# JAX's test holds its 4 x 2 mesh's latents to one device's within MP_LATENT_TOL
+# (tests/test_cli_e2e.py:376-402); on the card one process's own latents are further
+# than that from float64, so how far each side lies past it is recorded, not checked
+MP_LATENT_TOL = dict(rtol=2e-5, atol=1e-6)
+MP_EMBED_WINDOWS = 4096  # windows the restored checkpoint embeds on both sides
+MP_TIMEOUT_S = 600
+
+
+def mp_case(name, model_parallel):
+    """(config, train dataset) of a model_parallel-phase case, at
+    `model_parallel` model ranks; the one-process side (1) takes the module
+    path that 'auto' takes on the mesh."""
+    import dataclasses
+
+    from coskad_tpu_torch.config import from_reference_yaml
+    from coskad_tpu_torch.data.windows import SegmentDataset
+
+    epochs = dict(MP_CASES)[name]
+    if name == "flagship_auto":
+        data, meta, fids, _ = synthetic_windows(np.random.default_rng(1), TRAIN_CLIPS, 2, 200,
+                                                12, 18)
+        cfg = train_config("auto" if model_parallel > 1 else "off")
+    else:
+        data, meta, fids, _ = synthetic_windows(np.random.default_rng(2), MP_AE_CLIPS, 2, 200,
+                                                12, 17)
+        cfg = from_reference_yaml(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                               "config", f"{MP_AE_CONFIG}.yaml"))
+        cfg = dataclasses.replace(cfg, run=dataclasses.replace(cfg.run, compute_dtype="float32",
+                                                               freeze_bn_after=-1))
+    cfg = dataclasses.replace(cfg, opt=dataclasses.replace(cfg.opt, validation=False,
+                                                           epochs=epochs, lr_schedule=""),
+                              run=dataclasses.replace(cfg.run, model_parallel=model_parallel))
+    return cfg, SegmentDataset(data, meta, fids, num_transform=5)
+
+
+def mp_embed_set(ds):
+    from coskad_tpu_torch.data.windows import SegmentDataset
+
+    n = MP_EMBED_WINDOWS
+    return SegmentDataset(ds.data[:n], ds.meta[:n], ds.frame_ids[:n], num_transform=1)
+
+
+def mp_fit(name, counters, model_parallel, ckpt=None) -> dict:
+    """A case's fit and score_all in this process (a rank of the mesh, or
+    one process), counted; then, uncounted, the whole model (gathered on a
+    mesh), a checkpoint to `ckpt` (rank 0 writes) and latents of
+    MP_EMBED_WINDOWS windows."""
+    import torch
+    from coskad_tpu_torch.interop import flatten_tree, to_jax_variables
+    from coskad_tpu_torch.train import checkpoint
+    from coskad_tpu_torch.train.loop import Trainer
+
+    cfg, ds = mp_case(name, model_parallel)
+    log = QuietLogger()
+    tr = Trainer(cfg, ds, device=DEVICE, logger=log)
+    tr.optimizer = torch.optim.SGD(tr.model.parameters(), lr=PARALLEL_SGD_LR)
+    torch.cuda.synchronize()
+    # --- the model-parallel path, counted ---
+    zero(counters)
+    t0 = time.perf_counter()
+    state, hist = tr.fit(epochs=cfg.opt.epochs)
+    scores, rec = tr.score_all(state, ds, tr.train_data)
+    torch.cuda.synchronize()
+    launches = read(counters)
+    # --- end of the counted run ---
+    fit_s = time.perf_counter() - t0
+    params, stats = to_jax_variables(tr.model)
+    out = dict(step_losses=np.asarray(log.losses), epoch_losses=np.asarray(hist["loss"]),
+               center=state.center.cpu().numpy(), scores=scores, rec=rec, fit_s=fit_s,
+               launches=launches, layout=(tr.layout.data_world, tr.layout.model_world,
+                                          tr.layout.data_rank, tr.layout.model_rank),
+               steps=int(state.step),
+               local={k: v.cpu().numpy() for k, v in tr.model.state_dict().items()},
+               whole={**flatten_tree(params), **flatten_tree(stats)})
+    if ckpt is not None:  # Adam's state is what a checkpoint carries: a fresh one here
+        tr.optimizer = torch.optim.Adam(tr.model.parameters(), lr=cfg.opt.lr)
+        checkpoint.save(ckpt, tr, state, cfg)
+        small = mp_embed_set(ds)
+        out["z"] = tr.embed_all(state, small, tr._device_data(small))
+    return out
+
+
+def mp_rank(rank, world, port, out_dir):
+    """One rank of the model_parallel phase's mesh: joins the group over gloo
+    on the card and runs every case, writing its results to out_dir."""
+    import pickle
+
+    from coskad_tpu_torch.parallel import mesh
+
+    mesh.initialize_distributed(f"localhost:{port}", world, rank, backend="gloo", device=DEVICE)
+    counters = launch_counters()
+    for name, _ in MP_CASES:
+        out = mp_fit(name, counters, MP_MODEL, ckpt=os.path.join(out_dir, f"{name}.ckpt"))
+        with open(os.path.join(out_dir, f"{name}.rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    mesh.barrier()
+    mesh.destroy()
+
+
+def mp_restored(name, ckpt):
+    """The mesh's checkpoint restored in one process: (its model's state as
+    flax-named numpy arrays, its latents, the same model's latents in
+    float64 on the module path)."""
+    import copy
+
+    import torch
+    from coskad_tpu_torch.interop import flatten_tree, to_jax_variables
+    from coskad_tpu_torch.train import checkpoint
+    from coskad_tpu_torch.train.loop import Trainer
+
+    cfg, ds = mp_case(name, 1)
+    tr = Trainer(cfg, ds, device=DEVICE, logger=QuietLogger())
+    state, _, _ = checkpoint.restore(ckpt, tr)
+    params, stats = to_jax_variables(tr.model)
+    small = mp_embed_set(ds)
+    data = tr._device_data(small)
+    z = tr.embed_all(state, small, data)
+    model64 = copy.deepcopy(tr.model).double()
+    with torch.no_grad():
+        z64 = torch.cat([model64.encode(tr._gather(data, idx).double())[0]
+                         for idx in torch.arange(len(small), device=DEVICE).split(2048)])
+    return {**flatten_tree(params), **flatten_tree(stats)}, z, z64.cpu().numpy()
+
+
+def phase_model_parallel(card):
+    """Model parallelism on the card: a 2 x 2 mesh of four gloo ranks on the
+    one card against one process, in a temporary directory removed
+    afterwards."""
+    root = tempfile.mkdtemp(prefix="coskad_model_parallel_")
+    t0 = time.perf_counter()
+    try:
+        summary = mp_run(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    summary["phase_s"] = time.perf_counter() - t0
+    print(f"model_parallel phase: {summary['phase_s']:.1f} s")
+    return summary
+
+
+def mp_run(card, root):
+    import pickle
+
+    import torch.multiprocessing as mp
+    from coskad_tpu_torch.parallel import mesh
+    from coskad_tpu_torch.utils.net import free_port
+
+    counters = launch_counters()
+    t0 = time.perf_counter()
+    group = mp.start_processes(mp_rank, args=(MP_RANKS, free_port("localhost"), root),
+                               nprocs=MP_RANKS, join=False, start_method="spawn")
+    try:
+        # while the ranks run: the one-process references (not counted)
+        one = {name: mp_fit(name, counters, 1) for name, _ in MP_CASES}
+        one_s = time.perf_counter() - t0
+        while not group.join(timeout=MP_TIMEOUT_S - (time.perf_counter() - t0)):
+            check(time.perf_counter() - t0 < MP_TIMEOUT_S, "the model_parallel mesh timed out")
+    finally:  # a failed check or a dead rank leaves no rank running
+        for proc in group.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+    group_s = time.perf_counter() - t0
+    cases, launches = {}, {k: 0 for k in counters}
+    for name, _ in MP_CASES:
+        ranks = []
+        for rank in range(MP_RANKS):
+            with open(os.path.join(root, f"{name}.rank{rank}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+        want, got = one[name], ranks[0]
+        check([r["layout"] for r in ranks] == [(MP_RANKS // MP_MODEL, MP_MODEL, r // MP_MODEL,
+                                                r % MP_MODEL) for r in range(MP_RANKS)],
+              f"{name}: mesh layouts {[r['layout'] for r in ranks]}")
+        check(got["steps"] == want["steps"] and len(got["step_losses"]) == want["steps"],
+              f"{name}: {got['steps']} steps on the mesh, {want['steps']} in one process")
+        finite = all(np.isfinite(r[k]).all() for r in ranks for k in
+                     ("step_losses", "center", "scores"))
+        check(finite, f"{name}: non-finite losses, center or scores on a rank")
+        err = dict(step_losses=max_rel(got["step_losses"], want["step_losses"]),
+                   center=max_rel(got["center"], want["center"]),
+                   scores=float(np.max(np.abs(got["scores"] - want["scores"])
+                                       - SCORE_TOL["rtol"] * np.abs(want["scores"]))))
+        check(np.allclose(got["step_losses"], want["step_losses"], rtol=LOSS_RTOL, atol=0.0),
+              f"{name}: mesh losses vs one process, max rel {err['step_losses']:.3e}")
+        check(np.allclose(got["center"], want["center"], rtol=LOSS_RTOL, atol=1e-6),
+              f"{name}: mesh center vs one process, max rel {err['center']:.3e}")
+        check(np.allclose(got["scores"], want["scores"], **SCORE_TOL),
+              f"{name}: mesh scores vs one process past rtol 1e-3 / atol 1e-6")
+        # the model ranks of a data block: the same replicated weights and statistics
+        split = {k for k in got["local"] if mesh.split_dim(k, got["local"][k].ndim) is not None}
+        check(split, f"{name}: no kernel is split")
+        pairs_same = all(np.array_equal(ranks[d + 1]["local"][k], ranks[d]["local"][k])
+                         for d in range(0, MP_RANKS, MP_MODEL) for k in got["local"]
+                         if k not in split)
+        whole_same = all(np.array_equal(r["whole"][k], got["whole"][k]) and
+                         np.array_equal(r[x], got[x])
+                         for r in ranks[1:] for k in got["whole"] for x in ("center", "scores"))
+        check(pairs_same and whole_same, f"{name}: the model ranks' replicated weights or "
+                                         "statistics, or the ranks' center or scores, differ")
+        halves = all(
+            r["local"][k].shape[mesh.split_dim(k, 2)] * MP_MODEL
+            == want["local"][k].shape[mesh.split_dim(k, 2)] for r in ranks for k in split)
+        check(halves, f"{name}: a rank's split kernel is not 1/{MP_MODEL} of the whole")
+        restored, z_one, z64 = mp_restored(name, os.path.join(root, f"{name}.ckpt"))
+        check(sorted(restored) == sorted(got["whole"]) and all(
+            np.array_equal(restored[k], got["whole"][k]) for k in restored),
+            f"{name}: the mesh's checkpoint restores in one process to other weights")
+        z_err = dict(mesh_vs_one=float(np.max(np.abs(z_one - got["z"]))),
+                     mesh_vs_one_past_band=float(np.max(
+                         np.abs(got["z"] - z_one) - MP_LATENT_TOL["atol"]
+                         - MP_LATENT_TOL["rtol"] * np.abs(z_one))),
+                     one_vs_f64_past_band=float(np.max(
+                         np.abs(z_one - z64) - MP_LATENT_TOL["atol"]
+                         - MP_LATENT_TOL["rtol"] * np.abs(z64))),
+                     max_abs_latent=float(np.max(np.abs(z_one))),
+                     mesh_vs_f64=float(np.max(np.abs(got["z"] - z64))),
+                     one_vs_f64=float(np.max(np.abs(z_one - z64))))
+        check(z_err["mesh_vs_f64"] <= MP_F64_RATIO * z_err["one_vs_f64"] + MP_F64_ATOL,
+              f"{name}: the mesh's latents are further from float64 than {MP_F64_RATIO}x the "
+              f"one process's: {z_err}")
+        for r, rec in enumerate(ranks):
+            check(rec["launches"]["stse_fused"] > 0 and all(
+                v == 0 for k, v in rec["launches"].items() if k != "stse_fused"),
+                f"{name}: rank {r} launches {rec['launches']}: K1 must run on every rank "
+                "and K2-K5 on none")
+            launches = add_launches(launches, rec["launches"])
+        cases[name] = dict(errors=err, ranks_same_bits=pairs_same and whole_same,
+                           split=sorted(split), latent_err=z_err,
+                           launches_by_rank=[r["launches"] for r in ranks],
+                           fit_s_by_rank=[r["fit_s"] for r in ranks],
+                           one_process_fit_s=want["fit_s"], steps=want["steps"],
+                           epoch_losses=got["epoch_losses"].tolist())
+    summary = dict(mesh=(MP_RANKS // MP_MODEL, MP_MODEL), backend="gloo on CUDA tensors",
+                   cases=cases, group_s=group_s, one_process_s=one_s, launches=launches,
+                   card=card)
+    print(f"model_parallel: a {MP_RANKS // MP_MODEL} x {MP_MODEL} mesh on one card over gloo "
+          "(CUDA tensors; the ranks share the card, so no scaling figure): " + "; ".join(
+              f"{n} {c['steps']} steps, split {c['split']}, max rel err losses "
+              f"{c['errors']['step_losses']:.2e} center {c['errors']['center']:.2e}, scores "
+              f"past rtol 1e-3 by {c['errors']['scores']:.2e} (atol 1e-6), ranks same bits "
+              f"{c['ranks_same_bits']}, the checkpoint restores in one process to the "
+              f"gathered weights' bits, latents max abs err "
+              f"{ {k: float(f'{v:.3g}') for k, v in c['latent_err'].items()} }, "
+              f"launches by rank {c['launches_by_rank']}, "
+              f"fit s by rank {[round(t, 2) for t in c['fit_s_by_rank']]} vs one process "
+              f"{c['one_process_fit_s']:.2f}" for n, c in cases.items())
+          + f"; launches {launches}; on {card}")
+    return summary
+
+
+# The tooling phase: `utils/profiling.py` and the Möbius layers on the card
+TOOLING_WINDOWS = 2048  # one scoring batch of the flagship
+TOOLING_TOL = dict(rtol=1e-4, atol=1e-6)  # card vs CPU float32: reductions' order, libm
+TOOLING_TIMEOUT_S = 300
+
+
+def tooling_trainer():
+    """(trainer, state, dataset) of one flagship scoring batch, its K1 warm."""
+    import dataclasses
+
+    import torch
+    from coskad_tpu_torch.data.windows import SegmentDataset
+    from coskad_tpu_torch.train.loop import Trainer
+
+    data, meta, fids, _ = synthetic_windows(np.random.default_rng(5), 6, 2, 200, 12, 18)
+    n = TOOLING_WINDOWS
+    ds = SegmentDataset(data[:n], meta[:n], fids[:n], num_transform=1)
+    cfg = train_config("off")
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, num_transform=1))
+    tr = Trainer(cfg, ds, device=DEVICE, logger=QuietLogger())
+    state = tr.init_state()
+    tr.score_all(state, ds, tr.train_data)  # warm: K1's build and fold
+    torch.cuda.synchronize()
+    return tr, state, ds
+
+
+def tooling_trace(tr, state, ds) -> dict:
+    """profiling.trace around one score_all batch: the Chrome trace's event
+    count, its device events and K1's, whether trace() warned of a lost
+    device side, and the batch's launches."""
+    from coskad_tpu_torch.utils import profiling
+
+    counters = launch_counters()
+    log_dir = tempfile.mkdtemp(prefix="coskad_trace_")
+    try:
+        zero(counters)
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            with profiling.trace(log_dir) as prof:
+                tr.score_all(state, ds, tr.train_data)
+        launches = read(counters)
+        with open(os.path.join(log_dir, profiling.TRACE_FILE)) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    return dict(events=len(events), device_events=profiling.device_event_count(prof),
+                k1_events=sum("stse_fused_kernel" in str(e.get("name", "")) for e in events),
+                warned=any(issubclass(w.category, RuntimeWarning) for w in warned),
+                launches=launches)
+
+
+def tooling_trace_process(rank, out_path):
+    """The first profiler session of a fresh process on the card: one
+    tooling_trace, pickled to out_path."""
+    import pickle
+
+    with open(out_path, "wb") as f:
+        pickle.dump(tooling_trace(*tooling_trainer()), f)
+
+
+def phase_tooling(card):
+    """profiling.trace around a score_all batch: the first trace of a fresh
+    process must name K1's kernel, and a trace in this long process (after
+    every earlier phase's profiler sessions) is recorded, not held to it;
+    where either holds no device event, trace() must have warned.
+    device_memory_stats, debug_nans on NaNs made on the card in a forward
+    and a backward, and MobiusLinear / MobiusDist2Hyperplane's values and
+    gradients on the card against the CPU's."""
+    import pickle
+
+    import torch
+    import torch.multiprocessing as mp
+    from coskad_tpu_torch.geometry import hyperbolic_nn as hnn
+    from coskad_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="coskad_tooling_")
+    try:
+        group = mp.start_processes(tooling_trace_process,
+                                   args=(os.path.join(root, "trace.pkl"),), nprocs=1,
+                                   join=False, start_method="spawn")
+        try:
+            while not group.join(timeout=TOOLING_TIMEOUT_S - (time.perf_counter() - t0)):
+                check(time.perf_counter() - t0 < TOOLING_TIMEOUT_S,
+                      "the tooling phase's trace process timed out")
+        finally:
+            for proc in group.processes:
+                if proc.is_alive():
+                    proc.terminate()
+                    proc.join()
+        with open(os.path.join(root, "trace.pkl"), "rb") as f:
+            fresh = pickle.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    tr, state, ds = tooling_trainer()  # held: device_memory_stats reads its tensors
+    long_run = tooling_trace(tr, state, ds)
+    for where, t in (("a fresh process", fresh), ("this process", long_run)):
+        check(t["launches"]["stse_fused"] == 1, f"a score_all batch in {where} launched "
+                                                f"{t['launches']}")
+        check(t["warned"] == (t["device_events"] == 0),
+              f"profiling.trace in {where}: warned {t['warned']} on a trace of "
+              f"{t['device_events']} device events")
+    check(fresh["k1_events"] >= 1, f"the first trace of a fresh process holds no event of "
+                                   f"K1's kernel: {fresh}")
+    launches = fresh["launches"]
+    stats = profiling.device_memory_stats()
+    allocated = stats.get("cuda:0", {}).get("allocated_bytes.all.current", 0)
+    check(allocated > 0, f"device_memory_stats reports {allocated} bytes allocated")
+
+    caught = {}
+    x = torch.tensor([-1.0, 2.0], device=DEVICE)
+    y = torch.tensor([0.0, 1.0], device=DEVICE, requires_grad=True)
+    for where, fn in (("forward", lambda: torch.log(x)),
+                      ("backward", lambda: torch.sum(torch.sqrt(y) * 0.0).backward())):
+        with profiling.debug_nans():
+            try:
+                fn()
+                caught[where] = None
+            except FloatingPointError as e:
+                caught[where] = str(e).splitlines()[0][:120]
+    check(all(caught.values()), f"debug_nans let a NaN made on the card pass: {caught}")
+
+    layers = {}
+    rng = np.random.default_rng(6)
+    xs = rng.normal(size=(256, 16))
+    xs = (xs / np.linalg.norm(xs, axis=1, keepdims=True)
+          * rng.uniform(0.05, 0.8, size=(256, 1))).astype(np.float32)
+    w = rng.normal(size=(256, 8)).astype(np.float32)
+    for name, make in (("MobiusLinear", lambda g: hnn.MobiusLinear(16, 8, generator=g)),
+                       ("MobiusDist2Hyperplane",
+                        lambda g: hnn.MobiusDist2Hyperplane(16, 8, generator=g))):
+        sides = {}
+        for dev in ("cpu", DEVICE):
+            layer = make(torch.Generator().manual_seed(7)).to(dev)
+            xt = torch.from_numpy(xs).to(dev).requires_grad_()
+            out = layer(xt)
+            torch.sum(out * torch.from_numpy(w).to(dev)).backward()
+            sides[dev] = [out.detach().cpu().numpy(), xt.grad.cpu().numpy(),
+                          *(p.grad.cpu().numpy() for p in layer.parameters())]
+        errs = []
+        for got, want in zip(sides[DEVICE], sides["cpu"]):
+            scale = max(1.0, float(np.max(np.abs(want))))
+            errs.append(float(np.max(np.abs(got - want))))
+            check(np.allclose(got, want, rtol=TOOLING_TOL["rtol"],
+                              atol=TOOLING_TOL["atol"] * scale),
+                  f"{name} on the card vs the CPU: max abs err {errs[-1]:.3e}")
+        layers[name] = dict(max_abs_err_by_tensor=errs)
+    summary = dict(trace_fresh_process=fresh, trace_this_process=long_run,
+                   launches=launches, allocated_bytes=int(allocated), debug_nans=caught,
+                   mobius=layers, phase_s=time.perf_counter() - t0, card=card)
+    print(f"tooling: a score_all batch's Chrome trace, the first of a fresh process: "
+          f"{fresh}; in this process after the earlier phases (recorded, not checked): "
+          f"{long_run}; device_memory_stats allocated {allocated} B; "
+          f"debug_nans on the card {caught}; Möbius layers card vs CPU max abs err "
+          f"{ {k: max(v['max_abs_err_by_tensor']) for k, v in layers.items()} } (rtol 1e-4, "
+          f"atol 1e-6 of the scale); {summary['phase_s']:.1f} s on {card}")
+    return summary
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("kernels", "products", "probe", "cli", "paper", "bf16",
                                        "variants", "encoders", "streaming", "export",
-                                       "pipeline", "parallel"),
+                                       "pipeline", "parallel", "model_parallel", "tooling"),
                     default=None,
                     help="run only the environment and kernel phases, or only the product "
                          "check, or only the probe check, or only the cli, the paper, the bf16 (the bf16 kernel check "
                          "and the bf16 fit), the variants, the encoders, the streaming, the "
-                         "export, the pipeline or the parallel phase (no result line)")
+                         "export, the pipeline, the parallel, the model_parallel or the "
+                         "tooling phase (no result line)")
     args = ap.parse_args(argv)
     card, build_s = phase_environment()
     import torch
@@ -4528,10 +4978,11 @@ def main(argv=None) -> int:
         phase_train_bf16(card)
         return 0
     if args.only in ("probe", "variants", "encoders", "streaming", "export", "pipeline",
-                     "parallel"):
+                     "parallel", "model_parallel", "tooling"):
         phase = dict(probe=phase_probe, variants=phase_variants, encoders=phase_encoders,
                      streaming=phase_streaming, export=phase_export,
-                     pipeline=phase_pipeline, parallel=phase_parallel)[args.only]
+                     pipeline=phase_pipeline, parallel=phase_parallel,
+                     model_parallel=phase_model_parallel, tooling=phase_tooling)[args.only]
         summary = phase(card)
         os.makedirs(OUT_DIR, exist_ok=True)
         with open(os.path.join(OUT_DIR, f"chip_smoke_{args.only}.json"), "w") as f:
@@ -4564,6 +5015,8 @@ def main(argv=None) -> int:
     streaming = timed("streaming", phase_streaming, card)
     export = timed("export", phase_export, card)
     parallel = timed("parallel", phase_parallel, card)
+    model_parallel = timed("model_parallel", phase_model_parallel, card)
+    tooling = timed("tooling", phase_tooling, card)
     print(f"phase wall s: {json.dumps(dict(build=round(build_s, 1), **wall))}")
     kernel["launches_by_path"] = dict(serving=summary["launches"]["stse_fused"],
                                       training=train["launches"]["stse_fused"],
@@ -4576,11 +5029,13 @@ def main(argv=None) -> int:
                                       encoders=encoders["launches_total"]["stse_fused"],
                                       streaming=streaming["launches"]["stse_fused"],
                                       export=export["launches"]["stse_fused"],
-                                      parallel=parallel["launches"]["stse_fused"])
+                                      parallel=parallel["launches"]["stse_fused"],
+                                      model_parallel=model_parallel["launches"]["stse_fused"])
     check(all(kernel["launches_by_path"][p] > 0
-              for p in ("encoders", "streaming", "export", "pipeline", "parallel")),
+              for p in ("encoders", "streaming", "export", "pipeline", "parallel",
+                        "model_parallel")),
           f"K1 by path {kernel['launches_by_path']}: none on the encoders, streaming, export, "
-          "pipeline or parallel path")
+          "pipeline, parallel or model_parallel path")
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     for rec in train_kernels + [mono_kernel]:
         by_path = dict(serving=0, training=train["launches"][rec["name"]],
@@ -4592,7 +5047,8 @@ def main(argv=None) -> int:
                        streaming=streaming["launches"][rec["name"]],
                        export=export["launches"][rec["name"]],
                        pipeline=pipeline["launches"][rec["name"]],
-                       parallel=parallel["launches"][rec["name"]])
+                       parallel=parallel["launches"][rec["name"]],
+                       model_parallel=model_parallel["launches"][rec["name"]])
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     for rec in bf16_kernels:  # the bf16 form's own paths: the bf16 fit and mono run
@@ -4610,7 +5066,8 @@ def main(argv=None) -> int:
                        slice=summary, train=train, train_bf16=train_bf16, pipeline=pipeline,
                        mono=mono, cli=cli,
                        paper=paper, variants=variants, encoders=encoders, streaming=streaming,
-                       export=export, parallel=parallel, phase_wall_s=wall), f, indent=1)
+                       export=export, parallel=parallel, model_parallel=model_parallel,
+                       tooling=tooling, phase_wall_s=wall), f, indent=1)
     keys = ("name", "route", "source", "replaces", "compute_dtype", "launches", "max_abs_err",
             "tolerance", "ms", "kernel_ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_call", "product_ms")

@@ -13,11 +13,12 @@ CUDA unless `--device cpu`. The autoencoder scores by latent distance, by
 reconstruction error or by both, as `--rec-weight` selects
 (`score/window_losses.py`); the VAE by cosine distance to the anchor its
 checkpoint carries, and a VAE checkpoint without one is refused
-(`checkpoint.require_vae_anchor`). The ROC plots of `--save-roc` wait for
-their module (ROADMAP.md, Queue 1 item 7). With `--distributed` (see
-`cli.train`) every rank scores its block of each chunk, the scores are
-gathered, and rank 0 alone prints the per-clip lines and writes
-`--save-scores`.
+(`checkpoint.require_vae_anchor`). `--save-roc DIR` writes a ROC PNG a
+transform (`t<N>_roc_hyp.png`) and `final_roc.png`, and prints each
+transform's best threshold; it needs matplotlib, which the card's machine
+does not have. With `--distributed` (see `cli.train`) every rank scores its
+block of each chunk, the scores are gathered, and rank 0 alone prints the
+per-clip lines and writes `--save-scores` and `--save-roc`.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import Dict
 import numpy as np
 
 from ..score.aggregate import EvalResult, ScoringConfig, evaluate_windows
+from ..score.auc import best_threshold
 from ..score.masks import AVENUE_MASKED_CLIPS, hr_ubnormal
 from ..score.window_losses import mode_from_rec_weight, mode_scores
 from ..train import checkpoint
@@ -57,6 +59,9 @@ def main(argv=None) -> EvalRun:
     parser.add_argument("--save-scores", default=None, metavar="DIR",
                         help="dump per-clip per-person score npys in the analysis-notebook "
                              "layout (error_per_person_scene_S_scenario_C.npy + gt_masks/)")
+    parser.add_argument("--save-roc", default=None, metavar="DIR",
+                        help="write per-transform and final ROC PNGs and print the best "
+                             "thresholds (needs matplotlib)")
     parser.add_argument("--rec-weight", type=float, default=0.0,
                         help="autoencoder scoring mode: 0 -> latent distance, >100 -> "
                              "reconstruction error, else reconstruction error / weight + "
@@ -121,6 +126,8 @@ def main(argv=None) -> EvalRun:
                   f"score: {auc} average_score: {np.nanmean(np.asarray(aucs, float))}")
         print(f"\nTest set score for transformation {t + 1}\n")
         print(f"auc = {result.per_transform_auc[t]}")
+    if args.save_roc and primary:
+        save_roc(args.save_roc, result)
     marks["aggregate"] = time.perf_counter()  # host aggregation, AUC, prints
     keys = ["ingest", "upload", "scoring", "aggregate"]
     wall = {key: marks[key] - marks[prev] for key, prev in zip(keys, ["start"] + keys[:-1])}
@@ -130,6 +137,19 @@ def main(argv=None) -> EvalRun:
     print(f"final AUC score: {result.auc:.6f}")
     distributed_barrier()
     return EvalRun(result=result, window_scores=scores, wall_s=wall)
+
+
+def save_roc(out_dir: str, result: EvalResult) -> None:
+    """Each transform's ROC curve as t<N>_roc_hyp.png (N from 0) with its
+    best threshold printed, and the final scores' as final_roc.png."""
+    from ..visualize.plots import plot_roc
+
+    os.makedirs(out_dir, exist_ok=True)
+    for t, (s_t, gt_t) in enumerate(zip(result.per_transform_scores, result.per_transform_gt)):
+        plot_roc(gt_t, s_t, os.path.join(out_dir, f"t{t}_roc_hyp.png"))
+        thr, _ = best_threshold(gt_t, s_t)
+        print(f"best threshold (transform {t + 1}): {thr}")
+    plot_roc(result.gt, result.scores, os.path.join(out_dir, "final_roc.png"))
 
 
 if __name__ == "__main__":

@@ -17,7 +17,9 @@ On several cards, one command a rank:
     python -m coskad_tpu_torch.cli.train --config <config> --distributed host:port,2,1   # rank 1
 
 Every rank trains its block of each global batch (`parallel/mesh.py`) and
-rank 0 alone writes the checkpoints and metrics. `cli.supervise` restarts a
+rank 0 alone writes the checkpoints and metrics. With `run.model_parallel:
+2` in the config, four ranks run as a 2 x 2 (data, model) mesh, the
+projector split over each pair. `cli.supervise` restarts a
 crashed or stalled run, or group. For its tests the run takes fault
 injections from the environment, scoped to one rank by COSKAD_CRASH_RANK:
 COSKAD_STARTUP_DELAY_S (a slow start), COSKAD_CRASH_BEFORE_CKPT_AT_EPOCH
@@ -135,20 +137,17 @@ def main(argv=None) -> TrainRun:
                     os.replace(best_path, os.path.join(ckpt_dir, "best2.ckpt"))
                 best2_auc = best_auc
             best_auc = auc
-            if primary:
-                checkpoint.save(best_path, trainer, state, cfg, scaler=train_ds.scaler,
-                                extra={"epoch": epoch, "auc": auc})
+            checkpoint.save(best_path, trainer, state, cfg, scaler=train_ds.scaler,
+                            extra={"epoch": epoch, "auc": auc})
             have_best_ckpt = True
         elif auc is not None and auc > best2_auc:
             best2_auc = auc
-            if primary:
-                checkpoint.save(os.path.join(ckpt_dir, "best2.ckpt"), trainer, state, cfg,
-                                scaler=train_ds.scaler, extra={"epoch": epoch, "auc": auc})
-        if primary:
-            checkpoint.save(os.path.join(ckpt_dir, "last.ckpt"), trainer, state, cfg,
-                            scaler=train_ds.scaler,
-                            extra={"epoch": epoch, "best_auc": best_auc,
-                                   "best2_auc": best2_auc, **trainer.schedule_state()})
+            checkpoint.save(os.path.join(ckpt_dir, "best2.ckpt"), trainer, state, cfg,
+                            scaler=train_ds.scaler, extra={"epoch": epoch, "auc": auc})
+        checkpoint.save(os.path.join(ckpt_dir, "last.ckpt"), trainer, state, cfg,
+                        scaler=train_ds.scaler,
+                        extra={"epoch": epoch, "best_auc": best_auc,
+                               "best2_auc": best2_auc, **trainer.schedule_state()})
         if injectable and os.environ.get("COSKAD_CRASH_AT_EPOCH", "") == str(epoch):
             # after the checkpoint: --resume restarts at the next epoch
             print(f"[coskad] injected crash at epoch {epoch}", flush=True)

@@ -1,11 +1,15 @@
-"""Poincaré-ball operations of the hyperbolic variant (PyTorch).
+"""Poincaré-ball operations (PyTorch), counterpart of
+`coskad_tpu/geometry/poincare.py`.
 
-Counterpart of the part of `coskad_tpu/geometry/poincare.py` that training,
-center initialization and scoring use: the exponential and logarithmic maps
-at the origin, projection onto the ball, Möbius addition, the geodesic
-distance, and the Einstein midpoint through Klein coordinates, with its
-additive per-batch statistics; and for the contrastive view, the
-all-pairs Möbius addition, the distance matrix and the InfoNCE loss. The
+What training, center initialization and scoring use: the exponential and
+logarithmic maps at the origin, projection onto the ball, Möbius addition,
+the geodesic distance, and the Einstein midpoint through Klein coordinates,
+with its additive per-batch statistics; for the contrastive view, the
+all-pairs Möbius addition, the distance matrix and the InfoNCE loss. Then
+the tools no training path calls, for analysis and for the Möbius layers
+(`hyperbolic_nn.py`): the maps at any point, Möbius scalar and matrix
+products, hyperbolic softmax logits, the distance to a hyperplane, the
+curvature of a unit-volume ball, Gromov's delta and the Fréchet mean. The
 same float32 safeguards as the JAX
 module: artanh's argument clipped to 1 - 1e-7, norms floored at 1e-15 under
 the square root, points projected onto a ball shrunk by 4e-3 (1e-5 in
@@ -55,6 +59,10 @@ def artanh(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * (torch.log1p(x) - torch.log1p(-x))
 
 
+def arsinh(x: torch.Tensor) -> torch.Tensor:
+    return torch.asinh(x)
+
+
 def _norm(x: torch.Tensor, keepdim: bool = True) -> torch.Tensor:
     return torch.sqrt(_floor(torch.sum(x * x, dim=-1, keepdim=keepdim)))
 
@@ -98,6 +106,22 @@ def logmap0(y: torch.Tensor, k: float = -1.0) -> torch.Tensor:
     return y / y_norm / sqrt_c * artanh(sqrt_c * y_norm)
 
 
+def expmap(x: torch.Tensor, u: torch.Tensor, k: float = -1.0) -> torch.Tensor:
+    """Exponential map at x."""
+    sqrt_c = _sqrt_c(k)
+    u_norm = _norm(u)
+    second = torch.tanh(sqrt_c / 2.0 * lambda_x(x, k) * u_norm) * u / (sqrt_c * u_norm)
+    return mobius_add(x, second, k)
+
+
+def logmap(x: torch.Tensor, y: torch.Tensor, k: float = -1.0) -> torch.Tensor:
+    """Logarithmic map at x."""
+    sqrt_c = _sqrt_c(k)
+    sub = mobius_add(-x, y, k)
+    sub_norm = _norm(sub)
+    return 2.0 / sqrt_c / lambda_x(x, k) * artanh(sqrt_c * sub_norm) * sub / sub_norm
+
+
 def dist(x: torch.Tensor, y: torch.Tensor, k: float = -1.0,
          keepdim: bool = False) -> torch.Tensor:
     """Geodesic distance 2/sqrt(-k) artanh(sqrt(-k) |(-x) (+) y|)."""
@@ -110,6 +134,25 @@ def dist0(x: torch.Tensor, k: float = -1.0, keepdim: bool = False) -> torch.Tens
     """Geodesic distance to the origin."""
     sqrt_c = _sqrt_c(k)
     return 2.0 / sqrt_c * artanh(sqrt_c * _norm(x, keepdim=keepdim))
+
+
+def mobius_scalar_mul(r, x: torch.Tensor, k: float = -1.0) -> torch.Tensor:
+    """Möbius scalar multiplication r (x)_k x."""
+    sqrt_c = _sqrt_c(k)
+    x_norm = _norm(x)
+    return torch.tanh(r * artanh(sqrt_c * x_norm)) * x / (x_norm * sqrt_c)
+
+
+def mobius_matvec(m: torch.Tensor, x: torch.Tensor, k: float = -1.0) -> torch.Tensor:
+    """Möbius matrix-vector product M (x)_k x (x @ m.T over the last dim);
+    0 where M x is 0."""
+    sqrt_c = _sqrt_c(k)
+    x_norm = _norm(x)
+    mx = torch.einsum("...d,ed->...e", x, m)
+    mx_norm = _norm(mx)
+    res = torch.tanh(mx_norm / x_norm * artanh(sqrt_c * x_norm)) * mx / (mx_norm * sqrt_c)
+    zero_mx = torch.all(mx == 0.0, dim=-1, keepdim=True)
+    return torch.where(zero_mx, torch.zeros_like(res), res)
 
 
 def poincare_to_klein(x: torch.Tensor, k: float = -1.0) -> torch.Tensor:
@@ -180,6 +223,87 @@ def dist_matrix(x: torch.Tensor, y: torch.Tensor, k: float = -1.0) -> torch.Tens
     m = mobius_addition_batch(-x, y, k)
     norms = torch.sqrt(torch.sum(m * m, dim=-1))
     return 2.0 / sqrt_c * artanh(sqrt_c * norms)
+
+
+def _vector_norm(x: torch.Tensor, dim: int, keepdim: bool = False) -> torch.Tensor:
+    """jnp.linalg.norm over `dim`: the square root of the sum of squares,
+    no floor."""
+    return torch.sqrt(torch.sum(x * x, dim=dim, keepdim=keepdim))
+
+
+def hyperbolic_softmax(x: torch.Tensor, a: torch.Tensor, p: torch.Tensor,
+                       k: float = -1.0) -> torch.Tensor:
+    """Hyperbolic multinomial logistic regression logits (reference
+    utils/hyper_math.py:428-436): x [B, D] points, a [C, D] tangent normals,
+    p [C, D] hyperplane offsets -> [B, C]."""
+    c = -k
+    lambda_pkc = 2.0 / (1.0 - c * torch.sum(p * p, dim=1))
+    kk = lambda_pkc * _vector_norm(a, 1) / math.sqrt(c)
+    mob = mobius_addition_batch(-p, x, k)  # [C, B, D]
+    num = 2.0 * math.sqrt(c) * torch.sum(mob * a[:, None, :], dim=-1)
+    denom = _vector_norm(a, 1, keepdim=True) * (1.0 - c * torch.sum(mob * mob, dim=2))
+    return (kk[:, None] * arsinh(num / denom)).T
+
+
+def dist2plane(x: torch.Tensor, p: torch.Tensor, a: torch.Tensor, k: float = -1.0,
+               signed: bool = True) -> torch.Tensor:
+    """Signed (or absolute) distance from x to the hyperplane through p with
+    tangent normal a (geoopt's dist2plane; `MobiusDist2Hyperplane`)."""
+    c = -k
+    sqrt_c = math.sqrt(c)
+    diff = mobius_add(-p, x, k)
+    diff2 = torch.sum(diff * diff, dim=-1)
+    sc = torch.sum(diff * a, dim=-1)
+    if not signed:
+        sc = torch.abs(sc)
+    num = 2.0 * sqrt_c * sc
+    denom = _floor((1.0 - c * diff2) * _vector_norm(a, -1))
+    return arsinh(num / denom) / sqrt_c
+
+
+def auto_select_c(d: int) -> float:
+    """The curvature at which the d-dimensional ball has volume pi
+    (reference utils/hyper_math.py:494-504)."""
+    dim2 = d / 2.0
+    r = (math.gamma(dim2 + 1) / (math.pi ** (dim2 - 1))) ** (1.0 / d)
+    return 1.0 / (r * r)
+
+
+def delta_hyp(dismat: torch.Tensor) -> torch.Tensor:
+    """Gromov's delta-hyperbolicity of a distance matrix, from its first
+    point (reference utils/hyper_math.py:536-542)."""
+    row = dismat[0, :][None, :]
+    col = dismat[:, 0][:, None]
+    gromov = 0.5 * (row + col - dismat)
+    maxmin = torch.amax(torch.minimum(gromov[:, :, None], gromov[None, :, :]), dim=1)
+    return torch.amax(maxmin - gromov)
+
+
+def relative_delta(emb: torch.Tensor) -> torch.Tensor:
+    """2 delta / diameter of the embedding's Euclidean distance matrix; the
+    reference estimates a curvature as (0.144 / relative delta)^2
+    (utils/hyper_math.py:545-561)."""
+    d2 = torch.sum((emb[:, None, :] - emb[None, :, :]) ** 2, dim=-1)
+    dists = torch.sqrt(torch.clamp(d2, min=0.0))
+    return 2.0 * delta_hyp(dists) / torch.amax(dists)
+
+
+def frechet_mean(xs: torch.Tensor, k: float = -1.0, num_iters: int = 30,
+                 step_size: float = 0.5, weights: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """The Karcher / Fréchet mean of xs [N, D] by the damped fixed point
+    m <- exp_m(step_size * mean(log_m(x_i))) from the Einstein midpoint,
+    `num_iters` times (JAX's `lax.scan`, unrolled here); differentiable.
+    A unit step overshoots in negative curvature for spread-out points, so
+    the step is 0.5."""
+    w = weights if weights is not None else torch.ones(xs.shape[0], dtype=xs.dtype,
+                                                       device=xs.device)
+    w = w / torch.sum(w)
+    m = weighted_midpoint(xs, k, weights=w * xs.shape[0])
+    for _ in range(num_iters):
+        step = torch.sum(w[:, None] * logmap(m[None, :], xs, k), dim=0)
+        m = project(expmap(m, step_size * step, k), k)
+    return m
 
 
 def contrastive_loss(x: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor, tau: float,

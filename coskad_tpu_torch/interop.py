@@ -66,6 +66,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .parallel import mesh
+
 
 def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
     """Nested dicts of arrays -> {'a.b.c': np.ndarray}."""
@@ -95,8 +97,12 @@ def load_jax_variables(model: nn.Module, params: Mapping[str, Any],
                        batch_stats: Mapping[str, Any]) -> nn.Module:
     """Fill `model` in place from the flax {params, batch_stats} trees (nested
     dicts of numpy arrays), so both packages compute the same function.
-    Raises if a name is missing or left over, or a shape differs."""
-    state = state_from_jax_variables(params, batch_stats)
+    Raises if a name is missing or left over, or a shape differs. A model
+    split over a model axis (`mesh.shard_model`) takes this rank's block of
+    each whole split kernel."""
+    lay = mesh.model_layout(model)
+    state = {k: mesh.local_block(lay, k, v)
+             for k, v in state_from_jax_variables(params, batch_stats).items()}
     own = model.state_dict()
     missing = sorted(own.keys() - state.keys())
     extra = sorted(state.keys() - own.keys())
@@ -127,11 +133,15 @@ def nest_flat(flat: Mapping[str, Any]) -> Dict[str, Any]:
 def to_jax_variables(model: nn.Module) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """The model as flax {params, batch_stats} trees of float32 numpy arrays
     (the reverse of `load_jax_variables`): parameters go to params, the
-    BatchNorm running statistics (buffers) to batch_stats."""
+    BatchNorm running statistics (buffers) to batch_stats. A model split
+    over a model axis gives its whole kernels, gathered over the model
+    group: every rank of the group calls this together."""
+    lay = mesh.model_layout(model)
     buffers = {k for k, _ in model.named_buffers()}
     params, stats = {}, {}
     for k, v in model.state_dict().items():
-        (stats if k in buffers else params)[k] = v.detach().cpu().numpy().astype(np.float32)
+        v = mesh.whole(lay, k, v.detach())
+        (stats if k in buffers else params)[k] = v.cpu().numpy().astype(np.float32)
     return nest_flat(params), nest_flat(stats)
 
 

@@ -143,6 +143,12 @@ def _projector(folded: FoldedSTSE) -> Tuple[torch.Tensor, torch.Tensor]:
     if folded.w_proj is None:
         raise ValueError("the folded weights carry no linear projector: run "
                          "fused_stse_hidden and the model's own projector")
+    flat = folded.layers[0].graph.shape[0] * folded.layers[-1].w.shape[1]
+    if folded.w_proj.shape[0] != flat:
+        # a model rank's block of rows (`parallel/mesh.py::shard_model`)
+        raise ValueError(f"the folded projector has {folded.w_proj.shape[0]} of the hidden "
+                         f"state's {flat} rows, a model-parallel shard: run "
+                         "fused_stse_hidden and the model's own (split) projector")
     return folded.w_proj, folded.b_proj
 
 

@@ -175,6 +175,9 @@ def encoder_ops(model) -> EncoderOps:
             beta_res=None if res is None else lay.residual_bn.bias,
             alpha=lay.prelu.alpha,
         ))
+    if getattr(model.btlnk, "split", None) is not None:
+        raise ValueError("the fused train kernels need the projector whole: it is split "
+                         "over a model axis (run.model_parallel > 1)")
     return EncoderOps(tuple(layers), model.btlnk.kernel, _bias(model.btlnk))
 
 
@@ -1225,7 +1228,8 @@ def fused_stse_apply(model, x: torch.Tensor, ghost_size: int = 32, momentum: flo
         # a rank's block of the batch: the running statistics fold the global
         # batch's sums and count (JAX psums both, stse_train.py:1155-1171); the
         # ghost blocks stay the rank's own
-        *sums, count = mesh.sum_each([*sums, sums[0].new_full((1,), float(count))])
+        *sums, count = mesh.sum_each([*sums, sums[0].new_full((1,), float(count))],
+                                     mesh.active().data_group)
     update_running_stats(model, sums, count, momentum)
     return z
 

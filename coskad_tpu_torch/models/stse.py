@@ -93,7 +93,10 @@ class ReverseProjector(nn.Module):
     `ReverseProjector`: kernel [L, H*T*V] and bias [H*T*V] in the
     reference's channel-major flat order, the de-flatten and the transpose
     to (T, V, H) done on the weight. At a bf16 dtype the latent, the kernel,
-    the product, the bias and the sum are rounded, as there."""
+    the product, the bias and the sum are rounded, as there. Split over a
+    model axis (`split`, set by `mesh.shard_model`) the kernel is this
+    rank's block of columns: the latent times it, the blocks gathered over
+    the model group into the whole flat hidden, which is then de-flattened."""
 
     def __init__(self, hidden_dimension: int, n_frames: int, n_joints: int, latent_dim: int,
                  dtype: torch.dtype = torch.float32):
@@ -103,6 +106,7 @@ class ReverseProjector(nn.Module):
         self.kernel = nn.Parameter(torch.empty(latent_dim, flat))
         self.bias = nn.Parameter(torch.empty(flat))
         self.dtype = dtype
+        self.split: Optional[mesh.Layout] = None
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -113,6 +117,13 @@ class ReverseProjector(nn.Module):
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         h, t, v = self.shape
+        if self.split is not None:
+            part = rounded(mesh.model_copy(rounded(z, dt), self.split)
+                           @ rounded(self.kernel, dt), dt)
+            flat = mesh.model_gather(part, self.split)  # [B, H*T*V] channel-major
+            flat = flat.reshape(-1, h, t, v).permute(0, 2, 3, 1).reshape(-1, t * v * h)
+            b = rounded(self.bias, dt).reshape(h, t, v).permute(1, 2, 0).reshape(-1)
+            return rounded(flat + b, dt).reshape(z.shape[0], t, v, h)
         w = rounded(self.kernel, dt).reshape(-1, h, t, v).permute(0, 2, 3, 1).reshape(-1, t * v * h)
         b = rounded(self.bias, dt).reshape(h, t, v).permute(1, 2, 0).reshape(-1)
         out = rounded(rounded(rounded(z, dt) @ w, dt) + b, dt)

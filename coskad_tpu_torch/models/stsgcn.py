@@ -93,7 +93,10 @@ class Dense(nn.Module):
     """y = x @ kernel + bias, kernel [fan_in, features] (flax layout).
     Init as torch's nn.Linear: U(+-1/sqrt(fan_in)) for kernel and bias.
     At a bf16 `dtype`, flax's `nn.Dense(dtype=bfloat16)`: the product of the
-    rounded x and kernel rounded, then the rounded bias added and rounded."""
+    rounded x and kernel rounded, then the rounded bias added and rounded.
+    Split over a model axis (`split`, set by `mesh.shard_model`) the kernel
+    is this rank's block of rows: this rank's columns of x times it, summed
+    over the model group, then the bias once."""
 
     def __init__(self, fan_in: int, features: int, use_bias: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -101,6 +104,7 @@ class Dense(nn.Module):
         self.kernel = nn.Parameter(torch.empty(fan_in, features))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
         self.dtype = dtype
+        self.split: Optional[mesh.Layout] = None
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -111,7 +115,11 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        y = rounded(rounded(x, dt) @ rounded(self.kernel, dt), dt)
+        if self.split is None:
+            y = rounded(rounded(x, dt) @ rounded(self.kernel, dt), dt)
+        else:
+            part = rounded(mesh.model_slice(x, self.split), dt) @ rounded(self.kernel, dt)
+            y = rounded(mesh.model_sum(part, self.split), dt)
         return y if self.bias is None else rounded(y + rounded(self.bias, dt), dt)
 
 

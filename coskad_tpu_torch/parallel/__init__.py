@@ -1,5 +1,5 @@
-from .mesh import (Layout, create_mesh, eval_chunks, initialize_distributed, layout,
-                   sharded, train_batch)
+from .mesh import (Layout, create_mesh, eval_chunks, initialize_distributed, layout, mesh_shape,
+                   shard_model, sharded, train_batch)
 
 __all__ = ["Layout", "create_mesh", "eval_chunks", "initialize_distributed", "layout",
-           "sharded", "train_batch"]
+           "mesh_shape", "shard_model", "sharded", "train_batch"]

@@ -30,19 +30,29 @@ Trainer enters `sharded(layout)` around a sharded pass; outside it (and at
 world size 1, as JAX at `n_data == 1`) no collective runs, and the
 one-process path keeps its bits.
 
-Model parallelism (the projector sharded over a model group,
-`coskad_tpu/parallel/mesh.py:58-71`) is not ported: ROADMAP.md, Queue 1
-item 5b.
+With `run.model_parallel` M > 1 the group is a (data, model) mesh, as
+JAX's `create_mesh`: rank r sits at data index r // M and model index
+r % M. The data axis is everything above, run over the data group (the
+ranks of one model index); the M ranks of one data block take the same
+rows and the same draws, so they hold the same loss and the same
+replicated weights. The projector's wide kernels are split over the model
+group (`split_dim`, JAX's `_param_spec`): each rank holds its block of
+rows of the linear projector's and the MLP head's kernels and of columns
+of the reverse projector's, and `shard_model` cuts them. The sharded
+layers run as tensor parallelism (`model_slice`, `model_sum`,
+`model_copy`, `model_gather`, whose backward passes are written for ranks
+that share one loss); a gradient is averaged over the data group alone.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 import datetime
 import os
-from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -52,6 +62,8 @@ INIT_TIMEOUT = datetime.timedelta(minutes=10)
 
 # the rank's CUDA device index, set by initialize_distributed
 _LOCAL_DEVICE: Optional[int] = None
+# model_parallel -> (data groups, model groups) made for the live group
+_GROUPS: dict = {}
 
 
 class CoordinatorBindError(RuntimeError):
@@ -60,29 +72,50 @@ class CoordinatorBindError(RuntimeError):
 
 @dataclass(frozen=True)
 class Layout:
-    """The data-parallel layout of this process: `world` ranks, this one
-    `rank`, its CUDA device index `local_device` (None without CUDA)."""
+    """The layout of this process: `world` ranks, this one `rank`, its
+    CUDA device index `local_device` (None without CUDA), and the mesh's
+    model axis of `model_world` ranks. Rank r is at data index r //
+    model_world and model index r % model_world; `data_group` and
+    `model_group` are its two process groups (None where the axis is the
+    whole world or a single rank)."""
 
     world: int = 1
     rank: int = 0
     local_device: Optional[int] = None
     backend: Optional[str] = None
+    model_world: int = 1
+    data_group: Any = field(default=None, compare=False, repr=False)
+    model_group: Any = field(default=None, compare=False, repr=False)
+
+    @property
+    def data_world(self) -> int:
+        return self.world // self.model_world
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.model_world
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.model_world
 
     def block(self, n: int) -> slice:
-        """This rank's contiguous block of n rows (n a multiple of world)."""
-        if n % self.world:
-            raise ValueError(f"{n} rows do not split into {self.world} equal blocks")
-        per = n // self.world
-        return slice(self.rank * per, (self.rank + 1) * per)
+        """This rank's contiguous block of n rows on the data axis (n a
+        multiple of the data world)."""
+        if n % self.data_world:
+            raise ValueError(f"{n} rows do not split into {self.data_world} equal blocks")
+        per = n // self.data_world
+        return slice(self.data_rank * per, (self.data_rank + 1) * per)
 
     def rows(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
-        """This rank's block of t along `dim`."""
+        """This rank's block of t along `dim` (the data axis)."""
         s = self.block(t.shape[dim])
         return t.narrow(dim, s.start, s.stop - s.start)
 
 
 def layout() -> Layout:
-    """The process's layout: the live process group's, else one rank."""
+    """The process's layout: the live process group's, else one rank (no
+    model axis: `create_mesh` lays one over the group)."""
     if not (dist.is_available() and dist.is_initialized()):
         return Layout()
     return Layout(world=dist.get_world_size(), rank=dist.get_rank(),
@@ -143,20 +176,41 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     return layout()
 
 
-def create_mesh(data_parallel: int = -1, model_parallel: int = 1) -> Layout:
-    """The layout for run.data_parallel / run.model_parallel: the batch is
-    sharded over every rank of the group (data_parallel -1 or the world
-    size). model_parallel > 1 and a data axis other than the world are
-    refused."""
-    lay = layout()
-    if data_parallel not in (-1, lay.world) or model_parallel != 1:
+def mesh_shape(world: int, data_parallel: int = -1, model_parallel: int = 1
+               ) -> Tuple[int, int]:
+    """(data, model) for run.data_parallel / run.model_parallel over a
+    group of `world` ranks: model_parallel must divide the world, and the
+    data axis is the rest (data_parallel -1 or world // model_parallel).
+    JAX lays a smaller mesh over the first devices and leaves the others
+    idle; here an idle rank would be a whole process with nothing to do, so
+    data x model must be the world (ROADMAP.md, "Deliberate differences")."""
+    m = model_parallel
+    if m < 1 or world % m or data_parallel not in (-1, world // m):
         raise ValueError(
             f"run.data_parallel {data_parallel}, run.model_parallel {model_parallel}: the port "
-            f"shards the batch over the group's {lay.world} rank(s) (data_parallel -1 or "
-            f"{lay.world}; launch more ranks with --distributed or torchrun); model_parallel > 1, "
-            "the projector sharded over a model group, is not ported yet (ROADMAP.md, Queue 1 "
-            "item 5b)")
-    return lay
+            f"lays a (data, model) mesh over the process group's {world} rank(s), so "
+            "model_parallel must divide the world and data_parallel be -1 or the world / "
+            "model_parallel, every rank on the mesh (launch data x model ranks with "
+            "--distributed or torchrun)")
+    return world // m, m
+
+
+def create_mesh(data_parallel: int = -1, model_parallel: int = 1) -> Layout:
+    """The layout for run.data_parallel / run.model_parallel (`mesh_shape`)
+    over the process group. A model axis makes the data and model groups
+    (`dist.new_group`, every rank the same calls in the same order) once for
+    the group; later calls reuse them."""
+    lay = layout()
+    _, m = mesh_shape(lay.world, data_parallel, model_parallel)
+    if m == 1:
+        return lay
+    if m not in _GROUPS:
+        _GROUPS[m] = ([dist.new_group(list(range(i, lay.world, m))) for i in range(m)],
+                      [dist.new_group(list(range(d * m, (d + 1) * m)))
+                       for d in range(lay.world // m)])
+    data_groups, model_groups = _GROUPS[m]
+    return dataclasses.replace(lay, model_world=m, data_group=data_groups[lay.rank % m],
+                               model_group=model_groups[lay.rank // m])
 
 
 def destroy() -> None:
@@ -165,6 +219,7 @@ def destroy() -> None:
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
     _LOCAL_DEVICE = None
+    _GROUPS.clear()
 
 
 # ------------------------------------------------------------ batch layout
@@ -185,6 +240,9 @@ def eval_chunks(n: int, batch_size: int, world: int) -> Tuple[int, int]:
 
 
 # ------------------------------------------------------------- collectives
+# The data-axis collectives take a `group` (None: the whole world, which is
+# the data axis without a model axis); inside a sharded scope `all_sum` and
+# `gather_rows` take the scope's data group.
 
 
 def _barrier_kwargs() -> dict:
@@ -199,69 +257,212 @@ def barrier() -> None:
         dist.barrier(**_barrier_kwargs())
 
 
-def sum_across(x: torch.Tensor) -> torch.Tensor:
-    """x summed over the ranks (a new tensor; no gradient)."""
+def sum_across(x: torch.Tensor, group=None) -> torch.Tensor:
+    """x summed over the group's ranks (a new tensor; no gradient)."""
     y = x.detach().clone().contiguous()
-    dist.all_reduce(y)
+    dist.all_reduce(y, group=group)
     return y
 
 
-def sum_each(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Each tensor summed over the ranks, by one all_reduce of their
+def sum_each(tensors: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """Each tensor summed over the group's ranks, by one all_reduce of their
     concatenation (one dtype; no gradient)."""
-    flat = sum_across(torch.cat([t.detach().reshape(-1) for t in tensors]))
+    flat = sum_across(torch.cat([t.detach().reshape(-1) for t in tensors]), group)
     return [part.view_as(t) for part, t in zip(flat.split([t.numel() for t in tensors]),
                                                 tensors)]
 
 
-def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """The ranks' x concatenated along dim 0, rank-major (no gradient)."""
+def all_gather_rows(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """The group's ranks' x concatenated along `dim`, in rank order (no
+    gradient)."""
     x = x.detach().contiguous()
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, x)
-    return torch.cat(parts)
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _scope_group():
+    lay = active()
+    return None if lay is None else lay.data_group
 
 
 class _AllSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        return sum_across(x)
+    def forward(ctx, x, group):
+        ctx.group = group
+        return sum_across(x, group)
 
     @staticmethod
     def backward(ctx, g):
-        return sum_across(g)
+        return sum_across(g, ctx.group), None
 
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        ctx.rows = x.shape[0]
-        return all_gather_rows(x)
+    def forward(ctx, x, group):
+        ctx.rows, ctx.group = x.shape[0], group
+        return all_gather_rows(x, group)
 
     @staticmethod
     def backward(ctx, g):
-        rank = dist.get_rank()
-        return sum_across(g)[rank * ctx.rows:(rank + 1) * ctx.rows]
+        rank = dist.get_rank(ctx.group)
+        return sum_across(g, ctx.group)[rank * ctx.rows:(rank + 1) * ctx.rows], None
 
 
 def all_sum(x: torch.Tensor) -> torch.Tensor:
-    """x summed over the ranks; its backward sums the cotangents over the
-    ranks, so each rank's x gets the gradient of every rank's loss."""
-    return _AllSum.apply(x)
+    """x summed over the data axis's ranks; its backward sums the cotangents
+    over them, so each rank's x gets the gradient of every block's loss."""
+    return _AllSum.apply(x, _scope_group())
 
 
 def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """The global batch's rows from each rank's block x (rank-major); its
-    backward sums the cotangents over the ranks and keeps this rank's rows."""
-    return _GatherRows.apply(x)
+    """The global batch's rows from each data rank's block x (rank-major);
+    its backward sums the cotangents over the data ranks and keeps this
+    rank's rows."""
+    return _GatherRows.apply(x, _scope_group())
 
 
-def average_gradients(params: Sequence[torch.nn.Parameter], world: int) -> None:
-    """Every parameter's gradient summed over the ranks and divided by
-    `world`, in place: one flat all_reduce, the same bits on every rank."""
+def average_gradients(params: Sequence[torch.nn.Parameter], world: int, group=None) -> None:
+    """Every parameter's gradient summed over the group's ranks and divided
+    by `world`, in place: one flat all_reduce, the same bits on every rank."""
     grads = [p.grad for p in params if p.grad is not None]
-    for g, total in zip(grads, sum_each(grads) if grads else ()):
+    for g, total in zip(grads, sum_each(grads, group) if grads else ()):
         g.copy_(total.div_(world))
+
+
+# ------------------------------------------------------------ the model axis
+# The M ranks of one data block carry the same loss, so a cotangent that
+# reaches a model-group collective is already the same on each of them:
+# unlike the data axis's, these backward passes never sum a cotangent that
+# every rank holds whole.
+
+
+def split_dim(name: str, ndim: int) -> Optional[int]:
+    """The dim a parameter is split on over the model axis, None where it is
+    replicated: JAX's `_param_spec` (`coskad_tpu/parallel/mesh.py:59-70`)
+    by the parameter's name. Every 2-D kernel under `btlnk` (the linear
+    projector's, the MLP head's `hidden_i` and `out`) splits its input rows
+    (0), `rev_btlnk`'s kernel its output columns (1); biases, BatchNorm,
+    the graph adjacencies and the VAE's heads are replicated."""
+    if ndim != 2 or "btlnk" not in name:
+        return None
+    return 1 if "rev_btlnk" in name else 0
+
+
+def local_block(lay: Optional[Layout], name: str, t: torch.Tensor) -> torch.Tensor:
+    """This rank's block of the whole parameter `t` named `name` on the model
+    axis of `lay` (t itself where it is replicated or there is no axis)."""
+    dim = split_dim(name, t.dim())
+    if lay is None or lay.model_world == 1 or dim is None:
+        return t
+    n = t.shape[dim]
+    if n % lay.model_world:
+        raise ValueError(f"{name}: {n} {'rows' if dim == 0 else 'columns'} do not split "
+                         f"into {lay.model_world} equal blocks over the model axis")
+    per = n // lay.model_world
+    return t.narrow(dim, lay.model_rank * per, per)
+
+
+def whole(lay: Optional[Layout], name: str, t: torch.Tensor) -> torch.Tensor:
+    """The whole parameter from each model rank's block `t` (a collective over
+    the model group where `name` is split; t itself otherwise)."""
+    dim = split_dim(name, t.dim())
+    if lay is None or lay.model_world == 1 or dim is None:
+        return t
+    return all_gather_rows(t, lay.model_group, dim=dim)
+
+
+def shard_model(model: torch.nn.Module, lay: Layout) -> torch.nn.Module:
+    """Cut each split parameter of `model` (whole, the same on every rank) to
+    this rank's block in place, and hand the layout to the layer that owns
+    it (its `split` attribute), which then runs as tensor parallelism."""
+    if lay.model_world == 1:
+        return model
+    for name, p in list(model.named_parameters()):
+        if split_dim(name, p.dim()) is None:
+            continue
+        owner = model.get_submodule(name.rsplit(".", 1)[0])
+        if not hasattr(owner, "split"):
+            raise TypeError(f"{name}: {type(owner).__name__} cannot run split over a model axis")
+        p.data = local_block(lay, name, p.data).clone()
+        owner.split = lay
+    return model
+
+
+def model_layout(model: torch.nn.Module) -> Optional[Layout]:
+    """The model axis `shard_model` laid on `model` (the `split` of its first
+    split layer; the loaders slice by it), None for a whole model."""
+    return next((m.split for m in model.modules() if getattr(m, "split", None) is not None),
+                None)
+
+
+class _ModelSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lay):
+        ctx.lay = lay
+        per = x.shape[-1] // lay.model_world
+        return x.narrow(-1, lay.model_rank * per, per).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_rows(g, ctx.lay.model_group, dim=-1), None
+
+
+class _ModelSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lay):
+        return sum_across(x, lay.model_group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ModelCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lay):
+        ctx.lay = lay
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sum_across(g, ctx.lay.model_group), None
+
+
+class _ModelGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lay):
+        ctx.lay, ctx.cols = lay, x.shape[-1]
+        return all_gather_rows(x, lay.model_group, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-1, ctx.lay.model_rank * ctx.cols, ctx.cols).contiguous(), None
+
+
+def model_slice(x: torch.Tensor, lay: Layout) -> torch.Tensor:
+    """This model rank's block of x's last dim (the input of a row-split
+    product); its backward gathers the blocks' cotangents, so the replicated
+    layers below see the whole gradient."""
+    return _ModelSlice.apply(x, lay)
+
+
+def model_sum(x: torch.Tensor, lay: Layout) -> torch.Tensor:
+    """The model ranks' partial products summed; its backward passes the
+    cotangent through (each rank's partial gets the loss's one gradient)."""
+    return _ModelSum.apply(x, lay)
+
+
+def model_copy(x: torch.Tensor, lay: Layout) -> torch.Tensor:
+    """x as it is, entering a column-split product; its backward sums the
+    model ranks' cotangents (each holds its columns' share)."""
+    return _ModelCopy.apply(x, lay)
+
+
+def model_gather(x: torch.Tensor, lay: Layout) -> torch.Tensor:
+    """The model ranks' column blocks concatenated along the last dim; its
+    backward keeps this rank's columns of the cotangent."""
+    return _ModelGather.apply(x, lay)
 
 
 # ------------------------------------------------------- the sharded scope
@@ -273,9 +474,9 @@ _ACTIVE: contextvars.ContextVar[Optional[Layout]] = contextvars.ContextVar(
 @contextlib.contextmanager
 def sharded(lay: Optional[Layout]):
     """Within this scope a batch is this rank's block of a global batch
-    under `lay`: BatchNorm's statistics, K2's sums and the draws become
-    global. A layout of one rank (or None) enters no scope."""
-    token = _ACTIVE.set(lay if lay is not None and lay.world > 1 else None)
+    under `lay`'s data axis: BatchNorm's statistics, K2's sums and the draws
+    become global. A data axis of one rank (or None) enters no scope."""
+    token = _ACTIVE.set(lay if lay is not None and lay.data_world > 1 else None)
     try:
         yield
     finally:
@@ -295,4 +496,4 @@ def local_draw(draw: Callable[[Tuple[int, ...]], torch.Tensor],
     shape = tuple(shape)
     if lay is None:
         return draw(shape)
-    return lay.rows(draw((shape[0] * lay.world, *shape[1:])))
+    return lay.rows(draw((shape[0] * lay.data_world, *shape[1:])))

@@ -32,9 +32,12 @@ How the port's objects map onto `state`:
 - `mean_vector`: the VAE's scoring anchor, the last epoch's latent mean
   (`require_vae_anchor` refuses a VAE checkpoint without one).
 
-In a process group rank 0 alone writes (the CLIs gate `save` on
-`cli/common.py::is_primary`), and every rank reads on resume: the ranks
-hold the same weights, optimizer state and geometry.
+In a process group every rank calls `save` and rank 0 alone writes, and
+every rank reads on resume: the ranks hold the same weights, optimizer state and geometry. Under a model axis
+(`parallel/mesh.py`) a rank holds blocks of the split kernels and of their
+Adam moments: `state_payload` gathers them whole over the model group, so
+every rank builds the payload together and the file is the one a single
+process writes; a restore gives each rank its blocks.
 
 The Orbax directory flavor of the JAX package (`save_orbax`,
 `restore_orbax`) is refused by design, not left for later: nothing in the
@@ -55,7 +58,8 @@ import torch
 
 from ..config import Config
 from ..data.normalize import RobustScalerState
-from ..interop import load_jax_variables, to_jax_variables
+from ..interop import flatten_tree, load_jax_variables, to_jax_variables
+from ..parallel import mesh
 from . import msgpack
 from .state import TrainState
 
@@ -90,19 +94,20 @@ def _opt_state(trainer, params: dict) -> dict:
     opt = _adam(trainer)
     group = opt.param_groups[0]
     by_name = dict(trainer.model.named_parameters())
-    names = ravel_order(params)
+    whole = flatten_tree(params)
+    lay = mesh.model_layout(trainer.model)
     mu, nu, steps = [], [], set()
-    for name in names:
-        p = by_name[name]
-        st = opt.state.get(p, {})
+    for name in ravel_order(params):
+        st = opt.state.get(by_name[name], {})
         if st:
             steps.add(int(st["step"]))
-            mu.append(st["exp_avg"].detach().cpu().numpy().ravel())
-            nu.append(st["exp_avg_sq"].detach().cpu().numpy().ravel())
+            # a split kernel's moments are gathered whole over the model group
+            for out, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
+                out.append(mesh.whole(lay, name, st[key].detach()).cpu().numpy().ravel())
         else:
             steps.add(0)
-            mu.append(np.zeros(p.numel(), np.float32))
-            nu.append(np.zeros(p.numel(), np.float32))
+            mu.append(np.zeros(whole[name].size, np.float32))
+            nu.append(np.zeros(whole[name].size, np.float32))
     if len(steps) != 1:
         raise ValueError(f"Adam's parameters are at different steps {sorted(steps)}; the "
                          "JAX optimizer keeps one count")
@@ -137,19 +142,22 @@ def _load_opt_state(trainer, opt_state: dict, params: dict) -> None:
     by_name = dict(trainer.model.named_parameters())
     index = {id(p): i for i, p in enumerate(p for g in opt.param_groups for p in g["params"])}
     names = ravel_order(params)  # load_jax_variables checked them against the model
-    total = sum(by_name[n].numel() for n in names)
+    shapes = {k: np.shape(v) for k, v in flatten_tree(params).items()}
+    total = sum(int(np.prod(shapes[n])) for n in names)
     if mu.shape != (total,) or nu.shape != (total,):
         raise ValueError(f"mu/nu hold {mu.shape} values, the model {total}")
+    lay = mesh.model_layout(trainer.model)
     step = int(adam["count"])
     state, offset = {}, 0
     for name in names:
-        p = by_name[name]
-        n = p.numel()
-        state[index[id(p)]] = {
-            "step": torch.tensor(float(step)),
-            "exp_avg": torch.from_numpy(mu[offset:offset + n].reshape(p.shape).copy()),
-            "exp_avg_sq": torch.from_numpy(nu[offset:offset + n].reshape(p.shape).copy()),
-        }
+        n = int(np.prod(shapes[name]))
+
+        def moment(flat):  # this rank's block of a split kernel's moment
+            whole = torch.from_numpy(flat[offset:offset + n].reshape(shapes[name]))
+            return mesh.local_block(lay, name, whole).clone()
+
+        state[index[id(by_name[name])]] = {"step": torch.tensor(float(step)),
+                                           "exp_avg": moment(mu), "exp_avg_sq": moment(nu)}
         offset += n
     sd = opt.state_dict()
     sd["state"] = state if step > 0 else {}
@@ -211,8 +219,11 @@ def save(
     extra: Optional[dict] = None,
 ) -> str:
     """Write `trainer`'s model and optimizer with `state` to `path`, and the
-    config snapshot beside it when `cfg` is given."""
-    return write(path, state_payload(trainer, state), cfg, scaler, extra)
+    config snapshot beside it when `cfg` is given. In a process group every
+    rank calls it (a model axis gathers the payload over the model group)
+    and rank 0 alone writes."""
+    payload = state_payload(trainer, state)
+    return write(path, payload, cfg, scaler, extra) if trainer.layout.rank == 0 else path
 
 
 def write(path: str, state: dict, cfg: Optional[Config] = None,

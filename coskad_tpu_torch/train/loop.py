@@ -55,6 +55,15 @@ ranks and divided by W, and the epoch's accumulators and metrics summed
 chunk (chunks padded to a multiple of W) and gathers the values, so every
 rank runs the same host-side center init, covariance and AUC. At W = 1 no
 collective runs.
+
+With a model axis (run.model_parallel M > 1, a group of D x M ranks) all of
+the above runs over the data axis of D ranks (its group, its rounding) and
+the projector's wide kernels are split over the model axis
+(`mesh.shard_model`): the M ranks of a data block take the same rows, draw
+the same draws and run the same replicated layers, the split ones as tensor
+parallelism. The fused K2-K4 path needs the projector whole, so it is off,
+as in JAX ('on' raises, 'auto' takes the module path); scoring on the card
+runs K1 for the hidden state and then the split projector.
 """
 
 from __future__ import annotations
@@ -136,16 +145,18 @@ class Trainer:
         device: Union[str, torch.device] = "cuda",
         logger: Optional[MetricLogger] = None,
     ):
-        # the data axis is the process group (one rank without one); a model
-        # axis is refused (ROADMAP.md, Queue 1 item 5b)
+        # the (data, model) mesh over the process group (one rank without one)
         self.layout = pmesh.create_mesh(cfg.run.data_parallel, cfg.run.model_parallel)
-        # the layout a sharded pass runs under; None at one rank (no collective)
-        self._shard = self.layout if self.layout.world > 1 else None
+        # the layout a sharded pass runs under; None at one data rank (no
+        # data-axis collective)
+        self._shard = self.layout if self.layout.data_world > 1 else None
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(**model_kwargs_from_config(cfg))
         self.model.reset_parameters(torch.Generator().manual_seed(cfg.run.seed))
-        self.model = self.model.to(self.device).eval()
+        # every rank draws the whole model, then keeps its blocks of the split
+        # kernels (a model axis of one keeps them whole)
+        self.model = pmesh.shard_model(self.model.to(self.device).eval(), self.layout)
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=cfg.opt.lr, eps=1e-8)
         self.logger = logger or MetricLogger()
         self._lr = cfg.opt.lr
@@ -156,19 +167,21 @@ class Trainer:
         self._best_auc = -np.inf
         self._since_best = 0
         # The fused ghost-BN kernels need the sts_gcn encoder, the linear
-        # projector, no dropout and an encoder-only variant (as JAX's); 'auto'
-        # falls back to the module path otherwise, 'on' refuses.
+        # projector, no dropout, an encoder-only variant and the projector
+        # whole on the rank (as JAX's); 'auto' falls back to the module path
+        # otherwise, 'on' refuses.
         self._fused_compat = (
             cfg.run.fused_train != "off"
             and cfg.model.encoder_type == "sts_gcn"
             and cfg.model.projector == "linear"
             and cfg.model.dropout == 0
             and not cfg.model.use_decoder
+            and self.layout.model_world == 1
         )
         if cfg.run.fused_train == "on" and not self._fused_compat:
             raise ValueError(
                 "fused_train='on' requires sts_gcn encoder, linear projector, "
-                "dropout 0 and an encoder-only variant")
+                "dropout 0, an encoder-only variant and model_parallel 1")
         self.train_ds = train_ds
         self.val_ds = val_ds
         self.ground_truths = ground_truths or {}
@@ -291,8 +304,9 @@ class Trainer:
             z = out[2][0]
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        if shard is not None:  # the global batch's gradient: the ranks' sum / W
-            pmesh.average_gradients(list(self.model.parameters()), shard.world)
+        if shard is not None:  # the global batch's gradient: the data ranks' sum / D
+            pmesh.average_gradients(list(self.model.parameters()), shard.data_world,
+                                    shard.data_group)
         self.optimizer.step()
         acc = objectives.accumulate_stats(
             (state.acc_vec, state.acc_weight, state.acc_outer), cfg.model.variant,
@@ -312,7 +326,7 @@ class Trainer:
         cfg = self.cfg
         shard = self._shard
         if draws is None:
-            shape = batch.shape if shard is None else (batch.shape[0] * shard.world,
+            shape = batch.shape if shard is None else (batch.shape[0] * shard.data_world,
                                                        *batch.shape[1:])
             draws = augment_device.draw_strong_augment(
                 self._generator(step, CONTRASTIVE_TAG), shape, batch.device)
@@ -347,11 +361,13 @@ class Trainer:
             steps.append(metrics)
         metrics = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
         if shard is not None:
-            acc = pmesh.sum_each([state.acc_vec, state.acc_weight, state.acc_outer])
+            acc = pmesh.sum_each([state.acc_vec, state.acc_weight, state.acc_outer],
+                                 shard.data_group)
             state = state.replace(acc_vec=start[0] + acc[0], acc_weight=start[1] + acc[1],
                                   acc_outer=start[2] + acc[2])
             keys = sorted(metrics)
-            mean = pmesh.sum_across(torch.stack([metrics[k] for k in keys])) / shard.world
+            mean = pmesh.sum_across(torch.stack([metrics[k] for k in keys]),
+                                    shard.data_group) / shard.data_world
             metrics = dict(zip(keys, mean.unbind(0)))
         return state, metrics
 
@@ -397,7 +413,7 @@ class Trainer:
         chunk is rounded up to a multiple of the world (`mesh.eval_chunks`)."""
         if n < 1:
             raise ValueError("nothing to score: the dataset has no windows")
-        bs, k = pmesh.eval_chunks(n, self.batch_size, self.layout.world)
+        bs, k = pmesh.eval_chunks(n, self.batch_size, self.layout.data_world)
         idx = torch.remainder(torch.arange(k * bs, device=self.device), n)
         return idx.reshape(k, bs), k
 
@@ -444,8 +460,8 @@ class Trainer:
         values (one gather); the values themselves at one rank."""
         if self._shard is None:
             return local
-        world = self._shard.world
-        full = pmesh.all_gather_rows(local)  # [world * k * block], rank-major
+        world = self._shard.data_world
+        full = pmesh.all_gather_rows(local, self._shard.data_group)  # [world * k * block]
         return full.reshape(world, k, -1, *local.shape[1:]).transpose(0, 1).reshape(
             -1, *local.shape[1:])
 
@@ -537,7 +553,7 @@ class Trainer:
         if state is None:
             state = self.initialize_center(self.init_state())
         n = len(self.train_ds)
-        bs = pmesh.train_batch(n, self.batch_size, self.layout.world)
+        bs = pmesh.train_batch(n, self.batch_size, self.layout.data_world)
         steps_per_epoch = max(n // bs, 1)
         history = {"validation_auc": [], "loss": []}
         schedule = (schedulers.build_schedule(cfg.opt.lr_schedule, cfg.opt.lr, cfg.opt.epochs,

@@ -27,6 +27,7 @@ from ..config import Config
 from ..geometry import euclidean as euc
 from ..geometry import poincare as hyp
 from ..geometry.sphere import PowerSpherical, normal_kl_standard
+from ..parallel import mesh
 
 EUCLIDEAN = ("euclidean_static", "euclidean_dynamic")
 ENCODER_ONLY = EUCLIDEAN + ("hyperbolic",)
@@ -35,8 +36,17 @@ ENCODER_ONLY = EUCLIDEAN + ("hyperbolic",)
 def reg_loss(model: nn.Module) -> torch.Tensor:
     """Mean over the non-`bias` parameter tensors of 0.5 * ||W||^2 (the
     reference's `'bias' not in name`). BatchNorm's running statistics are
-    buffers, not parameters, so they are not among them."""
-    vals = [0.5 * torch.sum(p * p) for name, p in model.named_parameters()
+    buffers, not parameters, so they are not among them. A kernel split over
+    a model axis sums its blocks' squares over the model group."""
+    lay = mesh.model_layout(model)
+
+    def squares(name, p):
+        s = torch.sum(p * p)
+        if lay is None or mesh.split_dim(name, p.dim()) is None:
+            return s
+        return mesh.model_sum(s, lay)
+
+    vals = [0.5 * squares(name, p) for name, p in model.named_parameters()
             if name.rsplit(".", 1)[-1] != "bias"]
     return sum(vals) / len(vals)
 

@@ -125,3 +125,30 @@ def test_default_cuda_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         AnomalyScorer(cfg, None)
     assert Trainer(cfg, ds, device="cpu").device.type == "cpu"
+
+
+def test_the_tooling_and_chip_smoke_import_without_matplotlib_or_cv2():
+    """The card's machine has neither: the visualize package, the eval CLI,
+    the profiling harness, the Möbius layers and chip_smoke.py import with
+    both blocked, pull in no forbidden package, and are in the scan."""
+    code = (
+        "import sys\n"
+        "sys.modules['matplotlib'] = None\n"
+        "sys.modules['cv2'] = None\n"
+        "import coskad_tpu_torch.visualize, coskad_tpu_torch.visualize.app\n"
+        "import coskad_tpu_torch.visualize.plots, coskad_tpu_torch.visualize.clips\n"
+        "import coskad_tpu_torch.cli.eval, coskad_tpu_torch.utils.profiling\n"
+        "import coskad_tpu_torch.geometry.hyperbolic_nn, coskad_tpu_torch.data.trajectories\n"
+        "import chip_smoke\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN_TOP!r})\n"
+        "print(','.join(bad))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"imported {out.stdout.strip()}"
+    scanned = {os.path.relpath(p, ROOT) for p in _python_sources()}
+    for path in (("visualize", "plots.py"), ("visualize", "clips.py"), ("visualize", "app.py"),
+                 ("utils", "profiling.py"), ("geometry", "hyperbolic_nn.py")):
+        assert os.path.join("coskad_tpu_torch", *path) in scanned

@@ -1,9 +1,10 @@
-"""The parallel run settings are acted on or refused, never ignored:
-`run.data_parallel` (the JAX package's data axis) must be -1 or the process
-group's world size (one without a group), and `run.model_parallel` > 1 (the
-projector sharded over a model axis, `coskad_tpu/parallel/mesh.py`) is
-refused until ROADMAP.md, Queue 1 item 5b. The defaults, and every shipped
-config, still build a Trainer."""
+"""The parallel run settings are acted on or refused, never ignored: the
+(data, model) mesh must cover the process group (one rank without one):
+`run.model_parallel` must divide the world and `run.data_parallel` be -1 or
+the world / model_parallel, so in one process a data axis of 2 or 4 and
+any model axis are refused (the mesh would need more ranks than one), as is
+a mesh that leaves ranks idle (`parallel/mesh.py::mesh_shape`). The
+defaults, and every shipped config, still build a Trainer."""
 
 import dataclasses
 import glob
@@ -15,6 +16,7 @@ import torch
 
 from coskad_tpu_torch import config as tconfig
 from coskad_tpu_torch.data.windows import SegmentDataset
+from coskad_tpu_torch.parallel import mesh
 from coskad_tpu_torch.train.loop import Trainer
 
 torch.set_num_threads(1)
@@ -43,10 +45,23 @@ def _small(**run):
                          ids=["data_parallel4", "data_parallel2", "model_parallel2", "both2"])
 def test_parallel_settings_are_refused(run):
     """One process is a world of one: a data axis of 2 or 4 is refused, as
-    is any model axis, and the message names the model-parallel item."""
+    is any model axis, and the message names the settings and the world."""
     cfg = _small(**run)
-    with pytest.raises(ValueError, match=r"group's 1 rank\(s\).*Queue 1 item 5b"):
+    with pytest.raises(ValueError, match=r"run\.data_parallel .*run\.model_parallel .*"
+                                         r"group's 1 rank\(s\).*model_parallel must divide"):
         Trainer(cfg, _dataset(cfg), device="cpu")
+
+
+@pytest.mark.parametrize("world,data,model", [(4, -1, 3), (6, -1, 4), (6, 2, 2), (8, 2, 2),
+                                              (4, 4, 2)],
+                         ids=["model_does_not_divide", "model_does_not_divide6",
+                              "idle_ranks", "idle_ranks8", "data_times_model_past_world"])
+def test_a_mesh_off_the_world_is_refused(world, data, model):
+    """model_parallel must divide the world, and data x model must be the
+    world: JAX would leave the devices past it idle, an idle rank here would
+    be a process with nothing to do."""
+    with pytest.raises(ValueError, match=rf"group's {world} rank\(s\)"):
+        mesh.mesh_shape(world, data, model)
 
 
 @pytest.mark.parametrize("run", [dict(), dict(data_parallel=-1), dict(data_parallel=1),
