@@ -37,6 +37,7 @@ from ..score.masks import AVENUE_MASKED_CLIPS, hr_ubnormal
 from ..score.window_losses import mode_from_rec_weight, mode_scores
 from ..train import checkpoint
 from ..train.loop import Trainer
+from ..utils.profiling import span
 from .common import (add_distributed_flag, distributed_barrier, init_distributed, is_primary,
                      load_config, load_ground_truths, load_split)
 
@@ -72,65 +73,65 @@ def main(argv=None) -> EvalRun:
     init_distributed(args.distributed, args.device)
 
     t0 = time.perf_counter()
-    marks = {"start": t0}
-    cfg = load_config(args.config)
-    # precedence: --ckpt > the config's load_ckpt > best.ckpt > last.ckpt
-    ckpt_path = args.ckpt or os.path.join(cfg.ckpt_dir, cfg.eval.load_ckpt or "best.ckpt")
-    if not os.path.exists(ckpt_path):
-        alt = os.path.join(cfg.ckpt_dir, "last.ckpt")
-        if not os.path.exists(alt):
-            raise FileNotFoundError(f"no checkpoint at {ckpt_path}")
-        ckpt_path = alt
+    with span("cli.ingest") as ingest:  # JSON parse, windowing, normalization
+        cfg = load_config(args.config)
+        # precedence: --ckpt > the config's load_ckpt > best.ckpt > last.ckpt
+        ckpt_path = args.ckpt or os.path.join(cfg.ckpt_dir, cfg.eval.load_ckpt or "best.ckpt")
+        if not os.path.exists(ckpt_path):
+            alt = os.path.join(cfg.ckpt_dir, "last.ckpt")
+            if not os.path.exists(alt):
+                raise FileNotFoundError(f"no checkpoint at {ckpt_path}")
+            ckpt_path = alt
 
-    # The test split is normalized with the training scaler, which the
-    # checkpoint carries: read the file once, before the Trainer exists.
-    payload = checkpoint.read_payload(ckpt_path)
-    test_ds = load_split(cfg, "test", stride=1, scaler=checkpoint.scaler_of(payload),
-                         device=args.device)
-    gts = load_ground_truths(cfg.data.gt_dir)
-    print(f"[coskad] test windows: {test_ds.num_windows}, clips: {len(gts)}")
-    marks["ingest"] = time.perf_counter()  # JSON parse, windowing, normalization
+        # The test split is normalized with the training scaler, which the
+        # checkpoint carries: read the file once, before the Trainer exists.
+        payload = checkpoint.read_payload(ckpt_path)
+        test_ds = load_split(cfg, "test", stride=1, scaler=checkpoint.scaler_of(payload),
+                             device=args.device)
+        gts = load_ground_truths(cfg.data.gt_dir)
+        print(f"[coskad] test windows: {test_ds.num_windows}, clips: {len(gts)}")
 
-    trainer = Trainer(cfg, test_ds, device=args.device)
-    state, _, extra = checkpoint.restore(ckpt_path, trainer, payload=payload)
-    print(f"[coskad] restored {ckpt_path} {extra}")
-    checkpoint.require_vae_anchor(cfg, state, ckpt_path)
-    marks["upload"] = time.perf_counter()  # device upload + restore
+    with span("cli.upload") as upload:  # device upload + restore
+        trainer = Trainer(cfg, test_ds, device=args.device)
+        state, _, extra = checkpoint.restore(ckpt_path, trainer, payload=payload)
+        print(f"[coskad] restored {ckpt_path} {extra}")
+        checkpoint.require_vae_anchor(cfg, state, ckpt_path)
 
-    scores, rec = trainer.score_all(state, test_ds, trainer.train_data)
-    if cfg.model.variant == "autoencoder" and args.rec_weight != 0:
-        print(f"[coskad] autoencoder scoring mode: {mode_from_rec_weight(args.rec_weight)}")
-        scores = mode_scores(scores, rec, args.rec_weight)
-    marks["scoring"] = time.perf_counter()  # gather, eval forward, distance, fetch
-    k = max(cfg.data.num_transform, 1)
-    hr_masks = hr_ubnormal(cfg.eval.hr_masks_glob) if (
-        cfg.eval.use_hr and cfg.eval.hr_masks_glob) else {}
-    avenue = AVENUE_MASKED_CLIPS if cfg.data.dataset_choice == "HR-Avenue" else {}
-    primary = is_primary()
-    # Metadata is identical across transforms (scores are transform-major).
-    result = evaluate_windows(
-        scores, None, test_ds.meta, test_ds.frame_ids, gts,
-        ScoringConfig(num_transform=k, pad_size=cfg.eval.pad_size),
-        hr_clip_masks=hr_masks, avenue_clip_masks=avenue,
-        save_scores_dir=args.save_scores if primary else None,
-    )
-    # Per-clip AUC inside every transform with a running average, then the
-    # transform's AUC, as the reference prints them.
-    clip_keys = sorted({(s, c) for (_, s, c) in result.per_clip_auc_all})
-    for t in range(k) if primary else ():
-        aucs = []
-        for idx, (scene, clip) in enumerate(clip_keys):
-            auc = result.per_clip_auc_all.get((t, scene, clip), float("nan"))
-            aucs.append(auc)
-            print(f"transf: {t + 1}/{k}, clip: ({scene}, {clip}) {idx + 1}/{len(clip_keys)}, "
-                  f"score: {auc} average_score: {np.nanmean(np.asarray(aucs, float))}")
-        print(f"\nTest set score for transformation {t + 1}\n")
-        print(f"auc = {result.per_transform_auc[t]}")
-    if args.save_roc and primary:
-        save_roc(args.save_roc, result)
-    marks["aggregate"] = time.perf_counter()  # host aggregation, AUC, prints
-    keys = ["ingest", "upload", "scoring", "aggregate"]
-    wall = {key: marks[key] - marks[prev] for key, prev in zip(keys, ["start"] + keys[:-1])}
+    with span("cli.scoring") as scoring:  # gather, eval forward, distance, fetch
+        scores, rec = trainer.score_all(state, test_ds, trainer.train_data)
+        if cfg.model.variant == "autoencoder" and args.rec_weight != 0:
+            print(f"[coskad] autoencoder scoring mode: {mode_from_rec_weight(args.rec_weight)}")
+            scores = mode_scores(scores, rec, args.rec_weight)
+
+    with span("cli.aggregate") as aggregate:  # host aggregation, AUC, prints
+        k = max(cfg.data.num_transform, 1)
+        hr_masks = hr_ubnormal(cfg.eval.hr_masks_glob) if (
+            cfg.eval.use_hr and cfg.eval.hr_masks_glob) else {}
+        avenue = AVENUE_MASKED_CLIPS if cfg.data.dataset_choice == "HR-Avenue" else {}
+        primary = is_primary()
+        # Metadata is identical across transforms (scores are transform-major).
+        result = evaluate_windows(
+            scores, None, test_ds.meta, test_ds.frame_ids, gts,
+            ScoringConfig(num_transform=k, pad_size=cfg.eval.pad_size),
+            hr_clip_masks=hr_masks, avenue_clip_masks=avenue,
+            save_scores_dir=args.save_scores if primary else None,
+        )
+        # Per-clip AUC inside every transform with a running average, then the
+        # transform's AUC, as the reference prints them.
+        clip_keys = sorted({(s, c) for (_, s, c) in result.per_clip_auc_all})
+        for t in range(k) if primary else ():
+            aucs = []
+            for idx, (scene, clip) in enumerate(clip_keys):
+                auc = result.per_clip_auc_all.get((t, scene, clip), float("nan"))
+                aucs.append(auc)
+                print(f"transf: {t + 1}/{k}, clip: ({scene}, {clip}) {idx + 1}/{len(clip_keys)}, "
+                      f"score: {auc} average_score: {np.nanmean(np.asarray(aucs, float))}")
+            print(f"\nTest set score for transformation {t + 1}\n")
+            print(f"auc = {result.per_transform_auc[t]}")
+        if args.save_roc and primary:
+            save_roc(args.save_roc, result)
+    wall = {key: phase.seconds for key, phase in (
+        ("ingest", ingest), ("upload", upload), ("scoring", scoring), ("aggregate", aggregate))}
     print("[coskad] eval wall breakdown: "
           + " ".join(f"{key}={v:.2f}s" for key, v in wall.items())
           + f" total={time.perf_counter() - t0:.2f}s")

@@ -17,7 +17,9 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, List, Tuple
+from typing import Callable, Dict, Iterable, List, Tuple
+
+from ..utils.profiling import span
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -79,29 +81,32 @@ def _start(name: str):
 def build_all(names: Iterable[str] = KERNELS) -> List[str]:
     """Compile every named kernel (all nvcc processes run at once) and
     return the library paths. Raises with nvcc's output if one fails."""
-    started = [(name, *_start(name)) for name in names]
-    failures = []
-    for name, lib, proc, tmp in started:
-        if proc is None:
-            continue
-        log = proc.communicate()[0].decode(errors="replace")
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed for {name}.cu:\n{log}")
-            continue
-        os.replace(tmp, lib)  # atomic: concurrent builders never see a partial file
-        with open(lib + ".log", "w") as f:
-            f.write(log)
-    if failures:
-        raise RuntimeError("\n".join(failures))
-    return [lib for _, lib, _, _ in started]
+    with span("kernels.build"):
+        started = [(name, *_start(name)) for name in names]
+        failures = []
+        for name, lib, proc, tmp in started:
+            if proc is None:
+                continue
+            log = proc.communicate()[0].decode(errors="replace")
+            if proc.returncode != 0:
+                failures.append(f"nvcc failed for {name}.cu:\n{log}")
+                continue
+            os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
+            with open(lib + ".log", "w") as f:
+                f.write(log)
+        if failures:
+            raise RuntimeError("\n".join(failures))
+        return [lib for _, lib, _, _ in started]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for kernel `name`, building it first if needed."""
+def load(name: str, bind: Callable[[ctypes.CDLL], ctypes.CDLL]) -> ctypes.CDLL:
+    """The loaded library for kernel `name`, building it first if needed;
+    `bind` sets its entries' types once, when it is loaded."""
     with _lock:
         if name not in _loaded:
-            (lib,) = build_all([name])
-            _loaded[name] = ctypes.CDLL(lib)
+            with span("kernels.load"):
+                (lib,) = build_all([name])
+                _loaded[name] = bind(ctypes.CDLL(lib))
         return _loaded[name]
 
 

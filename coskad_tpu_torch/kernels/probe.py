@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .stse_fused import LaunchCounter
+from ..utils.profiling import LaunchCounter
 
 SOURCE = "coskad_tpu_torch/kernels/csrc/probe_bf16.cu"
 SHAPE = (32, 64, 256)  # (C, BB, N) of the probe
@@ -126,8 +126,7 @@ def bind(lib):
 def _library():
     from . import build
 
-    lib = build.load("probe_bf16")
-    return lib if hasattr(lib, "workspace_floats") else bind(lib)
+    return build.load("probe_bf16", bind)
 
 
 def _launch(lib, job: str, a, b, out) -> int:

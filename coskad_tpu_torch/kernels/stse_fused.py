@@ -40,18 +40,12 @@ from typing import List, Mapping, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import LaunchCounter
+
 SOURCE = "coskad_tpu_torch/kernels/csrc/stse_fused.cu"
 REPLACES = "coskad_tpu/kernels/stse_fused.py:125"
 _LAYOUT_COLS = 8  # ci, co, identity, off_m, off_w, off_wr, off_b, off_alpha
 _OCCUPANCY = ("windows_per_block", "smem_bytes", "blocks_per_sm")
-
-
-class LaunchCounter:
-    """Counts kernel launches, so a run can show its path went through the
-    kernel. Only a wrapper's CUDA branch adds to it."""
-
-    def __init__(self):
-        self.value = 0
 
 
 launches = LaunchCounter()
@@ -274,11 +268,7 @@ def bind(lib):
 def _library():
     from . import build
 
-    lib = build.load("stse_fused")
-    if not getattr(lib, "_coskad_typed", False):
-        bind(lib)
-        lib._coskad_typed = True
-    return lib
+    return build.load("stse_fused", bind)
 
 
 def takes(packed: PackedSTSE, lib=None) -> bool:

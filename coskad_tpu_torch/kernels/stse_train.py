@@ -66,7 +66,8 @@ import numpy as np
 import torch
 
 from ..parallel import mesh
-from .stse_fused import LaunchCounter, combined_graph_matrix
+from ..utils.profiling import LaunchCounter
+from .stse_fused import combined_graph_matrix
 
 SOURCE = "coskad_tpu_torch/kernels/csrc/stse_train.cu"
 REPLACES = {
@@ -512,18 +513,20 @@ def products(ops: EncoderOps, batch: int) -> List[dict]:
 # --------------------------------------------------------------------------
 
 
+def _bind(lib):
+    """Set the argument and return types of the kernel library's C entries."""
+    for fn in REPLACES:
+        getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.stse_train_error_string.argtypes = [ctypes.c_int]
+    lib.stse_train_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _library():
     from . import build
 
-    lib = build.load("stse_train")
-    if not getattr(lib, "_coskad_typed", False):
-        for fn in REPLACES:
-            getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.stse_train_error_string.argtypes = [ctypes.c_int]
-        lib.stse_train_error_string.restype = ctypes.c_char_p
-        lib._coskad_typed = True
-    return lib
+    return build.load("stse_train", _bind)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> int:

@@ -54,6 +54,7 @@ from torch import nn
 from ..geometry.sphere import PowerSpherical
 from ..kernels import stse_fused
 from ..parallel import mesh
+from ..utils.profiling import span
 from .encoders import make_encoder
 from .stsgcn import Dense, MLPHead, STSGCNStack, _uniform_, rounded
 
@@ -232,7 +233,7 @@ class STSE(nn.Module):
                  if k.startswith(_FOLDED)}
         key = tuple((t.data_ptr(), t._version) for t in state.values())
         if self._fold_cache is None or self._fold_cache[0] != key:
-            with torch.no_grad():
+            with torch.no_grad(), span("k1.fold"):
                 folded = stse_fused.fold_stse_params(
                     {k: t.detach() for k, t in state.items()})
                 self._fold_cache = (key, folded, stse_fused.pack_folded(folded))

@@ -20,6 +20,7 @@ carries.
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional, Union
 
 import numpy as np
@@ -34,8 +35,12 @@ from .score.smoothing import score_process
 from .train import checkpoint
 from .train.loop import Trainer
 from .train.state import TrainState
+from .utils.profiling import span
 
 __all__ = ["AnomalyScorer", "config_from_snapshot"]
+
+# each request's number in the process, the `request` span's label in a trace
+_request_numbers = itertools.count(1)
 
 
 class AnomalyScorer:
@@ -78,18 +83,22 @@ class AnomalyScorer:
     def score_windows(self, windows: np.ndarray) -> np.ndarray:
         """[B, C, T, V] normalized windows -> [B] anomaly scores (higher =
         more anomalous)."""
-        windows = np.ascontiguousarray(windows, np.float32)
-        n = len(windows)
-        if n == 0:
-            return np.zeros(0, np.float32)
-        ds = SegmentDataset(
-            data=windows,
-            meta=np.zeros((n, 4), np.int64),
-            frame_ids=np.zeros((n, self.cfg.data.seg_len), np.int32),
-            num_transform=1,
-        )
-        scores, _ = self.trainer.score_all(self.state, ds, self.trainer._device_data(ds))
-        return scores
+        with span("request", str(next(_request_numbers))):
+            with span("request.prepare"):
+                windows = np.ascontiguousarray(windows, np.float32)
+                n = len(windows)
+                if n == 0:
+                    return np.zeros(0, np.float32)
+                ds = SegmentDataset(
+                    data=windows,
+                    meta=np.zeros((n, 4), np.int64),
+                    frame_ids=np.zeros((n, self.cfg.data.seg_len), np.int32),
+                    num_transform=1,
+                )
+            with span("request.upload"):
+                data = self.trainer._device_data(ds)
+            scores, _ = self.trainer.score_all(self.state, ds, data)
+            return scores
 
     def preprocess_windows(self, raw: np.ndarray) -> np.ndarray:
         """Raw keypoint windows [N, T, V, F] -> model-ready [N, C, T, V]:

@@ -86,6 +86,7 @@ from ..parallel import mesh as pmesh
 from ..score.aggregate import EvalResult, ScoringConfig, evaluate_windows
 from ..score.masks import AVENUE_MASKED_CLIPS
 from ..utils.logging import MetricLogger
+from ..utils.profiling import span
 from . import objectives, schedulers
 from .state import TrainState, clamp_center, init_state
 
@@ -145,66 +146,67 @@ class Trainer:
         device: Union[str, torch.device] = "cuda",
         logger: Optional[MetricLogger] = None,
     ):
-        # the (data, model) mesh over the process group (one rank without one)
-        self.layout = pmesh.create_mesh(cfg.run.data_parallel, cfg.run.model_parallel)
-        # the layout a sharded pass runs under; None at one data rank (no
-        # data-axis collective)
-        self._shard = self.layout if self.layout.data_world > 1 else None
-        self.cfg = cfg
-        self.device = resolve_device(device)
-        self.model = build_model(**model_kwargs_from_config(cfg))
-        self.model.reset_parameters(torch.Generator().manual_seed(cfg.run.seed))
-        # every rank draws the whole model, then keeps its blocks of the split
-        # kernels (a model axis of one keeps them whole)
-        self.model = pmesh.shard_model(self.model.to(self.device).eval(), self.layout)
-        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=cfg.opt.lr, eps=1e-8)
-        self.logger = logger or MetricLogger()
-        self._lr = cfg.opt.lr
-        self._epochs_done = 0
-        # the VAE samples in training and, with eval.vae_sample, in eval
-        self.vae_sample = True
-        # ReduceLROnPlateau analogue; its counters survive per-epoch fit calls.
-        self._best_auc = -np.inf
-        self._since_best = 0
-        # The fused ghost-BN kernels need the sts_gcn encoder, the linear
-        # projector, no dropout, an encoder-only variant and the projector
-        # whole on the rank (as JAX's); 'auto' falls back to the module path
-        # otherwise, 'on' refuses.
-        self._fused_compat = (
-            cfg.run.fused_train != "off"
-            and cfg.model.encoder_type == "sts_gcn"
-            and cfg.model.projector == "linear"
-            and cfg.model.dropout == 0
-            and not cfg.model.use_decoder
-            and self.layout.model_world == 1
-        )
-        if cfg.run.fused_train == "on" and not self._fused_compat:
-            raise ValueError(
-                "fused_train='on' requires sts_gcn encoder, linear projector, "
-                "dropout 0, an encoder-only variant and model_parallel 1")
-        self.train_ds = train_ds
-        self.val_ds = val_ds
-        self.ground_truths = ground_truths or {}
-        self.trans_table = torch.as_tensor(
-            canonical_transforms(max(cfg.data.num_transform, 1)), device=self.device)
-        self.batch_size = cfg.data.batch_size
-        self._pipeline = "store" if isinstance(train_ds, TrajectoryStore) else "windows"
-        if val_ds is not None and (
-                isinstance(val_ds, TrajectoryStore) != (self._pipeline == "store")):
-            raise ValueError("train and validation datasets must use the same pipeline kind")
-        # The transform table has cfg.data.num_transform rows while the index
-        # stream spans len(ds) = N * ds.num_transform: refuse a mismatch
-        # rather than gather a wrong matrix. num_transform=1 (raw serving
-        # windows) stays valid: every transform index is 0, the identity.
-        for name, ds in (("train", train_ds), ("validation", val_ds)):
-            k = getattr(ds, "num_transform", None)
-            if ds is not None and k not in (None, 1, cfg.data.num_transform):
+        with span("trainer.init"):
+            # the (data, model) mesh over the process group (one rank without one)
+            self.layout = pmesh.create_mesh(cfg.run.data_parallel, cfg.run.model_parallel)
+            # the layout a sharded pass runs under; None at one data rank (no
+            # data-axis collective)
+            self._shard = self.layout if self.layout.data_world > 1 else None
+            self.cfg = cfg
+            self.device = resolve_device(device)
+            self.model = build_model(**model_kwargs_from_config(cfg))
+            self.model.reset_parameters(torch.Generator().manual_seed(cfg.run.seed))
+            # every rank draws the whole model, then keeps its blocks of the split
+            # kernels (a model axis of one keeps them whole)
+            self.model = pmesh.shard_model(self.model.to(self.device).eval(), self.layout)
+            self.optimizer = torch.optim.Adam(self.model.parameters(), lr=cfg.opt.lr, eps=1e-8)
+            self.logger = logger or MetricLogger()
+            self._lr = cfg.opt.lr
+            self._epochs_done = 0
+            # the VAE samples in training and, with eval.vae_sample, in eval
+            self.vae_sample = True
+            # ReduceLROnPlateau analogue; its counters survive per-epoch fit calls.
+            self._best_auc = -np.inf
+            self._since_best = 0
+            # The fused ghost-BN kernels need the sts_gcn encoder, the linear
+            # projector, no dropout, an encoder-only variant and the projector
+            # whole on the rank (as JAX's); 'auto' falls back to the module path
+            # otherwise, 'on' refuses.
+            self._fused_compat = (
+                cfg.run.fused_train != "off"
+                and cfg.model.encoder_type == "sts_gcn"
+                and cfg.model.projector == "linear"
+                and cfg.model.dropout == 0
+                and not cfg.model.use_decoder
+                and self.layout.model_world == 1
+            )
+            if cfg.run.fused_train == "on" and not self._fused_compat:
                 raise ValueError(
-                    f"{name} dataset carries num_transform={k} but the config "
-                    f"says {cfg.data.num_transform}; rebuild the dataset with "
-                    "the config's transform count")
-        self.train_data = self._device_data(train_ds)
-        self.val_data = self._device_data(val_ds) if val_ds is not None else None
+                    "fused_train='on' requires sts_gcn encoder, linear projector, "
+                    "dropout 0, an encoder-only variant and model_parallel 1")
+            self.train_ds = train_ds
+            self.val_ds = val_ds
+            self.ground_truths = ground_truths or {}
+            self.trans_table = torch.as_tensor(
+                canonical_transforms(max(cfg.data.num_transform, 1)), device=self.device)
+            self.batch_size = cfg.data.batch_size
+            self._pipeline = "store" if isinstance(train_ds, TrajectoryStore) else "windows"
+            if val_ds is not None and (
+                    isinstance(val_ds, TrajectoryStore) != (self._pipeline == "store")):
+                raise ValueError("train and validation datasets must use the same pipeline kind")
+            # The transform table has cfg.data.num_transform rows while the index
+            # stream spans len(ds) = N * ds.num_transform: refuse a mismatch
+            # rather than gather a wrong matrix. num_transform=1 (raw serving
+            # windows) stays valid: every transform index is 0, the identity.
+            for name, ds in (("train", train_ds), ("validation", val_ds)):
+                k = getattr(ds, "num_transform", None)
+                if ds is not None and k not in (None, 1, cfg.data.num_transform):
+                    raise ValueError(
+                        f"{name} dataset carries num_transform={k} but the config "
+                        f"says {cfg.data.num_transform}; rebuild the dataset with "
+                        "the config's transform count")
+            self.train_data = self._device_data(train_ds)
+            self.val_data = self._device_data(val_ds) if val_ds is not None else None
 
     def init_state(self) -> TrainState:
         """A fresh state: step 0, zero center, identity inverse covariance,
@@ -421,8 +423,10 @@ class Trainer:
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Eval-mode latents for one batch of logical indices, and for the
         decoder variants each window's reconstruction MSE (else None)."""
-        batch = self._gather(data, indices, window_shape=window_shape, store=store)
-        out = self._forward(batch, train=False, generator=generator)
+        with span("eval.gather", profiled=False):
+            batch = self._gather(data, indices, window_shape=window_shape, store=store)
+        with span("eval.forward", profiled=False):
+            out = self._forward(batch, train=False, generator=generator)
         z = objectives.latent_of(self.cfg.model.variant, out)
         if not self.cfg.model.use_decoder:
             return z, None
@@ -435,25 +439,29 @@ class Trainer:
         from the state's step. On a rank of a group each rank scores its
         block of every chunk, and one gather of the values (the counterpart
         of JAX's `_fetch_global`) gives every rank all of them."""
-        n = len(ds)
-        idx, k = self._chunked_indices(n)
-        shard = self._shard
-        if shard is not None:
-            idx = shard.rows(idx, dim=1)
-        ws = self._window_shape_of(ds)
-        store = ds if isinstance(ds, TrajectoryStore) else None
-        gen = (self._generator(state.step, 7)
-               if self._samples() and self.cfg.eval.vae_sample else None)
-        vals, recs = [], []
-        with pmesh.sharded(shard):
-            for i in range(k):
-                z, rec = self._embed_step(data, idx[i], ws, generator=gen, store=store)
-                vals.append(fn(z))
-                recs.append(rec)
-        vals = self._global_rows(torch.cat(vals), k)[:n].cpu().numpy()
-        rec = (np.zeros(n, np.float32) if recs[0] is None
-               else self._global_rows(torch.cat(recs), k)[:n].cpu().numpy())
-        return vals, rec
+        with span("eval.pass"):
+            n = len(ds)
+            idx, k = self._chunked_indices(n)
+            shard = self._shard
+            if shard is not None:
+                idx = shard.rows(idx, dim=1)
+            ws = self._window_shape_of(ds)
+            store = ds if isinstance(ds, TrajectoryStore) else None
+            gen = (self._generator(state.step, 7)
+                   if self._samples() and self.cfg.eval.vae_sample else None)
+            vals, recs = [], []
+            with pmesh.sharded(shard):
+                for i in range(k):
+                    with span("eval.batch", profiled=False):
+                        z, rec = self._embed_step(data, idx[i], ws, generator=gen, store=store)
+                        vals.append(fn(z))
+                        recs.append(rec)
+            # the pass's one wait on the device
+            with span("eval.fetch"):
+                vals = self._global_rows(torch.cat(vals), k)[:n].cpu().numpy()
+                rec = (np.zeros(n, np.float32) if recs[0] is None
+                       else self._global_rows(torch.cat(recs), k)[:n].cpu().numpy())
+            return vals, rec
 
     def _global_rows(self, local: torch.Tensor, k: int) -> torch.Tensor:
         """The pass's values in chunk order from each rank's [k * block]

@@ -29,6 +29,7 @@ from coskad_tpu_torch.cli import train as train_cli
 from coskad_tpu_torch.cli.common import load_config, load_split
 from coskad_tpu_torch.serve import AnomalyScorer
 from coskad_tpu_torch.train import checkpoint
+from coskad_tpu_torch.utils import profiling
 from fixtures import make_synthetic_dataset
 
 torch.set_num_threads(1)
@@ -113,11 +114,16 @@ def test_port_eval_of_a_jax_checkpoint_matches_jax_eval(tmp_path):
     cfg_path, ckpt_dir = narrow_dataset(str(tmp_path))
     jtrain_cli.main(["--config", cfg_path, "--epochs", "2"])
     want = jeval_cli.main(["--config", cfg_path])
+    profiling.reset_spans()
     got = eval_cli.main(["--config", cfg_path, "--device", "cpu"])
     assert abs(got.result.auc - want.auc) <= 1e-4
     np.testing.assert_allclose(got.result.per_transform_auc, want.per_transform_auc, atol=1e-4)
     assert sorted(got.result.per_clip_auc) == sorted(want.per_clip_auc)
     assert set(got.wall_s) == {"ingest", "upload", "scoring", "aggregate"}
+    # each phase is the span of its name, once
+    spans = profiling.span_stats()
+    assert {k: (spans[f"cli.{k}"]["count"], spans[f"cli.{k}"]["total_s"])
+            for k in got.wall_s} == {k: (1, pytest.approx(v)) for k, v in got.wall_s.items()}
 
 
 @pytest.mark.parametrize("fused_train", ["off", "on"])
