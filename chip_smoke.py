@@ -18,7 +18,15 @@ Phases, each printing a line before the last:
      with grad mode on raises (K1 has no backward). The route for a layout
      K1's planner refuses (28 frames at 18 joints): the model's own layers
      on the card, no K1 launch, no raise with grad mode on, the CPU module
-     path's latent.
+     path's latent. K1's bf16 form at the HR-STC widths (17 joints, the MLP
+     head, compute dtype bfloat16; B=2048, a ragged 2047 and a block and a
+     window more) against its plain version on the card and the model's
+     module route within the bf16 band, the same bits twice, one
+     `bf16_launches` a call, the latent of STSE.forward against the module
+     route's; timed beside its plain version and the module route's hidden
+     state and forward, in turns, with its bound (bf16 FLOPs at 989 TFLOP/s
+     or bytes at 3.35 TB/s; the `K1 bf16` line). `--only k1` runs just the
+     environment and this phase.
   3. train kernels: K2 (ghost-BN forward), K3 (a lower layer's backward)
      and K4 (the top layer's backward with the projector's) against their
      plain versions on the card: full width at B=2048 ghost 64, B=96 ghost
@@ -95,8 +103,8 @@ Phases, each printing a line before the last:
      context, and the profiler's idle share over one epoch, flagged where
      its K2-K4 kernel time is more than 10% off their CUDA-event times.
   5b. train bf16: the same fit at compute_dtype bfloat16 (bench.py's fused
-     configuration), 2 epochs, counted: K2/K3/K4 97/291/97 an epoch, K1
-     none (the bf16 eval takes the module route); the bf16 kernels with one
+     configuration), 2 epochs, counted: K2/K3/K4 97/291/97 an epoch, K1's
+     bf16 form in the center init and validation; the bf16 kernels with one
      ghost block of the whole batch against the module path at bf16 from the
      same weights (per-step losses within 2^-5); the fp32 and bf16 fused
      steps' time in turns and peak memory (the bf16 peak beside PR 11's,
@@ -148,21 +156,25 @@ Phases, each printing a line before the last:
      phase's test clips and 2 of its 4 training clips (4,352 training
      windows, to keep the whole run's time): the MLP projector at 17
      joints, each file's batch, 5 transforms, validation on. For each, cli.train for 2 epochs, --resume
-     to 3, cli.eval, from_checkpoint, counted: K1-K5 none (the bf16 eval
-     takes the module route; an MLP projector trains on the module path, as
-     in JAX); then a straight 3-epoch run, which the resumed run must equal
-     to the bit (losses, weights, center), and a save / restore round trip.
+     to 3, cli.eval, from_checkpoint, counted: K1's bf16 form as predicted
+     from the windows, K2-K5 none (an MLP projector trains on the module
+     path, as in JAX); then a straight 3-epoch run, which the resumed run
+     must equal to the bit (losses, weights, center), and a save / restore
+     round trip.
      A copy of HR-STC/hyperbolic_encoder.yaml at float32 runs the same
      counted path (K1 as predicted from the windows), and K1 is timed at 204
      nodes on its trained weights; the bf16 file's eval of 2048 windows is
-     timed against it (the module route against K1's). The hyperbolic
+     timed against it (K1's bf16 form and the module route against K1's;
+     the bf16 form's latent within the bf16 band of the module route's).
+     The hyperbolic
      center must stay inside the ball at every epoch. The kernel check
      (phase 2) also holds K1 at 17 joints with the MLP head (B=2048 and a
      ragged 2047) to its plain version.
   7b. variants (the decoder variants): the two files of the autoencoder
      and the spherical VAE, config/UBnormal/{euclidean_autoencoder,
-     spherical_vae}.yaml, with only the paths replaced, so at bfloat16 on
-     the module path (K1-K5 none), over the paper phase's Morais-CSV tree:
+     spherical_vae}.yaml, with only the paths replaced, so at bfloat16
+     (K1's bf16 form as the eval encoder, K2-K5 none), over the paper
+     phase's Morais-CSV tree:
      cli.train for 2 epochs, --resume to 3 (resumed = straight to the bit:
      losses, weights, center, the VAE's anchor), cli.eval (the
      autoencoder's in each --rec-weight mode: 0, 50, 1000), from_checkpoint
@@ -613,6 +625,7 @@ def phase_kernel(card):
     check("no_grad" in raised, "STSE.forward(train=False) with grad mode on did not raise on the "
                                "card")
     refused = refused_route(gen, dev)
+    bf16 = k1_bf16(gen, dev, card)
     with torch.no_grad():
         kernel_ms = cuda_ms(lambda: stse_fused.fused_stse_hidden(x_main, folded, packed))
         plain_ms = cuda_ms(lambda: stse_fused.fused_stse_hidden_reference(x_main, folded))
@@ -640,6 +653,7 @@ def phase_kernel(card):
         batch=2048, flops=flops, bytes=nbytes, cases=cases, per_layer_ms=per_layer_ms,
         layers=layers, occupancy=occupancy, paper_v17=paper_v17, refused_layout_route=refused,
         timing_runs_ms=dict(kernel=[kernel_ms, kernel_ms_2], plain=[plain_ms, plain_ms_2]),
+        bf16=bf16,
     )
     print("kernel check: " + json.dumps(dict(
         name="stse_fused", cases=cases, eval_forward_with_grad_raises=True,
@@ -647,6 +661,84 @@ def phase_kernel(card):
         bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
         bound_fp32_ms=rec["bound_fp32_ms"], paper_v17=paper_v17, card=card)))
     print("K1 layers: " + json.dumps(dict(stack=occupancy, layers=layers, card=card)))
+    return rec
+
+
+def k1_bf16(gen, dev, card) -> dict:
+    """K1's bf16 form at the HR-STC widths (sts_gcn 2->32->16->32->64, 17
+    joints, the MLP head, compute dtype bfloat16) on the card: against its
+    plain version there (the module path's operations and rounding points,
+    summed in cuBLAS's order) and the model's module route, within the bf16
+    band (values on the two sides of a rounding boundary: 2^-5 of the scale,
+    as tests/test_torch_bf16.py) with most values the same bits; launched
+    twice for the same bits; one `bf16_launches` a call; STSE.forward's
+    latent against the module route's. Then, at 2048 windows, in turns: the
+    kernel, its plain version, the module route's hidden state
+    (`STSE.encode`) and STSE.forward on either route (CUDA events over the
+    calls: the module route's host enqueue shows), beside its bound."""
+    import torch
+    from coskad_tpu_torch.kernels import stse_fused
+
+    kw = dict(input_dim=2, layer_channels=(32, 16, 32), hidden_dimension=64, latent_dim=16,
+              n_frames=12, n_joints=17, projector="mlp", dtype=torch.bfloat16)
+    model = seeded_stse(gen, dev, **kw)
+    check(model.kernel_takes(), "K1's bf16 form does not take the HR-STC layout")
+    folded, packed = model.folded()
+    occupancy = stse_fused.occupancy(packed)
+    cases, x_main = [], None
+    for batch in (2048, 2047, occupancy["windows_per_block"] + 1):
+        x = torch.randn(batch, 2, 12, 17, generator=gen).to(dev)
+        with torch.no_grad():
+            before = stse_fused.bf16_launches.value
+            h_k = stse_fused.fused_stse_hidden(x, folded, packed)
+            h_again = stse_fused.fused_stse_hidden(x, folded, packed)
+            launched = stse_fused.bf16_launches.value - before
+            h_r = stse_fused.fused_stse_hidden_bf16_reference(x, folded)
+            z_m, h_m = model.encode(x)
+            h_m = h_m.reshape(h_k.shape)
+            z_k = model(x)
+        torch.cuda.synchronize()
+        band = 2.0 ** -5 * max(float(h_r.abs().max()), 1.0)
+        err_r = float((h_k - h_r).abs().max())
+        err_m = float((h_k - h_m).abs().max())
+        err_z = float((z_k - z_m).abs().max())
+        same = float((h_k == h_m).float().mean())
+        ok = (bool(torch.isfinite(h_k).all()) and err_r <= band and err_m <= band
+              and err_z <= 2.0 ** -5 * max(float(z_m.abs().max()), 1.0) and same > 0.9)
+        cases.append(dict(batch=batch, max_abs_err_plain=err_r, max_abs_err_module=err_m,
+                          max_abs_err_latent=err_z, share_same_bits_module=same,
+                          same_bits_twice=torch_equal(h_k, h_again), bf16_launches=launched,
+                          ok=ok))
+        check(ok, f"K1 bf16 B={batch}: err vs plain {err_r:.3e}, vs module route {err_m:.3e} "
+                  f"(band {band:.3e}), latent {err_z:.3e}, same bits {same:.4f}")
+        check(cases[-1]["same_bits_twice"], f"K1 bf16 B={batch}: two launches, other bits")
+        check(launched == 2, f"K1 bf16 B={batch}: {launched} bf16 launches for 2 calls")
+        if x_main is None:
+            x_main = x
+
+    def module_forward():
+        with module_route(model):
+            return model(x_main)
+
+    calls = dict(kernel=lambda: stse_fused.fused_stse_hidden(x_main, folded, packed),
+                 plain=lambda: stse_fused.fused_stse_hidden_bf16_reference(x_main, folded),
+                 module_hidden=lambda: model.encode(x_main)[1],
+                 forward_k1=lambda: model(x_main), forward_module=module_forward)
+    with torch.inference_mode():
+        runs = {k: [] for k in calls}
+        for _ in range(2):
+            for k, fn in calls.items():
+                runs[k].append(cuda_ms(fn))
+    flops, nbytes = stse_fused.work(folded, 2048)
+    bound_ms, bound_by = bound_of(flops, nbytes, PEAK_BF16_FLOPS)
+    rec = dict(name="stse_fused_bf16", source=stse_fused.SOURCE, batch=2048,
+               nodes=packed.n_nodes, kernel_ms=min(runs["kernel"]),
+               plain_ms=min(runs["plain"]), module_hidden_ms=min(runs["module_hidden"]),
+               forward_k1_ms=min(runs["forward_k1"]),
+               forward_module_ms=min(runs["forward_module"]), bound_ms=bound_ms,
+               bound_by=bound_by, flops=flops, bytes=nbytes, occupancy=occupancy,
+               cases=cases, runs_ms=runs)
+    print("K1 bf16: " + json.dumps(dict(rec, card=card)))
     return rec
 
 
@@ -2189,8 +2281,8 @@ def phase_train_bf16(card):
     """The flagship fused step at compute_dtype bfloat16 (bench.py's fused
     configuration): Trainer.fit for BF16_EPOCHS with fused_train 'on', ghost
     64, batch 2048 over the train phase's windows, with validation (the bf16
-    eval takes the module route: K1 is float32 only). Counted: K2/K3/K4 launch
-    steps/3 steps/steps an epoch, K1 none. Then, not counted: the kernels at
+    eval takes K1's bf16 form). Counted: K2/K3/K4 launch steps/3 steps/steps
+    an epoch, K1 in the center init and validation. Then, not counted: the kernels at
     bf16 with one ghost block of the whole batch (whole-batch BatchNorm)
     against the module path at bf16, fused_train 'off', from the same
     weights over the same batches (per-step losses within BF16_LOSS_BAND);
@@ -2227,10 +2319,12 @@ def phase_train_bf16(card):
     launches = read(counters)
     # --- end of the counted run ---
     steps = len(train_ds) // cfg.data.batch_size
-    want = dict(stse_fused=0, stse_train_forward=steps * BF16_EPOCHS,
+    want = dict(stse_fused=launches["stse_fused"], stse_train_forward=steps * BF16_EPOCHS,
                 stse_train_layer_backward=3 * steps * BF16_EPOCHS,
                 stse_train_top_backward=steps * BF16_EPOCHS, stse_train_mono_backward=0)
-    check(launches == want, f"bf16 fit launches {launches}, expected {want}")
+    check(launches == want and launches["stse_fused"] > 0,
+          f"bf16 fit launches {launches}, expected {want} and K1's bf16 form in the center "
+          "init and validation")
     check(len(log.losses) == steps * BF16_EPOCHS and all(np.isfinite(log.losses)),
           f"bf16 fit: every step logs a finite loss ({len(log.losses)})")
     check(all(0.0 <= a <= 1.0 for a in history["validation_auc"])
@@ -2318,9 +2412,9 @@ def pipeline_fits(store, host, compute_dtype, counters):
     for k, v in want.items():
         check(launches[k] == v, f"pipeline {compute_dtype}: {k} launched {launches[k]} times "
                                 f"through the store, expected {v} ({steps} steps an epoch)")
-    check((launches["stse_fused"] > 0) == (compute_dtype == "float32"),
+    check(launches["stse_fused"] > 0,
           f"pipeline {compute_dtype}: K1 launches {launches['stse_fused']} in the store's center "
-          "init (float32 only: the bf16 eval takes the module route)")
+          "init (K1's bf16 form at bf16)")
     ls, lw = (np.asarray(logs[k].losses) for k in ("store", "windows"))
     check(len(ls) == len(lw) == steps * PIPE_EPOCHS and np.isfinite(ls).all(),
           f"pipeline {compute_dtype}: {len(ls)} store and {len(lw)} windows step losses")
@@ -3005,9 +3099,10 @@ def phase_paper(card):
 
 
 def eval_route_timing(tr, x) -> dict:
-    """A 2048-window eval forward of the trained bf16 model (the module
-    route) against the same weights at float32 (K1, then the head), in
-    turns, CUDA events."""
+    """A 2048-window eval forward of the trained bf16 model on K1's bf16
+    form and on the module route (`module_route`), against the same weights
+    at float32 (K1, then the head), in turns, CUDA events; the bf16 form's
+    latent against the module route's."""
     import dataclasses
 
     import torch
@@ -3018,13 +3113,22 @@ def eval_route_timing(tr, x) -> dict:
                                                              compute_dtype="float32"))
     f32 = build_model(**model_kwargs_from_config(cfg)).to(DEVICE).eval()
     f32.load_state_dict(tr.model.state_dict())
-    check(f32.kernel_takes() and not tr.model.kernel_takes(), "eval routes: float32 K1, bf16 "
-                                                             "the module path")
+    check(f32.kernel_takes() and tr.model.kernel_takes(), "eval routes: float32 K1, bf16 "
+                                                         "K1's bf16 form")
+
+    def module(m=tr.model):
+        with module_route(m):
+            return m(x)
+
     with torch.inference_mode():
-        runs = [cuda_ms(lambda m=m: m(x), iters=10, warmup=2) for _ in range(2)
-                for m in (tr.model, f32)]
-    return dict(batch=x.shape[0], module_route_bf16_ms=min(runs[0::2]),
-                k1_route_f32_ms=min(runs[1::2]), runs_ms=runs)
+        z_k1, z_mod = tr.model(x), module()
+        runs = [cuda_ms(fn, iters=10, warmup=2) for _ in range(2)
+                for fn in (lambda: tr.model(x), module, lambda: f32(x))]
+    err = float((z_k1 - z_mod).abs().max())
+    check(err <= 2.0 ** -5 * max(float(z_mod.abs().max()), 1.0),  # the bf16 band of the tests
+          f"bf16 eval: K1's bf16 form vs the module route max abs err {err:.3e}")
+    return dict(batch=x.shape[0], k1_bf16_ms=min(runs[0::3]), module_route_bf16_ms=min(runs[1::3]),
+                k1_route_f32_ms=min(runs[2::3]), runs_ms=runs, k1_bf16_vs_module_err=err)
 
 
 def paper_run(card, root):
@@ -3098,8 +3202,8 @@ def paper_run(card, root):
     finally:
         Trainer.train_epoch, Trainer.apply_epoch_updates = inner_epoch, inner_updates
 
-    # K1 only in the float32 copy (center init, each validation, eval and
-    # from_checkpoint); the bf16 files' eval takes the module route; K2-K5 never
+    # K1 (center init, each validation, eval and from_checkpoint): the
+    # float32 copy's, the bf16 files' bf16 form; K2-K5 never
     summary = dict(card=card, write_trees_s=write_s, launches=launches, predicted_launches={},
                    configs={})
     for key in runs_of:
@@ -3110,7 +3214,7 @@ def paper_run(card, root):
         batches = lambda n: -(-n // cfg.data.batch_size)  # noqa: E731
         n_train, n_val = len(tr.train_ds), len(tr.val_ds)
         k1 = (batches(n_train) + 3 * batches(n_val) + batches(len(ev.window_scores))
-              + batches(CLI_SERVED)) if key == "float32_copy" else 0
+              + batches(CLI_SERVED))
         want = dict(stse_fused=k1, stse_train_forward=0, stse_train_layer_backward=0,
                     stse_train_top_backward=0, stse_train_mono_backward=0)
         summary["predicted_launches"][key] = want
@@ -3184,9 +3288,9 @@ def paper_run(card, root):
                      f"{c['k1']['bound_ms']:.3f} ms, {c['k1']['bound_by']})")
         if "eval_routes" in c:
             e = c["eval_routes"]
-            extra = (f"; eval of {e['batch']} windows: bf16 module route "
-                     f"{e['module_route_bf16_ms']:.3f} ms, float32 K1 route "
-                     f"{e['k1_route_f32_ms']:.3f} ms")
+            extra = (f"; eval of {e['batch']} windows: bf16 K1 route {e['k1_bf16_ms']:.3f} "
+                     f"ms, bf16 module route {e['module_route_bf16_ms']:.3f} ms, float32 K1 "
+                     f"route {e['k1_route_f32_ms']:.3f} ms")
         print(f"paper {key} ({c['compute_dtype']}, batch {c['batch']}, {c['normalization']}): "
               f"train windows/s by epoch {[round(v) for v in c['train_windows_per_s']]}; scoring "
               f"windows/s {c['scoring_windows_per_s']:.0f}; AUC {c['auc']:.4f}; losses "
@@ -3434,9 +3538,10 @@ def variants_run(card, root):
         batches = lambda n: -(-n // cfg.data.batch_size)  # noqa: E731
         n_train, n_val = len(tr.train_ds), len(tr.val_ds)
         n_test = len(evals["0"].window_scores)
-        # K1: center init, 3 validations, each cli.eval and from_checkpoint (float32)
+        # K1: center init, 3 validations, each cli.eval and from_checkpoint (the
+        # bf16 files on its bf16 form)
         k1 = (batches(n_train) + 3 * batches(n_val) + len(evals) * batches(n_test)
-              + batches(CLI_SERVED)) if f32 else 0
+              + batches(CLI_SERVED))
         want = dict(stse_fused=k1, stse_train_forward=0, stse_train_layer_backward=0,
                     stse_train_top_backward=0, stse_train_mono_backward=0)
         summary["predicted_launches"][key] = want
@@ -3445,7 +3550,7 @@ def variants_run(card, root):
         variant = "autoencoder" if "autoencoder" in key else "vae"
         check(cfg.model.variant == variant and cfg.model.projector == "mlp"
               and cfg.data.n_joints == 17 and cfg.data.batch_size == TRAIN_BATCH
-              and not tr._fused_compat and tr.model.kernel_takes() == f32
+              and not tr._fused_compat and tr.model.kernel_takes()
               and cfg.run.compute_dtype == ("float32" if f32 else "bfloat16"),
               f"{key}: not the shipped {variant} at 17 joints, batch 2048, its compute dtype")
         losses = first.loss + resumed.loss
@@ -3741,7 +3846,7 @@ def encoders_run(card, root):
               and cfg.model.dropout == changes.get("dropout", 0.0)
               and cfg.model.projector == "mlp" and cfg.data.n_joints == 17
               and cfg.data.batch_size == TRAIN_BATCH and not tr._fused_compat
-              and tr.model.kernel_takes() == (sts and f32)
+              and tr.model.kernel_takes() == sts
               and cfg.run.compute_dtype == ("float32" if f32 else "bfloat16"),
               f"{key}: not the HR-STC euclidean file at 17 joints with its encoder and dtype")
         check(len(trained.loss) == ENCODER_EPOCHS and all(np.isfinite(trained.loss)),
@@ -4948,11 +5053,13 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("kernels", "products", "probe", "cli", "paper", "bf16",
+    ap.add_argument("--only", choices=("k1", "kernels", "products", "probe", "cli", "paper",
+                                       "bf16",
                                        "variants", "encoders", "streaming", "export",
                                        "pipeline", "parallel", "model_parallel", "tooling"),
                     default=None,
-                    help="run only the environment and kernel phases, or only the product "
+                    help="run only the environment and K1's phase (k1), or only the "
+                         "environment and kernel phases, or only the product "
                          "check, or only the probe check, or only the cli, the paper, the bf16 (the bf16 kernel check "
                          "and the bf16 fit), the variants, the encoders, the streaming, the "
                          "export, the pipeline, the parallel, the model_parallel or the "
@@ -4961,6 +5068,9 @@ def main(argv=None) -> int:
     card, build_s = phase_environment()
     import torch
 
+    if args.only == "k1":
+        phase_kernel(card)
+        return 0
     if args.only == "products":
         from coskad_tpu_torch.kernels import stse_train as st
 

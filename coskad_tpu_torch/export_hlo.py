@@ -14,11 +14,12 @@ code: this module imports torch, numpy, `kernels.stse_fused` (which
 registers K1's custom op) and `geometry.sphere`, nothing of `models/` or
 `train/`.
 
-The encoder step is K1 (the custom op `coskad_torch::stse_fused_hidden` on
-the packed operand, a buffer) where the library's eval forward takes it:
-the sts_gcn encoder at float32 on the card, in a layout K1's planner takes
-(`STSE.kernel_takes`). Elsewhere it is the module path, with its bf16
-rounding points (meta `encoder_route`: "K1" or "modules"). A K1 artifact
+The encoder step is K1 (the custom op `coskad_torch::stse_fused_hidden`, or
+`coskad_torch::stse_fused_hidden_bf16` at bf16, on the packed operand, a
+buffer) where the library's eval forward takes it: the sts_gcn encoder on
+the card, in a layout the planner of its form takes (`STSE.kernel_takes`).
+Elsewhere it is the module path, with its bf16 rounding points (meta
+`encoder_route`: "K1" or "modules"). A K1 artifact
 moved to the CPU runs the op's CPU implementation, the plain version; a
 module-route artifact written on the CPU runs its modules on the card.
 
@@ -85,6 +86,7 @@ class _ScoringProgram(nn.Module):
         if self.k1:
             _, packed = self.model.folded()
             weights, *self.k1_args = packed.op_args()
+            self.k1_op = packed.op_name
             self.register_buffer("k1_weights", weights.clone())
 
     def _batch(self, windows: torch.Tensor) -> torch.Tensor:
@@ -100,8 +102,8 @@ class _ScoringProgram(nn.Module):
     def _features(self, batch: torch.Tensor) -> torch.Tensor:
         """The projected hidden state on the eval forward's route."""
         if self.k1:
-            h = torch.ops.coskad_torch.stse_fused_hidden(batch.contiguous(), self.k1_weights,
-                                                         *self.k1_args)
+            h = getattr(torch.ops.coskad_torch, self.k1_op)(batch.contiguous(),
+                                                            self.k1_weights, *self.k1_args)
         else:
             h = self.model._module_hidden(batch, False, False)
         return self.model._project(h, False)

@@ -633,6 +633,400 @@ int plan(const long long* layout, int n_layers, int n_nodes, int n_pad, Params& 
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The bf16 form, stse_fused_bf16_kernel: the eval encoder of a model whose
+// compute dtype is bf16 (every shipped config), at the module path's own
+// rounding points (models/stsgcn.py: STSGCNLayer.forward, dense_bn,
+// SpaceTimeGraphConv). Each layer computes
+//
+//     x_r = bf16(x)                          x the layer's input
+//     G   = bf16(M_r^T x_r)                  M_r = bf16(M), rounded at fold time
+//     h   = bf16(bf16(G W) + b)              W, b: BatchNorm folded as dense_bn
+//     res = x_r, or bf16(bf16(x_r W_res) + b_res)
+//     y   = PReLU(bf16(h + res))             float32, the slope float32
+//
+// with b and b_res kept apart. Every product multiplies bf16 values exactly
+// and sums them in float32: one bf16 mma.sync a product (m16n8k16, m16n8k8
+// where a depth leaves 8), where the float32 form takes three (3xTF32). A
+// narrowing layer is not reassociated: M_r^T contracts the C_in channels of
+// x_r, as the modules and JAX do (M^T (x W) would move the rounding points).
+//
+// What bounds it on an H100: at the HR-STC widths (204 nodes, channels
+// 2->32->16->32->64) a window needs ~9.4 MFLOP against 1.6 KB read and 52 KB
+// written (the float32 hidden state the projector reads): bytes, ~180 FLOP
+// per byte under the bf16 ridge of ~295 (989 TFLOP/s over 3.35 TB/s). Short
+// of that, feeding mma.sync from shared memory limits it: the kernel reads
+// two 32-bit B registers for every graph product.
+//
+// Design, beside the float32 form's:
+//   * the activations stay in shared memory as bf16 bits, channel-major
+//     [wb * cs][ldn] (a row is window w's channel c, a column a node; ldn =
+//     rows + 8, 4 mod 8 words), so the graph product's B fragment, a pair
+//     along the node axis, is one 32-bit load on 32 banks. Every value kept
+//     between layers is exactly a bf16 value, as each layer rounds its input;
+//   * M_r^T is packed bf16 [rows][rows]; a warp owns a 16-node output tile
+//     and stages its rows of M_r^T, 16 x 16 a slice, in a ring of its own
+//     (kBfStages slices, one 16-byte cp.async a lane), as the float32 form
+//     stages M; one block walks each layer's M_r^T once for its windows;
+//   * the warp holds G for each of the block's windows in registers. The
+//     m16n8 accumulator's layout is m16n8k16's A fragment (tiles 2j and 2j +
+//     1 give a chunk's four registers), so G rounded by cvt.rn.bf16x2 is the
+//     mix's operand and never goes to shared memory, and the layer needs no
+//     barrier between its product and its mix;
+//   * the mixes read W^T and W_res^T (bf16 [co8][ci16]) and b, b_res from
+//     device memory through the read-only cache; x_r's residual fragment
+//     pairs two channel rows (two 16-bit loads);
+//   * a warp writes only its own nodes of the next layer's input, so a layer
+//     needs one barrier, before it; the last layer writes float32 [B, N,
+//     C_out] for the projector. Padded nodes are written 0, padded channels
+//     come out 0 (zero-padded weights and biases), and a ragged last block
+//     computes on zero windows and writes only its real ones;
+//   * windows a block (4, 2 or 1, bf16_plan_layout): the most that keep a
+//     warp's G within kBfMaxTiles accumulator tiles and the activations and
+//     rings within a block's shared memory;
+//   * no atomics: every sum is taken in a fixed order, so two launches give
+//     the same bits.
+// wgmma is not used: its 64-row tiles would cover four of these 16-node
+// tiles with one warpgroup, leaving the block 13 tiles at 204 nodes as 4
+// warpgroup tiles and its B operand (2-64 channels a window) far below the
+// widths where the asynchronous product pays; mma.sync keeps a warp a tile.
+
+namespace {
+
+constexpr int kBfMaxWarps = 16;
+constexpr int kBfThreads = 32 * kBfMaxWarps;
+constexpr int kBfStages = 4;           // slices of M_r^T a warp has staged or in flight
+constexpr int kBfLds = 24;             // a slice's row stride in bf16: 12 words, 4 mod 8
+constexpr int kBfSlice = 16 * kBfLds;  // bf16 elements a slice: 16 rows x 16 k
+constexpr int kBfMaxTiles = 16;        // windows x channel tiles of a warp's G
+
+typedef unsigned short bf16_raw;  // the bits of a bf16 value
+
+struct BfLayer {
+  int ci, co, identity;
+  long long off_mt, off_wt, off_wrt, off_b, off_alpha;  // float offsets
+};
+
+struct BfParams {
+  BfLayer layers[kMaxLayers];
+  int n_layers;
+  int n_nodes;  // N = T*V
+  int rows;     // N rounded up to 16: M_r^T is [rows][rows]
+  int warps;    // rows / 16 node tiles, at most kBfMaxWarps warps
+  int cs;       // activation rows a window: the widest layer input, rounded up to 8
+  int ldn;      // activation row stride in bf16: rows + 8
+};
+
+// Shared bytes: two activation buffers [wb * cs][ldn], then each warp's ring.
+__host__ __device__ inline long long bf_smem_bytes(const BfParams& p, int wb) {
+  return 2LL * 2 * wb * p.cs * p.ldn + 2LL * p.warps * kBfStages * kBfSlice;
+}
+
+// The least of 1, 2, 4, 8 that is >= v (8 past it).
+__host__ __device__ inline int bf_pow2(int v) { return v <= 1 ? 1 : v <= 2 ? 2 : v <= 4 ? 4 : 8; }
+
+// v rounded to bf16 (to nearest even), as a float, and as its bits; a bf16
+// value from its bits; the pair p[0], p[1] as one fragment register.
+__device__ __forceinline__ float bf16_round(float v) { return __uint_as_float(bf16_bits(v)); }
+__device__ __forceinline__ bf16_raw bf16_of(float v) { return (bf16_raw)(bf16_bits(v) >> 16); }
+__device__ __forceinline__ float bf16_value(bf16_raw h) {
+  return __uint_as_float((uint32_t)h << 16);
+}
+__device__ __forceinline__ uint32_t pair32(const bf16_raw* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// acc[w][j] += the 16 x 8 tile of G = M_r^T X at nodes [m0, m0 + 16) and
+// window w's channels [8 j, 8 j + 8), for j < tiles <= NJ, over every node k
+// < rows: A = M_r^T's rows from the warp's ring, B = X from xs (channel-major,
+// row stride ldn, window w's channel c at row w cs + c). The warp stages
+// M_r^T[m0 .. m0 + 16)[16 s .. 16 s + 16) kBfStages - 1 slices ahead of the
+// one it multiplies.
+template <int WB, int NJ>
+__device__ __forceinline__ void bf_graph_walk(float (&acc)[WB][NJ][4], int m0, int tiles,
+                                              const bf16_raw* __restrict__ mt, int rows,
+                                              const bf16_raw* xs, int ldn, int cs, bf16_raw* ring) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t2 = 2 * (lane & 3);
+  const int steps = rows / 16;
+  // lane copies 16 bytes: slice row lane / 2, columns [8 (lane % 2), + 8)
+  bf16_raw* dst0 = ring + (lane >> 1) * kBfLds + 8 * (lane & 1);
+  const bf16_raw* src0 = mt + (long long)(m0 + (lane >> 1)) * rows + 8 * (lane & 1);
+  auto stage = [&](int step) {
+    if (step < steps) cp_async16(dst0 + (step % kBfStages) * kBfSlice, src0 + 16 * step);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < kBfStages - 1; ++s) stage(s);
+  for (int step = 0; step < steps; ++step) {
+    stage(step + kBfStages - 1);
+    cp_async_wait<kBfStages - 1>();
+    __syncwarp();
+    const bf16_raw* a = ring + (step % kBfStages) * kBfSlice + g * kBfLds + t2;
+    const uint32_t af[4] = {pair32(a), pair32(a + 8 * kBfLds), pair32(a + 8),
+                            pair32(a + 8 * kBfLds + 8)};
+    const bf16_raw* xk = xs + g * ldn + 16 * step + t2;
+#pragma unroll
+    for (int w = 0; w < WB; ++w)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        if (j >= tiles) break;
+        const bf16_raw* b = xk + (w * cs + 8 * j) * ldn;
+        const uint32_t bf[2] = {pair32(b), pair32(b + 8)};
+        mma_bf16_k16(acc[w][j], af, bf);
+      }
+    __syncwarp();  // the slice is read before the ring's next copy overwrites it
+  }
+}
+
+// What a layer's mix works on.
+struct BfPass {
+  const bf16_raw* x;    // the layer's input, x_r [wb * cs][ldn] in shared memory
+  bf16_raw* y;          // the next layer's input, or null in the last layer
+  const bf16_raw* wt;   // W^T [co8][ci16] in device memory
+  const bf16_raw* wrt;  // W_res^T, likewise (not read where identity)
+  const float* b;       // b [co8], then b_res [co8]
+  float* out_w0;        // the last layer's output for the block's first window
+  float alpha;
+  int ci8, ci16, co, co8, n, ldn, cs, nwin;
+  bool identity;
+};
+
+// The layer's output at the warp's nodes [m0, m0 + 16) from G (acc, in
+// float32): h = bf16(bf16(G W) + b), res, y = PReLU(bf16(h + res)), to the
+// next layer's input as bf16 (0 at padded nodes) or, in the last layer, to
+// device memory as float32, an 8-channel output tile a turn.
+template <int WB, int NJ>
+__device__ __forceinline__ void bf_mix(const float (&acc)[WB][NJ][4], int m0, const BfPass& lp) {
+  constexpr int KC = (NJ + 1) / 2;  // chunks of 16 channels (one of 8 where NJ is 1)
+  const int lane = threadIdx.x & 31, g = lane >> 2, t2 = 2 * (lane & 3);
+  uint32_t gf[WB][KC][4];  // G rounded to bf16: the accumulators as A fragments
+#pragma unroll
+  for (int w = 0; w < WB; ++w)
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      gf[w][kc][0] = pack_bf16x2(acc[w][2 * kc][0], acc[w][2 * kc][1]);
+      gf[w][kc][1] = pack_bf16x2(acc[w][2 * kc][2], acc[w][2 * kc][3]);
+      if (2 * kc + 1 < NJ) {
+        gf[w][kc][2] = pack_bf16x2(acc[w][2 * kc + 1][0], acc[w][2 * kc + 1][1]);
+        gf[w][kc][3] = pack_bf16x2(acc[w][2 * kc + 1][2], acc[w][2 * kc + 1][3]);
+      }
+    }
+  // x_r's pair at channels c, c + 1 of node m (two rows), 0 past C_in's tiles
+  auto xpair = [&](int w, int c, int m) -> uint32_t {
+    if (c >= lp.ci8) return 0u;
+    const bf16_raw* p = lp.x + (w * lp.cs + c) * lp.ldn + m;
+    return (uint32_t)p[0] | (uint32_t)p[lp.ldn] << 16;
+  };
+  for (int oc = 0; oc < lp.co8; oc += 8) {
+    // W^T's and W_res^T's B fragments at output channels [oc, oc + 8)
+    uint32_t wf[KC][2], wrf[KC][2];
+    const bf16_raw* wrow = lp.wt + (oc + g) * lp.ci16 + t2;
+    const bf16_raw* wrrow = lp.wrt + (oc + g) * lp.ci16 + t2;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      if (16 * kc >= lp.ci8) break;
+      wf[kc][0] = __ldg(reinterpret_cast<const unsigned int*>(wrow + 16 * kc));
+      wf[kc][1] = NJ > 1 ? __ldg(reinterpret_cast<const unsigned int*>(wrow + 16 * kc + 8)) : 0u;
+      if (!lp.identity) {
+        wrf[kc][0] = __ldg(reinterpret_cast<const unsigned int*>(wrrow + 16 * kc));
+        wrf[kc][1] =
+            NJ > 1 ? __ldg(reinterpret_cast<const unsigned int*>(wrrow + 16 * kc + 8)) : 0u;
+      }
+    }
+    const int c0 = oc + t2;
+    const float bh[2] = {__ldg(lp.b + c0), __ldg(lp.b + c0 + 1)};
+    const float br[2] = {__ldg(lp.b + lp.co8 + c0), __ldg(lp.b + lp.co8 + c0 + 1)};
+#pragma unroll
+    for (int w = 0; w < WB; ++w) {
+      float o[4] = {0.0f, 0.0f, 0.0f, 0.0f}, r[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        if (16 * kc >= lp.ci8) break;
+        if constexpr (NJ == 1) {
+          const uint32_t a[2] = {gf[w][0][0], gf[w][0][1]};
+          mma_bf16_k8(o, a, wf[0][0]);
+        } else {
+          mma_bf16_k16(o, gf[w][kc], wf[kc]);
+        }
+        if (lp.identity) continue;
+        const int k = 16 * kc + t2;
+        if constexpr (NJ == 1) {
+          const uint32_t a[2] = {xpair(w, k, m0 + g), xpair(w, k, m0 + g + 8)};
+          mma_bf16_k8(r, a, wrf[0][0]);
+        } else {
+          const uint32_t a[4] = {xpair(w, k, m0 + g), xpair(w, k, m0 + g + 8),
+                                 xpair(w, k + 8, m0 + g), xpair(w, k + 8, m0 + g + 8)};
+          mma_bf16_k16(r, a, wrf[kc]);
+        }
+      }
+      float y[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = m0 + g + (i >= 2 ? 8 : 0), c = c0 + (i & 1);
+        const float h = bf16_round(bf16_round(o[i]) + bh[i & 1]);
+        const float res = lp.identity ? bf16_value(lp.x[(w * lp.cs + c) * lp.ldn + m])
+                                      : bf16_round(bf16_round(r[i]) + br[i & 1]);
+        const float s = bf16_round(h + res);
+        y[i] = s >= 0.0f ? s : lp.alpha * s;
+        if (lp.y != nullptr)
+          lp.y[(w * lp.cs + c) * lp.ldn + m] = m < lp.n ? bf16_of(y[i]) : (bf16_raw)0;
+      }
+      if (lp.y != nullptr || w >= lp.nwin) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {  // rows g and g + 8: channels c0, c0 + 1
+        const int m = m0 + g + 8 * hh;
+        if (m >= lp.n) continue;
+        float* row = lp.out_w0 + ((long long)w * lp.n + m) * lp.co;
+        if ((lp.co & 1) == 0 && c0 < lp.co) {
+          *reinterpret_cast<float2*>(row + c0) = make_float2(y[2 * hh], y[2 * hh + 1]);
+        } else {
+          if (c0 < lp.co) row[c0] = y[2 * hh];
+          if (c0 + 1 < lp.co) row[c0 + 1] = y[2 * hh + 1];
+        }
+      }
+    }
+  }
+}
+
+// One layer: each of the warp's node tiles walked (G for every window),
+// then mixed and written.
+template <int WB, int NJ>
+__device__ void bf_layer(const BfPass& lp, const bf16_raw* __restrict__ mt, int rows, int warps,
+                         bf16_raw* ring) {
+  const int warp = threadIdx.x >> 5;
+  for (int tile = warp; tile < rows / 16; tile += warps) {
+    float acc[WB][NJ][4] = {};
+    bf_graph_walk<WB, NJ>(acc, 16 * tile, lp.ci8 / 8, mt, rows, lp.x, lp.ldn, lp.cs, ring);
+    bf_mix<WB, NJ>(acc, 16 * tile, lp);
+  }
+}
+
+// NJ as instantiated for WB windows: the planner keeps WB * NJ <= kBfMaxTiles.
+__host__ __device__ constexpr int bf_nj(int wb, int nj) {
+  return wb * nj <= kBfMaxTiles ? nj : kBfMaxTiles / wb;
+}
+
+// One block per WB windows (the last block may hold fewer), 32 p.warps threads.
+template <int WB>
+__global__ void __launch_bounds__(kBfThreads, 1)
+stse_fused_bf16_kernel(const float* __restrict__ x,        // [B, C_in0, N] float32
+                       const float* __restrict__ weights,  // packed, see stse_fused.py
+                       float* __restrict__ out,            // [B, N, C_out_last] float32
+                       BfParams p, int batch) {
+  extern __shared__ __align__(16) float smem_bf16[];
+  const int tid = threadIdx.x, warp = tid >> 5, threads = 32 * p.warps;
+  const long long act = (long long)WB * p.cs * p.ldn;
+  bf16_raw* xin = reinterpret_cast<bf16_raw*>(smem_bf16);
+  bf16_raw* xalt = xin + act;
+  bf16_raw* ring = xin + 2 * act + warp * kBfStages * kBfSlice;
+  const int win0 = blockIdx.x * WB;
+  const int nwin = batch - win0 < WB ? batch - win0 : WB;
+  const int n = p.n_nodes;
+
+  {  // x_r: the block's windows rounded to bf16, channel-major; 0 past the
+     // nodes, channels and windows
+    const int ci = p.layers[0].ci;
+    const float* xb = x + (long long)win0 * ci * n;  // nwin windows, contiguous
+    for (int i = tid; i < act; i += threads) {
+      const int row = i / p.ldn, k = i - row * p.ldn, w = row / p.cs, c = row - w * p.cs;
+      xin[i] = w < nwin && c < ci && k < n ? bf16_of(xb[((long long)w * ci + c) * n + k])
+                                            : (bf16_raw)0;
+    }
+  }
+
+  for (int l = 0; l < p.n_layers; ++l) {
+    __syncthreads();  // the layer's input complete; the last layer's reads of xalt done
+    const BfLayer L = p.layers[l];
+    BfPass lp;
+    lp.x = xin;
+    lp.y = l == p.n_layers - 1 ? nullptr : xalt;
+    lp.wt = reinterpret_cast<const bf16_raw*>(weights + L.off_wt);
+    lp.wrt = reinterpret_cast<const bf16_raw*>(weights + L.off_wrt);
+    lp.b = weights + L.off_b;
+    lp.out_w0 = out + (long long)win0 * n * L.co;
+    lp.alpha = __ldg(weights + L.off_alpha);
+    lp.ci8 = round8(L.ci);
+    lp.ci16 = (L.ci + 15) & ~15;
+    lp.co = L.co;
+    lp.co8 = round8(L.co);
+    lp.n = n;
+    lp.ldn = p.ldn;
+    lp.cs = p.cs;
+    lp.nwin = nwin;
+    lp.identity = L.identity != 0;
+    const bf16_raw* mt = reinterpret_cast<const bf16_raw*>(weights + L.off_mt);
+    switch (bf_pow2(lp.ci8 / 8)) {
+      case 1: bf_layer<WB, 1>(lp, mt, p.rows, p.warps, ring); break;
+      case 2: bf_layer<WB, 2>(lp, mt, p.rows, p.warps, ring); break;
+      case 4: bf_layer<WB, bf_nj(WB, 4)>(lp, mt, p.rows, p.warps, ring); break;
+      default: bf_layer<WB, bf_nj(WB, 8)>(lp, mt, p.rows, p.warps, ring);
+    }
+    bf16_raw* tmp = xin;
+    xin = xalt;
+    xalt = tmp;
+  }
+}
+
+typedef void (*BfKernel)(const float*, const float*, float*, BfParams, int);
+
+// The bf16 form's launch parameters, windows a block and shared bytes for
+// this layout; cudaErrorInvalidValue for a layout it does not take (more
+// than kMaxLayers layers, a layer contracting more than 64 channels, or
+// activations and rings past kMaxSmem at one window a block). Touches no
+// device (stse_fused_bf16_plan).
+int bf16_plan_layout(const long long* layout, int n_layers, int n_nodes, int n_pad,
+                     BfParams& p, int& wb, long long& smem) {
+  if (n_layers < 1 || n_layers > kMaxLayers || n_nodes < 1 || n_pad % 16 != 0 ||
+      n_pad < n_nodes)
+    return (int)cudaErrorInvalidValue;
+  p.n_layers = n_layers;
+  p.n_nodes = n_nodes;
+  p.rows = n_pad;
+  p.warps = n_pad / 16 < kBfMaxWarps ? n_pad / 16 : kBfMaxWarps;
+  p.ldn = n_pad + 8;
+  p.cs = 0;
+  int nj_max = 1;
+  for (int l = 0; l < n_layers; ++l) {
+    const long long* r = layout + 8 * l;
+    BfLayer& d = p.layers[l];
+    d.ci = (int)r[0];
+    d.co = (int)r[1];
+    d.identity = (int)r[2];
+    d.off_mt = r[3];
+    d.off_wt = r[4];
+    d.off_wrt = r[5];
+    d.off_b = r[6];
+    d.off_alpha = r[7];
+    if (d.ci < 1 || d.co < 1 || (d.identity && d.ci != d.co) || d.off_mt % 4 != 0)
+      return (int)cudaErrorInvalidValue;
+    if (l > 0 && d.ci != p.layers[l - 1].co) return (int)cudaErrorInvalidValue;
+    const int ci8 = round8(d.ci);
+    if (ci8 > 64) return (int)cudaErrorInvalidValue;  // G holds at most 8 tiles a window
+    nj_max = bf_pow2(ci8 / 8) > nj_max ? bf_pow2(ci8 / 8) : nj_max;
+    p.cs = ci8 > p.cs ? ci8 : p.cs;
+  }
+  for (wb = 4; wb >= 1; wb /= 2) {  // the most windows a block that fit
+    if (wb * nj_max > kBfMaxTiles) continue;
+    smem = bf_smem_bytes(p, wb);
+    if (smem <= kMaxSmem) break;
+  }
+  return wb < 1 ? (int)cudaErrorInvalidValue : (int)cudaSuccess;
+}
+
+// bf16_plan_layout, then the kernel for its windows a block, opted into its
+// shared bytes; a cudaError_t.
+int bf16_plan(const long long* layout, int n_layers, int n_nodes, int n_pad, BfParams& p,
+              int& wb, BfKernel& kernel, long long& smem) {
+  const int err = bf16_plan_layout(layout, n_layers, n_nodes, n_pad, p, wb, smem);
+  if (err != 0) return err;
+  kernel = wb == 4 ? stse_fused_bf16_kernel<4>
+                   : wb == 2 ? stse_fused_bf16_kernel<2> : stse_fused_bf16_kernel<1>;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+}
+
+}  // namespace
+
 extern "C" {
 
 const char* stse_fused_error_string(int err) {
@@ -691,6 +1085,64 @@ int stse_fused_occupancy(const long long* layout, int n_layers, int n_nodes, int
   out[0] = wb;
   out[1] = (int)smem;
   out[2] = blocks;
+  return err;
+}
+
+// The bf16 form (stse_fused_bf16_kernel) on the same arguments: x float32
+// [B, C_in, N]; layout rows ci, co, identity, off_mt, off_wt, off_wrt,
+// off_b, off_alpha (M_r^T bf16 [n_pad][n_pad], W^T and W_res^T bf16
+// [co8][ci16], b then b_res float32 [co8] each, the slope float32; the bf16
+// segments held in the float32 buffer, two values a float); out float32
+// [B, N, C_out]. Returns a cudaError_t, as stse_fused_forward.
+int stse_fused_bf16_forward(const float* x, const float* weights, const long long* layout,
+                            int n_layers, int batch, int n_nodes, int n_pad, float* out,
+                            void* stream) {
+  if (batch < 1) return (int)cudaErrorInvalidValue;
+  BfParams p;
+  int wb;
+  BfKernel kernel;
+  long long smem;
+  const int err = bf16_plan(layout, n_layers, n_nodes, n_pad, p, wb, kernel, smem);
+  if (err != 0) return err;
+  const dim3 grid((batch + wb - 1) / wb);
+  kernel<<<grid, 32 * p.warps, (size_t)smem, (cudaStream_t)stream>>>(x, weights, out, p, batch);
+  return (int)cudaGetLastError();
+}
+
+// Whether the bf16 form takes this layout (0) or not, from its planner, with
+// no device touched; where it does, out[0] windows a block and out[1] shared
+// bytes a block.
+int stse_fused_bf16_plan(const long long* layout, int n_layers, int n_nodes, int n_pad,
+                         int* out) {
+  BfParams p;
+  int wb;
+  long long smem;
+  const int err = bf16_plan_layout(layout, n_layers, n_nodes, n_pad, p, wb, smem);
+  if (err == 0) {
+    out[0] = wb;
+    out[1] = (int)smem;
+  }
+  return err;
+}
+
+// What a bf16 launch on this layout would use: out[0] windows a block,
+// out[1] shared bytes a block, out[2] blocks an SM on the current device,
+// out[3] threads a block.
+int stse_fused_bf16_occupancy(const long long* layout, int n_layers, int n_nodes, int n_pad,
+                              int* out) {
+  BfParams p;
+  int wb;
+  BfKernel kernel;
+  long long smem;
+  int err = bf16_plan(layout, n_layers, n_nodes, n_pad, p, wb, kernel, smem);
+  if (err != 0) return err;
+  int blocks = 0;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, 32 * p.warps,
+                                                           (size_t)smem);
+  out[0] = wb;
+  out[1] = (int)smem;
+  out[2] = blocks;
+  out[3] = 32 * p.warps;
   return err;
 }
 

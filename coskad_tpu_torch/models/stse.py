@@ -14,17 +14,17 @@ flattened in (T, V, C) order.
 The eval forward takes the encoder's hidden state on one of two routes
 (`eval_uses_kernel`):
   * the fused encoder kernel K1 (`kernels/stse_fused.py`), for an input on
-    the card, the `sts_gcn` encoder, compute dtype float32 and a layout
-    K1's planner takes (`STSE.kernel_takes`): weights folded once and
-    cached until a tensor the fold reads changes, then the projector, the
-    VAE heads, the reverse projector and the decoder as modules in eval
-    mode; the kernel has no backward, so this route raises where autograd
-    would record it;
-  * the module path, layer by layer, everywhere else: on the CPU, at bf16
-    (as JAX's eval is XLA over its modules; its K1 is float32 only), and on
-    the card for the other encoders and for a layout K1 refuses (more than
-    8 layers, more than 64 channels a layer, activations past a block's
-    shared memory).
+    the card, the `sts_gcn` encoder and a layout the planner of the form of
+    the model's compute dtype takes (`STSE.kernel_takes`): at float32 K1,
+    at bf16 K1's bf16 form, which rounds where the module path rounds.
+    Weights folded once and cached until a tensor the fold reads changes,
+    then the projector, the VAE heads, the reverse projector and the
+    decoder as modules in eval mode; the kernel has no backward, so this
+    route raises where autograd would record it, at either dtype;
+  * the module path, layer by layer, everywhere else: on the CPU, and on
+    the card for the other encoders and for a layout the planner refuses
+    (more than 8 layers, more than 64 channels a layer, activations past a
+    block's shared memory).
 The train forward (`train=True`) is the module path with live BatchNorm,
 which updates the running statistics in place (see `stsgcn.py`), or with
 running statistics under `frozen_bn`, in the decoder as in the encoder.
@@ -65,7 +65,7 @@ _FOLDED = ("encoder.", "btlnk.")
 def eval_uses_kernel(for_kernel: bool, tensors: Iterable[torch.Tensor]) -> bool:
     """The eval forward's route: True for K1 (`for_kernel`: x on the card
     and a model K1 takes, `STSE.kernel_takes`), False for the module path (x
-    on the CPU, or a compute dtype or layout K1 does not take). K1 folds
+    on the CPU, or a layout K1 does not take). K1 folds
     detached weights and writes a fresh tensor, so its latent carries no
     gradient; a call bound for K1 that autograd would record (grad mode on
     and x or a parameter requiring grad) raises rather than return a latent
@@ -215,27 +215,26 @@ class STSE(nn.Module):
     def kernel_takes(self) -> bool:
         """Whether the eval forward on the card runs K1: the `sts_gcn`
         encoder (K1 is that stack; the other encoders, as in JAX, have no
-        kernel), compute dtype float32 and a layout K1's planner takes
-        (`stse_fused.takes`, asked once; the layout is fixed at
-        construction). K1 has no bf16 form, and JAX's bf16 eval is XLA over
-        its modules."""
+        kernel) and a layout the planner of K1's form for the compute dtype
+        takes (float32 or bf16, `stse_fused.takes`, asked once; the layout
+        is fixed at construction)."""
         if self._kernel_takes is None:
             self._kernel_takes = (self.encoder_type.lower() == "sts_gcn"
-                                  and self.dtype == torch.float32
                                   and stse_fused.takes(self.folded()[1]))
         return self._kernel_takes
 
     def folded(self) -> Tuple[stse_fused.FoldedSTSE, stse_fused.PackedSTSE]:
-        """The kernel's folded and packed weights, rebuilt only when a tensor
-        the fold reads (`encoder.*`, `btlnk.*`) was replaced or modified in
-        place: a decoder or VAE head update keeps the cache."""
+        """The kernel's folded and packed weights in the form of the compute
+        dtype, rebuilt only when a tensor the fold reads (`encoder.*`,
+        `btlnk.*`) was replaced or modified in place: a decoder or VAE head
+        update keeps the cache."""
         state = {k: t for k, t in self.state_dict(keep_vars=True).items()
                  if k.startswith(_FOLDED)}
         key = tuple((t.data_ptr(), t._version) for t in state.values())
         if self._fold_cache is None or self._fold_cache[0] != key:
             with torch.no_grad(), span("k1.fold"):
                 folded = stse_fused.fold_stse_params(
-                    {k: t.detach() for k, t in state.items()})
+                    {k: t.detach() for k, t in state.items()}, self.dtype)
                 self._fold_cache = (key, folded, stse_fused.pack_folded(folded))
         return self._fold_cache[1], self._fold_cache[2]
 

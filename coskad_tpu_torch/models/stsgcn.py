@@ -32,7 +32,11 @@ bf16 result is rounded once; BatchNorm takes its statistics in float32 and
 rounds its output (flax's `BatchNorm(dtype=bfloat16)`); PReLU's slope is a
 float32 parameter, so its output is float32, as jnp's type promotion makes
 it. Held in float32, the module path is one function on the CPU and the
-card (a bf16 `torch.matmul` would accumulate differently on each).
+card (a bf16 `torch.matmul` would accumulate differently on each). On the
+card the `sts_gcn` stack's eval forward at bf16 runs K1's bf16 form
+(`kernels/stse_fused.py`) at these rounding points, on weights folded by
+the same `fold_dense_bn`; these modules stay the CPU's, training's and the
+other routes' (`models/stse.py`).
 """
 
 from __future__ import annotations
@@ -43,20 +47,10 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..kernels.stse_fused import combined_graph_matrix
+from ..kernels.stse_fused import combined_graph_matrix, fold_dense_bn, rounded
 from ..parallel import mesh
 
 BN_MOMENTUM = 0.9
-
-
-def rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """x rounded to `dtype` (round to nearest even) and held in x's own
-    dtype: the JAX package's `x.astype(dtype)` as a rounding point. Autograd
-    rounds the gradient at the same point, as JAX's cast rounds its
-    cotangent. The identity where `dtype` is float32."""
-    if dtype == torch.float32:
-        return x
-    return x.to(dtype).to(x.dtype)
 
 
 def _uniform_(t: torch.Tensor, bound: float, generator: Optional[torch.Generator]):
@@ -148,10 +142,8 @@ def dense_bn(x: torch.Tensor, dense: Dense, bn: BatchNorm, eps: float = 1e-5) ->
     bf16 dtype the folded weight and bias, the product and the sum are
     rounded, as there."""
     dt = dense.dtype
-    inv = bn.scale * torch.rsqrt(bn.var + eps)
-    bias = 0.0 if dense.bias is None else dense.bias
-    w_eff = rounded(dense.kernel * inv[None, :], dt)
-    b_eff = rounded((bias - bn.mean) * inv + bn.bias, dt)
+    w_eff, b_eff = fold_dense_bn(dense.kernel, dense.bias, bn.scale, bn.bias, bn.mean, bn.var,
+                                 dt, eps)
     return rounded(rounded(rounded(x, dt) @ w_eff, dt) + b_eff, dt)
 
 

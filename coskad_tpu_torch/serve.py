@@ -6,7 +6,7 @@
     frames = scorer.score_clip_json("01_0014.json")       # per-frame scores
 
 Scoring runs the Trainer's eager pass (gather, eval forward through the
-fused encoder kernel on CUDA at float32, variant distance): the latent
+fused encoder kernel on CUDA, K1 or its bf16 form, variant distance): the latent
 distance to the center for the euclidean variants and the autoencoder, the
 geodesic distance for the hyperbolic one, and the cosine distance to the
 anchor `mean_vector` for the VAE. Windows are scored

@@ -27,7 +27,7 @@ the bit on the CPU, within the scores' band on the card; see below):
 
 Batching: windows are not scored one by one. ``push`` buffers complete
 windows and scores them through `AnomalyScorer.score_windows` (on the card
-at float32, the eval encoder kernel K1) in batches of >= ``min_batch``;
+the eval encoder kernel K1, at float32 or in its bf16 form) in batches of >= ``min_batch``;
 ``scores_so_far`` / ``flush`` force the remainder. Window scores are cached
 per (person, window start), so flush never re-scores. What a batch costs on
 the card is `chip_smoke.py`'s `streaming` phase.

@@ -20,8 +20,8 @@ per chunk, gather the batch (sample i % N, transform i // N), then
     fused path; under `frozen_bn` too, and after the first forward's
     running-statistics update), and the InfoNCE loss between the two views'
     latents is added with that weight;
-  * score (`score_all`, `embed_all`): the eval forward (on CUDA at float32,
-    the fused encoder kernel K1) and the variant's window score; the
+  * score (`score_all`, `embed_all`): the eval forward (on CUDA the fused
+    encoder kernel K1, at float32 or in its bf16 form) and the variant's window score; the
     decoder variants also give each window's reconstruction MSE.
 
 The VAE draws its training samples from a `torch.Generator` seeded from

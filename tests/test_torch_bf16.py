@@ -289,31 +289,37 @@ def test_lockstep_fit_at_bf16_matches_jax_trainer(fused_train):
 
 
 class _Planner:
-    """Stands in for K1's library: answers its planner and counts asks."""
+    """Stands in for K1's library: answers the planner of each form and
+    counts asks by form."""
 
     def __init__(self, takes: bool):
-        self.takes, self.asked = takes, 0
+        self.takes, self.asked = takes, {"float32": 0, "bf16": 0}
 
     def stse_fused_plan(self, *args):
-        self.asked += 1
+        self.asked["float32"] += 1
+        return 0 if self.takes else 1
+
+    def stse_fused_bf16_plan(self, *args):
+        self.asked["bf16"] += 1
         return 0 if self.takes else 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_eval_route_by_compute_dtype(monkeypatch, dtype):
-    """At float32 the card's eval route asks K1's planner (once); at bf16 it
-    takes the module path without asking, as JAX's bf16 eval is XLA over its
-    modules and K1 is float32 only. The module route never raises under
+    """The card's eval route asks the planner of K1's form for the compute
+    dtype (once): K1 at float32, its bf16 form at bf16, whose weights are
+    the module path's rounded ones. The module route never raises under
     grad mode."""
     planner = _Planner(takes=True)
     monkeypatch.setattr(stse_fused, "_library", lambda: planner)
     model = STSE(dtype=dtype, **NARROW).eval()
     x = torch.zeros(2, 2, 6, 17, requires_grad=True)
-    takes = model.kernel_takes()
-    assert takes == (dtype == torch.float32)
-    assert model.kernel_takes() == takes and planner.asked == int(takes)
+    assert model.kernel_takes()
+    form = "bf16" if dtype == torch.bfloat16 else "float32"
+    assert model.kernel_takes() and planner.asked == {"float32": 0, "bf16": 0, form: 1}
+    assert model.folded()[1].dtype == dtype
     with torch.no_grad():
-        assert eval_uses_kernel(takes, [x, *model.parameters()]) == takes
+        assert eval_uses_kernel(True, [x, *model.parameters()])
     assert not eval_uses_kernel(False, [x, *model.parameters()])
 
 

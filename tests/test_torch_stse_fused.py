@@ -117,3 +117,69 @@ def test_work_counts_flagship_flops_and_bytes():
     per_window = 2 * n * n * (2 + 16 + 16 + 32) + 4 * n * (2 * 32 + 32 * 16 + 16 * 32 + 32 * 64)
     assert flops == 2048 * per_window
     assert nbytes > 4 * 2048 * n * (2 + 64)
+
+
+def _bf16_model(seed=5):
+    """A bf16 STSE whose layers widen, narrow (8 -> 4), keep their width
+    (an identity residual) and widen again, with running statistics and
+    slopes away from their initial values."""
+    from coskad_tpu_torch.models import STSE
+
+    gen = torch.Generator().manual_seed(seed)
+    model = STSE(input_dim=2, layer_channels=(8, 4, 4), hidden_dimension=8, latent_dim=4,
+                 n_frames=4, n_joints=5, projector="mlp", dtype=torch.bfloat16)
+    model.reset_parameters(gen)
+    with torch.no_grad():
+        for name, t in model.state_dict(keep_vars=True).items():
+            if name.endswith((".mean", ".bias", ".alpha")) or name.endswith("bn.scale"):
+                t.add_(torch.empty(t.shape).uniform_(-0.3, 0.3, generator=gen))
+            elif name.endswith(".var"):
+                t.copy_(torch.empty(t.shape).uniform_(0.5, 2.0, generator=gen))
+    return model.eval()
+
+
+def test_bf16_fold_is_the_module_paths_weights_bit_for_bit():
+    """The bf16 form's fold gives the module path's own weights: dense_bn's
+    w_eff = bf16(kernel * scale * rsqrt(var + eps)) and b_eff, for the
+    dense and the residual dense, and SpaceTimeGraphConv's bf16(M); the
+    packed operand gives them back exactly."""
+    from coskad_tpu_torch.models.stsgcn import rounded
+
+    model = _bf16_model()
+    folded, packed = model.folded()
+    assert folded.dtype == packed.dtype == torch.bfloat16 and folded.w_proj is None
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        for lay, mod in zip(folded.layers, (getattr(model.encoder, f"layer_{i}")
+                                            for i in range(model.encoder.n_layers))):
+            graph = rounded(stse_fused.combined_graph_matrix(mod.gcn.t_adj, mod.gcn.a_adj), bf16)
+            assert torch.equal(lay.graph, graph)
+            for (w, b), (dense, bn) in [((lay.w, lay.b), (mod.tcn_dense, mod.tcn_bn))] + (
+                    [((lay.w_res, lay.b_res), (mod.residual_dense, mod.residual_bn))]
+                    if mod.residual_dense is not None else []):
+                inv = bn.scale * torch.rsqrt(bn.var + 1e-5)
+                assert torch.equal(w, rounded(dense.kernel * inv[None, :], bf16))
+                assert torch.equal(b, rounded((dense.bias - bn.mean) * inv + bn.bias, bf16))
+            if mod.residual_dense is None:
+                assert torch.equal(lay.w_res, torch.eye(lay.w.shape[0]))
+            assert torch.equal(lay.alpha, mod.prelu.alpha)
+    back = stse_fused.unpack_packed_bf16(*packed.op_args())
+    for got, want in zip(back.layers, folded.layers):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert [int(i) for i in packed.layout[:, 2]] == [0, 0, 1, 0]  # the identity residual
+
+
+def test_bf16_op_on_the_cpu_is_the_module_paths_eval_hidden_state():
+    """The bf16 custom op's CPU implementation (the plain version on the
+    unpacked operand) and `fused_stse_hidden` on a CPU tensor give the
+    module path's eval hidden state to the bit; no launch is counted."""
+    model = _bf16_model()
+    folded, packed = model.folded()
+    x = torch.randn(6, 2, 4, 5, generator=torch.Generator().manual_seed(7))
+    counts = stse_fused.launches.value, stse_fused.bf16_launches.value
+    with torch.no_grad():
+        want = model.encode(x)[1].reshape(6, 20, 8)
+        got_op = torch.ops.coskad_torch.stse_fused_hidden_bf16(x, *packed.op_args())
+        got = stse_fused.fused_stse_hidden(x, folded, packed)
+    assert torch.equal(got_op, want) and torch.equal(got, want)
+    assert (stse_fused.launches.value, stse_fused.bf16_launches.value) == counts

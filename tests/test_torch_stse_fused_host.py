@@ -5,13 +5,23 @@ NaN-filled shared memory) and held against the plain PyTorch version. This
 checks the kernel's indexing, tiling, padding, windows a block and
 synchronisation on a machine without a GPU; its speed is measured only on
 the card (chip_smoke.py). Tolerance rtol=2e-4, atol=2e-5: fp32
-reassociation (the products run as 3xTF32, ~fp32 accuracy)."""
+reassociation (the products run as 3xTF32, ~fp32 accuracy).
 
+The bf16 form (stse_fused_bf16_kernel) is held against the bf16 model's
+module path itself, in the band of tests/test_torch_bf16.py: err <=
+2^-5 * max(scale, 1). Both round at the same points, but the kernel sums
+each product in another order (the emulated mma sums a step exactly, then
+rounds), so a value can land on the other side of a bf16 rounding
+boundary: one such flip is 1 ulp, <= 2^-7 of the value, and a few of them
+through the layers stay within 4 ulps. Most values agree to the bit."""
+
+import contextlib
 import ctypes
 import os
 import re
 import shutil
 import subprocess
+import types
 
 import numpy as np
 import pytest
@@ -34,7 +44,8 @@ def _host_source(cu: str) -> str:
     out, n_smem = re.subn(r"extern __shared__[^;]*float (\w+)\[\];", r"float* \1 = g_smem;", cu)
     out, n_launch = re.subn(r"(\w+)<<<([^,]+),\s*([^,]+),\s*([^,]+),[^>]*>>>\(",
                             r"emu_launch(\1, \2, \3, \4, ", out)
-    assert (n_smem, n_launch) == (1, 1), "kernel source no longer matches the host rewrite"
+    # the float32 form's and the bf16 form's
+    assert (n_smem, n_launch) == (2, 2), "kernel source no longer matches the host rewrite"
     return out.replace("#include <cuda_runtime.h>", '#include "cuda_host_emu.h"')
 
 
@@ -50,13 +61,16 @@ def host_kernel(tmp_path_factory):
     subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-I", HERE,
                     "-I", build.CSRC, "-o", lib, str(d / "stse_fused_host.cpp")],
                    check=True, capture_output=True, timeout=300)
-    return stse_fused.bind(ctypes.CDLL(lib))
+    lib = stse_fused.bind(ctypes.CDLL(lib))
+    lib.emu_mma_count.argtypes = [ctypes.c_int]
+    lib.emu_mma_count.restype = ctypes.c_longlong
+    return lib
 
 
-def _model(input_dim, channels, hidden, t, v, seed=0):
+def _model(input_dim, channels, hidden, t, v, seed=0, dtype=torch.float32):
     gen = torch.Generator().manual_seed(seed)
     model = STSE(input_dim=input_dim, layer_channels=channels, hidden_dimension=hidden,
-                 latent_dim=4, n_frames=t, n_joints=v)
+                 latent_dim=4, n_frames=t, n_joints=v, dtype=dtype)
     model.reset_parameters(gen)
     with torch.no_grad():
         for name, buf in model.named_buffers():
@@ -69,7 +83,7 @@ def _run(host_kernel, x, packed, hidden):
     batch = x.shape[0]
     out = torch.full((batch, packed.n_nodes, hidden), float("nan"))
     layout = np.ascontiguousarray(packed.layout, np.int64)
-    rc = host_kernel.stse_fused_forward(
+    rc = stse_fused._entry(host_kernel, packed, "forward")(
         x.data_ptr(), packed.weights.data_ptr(), layout.ctypes.data, len(layout), batch,
         packed.n_nodes, packed.n_pad, out.data_ptr(), None)
     assert rc == 0
@@ -97,6 +111,66 @@ def test_host_run_of_cuda_source_matches_plain(host_kernel, input_dim, channels,
     with torch.no_grad():
         ref = stse_fused.fused_stse_hidden_reference(x, folded)
     torch.testing.assert_close(out, ref, **TOL)
+
+
+@pytest.mark.parametrize("input_dim,channels,hidden,t,v,batch", [
+    # the HR-STC widths at 17 joints: 204 nodes in 13 tiles, 4 windows a
+    # block, a ragged last block of one window
+    (2, (32, 16, 32), 64, 12, 17, 5),
+    # identity residuals around a narrowing layer (8 -> 4), 35 nodes in 3
+    # tiles, 3 windows of a block's 4
+    (8, (8, 4), 4, 5, 7, 3),
+])
+def test_host_run_of_bf16_form_matches_module_path(host_kernel, input_dim, channels, hidden,
+                                                   t, v, batch):
+    """The bf16 form against the bf16 model's eval hidden state on the
+    module path (`STSE.encode`), in the band of bf16 rounding; it issues
+    bf16 mma and no TF32 mma (the emulator counts them by kind)."""
+    model = _model(input_dim, channels, hidden, t, v, dtype=torch.bfloat16)
+    x = torch.randn(batch, input_dim, t, v, generator=torch.Generator().manual_seed(4))
+    _, packed = model.folded()
+    assert packed.dtype == torch.bfloat16
+    host_kernel.emu_mma_count(0), host_kernel.emu_mma_count(1)
+    out = _run(host_kernel, x, packed, hidden)
+    tf32, bf16 = host_kernel.emu_mma_count(0), host_kernel.emu_mma_count(1)
+    assert tf32 == 0 and bf16 > 0, (tf32, bf16)
+    with torch.no_grad():
+        ref = model.encode(x)[1].reshape(batch, t * v, hidden)
+    err = float((out - ref).abs().max())
+    assert bool(torch.isfinite(out).all())
+    assert err <= 2.0 ** -5 * max(float(ref.abs().max()), 1.0), err
+    assert float((out == ref).float().mean()) > 0.9
+
+
+def test_bf16_route_plan_and_launch_counters(host_kernel, monkeypatch):
+    """At bf16 the eval route asks the bf16 form's planner (the CUDA
+    source's, on the host): at the HR-STC widths it takes 4 windows a block
+    and 13 warps, in two activation buffers [4 x 32 channels][216] of bf16
+    and 13 rings of 4 slices [16][24]. A launch through the wrapper (here on
+    the host emulation) counts `launches` and `bf16_launches`; a float32
+    launch counts `launches` alone."""
+    monkeypatch.setattr(stse_fused, "_library", lambda: host_kernel)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=None))
+    hrstc = _model(2, (32, 16, 32), 64, 12, 17, dtype=torch.bfloat16)
+    assert hrstc.kernel_takes()
+    assert stse_fused.occupancy(hrstc.folded()[1]) == dict(
+        windows_per_block=4, smem_bytes=2 * 2 * 4 * 32 * 216 + 2 * 13 * 4 * 16 * 24,
+        blocks_per_sm=1, threads=416)
+    x = torch.randn(2, 8, 5, 7, generator=torch.Generator().manual_seed(5))
+    for dtype in (torch.float32, torch.bfloat16):
+        model = _model(8, (8, 4), 4, 5, 7, dtype=dtype)
+        folded, packed = model.folded()
+        before = stse_fused.launches.value, stse_fused.bf16_launches.value
+        out = stse_fused._launch(x, packed)
+        after = stse_fused.launches.value, stse_fused.bf16_launches.value
+        assert (after[0] - before[0], after[1] - before[1]) == (1, int(dtype == torch.bfloat16))
+        with torch.no_grad():
+            ref = model.encode(x)[1].reshape(2, 35, 4)
+        tol = TOL if dtype == torch.float32 else dict(rtol=0, atol=2.0 ** -5 * max(
+            float(ref.abs().max()), 1.0))
+        torch.testing.assert_close(out, ref, **tol)
 
 
 def test_host_run_repeats_bit_for_bit(host_kernel):
