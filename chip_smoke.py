@@ -181,11 +181,18 @@ Phases, each printing a line before the last:
      scoring cli.eval's test windows to its bits. A float32 copy of each
      runs the same counted path with K1 as its eval encoder (center init,
      validation, each eval, from_checkpoint; K1 as the windows predict);
-     on its trained weights at batch 2048 K1's route against the module
-     route on the card (the AE's z and reconstruction, the VAE's z_mean,
-     z_var and reconstruction on its mean path) within K1's band, and the
-     eval forward timed by part (K1, head, rev_btlnk, decoder) against the
-     module route. The peak memory above resident of one step of each run,
+     on its trained weights at batch 2048 K1's route (two launches a batch:
+     the encoder, then the decoder) against the module route on the card
+     (the AE's z and reconstruction, the VAE's z_mean, z_var and
+     reconstruction on its mean path) within K1's band, and the eval
+     forward timed by part (K1, head, rev_btlnk, K1 on the decoder, the
+     module decoder) against the module route, with the decoder's K1
+     launch timed alone beside the module decoder's 2.900 ms of an earlier
+     measurement (DECODER_MODULES_MS); the
+     files as written hold K1's bf16 route to the module route's bf16 band.
+     Both report the share of reconstruction values that are the module
+     route's bits and the error against a float64 module route over the
+     module route's (RECON_VS_F64). The peak memory above resident of one step of each run,
      and PowerSpherical.rsample with a CUDA generator (65,536 samples on
      the sphere, the mean of loc . x within 4 standard errors, one seed's
      bits twice). `--only variants` runs just this after the build.
@@ -3311,6 +3318,9 @@ PS_KAPPAS = (2.0, 32.0)
 # K1's reconstruction error against float64 over the module route's: the ratio
 # of a 3xTF32 product's rounding (2^-21) to a plain float32 one's (2^-24)
 RECON_VS_F64 = 8.0
+# the module decoder's part of a float32 eval forward of 2048 windows, as measured
+# before the decoder ran on K1
+DECODER_MODULES_MS = 2.900
 
 
 def phase_variants(card):
@@ -3335,13 +3345,19 @@ def phase_variants(card):
 @contextlib.contextmanager
 def module_route(model):
     """Within the block the model's eval forward takes the module path on
-    the card (K1's planner answer set to no), as for a layout K1 refuses."""
+    the card (K1's planner answers set to no, the decoder's too), as for a
+    layout K1 refuses."""
     takes = model.kernel_takes()
+    decoder_takes = model.decoder_kernel_takes() if hasattr(model, "decoder") else None
     model._kernel_takes = False
+    if decoder_takes is not None:
+        model._decoder_kernel_takes = False
     try:
         yield model
     finally:
         model._kernel_takes = takes
+        if decoder_takes is not None:
+            model._decoder_kernel_takes = decoder_takes
 
 
 def eval_outputs(model, x):
@@ -3356,9 +3372,17 @@ def eval_outputs(model, x):
 
 
 def k1_against_module_route(tr, x) -> dict:
-    """At one batch on the trained float32 weights: K1's route against the
-    module route on the card within K1's band, and the eval forward timed
-    by part (K1, head, rev_btlnk, decoder) against the module route's."""
+    """At one batch on the trained weights: K1's route (the encoder and the
+    decoder, two launches) against the module route on the card, and the
+    eval forward timed by part (K1 on the encoder, head, rev_btlnk, K1 on
+    the decoder, and the module decoder it replaces) against the module
+    route's. At float32 the latents and heads within K1's band and the
+    reconstruction within RECON_VS_F64 of a float64 module route; at bf16
+    (K1's bf16 form on both stacks) every output within the bf16 band of
+    the module route's, which rounds at the same points. Both report the
+    share of the reconstruction's values that are the module route's bits
+    and its error against the float64 module route over the module
+    route's."""
     import copy
 
     import torch
@@ -3366,18 +3390,24 @@ def k1_against_module_route(tr, x) -> dict:
 
     model, variant = tr.model, tr.cfg.model.variant
     vae = variant == "vae"
-    check(model.kernel_takes(), f"{variant}: K1 does not take the float32 copy")
+    bf16 = tr.cfg.run.compute_dtype == "bfloat16"
+    check(model.kernel_takes() and model.decoder_kernel_takes(),
+          f"{variant}: K1 does not take both stacks of the {tr.cfg.run.compute_dtype} model")
     m64 = copy.deepcopy(model).double()
+    m64.apply(lambda m: setattr(m, "dtype", torch.float64) if hasattr(m, "dtype") else None)
     with torch.inference_mode():
-        before = stse_fused.launches.value
+        before = stse_fused.launches.value, stse_fused.decoder_launches.value
         got = eval_outputs(model, x)
-        check(stse_fused.launches.value == before + 1, "the K1 route launched K1 "
-              f"{stse_fused.launches.value - before} times for one batch")
+        after = stse_fused.launches.value, stse_fused.decoder_launches.value
+        check(after == (before[0] + 2, before[1] + 1), "the K1 route launched K1 "
+              f"{after[0] - before[0]} times, on the decoder {after[1] - before[1]}, for one "
+              "batch (2 and 1 expected)")
         with module_route(model):
             want = eval_outputs(model, x)
         with module_route(m64):
             exact = eval_outputs(m64, x.double())
-        check(stse_fused.launches.value == before + 1, "the module route launched K1")
+        check((stse_fused.launches.value, stse_fused.decoder_launches.value) == after,
+              "the module route launched K1")
     torch.cuda.synchronize()
     names = ("z_mean", "z_var", "recon") if vae else ("z", "recon")
     errs = {}
@@ -3386,15 +3416,20 @@ def k1_against_module_route(tr, x) -> dict:
         err = errs[name] = dict(
             max_abs=float((g - w).abs().max()), k1_vs_f64=float((g - e).abs().max()),
             module_vs_f64=float((w - e).abs().max()), scale=float(e.abs().max()),
-            outside_elementwise=int(outside.sum()), elements=g.numel())
+            outside_elementwise=int(outside.sum()), elements=g.numel(),
+            same_bits=float((g == w).double().mean()))
+        err["k1_over_module_vs_f64"] = err["k1_vs_f64"] / max(err["module_vs_f64"], 1e-30)
+        if bf16:  # the bf16 band of tests/test_torch_bf16.py against the module route
+            limit = 2.0 ** -5 * max(float(w.abs().max()), 1.0)
+            ok, band = err["max_abs"] <= limit, f"|K1 - modules| <= {limit:.3e}"
         # The latents and heads: K1's band element by element. The
-        # reconstruction passes nine layers after K1's hidden, which carry
-        # K1's 3xTF32 rounding (~2^-21 a product, plain fp32's 2^-24) to a few
-        # near-zero elements just past that band; it is held as the CPU tests
-        # hold live-BN outputs: its error against float64 at most
+        # reconstruction passes the decoder's layers, now on K1 too, which
+        # carry K1's 3xTF32 rounding (~2^-21 a product, plain fp32's 2^-24) to
+        # a few near-zero elements just past that band; it is held as the CPU
+        # tests hold live-BN outputs: its error against float64 at most
         # RECON_VS_F64 (2^-21 / 2^-24) times the module route's, plus 1e-6
         # of its scale
-        if name == "recon":
+        elif name == "recon":
             bound = RECON_VS_F64 * err["module_vs_f64"] + 1e-6 * err["scale"]
             ok, band = err["k1_vs_f64"] <= bound, f"K1 vs float64 <= {bound:.3e}"
         else:
@@ -3403,6 +3438,7 @@ def k1_against_module_route(tr, x) -> dict:
               f"{variant}: K1 route vs module route, {name}: {err}, outside {band}")
 
     folded, packed = model.folded()
+    d_folded, d_packed = model.decoder_folded()
     with torch.inference_mode():
         h = stse_fused.fused_stse_hidden(x, folded, packed)
 
@@ -3411,9 +3447,11 @@ def k1_against_module_route(tr, x) -> dict:
             return (model.fc_mean(feat), model.fc_var(feat)) if vae else feat
 
         z = got[0]
-        hd = model.rev_btlnk(z)
+        hd, hc = model.rev_btlnk(z), model.rev_btlnk.channel_major(z)
         parts = dict(k1=lambda: stse_fused.fused_stse_hidden(x, folded, packed), head=head,
-                     rev_btlnk=lambda: model.rev_btlnk(z), decoder=lambda: model.decoder(hd))
+                     rev_btlnk=lambda: model.rev_btlnk.channel_major(z),
+                     k1_decoder=lambda: stse_fused.fused_stse_hidden(hc, d_folded, d_packed),
+                     decoder_modules=lambda: model.decoder(hd))
         forward = lambda: eval_outputs(model, x)  # noqa: E731
         runs = {}
         for _ in range(2):  # in turns
@@ -3479,6 +3517,7 @@ def variants_run(card, root):
     from coskad_tpu_torch.cli import train as train_cli
     from coskad_tpu_torch.cli.common import load_config, load_split
     from coskad_tpu_torch.interop import flatten_tree, to_jax_variables
+    from coskad_tpu_torch.kernels import stse_fused
     from coskad_tpu_torch.serve import AnomalyScorer
     from coskad_tpu_torch.train.loop import Trainer
 
@@ -3502,7 +3541,7 @@ def variants_run(card, root):
         return out
 
     dev = ["--device", DEVICE]
-    counters = launch_counters()
+    counters = dict(launch_counters(), stse_fused_decoder=stse_fused.decoder_launches)
     runs, launches = {}, {}
     Trainer.train_epoch = timed_epoch
     try:
@@ -3538,12 +3577,14 @@ def variants_run(card, root):
         batches = lambda n: -(-n // cfg.data.batch_size)  # noqa: E731
         n_train, n_val = len(tr.train_ds), len(tr.val_ds)
         n_test = len(evals["0"].window_scores)
-        # K1: center init, 3 validations, each cli.eval and from_checkpoint (the
-        # bf16 files on its bf16 form)
+        # K1 a batch on the encoder and one on the decoder: center init, 3
+        # validations, each cli.eval and from_checkpoint (the bf16 files on its
+        # bf16 form)
         k1 = (batches(n_train) + 3 * batches(n_val) + len(evals) * batches(n_test)
               + batches(CLI_SERVED))
-        want = dict(stse_fused=k1, stse_train_forward=0, stse_train_layer_backward=0,
-                    stse_train_top_backward=0, stse_train_mono_backward=0)
+        want = dict(stse_fused=2 * k1, stse_train_forward=0, stse_train_layer_backward=0,
+                    stse_train_top_backward=0, stse_train_mono_backward=0,
+                    stse_fused_decoder=k1)
         summary["predicted_launches"][key] = want
         check(launches[key] == want, f"variants {key}: launches {launches[key]}, predicted "
                                      f"{want}")
@@ -3551,6 +3592,7 @@ def variants_run(card, root):
         check(cfg.model.variant == variant and cfg.model.projector == "mlp"
               and cfg.data.n_joints == 17 and cfg.data.batch_size == TRAIN_BATCH
               and not tr._fused_compat and tr.model.kernel_takes()
+              and tr.model.decoder_kernel_takes()
               and cfg.run.compute_dtype == ("float32" if f32 else "bfloat16"),
               f"{key}: not the shipped {variant} at 17 joints, batch 2048, its compute dtype")
         losses = first.loss + resumed.loss
@@ -3584,9 +3626,14 @@ def variants_run(card, root):
                   f"{key}: resumed weights, center or anchor differ from the straight run's")
             rec["losses_straight"] = straight.loss
         x = tr._gather(tr.val_data, torch.arange(cfg.data.batch_size, device=DEVICE))
-        if f32:  # after the counted runs: these launches are not the main path's
-            rec["k1_route"] = k1_against_module_route(tr, x)
+        # after the counted runs: these launches are not the main path's
+        rec["k1_route"] = k1_against_module_route(tr, x)
+        if f32:
             rec["k1"] = k1_timing(x, *tr.model.folded())
+            with torch.inference_mode():
+                hc = tr.model.rev_btlnk.channel_major(eval_outputs(tr.model, x)[0])
+            rec["k1_decoder"] = dict(k1_timing(hc, *tr.model.decoder_folded()),
+                                     modules_ms_before=DECODER_MODULES_MS)
         rec["step_peak_bytes"] = step_peak_bytes(tr, resumed.state)
         summary["configs"][key] = rec
     summary["power_spherical"] = power_spherical_on_card()
@@ -3598,6 +3645,12 @@ def variants_run(card, root):
             extra = (f"; K1 route vs module route {e['errors']}; eval of "
                      f"{e['batch']} windows (ms): " + ", ".join(
                          f"{k} {v:.3f}" for k, v in e["ms"].items()))
+        if "k1_decoder" in c:
+            d = c["k1_decoder"]
+            extra += (f"; K1 on the decoder alone {d['kernel_ms']:.3f} ms a {d['batch']} "
+                      f"batch (its plain version {d['plain_ms']:.3f}, bound {d['bound_ms']:.3f}"
+                      f" by {d['bound_by']}; the module decoder {DECODER_MODULES_MS} ms before it "
+                      "ran on K1)")
         print(f"variants {key} ({c['compute_dtype']}): train windows/s by epoch "
               f"{[round(v) for v in c['train_windows_per_s']]}; scoring windows/s "
               f"{ {w: round(v) for w, v in c['scoring_windows_per_s'].items()} }; AUC "
@@ -3811,7 +3864,7 @@ def encoders_run(card, root):
         return out
 
     dev = ["--device", DEVICE]
-    counters = launch_counters()
+    counters = dict(launch_counters(), stse_fused_decoder=stse_fused.decoder_launches)
     runs, launches = {}, {}
     Trainer.train_epoch = timed_epoch
     try:

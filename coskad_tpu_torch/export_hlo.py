@@ -19,7 +19,9 @@ The encoder step is K1 (the custom op `coskad_torch::stse_fused_hidden`, or
 buffer) where the library's eval forward takes it: the sts_gcn encoder on
 the card, in a layout the planner of its form takes (`STSE.kernel_takes`).
 Elsewhere it is the module path, with its bf16 rounding points (meta
-`encoder_route`: "K1" or "modules"). A K1 artifact
+`encoder_route`: "K1" or "modules"). The decoder variants' decoder step
+is K1 likewise, on the decoder's own packed operand, where the eval decode
+takes it (`STSAE.decoder_kernel_takes`). A K1 artifact
 moved to the CPU runs the op's CPU implementation, the plain version; a
 module-route artifact written on the CPU runs its modules on the card.
 
@@ -45,6 +47,7 @@ Artifact layout (zip):
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import zipfile
@@ -71,9 +74,9 @@ class _ScoringProgram(nn.Module):
     """One chunk's scoring program over `trainer.model` and `state`.
     `part`: "all" (windows -> scores, rec) or "encode" (windows -> z_mean,
     z_var); `_ScoreHalf` is the third, (z, windows) -> (scores, rec). The
-    packed K1 operand,
+    packed K1 operands (the encoder's, and the decoder variants' decoder's),
     folded before tracing (the fold's cache keys on storage pointers, which
-    traced tensors lack), is a buffer of its own."""
+    traced tensors lack), are buffers of their own."""
 
     def __init__(self, trainer, state, part: str = "all"):
         super().__init__()
@@ -88,6 +91,11 @@ class _ScoringProgram(nn.Module):
             weights, *self.k1_args = packed.op_args()
             self.k1_op = packed.op_name
             self.register_buffer("k1_weights", weights.clone())
+        self.k1_decoder = (trainer.device.type == "cuda" and cfg.model.use_decoder
+                           and self.model.decoder_kernel_takes())
+        if self.k1_decoder:
+            self.k1_decoder_packed = self.model.decoder_folded()[1]
+            self.register_buffer("k1_decoder_weights", self.k1_decoder_packed.weights.clone())
 
     def _batch(self, windows: torch.Tensor) -> torch.Tensor:
         """`gather_batch` with the identity transform (x' = 1x + 0y + 0,
@@ -108,13 +116,21 @@ class _ScoringProgram(nn.Module):
             h = self.model._module_hidden(batch, False, False)
         return self.model._project(h, False)
 
+    def _decoded(self, z: torch.Tensor) -> torch.Tensor:
+        """The reconstruction on the eval decode's route: K1 on the
+        decoder's packed operand, or the modules."""
+        if not self.k1_decoder:
+            return self.model.decode(z)
+        return self.model.k1_decode(z, dataclasses.replace(self.k1_decoder_packed,
+                                                           weights=self.k1_decoder_weights))
+
     def _scores(self, z: torch.Tensor, batch: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         from .train import objectives
 
         scores = objectives.window_scores(self.cfg, z, self.center, self.inv_cov,
                                           self.mean_vector)
         if self.cfg.model.use_decoder:
-            rec = torch.mean((self.model.decode(z) - batch) ** 2, dim=(1, 2, 3))
+            rec = torch.mean((self._decoded(z) - batch) ** 2, dim=(1, 2, 3))
         else:
             rec = scores.new_zeros(scores.shape[0])
         return scores.float(), rec.float()

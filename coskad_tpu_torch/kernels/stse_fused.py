@@ -33,6 +33,12 @@ output is the float32 hidden state, as the float32 form's. A folded or
 packed weight set carries its form (`FoldedSTSE.dtype`,
 `PackedSTSE.dtype`), and each function here takes the form it is given.
 
+Either form runs any STS-GCN stack its planner takes: the encoder, and the
+autoencoder's mirrored decoder (`fold_stse_params(prefix="decoder.")`,
+channels 64 -> 32 -> 16 -> 32 -> 2 at the paper's widths), whose input is the
+reverse projector's channel-major [B, H, T, V] and whose [B, T*V, 2] output
+is the reconstruction, node-major.
+
 Dispatch: each form is a custom op, `coskad_torch::stse_fused_hidden` and
 `coskad_torch::stse_fused_hidden_bf16` (registered when this module is
 imported; the library still builds at the first launch), so `torch.export`
@@ -59,8 +65,9 @@ _LAYOUT_COLS = 8  # ci, co, identity, off_m, off_w, off_wr, off_b, off_alpha
 _OCCUPANCY = ("windows_per_block", "smem_bytes", "blocks_per_sm")
 
 
-launches = LaunchCounter()  # both forms
+launches = LaunchCounter()  # both forms, both stacks
 bf16_launches = LaunchCounter()  # the bf16 form's alone
+decoder_launches = LaunchCounter()  # of `launches`, the decoder stack's (`STSAE.k1_decode`)
 
 
 class FoldedLayer(NamedTuple):
@@ -159,19 +166,21 @@ def _fold_rounded(state: Mapping[str, torch.Tensor], dense: str, bn: str,
 
 
 def fold_stse_params(state: Mapping[str, torch.Tensor],
-                     dtype: torch.dtype = torch.float32) -> FoldedSTSE:
-    """Fold an STSE's state (`STSE.state_dict()` names, which are the flax
-    variable paths joined by '.') into the kernel's weight set of the form
-    `dtype`. At float32 the linear projector (`btlnk.kernel`) is carried
-    along; with any other projector the encoder is folded alone and w_proj
-    / b_proj are None. At bfloat16 the weights are the module path's own,
-    rounded as it rounds them (`fold_dense_bn`, M rounded), and the
-    projector is never carried."""
+                     dtype: torch.dtype = torch.float32, prefix: str = "encoder.") -> FoldedSTSE:
+    """Fold an STS-GCN stack of a model's state (`state_dict()` names, which
+    are the flax variable paths joined by '.') into the kernel's weight set
+    of the form `dtype`. `prefix` names the stack: "encoder." (an STSE's)
+    or "decoder." (an STSAE's or STSVAE's mirrored stack, whose layers are
+    the encoder's `STSGCNLayer`). At float32 the encoder's linear projector
+    (`btlnk.kernel`) is carried along; with any other projector, for the
+    decoder and at bfloat16 w_proj / b_proj are None. At bfloat16 the
+    weights are the module path's own, rounded as it rounds them
+    (`fold_dense_bn`, M rounded)."""
     bf16 = dtype == torch.bfloat16
     layers = []
     i = 0
-    while f"encoder.layer_{i}.gcn.t_adj" in state:
-        pre = f"encoder.layer_{i}"
+    while f"{prefix}layer_{i}.gcn.t_adj" in state:
+        pre = f"{prefix}layer_{i}"
         fold = ((lambda d, n: _fold_rounded(state, d, n, dtype)) if bf16
                 else (lambda d, n: _fold_dense_bn(state, d, n)))
         w, b = fold(f"{pre}.tcn_dense", f"{pre}.tcn_bn")
@@ -185,10 +194,10 @@ def fold_stse_params(state: Mapping[str, torch.Tensor],
         layers.append(FoldedLayer(graph, w, b, w_res, b_res, state[f"{pre}.prelu.alpha"]))
         i += 1
     if not layers:
-        raise ValueError("state holds no encoder.layer_0: not an STS-GCN STSE")
+        raise ValueError(f"state holds no {prefix}layer_0: not an STS-GCN stack")
     if bf16:
         return FoldedSTSE(layers, None, None, torch.bfloat16)
-    w_proj = state.get("btlnk.kernel")
+    w_proj = state.get("btlnk.kernel") if prefix == "encoder." else None
     if w_proj is None:
         return FoldedSTSE(layers, None, None)
     b_proj = state.get("btlnk.bias")

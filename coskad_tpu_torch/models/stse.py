@@ -18,9 +18,11 @@ The eval forward takes the encoder's hidden state on one of two routes
     the model's compute dtype takes (`STSE.kernel_takes`): at float32 K1,
     at bf16 K1's bf16 form, which rounds where the module path rounds.
     Weights folded once and cached until a tensor the fold reads changes,
-    then the projector, the VAE heads, the reverse projector and the
-    decoder as modules in eval mode; the kernel has no backward, so this
-    route raises where autograd would record it, at either dtype;
+    then the projector and the VAE heads as modules in eval mode; the
+    decoder variants' reverse projector, then K1 again on the decoder's
+    stack (`STSAE.decode`, its own fold cache and planner answer); the
+    kernel has no backward, so this route raises where autograd would
+    record it, at either dtype;
   * the module path, layer by layer, everywhere else: on the CPU, and on
     the card for the other encoders and for a layout the planner refuses
     (more than 8 layers, more than 64 channels a layer, activations past a
@@ -44,6 +46,7 @@ the VAE heads are built without it, as in JAX, and compute in float32.
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Iterable, Optional, Sequence, Tuple
 
@@ -58,8 +61,27 @@ from ..utils.profiling import span
 from .encoders import make_encoder
 from .stsgcn import Dense, MLPHead, STSGCNStack, _uniform_, rounded
 
-# the state K1's fold reads (`stse_fused.fold_stse_params`): its cache key
-_FOLDED = ("encoder.", "btlnk.")
+def _state(stack: Iterable[Tuple[str, nn.Module]]) -> dict:
+    """The parameters and buffers of the named modules, under their state
+    names (`keep_vars`): a stack's fold reads these alone, so its cache key
+    walks them and no other part of the model."""
+    state = {}
+    for prefix, module in stack:
+        state.update(module.state_dict(prefix=prefix, keep_vars=True))
+    return state
+
+
+def _refold(cache: Optional[tuple], state: dict, prefix: str, dtype: torch.dtype) -> tuple:
+    """A fold cache (key, folded, packed) of the stack `prefix` of `state`:
+    `cache` itself while no tensor of `state` was replaced or modified in
+    place since it was built, else K1's weights folded and packed anew."""
+    key = tuple((t.data_ptr(), t._version) for t in state.values())
+    if cache is None or cache[0] != key:
+        with torch.no_grad(), span("k1.fold"):
+            folded = stse_fused.fold_stse_params(
+                {k: t.detach() for k, t in state.items()}, dtype, prefix)
+            cache = (key, folded, stse_fused.pack_folded(folded))
+    return cache
 
 
 def eval_uses_kernel(for_kernel: bool, tensors: Iterable[torch.Tensor]) -> bool:
@@ -129,6 +151,22 @@ class ReverseProjector(nn.Module):
         b = rounded(self.bias, dt).reshape(h, t, v).permute(1, 2, 0).reshape(-1)
         out = rounded(rounded(rounded(z, dt) @ w, dt) + b, dt)
         return out.reshape(z.shape[0], t, v, h)
+
+    def channel_major(self, z: torch.Tensor) -> torch.Tensor:
+        """The same hidden state in the reference's channel-major order, [B,
+        H, T, V] contiguous: the latent times the kernel as it is stored,
+        plus the bias, rounded as `forward` rounds, with no transpose (K1's
+        input layout, for the decoder's eval route). Split over a model axis
+        the blocks are gathered into the whole flat hidden first."""
+        dt = self.dtype
+        h, t, v = self.shape
+        if self.split is not None:
+            part = rounded(mesh.model_copy(rounded(z, dt), self.split)
+                           @ rounded(self.kernel, dt), dt)
+            flat = mesh.model_gather(part, self.split)
+        else:
+            flat = rounded(rounded(z, dt) @ rounded(self.kernel, dt), dt)
+        return rounded(flat + rounded(self.bias, dt), dt).reshape(-1, h, t, v).contiguous()
 
 
 class STSE(nn.Module):
@@ -206,8 +244,9 @@ class STSE(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """The encoder's hidden state on the forward's route: [B, T, V, H]
         from the module path, [B, T*V, H] from K1 (the same flatten)."""
-        if not train and eval_uses_kernel(x.is_cuda and self.kernel_takes(),
-                                          [x, *self.parameters()]):
+        if not train and eval_uses_kernel(
+                x.is_cuda and self.kernel_takes(),
+                [x, *(p for _, m in self._encoder_stack() for p in m.parameters())]):
             folded, packed = self.folded()
             return stse_fused.fused_stse_hidden(x.contiguous(), folded, packed)
         return self._module_hidden(x, train, frozen_bn, generator)
@@ -228,15 +267,17 @@ class STSE(nn.Module):
         dtype, rebuilt only when a tensor the fold reads (`encoder.*`,
         `btlnk.*`) was replaced or modified in place: a decoder or VAE head
         update keeps the cache."""
-        state = {k: t for k, t in self.state_dict(keep_vars=True).items()
-                 if k.startswith(_FOLDED)}
-        key = tuple((t.data_ptr(), t._version) for t in state.values())
-        if self._fold_cache is None or self._fold_cache[0] != key:
-            with torch.no_grad(), span("k1.fold"):
-                folded = stse_fused.fold_stse_params(
-                    {k: t.detach() for k, t in state.items()}, self.dtype)
-                self._fold_cache = (key, folded, stse_fused.pack_folded(folded))
+        self._fold_cache = _refold(self._fold_cache, _state(self._encoder_stack()), "encoder.",
+                                   self.dtype)
         return self._fold_cache[1], self._fold_cache[2]
+
+    def _encoder_stack(self) -> list:
+        """What K1's fold of the encoder reads (`stse_fused.fold_stse_params`)
+        and its route cuts from autograd's graph: the encoder and the
+        projector (none in a VAE that projects by the identity), by their
+        state prefixes."""
+        return [(k, m) for k, m in (("encoder.", self.encoder), ("btlnk.", self.btlnk))
+                if m is not None]
 
     def forward(self, x: torch.Tensor, train: bool = False, frozen_bn: bool = False,
                 dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -248,8 +289,10 @@ class STSAE(STSE):
     reconstruction [B, C_in, T, V]). The decoder (`decoder`, its channels
     `decoder_channels` or the encoder's reversed, then C_in) reads the
     reverse projector's hidden state (`rev_btlnk`); it has the encoder's
-    train, eval and `frozen_bn` semantics and runs as modules on every
-    route."""
+    train, eval and `frozen_bn` semantics. Its eval forward takes the
+    encoder's two routes: K1 on the decoder's stack (`decoder_kernel_takes`,
+    `decoder_folded`), fed `rev_btlnk`'s channel-major hidden state, for a
+    latent on the card; the modules elsewhere."""
 
     def __init__(self, input_dim: int = 2, layer_channels: Sequence[int] = (32, 16, 32),
                  hidden_dimension: int = 64, latent_dim: int = 16, n_frames: int = 12,
@@ -265,12 +308,54 @@ class STSAE(STSE):
         channels = list(decoder_channels or list(layer_channels)[::-1]) + [input_dim]
         self.decoder = STSGCNStack(hidden_dimension, channels, n_frames, n_joints, use_bias,
                                    dtype, self.dropout)
+        self._decoder_fold_cache: Optional[Tuple[tuple, stse_fused.FoldedSTSE,
+                                                 stse_fused.PackedSTSE]] = None
+        self._decoder_kernel_takes: Optional[bool] = None
+
+    def decoder_folded(self) -> Tuple[stse_fused.FoldedSTSE, stse_fused.PackedSTSE]:
+        """K1's folded and packed weights of the decoder's stack in the form
+        of the compute dtype, rebuilt only when a `decoder.*` tensor was
+        replaced or modified in place: an encoder, head or reverse projector
+        update keeps the cache."""
+        self._decoder_fold_cache = _refold(self._decoder_fold_cache,
+                                           _state([("decoder.", self.decoder)]), "decoder.",
+                                           self.dtype)
+        return self._decoder_fold_cache[1], self._decoder_fold_cache[2]
+
+    def decoder_kernel_takes(self) -> bool:
+        """Whether the eval decode on the card runs K1: the planner of the
+        form for the compute dtype takes the decoder's layout (asked once)."""
+        if self._decoder_kernel_takes is None:
+            self._decoder_kernel_takes = stse_fused.takes(self.decoder_folded()[1])
+        return self._decoder_kernel_takes
+
+    def k1_decode(self, z: torch.Tensor, packed: stse_fused.PackedSTSE) -> torch.Tensor:
+        """The eval decode on K1: `rev_btlnk`'s channel-major hidden state
+        through the decoder's packed stack (`decoder_folded`, or the scoring
+        artifact's copy), the reconstruction [B, C_in, T, V] a view of the
+        kernel's [B, T*V, C_in] output. `stse_fused.decoder_launches` adds
+        the launches the op made (none for its CPU implementation)."""
+        before = stse_fused.launches.value
+        h = getattr(torch.ops.coskad_torch, packed.op_name)(self.rev_btlnk.channel_major(z),
+                                                            *packed.op_args())
+        stse_fused.decoder_launches.value += stse_fused.launches.value - before
+        return h.reshape(h.shape[0], self.n_frames, self.n_joints, h.shape[-1]).permute(
+            0, 3, 1, 2)
 
     def decode(self, z: torch.Tensor, train: bool = False, frozen_bn: bool = False,
                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """latent [B, D] -> reconstruction [B, C_in, T, V]."""
-        return self.decoder(self.rev_btlnk(z), train=train, frozen_bn=frozen_bn,
-                            generator=dropout_generator).permute(0, 3, 1, 2)
+        """latent [B, D] -> reconstruction [B, C_in, T, V]. In eval under the
+        `eval.decode` span, and on the card through K1, which raises where
+        autograd would record it."""
+        if train:
+            return self.decoder(self.rev_btlnk(z), train=True, frozen_bn=frozen_bn,
+                                generator=dropout_generator).permute(0, 3, 1, 2)
+        with span("eval.decode", profiled=False):
+            if eval_uses_kernel(
+                    z.is_cuda and self.decoder_kernel_takes(),
+                    itertools.chain((z,), self.rev_btlnk.parameters(), self.decoder.parameters())):
+                return self.k1_decode(z, self.decoder_folded()[1])
+            return self.decoder(self.rev_btlnk(z)).permute(0, 3, 1, 2)
 
     def forward(self, x: torch.Tensor, train: bool = False, frozen_bn: bool = False,
                 dropout_generator: Optional[torch.Generator] = None
@@ -291,7 +376,8 @@ class STSVAE(STSAE):
 
     z is drawn from `generator` (`sample=True`, JAX's default), is the mean
     (`sample=False`), or comes from fed draws (`sample_draws`: (z01, v_raw)
-    for 'ps', (eps,) for 'normal'; the lockstep hook)."""
+    for 'ps', (eps,) for 'normal'; the lockstep hook). The decoder is
+    STSAE's, on its routes."""
 
     def __init__(self, *args, distribution: str = "ps", kappa_floor: float = 1.0, **kwargs):
         super().__init__(*args, **kwargs)

@@ -22,7 +22,8 @@ per chunk, gather the batch (sample i % N, transform i // N), then
     latents is added with that weight;
   * score (`score_all`, `embed_all`): the eval forward (on CUDA the fused
     encoder kernel K1, at float32 or in its bf16 form) and the variant's window score; the
-    decoder variants also give each window's reconstruction MSE.
+    decoder variants also give each window's reconstruction MSE (on CUDA
+    the reverse projector, then K1 again on the decoder's stack).
 
 The VAE draws its training samples from a `torch.Generator` seeded from
 (cfg.run.seed, step), so a resumed run draws what a straight one does; an
@@ -422,7 +423,9 @@ class Trainer:
     def _embed_step(self, data, indices, window_shape=None, generator=None, store=None
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Eval-mode latents for one batch of logical indices, and for the
-        decoder variants each window's reconstruction MSE (else None)."""
+        decoder variants each window's reconstruction MSE over (C, T, V)
+        (else None); on K1's route the reconstruction is a view of the
+        kernel's [B, T*V, C] output, read by the MSE as it lies."""
         with span("eval.gather", profiled=False):
             batch = self._gather(data, indices, window_shape=window_shape, store=store)
         with span("eval.forward", profiled=False):

@@ -62,6 +62,7 @@ from coskad_tpu_torch.train.loop import Trainer
 from coskad_tpu_torch.utils.logging import MetricLogger
 from test_torch_bf16 import BAND, COSINE, assert_band, cpu_bf16_dots
 from test_torch_cli import narrow_dataset
+from test_torch_decoder_route import _OnCard, _Planner
 from test_torch_hyperbolic import lockstep_setup
 from test_torch_mlp_head import jittered
 from test_torch_stse_train import close_grad
@@ -235,6 +236,32 @@ def test_stsae_matches_flax_at_bf16(mode):
     with cpu_bf16_dots():
         got, want, extra = forward_pair(jmodel, variables, model, x, mode)
     assert_pair(got, want, extra, "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_the_k1_decode_route_matches_flax_decode(monkeypatch, dtype):
+    """`STSAE.decode`'s eval route on K1 (the reverse projector's
+    channel-major hidden state through the decoder's packed stack), taken
+    for a latent that claims to be on the card with a planner that takes
+    the layout, so that the custom op's CPU implementation (the kernel's
+    plain version) runs where the kernel would and the module decoder does
+    not: flax's `decode` of the same weights and latents, in the file's
+    bands."""
+    jmodel, variables, model, _ = variant_pair("mlp", dtype, seed=5, use_decoder=True)
+    monkeypatch.setattr(stse_fused, "_library", lambda: _Planner())
+    model.eval().requires_grad_(False)
+    assert model.decoder_kernel_takes()
+    monkeypatch.setattr(model.decoder, "forward", None)  # the modules must not run
+    z = np.random.default_rng(7).normal(size=(16, NARROW["latent_dim"])).astype(np.float32)
+    with cpu_bf16_dots():
+        want = np.asarray(jmodel.apply(variables, jnp.asarray(z), method=type(jmodel).decode))
+    with torch.no_grad():
+        got = model.decode(torch.from_numpy(z).as_subclass(_OnCard)).as_subclass(torch.Tensor)
+    assert got.shape == want.shape == (16, 2, NARROW["n_frames"], NARROW["n_joints"])
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+    else:
+        assert_band(got.numpy(), want, "reconstruction")
 
 
 def test_build_model_dispatches_as_jax():

@@ -11,6 +11,8 @@ tests/torch_dp_worker.py's data: 96 windows, batch 32, 2 epochs, SGD.
     block hold the same replicated weights, statistics and scores), and
     each rank's blocks of the split kernels the shards of JAX's
     `shard_params` on the same mesh;
+  * the split reverse projector's channel-major hidden state (the
+    decoder's K1 input) gathered whole on every rank;
   * a checkpoint round trip: one process writes, the mesh restores and
     writes the same bytes back, trains an Adam epoch and writes again, and
     that file restores in one process and in JAX to the mesh's latents;
@@ -166,6 +168,19 @@ def test_the_mesh_matches_one_process(name, runs):
         assert sorted(mine) == sorted(theirs)
         for k in theirs:
             _close(mine[k], theirs[k], band, k)
+
+
+@pytest.mark.parametrize("name", ["autoencoder", "vae"])
+def test_the_split_reverse_projector_gathers_the_whole_channel_major_hidden(name, runs):
+    """K1's decoder input under a model axis (`ReverseProjector.channel_major`):
+    each rank gathers the whole flat hidden state, the module route's
+    [B, T, V, H] transposed, and one process's to its band."""
+    one = runs["one"][name]
+    for rank, got in enumerate(runs["mp"][name]):
+        assert got["rev_channel_major"].shape == one["rev_channel_major"].shape, f"rank {rank}"
+        np.testing.assert_array_equal(got["rev_channel_major"].transpose(0, 2, 3, 1),
+                                      got["rev_hidden"], err_msg=f"rank {rank}")
+        _close(got["rev_channel_major"], one["rev_channel_major"], PARAMS, f"rank {rank}")
 
 
 @pytest.mark.parametrize("name", JAX_SCENARIOS + PORT_SCENARIOS + ("checkpoint",))

@@ -28,7 +28,7 @@ import pytest
 import torch
 
 from coskad_tpu_torch.kernels import build, stse_fused
-from coskad_tpu_torch.models import STSE
+from coskad_tpu_torch.models import STSAE, STSE
 from coskad_tpu_torch.models.stse import eval_uses_kernel
 
 torch.set_num_threads(1)
@@ -140,6 +140,56 @@ def test_host_run_of_bf16_form_matches_module_path(host_kernel, input_dim, chann
     assert bool(torch.isfinite(out).all())
     assert err <= 2.0 ** -5 * max(float(ref.abs().max()), 1.0), err
     assert float((out == ref).float().mean()) > 0.9
+
+
+def _autoencoder(dtype):
+    """The UBnormal autoencoder's widths (encoder 2 -> 32 -> 16 -> 32 -> 64,
+    decoder 64 -> 32 -> 16 -> 32 -> 2, latent 16, 12 frames x 17 joints) on
+    seeded weights and BatchNorm statistics."""
+    gen = torch.Generator().manual_seed(6)
+    model = STSAE(input_dim=2, layer_channels=(32, 16, 32), hidden_dimension=64,
+                  latent_dim=16, n_frames=12, n_joints=17, projector="mlp", dtype=dtype)
+    model.reset_parameters(gen)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            lo, hi = (-0.5, 0.5) if name.endswith(".mean") else (0.5, 2.0)
+            buf.copy_(torch.empty(buf.shape).uniform_(lo, hi, generator=gen))
+    return model.eval()
+
+
+@pytest.mark.parametrize("dtype,windows", [(torch.float32, 1), (torch.bfloat16, 2)])
+def test_host_run_of_the_decoder_stack_matches_the_module_decoder(host_kernel, dtype,
+                                                                  windows):
+    """The autoencoder's decoder stack at 204 nodes, packed by
+    `STSAE.decoder_folded` and fed the reverse projector's channel-major
+    hidden state, against the module decoder in this file's bands. Both
+    planners take it: the float32 form one window a block (its first layer
+    takes 64 channels in, so two windows' activations pass a block's shared
+    memory), the bf16 form two (64 channels in fill a warp's 16 tiles of G
+    at two windows); 3 windows leave a ragged last block."""
+    model = _autoencoder(dtype)
+    z = torch.randn(3, 16, generator=torch.Generator().manual_seed(8))
+    folded, packed = model.decoder_folded()
+    assert stse_fused.takes(packed, host_kernel)
+    assert stse_fused.occupancy(packed, host_kernel)["windows_per_block"] == windows
+    with torch.no_grad():
+        x = model.rev_btlnk.channel_major(z)
+        ref = model.decoder(model.rev_btlnk(z)).reshape(3, 204, 2)
+    host_kernel.emu_mma_count(0), host_kernel.emu_mma_count(1)
+    out = _run(host_kernel, x, packed, 2)
+    tf32, bf16 = host_kernel.emu_mma_count(0), host_kernel.emu_mma_count(1)
+    assert bool(torch.isfinite(out).all())
+    if dtype == torch.float32:
+        assert tf32 > 0 and bf16 == 0, (tf32, bf16)
+        torch.testing.assert_close(out, ref, **TOL)
+        with torch.no_grad():
+            torch.testing.assert_close(out, stse_fused.fused_stse_hidden_reference(x, folded),
+                                       **TOL)
+    else:
+        assert tf32 == 0 and bf16 > 0, (tf32, bf16)
+        err = float((out - ref).abs().max())
+        assert err <= 2.0 ** -5 * max(float(ref.abs().max()), 1.0), err
+        assert float((out == ref).float().mean()) > 0.9
 
 
 def test_bf16_route_plan_and_launch_counters(host_kernel, monkeypatch):

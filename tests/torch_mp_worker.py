@@ -80,6 +80,11 @@ def results(trainer, state, log, history, ds) -> dict:
     out.update({f"batch_stats/{k}": v for k, v in flatten_tree(stats).items()})
     out.update({f"local_shape/{k}": np.asarray(p.shape)
                 for k, p in trainer.model.named_parameters()})
+    if hasattr(trainer.model, "rev_btlnk"):  # the decoder's K1 input, and the modules'
+        probe = torch.linspace(-1.0, 1.0, 3 * trainer.cfg.model.latent_dim).reshape(3, -1)
+        with torch.no_grad():
+            out["rev_channel_major"] = trainer.model.rev_btlnk.channel_major(probe).numpy()
+            out["rev_hidden"] = trainer.model.rev_btlnk(probe).numpy()
     return out
 
 
