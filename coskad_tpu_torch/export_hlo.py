@@ -88,8 +88,8 @@ class _ScoringProgram(nn.Module):
         self.k1 = trainer.device.type == "cuda" and self.model.kernel_takes()
         if self.k1:
             _, packed = self.model.folded()
-            weights, *self.k1_args = packed.op_args()
-            self.k1_op = packed.op_name
+            weights, *self.k1_args = packed.op_args
+            self.k1_op = packed.op
             self.register_buffer("k1_weights", weights.clone())
         self.k1_decoder = (trainer.device.type == "cuda" and cfg.model.use_decoder
                            and self.model.decoder_kernel_takes())
@@ -110,8 +110,7 @@ class _ScoringProgram(nn.Module):
     def _features(self, batch: torch.Tensor) -> torch.Tensor:
         """The projected hidden state on the eval forward's route."""
         if self.k1:
-            h = getattr(torch.ops.coskad_torch, self.k1_op)(batch.contiguous(),
-                                                            self.k1_weights, *self.k1_args)
+            h = self.k1_op(batch.contiguous(), self.k1_weights, *self.k1_args)
         else:
             h = self.model._module_hidden(batch, False, False)
         return self.model._project(h, False)

@@ -50,9 +50,11 @@ calls the op for a CUDA tensor and the plain version for a CPU tensor.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 from dataclasses import dataclass
-from typing import List, Mapping, NamedTuple, Optional, Tuple
+from typing import List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -68,6 +70,10 @@ _OCCUPANCY = ("windows_per_block", "smem_bytes", "blocks_per_sm")
 launches = LaunchCounter()  # both forms, both stacks
 bf16_launches = LaunchCounter()  # the bf16 form's alone
 decoder_launches = LaunchCounter()  # of `launches`, the decoder stack's (`STSAE.k1_decode`)
+# a model's launch plan for a stack (`models/stse.py::_Plan`), both forms,
+# both stacks: reused, and built (folded and packed) anew
+plan_hits = LaunchCounter()
+plan_builds = LaunchCounter()
 
 
 class FoldedLayer(NamedTuple):
@@ -91,11 +97,13 @@ class FoldedSTSE(NamedTuple):
     dtype: torch.dtype = torch.float32
 
 
-@dataclass
+@dataclass(frozen=True)
 class PackedSTSE:
     """The kernel's weight set: one contiguous float32 buffer on the device
     plus a host table of per-layer sizes and offsets; the bf16 form's M^T
-    and W^T segments hold bf16 values, two a float."""
+    and W^T segments hold bf16 values, two a float. It does not change once
+    built, so its op and the op's arguments are made once (`op`,
+    `op_args`)."""
 
     weights: torch.Tensor  # flat float32, every segment 16-byte aligned
     layout: np.ndarray  # [n_layers, 8] int64, see _LAYOUT_COLS
@@ -103,16 +111,18 @@ class PackedSTSE:
     n_pad: int  # T*V rounded up to 16: M is [n_pad, n_pad]
     dtype: torch.dtype = torch.float32  # the form, as FoldedSTSE's
 
-    @property
-    def op_name(self) -> str:
-        """The form's custom op under `torch.ops.coskad_torch`."""
-        return "stse_fused_hidden_bf16" if self.dtype == torch.bfloat16 else "stse_fused_hidden"
+    @functools.cached_property
+    def op(self):
+        """The form's custom op under `torch.ops.coskad_torch`, its one
+        overload."""
+        name = "stse_fused_hidden_bf16" if self.dtype == torch.bfloat16 else "stse_fused_hidden"
+        return getattr(torch.ops.coskad_torch, name).default
 
+    @functools.cached_property
     def op_args(self) -> Tuple[torch.Tensor, List[int], int, int]:
         """The custom op's arguments after x: (weights, layout flat as a
-        list of ints, n_nodes, n_pad)."""
-        return (self.weights, [int(v) for v in np.asarray(self.layout).ravel()],
-                self.n_nodes, self.n_pad)
+        list of ints, n_nodes, n_pad), built once."""
+        return self.weights, self.layout.ravel().tolist(), self.n_nodes, self.n_pad
 
 
 def _fold_dense_bn(state: Mapping[str, torch.Tensor], dense: str, bn: str,
@@ -442,11 +452,10 @@ def _library():
     return build.load("stse_fused", bind)
 
 
-def _entry(lib, packed: PackedSTSE, name: str):
-    """The library's C entry `name` of `packed`'s form (stse_fused_<name>
-    or stse_fused_bf16_<name>)."""
-    form = "stse_fused_bf16_" if packed.dtype == torch.bfloat16 else "stse_fused_"
-    return getattr(lib, form + name)
+def _entry(lib, bf16: bool, name: str):
+    """The library's C entry `name` of the form (stse_fused_<name>, or
+    stse_fused_bf16_<name> for `bf16`)."""
+    return getattr(lib, ("stse_fused_bf16_" if bf16 else "stse_fused_") + name)
 
 
 def takes(packed: PackedSTSE, lib=None) -> bool:
@@ -463,8 +472,9 @@ def takes(packed: PackedSTSE, lib=None) -> bool:
     lib = _library() if lib is None else lib
     layout = np.ascontiguousarray(packed.layout, np.int64)
     out = np.zeros(2, np.int32)
-    return _entry(lib, packed, "plan")(layout.ctypes.data, len(layout), packed.n_nodes,
-                                       packed.n_pad, out.ctypes.data) == 0
+    plan = _entry(lib, packed.dtype == torch.bfloat16, "plan")
+    return plan(layout.ctypes.data, len(layout), packed.n_nodes, packed.n_pad,
+                out.ctypes.data) == 0
 
 
 def occupancy(packed: PackedSTSE, lib=None) -> dict:
@@ -476,46 +486,61 @@ def occupancy(packed: PackedSTSE, lib=None) -> dict:
     layout = np.ascontiguousarray(packed.layout, np.int64)
     keys = _OCCUPANCY + (("threads",) if packed.dtype == torch.bfloat16 else ())
     out = np.zeros(len(keys), np.int32)
-    err = _entry(lib, packed, "occupancy")(layout.ctypes.data, len(layout), packed.n_nodes,
-                                           packed.n_pad, out.ctypes.data)
+    err = _entry(lib, packed.dtype == torch.bfloat16, "occupancy")(
+        layout.ctypes.data, len(layout), packed.n_nodes, packed.n_pad, out.ctypes.data)
     if err != 0:
         raise RuntimeError(
             f"stse_fused_occupancy failed: {lib.stse_fused_error_string(err).decode()}")
     return {k: int(v) for k, v in zip(keys, out)}
 
 
-def _launch(x: torch.Tensor, packed: PackedSTSE) -> torch.Tensor:
-    lay = packed.layout
-    bf16 = packed.dtype == torch.bfloat16
+class _Layout(NamedTuple):
+    """A flat layout as the C entries take it, and what `_launch` reads of
+    it."""
+
+    array: np.ndarray  # [n_layers, 8] int64, contiguous
+    pointer: int  # the array's data, for ctypes
+    c_in: int  # the first layer's C_in
+    c_out: int  # the last layer's C_out
+
+
+@functools.lru_cache(maxsize=64)
+def _layout(flat: Tuple[int, ...]) -> _Layout:
+    """The layout `flat` (`PackedSTSE.op_args`' list, as a tuple), made
+    once a layout: the op is handed a new list each call."""
+    if not flat or len(flat) % _LAYOUT_COLS:
+        raise ValueError(f"a layout is rows of {_LAYOUT_COLS} ints, not {len(flat)} ints")
+    array = np.array(flat, np.int64).reshape(-1, _LAYOUT_COLS)
+    return _Layout(array, array.ctypes.data, int(array[0, 0]), int(array[-1, 1]))
+
+
+def _launch(x: torch.Tensor, weights: torch.Tensor, layout: Sequence[int], n_nodes: int,
+            n_pad: int, bf16: bool) -> torch.Tensor:
+    """The kernel of the form (`bf16`) on x, the custom ops' CUDA body. It
+    checks what a caller can get wrong: x contiguous float32 [B, C_in, T,
+    V] with T*V the layout's nodes, the weights float32, 16-byte aligned
+    and on x's device. The layout's limits are the planner's, which the C
+    entry runs on every launch: a refused layout raises with its message.
+    The launch switches the current device only where x is on another."""
+    lay = _layout(tuple(layout))
     b, c, t, v = x.shape
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("the stse_fused kernel takes a contiguous float32 [B, C, T, V]")
-    if c != lay[0, 0] or t * v != packed.n_nodes:
+    if c != lay.c_in or t * v != n_nodes:
         raise ValueError(
             f"input [B, {c}, {t}, {v}] does not match the packed weights "
-            f"(C_in {lay[0, 0]}, T*V {packed.n_nodes})")
-    w = packed.weights
-    if w.device != x.device or w.dtype != torch.float32 or w.data_ptr() % 16:
+            f"(C_in {lay.c_in}, T*V {n_nodes})")
+    if weights.device != x.device or weights.dtype != torch.float32 or weights.data_ptr() % 16:
         raise ValueError("packed weights must be 16-byte aligned float32 on the input's device")
-    if len(lay) > 8:
-        raise ValueError("the stse_fused kernel takes at most 8 layers")
-    if bf16 and int(lay[:, 0].max()) > 64:
-        raise ValueError("the stse_fused bf16 kernel takes at most 64 channels a layer")
-    if not bf16 and (max(min(int(ci), int(co)) for ci, co in lay[:, :2]) > 64
-                     or int(lay[:-1, 1].max(initial=0)) > 64):
-        raise ValueError("the stse_fused kernel contracts at most 64 channels a layer, and "
-                         "an inner layer puts out at most 64")
-    out = torch.empty((b, packed.n_nodes, int(lay[-1, 1])), dtype=torch.float32,
-                      device=x.device)
+    out = torch.empty((b, n_nodes, lay.c_out), dtype=torch.float32, device=x.device)
     if b == 0:
         return out
     lib = _library()
-    layout = np.ascontiguousarray(lay, np.int64)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _entry(lib, packed, "forward")(
-            x.data_ptr(), w.data_ptr(), layout.ctypes.data, len(layout), b,
-            packed.n_nodes, packed.n_pad, out.data_ptr(), stream)
+    forward = _entry(lib, bf16, "forward")
+    elsewhere = x.device.index != torch.cuda.current_device()
+    with torch.cuda.device(x.device) if elsewhere else contextlib.nullcontext():
+        err = forward(x.data_ptr(), weights.data_ptr(), lay.pointer, len(lay.array), b, n_nodes,
+                      n_pad, out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"stse_fused kernel launch failed: {lib.stse_fused_error_string(err).decode()}")
@@ -532,8 +557,7 @@ def stse_fused_hidden_op(x, weights, layout, n_nodes, n_pad):
     """K1 as a custom op: [B, C, T, V] windows and a packed operand
     (`PackedSTSE.op_args`) -> hidden state [B, n_nodes, C_hidden] float32.
     On CUDA it launches the kernel, with every check of `_launch`."""
-    lay = np.asarray(layout, np.int64).reshape(-1, _LAYOUT_COLS)
-    return _launch(x, PackedSTSE(weights, lay, n_nodes, n_pad))
+    return _launch(x, weights, layout, n_nodes, n_pad, False)
 
 
 @stse_fused_hidden_op.register_kernel("cpu")
@@ -553,8 +577,7 @@ def _stse_fused_hidden_fake(x, weights, layout, n_nodes, n_pad):
 def stse_fused_hidden_bf16_op(x, weights, layout, n_nodes, n_pad):
     """K1's bf16 form as a custom op: [B, C, T, V] float32 windows and a
     bf16 packed operand -> hidden state [B, n_nodes, C_hidden] float32."""
-    lay = np.asarray(layout, np.int64).reshape(-1, _LAYOUT_COLS)
-    return _launch(x, PackedSTSE(weights, lay, n_nodes, n_pad, torch.bfloat16))
+    return _launch(x, weights, layout, n_nodes, n_pad, True)
 
 
 @stse_fused_hidden_bf16_op.register_kernel("cpu")
@@ -576,7 +599,7 @@ def fused_stse_hidden(x: torch.Tensor, folded: FoldedSTSE,
     version."""
     if x.is_cuda:
         packed = packed if packed is not None else pack_folded(folded)
-        return getattr(torch.ops.coskad_torch, packed.op_name)(x, *packed.op_args())
+        return packed.op(x, *packed.op_args)
     if x.device.type != "cpu":
         raise ValueError(f"stse_fused runs on CUDA or CPU tensors, not {x.device}")
     if folded.dtype == torch.bfloat16:

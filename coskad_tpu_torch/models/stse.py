@@ -17,10 +17,12 @@ The eval forward takes the encoder's hidden state on one of two routes
     the card, the `sts_gcn` encoder and a layout the planner of the form of
     the model's compute dtype takes (`STSE.kernel_takes`): at float32 K1,
     at bf16 K1's bf16 form, which rounds where the module path rounds.
-    Weights folded once and cached until a tensor the fold reads changes,
-    then the projector and the VAE heads as modules in eval mode; the
-    decoder variants' reverse projector, then K1 again on the decoder's
-    stack (`STSAE.decode`, its own fold cache and planner answer); the
+    Weights folded once into a launch plan a stack (`_Plan`: the packed
+    operand and the op's arguments, kept until a tensor the fold reads
+    changes, checked by storage and version), then the projector and the
+    VAE heads as modules in eval mode; the decoder variants' reverse
+    projector, then K1 again on the decoder's stack (`STSAE.decode`, its
+    own plan and planner answer); the
     kernel has no backward, so this route raises where autograd would
     record it, at either dtype;
   * the module path, layer by layer, everywhere else: on the CPU, and on
@@ -46,13 +48,14 @@ the VAE heads are built without it, as in JAX, and compute in float32.
 
 from __future__ import annotations
 
-import itertools
 import math
-from typing import Iterable, Optional, Sequence, Tuple
+import operator
+from typing import Callable, Iterable, Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.modules import module as module_hooks
 
 from ..geometry.sphere import PowerSpherical
 from ..kernels import stse_fused
@@ -61,27 +64,99 @@ from ..utils.profiling import span
 from .encoders import make_encoder
 from .stsgcn import Dense, MLPHead, STSGCNStack, _uniform_, rounded
 
-def _state(stack: Iterable[Tuple[str, nn.Module]]) -> dict:
-    """The parameters and buffers of the named modules, under their state
-    names (`keep_vars`): a stack's fold reads these alone, so its cache key
-    walks them and no other part of the model."""
-    state = {}
-    for prefix, module in stack:
-        state.update(module.state_dict(prefix=prefix, keep_vars=True))
-    return state
+# Registrations of a parameter, buffer or submodule on any module of the
+# process, counted by torch.nn's global registration hooks from the first
+# launch plan on (`_Plan`): a plan walks its stack again after one.
+_registrations = 0
+_watching = False
 
 
-def _refold(cache: Optional[tuple], state: dict, prefix: str, dtype: torch.dtype) -> tuple:
-    """A fold cache (key, folded, packed) of the stack `prefix` of `state`:
-    `cache` itself while no tensor of `state` was replaced or modified in
-    place since it was built, else K1's weights folded and packed anew."""
-    key = tuple((t.data_ptr(), t._version) for t in state.values())
-    if cache is None or cache[0] != key:
+def _registered(*_) -> None:
+    global _registrations
+    _registrations += 1
+
+
+def _watch_registrations() -> None:
+    """Count registrations from now on; the hooks go in once a process."""
+    global _watching
+    if not _watching:
+        for hook in (module_hooks.register_module_parameter_registration_hook,
+                     module_hooks.register_module_buffer_registration_hook,
+                     module_hooks.register_module_module_registration_hook):
+            hook(_registered)
+        _watching = True
+
+
+def _slots(stack: Iterable[Tuple[str, nn.Module]]) -> list:
+    """Where the tensors of the named modules live, in `state_dict` order:
+    (state name, the owning module's parameter or buffer dict, the name in
+    it) for every parameter and persistent buffer. A stack's fold reads
+    these alone."""
+    slots = []
+    for prefix, root in stack:
+        for path, m in root.named_modules(prefix=prefix[:-1], remove_duplicate=False):
+            for tensors, skip in ((m._parameters, ()), (m._buffers, m._non_persistent_buffers_set)):
+                slots += [(f"{path}.{k}", tensors, k) for k, t in tensors.items()
+                          if t is not None and k not in skip]
+    return slots
+
+
+_version = operator.attrgetter("_version")
+
+
+def _key(slots: list) -> list:
+    """What a plan checks of its slots: each tensor's storage, then each
+    one's in-place version (KeyError where one was deleted)."""
+    held = [tensors[k] for _, tensors, k in slots]
+    return list(map(torch.Tensor.data_ptr, held)) + list(map(_version, held))
+
+
+class _Plan:
+    """K1's launch plan for one stack of a model: the stack folded and
+    packed (`packed` holds the op and its arguments), built from the
+    tensors at `slots` and kept while `holds`: no tensor there replaced or
+    modified in place (an optimizer step, a BatchNorm statistic,
+    `load_state_dict`, `.to()`), and no registration (`_registrations`)
+    that changed the stack's slots. A hit reads each slot's tensor from its
+    dict and compares its storage and version: no `state_dict` walk.
+
+    The first plan of a process installs torch.nn's global registration
+    hooks, so `_registrations` counts what any module of the process
+    registers, this model's or not. That is acceptable: modules register at
+    construction and on a replaced tensor or submodule, not in a scoring
+    loop, and a registration elsewhere costs a plan one walk of its stack
+    (the slots compare equal and the plan holds), never a rebuild."""
+
+    def __init__(self, stack: list, prefix: str, dtype: torch.dtype):
+        _watch_registrations()
+        self.slots, self.registrations = _slots(stack), _registrations
+        self.key = _key(self.slots)
         with torch.no_grad(), span("k1.fold"):
-            folded = stse_fused.fold_stse_params(
-                {k: t.detach() for k, t in state.items()}, dtype, prefix)
-            cache = (key, folded, stse_fused.pack_folded(folded))
-    return cache
+            self.folded = stse_fused.fold_stse_params(
+                {name: tensors[k].detach() for name, tensors, k in self.slots}, dtype, prefix)
+            self.packed = stse_fused.pack_folded(self.folded)
+        stse_fused.plan_builds.value += 1
+
+    def holds(self, stack: Callable[[], list]) -> bool:
+        """Whether the plan is still `stack()`'s, which is walked only after
+        a registration."""
+        if self.registrations != _registrations:
+            slots = _slots(stack())
+            if [(id(d), k) for _, d, k in slots] != [(id(d), k) for _, d, k in self.slots]:
+                return False
+            self.registrations = _registrations
+        try:
+            return _key(self.slots) == self.key
+        except KeyError:
+            return False
+
+
+def _with_parameters(x: torch.Tensor, *modules: Optional[nn.Module]) -> Iterator[torch.Tensor]:
+    """x, then the parameters of `modules`, read only as they are iterated."""
+    yield x
+    for m in modules:
+        if m is not None:
+            yield from m.parameters()
 
 
 def eval_uses_kernel(for_kernel: bool, tensors: Iterable[torch.Tensor]) -> bool:
@@ -91,7 +166,9 @@ def eval_uses_kernel(for_kernel: bool, tensors: Iterable[torch.Tensor]) -> bool:
     detached weights and writes a fresh tensor, so its latent carries no
     gradient; a call bound for K1 that autograd would record (grad mode on
     and x or a parameter requiring grad) raises rather than return a latent
-    cut from the graph. The module path stays differentiable."""
+    cut from the graph. The module path stays differentiable. `tensors` (x
+    and the parameters the route cuts, `_with_parameters`) is read only
+    under grad mode: under `no_grad` or `inference_mode` nothing is."""
     if not for_kernel:
         return False
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
@@ -210,8 +287,7 @@ class STSE(nn.Module):
         else:
             raise ValueError(f"Unsupported projector {projector!r}")
         self.dropout = dropout
-        self._fold_cache: Optional[Tuple[tuple, stse_fused.FoldedSTSE,
-                                         stse_fused.PackedSTSE]] = None
+        self._fold_cache: Optional[_Plan] = None  # the encoder's launch plan
         self._kernel_takes: Optional[bool] = None
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -244,11 +320,10 @@ class STSE(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """The encoder's hidden state on the forward's route: [B, T, V, H]
         from the module path, [B, T*V, H] from K1 (the same flatten)."""
-        if not train and eval_uses_kernel(
-                x.is_cuda and self.kernel_takes(),
-                [x, *(p for _, m in self._encoder_stack() for p in m.parameters())]):
-            folded, packed = self.folded()
-            return stse_fused.fused_stse_hidden(x.contiguous(), folded, packed)
+        if not train and eval_uses_kernel(x.is_cuda and self.kernel_takes(),
+                                          _with_parameters(x, self.encoder, self.btlnk)):
+            plan = self._plan("_fold_cache", self._encoder_stack, "encoder.")
+            return stse_fused.fused_stse_hidden(x.contiguous(), plan.folded, plan.packed)
         return self._module_hidden(x, train, frozen_bn, generator)
 
     def kernel_takes(self) -> bool:
@@ -264,12 +339,23 @@ class STSE(nn.Module):
 
     def folded(self) -> Tuple[stse_fused.FoldedSTSE, stse_fused.PackedSTSE]:
         """The kernel's folded and packed weights in the form of the compute
-        dtype, rebuilt only when a tensor the fold reads (`encoder.*`,
-        `btlnk.*`) was replaced or modified in place: a decoder or VAE head
-        update keeps the cache."""
-        self._fold_cache = _refold(self._fold_cache, _state(self._encoder_stack()), "encoder.",
-                                   self.dtype)
-        return self._fold_cache[1], self._fold_cache[2]
+        dtype, from the encoder's launch plan: rebuilt only when a tensor the
+        fold reads (`encoder.*`, `btlnk.*`) was replaced or modified in
+        place, so a decoder or VAE head update keeps it."""
+        plan = self._plan("_fold_cache", self._encoder_stack, "encoder.")
+        return plan.folded, plan.packed
+
+    def _plan(self, attr: str, stack: Callable[[], list], prefix: str) -> _Plan:
+        """The launch plan of the stack `stack()` (`prefix`), kept at `attr`:
+        the one there while it holds (`stse_fused.plan_hits`), else a new
+        one in the compute dtype's form."""
+        plan = getattr(self, attr)
+        if plan is not None and plan.holds(stack):
+            stse_fused.plan_hits.value += 1
+            return plan
+        plan = _Plan(stack(), prefix, self.dtype)
+        setattr(self, attr, plan)
+        return plan
 
     def _encoder_stack(self) -> list:
         """What K1's fold of the encoder reads (`stse_fused.fold_stse_params`)
@@ -308,19 +394,19 @@ class STSAE(STSE):
         channels = list(decoder_channels or list(layer_channels)[::-1]) + [input_dim]
         self.decoder = STSGCNStack(hidden_dimension, channels, n_frames, n_joints, use_bias,
                                    dtype, self.dropout)
-        self._decoder_fold_cache: Optional[Tuple[tuple, stse_fused.FoldedSTSE,
-                                                 stse_fused.PackedSTSE]] = None
+        self._decoder_fold_cache: Optional[_Plan] = None  # the decoder's launch plan
         self._decoder_kernel_takes: Optional[bool] = None
 
     def decoder_folded(self) -> Tuple[stse_fused.FoldedSTSE, stse_fused.PackedSTSE]:
         """K1's folded and packed weights of the decoder's stack in the form
-        of the compute dtype, rebuilt only when a `decoder.*` tensor was
-        replaced or modified in place: an encoder, head or reverse projector
-        update keeps the cache."""
-        self._decoder_fold_cache = _refold(self._decoder_fold_cache,
-                                           _state([("decoder.", self.decoder)]), "decoder.",
-                                           self.dtype)
-        return self._decoder_fold_cache[1], self._decoder_fold_cache[2]
+        of the compute dtype, from the decoder's launch plan: rebuilt only
+        when a `decoder.*` tensor was replaced or modified in place, so an
+        encoder, head or reverse projector update keeps it."""
+        plan = self._plan("_decoder_fold_cache", self._decoder_stack, "decoder.")
+        return plan.folded, plan.packed
+
+    def _decoder_stack(self) -> list:
+        return [("decoder.", self.decoder)]
 
     def decoder_kernel_takes(self) -> bool:
         """Whether the eval decode on the card runs K1: the planner of the
@@ -336,8 +422,7 @@ class STSAE(STSE):
         kernel's [B, T*V, C_in] output. `stse_fused.decoder_launches` adds
         the launches the op made (none for its CPU implementation)."""
         before = stse_fused.launches.value
-        h = getattr(torch.ops.coskad_torch, packed.op_name)(self.rev_btlnk.channel_major(z),
-                                                            *packed.op_args())
+        h = packed.op(self.rev_btlnk.channel_major(z), *packed.op_args)
         stse_fused.decoder_launches.value += stse_fused.launches.value - before
         return h.reshape(h.shape[0], self.n_frames, self.n_joints, h.shape[-1]).permute(
             0, 3, 1, 2)
@@ -351,9 +436,8 @@ class STSAE(STSE):
             return self.decoder(self.rev_btlnk(z), train=True, frozen_bn=frozen_bn,
                                 generator=dropout_generator).permute(0, 3, 1, 2)
         with span("eval.decode", profiled=False):
-            if eval_uses_kernel(
-                    z.is_cuda and self.decoder_kernel_takes(),
-                    itertools.chain((z,), self.rev_btlnk.parameters(), self.decoder.parameters())):
+            if eval_uses_kernel(z.is_cuda and self.decoder_kernel_takes(),
+                                _with_parameters(z, self.rev_btlnk, self.decoder)):
                 return self.k1_decode(z, self.decoder_folded()[1])
             return self.decoder(self.rev_btlnk(z)).permute(0, 3, 1, 2)
 

@@ -114,7 +114,7 @@ def test_decoder_fold_by_prefix_matches_the_module_decoder(dtype):
         else:
             assert torch.equal(stse_fused.fused_stse_hidden_bf16_reference(x, folded), want)
         assert torch.equal(stse_fused.fused_stse_hidden(x, folded, packed),
-                           getattr(torch.ops.coskad_torch, packed.op_name)(x, *packed.op_args()))
+                           packed.op(x, *packed.op_args))
 
 
 def test_the_encoder_fold_is_unchanged_by_the_prefix():

@@ -282,7 +282,7 @@ def folded_model(seed=0, **kw):
 @pytest.mark.parametrize("layers", [(8, 4, 8), (3,), (16, 16)])
 def test_unpack_inverts_pack(layers):
     folded, packed = folded_model(layer_channels=layers).folded()
-    back = stse_fused.unpack_packed(*packed.op_args())
+    back = stse_fused.unpack_packed(*packed.op_args)
     assert back.w_proj is None and back.b_proj is None
     assert len(back.layers) == len(folded.layers)
     for got, want in zip(back.layers, folded.layers):
@@ -296,10 +296,10 @@ def test_unpack_inverts_pack(layers):
 def test_custom_op_on_the_cpu_is_the_plain_version():
     folded, packed = folded_model(seed=2).folded()
     x = torch.from_numpy(windows(9, c=2))
-    got = torch.ops.coskad_torch.stse_fused_hidden(x, *packed.op_args())
+    got = torch.ops.coskad_torch.stse_fused_hidden(x, *packed.op_args)
     assert torch.equal(got, stse_fused.fused_stse_hidden_reference(x, folded))
     assert torch.equal(stse_fused.fused_stse_hidden(x, folded, packed), got)
-    torch.library.opcheck(stse_fused.stse_fused_hidden_op, (x, *packed.op_args()),
+    torch.library.opcheck(stse_fused.stse_fused_hidden_op, (x, *packed.op_args),
                           test_utils=("test_schema", "test_faketensor"))
 
 
@@ -307,7 +307,7 @@ def test_custom_op_fake_shape_and_export():
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     _, packed = folded_model(seed=3).folded()
-    weights, layout, n, npad = packed.op_args()
+    weights, layout, n, npad = packed.op_args
     with FakeTensorMode():
         out = torch.ops.coskad_torch.stse_fused_hidden(
             torch.empty(7, 2, 6, 5), torch.empty(weights.shape), layout, n, npad)

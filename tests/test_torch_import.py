@@ -45,8 +45,8 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
 
 
 def _python_sources():
-    paths = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "k1_variants.py",
-                                             "probe_variants.py")]
+    paths = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "k1_route_probe.py",
+                                             "k1_variants.py", "probe_variants.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "coskad_tpu_torch")):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(paths)

@@ -163,7 +163,7 @@ def test_bf16_fold_is_the_module_paths_weights_bit_for_bit():
             if mod.residual_dense is None:
                 assert torch.equal(lay.w_res, torch.eye(lay.w.shape[0]))
             assert torch.equal(lay.alpha, mod.prelu.alpha)
-    back = stse_fused.unpack_packed_bf16(*packed.op_args())
+    back = stse_fused.unpack_packed_bf16(*packed.op_args)
     for got, want in zip(back.layers, folded.layers):
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert [int(i) for i in packed.layout[:, 2]] == [0, 0, 1, 0]  # the identity residual
@@ -179,7 +179,7 @@ def test_bf16_op_on_the_cpu_is_the_module_paths_eval_hidden_state():
     counts = stse_fused.launches.value, stse_fused.bf16_launches.value
     with torch.no_grad():
         want = model.encode(x)[1].reshape(6, 20, 8)
-        got_op = torch.ops.coskad_torch.stse_fused_hidden_bf16(x, *packed.op_args())
+        got_op = torch.ops.coskad_torch.stse_fused_hidden_bf16(x, *packed.op_args)
         got = stse_fused.fused_stse_hidden(x, folded, packed)
     assert torch.equal(got_op, want) and torch.equal(got, want)
     assert (stse_fused.launches.value, stse_fused.bf16_launches.value) == counts

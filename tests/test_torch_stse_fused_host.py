@@ -83,7 +83,7 @@ def _run(host_kernel, x, packed, hidden):
     batch = x.shape[0]
     out = torch.full((batch, packed.n_nodes, hidden), float("nan"))
     layout = np.ascontiguousarray(packed.layout, np.int64)
-    rc = stse_fused._entry(host_kernel, packed, "forward")(
+    rc = stse_fused._entry(host_kernel, packed.dtype == torch.bfloat16, "forward")(
         x.data_ptr(), packed.weights.data_ptr(), layout.ctypes.data, len(layout), batch,
         packed.n_nodes, packed.n_pad, out.data_ptr(), None)
     assert rc == 0
@@ -157,6 +157,16 @@ def _autoencoder(dtype):
     return model.eval()
 
 
+def _on_the_host(monkeypatch, lib):
+    """`_launch` on the host emulation: `lib` for the kernel's library, a
+    CPU tensor's device taken as the current one, no stream."""
+    monkeypatch.setattr(stse_fused, "_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=None))
+
+
 @pytest.mark.parametrize("dtype,windows", [(torch.float32, 1), (torch.bfloat16, 2)])
 def test_host_run_of_the_decoder_stack_matches_the_module_decoder(host_kernel, dtype,
                                                                   windows):
@@ -199,10 +209,7 @@ def test_bf16_route_plan_and_launch_counters(host_kernel, monkeypatch):
     and 13 rings of 4 slices [16][24]. A launch through the wrapper (here on
     the host emulation) counts `launches` and `bf16_launches`; a float32
     launch counts `launches` alone."""
-    monkeypatch.setattr(stse_fused, "_library", lambda: host_kernel)
-    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device: types.SimpleNamespace(cuda_stream=None))
+    _on_the_host(monkeypatch, host_kernel)
     hrstc = _model(2, (32, 16, 32), 64, 12, 17, dtype=torch.bfloat16)
     assert hrstc.kernel_takes()
     assert stse_fused.occupancy(hrstc.folded()[1]) == dict(
@@ -213,7 +220,7 @@ def test_bf16_route_plan_and_launch_counters(host_kernel, monkeypatch):
         model = _model(8, (8, 4), 4, 5, 7, dtype=dtype)
         folded, packed = model.folded()
         before = stse_fused.launches.value, stse_fused.bf16_launches.value
-        out = stse_fused._launch(x, packed)
+        out = stse_fused._launch(x, *packed.op_args, dtype == torch.bfloat16)
         after = stse_fused.launches.value, stse_fused.bf16_launches.value
         assert (after[0] - before[0], after[1] - before[1]) == (1, int(dtype == torch.bfloat16))
         with torch.no_grad():
@@ -296,3 +303,56 @@ def test_eval_route_takes_the_module_path_where_the_planner_refuses(host_kernel,
     torch.testing.assert_close(z, refused.encode(x)[0], rtol=0, atol=0)
     z.sum().backward()
     assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["nine_layers", "wider_than_64"])
+def test_launch_leaves_the_layout_limits_to_the_planner(host_kernel, monkeypatch, case, dtype):
+    """`_launch` checks no layout limit of its own: a layout past them (9
+    layers; a layer of 80 channels) reaches the C entry, whose planner
+    refuses it before any launch, and raises with the planner's message;
+    nothing is counted. The planner is the CUDA source's, on the host."""
+    _on_the_host(monkeypatch, host_kernel)
+    _, packed = _model(*REFUSED[case][0], dtype=dtype).folded()
+    x = torch.randn(2, 2, 6, 5, generator=torch.Generator().manual_seed(3))
+    refusal = host_kernel.stse_fused_error_string(1).decode()  # cudaErrorInvalidValue
+    before = stse_fused.launches.value
+    with pytest.raises(RuntimeError, match=f"launch failed: {re.escape(refusal)}"):
+        stse_fused._launch(x, *packed.op_args, dtype == torch.bfloat16)
+    assert stse_fused.launches.value == before
+
+
+def _callers_fault(fault, x, weights):
+    """(x, weights) with one fault a caller can make."""
+    if fault == "x_dtype":
+        return x.double(), weights
+    if fault == "x_not_contiguous":
+        return x.transpose(2, 3).contiguous().transpose(2, 3), weights
+    if fault == "x_channels":
+        return x[:, :3].contiguous(), weights
+    if fault == "x_nodes":
+        return x[..., :6].contiguous(), weights
+    if fault == "weights_device":
+        return x, weights.to("meta")
+    if fault == "weights_dtype":
+        return x, weights.double()
+    return x, torch.cat([weights.new_zeros(1), weights])[1:]  # 4 bytes past an alignment
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fault", ["x_dtype", "x_not_contiguous", "x_channels", "x_nodes",
+                                   "weights_device", "weights_dtype", "weights_unaligned"])
+def test_launch_refuses_a_callers_fault_before_the_library(monkeypatch, fault, dtype):
+    """What a caller can get wrong (x's dtype, contiguity and shape, the
+    weights' device, dtype and alignment) raises ValueError in `_launch`
+    before the kernel's library is reached."""
+
+    def no_library():
+        raise AssertionError("the library was reached")
+
+    monkeypatch.setattr(stse_fused, "_library", no_library)
+    _, packed = _model(8, (8, 4), 4, 5, 7, dtype=dtype).folded()
+    weights, layout, n_nodes, n_pad = packed.op_args
+    x, weights = _callers_fault(fault, torch.randn(2, 8, 5, 7), weights)
+    with pytest.raises(ValueError):
+        stse_fused._launch(x, weights, layout, n_nodes, n_pad, dtype == torch.bfloat16)
